@@ -8,14 +8,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build: compile every kernel from nrhints_torch/csrc with nvcc (one nvcc
    per source, in parallel) and print each kernel's registers, shared
    memory and spills;
-3. kernels: run kernels A (SDF core), B (march round machinery) and C
-   (shadow final sweep) at the shapes of one 512-ray chunk of the full-width
-   nr-hints model, hold each against its plain PyTorch version on the same
-   inputs, and time both with CUDA events beside the kernel's bound;
-4. main path: render one 128x128 view of the nr-hints model (random
+3. kernels: run kernels A (SDF core), B (march round machinery), C
+   (shadow final sweep), D and E (the SDF stash op's forward and backward)
+   and F and G (the reflectance trunk's stash op) at the shapes of one
+   512-ray chunk or train step of the full-width model, hold each against
+   its plain PyTorch version on the same inputs, and time both with CUDA
+   events beside the kernel's bound;
+4. eval path: render one 128x128 view of the nr-hints model (random
    weights from a fixed seed) with Evaluator.render_image on the card,
    check the outputs and that every kernel's launch count moved, then
-   render 64 of its pixels on the CPU (plain versions) and compare.
+   render 64 of its pixels on the CPU (plain versions) and compare;
+5. train path: train the nr-hints-cam-opt model at full width on 512-ray
+   PixelSampler batches from 8 views of the procedural scene (3 warm-up
+   steps, 20 timed), check the loss, that the parameters moved and the
+   launches per step, profile one step, and hold one 64-ray step's
+   gradients on the card against the same step on the CPU.
 It prints a {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -40,11 +47,21 @@ H100_BYTES_PER_S = 3.35e12  # HBM3
 # (same comparisons, so z and sdf must match bit for bit); the draw sums in
 # the same order on both sides, so new_z differs only by exp/log/division
 # ulps.  C: as A, plus the bf16 activations between layers.
-TOL = {"sdf_core_fwd": 1e-2, "round_machinery": 1e-4, "shadow_final": 1e-2}
+# D and F: as A.  E and G: each gradient against its own scale; the
+# backward chains twice as many bf16-operand products as the forward, and
+# the dW sums over the points run in another order.
+TOL = {"sdf_core_fwd": 1e-2, "round_machinery": 1e-4, "shadow_final": 1e-2, "sdf_stash_fwd": 1e-2,
+       "sdf_stash_bwd": 2e-2, "mlp_stash_fwd": 1e-2, "mlp_stash_bwd": 2e-2}
 # The CPU re-render of 64 pixels runs every plain version on the host: its
 # march sweeps and core sum in other orders, so bf16 rounding flips move a
 # few samples; the composite absorbs that to well below these bounds.
 CPU_TOL = {"rgb": 2e-2, "depth": 2e-2, "shadow_map": 2e-2}
+# The 64-ray train step on the card against the CPU, every gradient leaf
+# against its own scale: the kernels and the plain versions sum in other
+# orders, so bf16 rounding flips (and a few march samples they move) shift
+# each gradient by a few per cent of its largest entry at most.
+GRAD_TOL = 5e-2
+TRAIN_STEPS, TRAIN_WARMUP = 20, 3
 
 
 def log(msg: str) -> None:
@@ -78,6 +95,24 @@ def max_err(kernel_outs, plain_outs) -> tuple[float, float]:
     return abs_e, rel_e
 
 
+def grad_err(kernel_outs, plain_outs) -> tuple[float, float]:
+    """(max abs error, max over outputs of error / max |plain|): gradients
+    are compared against their own scale, which can be far below 1."""
+    abs_e = rel_e = 0.0
+    for k, p in zip(kernel_outs, plain_outs):
+        e = (k.float() - p.float()).abs().max().item()
+        abs_e = max(abs_e, e)
+        rel_e = max(rel_e, e / max(p.abs().max().item(), 1e-30))
+    return abs_e, rel_e
+
+
+def tree_to(tree, dev):
+    """A detached copy of a nested dict of tensors on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.detach().clone().to(dev)
+
+
 def bound(flops: float, bytes_: float, peak_flops: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / peak_flops * 1e3, bytes_ / H100_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -107,17 +142,19 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO))
     from nrhints_torch.camera.model import CameraModel
-    from nrhints_torch.camera.rays import generate_rays
-    from nrhints_torch.configs.config import nr_hints
+    from nrhints_torch.camera.rays import generate_rays, ray_generator_init
+    from nrhints_torch.configs.config import nr_hints, nr_hints_cam_opt
     from nrhints_torch.core.sampling import linspace01, stratified_z_vals, transmittance
     from nrhints_torch.core.structs import PixelBundle
-    from nrhints_torch.data.synthetic import look_at_pose
+    from nrhints_torch.data.sampler import PixelSampler
+    from nrhints_torch.data.synthetic import look_at_pose, scene_views
     from nrhints_torch.eval.evaluator import Evaluator
     from nrhints_torch.fields.sdf import _layer_dims
     from nrhints_torch.fields.variance import inv_s_from_params
-    from nrhints_torch.kernels import core_mlp, cuda_lib, march
+    from nrhints_torch.kernels import core_mlp, core_stash, cuda_lib, march
     from nrhints_torch.render.renderer import _neus_alpha, init_model_params
-    from nrhints_torch.utils import resolve_device
+    from nrhints_torch.train.step import init_train_state, loss_and_grads, make_optimizer, make_train_step
+    from nrhints_torch.utils import resolve_device, tree_items
 
     # 1. Device.
     dev = resolve_device("cuda")
@@ -246,6 +283,87 @@ def main() -> int:
     if not c_rel <= TOL["shadow_final"]:
         raise AssertionError(f"kernel C disagrees with its plain version: rel {c_rel:.3e}")
 
+    # D and E: the SDF stash op on the same 65,536 points (one train step's
+    # core call), E at random cotangents of (sdf, feat, grad).
+    n_pts, n_w = x.shape[0], sum(w.numel() for w in aw)
+    d_feat, d_last = scfg.d_out_feat, dims[-2]
+    cols = core_stash.sdf_stash_columns(scfg)
+    d_out = core_stash.sdf_stash_fwd(aw, x, scfg)
+    if not all(torch.equal(a, b) for a, b in zip(d_out[:3], k_out)):
+        raise AssertionError("kernel D's outputs differ from kernel A's")
+    d_plain = core_stash.sdf_core_fwd_hs_plain(aw, x, scfg, "bfloat16", "bfloat16")
+    d_abs, d_rel = max_err([*d_out[:3], *core_stash.split_stash(d_out[3], cols)], [*d_plain[:3], *d_plain[3]])
+    d_ms = cuda_ms(lambda: core_stash.sdf_stash_fwd(aw, x, scfg), 10)
+    d_plain_ms = cuda_ms(lambda: core_stash.sdf_core_fwd_hs_plain(aw, x, scfg, "bfloat16", "bfloat16"), 3, warmup=1)
+    gt = d_out[3].shape[1]
+    d_bound, d_by = bound(a_flops, n_pts * (4 * (3 + 1 + d_feat + 3) + 2 * gt) + 2 * n_w, H100_BF16_FLOPS)
+    log(f"[kernel D] sdf_stash_fwd: N={n_pts}, outputs equal kernel A's, max abs err {d_abs:.3e} (rel {d_rel:.3e}), "
+        f"{d_ms:.4f} ms, plain {d_plain_ms:.4f} ms, bound {d_bound:.4f} ms ({d_by})")
+    if not d_rel <= TOL["sdf_stash_fwd"]:
+        raise AssertionError(f"kernel D disagrees with its plain version: rel {d_rel:.3e}")
+
+    crng = np.random.default_rng(5)
+    cots = tuple(torch.tensor(crng.normal(size=shape).astype(np.float32), device=dev)
+                 for shape in ((n_pts,), (n_pts, d_feat), (n_pts, 3)))
+    e_dws, e_dx = core_stash.sdf_stash_bwd(aw, x, d_out[3], cots, scfg)
+    e2_dws, e2_dx = core_stash.sdf_stash_bwd(aw, x, d_out[3], cots, scfg)
+    if not (torch.equal(e_dx, e2_dx) and all(torch.equal(a, b) for a, b in zip(e_dws, e2_dws))):
+        raise AssertionError("kernel E's gradients differ between two runs")
+    p_dws, p_dx = core_stash.sdf_core_bwd_stash_plain(aw, x, core_stash.split_stash(d_out[3], cols), cots, scfg,
+                                                     "bfloat16")
+    e_abs, e_rel = grad_err([e_dx, *e_dws], [p_dx, *p_dws])
+    e_ms = cuda_ms(lambda: core_stash.sdf_stash_bwd(aw, x, d_out[3], cots, scfg), 10)
+    e_plain_ms = cuda_ms(lambda: core_stash.sdf_core_bwd_stash_plain(
+        aw, x, core_stash.split_stash(d_out[3], cols), cots, scfg, "bfloat16"), 3, warmup=1)
+    # Multiply-adds per point: the recomputed reverse sweep, the sweep's VJP,
+    # the z-chain and the two dW halves (5 x hidden), the feature head's
+    # VJP and dW, and the sdf head's two columns.
+    e_flops = 2.0 * n_pts * (5 * hidden + 2 * d_last * d_feat + 2 * d_last)
+    e_bytes = n_pts * (2 * gt + 4 * (3 + 1 + d_feat + 3) + 4 * 3) + 2 * n_w + 4 * n_w
+    e_bound, e_by = bound(e_flops, e_bytes, H100_BF16_FLOPS)
+    log(f"[kernel E] sdf_stash_bwd: N={n_pts}, repeats bit for bit, max abs err {e_abs:.3e} (rel to each gradient "
+        f"{e_rel:.3e}), {e_ms:.4f} ms, plain {e_plain_ms:.4f} ms, bound {e_bound:.4f} ms ({e_by}, "
+        f"{e_flops / 1e9:.1f} GFLOP)")
+    if not e_rel <= TOL["sdf_stash_bwd"]:
+        raise AssertionError(f"kernel E disagrees with its plain version: rel {e_rel:.3e}")
+
+    # F and G: the reflectance trunk on 65,536 points of random 361-wide
+    # inputs, G at a random cotangent of its 3 outputs.
+    n_lay = mcfg.reflectance_network.n_layers
+    tw = core_mlp.materialize_mlp_weights(renderer_params["color"], n_lay)
+    d_tin, n_tw = tw[0].shape[0], sum(w.numel() for w in tw)
+    trng = np.random.default_rng(6)
+    xt = torch.tensor(trng.normal(size=(n_pts, d_tin)).astype(np.float32), device=dev)
+    gt_out = torch.tensor(trng.normal(size=(n_pts, 3)).astype(np.float32), device=dev)
+    mcols = core_stash.mlp_stash_columns(core_stash.pack_mlp(tw, n_lay))
+    f_out, f_zs = core_stash.mlp_stash_fwd(tw, xt, n_lay)
+    fp_out, fp_zs = core_stash.mlp_relu_fwd_zs_plain(tw, xt, n_lay, "bfloat16", "bfloat16")
+    f_abs, f_rel = max_err([f_out, *core_stash.split_stash(f_zs, mcols)], [fp_out, *fp_zs])
+    f_ms = cuda_ms(lambda: core_stash.mlp_stash_fwd(tw, xt, n_lay), 10)
+    f_plain_ms = cuda_ms(lambda: core_stash.mlp_relu_fwd_zs_plain(tw, xt, n_lay, "bfloat16", "bfloat16"), 3, warmup=1)
+    trunk_macs = sum(w.shape[0] * w.shape[1] for w in tw[0::2])
+    zt = f_zs.shape[1]
+    f_bound, f_by = bound(2.0 * n_pts * trunk_macs, n_pts * (4 * d_tin + 2 * zt + 4 * 3) + 2 * n_tw, H100_BF16_FLOPS)
+    log(f"[kernel F] mlp_stash_fwd: N={n_pts}, max abs err {f_abs:.3e} (rel {f_rel:.3e}), {f_ms:.4f} ms, "
+        f"plain {f_plain_ms:.4f} ms, bound {f_bound:.4f} ms ({f_by})")
+    if not f_rel <= TOL["mlp_stash_fwd"]:
+        raise AssertionError(f"kernel F disagrees with its plain version: rel {f_rel:.3e}")
+    g_dws, g_dx = core_stash.mlp_stash_bwd(tw, xt, f_zs, gt_out, n_lay)
+    gp_dws, gp_dx = core_stash.mlp_relu_bwd_stash_plain(tw, xt, core_stash.split_stash(f_zs, mcols), gt_out, n_lay,
+                                                        "bfloat16")
+    g_abs, g_rel = grad_err([g_dx, *g_dws], [gp_dx, *gp_dws])
+    g_ms = cuda_ms(lambda: core_stash.mlp_stash_bwd(tw, xt, f_zs, gt_out, n_lay), 10)
+    g_plain_ms = cuda_ms(lambda: core_stash.mlp_relu_bwd_stash_plain(
+        tw, xt, core_stash.split_stash(f_zs, mcols), gt_out, n_lay, "bfloat16"), 3, warmup=1)
+    g_bytes = n_pts * (4 * d_tin + 2 * zt + 4 * 3 + 4 * d_tin) + 2 * n_tw + 4 * n_tw
+    g_bound, g_by = bound(4.0 * n_pts * trunk_macs, g_bytes, H100_BF16_FLOPS)
+    log(f"[kernel G] mlp_stash_bwd: N={n_pts}, max abs err {g_abs:.3e} (rel to each gradient {g_rel:.3e}), "
+        f"{g_ms:.4f} ms, plain {g_plain_ms:.4f} ms, bound {g_bound:.4f} ms ({g_by})")
+    if not g_rel <= TOL["mlp_stash_bwd"]:
+        raise AssertionError(f"kernel G disagrees with its plain version: rel {g_rel:.3e}")
+    del d_out, d_plain, e_dws, e_dx, e2_dws, e2_dx, p_dws, p_dx, f_zs, fp_zs, g_dws, g_dx, gp_dws, gp_dx
+    torch.cuda.empty_cache()
+
     # 4. Main path: one 128x128 view through Evaluator.render_image.
     hh, ww = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
     view = PixelBundle(
@@ -261,7 +379,8 @@ def main() -> int:
     secs = time.perf_counter() - t0
     launches = dict(cuda_lib.launch_counts)
     n_chunks = -(-H * W // mcfg.inference_chunk_size)
-    expected = {"sdf_core_fwd": n_chunks, "round_machinery": 10 * n_chunks, "shadow_final": n_chunks}
+    expected = {k: 0 for k in cuda_lib.launch_counts}
+    expected.update(sdf_core_fwd=n_chunks, round_machinery=10 * n_chunks, shadow_final=n_chunks)
     log(f"[main path] {H}x{W} view: {secs:.4f} s, {H * W / secs:.1f} rays/s on {smi}; launches {launches}")
     channels = {"rgb": 3, "depth": 1, "normal": 3, "normalized_normal": 3, "shadow_map": 1,
                 "specular_hint": len(mcfg.renderer.specular_roughness)}
@@ -280,7 +399,9 @@ def main() -> int:
         f"{img['shadow_map'].max():.4f}], depth range [{img['depth'].min():.4f}, {img['depth'].max():.4f}]")
 
     # Where the time of one view goes: a second render under torch.profiler,
-    # device time by kernel group, and the device's idle share of the wall.
+    # device time by kernel group, and the device's idle share of the
+    # unprofiled wall (the profiled wall carries the profiler's own host
+    # overhead, so its idle share overstates the host's).
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -300,7 +421,8 @@ def main() -> int:
         groups[g] = groups.get(g, 0.0) + us / 1e3
     busy = sum(groups.values())
     if busy > 0:
-        log(f"[profile] one view: wall {prof_wall:.1f} ms, device busy {busy:.1f} ms, idle share {1 - busy / prof_wall:.3f}")
+        log(f"[profile] one view: device busy {busy:.1f} ms; idle share {1 - busy / (secs * 1e3):.3f} of the "
+            f"unprofiled view ({secs * 1e3:.1f} ms), {1 - busy / prof_wall:.3f} of the profiled wall ({prof_wall:.1f} ms)")
         for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
             log(f"[profile]   {g}: {ms:.2f} ms ({ms / busy:.3f} of device time)")
     else:
@@ -321,6 +443,119 @@ def main() -> int:
         if not e <= tol:
             raise AssertionError(f"CPU and card renders disagree on {k}: {e:.3e}")
 
+    # 5. Train path: nr-hints-cam-opt at full width, 512-ray batches of 8
+    # procedural views, through make_train_step.
+    tcfg = nr_hints_cam_opt()
+    n_views = 8
+    sc = scene_views(n_views, H, W, seed=0)
+    tcam = CameraModel(H, W, W / 2.0, H / 2.0, sc["focal"], sc["focal"], 0.1, 6.0)
+    tgen = torch.Generator().manual_seed(0)
+    tparams = {"renderer": init_model_params(tcfg.model, tgen, device=dev)}
+    tparams["raygen"], tbuffers = ray_generator_init(tgen, tcfg.ray_generator, n_views, device=dev)
+    start = {name: t.detach().clone() for name, t in tree_items(tparams)}
+    opt = make_optimizer(tcfg, tparams)
+    state = init_train_state(tparams, opt)
+    step_fn = make_train_step(tcfg, tcam, tbuffers, opt)
+    sampler = PixelSampler(n_views, H, W, tcfg.model.batch_size)
+    images, poses, pls_v = (torch.tensor(sc[k], device=dev) for k in ("images", "poses", "pls"))
+
+    def next_batch(n_rays=None):
+        s_ = sampler.sample_batch()
+        img, hi, wi = (torch.as_tensor(a[:n_rays], device=dev) for a in (s_.img_indices, s_.h_indices, s_.w_indices))
+        return PixelBundle(h_indices=hi.float(), w_indices=wi.float(), poses=poses[img], pls=pls_v[img],
+                           img_indices=img, rgb_gt=images[img, hi, wi])
+
+    step_gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(TRAIN_WARMUP):
+        state, metrics = step_fn(state, next_batch(), step_gen)
+    batches = [next_batch() for _ in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for b in batches[:TRAIN_STEPS]:
+        state, metrics = step_fn(state, b, step_gen)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    train_launches = dict(cuda_lib.launch_counts)
+    per_step = {k: 0 for k in cuda_lib.launch_counts}
+    per_step.update(round_machinery=10, shadow_final=1, sdf_stash_fwd=1, sdf_stash_bwd=1, mlp_stash_fwd=1,
+                    mlp_stash_bwd=1)
+    losses = [float(v) for v in losses]
+    log(f"[train path] nr-hints-cam-opt, {tcfg.model.batch_size} rays/step: {step_s:.5f} s/step, "
+        f"{tcfg.model.batch_size / step_s:.1f} train rays/s on {smi}; loss {losses[0]:.5f} -> {losses[-1]:.5f}, "
+        f"psnr {float(metrics['psnr']):.3f}; launches over {TRAIN_STEPS} steps {train_launches}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if train_launches != {k: v * TRAIN_STEPS for k, v in per_step.items()}:
+        raise AssertionError(f"train launch counts {train_launches}, expected {per_step} per step")
+    moved = {group: any(not torch.equal(t.detach(), start[name]) for name, t in tree_items(tparams)
+                        if name.startswith(f"/{group}/")) for group in ("renderer", "raygen")}
+    if not all(moved.values()):
+        raise AssertionError(f"parameters did not move: {moved}")
+    n_moved = sum(not torch.equal(t.detach(), start[name]) for name, t in tree_items(tparams))
+    log(f"[train path] {n_moved} of {len(start)} parameter leaves moved, raygen's pose deltas included")
+
+    # Where the time of one step goes: one more step under torch.profiler;
+    # the idle share is taken against the unprofiled step, as for the view.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batches[TRAIN_STEPS], step_gen)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    tgroups: dict[str, float] = {}
+    names = (("sdf_core_fwd_kernel<true>", "kernel D sdf_stash_fwd"), ("sdf_stash_bwd", "kernel E sdf_stash_bwd (E1)"),
+             ("mlp_stash_fwd", "kernel F mlp_stash_fwd"), ("mlp_stash_bwd", "kernel G mlp_stash_bwd (G1)"),
+             ("dw_partial", "E2 + G2 dW passes"), ("dw_reduce", "E2 + G2 dW passes"),
+             ("colsum", "E2 + G2 dW passes"), ("round_machinery", "kernel B round_machinery"),
+             ("shadow_final", "kernel C shadow_final"), ("sdf_core_fwd_kernel<false>", "kernel A sdf_core_fwd"))
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.key
+        g = next((label for key, label in names if key in name), None)
+        if g is None:
+            low = name.lower()
+            g = "matmul (cuBLAS)" if ("gemm" in low or "cutlass" in low) else "other PyTorch kernels"
+        tgroups[g] = tgroups.get(g, 0.0) + us / 1e3
+    tbusy = sum(tgroups.values())
+    if tbusy > 0:
+        log(f"[profile] one train step: device busy {tbusy:.2f} ms; idle share {1 - tbusy / (step_s * 1e3):.3f} of "
+            f"the unprofiled step ({step_s * 1e3:.2f} ms), {1 - tbusy / prof_wall:.3f} of the profiled wall "
+            f"({prof_wall:.2f} ms)")
+        for g, ms in sorted(tgroups.items(), key=lambda kv: -kv[1]):
+            log(f"[profile]   {g}: {ms:.3f} ms ({ms / tbusy:.3f} of device time)")
+    else:
+        log("[profile] the profiler recorded no device time: breakdown not measured")
+
+    # One 64-ray step from the trained state on the card and on the CPU
+    # (plain versions), the same pixels and uniforms: every gradient leaf.
+    b64 = next_batch(64)
+    urng = np.random.default_rng(7)
+    u64 = {"strat": urng.random((64, 1), dtype=np.float32),
+           "shadow": urng.random((64, tcfg.model.renderer.n_shadow_samples), dtype=np.float32)}
+    grads = {}
+    for where in ("cuda", "cpu"):
+        p_ = tree_to(state.params, where)
+        st = init_train_state(p_, make_optimizer(tcfg, p_))
+        st.step = state.step
+        bt = PixelBundle(**{f: getattr(b64, f).to(where) for f in ("h_indices", "w_indices", "poses", "pls",
+                                                                   "img_indices", "rgb_gt")})
+        m_ = loss_and_grads(st, tcfg, tcam, tree_to(tbuffers, where), bt,
+                            uniforms={k: torch.tensor(v, device=where) for k, v in u64.items()})
+        grads[where] = ({name: t.grad.detach().cpu() for name, t in tree_items(p_)}, float(m_["loss"]))
+    worst, worst_leaf = 0.0, ""
+    for name, g in grads["cpu"][0].items():
+        e = (grads["cuda"][0][name] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+        if e > worst:
+            worst, worst_leaf = e, name
+    log(f"[train path] 64-ray step, card vs CPU plain: loss {grads['cuda'][1]:.6f} vs {grads['cpu'][1]:.6f}; "
+        f"worst gradient leaf {worst_leaf}: {worst:.3e} of its scale (tol {GRAD_TOL}) over {len(grads['cpu'][0])} leaves")
+    if not worst <= GRAD_TOL:
+        raise AssertionError(f"card and CPU gradients disagree: {worst_leaf} {worst:.3e}")
+
     kernels = [
         {"name": "sdf_core_fwd", "route": "cuda", "source": "nrhints_torch/csrc/sdf_core.cu",
          "replaces": "nrhints_tpu/kernels/core_mlp.py:227", "launches": launches["sdf_core_fwd"],
@@ -333,6 +568,22 @@ def main() -> int:
         {"name": "shadow_final", "route": "cuda", "source": "nrhints_torch/csrc/march.cu",
          "replaces": "nrhints_tpu/kernels/march.py:574", "launches": launches["shadow_final"],
          "max_abs_err": c_abs, "ms": c_ms, "plain_ms": c_plain_ms, "bound_ms": c_bound, "bound_by": c_by,
+         "library_ms": None},
+        {"name": "sdf_stash_fwd", "route": "cuda", "source": "nrhints_torch/csrc/sdf_core.cu",
+         "replaces": "nrhints_tpu/kernels/core_stash.py:369", "launches": train_launches["sdf_stash_fwd"],
+         "max_abs_err": d_abs, "ms": d_ms, "plain_ms": d_plain_ms, "bound_ms": d_bound, "bound_by": d_by,
+         "library_ms": None},
+        {"name": "sdf_stash_bwd", "route": "cuda", "source": "nrhints_torch/csrc/sdf_stash.cu",
+         "replaces": "nrhints_tpu/kernels/core_stash.py:422", "launches": train_launches["sdf_stash_bwd"],
+         "max_abs_err": e_abs, "ms": e_ms, "plain_ms": e_plain_ms, "bound_ms": e_bound, "bound_by": e_by,
+         "library_ms": None},
+        {"name": "mlp_stash_fwd", "route": "cuda", "source": "nrhints_torch/csrc/mlp_stash.cu",
+         "replaces": "nrhints_tpu/kernels/core_stash.py:588", "launches": train_launches["mlp_stash_fwd"],
+         "max_abs_err": f_abs, "ms": f_ms, "plain_ms": f_plain_ms, "bound_ms": f_bound, "bound_by": f_by,
+         "library_ms": None},
+        {"name": "mlp_stash_bwd", "route": "cuda", "source": "nrhints_torch/csrc/mlp_stash.cu",
+         "replaces": "nrhints_tpu/kernels/core_stash.py:622", "launches": train_launches["mlp_stash_bwd"],
+         "max_abs_err": g_abs, "ms": g_ms, "plain_ms": g_plain_ms, "bound_ms": g_bound, "bound_by": g_by,
          "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))

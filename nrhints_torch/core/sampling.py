@@ -1,8 +1,12 @@
-"""Ray-sampling primitives the eval path needs (port of parts of
-``nrhints_tpu/core/sampling.py``): deterministic stratified samples and
-the exclusive transmittance.  The jittered and non-fused samplers
-(``perturb_z_vals_within_bins``, ``sample_pdf``, ``neus_up_sample``,
-``merge_z_vals``) come with the training slice."""
+"""Ray-sampling primitives of the render and train paths (port of parts of
+``nrhints_tpu/core/sampling.py``): stratified samples with their optional
+jitter, the in-bin jitter of shadow rays, and the exclusive transmittance.
+The non-fused samplers (``sample_pdf``, ``neus_up_sample``,
+``merge_z_vals``) belong to the unfused path, a later slice.
+
+Jitter takes its uniforms in [0, 1) either explicitly (``u=``, so a test
+can hand both packages the same numbers) or drawn from a
+``torch.Generator`` on the tensors' device."""
 from __future__ import annotations
 
 import torch
@@ -14,10 +18,42 @@ def linspace01(n: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
     return torch.arange(n, dtype=dtype, device=device) * (1.0 / (n - 1))
 
 
-def stratified_z_vals(nears: torch.Tensor, fars: torch.Tensor, n_samples: int) -> torch.Tensor:
-    """Uniform z in [near, far] -> [B, n] (the eval branch: no jitter)."""
+def _uniforms(shape, like: torch.Tensor, u: torch.Tensor | None, generator: torch.Generator | None):
+    if u is not None:
+        if tuple(u.shape) != tuple(shape):
+            raise ValueError(f"uniforms of shape {tuple(shape)} expected, got {tuple(u.shape)}")
+        return u.to(dtype=like.dtype, device=like.device)
+    return torch.rand(shape, generator=generator, dtype=like.dtype, device=like.device)
+
+
+def stratified_z_vals(
+    nears: torch.Tensor,
+    fars: torch.Tensor,
+    n_samples: int,
+    *,
+    jitter: bool = False,
+    u: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """Uniform z in [near, far] -> [B, n]; with ``jitter``, every ray moves
+    by one shared offset of (u - 0.5) sample widths, u [B, 1]."""
     t = linspace01(n_samples, nears.dtype, nears.device)
-    return nears + (fars - nears) * t[None, :]
+    z_vals = nears + (fars - nears) * t[None, :]
+    if jitter:
+        t_rand = _uniforms((z_vals.shape[0], 1), z_vals, u, generator) - 0.5
+        z_vals = z_vals + t_rand * 2.0 / n_samples
+    return z_vals
+
+
+def perturb_z_vals_within_bins(
+    z_vals: torch.Tensor, *, u: torch.Tensor | None = None, generator: torch.Generator | None = None
+) -> torch.Tensor:
+    """Independent jitter of every sample inside its interval between the
+    neighbouring mid-points; u has the shape of ``z_vals``."""
+    mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
+    lower = torch.cat([z_vals[..., :1], mids], dim=-1)
+    return lower + (upper - lower) * _uniforms(z_vals.shape, z_vals, u, generator)
 
 
 def transmittance(alpha: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-// Kernel A: the no-grad fused SDF core, sdf_core_fwd.
+// Kernels A and D: the fused SDF core, sdf_core_fwd (no gradient) and
+// sdf_stash_fwd (the forward of the with-gradient stash op).
 //
-// Replaces: nrhints_tpu/kernels/core_mlp.py::_sdf_core_fwd_pallas (the
+// A replaces: nrhints_tpu/kernels/core_mlp.py::_sdf_core_fwd_pallas (the
 // pallas_call at :241), whose body is sdf_core_ref (:71) with
 // compute_dtype="bfloat16".  For N points: frequency encoding of 3x (L=6,
 // 39 channels), an 8x256 softplus(100) MLP with a skip concat x 1/sqrt(2)
@@ -9,11 +10,17 @@
 // Only the dot operands are bf16; activations, gates and accumulation are
 // f32, as in the reference.
 //
+// D replaces: nrhints_tpu/kernels/core_stash.py::_sdf_stash_fwd_pallas (the
+// pallas_call at :399): A's outputs, bit for bit, plus every layer's
+// activation h_i rounded to bf16 into a packed stash [N, sum of the
+// 16-padded layer widths] that kernel E (sdf_stash.cu) reads.  It is A's
+// code with one more store per layer (STASH = true).
+//
 // Bound on an H100: about 0.98 M multiply-adds per point (524,544 forward,
 // 458,752 reverse) = 1.97 MFLOP, so 129 GFLOP per 512-ray chunk of 65,536
 // points: 0.130 ms at 989 TFLOP/s bf16.  Its outputs (sdf, 256 feature
-// floats, 3 gradient floats per point) are 68 MB, 0.020 ms at 3.35 TB/s.
-// It is bound by operations.
+// floats, 3 gradient floats per point) are 68 MB, 0.020 ms at 3.35 TB/s;
+// D adds 264 MB of stash, 0.079 ms.  Both are bound by operations.
 //
 // Design.  The reverse sweep needs every layer's gate for every point:
 // 2,016 f32 per point at full width.  On the TPU they sat in VMEM for a
@@ -43,11 +50,13 @@ size_t smem_bytes(const SdfMeta& m) {
          2 * TP * kEncMax * sizeof(float) + (size_t)TP * m.gates_total * sizeof(float);
 }
 
+template <bool STASH>
 __global__ void __launch_bounds__(NTHREADS)
     sdf_core_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ wpack,
                         const float* __restrict__ bpack, const float* __restrict__ w_sdf,
                         float* __restrict__ sdf_out, float* __restrict__ feat_out,
-                        float* __restrict__ gx_out, int n, const SdfMeta m, float scale) {
+                        float* __restrict__ gx_out, bf16* __restrict__ stash, int n, const SdfMeta m,
+                        float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* act0 = reinterpret_cast<bf16*>(smem);
   bf16* act1 = act0 + TP * kLdA;
@@ -91,13 +100,13 @@ __global__ void __launch_bounds__(NTHREADS)
     const float* b = bpack + m.b_off[i];
     for (int idx = tid; idx < TP * np; idx += NTHREADS) {
       const int p = idx / np, c = idx % np;
-      float gate = 0.0f;
+      float gate = 0.0f, sp = 0.0f;
       if (c < out) {
-        float sp;
         softplus100_gate(Z[p * kLdZ + c] + b[c], &sp, &gate);
         a_out[p * kLdA + c] = to_bf16(next_skip ? sp * kInvSqrt2 : sp);
       }
       gates[p * GT + goff + c] = gate;
+      if (STASH && p0 + p < n) stash[(size_t)(p0 + p) * GT + goff + c] = to_bf16(sp);
     }
     // Columns past this layer's output: the skip layer's encoding half
     // (x 1/sqrt2), then zeros up to the next padded width.
@@ -183,23 +192,35 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-}  // namespace
-
-extern "C" int sdf_core_fwd(const float* x, const void* wpack, const float* bpack,
-                            const float* w_sdf, float* sdf, float* feat, float* gx, int n,
-                            const int* meta, float scale, void* stream) {
+template <bool STASH>
+int launch_fwd(const float* x, const void* wpack, const float* bpack, const float* w_sdf, float* sdf,
+               float* feat, float* gx, void* stash, int n, const int* meta, float scale, void* stream) {
   SdfMeta m;
   int rc = parse_meta(meta, &m);
   if (rc) return rc;
   if (n <= 0) return 0;
   const size_t smem = smem_bytes(m);
-  rc = (int)cudaFuncSetAttribute(sdf_core_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
+  rc = (int)cudaFuncSetAttribute(sdf_core_fwd_kernel<STASH>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc) return rc;
   const int grid = (n + TP - 1) / TP;
-  sdf_core_fwd_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      x, (const bf16*)wpack, bpack, w_sdf, sdf, feat, gx, n, m, scale);
+  sdf_core_fwd_kernel<STASH><<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
+      x, (const bf16*)wpack, bpack, w_sdf, sdf, feat, gx, (bf16*)stash, n, m, scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int sdf_core_fwd(const float* x, const void* wpack, const float* bpack,
+                            const float* w_sdf, float* sdf, float* feat, float* gx, int n,
+                            const int* meta, float scale, void* stream) {
+  return launch_fwd<false>(x, wpack, bpack, w_sdf, sdf, feat, gx, nullptr, n, meta, scale, stream);
+}
+
+extern "C" int sdf_stash_fwd(const float* x, const void* wpack, const float* bpack,
+                             const float* w_sdf, float* sdf, float* feat, float* gx, void* stash,
+                             int n, const int* meta, float scale, void* stream) {
+  return launch_fwd<true>(x, wpack, bpack, w_sdf, sdf, feat, gx, stash, n, meta, scale, stream);
 }
 
 extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

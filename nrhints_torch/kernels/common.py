@@ -34,6 +34,12 @@ def softplus100_gate(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return sp, gate
 
 
+def gate_from_h(h: torch.Tensor) -> torch.Tensor:
+    """sigmoid(100 z) recovered from h = softplus(100 z)/100, elementwise:
+    1 - exp(-100 h) (``core_stash.py::_gate_from_h``)."""
+    return 1.0 - torch.exp(-100.0 * h)
+
+
 def dot(x: torch.Tensor, w: torch.Tensor, compute_dtype: str) -> torch.Tensor:
     """``x @ w`` with f32 accumulation; ``compute_dtype="bfloat16"`` rounds
     both operands to bf16 first (the products of two bf16 values are exact

@@ -1,0 +1,504 @@
+"""The activation-stashing core ops of the train path: kernels D, E, F and
+G, their plain versions and their ``torch.autograd.Function``s (port of
+``nrhints_tpu/kernels/core_stash.py``).
+
+The SDF op's forward (kernel D, ``csrc/sdf_core.cu``) is kernel A plus a
+bf16 stash of every layer's activation h_i.  Its backward (kernel E,
+``csrc/sdf_stash.cu``) reads the stash instead of recomputing the forward
+chain, and assembles the VJP of (sdf, feat, grad_x sdf) by hand:
+
+    f(ws, x) = Tail(g_enc, x)   with   hs    = Fwd(ws, x)
+                                       g_enc = RevSweep(ws, hs)
+                                       sdf, feat = Heads(ws, h_L)
+
+The reverse sweep's values u_i and g_enc are recomputed from the stashed h
+(the gates are 1 - exp(-100 h)); the VJP of the sweep runs in ascending
+layer order and carries the eikonal loss's second-order terms; the heads
+and the forward z-chain follow (``sdf_core_bwd_stash_all_ref``'s formulas).
+The weight cotangent of layer i is inp_i^T Gz_i + v_i^T t_i, one product
+with K = 2N rows that the kernel sums in a second, deterministic pass.
+
+The trunk op (kernels F and G, ``csrc/mlp_stash.cu``) stashes the ReLU
+pre-activations z_i and back-propagates at them.
+
+On CPU tensors every wrapper runs its plain version; on CUDA tensors it
+launches its kernel or raises.  The kernels compute with bf16 dot operands
+and a bf16 stash only.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+from torch.autograd.function import once_differentiable
+
+from nrhints_torch.fields.sdf import SDFNetConfig, _layer_dims
+from nrhints_torch.kernels import cuda_lib
+from nrhints_torch.kernels.common import INV_SQRT2, dot, gate_from_h
+from nrhints_torch.kernels.core_mlp import (
+    encode_points,
+    materialize_mlp_weights,
+    materialize_sdf_weights_full,
+    pack_sdf_mlp,
+    per_dim_sum,
+    require_cuda,
+    reverse_sweep,
+    sdf_core_plain,
+)
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TP = 16  # points per block of kernels D, E, F and G (the rows of one WMMA tile)
+MAX_SPLIT = 16  # row chunks of the weight-cotangent products
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+
+
+def sdf_core_fwd_hs_plain(weights, x, cfg: SDFNetConfig, compute_dtype="float32", stash_dtype="float32"):
+    """-> (sdf [N], feat, grad, hs): ``sdf_core_plain``'s outputs and every
+    layer's activation h_i [N, out_i] in ``stash_dtype`` (port of
+    ``sdf_core_fwd_hs_ref``)."""
+    sdf, feat, gx, hs = sdf_core_plain(weights, x, cfg, compute_dtype, return_hs=True)
+    return sdf, feat, gx, [h.to(_DTYPES[stash_dtype]) for h in hs]
+
+
+def sdf_core_bwd_stash_plain(weights, x, hs, cots, cfg: SDFNetConfig, compute_dtype="float32"):
+    """Backward at the stashed hs -> (dws, dx), in kernel E's order: the
+    reverse sweep's u_i and g_enc recomputed from hs, then the hand VJPs of
+    ``sdf_core_bwd_stash_all_ref`` (Tail, the sweep in ascending order,
+    Heads, the forward z-chain, the encoding).  ``cots`` = (d sdf [N],
+    d feat [N, F], d grad [N, 3]); ``dws`` has the shapes of ``weights``."""
+    cd = compute_dtype
+    ds, df, dgx = cots
+    L, F, d_in, scale = cfg.n_layers, cfg.multi_res, cfg.d_in, cfg.scale
+    io, _ = _layer_dims(cfg)
+    enc, sin_b, cos_b = encode_points(x, cfg)
+    d0 = enc.shape[-1]
+    hs = [h.float() for h in hs]
+    gates = [gate_from_h(h) for h in hs]
+    L2 = 2 * L
+
+    # 1) The reverse sweep at the stashed hs: u_i (g before layer i's gate)
+    # and g_enc.
+    g_enc, us = reverse_sweep(weights, gates, cfg, enc, cd)
+
+    # 2) Tail VJP: gx = (g_enc[:, :3] + sum_f dS_f 2^f) * scale.
+    c = dgx * scale
+    cdS = torch.cat([c[:, d : d + 1] * (2.0**f) for d in range(d_in) for f in range(F)], dim=-1)
+    g_sin = g_enc[:, d_in : d_in + d_in * F]
+    g_cos = g_enc[:, d_in + d_in * F :]
+    d_genc = torch.cat([c, cdS * cos_b, -cdS * sin_b], dim=-1)
+    d_sin_t = -cdS * g_cos
+    d_cos_t = cdS * g_sin
+
+    # 3) VJP of the reverse sweep, ascending.
+    dw_rev, dhs_r = [None] * L, [None] * L
+    carry = d_genc
+    for i in range(L):
+        v_r = torch.cat([carry, d_genc], dim=-1) * INV_SQRT2 if i in cfg.skip_in else carry
+        dw_rev[i] = dot(v_r.t(), us[i] * gates[i], cd)
+        dt = dot(v_r, weights[2 * i], cd)
+        dhs_r[i] = dt * us[i] * (100.0 * (1.0 - gates[i]))
+        carry = dt * gates[i]
+
+    # 3b) Heads.
+    h_L = hs[L - 1]
+    ds_s = ds.reshape(-1, 1) / scale
+    dws = [None] * len(weights)
+    dws[L2] = (torch.sum(carry, dim=0) / scale)[:, None] + dot(h_L.t(), ds_s, cd)
+    dws[L2 + 1] = torch.sum(ds_s, dim=0)
+    dws[L2 + 2] = dot(h_L.t(), df, cd)
+    dws[L2 + 3] = torch.sum(df, dim=0)
+    G = dot(ds_s, weights[L2].t(), cd) + dot(df, weights[L2 + 2].t(), cd) + dhs_r[L - 1]
+
+    # 4) The forward z-chain, descending.
+    d_enc = torch.zeros_like(enc)
+    gprev = None
+    for i in reversed(range(L)):
+        Gz = G * gates[i]
+        if i in cfg.skip_in:
+            inp = torch.cat([hs[i - 1], enc], dim=-1) * INV_SQRT2
+        else:
+            inp = enc if i == 0 else hs[i - 1]
+        dws[2 * i] = dw_rev[i] + dot(inp.t(), Gz, cd)
+        dws[2 * i + 1] = torch.sum(Gz, dim=0)
+        gprev = dot(Gz, weights[2 * i].t(), cd)
+        if i in cfg.skip_in:
+            gprev = gprev * INV_SQRT2
+            split = io[i][0] - d0
+            d_enc = d_enc + gprev[:, split:]
+            gprev = gprev[:, :split]
+        if i > 0:
+            G = gprev + dhs_r[i - 1]
+    d_enc = d_enc + gprev
+
+    # 5) The encoding chain -> dx.
+    e_sin = d_enc[:, d_in : d_in + d_in * F] + d_sin_t
+    e_cos = d_enc[:, d_in + d_in * F :] + d_cos_t
+    dS = e_sin * cos_b - e_cos * sin_b
+    dx = (d_enc[:, :d_in] + per_dim_sum(dS, d_in, F)) * scale
+    return tuple(dws), dx
+
+
+def mlp_relu_fwd_zs_plain(weights, x, n_layers: int, compute_dtype="float32", stash_dtype="float32"):
+    """-> (out [N, d_out], zs): the ReLU MLP with a linear last layer, and
+    its hidden pre-activations z_i in ``stash_dtype`` (port of
+    ``mlp_relu_fwd_zs_ref``)."""
+    h, zs = x, []
+    for i in range(n_layers + 1):
+        h = dot(h, weights[2 * i], compute_dtype) + weights[2 * i + 1]
+        if i < n_layers:
+            zs.append(h.to(_DTYPES[stash_dtype]))
+            h = torch.relu(h)
+    return h, zs
+
+
+def mlp_relu_bwd_stash_plain(weights, x, zs, g, n_layers: int, compute_dtype="float32"):
+    """The hand backward of the ReLU MLP at the stashed z_i -> (dws, dx)
+    (port of ``mlp_relu_bwd_stash_ref``)."""
+    zs = [z.float() for z in zs]
+    dws = [None] * (2 * (n_layers + 1))
+    G = g
+    for i in reversed(range(n_layers + 1)):
+        inp = x if i == 0 else torch.relu(zs[i - 1])
+        if i < n_layers:
+            G = G * (zs[i] > 0.0).to(G.dtype)
+        dws[2 * i + 1] = torch.sum(G, dim=0)
+        dws[2 * i] = dot(inp.t(), G, compute_dtype)
+        G = dot(G, weights[2 * i].t(), compute_dtype)
+    return tuple(dws), G
+
+
+# ---------------------------------------------------------------------------
+# Layouts shared with the kernels
+
+
+def _r16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def sdf_stash_columns(cfg: SDFNetConfig) -> list[tuple[int, int]]:
+    """(column offset, width) of each layer's h_i in kernel D's packed
+    stash [N, sum of the 16-padded widths]."""
+    io, _ = _layer_dims(cfg)
+    cols, off = [], 0
+    for _, out in io:
+        cols.append((off, out))
+        off += _r16(out)
+    return cols
+
+
+def split_stash(stash: torch.Tensor, cols) -> list[torch.Tensor]:
+    """The packed stash as per-layer views [N, width]."""
+    return [stash[:, off : off + w] for off, w in cols]
+
+
+def dw_jobs(shapes) -> tuple[np.ndarray, int, int]:
+    """Layout of the weight-cotangent products C_j = A_j^T B_j: ``shapes``
+    lists (rows, ka, nb) per product.  -> (int64 [J, 6] table of (a_off,
+    b_off, rows, ka, nb, c_off), bf16 scratch elements, f32 dW elements).
+    Every offset is a multiple of 16 elements (32-byte aligned tiles)."""
+    table, off, c_off = [], 0, 0
+    for rows, ka, nb in shapes:
+        if rows % 16 or ka % 16 or nb % 16:
+            raise ValueError(f"dW product shapes must be multiples of 16, got {(rows, ka, nb)}")
+        a_off, off = off, off + rows * ka
+        b_off, off = off, off + rows * nb
+        table.append((a_off, b_off, rows, ka, nb, c_off))
+        c_off += ka * nb
+    return np.asarray(table, dtype=np.int64), off, c_off
+
+
+def dw_split(npad: int) -> int:
+    """Row chunks of the dW products: about 1,024 rows each, at most 16."""
+    return max(1, min(MAX_SPLIT, npad // 1024))
+
+
+def _launch(lib, fn: str, kernel: str, *args) -> None:
+    rc = getattr(lib, fn)(*args)
+    cuda_lib.check(lib, rc, kernel)
+    cuda_lib.launch_counts[kernel] += 1
+
+
+# ---------------------------------------------------------------------------
+# Kernels D and E
+
+
+def sdf_stash_fwd(weights: Sequence[torch.Tensor], x: torch.Tensor, cfg: SDFNetConfig, pk: dict | None = None):
+    """Kernel D on the card -> (sdf [N], feat [N, F], grad [N, 3], stash
+    [N, GT] bf16): kernel A's outputs, bit for bit, and every h_i at its
+    ``sdf_stash_columns`` offset."""
+    require_cuda(x, (None, 3), "x")
+    n, dev = x.shape[0], x.device
+    pk = pack_sdf_mlp(weights, cfg, with_feat=True) if pk is None else pk
+    gt = int(pk["meta"][9])
+    sdf = torch.empty(n, device=dev)
+    feat = torch.empty((n, cfg.d_out_feat), device=dev)
+    gx = torch.empty((n, 3), device=dev)
+    stash = torch.empty((n, gt), dtype=torch.bfloat16, device=dev)
+    if n == 0:
+        return sdf, feat, gx, stash
+    lib = cuda_lib.load("sdf_core")
+    _launch(
+        lib, "sdf_stash_fwd", "sdf_stash_fwd",
+        x.data_ptr(), pk["wpack"].data_ptr(), pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr(),
+        sdf.data_ptr(), feat.data_ptr(), gx.data_ptr(), stash.data_ptr(), n, pk["meta"].ctypes.data,
+        float(cfg.scale), cuda_lib.stream_ptr(dev),
+    )
+    return sdf, feat, gx, stash
+
+
+def sdf_stash_bwd(weights, x, stash, cots, cfg: SDFNetConfig, pk: dict | None = None):
+    """Kernel E on the card -> (dws, dx) with the shapes of
+    ``sdf_core_bwd_stash_plain``'s.  Three passes in one launcher: the
+    per-point chain (dx, the dW operands in bf16 scratch, per-block f32
+    column sums of the bias cotangents), the split-K dW products, and the
+    in-order sums of the partials (no atomics: the gradients repeat bit for
+    bit)."""
+    ds, df, dgx = cots
+    n, dev = x.shape[0], x.device
+    pk = pack_sdf_mlp(weights, cfg, with_feat=True) if pk is None else pk
+    meta = pk["meta"]
+    L, d_feat, d_last, kpf, npf, gt = (int(meta[k]) for k in (0, 3, 4, 5, 6, 9))
+    require_cuda(x, (None, 3), "x")
+    require_cuda(stash, (n, gt), "stash", torch.bfloat16)
+    require_cuda(ds, (n,), "d_sdf")
+    require_cuda(df, (n, d_feat), "d_feat")
+    require_cuda(dgx, (n, 3), "d_grad")
+    nblk = -(-n // TP)
+    npad = nblk * TP
+    layers = [tuple(int(v) for v in meta[10 + 7 * i : 17 + 7 * i]) for i in range(L)]
+    jobs, n_scratch, n_dw = dw_jobs([(2 * npad, lay[2], lay[3]) for lay in layers] + [(npad, kpf, npf)])
+    split = dw_split(npad)
+    pw = gt + npf + 1 + 2 * kpf
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((n, 3), **f32)
+    scratch = torch.empty(n_scratch, dtype=torch.bfloat16, device=dev)
+    partial = torch.empty((nblk, pw), **f32)
+    colsum = torch.empty(pw, **f32)
+    part_dw = torch.empty((split, n_dw), **f32)
+    dw = torch.empty(n_dw, **f32)
+    if n > 0:
+        lib = cuda_lib.load("sdf_stash")
+        _launch(
+            lib, "sdf_stash_bwd", "sdf_stash_bwd",
+            x.data_ptr(), stash.data_ptr(), ds.data_ptr(), df.data_ptr(), dgx.data_ptr(),
+            pk["wpack"].data_ptr(), pk["w_sdf"].data_ptr(), dx.data_ptr(), scratch.data_ptr(),
+            partial.data_ptr(), colsum.data_ptr(), part_dw.data_ptr(), dw.data_ptr(),
+            jobs.ctypes.data, len(jobs), split, n, meta.ctypes.data, float(cfg.scale), cuda_lib.stream_ptr(dev),
+        )
+    else:
+        colsum.zero_()
+        dw.zero_()
+    dws = []
+    for i, (din, dout, kp, np_, _skip, _w, b_off) in enumerate(layers):
+        c_off = int(jobs[i, 5])
+        dws.append(dw[c_off : c_off + kp * np_].view(kp, np_)[:din, :dout])
+        dws.append(colsum[b_off : b_off + dout])
+    o = gt
+    b_feat, o = colsum[o : o + d_feat], o + npf
+    b_sdf, o = colsum[o : o + 1], o + 1
+    hds, carry = colsum[o : o + d_last], colsum[o + kpf : o + kpf + d_last]
+    c_off = int(jobs[L, 5])
+    dws += [(carry / cfg.scale + hds)[:, None], b_sdf, dw[c_off : c_off + kpf * npf].view(kpf, npf)[:d_last, :d_feat],
+            b_feat]
+    return tuple(dws), dx
+
+
+# ---------------------------------------------------------------------------
+# Kernels F and G
+
+
+def pack_mlp(weights: Sequence[torch.Tensor], n_layers: int) -> dict:
+    """Lay the trunk out as ``csrc/mlp_stash.cu`` reads it: per layer a
+    zero-padded bf16 [kp, np] block (w [in, out]) and a padded f32 bias,
+    and the int meta vector [n_lin, d0, d_out, ZT, then per layer in, out,
+    kp, np, w_off, b_off, z_off]; ZT is the width of the packed z stash."""
+    dev = weights[0].device
+    dims = [(weights[2 * i].shape[0], weights[2 * i].shape[1]) for i in range(n_layers + 1)]
+    if max(_r16(o) for _, o in dims) > 256 or _r16(dims[0][0]) > 512 or any(_r16(i) > 256 for i, _ in dims[1:]):
+        raise NotImplementedError("the CUDA trunk kernels take hidden widths up to 256 and inputs up to 512")
+    meta, w_off, b_off, z_off = [], 0, 0, 0
+    for din, dout in dims:
+        kp, np_ = _r16(din), _r16(dout)
+        meta += [din, dout, kp, np_, w_off, b_off, z_off]
+        w_off, b_off = w_off + kp * np_, b_off + np_
+        z_off += np_
+    zt = sum(_r16(o) for _, o in dims[:-1])
+    wpack = torch.zeros(w_off, dtype=torch.bfloat16, device=dev)
+    bpack = torch.zeros(b_off, dtype=torch.float32, device=dev)
+    for i, (din, dout) in enumerate(dims):
+        _, _, kp, np_, wo, bo, _ = meta[7 * i : 7 * i + 7]
+        wp = torch.zeros(kp, np_, dtype=torch.bfloat16, device=dev)
+        wp[:din, :dout] = weights[2 * i].to(torch.bfloat16)
+        wpack[wo : wo + kp * np_] = wp.reshape(-1)
+        bpack[bo : bo + dout] = weights[2 * i + 1].reshape(-1).float()
+    meta = [n_layers + 1, dims[0][0], dims[-1][1], zt] + meta
+    return {"wpack": wpack, "bpack": bpack, "meta": np.asarray(meta, dtype=np.int32)}
+
+
+def mlp_stash_columns(pk: dict) -> list[tuple[int, int]]:
+    """(column offset, width) of each hidden z_i in kernel F's packed stash."""
+    meta = pk["meta"]
+    return [(int(meta[4 + 7 * i + 6]), int(meta[4 + 7 * i + 1])) for i in range(int(meta[0]) - 1)]
+
+
+def mlp_stash_fwd(weights, x: torch.Tensor, n_layers: int, pk: dict | None = None):
+    """Kernel F on the card -> (out [N, d_out] f32, zs stash [N, ZT] bf16)."""
+    pk = pack_mlp(weights, n_layers) if pk is None else pk
+    meta = pk["meta"]
+    n, dev = x.shape[0], x.device
+    require_cuda(x, (None, int(meta[1])), "x")
+    out = torch.empty((n, int(meta[2])), device=dev)
+    zs = torch.empty((n, int(meta[3])), dtype=torch.bfloat16, device=dev)
+    if n > 0:
+        lib = cuda_lib.load("mlp_stash")
+        _launch(
+            lib, "mlp_stash_fwd", "mlp_stash_fwd",
+            x.data_ptr(), pk["wpack"].data_ptr(), pk["bpack"].data_ptr(), out.data_ptr(), zs.data_ptr(), n,
+            meta.ctypes.data, cuda_lib.stream_ptr(dev),
+        )
+    return out, zs
+
+
+def mlp_stash_bwd(weights, x: torch.Tensor, zs: torch.Tensor, g: torch.Tensor, n_layers: int, pk: dict | None = None):
+    """Kernel G on the card -> (dws, dx): the per-point chain, then the same
+    split-K dW products and in-order sums as kernel E."""
+    pk = pack_mlp(weights, n_layers) if pk is None else pk
+    meta = pk["meta"]
+    n_lin, d0, d_out, zt = (int(v) for v in meta[:4])
+    n, dev = x.shape[0], x.device
+    require_cuda(x, (n, d0), "x")
+    require_cuda(zs, (n, zt), "zs", torch.bfloat16)
+    require_cuda(g, (n, d_out), "g")
+    layers = [tuple(int(v) for v in meta[4 + 7 * i : 11 + 7 * i]) for i in range(n_lin)]
+    nblk = -(-n // TP)
+    npad = nblk * TP
+    jobs, n_scratch, n_dw = dw_jobs([(npad, lay[2], lay[3]) for lay in layers])
+    split = dw_split(npad)
+    bt = sum(lay[3] for lay in layers)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((n, d0), **f32)
+    scratch = torch.empty(n_scratch, dtype=torch.bfloat16, device=dev)
+    partial = torch.empty((nblk, bt), **f32)
+    colsum = torch.empty(bt, **f32)
+    part_dw = torch.empty((split, n_dw), **f32)
+    dw = torch.empty(n_dw, **f32)
+    if n > 0:
+        lib = cuda_lib.load("mlp_stash")
+        _launch(
+            lib, "mlp_stash_bwd", "mlp_stash_bwd",
+            x.data_ptr(), zs.data_ptr(), g.data_ptr(), pk["wpack"].data_ptr(), dx.data_ptr(), scratch.data_ptr(),
+            partial.data_ptr(), colsum.data_ptr(), part_dw.data_ptr(), dw.data_ptr(), jobs.ctypes.data, len(jobs),
+            split, n, meta.ctypes.data, cuda_lib.stream_ptr(dev),
+        )
+    else:
+        colsum.zero_()
+        dw.zero_()
+    dws = []
+    for i, (din, dout, kp, np_, _w, b_off, _z) in enumerate(layers):
+        c_off = int(jobs[i, 5])
+        dws += [dw[c_off : c_off + kp * np_].view(kp, np_)[:din, :dout], colsum[b_off : b_off + dout]]
+    return tuple(dws), dx
+
+
+# ---------------------------------------------------------------------------
+# The autograd ops
+
+
+def _check_kernel_dtypes(compute_dtype: str, stash_dtype: str) -> None:
+    if compute_dtype != "bfloat16" or stash_dtype != "bfloat16":
+        raise NotImplementedError("the CUDA stash kernels compute with bf16 dot operands and a bf16 stash only")
+
+
+def _cotangent(g, shape, device) -> torch.Tensor:
+    """A contiguous cotangent; autograd passes None for an unused output."""
+    return torch.zeros(shape, device=device) if g is None else g.contiguous()
+
+
+class SdfStashFn(torch.autograd.Function):
+    """(sdf [N], feat [N, F], grad [N, 3]) with the stash backward: forward
+    kernel D and backward kernel E on CUDA tensors, the plain versions on
+    CPU tensors.  The backward is the full first-order VJP of all three
+    outputs; the eikonal loss's second-order terms are inside it, so nothing
+    differentiates through it again."""
+
+    @staticmethod
+    def forward(ctx, cfg, compute_dtype, stash_dtype, x, *weights):
+        ctx.cfg, ctx.compute_dtype = cfg, compute_dtype
+        if x.device.type == "cpu":
+            sdf, feat, gx, hs = sdf_core_fwd_hs_plain(weights, x, cfg, compute_dtype, stash_dtype)
+            ctx.pk = None
+        else:
+            _check_kernel_dtypes(compute_dtype, stash_dtype)
+            ctx.pk = pack_sdf_mlp([w.detach() for w in weights], cfg, with_feat=True)
+            sdf, feat, gx, stash = sdf_stash_fwd(weights, x, cfg, ctx.pk)
+            hs = [stash]
+        ctx.save_for_backward(x, *weights, *hs)
+        ctx.n_w = len(weights)
+        return sdf, feat, gx
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, d_sdf, d_feat, d_gx):
+        saved = ctx.saved_tensors
+        x, weights, hs = saved[0], saved[1 : 1 + ctx.n_w], saved[1 + ctx.n_w :]
+        n = x.shape[0]
+        cots = (
+            _cotangent(d_sdf, (n,), x.device),
+            _cotangent(d_feat, (n, ctx.cfg.d_out_feat), x.device),
+            _cotangent(d_gx, (n, 3), x.device),
+        )
+        if x.device.type == "cpu":
+            dws, dx = sdf_core_bwd_stash_plain(weights, x, hs, cots, ctx.cfg, ctx.compute_dtype)
+        else:
+            dws, dx = sdf_stash_bwd(weights, x, hs[0], cots, ctx.cfg, ctx.pk)
+        return (None, None, None, dx, *dws)
+
+
+class MlpStashFn(torch.autograd.Function):
+    """The ReLU trunk with the stash backward: kernels F and G on CUDA
+    tensors, the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, n_layers, compute_dtype, stash_dtype, x, *weights):
+        ctx.n_layers, ctx.compute_dtype = n_layers, compute_dtype
+        if x.device.type == "cpu":
+            out, zs = mlp_relu_fwd_zs_plain(weights, x, n_layers, compute_dtype, stash_dtype)
+            ctx.pk = None
+        else:
+            _check_kernel_dtypes(compute_dtype, stash_dtype)
+            ctx.pk = pack_mlp([w.detach() for w in weights], n_layers)
+            out, stash = mlp_stash_fwd(weights, x, n_layers, ctx.pk)
+            zs = [stash]
+        ctx.save_for_backward(x, *weights, *zs)
+        ctx.n_w = len(weights)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        x, weights, zs = saved[0], saved[1 : 1 + ctx.n_w], saved[1 + ctx.n_w :]
+        g = g.contiguous()
+        if x.device.type == "cpu":
+            dws, dx = mlp_relu_bwd_stash_plain(weights, x, zs, g, ctx.n_layers, ctx.compute_dtype)
+        else:
+            dws, dx = mlp_stash_bwd(weights, x, zs[0], g, ctx.n_layers, ctx.pk)
+        return (None, None, None, dx, *dws)
+
+
+def fused_sdf_value_feat_grad_stash(params: dict, cfg: SDFNetConfig, x: torch.Tensor, *, compute_dtype="bfloat16"):
+    """The stash op on the SDF params, with a bf16 stash (weight norm
+    applied outside, so its gradient reaches v, g and b through autograd)."""
+    weights = materialize_sdf_weights_full(params, cfg)
+    return SdfStashFn.apply(cfg, compute_dtype, "bfloat16", x.contiguous(), *weights)
+
+
+def fused_mlp_apply_stash(params: dict, n_layers: int, x: torch.Tensor) -> torch.Tensor:
+    """The trunk stash op on the weight-norm params -> [N, d_out] logits,
+    with bf16 dot operands and a bf16 stash."""
+    weights = materialize_mlp_weights(params, n_layers)
+    return MlpStashFn.apply(n_layers, "bfloat16", "bfloat16", x.contiguous(), *weights)

@@ -7,7 +7,7 @@ into ``build/nrhints_torch/`` at the repository root, and loaded with
 flags, so an edited source is rebuilt and a stale build is never loaded.
 Nothing here runs at import: the CPU tests import every module.
 
-The wrappers in ``core_mlp.py`` and ``march.py`` add one to
+The wrappers in ``core_mlp.py``, ``core_stash.py`` and ``march.py`` add one to
 ``launch_counts[<kernel>]`` where they launch a kernel, and nowhere else.
 """
 from __future__ import annotations
@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nrhints_torch"
-SOURCES = ("sdf_core", "march")
+SOURCES = ("sdf_core", "march", "sdf_stash", "mlp_stash")
 # -fmad=false keeps each f32 multiply and add separately rounded, as the
 # plain PyTorch versions compute them, so kernel and plain version differ
 # only in summation order and bf16 rounding flips.
@@ -31,11 +31,22 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-launch_counts = {"sdf_core_fwd": 0, "round_machinery": 0, "shadow_final": 0}
+launch_counts = {
+    "sdf_core_fwd": 0, "round_machinery": 0, "shadow_final": 0,
+    "sdf_stash_fwd": 0, "sdf_stash_bwd": 0, "mlp_stash_fwd": 0, "mlp_stash_bwd": 0,
+}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "sdf_core": {"sdf_core_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _F, _P]},
+    "sdf_core": {
+        "sdf_core_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _F, _P],
+        "sdf_stash_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _F, _P],
+    },
+    "sdf_stash": {"sdf_stash_bwd": [_P] * 14 + [_I, _I, _I, _P, _F, _P]},
+    "mlp_stash": {
+        "mlp_stash_fwd": [_P, _P, _P, _P, _P, _I, _P, _P],
+        "mlp_stash_bwd": [_P] * 11 + [_I, _I, _I, _P, _P],
+    },
     "march": {
         "round_machinery": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
         "shadow_final": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _F, _P],
@@ -62,7 +73,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / f"{name}.cu", CSRC / "sdf_mlp.cuh"):
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

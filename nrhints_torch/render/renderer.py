@@ -1,13 +1,15 @@
-"""NeuS-with-hints volume renderer, eval branch (port of
+"""NeuS-with-hints volume renderer (port of
 ``nrhints_tpu/render/renderer.py``).
 
-``render_rays(is_training=False)`` follows the JAX package's fused path
-under the shipping ``RendererConfig``: 64 stratified samples refined by a
-4 x 16 importance march (kernel B), the SDF core with normals (kernel A),
-sigmoid-CDF alpha with cos annealing, transmittance compositing,
-alpha-blended depth, the shadow hint as the transmittance of a 64 + 4 x 16
-march from the light (kernels B and C), the Cook-Torrance highlight hint at
-4 roughnesses, and the float32 reflectance trunk.  On CUDA tensors every
+``render_rays`` follows the JAX package's fused path under the shipping
+``RendererConfig``: 64 stratified samples (jittered in training) refined by
+a 4 x 16 importance march (kernel B), the SDF core with normals (kernel A
+without a gradient; kernels D and E, the stash op, with one), sigmoid-CDF
+alpha with cos annealing, transmittance compositing, alpha-blended depth,
+the shadow hint as the transmittance of a 64 + 4 x 16 march from the light
+(kernels B and C; its samples jittered in training), the Cook-Torrance
+highlight hint at 4 roughnesses, and the reflectance trunk (f32 plain
+matmuls in eval; kernels F and G in training).  On CUDA tensors every
 kernel runs on the card; on CPU tensors each kernel wrapper runs its plain
 version.  Config values that reach a branch the port does not have yet
 raise ``NotImplementedError``.
@@ -20,13 +22,13 @@ from typing import Tuple
 import torch
 
 from nrhints_torch.core.brdf import cook_torrance_specular, normalize
-from nrhints_torch.core.sampling import linspace01, stratified_z_vals, transmittance
+from nrhints_torch.core.sampling import linspace01, perturb_z_vals_within_bins, stratified_z_vals, transmittance
 from nrhints_torch.core.structs import RayBundle, RenderOutput
 from nrhints_torch.fields.bg_nerf import BgNeRFConfig
 from nrhints_torch.fields.reflectance import ReflectanceNetConfig, reflectance_forward, reflectance_init
 from nrhints_torch.fields.sdf import SDFNetConfig, sdf_init
 from nrhints_torch.fields.variance import VarianceConfig, inv_s_from_params, variance_init
-from nrhints_torch.kernels.core_mlp import fused_sdf_value_feat_grad
+from nrhints_torch.kernels.core_mlp import fused_reflectance_forward, fused_sdf_value_feat_grad
 from nrhints_torch.kernels.march import fused_importance_z, fused_shadow_tau
 
 
@@ -144,11 +146,9 @@ def _neus_alpha_from_cos(sdf, true_cos, dists, inv_s, cos_anneal_ratio):
 
 def check_ported(cfg: ModelConfig, *, is_training: bool = False, geometry_warmup: bool = False, mesh=None) -> None:
     """Raise ``NotImplementedError`` for any setting that would reach a
-    branch this slice has not ported, naming the slice that brings it."""
+    branch the port does not have yet."""
     r = cfg.renderer
     later = {
-        "is_training=True": is_training,
-        "geometry_warmup": geometry_warmup,
         "use_outside_nerf": r.use_outside_nerf,
         "mesh sharding": mesh is not None,
         f"depth_type={r.depth_type!r}": r.depth_type != "alpha_blending",
@@ -165,27 +165,35 @@ def check_ported(cfg: ModelConfig, *, is_training: bool = False, geometry_warmup
         f"shadow_final_impl={r.shadow_final_impl!r}": r.shadow_final_impl != "pallas",
         f"march_merge={r.march_merge!r}": r.march_merge != "bitonic",
         f"eval_reflectance_impl={r.eval_reflectance_impl!r}": r.eval_reflectance_impl != "xla",
+        f"core_backward={r.core_backward!r} in training (the recompute kernels)": is_training
+        and r.core_backward != "stash",
+        f"reflectance_impl={r.reflectance_impl!r} in training": is_training and r.reflectance_impl != "pallas",
     }
     missing = [name for name, hit in later.items() if hit]
     if missing:
         raise NotImplementedError(
-            "nrhints_torch ports the eval render only; not yet ported: " + ", ".join(missing)
-            + " (training is slice 2; the other kernels and off-path features follow)"
+            "nrhints_torch has not ported: " + ", ".join(missing)
+            + " (the other kernels and off-path features are later slices)"
         )
     if r.fused_kernels not in ("auto", "on"):
         raise ValueError(f"fused_kernels must be 'auto', 'on' or 'off', got {r.fused_kernels!r}")
 
 
 def _importance_sample_z(params, cfg: ModelConfig, rays_o, rays_d, z_vals):
-    """64 stratified -> 128 refined z per ray (no gradient)."""
-    return fused_importance_z(
-        params["sdf"], cfg.sdf_network, rays_o, rays_d, z_vals, mlp_dtype=cfg.renderer.march_dtype
-    )
+    """64 stratified -> 128 refined z per ray; no gradient, as the JAX march
+    cuts it with ``stop_gradient`` at every input."""
+    with torch.no_grad():
+        return fused_importance_z(
+            params["sdf"], cfg.sdf_network, rays_o, rays_d, z_vals, mlp_dtype=cfg.renderer.march_dtype
+        )
 
 
-def _shadow_transmittance(params, cfg: ModelConfig, pls, target_points, cos_anneal_ratio):
+@torch.no_grad()
+def _shadow_transmittance(params, cfg: ModelConfig, pls, target_points, cos_anneal_ratio, jitter: dict | None):
     """Final transmittance of a march from the light to just before the
-    target point -> [N, 1]; sample_dist = |light - target| / n per ray."""
+    target point -> [N, 1], with no gradient; sample_dist = |light - target|
+    / n per ray.  ``jitter`` (training) moves every shadow sample inside its
+    bin: {"u": [N, n] uniforms or None, "generator": ...}."""
     rcfg = cfg.renderer
     n = rcfg.n_shadow_samples
     d = target_points - pls
@@ -193,36 +201,51 @@ def _shadow_transmittance(params, cfg: ModelConfig, pls, target_points, cos_anne
     sample_dist = light_norm / n
     ray_d = d / light_norm
     z_vals = linspace01(n, d.dtype, d.device)[None, :] * light_norm * (1.0 - rcfg.shadow_ray_offset)
+    if jitter is not None:
+        z_vals = perturb_z_vals_within_bins(z_vals, u=jitter["u"], generator=jitter["generator"])
     return fused_shadow_tau(
-        params["sdf"], cfg.sdf_network, pls, ray_d, z_vals, sample_dist,
+        params["sdf"], cfg.sdf_network, pls.contiguous(), ray_d, z_vals, sample_dist,
         inv_s_from_params(params["variance"]),
         torch.as_tensor(cos_anneal_ratio, dtype=torch.float32, device=d.device),
         mlp_dtype=rcfg.march_dtype,
     )
 
 
-@torch.no_grad()
 def render_rays(
     params: dict,
     cfg: ModelConfig,
     rays: RayBundle,
+    generator: torch.Generator | None = None,
     *,
     is_training: bool = False,
     geometry_warmup: bool = False,
     cos_anneal_ratio: float | torch.Tensor = 1.0,
     background_rgb: torch.Tensor | None = None,
+    uniforms: dict | None = None,
     mesh=None,
 ) -> RenderOutput:
-    """Render a flat batch of rays -> RenderOutput (the eval branch)."""
+    """Render a flat batch of rays -> RenderOutput.
+
+    ``is_training`` jitters the stratified samples (one offset per ray) and
+    the shadow samples (one per sample); the uniforms come from
+    ``uniforms`` ({"strat": [B, 1], "shadow": [B, n_shadow_samples]}) when
+    given, else from ``generator``.  The outputs carry gradients wherever
+    the JAX package's do: the marches, the depth and the hints are cut.
+    ``geometry_warmup`` zeroes both hints."""
     check_ported(cfg, is_training=is_training, geometry_warmup=geometry_warmup, mesh=mesh)
+    if is_training and generator is None and uniforms is None:
+        raise ValueError("render_rays(is_training=True) needs a generator or uniforms for its jitter")
+    uniforms = uniforms or {}
     rcfg = cfg.renderer
     rays_o, rays_d, rays_pl = rays.origins, rays.directions, rays.pl_positions
     batch = rays_o.shape[0]
     sample_dist = 2.0 / rcfg.n_samples
 
-    z_vals = stratified_z_vals(rays.nears, rays.fars, rcfg.n_samples)
+    z_vals = stratified_z_vals(
+        rays.nears, rays.fars, rcfg.n_samples, jitter=is_training, u=uniforms.get("strat"), generator=generator
+    )
     if rcfg.n_importance_samples > 0:
-        z_vals = _importance_sample_z(params, cfg, rays_o, rays_d, z_vals)
+        z_vals = _importance_sample_z(params, cfg, rays_o.detach(), rays_d.detach(), z_vals.detach())
     n_total = z_vals.shape[-1]
 
     dists = torch.cat([z_vals[..., 1:] - z_vals[..., :-1], torch.full_like(z_vals[:, :1], sample_dist)], dim=-1)
@@ -232,36 +255,51 @@ def render_rays(
     dirs_flat = rays_d[:, None, :].expand(pts.shape).reshape(-1, 3)
     pls_flat = rays_pl[:, None, :].expand(pts.shape).reshape(-1, 3)
 
-    sdf, feat, grads = fused_sdf_value_feat_grad(params["sdf"], cfg.sdf_network, pts_flat)
+    sdf, feat, grads = fused_sdf_value_feat_grad(
+        params["sdf"], cfg.sdf_network, pts_flat, backward=rcfg.core_backward
+    )
     inv_s = inv_s_from_params(params["variance"])
     alpha = _neus_alpha(sdf, grads, dirs_flat, dists.reshape(-1), inv_s, cos_anneal_ratio).reshape(batch, n_total)
-    inside_sphere = (torch.linalg.norm(pts_flat, dim=-1).reshape(batch, n_total) < 1.0).to(alpha.dtype)
+    inside_sphere = (torch.linalg.norm(pts_flat.detach(), dim=-1).reshape(batch, n_total) < 1.0).to(alpha.dtype)
 
     weights = alpha * transmittance(alpha)
     weights_sum = torch.sum(weights, dim=-1, keepdim=True)
-    depths = torch.sum(mid_z * weights, dim=-1, keepdim=True)
+    depths = torch.sum(mid_z * weights, dim=-1, keepdim=True).detach()
     hit_points = rays_o + rays_d * depths
 
     visibilities = shadow_map = None
-    if cfg.has_shadow_hint:
-        shadow_map = _shadow_transmittance(params, cfg, rays_pl, hit_points, cos_anneal_ratio)
+    if cfg.has_shadow_hint and geometry_warmup:
+        visibilities = torch.zeros((batch * n_total, 1), dtype=alpha.dtype, device=alpha.device)
+        shadow_map = visibilities[:batch]
+    elif cfg.has_shadow_hint:
+        jitter = {"u": uniforms.get("shadow"), "generator": generator} if is_training else None
+        shadow_map = _shadow_transmittance(params, cfg, rays_pl, hit_points, cos_anneal_ratio, jitter)
         visibilities = shadow_map[:, None, :].expand(batch, n_total, 1).reshape(-1, 1)
 
     normalized_normal = normalize(grads)
     specular_cue = None
-    if cfg.has_specular_hint:
-        hit_normal = normalize(torch.sum(normalized_normal.reshape(batch, n_total, 3) * weights[..., None], dim=1))
-        spec = cook_torrance_specular(
-            hit_normal, normalize(rays_pl - hit_points), normalize(-rays_d), rcfg.specular_roughness
+    if cfg.has_specular_hint and geometry_warmup:
+        specular_cue = torch.zeros(
+            (batch * n_total, len(rcfg.specular_roughness)), dtype=alpha.dtype, device=alpha.device
         )
+    elif cfg.has_specular_hint:
+        with torch.set_grad_enabled(torch.is_grad_enabled() and rcfg.specular_hint_gradient):
+            hit_normal = normalize(torch.sum(normalized_normal.reshape(batch, n_total, 3) * weights[..., None], dim=1))
+            spec = cook_torrance_specular(
+                hit_normal, normalize(rays_pl - hit_points), normalize(-rays_d), rcfg.specular_roughness
+            )
         specular_cue = spec[:, None, :].expand(batch, n_total, spec.shape[-1]).reshape(batch * n_total, -1)
 
     input_normal = grads if rcfg.normal_type == "analytic" else normalized_normal
-    sampled_color = reflectance_forward(
+    color_args = (
         params["color"], cfg.reflectance_network, pts_flat, input_normal, dirs_flat, feat, pls_flat,
         visibilities if rcfg.shadow_hint else None,
         specular_cue if rcfg.specular_hint else None,
-    ).reshape(batch, n_total, 3)
+    )
+    # The eval trunk is the f32 plain version (eval_reflectance_impl="xla");
+    # training runs the trunk through kernels F and G.
+    trunk = fused_reflectance_forward if is_training else reflectance_forward
+    sampled_color = trunk(*color_args).reshape(batch, n_total, 3)
     color = torch.sum(sampled_color * weights[..., None], dim=1)
     if background_rgb is not None:
         color = color + background_rgb * (1.0 - weights_sum)

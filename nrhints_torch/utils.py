@@ -1,4 +1,5 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution and parameter-tree walks shared by the port's entry
+points."""
 from __future__ import annotations
 
 import torch
@@ -21,3 +22,18 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"nrhints_torch runs on 'cuda' or 'cpu', got {dev}")
     return dev
+
+
+def tree_items(tree, prefix: str = ""):
+    """(path, leaf) of a nested dict of tensors in sorted key order; paths
+    read "/renderer/sdf/lin0/v"."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_items(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def tree_leaves(tree) -> list[torch.Tensor]:
+    """The leaves of a nested dict of tensors, in ``tree_items``'s order."""
+    return [leaf for _, leaf in tree_items(tree)]

@@ -8,14 +8,19 @@ Tolerances: kernel A and C round their dot operands to bf16 like the plain
 versions but sum in another order, so an activation on a bf16 rounding
 boundary can round the other way: 1e-2 relative to the output's scale.
 Kernel B's merge is exact (identical z and sdf); its draws sum in the plain
-version's order: 1e-5.
+version's order: 1e-5.  Kernels D and F: outputs and stash 1e-2, as A.
+Kernels E and G: 2e-2 of each gradient's scale, at the same stash: the
+backward chains twice as many bf16-operand products as the forward, and
+the dW sums over the points run in another order.  Kernel D's outputs are
+kernel A's bit for bit, and E and G give the same gradients bit for bit on
+every run (no atomics).
 """
 import numpy as np
 import pytest
 import torch
 
 from nrhints_torch.fields.sdf import SDFNetConfig, sdf_init
-from nrhints_torch.kernels import core_mlp, cuda_lib, march
+from nrhints_torch.kernels import core_mlp, core_stash, cuda_lib, march
 
 SMALL = SDFNetConfig(n_layers=4, d_hidden=32, d_out_feat=16, skip_in=(2,), multi_res=4)
 
@@ -44,6 +49,13 @@ def _rays(dev, n=37):
 def _close(k, p, tol):
     scale = max(1.0, p.abs().max().item())
     assert (k - p).abs().max().item() <= tol * scale
+
+
+def _close_rel(k, p, tol):
+    """Within tol of the plain gradient's own scale (gradients can be far
+    below 1)."""
+    err, scale = (k - p).abs().max().item(), p.abs().max().item()
+    assert err <= tol * scale + 1e-7, f"err {err:.3e} vs scale {scale:.3e}"
 
 
 @pytest.mark.gpu
@@ -117,7 +129,8 @@ def test_render_rays_card_matches_cpu(cuda):
     card = render_rays(to_card(params), cfg, RayBundle(*(to_card(t) for t in (o, d, pl_, z0[:, :1], z0[:, -1:]))))
     torch.cuda.synchronize()
     assert {k: cuda_lib.launch_counts[k] - before[k] for k in before} == {
-        "sdf_core_fwd": 1, "round_machinery": 10, "shadow_final": 1}
+        "sdf_core_fwd": 1, "round_machinery": 10, "shadow_final": 1,
+        "sdf_stash_fwd": 0, "sdf_stash_bwd": 0, "mlp_stash_fwd": 0, "mlp_stash_bwd": 0}
     for k in ("rgb", "depth", "visibilities"):
         assert (getattr(card, k).cpu() - getattr(cpu, k)).abs().max().item() <= 2e-2, k
 
@@ -132,3 +145,131 @@ def test_wrappers_raise_on_bad_inputs(cuda):
         core_mlp.sdf_core_fwd(w, torch.zeros((3, 4), device=cuda).t(), SMALL)
     with pytest.raises(NotImplementedError):
         core_mlp.fused_sdf_value_feat_grad(p, SMALL, torch.zeros((4, 3), device=cuda), compute_dtype="float32")
+
+
+def _gpu_sdf_case(cuda, cfg, n):
+    w = core_mlp.materialize_sdf_weights_full(sdf_init(torch.Generator().manual_seed(0), cfg, cuda), cfg)
+    rng = np.random.default_rng(n)
+    x = torch.tensor(rng.normal(size=(n, 3)).astype(np.float32) * 0.5, device=cuda)
+    cots = tuple(torch.tensor(a.astype(np.float32), device=cuda) for a in (
+        rng.normal(size=(n,)), rng.normal(size=(n, cfg.d_out_feat)), rng.normal(size=(n, 3))))
+    return w, x, cots
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [SMALL, SDFNetConfig()], ids=["small", "full"])
+@pytest.mark.parametrize("n", [1, 100, 1000])
+def test_sdf_stash_kernels_match_plain(cuda, cfg, n):
+    """Kernel D against kernel A and the plain forward; kernel E against the
+    plain backward at D's stash."""
+    w, x, cots = _gpu_sdf_case(cuda, cfg, n)
+    before = dict(cuda_lib.launch_counts)
+    sdf, feat, gx, stash = core_stash.sdf_stash_fwd(w, x, cfg)
+    for k, a in zip((sdf, feat, gx), core_mlp.sdf_core_fwd(w, x, cfg)):
+        assert torch.equal(k, a)
+    _, _, _, hs = core_stash.sdf_core_fwd_hs_plain(w, x, cfg, "bfloat16", "bfloat16")
+    for k, p in zip(core_stash.split_stash(stash, core_stash.sdf_stash_columns(cfg)), hs):
+        _close(k.float(), p.float(), 1e-2)
+    dws, dx = core_stash.sdf_stash_bwd(w, x, stash, cots, cfg)
+    torch.cuda.synchronize()
+    p_dws, p_dx = core_stash.sdf_core_bwd_stash_plain(
+        w, x, core_stash.split_stash(stash, core_stash.sdf_stash_columns(cfg)), cots, cfg, "bfloat16")
+    _close_rel(dx, p_dx, 2e-2)
+    assert len(dws) == len(p_dws)
+    for k, p in zip(dws, p_dws):
+        assert k.shape == p.shape
+        _close_rel(k, p, 2e-2)
+    dws2, dx2 = core_stash.sdf_stash_bwd(w, x, stash, cots, cfg)
+    assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(dws, dws2))
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in ("sdf_stash_fwd", "sdf_stash_bwd")} == {
+        "sdf_stash_fwd": 1, "sdf_stash_bwd": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [(45, 32, 32, 3), (361, 256, 256, 256, 256, 3)], ids=["small", "full"])
+@pytest.mark.parametrize("n", [1, 100, 1000])
+def test_mlp_stash_kernels_match_plain(cuda, dims, n):
+    """Kernels F and G against the plain trunk forward and backward."""
+    from nrhints_torch.fields.mlp import torch_default_linear_init
+
+    gen = torch.Generator().manual_seed(1)
+    w = []
+    for i in range(len(dims) - 1):
+        w += [t.to(cuda) for t in torch_default_linear_init(gen, dims[i], dims[i + 1])]
+    n_layers = len(dims) - 2
+    rng = np.random.default_rng(n)
+    x = torch.tensor(rng.normal(size=(n, dims[0])).astype(np.float32), device=cuda)
+    g = torch.tensor(rng.normal(size=(n, 3)).astype(np.float32), device=cuda)
+    out, zs = core_stash.mlp_stash_fwd(w, x, n_layers)
+    p_out, p_zs = core_stash.mlp_relu_fwd_zs_plain(w, x, n_layers, "bfloat16", "bfloat16")
+    _close(out, p_out, 1e-2)
+    cols = core_stash.mlp_stash_columns(core_stash.pack_mlp(w, n_layers))
+    for k, p in zip(core_stash.split_stash(zs, cols), p_zs):
+        _close(k.float(), p.float(), 1e-2)
+    dws, dx = core_stash.mlp_stash_bwd(w, x, zs, g, n_layers)
+    torch.cuda.synchronize()
+    p_dws, p_dx = core_stash.mlp_relu_bwd_stash_plain(w, x, core_stash.split_stash(zs, cols), g, n_layers, "bfloat16")
+    _close_rel(dx, p_dx, 2e-2)
+    for k, p in zip(dws, p_dws):
+        assert k.shape == p.shape
+        _close_rel(k, p, 2e-2)
+    dws2, _ = core_stash.mlp_stash_bwd(w, x, zs, g, n_layers)
+    assert all(torch.equal(a, b) for a, b in zip(dws, dws2))
+
+
+@pytest.mark.gpu
+def test_train_step_card_matches_cpu(cuda):
+    """One train step's gradients on the card (kernels B-G) against the same
+    step on the CPU (plain versions), same uniforms, at the small configs:
+    5e-2 of each leaf's scale (bf16 rounding flips in the kernels and the
+    bf16 march move a few samples), and the launches of one step."""
+    from nrhints_torch.camera.model import CameraModel
+    from nrhints_torch.camera.rays import ray_generator_init
+    from nrhints_torch.configs.config import nr_hints_cam_opt
+    from nrhints_torch.core.structs import PixelBundle
+    from nrhints_torch.data.synthetic import scene_views
+    from nrhints_torch.fields.reflectance import ReflectanceNetConfig
+    from nrhints_torch.render.renderer import init_model_params
+    from nrhints_torch.train.step import init_train_state, loss_and_grads, make_optimizer
+    import dataclasses
+
+    cfg = nr_hints_cam_opt()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, sdf_network=SMALL, reflectance_network=ReflectanceNetConfig(n_layers=2, d_hidden=32)))
+    sc = scene_views(2, 32, 32)
+    cam = CameraModel(32, 32, 16.0, 16.0, sc["focal"], sc["focal"], 0.1, 6.0)
+    rng = np.random.default_rng(0)
+    img, hh, ww = rng.integers(0, 2, 64), rng.integers(0, 32, 64), rng.integers(0, 32, 64)
+    pix = dict(h_indices=hh.astype(np.float32), w_indices=ww.astype(np.float32), poses=sc["poses"][img],
+               pls=sc["pls"][img], img_indices=img, rgb_gt=sc["images"][img, hh, ww])
+    u = {"strat": rng.random((64, 1), dtype=np.float32), "shadow": rng.random((64, 64), dtype=np.float32)}
+    gen = torch.Generator().manual_seed(0)
+    renderer = init_model_params(cfg.model, gen)
+    raygen, _ = ray_generator_init(gen, cfg.ray_generator, 2)
+    grads = {}
+    for dev in ("cpu", cuda):
+        params = {"renderer": _tree_to(renderer, dev), "raygen": _tree_to(raygen, dev)}
+        state = init_train_state(params, make_optimizer(cfg, params))
+        batch = PixelBundle(**{k: torch.as_tensor(v).to(dev) for k, v in pix.items()})
+        before = dict(cuda_lib.launch_counts)
+        loss_and_grads(state, cfg, cam, {}, batch, uniforms={k: torch.as_tensor(v).to(dev) for k, v in u.items()})
+        delta = {k: cuda_lib.launch_counts[k] - before[k] for k in before}
+        grads[str(dev)] = {name: t.grad.detach().cpu() for name, t in _named(params)}
+    torch.cuda.synchronize()
+    assert delta == {"sdf_core_fwd": 0, "round_machinery": 10, "shadow_final": 1, "sdf_stash_fwd": 1,
+                     "sdf_stash_bwd": 1, "mlp_stash_fwd": 1, "mlp_stash_bwd": 1}
+    card = grads[str(cuda)]
+    for name, g in grads["cpu"].items():
+        _close_rel(card[name], g, 5e-2)
+
+
+def _tree_to(tree, dev):
+    return {k: _tree_to(v, dev) for k, v in tree.items()} if isinstance(tree, dict) else tree.detach().clone().to(dev)
+
+
+def _named(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree

@@ -26,7 +26,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from nrhints_torch.kernels import core_mlp as tcm, cuda_lib, march as tm
+from nrhints_torch.kernels import core_mlp as tcm, core_stash as tcs, cuda_lib, march as tm
 from nrhints_tpu.kernels import core_mlp as jcm, march as jm
 from tests.torch_port_utils import N_RAYS, camera_rays, jax_sdf_params
 
@@ -208,3 +208,204 @@ def test_shadow_tau_matches_jax(sdf, rays, mlp_dtype, atol):
         mlp_dtype=mlp_dtype,
     )
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# Kernels D and E (the SDF stash op) and F and G (the trunk stash op)
+#
+# Tolerances, each as max |port - JAX| <= tol * max |JAX| per output (dW
+# entries that nearly cancel over the points carry f32 reassociation noise,
+# so the scale is the tensor's, not the entry's):
+# * float32 compute and stash: 2e-3, the roadmap's gradient tolerance (the
+#   measured gap is ~1e-6: same formulas, other summation order).
+# * the shipping bf16 dot operands and bf16 stash: 2e-2.  Both sides round
+#   the same operands, but an f32 value within an ulp of a bf16 rounding
+#   boundary can round the other way on either side, which moves that
+#   operand by 2^-8 relative, and the backward chains 2L such products.
+
+
+def _close_scaled(port, ref, tol, what=""):
+    ref = np.asarray(ref, dtype=np.float64)
+    port = np.asarray(port, dtype=np.float64).reshape(ref.shape)
+    scale = max(float(np.abs(ref).max()), 1e-6)
+    err = float(np.abs(port - ref).max())
+    assert err <= tol * scale, f"{what}: err {err:.3e} vs scale {scale:.3e}"
+
+
+STASH_TOL = {"float32": 2e-3, "bfloat16": 2e-2}
+
+
+def _np(t):
+    return t.detach().float().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, dtype=np.float32)
+
+
+@pytest.fixture(scope="module")
+def stash_case(sdf):
+    """Points, weights on both sides and random cotangents of (sdf, feat, grad)."""
+    jc, jp, tc, tp = sdf
+    rng = np.random.default_rng(4)
+    x = (rng.normal(size=(77, 3)) * 0.4).astype(np.float32)
+    cots = (rng.normal(size=(77,)).astype(np.float32), rng.normal(size=(77, tc.d_out_feat)).astype(np.float32),
+            rng.normal(size=(77, 3)).astype(np.float32))
+    jw = jcm.materialize_sdf_weights_full(jp, jc)
+    tw = tcm.materialize_sdf_weights_full(tp, tc)
+    return jc, tc, x, cots, jw, tw
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_sdf_fwd_hs_plain_matches_jax(stash_case, dt):
+    """Kernel D's plain version against ``sdf_core_fwd_hs_ref`` and the
+    Pallas stash forward (interpret mode)."""
+    from nrhints_tpu.kernels import core_stash as jcs
+
+    jc, tc, x, _, jw, tw = stash_case
+    port = tcs.sdf_core_fwd_hs_plain(tw, torch.tensor(x), tc, dt, dt)
+    ref = jcs.sdf_core_fwd_hs_ref(list(jw), jnp.asarray(x), jc, dt)
+    (psdf, pfeat, pgx), phs = jcs._sdf_stash_fwd_pallas((jc, 32, 32, True, dt, dt, False), jw, jnp.asarray(x))
+    for p, r, q in zip(port[:3], ref[:3], (psdf, pfeat, pgx)):
+        _close_scaled(_np(p), np.asarray(r).reshape(p.shape), 1e-5 if dt == "float32" else 2e-3)
+        _close_scaled(_np(p), np.asarray(q).reshape(p.shape), 1e-5 if dt == "float32" else 2e-3)
+    assert len(port[3]) == tc.n_layers
+    for h, r, q in zip(port[3], ref[3], phs):
+        assert h.dtype == tcs._DTYPES[dt]
+        _close_scaled(_np(h), np.asarray(q, np.float32), 1e-5 if dt == "float32" else 2e-2)
+        _close_scaled(_np(h), np.asarray(r), 1e-5 if dt == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_sdf_bwd_stash_plain_matches_jax(stash_case, dt):
+    """Kernel E's plain version against ``sdf_core_bwd_stash_ref`` at the
+    same stash, against the Pallas stash backward (interpret mode) and,
+    in f32, against ``jax.vjp`` of ``sdf_core_ref``."""
+    from nrhints_tpu.kernels import core_stash as jcs
+
+    jc, tc, x, cots, jw, tw = stash_case
+    _, _, _, jhs = jcs.sdf_core_fwd_hs_ref(list(jw), jnp.asarray(x), jc, dt)
+    jhs = [h.astype(jnp.dtype(dt)) for h in jhs]
+    jcots = (jnp.asarray(cots[0]).reshape(-1, 1), jnp.asarray(cots[1]), jnp.asarray(cots[2]))
+    ref_dws, ref_dx = jcs.sdf_core_bwd_stash_ref(list(jw), jnp.asarray(x), [h.astype(jnp.float32) for h in jhs],
+                                                 jcots, jc, dt)
+    pal_dws, pal_dx = jcs._sdf_stash_bwd_pallas((jc, 32, 32, True, dt, dt, False), jw, jnp.asarray(x), jhs,
+                                                (jnp.asarray(cots[0]), jcots[1], jcots[2]))
+    ths = [torch.tensor(np.asarray(h.astype(jnp.float32))).to(tcs._DTYPES[dt]) for h in jhs]
+    dws, dx = tcs.sdf_core_bwd_stash_plain(tw, torch.tensor(x), ths, tuple(torch.tensor(c) for c in cots), tc, dt)
+    tol = STASH_TOL[dt]
+    refs = [(ref_dws, ref_dx, "stash_ref"), (pal_dws, pal_dx, "pallas")]
+    if dt == "float32":
+        _, vjp = jax.vjp(lambda w, xx: jcm.sdf_core_ref(w, xx, jc, "float32"), list(jw), jnp.asarray(x))
+        refs.append((*vjp(jcots), "vjp"))
+    for r_dws, r_dx, name in refs:
+        _close_scaled(_np(dx), r_dx, tol, f"{name} dx")
+        assert len(dws) == len(r_dws)
+        for k, (a, b) in enumerate(zip(dws, r_dws)):
+            _close_scaled(_np(a), b, tol, f"{name} dw[{k}]")
+
+
+@pytest.fixture(scope="module")
+def trunk_case():
+    from nrhints_tpu.fields.mlp import torch_default_linear_init, weight_norm_params
+
+    key = jax.random.PRNGKey(7)
+    dims = [45, 32, 32, 3]
+    params = {}
+    for i in range(3):
+        key, k = jax.random.split(key)
+        params[f"lin{i}"] = weight_norm_params(*torch_default_linear_init(k, dims[i], dims[i + 1]))
+    jp = jax.device_get(params)
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(61, 45)).astype(np.float32)
+    g = rng.normal(size=(61, 3)).astype(np.float32)
+    from nrhints_torch.convert import params_from_jax
+
+    return 2, jcm.materialize_mlp_weights(jp, 2), tcm.materialize_mlp_weights(params_from_jax(jp), 2), x, g
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_mlp_stash_plain_matches_jax(trunk_case, dt):
+    """Kernels F and G's plain versions against ``mlp_relu_fwd_zs_ref`` /
+    ``mlp_relu_bwd_stash_ref`` and the Pallas stash kernels (interpret)."""
+    from nrhints_tpu.kernels import core_stash as jcs
+
+    n_layers, jw, tw, x, g = trunk_case
+    tol = STASH_TOL[dt]
+    out, zs = tcs.mlp_relu_fwd_zs_plain(tw, torch.tensor(x), n_layers, dt, dt)
+    r_out, r_zs = jcs.mlp_relu_fwd_zs_ref(list(jw), jnp.asarray(x), n_layers, dt)
+    p_out, p_zs = jcs._mlp_stash_fwd_pallas((n_layers, 32, 32, True, dt, dt), jw, jnp.asarray(x))
+    for ref_o, ref_z in ((r_out, r_zs), (p_out, p_zs)):
+        _close_scaled(_np(out), ref_o, 1e-5 if dt == "float32" else 2e-3)
+        for a, b in zip(zs, ref_z):
+            _close_scaled(_np(a), np.asarray(b, np.float32), 1e-5 if dt == "float32" else 2e-2)
+    jzs = [z.astype(jnp.dtype(dt)) for z in r_zs]
+    r_dws, r_dx = jcs.mlp_relu_bwd_stash_ref(list(jw), jnp.asarray(x), [z.astype(jnp.float32) for z in jzs],
+                                             jnp.asarray(g), n_layers, dt)
+    p_dws, p_dx = jcs._mlp_stash_bwd_pallas((n_layers, 32, 32, True, dt, dt), jw, jnp.asarray(x), jzs,
+                                            jnp.asarray(g))
+    tzs = [torch.tensor(np.asarray(z.astype(jnp.float32))).to(tcs._DTYPES[dt]) for z in jzs]
+    dws, dx = tcs.mlp_relu_bwd_stash_plain(tw, torch.tensor(x), tzs, torch.tensor(g), n_layers, dt)
+    for ref_dws, ref_dx, name in ((r_dws, r_dx, "ref"), (p_dws, p_dx, "pallas")):
+        _close_scaled(_np(dx), ref_dx, tol, f"{name} dx")
+        for k, (a, b) in enumerate(zip(dws, ref_dws)):
+            _close_scaled(_np(a), b, tol, f"{name} dw[{k}]")
+
+
+def _stash_loss(sdf_v, feat, gx, coef):
+    return (torch.sum(sdf_v * coef[0]) + torch.sum(feat * coef[1]) + torch.sum(gx * coef[2])
+            + torch.sum((torch.linalg.norm(gx, dim=-1) - 1.0) ** 2))
+
+
+def test_sdf_stash_fn_matches_double_backward(stash_case):
+    """``SdfStashFn`` through autograd against an independent second-order
+    reference: the gradient taken by ``torch.autograd.grad(create_graph=
+    True)`` of the plain forward's sdf, then differentiated again.  f32
+    compute and stash: 2e-3 of each leaf's scale."""
+    jc, tc, x, cots, _, tw = stash_case
+    coef = [torch.tensor(c) for c in cots]
+    ws = [w.detach().clone().requires_grad_(True) for w in tw]
+    xt = torch.tensor(x, requires_grad=True)
+    s, f, gx = tcs.SdfStashFn.apply(tc, "float32", "float32", xt, *ws)
+    g_port = torch.autograd.grad(_stash_loss(s, f, gx, coef), [xt, *ws])
+
+    ws2 = [w.detach().clone().requires_grad_(True) for w in tw]
+    xt2 = torch.tensor(x, requires_grad=True)
+    s2, f2, _ = tcm.sdf_core_plain(ws2, xt2, tc, "float32")
+    gx2 = torch.autograd.grad(s2.sum(), xt2, create_graph=True)[0]
+    g_ref = torch.autograd.grad(_stash_loss(s2, f2, gx2, coef), [xt2, *ws2])
+    _close_scaled(_np(gx), _np(gx2), 1e-4, "grad")
+    for k, (a, b) in enumerate(zip(g_port, g_ref)):
+        _close_scaled(_np(a), _np(b), STASH_TOL["float32"], f"leaf {k}")
+
+
+def test_mlp_stash_fn_matches_autograd(trunk_case):
+    """``MlpStashFn`` against autograd of the plain forward, f32."""
+    n_layers, _, tw, x, g = trunk_case
+    ws = [w.detach().clone().requires_grad_(True) for w in tw]
+    xt = torch.tensor(x, requires_grad=True)
+    out = tcs.MlpStashFn.apply(n_layers, "float32", "float32", xt, *ws)
+    g_port = torch.autograd.grad(torch.sum(out * torch.tensor(g)), [xt, *ws])
+    ws2 = [w.detach().clone().requires_grad_(True) for w in tw]
+    xt2 = torch.tensor(x, requires_grad=True)
+    out2, _ = tcs.mlp_relu_fwd_zs_plain(ws2, xt2, n_layers)
+    g_ref = torch.autograd.grad(torch.sum(out2 * torch.tensor(g)), [xt2, *ws2])
+    for k, (a, b) in enumerate(zip(g_port, g_ref)):
+        _close_scaled(_np(a), _np(b), 1e-5, f"leaf {k}")
+
+
+def test_stash_layouts():
+    """The packed layouts the CUDA kernels read: stash columns on 16-column
+    boundaries, dW products on 16-element boundaries, the shipping widths."""
+    from nrhints_torch.fields.sdf import SDFNetConfig
+
+    cols = tcs.sdf_stash_columns(SDFNetConfig())
+    assert [w for _, w in cols] == [256, 256, 256, 217, 256, 256, 256, 256]
+    assert all(off % 16 == 0 for off, _ in cols) and cols[-1][0] + 256 == 2016
+    jobs, n_scratch, n_dw = tcs.dw_jobs([(64, 48, 256), (64, 256, 224), (32, 256, 256)])
+    assert (jobs[:, :2] % 16 == 0).all() and (jobs[:, 5] % 16 == 0).all()
+    assert n_scratch == 64 * (48 + 256) + 64 * (256 + 224) + 32 * 512 and n_dw == 48 * 256 + 256 * 224 + 256 * 256
+    with pytest.raises(ValueError):
+        tcs.dw_jobs([(24, 16, 16)])
+    assert tcs.dw_split(16) == 1 and tcs.dw_split(65536) == tcs.MAX_SPLIT
+    w = [torch.zeros(361, 256), torch.zeros(256), torch.zeros(256, 256), torch.zeros(256), torch.zeros(256, 3),
+         torch.zeros(3)]
+    pk = tcs.pack_mlp(w, 2)
+    assert list(pk["meta"][:4]) == [3, 361, 3, 512]
+    assert tcs.mlp_stash_columns(pk) == [(0, 256), (256, 256)]

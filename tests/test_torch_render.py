@@ -68,8 +68,10 @@ UNPORTED = [
     ({"eval_reflectance_impl": "pallas"}, {}),
     ({"shadow_hint_gradient": True}, {}),
     ({"n_importance_samples": 32}, {}),
-    ({}, {"is_training": True}),
-    ({}, {"geometry_warmup": True}),
+    ({"core_backward": "recompute"}, {"is_training": True}),
+    ({"core_backward": "stash_all"}, {"is_training": True}),
+    ({"core_backward": "stash_xla"}, {"is_training": True}),
+    ({"reflectance_impl": "xla"}, {"is_training": True}),
     ({}, {"mesh": object()}),
 ]
 
@@ -81,7 +83,36 @@ def test_unported_branches_raise(renderer_kw, call_kw):
     tc = dataclasses.replace(tc, renderer=dataclasses.replace(tc.renderer, **renderer_kw))
     _, trays = ray_bundles(0, n=4)
     with pytest.raises(NotImplementedError):
-        tr.render_rays(tp, tc, trays, **call_kw)
+        tr.render_rays(tp, tc, trays, torch.Generator().manual_seed(0), **call_kw)
+
+
+@pytest.mark.parametrize(
+    "call_kw", [{"is_training": True}, {"geometry_warmup": True}, {"is_training": True, "geometry_warmup": True}],
+    ids=["is_training", "geometry_warmup", "training_geometry_warmup"],
+)
+def test_training_branches_match_jax(call_kw):
+    """The training render (jittered samples, the stash ops) and the
+    geometry warm-up (hints zeroed) against JAX with the same uniforms,
+    at the f32 march's tolerances."""
+    import jax
+
+    jc, tc = model_configs(march_dtype="float32")
+    jp, tp = model_params(jc)
+    jrays, trays = ray_bundles(0)
+    key = jax.random.PRNGKey(3)
+    k_strat, _, k_shadow = jax.random.split(key, 3)
+    uniforms = {
+        "strat": torch.tensor(np.asarray(jax.random.uniform(k_strat, (trays.origins.shape[0], 1)))),
+        "shadow": torch.tensor(np.asarray(jax.random.uniform(k_shadow, (trays.origins.shape[0], 64)))),
+    }
+    jo = jr.render_rays(jp, jc, jrays, key, background_rgb=jnp.ones((1, 3)), **call_kw)
+    to = tr.render_rays(tp, tc, trays, background_rgb=torch.ones(1, 3), uniforms=uniforms, **call_kw)
+    tol = TOLS["float32"]
+    for k in ("rgb", "weights", "depth", "visibilities"):
+        np.testing.assert_allclose(getattr(to, k).detach().numpy(), np.asarray(getattr(jo, k)), atol=tol[k], err_msg=k)
+    warm = call_kw.get("geometry_warmup", False)
+    assert (float(to.visibilities.abs().max()) == 0.0) == warm
+    assert (float(to.specular_cue.abs().max()) == 0.0) == warm
 
 
 def test_hash_encoding_raises():
