@@ -9,24 +9,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    per source, in parallel) and print each kernel's registers, shared
    memory and spills;
 3. kernels: run kernels A (SDF core), B (march round machinery), C
-   (shadow final sweep), D and E (the SDF stash op's forward and backward)
-   and F and G (the reflectance trunk's stash op) at the shapes of one
-   512-ray chunk or train step of the full-width model, hold each against
-   its plain PyTorch version on the same inputs, and time both with CUDA
+   (shadow final sweep), D and E (the SDF stash op's forward and backward),
+   F and G (the reflectance trunk's stash op), H (the SDF core's recompute
+   backward) and I and J (the trunk's forward and recompute backward) at
+   the shapes of one 512-ray chunk or train step of the full-width model,
+   hold each against its plain PyTorch version on the same inputs (E, G, H
+   and J also against a second run, bit for bit), and time both with CUDA
    events beside the kernel's bound;
 4. eval path: render one 128x128 view of the nr-hints model (random
    weights from a fixed seed) with Evaluator.render_image on the card,
    check the outputs and that every kernel's launch count moved, then
    render 64 of its pixels on the CPU (plain versions) and compare;
+4b. the same view with eval_reflectance_impl="pallas" (kernel I for the
+   trunk): its launches, and its images against phase 4's;
 5. train path: train the nr-hints-cam-opt model at full width on 512-ray
    PixelSampler batches from 8 views of the procedural scene (3 warm-up
    steps, 20 timed), check the loss, that the parameters moved and the
    launches per step, profile one step, and hold one 64-ray step's
-   gradients on the card against the same step on the CPU.
+   gradients on the card against the same step on the CPU;
+6. recompute train path: the same under core_backward="recompute"
+   (kernels A, H, I, J instead of D, E, F, G) on the same batches, 3
+   warm-up steps and 10 timed, with the same checks.
 It prints a {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -47,11 +55,20 @@ H100_BYTES_PER_S = 3.35e12  # HBM3
 # (same comparisons, so z and sdf must match bit for bit); the draw sums in
 # the same order on both sides, so new_z differs only by exp/log/division
 # ulps.  C: as A, plus the bf16 activations between layers.
-# D and F: as A.  E and G: each gradient against its own scale; the
-# backward chains twice as many bf16-operand products as the forward, and
-# the dW sums over the points run in another order.
+# D, F and I: as A.  E, G, H and J: each gradient against its own scale;
+# the backward chains twice as many bf16-operand products as the forward,
+# and the dW sums over the points run in another order (H's plain version,
+# autograd, also rounds each dot's result to bf16 where H rounds operands).
+# J's plain version recomputes the z_i in its own summation order, and a z_i
+# within rounding of 0 takes the other side of the ReLU there: that point's
+# dx then moves by a whole unit's share (51 flips among 67M z_i moved dx by
+# 6.9e-2 of its scale in a CPU trial).  So J is held entry by entry (2e-2 of
+# each gradient's scale) against the plain backward at the forward's own
+# z_i (kernel I's, which J recomputes bit for bit), and against the wholly
+# plain backward by the relative norm of the error, 2e-2 per gradient.
 TOL = {"sdf_core_fwd": 1e-2, "round_machinery": 1e-4, "shadow_final": 1e-2, "sdf_stash_fwd": 1e-2,
-       "sdf_stash_bwd": 2e-2, "mlp_stash_fwd": 1e-2, "mlp_stash_bwd": 2e-2}
+       "sdf_stash_bwd": 2e-2, "mlp_stash_fwd": 1e-2, "mlp_stash_bwd": 2e-2, "sdf_core_bwd": 2e-2,
+       "mlp_fwd": 1e-2, "mlp_bwd": 2e-2}
 # The CPU re-render of 64 pixels runs every plain version on the host: its
 # march sweeps and core sum in other orders, so bf16 rounding flips move a
 # few samples; the composite absorbs that to well below these bounds.
@@ -62,6 +79,19 @@ CPU_TOL = {"rgb": 2e-2, "depth": 2e-2, "shadow_map": 2e-2}
 # each gradient by a few per cent of its largest entry at most.
 GRAD_TOL = 5e-2
 TRAIN_STEPS, TRAIN_WARMUP = 20, 3
+RECOMPUTE_STEPS = 10
+# Device-time groups of a profiled train step: (substring of the kernel's
+# name, group), the first match wins.
+STEP_GROUPS = (
+    ("sdf_core_fwd_kernel<0>", "kernel A sdf_core_fwd"), ("sdf_core_fwd_kernel<1>", "kernel D sdf_stash_fwd"),
+    ("sdf_core_fwd_kernel<2>", "kernel H, forward pass (H1)"),
+    ("sdf_bwd_chain_kernel<false>", "kernel E sdf_stash_bwd (E1)"), ("sdf_bwd_chain_kernel<true>", "kernel H chain (H2)"),
+    ("mlp_fwd_kernel<true>", "kernel F mlp_stash_fwd"), ("mlp_fwd_kernel<false>", "kernel I mlp_fwd"),
+    ("mlp_bwd_kernel<false>", "kernel G mlp_stash_bwd (G1)"), ("mlp_bwd_kernel<true>", "kernel J mlp_bwd (J1)"),
+    ("dw_partial", "dW passes of E/G/H/J (dw_sum.cuh)"), ("dw_reduce", "dW passes of E/G/H/J (dw_sum.cuh)"),
+    ("colsum", "dW passes of E/G/H/J (dw_sum.cuh)"), ("round_machinery", "kernel B round_machinery"),
+    ("shadow_final", "kernel C shadow_final"),
+)
 
 
 def log(msg: str) -> None:
@@ -111,6 +141,30 @@ def tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: tree_to(v, dev) for k, v in tree.items()}
     return tree.detach().clone().to(dev)
+
+
+def device_groups(prof, groups=STEP_GROUPS) -> dict[str, float]:
+    """Device ms by group from a torch.profiler run; kernels outside
+    ``groups`` count as cuBLAS or other PyTorch kernels."""
+    import torch
+
+    out: dict[str, float] = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        g = next((label for key, label in groups if key in e.key), None)
+        if g is None:
+            low = e.key.lower()
+            g = "matmul (cuBLAS)" if ("gemm" in low or "cutlass" in low) else "other PyTorch kernels"
+        out[g] = out.get(g, 0.0) + us / 1e3
+    return out
+
+
+def grad_norm_err(kernel_outs, plain_outs) -> float:
+    """max over outputs of |kernel - plain|_2 / |plain|_2."""
+    return max((k.float() - p.float()).norm().item() / max(p.float().norm().item(), 1e-30)
+               for k, p in zip(kernel_outs, plain_outs))
 
 
 def bound(flops: float, bytes_: float, peak_flops: float) -> tuple[float, str]:
@@ -327,6 +381,28 @@ def main() -> int:
     if not e_rel <= TOL["sdf_stash_bwd"]:
         raise AssertionError(f"kernel E disagrees with its plain version: rel {e_rel:.3e}")
 
+    # H: the recompute backward at the same points and cotangents.
+    h_dws, h_dx = core_mlp.sdf_core_bwd(aw, x, cots, scfg)
+    h2_dws, h2_dx = core_mlp.sdf_core_bwd(aw, x, cots, scfg)
+    if not (torch.equal(h_dx, h2_dx) and all(torch.equal(a, b) for a, b in zip(h_dws, h2_dws))):
+        raise AssertionError("kernel H's gradients differ between two runs")
+    hp_dws, hp_dx = core_mlp.sdf_core_bwd_plain(aw, x, cots, scfg, "bfloat16")
+    h_abs, h_rel = grad_err([h_dx, *h_dws], [hp_dx, *hp_dws])
+    he_rel = grad_err([h_dx, *h_dws], [e_dx, *e_dws])[1]
+    del hp_dws, hp_dx, h2_dws, h2_dx
+    h_ms = cuda_ms(lambda: core_mlp.sdf_core_bwd(aw, x, cots, scfg), 10)
+    h_plain_ms = cuda_ms(lambda: core_mlp.sdf_core_bwd_plain(aw, x, cots, scfg, "bfloat16"), 3, warmup=1)
+    # E's operations plus the recomputed forward layers; it must read x and
+    # the cotangents and write dx and every dW.
+    h_flops = e_flops + 2.0 * n_pts * hidden
+    h_bytes = n_pts * 4 * (3 + 1 + d_feat + 3 + 3) + 2 * n_w + 4 * n_w
+    h_bound, h_by = bound(h_flops, h_bytes, H100_BF16_FLOPS)
+    log(f"[kernel H] sdf_core_bwd: N={n_pts}, repeats bit for bit, max abs err {h_abs:.3e} (rel to each gradient "
+        f"{h_rel:.3e}; against kernel E's gradients {he_rel:.3e}), {h_ms:.4f} ms, plain {h_plain_ms:.4f} ms, "
+        f"bound {h_bound:.4f} ms ({h_by}, {h_flops / 1e9:.1f} GFLOP)")
+    if not h_rel <= TOL["sdf_core_bwd"]:
+        raise AssertionError(f"kernel H disagrees with its plain version: rel {h_rel:.3e}")
+
     # F and G: the reflectance trunk on 65,536 points of random 361-wide
     # inputs, G at a random cotangent of its 3 outputs.
     n_lay = mcfg.reflectance_network.n_layers
@@ -335,7 +411,7 @@ def main() -> int:
     trng = np.random.default_rng(6)
     xt = torch.tensor(trng.normal(size=(n_pts, d_tin)).astype(np.float32), device=dev)
     gt_out = torch.tensor(trng.normal(size=(n_pts, 3)).astype(np.float32), device=dev)
-    mcols = core_stash.mlp_stash_columns(core_stash.pack_mlp(tw, n_lay))
+    mcols = core_stash.mlp_stash_columns(core_mlp.pack_mlp(tw, n_lay))
     f_out, f_zs = core_stash.mlp_stash_fwd(tw, xt, n_lay)
     fp_out, fp_zs = core_stash.mlp_relu_fwd_zs_plain(tw, xt, n_lay, "bfloat16", "bfloat16")
     f_abs, f_rel = max_err([f_out, *core_stash.split_stash(f_zs, mcols)], [fp_out, *fp_zs])
@@ -361,7 +437,44 @@ def main() -> int:
         f"{g_ms:.4f} ms, plain {g_plain_ms:.4f} ms, bound {g_bound:.4f} ms ({g_by})")
     if not g_rel <= TOL["mlp_stash_bwd"]:
         raise AssertionError(f"kernel G disagrees with its plain version: rel {g_rel:.3e}")
+
+    # I and J: the trunk without a stash, on the same inputs.
+    i_out = core_mlp.mlp_fwd(tw, xt, n_lay)
+    if not torch.equal(i_out, f_out):
+        raise AssertionError("kernel I's output differs from kernel F's")
+    i_abs, i_rel = max_err([i_out], [core_mlp.mlp_relu_plain(tw, xt, n_lay, "bfloat16")])
+    i_ms = cuda_ms(lambda: core_mlp.mlp_fwd(tw, xt, n_lay), 10)
+    i_plain_ms = cuda_ms(lambda: core_mlp.mlp_relu_plain(tw, xt, n_lay, "bfloat16"), 3, warmup=1)
+    i_bound, i_by = bound(2.0 * n_pts * trunk_macs, n_pts * (4 * d_tin + 4 * 3) + 2 * n_tw, H100_BF16_FLOPS)
+    log(f"[kernel I] mlp_fwd: N={n_pts}, output equals kernel F's, max abs err {i_abs:.3e} (rel {i_rel:.3e}), "
+        f"{i_ms:.4f} ms, plain {i_plain_ms:.4f} ms, bound {i_bound:.4f} ms ({i_by})")
+    if not i_rel <= TOL["mlp_fwd"]:
+        raise AssertionError(f"kernel I disagrees with its plain version: rel {i_rel:.3e}")
+    j_dws, j_dx = core_mlp.mlp_bwd(tw, xt, gt_out, n_lay)
+    j2_dws, j2_dx = core_mlp.mlp_bwd(tw, xt, gt_out, n_lay)
+    if not (torch.equal(j_dx, j2_dx) and all(torch.equal(a, b) for a, b in zip(j_dws, j2_dws))):
+        raise AssertionError("kernel J's gradients differ between two runs")
+    j_as_g = torch.equal(j_dx, g_dx) and all(torch.equal(a, b) for a, b in zip(j_dws, g_dws))
+    jp_dws, jp_dx = core_mlp.mlp_relu_bwd_plain(tw, xt, gt_out, n_lay, "bfloat16")
+    j_abs, j_rel_plain = grad_err([j_dx, *j_dws], [jp_dx, *jp_dws])
+    j_norm = grad_norm_err([j_dx, *j_dws], [jp_dx, *jp_dws])
+    jz_dws, jz_dx = core_mlp.mlp_relu_bwd_plain(tw, xt, gt_out, n_lay, "bfloat16",
+                                                 zs=[z.float() for z in core_stash.split_stash(f_zs, mcols)])
+    j_rel = grad_err([j_dx, *j_dws], [jz_dx, *jz_dws])[1]
+    del jz_dws, jz_dx
+    j_ms = cuda_ms(lambda: core_mlp.mlp_bwd(tw, xt, gt_out, n_lay), 10)
+    j_plain_ms = cuda_ms(lambda: core_mlp.mlp_relu_bwd_plain(tw, xt, gt_out, n_lay, "bfloat16"), 3, warmup=1)
+    # The recomputed forward, the dx chain and the dW products.
+    j_bytes = n_pts * (4 * d_tin + 4 * 3 + 4 * d_tin) + 2 * n_tw + 4 * n_tw
+    j_bound, j_by = bound(6.0 * n_pts * trunk_macs, j_bytes, H100_BF16_FLOPS)
+    log(f"[kernel J] mlp_bwd: N={n_pts}, repeats bit for bit, equal to kernel G's at F's stash: {j_as_g}; against "
+        f"the plain backward at the forward's z: rel to each gradient {j_rel:.3e}; against the plain backward: max "
+        f"abs err {j_abs:.3e} (rel to each gradient {j_rel_plain:.3e}, ReLU mask flips), relative norm of the error "
+        f"{j_norm:.3e}; {j_ms:.4f} ms, plain {j_plain_ms:.4f} ms, bound {j_bound:.4f} ms ({j_by})")
+    if not (j_rel <= TOL["mlp_bwd"] and j_norm <= TOL["mlp_bwd"]):
+        raise AssertionError(f"kernel J disagrees with its plain version: rel {j_rel:.3e}, norm {j_norm:.3e}")
     del d_out, d_plain, e_dws, e_dx, e2_dws, e2_dx, p_dws, p_dx, f_zs, fp_zs, g_dws, g_dx, gp_dws, gp_dx
+    del h_dws, h_dx, i_out, j_dws, j_dx, j2_dws, j2_dx, jp_dws, jp_dx
     torch.cuda.empty_cache()
 
     # 4. Main path: one 128x128 view through Evaluator.render_image.
@@ -409,16 +522,7 @@ def main() -> int:
         ev.render_image(params, view)
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3
-    groups: dict[str, float] = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0.0)
-        if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = e.key.lower()
-        g = next((k for k in ("sdf_core_fwd", "round_machinery", "shadow_final") if k in name), None)
-        if g is None:
-            g = "matmul (cuBLAS)" if ("gemm" in name or "cutlass" in name) else "other PyTorch kernels"
-        groups[g] = groups.get(g, 0.0) + us / 1e3
+    groups = device_groups(prof, tuple((k, k) for k in ("sdf_core_fwd", "round_machinery", "shadow_final")))
     busy = sum(groups.values())
     if busy > 0:
         log(f"[profile] one view: device busy {busy:.1f} ms; idle share {1 - busy / (secs * 1e3):.3f} of the "
@@ -443,19 +547,36 @@ def main() -> int:
         if not e <= tol:
             raise AssertionError(f"CPU and card renders disagree on {k}: {e:.3e}")
 
+    # 4b. The same view with the fused eval trunk (kernel I, never F).
+    pcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        mcfg, renderer=dataclasses.replace(mcfg.renderer, eval_reflectance_impl="pallas")))
+    ev_p = Evaluator(pcfg, camera, {}, device="cuda")
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    img_p = ev_p.render_image(params, view)
+    torch.cuda.synchronize()
+    secs_p = time.perf_counter() - t0
+    launches_p = dict(cuda_lib.launch_counts)
+    expected_p = dict(expected, mlp_fwd=n_chunks)
+    log(f"[main path 4b] {H}x{W} view, eval_reflectance_impl='pallas': {secs_p:.4f} s, {H * W / secs_p:.1f} rays/s "
+        f"on {smi}; launches {launches_p}")
+    if launches_p != expected_p:
+        raise AssertionError(f"launch counts {launches_p}, expected {expected_p}")
+    if {k: v.shape for k, v in img_p.items()} != shapes or not all(np.all(np.isfinite(v)) for v in img_p.values()):
+        raise AssertionError("the fused-trunk view's outputs are malformed or not finite")
+    for k, tol in CPU_TOL.items():
+        e = float(np.abs(img_p[k] - img[k]).max())
+        log(f"[main path 4b] fused trunk vs phase 4's f32 trunk, whole view, {k}: max abs err {e:.3e} (tol {tol})")
+        if not e <= tol:
+            raise AssertionError(f"the fused-trunk view disagrees with phase 4's on {k}: {e:.3e}")
+
     # 5. Train path: nr-hints-cam-opt at full width, 512-ray batches of 8
     # procedural views, through make_train_step.
     tcfg = nr_hints_cam_opt()
     n_views = 8
     sc = scene_views(n_views, H, W, seed=0)
     tcam = CameraModel(H, W, W / 2.0, H / 2.0, sc["focal"], sc["focal"], 0.1, 6.0)
-    tgen = torch.Generator().manual_seed(0)
-    tparams = {"renderer": init_model_params(tcfg.model, tgen, device=dev)}
-    tparams["raygen"], tbuffers = ray_generator_init(tgen, tcfg.ray_generator, n_views, device=dev)
-    start = {name: t.detach().clone() for name, t in tree_items(tparams)}
-    opt = make_optimizer(tcfg, tparams)
-    state = init_train_state(tparams, opt)
-    step_fn = make_train_step(tcfg, tcam, tbuffers, opt)
     sampler = PixelSampler(n_views, H, W, tcfg.model.batch_size)
     images, poses, pls_v = (torch.tensor(sc[k], device=dev) for k in ("images", "poses", "pls"))
 
@@ -465,126 +586,130 @@ def main() -> int:
         return PixelBundle(h_indices=hi.float(), w_indices=wi.float(), poses=poses[img], pls=pls_v[img],
                            img_indices=img, rgb_gt=images[img, hi, wi])
 
-    step_gen = torch.Generator(device=dev).manual_seed(0)
-    for _ in range(TRAIN_WARMUP):
-        state, metrics = step_fn(state, next_batch(), step_gen)
-    batches = [next_batch() for _ in range(TRAIN_STEPS + 1)]
-    torch.cuda.synchronize()
-    cuda_lib.reset_launch_counts()
-    t0 = time.perf_counter()
-    losses = []
-    for b in batches[:TRAIN_STEPS]:
-        state, metrics = step_fn(state, b, step_gen)
-        losses.append(metrics["loss"])
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / TRAIN_STEPS
-    train_launches = dict(cuda_lib.launch_counts)
-    per_step = {k: 0 for k in cuda_lib.launch_counts}
-    per_step.update(round_machinery=10, shadow_final=1, sdf_stash_fwd=1, sdf_stash_bwd=1, mlp_stash_fwd=1,
-                    mlp_stash_bwd=1)
-    losses = [float(v) for v in losses]
-    log(f"[train path] nr-hints-cam-opt, {tcfg.model.batch_size} rays/step: {step_s:.5f} s/step, "
-        f"{tcfg.model.batch_size / step_s:.1f} train rays/s on {smi}; loss {losses[0]:.5f} -> {losses[-1]:.5f}, "
-        f"psnr {float(metrics['psnr']):.3f}; launches over {TRAIN_STEPS} steps {train_launches}")
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite training loss: {losses}")
-    if train_launches != {k: v * TRAIN_STEPS for k, v in per_step.items()}:
-        raise AssertionError(f"train launch counts {train_launches}, expected {per_step} per step")
-    moved = {group: any(not torch.equal(t.detach(), start[name]) for name, t in tree_items(tparams)
-                        if name.startswith(f"/{group}/")) for group in ("renderer", "raygen")}
-    if not all(moved.values()):
-        raise AssertionError(f"parameters did not move: {moved}")
-    n_moved = sum(not torch.equal(t.detach(), start[name]) for name, t in tree_items(tparams))
-    log(f"[train path] {n_moved} of {len(start)} parameter leaves moved, raygen's pose deltas included")
-
-    # Where the time of one step goes: one more step under torch.profiler;
-    # the idle share is taken against the unprofiled step, as for the view.
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, batches[TRAIN_STEPS], step_gen)
-        torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - t0) * 1e3
-    tgroups: dict[str, float] = {}
-    names = (("sdf_core_fwd_kernel<true>", "kernel D sdf_stash_fwd"), ("sdf_stash_bwd", "kernel E sdf_stash_bwd (E1)"),
-             ("mlp_stash_fwd", "kernel F mlp_stash_fwd"), ("mlp_stash_bwd", "kernel G mlp_stash_bwd (G1)"),
-             ("dw_partial", "E2 + G2 dW passes"), ("dw_reduce", "E2 + G2 dW passes"),
-             ("colsum", "E2 + G2 dW passes"), ("round_machinery", "kernel B round_machinery"),
-             ("shadow_final", "kernel C shadow_final"), ("sdf_core_fwd_kernel<false>", "kernel A sdf_core_fwd"))
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0.0)
-        if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = e.key
-        g = next((label for key, label in names if key in name), None)
-        if g is None:
-            low = name.lower()
-            g = "matmul (cuBLAS)" if ("gemm" in low or "cutlass" in low) else "other PyTorch kernels"
-        tgroups[g] = tgroups.get(g, 0.0) + us / 1e3
-    tbusy = sum(tgroups.values())
-    if tbusy > 0:
-        log(f"[profile] one train step: device busy {tbusy:.2f} ms; idle share {1 - tbusy / (step_s * 1e3):.3f} of "
-            f"the unprofiled step ({step_s * 1e3:.2f} ms), {1 - tbusy / prof_wall:.3f} of the profiled wall "
-            f"({prof_wall:.2f} ms)")
-        for g, ms in sorted(tgroups.items(), key=lambda kv: -kv[1]):
-            log(f"[profile]   {g}: {ms:.3f} ms ({ms / tbusy:.3f} of device time)")
-    else:
-        log("[profile] the profiler recorded no device time: breakdown not measured")
-
-    # One 64-ray step from the trained state on the card and on the CPU
-    # (plain versions), the same pixels and uniforms: every gradient leaf.
+    batches = [next_batch() for _ in range(TRAIN_WARMUP + TRAIN_STEPS + 1)]
     b64 = next_batch(64)
     urng = np.random.default_rng(7)
     u64 = {"strat": urng.random((64, 1), dtype=np.float32),
            "shadow": urng.random((64, tcfg.model.renderer.n_shadow_samples), dtype=np.float32)}
-    grads = {}
-    for where in ("cuda", "cpu"):
-        p_ = tree_to(state.params, where)
-        st = init_train_state(p_, make_optimizer(tcfg, p_))
-        st.step = state.step
-        bt = PixelBundle(**{f: getattr(b64, f).to(where) for f in ("h_indices", "w_indices", "poses", "pls",
-                                                                   "img_indices", "rgb_gt")})
-        m_ = loss_and_grads(st, tcfg, tcam, tree_to(tbuffers, where), bt,
-                            uniforms={k: torch.tensor(v, device=where) for k, v in u64.items()})
-        grads[where] = ({name: t.grad.detach().cpu() for name, t in tree_items(p_)}, float(m_["loss"]))
-    worst, worst_leaf = 0.0, ""
-    for name, g in grads["cpu"][0].items():
-        e = (grads["cuda"][0][name] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
-        if e > worst:
-            worst, worst_leaf = e, name
-    log(f"[train path] 64-ray step, card vs CPU plain: loss {grads['cuda'][1]:.6f} vs {grads['cpu'][1]:.6f}; "
-        f"worst gradient leaf {worst_leaf}: {worst:.3e} of its scale (tol {GRAD_TOL}) over {len(grads['cpu'][0])} leaves")
-    if not worst <= GRAD_TOL:
-        raise AssertionError(f"card and CPU gradients disagree: {worst_leaf} {worst:.3e}")
+
+    def train_phase(label: str, scfg_, n_steps: int, per_step: dict) -> dict:
+        """Train a fresh seed-0 state of ``scfg_`` on ``batches``: warm-up,
+        ``n_steps`` timed steps (launches checked against ``per_step``), one
+        profiled step, and one 64-ray step's gradients against the CPU."""
+        tgen = torch.Generator().manual_seed(0)
+        tparams = {"renderer": init_model_params(scfg_.model, tgen, device=dev)}
+        tparams["raygen"], tbuffers = ray_generator_init(tgen, scfg_.ray_generator, n_views, device=dev)
+        start = {name: t.detach().clone() for name, t in tree_items(tparams)}
+        opt = make_optimizer(scfg_, tparams)
+        state = init_train_state(tparams, opt)
+        step_fn = make_train_step(scfg_, tcam, tbuffers, opt)
+        step_gen = torch.Generator(device=dev).manual_seed(0)
+        for b in batches[:TRAIN_WARMUP]:
+            state, metrics = step_fn(state, b, step_gen)
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = []
+        for b in batches[TRAIN_WARMUP : TRAIN_WARMUP + n_steps]:
+            state, metrics = step_fn(state, b, step_gen)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / n_steps
+        launches_ = dict(cuda_lib.launch_counts)
+        expected_ = {k: 0 for k in cuda_lib.launch_counts}
+        expected_.update(round_machinery=10, shadow_final=1, **per_step)
+        losses = [float(v) for v in losses]
+        log(f"[{label}] {scfg_.model.batch_size} rays/step, core_backward={scfg_.model.renderer.core_backward!r}: "
+            f"{step_s:.5f} s/step, {scfg_.model.batch_size / step_s:.1f} train rays/s on {smi}; loss {losses[0]:.5f} "
+            f"-> {losses[-1]:.5f}, psnr {float(metrics['psnr']):.3f}; launches over {n_steps} steps {launches_}")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"non-finite training loss: {losses}")
+        if launches_ != {k: v * n_steps for k, v in expected_.items()}:
+            raise AssertionError(f"train launch counts {launches_}, expected {expected_} per step")
+        moved = {group: any(not torch.equal(t.detach(), start[name]) for name, t in tree_items(tparams)
+                            if name.startswith(f"/{group}/")) for group in ("renderer", "raygen")}
+        if not all(moved.values()):
+            raise AssertionError(f"parameters did not move: {moved}")
+        n_moved = sum(not torch.equal(t.detach(), start[name]) for name, t in tree_items(tparams))
+        log(f"[{label}] {n_moved} of {len(start)} parameter leaves moved, raygen's pose deltas included")
+
+        # Where the time of one step goes: one more step under
+        # torch.profiler; the idle share is taken against the unprofiled
+        # step (the profiled wall carries the profiler's host overhead).
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batches[TRAIN_WARMUP + n_steps], step_gen)
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t0) * 1e3
+        tgroups = device_groups(prof)
+        tbusy = sum(tgroups.values())
+        if tbusy > 0:
+            log(f"[profile] one {label} step: device busy {tbusy:.2f} ms; idle share {1 - tbusy / (step_s * 1e3):.3f} "
+                f"of the unprofiled step ({step_s * 1e3:.2f} ms), {1 - tbusy / prof_wall:.3f} of the profiled wall "
+                f"({prof_wall:.2f} ms)")
+            for g, ms in sorted(tgroups.items(), key=lambda kv: -kv[1]):
+                log(f"[profile]   {g}: {ms:.3f} ms ({ms / tbusy:.3f} of device time)")
+        else:
+            log("[profile] the profiler recorded no device time: breakdown not measured")
+
+        # One 64-ray step from the trained state on the card and on the CPU
+        # (plain versions), the same pixels and uniforms: every gradient leaf.
+        grads = {}
+        for where in ("cuda", "cpu"):
+            p_ = tree_to(state.params, where)
+            st = init_train_state(p_, make_optimizer(scfg_, p_))
+            st.step = state.step
+            bt = PixelBundle(**{f: getattr(b64, f).to(where) for f in ("h_indices", "w_indices", "poses", "pls",
+                                                                       "img_indices", "rgb_gt")})
+            m_ = loss_and_grads(st, scfg_, tcam, tree_to(tbuffers, where), bt,
+                                uniforms={k: torch.tensor(v, device=where) for k, v in u64.items()})
+            grads[where] = ({name: t.grad.detach().cpu() for name, t in tree_items(p_)}, float(m_["loss"]))
+        worst, worst_leaf = 0.0, ""
+        for name, g in grads["cpu"][0].items():
+            e = (grads["cuda"][0][name] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+            if e > worst:
+                worst, worst_leaf = e, name
+        log(f"[{label}] 64-ray step, card vs CPU plain: loss {grads['cuda'][1]:.6f} vs {grads['cpu'][1]:.6f}; worst "
+            f"gradient leaf {worst_leaf}: {worst:.3e} of its scale (tol {GRAD_TOL}) over {len(grads['cpu'][0])} leaves")
+        if not worst <= GRAD_TOL:
+            raise AssertionError(f"card and CPU gradients disagree: {worst_leaf} {worst:.3e}")
+        return launches_
+
+    train_launches = train_phase("train path", tcfg, TRAIN_STEPS, dict(
+        sdf_stash_fwd=1, sdf_stash_bwd=1, mlp_stash_fwd=1, mlp_stash_bwd=1))
+
+    # 6. The recompute schedule on the same batches.
+    rcfg = dataclasses.replace(tcfg, model=dataclasses.replace(
+        tcfg.model, renderer=dataclasses.replace(tcfg.model.renderer, core_backward="recompute")))
+    rec_launches = train_phase("recompute train path", rcfg, RECOMPUTE_STEPS, dict(
+        sdf_core_fwd=1, sdf_core_bwd=1, mlp_fwd=1, mlp_bwd=1))
+
+    def entry(name, source, replaces, launches_, err, ms, plain_ms, bound_ms, by):
+        return {"name": name, "route": "cuda", "source": f"nrhints_torch/csrc/{source}",
+                "replaces": f"nrhints_tpu/kernels/{replaces}", "launches": launches_, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
 
     kernels = [
-        {"name": "sdf_core_fwd", "route": "cuda", "source": "nrhints_torch/csrc/sdf_core.cu",
-         "replaces": "nrhints_tpu/kernels/core_mlp.py:227", "launches": launches["sdf_core_fwd"],
-         "max_abs_err": a_abs, "ms": a_ms, "plain_ms": a_plain_ms, "bound_ms": a_bound, "bound_by": a_by,
-         "library_ms": None},
-        {"name": "round_machinery", "route": "cuda", "source": "nrhints_torch/csrc/march.cu",
-         "replaces": "nrhints_tpu/kernels/march.py:392", "launches": launches["round_machinery"],
-         "max_abs_err": b_abs, "ms": b_ms, "plain_ms": b_plain_ms, "bound_ms": b_bound, "bound_by": "bytes",
-         "library_ms": None},
-        {"name": "shadow_final", "route": "cuda", "source": "nrhints_torch/csrc/march.cu",
-         "replaces": "nrhints_tpu/kernels/march.py:574", "launches": launches["shadow_final"],
-         "max_abs_err": c_abs, "ms": c_ms, "plain_ms": c_plain_ms, "bound_ms": c_bound, "bound_by": c_by,
-         "library_ms": None},
-        {"name": "sdf_stash_fwd", "route": "cuda", "source": "nrhints_torch/csrc/sdf_core.cu",
-         "replaces": "nrhints_tpu/kernels/core_stash.py:369", "launches": train_launches["sdf_stash_fwd"],
-         "max_abs_err": d_abs, "ms": d_ms, "plain_ms": d_plain_ms, "bound_ms": d_bound, "bound_by": d_by,
-         "library_ms": None},
-        {"name": "sdf_stash_bwd", "route": "cuda", "source": "nrhints_torch/csrc/sdf_stash.cu",
-         "replaces": "nrhints_tpu/kernels/core_stash.py:422", "launches": train_launches["sdf_stash_bwd"],
-         "max_abs_err": e_abs, "ms": e_ms, "plain_ms": e_plain_ms, "bound_ms": e_bound, "bound_by": e_by,
-         "library_ms": None},
-        {"name": "mlp_stash_fwd", "route": "cuda", "source": "nrhints_torch/csrc/mlp_stash.cu",
-         "replaces": "nrhints_tpu/kernels/core_stash.py:588", "launches": train_launches["mlp_stash_fwd"],
-         "max_abs_err": f_abs, "ms": f_ms, "plain_ms": f_plain_ms, "bound_ms": f_bound, "bound_by": f_by,
-         "library_ms": None},
-        {"name": "mlp_stash_bwd", "route": "cuda", "source": "nrhints_torch/csrc/mlp_stash.cu",
-         "replaces": "nrhints_tpu/kernels/core_stash.py:622", "launches": train_launches["mlp_stash_bwd"],
-         "max_abs_err": g_abs, "ms": g_ms, "plain_ms": g_plain_ms, "bound_ms": g_bound, "bound_by": g_by,
-         "library_ms": None},
+        entry("sdf_core_fwd", "sdf_core.cu", "core_mlp.py:227", launches["sdf_core_fwd"], a_abs, a_ms, a_plain_ms,
+              a_bound, a_by),
+        entry("round_machinery", "march.cu", "march.py:392", launches["round_machinery"], b_abs, b_ms, b_plain_ms,
+              b_bound, "bytes"),
+        entry("shadow_final", "march.cu", "march.py:574", launches["shadow_final"], c_abs, c_ms, c_plain_ms, c_bound,
+              c_by),
+        entry("sdf_stash_fwd", "sdf_core.cu", "core_stash.py:369", train_launches["sdf_stash_fwd"], d_abs, d_ms,
+              d_plain_ms, d_bound, d_by),
+        entry("sdf_stash_bwd", "sdf_stash.cu", "core_stash.py:422", train_launches["sdf_stash_bwd"], e_abs, e_ms,
+              e_plain_ms, e_bound, e_by),
+        entry("mlp_stash_fwd", "mlp_stash.cu", "core_stash.py:588", train_launches["mlp_stash_fwd"], f_abs, f_ms,
+              f_plain_ms, f_bound, f_by),
+        entry("mlp_stash_bwd", "mlp_stash.cu", "core_stash.py:622", train_launches["mlp_stash_bwd"], g_abs, g_ms,
+              g_plain_ms, g_bound, g_by),
+        entry("sdf_core_bwd", "sdf_core_bwd.cu", "core_mlp.py:260", rec_launches["sdf_core_bwd"], h_abs, h_ms,
+              h_plain_ms, h_bound, h_by),
+        entry("mlp_fwd", "mlp_stash.cu", "core_mlp.py:397", rec_launches["mlp_fwd"], i_abs, i_ms, i_plain_ms, i_bound,
+              i_by),
+        entry("mlp_bwd", "mlp_stash.cu", "core_mlp.py:420", rec_launches["mlp_bwd"], j_abs, j_ms, j_plain_ms, j_bound,
+              j_by),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

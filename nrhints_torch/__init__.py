@@ -6,11 +6,15 @@ package module for module, so ``nrhints_torch/fields/sdf.py`` is the
 counterpart of ``nrhints_tpu/fields/sdf.py``.  This package imports torch
 and numpy only.
 
-Slice 1 ports the whole-image relighting render (``eval/evaluator.py`` down
-to the three kernels in ``kernels/``); training follows in a later slice.
-Entry points run on the CUDA device unless the caller passes
-``device="cpu"``; on the CPU every kernel wrapper runs its plain PyTorch
-version instead.
+Slice 1 ported the whole-image relighting render (``eval/evaluator.py``
+down to kernels A, B and C), slice 2 the train step under the stash
+backward (kernels D-G), and slice 3 the recompute backward schedule
+(``core_backward="recompute"``: kernels H, I, J), ``"stash_xla"``, and the
+fused eval trunk (``eval_reflectance_impl="pallas"``: kernel I).  Entry
+points and the functions that build the model state (``init_model_params``,
+``ray_generator_init``, ``params_from_jax``) run on the CUDA device unless
+the caller passes ``device="cpu"``, and raise without CUDA; on the CPU every
+kernel wrapper runs its plain PyTorch version instead.
 """
 
 __version__ = "0.1.0"

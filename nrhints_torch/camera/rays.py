@@ -16,6 +16,7 @@ from nrhints_torch.camera.model import CameraModel
 from nrhints_torch.core.brdf import normalize
 from nrhints_torch.core.lie import exp_map_SE3, exp_map_SO3xR3
 from nrhints_torch.core.structs import PixelBundle, RayBundle
+from nrhints_torch.utils import resolve_device
 
 
 @dataclass(frozen=True)
@@ -30,9 +31,11 @@ class RayGeneratorConfig:
 
 
 def ray_generator_init(
-    generator: torch.Generator, cfg: RayGeneratorConfig, num_cameras: int, device="cpu"
+    generator: torch.Generator, cfg: RayGeneratorConfig, num_cameras: int, device="cuda"
 ) -> tuple[dict, dict]:
-    """-> (trainable params, fixed noise buffers)."""
+    """-> (trainable params, fixed noise buffers), on the card unless
+    ``device="cpu"`` (without CUDA the default raises)."""
+    device = resolve_device(device)
     params: dict = {}
     buffers: dict = {}
     if cfg.cam_opt_mode in ("SO3xR3", "SE3"):

@@ -12,9 +12,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from nrhints_torch.utils import resolve_device
 
-def params_from_jax(tree, device="cpu"):
-    """Nested dict of arrays -> the same nesting of torch tensors."""
+
+def params_from_jax(tree, device="cuda"):
+    """Nested dict of arrays -> the same nesting of torch tensors, on the
+    card unless ``device="cpu"`` (without CUDA the default raises)."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     arr = np.asarray(tree)

@@ -1,6 +1,6 @@
-// The weight-cotangent passes shared by kernels E (sdf_stash.cu) and G
-// (mlp_stash.cu): the second half of each backward, after its per-point
-// chain has written the product operands to a bf16 scratch.
+// The weight-cotangent passes shared by kernels E and H (sdf_bwd.cuh) and G
+// and J (mlp_stash.cu): the second half of each backward, after its
+// per-point chain has written the product operands to a bf16 scratch.
 //
 // On the TPU the backward kernel carried every dW sum across its
 // sequential grid.  Blocks on the card run in no order, so the sums are two
@@ -34,7 +34,7 @@ struct DwJobs {
 };
 
 // jobs = int64 [n_jobs][6] of (a_off, b_off, rows, ka, nb, c_off), as
-// nrhints_torch/kernels/core_stash.py::dw_jobs lays them out.
+// nrhints_torch/kernels/core_mlp.py::dw_jobs lays them out.
 inline int parse_jobs(const long long* t, int n_jobs, DwJobs* j) {
   if (n_jobs < 1 || n_jobs > kMaxJobs) return (int)cudaErrorInvalidValue;
   j->n = n_jobs;

@@ -1,0 +1,59 @@
+// Kernel H: the recompute backward of the SDF core, sdf_core_bwd.
+//
+// Replaces: nrhints_tpu/kernels/core_mlp.py::_sdf_core_bwd_pallas (the
+// pallas_call at :300), the VJP of kernel A's function (sdf, feat, grad_x
+// sdf) with respect to every weight and to x, under
+// core_backward="recompute": the TPU kernel re-reads only x and the
+// cotangents, recomputes the forward chain block by block and runs jax.vjp
+// over sdf_core_ref, which carries the eikonal loss's second-order terms.
+// Nothing is kept from the forward call.  Dot operands are bf16 (the
+// shipping compute_dtype); everything else is f32.  The gates are
+// sigmoid(100 z_i) of the f32 pre-activations, as sdf_core_ref computes
+// them, not kernel E's 1 - exp(-100 h) of a bf16 h, so H's gradients are
+// close to E's but not equal to them.
+//
+// Bound on an H100, per 512-ray step of 65,536 points at full width:
+// kernel E's operations (the reverse sweep, its VJP, the z-chain, both dW
+// halves and the heads, 317.9 GFLOP) plus the recomputed forward layers
+// (60.1 GFLOP), about 378 GFLOP: 0.38 ms at 989 TFLOP/s bf16.  It must read
+// x and the cotangents (68 MB) and write dx and dW: bound by operations.
+//
+// Design.  E's per-point chain already keeps every layer's u_i in shared
+// memory (129 KB for 16 points); holding the recomputed gates beside it
+// (another 129 KB in f32) would not fit the 227 KB a block may use.  So H
+// is two stages in one launcher, with a transient scratch that the wrapper
+// allocates for this call only and frees when it returns:
+//   H1 (sdf_fwd.cuh, kFwdRecompute): kernel A's layer loop on 16-point
+//      blocks, writing every h_i in bf16 (the value every dot of the
+//      backward reads, as kernel D's stash) and every gate in f32 to
+//      device memory; no heads and no reverse sweep.  58 KB of shared
+//      memory per block.
+//   H2 (sdf_bwd.cuh with GATES = true): kernel E's chain and its split-K dW
+//      passes (dw_sum.cuh), reading the f32 gates instead of recovering
+//      them from h.  The dW sums run in a fixed order: the gradients repeat
+//      bit for bit.
+// The scratch is 6 bytes per point per padded hidden unit (2,016 at full
+// width): 793 MB at 65,536 points (264 MB bf16 h, 528 MB f32 gates).
+#include "sdf_bwd.cuh"
+#include "sdf_fwd.cuh"
+
+using namespace nrh;
+
+extern "C" int sdf_core_bwd(const float* x, const float* ds, const float* df, const float* dgx,
+                            const void* wpack, const float* bpack, const float* w_sdf, void* hs, float* gates,
+                            float* dx, void* scratch, float* partial, float* colsum, float* part_dw, float* dw,
+                            const long long* jobs, int n_jobs, int split, int n, const int* meta, float scale,
+                            void* stream) {
+  SdfMeta m;
+  DwJobs J;
+  int rc = parse_sdf_bwd(meta, jobs, n_jobs, &m, &J);
+  if (rc || n <= 0) return rc;
+  const cudaStream_t s = (cudaStream_t)stream;
+  rc = launch_sdf_fwd<kFwdRecompute>(x, (const bf16*)wpack, bpack, w_sdf, nullptr, nullptr, nullptr, (bf16*)hs,
+                                     gates, n, m, scale, s);
+  if (rc) return rc;
+  return launch_sdf_bwd<true>(x, (const bf16*)hs, gates, ds, df, dgx, (const bf16*)wpack, w_sdf, dx,
+                              (bf16*)scratch, partial, colsum, part_dw, dw, m, J, split, n, scale, s);
+}
+
+extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

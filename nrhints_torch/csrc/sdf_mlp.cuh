@@ -1,5 +1,6 @@
-// Shared pieces of the two kernels that evaluate the SDF MLP on the card
-// (sdf_core.cu: kernel A; march.cu: kernel C): the packed-weight layout,
+// Shared pieces of the kernels that evaluate the SDF MLP on the card
+// (sdf_fwd.cuh: kernels A, D and H's forward pass; march.cu: kernel C) and
+// of the trunk kernels (mlp_stash.cu): the packed-weight layout,
 // the frequency encoding, the one-exp softplus(100) gate, and a WMMA bf16
 // product over 16-row tiles.
 //
@@ -31,6 +32,9 @@ constexpr int kLdA = kWMax + 8;   // bf16 row stride of activation tiles
 constexpr int kLdZ = kWMax + 4;   // f32 row stride of accumulator tiles
 constexpr float kInvSqrt2 = 0.70710678118654752440f;
 constexpr float kHalfPi = 1.57079632679489661923f;
+constexpr int kTP = 16;                  // points per block of the SDF and trunk kernels (one WMMA row tile)
+constexpr int kThreads = 256;            // threads per block of those kernels
+constexpr int kWarps = kThreads / 32;
 
 struct SdfMeta {
   int n_layers, multi_res, d0, d_feat, d_last, kpf, npf, wf_off, bf_off, gates_total;

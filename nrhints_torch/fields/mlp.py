@@ -13,12 +13,16 @@ import math
 
 import torch
 
+from nrhints_torch.utils import resolve_device
+
 
 def torch_default_linear_init(
-    generator: torch.Generator, in_dim: int, out_dim: int, device="cpu"
+    generator: torch.Generator, in_dim: int, out_dim: int, device="cuda"
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """torch.nn.Linear's default init: U(-1/sqrt(in), 1/sqrt(in)) for the
-    weight ``[in, out]`` and the bias."""
+    weight ``[in, out]`` and the bias, drawn on the host from ``generator``
+    and placed on the card unless ``device="cpu"``."""
+    device = resolve_device(device)
     bound = 1.0 / math.sqrt(in_dim)
     w = torch.rand((in_dim, out_dim), generator=generator) * (2 * bound) - bound
     b = torch.rand((out_dim,), generator=generator) * (2 * bound) - bound

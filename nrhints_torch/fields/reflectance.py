@@ -55,8 +55,10 @@ def reflectance_init(
     shadow_hint: bool = True,
     specular_hint: bool = True,
     specular_hint_len: int = 4,
-    device="cpu",
+    device="cuda",
 ) -> dict:
+    """Weight-norm trunk parameters, on the card unless ``device="cpu"``
+    (without CUDA the default raises)."""
     d0 = reflectance_input_dim(cfg, d_feature, shadow_hint, specular_hint, specular_hint_len)
     dims = [d0] + [cfg.d_hidden] * cfg.n_layers + [d_out]
     params = {}

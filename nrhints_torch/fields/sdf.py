@@ -22,6 +22,7 @@ from nrhints_torch.fields.mlp import (
     maybe_weight_norm_params,
     torch_default_linear_init,
 )
+from nrhints_torch.utils import resolve_device
 
 
 @dataclass(frozen=True)
@@ -78,12 +79,14 @@ def _layer_dims(cfg: SDFNetConfig):
     return io, dims
 
 
-def sdf_init(generator: torch.Generator, cfg: SDFNetConfig = SDFNetConfig(), device="cpu") -> dict:
+def sdf_init(generator: torch.Generator, cfg: SDFNetConfig = SDFNetConfig(), device="cuda") -> dict:
     """SAL init to a sphere of radius ``init_bias``: hidden weights
     ~ N(0, sqrt(2)/sqrt(out)) with the encoding channels zeroed at the input
     and skip layers; heads near-constant sqrt(pi)/sqrt(d_last) with bias
-    -init_bias*scale."""
+    -init_bias*scale.  Drawn on the host from ``generator``, placed on the
+    card unless ``device="cpu"`` (without CUDA the default raises)."""
     check_ported(cfg)
+    device = resolve_device(device)
     io, dims = _layer_dims(cfg)
     d0 = cfg.d_encoded
     bias = cfg.init_bias * cfg.scale
@@ -97,7 +100,7 @@ def sdf_init(generator: torch.Generator, cfg: SDFNetConfig = SDFNetConfig(), dev
             elif cfg.multi_res > 0 and i in cfg.skip_in:
                 w[-(d0 - cfg.d_in) :, :] = 0.0
         else:
-            w, b = torch_default_linear_init(generator, in_dim, out_dim)
+            w, b = torch_default_linear_init(generator, in_dim, out_dim, "cpu")
         params[f"lin{i}"] = maybe_weight_norm_params(w.to(device), b.to(device), cfg.weight_norm)
     for name, out_dim in (("sdf", 1), ("feat", dims[-1] - 1)):
         if cfg.geometric_init:
@@ -106,7 +109,7 @@ def sdf_init(generator: torch.Generator, cfg: SDFNetConfig = SDFNetConfig(), dev
             w = sign * mean + 1e-4 * torch.randn((dims[-2], out_dim), generator=generator)
             b = torch.full((out_dim,), -sign * bias)
         else:
-            w, b = torch_default_linear_init(generator, dims[-2], out_dim)
+            w, b = torch_default_linear_init(generator, dims[-2], out_dim, "cpu")
         params[f"out_{name}"] = maybe_weight_norm_params(w.to(device), b.to(device), cfg.weight_norm)
     return params
 

@@ -6,14 +6,17 @@ from dataclasses import dataclass
 
 import torch
 
+from nrhints_torch.utils import resolve_device
+
 
 @dataclass(frozen=True)
 class VarianceConfig:
     init_val: float = 0.3
 
 
-def variance_init(cfg: VarianceConfig = VarianceConfig(), device="cpu") -> dict:
-    return {"variance": torch.tensor(cfg.init_val, dtype=torch.float32, device=device)}
+def variance_init(cfg: VarianceConfig = VarianceConfig(), device="cuda") -> dict:
+    """On the card unless ``device="cpu"``; without CUDA the default raises."""
+    return {"variance": torch.tensor(cfg.init_val, dtype=torch.float32, device=resolve_device(device))}
 
 
 def inv_s_from_params(params: dict) -> torch.Tensor:

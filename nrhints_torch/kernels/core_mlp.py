@@ -1,14 +1,21 @@
-"""The fused SDF core and reflectance trunk (port of
-``nrhints_tpu/kernels/core_mlp.py``): kernel A, its plain version, the
-weight packing of the CUDA SDF kernels, and the entry points of both ops.
+"""The fused SDF core and reflectance trunk with the recompute backward
+(port of ``nrhints_tpu/kernels/core_mlp.py``): kernels A, H, I and J, their
+plain versions, the layouts the CUDA kernels read, and the entry points of
+both ops.
 
 ``fused_sdf_value_feat_grad`` returns (sdf [N], feat [N, F], grad_x sdf
 [N, 3]) for N points.  Without a gradient it launches kernel A
 (``csrc/sdf_core.cu``) on a CUDA tensor and runs ``sdf_core_plain``, the
-port of ``sdf_core_ref``, on a CPU tensor; with one it goes through the
-stash op of ``core_stash.py`` (kernels D and E).  ``fused_reflectance_forward``
-runs the trunk through the stash op of kernels F and G.  The recompute
-backward and the non-stash trunk kernels are later slices.
+port of ``sdf_core_ref``, on a CPU tensor.  With one, ``backward`` picks the
+schedule: "recompute" runs ``SdfCoreFn`` (A forward, H backward,
+``csrc/sdf_core_bwd.cu``; only x and the weights are kept between them),
+"stash" and "stash_xla" the stash op of ``core_stash.py``.
+``fused_mlp_apply`` runs the reflectance trunk the same way: kernel I
+(``csrc/mlp_stash.cu``) without a gradient, ``MlpFn`` (I forward, J
+backward) under "recompute", the stash op (F, G) otherwise.
+
+On CPU tensors every wrapper runs its plain version; on CUDA tensors it
+launches its kernel or raises.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from nrhints_torch.fields.mlp import effective_weight
 from nrhints_torch.fields.sdf import SDFNetConfig, _layer_dims, check_ported
@@ -107,6 +115,53 @@ def sdf_core_plain(
     return sdf[:, 0], feat, gx
 
 
+def sdf_core_bwd_plain(weights, x, cots, cfg: SDFNetConfig, compute_dtype: str = "float32"):
+    """-> (dws, dx): the VJP of ``sdf_core_plain`` with respect to (weights,
+    x) at ``cots`` = (d sdf [N], d feat [N, F], d grad [N, 3]), by autograd
+    through the whole forward and its reverse sweep, so the eikonal loss's
+    second-order terms come with it (the port of ``jax.vjp`` over
+    ``sdf_core_ref``, which ``_sdf_core_bwd_pallas`` runs per block).
+    ``dws`` has the shapes of ``weights``."""
+    with torch.enable_grad():
+        ws = [w.detach().requires_grad_(True) for w in weights]
+        xx = x.detach().requires_grad_(True)
+        grads = torch.autograd.grad(sdf_core_plain(ws, xx, cfg, compute_dtype), [*ws, xx], cots, allow_unused=True)
+    dws = tuple(torch.zeros_like(w) if d is None else d for w, d in zip(ws, grads[:-1]))
+    return dws, grads[-1]
+
+
+def mlp_relu_plain(weights, x, n_layers: int, compute_dtype: str = "float32", return_zs: bool = False):
+    """-> out [N, d_out]: the ReLU MLP with a linear last layer (port of
+    ``mlp_relu_ref``), ``weights`` = (w0, b0, ..., w_n, b_n), w [in, out].
+    ``return_zs`` also returns the list of its f32 hidden pre-activations."""
+    h, zs = x, []
+    for i in range(n_layers + 1):
+        h = dot(h, weights[2 * i], compute_dtype) + weights[2 * i + 1]
+        if i < n_layers:
+            zs.append(h)
+            h = torch.relu(h)
+    return (h, zs) if return_zs else h
+
+
+def mlp_relu_bwd_plain(weights, x, g, n_layers: int, compute_dtype: str = "float32", zs=None):
+    """-> (dws, dx): the VJP of ``mlp_relu_plain`` at the cotangent ``g``
+    [N, d_out], by the hand backward G <- (G [z_i > 0]) W_i^T at the hidden
+    pre-activations z_i: recomputed in f32 from x, or the given ``zs``
+    (the stash of ``core_stash.py``)."""
+    if zs is None:
+        _, zs = mlp_relu_plain(weights, x, n_layers, compute_dtype, return_zs=True)
+    dws = [None] * (2 * (n_layers + 1))
+    G = g
+    for i in reversed(range(n_layers + 1)):
+        inp = x if i == 0 else torch.relu(zs[i - 1])
+        if i < n_layers:
+            G = G * (zs[i] > 0.0).to(G.dtype)
+        dws[2 * i + 1] = torch.sum(G, dim=0)
+        dws[2 * i] = dot(inp.t(), G, compute_dtype)
+        G = dot(G, weights[2 * i].t(), compute_dtype)
+    return tuple(dws), G
+
+
 def materialize_sdf_weights_full(params: dict, cfg: SDFNetConfig) -> tuple:
     """Weight-norm SDF params -> (w0, b0, ..., w_sdf, b_sdf, w_feat, b_feat)
     with w [in, out] and b [out]."""
@@ -180,8 +235,82 @@ def require_cuda(t: torch.Tensor, shape: tuple, name: str, dtype=torch.float32) 
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+TP = 16  # points per block of the SDF and trunk kernels (the rows of one WMMA tile)
+MAX_SPLIT = 16  # row chunks of the weight-cotangent products
+
+
+def materialize_mlp_weights(params: dict, n_layers: int) -> tuple:
+    """Reflectance weight-norm params -> (w0, b0, ..., w_n, b_n), w [in, out]
+    and b [out]."""
+    out = []
+    for i in range(n_layers + 1):
+        out += list(effective_weight(params[f"lin{i}"]))
+    return tuple(out)
+
+
+def pack_mlp(weights: Sequence[torch.Tensor], n_layers: int) -> dict:
+    """Lay the trunk out as ``csrc/mlp_stash.cu`` reads it: per layer a
+    zero-padded bf16 [kp, np] block (w [in, out]) and a padded f32 bias,
+    and the int meta vector [n_lin, d0, d_out, ZT, then per layer in, out,
+    kp, np, w_off, b_off, z_off]; ZT is the width of the packed z_i."""
+    dev = weights[0].device
+    dims = [(weights[2 * i].shape[0], weights[2 * i].shape[1]) for i in range(n_layers + 1)]
+    if max(_round16(o) for _, o in dims) > 256 or _round16(dims[0][0]) > 512 or any(
+        _round16(i) > 256 for i, _ in dims[1:]
+    ):
+        raise NotImplementedError("the CUDA trunk kernels take hidden widths up to 256 and inputs up to 512")
+    meta, w_off, b_off, z_off = [], 0, 0, 0
+    for din, dout in dims:
+        kp, np_ = _round16(din), _round16(dout)
+        meta += [din, dout, kp, np_, w_off, b_off, z_off]
+        w_off, b_off = w_off + kp * np_, b_off + np_
+        z_off += np_
+    zt = sum(_round16(o) for _, o in dims[:-1])
+    wpack = torch.zeros(w_off, dtype=torch.bfloat16, device=dev)
+    bpack = torch.zeros(b_off, dtype=torch.float32, device=dev)
+    for i, (din, dout) in enumerate(dims):
+        _, _, kp, np_, wo, bo, _ = meta[7 * i : 7 * i + 7]
+        wp = torch.zeros(kp, np_, dtype=torch.bfloat16, device=dev)
+        wp[:din, :dout] = weights[2 * i].to(torch.bfloat16)
+        wpack[wo : wo + kp * np_] = wp.reshape(-1)
+        bpack[bo : bo + dout] = weights[2 * i + 1].reshape(-1).float()
+    meta = [n_layers + 1, dims[0][0], dims[-1][1], zt] + meta
+    return {"wpack": wpack, "bpack": bpack, "meta": np.asarray(meta, dtype=np.int32)}
+
+
+def dw_jobs(shapes) -> tuple[np.ndarray, int, int]:
+    """Layout of the weight-cotangent products C_j = A_j^T B_j: ``shapes``
+    lists (rows, ka, nb) per product.  -> (int64 [J, 6] table of (a_off,
+    b_off, rows, ka, nb, c_off), bf16 scratch elements, f32 dW elements).
+    Every offset is a multiple of 16 elements (32-byte aligned tiles)."""
+    table, off, c_off = [], 0, 0
+    for rows, ka, nb in shapes:
+        if rows % 16 or ka % 16 or nb % 16:
+            raise ValueError(f"dW product shapes must be multiples of 16, got {(rows, ka, nb)}")
+        a_off, off = off, off + rows * ka
+        b_off, off = off, off + rows * nb
+        table.append((a_off, b_off, rows, ka, nb, c_off))
+        c_off += ka * nb
+    return np.asarray(table, dtype=np.int64), off, c_off
+
+
+def dw_split(npad: int) -> int:
+    """Row chunks of the dW products: about 1,024 rows each, at most 16."""
+    return max(1, min(MAX_SPLIT, npad // 1024))
+
+
+def _launch(lib, fn: str, kernel: str, *args) -> None:
+    rc = getattr(lib, fn)(*args)
+    cuda_lib.check(lib, rc, kernel)
+    cuda_lib.launch_counts[kernel] += 1
+
+
+# ---------------------------------------------------------------------------
+# Kernels A and H, and the backward plumbing they share with kernel E
+
+
 def sdf_core_fwd(
-    weights: Sequence[torch.Tensor], x: torch.Tensor, cfg: SDFNetConfig
+    weights: Sequence[torch.Tensor], x: torch.Tensor, cfg: SDFNetConfig, pk: dict | None = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel A on the card: (sdf [N], feat [N, F], grad [N, 3]) with bf16
     dot operands, f32 everything else."""
@@ -192,21 +321,255 @@ def sdf_core_fwd(
     gx = torch.empty((n, 3), device=x.device)
     if n == 0:
         return sdf, feat, gx
-    pk = pack_sdf_mlp(weights, cfg, with_feat=True)
-    lib = cuda_lib.load("sdf_core")
-    rc = lib.sdf_core_fwd(
+    pk = pack_sdf_mlp(weights, cfg, with_feat=True) if pk is None else pk
+    _launch(
+        cuda_lib.load("sdf_core"), "sdf_core_fwd", "sdf_core_fwd",
         x.data_ptr(), pk["wpack"].data_ptr(), pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr(),
         sdf.data_ptr(), feat.data_ptr(), gx.data_ptr(), n, pk["meta"].ctypes.data,
         float(cfg.scale), cuda_lib.stream_ptr(x.device),
     )
-    cuda_lib.check(lib, rc, "sdf_core_fwd")
-    cuda_lib.launch_counts["sdf_core_fwd"] += 1
     return sdf, feat, gx
+
+
+def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, stash: torch.Tensor | None = None):
+    """The SDF core's backward on the card -> (dws, dx) with the shapes of
+    ``sdf_core_bwd_plain``'s: kernel E at the bf16 ``stash`` of kernel D, or,
+    with ``stash=None``, kernel H, which first recomputes the layers into a
+    scratch of its own (bf16 h_i and f32 gates, freed when this returns).
+    Both run the per-point chain (dx, the dW operands in bf16 scratch,
+    per-block f32 column sums of the bias cotangents), the split-K dW
+    products and the in-order sums of the partials (no atomics: the
+    gradients repeat bit for bit)."""
+    ds, df, dgx = cots
+    n, dev = x.shape[0], x.device
+    pk = pack_sdf_mlp(weights, cfg, with_feat=True) if pk is None else pk
+    meta = pk["meta"]
+    L, d_feat, d_last, kpf, npf, gt = (int(meta[k]) for k in (0, 3, 4, 5, 6, 9))
+    require_cuda(x, (None, 3), "x")
+    if stash is not None:
+        require_cuda(stash, (n, gt), "stash", torch.bfloat16)
+    require_cuda(ds, (n,), "d_sdf")
+    require_cuda(df, (n, d_feat), "d_feat")
+    require_cuda(dgx, (n, 3), "d_grad")
+    nblk = -(-n // TP)
+    npad = nblk * TP
+    layers = [tuple(int(v) for v in meta[10 + 7 * i : 17 + 7 * i]) for i in range(L)]
+    jobs, n_scratch, n_dw = dw_jobs([(2 * npad, lay[2], lay[3]) for lay in layers] + [(npad, kpf, npf)])
+    split = dw_split(npad)
+    pw = gt + npf + 1 + 2 * kpf
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((n, 3), **f32)
+    scratch = torch.empty(n_scratch, dtype=torch.bfloat16, device=dev)
+    partial = torch.empty((nblk, pw), **f32)
+    colsum = torch.empty(pw, **f32)
+    part_dw = torch.empty((split, n_dw), **f32)
+    dw = torch.empty(n_dw, **f32)
+    tail = (dx.data_ptr(), scratch.data_ptr(), partial.data_ptr(), colsum.data_ptr(), part_dw.data_ptr(),
+            dw.data_ptr(), jobs.ctypes.data, len(jobs), split, n, meta.ctypes.data, float(cfg.scale),
+            cuda_lib.stream_ptr(dev))
+    if n > 0 and stash is None:
+        hs = torch.empty((n, gt), dtype=torch.bfloat16, device=dev)
+        gates = torch.empty((n, gt), **f32)
+        _launch(
+            cuda_lib.load("sdf_core_bwd"), "sdf_core_bwd", "sdf_core_bwd",
+            x.data_ptr(), ds.data_ptr(), df.data_ptr(), dgx.data_ptr(), pk["wpack"].data_ptr(),
+            pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr(), hs.data_ptr(), gates.data_ptr(), *tail,
+        )
+    elif n > 0:
+        _launch(
+            cuda_lib.load("sdf_stash"), "sdf_stash_bwd", "sdf_stash_bwd",
+            x.data_ptr(), stash.data_ptr(), ds.data_ptr(), df.data_ptr(), dgx.data_ptr(), pk["wpack"].data_ptr(),
+            pk["w_sdf"].data_ptr(), *tail,
+        )
+    else:
+        colsum.zero_()
+        dw.zero_()
+    dws = []
+    for i, (din, dout, kp, np_, _skip, _w, b_off) in enumerate(layers):
+        c_off = int(jobs[i, 5])
+        dws.append(dw[c_off : c_off + kp * np_].view(kp, np_)[:din, :dout])
+        dws.append(colsum[b_off : b_off + dout])
+    o = gt
+    b_feat, o = colsum[o : o + d_feat], o + npf
+    b_sdf, o = colsum[o : o + 1], o + 1
+    hds, carry = colsum[o : o + d_last], colsum[o + kpf : o + kpf + d_last]
+    c_off = int(jobs[L, 5])
+    dws += [(carry / cfg.scale + hds)[:, None], b_sdf, dw[c_off : c_off + kpf * npf].view(kpf, npf)[:d_last, :d_feat],
+            b_feat]
+    return tuple(dws), dx
+
+
+def sdf_core_bwd(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None):
+    """Kernel H on the card -> (dws, dx): the recompute VJP of kernel A's
+    function from x and the cotangents alone, with A's gates sigmoid(100 z)
+    in f32 (``sdf_bwd_launch``)."""
+    return sdf_bwd_launch(weights, x, cots, cfg, pk)
+
+
+# ---------------------------------------------------------------------------
+# Kernels I and J, and the backward plumbing they share with kernel G
+
+
+def mlp_fwd(weights, x: torch.Tensor, n_layers: int, pk: dict | None = None) -> torch.Tensor:
+    """Kernel I on the card -> out [N, d_out] f32 (kernel F without its
+    stash)."""
+    pk = pack_mlp(weights, n_layers) if pk is None else pk
+    meta = pk["meta"]
+    n, dev = x.shape[0], x.device
+    require_cuda(x, (None, int(meta[1])), "x")
+    out = torch.empty((n, int(meta[2])), device=dev)
+    if n > 0:
+        _launch(
+            cuda_lib.load("mlp_stash"), "mlp_fwd", "mlp_fwd",
+            x.data_ptr(), pk["wpack"].data_ptr(), pk["bpack"].data_ptr(), out.data_ptr(), n, meta.ctypes.data,
+            cuda_lib.stream_ptr(dev),
+        )
+    return out
+
+
+def mlp_bwd_launch(weights, x: torch.Tensor, g: torch.Tensor, n_layers: int, pk: dict | None = None,
+                   zs: torch.Tensor | None = None):
+    """The trunk's backward on the card -> (dws, dx): kernel G at the bf16
+    ``zs`` stash of kernel F, or, with ``zs=None``, kernel J, whose blocks
+    first recompute their z_i in shared memory.  Both run the per-point
+    chain, then the same split-K dW products and in-order sums as kernel
+    E."""
+    pk = pack_mlp(weights, n_layers) if pk is None else pk
+    meta = pk["meta"]
+    n_lin, d0, d_out, zt = (int(v) for v in meta[:4])
+    n, dev = x.shape[0], x.device
+    require_cuda(x, (n, d0), "x")
+    if zs is not None:
+        require_cuda(zs, (n, zt), "zs", torch.bfloat16)
+    require_cuda(g, (n, d_out), "g")
+    layers = [tuple(int(v) for v in meta[4 + 7 * i : 11 + 7 * i]) for i in range(n_lin)]
+    nblk = -(-n // TP)
+    npad = nblk * TP
+    jobs, n_scratch, n_dw = dw_jobs([(npad, lay[2], lay[3]) for lay in layers])
+    split = dw_split(npad)
+    bt = sum(lay[3] for lay in layers)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((n, d0), **f32)
+    scratch = torch.empty(n_scratch, dtype=torch.bfloat16, device=dev)
+    partial = torch.empty((nblk, bt), **f32)
+    colsum = torch.empty(bt, **f32)
+    part_dw = torch.empty((split, n_dw), **f32)
+    dw = torch.empty(n_dw, **f32)
+    tail = (dx.data_ptr(), scratch.data_ptr(), partial.data_ptr(), colsum.data_ptr(), part_dw.data_ptr(),
+            dw.data_ptr(), jobs.ctypes.data, len(jobs), split, n, meta.ctypes.data, cuda_lib.stream_ptr(dev))
+    if n > 0 and zs is None:
+        _launch(cuda_lib.load("mlp_stash"), "mlp_bwd", "mlp_bwd", x.data_ptr(), g.data_ptr(), pk["wpack"].data_ptr(),
+                pk["bpack"].data_ptr(), *tail)
+    elif n > 0:
+        _launch(cuda_lib.load("mlp_stash"), "mlp_stash_bwd", "mlp_stash_bwd", x.data_ptr(), zs.data_ptr(),
+                g.data_ptr(), pk["wpack"].data_ptr(), *tail)
+    else:
+        colsum.zero_()
+        dw.zero_()
+    dws = []
+    for i, (din, dout, kp, np_, _w, b_off, _z) in enumerate(layers):
+        c_off = int(jobs[i, 5])
+        dws += [dw[c_off : c_off + kp * np_].view(kp, np_)[:din, :dout], colsum[b_off : b_off + dout]]
+    return tuple(dws), dx
+
+
+def mlp_bwd(weights, x: torch.Tensor, g: torch.Tensor, n_layers: int, pk: dict | None = None):
+    """Kernel J on the card -> (dws, dx) (``mlp_bwd_launch``)."""
+    return mlp_bwd_launch(weights, x, g, n_layers, pk)
+
+
+# ---------------------------------------------------------------------------
+# The autograd ops of the recompute schedule
+
+
+def check_kernel_dtype(compute_dtype: str) -> None:
+    if compute_dtype != "bfloat16":
+        raise NotImplementedError("the CUDA core kernels compute with bf16 dot operands only")
+
+
+def cotangent(g, shape, device) -> torch.Tensor:
+    """A contiguous cotangent; autograd passes None for an unused output."""
+    return torch.zeros(shape, device=device) if g is None else g.contiguous()
+
+
+class SdfCoreFn(torch.autograd.Function):
+    """(sdf [N], feat [N, F], grad [N, 3]) with the recompute backward:
+    kernel A forward and kernel H backward on CUDA tensors, ``sdf_core_plain``
+    and ``sdf_core_bwd_plain`` on CPU tensors.  It saves only x and the
+    weights, as the JAX op's residuals: no activation is kept from the
+    forward to the backward.  The backward is the full first-order VJP of
+    all three outputs, the eikonal loss's second-order terms inside it."""
+
+    @staticmethod
+    def forward(ctx, cfg, compute_dtype, x, *weights):
+        ctx.cfg, ctx.compute_dtype = cfg, compute_dtype
+        if x.device.type == "cpu":
+            out = sdf_core_plain(weights, x, cfg, compute_dtype)
+            ctx.pk = None
+        else:
+            check_kernel_dtype(compute_dtype)
+            ctx.pk = pack_sdf_mlp([w.detach() for w in weights], cfg, with_feat=True)
+            out = sdf_core_fwd(weights, x, cfg, ctx.pk)
+        ctx.save_for_backward(x, *weights)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, d_sdf, d_feat, d_gx):
+        x, *weights = ctx.saved_tensors
+        n = x.shape[0]
+        cots = (cotangent(d_sdf, (n,), x.device), cotangent(d_feat, (n, ctx.cfg.d_out_feat), x.device),
+                cotangent(d_gx, (n, 3), x.device))
+        if x.device.type == "cpu":
+            dws, dx = sdf_core_bwd_plain(weights, x, cots, ctx.cfg, ctx.compute_dtype)
+        else:
+            dws, dx = sdf_core_bwd(weights, x, cots, ctx.cfg, ctx.pk)
+        return (None, None, dx, *dws)
+
+
+class MlpFn(torch.autograd.Function):
+    """The ReLU trunk with the recompute backward: kernels I and J on CUDA
+    tensors, ``mlp_relu_plain`` and ``mlp_relu_bwd_plain`` on CPU tensors;
+    it saves only x and the weights."""
+
+    @staticmethod
+    def forward(ctx, n_layers, compute_dtype, x, *weights):
+        ctx.n_layers, ctx.compute_dtype = n_layers, compute_dtype
+        if x.device.type == "cpu":
+            out = mlp_relu_plain(weights, x, n_layers, compute_dtype)
+            ctx.pk = None
+        else:
+            check_kernel_dtype(compute_dtype)
+            ctx.pk = pack_mlp([w.detach() for w in weights], n_layers)
+            out = mlp_fwd(weights, x, n_layers, ctx.pk)
+        ctx.save_for_backward(x, *weights)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, *weights = ctx.saved_tensors
+        g = g.contiguous()
+        if x.device.type == "cpu":
+            dws, dx = mlp_relu_bwd_plain(weights, x, g, ctx.n_layers, ctx.compute_dtype)
+        else:
+            dws, dx = mlp_bwd(weights, x, g, ctx.n_layers, ctx.pk)
+        return (None, None, dx, *dws)
+
+
+# ---------------------------------------------------------------------------
+# Entry points
 
 
 def needs_grad(*tensors: torch.Tensor) -> bool:
     """True when autograd will want a gradient of an op on ``tensors``."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _stash_bwd_impl(backward: str) -> str:
+    """The stash op's backward for a ``core_backward`` value: its kernel,
+    or full-batch PyTorch for "stash_xla" (where JAX runs XLA)."""
+    return "xla" if backward == "stash_xla" else "kernel"
 
 
 def fused_sdf_value_feat_grad(
@@ -221,36 +584,49 @@ def fused_sdf_value_feat_grad(
 
     With no gradient wanted, CUDA tensors go through kernel A (bf16
     operands only; it raises for any other ``compute_dtype``) and CPU
-    tensors through ``sdf_core_plain``.  When autograd needs the op's
-    gradient, ``backward="stash"`` (the only backward ported) runs
-    ``core_stash.SdfStashFn``: kernels D and E, or their plain versions."""
-    if needs_grad(x, *tree_leaves(params)):
-        if backward != "stash":
-            raise NotImplementedError(
-                f"core_backward={backward!r}: only the 'stash' backward is ported (the others are later slices)"
-            )
-        from nrhints_torch.kernels.core_stash import fused_sdf_value_feat_grad_stash
-
-        return fused_sdf_value_feat_grad_stash(params, cfg, x, compute_dtype=compute_dtype)
+    tensors through ``sdf_core_plain``, whatever ``backward`` says.  When
+    autograd needs the op's gradient, ``backward`` is the schedule:
+    "recompute" (``SdfCoreFn``: A, then H), "stash" (``core_stash.SdfStashFn``:
+    D, then E) or "stash_xla" (D, then E's plain version over the whole
+    batch); "stash_all" is not ported."""
+    grad = needs_grad(x, *tree_leaves(params))
     weights = materialize_sdf_weights_full(params, cfg)
+    if grad:
+        if backward == "recompute":
+            return SdfCoreFn.apply(cfg, compute_dtype, x.contiguous(), *weights)
+        if backward in ("stash", "stash_xla"):
+            from nrhints_torch.kernels.core_stash import SdfStashFn
+
+            return SdfStashFn.apply(cfg, compute_dtype, "bfloat16", _stash_bwd_impl(backward), x.contiguous(), *weights)
+        raise NotImplementedError(
+            f"core_backward={backward!r}: the port has 'recompute', 'stash' and 'stash_xla' (stash_all is a later slice)"
+        )
     if x.device.type == "cpu":
         return sdf_core_plain(weights, x, cfg, compute_dtype)
-    if compute_dtype != "bfloat16":
-        raise NotImplementedError("kernel A computes with bf16 dot operands only")
+    check_kernel_dtype(compute_dtype)
     return sdf_core_fwd(weights, x.contiguous(), cfg)
 
 
-# ---------------------------------------------------------------------------
-# The reflectance trunk on the train path
+def fused_mlp_apply(params: dict, n_layers: int, x: torch.Tensor, *, backward: str = "stash") -> torch.Tensor:
+    """The weight-norm ReLU trunk on pre-encoded inputs -> [N, d_out]
+    logits, with bf16 dot operands.  Without a gradient: kernel I (or
+    ``mlp_relu_plain`` on the CPU) for every ``backward``, as JAX's stash op
+    dispatches its non-stash forward for the undifferentiated primal.  With
+    one: ``MlpFn`` (I, J) for "recompute", ``core_stash.MlpStashFn`` (F, then
+    G, or G's plain version for "stash_xla") for the stash schedules ("stash_all"
+    maps to the stash backward, as in JAX)."""
+    x = x.contiguous()
+    grad = needs_grad(x, *tree_leaves(params))
+    weights = materialize_mlp_weights(params, n_layers)
+    if not grad:
+        return mlp_relu_plain(weights, x, n_layers, "bfloat16") if x.device.type == "cpu" else mlp_fwd(weights, x, n_layers)
+    if backward == "recompute":
+        return MlpFn.apply(n_layers, "bfloat16", x, *weights)
+    if backward in ("stash", "stash_all", "stash_xla"):
+        from nrhints_torch.kernels.core_stash import MlpStashFn
 
-
-def materialize_mlp_weights(params: dict, n_layers: int) -> tuple:
-    """Reflectance weight-norm params -> (w0, b0, ..., w_n, b_n), w [in, out]
-    and b [out]."""
-    out = []
-    for i in range(n_layers + 1):
-        out += list(effective_weight(params[f"lin{i}"]))
-    return tuple(out)
+        return MlpStashFn.apply(n_layers, "bfloat16", "bfloat16", _stash_bwd_impl(backward), x, *weights)
+    raise NotImplementedError(f"core_backward={backward!r}: the port has 'recompute', 'stash' and 'stash_xla'")
 
 
 def fused_reflectance_forward(
@@ -263,13 +639,14 @@ def fused_reflectance_forward(
     point_lights: torch.Tensor,
     visibilities: torch.Tensor | None = None,
     specular_cue: torch.Tensor | None = None,
+    *,
+    backward: str = "stash",
 ) -> torch.Tensor:
-    """The reflectance field on the train path: the frequency encodings and
-    the concat in PyTorch, the trunk through ``core_stash.MlpStashFn``
-    (kernels F and G, bf16 dot operands), then the sigmoid
+    """The reflectance field on the fused path: the frequency encodings and
+    the concat in PyTorch, the trunk through ``fused_mlp_apply`` under the
+    ``backward`` schedule, then the sigmoid
     (``core_mlp.py::fused_reflectance_forward`` of the JAX package)."""
     from nrhints_torch.core.encodings import nerf_encoding
-    from nrhints_torch.kernels.core_stash import fused_mlp_apply_stash
 
     parts = [points, nerf_encoding(view_dirs, cfg.multi_res), normals, nerf_encoding(point_lights, cfg.multi_res),
              feature_vectors]
@@ -277,5 +654,5 @@ def fused_reflectance_forward(
         parts.append(nerf_encoding(visibilities, cfg.multi_res))
     if specular_cue is not None:
         parts.append(nerf_encoding(specular_cue, cfg.multi_res))
-    out = fused_mlp_apply_stash(params, cfg.n_layers, torch.cat(parts, dim=-1))
+    out = fused_mlp_apply(params, cfg.n_layers, torch.cat(parts, dim=-1), backward=backward)
     return torch.sigmoid(out) if cfg.squeeze_out else out

@@ -21,15 +21,19 @@ with K = 2N rows that the kernel sums in a second, deterministic pass.
 The trunk op (kernels F and G, ``csrc/mlp_stash.cu``) stashes the ReLU
 pre-activations z_i and back-propagates at them.
 
+Under ``core_backward="stash_xla"`` the ops keep kernels D and F but run
+their backward as the plain versions over the whole batch (the JAX package
+runs the same program through XLA there).
+
 On CPU tensors every wrapper runs its plain version; on CUDA tensors it
 launches its kernel or raises.  The kernels compute with bf16 dot operands
-and a bf16 stash only.
+and a bf16 stash only.  The layouts and backward launchers shared with the
+recompute kernels live in ``core_mlp.py``.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
-import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -37,19 +41,24 @@ from nrhints_torch.fields.sdf import SDFNetConfig, _layer_dims
 from nrhints_torch.kernels import cuda_lib
 from nrhints_torch.kernels.common import INV_SQRT2, dot, gate_from_h
 from nrhints_torch.kernels.core_mlp import (
+    _launch,
+    _round16,
+    check_kernel_dtype,
+    cotangent,
     encode_points,
-    materialize_mlp_weights,
-    materialize_sdf_weights_full,
+    mlp_bwd_launch,
+    mlp_relu_bwd_plain,
+    mlp_relu_plain,
+    pack_mlp,
     pack_sdf_mlp,
     per_dim_sum,
     require_cuda,
     reverse_sweep,
+    sdf_bwd_launch,
     sdf_core_plain,
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-TP = 16  # points per block of kernels D, E, F and G (the rows of one WMMA tile)
-MAX_SPLIT = 16  # row chunks of the weight-cotangent products
 
 
 # ---------------------------------------------------------------------------
@@ -146,37 +155,18 @@ def mlp_relu_fwd_zs_plain(weights, x, n_layers: int, compute_dtype="float32", st
     """-> (out [N, d_out], zs): the ReLU MLP with a linear last layer, and
     its hidden pre-activations z_i in ``stash_dtype`` (port of
     ``mlp_relu_fwd_zs_ref``)."""
-    h, zs = x, []
-    for i in range(n_layers + 1):
-        h = dot(h, weights[2 * i], compute_dtype) + weights[2 * i + 1]
-        if i < n_layers:
-            zs.append(h.to(_DTYPES[stash_dtype]))
-            h = torch.relu(h)
-    return h, zs
+    out, zs = mlp_relu_plain(weights, x, n_layers, compute_dtype, return_zs=True)
+    return out, [z.to(_DTYPES[stash_dtype]) for z in zs]
 
 
 def mlp_relu_bwd_stash_plain(weights, x, zs, g, n_layers: int, compute_dtype="float32"):
     """The hand backward of the ReLU MLP at the stashed z_i -> (dws, dx)
     (port of ``mlp_relu_bwd_stash_ref``)."""
-    zs = [z.float() for z in zs]
-    dws = [None] * (2 * (n_layers + 1))
-    G = g
-    for i in reversed(range(n_layers + 1)):
-        inp = x if i == 0 else torch.relu(zs[i - 1])
-        if i < n_layers:
-            G = G * (zs[i] > 0.0).to(G.dtype)
-        dws[2 * i + 1] = torch.sum(G, dim=0)
-        dws[2 * i] = dot(inp.t(), G, compute_dtype)
-        G = dot(G, weights[2 * i].t(), compute_dtype)
-    return tuple(dws), G
+    return mlp_relu_bwd_plain(weights, x, g, n_layers, compute_dtype, zs=[z.float() for z in zs])
 
 
 # ---------------------------------------------------------------------------
 # Layouts shared with the kernels
-
-
-def _r16(v: int) -> int:
-    return -(-v // 16) * 16
 
 
 def sdf_stash_columns(cfg: SDFNetConfig) -> list[tuple[int, int]]:
@@ -186,40 +176,13 @@ def sdf_stash_columns(cfg: SDFNetConfig) -> list[tuple[int, int]]:
     cols, off = [], 0
     for _, out in io:
         cols.append((off, out))
-        off += _r16(out)
+        off += _round16(out)
     return cols
 
 
 def split_stash(stash: torch.Tensor, cols) -> list[torch.Tensor]:
     """The packed stash as per-layer views [N, width]."""
     return [stash[:, off : off + w] for off, w in cols]
-
-
-def dw_jobs(shapes) -> tuple[np.ndarray, int, int]:
-    """Layout of the weight-cotangent products C_j = A_j^T B_j: ``shapes``
-    lists (rows, ka, nb) per product.  -> (int64 [J, 6] table of (a_off,
-    b_off, rows, ka, nb, c_off), bf16 scratch elements, f32 dW elements).
-    Every offset is a multiple of 16 elements (32-byte aligned tiles)."""
-    table, off, c_off = [], 0, 0
-    for rows, ka, nb in shapes:
-        if rows % 16 or ka % 16 or nb % 16:
-            raise ValueError(f"dW product shapes must be multiples of 16, got {(rows, ka, nb)}")
-        a_off, off = off, off + rows * ka
-        b_off, off = off, off + rows * nb
-        table.append((a_off, b_off, rows, ka, nb, c_off))
-        c_off += ka * nb
-    return np.asarray(table, dtype=np.int64), off, c_off
-
-
-def dw_split(npad: int) -> int:
-    """Row chunks of the dW products: about 1,024 rows each, at most 16."""
-    return max(1, min(MAX_SPLIT, npad // 1024))
-
-
-def _launch(lib, fn: str, kernel: str, *args) -> None:
-    rc = getattr(lib, fn)(*args)
-    cuda_lib.check(lib, rc, kernel)
-    cuda_lib.launch_counts[kernel] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -252,91 +215,13 @@ def sdf_stash_fwd(weights: Sequence[torch.Tensor], x: torch.Tensor, cfg: SDFNetC
 
 def sdf_stash_bwd(weights, x, stash, cots, cfg: SDFNetConfig, pk: dict | None = None):
     """Kernel E on the card -> (dws, dx) with the shapes of
-    ``sdf_core_bwd_stash_plain``'s.  Three passes in one launcher: the
-    per-point chain (dx, the dW operands in bf16 scratch, per-block f32
-    column sums of the bias cotangents), the split-K dW products, and the
-    in-order sums of the partials (no atomics: the gradients repeat bit for
-    bit)."""
-    ds, df, dgx = cots
-    n, dev = x.shape[0], x.device
-    pk = pack_sdf_mlp(weights, cfg, with_feat=True) if pk is None else pk
-    meta = pk["meta"]
-    L, d_feat, d_last, kpf, npf, gt = (int(meta[k]) for k in (0, 3, 4, 5, 6, 9))
-    require_cuda(x, (None, 3), "x")
-    require_cuda(stash, (n, gt), "stash", torch.bfloat16)
-    require_cuda(ds, (n,), "d_sdf")
-    require_cuda(df, (n, d_feat), "d_feat")
-    require_cuda(dgx, (n, 3), "d_grad")
-    nblk = -(-n // TP)
-    npad = nblk * TP
-    layers = [tuple(int(v) for v in meta[10 + 7 * i : 17 + 7 * i]) for i in range(L)]
-    jobs, n_scratch, n_dw = dw_jobs([(2 * npad, lay[2], lay[3]) for lay in layers] + [(npad, kpf, npf)])
-    split = dw_split(npad)
-    pw = gt + npf + 1 + 2 * kpf
-    f32 = dict(dtype=torch.float32, device=dev)
-    dx = torch.empty((n, 3), **f32)
-    scratch = torch.empty(n_scratch, dtype=torch.bfloat16, device=dev)
-    partial = torch.empty((nblk, pw), **f32)
-    colsum = torch.empty(pw, **f32)
-    part_dw = torch.empty((split, n_dw), **f32)
-    dw = torch.empty(n_dw, **f32)
-    if n > 0:
-        lib = cuda_lib.load("sdf_stash")
-        _launch(
-            lib, "sdf_stash_bwd", "sdf_stash_bwd",
-            x.data_ptr(), stash.data_ptr(), ds.data_ptr(), df.data_ptr(), dgx.data_ptr(),
-            pk["wpack"].data_ptr(), pk["w_sdf"].data_ptr(), dx.data_ptr(), scratch.data_ptr(),
-            partial.data_ptr(), colsum.data_ptr(), part_dw.data_ptr(), dw.data_ptr(),
-            jobs.ctypes.data, len(jobs), split, n, meta.ctypes.data, float(cfg.scale), cuda_lib.stream_ptr(dev),
-        )
-    else:
-        colsum.zero_()
-        dw.zero_()
-    dws = []
-    for i, (din, dout, kp, np_, _skip, _w, b_off) in enumerate(layers):
-        c_off = int(jobs[i, 5])
-        dws.append(dw[c_off : c_off + kp * np_].view(kp, np_)[:din, :dout])
-        dws.append(colsum[b_off : b_off + dout])
-    o = gt
-    b_feat, o = colsum[o : o + d_feat], o + npf
-    b_sdf, o = colsum[o : o + 1], o + 1
-    hds, carry = colsum[o : o + d_last], colsum[o + kpf : o + kpf + d_last]
-    c_off = int(jobs[L, 5])
-    dws += [(carry / cfg.scale + hds)[:, None], b_sdf, dw[c_off : c_off + kpf * npf].view(kpf, npf)[:d_last, :d_feat],
-            b_feat]
-    return tuple(dws), dx
+    ``sdf_core_bwd_stash_plain``'s, at kernel D's stash
+    (``core_mlp.sdf_bwd_launch``)."""
+    return sdf_bwd_launch(weights, x, cots, cfg, pk, stash=stash)
 
 
 # ---------------------------------------------------------------------------
 # Kernels F and G
-
-
-def pack_mlp(weights: Sequence[torch.Tensor], n_layers: int) -> dict:
-    """Lay the trunk out as ``csrc/mlp_stash.cu`` reads it: per layer a
-    zero-padded bf16 [kp, np] block (w [in, out]) and a padded f32 bias,
-    and the int meta vector [n_lin, d0, d_out, ZT, then per layer in, out,
-    kp, np, w_off, b_off, z_off]; ZT is the width of the packed z stash."""
-    dev = weights[0].device
-    dims = [(weights[2 * i].shape[0], weights[2 * i].shape[1]) for i in range(n_layers + 1)]
-    if max(_r16(o) for _, o in dims) > 256 or _r16(dims[0][0]) > 512 or any(_r16(i) > 256 for i, _ in dims[1:]):
-        raise NotImplementedError("the CUDA trunk kernels take hidden widths up to 256 and inputs up to 512")
-    meta, w_off, b_off, z_off = [], 0, 0, 0
-    for din, dout in dims:
-        kp, np_ = _r16(din), _r16(dout)
-        meta += [din, dout, kp, np_, w_off, b_off, z_off]
-        w_off, b_off = w_off + kp * np_, b_off + np_
-        z_off += np_
-    zt = sum(_r16(o) for _, o in dims[:-1])
-    wpack = torch.zeros(w_off, dtype=torch.bfloat16, device=dev)
-    bpack = torch.zeros(b_off, dtype=torch.float32, device=dev)
-    for i, (din, dout) in enumerate(dims):
-        _, _, kp, np_, wo, bo, _ = meta[7 * i : 7 * i + 7]
-        wp = torch.zeros(kp, np_, dtype=torch.bfloat16, device=dev)
-        wp[:din, :dout] = weights[2 * i].to(torch.bfloat16)
-        wpack[wo : wo + kp * np_] = wp.reshape(-1)
-        bpack[bo : bo + dout] = weights[2 * i + 1].reshape(-1).float()
-    meta = [n_layers + 1, dims[0][0], dims[-1][1], zt] + meta
-    return {"wpack": wpack, "bpack": bpack, "meta": np.asarray(meta, dtype=np.int32)}
 
 
 def mlp_stash_columns(pk: dict) -> list[tuple[int, int]]:
@@ -364,44 +249,9 @@ def mlp_stash_fwd(weights, x: torch.Tensor, n_layers: int, pk: dict | None = Non
 
 
 def mlp_stash_bwd(weights, x: torch.Tensor, zs: torch.Tensor, g: torch.Tensor, n_layers: int, pk: dict | None = None):
-    """Kernel G on the card -> (dws, dx): the per-point chain, then the same
-    split-K dW products and in-order sums as kernel E."""
-    pk = pack_mlp(weights, n_layers) if pk is None else pk
-    meta = pk["meta"]
-    n_lin, d0, d_out, zt = (int(v) for v in meta[:4])
-    n, dev = x.shape[0], x.device
-    require_cuda(x, (n, d0), "x")
-    require_cuda(zs, (n, zt), "zs", torch.bfloat16)
-    require_cuda(g, (n, d_out), "g")
-    layers = [tuple(int(v) for v in meta[4 + 7 * i : 11 + 7 * i]) for i in range(n_lin)]
-    nblk = -(-n // TP)
-    npad = nblk * TP
-    jobs, n_scratch, n_dw = dw_jobs([(npad, lay[2], lay[3]) for lay in layers])
-    split = dw_split(npad)
-    bt = sum(lay[3] for lay in layers)
-    f32 = dict(dtype=torch.float32, device=dev)
-    dx = torch.empty((n, d0), **f32)
-    scratch = torch.empty(n_scratch, dtype=torch.bfloat16, device=dev)
-    partial = torch.empty((nblk, bt), **f32)
-    colsum = torch.empty(bt, **f32)
-    part_dw = torch.empty((split, n_dw), **f32)
-    dw = torch.empty(n_dw, **f32)
-    if n > 0:
-        lib = cuda_lib.load("mlp_stash")
-        _launch(
-            lib, "mlp_stash_bwd", "mlp_stash_bwd",
-            x.data_ptr(), zs.data_ptr(), g.data_ptr(), pk["wpack"].data_ptr(), dx.data_ptr(), scratch.data_ptr(),
-            partial.data_ptr(), colsum.data_ptr(), part_dw.data_ptr(), dw.data_ptr(), jobs.ctypes.data, len(jobs),
-            split, n, meta.ctypes.data, cuda_lib.stream_ptr(dev),
-        )
-    else:
-        colsum.zero_()
-        dw.zero_()
-    dws = []
-    for i, (din, dout, kp, np_, _w, b_off, _z) in enumerate(layers):
-        c_off = int(jobs[i, 5])
-        dws += [dw[c_off : c_off + kp * np_].view(kp, np_)[:din, :dout], colsum[b_off : b_off + dout]]
-    return tuple(dws), dx
+    """Kernel G on the card -> (dws, dx) at kernel F's stash
+    (``core_mlp.mlp_bwd_launch``)."""
+    return mlp_bwd_launch(weights, x, g, n_layers, pk, zs=zs)
 
 
 # ---------------------------------------------------------------------------
@@ -409,25 +259,22 @@ def mlp_stash_bwd(weights, x: torch.Tensor, zs: torch.Tensor, g: torch.Tensor, n
 
 
 def _check_kernel_dtypes(compute_dtype: str, stash_dtype: str) -> None:
-    if compute_dtype != "bfloat16" or stash_dtype != "bfloat16":
-        raise NotImplementedError("the CUDA stash kernels compute with bf16 dot operands and a bf16 stash only")
-
-
-def _cotangent(g, shape, device) -> torch.Tensor:
-    """A contiguous cotangent; autograd passes None for an unused output."""
-    return torch.zeros(shape, device=device) if g is None else g.contiguous()
+    check_kernel_dtype(compute_dtype)
+    if stash_dtype != "bfloat16":
+        raise NotImplementedError("the CUDA stash kernels keep a bf16 stash only")
 
 
 class SdfStashFn(torch.autograd.Function):
     """(sdf [N], feat [N, F], grad [N, 3]) with the stash backward: forward
-    kernel D and backward kernel E on CUDA tensors, the plain versions on
-    CPU tensors.  The backward is the full first-order VJP of all three
+    kernel D and backward kernel E on CUDA tensors (with ``bwd_impl="xla"``,
+    E's plain version on the card's tensors), the plain versions on CPU
+    tensors.  The backward is the full first-order VJP of all three
     outputs; the eikonal loss's second-order terms are inside it, so nothing
     differentiates through it again."""
 
     @staticmethod
-    def forward(ctx, cfg, compute_dtype, stash_dtype, x, *weights):
-        ctx.cfg, ctx.compute_dtype = cfg, compute_dtype
+    def forward(ctx, cfg, compute_dtype, stash_dtype, bwd_impl, x, *weights):
+        ctx.cfg, ctx.compute_dtype, ctx.bwd_impl = cfg, compute_dtype, bwd_impl
         if x.device.type == "cpu":
             sdf, feat, gx, hs = sdf_core_fwd_hs_plain(weights, x, cfg, compute_dtype, stash_dtype)
             ctx.pk = None
@@ -447,24 +294,28 @@ class SdfStashFn(torch.autograd.Function):
         x, weights, hs = saved[0], saved[1 : 1 + ctx.n_w], saved[1 + ctx.n_w :]
         n = x.shape[0]
         cots = (
-            _cotangent(d_sdf, (n,), x.device),
-            _cotangent(d_feat, (n, ctx.cfg.d_out_feat), x.device),
-            _cotangent(d_gx, (n, 3), x.device),
+            cotangent(d_sdf, (n,), x.device),
+            cotangent(d_feat, (n, ctx.cfg.d_out_feat), x.device),
+            cotangent(d_gx, (n, 3), x.device),
         )
         if x.device.type == "cpu":
             dws, dx = sdf_core_bwd_stash_plain(weights, x, hs, cots, ctx.cfg, ctx.compute_dtype)
+        elif ctx.bwd_impl == "xla":
+            hs = split_stash(hs[0], sdf_stash_columns(ctx.cfg))
+            dws, dx = sdf_core_bwd_stash_plain(weights, x, hs, cots, ctx.cfg, ctx.compute_dtype)
         else:
             dws, dx = sdf_stash_bwd(weights, x, hs[0], cots, ctx.cfg, ctx.pk)
-        return (None, None, None, dx, *dws)
+        return (None, None, None, None, dx, *dws)
 
 
 class MlpStashFn(torch.autograd.Function):
     """The ReLU trunk with the stash backward: kernels F and G on CUDA
-    tensors, the plain versions on CPU tensors."""
+    tensors (with ``bwd_impl="xla"``, G's plain version on the card's
+    tensors), the plain versions on CPU tensors."""
 
     @staticmethod
-    def forward(ctx, n_layers, compute_dtype, stash_dtype, x, *weights):
-        ctx.n_layers, ctx.compute_dtype = n_layers, compute_dtype
+    def forward(ctx, n_layers, compute_dtype, stash_dtype, bwd_impl, x, *weights):
+        ctx.n_layers, ctx.compute_dtype, ctx.bwd_impl = n_layers, compute_dtype, bwd_impl
         if x.device.type == "cpu":
             out, zs = mlp_relu_fwd_zs_plain(weights, x, n_layers, compute_dtype, stash_dtype)
             ctx.pk = None
@@ -485,20 +336,9 @@ class MlpStashFn(torch.autograd.Function):
         g = g.contiguous()
         if x.device.type == "cpu":
             dws, dx = mlp_relu_bwd_stash_plain(weights, x, zs, g, ctx.n_layers, ctx.compute_dtype)
+        elif ctx.bwd_impl == "xla":
+            zs = split_stash(zs[0], mlp_stash_columns(ctx.pk))
+            dws, dx = mlp_relu_bwd_stash_plain(weights, x, zs, g, ctx.n_layers, ctx.compute_dtype)
         else:
             dws, dx = mlp_stash_bwd(weights, x, zs[0], g, ctx.n_layers, ctx.pk)
-        return (None, None, None, dx, *dws)
-
-
-def fused_sdf_value_feat_grad_stash(params: dict, cfg: SDFNetConfig, x: torch.Tensor, *, compute_dtype="bfloat16"):
-    """The stash op on the SDF params, with a bf16 stash (weight norm
-    applied outside, so its gradient reaches v, g and b through autograd)."""
-    weights = materialize_sdf_weights_full(params, cfg)
-    return SdfStashFn.apply(cfg, compute_dtype, "bfloat16", x.contiguous(), *weights)
-
-
-def fused_mlp_apply_stash(params: dict, n_layers: int, x: torch.Tensor) -> torch.Tensor:
-    """The trunk stash op on the weight-norm params -> [N, d_out] logits,
-    with bf16 dot operands and a bf16 stash."""
-    weights = materialize_mlp_weights(params, n_layers)
-    return MlpStashFn.apply(n_layers, "bfloat16", "bfloat16", x.contiguous(), *weights)
+        return (None, None, None, None, dx, *dws)

@@ -9,6 +9,9 @@ Nothing here runs at import: the CPU tests import every module.
 
 The wrappers in ``core_mlp.py``, ``core_stash.py`` and ``march.py`` add one to
 ``launch_counts[<kernel>]`` where they launch a kernel, and nowhere else.
+Headers (``*.cuh``) hold what several sources share: ``sdf_fwd.cuh`` the
+SDF forward of kernels A, D and H, ``sdf_bwd.cuh`` the chain of E and H,
+``dw_sum.cuh`` the dW passes of E, G, H and J.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nrhints_torch"
-SOURCES = ("sdf_core", "march", "sdf_stash", "mlp_stash")
+SOURCES = ("sdf_core", "march", "sdf_stash", "mlp_stash", "sdf_core_bwd")
 # -fmad=false keeps each f32 multiply and add separately rounded, as the
 # plain PyTorch versions compute them, so kernel and plain version differ
 # only in summation order and bf16 rounding flips.
@@ -34,6 +37,7 @@ NVCC_FLAGS = [
 launch_counts = {
     "sdf_core_fwd": 0, "round_machinery": 0, "shadow_final": 0,
     "sdf_stash_fwd": 0, "sdf_stash_bwd": 0, "mlp_stash_fwd": 0, "mlp_stash_bwd": 0,
+    "sdf_core_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0,
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -43,9 +47,12 @@ _SIGNATURES = {
         "sdf_stash_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _F, _P],
     },
     "sdf_stash": {"sdf_stash_bwd": [_P] * 14 + [_I, _I, _I, _P, _F, _P]},
+    "sdf_core_bwd": {"sdf_core_bwd": [_P] * 16 + [_I, _I, _I, _P, _F, _P]},
     "mlp_stash": {
         "mlp_stash_fwd": [_P, _P, _P, _P, _P, _I, _P, _P],
+        "mlp_fwd": [_P, _P, _P, _P, _I, _P, _P],
         "mlp_stash_bwd": [_P] * 11 + [_I, _I, _I, _P, _P],
+        "mlp_bwd": [_P] * 11 + [_I, _I, _I, _P, _P],
     },
     "march": {
         "round_machinery": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],

@@ -4,12 +4,16 @@
 ``render_rays`` follows the JAX package's fused path under the shipping
 ``RendererConfig``: 64 stratified samples (jittered in training) refined by
 a 4 x 16 importance march (kernel B), the SDF core with normals (kernel A
-without a gradient; kernels D and E, the stash op, with one), sigmoid-CDF
-alpha with cos annealing, transmittance compositing, alpha-blended depth,
-the shadow hint as the transmittance of a 64 + 4 x 16 march from the light
-(kernels B and C; its samples jittered in training), the Cook-Torrance
-highlight hint at 4 roughnesses, and the reflectance trunk (f32 plain
-matmuls in eval; kernels F and G in training).  On CUDA tensors every
+without a gradient; with one, the ``core_backward`` schedule: kernels D and
+E for "stash", A and H for "recompute", D and E's plain version for
+"stash_xla"), sigmoid-CDF alpha with cos annealing, transmittance
+compositing, alpha-blended depth, the shadow hint as the transmittance of a
+64 + 4 x 16 march from the light (kernels B and C; its samples jittered in
+training), the Cook-Torrance highlight hint at 4 roughnesses, and the
+reflectance trunk: ``reflectance_impl`` in training and
+``eval_reflectance_impl`` in eval pick f32 plain matmuls ("xla") or the
+fused trunk (kernel I without a gradient; F and G, or I and J under
+"recompute", with one).  On CUDA tensors every
 kernel runs on the card; on CPU tensors each kernel wrapper runs its plain
 version.  Config values that reach a branch the port does not have yet
 raise ``NotImplementedError``.
@@ -30,6 +34,7 @@ from nrhints_torch.fields.sdf import SDFNetConfig, sdf_init
 from nrhints_torch.fields.variance import VarianceConfig, inv_s_from_params, variance_init
 from nrhints_torch.kernels.core_mlp import fused_reflectance_forward, fused_sdf_value_feat_grad
 from nrhints_torch.kernels.march import fused_importance_z, fused_shadow_tau
+from nrhints_torch.utils import resolve_device
 
 
 @dataclass(frozen=True)
@@ -39,8 +44,10 @@ class RendererConfig:
     ``fused_kernels``: "auto" and "on" both mean the kernels (on CPU
     tensors, their plain versions); "off" (the unfused path) raises in this
     slice.  The block-size and implementation knobs of the TPU kernels are
-    kept so configs carry across; values other than the shipping path's
-    raise."""
+    kept so configs carry across; of the implementation knobs, values the
+    port has no path for raise (``core_backward`` takes "stash",
+    "recompute" and "stash_xla" in training; for both trunk knobs "xla"
+    is the f32 plain trunk and any other value the fused one, as in JAX)."""
 
     use_outside_nerf: bool = False
     n_samples: int = 64
@@ -109,10 +116,12 @@ class ModelConfig:
         return self.renderer.specular_hint or self.renderer.force_specular_cue
 
 
-def init_model_params(cfg: ModelConfig, generator: torch.Generator, device="cpu") -> dict:
-    """All field parameters (SAL-initialized SDF, variance, reflectance)."""
+def init_model_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> dict:
+    """All field parameters (SAL-initialized SDF, variance, reflectance), on
+    the card unless ``device="cpu"``; without CUDA the default raises."""
     if cfg.renderer.use_outside_nerf:
         raise NotImplementedError("use_outside_nerf: the background NeRF is a later slice")
+    device = resolve_device(device)
     return {
         "sdf": sdf_init(generator, cfg.sdf_network, device),
         "variance": variance_init(cfg.deviation_network, device),
@@ -164,10 +173,8 @@ def check_ported(cfg: ModelConfig, *, is_training: bool = False, geometry_warmup
         f"march_rounds_impl={r.march_rounds_impl!r}": r.march_rounds_impl != "xla",
         f"shadow_final_impl={r.shadow_final_impl!r}": r.shadow_final_impl != "pallas",
         f"march_merge={r.march_merge!r}": r.march_merge != "bitonic",
-        f"eval_reflectance_impl={r.eval_reflectance_impl!r}": r.eval_reflectance_impl != "xla",
-        f"core_backward={r.core_backward!r} in training (the recompute kernels)": is_training
-        and r.core_backward != "stash",
-        f"reflectance_impl={r.reflectance_impl!r} in training": is_training and r.reflectance_impl != "pallas",
+        f"core_backward={r.core_backward!r} in training": is_training
+        and r.core_backward not in ("stash", "recompute", "stash_xla"),
     }
     missing = [name for name, hit in later.items() if hit]
     if missing:
@@ -296,10 +303,14 @@ def render_rays(
         visibilities if rcfg.shadow_hint else None,
         specular_cue if rcfg.specular_hint else None,
     )
-    # The eval trunk is the f32 plain version (eval_reflectance_impl="xla");
-    # training runs the trunk through kernels F and G.
-    trunk = fused_reflectance_forward if is_training else reflectance_forward
-    sampled_color = trunk(*color_args).reshape(batch, n_total, 3)
+    # As JAX renderer.py: "xla" is the f32 plain trunk (with autograd when
+    # training), anything else the fused trunk under core_backward.
+    trunk_impl = rcfg.reflectance_impl if is_training else rcfg.eval_reflectance_impl
+    if trunk_impl == "xla":
+        sampled_color = reflectance_forward(*color_args)
+    else:
+        sampled_color = fused_reflectance_forward(*color_args, backward=rcfg.core_backward)
+    sampled_color = sampled_color.reshape(batch, n_total, 3)
     color = torch.sum(sampled_color * weights[..., None], dim=1)
     if background_rgb is not None:
         color = color + background_rgb * (1.0 - weights_sum)

@@ -8,6 +8,13 @@
   one warm-up-then-cosine factor of the step count;
 * cos_anneal_ratio = min(1, step / anneal_end).
 
+The step runs on the device its state lies on (``init_model_params`` and
+``ray_generator_init`` build it on the card by default), through the
+``core_backward`` schedule of the config: "stash" (kernels D-G),
+"recompute" (A, H, I, J: nothing is kept between the core's forward and
+backward) or "stash_xla" (D and F, then the stash backward as full-batch
+PyTorch).
+
 The JAX step is one jitted function of an immutable state; here the step
 runs eagerly and updates the state's parameters and optimizer in place
 (``torch.optim.Adam``; optax's Adam computes the same update).  The random

@@ -59,7 +59,7 @@ def test_stratified_and_transmittance():
 
 
 def test_variance():
-    tp = tvar.variance_init()
+    tp = tvar.variance_init(device="cpu")
     jp = jvar.variance_init()
     close(tp["variance"], jp["variance"])
     close(tvar.inv_s_from_params(tp), jvar.inv_s_from_params(jp))
@@ -72,9 +72,9 @@ def test_sdf_forward(full_width):
     jp = jax.device_get(jsdf.sdf_init(jax.random.PRNGKey(0), jc))
     x = np.random.default_rng(4).normal(size=(33, 3)).astype(np.float32) * 0.6
     ref = jsdf.sdf_forward(jp, jc, jnp.asarray(x))
-    out = tsdf.sdf_forward(params_from_jax(jp), tsdf.SDFNetConfig(**kw), torch.tensor(x))
+    out = tsdf.sdf_forward(params_from_jax(jp, device="cpu"), tsdf.SDFNetConfig(**kw), torch.tensor(x))
     close(out, ref, rtol=1e-5, atol=1e-5)
-    close(tsdf.sdf_only(params_from_jax(jp), tsdf.SDFNetConfig(**kw), torch.tensor(x)), jsdf.sdf_only(jp, jc, jnp.asarray(x)), rtol=1e-5, atol=1e-5)
+    close(tsdf.sdf_only(params_from_jax(jp, device="cpu"), tsdf.SDFNetConfig(**kw), torch.tensor(x)), jsdf.sdf_only(jp, jc, jnp.asarray(x)), rtol=1e-5, atol=1e-5)
     assert tsdf._layer_dims(tsdf.SDFNetConfig(**kw)) == jsdf._layer_dims(jc)
 
 
@@ -90,7 +90,7 @@ def test_reflectance_forward(hints):
     args += [rng.uniform(size=(20, 1)).astype(np.float32) if shadow else None]
     args += [rng.uniform(size=(20, 4)).astype(np.float32) if spec else None]
     ref = jrefl.reflectance_forward(jp, jc, *[None if a is None else jnp.asarray(a) for a in args])
-    out = trefl.reflectance_forward(params_from_jax(jp), tc, *[None if a is None else torch.tensor(a) for a in args])
+    out = trefl.reflectance_forward(params_from_jax(jp, device="cpu"), tc, *[None if a is None else torch.tensor(a) for a in args])
     close(out, ref)
 
 
@@ -126,7 +126,7 @@ def test_generate_rays_with_deltas_and_noise(cam_opt_mode, sphere):
               cam_position_noise_std=0.01, cam_orientation_noise_std=0.02, pl_position_noise_std=0.05)
     jcfg, tcfg = jrays.RayGeneratorConfig(**kw), trays.RayGeneratorConfig(**kw)
     jparams, jbuf = jax.device_get(jrays.ray_generator_init(jax.random.PRNGKey(0), jcfg, 5))
-    tparams, tbuf = trays.ray_generator_init(torch.Generator().manual_seed(0), tcfg, 5)
+    tparams, tbuf = trays.ray_generator_init(torch.Generator().manual_seed(0), tcfg, 5, device="cpu")
     assert {k: tuple(v.shape) for k, v in tparams.items()} == {k: np.shape(v) for k, v in jparams.items()}
     assert {k: tuple(v.shape) for k, v in tbuf.items()} == {k: np.shape(v) for k, v in jbuf.items()}
     rng = np.random.default_rng(6)
@@ -141,7 +141,7 @@ def test_generate_rays_with_deltas_and_noise(cam_opt_mode, sphere):
     cam = (12, 16, 8.0, 6.0, 19.0, 19.0, 0.1, 6.0)
     ref = jrays.generate_rays(jparams, jbuf, jcm.CameraModel(*cam), jcfg, JPB(**{k: jnp.asarray(v) for k, v in pix.items()}))
     out = trays.generate_rays(
-        params_from_jax(jparams), params_from_jax(jbuf), tcm.CameraModel(*cam), tcfg,
+        params_from_jax(jparams, device="cpu"), params_from_jax(jbuf, device="cpu"), tcm.CameraModel(*cam), tcfg,
         TPB(**{k: torch.tensor(v) for k, v in pix.items()}),
     )
     for k in ("origins", "directions", "pl_positions", "nears", "fars"):
@@ -152,7 +152,7 @@ def test_sdf_init_structure_matches_jax():
     """The port's own SAL init: same keys and shapes, the encoding rows of
     the input and skip layers zeroed, heads near sqrt(pi)/sqrt(d_feat + 1)."""
     jc, jp, tc, _ = jax_sdf_params()
-    tp = tsdf.sdf_init(torch.Generator().manual_seed(0), tc)
+    tp = tsdf.sdf_init(torch.Generator().manual_seed(0), tc, device="cpu")
     for name, layer in jp.items():
         assert set(tp[name]) == set(layer)
         for k in layer:

@@ -8,12 +8,19 @@ Tolerances: kernel A and C round their dot operands to bf16 like the plain
 versions but sum in another order, so an activation on a bf16 rounding
 boundary can round the other way: 1e-2 relative to the output's scale.
 Kernel B's merge is exact (identical z and sdf); its draws sum in the plain
-version's order: 1e-5.  Kernels D and F: outputs and stash 1e-2, as A.
-Kernels E and G: 2e-2 of each gradient's scale, at the same stash: the
-backward chains twice as many bf16-operand products as the forward, and
-the dW sums over the points run in another order.  Kernel D's outputs are
-kernel A's bit for bit, and E and G give the same gradients bit for bit on
-every run (no atomics).
+version's order: 1e-5.  Kernels D, F and I: outputs and stash 1e-2, as A.
+Kernels E, G, H and J: 2e-2 of each gradient's scale: the backward chains
+twice as many bf16-operand products as the forward, and the dW sums over
+the points run in another order (H's plain version is autograd, which
+rounds each dot's result to bf16 where the kernel rounds its operands).
+Kernel D's outputs are kernel A's bit for bit, I's are F's, J's gradients
+are G's at F's stash (the ReLU backward reads only what a bf16 z keeps),
+and E, G, H and J give the same gradients bit for bit on every run (no
+atomics).  J's plain version recomputes the z_i in another summation order,
+so a z_i within rounding of 0 can take the other side of the ReLU there and
+move one point's dx by a whole unit's share: J is held entry by entry
+against the plain backward at the forward's own z_i, and against the wholly
+plain backward by the relative norm of the error (2e-2).
 """
 import numpy as np
 import pytest
@@ -116,7 +123,7 @@ def test_render_rays_card_matches_cpu(cuda):
     from nrhints_torch.render.renderer import ModelConfig, init_model_params, render_rays
 
     cfg = ModelConfig(sdf_network=SMALL, reflectance_network=ReflectanceNetConfig(n_layers=2, d_hidden=32))
-    params = init_model_params(cfg, torch.Generator().manual_seed(0))
+    params = init_model_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     o, d, z0 = _rays("cpu")
     pl_ = torch.tensor([[1.5, 2.5, -1.0]]).expand_as(o).contiguous()
     rays = RayBundle(o, d, pl_, z0[:, :1], z0[:, -1:])
@@ -130,7 +137,8 @@ def test_render_rays_card_matches_cpu(cuda):
     torch.cuda.synchronize()
     assert {k: cuda_lib.launch_counts[k] - before[k] for k in before} == {
         "sdf_core_fwd": 1, "round_machinery": 10, "shadow_final": 1,
-        "sdf_stash_fwd": 0, "sdf_stash_bwd": 0, "mlp_stash_fwd": 0, "mlp_stash_bwd": 0}
+        "sdf_stash_fwd": 0, "sdf_stash_bwd": 0, "mlp_stash_fwd": 0, "mlp_stash_bwd": 0,
+        "sdf_core_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0}
     for k in ("rgb", "depth", "visibilities"):
         assert (getattr(card, k).cpu() - getattr(cpu, k)).abs().max().item() <= 2e-2, k
 
@@ -195,7 +203,7 @@ def test_mlp_stash_kernels_match_plain(cuda, dims, n):
     gen = torch.Generator().manual_seed(1)
     w = []
     for i in range(len(dims) - 1):
-        w += [t.to(cuda) for t in torch_default_linear_init(gen, dims[i], dims[i + 1])]
+        w += [t.to(cuda) for t in torch_default_linear_init(gen, dims[i], dims[i + 1], "cpu")]
     n_layers = len(dims) - 2
     rng = np.random.default_rng(n)
     x = torch.tensor(rng.normal(size=(n, dims[0])).astype(np.float32), device=cuda)
@@ -203,7 +211,7 @@ def test_mlp_stash_kernels_match_plain(cuda, dims, n):
     out, zs = core_stash.mlp_stash_fwd(w, x, n_layers)
     p_out, p_zs = core_stash.mlp_relu_fwd_zs_plain(w, x, n_layers, "bfloat16", "bfloat16")
     _close(out, p_out, 1e-2)
-    cols = core_stash.mlp_stash_columns(core_stash.pack_mlp(w, n_layers))
+    cols = core_stash.mlp_stash_columns(core_mlp.pack_mlp(w, n_layers))
     for k, p in zip(core_stash.split_stash(zs, cols), p_zs):
         _close(k.float(), p.float(), 1e-2)
     dws, dx = core_stash.mlp_stash_bwd(w, x, zs, g, n_layers)
@@ -217,12 +225,21 @@ def test_mlp_stash_kernels_match_plain(cuda, dims, n):
     assert all(torch.equal(a, b) for a, b in zip(dws, dws2))
 
 
+STEP_LAUNCHES = {
+    "stash": {"sdf_stash_fwd": 1, "sdf_stash_bwd": 1, "mlp_stash_fwd": 1, "mlp_stash_bwd": 1},
+    "recompute": {"sdf_core_fwd": 1, "sdf_core_bwd": 1, "mlp_fwd": 1, "mlp_bwd": 1},
+    "stash_xla": {"sdf_stash_fwd": 1, "mlp_stash_fwd": 1},
+}
+
+
 @pytest.mark.gpu
-def test_train_step_card_matches_cpu(cuda):
-    """One train step's gradients on the card (kernels B-G) against the same
-    step on the CPU (plain versions), same uniforms, at the small configs:
-    5e-2 of each leaf's scale (bf16 rounding flips in the kernels and the
-    bf16 march move a few samples), and the launches of one step."""
+@pytest.mark.parametrize("core_backward", ["stash", "recompute", "stash_xla"])
+def test_train_step_card_matches_cpu(cuda, core_backward):
+    """One train step's gradients on the card (kernels B, C and the
+    schedule's core kernels) against the same step on the CPU (plain
+    versions), same uniforms, at the small configs: 5e-2 of each leaf's
+    scale (bf16 rounding flips in the kernels and the bf16 march move a few
+    samples), and the launches of one step."""
     from nrhints_torch.camera.model import CameraModel
     from nrhints_torch.camera.rays import ray_generator_init
     from nrhints_torch.configs.config import nr_hints_cam_opt
@@ -235,7 +252,8 @@ def test_train_step_card_matches_cpu(cuda):
 
     cfg = nr_hints_cam_opt()
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, sdf_network=SMALL, reflectance_network=ReflectanceNetConfig(n_layers=2, d_hidden=32)))
+        cfg.model, sdf_network=SMALL, reflectance_network=ReflectanceNetConfig(n_layers=2, d_hidden=32),
+        renderer=dataclasses.replace(cfg.model.renderer, core_backward=core_backward)))
     sc = scene_views(2, 32, 32)
     cam = CameraModel(32, 32, 16.0, 16.0, sc["focal"], sc["focal"], 0.1, 6.0)
     rng = np.random.default_rng(0)
@@ -244,8 +262,8 @@ def test_train_step_card_matches_cpu(cuda):
                pls=sc["pls"][img], img_indices=img, rgb_gt=sc["images"][img, hh, ww])
     u = {"strat": rng.random((64, 1), dtype=np.float32), "shadow": rng.random((64, 64), dtype=np.float32)}
     gen = torch.Generator().manual_seed(0)
-    renderer = init_model_params(cfg.model, gen)
-    raygen, _ = ray_generator_init(gen, cfg.ray_generator, 2)
+    renderer = init_model_params(cfg.model, gen, device="cpu")
+    raygen, _ = ray_generator_init(gen, cfg.ray_generator, 2, device="cpu")
     grads = {}
     for dev in ("cpu", cuda):
         params = {"renderer": _tree_to(renderer, dev), "raygen": _tree_to(raygen, dev)}
@@ -256,11 +274,97 @@ def test_train_step_card_matches_cpu(cuda):
         delta = {k: cuda_lib.launch_counts[k] - before[k] for k in before}
         grads[str(dev)] = {name: t.grad.detach().cpu() for name, t in _named(params)}
     torch.cuda.synchronize()
-    assert delta == {"sdf_core_fwd": 0, "round_machinery": 10, "shadow_final": 1, "sdf_stash_fwd": 1,
-                     "sdf_stash_bwd": 1, "mlp_stash_fwd": 1, "mlp_stash_bwd": 1}
+    expected = {k: 0 for k in cuda_lib.launch_counts}
+    expected.update(round_machinery=10, shadow_final=1, **STEP_LAUNCHES[core_backward])
+    assert delta == expected
     card = grads[str(cuda)]
     for name, g in grads["cpu"].items():
         _close_rel(card[name], g, 5e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [SMALL, SDFNetConfig()], ids=["small", "full"])
+@pytest.mark.parametrize("n", [1, 100, 1000])
+def test_sdf_core_bwd_matches_plain(cuda, cfg, n):
+    """Kernel H against its plain version (autograd over sdf_core_plain),
+    twice, bit for bit."""
+    w, x, cots = _gpu_sdf_case(cuda, cfg, n)
+    before = cuda_lib.launch_counts["sdf_core_bwd"]
+    dws, dx = core_mlp.sdf_core_bwd(w, x, cots, cfg)
+    torch.cuda.synchronize()
+    p_dws, p_dx = core_mlp.sdf_core_bwd_plain(w, x, cots, cfg, "bfloat16")
+    _close_rel(dx, p_dx, 2e-2)
+    assert len(dws) == len(p_dws)
+    for k, p in zip(dws, p_dws):
+        assert k.shape == p.shape
+        _close_rel(k, p, 2e-2)
+    dws2, dx2 = core_mlp.sdf_core_bwd(w, x, cots, cfg)
+    assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(dws, dws2))
+    assert cuda_lib.launch_counts["sdf_core_bwd"] == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [(45, 32, 32, 3), (361, 256, 256, 256, 256, 3)], ids=["small", "full"])
+@pytest.mark.parametrize("n", [1, 100, 1000])
+def test_mlp_recompute_kernels_match_plain(cuda, dims, n):
+    """Kernels I and J against the plain trunk and its backward; I equals
+    F's output and J equals G at F's stash, bit for bit; J repeats."""
+    from nrhints_torch.fields.mlp import torch_default_linear_init
+
+    gen = torch.Generator().manual_seed(1)
+    w = []
+    for i in range(len(dims) - 1):
+        w += list(torch_default_linear_init(gen, dims[i], dims[i + 1], cuda))
+    n_layers = len(dims) - 2
+    rng = np.random.default_rng(n)
+    x = torch.tensor(rng.normal(size=(n, dims[0])).astype(np.float32), device=cuda)
+    g = torch.tensor(rng.normal(size=(n, 3)).astype(np.float32), device=cuda)
+    before = dict(cuda_lib.launch_counts)
+    out = core_mlp.mlp_fwd(w, x, n_layers)
+    _close(out, core_mlp.mlp_relu_plain(w, x, n_layers, "bfloat16"), 1e-2)
+    f_out, zs = core_stash.mlp_stash_fwd(w, x, n_layers)
+    assert torch.equal(out, f_out)
+    dws, dx = core_mlp.mlp_bwd(w, x, g, n_layers)
+    torch.cuda.synchronize()
+    cols = core_stash.mlp_stash_columns(core_mlp.pack_mlp(w, n_layers))
+    z_dws, z_dx = core_mlp.mlp_relu_bwd_plain(w, x, g, n_layers, "bfloat16",
+                                              zs=[z.float() for z in core_stash.split_stash(zs, cols)])
+    p_dws, p_dx = core_mlp.mlp_relu_bwd_plain(w, x, g, n_layers, "bfloat16")
+    for k, z, p in zip((dx, *dws), (z_dx, *z_dws), (p_dx, *p_dws)):
+        assert k.shape == p.shape
+        _close_rel(k, z, 2e-2)
+        assert (k - p).norm().item() <= 2e-2 * p.norm().item() + 1e-7
+    g_dws, g_dx = core_stash.mlp_stash_bwd(w, x, zs, g, n_layers)
+    assert torch.equal(dx, g_dx) and all(torch.equal(a, b) for a, b in zip(dws, g_dws))
+    dws2, dx2 = core_mlp.mlp_bwd(w, x, g, n_layers)
+    assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(dws, dws2))
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in ("mlp_fwd", "mlp_bwd")} == {"mlp_fwd": 1, "mlp_bwd": 2}
+
+
+@pytest.mark.gpu
+def test_eval_trunk_pallas_card_matches_cpu(cuda):
+    """The eval render under eval_reflectance_impl="pallas" (kernel I for
+    the trunk, never F) on the card against the CPU, at 2e-2 as the f32
+    trunk's render above."""
+    from nrhints_torch.core.structs import RayBundle
+    from nrhints_torch.fields.reflectance import ReflectanceNetConfig
+    from nrhints_torch.render.renderer import ModelConfig, RendererConfig, init_model_params, render_rays
+
+    cfg = ModelConfig(sdf_network=SMALL, reflectance_network=ReflectanceNetConfig(n_layers=2, d_hidden=32),
+                      renderer=RendererConfig(eval_reflectance_impl="pallas"))
+    params = init_model_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    o, d, z0 = _rays("cpu")
+    pl_ = torch.tensor([[1.5, 2.5, -1.0]]).expand_as(o).contiguous()
+    host = (o, d, pl_, z0[:, :1], z0[:, -1:])
+    with torch.no_grad():
+        cpu = render_rays(params, cfg, RayBundle(*host))
+        before = dict(cuda_lib.launch_counts)
+        card = render_rays(_tree_to(params, cuda), cfg, RayBundle(*(t.to(cuda) for t in host)))
+    torch.cuda.synchronize()
+    delta = {k: cuda_lib.launch_counts[k] - before[k] for k in before}
+    assert delta["mlp_fwd"] == 1 and delta["mlp_stash_fwd"] == 0 and delta["sdf_core_fwd"] == 1
+    for k in ("rgb", "depth", "visibilities"):
+        assert (getattr(card, k).cpu() - getattr(cpu, k)).abs().max().item() <= 2e-2, k
 
 
 def _tree_to(tree, dev):

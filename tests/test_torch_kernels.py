@@ -1,6 +1,6 @@
-"""The plain versions of kernels A, B and C against the JAX package's Pallas
+"""The plain versions of kernels A-J against the JAX package's Pallas
 kernels run in interpret mode on the CPU (as the JAX tests run them), on the
-same numpy-seeded inputs.  (Each CUDA kernel against its plain version, on
+same numpy-seeded inputs, and the port's autograd ops against autograd.  (Each CUDA kernel against its plain version, on
 the card, is tests/test_torch_gpu.py.)
 
 Tolerances and why:
@@ -301,8 +301,9 @@ def test_sdf_bwd_stash_plain_matches_jax(stash_case, dt):
             _close_scaled(_np(a), b, tol, f"{name} dw[{k}]")
 
 
-@pytest.fixture(scope="module")
-def trunk_case():
+def _trunk_params():
+    """A 45 -> 2 x 32 -> 3 weight-norm trunk: (JAX params as numpy, port params)."""
+    from nrhints_torch.convert import params_from_jax
     from nrhints_tpu.fields.mlp import torch_default_linear_init, weight_norm_params
 
     key = jax.random.PRNGKey(7)
@@ -312,12 +313,16 @@ def trunk_case():
         key, k = jax.random.split(key)
         params[f"lin{i}"] = weight_norm_params(*torch_default_linear_init(k, dims[i], dims[i + 1]))
     jp = jax.device_get(params)
+    return jp, params_from_jax(jp, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def trunk_case():
+    jp, tp = _trunk_params()
     rng = np.random.default_rng(11)
     x = rng.normal(size=(61, 45)).astype(np.float32)
     g = rng.normal(size=(61, 3)).astype(np.float32)
-    from nrhints_torch.convert import params_from_jax
-
-    return 2, jcm.materialize_mlp_weights(jp, 2), tcm.materialize_mlp_weights(params_from_jax(jp), 2), x, g
+    return 2, jcm.materialize_mlp_weights(jp, 2), tcm.materialize_mlp_weights(tp, 2), x, g
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
@@ -362,7 +367,7 @@ def test_sdf_stash_fn_matches_double_backward(stash_case):
     coef = [torch.tensor(c) for c in cots]
     ws = [w.detach().clone().requires_grad_(True) for w in tw]
     xt = torch.tensor(x, requires_grad=True)
-    s, f, gx = tcs.SdfStashFn.apply(tc, "float32", "float32", xt, *ws)
+    s, f, gx = tcs.SdfStashFn.apply(tc, "float32", "float32", "kernel", xt, *ws)
     g_port = torch.autograd.grad(_stash_loss(s, f, gx, coef), [xt, *ws])
 
     ws2 = [w.detach().clone().requires_grad_(True) for w in tw]
@@ -380,7 +385,7 @@ def test_mlp_stash_fn_matches_autograd(trunk_case):
     n_layers, _, tw, x, g = trunk_case
     ws = [w.detach().clone().requires_grad_(True) for w in tw]
     xt = torch.tensor(x, requires_grad=True)
-    out = tcs.MlpStashFn.apply(n_layers, "float32", "float32", xt, *ws)
+    out = tcs.MlpStashFn.apply(n_layers, "float32", "float32", "kernel", xt, *ws)
     g_port = torch.autograd.grad(torch.sum(out * torch.tensor(g)), [xt, *ws])
     ws2 = [w.detach().clone().requires_grad_(True) for w in tw]
     xt2 = torch.tensor(x, requires_grad=True)
@@ -398,14 +403,189 @@ def test_stash_layouts():
     cols = tcs.sdf_stash_columns(SDFNetConfig())
     assert [w for _, w in cols] == [256, 256, 256, 217, 256, 256, 256, 256]
     assert all(off % 16 == 0 for off, _ in cols) and cols[-1][0] + 256 == 2016
-    jobs, n_scratch, n_dw = tcs.dw_jobs([(64, 48, 256), (64, 256, 224), (32, 256, 256)])
+    jobs, n_scratch, n_dw = tcm.dw_jobs([(64, 48, 256), (64, 256, 224), (32, 256, 256)])
     assert (jobs[:, :2] % 16 == 0).all() and (jobs[:, 5] % 16 == 0).all()
     assert n_scratch == 64 * (48 + 256) + 64 * (256 + 224) + 32 * 512 and n_dw == 48 * 256 + 256 * 224 + 256 * 256
     with pytest.raises(ValueError):
-        tcs.dw_jobs([(24, 16, 16)])
-    assert tcs.dw_split(16) == 1 and tcs.dw_split(65536) == tcs.MAX_SPLIT
+        tcm.dw_jobs([(24, 16, 16)])
+    assert tcm.dw_split(16) == 1 and tcm.dw_split(65536) == tcm.MAX_SPLIT
     w = [torch.zeros(361, 256), torch.zeros(256), torch.zeros(256, 256), torch.zeros(256), torch.zeros(256, 3),
          torch.zeros(3)]
-    pk = tcs.pack_mlp(w, 2)
+    pk = tcm.pack_mlp(w, 2)
     assert list(pk["meta"][:4]) == [3, 361, 3, 512]
     assert tcs.mlp_stash_columns(pk) == [(0, 256), (256, 256)]
+
+
+# ---------------------------------------------------------------------------
+# Kernels H (the SDF core's recompute backward), I and J (the trunk's
+# forward and recompute backward)
+#
+# Tolerances, each as max |port - JAX| <= tol * max |JAX| per output: at
+# float32 1e-4 (the same function; JAX's jax.vjp and the port's autograd or
+# hand backward sum in other orders); at the shipping bf16 dot operands the
+# stash tests' 2e-2 (both sides round the dot operands, and autodiff also
+# rounds each dot's cotangent result to bf16, but at other places: JAX per
+# 32-point block, the port over the whole batch).  N = 77 and 61 are not
+# multiples of the Pallas blocks (32), so the padded rows are covered.
+
+RECOMPUTE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_sdf_core_bwd_plain_matches_pallas(stash_case, dt):
+    """Kernel H's plain version against ``_sdf_core_bwd_pallas`` (interpret
+    mode), at random cotangents of (sdf, feat, grad)."""
+    jc, tc, x, cots, jw, tw = stash_case
+    j_dws, j_dx = jcm._sdf_core_bwd_pallas((jc, 32, 32, True, dt), jw, jnp.asarray(x),
+                                          tuple(jnp.asarray(c) for c in cots))
+    dws, dx = tcm.sdf_core_bwd_plain(tw, torch.tensor(x), tuple(torch.tensor(c) for c in cots), tc, dt)
+    tol = RECOMPUTE_TOL[dt]
+    _close_scaled(_np(dx), j_dx, tol, "dx")
+    assert len(dws) == len(j_dws)
+    for k, (a, b) in enumerate(zip(dws, j_dws)):
+        assert tuple(a.shape) == tuple(np.shape(b)[-a.dim():]), k
+        _close_scaled(_np(a), b, tol, f"dw[{k}]")
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_recompute_sdf_op_matches_jax_vjp(sdf, stash_case, dt):
+    """``fused_sdf_value_feat_grad(backward="recompute")`` through autograd
+    (``SdfCoreFn``, weight norm outside) against ``jax.vjp`` of the JAX op
+    in interpret mode: the outputs, and the cotangents of every weight-norm
+    leaf and of x."""
+    from nrhints_torch.utils import tree_items
+
+    jc, jp, tc, tp = sdf
+    _, _, x, cots, _, _ = stash_case
+    kw = dict(block_pts=32, block_pts_bwd=32, interpret=True, compute_dtype=dt, backward="recompute")
+    j_out, vjp = jax.vjp(lambda p, xx: jcm.fused_sdf_value_feat_grad(p, jc, xx, **kw),
+                         jax.tree_util.tree_map(jnp.asarray, jp), jnp.asarray(x))
+    j_dp, j_dx = vjp(tuple(jnp.asarray(c) for c in cots))
+    leaves = {n: t.detach().clone().requires_grad_(True) for n, t in tree_items(tp)}
+    params = {}
+    for n, t in leaves.items():
+        layer, key = n.strip("/").split("/")
+        params.setdefault(layer, {})[key] = t
+    xt = torch.tensor(x, requires_grad=True)
+    out = tcm.fused_sdf_value_feat_grad(params, tc, xt, compute_dtype=dt, backward="recompute")
+    assert out[0].grad_fn is not None and type(out[0].grad_fn).__name__.startswith("SdfCoreFn")
+    grads = torch.autograd.grad(out, [xt, *leaves.values()], tuple(torch.tensor(c) for c in cots))
+    tol = RECOMPUTE_TOL[dt]
+    for a, b in zip(out, j_out):
+        _close_scaled(_np(a), b, 1e-5 if dt == "float32" else 2e-3)
+    _close_scaled(_np(grads[0]), j_dx, tol, "dx")
+    j_named = dict(tree_items(j_dp))
+    assert sorted(j_named) == sorted(leaves)
+    for (name, _), g in zip(leaves.items(), grads[1:]):
+        _close_scaled(_np(g), j_named[name], tol, name)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_mlp_plain_matches_pallas(trunk_case, dt):
+    """Kernels I and J's plain versions against ``_mlp_fwd_pallas`` and
+    ``_mlp_bwd_pallas`` (interpret mode) and against ``mlp_relu_ref``."""
+    n_layers, jw, tw, x, g = trunk_case
+    tol = RECOMPUTE_TOL[dt]
+    opts = (n_layers, 32, 32, True, dt)
+    out = tcm.mlp_relu_plain(tw, torch.tensor(x), n_layers, dt)
+    for ref in (jcm._mlp_fwd_pallas(opts, jw, jnp.asarray(x)), jcm.mlp_relu_ref(jw, jnp.asarray(x), n_layers, dt)):
+        _close_scaled(_np(out), ref, 1e-5 if dt == "float32" else 2e-3)
+    j_dws, j_dx = jcm._mlp_bwd_pallas(opts, jw, jnp.asarray(x), jnp.asarray(g))
+    dws, dx = tcm.mlp_relu_bwd_plain(tw, torch.tensor(x), torch.tensor(g), n_layers, dt)
+    _close_scaled(_np(dx), j_dx, tol, "dx")
+    assert len(dws) == len(j_dws)
+    for k, (a, b) in enumerate(zip(dws, j_dws)):
+        _close_scaled(_np(a), b, tol, f"dw[{k}]")
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_recompute_mlp_op_matches_jax_vjp(trunk_case, dt):
+    """``fused_mlp_apply(backward="recompute")`` (``MlpFn``) against
+    ``jax.vjp`` of the JAX ``fused_mlp_apply`` in interpret mode, at the
+    weight-norm leaves and x.  The port's op is always bf16; the f32 case
+    runs ``MlpFn`` at f32 on the materialized weights."""
+    from nrhints_torch.utils import tree_items
+
+    n_layers, _, _, x, g = trunk_case
+    jp, tp = _trunk_params()
+    leaves = {n: t.detach().clone().requires_grad_(True) for n, t in tree_items(tp)}
+    params = {}
+    for n, t in leaves.items():
+        layer, key = n.strip("/").split("/")
+        params.setdefault(layer, {})[key] = t
+    xt = torch.tensor(x, requires_grad=True)
+    if dt == "bfloat16":
+        out = tcm.fused_mlp_apply(params, n_layers, xt, backward="recompute")
+    else:
+        out = tcm.MlpFn.apply(n_layers, dt, xt, *tcm.materialize_mlp_weights(params, n_layers))
+    assert type(out.grad_fn).__name__.startswith("MlpFn")
+    grads = torch.autograd.grad(out, [xt, *leaves.values()], torch.tensor(g))
+    kw = dict(block_pts=32, block_pts_bwd=32, interpret=True, compute_dtype=dt, backward="recompute")
+    j_out, vjp = jax.vjp(lambda p, xx: jcm.fused_mlp_apply(p, n_layers, xx, **kw),
+                         jax.tree_util.tree_map(jnp.asarray, jp), jnp.asarray(x))
+    j_dp, j_dx = vjp(jnp.asarray(g))
+    tol = RECOMPUTE_TOL[dt]
+    _close_scaled(_np(out), j_out, 1e-5 if dt == "float32" else 2e-3, "out")
+    _close_scaled(_np(grads[0]), j_dx, tol, "dx")
+    j_named = dict(tree_items(j_dp))
+    for (name, _), gr in zip(leaves.items(), grads[1:]):
+        _close_scaled(_np(gr), j_named[name], tol, name)
+
+
+def test_sdf_core_fn_matches_double_backward(stash_case):
+    """``SdfCoreFn`` (the recompute op, f32) against ``torch.autograd.grad(
+    create_graph=True)`` of ``sdf_core_plain``'s sdf, differentiated again:
+    1e-4 of each leaf's scale."""
+    jc, tc, x, cots, _, tw = stash_case
+    coef = [torch.tensor(c) for c in cots]
+    ws = [w.detach().clone().requires_grad_(True) for w in tw]
+    xt = torch.tensor(x, requires_grad=True)
+    s, f, gx = tcm.SdfCoreFn.apply(tc, "float32", xt, *ws)
+    g_port = torch.autograd.grad(_stash_loss(s, f, gx, coef), [xt, *ws])
+
+    ws2 = [w.detach().clone().requires_grad_(True) for w in tw]
+    xt2 = torch.tensor(x, requires_grad=True)
+    s2, f2, _ = tcm.sdf_core_plain(ws2, xt2, tc, "float32")
+    gx2 = torch.autograd.grad(s2.sum(), xt2, create_graph=True)[0]
+    g_ref = torch.autograd.grad(_stash_loss(s2, f2, gx2, coef), [xt2, *ws2])
+    _close_scaled(_np(gx), _np(gx2), 1e-4, "grad")
+    for k, (a, b) in enumerate(zip(g_port, g_ref)):
+        _close_scaled(_np(a), _np(b), 1e-4, f"leaf {k}")
+
+
+def test_mlp_fn_matches_autograd(trunk_case):
+    """``MlpFn`` (the recompute op, f32) against autograd of
+    ``mlp_relu_plain``: 1e-5 of each leaf's scale."""
+    n_layers, _, tw, x, g = trunk_case
+    ws = [w.detach().clone().requires_grad_(True) for w in tw]
+    xt = torch.tensor(x, requires_grad=True)
+    out = tcm.MlpFn.apply(n_layers, "float32", xt, *ws)
+    g_port = torch.autograd.grad(torch.sum(out * torch.tensor(g)), [xt, *ws])
+    ws2 = [w.detach().clone().requires_grad_(True) for w in tw]
+    xt2 = torch.tensor(x, requires_grad=True)
+    g_ref = torch.autograd.grad(torch.sum(tcm.mlp_relu_plain(ws2, xt2, n_layers) * torch.tensor(g)), [xt2, *ws2])
+    for k, (a, b) in enumerate(zip(g_port, g_ref)):
+        _close_scaled(_np(a), _np(b), 1e-5, f"leaf {k}")
+
+
+@pytest.mark.parametrize("backward", ["stash", "recompute", "stash_xla", "stash_all"])
+def test_undifferentiated_trunk_runs_forward_only(monkeypatch, backward):
+    """Under ``torch.no_grad()`` the trunk takes its plain forward (kernel
+    I on the card) for every schedule and never an autograd op (so never
+    kernel F), as JAX's stash op dispatches its non-stash forward for the
+    undifferentiated primal."""
+    _, tp = _trunk_params()
+    from nrhints_torch.utils import tree_leaves
+
+    for leaf in tree_leaves(tp):
+        leaf.requires_grad_(True)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("an autograd op ran without a gradient")
+
+    monkeypatch.setattr(tcs.MlpStashFn, "apply", refuse)
+    monkeypatch.setattr(tcm.MlpFn, "apply", refuse)
+    x = torch.tensor(np.random.default_rng(2).normal(size=(9, 45)).astype(np.float32))
+    with torch.no_grad():
+        out = tcm.fused_mlp_apply(tp, 2, x, backward=backward)
+    assert torch.equal(out, tcm.mlp_relu_plain(tcm.materialize_mlp_weights(tp, 2), x, 2, "bfloat16"))

@@ -65,13 +65,9 @@ UNPORTED = [
     ({"shadow_split": False}, {}),
     ({"march_sweep_impl": "pallas"}, {}),
     ({"march_rounds_impl": "pallas"}, {}),
-    ({"eval_reflectance_impl": "pallas"}, {}),
     ({"shadow_hint_gradient": True}, {}),
     ({"n_importance_samples": 32}, {}),
-    ({"core_backward": "recompute"}, {"is_training": True}),
     ({"core_backward": "stash_all"}, {"is_training": True}),
-    ({"core_backward": "stash_xla"}, {"is_training": True}),
-    ({"reflectance_impl": "xla"}, {"is_training": True}),
     ({}, {"mesh": object()}),
 ]
 
@@ -115,8 +111,64 @@ def test_training_branches_match_jax(call_kw):
     assert (float(to.specular_cue.abs().max()) == 0.0) == warm
 
 
+PORTED = [
+    ({"core_backward": "recompute"}, True),
+    ({"core_backward": "stash_xla"}, True),
+    ({"reflectance_impl": "xla"}, True),
+    ({"eval_reflectance_impl": "pallas"}, False),
+]
+
+
+@pytest.mark.parametrize("renderer_kw,is_training", PORTED, ids=["recompute", "stash_xla", "train_trunk_xla",
+                                                                  "eval_trunk_pallas"])
+def test_ported_settings_match_jax(renderer_kw, is_training):
+    """The backward schedules and trunk choices this slice ports, through
+    ``render_rays`` against JAX at the f32 march's tolerances.  Training
+    cases run with parameters that need gradients, so the autograd ops of
+    the schedule run, and also compare the gradient of sum(rgb) + the
+    eikonal term at every leaf (2e-2 of its scale, the train tests'
+    gradient tolerance).  The eval trunk under "pallas" rounds its dot
+    operands to bf16 on both sides; rgb still agrees to the f32 5e-4."""
+    import jax
+
+    from nrhints_torch.utils import tree_items
+
+    jc, tc = model_configs(march_dtype="float32", **renderer_kw)
+    jp, tp = model_params(jc)
+    jrays, trays = ray_bundles(0)
+    key = jax.random.PRNGKey(3)
+    k_strat, _, k_shadow = jax.random.split(key, 3)
+    uniforms = {
+        "strat": torch.tensor(np.asarray(jax.random.uniform(k_strat, (trays.origins.shape[0], 1)))),
+        "shadow": torch.tensor(np.asarray(jax.random.uniform(k_shadow, (trays.origins.shape[0], 64)))),
+    }
+
+    def j_loss(p):
+        o = jr.render_rays(p, jc, jrays, key, background_rgb=jnp.ones((1, 3)), is_training=is_training)
+        return jnp.sum(o.rgb) + jnp.sum((jnp.linalg.norm(o.analytic_normals, axis=-1) - 1.0) ** 2), o
+
+    tol = TOLS["float32"]
+    if is_training:
+        (_, jo), jgrads = jax.value_and_grad(j_loss, has_aux=True)(jax.tree_util.tree_map(jnp.asarray, jp))
+        for _, t in tree_items(tp):
+            t.requires_grad_(True)
+        to = tr.render_rays(tp, tc, trays, background_rgb=torch.ones(1, 3), uniforms=uniforms, is_training=True)
+        loss = torch.sum(to.rgb) + torch.sum((torch.linalg.norm(to.analytic_normals, dim=-1) - 1.0) ** 2)
+        loss.backward()
+        for name, g in tree_items(jgrads):
+            port = dict(tree_items(tp))[name].grad.numpy()
+            scale = float(np.abs(np.asarray(g)).max())
+            assert np.abs(port - np.asarray(g)).max() <= 2e-2 * scale, name
+    else:
+        _, jo = j_loss(jp)
+        with torch.no_grad():
+            to = tr.render_rays(tp, tc, trays, background_rgb=torch.ones(1, 3))
+    for k in ("rgb", "weights", "depth", "visibilities"):
+        np.testing.assert_allclose(getattr(to, k).detach().numpy(), np.asarray(getattr(jo, k)), atol=tol[k], err_msg=k)
+
+
 def test_hash_encoding_raises():
     from nrhints_torch.fields.sdf import SDFNetConfig, sdf_init
 
     with pytest.raises(NotImplementedError):
-        sdf_init(torch.Generator().manual_seed(0), SDFNetConfig(encoding="hash"))
+        sdf_init(torch.Generator().manual_seed(0), SDFNetConfig(encoding="hash"), device="cpu")

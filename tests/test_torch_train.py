@@ -76,7 +76,7 @@ def _setup(preset: str, n_batches: int = 1, **renderer_kw):
     jp = {"renderer": jr, "raygen": raygen}
     from nrhints_torch.convert import params_from_jax
 
-    tp = params_from_jax(jp)
+    tp = params_from_jax(jp, device="cpu")
     sc = scene_views(N_VIEWS, HW, HW, seed=1)
     cam = (HW, HW, HW / 2.0, HW / 2.0, sc["focal"], sc["focal"], 0.1, 6.0)
     sampler = TSampler(N_VIEWS, HW, HW, N_RAYS)
@@ -112,12 +112,16 @@ def _jax_grads(jcfg, jp, jcam, jb, key, geometry_warmup):
 
 
 @pytest.mark.parametrize(
-    "preset,geometry_warmup",
-    [("nr-hints", False), ("nr-hints-cam-opt", False), ("nr-hints", True)],
-    ids=["nr-hints", "nr-hints-cam-opt", "geometry-warmup"],
+    "preset,geometry_warmup,core_backward",
+    [("nr-hints", False, "stash"), ("nr-hints-cam-opt", False, "stash"), ("nr-hints", True, "stash"),
+     ("nr-hints-cam-opt", False, "recompute"), ("nr-hints-cam-opt", False, "stash_xla")],
+    ids=["nr-hints", "nr-hints-cam-opt", "geometry-warmup", "nr-hints-cam-opt-recompute", "nr-hints-cam-opt-stash_xla"],
 )
-def test_step_gradients_match_jax(preset, geometry_warmup):
-    jcfg, tcfg, jp, tp, jcam, tcam, (jb,), (tb,), key = _setup(preset)
+def test_step_gradients_match_jax(preset, geometry_warmup, core_backward):
+    """One step's loss, metrics and every gradient leaf under each ported
+    backward schedule (the recompute op: kernels A, H, I, J on the card;
+    stash_xla: D, F and the stash backward as full-batch PyTorch)."""
+    jcfg, tcfg, jp, tp, jcam, tcam, (jb,), (tb,), key = _setup(preset, core_backward=core_backward)
     jgrads, jmetrics = _jax_grads(jcfg, jp, jcam, jb, key, geometry_warmup)
     state = tstep.init_train_state(tp, tstep.make_optimizer(tcfg, tp))
     tmetrics = tstep.loss_and_grads(

@@ -29,7 +29,7 @@ def jax_sdf_params(seed: int = 0):
 
     jc = JS(**SDF_KW)
     jp = jax.device_get(sdf_init(jax.random.PRNGKey(seed), jc))
-    return jc, jp, TS(**SDF_KW), params_from_jax(jp)
+    return jc, jp, TS(**SDF_KW), params_from_jax(jp, device="cpu")
 
 
 def model_configs(**renderer_kw):
@@ -61,7 +61,7 @@ def model_params(jcfg, seed: int = 0):
 
     jp = jax.device_get(init_model_params(jax.random.PRNGKey(seed), jcfg))
     jp["color"] = jax.tree_util.tree_map(lambda x: np.asarray(x) * 4.0, jp["color"])
-    return jp, params_from_jax(jp)
+    return jp, params_from_jax(jp, device="cpu")
 
 
 def camera_rays(seed: int = 0, n: int = N_RAYS):
