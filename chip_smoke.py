@@ -29,7 +29,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    gradients on the card against the same step on the CPU;
 6. recompute train path: the same under core_backward="recompute"
    (kernels A, H, I, J instead of D, E, F, G) on the same batches, 3
-   warm-up steps and 10 timed, with the same checks.
+   warm-up steps and 10 timed, with the same checks;
+7. round-4 march views: the view of phase 4 with the monolithic marches
+   (kernel M for the camera rays, N for the shadow rays) and with the
+   split march (K then L for the camera rays, M then C for the shadow
+   rays, both by the rank merge): launches, and images against phase 4's;
+   one profiled view of each and of phase 4b;
+8. round-4 train path: nr-hints-cam-opt with the monolithic marches, 3
+   warm-up steps and 5 timed, with phase 5's checks (M and N once per step).
+Phase 3 also holds kernels K (initial march sweep), L (refinement rounds),
+M (K and L in one kernel) and N (M and C's final sweep in one kernel), and
+B under the rank merge, against their plain versions.
 It prints a {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -66,9 +76,23 @@ H100_BYTES_PER_S = 3.35e12  # HBM3
 # each gradient's scale) against the plain backward at the forward's own
 # z_i (kernel I's, which J recomputes bit for bit), and against the wholly
 # plain backward by the relative norm of the error, 2e-2 per gradient.
+# K: as A.  N: as C.  L: bit for bit equal to its schedule run as kernel B
+# steps between kernel K sweeps (each row in the same tile position), so L
+# is exactly B's machinery and K's sweep, each held to its plain version
+# above; M = L(K(.)) and N = C(M(.)) bit for bit (one kernel template, the
+# same tiles).  Against the wholly plain marches, L's and M's z are sorted,
+# keep every stratified sample, and at least Z_NN_SHARE of their samples lie
+# within 1e-4 of a sample of the plain version: where a ray's pdf is nearly
+# uniform (random weights, most of the ray far from the surface), a cdf
+# value and the u grid nearly coincide, so a bf16 rounding flip in a sweep
+# sends a draw to the next interval and later rounds draw around it; phase 3
+# prints the same shares for the plain march on the card against the plain
+# march on the CPU (two summation orders of one program).  B under the rank
+# merge: z equal to the bitonic network's bit for bit.
 TOL = {"sdf_core_fwd": 1e-2, "round_machinery": 1e-4, "shadow_final": 1e-2, "sdf_stash_fwd": 1e-2,
        "sdf_stash_bwd": 2e-2, "mlp_stash_fwd": 1e-2, "mlp_stash_bwd": 2e-2, "sdf_core_bwd": 2e-2,
-       "mlp_fwd": 1e-2, "mlp_bwd": 2e-2}
+       "mlp_fwd": 1e-2, "mlp_bwd": 2e-2, "march_sweep": 1e-2, "shadow_march": 1e-2}
+Z_TOL, Z_NN_SHARE = 1e-4, 0.75
 # The CPU re-render of 64 pixels runs every plain version on the host: its
 # march sweeps and core sum in other orders, so bf16 rounding flips move a
 # few samples; the composite absorbs that to well below these bounds.
@@ -80,8 +104,9 @@ CPU_TOL = {"rgb": 2e-2, "depth": 2e-2, "shadow_map": 2e-2}
 GRAD_TOL = 5e-2
 TRAIN_STEPS, TRAIN_WARMUP = 20, 3
 RECOMPUTE_STEPS = 10
-# Device-time groups of a profiled train step: (substring of the kernel's
-# name, group), the first match wins.
+ROUND4_STEPS = 5
+# Device-time groups of a profiled view or train step: (substring of the
+# kernel's name, group), the first match wins.
 STEP_GROUPS = (
     ("sdf_core_fwd_kernel<0>", "kernel A sdf_core_fwd"), ("sdf_core_fwd_kernel<1>", "kernel D sdf_stash_fwd"),
     ("sdf_core_fwd_kernel<2>", "kernel H, forward pass (H1)"),
@@ -90,8 +115,15 @@ STEP_GROUPS = (
     ("mlp_bwd_kernel<false>", "kernel G mlp_stash_bwd (G1)"), ("mlp_bwd_kernel<true>", "kernel J mlp_bwd (J1)"),
     ("dw_partial", "dW passes of E/G/H/J (dw_sum.cuh)"), ("dw_reduce", "dW passes of E/G/H/J (dw_sum.cuh)"),
     ("colsum", "dW passes of E/G/H/J (dw_sum.cuh)"), ("round_machinery", "kernel B round_machinery"),
-    ("shadow_final", "kernel C shadow_final"),
+    ("march_kernel<false, false, true", "kernel C shadow_final"),
+    ("march_kernel<true, false, false", "kernel K march_sweep"),
+    ("march_kernel<false, true, false", "kernel L march_rounds"),
+    ("march_kernel<true, true, false", "kernel M importance_march"),
+    ("march_kernel<true, true, true", "kernel N shadow_march"),
 )
+# The round-4 march configurations of phases 7 and 8.
+MONOLITH = {"march_sweep_impl": "pallas", "march_rounds_impl": "pallas", "shadow_split": False}
+SPLIT = {"importance_split": True, "march_sweep_impl": "pallas", "march_rounds_impl": "pallas", "march_merge": "rank"}
 
 
 def log(msg: str) -> None:
@@ -143,9 +175,9 @@ def tree_to(tree, dev):
     return tree.detach().clone().to(dev)
 
 
-def device_groups(prof, groups=STEP_GROUPS) -> dict[str, float]:
+def device_groups(prof) -> dict[str, float]:
     """Device ms by group from a torch.profiler run; kernels outside
-    ``groups`` count as cuBLAS or other PyTorch kernels."""
+    STEP_GROUPS count as cuBLAS or other PyTorch kernels."""
     import torch
 
     out: dict[str, float] = {}
@@ -153,12 +185,46 @@ def device_groups(prof, groups=STEP_GROUPS) -> dict[str, float]:
         us = getattr(e, "self_device_time_total", 0.0)
         if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        g = next((label for key, label in groups if key in e.key), None)
+        g = next((label for key, label in STEP_GROUPS if key in e.key), None)
         if g is None:
             low = e.key.lower()
             g = "matmul (cuBLAS)" if ("gemm" in low or "cutlass" in low) else "other PyTorch kernels"
         out[g] = out.get(g, 0.0) + us / 1e3
     return out
+
+
+def z_err(kernel_z, plain_z, z0) -> tuple[float, float, float, bool]:
+    """(max abs error slot by slot, share of the slots within Z_TOL, share
+    of the kernel's samples within Z_TOL of a plain sample of their ray,
+    whether the kernel's z are sorted and hold every stratified sample z0)."""
+    e = (kernel_z - plain_z).abs()
+    nn = (kernel_z[:, :, None] - plain_z[:, None, :]).abs().amin(-1)
+    ok = bool((kernel_z[:, 1:] >= kernel_z[:, :-1]).all()) and bool(
+        (kernel_z[:, :, None] == z0[:, None, :]).any(1).all())
+    return e.max().item(), (e <= Z_TOL).float().mean().item(), (nn <= Z_TOL).float().mean().item(), ok
+
+
+def tile_sweep16(o, d, weights, cfg):
+    """A round's 16-sample sweep by kernel K, each sample a row in the tile
+    position kernel L gives it (ray 2b's samples rows 0-15 of a tile, ray
+    2b + 1's rows 16-31): the samples repeated to 64, then the matching 16
+    columns of K's output."""
+    import torch
+    from nrhints_torch.kernels import march
+
+    odd = (torch.arange(o.shape[0], device=o.device) % 2 == 1)[:, None]
+
+    def sweep(new_z, *_):
+        out = march.march_sweep(new_z.repeat(1, 4).contiguous(), o, d, weights, cfg)
+        return torch.where(odd, out[:, 16:32], out[:, :16]).contiguous()
+
+    return sweep
+
+
+def with_renderer(cfg, **kw):
+    """``cfg`` with its renderer's fields replaced."""
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, renderer=dataclasses.replace(cfg.model.renderer, **kw)))
 
 
 def grad_norm_err(kernel_outs, plain_outs) -> float:
@@ -321,8 +387,9 @@ def main() -> int:
     dl = hits - sl
     norm = torch.linalg.norm(dl, dim=-1, keepdim=True)
     sdist, sdir = (norm / 64).contiguous(), (dl / norm).contiguous()
-    sz = march.fused_importance_z(renderer_params["sdf"], scfg, sl, sdir, linspace01(64, device=dev)[None, :] * norm * 0.99,
-                                  mlp_dtype=mcfg.renderer.march_dtype)
+    z0s = (linspace01(64, device=dev)[None, :] * norm * 0.99).contiguous()
+    sz = march.fused_importance_z(renderer_params["sdf"], scfg, sl, sdir, z0s, mlp_dtype=mcfg.renderer.march_dtype,
+                                  split=True, sweep_impl="xla", rounds_impl="xla")
     anneal = torch.tensor(1.0, device=dev)
     k_tau = march.shadow_final(sz, sl, sdir, sdist, inv_s, anneal, mw, scfg)
     p_tau = march.shadow_final_plain(sz, sl, sdir, sdist, inv_s, anneal, mw, scfg)
@@ -336,6 +403,86 @@ def main() -> int:
         f"{p_tau.max().item():.4f}], {c_ms:.4f} ms, plain {c_plain_ms:.4f} ms, bound {c_bound:.4f} ms ({c_by})")
     if not c_rel <= TOL["shadow_final"]:
         raise AssertionError(f"kernel C disagrees with its plain version: rel {c_rel:.3e}")
+
+    # B under the rank merge, on the five steps above: z equal to the
+    # bitonic network's, everything equal to the plain rank merge's but the
+    # draws (as B).
+    br_abs = br_ms = 0.0
+    for args in steps:
+        kr, kb = march.round_machinery(*args, merge="rank"), march.round_machinery(*args)
+        pr = march.round_machinery_plain(*args, merge="rank")
+        if not (torch.equal(kr[1], kb[1]) and torch.equal(kr[1], pr[1])):
+            raise AssertionError(f"kernel B's rank merge differs from the bitonic or the plain merge at {args[6:8]}")
+        if kr[2] is not None and not torch.equal(kr[2], pr[2]):
+            raise AssertionError(f"kernel B's rank merge moves the payload otherwise than the plain merge at {args[6:8]}")
+        a, r = max_err(kr, pr)
+        if not r <= TOL["round_machinery"]:
+            raise AssertionError(f"kernel B (rank) disagrees with its plain version: rel {r:.3e}")
+        br_abs = max(br_abs, a)
+        br_ms += cuda_ms(lambda: march.round_machinery(*args, merge="rank"), 200) / len(steps)
+    log(f"[kernel B rank] round_machinery, merge='rank': z equal to the bitonic merge's on all 5 steps, max abs err "
+        f"{br_abs:.3e} against the plain rank merge, {br_ms:.4f} ms/launch (bitonic {b_ms:.4f} ms)")
+
+    # K, L, M and N: the round-4 marches on the same chunk, K, L and M on
+    # its camera rays' z0, N on the shadow rays' above.  Bounds: a value
+    # sweep is hidden + d_last multiply-adds per point, the dual sweep twice
+    # that; the bytes are the inputs and outputs once and the bf16 weights.
+    value_macs, w_bytes = hidden + dims[-2], 2 * (hidden + dims[-2])
+    k_sdf0 = march.march_sweep(z0, o, d, mw, scfg)
+    k_abs, k_rel = max_err([k_sdf0], [march.march_sweep_plain(z0, o, d, mw, scfg)])
+    k_ms = cuda_ms(lambda: march.march_sweep(z0, o, d, mw, scfg), 10)
+    k_plain_ms = cuda_ms(lambda: march.march_sweep_plain(z0, o, d, mw, scfg), 3, warmup=1)
+    k_bound, k_by = bound(2.0 * 512 * 64 * value_macs, 512 * 4 * (64 + 3 + 3 + 64) + w_bytes, H100_BF16_FLOPS)
+    log(f"[kernel K] march_sweep: B=512 x 64, max abs err {k_abs:.3e} (rel {k_rel:.3e}), {k_ms:.4f} ms, plain "
+        f"{k_plain_ms:.4f} ms, bound {k_bound:.4f} ms ({k_by})")
+    if not k_rel <= TOL["march_sweep"]:
+        raise AssertionError(f"kernel K disagrees with its plain version: rel {k_rel:.3e}")
+
+    l_z = march.march_rounds(z0, k_sdf0, o, d, mw, scfg)
+    l_is_bk = torch.equal(l_z, march._rounds(mw, scfg, o, d, z0, k_sdf0, 4, 16, 64.0, "bitonic", march.round_machinery,
+                                             tile_sweep16(o, d, mw, scfg)))
+    l_abs, l_slots, l_share, l_sorted = z_err(l_z, march.march_rounds_plain(z0, k_sdf0, o, d, mw, scfg), z0)
+    l_ms = cuda_ms(lambda: march.march_rounds(z0, k_sdf0, o, d, mw, scfg), 10)
+    l_plain_ms = cuda_ms(lambda: march.march_rounds_plain(z0, k_sdf0, o, d, mw, scfg), 3, warmup=1)
+    l_bound, l_by = bound(2.0 * 512 * 48 * value_macs, 512 * 4 * (64 + 64 + 3 + 3 + 128) + w_bytes, H100_BF16_FLOPS)
+    m_z = march.importance_march(z0, o, d, mw, scfg)
+    m_plain = march.importance_march_plain(z0, o, d, mw, scfg)
+    m_abs, m_slots, m_share, m_sorted = z_err(m_z, m_plain, z0)
+    _, pp_slots, pp_share, _ = z_err(m_plain, march.importance_march_plain(
+        *(t.cpu() for t in (z0, o, d)), [w.cpu() for w in mw], scfg).to(dev), z0)
+    m_ms = cuda_ms(lambda: march.importance_march(z0, o, d, mw, scfg), 10)
+    m_plain_ms = cuda_ms(lambda: march.importance_march_plain(z0, o, d, mw, scfg), 3, warmup=1)
+    m_bound, m_by = bound(2.0 * 512 * 112 * value_macs, 512 * 4 * (64 + 3 + 3 + 128) + w_bytes, H100_BF16_FLOPS)
+    m_is_lk = torch.equal(m_z, l_z)
+    for name, slots, share, srt, abs_e, ms, pms, bd, by in (
+            ("L march_rounds", l_slots, l_share, l_sorted, l_abs, l_ms, l_plain_ms, l_bound, l_by),
+            ("M importance_march", m_slots, m_share, m_sorted, m_abs, m_ms, m_plain_ms, m_bound, m_by)):
+        log(f"[kernel {name}] B=512: z sorted with every stratified sample kept: {srt}; {share:.4f} of the samples "
+            f"within {Z_TOL} of a plain sample (tol {Z_NN_SHARE}), slot by slot {slots:.4f} (max abs err "
+            f"{abs_e:.3e}); {ms:.4f} ms, plain {pms:.4f} ms, bound {bd:.4f} ms ({by})")
+        if not (srt and share >= Z_NN_SHARE):
+            raise AssertionError(f"kernel {name} disagrees with its plain version: sorted {srt}, share {share:.4f}")
+    log(f"[kernel M] the plain march on the card against the plain march on the CPU: {pp_share:.4f} of the samples "
+        f"within {Z_TOL} of a sample of the other, slot by slot {pp_slots:.4f}")
+    log(f"[kernel L] z equals kernel B's steps between kernel K's sweeps bit for bit: {l_is_bk}; [kernel M] z "
+        f"equals L(K(.)) bit for bit: {m_is_lk}")
+    if not (l_is_bk and m_is_lk):
+        raise AssertionError(f"kernel L or M differs from its composition: L = B/K steps {l_is_bk}, M = L(K) {m_is_lk}")
+
+    n_tau = march.shadow_march(z0s, sl, sdir, sdist, inv_s, anneal, mw, scfg)
+    n_abs, n_rel = max_err([n_tau], [march.shadow_march_plain(z0s, sl, sdir, sdist, inv_s, anneal, mw, scfg)])
+    n_is_cm = torch.equal(n_tau, march.shadow_final(march.importance_march(z0s, sl, sdir, mw, scfg), sl, sdir, sdist,
+                                                    inv_s, anneal, mw, scfg))
+    n_ms = cuda_ms(lambda: march.shadow_march(z0s, sl, sdir, sdist, inv_s, anneal, mw, scfg), 10)
+    n_plain_ms = cuda_ms(lambda: march.shadow_march_plain(z0s, sl, sdir, sdist, inv_s, anneal, mw, scfg), 3, warmup=1)
+    n_bound, n_by = bound(2.0 * 512 * (112 * value_macs + 128 * 2 * value_macs), 512 * 4 * (64 + 3 + 3 + 1 + 1) + w_bytes,
+                          H100_BF16_FLOPS)
+    log(f"[kernel N] shadow_march: B=512, max abs err {n_abs:.3e} (rel {n_rel:.3e}), tau equals C(M(.)) bit for bit: "
+        f"{n_is_cm}; {n_ms:.4f} ms, plain {n_plain_ms:.4f} ms, bound {n_bound:.4f} ms ({n_by})")
+    if not n_rel <= TOL["shadow_march"]:
+        raise AssertionError(f"kernel N disagrees with its plain version: rel {n_rel:.3e}")
+    if not n_is_cm:
+        raise AssertionError("kernel N's tau differs from kernel C's after kernel M")
 
     # D and E: the SDF stash op on the same 65,536 points (one train step's
     # core call), E at random cotangents of (sdf, feat, grad).
@@ -517,20 +664,27 @@ def main() -> int:
     # overhead, so its idle share overstates the host's).
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        ev.render_image(params, view)
-        torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - t0) * 1e3
-    groups = device_groups(prof, tuple((k, k) for k in ("sdf_core_fwd", "round_machinery", "shadow_final")))
-    busy = sum(groups.values())
-    if busy > 0:
-        log(f"[profile] one view: device busy {busy:.1f} ms; idle share {1 - busy / (secs * 1e3):.3f} of the "
-            f"unprofiled view ({secs * 1e3:.1f} ms), {1 - busy / prof_wall:.3f} of the profiled wall ({prof_wall:.1f} ms)")
-        for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-            log(f"[profile]   {g}: {ms:.2f} ms ({ms / busy:.3f} of device time)")
-    else:
-        log("[profile] the profiler recorded no device time: breakdown not measured")
+    def profile_view(label: str, ev_, secs_: float, launches_: dict) -> None:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ev_.render_image(params, view)
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t0) * 1e3
+        groups = device_groups(prof)
+        busy = sum(groups.values())
+        if busy > 0:
+            log(f"[profile] one {label} view: device busy {busy:.1f} ms; idle share {1 - busy / (secs_ * 1e3):.3f} of "
+                f"the unprofiled view ({secs_ * 1e3:.1f} ms), {1 - busy / prof_wall:.3f} of the profiled wall "
+                f"({prof_wall:.1f} ms)")
+            for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+                # "kernel X <launch key> ...": the device time per launch too.
+                n = launches_.get(g.split()[2], 0) if g.startswith("kernel ") else 0
+                per = f", {ms / n:.4f} ms per launch over {n}" if n else ""
+                log(f"[profile]   {g}: {ms:.2f} ms ({ms / busy:.3f} of device time{per})")
+        else:
+            log(f"[profile] the profiler recorded no device time in the {label} view: breakdown not measured")
+
+    profile_view("phase 4", ev, secs, launches)
 
     # The same view's pixels on the CPU, plain versions, 64 rays.
     rows = torch.arange(36, 100, 8)
@@ -548,9 +702,7 @@ def main() -> int:
             raise AssertionError(f"CPU and card renders disagree on {k}: {e:.3e}")
 
     # 4b. The same view with the fused eval trunk (kernel I, never F).
-    pcfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        mcfg, renderer=dataclasses.replace(mcfg.renderer, eval_reflectance_impl="pallas")))
-    ev_p = Evaluator(pcfg, camera, {}, device="cuda")
+    ev_p = Evaluator(with_renderer(cfg, eval_reflectance_impl="pallas"), camera, {}, device="cuda")
     torch.cuda.synchronize()
     cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
@@ -570,6 +722,42 @@ def main() -> int:
         log(f"[main path 4b] fused trunk vs phase 4's f32 trunk, whole view, {k}: max abs err {e:.3e} (tol {tol})")
         if not e <= tol:
             raise AssertionError(f"the fused-trunk view disagrees with phase 4's on {k}: {e:.3e}")
+
+    # 7. The same view under the round-4 marches: the monolith (M for the
+    # camera rays, N for the shadow rays) and the split march (K then L for
+    # the camera rays; the shadow refinement ignores importance_split, so M
+    # then C), both by rank in the split case.
+    round4 = {
+        "monolith": (MONOLITH, dict(importance_march=n_chunks, shadow_march=n_chunks)),
+        "split": (SPLIT, dict(march_sweep=n_chunks, march_rounds=n_chunks, importance_march=n_chunks,
+                              shadow_final=n_chunks)),
+    }
+    view_launches, round4_evs = {}, {}
+    for name, (kw, counts) in round4.items():
+        ev7 = Evaluator(with_renderer(cfg, **kw), camera, {}, device="cuda")
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        img7 = ev7.render_image(params, view)
+        torch.cuda.synchronize()
+        secs7 = time.perf_counter() - t0
+        launches7 = dict(cuda_lib.launch_counts)
+        expected7 = dict({k: 0 for k in cuda_lib.launch_counts}, sdf_core_fwd=n_chunks, **counts)
+        log(f"[round-4 {name}] {H}x{W} view {kw}: {secs7:.4f} s, {H * W / secs7:.1f} rays/s on {smi}; launches "
+            f"{launches7}")
+        if launches7 != expected7:
+            raise AssertionError(f"launch counts {launches7}, expected {expected7}")
+        if {k: v.shape for k, v in img7.items()} != shapes or not all(np.all(np.isfinite(v)) for v in img7.values()):
+            raise AssertionError(f"the round-4 {name} view's outputs are malformed or not finite")
+        for k, tol in CPU_TOL.items():
+            e = float(np.abs(img7[k] - img[k]).max())
+            log(f"[round-4 {name}] against phase 4's view, whole view, {k}: max abs err {e:.3e} (tol {tol})")
+            if not e <= tol:
+                raise AssertionError(f"the round-4 {name} view disagrees with phase 4's on {k}: {e:.3e}")
+        view_launches[name], round4_evs[name] = launches7, (ev7, secs7)
+    profile_view("phase 4b fused-trunk", ev_p, secs_p, launches_p)
+    for name, (ev7, secs7) in round4_evs.items():
+        profile_view(f"round-4 {name}", ev7, secs7, view_launches[name])
 
     # 5. Train path: nr-hints-cam-opt at full width, 512-ray batches of 8
     # procedural views, through make_train_step.
@@ -594,7 +782,8 @@ def main() -> int:
 
     def train_phase(label: str, scfg_, n_steps: int, per_step: dict) -> dict:
         """Train a fresh seed-0 state of ``scfg_`` on ``batches``: warm-up,
-        ``n_steps`` timed steps (launches checked against ``per_step``), one
+        ``n_steps`` timed steps (launches checked against ``per_step``, every
+        kernel it omits at 0), one
         profiled step, and one 64-ray step's gradients against the CPU."""
         tgen = torch.Generator().manual_seed(0)
         tparams = {"renderer": init_model_params(scfg_.model, tgen, device=dev)}
@@ -616,8 +805,7 @@ def main() -> int:
         torch.cuda.synchronize()
         step_s = (time.perf_counter() - t0) / n_steps
         launches_ = dict(cuda_lib.launch_counts)
-        expected_ = {k: 0 for k in cuda_lib.launch_counts}
-        expected_.update(round_machinery=10, shadow_final=1, **per_step)
+        expected_ = dict({k: 0 for k in cuda_lib.launch_counts}, **per_step)
         losses = [float(v) for v in losses]
         log(f"[{label}] {scfg_.model.batch_size} rays/step, core_backward={scfg_.model.renderer.core_backward!r}: "
             f"{step_s:.5f} s/step, {scfg_.model.batch_size / step_s:.1f} train rays/s on {smi}; loss {losses[0]:.5f} "
@@ -675,14 +863,18 @@ def main() -> int:
             raise AssertionError(f"card and CPU gradients disagree: {worst_leaf} {worst:.3e}")
         return launches_
 
+    stash_step = dict(sdf_stash_fwd=1, sdf_stash_bwd=1, mlp_stash_fwd=1, mlp_stash_bwd=1)
     train_launches = train_phase("train path", tcfg, TRAIN_STEPS, dict(
-        sdf_stash_fwd=1, sdf_stash_bwd=1, mlp_stash_fwd=1, mlp_stash_bwd=1))
+        stash_step, round_machinery=10, shadow_final=1))
 
     # 6. The recompute schedule on the same batches.
-    rcfg = dataclasses.replace(tcfg, model=dataclasses.replace(
-        tcfg.model, renderer=dataclasses.replace(tcfg.model.renderer, core_backward="recompute")))
-    rec_launches = train_phase("recompute train path", rcfg, RECOMPUTE_STEPS, dict(
-        sdf_core_fwd=1, sdf_core_bwd=1, mlp_fwd=1, mlp_bwd=1))
+    rec_launches = train_phase("recompute train path", with_renderer(tcfg, core_backward="recompute"),
+                               RECOMPUTE_STEPS, dict(sdf_core_fwd=1, sdf_core_bwd=1, mlp_fwd=1, mlp_bwd=1,
+                                                     round_machinery=10, shadow_final=1))
+
+    # 8. The monolithic round-4 marches in training, on the same batches.
+    train_phase("round-4 monolith train path", with_renderer(tcfg, **MONOLITH), ROUND4_STEPS,
+                              dict(stash_step, importance_march=1, shadow_march=1))
 
     def entry(name, source, replaces, launches_, err, ms, plain_ms, bound_ms, by):
         return {"name": name, "route": "cuda", "source": f"nrhints_torch/csrc/{source}",
@@ -710,6 +902,14 @@ def main() -> int:
               i_by),
         entry("mlp_bwd", "mlp_stash.cu", "core_mlp.py:420", rec_launches["mlp_bwd"], j_abs, j_ms, j_plain_ms, j_bound,
               j_by),
+        entry("march_sweep", "march_fused.cu", "march.py:507", view_launches["split"]["march_sweep"], k_abs, k_ms,
+              k_plain_ms, k_bound, k_by),
+        entry("march_rounds", "march_fused.cu", "march.py:522", view_launches["split"]["march_rounds"], l_abs, l_ms,
+              l_plain_ms, l_bound, l_by),
+        entry("importance_march", "march_fused.cu", "march.py:488", view_launches["monolith"]["importance_march"],
+              m_abs, m_ms, m_plain_ms, m_bound, m_by),
+        entry("shadow_march", "march_fused.cu", "march.py:595", view_launches["monolith"]["shadow_march"], n_abs,
+              n_ms, n_plain_ms, n_bound, n_by),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

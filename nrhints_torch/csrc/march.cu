@@ -1,11 +1,13 @@
-// Kernels B and C of the hierarchical SDF marches.
+// Kernels B and C of the hierarchical SDF marches.  Their device code is in
+// march_common.cuh, shared with kernels K, L, M and N (march_fused.cu).
 //
 // Kernel B, round_machinery.  Replaces
 // nrhints_tpu/kernels/march.py::_round_machinery_kernel (:392), launched
 // five times per march by _rounds_xla (:424, pallas_call at :443).  Per ray
 // it merges the previous round's 16 new (z, sdf) pairs into the sorted
-// 128-slot buffer (the same bitonic network as _bitonic_merge, :165, so ties
-// resolve identically), then draws the next 16 samples exactly as
+// 128-slot buffer (merge128: the bitonic network of _bitonic_merge, :165, so
+// ties resolve identically, or with RANK the stable rank merge of
+// _rank_merge, :200), then draws the next 16 samples exactly as
 // _round_new_z (:263): NeuS section alpha at inv_s, weights by the
 // exclusive log-space prefix, pdf + 1e-5 over the valid intervals, and the
 // deterministic inverse CDF at descending u = 1 - k/15.
@@ -27,50 +29,16 @@
 // chunk of 65,536 points, 0.122 ms at 989 TFLOP/s bf16: bound by operations.
 // Design: the TPU kept 128 points x 256 x 2 streams in VMEM next to a whole
 // layer's weights; that is more than a Hopper block's 227 KB.  So a block
-// takes one ray and walks its 128 points in four tiles of 32.  The value and
-// tangent activations of a tile (bf16, ping-pong, 68 KB) stay in shared
-// memory; each warp owns 16-column output tiles of both streams and both
-// 16-row halves, so every weight fragment it loads from global memory (L2)
-// feeds four WMMA products, and it finishes its tiles' epilogue through a
-// private 2 KB scratch, without a block-wide accumulator buffer.  About
-// 100 KB of shared memory, two blocks per SM.
-#include "sdf_mlp.cuh"
+// takes two rays and walks their 256 points in eight tiles of 32
+// (march_kernel's FINAL stage, sdf_tile<DUAL>): about 105 KB of shared
+// memory, two blocks per SM.
+#include "march_common.cuh"
 
 using namespace nrh;
 
 namespace {
 
-constexpr int NBUF = 128;  // slots of the z / sdf buffer
-constexpr int NNEW = 16;   // samples drawn per round
-constexpr float BIG_Z = 1e9f;
-
-// Exclusive prefix sum over the 128 threads of a block (4 warps).
-__device__ float block_exclusive_scan128(float v, float* warp_tot) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float inc = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const float t = __shfl_up_sync(0xffffffffu, inc, o);
-    if (lane >= o) inc += t;
-  }
-  float exc = __shfl_up_sync(0xffffffffu, inc, 1);
-  if (lane == 0) exc = 0.0f;
-  if (lane == 31) warp_tot[warp] = inc;
-  __syncthreads();
-  float base = 0.0f;
-  for (int w = 0; w < warp; ++w) base += warp_tot[w];
-  __syncthreads();
-  return exc + base;
-}
-
-__device__ float block_sum128(float v, float* warp_tot) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) warp_tot[threadIdx.x >> 5] = v;
-  __syncthreads();
-  const float s = (warp_tot[0] + warp_tot[1]) + (warp_tot[2] + warp_tot[3]);
-  __syncthreads();
-  return s;
-}
-
+template <bool RANK>
 __global__ void __launch_bounds__(NBUF)
     round_machinery_kernel(const float* __restrict__ z, const float* __restrict__ sdf,
                            const float* __restrict__ o, const float* __restrict__ d,
@@ -81,240 +49,29 @@ __global__ void __launch_bounds__(NBUF)
   __shared__ float sz[NBUF], ss[NBUF], sc[NBUF], warp_tot[4];
   __shared__ int cnt[4][NNEW];
   const int ray = blockIdx.x, k = threadIdx.x;
-  const int lane = k & 31, warp = k >> 5;
   float zk = z[(size_t)ray * NBUF + k];
   float sk = sdf[(size_t)ray * NBUF + k];
 
   if (merge_valid_n >= 0) {
-    // [old ascending | BIG_Z pad | new descending] is bitonic.
-    if (k < NBUF - NNEW) {
+    // [old ascending | BIG_Z pad | new descending]
+    if (k < NOLD) {
       if (k >= merge_valid_n) zk = BIG_Z;
     } else {
-      zk = new_z_prev[(size_t)ray * NNEW + k - (NBUF - NNEW)];
-      sk = new_sdf_prev[(size_t)ray * NNEW + k - (NBUF - NNEW)];
+      zk = new_z_prev[(size_t)ray * NNEW + k - NOLD];
+      sk = new_sdf_prev[(size_t)ray * NNEW + k - NOLD];
     }
-    for (int dd = NBUF / 2; dd >= 1; dd >>= 1) {
-      sz[k] = zk;
-      ss[k] = sk;
-      __syncthreads();
-      const float pz = sz[k ^ dd], ps = ss[k ^ dd];
-      const bool take = (k & dd) ? pz > zk : pz < zk;
-      if (take) {
-        zk = pz;
-        sk = ps;
-      }
-      __syncthreads();
-    }
+    merge128<RANK>(zk, sk, sz, ss);
   }
   out_z[(size_t)ray * NBUF + k] = zk;
   if (out_sdf) out_sdf[(size_t)ray * NBUF + k] = sk;
   if (next_valid_n < 0) return;  // uniform over the block
 
-  sz[k] = zk;
-  ss[k] = sk;
-  __syncthreads();
-  const int vn = next_valid_n;
   const float o0 = o[ray * 3], o1 = o[ray * 3 + 1], o2 = o[ray * 3 + 2];
   const float d0 = d[ray * 3], d1 = d[ray * 3 + 1], d2 = d[ray * 3 + 2];
   const float oo = o0 * o0 + o1 * o1 + o2 * o2;
   const float od = o0 * d0 + o1 * d1 + o2 * d2;
-  const float nz = sz[(k + 1) % NBUF], ns = ss[(k + 1) % NBUF];
-  const float r2 = oo + 2.0f * od * zk + zk * zk;
-  const float r2n = oo + 2.0f * od * nz + nz * nz;
-  const float inside = (r2 < 1.0f || r2n < 1.0f) ? 1.0f : 0.0f;
-  const float mid = (sk + ns) * 0.5f;
-  float cosv = (ns - sk) / (nz - zk + 1e-5f);
-  sc[k] = cosv;
-  __syncthreads();
-  const float prev = k == 0 ? 0.0f : sc[k - 1];
-  cosv = fminf(prev, cosv);
-  cosv = fminf(fmaxf(cosv, -1e3f), 0.0f) * inside;
-  const float dist = nz - zk;
-  const float pc = sigmoidf((mid - cosv * dist * 0.5f) * inv_s);
-  const float nc = sigmoidf((mid + cosv * dist * 0.5f) * inv_s);
-  const bool ivalid = k < vn - 1;
-  const float alpha = ivalid ? fminf((pc - nc + 1e-5f) / (pc + 1e-5f), 1.0f) : 0.0f;
-  const float w = alpha * expf(block_exclusive_scan128(logf(1.0f - alpha + 1e-7f), warp_tot));
-  float pdf = ivalid ? w + 1e-5f : 0.0f;
-  pdf = pdf / block_sum128(pdf, warp_tot);
-  const float cdf = block_exclusive_scan128(pdf, warp_tot);
-  const float cdf_cnt = k < vn ? cdf : 2.0f;
-  sc[k] = cdf;
-  for (int j = 0; j < NNEW; ++j) {
-    const float u = 1.0f - (float)j / (float)(NNEW - 1);
-    const unsigned ball = __ballot_sync(0xffffffffu, cdf_cnt <= u);
-    if (lane == 0) cnt[warp][j] = __popc(ball);
-  }
-  __syncthreads();
-  if (k < NNEW) {
-    const int inds = cnt[0][k] + cnt[1][k] + cnt[2][k] + cnt[3][k];
-    const float u = 1.0f - (float)k / (float)(NNEW - 1);
-    const int below = max(inds - 1, 0), above = min(inds, vn - 1);
-    const float cb = sc[below], zb = sz[below], ca = sc[above], za = sz[above];
-    float den = ca - cb;
-    if (den < 1e-5f) den = 1.0f;
-    const float t = (u - cb) / den;
-    out_new_z[(size_t)ray * NNEW + k] = zb + t * (za - zb);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Kernel C
-
-constexpr int TPC = 32;  // points per tile (4 tiles per ray)
-constexpr int CTHREADS = 256;
-constexpr int CWARPS = CTHREADS / 32;
-
-struct ShadowSmem {
-  float enc[TPC][kEncMax];
-  float tenc[TPC][kEncMax];
-  bf16 h[2][TPC][kLdA];
-  bf16 th[2][TPC][kLdA];
-  float scratch[CWARPS][2][16 * 16];
-  float dists[NBUF];
-  float logs[NBUF];
-  float warp_tot[CWARPS];
-};
-
-__global__ void __launch_bounds__(CTHREADS)
-    shadow_final_kernel(const float* __restrict__ z, const float* __restrict__ o,
-                        const float* __restrict__ d, const float* __restrict__ sdist,
-                        const bf16* __restrict__ wpack, const float* __restrict__ bpack,
-                        const float* __restrict__ w_sdf, const float* __restrict__ inv_s_ptr,
-                        const float* __restrict__ anneal_ptr, float* __restrict__ tau,
-                        const SdfMeta m, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  ShadowSmem& S = *reinterpret_cast<ShadowSmem*>(smem_raw);
-  const int ray = blockIdx.x, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int L = m.n_layers, F = m.multi_res, d0 = m.d0;
-  const float* zr = z + (size_t)ray * NBUF;
-  const float ro[3] = {o[ray * 3], o[ray * 3 + 1], o[ray * 3 + 2]};
-  const float rd[3] = {d[ray * 3], d[ray * 3 + 1], d[ray * 3 + 2]};
-  const float inv_s = *inv_s_ptr, anneal = *anneal_ptr;
-
-  if (tid < NBUF) S.dists[tid] = tid == NBUF - 1 ? sdist[ray] : zr[tid + 1] - zr[tid];
-  __syncthreads();
-
-  for (int tile = 0; tile < NBUF / TPC; ++tile) {
-    // Encoding and tangent encoding of the tile's midpoints.
-    for (int idx = tid; idx < TPC * kEncMax; idx += CTHREADS) {
-      const int r = idx / kEncMax, c = idx % kEncMax, k = tile * TPC + r;
-      const float mid = zr[k] + S.dists[k] * 0.5f;
-      float xs[3], ts[3];
-      for (int j = 0; j < 3; ++j) {
-        xs[j] = (ro[j] + rd[j] * mid) * scale;
-        ts[j] = rd[j] * scale;
-      }
-      float t = 0.0f, v = 0.0f;
-      if (c < d0) v = freq_channel(xs, ts, c, F, &t);
-      S.enc[r][c] = v;
-      S.tenc[r][c] = t;
-    }
-    __syncthreads();
-    for (int idx = tid; idx < TPC * m.kp[0]; idx += CTHREADS) {
-      const int r = idx / m.kp[0], c = idx % m.kp[0];
-      S.h[0][r][c] = to_bf16(S.enc[r][c]);
-      S.th[0][r][c] = to_bf16(S.tenc[r][c]);
-    }
-    __syncthreads();
-
-    int cur = 0;
-    for (int i = 0; i < L; ++i) {
-      const int kp = m.kp[i], np = m.np_[i], out = m.out_dim[i];
-      const bf16* W = wpack + m.w_off[i];
-      const float* b = bpack + m.b_off[i];
-      const bool next_skip = i + 1 < L && m.skip[i + 1];
-      const int kp_next = i + 1 < L ? m.kp[i + 1] : ((m.d_last + 15) / 16) * 16;
-      const int nxt = cur ^ 1;
-      for (int nt = warp; nt < np / 16; nt += CWARPS) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> ah[2], at[2];
-        for (int r = 0; r < 2; ++r) {
-          wmma::fill_fragment(ah[r], 0.0f);
-          wmma::fill_fragment(at[r], 0.0f);
-        }
-        for (int kt = 0; kt < kp / 16; ++kt) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
-          wmma::load_matrix_sync(bw, W + (size_t)kt * 16 * np + nt * 16, np);
-          for (int r = 0; r < 2; ++r) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-            wmma::load_matrix_sync(a, &S.h[cur][r * 16][kt * 16], kLdA);
-            wmma::mma_sync(ah[r], a, bw, ah[r]);
-            wmma::load_matrix_sync(a, &S.th[cur][r * 16][kt * 16], kLdA);
-            wmma::mma_sync(at[r], a, bw, at[r]);
-          }
-        }
-        for (int r = 0; r < 2; ++r) {
-          float* sh = S.scratch[warp][0];
-          float* st = S.scratch[warp][1];
-          wmma::store_matrix_sync(sh, ah[r], 16, wmma::mem_row_major);
-          wmma::store_matrix_sync(st, at[r], 16, wmma::mem_row_major);
-          __syncwarp();
-          for (int e = lane; e < 256; e += 32) {
-            const int row = r * 16 + e / 16, c = nt * 16 + e % 16;
-            if (c >= out) continue;
-            float sp, gate;
-            softplus100_gate(sh[e] + b[c], &sp, &gate);
-            bf16 hv = to_bf16(sp), tv = to_bf16(st[e] * gate);
-            if (next_skip) {
-              hv = to_bf16(bf(hv) * kInvSqrt2);
-              tv = to_bf16(bf(tv) * kInvSqrt2);
-            }
-            S.h[nxt][row][c] = hv;
-            S.th[nxt][row][c] = tv;
-          }
-          __syncwarp();
-        }
-      }
-      const int tail = kp_next - out;
-      for (int idx = tid; idx < TPC * tail; idx += CTHREADS) {
-        const int r = idx / tail, c = idx % tail;
-        const bool e = next_skip && c < d0;
-        S.h[nxt][r][out + c] = to_bf16(e ? S.enc[r][c] * kInvSqrt2 : 0.0f);
-        S.th[nxt][r][out + c] = to_bf16(e ? S.tenc[r][c] * kInvSqrt2 : 0.0f);
-      }
-      __syncthreads();
-      cur = nxt;
-    }
-
-    // sdf and d . grad sdf from the bf16 sdf head, then the section alpha.
-    const float b_sdf = bpack[m.bf_off + m.npf];
-    for (int r = warp; r < TPC; r += CWARPS) {
-      float s = 0.0f, ds = 0.0f;
-      for (int c = lane; c < m.d_last; c += 32) {
-        const float wv = bf(to_bf16(w_sdf[c]));
-        s += bf(S.h[cur][r][c]) * wv;
-        ds += bf(S.th[cur][r][c]) * wv;
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-        ds += __shfl_xor_sync(0xffffffffu, ds, off);
-      }
-      if (lane == 0) {
-        const int k = tile * TPC + r;
-        const float sdf_v = (s + b_sdf) / scale, dcos = ds / scale;
-        const float iter_cos = -(fmaxf(-dcos * 0.5f + 0.5f, 0.0f) * (1.0f - anneal) +
-                                 fmaxf(-dcos, 0.0f) * anneal);
-        const float dist = S.dists[k];
-        const float pc = sigmoidf((sdf_v - iter_cos * dist * 0.5f) * inv_s);
-        const float nc = sigmoidf((sdf_v + iter_cos * dist * 0.5f) * inv_s);
-        const float alpha = fminf(fmaxf((pc - nc + 1e-5f) / (pc + 1e-5f), 0.0f), 1.0f);
-        S.logs[k] = k < NBUF - 1 ? logf(1.0f - alpha + 1e-7f) : 0.0f;
-      }
-    }
-    __syncthreads();
-  }
-
-  // tau = exp(sum of the 127 log factors).
-  float v = tid < NBUF ? S.logs[tid] : 0.0f;
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  if (lane == 0) S.warp_tot[warp] = v;
-  __syncthreads();
-  if (tid == 0) {
-    float s = 0.0f;
-    for (int w = 0; w < CWARPS; ++w) s += S.warp_tot[w];
-    tau[ray] = expf(s);
-  }
+  draw_new_z(zk, sk, next_valid_n, inv_s, oo, od, sz, ss, sc, warp_tot, cnt,
+             out_new_z + (size_t)ray * NNEW);
 }
 
 }  // namespace
@@ -322,11 +79,12 @@ __global__ void __launch_bounds__(CTHREADS)
 extern "C" int round_machinery(const float* z, const float* sdf, const float* o, const float* d,
                                const float* new_z_prev, const float* new_sdf_prev,
                                float* out_new_z, float* out_z, float* out_sdf, int b,
-                               int merge_valid_n, int next_valid_n, float inv_s, void* stream) {
+                               int merge_valid_n, int next_valid_n, float inv_s, int rank,
+                               void* stream) {
   if (b <= 0) return 0;
-  round_machinery_kernel<<<b, NBUF, 0, (cudaStream_t)stream>>>(
-      z, sdf, o, d, new_z_prev, new_sdf_prev, out_new_z, out_z, out_sdf, merge_valid_n,
-      next_valid_n, inv_s);
+  auto kernel = rank ? round_machinery_kernel<true> : round_machinery_kernel<false>;
+  kernel<<<b, NBUF, 0, (cudaStream_t)stream>>>(z, sdf, o, d, new_z_prev, new_sdf_prev, out_new_z,
+                                               out_z, out_sdf, merge_valid_n, next_valid_n, inv_s);
   return (int)cudaGetLastError();
 }
 
@@ -334,17 +92,8 @@ extern "C" int shadow_final(const float* z, const float* o, const float* d, cons
                             const void* wpack, const float* bpack, const float* w_sdf,
                             const float* inv_s, const float* anneal, float* tau, int b,
                             const int* meta, float scale, void* stream) {
-  SdfMeta m;
-  int rc = parse_meta(meta, &m);
-  if (rc) return rc;
-  if (b <= 0) return 0;
-  const int smem = (int)sizeof(ShadowSmem);
-  rc = (int)cudaFuncSetAttribute(shadow_final_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
-  if (rc) return rc;
-  shadow_final_kernel<<<b, CTHREADS, smem, (cudaStream_t)stream>>>(
-      z, o, d, sdist, (const bf16*)wpack, bpack, w_sdf, inv_s, anneal, tau, m, scale);
-  return (int)cudaGetLastError();
+  return launch_march<false, false, true, false>(z, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s,
+                                                 anneal, tau, b, meta, scale, 0.0f, stream);
 }
 
 extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

@@ -1,0 +1,63 @@
+// Kernels K, L, M and N: the round-4 fused marches, instances of
+// march_common.cuh::march_kernel (one template with kernel C).
+//
+// K, march_sweep: replaces nrhints_tpu/kernels/march.py::_sweep_kernel
+//   (:507, pallas_call at :723), the initial 64-sample SDF value sweep
+//   z0 [B, 64] -> sdf0 [B, 64].
+// L, march_rounds: replaces _rounds_kernel (:522, pallas_call at :749), the
+//   4 refinement rounds of _refine_rounds (:322) from (z0, sdf0): each
+//   draws 16 samples, sweeps them in-kernel (not in the last round) and
+//   merges them -> z [B, 128].
+// M, importance_march: replaces _importance_kernel (:488, pallas_call at
+//   :771): K then L in one kernel.
+// N, shadow_march: replaces _shadow_kernel (:595, pallas_call at :894): M
+//   then kernel C's final dual sweep and transmittance -> tau [B, 1].
+//
+// Bound on an H100 (bf16 tensor-core peak, 989 TFLOP/s): a value sweep is
+// 459,008 multiply-adds per point (the 8x256 MLP and the sdf head), so per
+// 512-ray launch K 32,768 points (30.1 GFLOP, 0.030 ms), L 24,576 (0.023
+// ms), M 57,344 (0.053 ms) and N those plus 65,536 dual points (0.175 ms):
+// all bound by operations; the bytes in and out are a few hundred KB.
+// Design: a block holds two rays (one machinery thread per slot, 256
+// threads); the sweeps run in 32-row tiles (the 16 new samples of both rays
+// in a round), and every tile streams all 1 MB of bf16 weights from L2:
+// about 3.5 MB per ray for M, 7.5 MB for N.  That traffic, not the tensor
+// cores, is the likely limit; more rays per block is the redesign.
+// merge selects the network: rank != 0 is the rank merge.
+#include "march_common.cuh"
+
+using namespace nrh;
+
+extern "C" int march_sweep(const float* z0, const float* o, const float* d, const void* wpack,
+                           const float* bpack, const float* w_sdf, float* sdf0, int b, const int* meta,
+                           float scale, void* stream) {
+  return launch_march<true, false, false, false>(z0, nullptr, o, d, nullptr, wpack, bpack, w_sdf, nullptr,
+                                                 nullptr, sdf0, b, meta, scale, 0.0f, stream);
+}
+
+extern "C" int march_rounds(const float* z0, const float* sdf0, const float* o, const float* d,
+                            const void* wpack, const float* bpack, const float* w_sdf, float* z, int b,
+                            const int* meta, float scale, float base_inv_s, int rank, void* stream) {
+  auto launch = rank ? launch_march<false, true, false, true> : launch_march<false, true, false, false>;
+  return launch(z0, sdf0, o, d, nullptr, wpack, bpack, w_sdf, nullptr, nullptr, z, b, meta, scale, base_inv_s,
+                stream);
+}
+
+extern "C" int importance_march(const float* z0, const float* o, const float* d, const void* wpack,
+                                const float* bpack, const float* w_sdf, float* z, int b, const int* meta,
+                                float scale, float base_inv_s, int rank, void* stream) {
+  auto launch = rank ? launch_march<true, true, false, true> : launch_march<true, true, false, false>;
+  return launch(z0, nullptr, o, d, nullptr, wpack, bpack, w_sdf, nullptr, nullptr, z, b, meta, scale, base_inv_s,
+                stream);
+}
+
+extern "C" int shadow_march(const float* z0, const float* o, const float* d, const float* sdist,
+                            const float* inv_s, const float* anneal, const void* wpack, const float* bpack,
+                            const float* w_sdf, float* tau, int b, const int* meta, float scale,
+                            float base_inv_s, int rank, void* stream) {
+  auto launch = rank ? launch_march<true, true, true, true> : launch_march<true, true, true, false>;
+  return launch(z0, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal, tau, b, meta, scale, base_inv_s,
+                stream);
+}
+
+extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

@@ -1,5 +1,6 @@
 // Shared pieces of the kernels that evaluate the SDF MLP on the card
-// (sdf_fwd.cuh: kernels A, D and H's forward pass; march.cu: kernel C) and
+// (sdf_fwd.cuh: kernels A, D and H's forward pass; march_common.cuh: the
+// march sweeps of kernels C, K, L, M and N) and
 // of the trunk kernels (mlp_stash.cu): the packed-weight layout,
 // the frequency encoding, the one-exp softplus(100) gate, and a WMMA bf16
 // product over 16-row tiles.

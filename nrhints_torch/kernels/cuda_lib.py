@@ -11,7 +11,8 @@ The wrappers in ``core_mlp.py``, ``core_stash.py`` and ``march.py`` add one to
 ``launch_counts[<kernel>]`` where they launch a kernel, and nowhere else.
 Headers (``*.cuh``) hold what several sources share: ``sdf_fwd.cuh`` the
 SDF forward of kernels A, D and H, ``sdf_bwd.cuh`` the chain of E and H,
-``dw_sum.cuh`` the dW passes of E, G, H and J.
+``dw_sum.cuh`` the dW passes of E, G, H and J, ``march_common.cuh`` the
+march machinery and sweeps of B, C, K, L, M and N.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nrhints_torch"
-SOURCES = ("sdf_core", "march", "sdf_stash", "mlp_stash", "sdf_core_bwd")
+SOURCES = ("sdf_core", "march", "sdf_stash", "mlp_stash", "sdf_core_bwd", "march_fused")
 # -fmad=false keeps each f32 multiply and add separately rounded, as the
 # plain PyTorch versions compute them, so kernel and plain version differ
 # only in summation order and bf16 rounding flips.
@@ -38,6 +39,7 @@ launch_counts = {
     "sdf_core_fwd": 0, "round_machinery": 0, "shadow_final": 0,
     "sdf_stash_fwd": 0, "sdf_stash_bwd": 0, "mlp_stash_fwd": 0, "mlp_stash_bwd": 0,
     "sdf_core_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0,
+    "march_sweep": 0, "march_rounds": 0, "importance_march": 0, "shadow_march": 0,
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -55,8 +57,14 @@ _SIGNATURES = {
         "mlp_bwd": [_P] * 11 + [_I, _I, _I, _P, _P],
     },
     "march": {
-        "round_machinery": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-        "shadow_final": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _F, _P],
+        "round_machinery": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
+        "shadow_final": [_P] * 10 + [_I, _P, _F, _P],
+    },
+    "march_fused": {
+        "march_sweep": [_P] * 7 + [_I, _P, _F, _P],
+        "march_rounds": [_P] * 8 + [_I, _P, _F, _F, _I, _P],
+        "importance_march": [_P] * 7 + [_I, _P, _F, _F, _I, _P],
+        "shadow_march": [_P] * 10 + [_I, _P, _F, _F, _I, _P],
     },
 }
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,17 +1,21 @@
-"""The hierarchical SDF marches of the eval path: kernels B and C and their
-plain versions (port of the split / xla-sweep / xla-rounds / pallas-final
-path of ``nrhints_tpu/kernels/march.py``).
+"""The hierarchical SDF marches: kernels B, C, K, L, M and N and their
+plain versions (port of ``nrhints_tpu/kernels/march.py``).
 
 * ``fused_importance_z``: [B, 64] stratified z -> [B, 128] refined, sorted
-  z.  The initial 64-sample sweep and each round's 16-sample sweep are
-  plain matmuls (``_mlp_sdf_3d``); the per-round merge and inverse-CDF
-  draw is kernel B (``round_machinery``), launched 5 times per march.
-* ``fused_shadow_tau``: the shadow march, i.e. the same refinement from the
-  light followed by kernel C (``shadow_final``), the final sdf +
-  directional-derivative sweep and the transmittance -> tau [B, 1].
+  z, routed by the JAX keywords: kernel M (``importance_march``, the
+  monolith) or, with ``split``, the initial sweep by kernel K
+  (``march_sweep``) or plain matmuls (``_mlp_sdf_3d``), then the 4 rounds
+  by kernel L (``march_rounds``) or by 5 launches of kernel B
+  (``round_machinery``, merge and inverse-CDF draw) between plain
+  16-sample sweeps.
+* ``fused_shadow_tau``: the shadow march, kernel N (``shadow_march``) or,
+  with ``split``, the same refinement from the light followed by kernel C
+  (``shadow_final``, the final sdf + directional-derivative sweep and the
+  transmittance) or its plain version -> tau [B, 1].
+* ``merge`` picks the sorted merge of every round: "bitonic" or "rank".
 
-On CUDA tensors the wrappers launch the kernels in ``csrc/march.cu``; on
-CPU tensors they run ``round_machinery_plain`` / ``shadow_final_plain``.
+On CUDA tensors the wrappers launch the kernels in ``csrc/march.cu`` and
+``csrc/march_fused.cu``; on CPU tensors they run the ``*_plain`` versions.
 The march weights hold the matrices in the march dtype (bf16 by default)
 and the biases in f32; a bf16 sweep rounds its activations to bf16 after
 every layer, as the JAX sweeps do.
@@ -160,10 +164,30 @@ def _bitonic_merge(z: torch.Tensor, payload: torch.Tensor):
     return z, payload
 
 
-def _merge_math(z, sdf, new_z, new_sdf, valid_n: int, n_new: int):
+def rank_merge_plain(z: torch.Tensor, payload: torch.Tensor, n_new: int):
+    """Port of ``_rank_merge``: merge [B, 128] = [old (128 - n_new,
+    ascending, BIG_Z pad included) | new (n_new, descending)] by sending
+    each element straight to its rank in a stable old-before-new merge: old
+    i to i + #{new < old_i}, new j to n_new - 1 - j + #{old <= new_j} (the
+    places JAX's shift network and one-hot scatter put them).  The z row
+    equals the bitonic merge's; the payload differs only among tied z."""
+    k = z.shape[-1] - n_new
+    old_z, new_z = z[:, :k], z[:, k:]
+    s_old = torch.sum(new_z[:, None, :] < old_z[:, :, None], dim=-1)
+    cnt_new = torch.sum(old_z[:, None, :] <= new_z[:, :, None], dim=-1)
+    dest = torch.cat([
+        torch.arange(k, device=z.device) + s_old,
+        (n_new - 1) - torch.arange(n_new, device=z.device) + cnt_new,
+    ], dim=-1)
+    return torch.empty_like(z).scatter_(1, dest, z), torch.empty_like(payload).scatter_(1, dest, payload)
+
+
+def _merge_math(z, sdf, new_z, new_sdf, valid_n: int, n_new: int, merge: str = "bitonic"):
     lane = torch.arange(N_BUF - n_new, device=z.device)
     z_cat = torch.cat([torch.where(lane < valid_n, z[:, : N_BUF - n_new], BIG_Z), new_z], dim=-1)
     sdf_cat = torch.cat([sdf[:, : N_BUF - n_new], new_sdf], dim=-1)
+    if merge == "rank":
+        return rank_merge_plain(z_cat, sdf_cat, n_new)
     return _bitonic_merge(z_cat, sdf_cat)
 
 
@@ -206,14 +230,16 @@ def _round_new_z(z, sdf, valid_n: int, inv_s: float, oo, od, n_new: int) -> torc
     return z_b + t * (z_a - z_b)
 
 
-def round_machinery_plain(z, sdf, o, d, new_z_prev, new_sdf_prev, merge_valid_n, next_valid_n, inv_s, n_new=16):
+def round_machinery_plain(
+    z, sdf, o, d, new_z_prev, new_sdf_prev, merge_valid_n, next_valid_n, inv_s, n_new=16, merge="bitonic"
+):
     """Port of one ``_round_machinery_kernel`` step -> (new_z [B, n_new] or
     None, z [B, 128], sdf [B, 128] or None).  ``merge_valid_n`` not None:
-    merge (new_z_prev, new_sdf_prev) in first; ``next_valid_n`` not None:
-    draw the next round's samples at ``inv_s`` (the tail step does not, and
-    drops the dead sdf buffer)."""
+    merge (new_z_prev, new_sdf_prev) in first (by ``merge``, "bitonic" or
+    "rank"); ``next_valid_n`` not None: draw the next round's samples at
+    ``inv_s`` (the tail step does not, and drops the dead sdf buffer)."""
     if merge_valid_n is not None:
-        z, sdf = _merge_math(z, sdf, new_z_prev, new_sdf_prev, merge_valid_n, n_new)
+        z, sdf = _merge_math(z, sdf, new_z_prev, new_sdf_prev, merge_valid_n, n_new, merge)
     if next_valid_n is None:
         return None, z, None
     oo = torch.sum(o * o, dim=-1, keepdim=True)
@@ -221,11 +247,15 @@ def round_machinery_plain(z, sdf, o, d, new_z_prev, new_sdf_prev, merge_valid_n,
     return _round_new_z(z, sdf, next_valid_n, inv_s, oo, od, n_new), z, sdf
 
 
-def round_machinery(z, sdf, o, d, new_z_prev, new_sdf_prev, merge_valid_n, next_valid_n, inv_s, n_new=16):
+def round_machinery(
+    z, sdf, o, d, new_z_prev, new_sdf_prev, merge_valid_n, next_valid_n, inv_s, n_new=16, merge="bitonic"
+):
     """One merge/draw step: kernel B on CUDA tensors, the plain version on
     CPU tensors (same signature and results as ``round_machinery_plain``)."""
     if z.device.type == "cpu":
-        return round_machinery_plain(z, sdf, o, d, new_z_prev, new_sdf_prev, merge_valid_n, next_valid_n, inv_s, n_new)
+        return round_machinery_plain(
+            z, sdf, o, d, new_z_prev, new_sdf_prev, merge_valid_n, next_valid_n, inv_s, n_new, merge
+        )
     if n_new != 16:
         raise NotImplementedError("kernel B draws 16 samples per round")
     b = z.shape[0]
@@ -249,18 +279,20 @@ def round_machinery(z, sdf, o, d, new_z_prev, new_sdf_prev, merge_valid_n, next_
         ptr(new_z), z_out.data_ptr(), ptr(sdf_out), b,
         -1 if merge_valid_n is None else merge_valid_n,
         -1 if next_valid_n is None else next_valid_n,
-        0.0 if inv_s is None else float(inv_s), cuda_lib.stream_ptr(dev),
+        0.0 if inv_s is None else float(inv_s), int(merge == "rank"), cuda_lib.stream_ptr(dev),
     )
     cuda_lib.check(lib, rc, "round_machinery")
     cuda_lib.launch_counts["round_machinery"] += 1
     return new_z, z_out, sdf_out
 
 
-def _rounds(weights, cfg, rays_o, rays_d, z0, sdf0, rounds, n_new, base_inv_s):
-    """[B, n0] (z0, sdf0) -> [B, 128] refined z: one machinery step per
-    round (merging the previous round's samples, drawing the next), a plain
-    16-sample sweep between steps (the last round's sweep is skipped: its
-    sdf is a payload nobody reads), and a merge-only tail step."""
+def _rounds(weights, cfg, rays_o, rays_d, z0, sdf0, rounds, n_new, base_inv_s, merge, machinery, sweep=None):
+    """[B, n0] (z0, sdf0) -> [B, 128] refined z: one ``machinery`` step per
+    round (merging the previous round's samples, drawing the next), a
+    16-sample ``sweep`` between steps (default the plain one; the last
+    round's sweep is skipped: its sdf is a payload nobody reads), and a
+    merge-only tail step."""
+    sweep = sweep or march_sweep_plain
     b, n0 = z0.shape
     pad = torch.full((b, N_BUF - n0), BIG_Z, device=z0.device)
     z = torch.cat([z0, pad], dim=-1)
@@ -269,41 +301,18 @@ def _rounds(weights, cfg, rays_o, rays_d, z0, sdf0, rounds, n_new, base_inv_s):
     new_z = new_sdf = None
     for i in range(rounds):
         valid_n = n_start + i * n_new
-        new_z, z, sdf = round_machinery(
+        new_z, z, sdf = machinery(
             z, sdf, rays_o, rays_d, new_z, new_sdf,
-            None if i == 0 else valid_n - n_new, valid_n, base_inv_s * float(2**i), n_new,
+            None if i == 0 else valid_n - n_new, valid_n, base_inv_s * float(2**i), n_new, merge,
         )
         if i + 1 < rounds:
-            new_sdf = _mlp_sdf_3d(rays_o[:, None, :] + rays_d[:, None, :] * new_z[..., None], weights, cfg)
+            new_sdf = sweep(new_z, rays_o, rays_d, weights, cfg)
         else:
             new_sdf = torch.zeros_like(new_z)
-    _, z, _ = round_machinery(
-        z, sdf, rays_o, rays_d, new_z, new_sdf, n_start + (rounds - 1) * n_new, None, None, n_new
+    _, z, _ = machinery(
+        z, sdf, rays_o, rays_d, new_z, new_sdf, n_start + (rounds - 1) * n_new, None, None, n_new, merge
     )
     return z
-
-
-def _check_geometry(z0, rounds, n_new, merge):
-    if z0.shape[1] != N_BUF - rounds * n_new:
-        raise ValueError(
-            f"the fused march needs z0 with {N_BUF - rounds * n_new} samples "
-            f"(= {N_BUF} buffer - {rounds}x{n_new} refinement), got {z0.shape[1]}"
-        )
-    if merge != "bitonic":
-        raise NotImplementedError("march_merge='rank' is a later slice (the non-default kernels)")
-
-
-def fused_importance_z(
-    params: dict, cfg: SDFNetConfig, rays_o, rays_d, z0, *,
-    rounds: int = 4, n_new: int = 16, base_inv_s: float = 64.0,
-    mlp_dtype: str = "float32", merge: str = "bitonic",
-) -> torch.Tensor:
-    """[B, 64] stratified z -> [B, 128] refined, sorted z (no gradient)."""
-    _check_geometry(z0, rounds, n_new, merge)
-    rays_o, rays_d, z0 = rays_o.contiguous(), rays_d.contiguous(), z0.contiguous()
-    weights = march_weights(params, cfg, mlp_dtype)
-    sweep = _mlp_sdf_3d(rays_o[:, None, :] + rays_d[:, None, :] * z0[..., None], weights, cfg)
-    return _rounds(weights, cfg, rays_o, rays_d, z0, sweep, rounds, n_new, base_inv_s)
 
 
 # ---------------------------------------------------------------------------
@@ -354,17 +363,211 @@ def shadow_final(z, o, d, sdist, inv_s, cos_anneal, weights, cfg: SDFNetConfig) 
     return tau
 
 
+# ---------------------------------------------------------------------------
+# Kernels K, L, M and N: the round-4 fused marches (csrc/march_fused.cu)
+
+
+def march_sweep_plain(z0, o, d, weights, cfg: SDFNetConfig) -> torch.Tensor:
+    """Port of ``_sweep_kernel``: the initial sweep, sdf0 [B, n0] at
+    o + d z0."""
+    return _mlp_sdf_3d(o[:, None, :] + d[:, None, :] * z0[..., None], weights, cfg)
+
+
+def march_rounds_plain(
+    z0, sdf0, o, d, weights, cfg: SDFNetConfig, *, rounds=4, n_new=16, base_inv_s=64.0, merge="bitonic"
+) -> torch.Tensor:
+    """Port of ``_rounds_kernel`` (the ``_refine_rounds`` loop): -> refined
+    z [B, 128], with plain machinery steps and plain 16-sample sweeps."""
+    return _rounds(weights, cfg, o, d, z0, sdf0, rounds, n_new, base_inv_s, merge, round_machinery_plain)
+
+
+def importance_march_plain(
+    z0, o, d, weights, cfg: SDFNetConfig, *, rounds=4, n_new=16, base_inv_s=64.0, merge="bitonic"
+) -> torch.Tensor:
+    """Port of ``_importance_kernel``: the sweep, then the rounds."""
+    sdf0 = march_sweep_plain(z0, o, d, weights, cfg)
+    return march_rounds_plain(
+        z0, sdf0, o, d, weights, cfg, rounds=rounds, n_new=n_new, base_inv_s=base_inv_s, merge=merge
+    )
+
+
+def shadow_march_plain(
+    z0, o, d, sdist, inv_s, cos_anneal, weights, cfg: SDFNetConfig, *,
+    rounds=4, n_new=16, base_inv_s=64.0, merge="bitonic",
+) -> torch.Tensor:
+    """Port of ``_shadow_kernel``: the importance march, then the final
+    sweep -> tau [B, 1]."""
+    z = importance_march_plain(z0, o, d, weights, cfg, rounds=rounds, n_new=n_new, base_inv_s=base_inv_s, merge=merge)
+    return shadow_final_plain(z, o, d, sdist, inv_s, cos_anneal, weights, cfg)
+
+
+def _check_merge(merge: str) -> int:
+    if merge not in ("bitonic", "rank"):
+        raise ValueError(f"merge must be 'bitonic' or 'rank', got {merge!r}")
+    return int(merge == "rank")
+
+
+def _launch_fused(name: str, fn: str, weights, cfg: SDFNetConfig, inputs, out_cols: int, rounds=4, n_new=16,
+                  scalars=()) -> torch.Tensor:
+    """Kernel ``name`` (``fn`` of ``csrc/march_fused.cu``) on CUDA tensors:
+    checks ``inputs`` ([(tensor, shape, name), ...], the kernel's pointer
+    arguments in order), packs the bf16 weights, launches -> [B, out_cols]."""
+    if weights[0].dtype != torch.bfloat16:
+        raise NotImplementedError(f"kernel {name} computes with bf16 march weights (march_dtype='bfloat16') only")
+    if (rounds, n_new) != (4, 16):
+        raise NotImplementedError(f"kernel {name} runs 4 rounds of 16 samples")
+    for t, shape, tname in inputs:
+        require_cuda(t, shape, tname)
+    dev, b = inputs[0][0].device, inputs[0][0].shape[0]
+    out = torch.empty((b, out_cols), device=dev)
+    if b == 0:
+        return out
+    pk = pack_sdf_mlp(weights, cfg, with_feat=False)
+    lib = cuda_lib.load("march_fused")
+    rc = getattr(lib, fn)(
+        *(t.data_ptr() for t, _, _ in inputs), pk["wpack"].data_ptr(), pk["bpack"].data_ptr(),
+        pk["w_sdf"].data_ptr(), out.data_ptr(), b, pk["meta"].ctypes.data, float(cfg.scale), *scalars,
+        cuda_lib.stream_ptr(dev),
+    )
+    cuda_lib.check(lib, rc, fn)
+    cuda_lib.launch_counts[fn] += 1
+    return out
+
+
+def _ray_inputs(z0, o, d):
+    b = z0.shape[0]
+    return [(z0, (b, 64), "z0"), (o, (b, 3), "o"), (d, (b, 3), "d")]
+
+
+def march_sweep(z0, o, d, weights, cfg: SDFNetConfig) -> torch.Tensor:
+    """sdf0 [B, 64]: kernel K on CUDA tensors (bf16 march weights only),
+    the plain version on CPU tensors."""
+    if z0.device.type == "cpu":
+        return march_sweep_plain(z0, o, d, weights, cfg)
+    return _launch_fused("K", "march_sweep", weights, cfg, _ray_inputs(z0, o, d), 64)
+
+
+def march_rounds(
+    z0, sdf0, o, d, weights, cfg: SDFNetConfig, *, rounds=4, n_new=16, base_inv_s=64.0, merge="bitonic"
+) -> torch.Tensor:
+    """Refined z [B, 128] from (z0, sdf0): kernel L on CUDA tensors, the
+    plain version on CPU tensors."""
+    rank = _check_merge(merge)
+    if z0.device.type == "cpu":
+        return march_rounds_plain(
+            z0, sdf0, o, d, weights, cfg, rounds=rounds, n_new=n_new, base_inv_s=base_inv_s, merge=merge
+        )
+    inputs = _ray_inputs(z0, o, d)
+    inputs.insert(1, (sdf0, (z0.shape[0], 64), "sdf0"))
+    return _launch_fused("L", "march_rounds", weights, cfg, inputs, N_BUF, rounds, n_new, (float(base_inv_s), rank))
+
+
+def importance_march(
+    z0, o, d, weights, cfg: SDFNetConfig, *, rounds=4, n_new=16, base_inv_s=64.0, merge="bitonic"
+) -> torch.Tensor:
+    """Refined z [B, 128] from z0: kernel M on CUDA tensors, the plain
+    version on CPU tensors."""
+    rank = _check_merge(merge)
+    if z0.device.type == "cpu":
+        return importance_march_plain(
+            z0, o, d, weights, cfg, rounds=rounds, n_new=n_new, base_inv_s=base_inv_s, merge=merge
+        )
+    return _launch_fused("M", "importance_march", weights, cfg, _ray_inputs(z0, o, d), N_BUF, rounds, n_new,
+                         (float(base_inv_s), rank))
+
+
+def shadow_march(
+    z0, o, d, sdist, inv_s, cos_anneal, weights, cfg: SDFNetConfig, *,
+    rounds=4, n_new=16, base_inv_s=64.0, merge="bitonic",
+) -> torch.Tensor:
+    """tau [B, 1] from z0: kernel N on CUDA tensors, the plain version on
+    CPU tensors.  ``inv_s`` and ``cos_anneal`` may be 0-d tensors; the
+    kernel reads them on the device, so no host sync."""
+    rank = _check_merge(merge)
+    if z0.device.type == "cpu":
+        return shadow_march_plain(
+            z0, o, d, sdist, inv_s, cos_anneal, weights, cfg,
+            rounds=rounds, n_new=n_new, base_inv_s=base_inv_s, merge=merge,
+        )
+    inputs = _ray_inputs(z0, o, d) + [(sdist, (z0.shape[0], 1), "sdist")] + [
+        (torch.as_tensor(v, dtype=torch.float32, device=z0.device).reshape(1), (1,), name)
+        for v, name in ((inv_s, "inv_s"), (cos_anneal, "cos_anneal"))
+    ]
+    return _launch_fused("N", "shadow_march", weights, cfg, inputs, 1, rounds, n_new, (float(base_inv_s), rank))
+
+
+# ---------------------------------------------------------------------------
+# Dispatch (JAX fused_importance_z / fused_shadow_tau, march.py:664 / :797)
+
+
+def _check_args(z0, rounds, n_new, merge, split, impls):
+    if z0.shape[1] != N_BUF - rounds * n_new:
+        raise ValueError(
+            f"the fused march needs z0 with {N_BUF - rounds * n_new} samples "
+            f"(= {N_BUF} buffer - {rounds}x{n_new} refinement), got {z0.shape[1]}"
+        )
+    _check_merge(merge)
+    if merge == "rank" and (n_new & (n_new - 1)) != 0:
+        raise ValueError(f"merge='rank' needs a power-of-two n_new (as JAX's shift network), got {n_new}")
+    for name, v in impls.items():
+        if v not in ("pallas", "xla"):
+            raise ValueError(f"{name} must be 'pallas' or 'xla', got {v!r}")
+    if not split and "xla" in impls.values():
+        raise ValueError(f"{'/'.join(impls)}='xla' require split=True")
+
+
+def fused_importance_z(
+    params: dict, cfg: SDFNetConfig, rays_o, rays_d, z0, *,
+    rounds: int = 4, n_new: int = 16, base_inv_s: float = 64.0,
+    mlp_dtype: str = "float32", merge: str = "bitonic", split: bool = False,
+    sweep_impl: str = "pallas", rounds_impl: str = "pallas",
+) -> torch.Tensor:
+    """[B, 64] stratified z -> [B, 128] refined, sorted z (no gradient).
+
+    Routes as JAX: ``split=False`` is kernel M; with ``split`` the sweep is
+    kernel K ("pallas") or plain matmuls ("xla"), and the rounds kernel L
+    ("pallas") or 5 launches of kernel B between plain 16-sample sweeps
+    ("xla").  ``merge``: "bitonic" or "rank"."""
+    _check_args(z0, rounds, n_new, merge, split, {"sweep_impl": sweep_impl, "rounds_impl": rounds_impl})
+    rays_o, rays_d, z0 = rays_o.contiguous(), rays_d.contiguous(), z0.contiguous()
+    weights = march_weights(params, cfg, mlp_dtype)
+    kw = dict(rounds=rounds, n_new=n_new, base_inv_s=base_inv_s, merge=merge)
+    if not split:
+        return importance_march(z0, rays_o, rays_d, weights, cfg, **kw)
+    if sweep_impl == "xla":
+        sweep = march_sweep_plain(z0, rays_o, rays_d, weights, cfg)
+    else:
+        sweep = march_sweep(z0, rays_o, rays_d, weights, cfg)
+    if rounds_impl == "xla":
+        return _rounds(weights, cfg, rays_o, rays_d, z0, sweep, rounds, n_new, base_inv_s, merge, round_machinery)
+    return march_rounds(z0, sweep, rays_o, rays_d, weights, cfg, **kw)
+
+
 def fused_shadow_tau(
     params: dict, cfg: SDFNetConfig, ray_o, ray_d, z0, sample_dist, inv_s, cos_anneal_ratio, *,
     rounds: int = 4, n_new: int = 16, base_inv_s: float = 64.0,
-    mlp_dtype: str = "float32", merge: str = "bitonic",
+    mlp_dtype: str = "float32", split: bool = False, merge: str = "bitonic",
+    sweep_impl: str = "pallas", final_impl: str = "pallas", rounds_impl: str = "pallas",
 ) -> torch.Tensor:
-    """Shadow rays -> final transmittance tau [B, 1]: the importance
-    refinement from the light, then the final dual sweep (kernel C)."""
-    z = fused_importance_z(
-        params, cfg, ray_o, ray_d, z0, rounds=rounds, n_new=n_new,
-        base_inv_s=base_inv_s, mlp_dtype=mlp_dtype, merge=merge,
-    )
+    """Shadow rays -> final transmittance tau [B, 1] (no gradient).
+
+    Routes as JAX: ``split=False`` is kernel N; with ``split`` the
+    refinement is ``fused_importance_z`` (split only where an impl is
+    "xla", JAX march.py:859, so under the "pallas" impls it is kernel M),
+    then the final sweep: kernel C ("pallas") or ``shadow_final_plain`` on
+    the full batch ("xla")."""
+    _check_args(z0, rounds, n_new, merge, split,
+                {"sweep_impl": sweep_impl, "final_impl": final_impl, "rounds_impl": rounds_impl})
+    ray_o, ray_d, z0, sample_dist = ray_o.contiguous(), ray_d.contiguous(), z0.contiguous(), sample_dist.contiguous()
     weights = march_weights(params, cfg, mlp_dtype)
-    ray_o, ray_d, sample_dist = ray_o.contiguous(), ray_d.contiguous(), sample_dist.contiguous()
-    return shadow_final(z, ray_o, ray_d, sample_dist, inv_s, cos_anneal_ratio, weights, cfg)
+    if not split:
+        return shadow_march(
+            z0, ray_o, ray_d, sample_dist, inv_s, cos_anneal_ratio, weights, cfg,
+            rounds=rounds, n_new=n_new, base_inv_s=base_inv_s, merge=merge,
+        )
+    z = fused_importance_z(
+        params, cfg, ray_o, ray_d, z0, rounds=rounds, n_new=n_new, base_inv_s=base_inv_s, mlp_dtype=mlp_dtype,
+        merge=merge, split=sweep_impl == "xla" or rounds_impl == "xla", sweep_impl=sweep_impl, rounds_impl=rounds_impl,
+    )
+    final = shadow_final_plain if final_impl == "xla" else shadow_final
+    return final(z, ray_o, ray_d, sample_dist, inv_s, cos_anneal_ratio, weights, cfg)

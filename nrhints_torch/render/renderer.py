@@ -1,15 +1,19 @@
 """NeuS-with-hints volume renderer (port of
 ``nrhints_tpu/render/renderer.py``).
 
-``render_rays`` follows the JAX package's fused path under the shipping
-``RendererConfig``: 64 stratified samples (jittered in training) refined by
-a 4 x 16 importance march (kernel B), the SDF core with normals (kernel A
+``render_rays`` follows the JAX package's fused path: 64 stratified
+samples (jittered in training) refined by a 4 x 16 importance march (under
+the shipping ``RendererConfig`` plain sweeps and kernel B; the round-4
+knobs ``importance_split``, ``march_sweep_impl``, ``march_rounds_impl``,
+``march_merge`` route it through kernels K, L or M as in JAX), the SDF core
+with normals (kernel A
 without a gradient; with one, the ``core_backward`` schedule: kernels D and
 E for "stash", A and H for "recompute", D and E's plain version for
 "stash_xla"), sigmoid-CDF alpha with cos annealing, transmittance
 compositing, alpha-blended depth, the shadow hint as the transmittance of a
-64 + 4 x 16 march from the light (kernels B and C; its samples jittered in
-training), the Cook-Torrance highlight hint at 4 roughnesses, and the
+64 + 4 x 16 march from the light (kernels B and C, or under
+``shadow_split=False`` the monolith N; its samples jittered in training),
+the Cook-Torrance highlight hint at 4 roughnesses, and the
 reflectance trunk: ``reflectance_impl`` in training and
 ``eval_reflectance_impl`` in eval pick f32 plain matmuls ("xla") or the
 fused trunk (kernel I without a gradient; F and G, or I and J under
@@ -43,11 +47,14 @@ class RendererConfig:
 
     ``fused_kernels``: "auto" and "on" both mean the kernels (on CPU
     tensors, their plain versions); "off" (the unfused path) raises in this
-    slice.  The block-size and implementation knobs of the TPU kernels are
-    kept so configs carry across; of the implementation knobs, values the
-    port has no path for raise (``core_backward`` takes "stash",
-    "recompute" and "stash_xla" in training; for both trunk knobs "xla"
-    is the f32 plain trunk and any other value the fused one, as in JAX)."""
+    slice.  The block-size knobs of the TPU kernels are kept so configs
+    carry across; the march knobs (``shadow_split``, ``importance_split``,
+    the three ``*_impl`` of the march, ``march_merge``) route as in JAX,
+    and a value outside their JAX sets raises ``ValueError``; of the other
+    implementation knobs, values the port has no path for raise
+    (``core_backward`` takes "stash", "recompute" and "stash_xla" in
+    training; for both trunk knobs "xla" is the f32 plain trunk and any
+    other value the fused one, as in JAX)."""
 
     use_outside_nerf: bool = False
     n_samples: int = 64
@@ -168,11 +175,6 @@ def check_ported(cfg: ModelConfig, *, is_training: bool = False, geometry_warmup
         and (r.n_samples, r.n_importance_samples, r.up_sample_steps) != (64, 64, 4),
         "shadow march geometry other than 64 + 4 x 16": (cfg.has_shadow_hint)
         and (r.n_shadow_samples, r.n_shadow_importance_samples, r.up_sample_steps) != (64, 64, 4),
-        "shadow_split=False (monolithic shadow kernel)": not r.shadow_split,
-        f"march_sweep_impl={r.march_sweep_impl!r}": r.march_sweep_impl != "xla",
-        f"march_rounds_impl={r.march_rounds_impl!r}": r.march_rounds_impl != "xla",
-        f"shadow_final_impl={r.shadow_final_impl!r}": r.shadow_final_impl != "pallas",
-        f"march_merge={r.march_merge!r}": r.march_merge != "bitonic",
         f"core_backward={r.core_backward!r} in training": is_training
         and r.core_backward not in ("stash", "recompute", "stash_xla"),
     }
@@ -184,14 +186,23 @@ def check_ported(cfg: ModelConfig, *, is_training: bool = False, geometry_warmup
         )
     if r.fused_kernels not in ("auto", "on"):
         raise ValueError(f"fused_kernels must be 'auto', 'on' or 'off', got {r.fused_kernels!r}")
+    for knob in ("march_sweep_impl", "march_rounds_impl", "shadow_final_impl"):
+        if getattr(r, knob) not in ("pallas", "xla"):
+            raise ValueError(f"{knob} must be 'pallas' or 'xla', got {getattr(r, knob)!r}")
+    if r.march_merge not in ("bitonic", "rank"):
+        raise ValueError(f"march_merge must be 'bitonic' or 'rank', got {r.march_merge!r}")
 
 
 def _importance_sample_z(params, cfg: ModelConfig, rays_o, rays_d, z_vals):
     """64 stratified -> 128 refined z per ray; no gradient, as the JAX march
-    cuts it with ``stop_gradient`` at every input."""
+    cuts it with ``stop_gradient`` at every input.  The march is split
+    where JAX splits it (renderer.py:372-376)."""
+    r = cfg.renderer
     with torch.no_grad():
         return fused_importance_z(
-            params["sdf"], cfg.sdf_network, rays_o, rays_d, z_vals, mlp_dtype=cfg.renderer.march_dtype
+            params["sdf"], cfg.sdf_network, rays_o, rays_d, z_vals, mlp_dtype=r.march_dtype, merge=r.march_merge,
+            split=r.importance_split or r.march_sweep_impl == "xla" or r.march_rounds_impl == "xla",
+            sweep_impl=r.march_sweep_impl, rounds_impl=r.march_rounds_impl,
         )
 
 
@@ -210,11 +221,17 @@ def _shadow_transmittance(params, cfg: ModelConfig, pls, target_points, cos_anne
     z_vals = linspace01(n, d.dtype, d.device)[None, :] * light_norm * (1.0 - rcfg.shadow_ray_offset)
     if jitter is not None:
         z_vals = perturb_z_vals_within_bins(z_vals, u=jitter["u"], generator=jitter["generator"])
+    # The monolith (shadow_split=False) has no sweep / final / rounds halves:
+    # the impl knobs apply to the split march only (JAX renderer.py:512-532).
+    s = rcfg.shadow_split
     return fused_shadow_tau(
         params["sdf"], cfg.sdf_network, pls.contiguous(), ray_d, z_vals, sample_dist,
         inv_s_from_params(params["variance"]),
         torch.as_tensor(cos_anneal_ratio, dtype=torch.float32, device=d.device),
-        mlp_dtype=rcfg.march_dtype,
+        mlp_dtype=rcfg.march_dtype, split=s, merge=rcfg.march_merge,
+        sweep_impl=rcfg.march_sweep_impl if s else "pallas",
+        final_impl=rcfg.shadow_final_impl if s else "pallas",
+        rounds_impl=rcfg.march_rounds_impl if s else "pallas",
     )
 
 

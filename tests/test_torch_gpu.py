@@ -21,6 +21,14 @@ so a z_i within rounding of 0 can take the other side of the ReLU there and
 move one point's dx by a whole unit's share: J is held entry by entry
 against the plain backward at the forward's own z_i, and against the wholly
 plain backward by the relative norm of the error (2e-2).
+Kernels K, L, M and N (the round-4 marches): K's sdf0 1e-2 as A; N's tau
+1e-2 as C; L's z equal bit for bit to its schedule run as kernel B steps
+between kernel K sweeps, M's z to L(K(.)) and N's tau to C(M(.)); against
+the wholly plain marches, L's and M's z as chip_smoke.py holds them (sorted,
+every stratified sample kept, Z_NN_SHARE of the samples within 1e-4 of a
+plain sample: near-ties of the cdf and the u grid send a draw to the next
+interval when a sweep rounds otherwise).  Kernel B's rank merge gives the
+bitonic network's z bit for bit.
 """
 import numpy as np
 import pytest
@@ -105,7 +113,8 @@ def test_round_machinery_matches_plain(cuda):
 def test_shadow_final_matches_plain(cuda, cfg):
     p = sdf_init(torch.Generator().manual_seed(0), cfg, cuda)
     o, d, z0 = _rays(cuda)
-    z = march.fused_importance_z(p, cfg, o, d, z0, mlp_dtype="bfloat16")
+    z = march.fused_importance_z(p, cfg, o, d, z0, mlp_dtype="bfloat16", split=True, sweep_impl="xla",
+                                 rounds_impl="xla")
     sdist = torch.full((o.shape[0], 1), 2.0 / 64, device=cuda)
     w = march.march_weights(p, cfg, "bfloat16")
     k = march.shadow_final(z, o, d, sdist, 64.0, 0.7, w, cfg)
@@ -138,7 +147,8 @@ def test_render_rays_card_matches_cpu(cuda):
     assert {k: cuda_lib.launch_counts[k] - before[k] for k in before} == {
         "sdf_core_fwd": 1, "round_machinery": 10, "shadow_final": 1,
         "sdf_stash_fwd": 0, "sdf_stash_bwd": 0, "mlp_stash_fwd": 0, "mlp_stash_bwd": 0,
-        "sdf_core_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0}
+        "sdf_core_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0,
+        "march_sweep": 0, "march_rounds": 0, "importance_march": 0, "shadow_march": 0}
     for k in ("rgb", "depth", "visibilities"):
         assert (getattr(card, k).cpu() - getattr(cpu, k)).abs().max().item() <= 2e-2, k
 
@@ -365,6 +375,131 @@ def test_eval_trunk_pallas_card_matches_cpu(cuda):
     assert delta["mlp_fwd"] == 1 and delta["mlp_stash_fwd"] == 0 and delta["sdf_core_fwd"] == 1
     for k in ("rgb", "depth", "visibilities"):
         assert (getattr(card, k).cpu() - getattr(cpu, k)).abs().max().item() <= 2e-2, k
+
+
+def _assert_z_close(k, p, z0):
+    from chip_smoke import Z_NN_SHARE, z_err
+
+    _, _, share, ok = z_err(k, p, z0)
+    assert ok and share >= Z_NN_SHARE, (ok, share)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("merge", ["bitonic", "rank"])
+@pytest.mark.parametrize("cfg", [SMALL, SDFNetConfig()], ids=["small", "full"])
+def test_march_kernels_match_plain(cuda, cfg, merge):
+    """Kernels K, L, M and N against their plain versions; M = L(K(.)) and
+    N = C(M(.)) bit for bit; one launch each."""
+    p = sdf_init(torch.Generator().manual_seed(0), cfg, cuda)
+    o, d, z0 = _rays(cuda)
+    w = march.march_weights(p, cfg, "bfloat16")
+    sdist = torch.full((o.shape[0], 1), 2.0 / 64, device=cuda)
+    inv_s, anneal = torch.tensor(64.0, device=cuda), torch.tensor(0.7, device=cuda)
+    before = dict(cuda_lib.launch_counts)
+    sdf0 = march.march_sweep(z0, o, d, w, cfg)
+    z_l = march.march_rounds(z0, sdf0, o, d, w, cfg, merge=merge)
+    z_m = march.importance_march(z0, o, d, w, cfg, merge=merge)
+    tau = march.shadow_march(z0, o, d, sdist, inv_s, anneal, w, cfg, merge=merge)
+    tau_c = march.shadow_final(z_m, o, d, sdist, inv_s, anneal, w, cfg)
+    torch.cuda.synchronize()
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in ("march_sweep", "march_rounds", "importance_march",
+                                                              "shadow_march", "shadow_final")} == dict.fromkeys(
+        ("march_sweep", "march_rounds", "importance_march", "shadow_march", "shadow_final"), 1)
+    _close(sdf0, march.march_sweep_plain(z0, o, d, w, cfg), 1e-2)
+    from chip_smoke import tile_sweep16
+
+    assert torch.equal(z_l, march._rounds(w, cfg, o, d, z0, sdf0, 4, 16, 64.0, merge, march.round_machinery,
+                                          tile_sweep16(o, d, w, cfg)))
+    _assert_z_close(z_l, march.march_rounds_plain(z0, sdf0, o, d, w, cfg, merge=merge), z0)
+    _assert_z_close(z_m, march.importance_march_plain(z0, o, d, w, cfg, merge=merge), z0)
+    _close(tau, march.shadow_march_plain(z0, o, d, sdist, inv_s, anneal, w, cfg, merge=merge), 1e-2)
+    assert torch.equal(z_m, z_l)
+    assert torch.equal(tau, tau_c)
+
+
+@pytest.mark.gpu
+def test_round_machinery_rank_matches_bitonic(cuda):
+    """Kernel B under merge="rank": z equal to the bitonic network's and to
+    the plain rank merge's, the payload to the plain rank merge's."""
+    p = sdf_init(torch.Generator().manual_seed(0), SMALL, cuda)
+    o, d, z0 = _rays(cuda)
+    w = march.march_weights(p, SMALL, "bfloat16")
+    z = torch.cat([z0, torch.full_like(z0, march.BIG_Z)], -1)
+    sdf = torch.cat([march._mlp_sdf_3d(o[:, None] + d[:, None] * z0[..., None], w, SMALL), torch.zeros_like(z0)], -1)
+    new_z = new_sdf = None
+    for i in range(5):
+        vn = 64 + 16 * i
+        args = (z, sdf, o, d, new_z, new_sdf, None if i == 0 else vn - 16, vn if i < 4 else None,
+                64.0 * 2**i if i < 4 else None)
+        kr = march.round_machinery(*args, merge="rank")
+        kb = march.round_machinery(*args)
+        pr = march.round_machinery_plain(*args, merge="rank")
+        assert torch.equal(kr[1], kb[1]) and torch.equal(kr[1], pr[1])
+        if i < 4:
+            assert torch.equal(kr[2], pr[2])
+            _close(kr[0], pr[0], 1e-5)
+            new_z, z, sdf = kr
+            new_sdf = march._mlp_sdf_3d(o[:, None] + d[:, None] * new_z[..., None], w, SMALL)
+
+
+ROUND4 = {
+    "monolith": ({"march_sweep_impl": "pallas", "march_rounds_impl": "pallas", "shadow_split": False},
+                 {"importance_march": 1, "shadow_march": 1}),
+    "split": ({"importance_split": True, "march_sweep_impl": "pallas", "march_rounds_impl": "pallas",
+               "march_merge": "rank"}, {"march_sweep": 1, "march_rounds": 1, "importance_march": 1,
+                                        "shadow_final": 1}),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["monolith", "split"])
+def test_render_rays_round4_card_matches_cpu(cuda, route):
+    """The eval render under the round-4 march configurations on the card
+    against the CPU, at 2e-2 as the shipping render above, with the exact
+    launches of one chunk."""
+    from nrhints_torch.core.structs import RayBundle
+    from nrhints_torch.fields.reflectance import ReflectanceNetConfig
+    from nrhints_torch.render.renderer import ModelConfig, RendererConfig, init_model_params, render_rays
+
+    renderer_kw, launches = ROUND4[route]
+    cfg = ModelConfig(sdf_network=SMALL, reflectance_network=ReflectanceNetConfig(n_layers=2, d_hidden=32),
+                      renderer=RendererConfig(**renderer_kw))
+    params = init_model_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    o, d, z0 = _rays("cpu")
+    pl_ = torch.tensor([[1.5, 2.5, -1.0]]).expand_as(o).contiguous()
+    host = (o, d, pl_, z0[:, :1], z0[:, -1:])
+    with torch.no_grad():
+        cpu = render_rays(params, cfg, RayBundle(*host))
+        before = dict(cuda_lib.launch_counts)
+        card = render_rays(_tree_to(params, cuda), cfg, RayBundle(*(t.to(cuda) for t in host)))
+    torch.cuda.synchronize()
+    expected = {k: 0 for k in cuda_lib.launch_counts}
+    expected.update(sdf_core_fwd=1, **launches)
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in before} == expected
+    for k in ("rgb", "depth", "visibilities"):
+        assert (getattr(card, k).cpu() - getattr(cpu, k)).abs().max().item() <= 2e-2, k
+
+
+@pytest.mark.gpu
+def test_march_wrappers_raise_on_bad_inputs(cuda):
+    p = sdf_init(torch.Generator().manual_seed(0), SMALL, cuda)
+    o, d, z0 = _rays(cuda)
+    w32, w16 = march.march_weights(p, SMALL, "float32"), march.march_weights(p, SMALL, "bfloat16")
+    sdist = torch.full((o.shape[0], 1), 2.0 / 64, device=cuda)
+    with pytest.raises(NotImplementedError):
+        march.march_sweep(z0, o, d, w32, SMALL)
+    with pytest.raises(NotImplementedError):
+        march.importance_march(z0, o, d, w32, SMALL)
+    with pytest.raises(NotImplementedError):
+        march.shadow_march(z0, o, d, sdist, 64.0, 1.0, w32, SMALL)
+    with pytest.raises(ValueError):
+        march.march_sweep(z0[:, :32].contiguous(), o, d, w16, SMALL)
+    with pytest.raises(ValueError):
+        march.march_rounds(z0, z0.double(), o, d, w16, SMALL)
+    with pytest.raises(ValueError):
+        march.importance_march(z0.t().contiguous().t(), o, d, w16, SMALL)
+    with pytest.raises(ValueError):
+        march.shadow_march(z0, o, d, sdist[:3], 64.0, 1.0, w16, SMALL)
 
 
 def _tree_to(tree, dev):

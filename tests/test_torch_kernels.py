@@ -17,6 +17,12 @@ Tolerances and why:
   low-weight tail, so the refined z agree to 1e-4 in at least 90% of the
   slots and to one stratified interval everywhere.
 * C: float32 rtol 1e-5; bf16 atol 1e-4 (bf16 rounding flips, as A).
+* K (the initial sweep): as C.
+* L and M (the round-4 marches) and B under merge="rank": the z metric of
+  B's whole march above; the rank merge places every element where JAX's
+  shift network does, so the merged buffers are identical.
+* N (the monolithic shadow march): tau within the roadmap's shadow-map
+  1e-3, as the split march.
 """
 import jax
 import jax.numpy as jnp
@@ -71,8 +77,16 @@ def test_cpu_wrappers_take_plain_path(sdf, rays):
     ref = tcm.sdf_core_plain(tcm.materialize_sdf_weights_full(tp, tc), x, tc, "bfloat16")
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
-    z = tm.fused_importance_z(tp, tc, o, d, z0, mlp_dtype="bfloat16")
-    tm.shadow_final(z, o, d, torch.full((N_RAYS, 1), 0.03), 64.0, 1.0, tm.march_weights(tp, tc, "bfloat16"), tc)
+    z = tm.fused_importance_z(tp, tc, o, d, z0, mlp_dtype="bfloat16", split=True, sweep_impl="xla", rounds_impl="xla")
+    w = tm.march_weights(tp, tc, "bfloat16")
+    sdist = torch.full((N_RAYS, 1), 0.03)
+    tm.shadow_final(z, o, d, sdist, 64.0, 1.0, w, tc)
+    sdf0 = tm.march_sweep(z0, o, d, w, tc)
+    assert torch.equal(sdf0, tm.march_sweep_plain(z0, o, d, w, tc))
+    assert torch.equal(tm.march_rounds(z0, sdf0, o, d, w, tc), tm.march_rounds_plain(z0, sdf0, o, d, w, tc))
+    assert torch.equal(tm.importance_march(z0, o, d, w, tc), tm.importance_march_plain(z0, o, d, w, tc))
+    assert torch.equal(tm.shadow_march(z0, o, d, sdist, 64.0, 1.0, w, tc),
+                       tm.shadow_march_plain(z0, o, d, sdist, 64.0, 1.0, w, tc))
     assert all(v == 0 for v in cuda_lib.launch_counts.values())
 
 
@@ -80,7 +94,7 @@ def test_cpu_wrappers_take_plain_path(sdf, rays):
 # Kernel B
 
 
-def _schedule(tc, tp, o, d, z0, mlp_dtype):
+def _schedule(tc, tp, o, d, z0, mlp_dtype, merge="bitonic"):
     """The inputs of the 5 machinery steps of one march (captured from the
     port's own run) as tuples of round_machinery arguments."""
     w = tm.march_weights(tp, tc, mlp_dtype)
@@ -92,15 +106,15 @@ def _schedule(tc, tp, o, d, z0, mlp_dtype):
         vn = 64 + 16 * i
         args = (z, sdf, o, d, new_z, new_sdf, None if i == 0 else vn - 16, vn, 64.0 * 2**i)
         steps.append(args)
-        new_z, z, sdf = tm.round_machinery_plain(*args)
+        new_z, z, sdf = tm.round_machinery_plain(*args, merge=merge)
         new_sdf = tm._mlp_sdf_3d(o[:, None, :] + d[:, None, :] * new_z[..., None], w, tc) if i < 3 else torch.zeros_like(new_z)
     steps.append((z, sdf, o, d, new_z, new_sdf, 112, None, None))
     return steps
 
 
-def _pallas_machinery(z, sdf, o, d, nz, ns, merge_vn, next_vn, inv_s):
+def _pallas_machinery(z, sdf, o, d, nz, ns, merge_vn, next_vn, inv_s, merge="bitonic"):
     """One launch of the JAX ``_round_machinery_kernel``, interpret mode."""
-    kernel = jm._round_machinery_kernel(16, "bitonic", merge_vn, next_vn, inv_s)
+    kernel = jm._round_machinery_kernel(16, merge, merge_vn, next_vn, inv_s)
     inputs = [z, sdf, o, d] + ([nz, ns] if merge_vn is not None else [])
     inputs = [jnp.asarray(a.numpy()) for a in inputs]
     widths = (16, 128, 128) if next_vn is not None else (128,)
@@ -138,6 +152,35 @@ def test_round_machinery_step_matches_pallas(sdf, rays, step):
         assert np.all((u1 >= lo) & (u1 <= hi))
 
 
+@pytest.mark.parametrize("step", [1, 2, 3, 4])
+def test_round_machinery_rank_step_matches_pallas(sdf, rays, step):
+    """The merging steps of B under merge="rank" against JAX's rank merge:
+    the merged buffers are identical, the draw as above; the merged z
+    equal the bitonic network's."""
+    jc, jp, tc, tp = sdf
+    o, d, _, z0 = (torch.tensor(a) for a in rays)
+    args = _schedule(tc, tp, o, d, z0, "float32", merge="rank")[step]
+    new_z, z, sdf_out = tm.round_machinery_plain(*args, merge="rank")
+    ref = [np.asarray(a) for a in _pallas_machinery(*args, merge="rank")]
+    assert torch.equal(z, tm.round_machinery_plain(*args)[1])
+    if new_z is None:
+        np.testing.assert_array_equal(z.numpy(), ref[0])
+        return
+    np.testing.assert_array_equal(z.numpy(), ref[1])
+    np.testing.assert_array_equal(sdf_out.numpy(), ref[2])
+    np.testing.assert_allclose(new_z[:, 1:].numpy(), ref[0][:, 1:], rtol=1e-5, atol=1e-5)
+
+
+def _assert_z_close(out, ref):
+    """The refined-z metric: sorted, 90% of slots within 1e-4, every slot
+    within one stratified interval (the u = 1 draw, see above)."""
+    assert out.shape == (N_RAYS, 128)
+    assert np.all(np.diff(out, axis=-1) >= 0)
+    err = np.abs(out - ref)
+    assert np.mean(err <= 1e-4) >= 0.9, np.mean(err <= 1e-4)
+    assert err.max() <= 2.0 / 63 + 1e-5
+
+
 @pytest.mark.parametrize("mlp_dtype", ["float32", "bfloat16"])
 def test_importance_z_matches_jax(sdf, rays, mlp_dtype):
     jc, jp, tc, tp = sdf
@@ -148,12 +191,11 @@ def test_importance_z_matches_jax(sdf, rays, mlp_dtype):
             rounds_impl="xla", interpret=True, mlp_dtype=mlp_dtype,
         )
     )
-    out = tm.fused_importance_z(tp, tc, torch.tensor(o), torch.tensor(d), torch.tensor(z0), mlp_dtype=mlp_dtype).numpy()
-    assert out.shape == (N_RAYS, 128)
-    assert np.all(np.diff(out, axis=-1) >= 0)
-    err = np.abs(out - ref)
-    assert np.mean(err <= 1e-4) >= 0.9, np.mean(err <= 1e-4)
-    assert err.max() <= 2.0 / 63 + 1e-5
+    out = tm.fused_importance_z(
+        tp, tc, torch.tensor(o), torch.tensor(d), torch.tensor(z0), mlp_dtype=mlp_dtype, split=True, sweep_impl="xla",
+        rounds_impl="xla",
+    ).numpy()
+    _assert_z_close(out, ref)
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +205,9 @@ def test_importance_z_matches_jax(sdf, rays, mlp_dtype):
 def _shadow_inputs(tc, tp, rays, mlp_dtype):
     o, d, pl_, _ = rays
     o_t, d_t = torch.tensor(o), torch.tensor(d)
-    z = tm.fused_importance_z(tp, tc, o_t, d_t, torch.tensor(rays[3]), mlp_dtype=mlp_dtype)
+    z = tm.fused_importance_z(
+        tp, tc, o_t, d_t, torch.tensor(rays[3]), mlp_dtype=mlp_dtype, split=True, sweep_impl="xla", rounds_impl="xla"
+    )
     sdist = torch.full((N_RAYS, 1), 2.0 / 64)
     return z, o_t, d_t, sdist
 
@@ -205,9 +249,108 @@ def test_shadow_tau_matches_jax(sdf, rays, mlp_dtype, atol):
     )
     out = tm.fused_shadow_tau(
         tp, tc, *(torch.tensor(a) for a in (o, d, z0, sdist)), torch.tensor(64.0), torch.tensor(0.7),
-        mlp_dtype=mlp_dtype,
+        mlp_dtype=mlp_dtype, split=True, sweep_impl="xla", rounds_impl="xla", final_impl="pallas",
     )
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# Kernels K, L, M and N (the round-4 fused marches)
+
+
+def _full_spec(b, w):
+    return pl.BlockSpec((b, w), lambda i: (0, 0))
+
+
+@pytest.mark.parametrize("mlp_dtype,atol", [("float32", 1e-6), ("bfloat16", 1e-4)])
+def test_march_sweep_plain_matches_pallas(sdf, rays, mlp_dtype, atol):
+    jc, jp, tc, tp = sdf
+    o, d, _, z0 = rays
+    weights, w_specs = jm._weights_and_specs(jp, jc, mlp_dtype)
+    ref = pl.pallas_call(
+        jm._sweep_kernel(jc, len(weights)),
+        grid=(1,),
+        in_specs=[_full_spec(N_RAYS, 64), _full_spec(N_RAYS, 3), _full_spec(N_RAYS, 3), *w_specs],
+        out_specs=_full_spec(N_RAYS, 64),
+        out_shape=jax.ShapeDtypeStruct((N_RAYS, 64), jnp.float32),
+        interpret=True,
+    )(jnp.asarray(z0), jnp.asarray(o), jnp.asarray(d), *weights)
+    out = tm.march_sweep_plain(*(torch.tensor(a) for a in (z0, o, d)), tm.march_weights(tp, tc, mlp_dtype), tc)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("merge", ["bitonic", "rank"])
+def test_march_rounds_plain_matches_pallas(sdf, rays, merge):
+    """L's plain version against ``_rounds_kernel`` on the same (z0, sdf0)."""
+    jc, jp, tc, tp = sdf
+    o, d, _, z0 = rays
+    w = tm.march_weights(tp, tc, "float32")
+    sdf0 = tm.march_sweep_plain(*(torch.tensor(a) for a in (z0, o, d)), w, tc).numpy()
+    weights, w_specs = jm._weights_and_specs(jp, jc, "float32")
+    ref = pl.pallas_call(
+        jm._rounds_kernel(jc, 4, 16, 64.0, len(weights), merge),
+        grid=(1,),
+        in_specs=[_full_spec(N_RAYS, 64), _full_spec(N_RAYS, 64), _full_spec(N_RAYS, 3), _full_spec(N_RAYS, 3),
+                  *w_specs],
+        out_specs=_full_spec(N_RAYS, 128),
+        out_shape=jax.ShapeDtypeStruct((N_RAYS, 128), jnp.float32),
+        interpret=True,
+    )(*(jnp.asarray(a) for a in (z0, sdf0, o, d)), *weights)
+    out = tm.march_rounds_plain(*(torch.tensor(a) for a in (z0, sdf0, o, d)), w, tc, merge=merge)
+    _assert_z_close(out.numpy(), np.asarray(ref))
+
+
+MARCH_CASES = [("float32", "bitonic"), ("bfloat16", "bitonic"), ("float32", "rank")]
+
+
+@pytest.mark.parametrize("mlp_dtype,merge", MARCH_CASES)
+def test_importance_march_plain_matches_jax(sdf, rays, mlp_dtype, merge):
+    """M's plain version against JAX's monolithic importance march."""
+    jc, jp, tc, tp = sdf
+    o, d, _, z0 = rays
+    ref = jm.fused_importance_z(
+        jp, jc, jnp.asarray(o), jnp.asarray(d), jnp.asarray(z0), interpret=True, mlp_dtype=mlp_dtype, merge=merge
+    )
+    out = tm.importance_march_plain(
+        *(torch.tensor(a) for a in (z0, o, d)), tm.march_weights(tp, tc, mlp_dtype), tc, merge=merge
+    )
+    _assert_z_close(out.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("mlp_dtype,merge", MARCH_CASES)
+def test_shadow_march_plain_matches_jax(sdf, rays, mlp_dtype, merge):
+    """N's plain version against JAX's monolithic shadow march: tau 1e-3."""
+    jc, jp, tc, tp = sdf
+    o, d, _, z0 = rays
+    sdist = np.full((N_RAYS, 1), 2.0 / 64, np.float32)
+    ref = jm.fused_shadow_tau(
+        jp, jc, *(jnp.asarray(a) for a in (o, d, z0, sdist)), jnp.asarray(64.0), jnp.asarray(0.7),
+        interpret=True, mlp_dtype=mlp_dtype, merge=merge,
+    )
+    out = tm.shadow_march_plain(
+        *(torch.tensor(a) for a in (z0, o, d, sdist)), 64.0, 0.7, tm.march_weights(tp, tc, mlp_dtype), tc, merge=merge
+    )
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-3)
+    assert np.asarray(ref).min() < 0.9
+
+
+def test_rank_merge_requires_power_of_two_n_new(sdf, rays):
+    _, _, tc, tp = sdf
+    o, d, _, _ = (torch.tensor(a) for a in rays)
+    z0 = torch.linspace(2.0, 4.0, 128 - 4 * 12).expand(N_RAYS, -1)
+    with pytest.raises(ValueError, match="power-of-two"):
+        tm.fused_importance_z(tp, tc, o, d, z0, n_new=12, merge="rank")
+
+
+@pytest.mark.parametrize("kw", [{"merge": "odd_even"}, {"split": True, "sweep_impl": "mosaic"},
+                                {"rounds_impl": "xla"}, {"split": True, "final_impl": "triton"}])
+def test_march_dispatch_rejects_bad_knobs(sdf, rays, kw):
+    """Values outside each knob's JAX set raise, as does an "xla" half
+    without split=True."""
+    _, _, tc, tp = sdf
+    o, d, _, z0 = (torch.tensor(a) for a in rays)
+    with pytest.raises(ValueError):
+        tm.fused_shadow_tau(tp, tc, o, d, z0, torch.full((N_RAYS, 1), 0.03), 64.0, 1.0, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -61,10 +61,6 @@ UNPORTED = [
     ({"depth_type": "sphere_tracing"}, {}),
     ({"n_shadow_importance_clip": 32}, {}),
     ({"fused_kernels": "off"}, {}),
-    ({"march_merge": "rank"}, {}),
-    ({"shadow_split": False}, {}),
-    ({"march_sweep_impl": "pallas"}, {}),
-    ({"march_rounds_impl": "pallas"}, {}),
     ({"shadow_hint_gradient": True}, {}),
     ({"n_importance_samples": 32}, {}),
     ({"core_backward": "stash_all"}, {"is_training": True}),
@@ -111,19 +107,31 @@ def test_training_branches_match_jax(call_kw):
     assert (float(to.specular_cue.abs().max()) == 0.0) == warm
 
 
+# The round-4 march: the monolith (kernels M and N) and the split march
+# (K, L, and the shadow rays' M and C, by rank).
+MONOLITH = {"march_sweep_impl": "pallas", "march_rounds_impl": "pallas", "shadow_split": False}
+SPLIT = {"importance_split": True, "march_sweep_impl": "pallas", "march_rounds_impl": "pallas", "march_merge": "rank"}
 PORTED = [
     ({"core_backward": "recompute"}, True),
     ({"core_backward": "stash_xla"}, True),
     ({"reflectance_impl": "xla"}, True),
     ({"eval_reflectance_impl": "pallas"}, False),
+    (MONOLITH, False),
+    (MONOLITH, True),
+    (SPLIT, False),
+    ({"march_merge": "rank"}, False),
+    ({"march_sweep_impl": "pallas"}, False),
+    ({"march_rounds_impl": "pallas"}, False),
+    ({"shadow_final_impl": "xla"}, False),
 ]
 
 
-@pytest.mark.parametrize("renderer_kw,is_training", PORTED, ids=["recompute", "stash_xla", "train_trunk_xla",
-                                                                  "eval_trunk_pallas"])
+@pytest.mark.parametrize("renderer_kw,is_training", PORTED, ids=[
+    "recompute", "stash_xla", "train_trunk_xla", "eval_trunk_pallas", "monolith_march", "monolith_march_training",
+    "split_march_rank", "merge_rank", "sweep_pallas", "rounds_pallas", "shadow_final_xla"])
 def test_ported_settings_match_jax(renderer_kw, is_training):
-    """The backward schedules and trunk choices this slice ports, through
-    ``render_rays`` against JAX at the f32 march's tolerances.  Training
+    """The backward schedules, trunk choices and march routes the port has,
+    through ``render_rays`` against JAX at the f32 march's tolerances.  Training
     cases run with parameters that need gradients, so the autograd ops of
     the schedule run, and also compare the gradient of sum(rgb) + the
     eikonal term at every leaf (2e-2 of its scale, the train tests'
@@ -165,6 +173,15 @@ def test_ported_settings_match_jax(renderer_kw, is_training):
             to = tr.render_rays(tp, tc, trays, background_rgb=torch.ones(1, 3))
     for k in ("rgb", "weights", "depth", "visibilities"):
         np.testing.assert_allclose(getattr(to, k).detach().numpy(), np.asarray(getattr(jo, k)), atol=tol[k], err_msg=k)
+
+
+@pytest.mark.parametrize("renderer_kw", [{"march_sweep_impl": "mosaic"}, {"march_rounds_impl": "fori"},
+                                         {"shadow_final_impl": "cuda"}, {"march_merge": "odd_even"}])
+def test_bad_march_knobs_raise(renderer_kw):
+    """A march knob outside its JAX set raises ``ValueError``."""
+    _, tc = model_configs(**renderer_kw)
+    with pytest.raises(ValueError):
+        tr.check_ported(tc)
 
 
 def test_hash_encoding_raises():
