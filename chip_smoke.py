@@ -15,7 +15,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the shapes of one 512-ray chunk or train step of the full-width model,
    hold each against its plain PyTorch version on the same inputs (E, G, H
    and J also against a second run, bit for bit), and time both with CUDA
-   events beside the kernel's bound;
+   events beside the kernel's bound; E's chain (E1) and dW passes by device
+   time from one profiled call, each beside its own bound, and H's H1, H2
+   and dW passes the same way;
 4. eval path: render one 128x128 view of the nr-hints model (random
    weights from a fixed seed) with Evaluator.render_image on the card,
    check the outputs and that every kernel's launch count moved, then
@@ -106,15 +108,17 @@ TRAIN_STEPS, TRAIN_WARMUP = 20, 3
 RECOMPUTE_STEPS = 10
 ROUND4_STEPS = 5
 # Device-time groups of a profiled view or train step: (substring of the
-# kernel's name, group), the first match wins.
+# kernel's name, group), the first match wins.  E1 and H2 are the two
+# instances of the 64-point chain of csrc/sdf_bwd.cuh.
+DW_GROUP = "dW passes of E/G/H/J (dw_sum.cuh)"
 STEP_GROUPS = (
     ("sdf_core_fwd_kernel<0>", "kernel A sdf_core_fwd"), ("sdf_core_fwd_kernel<1>", "kernel D sdf_stash_fwd"),
     ("sdf_core_fwd_kernel<2>", "kernel H, forward pass (H1)"),
     ("sdf_bwd_chain_kernel<false>", "kernel E sdf_stash_bwd (E1)"), ("sdf_bwd_chain_kernel<true>", "kernel H chain (H2)"),
     ("mlp_fwd_kernel<true>", "kernel F mlp_stash_fwd"), ("mlp_fwd_kernel<false>", "kernel I mlp_fwd"),
     ("mlp_bwd_kernel<false>", "kernel G mlp_stash_bwd (G1)"), ("mlp_bwd_kernel<true>", "kernel J mlp_bwd (J1)"),
-    ("dw_partial", "dW passes of E/G/H/J (dw_sum.cuh)"), ("dw_reduce", "dW passes of E/G/H/J (dw_sum.cuh)"),
-    ("colsum", "dW passes of E/G/H/J (dw_sum.cuh)"), ("round_machinery", "kernel B round_machinery"),
+    ("dw_partial", DW_GROUP), ("dw_reduce", DW_GROUP), ("colsum", DW_GROUP),
+    ("round_machinery", "kernel B round_machinery"),
     ("march_kernel<false, false, true", "kernel C shadow_final"),
     ("march_kernel<true, false, false", "kernel K march_sweep"),
     ("march_kernel<false, true, false", "kernel L march_rounds"),
@@ -191,6 +195,19 @@ def device_groups(prof) -> dict[str, float]:
             g = "matmul (cuBLAS)" if ("gemm" in low or "cutlass" in low) else "other PyTorch kernels"
         out[g] = out.get(g, 0.0) + us / 1e3
     return out
+
+
+def profiled_groups(fn) -> dict[str, float]:
+    """Device ms by STEP_GROUPS group of one call of ``fn`` under
+    torch.profiler (after the call's own warm-up elsewhere)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return device_groups(prof)
 
 
 def z_err(kernel_z, plain_z, z0) -> tuple[float, float, float, bool]:
@@ -527,6 +544,21 @@ def main() -> int:
         f"{e_flops / 1e9:.1f} GFLOP)")
     if not e_rel <= TOL["sdf_stash_bwd"]:
         raise AssertionError(f"kernel E disagrees with its plain version: rel {e_rel:.3e}")
+    # E's two parts by device time, from one profiled call (the CUDA events
+    # above include the wrapper's weight packing), each beside its bound:
+    # E1 does the three chain sweeps and the feature head's VJP, reads the
+    # stash, x and the cotangents and writes dx and the dW operands; the dW
+    # passes do both halves of every dW product and read those operands.
+    layers_pk = [(w_.shape[0], w_.shape[1]) for w_ in aw[0 : 2 * scfg.n_layers : 2]]
+    op_bytes = 2.0 * (2 * n_pts * sum(i + o_ for i, o_ in layers_pk) + n_pts * (d_last + d_feat))
+    e1_bound, e1_by = bound(2.0 * n_pts * (3 * hidden + d_last * d_feat + 2 * d_last),
+                            n_pts * (2 * gt + 4 * (3 + 1 + d_feat + 3) + 4 * 3) + op_bytes + 2 * n_w, H100_BF16_FLOPS)
+    edw_bound, edw_by = bound(2.0 * n_pts * (2 * hidden + d_last * d_feat), op_bytes + 4 * n_w, H100_BF16_FLOPS)
+    e_parts = profiled_groups(lambda: core_stash.sdf_stash_bwd(aw, x, d_out[3], cots, scfg))
+    e1_dev, edw_dev = e_parts.get("kernel E sdf_stash_bwd (E1)", 0.0), e_parts.get(DW_GROUP, 0.0)
+    log(f"[kernel E] one profiled call, device time: E1 (the chain) {e1_dev:.4f} ms, bound {e1_bound:.4f} ms "
+        f"({e1_by}); dW passes {edw_dev:.4f} ms, bound {edw_bound:.4f} ms ({edw_by}, reading the "
+        f"{op_bytes / 1e9:.3f} GB of bf16 operands once); other {sum(e_parts.values()) - e1_dev - edw_dev:.4f} ms")
 
     # H: the recompute backward at the same points and cotangents.
     h_dws, h_dx = core_mlp.sdf_core_bwd(aw, x, cots, scfg)
@@ -549,6 +581,10 @@ def main() -> int:
         f"bound {h_bound:.4f} ms ({h_by}, {h_flops / 1e9:.1f} GFLOP)")
     if not h_rel <= TOL["sdf_core_bwd"]:
         raise AssertionError(f"kernel H disagrees with its plain version: rel {h_rel:.3e}")
+    h_parts = profiled_groups(lambda: core_mlp.sdf_core_bwd(aw, x, cots, scfg))
+    log(f"[kernel H] one profiled call, device time: H1 (the recompute pass) "
+        f"{h_parts.get('kernel H, forward pass (H1)', 0.0):.4f} ms, H2 (the chain) "
+        f"{h_parts.get('kernel H chain (H2)', 0.0):.4f} ms, dW passes {h_parts.get(DW_GROUP, 0.0):.4f} ms")
 
     # F and G: the reflectance trunk on 65,536 points of random 361-wide
     # inputs, G at a random cotangent of its 3 outputs.

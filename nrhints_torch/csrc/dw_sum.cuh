@@ -8,22 +8,31 @@
 //   dw_partial_kernel  C_j = A_j^T B_j for each product j (A_j [rows, ka],
 //                      B_j [rows, nb], row-major bf16 in the scratch), split
 //                      over `split` row chunks; each block computes one
-//                      64 x 64 output tile of one chunk with bf16 WMMA and f32
-//                      accumulation, into part[chunk][...];
+//                      128 x 128 output tile of one chunk with bf16 WMMA and
+//                      f32 accumulation, into part[chunk][...];
 //   dw_reduce_kernel   dw[e] = sum over chunks of part[chunk][e], in order;
 //   colsum_kernel      the per-block column sums that the point chain left
 //                      (bias cotangents and other reductions), summed over
 //                      the blocks in a fixed order.
-// The products are bound by the scratch bytes they read: the operands of
-// one row are read once per 64-column output tile.
+// The products are bound by the scratch bytes they read.  A block streams
+// its chunk's rows through a three-stage ring in shared memory, 64 rows of
+// A's 128 columns and of B's 128 columns per slab, filled by cp.async
+// (staged_mma.cuh); the fragments, A's column-major ones included, come
+// from shared memory with padded strides.  An operand row is read once per
+// 128-column output tile on the other side: twice for the 256-wide
+// products of kernels E and H.
 #pragma once
 
-#include "sdf_mlp.cuh"
+#include "staged_mma.cuh"
 
 namespace nrh {
 
 constexpr int kMaxJobs = kMaxLayers + 1;
-constexpr int kDwTile = 64;
+constexpr int kDwTile = 128;   // output tile edge of dw_partial_kernel
+constexpr int kDwSlab = 64;    // rows of a ring slab
+constexpr int kDwStages = 3;
+constexpr int kLdDw = kDwTile + 8;  // bf16 row stride of a slab
+constexpr size_t kDwSmem = (size_t)kDwStages * 2 * kDwSlab * kLdDw * sizeof(bf16);
 
 struct DwJobs {
   int n;
@@ -57,11 +66,16 @@ inline int parse_jobs(const long long* t, int n_jobs, DwJobs* j) {
   return 0;
 }
 
-// 8 warps; the 64 x 64 tile is 4 x 4 WMMA tiles: warp w takes column tile
-// w % 4 and row tiles w / 4 and w / 4 + 2, so it loads each B fragment once
-// for two products.
+// 8 warps; the 128 x 128 tile is 8 x 8 WMMA tiles: warp w takes rows
+// 64 (w / 4) .. +64 (4 row tiles) and columns 32 (w % 4) .. +32 (2 column
+// tiles), so each 16-row step loads 4 A and 2 B fragments for 8 products.
+// Rows past the chunk, and columns past ka or nb, are never loaded: ka, nb
+// and the chunk are multiples of 16, so a fragment is wholly inside or
+// wholly outside, and the ones outside are skipped.
 __global__ void __launch_bounds__(256)
     dw_partial_kernel(const bf16* __restrict__ scratch, float* __restrict__ part, const DwJobs jobs, int split) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);  // [stage][A slab, B slab][kDwSlab][kLdDw]
   const int tile = blockIdx.x, s = blockIdx.y;
   int j = 0;
   while (j + 1 < jobs.n && tile >= jobs.tile_start[j + 1]) ++j;
@@ -70,36 +84,70 @@ __global__ void __launch_bounds__(256)
   const int ka = jobs.ka[j], nb = jobs.nb[j], rows = jobs.rows[j];
   const int chunk = ((rows + split - 1) / split + 15) / 16 * 16;
   const int r0 = s * chunk, r1 = min(rows, r0 + chunk);
+  const int nsl = r1 > r0 ? (r1 - r0 + kDwSlab - 1) / kDwSlab : 0;
   const bf16* A = scratch + jobs.a_off[j];
   const bf16* B = scratch + jobs.b_off[j];
   float* C = part + (size_t)s * jobs.n_dw + jobs.c_off[j];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int kw = k0 + (warp / 4) * 64, nw = n0 + (warp % 4) * 32;
 
-  const int warp = threadIdx.x >> 5;
-  const int n_sub = n0 + (warp % 4) * 16;
-  const int k_sub[2] = {k0 + (warp / 4) * 16, k0 + (warp / 4 + 2) * 16};
-  const bool b_ok = n_sub < nb;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.0f);
-  wmma::fill_fragment(acc[1], 0.0f);
-  if (b_ok) {
-    for (int r = r0; r < r1; r += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(b, B + (size_t)r * nb + n_sub, nb);
+  // Slab q: rows r0 + 64 q .. of A's columns k0.. and B's columns n0..,
+  // 16 copies of 16 bytes per row and operand.
+  auto load = [&](int q) {
+    bf16* As = ring + (q % kDwStages) * 2 * kDwSlab * kLdDw;
+    bf16* Bs = As + kDwSlab * kLdDw;
+    for (int idx = tid; idx < 2 * kDwSlab * (kDwTile / 8); idx += 256) {
+      const int op = idx / (kDwSlab * (kDwTile / 8)), rem = idx % (kDwSlab * (kDwTile / 8));
+      const int r = rem / (kDwTile / 8), c = (rem % (kDwTile / 8)) * 8, gr = r0 + q * kDwSlab + r;
+      if (gr >= r1) continue;
+      if (op == 0) {
+        if (k0 + c < ka) cp_async16(As + r * kLdDw + c, A + (size_t)gr * ka + k0 + c);
+      } else if (n0 + c < nb) {
+        cp_async16(Bs + r * kLdDw + c, B + (size_t)gr * nb + n0 + c);
+      }
+    }
+  };
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        if (k_sub[q] < ka) {
-          // A^T's tile: element (k, r) of A^T is A[r][k], a column-major read.
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-          wmma::load_matrix_sync(a, A + (size_t)r * ka + k_sub[q], ka);
-          wmma::mma_sync(acc[q], a, b, acc[q]);
-        }
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int f = 0; f < 2; ++f) wmma::fill_fragment(acc[i][f], 0.0f);
+#pragma unroll
+  for (int q = 0; q < kDwStages - 1; ++q) {
+    if (q < nsl) load(q);
+    cp_async_commit();
+  }
+  for (int q = 0; q < nsl; ++q) {
+    cp_async_wait<kDwStages - 2>();
+    __syncthreads();
+    if (q + kDwStages - 1 < nsl) load(q + kDwStages - 1);
+    cp_async_commit();
+    const bf16* As = ring + (q % kDwStages) * 2 * kDwSlab * kLdDw;
+    const bf16* Bs = As + kDwSlab * kLdDw;
+    for (int rr = 0; rr < kDwSlab && r0 + q * kDwSlab + rr < r1; rr += 16) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
+#pragma unroll
+      for (int f = 0; f < 2; ++f)
+        if (nw + 16 * f < nb) wmma::load_matrix_sync(b[f], Bs + rr * kLdDw + (nw - n0) + 16 * f, kLdDw);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (kw + 16 * i >= ka) continue;
+        // A^T's tile: element (k, r) of A^T is A[r][k], a column-major read.
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
+        wmma::load_matrix_sync(a, As + rr * kLdDw + (kw - k0) + 16 * i, kLdDw);
+#pragma unroll
+        for (int f = 0; f < 2; ++f)
+          if (nw + 16 * f < nb) wmma::mma_sync(acc[i][f], a, b[f], acc[i][f]);
       }
     }
   }
+  cp_async_wait<0>();
 #pragma unroll
-  for (int q = 0; q < 2; ++q)
-    if (b_ok && k_sub[q] < ka)
-      wmma::store_matrix_sync(C + (size_t)k_sub[q] * nb + n_sub, acc[q], nb, wmma::mem_row_major);
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+      if (kw + 16 * i < ka && nw + 16 * f < nb)
+        wmma::store_matrix_sync(C + (size_t)(kw + 16 * i) * nb + nw + 16 * f, acc[i][f], nb, wmma::mem_row_major);
 }
 
 __global__ void dw_reduce_kernel(const float* __restrict__ part, int split, long long n_dw, float* __restrict__ dw) {
@@ -132,8 +180,10 @@ __global__ void colsum_kernel(const float* __restrict__ part, int nrows, int nco
 inline int launch_dw_sums(const bf16* scratch, float* part_dw, float* dw, const DwJobs& jobs, int split,
                           const float* partial, int nblk, int pw, float* colsum, cudaStream_t stream) {
   if (split < 1) return (int)cudaErrorInvalidValue;
-  dw_partial_kernel<<<dim3(jobs.tile_start[jobs.n], split), 256, 0, stream>>>(scratch, part_dw, jobs, split);
-  int rc = (int)cudaGetLastError();
+  int rc = (int)cudaFuncSetAttribute(dw_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDwSmem);
+  if (rc) return rc;
+  dw_partial_kernel<<<dim3(jobs.tile_start[jobs.n], split), 256, kDwSmem, stream>>>(scratch, part_dw, jobs, split);
+  rc = (int)cudaGetLastError();
   if (rc) return rc;
   dw_reduce_kernel<<<(unsigned)((jobs.n_dw + 255) / 256), 256, 0, stream>>>(part_dw, split, jobs.n_dw, dw);
   rc = (int)cudaGetLastError();

@@ -8,61 +8,117 @@
 
 namespace nrh {
 
-inline size_t sdf_bwd_smem_bytes(const SdfMeta& m) {
-  return kTP * kLdA * sizeof(bf16) + 2 * kTP * kLdZ * sizeof(float) + 5 * kTP * kEncMax * sizeof(float) +
-         (size_t)kTP * m.gates_total * sizeof(float) + kTP * sizeof(float);
-}
+// Shared memory of the chain: the bf16 activation tile, the f32 carry tile
+// (every product writes its output there in place), the encoding, the
+// weight ring and d sdf / scale per point: 227,584 bytes, one block per SM.
+constexpr size_t kChainSmem = kChainTP * kLdA * sizeof(bf16) + kChainTP * kLdZ * sizeof(float) +
+                              kChainTP * kEncMax * sizeof(float) + kChainStages * kRingStage * sizeof(bf16) +
+                              kChainTP * sizeof(float);
+
+// f32 per point of the chain's device-memory scratch: u_i then dL/dh_i of
+// every layer (gates_total), then g_enc, its cotangent, the Tail's direct
+// cotangents and the cotangent of enc from the two sweeps (kEncMax each).
+__host__ __device__ inline int chain_row(const SdfMeta& m) { return m.gates_total + 4 * kEncMax; }
 
 __device__ __forceinline__ float gate_from_h(float h) { return 1.0f - expf(-100.0f * h); }
 
+// Four consecutive bf16 as floats, and four floats rounded to bf16, with one
+// 8-byte access (p 8-byte aligned).
+__device__ __forceinline__ void ld_bf4(const bf16* p, float* v) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  v[0] = bf(__ushort_as_bfloat16((unsigned short)(u.x & 0xffffu)));
+  v[1] = bf(__ushort_as_bfloat16((unsigned short)(u.x >> 16)));
+  v[2] = bf(__ushort_as_bfloat16((unsigned short)(u.y & 0xffffu)));
+  v[3] = bf(__ushort_as_bfloat16((unsigned short)(u.y >> 16)));
+}
+__device__ __forceinline__ void st_bf4(bf16* p, const float* v) {
+  uint2 u;
+  u.x = (unsigned)__bfloat16_as_ushort(to_bf16(v[0])) | ((unsigned)__bfloat16_as_ushort(to_bf16(v[1])) << 16);
+  u.y = (unsigned)__bfloat16_as_ushort(to_bf16(v[2])) | ((unsigned)__bfloat16_as_ushort(to_bf16(v[3])) << 16);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+__device__ __forceinline__ void ld_f4(const float* p, float* v) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+}
+__device__ __forceinline__ void st_f4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// The chain of one 64-point block.  Its elementwise passes take four
+// consecutive columns of one point per item (16-byte accesses to the
+// device-memory scratch, 8-byte ones to the stash), so each thread has a
+// few items, not dozens, of dependent global-memory round trips per pass.
 template <bool GATES>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kChainThreads)
     sdf_bwd_chain_kernel(const float* __restrict__ x, const bf16* __restrict__ stash,
                          const float* __restrict__ gsc, const float* __restrict__ ds, const float* __restrict__ df,
                          const float* __restrict__ dgx, const bf16* __restrict__ wpack,
                          const float* __restrict__ w_sdf, float* __restrict__ dx,
-                         bf16* __restrict__ scratch, float* __restrict__ partial, int n,
+                         bf16* __restrict__ scratch, float* __restrict__ cscr, float* __restrict__ partial, int n,
                          const SdfMeta m, const DwJobs jobs, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* act = reinterpret_cast<bf16*>(smem);
-  float* Z = reinterpret_cast<float*>(act + kTP * kLdA);
-  float* G = Z + kTP * kLdZ;
-  float* enc = G + kTP * kLdZ;
-  float* genc = enc + kTP * kEncMax;   // the recomputed g_enc
-  float* dgenc = genc + kTP * kEncMax;  // its cotangent (the Tail VJP)
-  float* tail = dgenc + kTP * kEncMax;  // the Tail's direct sin / cos cotangents
-  float* denc = tail + kTP * kEncMax;   // cotangent of enc from the two sweeps
-  float* U = denc + kTP * kEncMax;      // [kTP][GT]: u_i, then dL/dh_i
-  float* dss = U + (size_t)kTP * m.gates_total;  // d sdf / scale per point
+  float* G = reinterpret_cast<float*>(act + kChainTP * kLdA);
+  float* enc = G + kChainTP * kLdZ;
+  bf16* ring = reinterpret_cast<bf16*>(enc + kChainTP * kEncMax);
+  float* dss = reinterpret_cast<float*>(ring + kChainStages * kRingStage);  // d sdf / scale per point
 
   const int tid = threadIdx.x;
-  const int p0 = blockIdx.x * kTP;
+  const int p0 = blockIdx.x * kChainTP;
   const int L = m.n_layers, F = m.multi_res, d0 = m.d0, GT = m.gates_total;
   const int DL = m.d_last, DF = m.d_feat, kpf = m.kpf, npf = m.npf;
-  const size_t npad = (size_t)gridDim.x * kTP;
+  const size_t npad = (size_t)gridDim.x * kChainTP;
+  // The block's rows of the device-memory scratch: U (u_i, then dL/dh_i),
+  // genc (the recomputed g_enc), dgenc (its cotangent, the Tail VJP), tail
+  // (the Tail's direct sin / cos cotangents), denc (cotangent of enc from
+  // the two sweeps).
+  const int CW = chain_row(m);
+  float* crow = cscr + (size_t)p0 * CW;
+  auto U = [&](int p, int col) -> float* { return crow + (size_t)p * CW + col; };
+  auto genc = [&](int p, int c) -> float& { return crow[(size_t)p * CW + GT + c]; };
+  auto dgenc = [&](int p, int c) -> float& { return crow[(size_t)p * CW + GT + kEncMax + c]; };
+  auto tail = [&](int p, int c) -> float& { return crow[(size_t)p * CW + GT + 2 * kEncMax + c]; };
+  auto denc = [&](int p, int c) -> float& { return crow[(size_t)p * CW + GT + 3 * kEncMax + c]; };
   const int pw = GT + npf + 1 + 2 * kpf;
   float* prow = partial + (size_t)blockIdx.x * pw;
   auto hval = [&](int p, int col) -> float {
     return p0 + p < n ? bf(stash[(size_t)(p0 + p) * GT + col]) : 0.0f;
   };
-  // Layer gates: E recovers them from the stashed h; H reads the f32
-  // sigmoid(100 z) of its forward pass.
-  auto gval = [&](int p, int col) -> float {
-    if (GATES) return p0 + p < n ? gsc[(size_t)(p0 + p) * GT + col] : 0.0f;
-    return gate_from_h(hval(p, col));
+  // Four columns of h_i (col a multiple of 4).
+  auto hval4 = [&](int p, int col, float* v) {
+    if (p0 + p < n)
+      ld_bf4(stash + (size_t)(p0 + p) * GT + col, v);
+    else
+      v[0] = v[1] = v[2] = v[3] = 0.0f;
+  };
+  // Layer gates, four columns: E recovers them from the stashed h; H reads
+  // the f32 sigmoid(100 z) of its forward pass.
+  auto gval4 = [&](int p, int col, float* g) {
+    if (GATES) {
+      if (p0 + p < n)
+        ld_f4(gsc + (size_t)(p0 + p) * GT + col, g);
+      else
+        g[0] = g[1] = g[2] = g[3] = 0.0f;
+    } else {
+      hval4(p, col, g);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) g[k] = gate_from_h(g[k]);
+    }
   };
 
   // 0. Encoding of 3x; the cotangents.
-  for (int idx = tid; idx < kTP * kEncMax; idx += kThreads) {
+  stage_first_slabs<true>(wpack + m.w_off[L - 1], m.np_[L - 1], m.np_[L - 1], m.kp[L - 1], ring);
+  for (int idx = tid; idx < kChainTP * kEncMax; idx += kChainThreads) {
     const int p = idx / kEncMax, c = idx % kEncMax, gp = p0 + p;
     float xs[3];
     for (int d = 0; d < 3; ++d) xs[d] = gp < n ? x[gp * 3 + d] * scale : 0.0f;
     enc[idx] = c < d0 ? freq_channel(xs, nullptr, c, F, nullptr) : 0.0f;
-    genc[idx] = 0.0f;
-    denc[idx] = 0.0f;
+    genc(p, c) = 0.0f;
+    denc(p, c) = 0.0f;
   }
-  if (tid < kTP) dss[tid] = (p0 + tid < n ? ds[p0 + tid] : 0.0f) / scale;
-  for (int idx = tid; idx < kTP * DL; idx += kThreads) {
+  if (tid < kChainTP) dss[tid] = (p0 + tid < n ? ds[p0 + tid] : 0.0f) / scale;
+  for (int idx = tid; idx < kChainTP * DL; idx += kChainThreads) {
     const int p = idx / DL, c = idx % DL;
     G[p * kLdZ + c] = w_sdf[c] / scale;
   }
@@ -71,40 +127,48 @@ __global__ void __launch_bounds__(kThreads)
   // 1. The reverse sweep at the stashed h: U_i = g before layer i's gate.
   for (int i = L - 1; i >= 0; --i) {
     const int np = m.np_[i], out = m.out_dim[i], in = m.in_dim[i], kp = m.kp[i], goff = m.b_off[i];
-    for (int idx = tid; idx < kTP * np; idx += kThreads) {
-      const int p = idx / np, c = idx % np;
-      const float u = c < out ? G[p * kLdZ + c] : 0.0f;
-      const float gate = c < out ? gval(p, goff + c) : 0.0f;
-      U[p * GT + goff + c] = u;
-      act[p * kLdA + c] = to_bf16(u * gate);
+    if (i < L - 1) stage_first_slabs<true>(wpack + m.w_off[i], np, np, kp, ring);
+    for (int idx = tid; idx < kChainTP * (np / 4); idx += kChainThreads) {
+      const int p = idx / (np / 4), c = (idx % (np / 4)) * 4;
+      float u[4], gate[4], t[4];
+      ld_f4(G + p * kLdZ + c, u);
+      gval4(p, goff + c, gate);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (c + k >= out) u[k] = gate[k] = 0.0f;
+        t[k] = u[k] * gate[k];
+      }
+      st_f4(U(p, goff + c), u);
+      st_bf4(act + p * kLdA + c, t);
     }
+    gemm_rows64<true>(act, kLdA, wpack + m.w_off[i], np, np, kp, G, kLdZ, ring);
     __syncthreads();
-    gemm_rows16<true, kWarps>(act, kLdA, wpack + m.w_off[i], np, np, kp, Z, kLdZ);
-    __syncthreads();
-    const int split = m.skip[i] ? in - d0 : in;
-    for (int idx = tid; idx < kTP * in; idx += kThreads) {
-      const int p = idx / in, c = idx % in;
-      float v = Z[p * kLdZ + c];
-      if (m.skip[i]) v *= kInvSqrt2;
-      if (c < split)
-        G[p * kLdZ + c] = v;
-      else
-        genc[p * kEncMax + c - split] += v;
+    if (m.skip[i]) {  // elsewhere the product is already the carry
+      const int split = in - d0;
+      for (int idx = tid; idx < kChainTP * in; idx += kChainThreads) {
+        const int p = idx / in, c = idx % in;
+        const float v = G[p * kLdZ + c] * kInvSqrt2;
+        if (c < split)
+          G[p * kLdZ + c] = v;
+        else
+          genc(p, c - split) += v;
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
-  for (int idx = tid; idx < kTP * d0; idx += kThreads) {
+  for (int idx = tid; idx < kChainTP * d0; idx += kChainThreads) {
     const int p = idx / d0, c = idx % d0;
-    genc[p * kEncMax + c] += G[p * kLdZ + c];
+    genc(p, c) += G[p * kLdZ + c];
   }
   __syncthreads();
 
   // 2. The Tail VJP: gx = (g_enc[:3] + sum_f dS_f 2^f) * scale with
   // dS = g_sin cos_b - g_cos sin_b.
-  for (int idx = tid; idx < kTP * d0; idx += kThreads) {
+  stage_first_slabs<false>(wpack + m.w_off[0], m.np_[0], m.kp[0], m.np_[0], ring);
+  for (int idx = tid; idx < kChainTP * d0; idx += kChainThreads) {
     const int p = idx / d0, c = idx % d0, gp = p0 + p;
     const float* e = enc + p * kEncMax;
-    const float* ge = genc + p * kEncMax;
+    const float* ge = &genc(p, 0);
     float dg = 0.0f, tv = 0.0f;
     if (c < 3) {
       dg = (gp < n ? dgx[gp * 3 + c] : 0.0f) * scale;
@@ -119,8 +183,8 @@ __global__ void __launch_bounds__(kThreads)
         tv = cdS * ge[3 + jj];
       }
     }
-    dgenc[p * kEncMax + c] = dg;
-    tail[p * kEncMax + c] = tv;
+    dgenc(p, c) = dg;
+    tail(p, c) = tv;
     G[p * kLdZ + c] = dg;  // the ascending pass's carry starts at d g_enc
   }
   __syncthreads();
@@ -133,38 +197,45 @@ __global__ void __launch_bounds__(kThreads)
     const int split = m.skip[i] ? in - d0 : in;
     bf16* Aop = scratch + jobs.a_off[i];
     bf16* Bop = scratch + jobs.b_off[i];
-    for (int idx = tid; idx < kTP * kp; idx += kThreads) {
-      const int p = idx / kp, c = idx % kp;
-      float v = 0.0f;
-      if (c < in) {
-        if (m.skip[i])
-          v = (c < split ? G[p * kLdZ + c] : dgenc[p * kEncMax + c - split]) * kInvSqrt2;
-        else
-          v = G[p * kLdZ + c];
+    if (i > 0) stage_first_slabs<false>(wpack + m.w_off[i], np, kp, np, ring);
+    for (int idx = tid; idx < kChainTP * (kp / 4); idx += kChainThreads) {
+      const int p = idx / (kp / 4), c = (idx % (kp / 4)) * 4;
+      float v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int ck = c + k;
+        v[k] = 0.0f;
+        if (ck < in && p0 + p < n) {
+          if (m.skip[i])
+            v[k] = (ck < split ? G[p * kLdZ + ck] : dgenc(p, ck - split)) * kInvSqrt2;
+          else
+            v[k] = G[p * kLdZ + ck];
+        }
       }
-      const bf16 vb = to_bf16(p0 + p < n ? v : 0.0f);
-      act[p * kLdA + c] = vb;
-      Aop[(size_t)(p0 + p) * kp + c] = vb;
+      st_bf4(act + p * kLdA + c, v);
+      st_bf4(Aop + (size_t)(p0 + p) * kp + c, v);
     }
-    for (int idx = tid; idx < kTP * np; idx += kThreads) {
-      const int p = idx / np, c = idx % np;
-      const float t = c < out ? U[p * GT + goff + c] * gval(p, goff + c) : 0.0f;
-      Bop[(size_t)(p0 + p) * np + c] = to_bf16(p0 + p < n ? t : 0.0f);
-    }
+    gemm_rows64<false>(act, kLdA, wpack + m.w_off[i], np, kp, np, G, kLdZ, ring);
     __syncthreads();
-    gemm_rows16<false, kWarps>(act, kLdA, wpack + m.w_off[i], np, kp, np, Z, kLdZ);
-    __syncthreads();
-    for (int idx = tid; idx < kTP * np; idx += kThreads) {
-      const int p = idx / np, c = idx % np;
-      float dh = 0.0f, carry = 0.0f;
-      if (c < out) {
-        const float dt = Z[p * kLdZ + c];
-        const float gate = gval(p, goff + c);
-        dh = dt * U[p * GT + goff + c] * (100.0f * (1.0f - gate));
-        carry = dt * gate;
+    // t_i (dW_i's first B operand) from the same u_i and gates.
+    for (int idx = tid; idx < kChainTP * (np / 4); idx += kChainThreads) {
+      const int p = idx / (np / 4), c = (idx % (np / 4)) * 4;
+      float dt[4], u[4], gate[4], t[4], dh[4], carry[4];
+      ld_f4(G + p * kLdZ + c, dt);
+      ld_f4(U(p, goff + c), u);
+      gval4(p, goff + c, gate);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        t[k] = dh[k] = carry[k] = 0.0f;
+        if (c + k < out) {
+          if (p0 + p < n) t[k] = u[k] * gate[k];
+          dh[k] = dt[k] * u[k] * (100.0f * (1.0f - gate[k]));
+          carry[k] = dt[k] * gate[k];
+        }
       }
-      U[p * GT + goff + c] = dh;
-      G[p * kLdZ + c] = carry;
+      st_bf4(Bop + (size_t)(p0 + p) * np + c, t);
+      st_f4(U(p, goff + c), dh);
+      st_f4(G + p * kLdZ + c, carry);
     }
     __syncthreads();
   }
@@ -173,49 +244,67 @@ __global__ void __launch_bounds__(kThreads)
   // / scale by the caller), h_L . bf16(ds / scale), d b_sdf, d b_feat.
   const int o_bf = GT, o_bs = GT + npf, o_hds = GT + npf + 1, o_carry = o_hds + kpf;
   const int lgoff = m.b_off[L - 1];
-  for (int c = tid; c < kpf; c += kThreads) {
+  stage_first_slabs<true>(wpack + m.wf_off, npf, npf, kpf, ring);
+  for (int c = tid; c < kpf; c += kChainThreads) {
     float sc = 0.0f, sh = 0.0f;
-    if (c < DL)
-      for (int p = 0; p < kTP; ++p) {
+    if (c < DL) {
+#pragma unroll 8
+      for (int p = 0; p < kChainTP; ++p) {
         sc += G[p * kLdZ + c];
         sh += bf(to_bf16(hval(p, lgoff + c))) * bf(to_bf16(dss[p]));
       }
+    }
     prow[o_carry + c] = sc;
     prow[o_hds + c] = sh;
   }
-  for (int c = tid; c < npf; c += kThreads) {
+  for (int c = tid; c < npf; c += kChainThreads) {
     float s = 0.0f;
-    if (c < DF)
-      for (int p = 0; p < kTP; ++p) s += p0 + p < n ? df[(size_t)(p0 + p) * DF + c] : 0.0f;
+    if (c < DF) {
+#pragma unroll 8
+      for (int p = 0; p < kChainTP; ++p) s += p0 + p < n ? df[(size_t)(p0 + p) * DF + c] : 0.0f;
+    }
     prow[o_bf + c] = s;
   }
   if (tid == 0) {
     float s = 0.0f;
-    for (int p = 0; p < kTP; ++p) s += dss[p];
+    for (int p = 0; p < kChainTP; ++p) s += dss[p];
     prow[o_bs] = s;
   }
   {
     bf16* Aop = scratch + jobs.a_off[L];
     bf16* Bop = scratch + jobs.b_off[L];
-    for (int idx = tid; idx < kTP * kpf; idx += kThreads) {
-      const int p = idx / kpf, c = idx % kpf;
-      Aop[(size_t)(p0 + p) * kpf + c] = to_bf16(c < DL ? hval(p, lgoff + c) : 0.0f);
+    for (int idx = tid; idx < kChainTP * (kpf / 4); idx += kChainThreads) {
+      const int p = idx / (kpf / 4), c = (idx % (kpf / 4)) * 4;
+      float h[4];
+      hval4(p, lgoff + c, h);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (c + k >= DL) h[k] = 0.0f;
+      st_bf4(Aop + (size_t)(p0 + p) * kpf + c, h);
     }
-    for (int idx = tid; idx < kTP * npf; idx += kThreads) {
-      const int p = idx / npf, c = idx % npf;
-      const bf16 v = to_bf16(c < DF && p0 + p < n ? df[(size_t)(p0 + p) * DF + c] : 0.0f);
-      Bop[(size_t)(p0 + p) * npf + c] = v;
-      act[p * kLdA + c] = v;
+    for (int idx = tid; idx < kChainTP * (npf / 4); idx += kChainThreads) {
+      const int p = idx / (npf / 4), c = (idx % (npf / 4)) * 4;
+      float v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = c + k < DF && p0 + p < n ? df[(size_t)(p0 + p) * DF + c + k] : 0.0f;
+      st_bf4(Bop + (size_t)(p0 + p) * npf + c, v);
+      st_bf4(act + p * kLdA + c, v);
     }
   }
-  __syncthreads();
   // dh_L = bf16(ds/scale) bf16(w_sdf) + df W_feat^T, then + dL/dh_{L-1}.
-  gemm_rows16<true, kWarps>(act, kLdA, wpack + m.wf_off, npf, npf, kpf, Z, kLdZ);
+  // The carry's column sums above read G before the product overwrites it.
+  gemm_rows64<true>(act, kLdA, wpack + m.wf_off, npf, npf, kpf, G, kLdZ, ring);
   __syncthreads();
-  for (int idx = tid; idx < kTP * m.np_[L - 1]; idx += kThreads) {
-    const int p = idx / m.np_[L - 1], c = idx % m.np_[L - 1];
-    G[p * kLdZ + c] = c < DL ? bf(to_bf16(dss[p])) * bf(to_bf16(w_sdf[c])) + Z[p * kLdZ + c] + U[p * GT + lgoff + c]
-                             : 0.0f;
+  stage_first_slabs<true>(wpack + m.w_off[L - 1], m.np_[L - 1], m.np_[L - 1], m.kp[L - 1], ring);
+  for (int idx = tid; idx < kChainTP * (m.np_[L - 1] / 4); idx += kChainThreads) {
+    const int p = idx / (m.np_[L - 1] / 4), c = (idx % (m.np_[L - 1] / 4)) * 4;
+    float z[4], u[4], g[4];
+    ld_f4(G + p * kLdZ + c, z);
+    ld_f4(U(p, lgoff + c), u);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      g[k] = c + k < DL ? bf(to_bf16(dss[p])) * bf(to_bf16(w_sdf[c + k])) + z[k] + u[k] : 0.0f;
+    st_f4(G + p * kLdZ + c, g);
   }
   __syncthreads();
 
@@ -227,57 +316,83 @@ __global__ void __launch_bounds__(kThreads)
     const int poff = i > 0 ? m.b_off[i - 1] : 0;
     bf16* Aop = scratch + jobs.a_off[i] + npad * kp;
     bf16* Bop = scratch + jobs.b_off[i] + npad * np;
-    for (int idx = tid; idx < kTP * np; idx += kThreads) {
-      const int p = idx / np, c = idx % np;
-      const float gz = c < out ? G[p * kLdZ + c] * gval(p, goff + c) : 0.0f;
-      Z[p * kLdZ + c] = gz;
-      const bf16 gb = to_bf16(gz);
-      act[p * kLdA + c] = gb;
-      Bop[(size_t)(p0 + p) * np + c] = gb;
+    for (int idx = tid; idx < kChainTP * (np / 4); idx += kChainThreads) {
+      const int p = idx / (np / 4), c = (idx % (np / 4)) * 4;
+      float g[4], gate[4], gz[4];
+      ld_f4(G + p * kLdZ + c, g);
+      gval4(p, goff + c, gate);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) gz[k] = c + k < out ? g[k] * gate[k] : 0.0f;
+      st_f4(G + p * kLdZ + c, gz);
+      st_bf4(act + p * kLdA + c, gz);
+      st_bf4(Bop + (size_t)(p0 + p) * np + c, gz);
     }
-    for (int idx = tid; idx < kTP * kp; idx += kThreads) {
-      const int p = idx / kp, c = idx % kp;
-      float v = 0.0f;
+    for (int idx = tid; idx < kChainTP * (kp / 4); idx += kChainThreads) {
+      const int p = idx / (kp / 4), c = (idx % (kp / 4)) * 4;
+      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       if (p0 + p < n) {
-        if (i == 0)
-          v = c < d0 ? enc[p * kEncMax + c] : 0.0f;
-        else if (m.skip[i])
-          v = (c < split ? hval(p, poff + c) : (c < in ? enc[p * kEncMax + c - split] : 0.0f)) * kInvSqrt2;
-        else
-          v = c < in ? hval(p, poff + c) : 0.0f;
+        if (i > 0 && !m.skip[i] && c + 4 <= in) {
+          hval4(p, poff + c, v);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int ck = c + k;
+            if (i == 0)
+              v[k] = ck < d0 ? enc[p * kEncMax + ck] : 0.0f;
+            else if (m.skip[i])
+              v[k] = (ck < split ? hval(p, poff + ck) : (ck < in ? enc[p * kEncMax + ck - split] : 0.0f)) * kInvSqrt2;
+            else
+              v[k] = ck < in ? hval(p, poff + ck) : 0.0f;
+          }
+        }
       }
-      Aop[(size_t)(p0 + p) * kp + c] = to_bf16(v);
+      st_bf4(Aop + (size_t)(p0 + p) * kp + c, v);
     }
     __syncthreads();
-    for (int c = tid; c < np; c += kThreads) {
+    for (int c = tid; c < np; c += kChainThreads) {
       float s = 0.0f;
-      for (int p = 0; p < kTP; ++p) s += Z[p * kLdZ + c];
+#pragma unroll 8
+      for (int p = 0; p < kChainTP; ++p) s += G[p * kLdZ + c];
       prow[goff + c] = s;
     }
+    gemm_rows64<true>(act, kLdA, wpack + m.w_off[i], np, np, kp, G, kLdZ, ring);
     __syncthreads();
-    gemm_rows16<true, kWarps>(act, kLdA, wpack + m.w_off[i], np, np, kp, Z, kLdZ);
-    __syncthreads();
-    for (int idx = tid; idx < kTP * in; idx += kThreads) {
-      const int p = idx / in, c = idx % in;
-      float v = Z[p * kLdZ + c];
-      if (m.skip[i]) v *= kInvSqrt2;
-      if (i == 0)
-        denc[p * kEncMax + c] += v;
-      else if (c < split)
-        G[p * kLdZ + c] = v + U[p * GT + poff + c];
-      else
-        denc[p * kEncMax + c - split] += v;
+    // The next layer's first slabs (the head's product staged layer L - 1's).
+    if (i > 0) stage_first_slabs<true>(wpack + m.w_off[i - 1], m.np_[i - 1], m.np_[i - 1], m.kp[i - 1], ring);
+    if (i > 0 && !m.skip[i]) {
+      for (int idx = tid; idx < kChainTP * (kp / 4); idx += kChainThreads) {
+        const int p = idx / (kp / 4), c = (idx % (kp / 4)) * 4;
+        float z[4], u[4];
+        ld_f4(G + p * kLdZ + c, z);
+        ld_f4(U(p, poff + c), u);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) z[k] = c + k < in ? z[k] + u[k] : z[k];
+        st_f4(G + p * kLdZ + c, z);
+      }
+    } else {
+      for (int idx = tid; idx < kChainTP * in; idx += kChainThreads) {
+        const int p = idx / in, c = idx % in;
+        float v = G[p * kLdZ + c];
+        if (m.skip[i]) v *= kInvSqrt2;
+        if (i == 0)
+          denc(p, c) += v;
+        else if (c < split)
+          G[p * kLdZ + c] = v + *U(p, poff + c);
+        else
+          denc(p, c - split) += v;
+      }
     }
     __syncthreads();
   }
+  cp_async_wait<0>();
 
   // 5. The encoding chain -> dx.
-  for (int idx = tid; idx < kTP * 3; idx += kThreads) {
+  for (int idx = tid; idx < kChainTP * 3; idx += kChainThreads) {
     const int p = idx / 3, d = idx % 3;
     if (p0 + p >= n) continue;
     const float* e = enc + p * kEncMax;
-    const float* de = denc + p * kEncMax;
-    const float* tv = tail + p * kEncMax;
+    const float* de = &denc(p, 0);
+    const float* tv = &tail(p, 0);
     float acc = 0.0f;
     for (int f = 0; f < F; ++f) {
       const int j = 3 + d * F + f;
@@ -295,15 +410,15 @@ __global__ void __launch_bounds__(kThreads)
 template <bool GATES>
 inline int launch_sdf_bwd(const float* x, const bf16* stash, const float* gsc, const float* ds, const float* df,
                           const float* dgx, const bf16* wpack, const float* w_sdf, float* dx, bf16* scratch,
-                          float* partial, float* colsum, float* part_dw, float* dw, const SdfMeta& m,
+                          float* cscr, float* partial, float* colsum, float* part_dw, float* dw, const SdfMeta& m,
                           const DwJobs& jobs, int split, int n, float scale, cudaStream_t stream) {
-  const size_t smem = sdf_bwd_smem_bytes(m);
+  const size_t smem = kChainSmem;
   int rc = (int)cudaFuncSetAttribute(sdf_bwd_chain_kernel<GATES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                      (int)smem);
   if (rc) return rc;
-  const int nblk = (n + kTP - 1) / kTP;
-  sdf_bwd_chain_kernel<GATES><<<nblk, kThreads, smem, stream>>>(x, stash, gsc, ds, df, dgx, wpack, w_sdf, dx,
-                                                                 scratch, partial, n, m, jobs, scale);
+  const int nblk = (n + kChainTP - 1) / kChainTP;
+  sdf_bwd_chain_kernel<GATES><<<nblk, kChainThreads, smem, stream>>>(x, stash, gsc, ds, df, dgx, wpack, w_sdf, dx,
+                                                                 scratch, cscr, partial, n, m, jobs, scale);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   const int pw = m.gates_total + m.npf + 1 + 2 * m.kpf;

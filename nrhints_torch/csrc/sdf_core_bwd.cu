@@ -18,10 +18,9 @@
 // (60.1 GFLOP), about 378 GFLOP: 0.38 ms at 989 TFLOP/s bf16.  It must read
 // x and the cotangents (68 MB) and write dx and dW: bound by operations.
 //
-// Design.  E's per-point chain already keeps every layer's u_i in shared
-// memory (129 KB for 16 points); holding the recomputed gates beside it
-// (another 129 KB in f32) would not fit the 227 KB a block may use.  So H
-// is two stages in one launcher, with a transient scratch that the wrapper
+// Design.  E's per-point chain fills the shared memory of a 64-point block
+// (228 KB); holding the recomputed gates beside its tiles would not fit
+// the 227 KB a block may use.  So H is two stages in one launcher, with a transient scratch that the wrapper
 // allocates for this call only and frees when it returns:
 //   H1 (sdf_fwd.cuh, kFwdRecompute): kernel A's layer loop on 16-point
 //      blocks, writing every h_i in bf16 (the value every dot of the
@@ -41,9 +40,9 @@ using namespace nrh;
 
 extern "C" int sdf_core_bwd(const float* x, const float* ds, const float* df, const float* dgx,
                             const void* wpack, const float* bpack, const float* w_sdf, void* hs, float* gates,
-                            float* dx, void* scratch, float* partial, float* colsum, float* part_dw, float* dw,
-                            const long long* jobs, int n_jobs, int split, int n, const int* meta, float scale,
-                            void* stream) {
+                            float* dx, void* scratch, float* cscr, float* partial, float* colsum, float* part_dw,
+                            float* dw, const long long* jobs, int n_jobs, int split, int n, const int* meta,
+                            float scale, void* stream) {
   SdfMeta m;
   DwJobs J;
   int rc = parse_sdf_bwd(meta, jobs, n_jobs, &m, &J);
@@ -53,7 +52,7 @@ extern "C" int sdf_core_bwd(const float* x, const float* ds, const float* df, co
                                      gates, n, m, scale, s);
   if (rc) return rc;
   return launch_sdf_bwd<true>(x, (const bf16*)hs, gates, ds, df, dgx, (const bf16*)wpack, w_sdf, dx,
-                              (bf16*)scratch, partial, colsum, part_dw, dw, m, J, split, n, scale, s);
+                              (bf16*)scratch, cscr, partial, colsum, part_dw, dw, m, J, split, n, scale, s);
 }
 
 extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

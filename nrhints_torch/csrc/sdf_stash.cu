@@ -20,18 +20,29 @@
 //
 // Design.  Two stages, one launch each (plus the in-order sums of
 // dw_sum.cuh):
-//   E1 (this file) takes TP = 16 points per block and runs their whole
-//   chain in shared memory: u_i of every layer (f32, 129 KB at full width)
-//   stays there and is overwritten in place by dL/dh_i once the ascending
-//   pass has used it; the per-layer products are bf16 WMMA on 16-row tiles,
-//   the weights read from L2 as in kernel A.  It writes dx, and for every
-//   layer the operands of dW_i = v_i^T t_i + inp_i^T Gz_i as one
+//   E1 (sdf_bwd.cuh) takes kChainTP = 64 points per 16-warp block.  The
+//   activation and carry tiles and the encoding stay in shared memory;
+//   each product writes its output into the carry tile in place.  u_i of
+//   every layer, overwritten by dL/dh_i once the ascending pass has used
+//   it, and the four f32 encoding cotangents live in a per-point f32
+//   scratch in device memory (gates_total + 256 floats a point: 596 MB at
+//   65,536 points at full width, allocated by the wrapper for the call);
+//   the elementwise passes move it four columns per item, 16 bytes at a
+//   time.  Each per-layer product is staged_mma.cuh::gemm_rows64: the
+//   weights stream through a three-stage shared-memory ring in 64-row
+//   slabs filled by cp.async, shared by all 16 warps, so a weight byte
+//   fetched from L2 serves 64 points (about 3.2 GB of L2 weight reads per
+//   step, where 16-point blocks read 12.6 GB); a product's first two slabs
+//   are requested before the elementwise pass that precedes it.  227,584
+//   bytes of shared memory: one block per SM.  It writes dx, and for
+//   every layer the operands of dW_i = v_i^T t_i + inp_i^T Gz_i as one
 //   [2 Npad, kp] x [2 Npad, np] bf16 pair (the reference rounds exactly
 //   these operands to bf16, so nothing is lost), and per-block f32 column
 //   sums (bias cotangents, the sdf head's column).
 //   E2 (dw_sum.cuh) computes the products with K = 2 Npad split into row
-//   chunks and sums the chunks and the column sums in a fixed order: no
-//   atomics, so the gradients repeat bit for bit.
+//   chunks, on 128 x 128 output tiles staged through shared memory, and
+//   sums the chunks and the column sums in a fixed order: no atomics, so
+//   the gradients repeat bit for bit.
 // The ragged edge is masked: rows past N read zeros, store nothing to dx,
 // and contribute zeros to every sum.  The chain lives in sdf_bwd.cuh, where
 // kernel H (sdf_core_bwd.cu) runs it with its own f32 gates.
@@ -41,7 +52,7 @@ using namespace nrh;
 
 extern "C" int sdf_stash_bwd(const float* x, const void* stash, const float* ds, const float* df,
                              const float* dgx, const void* wpack, const float* w_sdf, float* dx,
-                             void* scratch, float* partial, float* colsum, float* part_dw, float* dw,
+                             void* scratch, float* cscr, float* partial, float* colsum, float* part_dw, float* dw,
                              const long long* jobs, int n_jobs, int split, int n, const int* meta,
                              float scale, void* stream) {
   SdfMeta m;
@@ -49,7 +60,7 @@ extern "C" int sdf_stash_bwd(const float* x, const void* stash, const float* ds,
   const int rc = parse_sdf_bwd(meta, jobs, n_jobs, &m, &J);
   if (rc || n <= 0) return rc;
   return launch_sdf_bwd<false>(x, (const bf16*)stash, nullptr, ds, df, dgx, (const bf16*)wpack, w_sdf, dx,
-                               (bf16*)scratch, partial, colsum, part_dw, dw, m, J, split, n, scale,
+                               (bf16*)scratch, cscr, partial, colsum, part_dw, dw, m, J, split, n, scale,
                                (cudaStream_t)stream);
 }
 

@@ -1,0 +1,129 @@
+// The staged bf16 products of the SDF core's backward chain (sdf_bwd.cuh,
+// kernels E and H) and of the weight-cotangent passes (dw_sum.cuh, kernels
+// E, G, H and J): operands copied into shared memory by cp.async (16-byte
+// copies, a ring of stages, the next slabs in flight while the warps run
+// WMMA on the current one), fragments read from shared memory only.
+//
+// gemm_rows64 is the chain's product: C[64, N] = A[64, K] @ B for a
+// 64-point block of kChainThreads threads whose bf16 activations A already
+// lie in shared memory.  The weight B streams through a kChainStages-stage
+// ring in k-slabs of kSlab rows, shared by all 16 warps: a weight byte
+// fetched from L2 serves 64 points.  Warp w owns rows 32 (w / 8) .. +32 and
+// columns 32 (w % 8) .. +32 of C: 2 x 2 accumulator tiles, so each k-step
+// loads 2 A and 2 B fragments for 4 products.  The caller issues the first
+// slabs (stage_first_slabs) before the elementwise work that precedes the
+// product, so their copies overlap it.
+#pragma once
+
+#include "sdf_mlp.cuh"
+
+namespace nrh {
+
+constexpr int kChainTP = 64;         // points per block of the backward chain (kernels E and H)
+constexpr int kChainThreads = 512;   // threads per block of the chain
+constexpr int kSlab = 64;            // k-rows of a weight slab in the chain's ring
+constexpr int kChainStages = 3;      // slabs in the ring
+constexpr int kLdWs = kWMax + 8;     // bf16 row stride of a [kSlab][N] slab (row-major B)
+constexpr int kLdWt = kSlab + 8;     // bf16 row stride of an [N][kSlab] slab (the transposed B)
+constexpr int kRingStage = kSlab * kLdWs > kWMax * kLdWt ? kSlab * kLdWs : kWMax * kLdWt;
+
+// 16 bytes global -> shared, zero-filled when !full (the source is then not
+// read).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full = true) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Issue (and commit, as one group) the copy of k-slab s of B into ring
+// stage s % kChainStages; an empty group when s is past K.
+template <bool TRANS_B>
+__device__ __forceinline__ void stage_slab(const bf16* __restrict__ B, int ldb, int K, int N, bf16* ring, int s) {
+  const int tid = threadIdx.x, k0 = s * kSlab;
+  bf16* dst = ring + (s % kChainStages) * kRingStage;
+  if (k0 < K) {
+    if (TRANS_B) {
+      for (int idx = tid; idx < N * (kSlab / 8); idx += kChainThreads) {
+        const int n = idx / (kSlab / 8), c = (idx % (kSlab / 8)) * 8;
+        if (k0 + c < K) cp_async16(dst + n * kLdWt + c, B + (size_t)n * ldb + k0 + c);
+      }
+    } else {
+      const int cpr = N / 8;
+      for (int idx = tid; idx < kSlab * cpr; idx += kChainThreads) {
+        const int r = idx / cpr, c = (idx % cpr) * 8;
+        if (k0 + r < K) cp_async16(dst + r * kLdWs + c, B + (size_t)(k0 + r) * ldb + c);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// The first kChainStages - 1 slabs of a product; the ring must be free (the
+// previous gemm_rows64 has returned on every thread).
+template <bool TRANS_B>
+__device__ __forceinline__ void stage_first_slabs(const bf16* __restrict__ B, int ldb, int K, int N, bf16* ring) {
+#pragma unroll
+  for (int s = 0; s < kChainStages - 1; ++s) stage_slab<TRANS_B>(B, ldb, K, N, ring, s);
+}
+
+// C[64, N] = A[64, K] @ B after stage_first_slabs with the same arguments;
+// K and N are multiples of 16, at most kWMax.  B is the [K, N] row-major
+// weight (TRANS_B = false) or the transpose of an [N, K] row-major weight
+// with row stride ldb (TRANS_B = true; a slab is then N rows of kSlab
+// columns, read as column-major fragments).  Every thread must call it.  It
+// begins with a barrier (so A may be written just before) and returns with
+// the ring free; C is complete after the caller's next __syncthreads().
+template <bool TRANS_B>
+__device__ void gemm_rows64(const bf16* A, int lda, const bf16* __restrict__ B, int ldb, int K, int N, float* C,
+                            int ldc, bf16* ring) {
+  const int warp = threadIdx.x >> 5;
+  const int r0 = (warp / 8) * 32, c0 = (warp % 8) * 32;
+  const int nslab = (K + kSlab - 1) / kSlab;
+  using LayoutB = typename std::conditional<TRANS_B, wmma::col_major, wmma::row_major>::type;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int f = 0; f < 2; ++f) wmma::fill_fragment(acc[i][f], 0.0f);
+  for (int s = 0; s < nslab; ++s) {
+    cp_async_wait<kChainStages - 2>();
+    __syncthreads();
+    stage_slab<TRANS_B>(B, ldb, K, N, ring, s + kChainStages - 1);
+    const bf16* W = ring + (s % kChainStages) * kRingStage;
+    for (int kk = 0; kk < kSlab && s * kSlab + kk < K; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], A + (r0 + 16 * i) * lda + s * kSlab + kk, lda);
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        const int col = c0 + 16 * f;
+        if (col < N) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> b;
+          if (TRANS_B)
+            wmma::load_matrix_sync(b, W + col * kLdWt + kk, kLdWt);
+          else
+            wmma::load_matrix_sync(b, W + kk * kLdWs + col, kLdWs);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][f], a[i], b, acc[i][f]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int f = 0; f < 2; ++f) {
+    const int col = c0 + 16 * f;
+    if (col < N)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::store_matrix_sync(C + (r0 + 16 * i) * ldc + col, acc[i][f], ldc, wmma::mem_row_major);
+  }
+}
+
+}  // namespace nrh

@@ -236,7 +236,19 @@ def require_cuda(t: torch.Tensor, shape: tuple, name: str, dtype=torch.float32) 
 
 
 TP = 16  # points per block of the SDF and trunk kernels (the rows of one WMMA tile)
+CHAIN_TP = 64  # points per block of the SDF backward chain of kernels E and H (csrc/staged_mma.cuh::kChainTP)
+ENC_MAX = 64  # widest padded frequency encoding (csrc/sdf_mlp.cuh::kEncMax)
 MAX_SPLIT = 16  # row chunks of the weight-cotangent products
+
+
+def chain_layout(n: int, gates_total: int) -> tuple[int, int, int]:
+    """-> (blocks, padded points, f32 elements of the device-memory scratch)
+    of the SDF backward chain at n points: per point u_i then dL/dh_i of
+    every layer (``gates_total``), and four f32 encoding cotangents of
+    ``ENC_MAX`` each.  The per-block column sums have one row per block."""
+    nblk = -(-n // CHAIN_TP)
+    npad = nblk * CHAIN_TP
+    return nblk, npad, npad * (gates_total + 4 * ENC_MAX)
 
 
 def materialize_mlp_weights(params: dict, n_layers: int) -> tuple:
@@ -336,10 +348,12 @@ def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, 
     ``sdf_core_bwd_plain``'s: kernel E at the bf16 ``stash`` of kernel D, or,
     with ``stash=None``, kernel H, which first recomputes the layers into a
     scratch of its own (bf16 h_i and f32 gates, freed when this returns).
-    Both run the per-point chain (dx, the dW operands in bf16 scratch,
-    per-block f32 column sums of the bias cotangents), the split-K dW
-    products and the in-order sums of the partials (no atomics: the
-    gradients repeat bit for bit)."""
+    Both run the per-point chain on 64-point blocks (dx, the dW operands in
+    bf16 scratch, per-block f32 column sums of the bias cotangents, and u_i
+    and the encoding cotangents in an f32 scratch of ``chain_layout``'s
+    size, freed when this returns), the split-K dW products and the
+    in-order sums of the partials (no atomics: the gradients repeat bit for
+    bit)."""
     ds, df, dgx = cots
     n, dev = x.shape[0], x.device
     pk = pack_sdf_mlp(weights, cfg, with_feat=True) if pk is None else pk
@@ -351,8 +365,7 @@ def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, 
     require_cuda(ds, (n,), "d_sdf")
     require_cuda(df, (n, d_feat), "d_feat")
     require_cuda(dgx, (n, 3), "d_grad")
-    nblk = -(-n // TP)
-    npad = nblk * TP
+    nblk, npad, n_chain = chain_layout(n, gt)
     layers = [tuple(int(v) for v in meta[10 + 7 * i : 17 + 7 * i]) for i in range(L)]
     jobs, n_scratch, n_dw = dw_jobs([(2 * npad, lay[2], lay[3]) for lay in layers] + [(npad, kpf, npf)])
     split = dw_split(npad)
@@ -360,13 +373,14 @@ def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, 
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty((n, 3), **f32)
     scratch = torch.empty(n_scratch, dtype=torch.bfloat16, device=dev)
+    chain = torch.empty(n_chain, **f32)
     partial = torch.empty((nblk, pw), **f32)
     colsum = torch.empty(pw, **f32)
     part_dw = torch.empty((split, n_dw), **f32)
     dw = torch.empty(n_dw, **f32)
-    tail = (dx.data_ptr(), scratch.data_ptr(), partial.data_ptr(), colsum.data_ptr(), part_dw.data_ptr(),
-            dw.data_ptr(), jobs.ctypes.data, len(jobs), split, n, meta.ctypes.data, float(cfg.scale),
-            cuda_lib.stream_ptr(dev))
+    tail = (dx.data_ptr(), scratch.data_ptr(), chain.data_ptr(), partial.data_ptr(), colsum.data_ptr(),
+            part_dw.data_ptr(), dw.data_ptr(), jobs.ctypes.data, len(jobs), split, n, meta.ctypes.data,
+            float(cfg.scale), cuda_lib.stream_ptr(dev))
     if n > 0 and stash is None:
         hs = torch.empty((n, gt), dtype=torch.bfloat16, device=dev)
         gates = torch.empty((n, gt), **f32)

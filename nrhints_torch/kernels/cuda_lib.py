@@ -11,8 +11,9 @@ The wrappers in ``core_mlp.py``, ``core_stash.py`` and ``march.py`` add one to
 ``launch_counts[<kernel>]`` where they launch a kernel, and nowhere else.
 Headers (``*.cuh``) hold what several sources share: ``sdf_fwd.cuh`` the
 SDF forward of kernels A, D and H, ``sdf_bwd.cuh`` the chain of E and H,
-``dw_sum.cuh`` the dW passes of E, G, H and J, ``march_common.cuh`` the
-march machinery and sweeps of B, C, K, L, M and N.
+``dw_sum.cuh`` the dW passes of E, G, H and J, ``staged_mma.cuh`` the
+cp.async-staged products of that chain and those passes,
+``march_common.cuh`` the march machinery and sweeps of B, C, K, L, M and N.
 """
 from __future__ import annotations
 
@@ -48,8 +49,8 @@ _SIGNATURES = {
         "sdf_core_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _F, _P],
         "sdf_stash_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _F, _P],
     },
-    "sdf_stash": {"sdf_stash_bwd": [_P] * 14 + [_I, _I, _I, _P, _F, _P]},
-    "sdf_core_bwd": {"sdf_core_bwd": [_P] * 16 + [_I, _I, _I, _P, _F, _P]},
+    "sdf_stash": {"sdf_stash_bwd": [_P] * 15 + [_I, _I, _I, _P, _F, _P]},
+    "sdf_core_bwd": {"sdf_core_bwd": [_P] * 17 + [_I, _I, _I, _P, _F, _P]},
     "mlp_stash": {
         "mlp_stash_fwd": [_P, _P, _P, _P, _P, _I, _P, _P],
         "mlp_fwd": [_P, _P, _P, _P, _I, _P, _P],

@@ -174,9 +174,16 @@ def _gpu_sdf_case(cuda, cfg, n):
     return w, x, cots
 
 
+# Point counts of the SDF backward's tests: kernels E and H run their chain
+# on 64-point blocks (core_mlp.CHAIN_TP), so 63, 64 and 65 sit on the edges
+# of one and two blocks, and 4,161 = 65 x 64 + 1 has a ragged last block
+# past 4,096 points (several dW row chunks).
+SDF_BWD_N = [1, 63, 64, 65, 100, 1000, 4161]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("cfg", [SMALL, SDFNetConfig()], ids=["small", "full"])
-@pytest.mark.parametrize("n", [1, 100, 1000])
+@pytest.mark.parametrize("n", SDF_BWD_N)
 def test_sdf_stash_kernels_match_plain(cuda, cfg, n):
     """Kernel D against kernel A and the plain forward; kernel E against the
     plain backward at D's stash."""
@@ -294,7 +301,7 @@ def test_train_step_card_matches_cpu(cuda, core_backward):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("cfg", [SMALL, SDFNetConfig()], ids=["small", "full"])
-@pytest.mark.parametrize("n", [1, 100, 1000])
+@pytest.mark.parametrize("n", SDF_BWD_N)
 def test_sdf_core_bwd_matches_plain(cuda, cfg, n):
     """Kernel H against its plain version (autograd over sdf_core_plain),
     twice, bit for bit."""
@@ -349,6 +356,38 @@ def test_mlp_recompute_kernels_match_plain(cuda, dims, n):
     dws2, dx2 = core_mlp.mlp_bwd(w, x, g, n_layers)
     assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(dws, dws2))
     assert {k: cuda_lib.launch_counts[k] - before[k] for k in ("mlp_fwd", "mlp_bwd")} == {"mlp_fwd": 1, "mlp_bwd": 2}
+
+
+@pytest.mark.gpu
+def test_backward_kernels_repeat_at_full_width(cuda):
+    """At one train step's 65,536 points and full width: kernels E, G, H and
+    J give the same gradients bit for bit on a second run (fixed-order sums,
+    no atomics), and J equals G at F's stash."""
+    from nrhints_torch.fields.mlp import torch_default_linear_init
+
+    cfg = SDFNetConfig()
+    w, x, cots = _gpu_sdf_case(cuda, cfg, 65536)
+    stash = core_stash.sdf_stash_fwd(w, x, cfg)[3]
+    for run in (lambda: core_stash.sdf_stash_bwd(w, x, stash, cots, cfg),
+                lambda: core_mlp.sdf_core_bwd(w, x, cots, cfg)):
+        (dws, dx), (dws2, dx2) = run(), run()
+        assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(dws, dws2))
+    dims = (361, 256, 256, 256, 256, 3)
+    gen = torch.Generator().manual_seed(1)
+    tw = []
+    for i in range(len(dims) - 1):
+        tw += list(torch_default_linear_init(gen, dims[i], dims[i + 1], cuda))
+    rng = np.random.default_rng(6)
+    xt = torch.tensor(rng.normal(size=(65536, dims[0])).astype(np.float32), device=cuda)
+    g = torch.tensor(rng.normal(size=(65536, 3)).astype(np.float32), device=cuda)
+    _, zs = core_stash.mlp_stash_fwd(tw, xt, 4)
+    g_dws, g_dx = core_stash.mlp_stash_bwd(tw, xt, zs, g, 4)
+    g2_dws, g2_dx = core_stash.mlp_stash_bwd(tw, xt, zs, g, 4)
+    j_dws, j_dx = core_mlp.mlp_bwd(tw, xt, g, 4)
+    j2_dws, j2_dx = core_mlp.mlp_bwd(tw, xt, g, 4)
+    for a_dws, a_dx, b_dws, b_dx in ((g_dws, g_dx, g2_dws, g2_dx), (j_dws, j_dx, j2_dws, j2_dx),
+                                     (j_dws, j_dx, g_dws, g_dx)):
+        assert torch.equal(a_dx, b_dx) and all(torch.equal(a, b) for a, b in zip(a_dws, b_dws))
 
 
 @pytest.mark.gpu

@@ -24,6 +24,8 @@ Tolerances and why:
 * N (the monolithic shadow march): tau within the roadmap's shadow-map
   1e-3, as the split march.
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -557,6 +559,30 @@ def test_stash_layouts():
     pk = tcm.pack_mlp(w, 2)
     assert list(pk["meta"][:4]) == [3, 361, 3, 512]
     assert tcs.mlp_stash_columns(pk) == [(0, 256), (256, 256)]
+
+
+@pytest.mark.parametrize("n, nblk", [(1, 1), (63, 1), (64, 1), (65, 2), (4161, 66), (65536, 1024)])
+def test_sdf_bwd_chain_layout(n, nblk):
+    """The SDF backward chain's padding on 64-point blocks: padded points,
+    per-block column-sum rows, and the f32 scratch of u_i (2,016 gate
+    columns at full width) and four 64-wide encoding cotangents per padded
+    point."""
+    got_blk, npad, n_chain = tcm.chain_layout(n, 2016)
+    assert (got_blk, npad) == (nblk, nblk * 64) and npad >= n > npad - 64
+    assert n_chain == npad * (2016 + 4 * 64)
+    assert tcm.dw_split(npad) == min(16, max(1, npad // 1024))
+
+
+def test_chain_constants_match_the_headers():
+    """CHAIN_TP and ENC_MAX in Python are the constants the CUDA chain is
+    compiled with."""
+    def const(header, name):
+        m = re.search(rf"constexpr int {name} = (\d+);", (cuda_lib.CSRC / header).read_text())
+        return int(m.group(1))
+
+    assert const("staged_mma.cuh", "kChainTP") == tcm.CHAIN_TP == 64
+    assert const("sdf_mlp.cuh", "kEncMax") == tcm.ENC_MAX
+    assert const("sdf_mlp.cuh", "kTP") == tcm.TP
 
 
 # ---------------------------------------------------------------------------
