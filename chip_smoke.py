@@ -15,9 +15,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the shapes of one 512-ray chunk or train step of the full-width model,
    hold each against its plain PyTorch version on the same inputs (E, G, H
    and J also against a second run, bit for bit), and time both with CUDA
-   events beside the kernel's bound; E's chain (E1) and dW passes by device
-   time from one profiled call, each beside its own bound, and H's H1, H2
-   and dW passes the same way;
+   events beside the kernel's bound; A and D by device time from one
+   profiled call each, beside the bound and their design's byte floor; E's
+   chain (E1) and dW passes by device time from one profiled call, each
+   beside its own bound, and H's H1, H2 and dW passes the same way;
 4. eval path: render one 128x128 view of the nr-hints model (random
    weights from a fixed seed) with Evaluator.render_image on the card,
    check the outputs and that every kernel's launch count moved, then
@@ -108,8 +109,9 @@ TRAIN_STEPS, TRAIN_WARMUP = 20, 3
 RECOMPUTE_STEPS = 10
 ROUND4_STEPS = 5
 # Device-time groups of a profiled view or train step: (substring of the
-# kernel's name, group), the first match wins.  E1 and H2 are the two
-# instances of the 64-point chain of csrc/sdf_bwd.cuh.
+# kernel's name, group), the first match wins.  A, D and H1 are the three
+# instances of the 64-point forward of csrc/sdf_fwd.cuh, E1 and H2 the two
+# of the 64-point chain of csrc/sdf_bwd.cuh.
 DW_GROUP = "dW passes of E/G/H/J (dw_sum.cuh)"
 STEP_GROUPS = (
     ("sdf_core_fwd_kernel<0>", "kernel A sdf_core_fwd"), ("sdf_core_fwd_kernel<1>", "kernel D sdf_stash_fwd"),
@@ -392,6 +394,16 @@ def main() -> int:
         f"bound {a_bound:.4f} ms ({a_by}, {a_flops / 1e9:.1f} GFLOP)")
     if not a_rel <= TOL["sdf_core_fwd"]:
         raise AssertionError(f"kernel A disagrees with its plain version: rel {a_rel:.3e}")
+    # A by device time from one profiled call (the CUDA events above include
+    # the wrapper's weight packing), beside its bound and beside the byte
+    # floor of its design: its inputs and outputs, and the f32 gate scratch
+    # [padded N, gates_total] written in the forward and read back once.
+    gt = sum(-(-o_ // 16) * 16 for _, o_ in io)
+    gate_bytes = 2.0 * 4 * core_mlp.gate_layout(x.shape[0], gt)[2]
+    a_dev = profiled_groups(lambda: core_mlp.sdf_core_fwd(aw, x, scfg)).get("kernel A sdf_core_fwd", 0.0)
+    log(f"[kernel A] one profiled call, device time {a_dev:.4f} ms; bound {a_bound:.4f} ms ({a_by}); this design's "
+        f"byte floor {(a_bytes + gate_bytes) / H100_BYTES_PER_S * 1e3:.4f} ms (the {gate_bytes / 1e9:.3f} GB of the "
+        f"gate scratch written and read once with the inputs and outputs)")
 
     # C: the shadow march's final sweep, from the light to the chunk's hits.
     sd, _, grads = k_out
@@ -513,12 +525,16 @@ def main() -> int:
     d_abs, d_rel = max_err([*d_out[:3], *core_stash.split_stash(d_out[3], cols)], [*d_plain[:3], *d_plain[3]])
     d_ms = cuda_ms(lambda: core_stash.sdf_stash_fwd(aw, x, scfg), 10)
     d_plain_ms = cuda_ms(lambda: core_stash.sdf_core_fwd_hs_plain(aw, x, scfg, "bfloat16", "bfloat16"), 3, warmup=1)
-    gt = d_out[3].shape[1]
-    d_bound, d_by = bound(a_flops, n_pts * (4 * (3 + 1 + d_feat + 3) + 2 * gt) + 2 * n_w, H100_BF16_FLOPS)
+    d_bytes = n_pts * (4 * (3 + 1 + d_feat + 3) + 2 * gt) + 2 * n_w
+    d_bound, d_by = bound(a_flops, d_bytes, H100_BF16_FLOPS)
     log(f"[kernel D] sdf_stash_fwd: N={n_pts}, outputs equal kernel A's, max abs err {d_abs:.3e} (rel {d_rel:.3e}), "
         f"{d_ms:.4f} ms, plain {d_plain_ms:.4f} ms, bound {d_bound:.4f} ms ({d_by})")
     if not d_rel <= TOL["sdf_stash_fwd"]:
         raise AssertionError(f"kernel D disagrees with its plain version: rel {d_rel:.3e}")
+    d_dev = profiled_groups(lambda: core_stash.sdf_stash_fwd(aw, x, scfg)).get("kernel D sdf_stash_fwd", 0.0)
+    log(f"[kernel D] one profiled call, device time {d_dev:.4f} ms; bound {d_bound:.4f} ms ({d_by}); this design's "
+        f"byte floor {(d_bytes + gate_bytes) / H100_BYTES_PER_S * 1e3:.4f} ms (inputs, outputs, the stash and the "
+        f"gate scratch written and read once)")
 
     crng = np.random.default_rng(5)
     cots = tuple(torch.tensor(crng.normal(size=shape).astype(np.float32), device=dev)

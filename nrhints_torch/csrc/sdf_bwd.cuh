@@ -22,29 +22,6 @@ __host__ __device__ inline int chain_row(const SdfMeta& m) { return m.gates_tota
 
 __device__ __forceinline__ float gate_from_h(float h) { return 1.0f - expf(-100.0f * h); }
 
-// Four consecutive bf16 as floats, and four floats rounded to bf16, with one
-// 8-byte access (p 8-byte aligned).
-__device__ __forceinline__ void ld_bf4(const bf16* p, float* v) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  v[0] = bf(__ushort_as_bfloat16((unsigned short)(u.x & 0xffffu)));
-  v[1] = bf(__ushort_as_bfloat16((unsigned short)(u.x >> 16)));
-  v[2] = bf(__ushort_as_bfloat16((unsigned short)(u.y & 0xffffu)));
-  v[3] = bf(__ushort_as_bfloat16((unsigned short)(u.y >> 16)));
-}
-__device__ __forceinline__ void st_bf4(bf16* p, const float* v) {
-  uint2 u;
-  u.x = (unsigned)__bfloat16_as_ushort(to_bf16(v[0])) | ((unsigned)__bfloat16_as_ushort(to_bf16(v[1])) << 16);
-  u.y = (unsigned)__bfloat16_as_ushort(to_bf16(v[2])) | ((unsigned)__bfloat16_as_ushort(to_bf16(v[3])) << 16);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-__device__ __forceinline__ void ld_f4(const float* p, float* v) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-}
-__device__ __forceinline__ void st_f4(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
 // The chain of one 64-point block.  Its elementwise passes take four
 // consecutive columns of one point per item (16-byte accesses to the
 // device-memory scratch, 8-byte ones to the stash), so each thread has a

@@ -14,7 +14,8 @@
 // pallas_call at :399): A's outputs, bit for bit, plus every layer's
 // activation h_i rounded to bf16 into a packed stash [N, sum of the
 // 16-padded layer widths] that kernel E (sdf_stash.cu) reads.  It is A's
-// code with one more store per layer (sdf_fwd.cuh, MODE = kFwdStash).
+// code with one more 8-byte store per item of the layer loop (sdf_fwd.cuh,
+// MODE = kFwdStash).
 //
 // Bound on an H100: about 0.98 M multiply-adds per point (524,544 forward,
 // 458,752 reverse) = 1.97 MFLOP, so 129 GFLOP per 512-ray chunk of 65,536
@@ -23,41 +24,51 @@
 // D adds 264 MB of stash, 0.079 ms.  Both are bound by operations.
 //
 // Design.  The reverse sweep needs every layer's gate for every point:
-// 2,016 f32 per point at full width.  On the TPU they sat in VMEM for a
-// 256-point block; here a block takes TP = 16 points and keeps all their
-// gates in shared memory (129 KB), beside two bf16 activation tiles, two
-// f32 accumulator tiles and the encoding (185 KB in all, one block per
-// SM).  Eight warps compute each 16-row layer product with bf16 WMMA
-// (m16n16k16), one 16-column tile at a time, reading the weight fragments
-// straight from global memory (they stay in L2).  The reverse sweep
-// multiplies by the transposed weight through a column-major fragment, so
-// no transpose is stored.  This first version is simple, not fast: every
-// block streams all weights through L2 for only 16 points; wgmma on larger
-// point tiles, with the gates spilled to a scratch tensor, is later work.
-// The ragged edge is masked: rows past N read x = 0 and store nothing.
-// The kernel itself lives in sdf_fwd.cuh: kernel H (sdf_core_bwd.cu) runs
-// its layers as its own first pass.
+// 2,016 f32 per point at full width.  A block takes kChainTP = 64 points on
+// 512 threads, as kernel E's chain does (staged_mma.cuh).  Every product of
+// the 8 forward layers, the feature head and the 8 reverse layers runs
+// through gemm_rows64: bf16 WMMA with the weights streamed through a
+// three-stage cp.async ring of 64-row slabs in shared memory, so a weight
+// byte fetched from L2 serves 64 points and no mma waits on an L2 load; a
+// product's first slabs are requested before the elementwise pass in front
+// of it.  The reverse sweep multiplies by the transposed weight through
+// column-major fragments, so no transpose is stored.  Shared memory holds
+// one bf16 activation tile (each layer's output written in place once the
+// product that read it has returned), one f32 carry tile that every
+// product writes, the encoding and the ring: 227,328 bytes, one block per
+// SM.  The gates do not fit beside them: they stay f32, as the reference's,
+// in a device-memory scratch [padded N, 2,016] (528 MB at 65,536 points,
+// allocated per call by the wrapper, core_mlp.gate_layout), written 16
+// bytes at a time in the forward and read back so in the reverse sweep.
+// The encoding's cotangent takes the encoding tile once the forward has
+// read it for the last time; the final VJP recomputes sin and cos from x.
+// The elementwise passes take four consecutive columns of one point per
+// item.  This design's own byte floor is the gate scratch written and read
+// once, 1.06 GB (0.32 ms), above the operations' 0.130 ms.  The ragged edge
+// is masked: rows past N read x = 0 and store only their gates.  The kernel
+// itself lives in sdf_fwd.cuh: kernel H (sdf_core_bwd.cu) runs its layers
+// as its own first pass.
 #include "sdf_fwd.cuh"
 
 using namespace nrh;
 
 extern "C" int sdf_core_fwd(const float* x, const void* wpack, const float* bpack,
-                            const float* w_sdf, float* sdf, float* feat, float* gx, int n,
+                            const float* w_sdf, float* sdf, float* feat, float* gx, float* gates, int n,
                             const int* meta, float scale, void* stream) {
   SdfMeta m;
   const int rc = parse_meta(meta, &m);
   if (rc || n <= 0) return rc;
-  return launch_sdf_fwd<kFwdPlain>(x, (const bf16*)wpack, bpack, w_sdf, sdf, feat, gx, nullptr, nullptr, n, m,
+  return launch_sdf_fwd<kFwdPlain>(x, (const bf16*)wpack, bpack, w_sdf, sdf, feat, gx, nullptr, gates, n, m,
                                    scale, (cudaStream_t)stream);
 }
 
 extern "C" int sdf_stash_fwd(const float* x, const void* wpack, const float* bpack,
                              const float* w_sdf, float* sdf, float* feat, float* gx, void* stash,
-                             int n, const int* meta, float scale, void* stream) {
+                             float* gates, int n, const int* meta, float scale, void* stream) {
   SdfMeta m;
   const int rc = parse_meta(meta, &m);
   if (rc || n <= 0) return rc;
-  return launch_sdf_fwd<kFwdStash>(x, (const bf16*)wpack, bpack, w_sdf, sdf, feat, gx, (bf16*)stash, nullptr, n, m,
+  return launch_sdf_fwd<kFwdStash>(x, (const bf16*)wpack, bpack, w_sdf, sdf, feat, gx, (bf16*)stash, gates, n, m,
                                    scale, (cudaStream_t)stream);
 }
 

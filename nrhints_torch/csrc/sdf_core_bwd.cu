@@ -22,17 +22,19 @@
 // (228 KB); holding the recomputed gates beside its tiles would not fit
 // the 227 KB a block may use.  So H is two stages in one launcher, with a transient scratch that the wrapper
 // allocates for this call only and frees when it returns:
-//   H1 (sdf_fwd.cuh, kFwdRecompute): kernel A's layer loop on 16-point
-//      blocks, writing every h_i in bf16 (the value every dot of the
-//      backward reads, as kernel D's stash) and every gate in f32 to
-//      device memory; no heads and no reverse sweep.  58 KB of shared
-//      memory per block.
+//   H1 (sdf_fwd.cuh, kFwdRecompute): the layer loop of kernels A and D, on
+//      the same 64-point blocks of 512 threads, every product through the
+//      cp.async-staged gemm_rows64, writing every h_i in bf16 (the value
+//      every dot of the backward reads, as kernel D's stash) and every gate
+//      in f32 to device memory, where A keeps its own; no heads and no
+//      reverse sweep.  227,328 bytes of shared memory per block.
 //   H2 (sdf_bwd.cuh with GATES = true): kernel E's chain and its split-K dW
 //      passes (dw_sum.cuh), reading the f32 gates instead of recovering
 //      them from h.  The dW sums run in a fixed order: the gradients repeat
 //      bit for bit.
 // The scratch is 6 bytes per point per padded hidden unit (2,016 at full
-// width): 793 MB at 65,536 points (264 MB bf16 h, 528 MB f32 gates).
+// width): 793 MB at 65,536 points (264 MB bf16 h, 528 MB f32 gates on
+// core_mlp.gate_layout's padded rows).
 #include "sdf_bwd.cuh"
 #include "sdf_fwd.cuh"
 

@@ -5,182 +5,205 @@
 //   kFwdStash      those, and every layer's activation h_i rounded to bf16
 //                  into a packed stash [N, sum of the 16-padded widths]
 //                  (kernel D);
-//   kFwdRecompute  the same bf16 stash and every layer's gate
-//                  sigmoid(100 z_i) in f32 into a scratch of the same layout,
-//                  and nothing else: no heads, no reverse sweep (kernel H's
-//                  forward pass).  The gates then live in device memory, not
-//                  in shared memory, so a block needs 58 KB instead of 187.
+//   kFwdRecompute  the same bf16 stash and nothing else: no heads, no
+//                  reverse sweep (kernel H's forward pass).
+// Every mode writes every layer's gate sigmoid(100 z_i) in f32 to a
+// device-memory scratch gsc [padded N, gates_total] of the same column
+// layout (core_mlp.gate_layout); A and D read it back in their reverse
+// sweep, H in its chain (sdf_bwd.cuh).
 #pragma once
 
-#include "sdf_mlp.cuh"
+#include "staged_mma.cuh"
 
 namespace nrh {
 
 constexpr int kFwdPlain = 0, kFwdStash = 1, kFwdRecompute = 2;
 
-template <int MODE>
-inline size_t sdf_fwd_smem_bytes(const SdfMeta& m) {
-  const size_t tiles = 2 * kTP * kLdA * sizeof(bf16) + 2 * kTP * kLdZ * sizeof(float) +
-                       2 * kTP * kEncMax * sizeof(float);
-  return MODE == kFwdRecompute ? tiles : tiles + (size_t)kTP * m.gates_total * sizeof(float);
-}
+// Shared memory of the forward: the bf16 activation tile (each layer's
+// output written in place once the product that read it has returned), the
+// f32 carry tile (Z in the forward, G in the reverse sweep; every product
+// writes there), the encoding (the encoding's cotangent g_enc once the
+// forward has read it for the last time) and the weight ring: 227,328
+// bytes, one block per SM.
+constexpr size_t kFwdSmem = kChainTP * kLdA * sizeof(bf16) + kChainTP * kLdZ * sizeof(float) +
+                            kChainTP * kEncMax * sizeof(float) + kChainStages * kRingStage * sizeof(bf16);
 
+// The forward of one 64-point block: every product through gemm_rows64,
+// each product's first slabs requested before the elementwise pass in front
+// of it, the elementwise passes four columns of one point per item.
 template <int MODE>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kChainThreads)
     sdf_core_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ wpack,
                         const float* __restrict__ bpack, const float* __restrict__ w_sdf,
                         float* __restrict__ sdf_out, float* __restrict__ feat_out,
                         float* __restrict__ gx_out, bf16* __restrict__ stash, float* __restrict__ gsc,
                         int n, const SdfMeta m, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* act0 = reinterpret_cast<bf16*>(smem);
-  bf16* act1 = act0 + kTP * kLdA;
-  float* Z = reinterpret_cast<float*>(act1 + kTP * kLdA);
-  float* G = Z + kTP * kLdZ;
-  float* enc = G + kTP * kLdZ;
-  float* genc = enc + kTP * kEncMax;
-  float* gates = genc + kTP * kEncMax;  // [kTP][gates_total]; not in kFwdRecompute
+  bf16* act = reinterpret_cast<bf16*>(smem);
+  float* Z = reinterpret_cast<float*>(act + kChainTP * kLdA);
+  float* enc = Z + kChainTP * kLdZ;
+  bf16* ring = reinterpret_cast<bf16*>(enc + kChainTP * kEncMax);
 
   const int tid = threadIdx.x;
-  const int p0 = blockIdx.x * kTP;
-  const int L = m.n_layers, F = m.multi_res, d0 = m.d0;
-  const int GT = m.gates_total;
+  const int p0 = blockIdx.x * kChainTP;
+  const int L = m.n_layers, F = m.multi_res, d0 = m.d0, GT = m.gates_total;
+  float* grow = gsc + (size_t)p0 * GT;  // the block's rows of the gate scratch
 
   // Encoding of 3x, and the first layer's bf16 input.
-  for (int idx = tid; idx < kTP * kEncMax; idx += kThreads) {
+  stage_first_slabs<false>(wpack + m.w_off[0], m.np_[0], m.kp[0], m.np_[0], ring);
+  for (int idx = tid; idx < kChainTP * kEncMax; idx += kChainThreads) {
     const int p = idx / kEncMax, c = idx % kEncMax, gp = p0 + p;
     float xs[3];
     for (int d = 0; d < 3; ++d) xs[d] = gp < n ? x[gp * 3 + d] * scale : 0.0f;
     const float v = c < d0 ? freq_channel(xs, nullptr, c, F, nullptr) : 0.0f;
     enc[idx] = v;
-    genc[idx] = 0.0f;
+    if (c < m.kp[0]) act[p * kLdA + c] = to_bf16(v);
   }
-  __syncthreads();
-  for (int idx = tid; idx < kTP * m.kp[0]; idx += kThreads) {
-    const int p = idx / m.kp[0], c = idx % m.kp[0];
-    act0[p * kLdA + c] = to_bf16(c < d0 ? enc[p * kEncMax + c] : 0.0f);
-  }
-  __syncthreads();
 
   // Forward: z_i = h_{i-1} W_i + b_i; h_i = softplus(100 z_i)/100, gate_i.
-  bf16* a_in = act0;
-  bf16* a_out = act1;
-  int goff = 0;
   for (int i = 0; i < L; ++i) {
-    const int np = m.np_[i], out = m.out_dim[i];
-    gemm_rows16<false, kWarps>(a_in, kLdA, wpack + m.w_off[i], np, m.kp[i], np, Z, kLdZ);
+    const int np = m.np_[i], out = m.out_dim[i], goff = m.b_off[i];
+    gemm_rows64<false>(act, kLdA, wpack + m.w_off[i], np, m.kp[i], np, Z, kLdZ, ring);
     __syncthreads();
-    const bool next_skip = i + 1 < L && m.skip[i + 1];
-    const int kp_next = i + 1 < L ? m.kp[i + 1] : m.kpf;
-    const float* b = bpack + m.b_off[i];
-    for (int idx = tid; idx < kTP * np; idx += kThreads) {
-      const int p = idx / np, c = idx % np;
-      float gate = 0.0f, sp = 0.0f;
-      if (c < out) {
-        softplus100_gate(Z[p * kLdZ + c] + b[c], &sp, &gate);
-        a_out[p * kLdA + c] = to_bf16(next_skip ? sp * kInvSqrt2 : sp);
+    const bool last = i + 1 == L;
+    if (!last)
+      stage_first_slabs<false>(wpack + m.w_off[i + 1], m.np_[i + 1], m.kp[i + 1], m.np_[i + 1], ring);
+    else if (MODE != kFwdRecompute)
+      stage_first_slabs<false>(wpack + m.wf_off, m.npf, m.kpf, m.npf, ring);
+    // The next product's input, written over this one's: h_i (x 1/sqrt2
+    // before the skip layer), then the skip layer's encoding half (x
+    // 1/sqrt2), then zeros up to the next padded width (>= np).
+    const bool next_skip = !last && m.skip[i + 1];
+    const int w4 = (last ? m.kpf : m.kp[i + 1]) / 4;
+    const float* b = bpack + goff;
+    for (int idx = tid; idx < kChainTP * w4; idx += kChainThreads) {
+      const int p = idx / w4, c = (idx % w4) * 4;
+      float z[4] = {0.0f, 0.0f, 0.0f, 0.0f}, bb[4] = {0.0f, 0.0f, 0.0f, 0.0f}, a[4], h[4], g[4];
+      if (c < np) {
+        ld_f4(Z + p * kLdZ + c, z);
+        ld_f4(b + c, bb);
       }
-      const size_t row = (size_t)(p0 + p) * GT + goff + c;
-      if (MODE != kFwdRecompute) gates[p * GT + goff + c] = gate;
-      if (MODE != kFwdPlain && p0 + p < n) stash[row] = to_bf16(sp);
-      if (MODE == kFwdRecompute && p0 + p < n) gsc[row] = gate;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int ck = c + k;
+        h[k] = g[k] = 0.0f;
+        if (ck < out) {
+          softplus100_gate(z[k] + bb[k], &h[k], &g[k]);
+          a[k] = next_skip ? h[k] * kInvSqrt2 : h[k];
+        } else {
+          a[k] = next_skip && ck - out < d0 ? enc[p * kEncMax + ck - out] * kInvSqrt2 : 0.0f;
+        }
+      }
+      st_bf4(act + p * kLdA + c, a);
+      if (c < np) {
+        st_f4(grow + (size_t)p * GT + goff + c, g);
+        if (MODE != kFwdPlain && p0 + p < n) st_bf4(stash + (size_t)(p0 + p) * GT + goff + c, h);
+      }
     }
-    // Columns past this layer's output: the skip layer's encoding half
-    // (x 1/sqrt2), then zeros up to the next padded width.
-    const int tail = kp_next - out;
-    for (int idx = tid; idx < kTP * tail; idx += kThreads) {
-      const int p = idx / tail, c = idx % tail;
-      const float v = next_skip && c < d0 ? enc[p * kEncMax + c] * kInvSqrt2 : 0.0f;
-      a_out[p * kLdA + out + c] = to_bf16(v);
-    }
-    __syncthreads();
-    bf16* t = a_in;
-    a_in = a_out;
-    a_out = t;
-    goff += np;
   }
   if (MODE == kFwdRecompute) return;
 
   // Heads: feat = h W_feat + b_feat (WMMA); sdf = (h . w_sdf + b_sdf)/scale
-  // with both operands rounded to bf16, one warp per point.
-  gemm_rows16<false, kWarps>(a_in, kLdA, wpack + m.wf_off, m.npf, m.kpf, m.npf, Z, kLdZ);
+  // with both operands rounded to bf16, one warp per point.  The product
+  // began with a barrier, so h is complete in act.
+  gemm_rows64<false>(act, kLdA, wpack + m.wf_off, m.npf, m.kpf, m.npf, Z, kLdZ, ring);
   {
     const int warp = tid >> 5, lane = tid & 31;
     const float b_sdf = bpack[m.bf_off + m.npf];
-    for (int p = warp; p < kTP; p += kWarps) {
+    for (int p = warp; p < kChainTP; p += kChainThreads / 32) {
       float s = 0.0f;
-      for (int k = lane; k < m.d_last; k += 32) s += bf(a_in[p * kLdA + k]) * bf(to_bf16(w_sdf[k]));
+      for (int k = lane; k < m.d_last; k += 32) s += bf(act[p * kLdA + k]) * bf(to_bf16(w_sdf[k]));
       for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
       if (lane == 0 && p0 + p < n) sdf_out[p0 + p] = (s + b_sdf) / scale;
     }
   }
   __syncthreads();
-  for (int idx = tid; idx < kTP * m.d_feat; idx += kThreads) {
+
+  // The reverse sweep's first slabs; feat; g_enc = 0 in the enc tile; and
+  // layer L - 1's gated cotangent, with g = w_sdf / scale (f32, unrounded).
+  stage_first_slabs<true>(wpack + m.w_off[L - 1], m.np_[L - 1], m.np_[L - 1], m.kp[L - 1], ring);
+  for (int idx = tid; idx < kChainTP * m.d_feat; idx += kChainThreads) {
     const int p = idx / m.d_feat, c = idx % m.d_feat;
     if (p0 + p < n) feat_out[(size_t)(p0 + p) * m.d_feat + c] = Z[p * kLdZ + c] + bpack[m.bf_off + c];
   }
-  // Reverse sweep: g starts as w_sdf / scale (f32, unrounded).
-  for (int idx = tid; idx < kTP * m.d_last; idx += kThreads) {
-    const int p = idx / m.d_last, c = idx % m.d_last;
-    G[p * kLdZ + c] = w_sdf[c] / scale;
-  }
-  __syncthreads();
-  for (int i = L - 1; i >= 0; --i) {
-    const int np = m.np_[i], out = m.out_dim[i], in = m.in_dim[i], kp = m.kp[i];
-    goff -= np;
-    bf16* gb = act0;
-    for (int idx = tid; idx < kTP * np; idx += kThreads) {
-      const int p = idx / np, c = idx % np;
-      gb[p * kLdA + c] = to_bf16(c < out ? G[p * kLdZ + c] * gates[p * GT + goff + c] : 0.0f);
-    }
-    __syncthreads();
-    gemm_rows16<true, kWarps>(gb, kLdA, wpack + m.w_off[i], np, np, kp, Z, kLdZ);
-    __syncthreads();
-    const int split = m.skip[i] ? in - d0 : in;
-    for (int idx = tid; idx < kTP * in; idx += kThreads) {
-      const int p = idx / in, c = idx % in;
-      float v = Z[p * kLdZ + c];
-      if (m.skip[i]) v *= kInvSqrt2;
-      if (c < split)
-        G[p * kLdZ + c] = v;
-      else
-        genc[p * kEncMax + c - split] += v;
-    }
-    __syncthreads();
-  }
-  for (int idx = tid; idx < kTP * d0; idx += kThreads) {
-    const int p = idx / d0, c = idx % d0;
-    genc[p * kEncMax + c] += G[p * kLdZ + c];
-  }
-  __syncthreads();
+  float* genc = enc;
+  for (int idx = tid; idx < kChainTP * kEncMax; idx += kChainThreads) genc[idx] = 0.0f;
 
-  // Through the encoding: enc = [xs, sin(S), cos(S)], S_{d,f} = xs_d 2^f.
-  for (int idx = tid; idx < kTP * 3; idx += kThreads) {
-    const int p = idx / 3, d = idx % 3;
-    if (p0 + p >= n) continue;
-    const float* e = enc + p * kEncMax;
+  // Reverse sweep: g <- (g gate_i) W_i^T, the product written in place into
+  // the carry tile G; at the skip layer x 1/sqrt2, split into the carry and
+  // g_enc.
+  float* G = Z;
+  for (int i = L - 1; i >= 0; --i) {
+    const int np = m.np_[i], out = m.out_dim[i], in = m.in_dim[i], kp = m.kp[i], goff = m.b_off[i];
+    if (i < L - 1) stage_first_slabs<true>(wpack + m.w_off[i], np, np, kp, ring);
+    for (int idx = tid; idx < kChainTP * (np / 4); idx += kChainThreads) {
+      const int p = idx / (np / 4), c = (idx % (np / 4)) * 4;
+      float u[4], gate[4], t[4];
+      if (i == L - 1) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) u[k] = c + k < out ? w_sdf[c + k] / scale : 0.0f;
+      } else {
+        ld_f4(G + p * kLdZ + c, u);
+      }
+      ld_f4(grow + (size_t)p * GT + goff + c, gate);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) t[k] = c + k < out ? u[k] * gate[k] : 0.0f;
+      st_bf4(act + p * kLdA + c, t);
+    }
+    gemm_rows64<true>(act, kLdA, wpack + m.w_off[i], np, np, kp, G, kLdZ, ring);
+    __syncthreads();
+    if (m.skip[i]) {  // elsewhere the product is already the carry
+      const int split = in - d0;
+      for (int idx = tid; idx < kChainTP * (kp / 4); idx += kChainThreads) {
+        const int p = idx / (kp / 4), c = (idx % (kp / 4)) * 4;
+        float v[4];
+        ld_f4(G + p * kLdZ + c, v);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int ck = c + k;
+          if (ck < in) {
+            v[k] *= kInvSqrt2;
+            if (ck >= split) genc[p * kEncMax + ck - split] += v[k];
+          }
+        }
+        st_f4(G + p * kLdZ + c, v);
+      }
+      __syncthreads();
+    }
+  }
+
+  // Through the encoding: enc = [xs, sin(S), cos(S)], S_{d,f} = xs_d 2^f,
+  // with sin and cos recomputed from x as the encoding pass computed them;
+  // d sdf / d enc = g_enc + the last carry.
+  for (int idx = tid; idx < kChainTP * 3; idx += kChainThreads) {
+    const int p = idx / 3, d = idx % 3, gp = p0 + p;
+    if (gp >= n) continue;
     const float* ge = genc + p * kEncMax;
+    const float* g = G + p * kLdZ;
+    const float xs = x[gp * 3 + d] * scale;
     float acc = 0.0f;
     for (int f = 0; f < F; ++f) {
       const int j = 3 + d * F + f;
-      const float dS = ge[j] * e[j + 3 * F] - ge[j + 3 * F] * e[j];
+      const float s = xs * (float)(1 << f);
+      const float sin_b = sinf(s), cos_b = sinf(s + kHalfPi);
+      const float dS = (ge[j] + g[j]) * cos_b - (ge[j + 3 * F] + g[j + 3 * F]) * sin_b;
       acc = f == 0 ? dS : acc + dS * (float)(1 << f);
     }
-    gx_out[(size_t)(p0 + p) * 3 + d] = (ge[d] + acc) * scale;
+    gx_out[(size_t)gp * 3 + d] = (ge[d] + g[d] + acc) * scale;
   }
 }
 
-// One launch of the forward on `stream`; returns its launch error.
+// One launch of the forward on `stream`; returns its launch error.  gsc is
+// the gate scratch of (n + kChainTP - 1) / kChainTP * kChainTP rows.
 template <int MODE>
 inline int launch_sdf_fwd(const float* x, const bf16* wpack, const float* bpack, const float* w_sdf, float* sdf,
                           float* feat, float* gx, bf16* stash, float* gsc, int n, const SdfMeta& m, float scale,
                           cudaStream_t stream) {
-  const size_t smem = sdf_fwd_smem_bytes<MODE>(m);
   int rc = (int)cudaFuncSetAttribute(sdf_core_fwd_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)smem);
+                                     (int)kFwdSmem);
   if (rc) return rc;
-  sdf_core_fwd_kernel<MODE><<<(n + kTP - 1) / kTP, kThreads, smem, stream>>>(x, wpack, bpack, w_sdf, sdf, feat, gx,
-                                                                              stash, gsc, n, m, scale);
+  sdf_core_fwd_kernel<MODE><<<(n + kChainTP - 1) / kChainTP, kChainThreads, kFwdSmem, stream>>>(
+      x, wpack, bpack, w_sdf, sdf, feat, gx, stash, gsc, n, m, scale);
   return (int)cudaGetLastError();
 }
 

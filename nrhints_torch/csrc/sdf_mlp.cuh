@@ -2,8 +2,8 @@
 // (sdf_fwd.cuh: kernels A, D and H's forward pass; march_common.cuh: the
 // march sweeps of kernels C, K, L, M and N) and
 // of the trunk kernels (mlp_stash.cu): the packed-weight layout,
-// the frequency encoding, the one-exp softplus(100) gate, and a WMMA bf16
-// product over 16-row tiles.
+// the frequency encoding, the one-exp softplus(100) gate, and the trunk
+// kernels' WMMA bf16 product over 16-row tiles.
 //
 // Packed weights (built by nrhints_torch/kernels/core_mlp.py::pack_sdf_mlp):
 //   wpack  bf16, per hidden layer i a zero-padded [kp_i, np_i] row-major
@@ -33,7 +33,7 @@ constexpr int kLdA = kWMax + 8;   // bf16 row stride of activation tiles
 constexpr int kLdZ = kWMax + 4;   // f32 row stride of accumulator tiles
 constexpr float kInvSqrt2 = 0.70710678118654752440f;
 constexpr float kHalfPi = 1.57079632679489661923f;
-constexpr int kTP = 16;                  // points per block of the SDF and trunk kernels (one WMMA row tile)
+constexpr int kTP = 16;                  // points per block of the trunk kernels F, G, I, J (one WMMA row tile)
 constexpr int kThreads = 256;            // threads per block of those kernels
 constexpr int kWarps = kThreads / 32;
 

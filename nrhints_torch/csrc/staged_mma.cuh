@@ -1,26 +1,29 @@
-// The staged bf16 products of the SDF core's backward chain (sdf_bwd.cuh,
-// kernels E and H) and of the weight-cotangent passes (dw_sum.cuh, kernels
-// E, G, H and J): operands copied into shared memory by cp.async (16-byte
-// copies, a ring of stages, the next slabs in flight while the warps run
-// WMMA on the current one), fragments read from shared memory only.
+// The staged bf16 products of the SDF core's 64-point kernels: its forward
+// (sdf_fwd.cuh, kernels A, D and H's first pass) and its backward chain
+// (sdf_bwd.cuh, kernels E and H), and of the weight-cotangent passes
+// (dw_sum.cuh, kernels E, G, H and J): operands copied into shared memory
+// by cp.async (16-byte copies, a ring of stages, the next slabs in flight
+// while the warps run WMMA on the current one), fragments read from shared
+// memory only.
 //
-// gemm_rows64 is the chain's product: C[64, N] = A[64, K] @ B for a
-// 64-point block of kChainThreads threads whose bf16 activations A already
+// gemm_rows64 is the product of those 64-point kernels: C[64, N] = A[64, K]
+// @ B for a block of kChainThreads threads whose bf16 activations A already
 // lie in shared memory.  The weight B streams through a kChainStages-stage
 // ring in k-slabs of kSlab rows, shared by all 16 warps: a weight byte
 // fetched from L2 serves 64 points.  Warp w owns rows 32 (w / 8) .. +32 and
 // columns 32 (w % 8) .. +32 of C: 2 x 2 accumulator tiles, so each k-step
 // loads 2 A and 2 B fragments for 4 products.  The caller issues the first
 // slabs (stage_first_slabs) before the elementwise work that precedes the
-// product, so their copies overlap it.
+// product, so their copies overlap it.  The elementwise passes take four
+// consecutive columns of one point per item (the ld_ / st_ helpers below).
 #pragma once
 
 #include "sdf_mlp.cuh"
 
 namespace nrh {
 
-constexpr int kChainTP = 64;         // points per block of the backward chain (kernels E and H)
-constexpr int kChainThreads = 512;   // threads per block of the chain
+constexpr int kChainTP = 64;         // points per block of the SDF core's forward and backward chain (A, D, E, H)
+constexpr int kChainThreads = 512;   // threads per block of those kernels
 constexpr int kSlab = 64;            // k-rows of a weight slab in the chain's ring
 constexpr int kChainStages = 3;      // slabs in the ring
 constexpr int kLdWs = kWMax + 8;     // bf16 row stride of a [kSlab][N] slab (row-major B)
@@ -38,6 +41,30 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four consecutive bf16 as floats, and four floats rounded to bf16, with one
+// 8-byte access (p 8-byte aligned); four floats with one 16-byte access (p
+// 16-byte aligned).
+__device__ __forceinline__ void ld_bf4(const bf16* p, float* v) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  v[0] = bf(__ushort_as_bfloat16((unsigned short)(u.x & 0xffffu)));
+  v[1] = bf(__ushort_as_bfloat16((unsigned short)(u.x >> 16)));
+  v[2] = bf(__ushort_as_bfloat16((unsigned short)(u.y & 0xffffu)));
+  v[3] = bf(__ushort_as_bfloat16((unsigned short)(u.y >> 16)));
+}
+__device__ __forceinline__ void st_bf4(bf16* p, const float* v) {
+  uint2 u;
+  u.x = (unsigned)__bfloat16_as_ushort(to_bf16(v[0])) | ((unsigned)__bfloat16_as_ushort(to_bf16(v[1])) << 16);
+  u.y = (unsigned)__bfloat16_as_ushort(to_bf16(v[2])) | ((unsigned)__bfloat16_as_ushort(to_bf16(v[3])) << 16);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+__device__ __forceinline__ void ld_f4(const float* p, float* v) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+}
+__device__ __forceinline__ void st_f4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
 // Issue (and commit, as one group) the copy of k-slab s of B into ring

@@ -235,10 +235,20 @@ def require_cuda(t: torch.Tensor, shape: tuple, name: str, dtype=torch.float32) 
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-TP = 16  # points per block of the SDF and trunk kernels (the rows of one WMMA tile)
-CHAIN_TP = 64  # points per block of the SDF backward chain of kernels E and H (csrc/staged_mma.cuh::kChainTP)
+TP = 16  # points per block of the trunk kernels F, G, I, J (the rows of one WMMA tile)
+CHAIN_TP = 64  # points per block of the SDF core's kernels A, D, E, H (csrc/staged_mma.cuh::kChainTP)
 ENC_MAX = 64  # widest padded frequency encoding (csrc/sdf_mlp.cuh::kEncMax)
 MAX_SPLIT = 16  # row chunks of the weight-cotangent products
+
+
+def gate_layout(n: int, gates_total: int) -> tuple[int, int, int]:
+    """-> (blocks, padded points, f32 elements of the gate scratch) of the
+    SDF core's forward (``csrc/sdf_fwd.cuh``: kernels A, D and H's first
+    pass) at n points: every layer's gate sigmoid(100 z_i) per padded point,
+    ``gates_total`` columns in the stash's layout."""
+    nblk = -(-n // CHAIN_TP)
+    npad = nblk * CHAIN_TP
+    return nblk, npad, npad * gates_total
 
 
 def chain_layout(n: int, gates_total: int) -> tuple[int, int, int]:
@@ -246,8 +256,7 @@ def chain_layout(n: int, gates_total: int) -> tuple[int, int, int]:
     of the SDF backward chain at n points: per point u_i then dL/dh_i of
     every layer (``gates_total``), and four f32 encoding cotangents of
     ``ENC_MAX`` each.  The per-block column sums have one row per block."""
-    nblk = -(-n // CHAIN_TP)
-    npad = nblk * CHAIN_TP
+    nblk, npad, _ = gate_layout(n, gates_total)
     return nblk, npad, npad * (gates_total + 4 * ENC_MAX)
 
 
@@ -325,7 +334,8 @@ def sdf_core_fwd(
     weights: Sequence[torch.Tensor], x: torch.Tensor, cfg: SDFNetConfig, pk: dict | None = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel A on the card: (sdf [N], feat [N, F], grad [N, 3]) with bf16
-    dot operands, f32 everything else."""
+    dot operands, f32 everything else.  Its f32 gates go to a scratch of
+    ``gate_layout``'s size, freed when this returns."""
     require_cuda(x, (None, 3), "x")
     n = x.shape[0]
     sdf = torch.empty(n, device=x.device)
@@ -334,10 +344,11 @@ def sdf_core_fwd(
     if n == 0:
         return sdf, feat, gx
     pk = pack_sdf_mlp(weights, cfg, with_feat=True) if pk is None else pk
+    gates = torch.empty(gate_layout(n, int(pk["meta"][9]))[2], device=x.device)
     _launch(
         cuda_lib.load("sdf_core"), "sdf_core_fwd", "sdf_core_fwd",
         x.data_ptr(), pk["wpack"].data_ptr(), pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr(),
-        sdf.data_ptr(), feat.data_ptr(), gx.data_ptr(), n, pk["meta"].ctypes.data,
+        sdf.data_ptr(), feat.data_ptr(), gx.data_ptr(), gates.data_ptr(), n, pk["meta"].ctypes.data,
         float(cfg.scale), cuda_lib.stream_ptr(x.device),
     )
     return sdf, feat, gx
@@ -383,7 +394,7 @@ def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, 
             float(cfg.scale), cuda_lib.stream_ptr(dev))
     if n > 0 and stash is None:
         hs = torch.empty((n, gt), dtype=torch.bfloat16, device=dev)
-        gates = torch.empty((n, gt), **f32)
+        gates = torch.empty(gate_layout(n, gt)[2], **f32)
         _launch(
             cuda_lib.load("sdf_core_bwd"), "sdf_core_bwd", "sdf_core_bwd",
             x.data_ptr(), ds.data_ptr(), df.data_ptr(), dgx.data_ptr(), pk["wpack"].data_ptr(),

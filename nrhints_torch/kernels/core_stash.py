@@ -46,6 +46,7 @@ from nrhints_torch.kernels.core_mlp import (
     check_kernel_dtype,
     cotangent,
     encode_points,
+    gate_layout,
     mlp_bwd_launch,
     mlp_relu_bwd_plain,
     mlp_relu_plain,
@@ -192,7 +193,8 @@ def split_stash(stash: torch.Tensor, cols) -> list[torch.Tensor]:
 def sdf_stash_fwd(weights: Sequence[torch.Tensor], x: torch.Tensor, cfg: SDFNetConfig, pk: dict | None = None):
     """Kernel D on the card -> (sdf [N], feat [N, F], grad [N, 3], stash
     [N, GT] bf16): kernel A's outputs, bit for bit, and every h_i at its
-    ``sdf_stash_columns`` offset."""
+    ``sdf_stash_columns`` offset.  Its f32 gates go to a scratch of
+    ``core_mlp.gate_layout``'s size, freed when this returns."""
     require_cuda(x, (None, 3), "x")
     n, dev = x.shape[0], x.device
     pk = pack_sdf_mlp(weights, cfg, with_feat=True) if pk is None else pk
@@ -203,12 +205,12 @@ def sdf_stash_fwd(weights: Sequence[torch.Tensor], x: torch.Tensor, cfg: SDFNetC
     stash = torch.empty((n, gt), dtype=torch.bfloat16, device=dev)
     if n == 0:
         return sdf, feat, gx, stash
-    lib = cuda_lib.load("sdf_core")
+    gates = torch.empty(gate_layout(n, gt)[2], device=dev)
     _launch(
-        lib, "sdf_stash_fwd", "sdf_stash_fwd",
+        cuda_lib.load("sdf_core"), "sdf_stash_fwd", "sdf_stash_fwd",
         x.data_ptr(), pk["wpack"].data_ptr(), pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr(),
-        sdf.data_ptr(), feat.data_ptr(), gx.data_ptr(), stash.data_ptr(), n, pk["meta"].ctypes.data,
-        float(cfg.scale), cuda_lib.stream_ptr(dev),
+        sdf.data_ptr(), feat.data_ptr(), gx.data_ptr(), stash.data_ptr(), gates.data_ptr(), n,
+        pk["meta"].ctypes.data, float(cfg.scale), cuda_lib.stream_ptr(dev),
     )
     return sdf, feat, gx, stash
 

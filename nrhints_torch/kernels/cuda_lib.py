@@ -12,7 +12,7 @@ The wrappers in ``core_mlp.py``, ``core_stash.py`` and ``march.py`` add one to
 Headers (``*.cuh``) hold what several sources share: ``sdf_fwd.cuh`` the
 SDF forward of kernels A, D and H, ``sdf_bwd.cuh`` the chain of E and H,
 ``dw_sum.cuh`` the dW passes of E, G, H and J, ``staged_mma.cuh`` the
-cp.async-staged products of that chain and those passes,
+cp.async-staged products of that forward, that chain and those passes,
 ``march_common.cuh`` the march machinery and sweeps of B, C, K, L, M and N.
 """
 from __future__ import annotations
@@ -46,8 +46,8 @@ launch_counts = {
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "sdf_core": {
-        "sdf_core_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _F, _P],
-        "sdf_stash_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _F, _P],
+        "sdf_core_fwd": [_P] * 8 + [_I, _P, _F, _P],
+        "sdf_stash_fwd": [_P] * 9 + [_I, _P, _F, _P],
     },
     "sdf_stash": {"sdf_stash_bwd": [_P] * 15 + [_I, _I, _I, _P, _F, _P]},
     "sdf_core_bwd": {"sdf_core_bwd": [_P] * 17 + [_I, _I, _I, _P, _F, _P]},

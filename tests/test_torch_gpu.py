@@ -15,9 +15,10 @@ the points run in another order (H's plain version is autograd, which
 rounds each dot's result to bf16 where the kernel rounds its operands).
 Kernel D's outputs are kernel A's bit for bit, I's are F's, J's gradients
 are G's at F's stash (the ReLU backward reads only what a bf16 z keeps),
-and E, G, H and J give the same gradients bit for bit on every run (no
-atomics).  J's plain version recomputes the z_i in another summation order,
-so a z_i within rounding of 0 can take the other side of the ReLU there and
+A gives the same outputs and E, G, H and J the same gradients bit for bit
+on every run (no atomics).  J's plain version recomputes the z_i in
+another summation order, so a z_i within rounding of 0 can take the other
+side of the ReLU there and
 move one point's dx by a whole unit's share: J is held entry by entry
 against the plain backward at the forward's own z_i, and against the wholly
 plain backward by the relative norm of the error (2e-2).
@@ -73,10 +74,18 @@ def _close_rel(k, p, tol):
     assert err <= tol * scale + 1e-7, f"err {err:.3e} vs scale {scale:.3e}"
 
 
+# Point counts of the SDF core's tests: kernels A, D, E and H run on 64-point
+# blocks (core_mlp.CHAIN_TP), so 63, 64 and 65 sit on the edges of one and
+# two blocks, and 4,161 = 65 x 64 + 1 has a ragged last block past 4,096
+# points (several dW row chunks of E and H).
+SDF_BWD_N = [1, 63, 64, 65, 100, 1000, 4161]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("cfg", [SMALL, SDFNetConfig()], ids=["small", "full"])
-@pytest.mark.parametrize("n", [1, 100, 1000])
+@pytest.mark.parametrize("n", SDF_BWD_N)
 def test_sdf_core_fwd_matches_plain(cuda, cfg, n):
+    """Kernel A against its plain version, and bit for bit on a rerun."""
     w = core_mlp.materialize_sdf_weights_full(sdf_init(torch.Generator().manual_seed(0), cfg, cuda), cfg)
     x = torch.tensor(np.random.default_rng(n).normal(size=(n, 3)).astype(np.float32) * 0.5, device=cuda)
     before = cuda_lib.launch_counts["sdf_core_fwd"]
@@ -85,6 +94,7 @@ def test_sdf_core_fwd_matches_plain(cuda, cfg, n):
     assert cuda_lib.launch_counts["sdf_core_fwd"] == before + 1
     for k, p in zip(out, core_mlp.sdf_core_plain(w, x, cfg, "bfloat16")):
         _close(k, p, 1e-2)
+    assert all(torch.equal(a, b) for a, b in zip(out, core_mlp.sdf_core_fwd(w, x, cfg)))
 
 
 @pytest.mark.gpu
@@ -172,13 +182,6 @@ def _gpu_sdf_case(cuda, cfg, n):
     cots = tuple(torch.tensor(a.astype(np.float32), device=cuda) for a in (
         rng.normal(size=(n,)), rng.normal(size=(n, cfg.d_out_feat)), rng.normal(size=(n, 3))))
     return w, x, cots
-
-
-# Point counts of the SDF backward's tests: kernels E and H run their chain
-# on 64-point blocks (core_mlp.CHAIN_TP), so 63, 64 and 65 sit on the edges
-# of one and two blocks, and 4,161 = 65 x 64 + 1 has a ragged last block
-# past 4,096 points (several dW row chunks).
-SDF_BWD_N = [1, 63, 64, 65, 100, 1000, 4161]
 
 
 @pytest.mark.gpu

@@ -573,9 +573,19 @@ def test_sdf_bwd_chain_layout(n, nblk):
     assert tcm.dw_split(npad) == min(16, max(1, npad // 1024))
 
 
+@pytest.mark.parametrize("n, nblk", [(1, 1), (63, 1), (64, 1), (65, 2), (65536, 1024), (65537, 1025)])
+def test_sdf_fwd_gate_layout(n, nblk):
+    """The SDF core's forward on 64-point blocks: padded points and the f32
+    gate scratch of 2,016 columns per padded point (528 MB at 65,536)."""
+    got_blk, npad, n_gates = tcm.gate_layout(n, 2016)
+    assert (got_blk, npad) == (nblk, nblk * 64) and npad >= n > npad - 64
+    assert n_gates == npad * 2016
+
+
 def test_chain_constants_match_the_headers():
-    """CHAIN_TP and ENC_MAX in Python are the constants the CUDA chain is
-    compiled with."""
+    """CHAIN_TP and ENC_MAX in Python are the constants the CUDA chain and
+    the SDF forward are compiled with; the forward launches kChainTP-point
+    blocks of kChainThreads threads and has no 16-point code left."""
     def const(header, name):
         m = re.search(rf"constexpr int {name} = (\d+);", (cuda_lib.CSRC / header).read_text())
         return int(m.group(1))
@@ -583,6 +593,9 @@ def test_chain_constants_match_the_headers():
     assert const("staged_mma.cuh", "kChainTP") == tcm.CHAIN_TP == 64
     assert const("sdf_mlp.cuh", "kEncMax") == tcm.ENC_MAX
     assert const("sdf_mlp.cuh", "kTP") == tcm.TP
+    fwd = (cuda_lib.CSRC / "sdf_fwd.cuh").read_text()
+    assert "<<<(n + kChainTP - 1) / kChainTP, kChainThreads, kFwdSmem" in fwd
+    assert not re.search(r"\bkTP\b|\bkThreads\b|gemm_rows16", fwd)
 
 
 # ---------------------------------------------------------------------------
