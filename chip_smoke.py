@@ -18,7 +18,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    events beside the kernel's bound; A and D by device time from one
    profiled call each, beside the bound and their design's byte floor; E's
    chain (E1) and dW passes by device time from one profiled call, each
-   beside its own bound, and H's H1, H2 and dW passes the same way;
+   beside its own bound, and H's H1, H2 and dW passes the same way; F and
+   I, G's chain (G1) and dW passes, and J's recompute pass (J1), chain (J2)
+   and dW passes the same way, with each design's byte floor;
 4. eval path: render one 128x128 view of the nr-hints model (random
    weights from a fixed seed) with Evaluator.render_image on the card,
    check the outputs and that every kernel's launch count moved, then
@@ -111,14 +113,17 @@ ROUND4_STEPS = 5
 # Device-time groups of a profiled view or train step: (substring of the
 # kernel's name, group), the first match wins.  A, D and H1 are the three
 # instances of the 64-point forward of csrc/sdf_fwd.cuh, E1 and H2 the two
-# of the 64-point chain of csrc/sdf_bwd.cuh.
+# of the 64-point chain of csrc/sdf_bwd.cuh; I, F and J1 the three of the
+# trunk's forward in csrc/mlp_stash.cu, whose one chain kernel is G1 in a
+# stash step and J2 in a recompute step.
 DW_GROUP = "dW passes of E/G/H/J (dw_sum.cuh)"
+TRUNK_CHAIN_GROUP = "trunk chain: G1, or J2 after J1"
 STEP_GROUPS = (
     ("sdf_core_fwd_kernel<0>", "kernel A sdf_core_fwd"), ("sdf_core_fwd_kernel<1>", "kernel D sdf_stash_fwd"),
     ("sdf_core_fwd_kernel<2>", "kernel H, forward pass (H1)"),
     ("sdf_bwd_chain_kernel<false>", "kernel E sdf_stash_bwd (E1)"), ("sdf_bwd_chain_kernel<true>", "kernel H chain (H2)"),
-    ("mlp_fwd_kernel<true>", "kernel F mlp_stash_fwd"), ("mlp_fwd_kernel<false>", "kernel I mlp_fwd"),
-    ("mlp_bwd_kernel<false>", "kernel G mlp_stash_bwd (G1)"), ("mlp_bwd_kernel<true>", "kernel J mlp_bwd (J1)"),
+    ("mlp_fwd_kernel<0>", "kernel I mlp_fwd"), ("mlp_fwd_kernel<1>", "kernel F mlp_stash_fwd"),
+    ("mlp_fwd_kernel<2>", "kernel J, recompute pass (J1)"), ("mlp_bwd_chain_kernel", TRUNK_CHAIN_GROUP),
     ("dw_partial", DW_GROUP), ("dw_reduce", DW_GROUP), ("colsum", DW_GROUP),
     ("round_machinery", "kernel B round_machinery"),
     ("march_kernel<false, false, true", "kernel C shadow_final"),
@@ -253,8 +258,8 @@ def grad_norm_err(kernel_outs, plain_outs) -> float:
 
 
 def bound(flops: float, bytes_: float, peak_flops: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / peak_flops * 1e3, bytes_ / H100_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    top_bytes, t_bytes = flops / peak_flops * 1e3, bytes_ / H100_BYTES_PER_S * 1e3
+    return (top_bytes, "operations") if top_bytes >= t_bytes else (t_bytes, "bytes")
 
 
 def ptxas_summary(text: str) -> list[str]:
@@ -610,7 +615,8 @@ def main() -> int:
     trng = np.random.default_rng(6)
     xt = torch.tensor(trng.normal(size=(n_pts, d_tin)).astype(np.float32), device=dev)
     gt_out = torch.tensor(trng.normal(size=(n_pts, 3)).astype(np.float32), device=dev)
-    mcols = core_stash.mlp_stash_columns(core_mlp.pack_mlp(tw, n_lay))
+    tpk = core_mlp.pack_mlp(tw, n_lay)
+    mcols = core_stash.mlp_stash_columns(tpk)
     f_out, f_zs = core_stash.mlp_stash_fwd(tw, xt, n_lay)
     fp_out, fp_zs = core_stash.mlp_relu_fwd_zs_plain(tw, xt, n_lay, "bfloat16", "bfloat16")
     f_abs, f_rel = max_err([f_out, *core_stash.split_stash(f_zs, mcols)], [fp_out, *fp_zs])
@@ -618,12 +624,17 @@ def main() -> int:
     f_plain_ms = cuda_ms(lambda: core_stash.mlp_relu_fwd_zs_plain(tw, xt, n_lay, "bfloat16", "bfloat16"), 3, warmup=1)
     trunk_macs = sum(w.shape[0] * w.shape[1] for w in tw[0::2])
     zt = f_zs.shape[1]
-    f_bound, f_by = bound(2.0 * n_pts * trunk_macs, n_pts * (4 * d_tin + 2 * zt + 4 * 3) + 2 * n_tw, H100_BF16_FLOPS)
+    f_bytes = n_pts * (4 * d_tin + 2 * zt + 4 * 3) + 2 * n_tw
+    f_bound, f_by = bound(2.0 * n_pts * trunk_macs, f_bytes, H100_BF16_FLOPS)
     log(f"[kernel F] mlp_stash_fwd: N={n_pts}, max abs err {f_abs:.3e} (rel {f_rel:.3e}), {f_ms:.4f} ms, "
         f"plain {f_plain_ms:.4f} ms, bound {f_bound:.4f} ms ({f_by})")
     if not f_rel <= TOL["mlp_stash_fwd"]:
         raise AssertionError(f"kernel F disagrees with its plain version: rel {f_rel:.3e}")
     g_dws, g_dx = core_stash.mlp_stash_bwd(tw, xt, f_zs, gt_out, n_lay)
+    g2_dws, g2_dx = core_stash.mlp_stash_bwd(tw, xt, f_zs, gt_out, n_lay)
+    if not (torch.equal(g_dx, g2_dx) and all(torch.equal(a, b) for a, b in zip(g_dws, g2_dws))):
+        raise AssertionError("kernel G's gradients differ between two runs")
+    del g2_dws, g2_dx
     gp_dws, gp_dx = core_stash.mlp_relu_bwd_stash_plain(tw, xt, core_stash.split_stash(f_zs, mcols), gt_out, n_lay,
                                                         "bfloat16")
     g_abs, g_rel = grad_err([g_dx, *g_dws], [gp_dx, *gp_dws])
@@ -644,7 +655,8 @@ def main() -> int:
     i_abs, i_rel = max_err([i_out], [core_mlp.mlp_relu_plain(tw, xt, n_lay, "bfloat16")])
     i_ms = cuda_ms(lambda: core_mlp.mlp_fwd(tw, xt, n_lay), 10)
     i_plain_ms = cuda_ms(lambda: core_mlp.mlp_relu_plain(tw, xt, n_lay, "bfloat16"), 3, warmup=1)
-    i_bound, i_by = bound(2.0 * n_pts * trunk_macs, n_pts * (4 * d_tin + 4 * 3) + 2 * n_tw, H100_BF16_FLOPS)
+    i_bytes = n_pts * (4 * d_tin + 4 * 3) + 2 * n_tw
+    i_bound, i_by = bound(2.0 * n_pts * trunk_macs, i_bytes, H100_BF16_FLOPS)
     log(f"[kernel I] mlp_fwd: N={n_pts}, output equals kernel F's, max abs err {i_abs:.3e} (rel {i_rel:.3e}), "
         f"{i_ms:.4f} ms, plain {i_plain_ms:.4f} ms, bound {i_bound:.4f} ms ({i_by})")
     if not i_rel <= TOL["mlp_fwd"]:
@@ -654,6 +666,8 @@ def main() -> int:
     if not (torch.equal(j_dx, j2_dx) and all(torch.equal(a, b) for a, b in zip(j_dws, j2_dws))):
         raise AssertionError("kernel J's gradients differ between two runs")
     j_as_g = torch.equal(j_dx, g_dx) and all(torch.equal(a, b) for a, b in zip(j_dws, g_dws))
+    if not j_as_g:
+        raise AssertionError("kernel J's gradients differ from kernel G's at kernel F's stash")
     jp_dws, jp_dx = core_mlp.mlp_relu_bwd_plain(tw, xt, gt_out, n_lay, "bfloat16")
     j_abs, j_rel_plain = grad_err([j_dx, *j_dws], [jp_dx, *jp_dws])
     j_norm = grad_norm_err([j_dx, *j_dws], [jp_dx, *jp_dws])
@@ -672,6 +686,41 @@ def main() -> int:
         f"{j_norm:.3e}; {j_ms:.4f} ms, plain {j_plain_ms:.4f} ms, bound {j_bound:.4f} ms ({j_by})")
     if not (j_rel <= TOL["mlp_bwd"] and j_norm <= TOL["mlp_bwd"]):
         raise AssertionError(f"kernel J disagrees with its plain version: rel {j_rel:.3e}, norm {j_norm:.3e}")
+
+    # F, I, G and J by device time, each part from one profiled call (the
+    # CUDA events above include the wrapper's weight packing), beside its
+    # bound and its design's byte floor.  F and I read x and write their
+    # outputs (F also the stash); the chain (G1, and J2 after J1) reads x,
+    # the stash and g, writes dx and the bf16 dW operands, which the dW
+    # passes read; J1 recomputes the hidden layers into a transient stash.
+    hidden_macs = trunk_macs - tw[-2].shape[0] * tw[-2].shape[1]
+    npad_t = core_mlp.trunk_layout(n_pts, zt)[1]
+    top_bytes = 2.0 * npad_t * sum(int(tpk["meta"][4 + 7 * i + 2]) + int(tpk["meta"][4 + 7 * i + 3])
+                               for i in range(n_lay + 1))
+    ch_bytes = n_pts * (4 * d_tin + 2 * zt + 4 * 3 + 4 * d_tin) + top_bytes + 2 * n_tw
+    ch_bound, ch_by = bound(2.0 * n_pts * trunk_macs, ch_bytes, H100_BF16_FLOPS)
+    tdw_bound, tdw_by = bound(2.0 * n_pts * trunk_macs, top_bytes + 4 * n_tw, H100_BF16_FLOPS)
+    j1_bound, j1_by = bound(2.0 * n_pts * hidden_macs, n_pts * (4 * d_tin + 2 * zt) + 2 * n_tw, H100_BF16_FLOPS)
+    f_dev = profiled_groups(lambda: core_stash.mlp_stash_fwd(tw, xt, n_lay, tpk)).get("kernel F mlp_stash_fwd", 0.0)
+    i_dev = profiled_groups(lambda: core_mlp.mlp_fwd(tw, xt, n_lay, tpk)).get("kernel I mlp_fwd", 0.0)
+    g_parts = profiled_groups(lambda: core_stash.mlp_stash_bwd(tw, xt, f_zs, gt_out, n_lay, tpk))
+    j_parts = profiled_groups(lambda: core_mlp.mlp_bwd(tw, xt, gt_out, n_lay, tpk))
+    g1_dev, gdw_dev = g_parts.get(TRUNK_CHAIN_GROUP, 0.0), g_parts.get(DW_GROUP, 0.0)
+    j1_dev, j2_dev = j_parts.get("kernel J, recompute pass (J1)", 0.0), j_parts.get(TRUNK_CHAIN_GROUP, 0.0)
+    jdw_dev = j_parts.get(DW_GROUP, 0.0)
+    log(f"[kernel F] one profiled call, device time {f_dev:.4f} ms; bound {f_bound:.4f} ms ({f_by}), which is this "
+        f"design's byte floor too (x, the stash and the output once)")
+    log(f"[kernel I] one profiled call, device time {i_dev:.4f} ms; bound {i_bound:.4f} ms ({i_by}); this design's "
+        f"byte floor {i_bytes / H100_BYTES_PER_S * 1e3:.4f} ms (x and the output once)")
+    log(f"[kernel G] one profiled call, device time: G1 (the chain) {g1_dev:.4f} ms, bound {ch_bound:.4f} ms "
+        f"({ch_by}); dW passes {gdw_dev:.4f} ms, bound {tdw_bound:.4f} ms ({tdw_by}); this design's byte floor "
+        f"{(ch_bytes + top_bytes + 4 * n_tw) / H100_BYTES_PER_S * 1e3:.4f} ms (the {top_bytes / 1e9:.3f} GB of bf16 dW "
+        f"operands written and read once with x, the stash, g and dx)")
+    j_floor = n_pts * (4 * d_tin + 2 * zt) + ch_bytes + top_bytes + 4 * n_tw
+    log(f"[kernel J] one profiled call, device time: J1 (the recompute pass) {j1_dev:.4f} ms, bound "
+        f"{j1_bound:.4f} ms ({j1_by}); J2 (the chain) {j2_dev:.4f} ms, bound {ch_bound:.4f} ms ({ch_by}); dW passes "
+        f"{jdw_dev:.4f} ms; this design's byte floor {j_floor / H100_BYTES_PER_S * 1e3:.4f} ms (G's, and x and the "
+        f"{2 * n_pts * zt / 1e9:.3f} GB transient stash of J1)")
     del d_out, d_plain, e_dws, e_dx, e2_dws, e2_dx, p_dws, p_dx, f_zs, fp_zs, g_dws, g_dx, gp_dws, gp_dx
     del h_dws, h_dx, i_out, j_dws, j_dx, j2_dws, j2_dx, jp_dws, jp_dx
     torch.cuda.empty_cache()

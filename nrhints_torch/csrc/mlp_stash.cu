@@ -12,13 +12,16 @@
 // dx, and dW_i = relu(z_{i-1})^T G_i, db_i = sum G_i.
 // I replaces: nrhints_tpu/kernels/core_mlp.py::_mlp_fwd_pallas (the
 // pallas_call at :409), mlp_relu_ref (:152): F without the stash store
-// (STASH = false), so its output is F's bit for bit.  It serves the eval
+// (kMlpPlain), so its output is F's bit for bit.  It serves the eval
 // trunk (eval_reflectance_impl="pallas") and the forward of the recompute
 // op.
 // J replaces: core_mlp.py::_mlp_bwd_pallas (:453), jax.vjp of mlp_relu_ref
-// per block: G's chain after each block reruns the hidden layers and keeps
-// its z_i in f32 in shared memory (RECOMPUTE = true), so nothing is kept
-// between the forward and the backward call.
+// per block: two launches, a recompute pass J1 (F's kernel without the
+// output layer) that writes the z_i into a transient bf16 stash of F's
+// layout, then G's chain on it (J2).  The wrapper allocates the stash per
+// call, so nothing is kept between the forward and the backward call, and
+// J's gradients are G's at F's stash bit for bit: the ReLU backward reads
+// only the sign of z_i and bf16(relu(z_i)), which a bf16 z_i keeps.
 //
 // Bound on an H100 at 65,536 points: F and I do 38 GFLOP (0.038 ms at 989
 // TFLOP/s bf16); F moves 95 MB in, 134 MB of stash and 0.8 MB out (0.069 ms
@@ -27,25 +30,50 @@
 // GFLOP more (114 GFLOP, 0.115 ms) and moves 190 MB (x in, dx out; 0.057
 // ms).  F and G are bound by bytes, I and J by operations.
 //
-// Design.  A block takes kTP = 16 points; 8 warps compute each layer's
-// 16-row product with bf16 WMMA (sdf_mlp.cuh::gemm_rows16), the weights
-// read from L2 as in kernel A; the activations stay in shared memory (42 KB
-// for F and I, 75 KB for G, 141 KB for J with its 66 KB of z_i, so one or
-// more blocks share an SM).  G's and J's per-point chain writes dx and, per
-// layer, the operands of dW_i in bf16 (the reference rounds exactly these
-// to bf16) and per-block f32 sums of G_i; the products and the sums over
-// blocks are dw_sum.cuh's split-K passes, in a fixed order.  The ragged
-// edge is masked: rows past N read zeros and store nothing.  This first
-// version is simple, not fast: 16 points per block stream all 0.6 MB of
-// bf16 weights through L2.
+// Design.  A block takes kChainTP = 64 points on kChainThreads = 512
+// threads (16 warps), as the SDF core's kernels do: every product goes
+// through staged_mma.cuh::gemm_rows64, the weights streamed through a
+// 3-stage cp.async ring in shared memory, so a weight byte fetched from L2
+// serves 64 points; each product's first slabs are requested before the
+// elementwise pass in front of it; the elementwise passes take four
+// columns of one point per item.  The first layer's 368-deep product walks
+// six k-slabs, the last one partial; dx = G_0 W_0^T, 368 columns wide, runs
+// as column passes of at most 256 (the warps' tiling and a transposed ring
+// slab), each stored to dx.  Shared memory (one block per SM):
+//   forward  the bf16 input tile [64][kLdX] (each hidden layer's
+//            relu(z + b) written in place into it once the product that
+//            read it has returned: x is dead after layer 0), the f32
+//            product tile [64][kLdZ] and the ring: 50,176 + 66,560 +
+//            110,592 = 227,328 B;
+//   chain    the f32 running cotangent [64][kLdZ] (each product written in
+//            place), the bf16 operand tile [64][kLdA] and the ring: 66,560
+//            + 33,792 + 110,592 = 210,944 B.
+// The chain writes dx and, per layer, the operands of dW_i in bf16 (the
+// reference rounds exactly these to bf16) and f32 column sums of G_i, one
+// row per kSumRows = 16 points; the products and the sums over the rows are
+// dw_sum.cuh's passes, in a fixed order.  Each output tile walks its
+// k-tiles in order, 16 deep at a time, and db_i's rows are sums of 16
+// points, as in the earlier 16-point blocks of these kernels, so F's output
+// and stash, I's output and G's and J's gradients equal those of that
+// design bit for bit (scripts/compare_trunk.py holds two checkouts to it).
+// The ragged edge is masked: rows past N read zeros and store nothing but
+// the dW operands' zero rows.
 #include "dw_sum.cuh"
 
 using namespace nrh;
 
 namespace {
 
-constexpr int kInMax = 512;          // widest padded trunk input
-constexpr int kLdX = kInMax + 8;     // row stride of input-wide tiles
+constexpr int kInMax = 384;         // widest padded trunk input (core_mlp.IN_MAX)
+constexpr int kLdX = kInMax + 8;    // bf16 row stride of the forward's input tile
+constexpr int kSumRows = 16;        // points per row of the bias sums (core_mlp.SUM_ROWS)
+constexpr int kMlpPlain = 0, kMlpStash = 1, kMlpRecompute = 2;
+
+constexpr size_t kMlpFwdSmem = kChainTP * kLdX * sizeof(bf16) + kChainTP * kLdZ * sizeof(float) +
+                               kChainStages * kRingStage * sizeof(bf16);
+constexpr size_t kMlpChainSmem = kChainTP * kLdZ * sizeof(float) + kChainTP * kLdA * sizeof(bf16) +
+                                 kChainStages * kRingStage * sizeof(bf16);
+static_assert(kMlpFwdSmem <= 232448 && kMlpChainSmem <= 232448, "a block may have 227 KB of shared memory");
 
 struct MlpMeta {
   int n_lin, d0, d_out, zt;
@@ -75,208 +103,240 @@ int parse_mlp_meta(const int* meta, MlpMeta* m) {
   return 0;
 }
 
-// The hidden layers of a 16-point block: z_i = h_{i-1} W_i + b_i, h_i =
-// relu(z_i) into act (bf16), from the bf16 input tile xin; emit(p, col, z)
-// sees every z_i at its packed column (0 past the layer's width).  Returns
-// with the last hidden activation in act, after a barrier.
-template <typename Emit>
-__device__ void mlp_hidden_layers(const bf16* xin, bf16* act, float* Z, const bf16* __restrict__ wpack,
-                                  const float* __restrict__ bpack, const MlpMeta& m, Emit emit) {
-  const int tid = threadIdx.x;
-  for (int i = 0; i + 1 < m.n_lin; ++i) {
-    const int np = m.np_[i], o = m.out_dim[i];
-    const float* b = bpack + m.b_off[i];
-    gemm_rows16<false, kWarps>(i == 0 ? xin : act, i == 0 ? kLdX : kLdA, wpack + m.w_off[i], np, m.kp[i], np, Z,
-                               kLdZ);
-    __syncthreads();
-    for (int idx = tid; idx < kTP * np; idx += kThreads) {
-      const int p = idx / np, c = idx % np;
-      const float z = c < o ? Z[p * kLdZ + c] + b[c] : 0.0f;
-      act[p * kLdA + c] = to_bf16(fmaxf(z, 0.0f));
-      emit(p, m.z_off[i] + c, z);
-    }
-    __syncthreads();
-  }
-}
-
-// The block's inputs as a bf16 tile [kTP][kLdX], zero past N and past d0.
-__device__ __forceinline__ void load_input_tile(const float* __restrict__ x, bf16* xin, int p0, int n,
-                                                const MlpMeta& m) {
-  for (int idx = threadIdx.x; idx < kTP * m.kp[0]; idx += kThreads) {
-    const int p = idx / m.kp[0], c = idx % m.kp[0];
-    xin[p * kLdX + c] = to_bf16(c < m.d0 && p0 + p < n ? x[(size_t)(p0 + p) * m.d0 + c] : 0.0f);
-  }
-  __syncthreads();
-}
-
-// F (STASH = true) and I (STASH = false).
-template <bool STASH>
-__global__ void __launch_bounds__(kThreads)
+// The forward of one 64-point block.  MODE says what it writes:
+//   kMlpPlain      the output (kernel I);
+//   kMlpStash      the output and every hidden z_i rounded to bf16 into
+//                  the packed stash [N, ZT] (kernel F);
+//   kMlpRecompute  the stash and nothing else: no output layer (J1).
+template <int MODE>
+__global__ void __launch_bounds__(kChainThreads)
     mlp_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ wpack, const float* __restrict__ bpack,
                    float* __restrict__ out, bf16* __restrict__ zs, int n, const MlpMeta m) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xin = reinterpret_cast<bf16*>(smem);
-  bf16* act = xin + kTP * kLdX;
-  float* Z = reinterpret_cast<float*>(act + kTP * kLdA);
-  const int tid = threadIdx.x, p0 = blockIdx.x * kTP;
+  bf16* act = reinterpret_cast<bf16*>(smem);                  // [kChainTP][kLdX]
+  float* Z = reinterpret_cast<float*>(act + kChainTP * kLdX);  // [kChainTP][kLdZ]
+  bf16* ring = reinterpret_cast<bf16*>(Z + kChainTP * kLdZ);
+  const int tid = threadIdx.x, p0 = blockIdx.x * kChainTP;
+  const int last = m.n_lin - 1, n_run = MODE == kMlpRecompute ? last : m.n_lin;
 
-  load_input_tile(x, xin, p0, n, m);
-  mlp_hidden_layers(xin, act, Z, wpack, bpack, m, [&](int p, int col, float z) {
-    if (STASH && p0 + p < n) zs[(size_t)(p0 + p) * m.zt + col] = to_bf16(z);
-  });
-  const int last = m.n_lin - 1, np = m.np_[last], o = m.out_dim[last];
-  const float* b = bpack + m.b_off[last];
-  gemm_rows16<false, kWarps>(last == 0 ? xin : act, last == 0 ? kLdX : kLdA, wpack + m.w_off[last], np, m.kp[last],
-                             np, Z, kLdZ);
-  __syncthreads();
-  for (int idx = tid; idx < kTP * o; idx += kThreads) {
-    const int p = idx / o, c = idx % o;
-    if (p0 + p < n) out[(size_t)(p0 + p) * m.d_out + c] = Z[p * kLdZ + c] + b[c];
+  // The input tile: x rounded to bf16, zero past d0 and past N (x's rows
+  // are d0 = 361 floats, so not 16-byte aligned: four scalar loads).
+  stage_first_slabs<false>(wpack + m.w_off[0], m.np_[0], m.kp[0], m.np_[0], ring);
+  const int w4 = m.kp[0] / 4;
+  for (int idx = tid; idx < kChainTP * w4; idx += kChainThreads) {
+    const int p = idx / w4, c = (idx % w4) * 4;
+    float v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = c + k < m.d0 && p0 + p < n ? x[(size_t)(p0 + p) * m.d0 + c + k] : 0.0f;
+    st_bf4(act + p * kLdX + c, v);
+  }
+
+  // z_i = h_{i-1} W_i + b_i; h_i = relu(z_i) in bf16, over h_{i-1} in act.
+  for (int i = 0; i < n_run; ++i) {
+    const int np = m.np_[i], o = m.out_dim[i];
+    const float* b = bpack + m.b_off[i];
+    gemm_rows64<false>(act, kLdX, wpack + m.w_off[i], np, m.kp[i], np, Z, kLdZ, ring);
+    __syncthreads();
+    if (i == last) {  // the linear output layer
+      for (int idx = tid; idx < kChainTP * o; idx += kChainThreads) {
+        const int p = idx / o, c = idx % o;
+        if (p0 + p < n) out[(size_t)(p0 + p) * m.d_out + c] = Z[p * kLdZ + c] + b[c];
+      }
+      return;
+    }
+    if (i + 1 < n_run)
+      stage_first_slabs<false>(wpack + m.w_off[i + 1], m.np_[i + 1], m.kp[i + 1], m.np_[i + 1], ring);
+    for (int idx = tid; idx < kChainTP * (np / 4); idx += kChainThreads) {
+      const int p = idx / (np / 4), c = (idx % (np / 4)) * 4;
+      float z[4], bb[4], h[4];
+      ld_f4(Z + p * kLdZ + c, z);
+      ld_f4(b + c, bb);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        z[k] = c + k < o ? z[k] + bb[k] : 0.0f;
+        h[k] = fmaxf(z[k], 0.0f);
+      }
+      st_bf4(act + p * kLdX + c, h);
+      if (MODE != kMlpPlain && p0 + p < n) st_bf4(zs + (size_t)(p0 + p) * m.zt + m.z_off[i] + c, z);
+    }
   }
 }
 
-// G (RECOMPUTE = false: z_i from F's bf16 stash) and J (RECOMPUTE = true:
-// the block first reruns the hidden layers and keeps its z_i in f32 in
-// shared memory).  The two give the same gradients: the ReLU backward reads
-// only the sign of z_i and bf16(relu(z_i)), which a bf16 z_i keeps.
-template <bool RECOMPUTE>
-__global__ void __launch_bounds__(kThreads)
-    mlp_bwd_kernel(const float* __restrict__ x, const bf16* __restrict__ zs, const float* __restrict__ g,
-                   const bf16* __restrict__ wpack, const float* __restrict__ bpack, float* __restrict__ dx,
-                   bf16* __restrict__ scratch, float* __restrict__ partial, int n, const MlpMeta m,
-                   const DwJobs jobs, int bt) {
+// The backward chain of one 64-point block at the bf16 stash zs: G1, and J2
+// on J1's transient stash.  G_i = G [z_i > 0] (the cotangent g at the
+// output layer), then G <- G_i W_i^T, down to dx.
+__global__ void __launch_bounds__(kChainThreads)
+    mlp_bwd_chain_kernel(const float* __restrict__ x, const bf16* __restrict__ zs, const float* __restrict__ g,
+                         const bf16* __restrict__ wpack, float* __restrict__ dx, bf16* __restrict__ scratch,
+                         float* __restrict__ partial, int n, const MlpMeta m, const DwJobs jobs, int bt) {
   extern __shared__ __align__(128) unsigned char smem[];
-  float* Gf = reinterpret_cast<float*>(smem);  // [kTP][kLdX] the running cotangent
-  float* Z = Gf + kTP * kLdX;                  // [kTP][kLdX] product output
-  bf16* act = reinterpret_cast<bf16*>(Z + kTP * kLdX);
-  float* zsm = reinterpret_cast<float*>(act + kTP * kLdA);  // RECOMPUTE: [kTP][zt] f32
-  const int tid = threadIdx.x, p0 = blockIdx.x * kTP;
-  const int last = m.n_lin - 1;
-  float* prow = partial + (size_t)blockIdx.x * bt;
-  if (RECOMPUTE) {
-    bf16* xin = reinterpret_cast<bf16*>(Gf);  // Gf is free until the chain starts
-    load_input_tile(x, xin, p0, n, m);
-    mlp_hidden_layers(xin, act, Z, wpack, bpack, m, [&](int p, int col, float z) { zsm[p * m.zt + col] = z; });
-  }
-  auto zval = [&](int p, int col) -> float {
-    if (p0 + p >= n) return 0.0f;
-    return RECOMPUTE ? zsm[p * m.zt + col] : bf(zs[(size_t)(p0 + p) * m.zt + col]);
+  float* Gf = reinterpret_cast<float*>(smem);                 // [kChainTP][kLdZ] the running cotangent
+  bf16* act = reinterpret_cast<bf16*>(Gf + kChainTP * kLdZ);  // [kChainTP][kLdA] the product's operand
+  bf16* ring = act + kChainTP * kLdA;
+  const int tid = threadIdx.x, p0 = blockIdx.x * kChainTP;
+  const int last = m.n_lin - 1, d0 = m.d0;
+  // Four columns of the stash (zero past N).
+  auto z4 = [&](int p, int col, float* v) {
+    if (p0 + p < n)
+      ld_bf4(zs + (size_t)(p0 + p) * m.zt + col, v);
+    else
+      v[0] = v[1] = v[2] = v[3] = 0.0f;
   };
 
-  for (int idx = tid; idx < kTP * m.np_[last]; idx += kThreads) {
-    const int p = idx / m.np_[last], c = idx % m.np_[last];
-    Gf[p * kLdX + c] = c < m.d_out && p0 + p < n ? g[(size_t)(p0 + p) * m.d_out + c] : 0.0f;
-  }
-  __syncthreads();
+  stage_first_slabs<true>(wpack + m.w_off[last], m.np_[last], m.np_[last], min(m.kp[last], kWMax), ring);
   for (int i = last; i >= 0; --i) {
     const int np = m.np_[i], o = m.out_dim[i], kp = m.kp[i], in = m.in_dim[i];
     bf16* Aop = scratch + jobs.a_off[i];
     bf16* Bop = scratch + jobs.b_off[i];
-    for (int idx = tid; idx < kTP * np; idx += kThreads) {
-      const int p = idx / np, c = idx % np;
-      float v = c < o ? Gf[p * kLdX + c] : 0.0f;
-      if (i < last) v = v * (zval(p, m.z_off[i] + c) > 0.0f ? 1.0f : 0.0f);
-      Gf[p * kLdX + c] = v;
-      const bf16 vb = to_bf16(v);
-      act[p * kLdA + c] = vb;
-      Bop[(size_t)(p0 + p) * np + c] = vb;
+    if (i < last) stage_first_slabs<true>(wpack + m.w_off[i], np, np, min(kp, kWMax), ring);
+    // G_i in f32 (for the bias sums), and in bf16 as the product's operand
+    // and dW_i's B operand.
+    for (int idx = tid; idx < kChainTP * (np / 4); idx += kChainThreads) {
+      const int p = idx / (np / 4), c = (idx % (np / 4)) * 4;
+      float v[4], z[4];
+      if (i == last) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = c + k < o && p0 + p < n ? g[(size_t)(p0 + p) * m.d_out + c + k] : 0.0f;
+      } else {
+        ld_f4(Gf + p * kLdZ + c, v);
+        z4(p, m.z_off[i] + c, z);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = c + k < o ? v[k] * (z[k] > 0.0f ? 1.0f : 0.0f) : 0.0f;
+      }
+      st_f4(Gf + p * kLdZ + c, v);
+      st_bf4(act + p * kLdA + c, v);
+      st_bf4(Bop + (size_t)(p0 + p) * np + c, v);
     }
-    for (int idx = tid; idx < kTP * kp; idx += kThreads) {
-      const int p = idx / kp, c = idx % kp;
-      float v = 0.0f;
-      if (c < in && p0 + p < n)
-        v = i == 0 ? x[(size_t)(p0 + p) * m.d0 + c] : fmaxf(zval(p, m.z_off[i - 1] + c), 0.0f);
-      Aop[(size_t)(p0 + p) * kp + c] = to_bf16(v);
+    // dW_i's A operand: the layer's input in bf16 (x, or relu(z_{i-1})).
+    for (int idx = tid; idx < kChainTP * (kp / 4); idx += kChainThreads) {
+      const int p = idx / (kp / 4), c = (idx % (kp / 4)) * 4;
+      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (p0 + p < n) {
+        if (i == 0) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (c + k < in) v[k] = x[(size_t)(p0 + p) * d0 + c + k];
+        } else {
+          z4(p, m.z_off[i - 1] + c, v);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) v[k] = c + k < in ? fmaxf(v[k], 0.0f) : 0.0f;
+        }
+      }
+      st_bf4(Aop + (size_t)(p0 + p) * kp + c, v);
     }
     __syncthreads();
-    for (int c = tid; c < np; c += kThreads) {
+    // db_i's partial sums: one row per kSumRows points, summed in point
+    // order.  The product below begins with a barrier, so these reads of
+    // Gf finish before it overwrites Gf.
+    for (int idx = tid; idx < (kChainTP / kSumRows) * np; idx += kChainThreads) {
+      const int q = idx / np, c = idx % np;
       float s = 0.0f;
-      for (int p = 0; p < kTP; ++p) s += Gf[p * kLdX + c];
-      prow[m.b_off[i] + c] = s;
+      for (int p = q * kSumRows; p < (q + 1) * kSumRows; ++p) s += Gf[p * kLdZ + c];
+      partial[((size_t)blockIdx.x * (kChainTP / kSumRows) + q) * bt + m.b_off[i] + c] = s;
     }
-    gemm_rows16<true, kWarps>(act, kLdA, wpack + m.w_off[i], np, np, kp, Z, kLdX);
-    __syncthreads();
-    for (int idx = tid; idx < kTP * kp; idx += kThreads) {
-      const int p = idx / kp, c = idx % kp;
-      Gf[p * kLdX + c] = c < in ? Z[p * kLdX + c] : 0.0f;
+    if (i > 0) {
+      gemm_rows64<true>(act, kLdA, wpack + m.w_off[i], np, np, kp, Gf, kLdZ, ring);
+      __syncthreads();
+      continue;
     }
-    __syncthreads();
-  }
-  for (int idx = tid; idx < kTP * m.d0; idx += kThreads) {
-    const int p = idx / m.d0, c = idx % m.d0;
-    if (p0 + p < n) dx[(size_t)(p0 + p) * m.d0 + c] = Gf[p * kLdX + c];
+    // dx = G_0 W_0^T, in column passes of at most kWMax, each stored to dx.
+    for (int c0 = 0; c0 < kp; c0 += kWMax) {
+      const int nc = min(kp - c0, kWMax);
+      const bf16* W = wpack + m.w_off[0] + (size_t)c0 * np;  // rows c0.. of W_0 [kp, np]
+      if (c0 > 0) stage_first_slabs<true>(W, np, np, nc, ring);
+      gemm_rows64<true>(act, kLdA, W, np, np, nc, Gf, kLdZ, ring);
+      __syncthreads();
+      for (int idx = tid; idx < kChainTP * nc; idx += kChainThreads) {
+        const int p = idx / nc, c = idx % nc;
+        if (p0 + p < n && c0 + c < d0) dx[(size_t)(p0 + p) * d0 + c0 + c] = Gf[p * kLdZ + c];
+      }
+    }
   }
 }
 
-size_t fwd_smem() { return kTP * kLdX * sizeof(bf16) + kTP * kLdA * sizeof(bf16) + kTP * kLdZ * sizeof(float); }
-size_t bwd_smem(const MlpMeta& m, bool recompute) {
-  return 2 * kTP * kLdX * sizeof(float) + kTP * kLdA * sizeof(bf16) + (recompute ? kTP * m.zt * sizeof(float) : 0);
-}
+int nblocks(int n) { return (n + kChainTP - 1) / kChainTP; }
 
-template <bool STASH>
-int launch_fwd(const float* x, const void* wpack, const float* bpack, float* out, void* zs, int n, const int* meta,
-               void* stream) {
-  MlpMeta m;
-  int rc = parse_mlp_meta(meta, &m);
-  if (rc || n <= 0) return rc;
-  rc = (int)cudaFuncSetAttribute(mlp_fwd_kernel<STASH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)fwd_smem());
+template <int MODE>
+int launch_fwd(const float* x, const bf16* wpack, const float* bpack, float* out, bf16* zs, int n, const MlpMeta& m,
+               cudaStream_t stream) {
+  int rc = (int)cudaFuncSetAttribute(mlp_fwd_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)kMlpFwdSmem);
   if (rc) return rc;
-  mlp_fwd_kernel<STASH><<<(n + kTP - 1) / kTP, kThreads, fwd_smem(), (cudaStream_t)stream>>>(
-      x, (const bf16*)wpack, bpack, out, (bf16*)zs, n, m);
+  mlp_fwd_kernel<MODE><<<nblocks(n), kChainThreads, kMlpFwdSmem, stream>>>(x, wpack, bpack, out, zs, n, m);
   return (int)cudaGetLastError();
 }
 
-template <bool RECOMPUTE>
-int launch_bwd(const float* x, const void* zs, const float* g, const void* wpack, const float* bpack, float* dx,
-               void* scratch, float* partial, float* colsum, float* part_dw, float* dw, const long long* jobs,
-               int n_jobs, int split, int n, const int* meta, void* stream) {
-  MlpMeta m;
-  int rc = parse_mlp_meta(meta, &m);
-  if (rc) return rc;
-  DwJobs J;
-  rc = parse_jobs(jobs, n_jobs, &J);
-  if (rc) return rc;
-  if (n_jobs != m.n_lin) return (int)cudaErrorInvalidValue;
-  if (n <= 0) return 0;
-  const size_t smem = bwd_smem(m, RECOMPUTE);
-  rc = (int)cudaFuncSetAttribute(mlp_bwd_kernel<RECOMPUTE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The chain, then dw_sum.cuh's passes over its nblk * kChainTP / kSumRows
+// rows of bias sums.
+int launch_chain(const float* x, const bf16* zs, const float* g, const bf16* wpack, float* dx, bf16* scratch,
+                 float* partial, float* colsum, float* part_dw, float* dw, const DwJobs& J, int split, int n,
+                 const MlpMeta& m, cudaStream_t stream) {
+  int rc = (int)cudaFuncSetAttribute(mlp_bwd_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)kMlpChainSmem);
   if (rc) return rc;
   int bt = 0;
   for (int i = 0; i < m.n_lin; ++i) bt += m.np_[i];
-  const int nblk = (n + kTP - 1) / kTP;
-  cudaStream_t s = (cudaStream_t)stream;
-  mlp_bwd_kernel<RECOMPUTE><<<nblk, kThreads, smem, s>>>(x, (const bf16*)zs, g, (const bf16*)wpack, bpack, dx,
-                                                         (bf16*)scratch, partial, n, m, J, bt);
+  const int nblk = nblocks(n);
+  mlp_bwd_chain_kernel<<<nblk, kChainThreads, kMlpChainSmem, stream>>>(x, zs, g, wpack, dx, scratch, partial, n, m,
+                                                                       J, bt);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
-  return launch_dw_sums((const bf16*)scratch, part_dw, dw, J, split, partial, nblk, bt, colsum, s);
+  return launch_dw_sums(scratch, part_dw, dw, J, split, partial, nblk * (kChainTP / kSumRows), bt, colsum, stream);
+}
+
+int parse_bwd(const int* meta, const long long* jobs, int n_jobs, MlpMeta* m, DwJobs* J) {
+  int rc = parse_mlp_meta(meta, m);
+  if (rc) return rc;
+  rc = parse_jobs(jobs, n_jobs, J);
+  if (rc) return rc;
+  return n_jobs != m->n_lin ? (int)cudaErrorInvalidValue : 0;
 }
 
 }  // namespace
 
 extern "C" int mlp_stash_fwd(const float* x, const void* wpack, const float* bpack, float* out, void* zs, int n,
                              const int* meta, void* stream) {
-  return launch_fwd<true>(x, wpack, bpack, out, zs, n, meta, stream);
+  MlpMeta m;
+  const int rc = parse_mlp_meta(meta, &m);
+  if (rc || n <= 0) return rc;
+  return launch_fwd<kMlpStash>(x, (const bf16*)wpack, bpack, out, (bf16*)zs, n, m, (cudaStream_t)stream);
 }
 
 extern "C" int mlp_fwd(const float* x, const void* wpack, const float* bpack, float* out, int n, const int* meta,
                        void* stream) {
-  return launch_fwd<false>(x, wpack, bpack, out, nullptr, n, meta, stream);
+  MlpMeta m;
+  const int rc = parse_mlp_meta(meta, &m);
+  if (rc || n <= 0) return rc;
+  return launch_fwd<kMlpPlain>(x, (const bf16*)wpack, bpack, out, nullptr, n, m, (cudaStream_t)stream);
 }
 
 extern "C" int mlp_stash_bwd(const float* x, const void* zs, const float* g, const void* wpack, float* dx,
                              void* scratch, float* partial, float* colsum, float* part_dw, float* dw,
                              const long long* jobs, int n_jobs, int split, int n, const int* meta, void* stream) {
-  return launch_bwd<false>(x, zs, g, wpack, nullptr, dx, scratch, partial, colsum, part_dw, dw, jobs, n_jobs, split,
-                           n, meta, stream);
+  MlpMeta m;
+  DwJobs J;
+  const int rc = parse_bwd(meta, jobs, n_jobs, &m, &J);
+  if (rc || n <= 0) return rc;
+  return launch_chain(x, (const bf16*)zs, g, (const bf16*)wpack, dx, (bf16*)scratch, partial, colsum, part_dw, dw, J,
+                      split, n, m, (cudaStream_t)stream);
 }
 
-extern "C" int mlp_bwd(const float* x, const float* g, const void* wpack, const float* bpack, float* dx,
+// J: the recompute pass J1 into the transient stash zsc [N, ZT], then the
+// chain on it.
+extern "C" int mlp_bwd(const float* x, const float* g, const void* wpack, const float* bpack, void* zsc, float* dx,
                        void* scratch, float* partial, float* colsum, float* part_dw, float* dw, const long long* jobs,
                        int n_jobs, int split, int n, const int* meta, void* stream) {
-  return launch_bwd<true>(x, nullptr, g, wpack, bpack, dx, scratch, partial, colsum, part_dw, dw, jobs, n_jobs, split,
-                          n, meta, stream);
+  MlpMeta m;
+  DwJobs J;
+  int rc = parse_bwd(meta, jobs, n_jobs, &m, &J);
+  if (rc || n <= 0) return rc;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (m.n_lin > 1) {
+    rc = launch_fwd<kMlpRecompute>(x, (const bf16*)wpack, bpack, nullptr, (bf16*)zsc, n, m, s);
+    if (rc) return rc;
+  }
+  return launch_chain(x, (const bf16*)zsc, g, (const bf16*)wpack, dx, (bf16*)scratch, partial, colsum, part_dw, dw, J,
+                      split, n, m, s);
 }
 
 extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

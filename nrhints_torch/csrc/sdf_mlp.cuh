@@ -1,9 +1,8 @@
 // Shared pieces of the kernels that evaluate the SDF MLP on the card
 // (sdf_fwd.cuh: kernels A, D and H's forward pass; march_common.cuh: the
-// march sweeps of kernels C, K, L, M and N) and
-// of the trunk kernels (mlp_stash.cu): the packed-weight layout,
-// the frequency encoding, the one-exp softplus(100) gate, and the trunk
-// kernels' WMMA bf16 product over 16-row tiles.
+// march sweeps of kernels C, K, L, M and N) and of the trunk kernels
+// (mlp_stash.cu): the packed-weight layout, the widths and tile strides,
+// the frequency encoding and the one-exp softplus(100) gate.
 //
 // Packed weights (built by nrhints_torch/kernels/core_mlp.py::pack_sdf_mlp):
 //   wpack  bf16, per hidden layer i a zero-padded [kp_i, np_i] row-major
@@ -19,23 +18,18 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
-#include <type_traits>
-
 namespace nrh {
 
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
 
 constexpr int kMaxLayers = 16;
-constexpr int kWMax = 256;        // widest padded layer input or output
+constexpr int kWMax = 256;        // widest padded layer output, and input but the trunk's first (mlp_stash.cu)
 constexpr int kEncMax = 64;       // widest padded frequency encoding
 constexpr int kLdA = kWMax + 8;   // bf16 row stride of activation tiles
 constexpr int kLdZ = kWMax + 4;   // f32 row stride of accumulator tiles
 constexpr float kInvSqrt2 = 0.70710678118654752440f;
 constexpr float kHalfPi = 1.57079632679489661923f;
-constexpr int kTP = 16;                  // points per block of the trunk kernels F, G, I, J (one WMMA row tile)
-constexpr int kThreads = 256;            // threads per block of those kernels
-constexpr int kWarps = kThreads / 32;
 
 struct SdfMeta {
   int n_layers, multi_res, d0, d_feat, d_last, kpf, npf, wf_off, bf_off, gates_total;
@@ -111,32 +105,6 @@ __device__ __forceinline__ float freq_channel(const float* xs, const float* ts, 
     *tan = is_cos ? -tsc * sin_b : tsc * cos_b;
   }
   return is_cos ? cos_b : sin_b;
-}
-
-// C[16, N] = A[16, K] @ B over the block's warps, one 16x16 output tile per
-// warp at a time; K and N are multiples of 16.  B is the [K, N] row-major
-// weight (TRANS_B = false) or, for the reverse sweep, the transpose of a
-// [N, K] row-major weight with row stride ldb (TRANS_B = true).
-template <bool TRANS_B, int NWARPS>
-__device__ void gemm_rows16(const bf16* A, int lda, const bf16* __restrict__ B, int ldb, int K,
-                            int N, float* C, int ldc) {
-  const int warp = threadIdx.x >> 5;
-  using LayoutB = typename std::conditional<TRANS_B, wmma::col_major, wmma::row_major>::type;
-  for (int nt = warp; nt < N / 16; nt += NWARPS) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kt = 0; kt < K / 16; ++kt) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> b;
-      wmma::load_matrix_sync(a, A + kt * 16, lda);
-      if (TRANS_B)
-        wmma::load_matrix_sync(b, B + (size_t)nt * 16 * ldb + kt * 16, ldb);
-      else
-        wmma::load_matrix_sync(b, B + (size_t)kt * 16 * ldb + nt * 16, ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(C + nt * 16, acc, ldc, wmma::mem_row_major);
-  }
 }
 
 }  // namespace nrh

@@ -1,6 +1,7 @@
-// The staged bf16 products of the SDF core's 64-point kernels: its forward
-// (sdf_fwd.cuh, kernels A, D and H's first pass) and its backward chain
-// (sdf_bwd.cuh, kernels E and H), and of the weight-cotangent passes
+// The staged bf16 products of the 64-point kernels: the SDF core's forward
+// (sdf_fwd.cuh, kernels A, D and H's first pass) and backward chain
+// (sdf_bwd.cuh, kernels E and H), the reflectance trunk's forward and chain
+// (mlp_stash.cu, kernels F, G, I and J), and the weight-cotangent passes
 // (dw_sum.cuh, kernels E, G, H and J): operands copied into shared memory
 // by cp.async (16-byte copies, a ring of stages, the next slabs in flight
 // while the warps run WMMA on the current one), fragments read from shared
@@ -18,11 +19,13 @@
 // consecutive columns of one point per item (the ld_ / st_ helpers below).
 #pragma once
 
+#include <type_traits>
+
 #include "sdf_mlp.cuh"
 
 namespace nrh {
 
-constexpr int kChainTP = 64;         // points per block of the SDF core's forward and backward chain (A, D, E, H)
+constexpr int kChainTP = 64;         // points per block of the 64-point kernels (A, D, E, H; F, G, I, J)
 constexpr int kChainThreads = 512;   // threads per block of those kernels
 constexpr int kSlab = 64;            // k-rows of a weight slab in the chain's ring
 constexpr int kChainStages = 3;      // slabs in the ring
@@ -98,13 +101,17 @@ __device__ __forceinline__ void stage_first_slabs(const bf16* __restrict__ B, in
   for (int s = 0; s < kChainStages - 1; ++s) stage_slab<TRANS_B>(B, ldb, K, N, ring, s);
 }
 
-// C[64, N] = A[64, K] @ B after stage_first_slabs with the same arguments;
-// K and N are multiples of 16, at most kWMax.  B is the [K, N] row-major
-// weight (TRANS_B = false) or the transpose of an [N, K] row-major weight
-// with row stride ldb (TRANS_B = true; a slab is then N rows of kSlab
-// columns, read as column-major fragments).  Every thread must call it.  It
-// begins with a barrier (so A may be written just before) and returns with
-// the ring free; C is complete after the caller's next __syncthreads().
+// C[64, N] = A[64, K] @ B after stage_first_slabs with the same arguments.
+// K and N are multiples of 16.  N is at most kWMax: the warps' 8 column
+// tiles of 32, and a ring stage holds a slab of at most kWMax columns (or,
+// transposed, rows).  K has no limit of its own: it is walked in kSlab-row
+// slabs, the last one partial, and A's row stride lda must cover it (the
+// trunk's first layer has K = 368).  B is the [K, N] row-major weight
+// (TRANS_B = false) or the transpose of an [N, K] row-major weight with row
+// stride ldb (TRANS_B = true; a slab is then N rows of kSlab columns, read
+// as column-major fragments).  Every thread must call it.  It begins with a
+// barrier (so A may be written just before) and returns with the ring free;
+// C is complete after the caller's next __syncthreads().
 template <bool TRANS_B>
 __device__ void gemm_rows64(const bf16* A, int lda, const bf16* __restrict__ B, int ldb, int K, int N, float* C,
                             int ldc, bf16* ring) {

@@ -235,8 +235,9 @@ def require_cuda(t: torch.Tensor, shape: tuple, name: str, dtype=torch.float32) 
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-TP = 16  # points per block of the trunk kernels F, G, I, J (the rows of one WMMA tile)
-CHAIN_TP = 64  # points per block of the SDF core's kernels A, D, E, H (csrc/staged_mma.cuh::kChainTP)
+CHAIN_TP = 64  # points per block of kernels A, D, E, H and F, G, I, J (csrc/staged_mma.cuh::kChainTP)
+IN_MAX = 384  # widest padded trunk input (csrc/mlp_stash.cu::kInMax)
+SUM_ROWS = 16  # points per row of the trunk's bias sums (csrc/mlp_stash.cu::kSumRows)
 ENC_MAX = 64  # widest padded frequency encoding (csrc/sdf_mlp.cuh::kEncMax)
 MAX_SPLIT = 16  # row chunks of the weight-cotangent products
 
@@ -260,6 +261,16 @@ def chain_layout(n: int, gates_total: int) -> tuple[int, int, int]:
     return nblk, npad, npad * (gates_total + 4 * ENC_MAX)
 
 
+def trunk_layout(n: int, zt: int) -> tuple[int, int, int, int]:
+    """-> (blocks, padded points, rows of the bias sums, bf16 elements of
+    kernel J's transient z stash) of the trunk's kernels (``csrc/mlp_stash.cu``)
+    at n points and ZT stash columns: 64-point blocks; one row of f32 column
+    sums of every G_i per ``SUM_ROWS`` padded points; J's stash has kernel
+    F's layout [n, ZT]."""
+    nblk, npad, _ = gate_layout(n, 0)
+    return nblk, npad, npad // SUM_ROWS, n * zt
+
+
 def materialize_mlp_weights(params: dict, n_layers: int) -> tuple:
     """Reflectance weight-norm params -> (w0, b0, ..., w_n, b_n), w [in, out]
     and b [out]."""
@@ -276,10 +287,10 @@ def pack_mlp(weights: Sequence[torch.Tensor], n_layers: int) -> dict:
     kp, np, w_off, b_off, z_off]; ZT is the width of the packed z_i."""
     dev = weights[0].device
     dims = [(weights[2 * i].shape[0], weights[2 * i].shape[1]) for i in range(n_layers + 1)]
-    if max(_round16(o) for _, o in dims) > 256 or _round16(dims[0][0]) > 512 or any(
+    if max(_round16(o) for _, o in dims) > 256 or _round16(dims[0][0]) > IN_MAX or any(
         _round16(i) > 256 for i, _ in dims[1:]
     ):
-        raise NotImplementedError("the CUDA trunk kernels take hidden widths up to 256 and inputs up to 512")
+        raise NotImplementedError(f"the CUDA trunk kernels take hidden widths up to 256 and inputs up to {IN_MAX}")
     meta, w_off, b_off, z_off = [], 0, 0, 0
     for din, dout in dims:
         kp, np_ = _round16(din), _round16(dout)
@@ -437,7 +448,7 @@ def sdf_core_bwd(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None):
 
 def mlp_fwd(weights, x: torch.Tensor, n_layers: int, pk: dict | None = None) -> torch.Tensor:
     """Kernel I on the card -> out [N, d_out] f32 (kernel F without its
-    stash)."""
+    stash; ``trunk_layout``'s 64-point blocks)."""
     pk = pack_mlp(weights, n_layers) if pk is None else pk
     meta = pk["meta"]
     n, dev = x.shape[0], x.device
@@ -455,10 +466,10 @@ def mlp_fwd(weights, x: torch.Tensor, n_layers: int, pk: dict | None = None) -> 
 def mlp_bwd_launch(weights, x: torch.Tensor, g: torch.Tensor, n_layers: int, pk: dict | None = None,
                    zs: torch.Tensor | None = None):
     """The trunk's backward on the card -> (dws, dx): kernel G at the bf16
-    ``zs`` stash of kernel F, or, with ``zs=None``, kernel J, whose blocks
-    first recompute their z_i in shared memory.  Both run the per-point
-    chain, then the same split-K dW products and in-order sums as kernel
-    E."""
+    ``zs`` stash of kernel F, or, with ``zs=None``, kernel J, which first
+    recomputes the z_i into a transient stash of F's layout (freed when this
+    returns).  Both run the per-point chain on 64-point blocks, then the same
+    split-K dW products and in-order sums as kernel E (``trunk_layout``)."""
     pk = pack_mlp(weights, n_layers) if pk is None else pk
     meta = pk["meta"]
     n_lin, d0, d_out, zt = (int(v) for v in meta[:4])
@@ -468,23 +479,23 @@ def mlp_bwd_launch(weights, x: torch.Tensor, g: torch.Tensor, n_layers: int, pk:
         require_cuda(zs, (n, zt), "zs", torch.bfloat16)
     require_cuda(g, (n, d_out), "g")
     layers = [tuple(int(v) for v in meta[4 + 7 * i : 11 + 7 * i]) for i in range(n_lin)]
-    nblk = -(-n // TP)
-    npad = nblk * TP
+    _, npad, sum_rows, n_zs = trunk_layout(n, zt)
     jobs, n_scratch, n_dw = dw_jobs([(npad, lay[2], lay[3]) for lay in layers])
     split = dw_split(npad)
     bt = sum(lay[3] for lay in layers)
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty((n, d0), **f32)
     scratch = torch.empty(n_scratch, dtype=torch.bfloat16, device=dev)
-    partial = torch.empty((nblk, bt), **f32)
+    partial = torch.empty((sum_rows, bt), **f32)
     colsum = torch.empty(bt, **f32)
     part_dw = torch.empty((split, n_dw), **f32)
     dw = torch.empty(n_dw, **f32)
     tail = (dx.data_ptr(), scratch.data_ptr(), partial.data_ptr(), colsum.data_ptr(), part_dw.data_ptr(),
             dw.data_ptr(), jobs.ctypes.data, len(jobs), split, n, meta.ctypes.data, cuda_lib.stream_ptr(dev))
     if n > 0 and zs is None:
+        zsc = torch.empty(n_zs, dtype=torch.bfloat16, device=dev)
         _launch(cuda_lib.load("mlp_stash"), "mlp_bwd", "mlp_bwd", x.data_ptr(), g.data_ptr(), pk["wpack"].data_ptr(),
-                pk["bpack"].data_ptr(), *tail)
+                pk["bpack"].data_ptr(), zsc.data_ptr(), *tail)
     elif n > 0:
         _launch(cuda_lib.load("mlp_stash"), "mlp_stash_bwd", "mlp_stash_bwd", x.data_ptr(), zs.data_ptr(),
                 g.data_ptr(), pk["wpack"].data_ptr(), *tail)

@@ -233,7 +233,8 @@ def mlp_stash_columns(pk: dict) -> list[tuple[int, int]]:
 
 
 def mlp_stash_fwd(weights, x: torch.Tensor, n_layers: int, pk: dict | None = None):
-    """Kernel F on the card -> (out [N, d_out] f32, zs stash [N, ZT] bf16)."""
+    """Kernel F on the card -> (out [N, d_out] f32, zs stash [N, ZT] bf16),
+    on ``core_mlp.trunk_layout``'s 64-point blocks."""
     pk = pack_mlp(weights, n_layers) if pk is None else pk
     meta = pk["meta"]
     n, dev = x.shape[0], x.device

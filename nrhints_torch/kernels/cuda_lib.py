@@ -55,7 +55,7 @@ _SIGNATURES = {
         "mlp_stash_fwd": [_P, _P, _P, _P, _P, _I, _P, _P],
         "mlp_fwd": [_P, _P, _P, _P, _I, _P, _P],
         "mlp_stash_bwd": [_P] * 11 + [_I, _I, _I, _P, _P],
-        "mlp_bwd": [_P] * 11 + [_I, _I, _I, _P, _P],
+        "mlp_bwd": [_P] * 12 + [_I, _I, _I, _P, _P],
     },
     "march": {
         "round_machinery": [_P] * 9 + [_I, _I, _I, _F, _I, _P],

@@ -79,6 +79,9 @@ def _close_rel(k, p, tol):
 # two blocks, and 4,161 = 65 x 64 + 1 has a ragged last block past 4,096
 # points (several dW row chunks of E and H).
 SDF_BWD_N = [1, 63, 64, 65, 100, 1000, 4161]
+# The trunk kernels F, G, I and J run on the same 64-point blocks: 64 is one
+# block exactly, 65 one block and a ragged row.
+TRUNK_N = [1, 64, 65, 100, 1000]
 
 
 @pytest.mark.gpu
@@ -215,7 +218,7 @@ def test_sdf_stash_kernels_match_plain(cuda, cfg, n):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dims", [(45, 32, 32, 3), (361, 256, 256, 256, 256, 3)], ids=["small", "full"])
-@pytest.mark.parametrize("n", [1, 100, 1000])
+@pytest.mark.parametrize("n", TRUNK_N)
 def test_mlp_stash_kernels_match_plain(cuda, dims, n):
     """Kernels F and G against the plain trunk forward and backward."""
     from nrhints_torch.fields.mlp import torch_default_linear_init
@@ -325,7 +328,7 @@ def test_sdf_core_bwd_matches_plain(cuda, cfg, n):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dims", [(45, 32, 32, 3), (361, 256, 256, 256, 256, 3)], ids=["small", "full"])
-@pytest.mark.parametrize("n", [1, 100, 1000])
+@pytest.mark.parametrize("n", TRUNK_N)
 def test_mlp_recompute_kernels_match_plain(cuda, dims, n):
     """Kernels I and J against the plain trunk and its backward; I equals
     F's output and J equals G at F's stash, bit for bit; J repeats."""

@@ -582,20 +582,45 @@ def test_sdf_fwd_gate_layout(n, nblk):
     assert n_gates == npad * 2016
 
 
+@pytest.mark.parametrize("n, nblk", [(1, 1), (63, 1), (64, 1), (65, 2), (4161, 66), (65536, 1024), (65537, 1025)])
+def test_trunk_layout(n, nblk):
+    """The trunk kernels F, G, I, J on 64-point blocks: padded points, one
+    row of bias sums per 16 padded points, J's transient bf16 z stash in
+    F's layout (1,024 columns at full width, 134 MB at 65,536 points), and
+    the dW row chunks: at one train step's 65,536 points the same as on
+    16-point blocks, so the dW sums run in the same order."""
+    got_blk, npad, rows, n_zs = tcm.trunk_layout(n, 1024)
+    assert (got_blk, npad) == (nblk, nblk * 64) and npad >= n > npad - 64
+    assert rows == 4 * nblk and rows * tcm.SUM_ROWS == npad
+    assert n_zs == n * 1024
+    assert tcm.dw_split(npad) == min(16, max(1, npad // 1024))
+    if n == 65536:
+        assert n_zs * 2 == 134_217_728 and tcm.dw_split(npad) == tcm.dw_split(-(-n // 16) * 16)
+
+
 def test_chain_constants_match_the_headers():
-    """CHAIN_TP and ENC_MAX in Python are the constants the CUDA chain and
-    the SDF forward are compiled with; the forward launches kChainTP-point
-    blocks of kChainThreads threads and has no 16-point code left."""
+    """CHAIN_TP, ENC_MAX, IN_MAX and SUM_ROWS in Python are the constants the
+    CUDA kernels are compiled with; the SDF forward and the trunk kernels
+    launch kChainTP-point blocks of kChainThreads threads, and no 16-point
+    code (kTP, kThreads, gemm_rows16) is left in any source."""
     def const(header, name):
         m = re.search(rf"constexpr int {name} = (\d+);", (cuda_lib.CSRC / header).read_text())
         return int(m.group(1))
 
     assert const("staged_mma.cuh", "kChainTP") == tcm.CHAIN_TP == 64
     assert const("sdf_mlp.cuh", "kEncMax") == tcm.ENC_MAX
-    assert const("sdf_mlp.cuh", "kTP") == tcm.TP
+    assert const("mlp_stash.cu", "kInMax") == tcm.IN_MAX
+    assert const("mlp_stash.cu", "kSumRows") == tcm.SUM_ROWS
     fwd = (cuda_lib.CSRC / "sdf_fwd.cuh").read_text()
     assert "<<<(n + kChainTP - 1) / kChainTP, kChainThreads, kFwdSmem" in fwd
-    assert not re.search(r"\bkTP\b|\bkThreads\b|gemm_rows16", fwd)
+    trunk = (cuda_lib.CSRC / "mlp_stash.cu").read_text()
+    assert "<<<nblocks(n), kChainThreads, kMlpFwdSmem" in trunk
+    assert "<<<nblk, kChainThreads, kMlpChainSmem" in trunk
+    assert "return (n + kChainTP - 1) / kChainTP;" in trunk
+    assert trunk.count("gemm_rows64<") == 3 and "wmma::" not in trunk  # every product through gemm_rows64
+    for path in sorted(cuda_lib.CSRC.iterdir()):
+        assert not re.search(r"\bkTP\b|\bkThreads\b|\bkWarps\b|gemm_rows16", path.read_text()), path.name
+    assert not hasattr(tcm, "TP")
 
 
 # ---------------------------------------------------------------------------
