@@ -44,7 +44,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    warm-up steps and 5 timed, with phase 5's checks (M and N once per step).
 Phase 3 also holds kernels K (initial march sweep), L (refinement rounds),
 M (K and L in one kernel) and N (M and C's final sweep in one kernel), and
-B under the rank merge, against their plain versions.
+B under the rank merge, against their plain versions, N = C(M(.)) bit for
+bit under both merges, and times C and N by device time from one profiled
+call each.  Its inputs (march_chunk) are shared with
+scripts/compare_march.py.
 It prints a {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -274,52 +277,27 @@ def ptxas_summary(text: str) -> list[str]:
     return out
 
 
-def main() -> int:
+def march_chunk(dev) -> dict:
+    """Phase 3's inputs at the main path's shapes, made on ``dev``: the
+    full-width ``nr-hints`` model (random weights from seed 0), one 512-ray
+    chunk of the 128x128 view (4 rows through the middle), its camera rays'
+    stratified z0, the five schedule steps of kernel B (inputs captured from
+    the kernel's own run between plain 16-sample sweeps) and the refined z,
+    kernel A at the refined sections' midpoints, and the shadow rays from the
+    light to the chunk's hits: their z0, sample_dist and refined z (plain
+    sweeps and kernel B), inv_s and cos_anneal = 1."""
     import numpy as np
     import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this smoke run needs a CUDA card", file=sys.stderr)
-        return 1
-    if not (REPO / "nrhints_torch" / "__init__.py").is_file():
-        print(f"chip_smoke: no nrhints_torch package next to {__file__}", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(REPO))
     from nrhints_torch.camera.model import CameraModel
-    from nrhints_torch.camera.rays import generate_rays, ray_generator_init
-    from nrhints_torch.configs.config import nr_hints, nr_hints_cam_opt
+    from nrhints_torch.camera.rays import generate_rays
+    from nrhints_torch.configs.config import nr_hints
     from nrhints_torch.core.sampling import linspace01, stratified_z_vals, transmittance
     from nrhints_torch.core.structs import PixelBundle
-    from nrhints_torch.data.sampler import PixelSampler
-    from nrhints_torch.data.synthetic import look_at_pose, scene_views
-    from nrhints_torch.eval.evaluator import Evaluator
-    from nrhints_torch.fields.sdf import _layer_dims
+    from nrhints_torch.data.synthetic import look_at_pose
     from nrhints_torch.fields.variance import inv_s_from_params
-    from nrhints_torch.kernels import core_mlp, core_stash, cuda_lib, march
+    from nrhints_torch.kernels import core_mlp, march
     from nrhints_torch.render.renderer import _neus_alpha, init_model_params
-    from nrhints_torch.train.step import init_train_state, loss_and_grads, make_optimizer, make_train_step
-    from nrhints_torch.utils import resolve_device, tree_items
 
-    # 1. Device.
-    dev = resolve_device("cuda")
-    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    log(f"[device] {kind} x{count}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    log(smi)
-
-    # 2. Build.
-    t0 = time.perf_counter()
-    info = cuda_lib.build()
-    log(f"[build] {time.perf_counter() - t0:.1f} s wall for {', '.join(info)} into {cuda_lib.BUILD_DIR}")
-    for name, rec in info.items():
-        log(f"[build] csrc/{name}.cu: {rec['seconds']:.1f} s")
-        for line in ptxas_summary(rec["ptxas"]):
-            log(line)
-
-    # 3. Kernels at the main path's shapes: one 512-ray chunk of the view.
     cfg = nr_hints()
     mcfg, scfg = cfg.model, cfg.model.sdf_network
     H = W = 128
@@ -332,7 +310,6 @@ def main() -> int:
     pl = torch.tensor(light, dtype=torch.float32)
     gen = torch.Generator().manual_seed(0)
     renderer_params = init_model_params(mcfg, gen, device=dev)
-    params = {"renderer": renderer_params, "raygen": {}}
 
     idx = torch.arange(62 * W, 62 * W + 512, device=dev)  # 4 rows through the middle
     chunk = PixelBundle(
@@ -361,6 +338,82 @@ def main() -> int:
     steps.append((z, sdf, o, d, new_z, new_sdf, 112, None, None))
     z_imp = march.round_machinery(*steps[-1])[1]
 
+    dists = torch.cat([z_imp[:, 1:] - z_imp[:, :-1], torch.full((512, 1), 2.0 / 64, device=dev)], -1)
+    x = (o[:, None, :] + d[:, None, :] * (z_imp + dists * 0.5)[..., None]).reshape(-1, 3).contiguous()
+    aw = core_mlp.materialize_sdf_weights_full(renderer_params["sdf"], scfg)
+    k_out = core_mlp.sdf_core_fwd(aw, x, scfg)
+
+    # The shadow rays, from the light to the chunk's hits.
+    sd, _, grads = k_out
+    inv_s = inv_s_from_params(renderer_params["variance"])
+    alpha = _neus_alpha(sd, grads, d[:, None, :].expand(512, 128, 3).reshape(-1, 3), dists.reshape(-1), inv_s, 1.0)
+    alpha = alpha.reshape(512, 128)
+    depth = torch.sum((z_imp + dists * 0.5) * alpha * transmittance(alpha), -1, keepdim=True)
+    hits = o + d * depth
+    sl = pl.to(dev).expand(512, 3).contiguous()
+    dl = hits - sl
+    norm = torch.linalg.norm(dl, dim=-1, keepdim=True)
+    sdist, sdir = (norm / 64).contiguous(), (dl / norm).contiguous()
+    z0s = (linspace01(64, device=dev)[None, :] * norm * 0.99).contiguous()
+    sz = march.fused_importance_z(renderer_params["sdf"], scfg, sl, sdir, z0s, mlp_dtype=mcfg.renderer.march_dtype,
+                                  split=True, sweep_impl="xla", rounds_impl="xla")
+    anneal = torch.tensor(1.0, device=dev)
+    return dict(cfg=cfg, camera=camera, pose=pose, pl=pl, renderer_params=renderer_params, o=o, d=d, mw=mw, z0=z0,
+                steps=steps, x=x, aw=aw, k_out=k_out, sl=sl, sdir=sdir, sdist=sdist, z0s=z0s, sz=sz,
+                inv_s=inv_s, anneal=anneal)
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke run needs a CUDA card", file=sys.stderr)
+        return 1
+    if not (REPO / "nrhints_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: no nrhints_torch package next to {__file__}", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from nrhints_torch.camera.model import CameraModel
+    from nrhints_torch.camera.rays import ray_generator_init
+    from nrhints_torch.configs.config import nr_hints_cam_opt
+    from nrhints_torch.core.structs import PixelBundle
+    from nrhints_torch.data.sampler import PixelSampler
+    from nrhints_torch.data.synthetic import scene_views
+    from nrhints_torch.eval.evaluator import Evaluator
+    from nrhints_torch.fields.sdf import _layer_dims
+    from nrhints_torch.kernels import core_mlp, core_stash, cuda_lib, march
+    from nrhints_torch.render.renderer import init_model_params
+    from nrhints_torch.train.step import init_train_state, loss_and_grads, make_optimizer, make_train_step
+    from nrhints_torch.utils import resolve_device, tree_items
+
+    # 1. Device.
+    dev = resolve_device("cuda")
+    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"[device] {kind} x{count}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(smi)
+
+    # 2. Build.
+    t0 = time.perf_counter()
+    info = cuda_lib.build()
+    log(f"[build] {time.perf_counter() - t0:.1f} s wall for {', '.join(info)} into {cuda_lib.BUILD_DIR}")
+    for name, rec in info.items():
+        log(f"[build] csrc/{name}.cu: {rec['seconds']:.1f} s")
+        for line in ptxas_summary(rec["ptxas"]):
+            log(line)
+
+    # 3. Kernels at the main path's shapes: one 512-ray chunk of the view.
+    mc = march_chunk(dev)
+    cfg, camera, pose, pl, renderer_params = (mc[k] for k in ("cfg", "camera", "pose", "pl", "renderer_params"))
+    o, d, mw, z0, steps = (mc[k] for k in ("o", "d", "mw", "z0", "steps"))
+    mcfg, scfg = cfg.model, cfg.model.sdf_network
+    H, W = camera.H, camera.W
+    params = {"renderer": renderer_params, "raygen": {}}
+
     b_abs = b_rel = b_ms = b_plain_ms = b_bound = 0.0
     for args in steps:
         k_out = march.round_machinery(*args)
@@ -380,10 +433,7 @@ def main() -> int:
         raise AssertionError(f"kernel B disagrees with its plain version: rel {b_rel:.3e}")
 
     # A: the SDF core on the chunk's 128 section midpoints per ray.
-    dists = torch.cat([z_imp[:, 1:] - z_imp[:, :-1], torch.full((512, 1), 2.0 / 64, device=dev)], -1)
-    x = (o[:, None, :] + d[:, None, :] * (z_imp + dists * 0.5)[..., None]).reshape(-1, 3).contiguous()
-    aw = core_mlp.materialize_sdf_weights_full(renderer_params["sdf"], scfg)
-    k_out = core_mlp.sdf_core_fwd(aw, x, scfg)
+    x, aw, k_out = mc["x"], mc["aw"], mc["k_out"]
     p_out = core_mlp.sdf_core_plain(aw, x, scfg, "bfloat16")
     a_abs, a_rel = max_err(k_out, p_out)
     for name, k, p in zip(("sdf", "feat", "grad"), k_out, p_out):
@@ -411,20 +461,7 @@ def main() -> int:
         f"gate scratch written and read once with the inputs and outputs)")
 
     # C: the shadow march's final sweep, from the light to the chunk's hits.
-    sd, _, grads = k_out
-    inv_s = inv_s_from_params(renderer_params["variance"])
-    alpha = _neus_alpha(sd, grads, d[:, None, :].expand(512, 128, 3).reshape(-1, 3), dists.reshape(-1), inv_s, 1.0)
-    alpha = alpha.reshape(512, 128)
-    depth = torch.sum((z_imp + dists * 0.5) * alpha * transmittance(alpha), -1, keepdim=True)
-    hits = o + d * depth
-    sl = pl.to(dev).expand(512, 3).contiguous()
-    dl = hits - sl
-    norm = torch.linalg.norm(dl, dim=-1, keepdim=True)
-    sdist, sdir = (norm / 64).contiguous(), (dl / norm).contiguous()
-    z0s = (linspace01(64, device=dev)[None, :] * norm * 0.99).contiguous()
-    sz = march.fused_importance_z(renderer_params["sdf"], scfg, sl, sdir, z0s, mlp_dtype=mcfg.renderer.march_dtype,
-                                  split=True, sweep_impl="xla", rounds_impl="xla")
-    anneal = torch.tensor(1.0, device=dev)
+    sl, sdir, sdist, z0s, sz, inv_s, anneal = (mc[k] for k in ("sl", "sdir", "sdist", "z0s", "sz", "inv_s", "anneal"))
     k_tau = march.shadow_final(sz, sl, sdir, sdist, inv_s, anneal, mw, scfg)
     p_tau = march.shadow_final_plain(sz, sl, sdir, sdist, inv_s, anneal, mw, scfg)
     c_abs, c_rel = max_err([k_tau], [p_tau])
@@ -437,6 +474,12 @@ def main() -> int:
         f"{p_tau.max().item():.4f}], {c_ms:.4f} ms, plain {c_plain_ms:.4f} ms, bound {c_bound:.4f} ms ({c_by})")
     if not c_rel <= TOL["shadow_final"]:
         raise AssertionError(f"kernel C disagrees with its plain version: rel {c_rel:.3e}")
+    # C (and N below) by device time from one profiled call: below ~1 ms the
+    # CUDA events above carry the wrapper's weight packing.
+    c_dev = profiled_groups(lambda: march.shadow_final(sz, sl, sdir, sdist, inv_s, anneal, mw, scfg)).get(
+        "kernel C shadow_final", 0.0)
+    log(f"[kernel C] one profiled call, device time {c_dev:.4f} ms; bound {c_bound:.4f} ms ({c_by}), "
+        f"{c_flops / 1e9:.1f} GFLOP at {c_flops / max(c_dev, 1e-9) / 1e9:.1f} TFLOP/s")
 
     # B under the rank merge, on the five steps above: z equal to the
     # bitonic network's, everything equal to the plain rank merge's but the
@@ -517,6 +560,16 @@ def main() -> int:
         raise AssertionError(f"kernel N disagrees with its plain version: rel {n_rel:.3e}")
     if not n_is_cm:
         raise AssertionError("kernel N's tau differs from kernel C's after kernel M")
+    n_rank_is_cm = torch.equal(
+        march.shadow_march(z0s, sl, sdir, sdist, inv_s, anneal, mw, scfg, merge="rank"),
+        march.shadow_final(march.importance_march(z0s, sl, sdir, mw, scfg, merge="rank"), sl, sdir, sdist, inv_s,
+                           anneal, mw, scfg))
+    n_dev = profiled_groups(lambda: march.shadow_march(z0s, sl, sdir, sdist, inv_s, anneal, mw, scfg)).get(
+        "kernel N shadow_march", 0.0)
+    log(f"[kernel N] merge='rank': tau equals C(M(.)) bit for bit: {n_rank_is_cm}; one profiled call, device time "
+        f"{n_dev:.4f} ms; bound {n_bound:.4f} ms ({n_by})")
+    if not n_rank_is_cm:
+        raise AssertionError("kernel N's tau under the rank merge differs from kernel C's after kernel M")
 
     # D and E: the SDF stash op on the same 65,536 points (one train step's
     # core call), E at random cotangents of (sdf, feat, grad).

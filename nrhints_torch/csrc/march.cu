@@ -29,9 +29,17 @@
 // chunk of 65,536 points, 0.122 ms at 989 TFLOP/s bf16: bound by operations.
 // Design: the TPU kept 128 points x 256 x 2 streams in VMEM next to a whole
 // layer's weights; that is more than a Hopper block's 227 KB.  So a block
-// takes two rays and walks their 256 points in eight tiles of 32
-// (march_kernel's FINAL stage, sdf_tile<DUAL>): about 105 KB of shared
-// memory, two blocks per SM.
+// takes four rays on 512 threads (march_kernel's FINAL stage with WIDE: 128
+// blocks for 512 rays, one per SM, 225,952 bytes of shared memory) and
+// walks their 512 sections in eight dual passes of 64 sections and their 64
+// tangent rows (mma_rows.cuh::sdf_rows): each 64-row weight slab, staged by
+// cp.async, feeds all 128 rows through ldmatrix and mma.sync, and the gate
+// stays in registers.  Every tau equals the 32-row WMMA design's bit for
+// bit.  Measured (NVIDIA H100 80GB HBM3, 700 W): 1.04 ms of device time a
+// launch against that design's 1.645, 8.5x its bound; the epilogue's
+// softplus, the fragment loads with the MMAs, the exposed slab copies and
+// the rest (barriers, heads, encoding) take 0.30, 0.36, 0.17 and 0.26 ms
+// of it, one after another (scripts/probe_march_parts.py).
 #include "march_common.cuh"
 
 using namespace nrh;
@@ -92,8 +100,8 @@ extern "C" int shadow_final(const float* z, const float* o, const float* d, cons
                             const void* wpack, const float* bpack, const float* w_sdf,
                             const float* inv_s, const float* anneal, float* tau, int b,
                             const int* meta, float scale, void* stream) {
-  return launch_march<false, false, true, false>(z, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s,
-                                                 anneal, tau, b, meta, scale, 0.0f, stream);
+  return launch_march<false, false, true, false, true>(z, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s,
+                                                       anneal, tau, b, meta, scale, 0.0f, stream);
 }
 
 extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

@@ -8,28 +8,37 @@
 //   NeuS up-sample and deterministic inverse CDF of _round_new_z, :263).
 //   Both run on 128 threads per ray, one slot per thread; the prefix sums
 //   are warp shuffles, the inverse-CDF counts warp ballots.
-// * The tile loop of the march sweeps (sdf_tile): the 8x256 SDF MLP on 32
-//   points, bf16 weights and activations, f32 biases and nonlinearities, as
-//   _mlp_sdf_3d (:87) computes the value, and with DUAL also the forward-mode
-//   tangent of _mlp_sdf_dirderiv_3d (:117).
+// * Two sweep paths for the 8x256 SDF MLP, bf16 weights and activations,
+//   f32 biases and nonlinearities, as _mlp_sdf_3d (:87) computes the value.
+//   Both give every row the same floats bit for bit.
+//   - sdf_tile (K, L, M): the value on 32-row tiles on 2-ray blocks of 256
+//     threads; its bf16 activations ping-pong in shared memory, and each
+//     warp loads every WMMA weight fragment it needs from global memory.
+//   - mma_rows.cuh::sdf_rows (C, N): up to 128 rows on 4-ray blocks of 512
+//     threads, the weights staged through a cp.async ring of 64-row slabs,
+//     fragments by ldmatrix into mma.sync, the epilogue in registers; in
+//     dual mode also the forward-mode tangent of _mlp_sdf_dirderiv_3d
+//     (:117) that the final sweep needs.
 // * march_kernel, one template for the fused marches: <SWEEP, ROUNDS, FINAL,
-//   RANK> selects the initial 64-sample sweep, the 4 refinement rounds (each
-//   drawing 16 samples, sweeping them but the last, and merging them), and
-//   the final dual sweep with the transmittance.  Kernel C (final sweep of a
-//   refined buffer), K (sweep), L (rounds), M (sweep + rounds) and N (sweep +
-//   rounds + final) are its instances, so M's z is L(K(.)) bit for bit and
-//   N's tau is C(M(.)) bit for bit.
+//   RANK, WIDE> selects the initial 64-sample sweep, the 4 refinement rounds
+//   (each drawing 16 samples, sweeping them but the last, and merging them),
+//   the final dual sweep with the transmittance (WIDE only), the merge, and
+//   the sweep path (WIDE: sdf_rows).  Kernel C (final sweep of a refined buffer), K
+//   (sweep), L (rounds), M (sweep + rounds) and N (sweep + rounds + final)
+//   are its instances, so M's z is L(K(.)) bit for bit and N's tau is
+//   C(M(.)) bit for bit.
 //
-// Layout: a march block holds two rays on 256 threads; thread t works slot
-// t & 127 of ray t >> 7 in the machinery, so every __syncthreads is reached
-// by both rays' threads together.  A sweep tile is 32 rows: 32 samples of
-// one ray (initial and final sweeps) or the 16 new samples of both rays (a
-// round).  Its bf16 activations ping-pong in shared memory; each warp owns
-// 16-column output tiles of both 16-row halves, so every weight fragment it
-// loads from global memory (L2) feeds two WMMA products (four with DUAL).
+// Layout: a march block holds RPB rays (2, or 4 when WIDE) on 128 RPB
+// threads; thread t works slot t & 127 of ray t >> 7 in the machinery, so
+// every __syncthreads is reached by all rays' threads together.  An
+// sdf_tile sweep is 32 rows: 32 samples of one ray (the initial sweep) or
+// the 16 new samples of both rays (a round).  A WIDE block's
+// sweeps are 2 value passes of 128 rows (its 4 rays' 64 stratified
+// samples), one value pass of 64 rows per swept round (4 rays x 16 new
+// samples), and 8 dual passes of 64 sections and their 64 tangent rows.
 #pragma once
 
-#include "sdf_mlp.cuh"
+#include "mma_rows.cuh"
 
 namespace nrh {
 
@@ -40,11 +49,14 @@ constexpr int kRounds = 4;
 constexpr int N0 = NBUF - kRounds * NNEW;  // 64 stratified samples
 constexpr float BIG_Z = 1e9f;
 
-constexpr int TPC = 32;  // rows of a sweep tile
-constexpr int MTHREADS = 256;
+constexpr int TPC = 32;  // rows of an sdf_tile sweep tile
+constexpr int MTHREADS = 256;  // threads of a 2-ray block (sdf_tile)
 constexpr int MWARPS = MTHREADS / 32;
-constexpr int RPB = MTHREADS / NBUF;  // rays per march block
-static_assert(RPB * NNEW == TPC, "a round's sweep tile holds both rays' new samples");
+static_assert(2 * NNEW == TPC, "a round's sweep tile holds both rays' new samples");
+// Rays per march block: 2 on sdf_tile, 4 on sdf_rows (512 threads).
+template <bool WIDE>
+__host__ __device__ constexpr int march_rpb() { return WIDE ? kRowsThreads / NBUF : MTHREADS / NBUF; }
+static_assert(march_rpb<true>() * NNEW == 64, "a WIDE round's sweep is one 64-row pass");
 
 // ---------------------------------------------------------------------------
 // Machinery: 128 threads per ray.  wt is the ray's 4 warp totals.
@@ -184,42 +196,28 @@ __device__ void draw_new_z(float zk, float sk, int vn, float inv_s, float oo, fl
 
 struct TileSmem {
   float enc[TPC][kEncMax];
-  float tenc[TPC][kEncMax];
   bf16 h[2][TPC][kLdA];
-  bf16 th[2][TPC][kLdA];
-  float scratch[MWARPS][2][16 * 16];
+  float scratch[MWARPS][16 * 16];
   float pts[TPC][3];  // the rows' raw points
-  float dir[TPC][3];  // the rows' directions (DUAL)
   float sdf[TPC];     // out: sdf per row
-  float dsdf[TPC];    // out: dir . grad sdf per row (DUAL)
 };
 
-// The SDF MLP on the tile's 32 points (S.pts): S.sdf, and with DUAL the
-// directional derivative along S.dir by one forward-mode tangent (the
-// tangent multiplied by the f32 gate before its bf16 rounding).  Every
-// thread of the block calls it; it ends with __syncthreads.
-template <bool DUAL>
+// The SDF MLP's value on the tile's 32 points (S.pts): S.sdf.  Every thread
+// of the block calls it; it ends with __syncthreads.
 __device__ void sdf_tile(TileSmem& S, const bf16* __restrict__ wpack, const float* __restrict__ bpack,
                          const float* __restrict__ w_sdf, const SdfMeta& m, float scale) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int L = m.n_layers, F = m.multi_res, d0 = m.d0;
   for (int idx = tid; idx < TPC * kEncMax; idx += MTHREADS) {
     const int r = idx / kEncMax, c = idx % kEncMax;
-    float xs[3], ts[3];
-    for (int j = 0; j < 3; ++j) {
-      xs[j] = S.pts[r][j] * scale;
-      ts[j] = DUAL ? S.dir[r][j] * scale : 0.0f;
-    }
-    float t = 0.0f, v = 0.0f;
-    if (c < d0) v = freq_channel(xs, ts, c, F, DUAL ? &t : nullptr);
-    S.enc[r][c] = v;
-    if (DUAL) S.tenc[r][c] = t;
+    float xs[3];
+    for (int j = 0; j < 3; ++j) xs[j] = S.pts[r][j] * scale;
+    S.enc[r][c] = c < d0 ? freq_channel(xs, nullptr, c, F, nullptr) : 0.0f;
   }
   __syncthreads();
   for (int idx = tid; idx < TPC * m.kp[0]; idx += MTHREADS) {
     const int r = idx / m.kp[0], c = idx % m.kp[0];
     S.h[0][r][c] = to_bf16(S.enc[r][c]);
-    if (DUAL) S.th[0][r][c] = to_bf16(S.tenc[r][c]);
   }
   __syncthreads();
 
@@ -232,11 +230,8 @@ __device__ void sdf_tile(TileSmem& S, const bf16* __restrict__ wpack, const floa
     const int kp_next = i + 1 < L ? m.kp[i + 1] : ((m.d_last + 15) / 16) * 16;
     const int nxt = cur ^ 1;
     for (int nt = warp; nt < np / 16; nt += MWARPS) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> ah[2], at[2];
-      for (int r = 0; r < 2; ++r) {
-        wmma::fill_fragment(ah[r], 0.0f);
-        if (DUAL) wmma::fill_fragment(at[r], 0.0f);
-      }
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> ah[2];
+      for (int r = 0; r < 2; ++r) wmma::fill_fragment(ah[r], 0.0f);
       for (int kt = 0; kt < kp / 16; ++kt) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
         wmma::load_matrix_sync(bw, W + (size_t)kt * 16 * np + nt * 16, np);
@@ -244,17 +239,11 @@ __device__ void sdf_tile(TileSmem& S, const bf16* __restrict__ wpack, const floa
           wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
           wmma::load_matrix_sync(a, &S.h[cur][r * 16][kt * 16], kLdA);
           wmma::mma_sync(ah[r], a, bw, ah[r]);
-          if (DUAL) {
-            wmma::load_matrix_sync(a, &S.th[cur][r * 16][kt * 16], kLdA);
-            wmma::mma_sync(at[r], a, bw, at[r]);
-          }
         }
       }
       for (int r = 0; r < 2; ++r) {
-        float* sh = S.scratch[warp][0];
-        float* st = S.scratch[warp][1];
+        float* sh = S.scratch[warp];
         wmma::store_matrix_sync(sh, ah[r], 16, wmma::mem_row_major);
-        if (DUAL) wmma::store_matrix_sync(st, at[r], 16, wmma::mem_row_major);
         __syncwarp();
         for (int e = lane; e < 256; e += 32) {
           const int row = r * 16 + e / 16, c = nt * 16 + e % 16;
@@ -264,11 +253,6 @@ __device__ void sdf_tile(TileSmem& S, const bf16* __restrict__ wpack, const floa
           bf16 hv = to_bf16(sp);
           if (next_skip) hv = to_bf16(bf(hv) * kInvSqrt2);
           S.h[nxt][row][c] = hv;
-          if (DUAL) {
-            bf16 tv = to_bf16(st[e] * gate);
-            if (next_skip) tv = to_bf16(bf(tv) * kInvSqrt2);
-            S.th[nxt][row][c] = tv;
-          }
         }
         __syncwarp();
       }
@@ -278,32 +262,19 @@ __device__ void sdf_tile(TileSmem& S, const bf16* __restrict__ wpack, const floa
     const int tail = kp_next - out;
     for (int idx = tid; idx < TPC * tail; idx += MTHREADS) {
       const int r = idx / tail, c = idx % tail;
-      const bool e = next_skip && c < d0;
-      S.h[nxt][r][out + c] = to_bf16(e ? S.enc[r][c] * kInvSqrt2 : 0.0f);
-      if (DUAL) S.th[nxt][r][out + c] = to_bf16(e ? S.tenc[r][c] * kInvSqrt2 : 0.0f);
+      S.h[nxt][r][out + c] = to_bf16(next_skip && c < d0 ? S.enc[r][c] * kInvSqrt2 : 0.0f);
     }
     __syncthreads();
     cur = nxt;
   }
 
-  // The bf16 sdf head, one warp per row: sdf = (h . w_sdf + b_sdf) / scale,
-  // dsdf = (th . w_sdf) / scale.
+  // The bf16 sdf head, one warp per row: sdf = (h . w_sdf + b_sdf) / scale.
   const float b_sdf = bpack[m.bf_off + m.npf];
   for (int r = warp; r < TPC; r += MWARPS) {
-    float s = 0.0f, ds = 0.0f;
-    for (int c = lane; c < m.d_last; c += 32) {
-      const float wv = bf(to_bf16(w_sdf[c]));
-      s += bf(S.h[cur][r][c]) * wv;
-      if (DUAL) ds += bf(S.th[cur][r][c]) * wv;
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (DUAL) ds += __shfl_xor_sync(0xffffffffu, ds, off);
-    }
-    if (lane == 0) {
-      S.sdf[r] = (s + b_sdf) / scale;
-      if (DUAL) S.dsdf[r] = ds / scale;
-    }
+    float s = 0.0f;
+    for (int c = lane; c < m.d_last; c += 32) s += bf(S.h[cur][r][c]) * bf(to_bf16(w_sdf[c]));
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) S.sdf[r] = (s + b_sdf) / scale;
   }
   __syncthreads();
 }
@@ -323,35 +294,38 @@ __device__ __forceinline__ float shadow_log_factor(float sdf_v, float dcos, floa
 // ---------------------------------------------------------------------------
 // The fused march kernel
 
+template <bool WIDE>
 struct MarchSmem {
-  TileSmem t;
-  float sz[RPB][NBUF], ss[RPB][NBUF], sc[RPB][NBUF];  // machinery scratch
-  float dists[RPB][NBUF], logs[RPB][NBUF];
-  float sweep0[RPB][N0];
-  float new_z[RPB][NNEW], new_sdf[RPB][NNEW];
-  float wt[MWARPS];
-  int cnt[RPB][4][NNEW];
-  float ro[RPB][3], rd[RPB][3];
+  static constexpr int R = march_rpb<WIDE>();
+  typename std::conditional<WIDE, RowsSmem, TileSmem>::type t;
+  float sz[R][NBUF], ss[R][NBUF], sc[R][NBUF];  // machinery scratch
+  float dists[R][NBUF], logs[R][NBUF];
+  float sweep0[R][N0];
+  float new_z[R][NNEW], new_sdf[R][NNEW];
+  float wt[4 * R];
+  int cnt[R][4][NNEW];
+  float ro[R][3], rd[R][3];
 };
 
 // Kernel arguments: z_in is z0 [b, 64] (SWEEP or ROUNDS) or the refined
 // buffer [b, 128] (kernel C); sdf0_in [b, 64] (ROUNDS without SWEEP); sdist
 // [b, 1], inv_s and anneal (device scalars) with FINAL.  out: sdf0 [b, 64]
 // (SWEEP alone), z [b, 128] (ROUNDS without FINAL) or tau [b, 1] (FINAL).
-template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK>
-__global__ void __launch_bounds__(MTHREADS)
+template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK, bool WIDE>
+__global__ void __launch_bounds__(march_rpb<WIDE>() * NBUF)
     march_kernel(const float* __restrict__ z_in, const float* __restrict__ sdf0_in,
                  const float* __restrict__ o, const float* __restrict__ d,
                  const float* __restrict__ sdist, const bf16* __restrict__ wpack,
                  const float* __restrict__ bpack, const float* __restrict__ w_sdf,
                  const float* __restrict__ inv_s_ptr, const float* __restrict__ anneal_ptr,
                  float* __restrict__ out, int b, const SdfMeta m, float scale, float base_inv_s) {
+  constexpr int RPB = march_rpb<WIDE>();
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  MarchSmem& S = *reinterpret_cast<MarchSmem*>(smem_raw);
+  MarchSmem<WIDE>& S = *reinterpret_cast<MarchSmem<WIDE>*>(smem_raw);
   const int tid = threadIdx.x, h = tid >> 7, k = slot_id();
   const int ray = blockIdx.x * RPB + h;
   const bool live = ray < b;
-  const int rl = live ? ray : b - 1;  // the last block's spare ray repeats the last ray
+  const int rl = live ? ray : b - 1;  // the last block's spare rays repeat the last ray
   if (k < 3) {
     S.ro[h][k] = o[rl * 3 + k];
     S.rd[h][k] = d[rl * 3 + k];
@@ -365,17 +339,32 @@ __global__ void __launch_bounds__(MTHREADS)
   __syncthreads();
 
   if (SWEEP) {
-    // Initial sweep: tile t holds 32 stratified samples of ray t / 2.
-    for (int t = 0; t < RPB * N0 / TPC; ++t) {
-      const int hr = t / (N0 / TPC), s0 = (t % (N0 / TPC)) * TPC;
-      if (tid < TPC * 3) {
-        const int r = tid / 3, j = tid % 3;
-        S.t.pts[r][j] = S.ro[hr][j] + S.rd[hr][j] * S.sz[hr][s0 + r];
+    if constexpr (WIDE) {
+      // Initial sweep: pass p holds the 64 stratified samples of rays 2p
+      // and 2p + 1, one row each.
+      for (int p = 0; p < RPB * N0 / kRowsMax; ++p) {
+        if (tid < kRowsMax * 3) {
+          const int r = tid / 3, j = tid % 3, hr = 2 * p + r / N0;
+          S.t.pts[r][j] = S.ro[hr][j] + S.rd[hr][j] * S.sz[hr][r % N0];
+        }
+        __syncthreads();
+        sdf_rows<false, 2>(S.t, nullptr, wpack, bpack, w_sdf, m, scale);
+        if (tid < kRowsMax) S.sweep0[2 * p + tid / N0][tid % N0] = S.t.sdf[tid];
+        __syncthreads();
       }
-      __syncthreads();
-      sdf_tile<false>(S.t, wpack, bpack, w_sdf, m, scale);
-      if (tid < TPC) S.sweep0[hr][s0 + tid] = S.t.sdf[tid];
-      __syncthreads();
+    } else {
+      // Initial sweep: tile t holds 32 stratified samples of ray t / 2.
+      for (int t = 0; t < RPB * N0 / TPC; ++t) {
+        const int hr = t / (N0 / TPC), s0 = (t % (N0 / TPC)) * TPC;
+        if (tid < TPC * 3) {
+          const int r = tid / 3, j = tid % 3;
+          S.t.pts[r][j] = S.ro[hr][j] + S.rd[hr][j] * S.sz[hr][s0 + r];
+        }
+        __syncthreads();
+        sdf_tile(S.t, wpack, bpack, w_sdf, m, scale);
+        if (tid < TPC) S.sweep0[hr][s0 + tid] = S.t.sdf[tid];
+        __syncthreads();
+      }
     }
     if (k < N0) sk = S.sweep0[h][k];
     if (!ROUNDS) {
@@ -389,7 +378,9 @@ __global__ void __launch_bounds__(MTHREADS)
   if (ROUNDS) {
     // _refine_rounds: round i draws 16 samples at inv_s = base * 2^i from
     // vn = 64 + 16 i valid slots, sweeps them (not in the last round: that
-    // sdf is a payload no one reads) and merges them in.
+    // sdf is a payload no one reads) and merges them in.  The sweep's rows
+    // are the block's rays' new samples, ray by ray.
+    constexpr int kNewRows = RPB * NNEW;
     const float* ro = S.ro[h];
     const float* rd = S.rd[h];
     const float oo = ro[0] * ro[0] + ro[1] * ro[1] + ro[2] * ro[2];
@@ -400,13 +391,16 @@ __global__ void __launch_bounds__(MTHREADS)
       draw_new_z(zk, sk, vn, inv_s, oo, od, S.sz[h], S.ss[h], S.sc[h], S.wt + 4 * h, S.cnt[h],
                  S.new_z[h]);
       if (i + 1 < kRounds) {
-        if (tid < TPC * 3) {
+        if (tid < kNewRows * 3) {
           const int r = tid / 3, j = tid % 3, hr = r / NNEW;
           S.t.pts[r][j] = S.ro[hr][j] + S.rd[hr][j] * S.new_z[hr][r % NNEW];
         }
         __syncthreads();
-        sdf_tile<false>(S.t, wpack, bpack, w_sdf, m, scale);
-        if (tid < TPC) S.new_sdf[tid / NNEW][tid % NNEW] = S.t.sdf[tid];
+        if constexpr (WIDE)
+          sdf_rows<false, 1>(S.t, nullptr, wpack, bpack, w_sdf, m, scale);
+        else
+          sdf_tile(S.t, wpack, bpack, w_sdf, m, scale);
+        if (tid < kNewRows) S.new_sdf[tid / NNEW][tid % NNEW] = S.t.sdf[tid];
       } else if (k < NNEW) {
         S.new_sdf[h][k] = 0.0f;
       }
@@ -427,27 +421,28 @@ __global__ void __launch_bounds__(MTHREADS)
     __syncthreads();
   }
 
-  if (FINAL) {
+  if constexpr (FINAL) {
     // Final sweep of the refined buffer: section midpoints (the last section
     // is the ray's sample_dist long), sdf and d . grad sdf, then
-    // tau = exp(sum of the 127 log factors).  Tile t holds 32 sections of ray t / 4.
+    // tau = exp(sum of the 127 log factors).  Pass t holds 64 sections of
+    // ray t / 2 and their tangent rows.
+    static_assert(WIDE, "the final dual sweep runs on sdf_rows");
     const float inv_s = *inv_s_ptr, anneal = *anneal_ptr;
     S.dists[h][k] = k == NBUF - 1 ? sdist[rl] : S.sz[h][k + 1] - S.sz[h][k];
     __syncthreads();
-    for (int t = 0; t < RPB * NBUF / TPC; ++t) {
-      const int hr = t / (NBUF / TPC), s0 = (t % (NBUF / TPC)) * TPC;
-      if (tid < TPC * 3) {
+    for (int t = 0; t < RPB * NBUF / 64; ++t) {
+      const int hr = t / (NBUF / 64), s0 = (t % (NBUF / 64)) * 64;
+      if (tid < 64 * 3) {
         const int r = tid / 3, j = tid % 3, kk = s0 + r;
         const float mid = S.sz[hr][kk] + S.dists[hr][kk] * 0.5f;
         S.t.pts[r][j] = S.ro[hr][j] + S.rd[hr][j] * mid;
-        S.t.dir[r][j] = S.rd[hr][j];
       }
       __syncthreads();
-      sdf_tile<true>(S.t, wpack, bpack, w_sdf, m, scale);
-      if (tid < TPC) {
+      sdf_rows<true, 2>(S.t, S.rd[hr], wpack, bpack, w_sdf, m, scale);
+      if (tid < 64) {
         const int kk = s0 + tid;
         S.logs[hr][kk] =
-            shadow_log_factor(S.t.sdf[tid], S.t.dsdf[tid], S.dists[hr][kk], inv_s, anneal, kk == NBUF - 1);
+            shadow_log_factor(S.t.sdf[tid], S.t.sdf[64 + tid], S.dists[hr][kk], inv_s, anneal, kk == NBUF - 1);
       }
       __syncthreads();
     }
@@ -464,7 +459,7 @@ __global__ void __launch_bounds__(MTHREADS)
 }
 
 // One launch on `stream`; returns its launch error.
-template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK>
+template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK, bool WIDE>
 inline int launch_march(const float* z_in, const float* sdf0_in, const float* o, const float* d,
                         const float* sdist, const void* wpack, const float* bpack, const float* w_sdf,
                         const float* inv_s, const float* anneal, float* out, int b, const int* meta,
@@ -473,11 +468,12 @@ inline int launch_march(const float* z_in, const float* sdf0_in, const float* o,
   int rc = parse_meta(meta, &m);
   if (rc) return rc;
   if (b <= 0) return 0;
-  const int smem = (int)sizeof(MarchSmem);
-  auto kernel = march_kernel<SWEEP, ROUNDS, FINAL, RANK>;
+  constexpr int rpb = march_rpb<WIDE>();
+  const int smem = (int)sizeof(MarchSmem<WIDE>);
+  auto kernel = march_kernel<SWEEP, ROUNDS, FINAL, RANK, WIDE>;
   rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc) return rc;
-  kernel<<<(b + RPB - 1) / RPB, MTHREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<(b + rpb - 1) / rpb, rpb * NBUF, smem, (cudaStream_t)stream>>>(
       z_in, sdf0_in, o, d, sdist, (const bf16*)wpack, bpack, w_sdf, inv_s, anneal, out, b, m, scale,
       base_inv_s);
   return (int)cudaGetLastError();

@@ -1,0 +1,88 @@
+#!/usr/bin/env python3
+"""The march kernels C, K, L, M and N of two checkouts of the PyTorch/CUDA
+port, compared bit for bit.
+
+    python3 scripts/compare_march.py TREE_A TREE_B
+
+The inputs are those of ``chip_smoke.py``'s phase 3 (``march_chunk``, from
+the checkout that holds this script): the full-width ``nr-hints`` SDF with
+random weights from seed 0, one 512-ray chunk of the 128x128 view and its
+512 shadow rays.  Each tree's ``nrhints_torch`` then runs, in a process of
+its own on a CUDA card, kernel K on the camera rays' z0, L on K's sdf0 and
+M on z0 under both merges, C on the shadow rays' refined z, and N on their
+z0 under both merges.  The script prints, per output, the largest absolute
+difference and whether the two trees' outputs are equal bit for bit.  It
+needs one card.
+"""
+from __future__ import annotations
+
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+INPUTS = ("o", "d", "z0", "sl", "sdir", "sdist", "z0s", "sz", "inv_s", "anneal")
+
+
+def make_inputs(path: str) -> None:
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from chip_smoke import march_chunk
+
+    mc = march_chunk("cuda")
+    torch.save({"mw": [w.cpu() for w in mc["mw"]],
+                **{k: torch.as_tensor(mc[k]).cpu() for k in INPUTS}}, path)
+
+
+def run(tree: str, inputs: str, out: str) -> None:
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import torch
+    from nrhints_torch.configs.config import nr_hints
+    from nrhints_torch.kernels import march
+
+    cfg = nr_hints().model.sdf_network
+    t = torch.load(inputs)
+    mw = [w.cuda() for w in t["mw"]]
+    o, d, z0, sl, sdir, sdist, z0s, sz, inv_s, anneal = (t[k].cuda() for k in INPUTS)
+    outs = {"K sdf0": march.march_sweep(z0, o, d, mw, cfg)}
+    for merge in ("bitonic", "rank"):
+        outs[f"L z ({merge})"] = march.march_rounds(z0, outs["K sdf0"], o, d, mw, cfg, merge=merge)
+        outs[f"M z ({merge})"] = march.importance_march(z0, o, d, mw, cfg, merge=merge)
+    outs["C tau"] = march.shadow_final(sz, sl, sdir, sdist, inv_s, anneal, mw, cfg)
+    for merge in ("bitonic", "rank"):
+        outs[f"N tau ({merge})"] = march.shadow_march(z0s, sl, sdir, sdist, inv_s, anneal, mw, cfg, merge=merge)
+    torch.save({k: v.cpu() for k, v in outs.items()}, out)
+
+
+def main() -> int:
+    if sys.argv[1] == "--inputs":
+        make_inputs(sys.argv[2])
+        return 0
+    if sys.argv[1] == "--run":
+        run(sys.argv[2], sys.argv[3], sys.argv[4])
+        return 0
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = str(Path(tmp) / "inputs.pt")
+        subprocess.run([sys.executable, __file__, "--inputs", inputs], check=True)
+        outs = []
+        for i, tree in enumerate(sys.argv[1:3]):
+            path = str(Path(tmp) / f"{i}.pt")
+            subprocess.run([sys.executable, __file__, "--run", tree, inputs, path], check=True)
+            outs.append(torch.load(path))
+    a, b = outs
+    equal = True
+    for name in a:
+        same = torch.equal(a[name], b[name])
+        equal &= same
+        print(f"march {name}: max abs difference {(a[name] - b[name]).abs().max().item():.3e}; "
+              f"equal bit for bit: {same}")
+    print(f"march kernels K, L, M, C, N, {sys.argv[1]} against {sys.argv[2]}: all outputs equal bit for bit: {equal}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -23,7 +23,8 @@ move one point's dx by a whole unit's share: J is held entry by entry
 against the plain backward at the forward's own z_i, and against the wholly
 plain backward by the relative norm of the error (2e-2).
 Kernels K, L, M and N (the round-4 marches): K's sdf0 1e-2 as A; N's tau
-1e-2 as C; L's z equal bit for bit to its schedule run as kernel B steps
+1e-2 as C, also at ray counts that fill C's and N's 4-ray blocks in part;
+L's z equal bit for bit to its schedule run as kernel B steps
 between kernel K sweeps, M's z to L(K(.)) and N's tau to C(M(.)); against
 the wholly plain marches, L's and M's z as chip_smoke.py holds them (sorted,
 every stratified sample kept, Z_NN_SHARE of the samples within 1e-4 of a
@@ -121,11 +122,18 @@ def test_round_machinery_matches_plain(cuda):
             new_sdf = march._mlp_sdf_3d(o[:, None] + d[:, None] * new_z[..., None], w, SMALL)
 
 
+# Ray counts of the shadow kernels C and N, which run 4 rays per block: one
+# ray, and 3, 4 and 5 (a block with spare rays, one full block, a second block
+# with 3 spare rays), 130 (a ragged last block) and one 512-ray chunk.
+SHADOW_B = [1, 3, 4, 5, 130, 512]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("cfg", [SMALL, SDFNetConfig()], ids=["small", "full"])
-def test_shadow_final_matches_plain(cuda, cfg):
+@pytest.mark.parametrize("n", SHADOW_B)
+def test_shadow_final_matches_plain(cuda, cfg, n):
     p = sdf_init(torch.Generator().manual_seed(0), cfg, cuda)
-    o, d, z0 = _rays(cuda)
+    o, d, z0 = _rays(cuda, n)
     z = march.fused_importance_z(p, cfg, o, d, z0, mlp_dtype="bfloat16", split=True, sweep_impl="xla",
                                  rounds_impl="xla")
     sdist = torch.full((o.shape[0], 1), 2.0 / 64, device=cuda)
@@ -460,6 +468,31 @@ def test_march_kernels_match_plain(cuda, cfg, merge):
     _close(tau, march.shadow_march_plain(z0, o, d, sdist, inv_s, anneal, w, cfg, merge=merge), 1e-2)
     assert torch.equal(z_m, z_l)
     assert torch.equal(tau, tau_c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("merge", ["bitonic", "rank"])
+@pytest.mark.parametrize("cfg", [SMALL, SDFNetConfig()], ids=["small", "full"])
+@pytest.mark.parametrize("n", SHADOW_B)
+def test_shadow_march_on_4ray_blocks(cuda, cfg, merge, n):
+    """Kernel N against its plain version and, bit for bit, against kernel C
+    after kernel M (N's sweeps and rounds run the 128-row engine, M the
+    32-row tiles), at ray counts that fill 4-ray blocks in part; one launch
+    of each."""
+    p = sdf_init(torch.Generator().manual_seed(0), cfg, cuda)
+    o, d, z0 = _rays(cuda, n)
+    w = march.march_weights(p, cfg, "bfloat16")
+    sdist = torch.full((n, 1), 2.0 / 64, device=cuda)
+    inv_s, anneal = torch.tensor(64.0, device=cuda), torch.tensor(0.7, device=cuda)
+    before = dict(cuda_lib.launch_counts)
+    tau = march.shadow_march(z0, o, d, sdist, inv_s, anneal, w, cfg, merge=merge)
+    tau_c = march.shadow_final(march.importance_march(z0, o, d, w, cfg, merge=merge), o, d, sdist, inv_s, anneal, w,
+                               cfg)
+    torch.cuda.synchronize()
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in ("importance_march", "shadow_march", "shadow_final")} == \
+        dict.fromkeys(("importance_march", "shadow_march", "shadow_final"), 1)
+    assert tau.shape == (n, 1) and torch.equal(tau, tau_c)
+    _close(tau, march.shadow_march_plain(z0, o, d, sdist, inv_s, anneal, w, cfg, merge=merge), 1e-2)
 
 
 @pytest.mark.gpu

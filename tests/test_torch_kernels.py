@@ -623,6 +623,25 @@ def test_chain_constants_match_the_headers():
     assert not hasattr(tcm, "TP")
 
 
+def test_shadow_kernels_run_the_row_engine():
+    """Kernels C and N launch the march template's WIDE instances (4 rays on
+    blocks of kRowsThreads = kChainThreads threads, every sweep through
+    mma_rows.cuh::sdf_rows, whose products are ldmatrix + mma.sync on staged
+    slabs); K, L and M keep the 2-ray sdf_tile path."""
+    def const(header, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", (cuda_lib.CSRC / header).read_text()).group(1))
+
+    assert const("mma_rows.cuh", "kRowsThreads") == const("staged_mma.cuh", "kChainThreads") == 4 * tm.N_BUF
+    rows = (cuda_lib.CSRC / "mma_rows.cuh").read_text()
+    assert "wmma::" not in rows and "mma.sync.aligned.m16n8k16" in rows and "ldmatrix.sync.aligned" in rows
+    march_cu = (cuda_lib.CSRC / "march.cu").read_text()
+    fused = (cuda_lib.CSRC / "march_fused.cu").read_text()
+    assert "launch_march<false, false, true, false, true>" in march_cu  # C
+    assert re.findall(r"launch_march<true, true, true, (?:true|false), (\w+)>", fused) == ["true", "true"]  # N
+    for sweep, rounds in (("true", "false"), ("false", "true"), ("true", "true")):  # K, L, M
+        assert set(re.findall(rf"launch_march<{sweep}, {rounds}, false, (?:true|false), (\w+)>", fused)) == {"false"}
+
+
 # ---------------------------------------------------------------------------
 # Kernels H (the SDF core's recompute backward), I and J (the trunk's
 # forward and recompute backward)
