@@ -44,10 +44,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    warm-up steps and 5 timed, with phase 5's checks (M and N once per step).
 Phase 3 also holds kernels K (initial march sweep), L (refinement rounds),
 M (K and L in one kernel) and N (M and C's final sweep in one kernel), and
-B under the rank merge, against their plain versions, N = C(M(.)) bit for
-bit under both merges, and times C and N by device time from one profiled
-call each.  Its inputs (march_chunk) are shared with
-scripts/compare_march.py.
+B under the rank merge, against their plain versions, L = B's steps between
+K's sweeps, M = L(K(.)) and N = C(M(.)) bit for bit (N under both merges),
+and times C, K, M and N by device time from one profiled call each.  C, K,
+M and N sweep on 4-ray blocks through the row engine (csrc/mma_rows.cuh), L
+on 2-ray blocks of 32-row tiles.  Its inputs (march_chunk) are shared with
+scripts/compare_march.py and scripts/probe_march_parts.py.
 It prints a {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -85,10 +87,10 @@ H100_BYTES_PER_S = 3.35e12  # HBM3
 # z_i (kernel I's, which J recomputes bit for bit), and against the wholly
 # plain backward by the relative norm of the error, 2e-2 per gradient.
 # K: as A.  N: as C.  L: bit for bit equal to its schedule run as kernel B
-# steps between kernel K sweeps (each row in the same tile position), so L
-# is exactly B's machinery and K's sweep, each held to its plain version
-# above; M = L(K(.)) and N = C(M(.)) bit for bit (one kernel template, the
-# same tiles).  Against the wholly plain marches, L's and M's z are sorted,
+# steps between kernel K sweeps, so L is exactly B's machinery and K's
+# sweep, each held to its plain version above; M = L(K(.)) and N = C(M(.))
+# bit for bit (one kernel template, whose two sweep paths give a row the
+# same floats wherever it lies in a pass or tile).  Against the wholly plain marches, L's and M's z are sorted,
 # keep every stratified sample, and at least Z_NN_SHARE of their samples lie
 # within 1e-4 of a sample of the plain version: where a ray's pdf is nearly
 # uniform (random weights, most of the ray far from the surface), a cdf
@@ -207,17 +209,24 @@ def device_groups(prof) -> dict[str, float]:
     return out
 
 
-def profiled_groups(fn) -> dict[str, float]:
+def profiled_groups(fn, tries: int = 3) -> dict[str, float]:
     """Device ms by STEP_GROUPS group of one call of ``fn`` under
-    torch.profiler (after the call's own warm-up elsewhere)."""
+    torch.profiler (after the call's own warm-up elsewhere).  Now and then
+    the profiler records no kernel of so short a window (it then reads
+    0.0000 ms); then the call is profiled again, up to ``tries`` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    labels = {label for _, label in STEP_GROUPS}
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return device_groups(prof)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        groups = device_groups(prof)
+        if labels & groups.keys():
+            break
+    return groups
 
 
 def z_err(kernel_z, plain_z, z0) -> tuple[float, float, float, bool]:
@@ -231,19 +240,15 @@ def z_err(kernel_z, plain_z, z0) -> tuple[float, float, float, bool]:
     return e.max().item(), (e <= Z_TOL).float().mean().item(), (nn <= Z_TOL).float().mean().item(), ok
 
 
-def tile_sweep16(o, d, weights, cfg):
-    """A round's 16-sample sweep by kernel K, each sample a row in the tile
-    position kernel L gives it (ray 2b's samples rows 0-15 of a tile, ray
-    2b + 1's rows 16-31): the samples repeated to 64, then the matching 16
-    columns of K's output."""
-    import torch
+def sweep16(o, d, weights, cfg):
+    """A round's 16-sample sweep by kernel K: the samples repeated to 64,
+    then the first 16 columns of K's output.  K's 128-row passes hold the
+    rows elsewhere than L's 32-row tiles; both sweep paths give a row the
+    same floats wherever it lies."""
     from nrhints_torch.kernels import march
 
-    odd = (torch.arange(o.shape[0], device=o.device) % 2 == 1)[:, None]
-
     def sweep(new_z, *_):
-        out = march.march_sweep(new_z.repeat(1, 4).contiguous(), o, d, weights, cfg)
-        return torch.where(odd, out[:, 16:32], out[:, :16]).contiguous()
+        return march.march_sweep(new_z.repeat(1, 4).contiguous(), o, d, weights, cfg)[:, :16].contiguous()
 
     return sweep
 
@@ -517,7 +522,7 @@ def main() -> int:
 
     l_z = march.march_rounds(z0, k_sdf0, o, d, mw, scfg)
     l_is_bk = torch.equal(l_z, march._rounds(mw, scfg, o, d, z0, k_sdf0, 4, 16, 64.0, "bitonic", march.round_machinery,
-                                             tile_sweep16(o, d, mw, scfg)))
+                                             sweep16(o, d, mw, scfg)))
     l_abs, l_slots, l_share, l_sorted = z_err(l_z, march.march_rounds_plain(z0, k_sdf0, o, d, mw, scfg), z0)
     l_ms = cuda_ms(lambda: march.march_rounds(z0, k_sdf0, o, d, mw, scfg), 10)
     l_plain_ms = cuda_ms(lambda: march.march_rounds_plain(z0, k_sdf0, o, d, mw, scfg), 3, warmup=1)
@@ -545,6 +550,11 @@ def main() -> int:
         f"equals L(K(.)) bit for bit: {m_is_lk}")
     if not (l_is_bk and m_is_lk):
         raise AssertionError(f"kernel L or M differs from its composition: L = B/K steps {l_is_bk}, M = L(K) {m_is_lk}")
+    # K and M (and N below) by device time from one profiled call each.
+    k_dev = profiled_groups(lambda: march.march_sweep(z0, o, d, mw, scfg)).get("kernel K march_sweep", 0.0)
+    m_dev = profiled_groups(lambda: march.importance_march(z0, o, d, mw, scfg)).get("kernel M importance_march", 0.0)
+    for name, dev_ms, bd, by in (("K march_sweep", k_dev, k_bound, k_by), ("M importance_march", m_dev, m_bound, m_by)):
+        log(f"[kernel {name}] one profiled call, device time {dev_ms:.4f} ms; bound {bd:.4f} ms ({by})")
 
     n_tau = march.shadow_march(z0s, sl, sdir, sdist, inv_s, anneal, mw, scfg)
     n_abs, n_rel = max_err([n_tau], [march.shadow_march_plain(z0s, sl, sdir, sdist, inv_s, anneal, mw, scfg)])

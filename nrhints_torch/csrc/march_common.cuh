@@ -11,31 +11,31 @@
 // * Two sweep paths for the 8x256 SDF MLP, bf16 weights and activations,
 //   f32 biases and nonlinearities, as _mlp_sdf_3d (:87) computes the value.
 //   Both give every row the same floats bit for bit.
-//   - sdf_tile (K, L, M): the value on 32-row tiles on 2-ray blocks of 256
+//   - mma_rows.cuh::sdf_rows (C, K, M, N): up to 128 rows on 4-ray blocks
+//     of 512 threads, the weights staged through a cp.async ring of 64-row
+//     slabs, fragments by ldmatrix into mma.sync, the epilogue in
+//     registers; in dual mode also the forward-mode tangent of
+//     _mlp_sdf_dirderiv_3d (:117) that the final sweep needs.
+//   - sdf_tile (L alone): the value on 32-row tiles on 2-ray blocks of 256
 //     threads; its bf16 activations ping-pong in shared memory, and each
 //     warp loads every WMMA weight fragment it needs from global memory.
-//   - mma_rows.cuh::sdf_rows (C, N): up to 128 rows on 4-ray blocks of 512
-//     threads, the weights staged through a cp.async ring of 64-row slabs,
-//     fragments by ldmatrix into mma.sync, the epilogue in registers; in
-//     dual mode also the forward-mode tangent of _mlp_sdf_dirderiv_3d
-//     (:117) that the final sweep needs.
+//     It and TileSmem go when L moves to the row engine.
 // * march_kernel, one template for the fused marches: <SWEEP, ROUNDS, FINAL,
 //   RANK, WIDE> selects the initial 64-sample sweep, the 4 refinement rounds
 //   (each drawing 16 samples, sweeping them but the last, and merging them),
 //   the final dual sweep with the transmittance (WIDE only), the merge, and
-//   the sweep path (WIDE: sdf_rows).  Kernel C (final sweep of a refined buffer), K
-//   (sweep), L (rounds), M (sweep + rounds) and N (sweep + rounds + final)
-//   are its instances, so M's z is L(K(.)) bit for bit and N's tau is
-//   C(M(.)) bit for bit.
+//   the sweep path (WIDE: sdf_rows).  Kernel C (final sweep of a refined
+//   buffer), K (sweep), L (rounds), M (sweep + rounds) and N (sweep + rounds
+//   + final) are its instances, all WIDE but L, so M's z is L(K(.)) bit for
+//   bit and N's tau is C(M(.)) bit for bit.
 //
-// Layout: a march block holds RPB rays (2, or 4 when WIDE) on 128 RPB
+// Layout: a march block holds RPB rays (4 when WIDE, 2 for L) on 128 RPB
 // threads; thread t works slot t & 127 of ray t >> 7 in the machinery, so
-// every __syncthreads is reached by all rays' threads together.  An
-// sdf_tile sweep is 32 rows: 32 samples of one ray (the initial sweep) or
-// the 16 new samples of both rays (a round).  A WIDE block's
-// sweeps are 2 value passes of 128 rows (its 4 rays' 64 stratified
+// every __syncthreads is reached by all rays' threads together.  A WIDE
+// block's sweeps are 2 value passes of 128 rows (its 4 rays' 64 stratified
 // samples), one value pass of 64 rows per swept round (4 rays x 16 new
 // samples), and 8 dual passes of 64 sections and their 64 tangent rows.
+// L's sdf_tile sweep is 32 rows: the 16 new samples of both its rays.
 #pragma once
 
 #include "mma_rows.cuh"
@@ -338,33 +338,19 @@ __global__ void __launch_bounds__(march_rpb<WIDE>() * NBUF)
   S.sz[h][k] = zk;
   __syncthreads();
 
-  if (SWEEP) {
-    if constexpr (WIDE) {
-      // Initial sweep: pass p holds the 64 stratified samples of rays 2p
-      // and 2p + 1, one row each.
-      for (int p = 0; p < RPB * N0 / kRowsMax; ++p) {
-        if (tid < kRowsMax * 3) {
-          const int r = tid / 3, j = tid % 3, hr = 2 * p + r / N0;
-          S.t.pts[r][j] = S.ro[hr][j] + S.rd[hr][j] * S.sz[hr][r % N0];
-        }
-        __syncthreads();
-        sdf_rows<false, 2>(S.t, nullptr, wpack, bpack, w_sdf, m, scale);
-        if (tid < kRowsMax) S.sweep0[2 * p + tid / N0][tid % N0] = S.t.sdf[tid];
-        __syncthreads();
+  if constexpr (SWEEP) {
+    // Initial sweep: pass p holds the 64 stratified samples of rays 2p and
+    // 2p + 1, one row each.
+    static_assert(WIDE, "the initial sweep runs on sdf_rows");
+    for (int p = 0; p < RPB * N0 / kRowsMax; ++p) {
+      if (tid < kRowsMax * 3) {
+        const int r = tid / 3, j = tid % 3, hr = 2 * p + r / N0;
+        S.t.pts[r][j] = S.ro[hr][j] + S.rd[hr][j] * S.sz[hr][r % N0];
       }
-    } else {
-      // Initial sweep: tile t holds 32 stratified samples of ray t / 2.
-      for (int t = 0; t < RPB * N0 / TPC; ++t) {
-        const int hr = t / (N0 / TPC), s0 = (t % (N0 / TPC)) * TPC;
-        if (tid < TPC * 3) {
-          const int r = tid / 3, j = tid % 3;
-          S.t.pts[r][j] = S.ro[hr][j] + S.rd[hr][j] * S.sz[hr][s0 + r];
-        }
-        __syncthreads();
-        sdf_tile(S.t, wpack, bpack, w_sdf, m, scale);
-        if (tid < TPC) S.sweep0[hr][s0 + tid] = S.t.sdf[tid];
-        __syncthreads();
-      }
+      __syncthreads();
+      sdf_rows<false, 2>(S.t, nullptr, wpack, bpack, w_sdf, m, scale);
+      if (tid < kRowsMax) S.sweep0[2 * p + tid / N0][tid % N0] = S.t.sdf[tid];
+      __syncthreads();
     }
     if (k < N0) sk = S.sweep0[h][k];
     if (!ROUNDS) {

@@ -1,8 +1,8 @@
-// The row engine of the march sweeps of kernels C and N (march_common.cuh):
-// the 8x256 SDF MLP on up to 128 rows of one 512-thread block, bf16
-// weights and activations, f32 biases and nonlinearities, as _mlp_sdf_3d
-// (nrhints_tpu/kernels/march.py:87) computes the value, and in dual mode
-// also the forward-mode tangent of _mlp_sdf_dirderiv_3d (:117).
+// The row engine of the march sweeps of kernels C, K, M and N
+// (march_common.cuh): the 8x256 SDF MLP on up to 128 rows of one 512-thread
+// block, bf16 weights and activations, f32 biases and nonlinearities, as
+// _mlp_sdf_3d (nrhints_tpu/kernels/march.py:87) computes the value, and in
+// dual mode also the forward-mode tangent of _mlp_sdf_dirderiv_3d (:117).
 //
 // * The activations lie in one bf16 tile of 128 rows in shared memory.  In
 //   dual mode rows 0-63 are 64 sections' values and rows 64-127 their

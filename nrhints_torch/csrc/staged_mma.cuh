@@ -3,7 +3,7 @@
 // (sdf_bwd.cuh, kernels E and H), the reflectance trunk's forward and chain
 // (mlp_stash.cu, kernels F, G, I and J), and the weight-cotangent passes
 // (dw_sum.cuh, kernels E, G, H and J); its ring also feeds the march sweeps
-// of kernels C and N (mma_rows.cuh): operands copied into shared memory
+// of kernels C, K, M and N (mma_rows.cuh): operands copied into shared memory
 // by cp.async (16-byte copies, a ring of stages, the next slabs in flight
 // while the warps run WMMA on the current one), fragments read from shared
 // memory only.

@@ -14,7 +14,8 @@ SDF forward of kernels A, D and H, ``sdf_bwd.cuh`` the chain of E and H,
 ``dw_sum.cuh`` the dW passes of E, G, H and J, ``staged_mma.cuh`` the
 cp.async-staged products of that forward, that chain and those passes,
 ``march_common.cuh`` the march machinery and sweeps of B, C, K, L, M and N,
-``mma_rows.cuh`` the ldmatrix and mma.sync row engine of C's and N's sweeps.
+``mma_rows.cuh`` the ldmatrix and mma.sync row engine of the sweeps of C, K,
+M and N.
 """
 from __future__ import annotations
 

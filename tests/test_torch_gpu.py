@@ -25,7 +25,8 @@ plain backward by the relative norm of the error (2e-2).
 Kernels K, L, M and N (the round-4 marches): K's sdf0 1e-2 as A; N's tau
 1e-2 as C, also at ray counts that fill C's and N's 4-ray blocks in part;
 L's z equal bit for bit to its schedule run as kernel B steps
-between kernel K sweeps, M's z to L(K(.)) and N's tau to C(M(.)); against
+between kernel K sweeps, M's z to L(K(.)) and N's tau to C(M(.)), K and M
+also at ray counts that fill their 4-ray blocks in part; against
 the wholly plain marches, L's and M's z as chip_smoke.py holds them (sorted,
 every stratified sample kept, Z_NN_SHARE of the samples within 1e-4 of a
 plain sample: near-ties of the cdf and the u grid send a draw to the next
@@ -459,10 +460,10 @@ def test_march_kernels_match_plain(cuda, cfg, merge):
                                                               "shadow_march", "shadow_final")} == dict.fromkeys(
         ("march_sweep", "march_rounds", "importance_march", "shadow_march", "shadow_final"), 1)
     _close(sdf0, march.march_sweep_plain(z0, o, d, w, cfg), 1e-2)
-    from chip_smoke import tile_sweep16
+    from chip_smoke import sweep16
 
     assert torch.equal(z_l, march._rounds(w, cfg, o, d, z0, sdf0, 4, 16, 64.0, merge, march.round_machinery,
-                                          tile_sweep16(o, d, w, cfg)))
+                                          sweep16(o, d, w, cfg)))
     _assert_z_close(z_l, march.march_rounds_plain(z0, sdf0, o, d, w, cfg, merge=merge), z0)
     _assert_z_close(z_m, march.importance_march_plain(z0, o, d, w, cfg, merge=merge), z0)
     _close(tau, march.shadow_march_plain(z0, o, d, sdist, inv_s, anneal, w, cfg, merge=merge), 1e-2)
@@ -476,8 +477,7 @@ def test_march_kernels_match_plain(cuda, cfg, merge):
 @pytest.mark.parametrize("n", SHADOW_B)
 def test_shadow_march_on_4ray_blocks(cuda, cfg, merge, n):
     """Kernel N against its plain version and, bit for bit, against kernel C
-    after kernel M (N's sweeps and rounds run the 128-row engine, M the
-    32-row tiles), at ray counts that fill 4-ray blocks in part; one launch
+    after kernel M, at ray counts that fill 4-ray blocks in part; one launch
     of each."""
     p = sdf_init(torch.Generator().manual_seed(0), cfg, cuda)
     o, d, z0 = _rays(cuda, n)
@@ -493,6 +493,43 @@ def test_shadow_march_on_4ray_blocks(cuda, cfg, merge, n):
         dict.fromkeys(("importance_march", "shadow_march", "shadow_final"), 1)
     assert tau.shape == (n, 1) and torch.equal(tau, tau_c)
     _close(tau, march.shadow_march_plain(z0, o, d, sdist, inv_s, anneal, w, cfg, merge=merge), 1e-2)
+
+
+# Ray counts of kernels K and M, which run 4 rays per block: one ray (3
+# spare rays), 5 (a second block with 3), 510 (a last block with 2) and one
+# 512-ray chunk.
+FUSED_B = [1, 5, 510, 512]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("merge", ["bitonic", "rank"])
+@pytest.mark.parametrize("cfg", [SMALL, SDFNetConfig()], ids=["small", "full"])
+@pytest.mark.parametrize("n", FUSED_B)
+def test_sweep_and_importance_march_on_4ray_blocks(cuda, cfg, merge, n):
+    """Kernels K and M on the row engine's 4-ray blocks against their plain
+    versions (K's sdf0 at 1e-2, M's z by order-free shares, as in
+    test_march_kernels_match_plain), M = L(K(.)) bit for bit (L sweeps on
+    2-ray blocks) and N = C(M(.)) bit for bit, at ray counts that fill 4-ray
+    blocks in part; one launch of each."""
+    p = sdf_init(torch.Generator().manual_seed(0), cfg, cuda)
+    o, d, z0 = _rays(cuda, n)
+    w = march.march_weights(p, cfg, "bfloat16")
+    sdist = torch.full((n, 1), 2.0 / 64, device=cuda)
+    inv_s, anneal = torch.tensor(64.0, device=cuda), torch.tensor(0.7, device=cuda)
+    names = ("march_sweep", "march_rounds", "importance_march", "shadow_march", "shadow_final")
+    before = dict(cuda_lib.launch_counts)
+    sdf0 = march.march_sweep(z0, o, d, w, cfg)
+    z_l = march.march_rounds(z0, sdf0, o, d, w, cfg, merge=merge)
+    z_m = march.importance_march(z0, o, d, w, cfg, merge=merge)
+    tau = march.shadow_march(z0, o, d, sdist, inv_s, anneal, w, cfg, merge=merge)
+    tau_c = march.shadow_final(z_m, o, d, sdist, inv_s, anneal, w, cfg)
+    torch.cuda.synchronize()
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in names} == dict.fromkeys(names, 1)
+    assert sdf0.shape == (n, 64) and z_m.shape == (n, 128)
+    _close(sdf0, march.march_sweep_plain(z0, o, d, w, cfg), 1e-2)
+    _assert_z_close(z_m, march.importance_march_plain(z0, o, d, w, cfg, merge=merge), z0)
+    assert torch.equal(z_m, z_l)
+    assert torch.equal(tau, tau_c)
 
 
 @pytest.mark.gpu

@@ -623,23 +623,37 @@ def test_chain_constants_match_the_headers():
     assert not hasattr(tcm, "TP")
 
 
-def test_shadow_kernels_run_the_row_engine():
-    """Kernels C and N launch the march template's WIDE instances (4 rays on
-    blocks of kRowsThreads = kChainThreads threads, every sweep through
-    mma_rows.cuh::sdf_rows, whose products are ldmatrix + mma.sync on staged
-    slabs); K, L and M keep the 2-ray sdf_tile path."""
+# The march template's instances by kernel: (source, SWEEP, ROUNDS, FINAL,
+# WIDE).  Every instance that runs the rounds is launched under both merges.
+MARCH_INSTANCES = {
+    "C": ("march.cu", "false", "false", "true", "true"),
+    "K": ("march_fused.cu", "true", "false", "false", "true"),
+    "L": ("march_fused.cu", "false", "true", "false", "false"),
+    "M": ("march_fused.cu", "true", "true", "false", "true"),
+    "N": ("march_fused.cu", "true", "true", "true", "true"),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(MARCH_INSTANCES))
+def test_march_kernels_run_the_row_engine(kernel):
+    """Kernels C, K, M and N launch the march template's WIDE instances (4
+    rays on blocks of kRowsThreads = kChainThreads threads, every sweep
+    through mma_rows.cuh::sdf_rows, whose products are ldmatrix + mma.sync
+    on staged slabs); L alone keeps the 2-ray sdf_tile path, which the
+    template calls only for a round's sweep."""
     def const(header, name):
         return int(re.search(rf"constexpr int {name} = (\d+);", (cuda_lib.CSRC / header).read_text()).group(1))
 
     assert const("mma_rows.cuh", "kRowsThreads") == const("staged_mma.cuh", "kChainThreads") == 4 * tm.N_BUF
     rows = (cuda_lib.CSRC / "mma_rows.cuh").read_text()
     assert "wmma::" not in rows and "mma.sync.aligned.m16n8k16" in rows and "ldmatrix.sync.aligned" in rows
-    march_cu = (cuda_lib.CSRC / "march.cu").read_text()
-    fused = (cuda_lib.CSRC / "march_fused.cu").read_text()
-    assert "launch_march<false, false, true, false, true>" in march_cu  # C
-    assert re.findall(r"launch_march<true, true, true, (?:true|false), (\w+)>", fused) == ["true", "true"]  # N
-    for sweep, rounds in (("true", "false"), ("false", "true"), ("true", "true")):  # K, L, M
-        assert set(re.findall(rf"launch_march<{sweep}, {rounds}, false, (?:true|false), (\w+)>", fused)) == {"false"}
+    common = (cuda_lib.CSRC / "march_common.cuh").read_text()
+    assert common.count("sdf_tile(S.t,") == 1 and 'static_assert(WIDE, "the initial sweep runs on sdf_rows")' in common
+    src, sweep, rounds, final, wide = MARCH_INSTANCES[kernel]
+    launches = re.findall(rf"launch_march<{sweep}, {rounds}, {final}, (true|false), (true|false)>",
+                          (cuda_lib.CSRC / src).read_text())
+    assert sorted(rank for rank, _ in launches) == (["false", "true"] if rounds == "true" else ["false"])
+    assert {w for _, w in launches} == {wide}
 
 
 # ---------------------------------------------------------------------------
