@@ -46,10 +46,11 @@ Phase 3 also holds kernels K (initial march sweep), L (refinement rounds),
 M (K and L in one kernel) and N (M and C's final sweep in one kernel), and
 B under the rank merge, against their plain versions, L = B's steps between
 K's sweeps, M = L(K(.)) and N = C(M(.)) bit for bit (N under both merges),
-and times C, K, M and N by device time from one profiled call each.  C, K,
-M and N sweep on 4-ray blocks through the row engine (csrc/mma_rows.cuh), L
-on 2-ray blocks of 32-row tiles.  Its inputs (march_chunk) are shared with
-scripts/compare_march.py and scripts/probe_march_parts.py.
+and times B (the 4 steps of one march), C, K, L, M and N by device time from
+one profiled call each.  C and K-N sweep on 4-ray blocks through the row
+engine (csrc/mma_rows.cuh); B and the rounds of L-N run one warp a ray.  Its
+inputs (march_chunk) are shared with scripts/compare_march.py and
+scripts/probe_march_parts.py.
 It prints a {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -86,11 +87,13 @@ H100_BYTES_PER_S = 3.35e12  # HBM3
 # each gradient's scale) against the plain backward at the forward's own
 # z_i (kernel I's, which J recomputes bit for bit), and against the wholly
 # plain backward by the relative norm of the error, 2e-2 per gradient.
-# K: as A.  N: as C.  L: bit for bit equal to its schedule run as kernel B
-# steps between kernel K sweeps, so L is exactly B's machinery and K's
-# sweep, each held to its plain version above; M = L(K(.)) and N = C(M(.))
-# bit for bit (one kernel template, whose two sweep paths give a row the
-# same floats wherever it lies in a pass or tile).  Against the wholly plain marches, L's and M's z are sorted,
+# B's last-round step merges its draws in: its z equals the plain merge of
+# the kernel's own draw step bit for bit, and the plain last step's z within
+# B's tolerance.  K: as A.  N: as C.  L: bit for bit equal to its schedule
+# run as kernel B steps between kernel K sweeps, so L is exactly B's
+# machinery and K's sweep, each held to its plain version above; M = L(K(.))
+# and N = C(M(.)) bit for bit (one kernel template, whose sweeps give a row
+# the same floats wherever it lies in a pass).  Against the wholly plain marches, L's and M's z are sorted,
 # keep every stratified sample, and at least Z_NN_SHARE of their samples lie
 # within 1e-4 of a sample of the plain version: where a ray's pdf is nearly
 # uniform (random weights, most of the ray far from the surface), a cdf
@@ -243,8 +246,8 @@ def z_err(kernel_z, plain_z, z0) -> tuple[float, float, float, bool]:
 def sweep16(o, d, weights, cfg):
     """A round's 16-sample sweep by kernel K: the samples repeated to 64,
     then the first 16 columns of K's output.  K's 128-row passes hold the
-    rows elsewhere than L's 32-row tiles; both sweep paths give a row the
-    same floats wherever it lies."""
+    rows elsewhere than L's 64-row round passes; the row engine gives a row
+    the same floats wherever it lies."""
     from nrhints_torch.kernels import march
 
     def sweep(new_z, *_):
@@ -286,8 +289,9 @@ def march_chunk(dev) -> dict:
     """Phase 3's inputs at the main path's shapes, made on ``dev``: the
     full-width ``nr-hints`` model (random weights from seed 0), one 512-ray
     chunk of the 128x128 view (4 rows through the middle), its camera rays'
-    stratified z0, the five schedule steps of kernel B (inputs captured from
-    the kernel's own run between plain 16-sample sweeps) and the refined z,
+    stratified z0, the four steps of kernel B in a march, as (arguments,
+    last) (inputs captured from the kernel's own run between plain 16-sample
+    sweeps) and the refined z,
     kernel A at the refined sections' midpoints, and the shadow rays from the
     light to the chunk's hits: their z0, sample_dist and refined z (plain
     sweeps and kernel B), inv_s and cos_anneal = 1."""
@@ -327,21 +331,20 @@ def march_chunk(dev) -> dict:
     z0 = stratified_z_vals(rays.nears, rays.fars, 64)
     sweep0 = march._mlp_sdf_3d(o[:, None, :] + d[:, None, :] * z0[..., None], mw, scfg)
 
-    # B: the five schedule steps of one march, inputs captured from the
-    # kernel's own run.
+    # B: the four steps of one march, inputs captured from the kernel's own
+    # run; the last merges its draws in.
     steps = []
     z = torch.cat([z0, torch.full((512, 64), march.BIG_Z, device=dev)], -1)
     sdf = torch.cat([sweep0, torch.zeros((512, 64), device=dev)], -1)
     new_z = new_sdf = None
-    for i in range(4):
+    for i in range(3):
         vn = 64 + 16 * i
         args = (z, sdf, o, d, new_z, new_sdf, None if i == 0 else vn - 16, vn, 64.0 * 2**i)
-        steps.append(args)
+        steps.append((args, False))
         new_z, z, sdf = march.round_machinery(*args)
-        pts = o[:, None, :] + d[:, None, :] * new_z[..., None]
-        new_sdf = march._mlp_sdf_3d(pts, mw, scfg) if i < 3 else torch.zeros_like(new_z)
-    steps.append((z, sdf, o, d, new_z, new_sdf, 112, None, None))
-    z_imp = march.round_machinery(*steps[-1])[1]
+        new_sdf = march._mlp_sdf_3d(o[:, None, :] + d[:, None, :] * new_z[..., None], mw, scfg)
+    steps.append(((z, sdf, o, d, new_z, new_sdf, 96, 112, 64.0 * 2**3), True))
+    z_imp = march.round_machinery(*steps[-1][0], last=True)[1]
 
     dists = torch.cat([z_imp[:, 1:] - z_imp[:, :-1], torch.full((512, 1), 2.0 / 64, device=dev)], -1)
     x = (o[:, None, :] + d[:, None, :] * (z_imp + dists * 0.5)[..., None]).reshape(-1, 3).contiguous()
@@ -419,21 +422,36 @@ def main() -> int:
     H, W = camera.H, camera.W
     params = {"renderer": renderer_params, "raygen": {}}
 
+    def b_last_is_two_steps(args, merge="bitonic") -> bool:
+        """B's last-round step against its draw step followed by the plain
+        merge of those draws with a zero sdf, bit for bit."""
+        k_last = march.round_machinery(*args, merge=merge, last=True)
+        nz, z_, sdf_ = march.round_machinery(*args, merge=merge)
+        tail = march.round_machinery_plain(z_, sdf_, o, d, nz, torch.zeros_like(nz), args[7], None, None, merge=merge)
+        return k_last[0] is None and k_last[2] is None and torch.equal(k_last[1], tail[1])
+
     b_abs = b_rel = b_ms = b_plain_ms = b_bound = 0.0
-    for args in steps:
-        k_out = march.round_machinery(*args)
-        p_out = march.round_machinery_plain(*args)
-        if not torch.equal(k_out[1], p_out[1]) or (k_out[2] is not None and not torch.equal(k_out[2], p_out[2])):
+    for args, last in steps:
+        k_out = march.round_machinery(*args, last=last)
+        p_out = march.round_machinery_plain(*args, last=last)
+        if last and not b_last_is_two_steps(args):
+            raise AssertionError("kernel B's last step differs from its draw step and the plain merge of its draws")
+        if not last and not (torch.equal(k_out[1], p_out[1]) and torch.equal(k_out[2], p_out[2])):
             raise AssertionError(f"kernel B merge differs from the plain merge at step {args[6:8]}")
         a, r = max_err(k_out, p_out)
         b_abs, b_rel = max(b_abs, a), max(b_rel, r)
-        b_ms += cuda_ms(lambda: march.round_machinery(*args), 200) / len(steps)
-        b_plain_ms += cuda_ms(lambda: march.round_machinery_plain(*args), 20) / len(steps)
-        merge, nxt = args[6] is not None, args[7] is not None
-        per_ray = 4 * (2 * 128 + 6 + (32 if merge else 0) + 128 + (16 + 128 if nxt else 0))
+        b_ms += cuda_ms(lambda: march.round_machinery(*args, last=last), 200) / len(steps)
+        b_plain_ms += cuda_ms(lambda: march.round_machinery_plain(*args, last=last), 20) / len(steps)
+        # Bytes a ray: z and sdf in, o and d, the previous draws (z, sdf)
+        # where it merges, z out, and the draws and sdf out but in the last.
+        per_ray = 4 * (2 * 128 + 6 + (32 if args[6] is not None else 0) + 128 + (0 if last else 16 + 128))
         b_bound += bound(512 * 128 * 64, 512 * per_ray, H100_F32_FLOPS)[0] / len(steps)
-    log(f"[kernel B] round_machinery: 5 steps, max abs err {b_abs:.3e} (rel {b_rel:.3e}), "
-        f"{b_ms:.4f} ms/launch, plain {b_plain_ms:.4f} ms, bound {b_bound:.5f} ms")
+    b_dev = profiled_groups(lambda: [march.round_machinery(*a, last=la) for a, la in steps]).get(
+        "kernel B round_machinery", 0.0) / len(steps)
+    log(f"[kernel B] round_machinery: the {len(steps)} steps of a march (the last merges its draws in: equal to its "
+        f"draw step and the plain merge of its draws), max abs err {b_abs:.3e} (rel {b_rel:.3e}), {b_ms:.4f} ms/launch, "
+        f"plain {b_plain_ms:.4f} ms, bound {b_bound:.5f} ms; one profiled call of the {len(steps)} steps, device time "
+        f"{b_dev:.4f} ms a launch")
     if not b_rel <= TOL["round_machinery"]:
         raise AssertionError(f"kernel B disagrees with its plain version: rel {b_rel:.3e}")
 
@@ -486,24 +504,25 @@ def main() -> int:
     log(f"[kernel C] one profiled call, device time {c_dev:.4f} ms; bound {c_bound:.4f} ms ({c_by}), "
         f"{c_flops / 1e9:.1f} GFLOP at {c_flops / max(c_dev, 1e-9) / 1e9:.1f} TFLOP/s")
 
-    # B under the rank merge, on the five steps above: z equal to the
-    # bitonic network's, everything equal to the plain rank merge's but the
-    # draws (as B).
+    # B under the rank merge, on the four steps above: the merged z equal to
+    # the bitonic network's, everything equal to the plain rank merge's but
+    # the draws (as B); the last step as B's.
     br_abs = br_ms = 0.0
-    for args in steps:
+    for args, last in steps:
         kr, kb = march.round_machinery(*args, merge="rank"), march.round_machinery(*args)
         pr = march.round_machinery_plain(*args, merge="rank")
-        if not (torch.equal(kr[1], kb[1]) and torch.equal(kr[1], pr[1])):
+        if not (torch.equal(kr[1], kb[1]) and torch.equal(kr[1], pr[1]) and torch.equal(kr[2], pr[2])):
             raise AssertionError(f"kernel B's rank merge differs from the bitonic or the plain merge at {args[6:8]}")
-        if kr[2] is not None and not torch.equal(kr[2], pr[2]):
-            raise AssertionError(f"kernel B's rank merge moves the payload otherwise than the plain merge at {args[6:8]}")
-        a, r = max_err(kr, pr)
+        if last and not b_last_is_two_steps(args, "rank"):
+            raise AssertionError("kernel B's last step under the rank merge differs from its draw step and merge")
+        kr = march.round_machinery(*args, merge="rank", last=last)
+        a, r = max_err(kr, march.round_machinery_plain(*args, merge="rank", last=last))
         if not r <= TOL["round_machinery"]:
             raise AssertionError(f"kernel B (rank) disagrees with its plain version: rel {r:.3e}")
         br_abs = max(br_abs, a)
-        br_ms += cuda_ms(lambda: march.round_machinery(*args, merge="rank"), 200) / len(steps)
-    log(f"[kernel B rank] round_machinery, merge='rank': z equal to the bitonic merge's on all 5 steps, max abs err "
-        f"{br_abs:.3e} against the plain rank merge, {br_ms:.4f} ms/launch (bitonic {b_ms:.4f} ms)")
+        br_ms += cuda_ms(lambda: march.round_machinery(*args, merge="rank", last=last), 200) / len(steps)
+    log(f"[kernel B rank] round_machinery, merge='rank': merged z equal to the bitonic merge's on all {len(steps)} "
+        f"steps, max abs err {br_abs:.3e} against the plain rank merge, {br_ms:.4f} ms/launch (bitonic {b_ms:.4f} ms)")
 
     # K, L, M and N: the round-4 marches on the same chunk, K, L and M on
     # its camera rays' z0, N on the shadow rays' above.  Bounds: a value
@@ -550,10 +569,12 @@ def main() -> int:
         f"equals L(K(.)) bit for bit: {m_is_lk}")
     if not (l_is_bk and m_is_lk):
         raise AssertionError(f"kernel L or M differs from its composition: L = B/K steps {l_is_bk}, M = L(K) {m_is_lk}")
-    # K and M (and N below) by device time from one profiled call each.
+    # K, L and M (and N below) by device time from one profiled call each.
     k_dev = profiled_groups(lambda: march.march_sweep(z0, o, d, mw, scfg)).get("kernel K march_sweep", 0.0)
+    l_dev = profiled_groups(lambda: march.march_rounds(z0, k_sdf0, o, d, mw, scfg)).get("kernel L march_rounds", 0.0)
     m_dev = profiled_groups(lambda: march.importance_march(z0, o, d, mw, scfg)).get("kernel M importance_march", 0.0)
-    for name, dev_ms, bd, by in (("K march_sweep", k_dev, k_bound, k_by), ("M importance_march", m_dev, m_bound, m_by)):
+    for name, dev_ms, bd, by in (("K march_sweep", k_dev, k_bound, k_by), ("L march_rounds", l_dev, l_bound, l_by),
+                                 ("M importance_march", m_dev, m_bound, m_by)):
         log(f"[kernel {name}] one profiled call, device time {dev_ms:.4f} ms; bound {bd:.4f} ms ({by})")
 
     n_tau = march.shadow_march(z0s, sl, sdir, sdist, inv_s, anneal, mw, scfg)
@@ -804,7 +825,7 @@ def main() -> int:
     launches = dict(cuda_lib.launch_counts)
     n_chunks = -(-H * W // mcfg.inference_chunk_size)
     expected = {k: 0 for k in cuda_lib.launch_counts}
-    expected.update(sdf_core_fwd=n_chunks, round_machinery=10 * n_chunks, shadow_final=n_chunks)
+    expected.update(sdf_core_fwd=n_chunks, round_machinery=8 * n_chunks, shadow_final=n_chunks)
     log(f"[main path] {H}x{W} view: {secs:.4f} s, {H * W / secs:.1f} rays/s on {smi}; launches {launches}")
     channels = {"rgb": 3, "depth": 1, "normal": 3, "normalized_normal": 3, "shadow_map": 1,
                 "specular_hint": len(mcfg.renderer.specular_roughness)}
@@ -1029,12 +1050,12 @@ def main() -> int:
 
     stash_step = dict(sdf_stash_fwd=1, sdf_stash_bwd=1, mlp_stash_fwd=1, mlp_stash_bwd=1)
     train_launches = train_phase("train path", tcfg, TRAIN_STEPS, dict(
-        stash_step, round_machinery=10, shadow_final=1))
+        stash_step, round_machinery=8, shadow_final=1))
 
     # 6. The recompute schedule on the same batches.
     rec_launches = train_phase("recompute train path", with_renderer(tcfg, core_backward="recompute"),
                                RECOMPUTE_STEPS, dict(sdf_core_fwd=1, sdf_core_bwd=1, mlp_fwd=1, mlp_bwd=1,
-                                                     round_machinery=10, shadow_final=1))
+                                                     round_machinery=8, shadow_final=1))
 
     # 8. The monolithic round-4 marches in training, on the same batches.
     train_phase("round-4 monolith train path", with_renderer(tcfg, **MONOLITH), ROUND4_STEPS,

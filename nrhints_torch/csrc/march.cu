@@ -5,18 +5,25 @@
 // nrhints_tpu/kernels/march.py::_round_machinery_kernel (:392), launched
 // five times per march by _rounds_xla (:424, pallas_call at :443).  Per ray
 // it merges the previous round's 16 new (z, sdf) pairs into the sorted
-// 128-slot buffer (merge128: the bitonic network of _bitonic_merge, :165, so
-// ties resolve identically, or with RANK the stable rank merge of
-// _rank_merge, :200), then draws the next 16 samples exactly as
-// _round_new_z (:263): NeuS section alpha at inv_s, weights by the
-// exclusive log-space prefix, pdf + 1e-5 over the valid intervals, and the
-// deterministic inverse CDF at descending u = 1 - k/15.
+// 128-slot buffer (the bitonic network of _bitonic_merge, :165, so ties
+// resolve identically, or with RANK the stable rank merge of _rank_merge,
+// :200), then draws the next 16 samples exactly as _round_new_z (:263):
+// NeuS section alpha at inv_s, weights by the exclusive log-space prefix,
+// pdf + 1e-5 over the valid intervals, and the deterministic inverse CDF at
+// descending u = 1 - k/15.  With `last` it then merges those 16 samples in
+// with a zero sdf and writes z alone: the last round's step and JAX's tail
+// step in one launch, so a march takes 4 launches.
 // Bound on an H100: it moves about 1.1 MB per launch at B = 512 rays, about
-// 0.3 us at 3.35 TB/s, so launch latency (a few us) dominates.  Design: one
-// 128-thread block per ray, one thread per slot, the buffers in shared
-// memory; prefix sums are warp shuffles, the inverse-CDF counts are warp
-// ballots.
-//
+// 0.3 us at 3.35 TB/s; its work is a few hundred bytes a ray, in chains of
+// dependent shuffles and transcendentals.  Design: one warp a ray
+// (march_common.cuh::ray_step), 4 rays on a 128-thread block (128 blocks
+// for 512 rays, 6 KB of shared memory): lane l holds slots 32 j + l in
+// registers, so each lane interleaves four independent chains, and nothing
+// waits at a block barrier.  The march template runs the same ray_step.
+// Measured (NVIDIA H100 80GB HBM3, 700 W): 5.3-6.0 us of device time a
+// launch against the 128-thread design's 4.1: with one warp on each SM
+// sub-partition, nothing hides that warp's chains of shuffles and IEEE
+// divisions, which the old design's four warps a sub-partition hid.
 // Kernel C, shadow_final.  Replaces
 // nrhints_tpu/kernels/march.py::_shadow_final_kernel (:574, pallas_call at
 // :873), whose body is _shadow_final_math (:542).  Per shadow ray: 128
@@ -29,7 +36,7 @@
 // chunk of 65,536 points, 0.122 ms at 989 TFLOP/s bf16: bound by operations.
 // Design: the TPU kept 128 points x 256 x 2 streams in VMEM next to a whole
 // layer's weights; that is more than a Hopper block's 227 KB.  So a block
-// takes four rays on 512 threads (march_kernel's FINAL stage with WIDE: 128
+// takes four rays on 512 threads (march_kernel's FINAL stage: 128
 // blocks for 512 rays, one per SM, 225,952 bytes of shared memory) and
 // walks their 512 sections in eight dual passes of 64 sections and their 64
 // tangent rows (mma_rows.cuh::sdf_rows): each 64-row weight slab, staged by
@@ -46,53 +53,63 @@ using namespace nrh;
 
 namespace {
 
+constexpr int kMachRays = 4;  // rays of a kernel B block, one warp each
+
 template <bool RANK>
-__global__ void __launch_bounds__(NBUF)
+__global__ void __launch_bounds__(kMachRays * 32)
     round_machinery_kernel(const float* __restrict__ z, const float* __restrict__ sdf,
                            const float* __restrict__ o, const float* __restrict__ d,
                            const float* __restrict__ new_z_prev,
                            const float* __restrict__ new_sdf_prev, float* __restrict__ out_new_z,
-                           float* __restrict__ out_z, float* __restrict__ out_sdf,
-                           int merge_valid_n, int next_valid_n, float inv_s) {
-  __shared__ float sz[NBUF], ss[NBUF], sc[NBUF], warp_tot[4];
-  __shared__ int cnt[4][NNEW];
-  const int ray = blockIdx.x, k = threadIdx.x;
-  float zk = z[(size_t)ray * NBUF + k];
-  float sk = sdf[(size_t)ray * NBUF + k];
-
-  if (merge_valid_n >= 0) {
-    // [old ascending | BIG_Z pad | new descending]
-    if (k < NOLD) {
-      if (k >= merge_valid_n) zk = BIG_Z;
-    } else {
-      zk = new_z_prev[(size_t)ray * NNEW + k - NOLD];
-      sk = new_sdf_prev[(size_t)ray * NNEW + k - NOLD];
-    }
-    merge128<RANK>(zk, sk, sz, ss);
+                           float* __restrict__ out_z, float* __restrict__ out_sdf, int b,
+                           int merge_valid_n, int next_valid_n, float inv_s, bool last) {
+  __shared__ float sz[kMachRays][NBUF], ss[kMachRays][NBUF], sc[kMachRays][NBUF];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ray = blockIdx.x * kMachRays + warp;
+  if (ray >= b) return;  // a warp's own ray; no block barrier follows
+  const size_t row = (size_t)ray * NBUF;
+  float zr[4], sr[4], pz = 0.0f, ps = 0.0f, oo = 0.0f, od = 0.0f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    zr[q] = z[row + 32 * q + lane];
+    sr[q] = sdf[row + 32 * q + lane];
   }
-  out_z[(size_t)ray * NBUF + k] = zk;
-  if (out_sdf) out_sdf[(size_t)ray * NBUF + k] = sk;
-  if (next_valid_n < 0) return;  // uniform over the block
-
-  const float o0 = o[ray * 3], o1 = o[ray * 3 + 1], o2 = o[ray * 3 + 2];
-  const float d0 = d[ray * 3], d1 = d[ray * 3 + 1], d2 = d[ray * 3 + 2];
-  const float oo = o0 * o0 + o1 * o1 + o2 * o2;
-  const float od = o0 * d0 + o1 * d1 + o2 * d2;
-  draw_new_z(zk, sk, next_valid_n, inv_s, oo, od, sz, ss, sc, warp_tot, cnt,
-             out_new_z + (size_t)ray * NNEW);
+  if (merge_valid_n >= 0 && lane >= NNEW) {
+    pz = new_z_prev[(size_t)ray * NNEW + lane - NNEW];
+    ps = new_sdf_prev[(size_t)ray * NNEW + lane - NNEW];
+  }
+  if (next_valid_n >= 0) {
+    const float o0 = o[ray * 3], o1 = o[ray * 3 + 1], o2 = o[ray * 3 + 2];
+    const float d0 = d[ray * 3], d1 = d[ray * 3 + 1], d2 = d[ray * 3 + 2];
+    oo = o0 * o0 + o1 * o1 + o2 * o2;
+    od = o0 * d0 + o1 * d1 + o2 * d2;
+  }
+  const float nz = ray_step<RANK>(zr, sr, merge_valid_n, pz, ps, next_valid_n, inv_s, oo, od, last, sz[warp],
+                                  ss[warp], sc[warp]);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    out_z[row + 32 * q + lane] = zr[q];
+    if (out_sdf) out_sdf[row + 32 * q + lane] = sr[q];
+  }
+  if (out_new_z && lane < NNEW) out_new_z[(size_t)ray * NNEW + lane] = nz;
 }
 
 }  // namespace
 
+// merge_valid_n < 0: no merge; next_valid_n < 0: no draw (the merge-only
+// tail step); last != 0 (with a draw): merge the drawn samples in and write
+// out_z alone.  out_new_z and out_sdf may be null where nothing is drawn.
 extern "C" int round_machinery(const float* z, const float* sdf, const float* o, const float* d,
                                const float* new_z_prev, const float* new_sdf_prev,
                                float* out_new_z, float* out_z, float* out_sdf, int b,
-                               int merge_valid_n, int next_valid_n, float inv_s, int rank,
+                               int merge_valid_n, int next_valid_n, float inv_s, int rank, int last,
                                void* stream) {
+  if (last && next_valid_n < 0) return (int)cudaErrorInvalidValue;
   if (b <= 0) return 0;
   auto kernel = rank ? round_machinery_kernel<true> : round_machinery_kernel<false>;
-  kernel<<<b, NBUF, 0, (cudaStream_t)stream>>>(z, sdf, o, d, new_z_prev, new_sdf_prev, out_new_z,
-                                               out_z, out_sdf, merge_valid_n, next_valid_n, inv_s);
+  kernel<<<(b + kMachRays - 1) / kMachRays, kMachRays * 32, 0, (cudaStream_t)stream>>>(
+      z, sdf, o, d, new_z_prev, new_sdf_prev, out_new_z, out_z, out_sdf, b, merge_valid_n, next_valid_n, inv_s,
+      last != 0);
   return (int)cudaGetLastError();
 }
 
@@ -100,8 +117,8 @@ extern "C" int shadow_final(const float* z, const float* o, const float* d, cons
                             const void* wpack, const float* bpack, const float* w_sdf,
                             const float* inv_s, const float* anneal, float* tau, int b,
                             const int* meta, float scale, void* stream) {
-  return launch_march<false, false, true, false, true>(z, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s,
-                                                       anneal, tau, b, meta, scale, 0.0f, stream);
+  return launch_march<false, false, true, false>(z, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal,
+                                                 tau, b, meta, scale, 0.0f, stream);
 }
 
 extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

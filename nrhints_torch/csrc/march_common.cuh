@@ -1,41 +1,38 @@
 // Device code of the hierarchical SDF marches, shared by kernels B and C
 // (march.cu) and K, L, M and N (march_fused.cu).
 //
-// * The per-ray round machinery of nrhints_tpu/kernels/march.py: the merge
-//   of 16 new (z, sdf) pairs into the sorted 128-slot buffer (merge128: the
-//   bitonic network of _bitonic_merge, :165, or the stable rank merge of
-//   _rank_merge, :200) and the draw of the next 16 samples (draw_new_z, the
-//   NeuS up-sample and deterministic inverse CDF of _round_new_z, :263).
-//   Both run on 128 threads per ray, one slot per thread; the prefix sums
-//   are warp shuffles, the inverse-CDF counts warp ballots.
-// * Two sweep paths for the 8x256 SDF MLP, bf16 weights and activations,
-//   f32 biases and nonlinearities, as _mlp_sdf_3d (:87) computes the value.
-//   Both give every row the same floats bit for bit.
-//   - mma_rows.cuh::sdf_rows (C, K, M, N): up to 128 rows on 4-ray blocks
-//     of 512 threads, the weights staged through a cp.async ring of 64-row
-//     slabs, fragments by ldmatrix into mma.sync, the epilogue in
-//     registers; in dual mode also the forward-mode tangent of
-//     _mlp_sdf_dirderiv_3d (:117) that the final sweep needs.
-//   - sdf_tile (L alone): the value on 32-row tiles on 2-ray blocks of 256
-//     threads; its bf16 activations ping-pong in shared memory, and each
-//     warp loads every WMMA weight fragment it needs from global memory.
-//     It and TileSmem go when L moves to the row engine.
+// * The per-ray round machinery of nrhints_tpu/kernels/march.py on one warp
+//   a ray (ray_step): the merge of 16 new (z, sdf) pairs into the sorted
+//   128-slot buffer (warp_merge128: the bitonic network of _bitonic_merge,
+//   :165, or the stable rank merge of _rank_merge, :200) and the draw of the
+//   next 16 samples (warp_draw_new_z, the NeuS up-sample and deterministic
+//   inverse CDF of _round_new_z, :263).  Lane l holds slots 32 j + l, j =
+//   0..3, in registers: column j does what warp j of a 128-thread ray did,
+//   in the same order on the same operands, so every float is that design's
+//   bit for bit.  Prefix sums are shuffles in each column, then the column
+//   totals in order; the bitonic stages across columns are register swaps,
+//   those within one are xor shuffles; the inverse-CDF counts are ballots.
+//   The warp joins its lanes by __syncwarp and its 3 x 128-float shared row;
+//   no block barrier.  Kernel B runs it for 4 rays on a 128-thread block,
+//   the march template on its warps 0-3.
 // * march_kernel, one template for the fused marches: <SWEEP, ROUNDS, FINAL,
-//   RANK, WIDE> selects the initial 64-sample sweep, the 4 refinement rounds
-//   (each drawing 16 samples, sweeping them but the last, and merging them),
-//   the final dual sweep with the transmittance (WIDE only), the merge, and
-//   the sweep path (WIDE: sdf_rows).  Kernel C (final sweep of a refined
-//   buffer), K (sweep), L (rounds), M (sweep + rounds) and N (sweep + rounds
-//   + final) are its instances, all WIDE but L, so M's z is L(K(.)) bit for
-//   bit and N's tau is C(M(.)) bit for bit.
+//   RANK> selects the initial 64-sample sweep, the 4 refinement rounds (each
+//   drawing 16 samples, sweeping them but the last, and merging them), the
+//   final dual sweep with the transmittance, and the merge.  Kernel C (final
+//   sweep of a refined buffer), K (sweep), L (rounds), M (sweep + rounds)
+//   and N (sweep + rounds + final) are its instances.  Every sweep runs on
+//   the row engine, mma_rows.cuh::sdf_rows: the 8x256 SDF MLP, bf16 weights
+//   and activations, f32 biases and nonlinearities, as _mlp_sdf_3d (:87)
+//   computes the value, with the forward-mode tangent of
+//   _mlp_sdf_dirderiv_3d (:117) for the final sweep.  So L is B's steps
+//   between K's sweeps, M's z is L(K(.)) and N's tau C(M(.)), bit for bit.
 //
-// Layout: a march block holds RPB rays (4 when WIDE, 2 for L) on 128 RPB
-// threads; thread t works slot t & 127 of ray t >> 7 in the machinery, so
-// every __syncthreads is reached by all rays' threads together.  A WIDE
-// block's sweeps are 2 value passes of 128 rows (its 4 rays' 64 stratified
-// samples), one value pass of 64 rows per swept round (4 rays x 16 new
-// samples), and 8 dual passes of 64 sections and their 64 tangent rows.
-// L's sdf_tile sweep is 32 rows: the 16 new samples of both its rays.
+// Layout: a march block holds kMarchRays = 4 rays on 512 threads; thread t
+// loads and stores slot t & 127 of ray t >> 7, and warp w < 4 runs ray w's
+// machinery.  A block's sweeps are 2 value passes of 128 rows (its 4 rays'
+// 64 stratified samples), one value pass of 64 rows per swept round (4 rays
+// x 16 new samples), and 8 dual passes of 64 sections and their 64 tangent
+// rows.
 #pragma once
 
 #include "mma_rows.cuh"
@@ -48,235 +45,239 @@ constexpr int NOLD = NBUF - NNEW;
 constexpr int kRounds = 4;
 constexpr int N0 = NBUF - kRounds * NNEW;  // 64 stratified samples
 constexpr float BIG_Z = 1e9f;
-
-constexpr int TPC = 32;  // rows of an sdf_tile sweep tile
-constexpr int MTHREADS = 256;  // threads of a 2-ray block (sdf_tile)
-constexpr int MWARPS = MTHREADS / 32;
-static_assert(2 * NNEW == TPC, "a round's sweep tile holds both rays' new samples");
-// Rays per march block: 2 on sdf_tile, 4 on sdf_rows (512 threads).
-template <bool WIDE>
-__host__ __device__ constexpr int march_rpb() { return WIDE ? kRowsThreads / NBUF : MTHREADS / NBUF; }
-static_assert(march_rpb<true>() * NNEW == 64, "a WIDE round's sweep is one 64-row pass");
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMarchRays = kRowsThreads / NBUF;  // rays of a march block
+static_assert(kMarchRays * NNEW == 64, "a round's sweep is one 64-row pass");
 
 // ---------------------------------------------------------------------------
-// Machinery: 128 threads per ray.  wt is the ray's 4 warp totals.
+// Machinery: one warp a ray; lane l holds slot 32 j + l in column j of its
+// registers.
 
-__device__ __forceinline__ int slot_id() { return threadIdx.x & (NBUF - 1); }
-
-// Exclusive prefix sum over the ray's 128 slots (4 warps).
-__device__ float block_exclusive_scan128(float v, float* wt) {
-  const int lane = threadIdx.x & 31, w4 = slot_id() >> 5;
-  float inc = v;
+// Exclusive prefix sum over the ray's 128 slots: in each column the 32-lane
+// Hillis-Steele scan, then the totals of the columns before it, summed in
+// order from 0.
+__device__ __forceinline__ void warp_exclusive_scan128(float (&v)[4]) {
+  const int lane = threadIdx.x & 31;
+  float inc[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) inc[q] = v[q];
+#pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const float t = __shfl_up_sync(0xffffffffu, inc, o);
-    if (lane >= o) inc += t;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float t = __shfl_up_sync(kFull, inc[q], o);
+      if (lane >= o) inc[q] += t;
+    }
   }
-  float exc = __shfl_up_sync(0xffffffffu, inc, 1);
-  if (lane == 0) exc = 0.0f;
-  if (lane == 31) wt[w4] = inc;
-  __syncthreads();
   float base = 0.0f;
-  for (int w = 0; w < w4; ++w) base += wt[w];
-  __syncthreads();
-  return exc + base;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float tot = __shfl_sync(kFull, inc[q], 31);
+    float exc = __shfl_up_sync(kFull, inc[q], 1);
+    if (lane == 0) exc = 0.0f;
+    v[q] = exc + base;
+    base += tot;
+  }
 }
 
-// Sum over the ray's 128 slots: xor butterflies in each warp, then
-// (w0 + w1) + (w2 + w3).
-__device__ float block_sum128(float v, float* wt) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) wt[slot_id() >> 5] = v;
-  __syncthreads();
-  const float s = (wt[0] + wt[1]) + (wt[2] + wt[3]);
-  __syncthreads();
-  return s;
+// Sum over the ray's 128 slots: xor butterflies in each column, then
+// (t0 + t1) + (t2 + t3) of lane 0's column sums.
+__device__ __forceinline__ float warp_sum128(const float (&x)[4]) {
+  float v[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v[q] = x[q];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] += __shfl_xor_sync(kFull, v[q], o);
+  float t[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) t[q] = __shfl_sync(kFull, v[q], 0);
+  return (t[0] + t[1]) + (t[2] + t[3]);
 }
 
 // Sort the ray's [old ascending (BIG_Z pad included) | new descending] row
-// ascending, moving the payload with z; (zk, sk) is this thread's slot, in
-// and out.  sz and ss are the ray's 128-slot scratch.
-//   Bitonic: the 7-stage network (partner k ^ dd; the upper lane of a pair
-//   keeps the larger value; ties stay put).
+// ascending, moving the payload s with z.  sz and ss are the warp's 128-slot
+// scratch.
+//   Bitonic: the 7-stage network (partner k ^ dd; the upper slot of a pair
+//   keeps the larger value; ties stay put): dd = 64 and 32 pair columns
+//   j ^ 2 and j ^ 1, dd <= 16 lanes l ^ dd.
 //   Rank: each element goes straight to its rank in a stable old-before-new
-//   merge: old i to i + #{new < old_i}, new j (descending) to 15 - j +
-//   #{old <= new_j}, as _rank_merge's shift network places them.  The z row
-//   equals the bitonic one; the payload differs only among tied z.
+//   merge: old i to i + #{new < old_i}, new j (descending; column 3, lane
+//   16 + j) to 15 - j + #{old <= new_j}, as _rank_merge's shift network
+//   places them.  The z row equals the bitonic one; the payload differs only
+//   among tied z.
 template <bool RANK>
-__device__ void merge128(float& zk, float& sk, float* sz, float* ss) {
-  const int k = slot_id();
+__device__ void warp_merge128(float (&z)[4], float (&s)[4], float* sz, float* ss) {
+  const int lane = threadIdx.x & 31;
   if (RANK) {
-    sz[k] = zk;
-    __syncthreads();
-    int dest;
-    if (k < NOLD) {
+    int up[4] = {0, 0, 0, 0}, cnew = 0;
+    for (int j = 0; j < NNEW; ++j) {
+      const float nv = __shfl_sync(kFull, z[3], NNEW + j);
       int c = 0;
-      for (int j = 0; j < NNEW; ++j) c += sz[NOLD + j] < zk;
-      dest = k + c;
-    } else {
-      int c = 0;
-      for (int i = 0; i < NOLD; ++i) c += sz[i] <= zk;
-      dest = NNEW - 1 - (k - NOLD) + c;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        up[q] += nv < z[q];
+        c += __popc(__ballot_sync(kFull, z[q] <= nv && (q < 3 || lane < NNEW)));
+      }
+      if (lane == NNEW + j) cnew = c;
     }
-    __syncthreads();
-    sz[dest] = zk;
-    ss[dest] = sk;
-    __syncthreads();
-    zk = sz[k];
-    sk = ss[k];
-    __syncthreads();
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int dest = q < 3 || lane < NNEW ? 32 * q + lane + up[q] : NNEW - 1 - (lane - NNEW) + cnew;
+      sz[dest] = z[q];
+      ss[dest] = s[q];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      z[q] = sz[32 * q + lane];
+      s[q] = ss[32 * q + lane];
+    }
+    __syncwarp();
     return;
   }
-  for (int dd = NBUF / 2; dd >= 1; dd >>= 1) {
-    sz[k] = zk;
-    ss[k] = sk;
-    __syncthreads();
-    const float pz = sz[k ^ dd], ps = ss[k ^ dd];
-    const bool take = (k & dd) ? pz > zk : pz < zk;
-    if (take) {
-      zk = pz;
-      sk = ps;
+#pragma unroll
+  for (int cx = 2; cx >= 1; cx >>= 1) {
+    float nz[4], ns[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int p = q ^ cx;
+      const bool take = (q & cx) ? z[p] > z[q] : z[p] < z[q];
+      nz[q] = take ? z[p] : z[q];
+      ns[q] = take ? s[p] : s[q];
     }
-    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      z[q] = nz[q];
+      s[q] = ns[q];
+    }
+  }
+#pragma unroll
+  for (int dd = 16; dd >= 1; dd >>= 1) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float pz = __shfl_xor_sync(kFull, z[q], dd), ps = __shfl_xor_sync(kFull, s[q], dd);
+      const bool take = (lane & dd) ? pz > z[q] : pz < z[q];
+      if (take) {
+        z[q] = pz;
+        s[q] = ps;
+      }
+    }
   }
 }
 
-// One up-sample round's draw: from the sorted buffer ((zk, sk) per slot,
-// vn valid slots) at inv_s, the 16 new samples in descending order into
-// new_z[0..15] (written by slots 0-15).  oo = |o|^2, od = o . d.  sz, ss, sc
-// are the ray's 128-slot scratch, wt its 4 warp totals, cnt its ballot counts.
-__device__ void draw_new_z(float zk, float sk, int vn, float inv_s, float oo, float od, float* sz,
-                           float* ss, float* sc, float* wt, int (*cnt)[NNEW], float* new_z) {
-  const int k = slot_id(), lane = k & 31, w4 = k >> 5;
-  sz[k] = zk;
-  ss[k] = sk;
-  __syncthreads();
-  const float nz = sz[(k + 1) % NBUF], ns = ss[(k + 1) % NBUF];
-  const float r2 = oo + 2.0f * od * zk + zk * zk;
-  const float r2n = oo + 2.0f * od * nz + nz * nz;
-  const float inside = (r2 < 1.0f || r2n < 1.0f) ? 1.0f : 0.0f;
-  const float mid = (sk + ns) * 0.5f;
-  float cosv = (ns - sk) / (nz - zk + 1e-5f);
-  sc[k] = cosv;
-  __syncthreads();
-  const float prev = k == 0 ? 0.0f : sc[k - 1];
-  cosv = fminf(prev, cosv);
-  cosv = fminf(fmaxf(cosv, -1e3f), 0.0f) * inside;
-  const float dist = nz - zk;
-  const float pc = sigmoidf((mid - cosv * dist * 0.5f) * inv_s);
-  const float nc = sigmoidf((mid + cosv * dist * 0.5f) * inv_s);
-  const bool ivalid = k < vn - 1;
-  const float alpha = ivalid ? fminf((pc - nc + 1e-5f) / (pc + 1e-5f), 1.0f) : 0.0f;
-  const float w = alpha * expf(block_exclusive_scan128(logf(1.0f - alpha + 1e-7f), wt));
-  float pdf = ivalid ? w + 1e-5f : 0.0f;
-  pdf = pdf / block_sum128(pdf, wt);
-  const float cdf = block_exclusive_scan128(pdf, wt);
-  const float cdf_cnt = k < vn ? cdf : 2.0f;
-  sc[k] = cdf;
+// One up-sample round's draw: from the sorted buffer (z, s), vn valid slots,
+// at inv_s -> the 16 new samples in descending order, sample l in lane l <
+// 16.  oo = |o|^2, od = o . d.  sz and sc are the warp's 128-slot scratch.
+__device__ float warp_draw_new_z(const float (&z)[4], const float (&s)[4], int vn, float inv_s, float oo, float od,
+                                 float* sz, float* sc) {
+  const int lane = threadIdx.x & 31;
+  // Slot k's neighbour k + 1 (slot 127's is slot 0, as (k + 1) % 128).
+  float nz[4], ns[4], cosv[4], inside[4], mid[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float dz = __shfl_down_sync(kFull, z[q], 1), ds = __shfl_down_sync(kFull, s[q], 1);
+    const float fz = __shfl_sync(kFull, z[(q + 1) & 3], 0), fs = __shfl_sync(kFull, s[(q + 1) & 3], 0);
+    nz[q] = lane == 31 ? fz : dz;
+    ns[q] = lane == 31 ? fs : ds;
+    const float r2 = oo + 2.0f * od * z[q] + z[q] * z[q];
+    const float r2n = oo + 2.0f * od * nz[q] + nz[q] * nz[q];
+    inside[q] = (r2 < 1.0f || r2n < 1.0f) ? 1.0f : 0.0f;
+    mid[q] = (s[q] + ns[q]) * 0.5f;
+    cosv[q] = (ns[q] - s[q]) / (nz[q] - z[q] + 1e-5f);
+  }
+  float alpha[4], lg[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    // Slot k's neighbour k - 1 (none for slot 0).
+    const float up = __shfl_up_sync(kFull, cosv[q], 1), last = __shfl_sync(kFull, cosv[(q + 3) & 3], 31);
+    const float prev = lane > 0 ? up : (q > 0 ? last : 0.0f);
+    float c = fminf(prev, cosv[q]);
+    c = fminf(fmaxf(c, -1e3f), 0.0f) * inside[q];
+    const float dist = nz[q] - z[q];
+    const float pc = sigmoidf((mid[q] - c * dist * 0.5f) * inv_s);
+    const float nc = sigmoidf((mid[q] + c * dist * 0.5f) * inv_s);
+    alpha[q] = 32 * q + lane < vn - 1 ? fminf((pc - nc + 1e-5f) / (pc + 1e-5f), 1.0f) : 0.0f;
+    lg[q] = logf(1.0f - alpha[q] + 1e-7f);
+  }
+  warp_exclusive_scan128(lg);
+  float cdf[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float w = alpha[q] * expf(lg[q]);
+    cdf[q] = 32 * q + lane < vn - 1 ? w + 1e-5f : 0.0f;
+  }
+  const float tot = warp_sum128(cdf);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) cdf[q] = cdf[q] / tot;
+  warp_exclusive_scan128(cdf);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    sz[32 * q + lane] = z[q];
+    sc[32 * q + lane] = cdf[q];
+  }
+  // inds of sample j: the slots whose cdf (2 past the valid ones) <= u_j.
+  int inds = 0;
   for (int j = 0; j < NNEW; ++j) {
     const float u = 1.0f - (float)j / (float)(NNEW - 1);
-    const unsigned ball = __ballot_sync(0xffffffffu, cdf_cnt <= u);
-    if (lane == 0) cnt[w4][j] = __popc(ball);
+    int c = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) c += __popc(__ballot_sync(kFull, (32 * q + lane < vn ? cdf[q] : 2.0f) <= u));
+    if (lane == j) inds = c;
   }
-  __syncthreads();
-  if (k < NNEW) {
-    const int inds = cnt[0][k] + cnt[1][k] + cnt[2][k] + cnt[3][k];
-    const float u = 1.0f - (float)k / (float)(NNEW - 1);
+  __syncwarp();
+  float out = 0.0f;
+  if (lane < NNEW) {
+    const float u = 1.0f - (float)lane / (float)(NNEW - 1);
     const int below = max(inds - 1, 0), above = min(inds, vn - 1);
     const float cb = sc[below], zb = sz[below], ca = sc[above], za = sz[above];
     float den = ca - cb;
     if (den < 1e-5f) den = 1.0f;
     const float t = (u - cb) / den;
-    new_z[k] = zb + t * (za - zb);
+    out = zb + t * (za - zb);
   }
-  __syncthreads();
+  __syncwarp();
+  return out;
 }
 
-// ---------------------------------------------------------------------------
-// Sweep tiles
-
-struct TileSmem {
-  float enc[TPC][kEncMax];
-  bf16 h[2][TPC][kLdA];
-  float scratch[MWARPS][16 * 16];
-  float pts[TPC][3];  // the rows' raw points
-  float sdf[TPC];     // out: sdf per row
-};
-
-// The SDF MLP's value on the tile's 32 points (S.pts): S.sdf.  Every thread
-// of the block calls it; it ends with __syncthreads.
-__device__ void sdf_tile(TileSmem& S, const bf16* __restrict__ wpack, const float* __restrict__ bpack,
-                         const float* __restrict__ w_sdf, const SdfMeta& m, float scale) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int L = m.n_layers, F = m.multi_res, d0 = m.d0;
-  for (int idx = tid; idx < TPC * kEncMax; idx += MTHREADS) {
-    const int r = idx / kEncMax, c = idx % kEncMax;
-    float xs[3];
-    for (int j = 0; j < 3; ++j) xs[j] = S.pts[r][j] * scale;
-    S.enc[r][c] = c < d0 ? freq_channel(xs, nullptr, c, F, nullptr) : 0.0f;
+// Merge 16 new samples into the ray's buffer: lane 16 + j brings new sample
+// j (descending) in (pz, ps); slots vn..111 become BIG_Z padding.
+template <bool RANK>
+__device__ __forceinline__ void merge_new(float (&z)[4], float (&s)[4], int vn, float pz, float ps, float* sz,
+                                          float* ss) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int q = 0; q < 3; ++q)
+    if (32 * q + lane >= vn) z[q] = BIG_Z;
+  if (lane >= NNEW) {
+    z[3] = pz;
+    s[3] = ps;
+  } else if (96 + lane >= vn) {
+    z[3] = BIG_Z;
   }
-  __syncthreads();
-  for (int idx = tid; idx < TPC * m.kp[0]; idx += MTHREADS) {
-    const int r = idx / m.kp[0], c = idx % m.kp[0];
-    S.h[0][r][c] = to_bf16(S.enc[r][c]);
-  }
-  __syncthreads();
+  warp_merge128<RANK>(z, s, sz, ss);
+}
 
-  int cur = 0;
-  for (int i = 0; i < L; ++i) {
-    const int kp = m.kp[i], np = m.np_[i], out = m.out_dim[i];
-    const bf16* W = wpack + m.w_off[i];
-    const float* b = bpack + m.b_off[i];
-    const bool next_skip = i + 1 < L && m.skip[i + 1];
-    const int kp_next = i + 1 < L ? m.kp[i + 1] : ((m.d_last + 15) / 16) * 16;
-    const int nxt = cur ^ 1;
-    for (int nt = warp; nt < np / 16; nt += MWARPS) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> ah[2];
-      for (int r = 0; r < 2; ++r) wmma::fill_fragment(ah[r], 0.0f);
-      for (int kt = 0; kt < kp / 16; ++kt) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
-        wmma::load_matrix_sync(bw, W + (size_t)kt * 16 * np + nt * 16, np);
-        for (int r = 0; r < 2; ++r) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, &S.h[cur][r * 16][kt * 16], kLdA);
-          wmma::mma_sync(ah[r], a, bw, ah[r]);
-        }
-      }
-      for (int r = 0; r < 2; ++r) {
-        float* sh = S.scratch[warp];
-        wmma::store_matrix_sync(sh, ah[r], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int row = r * 16 + e / 16, c = nt * 16 + e % 16;
-          if (c >= out) continue;
-          float sp, gate;
-          softplus100_gate(sh[e] + b[c], &sp, &gate);
-          bf16 hv = to_bf16(sp);
-          if (next_skip) hv = to_bf16(bf(hv) * kInvSqrt2);
-          S.h[nxt][row][c] = hv;
-        }
-        __syncwarp();
-      }
-    }
-    // Columns past this layer's output: the skip layer's encoding half
-    // (x 1/sqrt2), then zeros up to the next padded width.
-    const int tail = kp_next - out;
-    for (int idx = tid; idx < TPC * tail; idx += MTHREADS) {
-      const int r = idx / tail, c = idx % tail;
-      S.h[nxt][r][out + c] = to_bf16(next_skip && c < d0 ? S.enc[r][c] * kInvSqrt2 : 0.0f);
-    }
-    __syncthreads();
-    cur = nxt;
+// One machinery step of one ray on one warp, as one _round_machinery_kernel
+// step: merge_vn >= 0 merges the previous round's samples in first (pz, ps
+// as merge_new); draw_vn >= 0 then draws the next 16 samples from draw_vn
+// valid slots at inv_s and returns them (lanes 0-15, descending); `last`
+// then merges those in with a zero sdf, as _rounds_xla's tail step does
+// after the last round, whose samples are never swept.  sz, ss, sc: the
+// warp's 128-slot scratch.  Ends with __syncwarp.
+template <bool RANK>
+__device__ float ray_step(float (&z)[4], float (&s)[4], int merge_vn, float pz, float ps, int draw_vn, float inv_s,
+                          float oo, float od, bool last, float* sz, float* ss, float* sc) {
+  if (merge_vn >= 0) merge_new<RANK>(z, s, merge_vn, pz, ps, sz, ss);
+  if (draw_vn < 0) return 0.0f;
+  const float nz = warp_draw_new_z(z, s, draw_vn, inv_s, oo, od, sz, sc);
+  if (last) {
+    const float mz = __shfl_sync(kFull, nz, threadIdx.x & (NNEW - 1));
+    merge_new<RANK>(z, s, draw_vn, mz, 0.0f, sz, ss);
   }
-
-  // The bf16 sdf head, one warp per row: sdf = (h . w_sdf + b_sdf) / scale.
-  const float b_sdf = bpack[m.bf_off + m.npf];
-  for (int r = warp; r < TPC; r += MWARPS) {
-    float s = 0.0f;
-    for (int c = lane; c < m.d_last; c += 32) s += bf(S.h[cur][r][c]) * bf(to_bf16(w_sdf[c]));
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) S.sdf[r] = (s + b_sdf) / scale;
-  }
-  __syncthreads();
+  return nz;
 }
 
 // log(1 - alpha + 1e-7) of one final-sweep section (0 for the last one, which
@@ -294,16 +295,15 @@ __device__ __forceinline__ float shadow_log_factor(float sdf_v, float dcos, floa
 // ---------------------------------------------------------------------------
 // The fused march kernel
 
-template <bool WIDE>
 struct MarchSmem {
-  static constexpr int R = march_rpb<WIDE>();
-  typename std::conditional<WIDE, RowsSmem, TileSmem>::type t;
-  float sz[R][NBUF], ss[R][NBUF], sc[R][NBUF];  // machinery scratch
+  static constexpr int R = kMarchRays;
+  RowsSmem t;
+  float sz[R][NBUF], ss[R][NBUF];  // each ray's buffer (z, sdf), and its machinery's scratch with sc
+  float sc[R][NBUF];
   float dists[R][NBUF], logs[R][NBUF];
   float sweep0[R][N0];
-  float new_z[R][NNEW], new_sdf[R][NNEW];
-  float wt[4 * R];
-  int cnt[R][4][NNEW];
+  float new_z[R][NNEW];
+  float wt[kRowsThreads / 32];
   float ro[R][3], rd[R][3];
 };
 
@@ -311,18 +311,18 @@ struct MarchSmem {
 // buffer [b, 128] (kernel C); sdf0_in [b, 64] (ROUNDS without SWEEP); sdist
 // [b, 1], inv_s and anneal (device scalars) with FINAL.  out: sdf0 [b, 64]
 // (SWEEP alone), z [b, 128] (ROUNDS without FINAL) or tau [b, 1] (FINAL).
-template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK, bool WIDE>
-__global__ void __launch_bounds__(march_rpb<WIDE>() * NBUF)
+template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK>
+__global__ void __launch_bounds__(kRowsThreads)
     march_kernel(const float* __restrict__ z_in, const float* __restrict__ sdf0_in,
                  const float* __restrict__ o, const float* __restrict__ d,
                  const float* __restrict__ sdist, const bf16* __restrict__ wpack,
                  const float* __restrict__ bpack, const float* __restrict__ w_sdf,
                  const float* __restrict__ inv_s_ptr, const float* __restrict__ anneal_ptr,
                  float* __restrict__ out, int b, const SdfMeta m, float scale, float base_inv_s) {
-  constexpr int RPB = march_rpb<WIDE>();
+  constexpr int RPB = kMarchRays;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  MarchSmem<WIDE>& S = *reinterpret_cast<MarchSmem<WIDE>*>(smem_raw);
-  const int tid = threadIdx.x, h = tid >> 7, k = slot_id();
+  MarchSmem& S = *reinterpret_cast<MarchSmem*>(smem_raw);
+  const int tid = threadIdx.x, h = tid >> 7, k = tid & (NBUF - 1), warp = tid >> 5, lane = tid & 31;
   const int ray = blockIdx.x * RPB + h;
   const bool live = ray < b;
   const int rl = live ? ray : b - 1;  // the last block's spare rays repeat the last ray
@@ -341,7 +341,6 @@ __global__ void __launch_bounds__(march_rpb<WIDE>() * NBUF)
   if constexpr (SWEEP) {
     // Initial sweep: pass p holds the 64 stratified samples of rays 2p and
     // 2p + 1, one row each.
-    static_assert(WIDE, "the initial sweep runs on sdf_rows");
     for (int p = 0; p < RPB * N0 / kRowsMax; ++p) {
       if (tid < kRowsMax * 3) {
         const int r = tid / 3, j = tid % 3, hr = 2 * p + r / N0;
@@ -364,55 +363,62 @@ __global__ void __launch_bounds__(march_rpb<WIDE>() * NBUF)
   if (ROUNDS) {
     // _refine_rounds: round i draws 16 samples at inv_s = base * 2^i from
     // vn = 64 + 16 i valid slots, sweeps them (not in the last round: that
-    // sdf is a payload no one reads) and merges them in.  The sweep's rows
-    // are the block's rays' new samples, ray by ray.
-    constexpr int kNewRows = RPB * NNEW;
-    const float* ro = S.ro[h];
-    const float* rd = S.rd[h];
-    const float oo = ro[0] * ro[0] + ro[1] * ro[1] + ro[2] * ro[2];
-    const float od = ro[0] * rd[0] + ro[1] * rd[1] + ro[2] * rd[2];
+    // sdf is a payload no one reads) and merges them in.  Warp w < RPB runs
+    // ray w's machinery, kernel B's ray_step (a round's merge and the next
+    // draw; the last round's samples merged with it), on the buffer it keeps
+    // in S.sz[w], S.ss[w] between rounds; the other warps wait at the barrier
+    // that follows.  A round's sweep rows are the block's rays' new samples,
+    // ray by ray, so sample j of ray w is row 16 w + j of S.t.sdf.
+    S.ss[h][k] = sk;
+    __syncthreads();
     for (int i = 0; i < kRounds; ++i) {
       const int vn = N0 + i * NNEW;
-      const float inv_s = base_inv_s * (float)(1 << i);
-      draw_new_z(zk, sk, vn, inv_s, oo, od, S.sz[h], S.ss[h], S.sc[h], S.wt + 4 * h, S.cnt[h],
-                 S.new_z[h]);
-      if (i + 1 < kRounds) {
-        if (tid < kNewRows * 3) {
-          const int r = tid / 3, j = tid % 3, hr = r / NNEW;
-          S.t.pts[r][j] = S.ro[hr][j] + S.rd[hr][j] * S.new_z[hr][r % NNEW];
+      const bool last = i + 1 == kRounds;
+      if (warp < RPB) {
+        float zr[4], sr[4], pz = 0.0f, ps = 0.0f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          zr[q] = S.sz[warp][32 * q + lane];
+          sr[q] = S.ss[warp][32 * q + lane];
         }
-        __syncthreads();
-        if constexpr (WIDE)
-          sdf_rows<false, 1>(S.t, nullptr, wpack, bpack, w_sdf, m, scale);
-        else
-          sdf_tile(S.t, wpack, bpack, w_sdf, m, scale);
-        if (tid < kNewRows) S.new_sdf[tid / NNEW][tid % NNEW] = S.t.sdf[tid];
-      } else if (k < NNEW) {
-        S.new_sdf[h][k] = 0.0f;
+        if (i > 0 && lane >= NNEW) {
+          pz = S.new_z[warp][lane - NNEW];
+          ps = S.t.sdf[warp * NNEW + lane - NNEW];
+        }
+        const float* ro = S.ro[warp];
+        const float* rd = S.rd[warp];
+        const float oo = ro[0] * ro[0] + ro[1] * ro[1] + ro[2] * ro[2];
+        const float od = ro[0] * rd[0] + ro[1] * rd[1] + ro[2] * rd[2];
+        __syncwarp();
+        const float nz = ray_step<RANK>(zr, sr, i == 0 ? -1 : vn - NNEW, pz, ps, vn, base_inv_s * (float)(1 << i),
+                                        oo, od, last, S.sz[warp], S.ss[warp], S.sc[warp]);
+        if (lane < NNEW) S.new_z[warp][lane] = nz;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          S.sz[warp][32 * q + lane] = zr[q];
+          S.ss[warp][32 * q + lane] = sr[q];
+        }
       }
       __syncthreads();
-      if (k >= NOLD) {
-        zk = S.new_z[h][k - NOLD];
-        sk = S.new_sdf[h][k - NOLD];
-      } else if (k >= vn) {
-        zk = BIG_Z;
+      if (last) break;
+      if (tid < RPB * NNEW * 3) {
+        const int r = tid / 3, j = tid % 3, hr = r / NNEW;
+        S.t.pts[r][j] = S.ro[hr][j] + S.rd[hr][j] * S.new_z[hr][r % NNEW];
       }
-      merge128<RANK>(zk, sk, S.sz[h], S.ss[h]);
+      __syncthreads();
+      sdf_rows<false, 1>(S.t, nullptr, wpack, bpack, w_sdf, m, scale);
     }
     if (!FINAL) {
-      if (live) out[(size_t)ray * NBUF + k] = zk;
+      if (live) out[(size_t)ray * NBUF + k] = S.sz[h][k];
       return;
     }
-    S.sz[h][k] = zk;
-    __syncthreads();
   }
 
   if constexpr (FINAL) {
-    // Final sweep of the refined buffer: section midpoints (the last section
-    // is the ray's sample_dist long), sdf and d . grad sdf, then
+    // Final sweep of the refined buffer S.sz: section midpoints (the last
+    // section is the ray's sample_dist long), sdf and d . grad sdf, then
     // tau = exp(sum of the 127 log factors).  Pass t holds 64 sections of
     // ray t / 2 and their tangent rows.
-    static_assert(WIDE, "the final dual sweep runs on sdf_rows");
     const float inv_s = *inv_s_ptr, anneal = *anneal_ptr;
     S.dists[h][k] = k == NBUF - 1 ? sdist[rl] : S.sz[h][k + 1] - S.sz[h][k];
     __syncthreads();
@@ -433,8 +439,8 @@ __global__ void __launch_bounds__(march_rpb<WIDE>() * NBUF)
       __syncthreads();
     }
     float v = S.logs[h][k];
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    if ((tid & 31) == 0) S.wt[tid >> 5] = v;
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+    if (lane == 0) S.wt[warp] = v;
     __syncthreads();
     if (live && k == 0) {
       float s = 0.0f;
@@ -445,7 +451,7 @@ __global__ void __launch_bounds__(march_rpb<WIDE>() * NBUF)
 }
 
 // One launch on `stream`; returns its launch error.
-template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK, bool WIDE>
+template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK>
 inline int launch_march(const float* z_in, const float* sdf0_in, const float* o, const float* d,
                         const float* sdist, const void* wpack, const float* bpack, const float* w_sdf,
                         const float* inv_s, const float* anneal, float* out, int b, const int* meta,
@@ -454,14 +460,12 @@ inline int launch_march(const float* z_in, const float* sdf0_in, const float* o,
   int rc = parse_meta(meta, &m);
   if (rc) return rc;
   if (b <= 0) return 0;
-  constexpr int rpb = march_rpb<WIDE>();
-  const int smem = (int)sizeof(MarchSmem<WIDE>);
-  auto kernel = march_kernel<SWEEP, ROUNDS, FINAL, RANK, WIDE>;
+  const int smem = (int)sizeof(MarchSmem);
+  auto kernel = march_kernel<SWEEP, ROUNDS, FINAL, RANK>;
   rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc) return rc;
-  kernel<<<(b + rpb - 1) / rpb, rpb * NBUF, smem, (cudaStream_t)stream>>>(
-      z_in, sdf0_in, o, d, sdist, (const bf16*)wpack, bpack, w_sdf, inv_s, anneal, out, b, m, scale,
-      base_inv_s);
+  kernel<<<(b + kMarchRays - 1) / kMarchRays, kRowsThreads, smem, (cudaStream_t)stream>>>(
+      z_in, sdf0_in, o, d, sdist, (const bf16*)wpack, bpack, w_sdf, inv_s, anneal, out, b, m, scale, base_inv_s);
   return (int)cudaGetLastError();
 }
 

@@ -18,20 +18,19 @@
 // 512-ray launch K 32,768 points (30.1 GFLOP, 0.030 ms), L 24,576 (0.023
 // ms), M 57,344 (0.053 ms) and N those plus 65,536 dual points (0.175 ms):
 // all bound by operations; the bytes in and out are a few hundred KB.
-// Design: K, M and N hold four rays on 512 threads (WIDE, 128 blocks for
-// 512 rays) and sweep through mma_rows.cuh::sdf_rows: the initial sweep as
-// 2 value passes of 128 rows (the 4 rays' 64 stratified samples; K's whole
-// block, 58 staged slabs), each swept round as one value pass of 64 rows (4
-// rays x 16 new samples), and N's final sweep as kernel C's 8 dual passes.
-// Each cp.async-staged 64-row weight slab feeds every row of a pass through
-// ldmatrix and mma.sync, with the same floats as sdf_tile row for row.  L
-// alone holds two rays on 256 threads and sweeps 32-row tiles (the 16 new
-// samples of both rays in a round, sdf_tile), every tile streaming all 1 MB
-// of bf16 weights from L2 as WMMA fragments.  So M = L(K(.)) holds bit for
-// bit across the two paths, and N = C(M(.)) on the engine alone.  Measured
-// (NVIDIA H100 80GB HBM3, 700 W, device time a 512-ray launch), against the
-// same kernels on 2-ray blocks: K 0.28 ms (0.60), M 0.59 (1.05), N 1.70
-// (2.52).  K runs 9x and M 11x their bounds: each layer's product and its
+// Design: all four hold four rays on 512 threads (128 blocks for 512 rays,
+// one per SM) and sweep through mma_rows.cuh::sdf_rows: the initial sweep
+// as 2 value passes of 128 rows (the 4 rays' 64 stratified samples; K's
+// whole block, 58 staged slabs), each swept round as one value pass of 64
+// rows (4 rays x 16 new samples), and N's final sweep as kernel C's 8 dual
+// passes.  Each cp.async-staged 64-row weight slab feeds every row of a pass
+// through ldmatrix and mma.sync.  Warps 0-3 run the 4 rays' round machinery
+// (march_common.cuh::ray_step, kernel B's), one warp a ray, between the
+// sweeps.  So L = B's steps between K's sweeps, M = L(K(.)) and N = C(M(.))
+// bit for bit.  Measured (NVIDIA H100 80GB HBM3, 700 W, device time a
+// 512-ray launch), against the same kernels on 2-ray blocks of 32-row WMMA
+// tiles: K 0.28 ms (0.60), L 0.31 (0.47), M 0.59 (1.05), N 1.70 (2.52).
+// K runs 9x, L 14x and M 11x their bounds: each layer's product and its
 // softplus epilogue run one after the other (scripts/probe_march_parts.py).
 // merge selects the network: rank != 0 is the rank merge.
 #include "march_common.cuh"
@@ -41,14 +40,14 @@ using namespace nrh;
 extern "C" int march_sweep(const float* z0, const float* o, const float* d, const void* wpack,
                            const float* bpack, const float* w_sdf, float* sdf0, int b, const int* meta,
                            float scale, void* stream) {
-  return launch_march<true, false, false, false, true>(z0, nullptr, o, d, nullptr, wpack, bpack, w_sdf,
-                                                       nullptr, nullptr, sdf0, b, meta, scale, 0.0f, stream);
+  return launch_march<true, false, false, false>(z0, nullptr, o, d, nullptr, wpack, bpack, w_sdf, nullptr,
+                                                 nullptr, sdf0, b, meta, scale, 0.0f, stream);
 }
 
 extern "C" int march_rounds(const float* z0, const float* sdf0, const float* o, const float* d,
                             const void* wpack, const float* bpack, const float* w_sdf, float* z, int b,
                             const int* meta, float scale, float base_inv_s, int rank, void* stream) {
-  auto launch = rank ? launch_march<false, true, false, true, false> : launch_march<false, true, false, false, false>;
+  auto launch = rank ? launch_march<false, true, false, true> : launch_march<false, true, false, false>;
   return launch(z0, sdf0, o, d, nullptr, wpack, bpack, w_sdf, nullptr, nullptr, z, b, meta, scale, base_inv_s,
                 stream);
 }
@@ -56,7 +55,7 @@ extern "C" int march_rounds(const float* z0, const float* sdf0, const float* o, 
 extern "C" int importance_march(const float* z0, const float* o, const float* d, const void* wpack,
                                 const float* bpack, const float* w_sdf, float* z, int b, const int* meta,
                                 float scale, float base_inv_s, int rank, void* stream) {
-  auto launch = rank ? launch_march<true, true, false, true, true> : launch_march<true, true, false, false, true>;
+  auto launch = rank ? launch_march<true, true, false, true> : launch_march<true, true, false, false>;
   return launch(z0, nullptr, o, d, nullptr, wpack, bpack, w_sdf, nullptr, nullptr, z, b, meta, scale, base_inv_s,
                 stream);
 }
@@ -65,7 +64,7 @@ extern "C" int shadow_march(const float* z0, const float* o, const float* d, con
                             const float* inv_s, const float* anneal, const void* wpack, const float* bpack,
                             const float* w_sdf, float* tau, int b, const int* meta, float scale,
                             float base_inv_s, int rank, void* stream) {
-  auto launch = rank ? launch_march<true, true, true, true, true> : launch_march<true, true, true, false, true>;
+  auto launch = rank ? launch_march<true, true, true, true> : launch_march<true, true, true, false>;
   return launch(z0, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal, tau, b, meta, scale, base_inv_s,
                 stream);
 }

@@ -1,4 +1,4 @@
-// The row engine of the march sweeps of kernels C, K, M and N
+// The row engine of the march sweeps of kernels C, K, L, M and N
 // (march_common.cuh): the 8x256 SDF MLP on up to 128 rows of one 512-thread
 // block, bf16 weights and activations, f32 biases and nonlinearities, as
 // _mlp_sdf_3d (nrhints_tpu/kernels/march.py:87) computes the value, and in
@@ -18,12 +18,13 @@
 //   64 columns 64 (w % 4) .. +64: up to 16 m16n8 accumulator tiles, 64 f32
 //   registers a thread.  Each output walks its k-tiles 0, 16, 32, ... in
 //   order, as WMMA's 16x16x16 products walk them (the same HMMA
-//   instructions), so every output equals sdf_tile's bit for bit.
+//   instructions), so every output equals the 32-row WMMA tiles' of the
+//   first march design bit for bit, wherever its row lies in a pass.
 // * The epilogue stays in registers: mma.sync's accumulator layout puts a
 //   section's value z and its tangent at the same (row, column) of the two
 //   row tiles of one thread, so the gate never leaves registers.  Each
 //   layer's output is written in place into the tile once the product has
-//   returned on every warp, with sdf_tile's rounding points.
+//   returned on every warp, rounded to bf16 where _mlp_sdf_3d rounds.
 #pragma once
 
 #include "staged_mma.cuh"

@@ -13,9 +13,9 @@ Headers (``*.cuh``) hold what several sources share: ``sdf_fwd.cuh`` the
 SDF forward of kernels A, D and H, ``sdf_bwd.cuh`` the chain of E and H,
 ``dw_sum.cuh`` the dW passes of E, G, H and J, ``staged_mma.cuh`` the
 cp.async-staged products of that forward, that chain and those passes,
-``march_common.cuh`` the march machinery and sweeps of B, C, K, L, M and N,
-``mma_rows.cuh`` the ldmatrix and mma.sync row engine of the sweeps of C, K,
-M and N.
+``march_common.cuh`` the march machinery (one warp a ray) and template of B,
+C, K, L, M and N, ``mma_rows.cuh`` the ldmatrix and mma.sync row engine of
+the sweeps of C, K, L, M and N.
 """
 from __future__ import annotations
 
@@ -60,7 +60,7 @@ _SIGNATURES = {
         "mlp_bwd": [_P] * 12 + [_I, _I, _I, _P, _P],
     },
     "march": {
-        "round_machinery": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
+        "round_machinery": [_P] * 9 + [_I, _I, _I, _F, _I, _I, _P],
         "shadow_final": [_P] * 10 + [_I, _P, _F, _P],
     },
     "march_fused": {

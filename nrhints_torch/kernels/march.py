@@ -5,9 +5,9 @@ plain versions (port of ``nrhints_tpu/kernels/march.py``).
   z, routed by the JAX keywords: kernel M (``importance_march``, the
   monolith) or, with ``split``, the initial sweep by kernel K
   (``march_sweep``) or plain matmuls (``_mlp_sdf_3d``), then the 4 rounds
-  by kernel L (``march_rounds``) or by 5 launches of kernel B
-  (``round_machinery``, merge and inverse-CDF draw) between plain
-  16-sample sweeps.
+  by kernel L (``march_rounds``) or by 4 launches of kernel B
+  (``round_machinery``, merge and inverse-CDF draw; the last also merges
+  the last round's samples) between plain 16-sample sweeps.
 * ``fused_shadow_tau``: the shadow march, kernel N (``shadow_march``) or,
   with ``split``, the same refinement from the light followed by kernel C
   (``shadow_final``, the final sdf + directional-derivative sweep and the
@@ -231,33 +231,45 @@ def _round_new_z(z, sdf, valid_n: int, inv_s: float, oo, od, n_new: int) -> torc
 
 
 def round_machinery_plain(
-    z, sdf, o, d, new_z_prev, new_sdf_prev, merge_valid_n, next_valid_n, inv_s, n_new=16, merge="bitonic"
+    z, sdf, o, d, new_z_prev, new_sdf_prev, merge_valid_n, next_valid_n, inv_s, n_new=16, merge="bitonic",
+    last=False,
 ):
     """Port of one ``_round_machinery_kernel`` step -> (new_z [B, n_new] or
     None, z [B, 128], sdf [B, 128] or None).  ``merge_valid_n`` not None:
     merge (new_z_prev, new_sdf_prev) in first (by ``merge``, "bitonic" or
     "rank"); ``next_valid_n`` not None: draw the next round's samples at
-    ``inv_s`` (the tail step does not, and drops the dead sdf buffer)."""
+    ``inv_s`` (the tail step does not, and drops the dead sdf buffer).
+    ``last`` (with a draw): then merge the drawn samples in with a zero sdf
+    and return (None, z, None), as JAX's last round step followed by its
+    tail step (``_rounds_xla``: the last round's samples are never swept)."""
     if merge_valid_n is not None:
         z, sdf = _merge_math(z, sdf, new_z_prev, new_sdf_prev, merge_valid_n, n_new, merge)
     if next_valid_n is None:
+        if last:
+            raise ValueError("last=True merges the samples it draws: it needs next_valid_n")
         return None, z, None
     oo = torch.sum(o * o, dim=-1, keepdim=True)
     od = torch.sum(o * d, dim=-1, keepdim=True)
-    return _round_new_z(z, sdf, next_valid_n, inv_s, oo, od, n_new), z, sdf
+    new_z = _round_new_z(z, sdf, next_valid_n, inv_s, oo, od, n_new)
+    if last:
+        return None, _merge_math(z, sdf, new_z, torch.zeros_like(new_z), next_valid_n, n_new, merge)[0], None
+    return new_z, z, sdf
 
 
 def round_machinery(
-    z, sdf, o, d, new_z_prev, new_sdf_prev, merge_valid_n, next_valid_n, inv_s, n_new=16, merge="bitonic"
+    z, sdf, o, d, new_z_prev, new_sdf_prev, merge_valid_n, next_valid_n, inv_s, n_new=16, merge="bitonic",
+    last=False,
 ):
     """One merge/draw step: kernel B on CUDA tensors, the plain version on
     CPU tensors (same signature and results as ``round_machinery_plain``)."""
     if z.device.type == "cpu":
         return round_machinery_plain(
-            z, sdf, o, d, new_z_prev, new_sdf_prev, merge_valid_n, next_valid_n, inv_s, n_new, merge
+            z, sdf, o, d, new_z_prev, new_sdf_prev, merge_valid_n, next_valid_n, inv_s, n_new, merge, last
         )
     if n_new != 16:
         raise NotImplementedError("kernel B draws 16 samples per round")
+    if last and next_valid_n is None:
+        raise ValueError("last=True merges the samples it draws: it needs next_valid_n")
     b = z.shape[0]
     for t, shape, name in ((z, (b, N_BUF), "z"), (sdf, (b, N_BUF), "sdf"), (o, (b, 3), "o"), (d, (b, 3), "d")):
         require_cuda(t, shape, name)
@@ -265,9 +277,10 @@ def round_machinery(
         require_cuda(new_z_prev, (b, n_new), "new_z_prev")
         require_cuda(new_sdf_prev, (b, n_new), "new_sdf_prev")
     dev = z.device
-    new_z = torch.empty((b, n_new), device=dev) if next_valid_n is not None else None
+    draws = next_valid_n is not None and not last  # the step returns its draws and sdf buffer
+    new_z = torch.empty((b, n_new), device=dev) if draws else None
     z_out = torch.empty((b, N_BUF), device=dev)
-    sdf_out = torch.empty((b, N_BUF), device=dev) if next_valid_n is not None else None
+    sdf_out = torch.empty((b, N_BUF), device=dev) if draws else None
     if b == 0:
         return new_z, z_out, sdf_out
     lib = cuda_lib.load("march")
@@ -279,7 +292,7 @@ def round_machinery(
         ptr(new_z), z_out.data_ptr(), ptr(sdf_out), b,
         -1 if merge_valid_n is None else merge_valid_n,
         -1 if next_valid_n is None else next_valid_n,
-        0.0 if inv_s is None else float(inv_s), int(merge == "rank"), cuda_lib.stream_ptr(dev),
+        0.0 if inv_s is None else float(inv_s), int(merge == "rank"), int(last), cuda_lib.stream_ptr(dev),
     )
     cuda_lib.check(lib, rc, "round_machinery")
     cuda_lib.launch_counts["round_machinery"] += 1
@@ -288,10 +301,11 @@ def round_machinery(
 
 def _rounds(weights, cfg, rays_o, rays_d, z0, sdf0, rounds, n_new, base_inv_s, merge, machinery, sweep=None):
     """[B, n0] (z0, sdf0) -> [B, 128] refined z: one ``machinery`` step per
-    round (merging the previous round's samples, drawing the next), a
-    16-sample ``sweep`` between steps (default the plain one; the last
-    round's sweep is skipped: its sdf is a payload nobody reads), and a
-    merge-only tail step."""
+    round (merging the previous round's samples, drawing the next) and a
+    16-sample ``sweep`` between steps (default the plain one).  The last
+    round's samples are not swept (their sdf is a payload nobody reads):
+    its step merges them in with a zero sdf itself (``last``), where JAX
+    launches a merge-only tail step."""
     sweep = sweep or march_sweep_plain
     b, n0 = z0.shape
     pad = torch.full((b, N_BUF - n0), BIG_Z, device=z0.device)
@@ -301,17 +315,13 @@ def _rounds(weights, cfg, rays_o, rays_d, z0, sdf0, rounds, n_new, base_inv_s, m
     new_z = new_sdf = None
     for i in range(rounds):
         valid_n = n_start + i * n_new
+        last = i + 1 == rounds
         new_z, z, sdf = machinery(
             z, sdf, rays_o, rays_d, new_z, new_sdf,
-            None if i == 0 else valid_n - n_new, valid_n, base_inv_s * float(2**i), n_new, merge,
+            None if i == 0 else valid_n - n_new, valid_n, base_inv_s * float(2**i), n_new, merge, last,
         )
-        if i + 1 < rounds:
+        if not last:
             new_sdf = sweep(new_z, rays_o, rays_d, weights, cfg)
-        else:
-            new_sdf = torch.zeros_like(new_z)
-    _, z, _ = machinery(
-        z, sdf, rays_o, rays_d, new_z, new_sdf, n_start + (rounds - 1) * n_new, None, None, n_new, merge
-    )
     return z
 
 
@@ -526,7 +536,7 @@ def fused_importance_z(
 
     Routes as JAX: ``split=False`` is kernel M; with ``split`` the sweep is
     kernel K ("pallas") or plain matmuls ("xla"), and the rounds kernel L
-    ("pallas") or 5 launches of kernel B between plain 16-sample sweeps
+    ("pallas") or 4 launches of kernel B between plain 16-sample sweeps
     ("xla").  ``merge``: "bitonic" or "rank"."""
     _check_args(z0, rounds, n_new, merge, split, {"sweep_impl": sweep_impl, "rounds_impl": rounds_impl})
     rays_o, rays_d, z0 = rays_o.contiguous(), rays_d.contiguous(), z0.contiguous()

@@ -2,18 +2,19 @@
 """Where the time of a march kernel on the row engine goes: its launch with
 one part left out at a time.
 
-    python3 scripts/probe_march_parts.py [C] [K] [M]
+    python3 scripts/probe_march_parts.py [C] [K] [L] [M]
 
 Kernels (C when none is named): C (``shadow_final``, the final dual sweep
-of the shadow march), K (``march_sweep``, the initial value sweep) and M
-(``importance_march``, the initial sweep and the 4 refinement rounds, the
-bitonic merge).  Each variant is a copy of ``csrc/`` under
+of the shadow march), K (``march_sweep``, the initial value sweep), L
+(``march_rounds``, the 4 refinement rounds from K's sdf0) and M
+(``importance_march``, the initial sweep and the 4 refinement rounds; L and
+M by the bitonic merge).  Each variant is a copy of ``csrc/`` under
 ``build/probe/march_parts/`` with text substitutions applied to
 ``mma_rows.cuh`` or ``march_common.cuh`` (each must match), built with the
 package's nvcc flags, all builds started together (``march.cu`` for C,
-``march_fused.cu`` for K and M).  Every variant runs the kernel on
+``march_fused.cu`` for K, L and M).  Every variant runs the kernel on
 ``chip_smoke.py``'s phase 3 inputs (one 512-ray chunk: C on its shadow
-rays' refined z, K and M on its camera rays' z0; full width, seed 0), the
+rays' refined z, K, L and M on its camera rays' z0; full width, seed 0), the
 weights packed once, and the script prints the time of one launch (CUDA
 events around 20 launches, the best of 3 repeats) and the time the
 left-out part saved.  Variants:
@@ -28,7 +29,7 @@ left-out part saved.  Variants:
                 barriers and copies kept);
   no_encoding   the sin and cos channels replaced by a coordinate;
   skeleton      no_softplus, no_copies and no_fragments together;
-  no_machinery  (M only) no draw and no merge in the rounds: each round
+  no_machinery  (L and M) no draw and no merge in the rounds: each round
                 sweeps the first 16 slots of the buffer as its new samples.
 
 The outputs of every variant but ``full`` are wrong by design; only their
@@ -46,7 +47,8 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 # kernel: (source, C function)
-KERNELS = {"C": ("march", "shadow_final"), "K": ("march_fused", "march_sweep"), "M": ("march_fused", "importance_march")}
+KERNELS = {"C": ("march", "shadow_final"), "K": ("march_fused", "march_sweep"), "L": ("march_fused", "march_rounds"),
+           "M": ("march_fused", "importance_march")}
 ROWS, COMMON = "mma_rows.cuh", "march_common.cuh"
 # (header, substring, replacement)
 NO_SOFTPLUS = [
@@ -62,10 +64,9 @@ NO_MMA = [(ROWS, "for (int i = 0; i < MT; ++i) mma_16816(", "for (int i = 0; i <
 NO_FRAGMENTS = [(ROWS, "for (int kk = 0; kk < kend; kk += 16) {", "for (int kk = 0; kk < 0; kk += 16) {")]
 NO_ENCODING = [(ROWS, "v = freq_channel(xs, ts, c, F, DUAL ? &t : nullptr);", "v = xs[c % 3], t = ts[c % 3];")]
 NO_MACHINERY = [
-    (COMMON, """draw_new_z(zk, sk, vn, inv_s, oo, od, S.sz[h], S.ss[h], S.sc[h], S.wt + 4 * h, S.cnt[h],
-                 S.new_z[h]);""", """if (k < NNEW) S.new_z[h][k] = zk;
-      __syncthreads();"""),
-    (COMMON, "merge128<RANK>(zk, sk, S.sz[h], S.ss[h]);", ""),
+    (COMMON, """const float nz = ray_step<RANK>(zr, sr, i == 0 ? -1 : vn - NNEW, pz, ps, vn, base_inv_s * (float)(1 << i),
+                                        oo, od, last, S.sz[warp], S.ss[warp], S.sc[warp]);""",
+     "const float nz = zr[0];"),
 ]
 VARIANTS = {
     "full": [], "no_softplus": NO_SOFTPLUS, "no_copies": NO_COPIES, "no_mma": NO_MMA,
@@ -75,7 +76,7 @@ VARIANTS = {
 
 
 def variants_of(kernel: str) -> list[str]:
-    return [v for v in VARIANTS if v != "no_machinery" or kernel == "M"]
+    return [v for v in VARIANTS if v != "no_machinery" or kernel in ("L", "M")]
 
 
 def build_variants(root: Path, kernels: list[str]) -> dict[tuple[str, str], Path]:
@@ -147,6 +148,10 @@ def main() -> int:
             args = (z0.data_ptr(), o.data_ptr(), d.data_ptr(), *weights, out.data_ptr(), z0.shape[0], meta, scale)
             if kernel == "K":
                 ref = march.march_sweep(z0, o, d, mw, cfg)
+            elif kernel == "L":
+                sdf0 = march.march_sweep(z0, o, d, mw, cfg)
+                args = args[:1] + (sdf0.data_ptr(),) + args[1:] + (64.0, 0)
+                ref = march.march_rounds(z0, sdf0, o, d, mw, cfg)
             else:
                 args += (64.0, 0)
                 ref = march.importance_march(z0, o, d, mw, cfg)

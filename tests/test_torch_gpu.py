@@ -8,7 +8,8 @@ Tolerances: kernel A and C round their dot operands to bf16 like the plain
 versions but sum in another order, so an activation on a bf16 rounding
 boundary can round the other way: 1e-2 relative to the output's scale.
 Kernel B's merge is exact (identical z and sdf); its draws sum in the plain
-version's order: 1e-5.  Kernels D, F and I: outputs and stash 1e-2, as A.
+version's order: 1e-5; its last-round step (draw, then merge the draws in)
+gives the z of its draw step followed by its merge-only step bit for bit.  Kernels D, F and I: outputs and stash 1e-2, as A.
 Kernels E, G, H and J: 2e-2 of each gradient's scale: the backward chains
 twice as many bf16-operand products as the forward, and the dW sums over
 the points run in another order (H's plain version is autograd, which
@@ -25,8 +26,8 @@ plain backward by the relative norm of the error (2e-2).
 Kernels K, L, M and N (the round-4 marches): K's sdf0 1e-2 as A; N's tau
 1e-2 as C, also at ray counts that fill C's and N's 4-ray blocks in part;
 L's z equal bit for bit to its schedule run as kernel B steps
-between kernel K sweeps, M's z to L(K(.)) and N's tau to C(M(.)), K and M
-also at ray counts that fill their 4-ray blocks in part; against
+between kernel K sweeps, M's z to L(K(.)) and N's tau to C(M(.)), K, L and
+M also at ray counts that fill their 4-ray blocks in part; against
 the wholly plain marches, L's and M's z as chip_smoke.py holds them (sorted,
 every stratified sample kept, Z_NN_SHARE of the samples within 1e-4 of a
 plain sample: near-ties of the cdf and the u grid send a draw to the next
@@ -102,25 +103,46 @@ def test_sdf_core_fwd_matches_plain(cuda, cfg, n):
     assert all(torch.equal(a, b) for a, b in zip(out, core_mlp.sdf_core_fwd(w, x, cfg)))
 
 
+# Ray counts of kernel B, 4 rays a 128-thread block (one warp each): one
+# ray, 5 (a second block with one), 127 (a ragged last block) and one
+# 512-ray chunk.
+MACHINERY_B = [1, 5, 127, 512]
+
+
 @pytest.mark.gpu
-def test_round_machinery_matches_plain(cuda):
+@pytest.mark.parametrize("merge", ["bitonic", "rank"])
+@pytest.mark.parametrize("n", MACHINERY_B)
+def test_round_machinery_matches_plain(cuda, merge, n):
+    """Kernel B against its plain version on every step of a march, each
+    from the kernel's own previous outputs: the 4 round steps, JAX's
+    merge-only tail step after the last, and the last round's step that
+    merges its draws in itself (``last``), whose z equals the round step
+    followed by the tail step bit for bit; one launch a step."""
     p = sdf_init(torch.Generator().manual_seed(0), SMALL, cuda)
-    o, d, z0 = _rays(cuda)
+    o, d, z0 = _rays(cuda, n)
     w = march.march_weights(p, SMALL, "bfloat16")
     z = torch.cat([z0, torch.full_like(z0, march.BIG_Z)], -1)
     sdf = torch.cat([march._mlp_sdf_3d(o[:, None] + d[:, None] * z0[..., None], w, SMALL), torch.zeros_like(z0)], -1)
     new_z = new_sdf = None
-    for i in range(5):
+    before = cuda_lib.launch_counts["round_machinery"]
+    for i in range(4):
         vn = 64 + 16 * i
-        args = (z, sdf, o, d, new_z, new_sdf, None if i == 0 else vn - 16, vn if i < 4 else None,
-                64.0 * 2**i if i < 4 else None)
-        k, pl_ = march.round_machinery(*args), march.round_machinery_plain(*args)
-        assert torch.equal(k[1], pl_[1])
-        if i < 4:
-            assert torch.equal(k[2], pl_[2])
-            _close(k[0], pl_[0], 1e-5)
-            new_z, z, sdf = k
-            new_sdf = march._mlp_sdf_3d(o[:, None] + d[:, None] * new_z[..., None], w, SMALL)
+        args = (z, sdf, o, d, new_z, new_sdf, None if i == 0 else vn - 16, vn, 64.0 * 2**i)
+        k, pl_ = march.round_machinery(*args, merge=merge), march.round_machinery_plain(*args, merge=merge)
+        assert torch.equal(k[1], pl_[1]) and torch.equal(k[2], pl_[2])
+        _close(k[0], pl_[0], 1e-5)
+        new_z, z, sdf = k
+        new_sdf = march._mlp_sdf_3d(o[:, None] + d[:, None] * new_z[..., None], w, SMALL)
+    tail = (z, sdf, o, d, new_z, torch.zeros_like(new_z), 112, None, None)
+    kt, pt = march.round_machinery(*tail, merge=merge), march.round_machinery_plain(*tail, merge=merge)
+    assert kt[0] is None and kt[2] is None and torch.equal(kt[1], pt[1])
+    kl = march.round_machinery(*args, merge=merge, last=True)
+    pl_l = march.round_machinery_plain(*args, merge=merge, last=True)
+    torch.cuda.synchronize()
+    assert kl[0] is None and kl[2] is None and pl_l[0] is None and torch.equal(kl[1], kt[1])
+    assert kl[1].shape == (n, 128) and bool((kl[1][:, 1:] >= kl[1][:, :-1]).all())
+    _close(kl[1], pl_l[1], 1e-4)
+    assert cuda_lib.launch_counts["round_machinery"] == before + 6
 
 
 # Ray counts of the shadow kernels C and N, which run 4 rays per block: one
@@ -167,7 +189,7 @@ def test_render_rays_card_matches_cpu(cuda):
     card = render_rays(to_card(params), cfg, RayBundle(*(to_card(t) for t in (o, d, pl_, z0[:, :1], z0[:, -1:]))))
     torch.cuda.synchronize()
     assert {k: cuda_lib.launch_counts[k] - before[k] for k in before} == {
-        "sdf_core_fwd": 1, "round_machinery": 10, "shadow_final": 1,
+        "sdf_core_fwd": 1, "round_machinery": 8, "shadow_final": 1,
         "sdf_stash_fwd": 0, "sdf_stash_bwd": 0, "mlp_stash_fwd": 0, "mlp_stash_bwd": 0,
         "sdf_core_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0,
         "march_sweep": 0, "march_rounds": 0, "importance_march": 0, "shadow_march": 0}
@@ -307,7 +329,7 @@ def test_train_step_card_matches_cpu(cuda, core_backward):
         grads[str(dev)] = {name: t.grad.detach().cpu() for name, t in _named(params)}
     torch.cuda.synchronize()
     expected = {k: 0 for k in cuda_lib.launch_counts}
-    expected.update(round_machinery=10, shadow_final=1, **STEP_LAUNCHES[core_backward])
+    expected.update(round_machinery=8, shadow_final=1, **STEP_LAUNCHES[core_backward])
     assert delta == expected
     card = grads[str(cuda)]
     for name, g in grads["cpu"].items():
@@ -495,7 +517,7 @@ def test_shadow_march_on_4ray_blocks(cuda, cfg, merge, n):
     _close(tau, march.shadow_march_plain(z0, o, d, sdist, inv_s, anneal, w, cfg, merge=merge), 1e-2)
 
 
-# Ray counts of kernels K and M, which run 4 rays per block: one ray (3
+# Ray counts of kernels K, L and M, which run 4 rays per block: one ray (3
 # spare rays), 5 (a second block with 3), 510 (a last block with 2) and one
 # 512-ray chunk.
 FUSED_B = [1, 5, 510, 512]
@@ -506,10 +528,10 @@ FUSED_B = [1, 5, 510, 512]
 @pytest.mark.parametrize("cfg", [SMALL, SDFNetConfig()], ids=["small", "full"])
 @pytest.mark.parametrize("n", FUSED_B)
 def test_sweep_and_importance_march_on_4ray_blocks(cuda, cfg, merge, n):
-    """Kernels K and M on the row engine's 4-ray blocks against their plain
-    versions (K's sdf0 at 1e-2, M's z by order-free shares, as in
-    test_march_kernels_match_plain), M = L(K(.)) bit for bit (L sweeps on
-    2-ray blocks) and N = C(M(.)) bit for bit, at ray counts that fill 4-ray
+    """Kernels K, L and M on the row engine's 4-ray blocks against their
+    plain versions (K's sdf0 at 1e-2, L's and M's z by order-free shares, as
+    in test_march_kernels_match_plain), L = B's steps between K's sweeps, M
+    = L(K(.)) and N = C(M(.)) bit for bit, at ray counts that fill 4-ray
     blocks in part; one launch of each."""
     p = sdf_init(torch.Generator().manual_seed(0), cfg, cuda)
     o, d, z0 = _rays(cuda, n)
@@ -525,8 +547,13 @@ def test_sweep_and_importance_march_on_4ray_blocks(cuda, cfg, merge, n):
     tau_c = march.shadow_final(z_m, o, d, sdist, inv_s, anneal, w, cfg)
     torch.cuda.synchronize()
     assert {k: cuda_lib.launch_counts[k] - before[k] for k in names} == dict.fromkeys(names, 1)
-    assert sdf0.shape == (n, 64) and z_m.shape == (n, 128)
+    assert sdf0.shape == (n, 64) and z_l.shape == z_m.shape == (n, 128)
     _close(sdf0, march.march_sweep_plain(z0, o, d, w, cfg), 1e-2)
+    from chip_smoke import sweep16
+
+    assert torch.equal(z_l, march._rounds(w, cfg, o, d, z0, sdf0, 4, 16, 64.0, merge, march.round_machinery,
+                                          sweep16(o, d, w, cfg)))
+    _assert_z_close(z_l, march.march_rounds_plain(z0, sdf0, o, d, w, cfg, merge=merge), z0)
     _assert_z_close(z_m, march.importance_march_plain(z0, o, d, w, cfg, merge=merge), z0)
     assert torch.equal(z_m, z_l)
     assert torch.equal(tau, tau_c)

@@ -173,6 +173,49 @@ def test_round_machinery_rank_step_matches_pallas(sdf, rays, step):
     np.testing.assert_allclose(new_z[:, 1:].numpy(), ref[0][:, 1:], rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("merge", ["bitonic", "rank"])
+def test_round_machinery_last_step_matches_pallas(sdf, rays, merge):
+    """B's last-round mode (the round-3 draw, then those 16 samples merged in
+    with a zero sdf, z alone returned) against JAX's round-3
+    ``_round_machinery_kernel`` followed by its tail kernel, interpret mode:
+    z equal to JAX's tail on JAX's round-3 buffers and the port's draws,
+    which agree with JAX's draws as in the steps above."""
+    jc, jp, tc, tp = sdf
+    o, d, _, z0 = (torch.tensor(a) for a in rays)
+    args = _schedule(tc, tp, o, d, z0, "float32", merge=merge)[3]
+    new_z, z, sdf_out = tm.round_machinery_plain(*args, merge=merge, last=True)
+    assert new_z is None and sdf_out is None
+    j_new, j_z, j_sdf = (torch.tensor(np.asarray(a)) for a in _pallas_machinery(*args, merge=merge))
+    draws = tm.round_machinery_plain(*args, merge=merge)[0]
+    (tail,) = _pallas_machinery(j_z, j_sdf, o, d, draws, torch.zeros_like(draws), 112, None, None, merge=merge)
+    np.testing.assert_array_equal(z.numpy(), np.asarray(tail))
+    np.testing.assert_allclose(draws[:, 1:].numpy(), j_new[:, 1:].numpy(), rtol=1e-5, atol=1e-5)
+    lo, hi = j_z[:, 110].numpy(), j_z[:, 111].numpy()
+    for u1 in (draws[:, 0].numpy(), j_new[:, 0].numpy()):
+        assert np.all((u1 >= lo) & (u1 <= hi))
+
+
+@pytest.mark.parametrize("merge", ["bitonic", "rank"])
+def test_rounds_take_four_machinery_steps(sdf, rays, merge):
+    """A march's rounds take 4 machinery steps, the last in the last-round
+    mode, and give the z of JAX's schedule of 5 (4 rounds and a merge-only
+    tail step) bit for bit."""
+    jc, jp, tc, tp = sdf
+    o, d, _, z0 = (torch.tensor(a) for a in rays)
+    w = tm.march_weights(tp, tc, "float32")
+    sdf0 = tm.march_sweep_plain(z0, o, d, w, tc)
+    calls = []
+
+    def machinery(*args):
+        calls.append((args[6], args[7], args[11]))
+        return tm.round_machinery_plain(*args)
+
+    z = tm._rounds(w, tc, o, d, z0, sdf0, 4, 16, 64.0, merge, machinery)
+    assert calls == [(None, 64, False), (64, 80, False), (80, 96, False), (96, 112, True)]
+    steps = _schedule(tc, tp, o, d, z0, "float32", merge=merge)
+    assert torch.equal(z, tm.round_machinery_plain(*steps[4], merge=merge)[1])
+
+
 def _assert_z_close(out, ref):
     """The refined-z metric: sorted, 90% of slots within 1e-4, every slot
     within one stratified interval (the u = 1 draw, see above)."""
@@ -623,24 +666,24 @@ def test_chain_constants_match_the_headers():
     assert not hasattr(tcm, "TP")
 
 
-# The march template's instances by kernel: (source, SWEEP, ROUNDS, FINAL,
-# WIDE).  Every instance that runs the rounds is launched under both merges.
+# The march template's instances by kernel: (source, SWEEP, ROUNDS, FINAL).
+# Every instance that runs the rounds is launched under both merges.
 MARCH_INSTANCES = {
-    "C": ("march.cu", "false", "false", "true", "true"),
-    "K": ("march_fused.cu", "true", "false", "false", "true"),
-    "L": ("march_fused.cu", "false", "true", "false", "false"),
-    "M": ("march_fused.cu", "true", "true", "false", "true"),
-    "N": ("march_fused.cu", "true", "true", "true", "true"),
+    "C": ("march.cu", "false", "false", "true"),
+    "K": ("march_fused.cu", "true", "false", "false"),
+    "L": ("march_fused.cu", "false", "true", "false"),
+    "M": ("march_fused.cu", "true", "true", "false"),
+    "N": ("march_fused.cu", "true", "true", "true"),
 }
 
 
 @pytest.mark.parametrize("kernel", sorted(MARCH_INSTANCES))
 def test_march_kernels_run_the_row_engine(kernel):
-    """Kernels C, K, M and N launch the march template's WIDE instances (4
-    rays on blocks of kRowsThreads = kChainThreads threads, every sweep
-    through mma_rows.cuh::sdf_rows, whose products are ldmatrix + mma.sync
-    on staged slabs); L alone keeps the 2-ray sdf_tile path, which the
-    template calls only for a round's sweep."""
+    """Every march instance, C, K, L, M and N, runs the row engine: 4 rays on
+    blocks of kRowsThreads = kChainThreads threads, every sweep through
+    mma_rows.cuh::sdf_rows (ldmatrix + mma.sync on staged slabs); no 2-ray
+    path (sdf_tile, TileSmem, MTHREADS, the WIDE template flag) is left in
+    csrc/."""
     def const(header, name):
         return int(re.search(rf"constexpr int {name} = (\d+);", (cuda_lib.CSRC / header).read_text()).group(1))
 
@@ -648,12 +691,31 @@ def test_march_kernels_run_the_row_engine(kernel):
     rows = (cuda_lib.CSRC / "mma_rows.cuh").read_text()
     assert "wmma::" not in rows and "mma.sync.aligned.m16n8k16" in rows and "ldmatrix.sync.aligned" in rows
     common = (cuda_lib.CSRC / "march_common.cuh").read_text()
-    assert common.count("sdf_tile(S.t,") == 1 and 'static_assert(WIDE, "the initial sweep runs on sdf_rows")' in common
-    src, sweep, rounds, final, wide = MARCH_INSTANCES[kernel]
-    launches = re.findall(rf"launch_march<{sweep}, {rounds}, {final}, (true|false), (true|false)>",
-                          (cuda_lib.CSRC / src).read_text())
-    assert sorted(rank for rank, _ in launches) == (["false", "true"] if rounds == "true" else ["false"])
-    assert {w for _, w in launches} == {wide}
+    assert "wmma::" not in common and "sdf_rows<false, 1>(S.t," in common
+    assert "kernel<<<(b + kMarchRays - 1) / kMarchRays, kRowsThreads, smem," in common
+    for path in sorted(cuda_lib.CSRC.iterdir()):
+        assert not re.search(r"\bsdf_tile\b|\bTileSmem\b|\bMTHREADS\b|\bMWARPS\b|\bWIDE\b|march_rpb",
+                             path.read_text()), path.name
+    src, sweep, rounds, final = MARCH_INSTANCES[kernel]
+    launches = re.findall(rf"launch_march<{sweep}, {rounds}, {final}, (true|false)>", (cuda_lib.CSRC / src).read_text())
+    assert sorted(launches) == (["false", "true"] if rounds == "true" else ["false"])
+
+
+def test_round_machinery_runs_one_warp_a_ray():
+    """Kernel B runs one warp a ray, 4 rays on a 128-thread block, and joins
+    its lanes by shuffles, ballots and __syncwarp: no __syncthreads in
+    round_machinery_kernel or in the machinery it runs (march_common.cuh's
+    ray_step and the routines it calls); the march template runs the same
+    ray_step, so L is B's steps between K's sweeps by construction."""
+    src = (cuda_lib.CSRC / "march.cu").read_text()
+    body = src[src.index("round_machinery_kernel(const float*"):src.index('extern "C" int round_machinery(')]
+    assert "__syncthreads" not in body and "ray_step<RANK>(" in body
+    assert "kernel<<<(b + kMachRays - 1) / kMachRays, kMachRays * 32, 0," in src
+    common = (cuda_lib.CSRC / "march_common.cuh").read_text()
+    machinery = common[common.index("// Machinery: one warp a ray"):common.index("// log(1 - alpha + 1e-7)")]
+    assert "__syncthreads" not in machinery and "__syncwarp();" in machinery
+    template = common[common.index("struct MarchSmem"):]
+    assert template.count("ray_step<RANK>(") == 1 and "draw_new_z" not in template
 
 
 # ---------------------------------------------------------------------------
