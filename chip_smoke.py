@@ -41,7 +41,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    rays, both by the rank merge): launches, and images against phase 4's;
    one profiled view of each and of phase 4b;
 8. round-4 train path: nr-hints-cam-opt with the monolithic marches, 3
-   warm-up steps and 5 timed, with phase 5's checks (M and N once per step).
+   warm-up steps and 5 timed, with phase 5's checks (M and N once per step);
+9. training entry point: ``python -m nrhints_torch``'s main, in this
+   process, trains nr-hints-cam-opt at full width for 30 steps on a
+   procedural scene written to disk (log, checkpoint at 20, video), writes
+   the mesh, registers, renders and scores both test views; its files and
+   every kernel's launches are checked, and a second main resumes at step
+   20 bit for bit and logs step 30's loss again; it prints the Trainer's
+   own rays/s beside phase 5's timed step and what a registration, a test
+   view, the mesh and a video frame take, a registration's device busy
+   time and idle share from one profiled call, and the parser's seconds a
+   frame on 512x512 RGBA PNGs written under the Paeth row filter and under
+   none (the scene above is written under none).
 Phase 3 also holds kernels K (initial march sweep), L (refinement rounds),
 M (K and L in one kernel) and N (M and C's final sweep in one kernel), and
 B under the rank merge, against their plain versions, L = B's steps between
@@ -118,6 +129,13 @@ GRAD_TOL = 5e-2
 TRAIN_STEPS, TRAIN_WARMUP = 20, 3
 RECOMPUTE_STEPS = 10
 ROUND4_STEPS = 5
+# Phase 9's resumed run replays steps 21-30 from the step-20 checkpoint with
+# the same batches (the sampler's restored streams) and jitter (seeded by
+# the step), and the kernels repeat bit for bit; PyTorch's backward of the
+# pose table's gather may accumulate in another order run to run, and Adam
+# carries such a rounding through 10 steps, so step 30's loss is held to
+# 1e-4 of itself (the run prints the difference).
+RESUME_TOL = 1e-4
 # Device-time groups of a profiled view or train step: (substring of the
 # kernel's name, group), the first match wins.  A, D and H1 are the three
 # instances of the 64-point forward of csrc/sdf_fwd.cuh, E1 and H2 the two
@@ -369,6 +387,256 @@ def march_chunk(dev) -> dict:
     return dict(cfg=cfg, camera=camera, pose=pose, pl=pl, renderer_params=renderer_params, o=o, d=d, mw=mw, z0=z0,
                 steps=steps, x=x, aw=aw, k_out=k_out, sl=sl, sdir=sdir, sdist=sdist, z0s=z0s, sz=sz,
                 inv_s=inv_s, anneal=anneal)
+
+
+def paeth_png_bytes(img):
+    """An 8-bit RGBA PNG of ``img`` [H, W, 4] uint8 with every row under
+    the Paeth filter (type 4), the one image libraries choose most for
+    smooth content."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    H, W, C = img.shape
+    x = img.astype(np.int16)
+    a, b, c = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    a[:, 1:], b[1:], c[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = np.concatenate([np.full((H, 1), 4, np.uint8), ((x - pred) % 256).astype(np.uint8).reshape(H, W * C)], 1)
+
+    def chunk(ctype, data):
+        return struct.pack(">I", len(data)) + ctype + data + struct.pack(">I", zlib.crc32(ctype + data))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 6, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def loader_timing(tmp: Path, smi: str, frames: int = 16, size: int = 512) -> None:
+    """Phase 9's loader: ``parse_load_nr_data`` on one train split of
+    ``frames`` smooth random RGBA frames at ``size`` x ``size``, written
+    once under the Paeth filter and once under none (``write_png``); both
+    parses must give the same images, equal to the frames composited over
+    white within 1e-6.  Prints seconds a frame of each."""
+    import numpy as np
+
+    from nrhints_torch.data.parser import parse_load_nr_data
+    from nrhints_torch.data.png import write_png
+
+    rng = np.random.default_rng(0)
+    imgs = (np.cumsum(np.cumsum(rng.integers(0, 3, (frames, size, size, 4)), 1), 2) % 256).astype(np.uint8)
+    meta = {"camera_angle_x": 0.69, "frames": [
+        {"file_path": f"./train/r_{i}", "transform_matrix": np.eye(4).tolist(), "pl_pos": [0.0, 0.0, 4.0]}
+        for i in range(frames)]}
+    secs, parsed = {}, {}
+    for name in ("paeth", "none"):
+        root = tmp / f"loader_{name}"
+        (root / "train").mkdir(parents=True)
+        (root / "transforms_train.json").write_text(json.dumps(meta))
+        for i, img in enumerate(imgs):
+            if name == "paeth":
+                (root / "train" / f"r_{i}.png").write_bytes(paeth_png_bytes(img))
+            else:
+                write_png(root / "train" / f"r_{i}.png", img)
+        t0 = time.perf_counter()
+        parsed[name] = parse_load_nr_data(root, splits=["train"]).images
+        secs[name] = (time.perf_counter() - t0) / frames
+    f = imgs / 255.0
+    ref = (f[..., :3] * f[..., 3:] + (1.0 - f[..., 3:])).astype(np.float32)
+    err = float(np.abs(parsed["paeth"] - ref).max())
+    if not (np.array_equal(parsed["paeth"], parsed["none"]) and err <= 1e-6):
+        raise AssertionError(f"the parser's images differ between filters or from the frames: max err {err:.3e}")
+    log(f"[entry loader] parse_load_nr_data on {frames} {size}x{size} RGBA frames: {secs['paeth']:.4f} s a frame "
+        f"under the Paeth filter, {secs['none']:.4f} s under none (images equal, max err {err:.1e}); on {smi}")
+
+
+class Timed:
+    """Wrap ``cls.name`` for the duration of a ``with``: each call is timed
+    on the host clock between two device synchronizations, and counted."""
+
+    def __init__(self, cls, name: str):
+        self.cls, self.name, self.secs = cls, name, []
+
+    def __enter__(self):
+        import torch
+
+        self.orig = orig = getattr(self.cls, self.name)
+
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.secs.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.cls, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.orig)
+
+
+def train_entry_phase(smi: str, phase5_step_s: float) -> None:
+    """Phase 9: ``python -m nrhints_torch``'s main, called in this process so
+    the launch counts are readable, trains nr-hints-cam-opt at full width on
+    a procedural scene written to disk (8 train, 1 val, 2 test views at
+    128x128): 512-ray batches, 30 steps, a log every 10 steps, a checkpoint
+    at 20, the video (2 + 2 frames) at 30, then the final mesh at resolution
+    128 and both test views registered (500 Adam steps each), rendered and
+    scored.  Checks the run directory's files and every kernel's launches
+    (B-G in every train step, D, E, B and C in every registration step, A,
+    B and C in every chunk of a view).  A second main on the same directory
+    with end_iter 40 resumes at step 20 from the checkpoint's params, bit for
+    bit, and logs step 30's loss again."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nrhints_torch.__main__ import main as nrhints_main
+    from nrhints_torch.data.synthetic import make_hints_scene
+    from nrhints_torch.eval.evaluator import Evaluator
+    from nrhints_torch.kernels import cuda_lib
+    from nrhints_torch.train.trainer import Trainer
+    from nrhints_torch.utils import tree_items
+
+    H = W = 128
+    steps, frames, reg_steps, mesh_res = 30, 4, 500, 128
+    with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        scene = make_hints_scene(tmp / "scene", 8, 1, 2, H, W, seed=0)
+        log(f"[entry] wrote the procedural scene (8 + 1 + 2 views, {H}x{W}) in {time.perf_counter() - t0:.2f} s")
+        argv = ["config:nr-hints-cam-opt", "--config.data.path", str(scene), "--config.base-dir", str(tmp / "runs"),
+                "--config.model.batch-size", "512", "--config.intervals.log-metrics", "10",
+                "--config.intervals.save-ckpt", "20", "--config.intervals.render-video", "30",
+                "--config.data.video-frame-num", "2", "--config.final-mesh-resolution", str(mesh_res)]
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        with Timed(Evaluator, "register_view") as reg, Timed(Trainer, "render_test_views") as views, \
+                Timed(Trainer, "dump_mesh") as mesh, Timed(Trainer, "render_video") as video:
+            t0 = time.perf_counter()
+            trainer = nrhints_main(argv + ["--config.model.end-iter", str(steps)])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        launches = dict(cuda_lib.launch_counts)
+        log(f"[entry] main(): {steps} steps, the video, the mesh and 2 registered test views in {run_s:.2f} s on {smi}; "
+            f"launches {launches}")
+        run_dir = trainer.log_dir
+        lines = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        train = {r["step"]: r for r in lines if "loss" in r}
+        if sorted(train) != [10, 20, 30] or not all(math.isfinite(r["loss"]) and r["rays_per_sec"] > 0
+                                                    for r in train.values()):
+            raise AssertionError(f"metrics.jsonl's train lines are not finite lines at 10, 20, 30: {train}")
+        val = [r for r in lines if "val/psnr" in r]
+        if len(val) != 1 or not (math.isfinite(val[0]["val/psnr"]) and math.isfinite(val[0]["val/ssim"])):
+            raise AssertionError(f"the test views were not scored: {val}")
+        if not (run_dir / "ckpt" / "step_0000020" / "state.pt").is_file():
+            raise AssertionError("no checkpoint at step 20")
+        dumps = run_dir / "test_views" / f"step_{steps:07d}"
+        missing = [f for f in ("rgb_000.png", "rgb_001.png", "shadow_map_001.png", "depth_001.npy")
+                   if not (dumps / f).is_file()]
+        frame_dir = run_dir / "video" / f"step_{steps:07d}"
+        missing += [f"video {i:03d}.png" for i in range(frames) if not (frame_dir / f"{i:03d}.png").is_file()]
+        if missing:
+            raise AssertionError(f"missing outputs: {missing}")
+        obj = run_dir / "mesh" / f"step_{steps:07d}_res_{mesh_res}.obj"
+        n_tris = sum(1 for line in open(obj) if line.startswith("f ")) if obj.is_file() else 0
+        if n_tris == 0:
+            raise AssertionError(f"no triangles in {obj}")
+        if len(reg.secs) != 2:
+            raise AssertionError(f"{len(reg.secs)} registrations, expected 2")
+        chunks = (H * W // 512) * (2 + frames)
+        march = steps + 2 * reg_steps + chunks
+        expected = dict({k: 0 for k in launches}, sdf_stash_fwd=steps + 2 * reg_steps,
+                        sdf_stash_bwd=steps + 2 * reg_steps, mlp_stash_fwd=steps, mlp_stash_bwd=steps,
+                        sdf_core_fwd=chunks, shadow_final=march, round_machinery=8 * march)
+        if launches != expected:
+            raise AssertionError(f"entry-point launch counts {launches}, expected {expected}")
+        log(f"[entry] metrics at steps {sorted(train)}: loss {[round(train[k]['loss'], 5) for k in sorted(train)]}; "
+            f"val/psnr {val[0]['val/psnr']:.4f}, val/ssim {val[0]['val/ssim']:.4f}; checkpoint at 20; "
+            f"{n_tris} triangles at resolution {mesh_res}; {frames} video frames")
+        for k in sorted(train):
+            r = train[k]
+            log(f"[entry] Trainer's own log at step {k}: {r['rays_per_sec']:.1f} rays/s, "
+                f"{1.0 / r['steps_per_sec']:.5f} s/step (the 10 steps before it) on {smi}")
+        view_s = (sum(views.secs) - sum(reg.secs)) / 2
+        # The host's share of a Trainer step, alone: a batch drawn, copied to
+        # the card, and the step's jitter generator.
+        dm = trainer.data_manager
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(100):
+            dm.next_train_batch().to(trainer.device)
+            trainer._jitter_generator(i)
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) * 10.0
+        log(f"[entry] the Trainer's host work a step, timed alone over 100 steps (draw a batch, copy it to the card, "
+            f"seed the jitter generator): {batch_ms:.3f} ms")
+        log(f"[entry] phase 5's timed step in this call: {phase5_step_s:.5f} s/step, {512 / phase5_step_s:.1f} rays/s; "
+            f"one registration (500 steps) {reg.secs[0]:.3f} / {reg.secs[1]:.3f} s; one test view (render, metrics, "
+            f"dumps) {view_s:.3f} s; the mesh at resolution {mesh_res} {mesh.secs[0]:.3f} s; one video frame "
+            f"{video.secs[0] / frames:.3f} s; on {smi}")
+
+        # A registration's device time: the same call, 20 steps, unprofiled
+        # and then under torch.profiler (after a warm-up of 5 steps).
+        from torch.profiler import ProfilerActivity, profile
+
+        ev, pixels, n = trainer.evaluator, trainer.data_manager.get_test_view(0), 20
+        ev.register_view(trainer.state.params, pixels, steps=5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev.register_view(trainer.state.params, pixels, steps=n)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ev.register_view(trainer.state.params, pixels, steps=n)
+            torch.cuda.synchronize()
+        groups = {k: v / n for k, v in sorted(device_groups(prof).items(), key=lambda kv: -kv[1])}
+        busy_ms = sum(groups.values())
+        if busy_ms <= 0:
+            raise AssertionError("the profiler recorded no device time in a registration")
+        log(f"[entry registration] a step: {wall_ms:.3f} ms wall unprofiled, device busy {busy_ms:.3f} ms, idle share "
+            f"{1.0 - busy_ms / wall_ms:.3f}; by group (ms a step) "
+            + ", ".join(f"{k} {v:.3f}" for k, v in groups.items()) + f"; on {smi}")
+        loader_timing(tmp, smi)
+
+        # Resume: a second main on the same run directory, to step 40.
+        loaded = {}
+        load = Trainer._load_ckpt
+
+        def spy(self):
+            load(self)
+            loaded["step"] = self.global_step
+            loaded["params"] = {n: t.detach().cpu().clone() for n, t in tree_items(self.state.params)}
+
+        Trainer._load_ckpt = spy
+        try:
+            n_lines = len(lines)
+            t0 = time.perf_counter()
+            nrhints_main(argv + ["--config.model.end-iter", "40"])
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+        finally:
+            Trainer._load_ckpt = load
+        saved = torch.load(run_dir / "ckpt" / "step_0000020" / "state.pt", map_location="cpu", weights_only=True)
+        if loaded.get("step") != 20:
+            raise AssertionError(f"the second run started at step {loaded.get('step')}, not 20")
+        unequal = [n for n, t in loaded["params"].items() if not torch.equal(t, saved["params"][n])]
+        if unequal or sorted(loaded["params"]) != sorted(saved["params"]):
+            raise AssertionError(f"resumed params differ from the step-20 checkpoint: {unequal}")
+        again = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()[n_lines:]]
+        again = {r["step"]: r for r in again if "loss" in r}
+        if sorted(again) != [30, 40]:
+            raise AssertionError(f"the resumed run logged train steps {sorted(again)}, expected [30, 40]")
+        rel = abs(again[30]["loss"] - train[30]["loss"]) / abs(train[30]["loss"])
+        log(f"[entry resume] second main(): resumed at step 20 with the checkpoint's {len(saved['params'])} params "
+            f"bit for bit; ran to 40 in {resume_s:.2f} s; step 30's loss {again[30]['loss']:.7f} against the first "
+            f"run's {train[30]['loss']:.7f}: rel {rel:.3e} (tol {RESUME_TOL})")
+        if not rel <= RESUME_TOL:
+            raise AssertionError(f"the resumed run's step-30 loss differs: rel {rel:.3e}")
 
 
 def main() -> int:
@@ -965,6 +1233,8 @@ def main() -> int:
     u64 = {"strat": urng.random((64, 1), dtype=np.float32),
            "shadow": urng.random((64, tcfg.model.renderer.n_shadow_samples), dtype=np.float32)}
 
+    step_secs = {}
+
     def train_phase(label: str, scfg_, n_steps: int, per_step: dict) -> dict:
         """Train a fresh seed-0 state of ``scfg_`` on ``batches``: warm-up,
         ``n_steps`` timed steps (launches checked against ``per_step``, every
@@ -988,7 +1258,7 @@ def main() -> int:
             state, metrics = step_fn(state, b, step_gen)
             losses.append(metrics["loss"])
         torch.cuda.synchronize()
-        step_s = (time.perf_counter() - t0) / n_steps
+        step_s = step_secs[label] = (time.perf_counter() - t0) / n_steps
         launches_ = dict(cuda_lib.launch_counts)
         expected_ = dict({k: 0 for k in cuda_lib.launch_counts}, **per_step)
         losses = [float(v) for v in losses]
@@ -1060,6 +1330,9 @@ def main() -> int:
     # 8. The monolithic round-4 marches in training, on the same batches.
     train_phase("round-4 monolith train path", with_renderer(tcfg, **MONOLITH), ROUND4_STEPS,
                               dict(stash_step, importance_march=1, shadow_march=1))
+
+    # 9. The training entry point, python -m nrhints_torch's main.
+    train_entry_phase(smi, step_secs["train path"])
 
     def entry(name, source, replaces, launches_, err, ms, plain_ms, bound_ms, by):
         return {"name": name, "route": "cuda", "source": f"nrhints_torch/csrc/{source}",

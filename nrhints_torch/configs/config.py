@@ -1,5 +1,6 @@
 """System configuration and the three presets (port of
-``nrhints_tpu/configs/config.py``; the dotted-flag CLI comes later)."""
+``nrhints_tpu/configs/config.py``); ``configs/cli.py`` sets any leaf from
+the command line."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field

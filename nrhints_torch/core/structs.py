@@ -35,6 +35,9 @@ class PixelBundle:
     def __getitem__(self, idx) -> "PixelBundle":
         return _map(self, lambda x: x[idx])
 
+    def to(self, device) -> "PixelBundle":
+        return _map(self, lambda x: torch.as_tensor(x).to(device))
+
 
 @dataclass
 class RayBundle:

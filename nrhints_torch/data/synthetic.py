@@ -3,10 +3,15 @@
 matte disc lit by a point light, ray-traced analytically.  The sphere casts
 a hard shadow on the disc and has a GGX highlight, so a model trained on it
 needs both hints.  Everything fits in the unit sphere: sphere radius 0.35
-at y = -0.05, disc radius 0.85 at y = -0.4.  Writing a dataset to disk
-(``make_hints_scene``) comes with the data slice.
+at y = -0.05, disc radius 0.85 at y = -0.4.  ``make_hints_scene`` writes
+the scene to disk in the original code's Blender-json format
+(``transforms_*.json`` with a ``pl_pos`` per frame, RGBA PNGs);
+``scene_views`` keeps a train split in memory.
 """
 from __future__ import annotations
+
+import json
+import pathlib
 
 import numpy as np
 
@@ -148,23 +153,61 @@ def render_scene_image(
     )
 
 
+def _draw_view(rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
+    """(camera-to-world, light position) of one view: the camera on the
+    upper hemisphere at radius 2.7 looking at the origin, the light at
+    radius 3.2 above the disc, drawn apart from the camera."""
+    theta = rng.uniform(0.0, 2.0 * np.pi)
+    phi = rng.uniform(0.25, 1.25)  # stay above the disc
+    eye = 2.7 * np.array([np.cos(theta) * np.sin(phi), np.cos(phi), np.sin(theta) * np.sin(phi)])
+    lt = rng.uniform(0.0, 2.0 * np.pi)
+    lp = rng.uniform(0.2, 1.1)
+    pl = 3.2 * np.array([np.cos(lt) * np.sin(lp), np.cos(lp), np.sin(lt) * np.sin(lp)])
+    return look_at_pose(eye), pl
+
+
+def make_hints_scene(
+    basedir,
+    n_train: int = 100,
+    n_val: int = 5,
+    n_test: int = 10,
+    H: int = 128,
+    W: int = 128,
+    seed: int = 0,
+    camera_angle_x: float = 0.8,
+) -> pathlib.Path:
+    """Write the whole procedural dataset to ``basedir`` (the views and
+    files of the JAX ``make_hints_scene`` for the same arguments)."""
+    from nrhints_torch.data.png import write_png
+
+    basedir = pathlib.Path(basedir)
+    basedir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    focal = 0.5 * W / np.tan(0.5 * camera_angle_x)
+    for split, n in (("train", n_train), ("val", n_val), ("test", n_test)):
+        (basedir / split).mkdir(exist_ok=True)
+        frames = []
+        for i in range(n):
+            c2w, pl = _draw_view(rng)
+            rgba = render_scene_image(c2w, pl, H, W, focal)
+            rel = f"{split}/r_{i}"
+            write_png(basedir / f"{rel}.png", (np.clip(rgba, 0, 1) * 255).astype(np.uint8))
+            frames.append({"file_path": rel, "transform_matrix": c2w.tolist(), "pl_pos": pl.tolist()})
+        meta = {"camera_angle_x": camera_angle_x, "frames": frames}
+        (basedir / f"transforms_{split}.json").write_text(json.dumps(meta))
+    return basedir
+
+
 def scene_views(n_views: int, H: int = 128, W: int = 128, seed: int = 0, camera_angle_x: float = 0.8) -> dict:
     """``n_views`` training views of the scene in memory, with the camera
-    and light draws of the JAX ``make_hints_scene``'s train split: cameras
-    on the upper hemisphere at radius 2.7, lights at radius 3.2.  -> numpy
+    and light draws of ``make_hints_scene``'s train split.  -> numpy
     {"images" [n, H, W, 3] composited on white as the data parser does,
     "poses" [n, 4, 4], "pls" [n, 3], "focal"}."""
     rng = np.random.default_rng(seed)
     focal = 0.5 * W / np.tan(0.5 * camera_angle_x)
     images, poses, pls = [], [], []
     for _ in range(n_views):
-        theta = rng.uniform(0.0, 2.0 * np.pi)
-        phi = rng.uniform(0.25, 1.25)
-        eye = 2.7 * np.array([np.cos(theta) * np.sin(phi), np.cos(phi), np.sin(theta) * np.sin(phi)])
-        lt = rng.uniform(0.0, 2.0 * np.pi)
-        lp = rng.uniform(0.2, 1.1)
-        pl = 3.2 * np.array([np.cos(lt) * np.sin(lp), np.cos(lp), np.sin(lt) * np.sin(lp)])
-        c2w = look_at_pose(eye)
+        c2w, pl = _draw_view(rng)
         rgba = render_scene_image(c2w, pl, H, W, focal)
         images.append(rgba[..., :3] * rgba[..., 3:] + (1.0 - rgba[..., 3:]))
         poses.append(c2w)

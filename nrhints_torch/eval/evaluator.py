@@ -1,5 +1,6 @@
-"""Whole-image relighting render (port of ``render_image`` and
-``render_image_async`` of ``nrhints_tpu/eval/evaluator.py``).
+"""Whole-image evaluation (port of ``nrhints_tpu/eval/evaluator.py``):
+the chunked view render, test-time pose registration and the metrics of a
+view.
 
 A view renders as a sweep over fixed-size chunks of rays.  For a plain
 full-image view (one pose, one light, the meshgrid of pixels) the pixel
@@ -7,11 +8,19 @@ grid is built on the device, its padded tail clamped to the last pixel;
 any other bundle is padded on the host by repeating its last ray.  The
 per-pixel reductions (weighted normals, shadow map, specular hint) happen on
 the device per chunk, and the normal maps are rotated into the camera frame
-on the host.  Test-time registration, metrics and mesh sharding come later.
+on the host.
+
+``register_view`` runs the original code's test-time registration: 500
+Adam steps on copies of the ray generator's pose and light deltas only,
+each on ``batch_size`` pixels of the view drawn afresh, through the eval
+render with the L1 loss.  Gradients flow through the rays only: the SDF
+core runs its differentiable stash op (kernels D and E on the card), the
+renderer's parameters are detached and the training optimizer is not
+touched.  Mesh-sharded eval is a later slice.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,12 +28,21 @@ import torch
 from nrhints_torch.camera.model import CameraModel
 from nrhints_torch.configs.config import SystemConfig
 from nrhints_torch.core.structs import PixelBundle
+from nrhints_torch.eval.metrics import lpips, lpips_available, psnr, ssim
 from nrhints_torch.train.step import forward_pipeline
 from nrhints_torch.utils import resolve_device
 
 
 def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def register_view_key(pixels: PixelBundle, device="cpu") -> torch.Generator:
+    """The generator of a view's registration draws, seeded by its image
+    index, so each view registers on its own pixel sequence and a rerun
+    draws the same pixels."""
+    idx = int(_host(pixels.img_indices).reshape(-1)[0])
+    return torch.Generator(device=device).manual_seed(idx)
 
 
 class Evaluator:
@@ -149,3 +167,77 @@ class Evaluator:
     def render_image(self, params, pixels: PixelBundle) -> Dict[str, np.ndarray]:
         """Render a [H, W] pixel bundle -> host dict of [H, W, C] images."""
         return self.render_image_async(params, pixels)()
+
+    def get_eval_dicts(
+        self, params, pixels: PixelBundle
+    ) -> Tuple[Dict[str, np.ndarray], Dict[str, float], Dict[str, np.ndarray], dict]:
+        """(img_dict, metrics, tensor_dict, params) of one view.  With pose
+        or light optimization on and a ground truth, the view is registered
+        first, and the returned params carry the registered raygen tables
+        (the original code updates its live ray generator, so callers thread
+        them on)."""
+        rg = self.cfg.ray_generator
+        if (rg.cam_opt_mode != "off" or rg.pl_opt) and pixels.rgb_gt is not None:
+            params = self.register_view(params, pixels)
+
+        res = self.render_image(params, pixels)
+        img_dict = {
+            "rgb": res["rgb"],
+            "analytic_normals": res["normal"],
+            "normalized_analytic_normals": res["normalized_normal"],
+        }
+        metrics: Dict[str, float] = {}
+        if pixels.rgb_gt is not None:
+            gt = _host(pixels.rgb_gt)
+            img_dict["rgb_gt"] = gt
+            metrics["psnr"] = psnr(res["rgb"], gt)
+            metrics["ssim"] = ssim(res["rgb"], gt)
+            if lpips_available():
+                metrics["lpips"] = lpips(res["rgb"], gt)
+        if "shadow_map" in res:
+            img_dict["shadow_map"] = res["shadow_map"]
+
+        tensor_dict = {"depth": res["depth"]}
+        if "specular_hint" in res:
+            tensor_dict["specular_hint"] = res["specular_hint"]
+        return img_dict, metrics, tensor_dict, params
+
+    def register_view(self, params, pixels: PixelBundle, steps: int = 500,
+                      pixel_draws: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None) -> dict:
+        """``steps`` Adam steps (lr ``ray_generator.opt_lr``) on copies of
+        the raygen leaves -> {"renderer": the same renderer params, "raygen":
+        the registered leaves}.  ``pixel_draws`` ([(rows, cols)] a step)
+        replaces the draws of ``register_view_key``."""
+        if not params["raygen"]:
+            return params
+        cfg, dev = self.cfg, self.device
+        renderer = _tree_map(self._on_device(params["renderer"]), torch.Tensor.detach)
+        raygen = {k: torch.as_tensor(v).detach().to(dev).clone().requires_grad_(True)
+                  for k, v in params["raygen"].items()}
+        opt = torch.optim.Adam(list(raygen.values()), lr=cfg.ray_generator.opt_lr, betas=(0.9, 0.999), eps=1e-8)
+        image = pixels.to(dev)
+        H, W = image.h_indices.shape[:2]
+        bs = cfg.model.batch_size
+        gen = register_view_key(pixels, dev) if pixel_draws is None else None
+        for i in range(steps):
+            if pixel_draws is None:
+                h_idx = torch.randint(0, H, (bs,), generator=gen, device=dev)
+                w_idx = torch.randint(0, W, (bs,), generator=gen, device=dev)
+            else:
+                h_idx, w_idx = (torch.as_tensor(a, device=dev).long() for a in pixel_draws[i])
+            batch = image[h_idx, w_idx]
+            out = forward_pipeline(
+                {"renderer": renderer, "raygen": raygen}, self.buffers, cfg, self.camera, batch,
+                is_training=False, geometry_warmup=False, cos_anneal_ratio=1.0,
+            )
+            loss = torch.sum(torch.abs(out.rgb - batch.rgb_gt)) / (bs + 1e-5)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+        return {"renderer": params["renderer"], "raygen": {k: v.detach() for k, v in raygen.items()}}
+
+
+def _tree_map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree_map(v, fn) for k, v in tree.items()}
+    return fn(tree)

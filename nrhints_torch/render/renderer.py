@@ -34,7 +34,7 @@ from nrhints_torch.core.sampling import linspace01, perturb_z_vals_within_bins, 
 from nrhints_torch.core.structs import RayBundle, RenderOutput
 from nrhints_torch.fields.bg_nerf import BgNeRFConfig
 from nrhints_torch.fields.reflectance import ReflectanceNetConfig, reflectance_forward, reflectance_init
-from nrhints_torch.fields.sdf import SDFNetConfig, sdf_init
+from nrhints_torch.fields.sdf import SDFNetConfig, sdf_init, sdf_only
 from nrhints_torch.fields.variance import VarianceConfig, inv_s_from_params, variance_init
 from nrhints_torch.kernels.core_mlp import fused_reflectance_forward, fused_sdf_value_feat_grad
 from nrhints_torch.kernels.march import fused_importance_z, fused_shadow_tau
@@ -344,3 +344,18 @@ def render_rays(
         visibilities=shadow_map,
         specular_cue=None if specular_cue is None else specular_cue.reshape(batch, n_total, -1),
     )
+
+
+@torch.no_grad()
+def extract_sdf_grid(params: dict, cfg: ModelConfig, bound_min, bound_max, resolution: int,
+                     block: int = 64) -> torch.Tensor:
+    """-sdf on a dense [res, res, res] grid over the box, on the device the
+    parameters lie on, swept in blocks of ``block``**3 points through the
+    plain f32 ``sdf_only`` (marching cubes then run on the host)."""
+    dev = params["sdf"]["out_sdf"]["b"].device
+    axes = [torch.linspace(float(lo), float(hi), resolution, device=dev) for lo, hi in zip(bound_min, bound_max)]
+    grid = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1).reshape(-1, 3)
+    chunk = block**3
+    vals = torch.cat([-sdf_only(params["sdf"], cfg.sdf_network, grid[i : i + chunk])
+                      for i in range(0, grid.shape[0], chunk)])
+    return vals.reshape(resolution, resolution, resolution)

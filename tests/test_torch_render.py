@@ -123,15 +123,21 @@ PORTED = [
     ({"march_sweep_impl": "pallas"}, False),
     ({"march_rounds_impl": "pallas"}, False),
     ({"shadow_final_impl": "xla"}, False),
+    ({"shadow_hint": False, "specular_hint": False}, False),
+    ({"shadow_hint": False, "force_shadow_map": True}, False),
+    ({"specular_hint": False, "force_specular_cue": True}, False),
+    ({"normal_type": "analytic"}, False),
 ]
 
 
 @pytest.mark.parametrize("renderer_kw,is_training", PORTED, ids=[
     "recompute", "stash_xla", "train_trunk_xla", "eval_trunk_pallas", "monolith_march", "monolith_march_training",
-    "split_march_rank", "merge_rank", "sweep_pallas", "rounds_pallas", "shadow_final_xla"])
+    "split_march_rank", "merge_rank", "sweep_pallas", "rounds_pallas", "shadow_final_xla", "pl_naive_no_hints",
+    "force_shadow_map", "force_specular_cue", "normal_analytic"])
 def test_ported_settings_match_jax(renderer_kw, is_training):
-    """The backward schedules, trunk choices and march routes the port has,
-    through ``render_rays`` against JAX at the f32 march's tolerances.  Training
+    """The backward schedules, trunk choices, march routes and the hint and
+    normal switches the port has, through ``render_rays`` against JAX at the
+    f32 march's tolerances (the specular cue at rgb's).  Training
     cases run with parameters that need gradients, so the autograd ops of
     the schedule run, and also compare the gradient of sum(rgb) + the
     eikonal term at every leaf (2e-2 of its scale, the train tests'
@@ -171,8 +177,11 @@ def test_ported_settings_match_jax(renderer_kw, is_training):
         _, jo = j_loss(jp)
         with torch.no_grad():
             to = tr.render_rays(tp, tc, trays, background_rgb=torch.ones(1, 3))
-    for k in ("rgb", "weights", "depth", "visibilities"):
-        np.testing.assert_allclose(getattr(to, k).detach().numpy(), np.asarray(getattr(jo, k)), atol=tol[k], err_msg=k)
+    for k in ("rgb", "weights", "depth", "visibilities", "specular_cue"):
+        jv, tv = getattr(jo, k), getattr(to, k)
+        assert (jv is None) == (tv is None), k
+        if jv is not None:
+            np.testing.assert_allclose(tv.detach().numpy(), np.asarray(jv), atol=tol.get(k, tol["rgb"]), err_msg=k)
 
 
 @pytest.mark.parametrize("renderer_kw", [{"march_sweep_impl": "mosaic"}, {"march_rounds_impl": "fori"},
