@@ -22,11 +22,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    I, G's chain (G1) and dW passes, and J's recompute pass (J1), chain (J2)
    and dW passes the same way, with each design's byte floor;
 4. eval path: render one 128x128 view of the nr-hints model (random
-   weights from a fixed seed) with Evaluator.render_image on the card,
-   check the outputs and that every kernel's launch count moved, then
-   render 64 of its pixels on the CPU (plain versions) and compare;
+   weights from a fixed seed) with Evaluator.render_image on the card
+   (the first call runs the eager sweep and captures it as a CUDA graph;
+   a second call replays the graph), check the outputs, the launches of
+   both calls, and the replay's images against the eager sweep's bit for
+   bit, time the replay, the eager sweep and the first call, then render
+   64 of its pixels on the CPU (plain versions) and compare;
 4b. the same view with eval_reflectance_impl="pallas" (kernel I for the
-   trunk): its launches, and its images against phase 4's;
+   trunk), through its view graph as phase 4: its launches, and its images
+   against phase 4's;
 5. train path: train the nr-hints-cam-opt model at full width on 512-ray
    PixelSampler batches from 8 views of the procedural scene (3 warm-up
    steps, 20 timed), check the loss, that the parameters moved and the
@@ -38,8 +42,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 7. round-4 march views: the view of phase 4 with the monolithic marches
    (kernel M for the camera rays, N for the shadow rays) and with the
    split march (K then L for the camera rays, M then C for the shadow
-   rays, both by the rank merge): launches, and images against phase 4's;
-   one profiled view of each and of phase 4b;
+   rays, both by the rank merge), each through its view graph as phase 4:
+   launches, and images against phase 4's; one profiled view (a replay)
+   of each and of phase 4b;
 8. round-4 train path: nr-hints-cam-opt with the monolithic marches, 3
    warm-up steps and 5 timed, with phase 5's checks (M and N once per step);
 9. training entry point: ``python -m nrhints_torch``'s main, in this
@@ -52,7 +57,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    view, the mesh and a video frame take, a registration's device busy
    time and idle share from one profiled call, and the parser's seconds a
    frame on 512x512 RGBA PNGs written under the Paeth row filter and under
-   none (the scene above is written under none).
+   none (the scene above is written under none).  Its registrations and
+   views run as CUDA graphs;
+10. the one-dispatch paths as CUDA graphs: (a) 16 train steps of phase 5's
+   configuration through make_train_step_scan (one graph) against 16 eager
+   steps from the same state, batches and generators (params, Adam's state
+   and the last metrics), s/step and rays/s of both, device busy and idle
+   share of one profiled dispatch; (b) the same at K = 2 under
+   core_backward="recompute" and under the round-4 monolith; (c) a test
+   view's registration through its graph against the eager loop over 50
+   steps, and a full 500-step registration timed; (d) phase 9's main with
+   parallel.steps_per_dispatch=10: its logs and checkpoint at the same
+   crossings, its losses against phase 9's, its launches exactly, and a
+   resumed run.
 Phase 3 also holds kernels K (initial march sweep), L (refinement rounds),
 M (K and L in one kernel) and N (M and C's final sweep in one kernel), and
 B under the rank merge, against their plain versions, L = B's steps between
@@ -210,6 +227,60 @@ def tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: tree_to(v, dev) for k, v in tree.items()}
     return tree.detach().clone().to(dev)
+
+
+def train_snapshot(state) -> dict:
+    """A copy of a train state: its step, every parameter leaf and Adam's
+    state of each, by the leaf's path."""
+    from nrhints_torch.utils import tree_items
+
+    out = {"step": state.step}
+    for name, t in tree_items(state.params):
+        out[name] = t.detach().clone()
+        for k, v in state.optimizer.state.get(t, {}).items():
+            out[f"{name} {k}"] = v.detach().clone()
+    return out
+
+
+def train_restore(state, snap: dict) -> None:
+    """Copy a ``train_snapshot`` back into the state's own tensors (a
+    captured graph reads them), Adam's state included; Adam's state that the
+    snapshot did not have yet is zeroed, as a fresh optimizer starts it."""
+    import torch
+
+    from nrhints_torch.utils import tree_items
+
+    state.step = snap["step"]
+    with torch.no_grad():
+        for name, t in tree_items(state.params):
+            t.copy_(snap[name])
+            for k, v in state.optimizer.state.get(t, {}).items():
+                if f"{name} {k}" in snap:
+                    v.copy_(snap[f"{name} {k}"])
+                else:
+                    v.zero_()
+
+
+def snapshot_err(a: dict, b: dict) -> tuple[float, str]:
+    """(largest |a - b| over an entry's leaf's max |b|, that entry) over two
+    snapshots or two dicts of tensors; 0.0 means equal bit for bit."""
+    import torch
+
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"snapshots of different trees: {sorted(a)} vs {sorted(b)}")
+    worst, where = 0.0, ""
+    for k in a:
+        if k == "step":
+            if a[k] != b[k]:
+                return float("inf"), k
+            continue
+        x, y = a[k].float(), b[k].float()
+        if torch.equal(x, y):
+            continue
+        e = (x - y).abs().max().item() / max(y.abs().max().item(), 1e-30)
+        if e > worst:
+            worst, where = e, k
+    return worst, where
 
 
 def device_groups(prof) -> dict[str, float]:
@@ -478,7 +549,7 @@ class Timed:
         setattr(self.cls, self.name, self.orig)
 
 
-def train_entry_phase(smi: str, phase5_step_s: float) -> None:
+def train_entry_phase(smi: str, phase5_step_s: float, tmp: Path) -> dict:
     """Phase 9: ``python -m nrhints_torch``'s main, called in this process so
     the launch counts are readable, trains nr-hints-cam-opt at full width on
     a procedural scene written to disk (8 train, 1 val, 2 test views at
@@ -489,9 +560,9 @@ def train_entry_phase(smi: str, phase5_step_s: float) -> None:
     (B-G in every train step, D, E, B and C in every registration step, A,
     B and C in every chunk of a view).  A second main on the same directory
     with end_iter 40 resumes at step 20 from the checkpoint's params, bit for
-    bit, and logs step 30's loss again."""
-    import tempfile
-
+    bit, and logs step 30's loss again.  ``tmp``: the directory of the
+    scene and the runs.  -> what phase 10(d) repeats: the first main's
+    argument list and its logged losses by step."""
     import numpy as np
     import torch
 
@@ -500,143 +571,209 @@ def train_entry_phase(smi: str, phase5_step_s: float) -> None:
     from nrhints_torch.eval.evaluator import Evaluator
     from nrhints_torch.kernels import cuda_lib
     from nrhints_torch.train.trainer import Trainer
-    from nrhints_torch.utils import tree_items
 
     H = W = 128
     steps, frames, reg_steps, mesh_res = 30, 4, 500, 128
-    with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
-        tmp = Path(tmp)
+    t0 = time.perf_counter()
+    scene = make_hints_scene(tmp / "scene", 8, 1, 2, H, W, seed=0)
+    log(f"[entry] wrote the procedural scene (8 + 1 + 2 views, {H}x{W}) in {time.perf_counter() - t0:.2f} s")
+    argv = ["config:nr-hints-cam-opt", "--config.data.path", str(scene), "--config.base-dir", str(tmp / "runs"),
+            "--config.model.batch-size", "512", "--config.intervals.log-metrics", "10",
+            "--config.intervals.save-ckpt", "20", "--config.intervals.render-video", "30",
+            "--config.data.video-frame-num", "2", "--config.final-mesh-resolution", str(mesh_res)]
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    with Timed(Evaluator, "register_view") as reg, Timed(Trainer, "render_test_views") as views, \
+            Timed(Trainer, "dump_mesh") as mesh, Timed(Trainer, "render_video") as video:
         t0 = time.perf_counter()
-        scene = make_hints_scene(tmp / "scene", 8, 1, 2, H, W, seed=0)
-        log(f"[entry] wrote the procedural scene (8 + 1 + 2 views, {H}x{W}) in {time.perf_counter() - t0:.2f} s")
-        argv = ["config:nr-hints-cam-opt", "--config.data.path", str(scene), "--config.base-dir", str(tmp / "runs"),
-                "--config.model.batch-size", "512", "--config.intervals.log-metrics", "10",
-                "--config.intervals.save-ckpt", "20", "--config.intervals.render-video", "30",
-                "--config.data.video-frame-num", "2", "--config.final-mesh-resolution", str(mesh_res)]
+        trainer = nrhints_main(argv + ["--config.model.end-iter", str(steps)])
         torch.cuda.synchronize()
-        cuda_lib.reset_launch_counts()
-        with Timed(Evaluator, "register_view") as reg, Timed(Trainer, "render_test_views") as views, \
-                Timed(Trainer, "dump_mesh") as mesh, Timed(Trainer, "render_video") as video:
-            t0 = time.perf_counter()
-            trainer = nrhints_main(argv + ["--config.model.end-iter", str(steps)])
-            torch.cuda.synchronize()
-            run_s = time.perf_counter() - t0
-        launches = dict(cuda_lib.launch_counts)
-        log(f"[entry] main(): {steps} steps, the video, the mesh and 2 registered test views in {run_s:.2f} s on {smi}; "
-            f"launches {launches}")
-        run_dir = trainer.log_dir
-        lines = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
-        train = {r["step"]: r for r in lines if "loss" in r}
-        if sorted(train) != [10, 20, 30] or not all(math.isfinite(r["loss"]) and r["rays_per_sec"] > 0
-                                                    for r in train.values()):
-            raise AssertionError(f"metrics.jsonl's train lines are not finite lines at 10, 20, 30: {train}")
-        val = [r for r in lines if "val/psnr" in r]
-        if len(val) != 1 or not (math.isfinite(val[0]["val/psnr"]) and math.isfinite(val[0]["val/ssim"])):
-            raise AssertionError(f"the test views were not scored: {val}")
-        if not (run_dir / "ckpt" / "step_0000020" / "state.pt").is_file():
-            raise AssertionError("no checkpoint at step 20")
-        dumps = run_dir / "test_views" / f"step_{steps:07d}"
-        missing = [f for f in ("rgb_000.png", "rgb_001.png", "shadow_map_001.png", "depth_001.npy")
-                   if not (dumps / f).is_file()]
-        frame_dir = run_dir / "video" / f"step_{steps:07d}"
-        missing += [f"video {i:03d}.png" for i in range(frames) if not (frame_dir / f"{i:03d}.png").is_file()]
-        if missing:
-            raise AssertionError(f"missing outputs: {missing}")
-        obj = run_dir / "mesh" / f"step_{steps:07d}_res_{mesh_res}.obj"
-        n_tris = sum(1 for line in open(obj) if line.startswith("f ")) if obj.is_file() else 0
-        if n_tris == 0:
-            raise AssertionError(f"no triangles in {obj}")
-        if len(reg.secs) != 2:
-            raise AssertionError(f"{len(reg.secs)} registrations, expected 2")
-        chunks = (H * W // 512) * (2 + frames)
-        march = steps + 2 * reg_steps + chunks
-        expected = dict({k: 0 for k in launches}, sdf_stash_fwd=steps + 2 * reg_steps,
-                        sdf_stash_bwd=steps + 2 * reg_steps, mlp_stash_fwd=steps, mlp_stash_bwd=steps,
-                        sdf_core_fwd=chunks, shadow_final=march, round_machinery=8 * march)
-        if launches != expected:
-            raise AssertionError(f"entry-point launch counts {launches}, expected {expected}")
-        log(f"[entry] metrics at steps {sorted(train)}: loss {[round(train[k]['loss'], 5) for k in sorted(train)]}; "
-            f"val/psnr {val[0]['val/psnr']:.4f}, val/ssim {val[0]['val/ssim']:.4f}; checkpoint at 20; "
-            f"{n_tris} triangles at resolution {mesh_res}; {frames} video frames")
-        for k in sorted(train):
-            r = train[k]
-            log(f"[entry] Trainer's own log at step {k}: {r['rays_per_sec']:.1f} rays/s, "
-                f"{1.0 / r['steps_per_sec']:.5f} s/step (the 10 steps before it) on {smi}")
-        view_s = (sum(views.secs) - sum(reg.secs)) / 2
-        # The host's share of a Trainer step, alone: a batch drawn, copied to
-        # the card, and the step's jitter generator.
-        dm = trainer.data_manager
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(100):
-            dm.next_train_batch().to(trainer.device)
-            trainer._jitter_generator(i)
-        torch.cuda.synchronize()
-        batch_ms = (time.perf_counter() - t0) * 10.0
-        log(f"[entry] the Trainer's host work a step, timed alone over 100 steps (draw a batch, copy it to the card, "
-            f"seed the jitter generator): {batch_ms:.3f} ms")
-        log(f"[entry] phase 5's timed step in this call: {phase5_step_s:.5f} s/step, {512 / phase5_step_s:.1f} rays/s; "
-            f"one registration (500 steps) {reg.secs[0]:.3f} / {reg.secs[1]:.3f} s; one test view (render, metrics, "
-            f"dumps) {view_s:.3f} s; the mesh at resolution {mesh_res} {mesh.secs[0]:.3f} s; one video frame "
-            f"{video.secs[0] / frames:.3f} s; on {smi}")
+        run_s = time.perf_counter() - t0
+    launches = dict(cuda_lib.launch_counts)
+    log(f"[entry] main(): {steps} steps, the video, the mesh and 2 registered test views in {run_s:.2f} s on {smi}; "
+        f"launches {launches}")
+    run_dir = trainer.log_dir
+    lines = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    train = {r["step"]: r for r in lines if "loss" in r}
+    if sorted(train) != [10, 20, 30] or not all(math.isfinite(r["loss"]) and r["rays_per_sec"] > 0
+                                                for r in train.values()):
+        raise AssertionError(f"metrics.jsonl's train lines are not finite lines at 10, 20, 30: {train}")
+    val = [r for r in lines if "val/psnr" in r]
+    if len(val) != 1 or not (math.isfinite(val[0]["val/psnr"]) and math.isfinite(val[0]["val/ssim"])):
+        raise AssertionError(f"the test views were not scored: {val}")
+    if not (run_dir / "ckpt" / "step_0000020" / "state.pt").is_file():
+        raise AssertionError("no checkpoint at step 20")
+    dumps = run_dir / "test_views" / f"step_{steps:07d}"
+    missing = [f for f in ("rgb_000.png", "rgb_001.png", "shadow_map_001.png", "depth_001.npy")
+               if not (dumps / f).is_file()]
+    frame_dir = run_dir / "video" / f"step_{steps:07d}"
+    missing += [f"video {i:03d}.png" for i in range(frames) if not (frame_dir / f"{i:03d}.png").is_file()]
+    if missing:
+        raise AssertionError(f"missing outputs: {missing}")
+    obj = run_dir / "mesh" / f"step_{steps:07d}_res_{mesh_res}.obj"
+    n_tris = sum(1 for line in open(obj) if line.startswith("f ")) if obj.is_file() else 0
+    if n_tris == 0:
+        raise AssertionError(f"no triangles in {obj}")
+    if len(reg.secs) != 2:
+        raise AssertionError(f"{len(reg.secs)} registrations, expected 2")
+    chunks = (H * W // 512) * (2 + frames)
+    march = steps + 2 * reg_steps + chunks
+    expected = dict({k: 0 for k in launches}, sdf_stash_fwd=steps + 2 * reg_steps,
+                    sdf_stash_bwd=steps + 2 * reg_steps, mlp_stash_fwd=steps, mlp_stash_bwd=steps,
+                    sdf_core_fwd=chunks, shadow_final=march, round_machinery=8 * march)
+    if launches != expected:
+        raise AssertionError(f"entry-point launch counts {launches}, expected {expected}")
+    log(f"[entry] metrics at steps {sorted(train)}: loss {[round(train[k]['loss'], 5) for k in sorted(train)]}; "
+        f"val/psnr {val[0]['val/psnr']:.4f}, val/ssim {val[0]['val/ssim']:.4f}; checkpoint at 20; "
+        f"{n_tris} triangles at resolution {mesh_res}; {frames} video frames")
+    for k in sorted(train):
+        r = train[k]
+        log(f"[entry] Trainer's own log at step {k}: {r['rays_per_sec']:.1f} rays/s, "
+            f"{1.0 / r['steps_per_sec']:.5f} s/step (the 10 steps before it) on {smi}")
+    view_s = (sum(views.secs) - sum(reg.secs)) / 2
+    # The host's share of a Trainer step, alone: a batch drawn, copied to
+    # the card, and the step's jitter generator.
+    dm = trainer.data_manager
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(100):
+        dm.next_train_batch().to(trainer.device)
+        trainer._jitter_generator(i)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 10.0
+    log(f"[entry] the Trainer's host work a step, timed alone over 100 steps (draw a batch, copy it to the card, "
+        f"seed the jitter generator): {batch_ms:.3f} ms")
+    log(f"[entry] phase 5's timed step in this call: {phase5_step_s:.5f} s/step, {512 / phase5_step_s:.1f} rays/s; "
+        f"one registration (500 steps) {reg.secs[0]:.3f} / {reg.secs[1]:.3f} s; one test view (render, metrics, "
+        f"dumps) {view_s:.3f} s; the mesh at resolution {mesh_res} {mesh.secs[0]:.3f} s; one video frame "
+        f"{video.secs[0] / frames:.3f} s; on {smi}")
 
-        # A registration's device time: the same call, 20 steps, unprofiled
-        # and then under torch.profiler (after a warm-up of 5 steps).
-        from torch.profiler import ProfilerActivity, profile
+    # A registration's device time: the same call, 20 steps, unprofiled
+    # and then under torch.profiler (after a warm-up of 5 steps).
+    from torch.profiler import ProfilerActivity, profile
 
-        ev, pixels, n = trainer.evaluator, trainer.data_manager.get_test_view(0), 20
-        ev.register_view(trainer.state.params, pixels, steps=5)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    ev, pixels, n = trainer.evaluator, trainer.data_manager.get_test_view(0), 20
+    ev.register_view(trainer.state.params, pixels, steps=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev.register_view(trainer.state.params, pixels, steps=n)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         ev.register_view(trainer.state.params, pixels, steps=n)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            ev.register_view(trainer.state.params, pixels, steps=n)
-            torch.cuda.synchronize()
-        groups = {k: v / n for k, v in sorted(device_groups(prof).items(), key=lambda kv: -kv[1])}
-        busy_ms = sum(groups.values())
-        if busy_ms <= 0:
-            raise AssertionError("the profiler recorded no device time in a registration")
-        log(f"[entry registration] a step: {wall_ms:.3f} ms wall unprofiled, device busy {busy_ms:.3f} ms, idle share "
-            f"{1.0 - busy_ms / wall_ms:.3f}; by group (ms a step) "
-            + ", ".join(f"{k} {v:.3f}" for k, v in groups.items()) + f"; on {smi}")
-        loader_timing(tmp, smi)
+    groups = {k: v / n for k, v in sorted(device_groups(prof).items(), key=lambda kv: -kv[1])}
+    busy_ms = sum(groups.values())
+    if busy_ms <= 0:
+        raise AssertionError("the profiler recorded no device time in a registration")
+    log(f"[entry registration] a step: {wall_ms:.3f} ms wall unprofiled, device busy {busy_ms:.3f} ms, idle share "
+        f"{1.0 - busy_ms / wall_ms:.3f}; by group (ms a step) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in groups.items()) + f"; on {smi}")
+    loader_timing(tmp, smi)
 
-        # Resume: a second main on the same run directory, to step 40.
-        loaded = {}
-        load = Trainer._load_ckpt
+    check_resume("entry resume", argv, run_dir, {k: r["loss"] for k, r in train.items()})
+    return {"argv": argv, "losses": {k: r["loss"] for k, r in train.items()}}
 
-        def spy(self):
-            load(self)
-            loaded["step"] = self.global_step
-            loaded["params"] = {n: t.detach().cpu().clone() for n, t in tree_items(self.state.params)}
 
-        Trainer._load_ckpt = spy
-        try:
-            n_lines = len(lines)
-            t0 = time.perf_counter()
-            nrhints_main(argv + ["--config.model.end-iter", "40"])
-            torch.cuda.synchronize()
-            resume_s = time.perf_counter() - t0
-        finally:
-            Trainer._load_ckpt = load
-        saved = torch.load(run_dir / "ckpt" / "step_0000020" / "state.pt", map_location="cpu", weights_only=True)
-        if loaded.get("step") != 20:
-            raise AssertionError(f"the second run started at step {loaded.get('step')}, not 20")
-        unequal = [n for n, t in loaded["params"].items() if not torch.equal(t, saved["params"][n])]
-        if unequal or sorted(loaded["params"]) != sorted(saved["params"]):
-            raise AssertionError(f"resumed params differ from the step-20 checkpoint: {unequal}")
-        again = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()[n_lines:]]
-        again = {r["step"]: r for r in again if "loss" in r}
-        if sorted(again) != [30, 40]:
-            raise AssertionError(f"the resumed run logged train steps {sorted(again)}, expected [30, 40]")
-        rel = abs(again[30]["loss"] - train[30]["loss"]) / abs(train[30]["loss"])
-        log(f"[entry resume] second main(): resumed at step 20 with the checkpoint's {len(saved['params'])} params "
-            f"bit for bit; ran to 40 in {resume_s:.2f} s; step 30's loss {again[30]['loss']:.7f} against the first "
-            f"run's {train[30]['loss']:.7f}: rel {rel:.3e} (tol {RESUME_TOL})")
+def check_resume(label: str, argv: list, run_dir: Path, losses: dict) -> None:
+    """A second main on ``argv``'s run directory, to step 40: it must load
+    the step-20 checkpoint's params bit for bit, log steps 30 and 40, and
+    log step 30's loss within RESUME_TOL of ``losses[30]``, the first run's."""
+    import torch
+
+    from nrhints_torch.__main__ import main as nrhints_main
+    from nrhints_torch.train.trainer import Trainer
+    from nrhints_torch.utils import tree_items
+
+    loaded = {}
+    load = Trainer._load_ckpt
+
+    def spy(self):
+        load(self)
+        loaded["step"] = self.global_step
+        loaded["params"] = {n: t.detach().cpu().clone() for n, t in tree_items(self.state.params)}
+
+    Trainer._load_ckpt = spy
+    try:
+        n_lines = len((run_dir / "metrics.jsonl").read_text().splitlines())
+        t0 = time.perf_counter()
+        nrhints_main(argv + ["--config.model.end-iter", "40"])
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+    finally:
+        Trainer._load_ckpt = load
+    saved = torch.load(run_dir / "ckpt" / "step_0000020" / "state.pt", map_location="cpu", weights_only=True)
+    if loaded.get("step") != 20:
+        raise AssertionError(f"{label}: the second run started at step {loaded.get('step')}, not 20")
+    unequal = [n for n, t in loaded["params"].items() if not torch.equal(t, saved["params"][n])]
+    if unequal or sorted(loaded["params"]) != sorted(saved["params"]):
+        raise AssertionError(f"{label}: resumed params differ from the step-20 checkpoint: {unequal}")
+    again = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()[n_lines:]]
+    again = {r["step"]: r for r in again if "loss" in r}
+    if sorted(again) != [30, 40]:
+        raise AssertionError(f"{label}: the resumed run logged train steps {sorted(again)}, expected [30, 40]")
+    rel = abs(again[30]["loss"] - losses[30]) / abs(losses[30])
+    log(f"[{label}] second main(): resumed at step 20 with the checkpoint's {len(saved['params'])} params "
+        f"bit for bit; ran to 40 in {resume_s:.2f} s; step 30's loss {again[30]['loss']:.7f} against the first "
+        f"run's {losses[30]:.7f}: rel {rel:.3e} (tol {RESUME_TOL})")
+    if not rel <= RESUME_TOL:
+        raise AssertionError(f"{label}: the resumed run's step-30 loss differs: rel {rel:.3e}")
+
+
+def dispatch_entry_phase(smi: str, tmp: Path, eager_run: dict) -> None:
+    """Phase 10(d): phase 9's first main again with
+    ``parallel.steps_per_dispatch=10``: three 10-step graph dispatches (the
+    first one eager, then captured; two replays), the hooks at the same
+    crossings as JAX's trainer (logs at 10, 20 and 30, the checkpoint at
+    20, the video at 30), the two test views registered and scored through
+    their graphs, the launches of phase 9 exactly (a replay counts its
+    capture's launches), each logged loss within RESUME_TOL of phase 9's
+    single-step run (the same batches and jitter), and a resumed run."""
+    import torch
+
+    from nrhints_torch.__main__ import main as nrhints_main
+    from nrhints_torch.kernels import cuda_lib
+
+    steps, k, reg_steps, frames, chunks = 30, 10, 500, 4, 32
+    argv = [str(tmp / "runs_k10") if a == str(tmp / "runs") else a for a in eager_run["argv"]]
+    argv += ["--config.parallel.steps-per-dispatch", str(k)]
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = nrhints_main(argv + ["--config.model.end-iter", str(steps)])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(cuda_lib.launch_counts)
+    views = chunks * (2 + frames)
+    march = steps + 2 * reg_steps + views
+    expected = dict({n: 0 for n in launches}, sdf_stash_fwd=steps + 2 * reg_steps, sdf_stash_bwd=steps + 2 * reg_steps,
+                    mlp_stash_fwd=steps, mlp_stash_bwd=steps, sdf_core_fwd=views, shadow_final=march,
+                    round_machinery=8 * march)
+    log(f"[dispatch 10(d)] main() with steps_per_dispatch={k}: {steps} steps, the video, the mesh and 2 registered "
+        f"test views in {run_s:.2f} s on {smi}; launches {launches}")
+    if launches != expected:
+        raise AssertionError(f"steps_per_dispatch={k}: launch counts {launches}, expected {expected}")
+    if list(trainer._scan_steps) != [(False, k)]:
+        raise AssertionError(f"dispatches built {list(trainer._scan_steps)}, expected [(False, {k})]")
+    run_dir = trainer.log_dir
+    lines = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    train = {r["step"]: r for r in lines if "loss" in r}
+    if sorted(train) != [10, 20, 30] or len([r for r in lines if "val/psnr" in r]) != 1:
+        raise AssertionError(f"steps_per_dispatch={k}: logs at {sorted(train)}, expected [10, 20, 30] and one val")
+    if trainer.ckpt_io.available_steps() != [20]:
+        raise AssertionError(f"checkpoints at {trainer.ckpt_io.available_steps()}, expected [20]")
+    frame_dir = run_dir / "video" / f"step_{steps:07d}"
+    if not all((frame_dir / f"{i:03d}.png").is_file() for i in range(frames)):
+        raise AssertionError("steps_per_dispatch: video frames missing")
+    for s_ in sorted(train):
+        r, ref = train[s_], eager_run["losses"][s_]
+        rel = abs(r["loss"] - ref) / abs(ref)
+        log(f"[dispatch 10(d)] step {s_}: loss {r['loss']:.7f} against phase 9's single-step run's {ref:.7f} (rel "
+            f"{rel:.3e}, tol {RESUME_TOL}); the Trainer's own log: {r['rays_per_sec']:.1f} rays/s, "
+            f"{1.0 / r['steps_per_sec']:.5f} s/step (the 10 steps before it) on {smi}")
         if not rel <= RESUME_TOL:
-            raise AssertionError(f"the resumed run's step-30 loss differs: rel {rel:.3e}")
+            raise AssertionError(f"steps_per_dispatch={k}: step {s_}'s loss differs from the single-step run's")
+    check_resume("dispatch 10(d) resume", argv, run_dir, {s_: r["loss"] for s_, r in train.items()})
 
 
 def main() -> int:
@@ -932,6 +1069,15 @@ def main() -> int:
     log(f"[kernel E] one profiled call, device time: E1 (the chain) {e1_dev:.4f} ms, bound {e1_bound:.4f} ms "
         f"({e1_by}); dW passes {edw_dev:.4f} ms, bound {edw_bound:.4f} ms ({edw_by}, reading the "
         f"{op_bytes / 1e9:.3f} GB of bf16 operands once); other {sum(e_parts.values()) - e1_dev - edw_dev:.4f} ms")
+    # Registration's E: no weight needs a gradient, so no dW pass runs; dx
+    # must be the full backward's bit for bit.
+    e_none, e_dx_only = core_stash.sdf_stash_bwd(aw, x, d_out[3], cots, scfg, need_dw=False)
+    if e_none is not None or not torch.equal(e_dx_only, e_dx):
+        raise AssertionError("kernel E without its dW passes gives another dx than the full backward")
+    e_nodw_parts = profiled_groups(lambda: core_stash.sdf_stash_bwd(aw, x, d_out[3], cots, scfg, need_dw=False))
+    log(f"[kernel E] need_dw=False (registration): dx bit for bit the full backward's; one profiled call, device "
+        f"time {sum(e_nodw_parts.values()):.4f} ms (dW passes {e_nodw_parts.get(DW_GROUP, 0.0):.4f} ms) against "
+        f"{sum(e_parts.values()):.4f} ms with them")
 
     # H: the recompute backward at the same points and cotangents.
     h_dws, h_dx = core_mlp.sdf_core_bwd(aw, x, cots, scfg)
@@ -1083,14 +1229,39 @@ def main() -> int:
         h_indices=hh.float(), w_indices=ww.float(),
         poses=pose.expand(H, W, 4, 4), pls=pl.expand(H, W, 3),
     )
+    def view_through_graph(label: str, ev_) -> tuple:
+        """A view through ``ev_.render_image`` on the card: the first call
+        (the eager sweep, then its capture) and a replay of the view graph,
+        each timed and its launches counted, then the eager sweep
+        (``_render_eager``) timed, and the graph's images held against the
+        eager sweep's bit for bit.  -> (the replay's images, its seconds,
+        the first call's launches)."""
+        times, counts = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            cuda_lib.reset_launch_counts()
+            t0 = time.perf_counter()
+            img_ = ev_.render_image(params, view)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counts.append(dict(cuda_lib.launch_counts))
+        if counts[0] != counts[1]:
+            raise AssertionError(f"{label}: the replay counted {counts[1]} launches, the first view {counts[0]}")
+        t0 = time.perf_counter()
+        eager = ev_._render_eager(params, view)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        graph = ev_._render_graph(params, view)
+        unequal = [k for k in eager if not torch.equal(graph[k], eager[k])]
+        if unequal or sorted(graph) != sorted(eager):
+            raise AssertionError(f"{label}: the view graph's images differ from the eager sweep's on {unequal}")
+        log(f"[{label}] {H}x{W} view through the CUDA graph: {times[1]:.4f} s, {H * W / times[1]:.1f} rays/s; the "
+            f"eager sweep {eager_s:.4f} s, {H * W / eager_s:.1f} rays/s; the first call (eager sweep, then the "
+            f"capture) {times[0]:.4f} s; graph images = eager images bit for bit ({len(eager)} outputs); on {smi}")
+        return img_, times[1], counts[0]
+
     ev = Evaluator(cfg, camera, {}, device="cuda")
-    torch.cuda.synchronize()
-    cuda_lib.reset_launch_counts()
-    t0 = time.perf_counter()
-    img = ev.render_image(params, view)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = dict(cuda_lib.launch_counts)
+    img, secs, launches = view_through_graph("main path", ev)
     n_chunks = -(-H * W // mcfg.inference_chunk_size)
     expected = {k: 0 for k in cuda_lib.launch_counts}
     expected.update(sdf_core_fwd=n_chunks, round_machinery=8 * n_chunks, shadow_final=n_chunks)
@@ -1156,13 +1327,7 @@ def main() -> int:
 
     # 4b. The same view with the fused eval trunk (kernel I, never F).
     ev_p = Evaluator(with_renderer(cfg, eval_reflectance_impl="pallas"), camera, {}, device="cuda")
-    torch.cuda.synchronize()
-    cuda_lib.reset_launch_counts()
-    t0 = time.perf_counter()
-    img_p = ev_p.render_image(params, view)
-    torch.cuda.synchronize()
-    secs_p = time.perf_counter() - t0
-    launches_p = dict(cuda_lib.launch_counts)
+    img_p, secs_p, launches_p = view_through_graph("main path 4b", ev_p)
     expected_p = dict(expected, mlp_fwd=n_chunks)
     log(f"[main path 4b] {H}x{W} view, eval_reflectance_impl='pallas': {secs_p:.4f} s, {H * W / secs_p:.1f} rays/s "
         f"on {smi}; launches {launches_p}")
@@ -1188,13 +1353,7 @@ def main() -> int:
     view_launches, round4_evs = {}, {}
     for name, (kw, counts) in round4.items():
         ev7 = Evaluator(with_renderer(cfg, **kw), camera, {}, device="cuda")
-        torch.cuda.synchronize()
-        cuda_lib.reset_launch_counts()
-        t0 = time.perf_counter()
-        img7 = ev7.render_image(params, view)
-        torch.cuda.synchronize()
-        secs7 = time.perf_counter() - t0
-        launches7 = dict(cuda_lib.launch_counts)
+        img7, secs7, launches7 = view_through_graph(f"round-4 {name}", ev7)
         expected7 = dict({k: 0 for k in cuda_lib.launch_counts}, sdf_core_fwd=n_chunks, **counts)
         log(f"[round-4 {name}] {H}x{W} view {kw}: {secs7:.4f} s, {H * W / secs7:.1f} rays/s on {smi}; launches "
             f"{launches7}")
@@ -1331,8 +1490,145 @@ def main() -> int:
     train_phase("round-4 monolith train path", with_renderer(tcfg, **MONOLITH), ROUND4_STEPS,
                               dict(stash_step, importance_march=1, shadow_march=1))
 
-    # 9. The training entry point, python -m nrhints_torch's main.
-    train_entry_phase(smi, step_secs["train path"])
+    # 10 (a)-(b). K train steps as one CUDA graph against K eager steps.
+    def scan_phase(label: str, scfg_, n_steps: int, per_step: dict) -> None:
+        """From a fresh seed-0 state of ``scfg_`` after TRAIN_WARMUP eager
+        steps, set to step 1000 (the learning rate and cos_anneal_ratio both
+        change every step there): ``n_steps`` eager steps of
+        ``make_train_step`` on ``batches``, then the same steps from the same
+        state, batches and generators through ``make_train_step_scan``: the
+        first call (eager on a side stream, then the capture) and two
+        replays, each timed and its launches counted (``per_step`` each
+        step).  Params, Adam's state and the last metrics against the eager
+        steps'; one profiled replay: device busy and idle share."""
+        from nrhints_torch.train.step import make_train_step_scan, stack_bundles
+
+        tgen = torch.Generator().manual_seed(0)
+        tparams = {"renderer": init_model_params(scfg_.model, tgen, device=dev)}
+        tparams["raygen"], tbuffers = ray_generator_init(tgen, scfg_.ray_generator, n_views, device=dev)
+        opt = make_optimizer(scfg_, tparams)
+        state = init_train_state(tparams, opt)
+        step_fn = make_train_step(scfg_, tcam, tbuffers, opt)
+        warm_gen = torch.Generator(device=dev).manual_seed(0)
+        for b in batches[-TRAIN_WARMUP:]:
+            state, _ = step_fn(state, b, warm_gen)
+        state.step = 1000
+        start = train_snapshot(state)
+        run = batches[:n_steps]
+
+        def gens():
+            return [torch.Generator(device=dev).manual_seed(2000 + i) for i in range(n_steps)]
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b, g in zip(run, gens()):
+            state, m_eager = step_fn(state, b, g)
+        torch.cuda.synchronize()
+        eager_s = (time.perf_counter() - t0) / n_steps
+        eager = train_snapshot(state)
+        scan = make_train_step_scan(scfg_, tcam, tbuffers, opt, n_steps=n_steps)
+        stacked = stack_bundles(run)
+        expected_ = {k: v * n_steps for k, v in dict({k: 0 for k in cuda_lib.launch_counts}, **per_step).items()}
+        secs_, worst = [], (0.0, "")
+        for i in range(3):  # the first call, then two replays
+            train_restore(state, start)
+            torch.cuda.synchronize()
+            cuda_lib.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, m_graph = scan(state, stacked, gens())
+            torch.cuda.synchronize()
+            secs_.append((time.perf_counter() - t0) / n_steps)
+            if dict(cuda_lib.launch_counts) != expected_:
+                raise AssertionError(f"[{label}] dispatch {i}: launches {dict(cuda_lib.launch_counts)}, expected "
+                                     f"{expected_}")
+            err = max(snapshot_err(train_snapshot(state), eager), snapshot_err(m_graph, m_eager))
+            worst = max(worst, err)
+        graph_s = secs_[2]
+        if worst[0] == 0.0:
+            verdict = "bit for bit"
+        elif worst[0] <= 1e-6:
+            verdict = f"within {worst[0]:.3e} of the scale of {worst[1]}"
+        else:
+            raise AssertionError(f"[{label}] the graph's steps differ from the eager steps: {worst[1]} {worst[0]:.3e}")
+        bs = scfg_.model.batch_size
+        log(f"[{label}] {n_steps} steps, core_backward={scfg_.model.renderer.core_backward!r}: eager "
+            f"{eager_s:.5f} s/step ({bs / eager_s:.1f} rays/s); CUDA graph replay {graph_s:.5f} s/step "
+            f"({bs / graph_s:.1f} rays/s; the other replay {secs_[1]:.5f}); the first call (eager, then the "
+            f"capture) {secs_[0]:.5f} s/step; params, Adam's state and the last metrics against the eager steps: "
+            f"{verdict}; launches {n_steps} x {per_step}; loss {float(m_graph['loss']):.6f}; on {smi}")
+        train_restore(state, start)
+        scan(state, stacked, gens())  # the replay before the profile, as the timed ones
+        train_restore(state, start)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            scan(state, stacked, gens())
+            torch.cuda.synchronize()
+        groups = device_groups(prof)
+        busy = sum(groups.values()) / n_steps
+        if busy > 0:
+            log(f"[profile] one {label} dispatch: device busy {busy:.3f} ms a step; idle share "
+                f"{1 - busy / (graph_s * 1e3):.3f} of the unprofiled replay ({graph_s * 1e3:.3f} ms a step); by group "
+                f"(ms a step) " + ", ".join(f"{g} {ms / n_steps:.3f}" for g, ms in
+                                          sorted(groups.items(), key=lambda kv: -kv[1])))
+        else:
+            log(f"[profile] the profiler recorded no device time in the {label} dispatch: not measured")
+
+    scan_phase("graph 10(a)", tcfg, 16, dict(stash_step, round_machinery=8, shadow_final=1))
+    scan_phase("graph 10(b) recompute", with_renderer(tcfg, core_backward="recompute"), 2,
+               dict(sdf_core_fwd=1, sdf_core_bwd=1, mlp_fwd=1, mlp_bwd=1, round_machinery=8, shadow_final=1))
+    scan_phase("graph 10(b) round-4 monolith", with_renderer(tcfg, **MONOLITH), 2,
+               dict(stash_step, importance_march=1, shadow_march=1))
+
+    # 10 (c). A test view's registration through its graph against the
+    # eager loop, from the same generator.
+    tgen = torch.Generator().manual_seed(0)
+    rparams = {"renderer": init_model_params(tcfg.model, tgen, device=dev)}
+    rparams["raygen"], rbuffers = ray_generator_init(tgen, tcfg.ray_generator, n_views, device=dev)
+    rev = Evaluator(tcfg, tcam, rbuffers, device="cuda")
+    test_view = PixelBundle(h_indices=hh.float().to(dev), w_indices=ww.float().to(dev),
+                            poses=poses[0].expand(H, W, 4, 4), pls=pls_v[0].expand(H, W, 3),
+                            img_indices=torch.zeros((H, W), dtype=torch.long, device=dev), rgb_gt=images[0])
+    n_reg = 50
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = rev._register_view_eager(rparams, test_view, steps=n_reg)["raygen"]
+    torch.cuda.synchronize()
+    reg_eager_ms = (time.perf_counter() - t0) * 1e3 / n_reg
+    reg_ms, reg_worst = [], (0.0, "")
+    for i in range(2):  # the first call (one eager step, the capture, replays), then replays only
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = rev.register_view(rparams, test_view, steps=n_reg)["raygen"]
+        torch.cuda.synchronize()
+        reg_ms.append((time.perf_counter() - t0) * 1e3 / n_reg)
+        want = dict({k: 0 for k in cuda_lib.launch_counts}, sdf_stash_fwd=n_reg, sdf_stash_bwd=n_reg,
+                    shadow_final=n_reg, round_machinery=8 * n_reg)
+        if dict(cuda_lib.launch_counts) != want:
+            raise AssertionError(f"registration call {i}: launches {dict(cuda_lib.launch_counts)}, expected {want}")
+        reg_worst = max(reg_worst, snapshot_err(out, ref))
+        if not any(not torch.equal(out[k], rparams["raygen"][k]) for k in out):
+            raise AssertionError("registration moved no raygen leaf")
+    if reg_worst[0] > 1e-6:
+        raise AssertionError(f"the registration graph differs from the eager loop: {reg_worst[1]} {reg_worst[0]:.3e}")
+    reg_verdict = "bit for bit" if reg_worst[0] == 0.0 else f"within {reg_worst[0]:.3e} of {reg_worst[1]}'s scale"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rev.register_view(rparams, test_view, steps=500)
+    torch.cuda.synchronize()
+    reg500_s = time.perf_counter() - t0
+    log(f"[registration 10(c)] {n_reg} steps of a {H}x{W} test view: eager loop {reg_eager_ms:.3f} ms a step; "
+        f"through the graph {reg_ms[1]:.3f} ms a step (the first call, with its eager step and capture, "
+        f"{reg_ms[0]:.3f}); registered raygen leaves against the eager loop's: {reg_verdict}; a full 500-step "
+        f"registration through the graph {reg500_s:.3f} s; on {smi}")
+
+    # 9 and 10 (d). The training entry point, python -m nrhints_torch's main,
+    # one step a dispatch and then ten.
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
+        eager_run = train_entry_phase(smi, step_secs["train path"], Path(tmp))
+        dispatch_entry_phase(smi, Path(tmp), eager_run)
 
     def entry(name, source, replaces, launches_, err, ms, plain_ms, bound_ms, by):
         return {"name": name, "route": "cuda", "source": f"nrhints_torch/csrc/{source}",

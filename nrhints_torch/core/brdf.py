@@ -7,6 +7,8 @@ from typing import Sequence
 
 import torch
 
+from nrhints_torch.utils import device_constant
+
 
 def normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """L2-normalize the last axis, dividing by max(||v||, eps)."""
@@ -28,7 +30,7 @@ def cook_torrance_specular(
     hdv = torch.clamp(torch.sum(half_vecs * view_dirs, dim=-1), 0.0, 1.0)[..., None]
     ndh2 = (ndh**2)[..., None]
 
-    r = torch.tensor(list(roughnesses), dtype=normals.dtype, device=normals.device)
+    r = device_constant(roughnesses, normals.dtype, normals.device)
     k = (r + 1.0) ** 2 / 8.0
     g = (ndv / (ndv * (1.0 - k) + k)) * (ndl / (ndl * (1.0 - k) + k))
     a2 = r * r

@@ -10,6 +10,7 @@ can hand both packages the same numbers) or drawn from a
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 
 def linspace01(n: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
@@ -56,8 +57,27 @@ def perturb_z_vals_within_bins(
     return lower + (upper - lower) * _uniforms(z_vals.shape, z_vals, u, generator)
 
 
+class _PositiveCumprod(torch.autograd.Function):
+    """``torch.cumprod`` over the last axis of factors that are never 0, with
+    the backward PyTorch takes for such factors, reversed_cumsum(out * g) /
+    x, bit for bit.  PyTorch's own backward first asks the host whether any
+    factor is 0, a sync that a CUDA graph cannot capture."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return (out * g).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def transmittance(alpha: torch.Tensor) -> torch.Tensor:
     """T_i = prod_{j<i} (1 - a_j + 1e-7), exclusive (the 1e-7 matches the
-    original cumprod)."""
+    original cumprod); alpha lies in [0, 1], so no factor is 0."""
     shifted = torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha[..., :-1] + 1e-7], dim=-1)
-    return torch.cumprod(shifted, dim=-1)
+    return _PositiveCumprod.apply(shifted)

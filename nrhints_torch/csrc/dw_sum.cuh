@@ -176,10 +176,13 @@ __global__ void colsum_kernel(const float* __restrict__ part, int nrows, int nco
   }
 }
 
-// The three passes on `stream`; returns the first launch error.
+// The three passes on `stream`; returns the first launch error.  split = 0
+// launches none of them: no weight cotangent is wanted (registration's
+// backward through the rays), and part_dw, dw and colsum may be null.
 inline int launch_dw_sums(const bf16* scratch, float* part_dw, float* dw, const DwJobs& jobs, int split,
                           const float* partial, int nblk, int pw, float* colsum, cudaStream_t stream) {
-  if (split < 1) return (int)cudaErrorInvalidValue;
+  if (split < 0) return (int)cudaErrorInvalidValue;
+  if (split == 0) return 0;
   int rc = (int)cudaFuncSetAttribute(dw_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDwSmem);
   if (rc) return rc;
   dw_partial_kernel<<<dim3(jobs.tile_start[jobs.n], split), 256, kDwSmem, stream>>>(scratch, part_dw, jobs, split);

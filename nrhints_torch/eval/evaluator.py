@@ -14,9 +14,20 @@ on the host.
 Adam steps on copies of the ray generator's pose and light deltas only,
 each on ``batch_size`` pixels of the view drawn afresh, through the eval
 render with the L1 loss.  Gradients flow through the rays only: the SDF
-core runs its differentiable stash op (kernels D and E on the card), the
-renderer's parameters are detached and the training optimizer is not
-touched.  Mesh-sharded eval is a later slice.
+core runs its differentiable stash op (kernels D and E on the card, E
+without its weight-gradient passes), the renderer's parameters are
+detached and the training optimizer is not touched.  Mesh-sharded eval is
+a later slice.
+
+On the card both loops are CUDA graphs, as JAX runs each as one jit: a
+view's chunk sweep is captured once per (H, W, bundle path) and replayed
+per view on static copies of the parameters, pose, light and image index;
+registration captures one step (pixel draw, forward, loss, backward,
+Adam) on static copies of the parameters and the view and replays it once
+a step, the pixel draws drawn ahead from the view's generator.  The first
+call of a key runs eagerly and then captures (``graphs.py``).  On the CPU
+both are the eager loops (``_render_eager``, ``_register_view_eager``),
+which stay callable on the card for comparison.
 """
 from __future__ import annotations
 
@@ -25,12 +36,13 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from nrhints_torch import graphs
 from nrhints_torch.camera.model import CameraModel
 from nrhints_torch.configs.config import SystemConfig
 from nrhints_torch.core.structs import PixelBundle
 from nrhints_torch.eval.metrics import lpips, lpips_available, psnr, ssim
 from nrhints_torch.train.step import forward_pipeline
-from nrhints_torch.utils import resolve_device
+from nrhints_torch.utils import resolve_device, tree_items, tree_map
 
 
 def _host(x) -> np.ndarray:
@@ -45,16 +57,73 @@ def register_view_key(pixels: PixelBundle, device="cpu") -> torch.Generator:
     return torch.Generator(device=device).manual_seed(idx)
 
 
+class _ViewGraph:
+    """A captured chunk sweep: static parameters and view inputs, the graph
+    and its outputs."""
+
+    def __init__(self, params, inputs, pool):
+        self.params = tree_map(params, _detached_copy)
+        self.inputs = tree_map(inputs, _detached_copy)
+        self.graph = graphs.Graph(pool)
+        self.out = None
+
+
+class _RegistrationGraph:
+    """A captured registration step: static renderer parameters (detached),
+    raygen leaves and their capturable Adam, the view and one step's pixel
+    draw [2, batch]."""
+
+    def __init__(self, renderer, raygen, image: PixelBundle, lr: float, bs: int, pool):
+        self.renderer = tree_map(renderer, _detached_copy)
+        self.raygen = {k: v.detach().clone().requires_grad_(True) for k, v in raygen.items()}
+        self.opt = _registration_adam(list(self.raygen.values()), lr)
+        self.image = PixelBundle(**{f: None if getattr(image, f) is None else getattr(image, f).clone()
+                                    for f in _BUNDLE_FIELDS})
+        self.draw = torch.empty((2, bs), dtype=torch.long, device=image.h_indices.device)
+        self.graph = graphs.Graph(pool)
+        self.captured = False
+
+    def load(self, renderer, raygen, image: PixelBundle) -> None:
+        """The view's parameters and image into the static tensors, and a
+        fresh Adam (zero moments and step, as a new optimizer starts)."""
+        graphs.copy_tree_(self.renderer, renderer)
+        graphs.copy_tree_(self.raygen, raygen)
+        with torch.no_grad():
+            for f in _BUNDLE_FIELDS:
+                if getattr(image, f) is not None:
+                    getattr(self.image, f).copy_(getattr(image, f))
+            for st in self.opt.state.values():
+                for t in st.values():
+                    t.zero_()
+
+
+_BUNDLE_FIELDS = ("h_indices", "w_indices", "poses", "pls", "img_indices", "rgb_gt")
+
+
+def _registration_adam(leaves, lr: float) -> torch.optim.Adam:
+    """Registration's Adam: capturable on the card, as its graph needs."""
+    cuda = leaves[0].device.type == "cuda"
+    return torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8, capturable=cuda)
+
+
 class Evaluator:
-    def __init__(self, cfg: SystemConfig, camera: CameraModel, buffers: dict, *, device="cuda", mesh=None):
+    def __init__(self, cfg: SystemConfig, camera: CameraModel, buffers: dict, *, device="cuda", mesh=None,
+                 pool=None):
         """``device``: "cuda" (the default) or "cpu"; with no CUDA device
-        the default raises rather than running on the CPU."""
+        the default raises rather than running on the CPU.  ``pool``: a
+        CUDA graph memory pool to share with the caller's graphs (the
+        Trainer's); by default the evaluator's graphs share one of their own."""
         if mesh is not None:
             raise NotImplementedError("mesh-sharded eval is a later slice (parallel/)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.camera = camera
         self.buffers = self._on_device(buffers)
+        if pool is None and self.device.type == "cuda":
+            pool = torch.cuda.graph_pool_handle()
+        self._pool = pool
+        self._view_graphs: dict = {}
+        self._registration_graphs: dict = {}
 
     def _on_device(self, tree):
         if isinstance(tree, dict):
@@ -108,51 +177,96 @@ class Evaluator:
             img_idx = int(ii.flat[0])
         return p[0, 0], l[0, 0], img_idx
 
-    def _view_chunks(self, pose, pl, img_idx, H: int, W: int):
-        """The pixel grid of a full view, built on the device, as chunks."""
-        chunk, n_chunks, total = self._view_chunking(H * W)
-        idx = torch.clamp(torch.arange(total, device=self.device), max=H * W - 1)
-        h, w = (idx // W).float(), (idx % W).float()
-        pose = torch.as_tensor(pose, dtype=torch.float32, device=self.device)
-        pl = torch.as_tensor(pl, dtype=torch.float32, device=self.device)
-        for c in range(n_chunks):
-            s = slice(c * chunk, (c + 1) * chunk)
-            yield PixelBundle(
-                h_indices=h[s], w_indices=w[s],
-                poses=pose.expand(chunk, 4, 4), pls=pl.expand(chunk, 3),
-                img_indices=None if img_idx is None else torch.full((chunk,), img_idx, device=self.device),
-            )
-
-    def _bundle_chunks(self, pixels: PixelBundle, n: int):
-        """Any other bundle: flatten, pad by repeating the last ray, chunk."""
-        chunk, n_chunks, total = self._view_chunking(n)
+    def _view_inputs(self, pixels: PixelBundle, H: int, W: int) -> dict:
+        """The device tensors a view's sweep reads: for a plain full-image
+        view {"pose" [4, 4], "pl" [3], "img" [1] (absent for a view with no
+        image index)}; for any other bundle its fields flattened and padded
+        by repeating the last ray {"bundle": {field: [total, ...]}}."""
+        reg = self._regular_view(pixels, H, W)
+        if reg is not None:
+            pose, pl, img_idx = reg
+            out = {"pose": torch.as_tensor(pose, dtype=torch.float32).to(self.device),
+                   "pl": torch.as_tensor(pl, dtype=torch.float32).to(self.device)}
+            if img_idx is not None:
+                out["img"] = torch.tensor([img_idx], device=self.device)
+            return out
+        n = H * W
+        _, _, total = self._view_chunking(n)
 
         def leaf(x):
-            if x is None:
-                return None
             x = _host(x).reshape((n,) + _host(x).shape[pixels.h_indices.ndim :])
             x = np.concatenate([x, np.repeat(x[-1:], total - n, axis=0)], axis=0)
             return torch.as_tensor(x).to(self.device)
 
-        flat = PixelBundle(
-            h_indices=leaf(pixels.h_indices), w_indices=leaf(pixels.w_indices),
-            poses=leaf(pixels.poses), pls=leaf(pixels.pls), img_indices=leaf(pixels.img_indices),
-        )
+        return {"bundle": {f: leaf(getattr(pixels, f)) for f in _BUNDLE_FIELDS[:5]
+                           if getattr(pixels, f) is not None}}
+
+    def _chunks(self, inputs: dict, H: int, W: int):
+        """The sweep's chunks of ``_view_inputs``: a full view's pixel grid
+        is built on the device, its padded tail clamped to the last pixel;
+        a bundle is cut into chunks."""
+        chunk, n_chunks, total = self._view_chunking(H * W)
+        if "bundle" in inputs:
+            flat = PixelBundle(**{f: inputs["bundle"].get(f) for f in _BUNDLE_FIELDS[:5]})
+            for c in range(n_chunks):
+                yield flat[c * chunk : (c + 1) * chunk]
+            return
+        idx = torch.clamp(torch.arange(total, device=self.device), max=H * W - 1)
+        h, w = (idx // W).float(), (idx % W).float()
+        img = inputs.get("img")
         for c in range(n_chunks):
-            yield flat[c * chunk : (c + 1) * chunk]
+            s = slice(c * chunk, (c + 1) * chunk)
+            yield PixelBundle(
+                h_indices=h[s], w_indices=w[s],
+                poses=inputs["pose"].expand(chunk, 4, 4), pls=inputs["pl"].expand(chunk, 3),
+                img_indices=None if img is None else img.expand(chunk),
+            )
+
+    def _sweep(self, params, inputs: dict, H: int, W: int) -> Dict[str, torch.Tensor]:
+        """Every chunk of a view -> {name: [total, C]} on the device."""
+        parts = [self._render_chunk(params, c) for c in self._chunks(inputs, H, W)]
+        return {k: torch.cat([p[k] for p in parts], dim=0) for k in parts[0]}
+
+    @torch.no_grad()
+    def _render_eager(self, params, pixels: PixelBundle) -> Dict[str, torch.Tensor]:
+        """The eager chunk sweep of a [H, W] view -> {name: [total, C]} on
+        the device (the CPU's path; on the card the reference of the view
+        graph)."""
+        H, W = pixels.h_indices.shape[:2]
+        return self._sweep(self._on_device(params), self._view_inputs(pixels, H, W), H, W)
+
+    @torch.no_grad()
+    def _render_graph(self, params, pixels: PixelBundle) -> Dict[str, torch.Tensor]:
+        """The chunk sweep as a CUDA graph, keyed by (H, W, the bundle path
+        and its fields, the parameter tree): static copies of the
+        parameters and the view's inputs filled, then one replay; outputs
+        cloned, so the next replay cannot overwrite them before they are
+        read."""
+        H, W = pixels.h_indices.shape[:2]
+        params = self._on_device(params)
+        inputs = self._view_inputs(pixels, H, W)
+        key = (H, W, tuple(n for n, _ in tree_items(inputs)), tuple(n for n, _ in tree_items(params)))
+        vg = self._view_graphs.get(key)
+        if vg is None:
+            vg = _ViewGraph(params, inputs, self._pool)
+            res = graphs.warm_up(lambda: self._sweep(vg.params, vg.inputs, H, W))
+            vg.out = vg.graph.capture(lambda: self._sweep(vg.params, vg.inputs, H, W))
+            self._view_graphs[key] = vg
+            return res
+        graphs.copy_tree_(vg.params, params)
+        graphs.copy_tree_(vg.inputs, inputs)
+        vg.graph.replay()
+        return {k: v.clone() for k, v in vg.out.items()}
 
     @torch.no_grad()
     def render_image_async(self, params, pixels: PixelBundle) -> Callable[[], Dict[str, np.ndarray]]:
-        """Queue a [H, W] render on the device; return ``finalize()`` ->
-        host dict of [H, W, C] images.  Queueing view k+1 before finalizing
-        view k overlaps k's copy to the host with k+1's render."""
+        """Queue a [H, W] render on the device (a CUDA graph replay on the
+        card, the eager sweep on the CPU); return ``finalize()`` -> host dict
+        of [H, W, C] images.  Queueing view k+1 before finalizing view k
+        overlaps k's copy to the host with k+1's render."""
         H, W = pixels.h_indices.shape[:2]
         n = H * W
-        params = self._on_device(params)
-        reg = self._regular_view(pixels, H, W)
-        chunks = self._view_chunks(*reg, H, W) if reg is not None else self._bundle_chunks(pixels, n)
-        parts = [self._render_chunk(params, c) for c in chunks]
-        res = {k: torch.cat([p[k] for p in parts], dim=0) for k in parts[0]}
+        res = self._render_eager(params, pixels) if self.device.type == "cpu" else self._render_graph(params, pixels)
         pose_rot = _host(pixels.poses)[0, 0, :3, :3]
 
         def finalize() -> Dict[str, np.ndarray]:
@@ -207,37 +321,88 @@ class Evaluator:
         """``steps`` Adam steps (lr ``ray_generator.opt_lr``) on copies of
         the raygen leaves -> {"renderer": the same renderer params, "raygen":
         the registered leaves}.  ``pixel_draws`` ([(rows, cols)] a step)
-        replaces the draws of ``register_view_key``."""
+        replaces the draws of ``register_view_key``.  On the card one
+        captured step is replayed ``steps`` times; on the CPU the eager
+        loop runs."""
         if not params["raygen"]:
             return params
-        cfg, dev = self.cfg, self.device
-        renderer = _tree_map(self._on_device(params["renderer"]), torch.Tensor.detach)
+        if self.device.type == "cpu":
+            return self._register_view_eager(params, pixels, steps, pixel_draws)
+        image = pixels.to(self.device)
+        H, W = image.h_indices.shape[:2]
+        draws = self._registration_draws(pixels, H, W, steps, pixel_draws)
+        renderer = self._on_device(params["renderer"])
+        raygen = self._on_device(params["raygen"])
+        key = (H, W, tuple(f for f in _BUNDLE_FIELDS if getattr(image, f) is not None),
+               tuple(n for n, _ in tree_items(renderer)), tuple(n for n, _ in tree_items(raygen)))
+        rg = self._registration_graphs.get(key)
+        if rg is None:
+            rg = _RegistrationGraph(renderer, raygen, image, self.cfg.ray_generator.opt_lr, self.cfg.model.batch_size,
+                                    self._pool)
+            self._registration_graphs[key] = rg
+        else:
+            rg.load(renderer, raygen, image)
+
+        def step():
+            self._registration_step(rg.renderer, rg.raygen, rg.opt, rg.image, rg.draw[0], rg.draw[1])
+
+        for i in range(steps):
+            rg.draw.copy_(draws[i])
+            if rg.captured:
+                rg.graph.replay()
+            else:
+                graphs.warm_up(step)  # the first step, run eagerly: kernels, handles, Adam's state
+                rg.opt.zero_grad(set_to_none=True)
+                rg.graph.capture(step)
+                rg.captured = True
+        return {"renderer": params["renderer"], "raygen": {k: v.detach().clone() for k, v in rg.raygen.items()}}
+
+    def _registration_draws(self, pixels: PixelBundle, H: int, W: int, steps: int, pixel_draws=None) -> torch.Tensor:
+        """Every step's pixel draw -> int64 [steps, 2, batch] on the device:
+        from ``register_view_key``'s generator, rows then columns a step, in
+        the eager loop's order, or the given ``pixel_draws``."""
+        dev, bs = self.device, self.cfg.model.batch_size
+        if pixel_draws is not None:
+            draws = [torch.stack([torch.as_tensor(a).long() for a in d]) for d in pixel_draws[:steps]]
+            return torch.stack(draws).to(dev)
+        gen = register_view_key(pixels, dev)
+        return torch.stack([torch.stack([torch.randint(0, H, (bs,), generator=gen, device=dev),
+                                         torch.randint(0, W, (bs,), generator=gen, device=dev)])
+                            for _ in range(steps)])
+
+    def _registration_step(self, renderer, raygen, opt, image: PixelBundle, h_idx, w_idx) -> None:
+        """One registration step in place: the batch at (h_idx, w_idx) of the
+        view, the eval render, the L1 loss, its backward through the rays
+        and Adam's update of the raygen leaves."""
+        batch = image[h_idx, w_idx]
+        out = forward_pipeline(
+            {"renderer": renderer, "raygen": raygen}, self.buffers, self.cfg, self.camera, batch,
+            is_training=False, geometry_warmup=False, cos_anneal_ratio=1.0,
+        )
+        loss = torch.sum(torch.abs(out.rgb - batch.rgb_gt)) / (self.cfg.model.batch_size + 1e-5)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+
+    def _register_view_eager(self, params, pixels: PixelBundle, steps: int = 500,
+                             pixel_draws: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None) -> dict:
+        """``register_view`` as an eager loop of ``_registration_step`` (the
+        CPU's path; on the card the reference of the registration graph,
+        with the same capturable Adam)."""
+        if not params["raygen"]:
+            return params
+        dev = self.device
+        renderer = tree_map(self._on_device(params["renderer"]), torch.Tensor.detach)
         raygen = {k: torch.as_tensor(v).detach().to(dev).clone().requires_grad_(True)
                   for k, v in params["raygen"].items()}
-        opt = torch.optim.Adam(list(raygen.values()), lr=cfg.ray_generator.opt_lr, betas=(0.9, 0.999), eps=1e-8)
+        opt = _registration_adam(list(raygen.values()), self.cfg.ray_generator.opt_lr)
         image = pixels.to(dev)
         H, W = image.h_indices.shape[:2]
-        bs = cfg.model.batch_size
-        gen = register_view_key(pixels, dev) if pixel_draws is None else None
+        draws = self._registration_draws(pixels, H, W, steps, pixel_draws)
         for i in range(steps):
-            if pixel_draws is None:
-                h_idx = torch.randint(0, H, (bs,), generator=gen, device=dev)
-                w_idx = torch.randint(0, W, (bs,), generator=gen, device=dev)
-            else:
-                h_idx, w_idx = (torch.as_tensor(a, device=dev).long() for a in pixel_draws[i])
-            batch = image[h_idx, w_idx]
-            out = forward_pipeline(
-                {"renderer": renderer, "raygen": raygen}, self.buffers, cfg, self.camera, batch,
-                is_training=False, geometry_warmup=False, cos_anneal_ratio=1.0,
-            )
-            loss = torch.sum(torch.abs(out.rgb - batch.rgb_gt)) / (bs + 1e-5)
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            opt.step()
+            self._registration_step(renderer, raygen, opt, image, draws[i, 0], draws[i, 1])
         return {"renderer": params["renderer"], "raygen": {k: v.detach() for k, v in raygen.items()}}
 
 
-def _tree_map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _tree_map(v, fn) for k, v in tree.items()}
-    return fn(tree)
+def _detached_copy(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().clone()

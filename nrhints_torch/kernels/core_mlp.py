@@ -365,7 +365,8 @@ def sdf_core_fwd(
     return sdf, feat, gx
 
 
-def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, stash: torch.Tensor | None = None):
+def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, stash: torch.Tensor | None = None,
+                   need_dw: bool = True):
     """The SDF core's backward on the card -> (dws, dx) with the shapes of
     ``sdf_core_bwd_plain``'s: kernel E at the bf16 ``stash`` of kernel D, or,
     with ``stash=None``, kernel H, which first recomputes the layers into a
@@ -375,7 +376,8 @@ def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, 
     and the encoding cotangents in an f32 scratch of ``chain_layout``'s
     size, freed when this returns), the split-K dW products and the
     in-order sums of the partials (no atomics: the gradients repeat bit for
-    bit)."""
+    bit).  ``need_dw=False`` launches the chain alone -> (None, dx): no dW
+    pass runs, and dx is the same bit for bit."""
     ds, df, dgx = cots
     n, dev = x.shape[0], x.device
     pk = pack_sdf_mlp(weights, cfg, with_feat=True) if pk is None else pk
@@ -390,18 +392,18 @@ def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, 
     nblk, npad, n_chain = chain_layout(n, gt)
     layers = [tuple(int(v) for v in meta[10 + 7 * i : 17 + 7 * i]) for i in range(L)]
     jobs, n_scratch, n_dw = dw_jobs([(2 * npad, lay[2], lay[3]) for lay in layers] + [(npad, kpf, npf)])
-    split = dw_split(npad)
+    split = dw_split(npad) if need_dw else 0
     pw = gt + npf + 1 + 2 * kpf
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty((n, 3), **f32)
     scratch = torch.empty(n_scratch, dtype=torch.bfloat16, device=dev)
     chain = torch.empty(n_chain, **f32)
     partial = torch.empty((nblk, pw), **f32)
-    colsum = torch.empty(pw, **f32)
-    part_dw = torch.empty((split, n_dw), **f32)
-    dw = torch.empty(n_dw, **f32)
-    tail = (dx.data_ptr(), scratch.data_ptr(), chain.data_ptr(), partial.data_ptr(), colsum.data_ptr(),
-            part_dw.data_ptr(), dw.data_ptr(), jobs.ctypes.data, len(jobs), split, n, meta.ctypes.data,
+    colsum, part_dw, dw = (torch.empty(pw, **f32), torch.empty((split, n_dw), **f32),
+                           torch.empty(n_dw, **f32)) if need_dw else (None, None, None)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    tail = (dx.data_ptr(), scratch.data_ptr(), chain.data_ptr(), partial.data_ptr(), ptr(colsum),
+            ptr(part_dw), ptr(dw), jobs.ctypes.data, len(jobs), split, n, meta.ctypes.data,
             float(cfg.scale), cuda_lib.stream_ptr(dev))
     if n > 0 and stash is None:
         hs = torch.empty((n, gt), dtype=torch.bfloat16, device=dev)
@@ -417,9 +419,11 @@ def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, 
             x.data_ptr(), stash.data_ptr(), ds.data_ptr(), df.data_ptr(), dgx.data_ptr(), pk["wpack"].data_ptr(),
             pk["w_sdf"].data_ptr(), *tail,
         )
-    else:
+    elif need_dw:
         colsum.zero_()
         dw.zero_()
+    if not need_dw:
+        return None, dx
     dws = []
     for i, (din, dout, kp, np_, _skip, _w, b_off) in enumerate(layers):
         c_off = int(jobs[i, 5])

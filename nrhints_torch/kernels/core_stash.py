@@ -74,12 +74,14 @@ def sdf_core_fwd_hs_plain(weights, x, cfg: SDFNetConfig, compute_dtype="float32"
     return sdf, feat, gx, [h.to(_DTYPES[stash_dtype]) for h in hs]
 
 
-def sdf_core_bwd_stash_plain(weights, x, hs, cots, cfg: SDFNetConfig, compute_dtype="float32"):
+def sdf_core_bwd_stash_plain(weights, x, hs, cots, cfg: SDFNetConfig, compute_dtype="float32", need_dw=True):
     """Backward at the stashed hs -> (dws, dx), in kernel E's order: the
     reverse sweep's u_i and g_enc recomputed from hs, then the hand VJPs of
     ``sdf_core_bwd_stash_all_ref`` (Tail, the sweep in ascending order,
     Heads, the forward z-chain, the encoding).  ``cots`` = (d sdf [N],
-    d feat [N, F], d grad [N, 3]); ``dws`` has the shapes of ``weights``."""
+    d feat [N, F], d grad [N, 3]); ``dws`` has the shapes of ``weights``.
+    ``need_dw=False`` computes no weight cotangent -> (None, dx), dx the
+    same bit for bit (kernel E's chain without its dW passes)."""
     cd = compute_dtype
     ds, df, dgx = cots
     L, F, d_in, scale = cfg.n_layers, cfg.multi_res, cfg.d_in, cfg.scale
@@ -108,7 +110,8 @@ def sdf_core_bwd_stash_plain(weights, x, hs, cots, cfg: SDFNetConfig, compute_dt
     carry = d_genc
     for i in range(L):
         v_r = torch.cat([carry, d_genc], dim=-1) * INV_SQRT2 if i in cfg.skip_in else carry
-        dw_rev[i] = dot(v_r.t(), us[i] * gates[i], cd)
+        if need_dw:
+            dw_rev[i] = dot(v_r.t(), us[i] * gates[i], cd)
         dt = dot(v_r, weights[2 * i], cd)
         dhs_r[i] = dt * us[i] * (100.0 * (1.0 - gates[i]))
         carry = dt * gates[i]
@@ -117,10 +120,11 @@ def sdf_core_bwd_stash_plain(weights, x, hs, cots, cfg: SDFNetConfig, compute_dt
     h_L = hs[L - 1]
     ds_s = ds.reshape(-1, 1) / scale
     dws = [None] * len(weights)
-    dws[L2] = (torch.sum(carry, dim=0) / scale)[:, None] + dot(h_L.t(), ds_s, cd)
-    dws[L2 + 1] = torch.sum(ds_s, dim=0)
-    dws[L2 + 2] = dot(h_L.t(), df, cd)
-    dws[L2 + 3] = torch.sum(df, dim=0)
+    if need_dw:
+        dws[L2] = (torch.sum(carry, dim=0) / scale)[:, None] + dot(h_L.t(), ds_s, cd)
+        dws[L2 + 1] = torch.sum(ds_s, dim=0)
+        dws[L2 + 2] = dot(h_L.t(), df, cd)
+        dws[L2 + 3] = torch.sum(df, dim=0)
     G = dot(ds_s, weights[L2].t(), cd) + dot(df, weights[L2 + 2].t(), cd) + dhs_r[L - 1]
 
     # 4) The forward z-chain, descending.
@@ -128,12 +132,13 @@ def sdf_core_bwd_stash_plain(weights, x, hs, cots, cfg: SDFNetConfig, compute_dt
     gprev = None
     for i in reversed(range(L)):
         Gz = G * gates[i]
-        if i in cfg.skip_in:
-            inp = torch.cat([hs[i - 1], enc], dim=-1) * INV_SQRT2
-        else:
-            inp = enc if i == 0 else hs[i - 1]
-        dws[2 * i] = dw_rev[i] + dot(inp.t(), Gz, cd)
-        dws[2 * i + 1] = torch.sum(Gz, dim=0)
+        if need_dw:
+            if i in cfg.skip_in:
+                inp = torch.cat([hs[i - 1], enc], dim=-1) * INV_SQRT2
+            else:
+                inp = enc if i == 0 else hs[i - 1]
+            dws[2 * i] = dw_rev[i] + dot(inp.t(), Gz, cd)
+            dws[2 * i + 1] = torch.sum(Gz, dim=0)
         gprev = dot(Gz, weights[2 * i].t(), cd)
         if i in cfg.skip_in:
             gprev = gprev * INV_SQRT2
@@ -149,7 +154,7 @@ def sdf_core_bwd_stash_plain(weights, x, hs, cots, cfg: SDFNetConfig, compute_dt
     e_cos = d_enc[:, d_in + d_in * F :] + d_cos_t
     dS = e_sin * cos_b - e_cos * sin_b
     dx = (d_enc[:, :d_in] + per_dim_sum(dS, d_in, F)) * scale
-    return tuple(dws), dx
+    return (tuple(dws) if need_dw else None), dx
 
 
 def mlp_relu_fwd_zs_plain(weights, x, n_layers: int, compute_dtype="float32", stash_dtype="float32"):
@@ -215,11 +220,12 @@ def sdf_stash_fwd(weights: Sequence[torch.Tensor], x: torch.Tensor, cfg: SDFNetC
     return sdf, feat, gx, stash
 
 
-def sdf_stash_bwd(weights, x, stash, cots, cfg: SDFNetConfig, pk: dict | None = None):
+def sdf_stash_bwd(weights, x, stash, cots, cfg: SDFNetConfig, pk: dict | None = None, need_dw: bool = True):
     """Kernel E on the card -> (dws, dx) with the shapes of
     ``sdf_core_bwd_stash_plain``'s, at kernel D's stash
-    (``core_mlp.sdf_bwd_launch``)."""
-    return sdf_bwd_launch(weights, x, cots, cfg, pk, stash=stash)
+    (``core_mlp.sdf_bwd_launch``); ``need_dw=False`` -> (None, dx) without
+    the dW passes."""
+    return sdf_bwd_launch(weights, x, cots, cfg, pk, stash=stash, need_dw=need_dw)
 
 
 # ---------------------------------------------------------------------------
@@ -273,7 +279,9 @@ class SdfStashFn(torch.autograd.Function):
     E's plain version on the card's tensors), the plain versions on CPU
     tensors.  The backward is the full first-order VJP of all three
     outputs; the eikonal loss's second-order terms are inside it, so nothing
-    differentiates through it again."""
+    differentiates through it again.  Where no weight needs a gradient
+    (registration differentiates the rays alone, as JAX's does), it computes
+    dx only: kernel E without its dW passes."""
 
     @staticmethod
     def forward(ctx, cfg, compute_dtype, stash_dtype, bwd_impl, x, *weights):
@@ -301,14 +309,15 @@ class SdfStashFn(torch.autograd.Function):
             cotangent(d_feat, (n, ctx.cfg.d_out_feat), x.device),
             cotangent(d_gx, (n, 3), x.device),
         )
+        need_dw = any(ctx.needs_input_grad[5:])
         if x.device.type == "cpu":
-            dws, dx = sdf_core_bwd_stash_plain(weights, x, hs, cots, ctx.cfg, ctx.compute_dtype)
+            dws, dx = sdf_core_bwd_stash_plain(weights, x, hs, cots, ctx.cfg, ctx.compute_dtype, need_dw)
         elif ctx.bwd_impl == "xla":
             hs = split_stash(hs[0], sdf_stash_columns(ctx.cfg))
-            dws, dx = sdf_core_bwd_stash_plain(weights, x, hs, cots, ctx.cfg, ctx.compute_dtype)
+            dws, dx = sdf_core_bwd_stash_plain(weights, x, hs, cots, ctx.cfg, ctx.compute_dtype, need_dw)
         else:
-            dws, dx = sdf_stash_bwd(weights, x, hs[0], cots, ctx.cfg, ctx.pk)
-        return (None, None, None, None, dx, *dws)
+            dws, dx = sdf_stash_bwd(weights, x, hs[0], cots, ctx.cfg, ctx.pk, need_dw)
+        return (None, None, None, None, dx, *(dws or [None] * ctx.n_w))
 
 
 class MlpStashFn(torch.autograd.Function):

@@ -224,15 +224,30 @@ def _shadow_transmittance(params, cfg: ModelConfig, pls, target_points, cos_anne
     # The monolith (shadow_split=False) has no sweep / final / rounds halves:
     # the impl knobs apply to the split march only (JAX renderer.py:512-532).
     s = rcfg.shadow_split
+    if not isinstance(cos_anneal_ratio, torch.Tensor):  # a fill, not a host copy: graph-safe
+        cos_anneal_ratio = torch.full((), cos_anneal_ratio, dtype=torch.float32, device=d.device)
     return fused_shadow_tau(
         params["sdf"], cfg.sdf_network, pls.contiguous(), ray_d, z_vals, sample_dist,
-        inv_s_from_params(params["variance"]),
-        torch.as_tensor(cos_anneal_ratio, dtype=torch.float32, device=d.device),
+        inv_s_from_params(params["variance"]), cos_anneal_ratio,
         mlp_dtype=rcfg.march_dtype, split=s, merge=rcfg.march_merge,
         sweep_impl=rcfg.march_sweep_impl if s else "pallas",
         final_impl=rcfg.shadow_final_impl if s else "pallas",
         rounds_impl=rcfg.march_rounds_impl if s else "pallas",
     )
+
+
+def train_uniforms(cfg: ModelConfig, n_rays: int, generator: torch.Generator | None, device, *,
+                   geometry_warmup: bool = False) -> dict:
+    """The uniforms of a training render's jitter, drawn from ``generator``
+    on ``device`` in the order ``render_rays`` uses them: {"strat": [B, 1]}
+    and, where the shadow hint is marched (not in geometry warm-up),
+    {"shadow": [B, n_shadow_samples]}.  A CUDA graph of train steps draws
+    them outside the graph with this function, so a replay sees the draws
+    the eager step makes."""
+    out = {"strat": torch.rand((n_rays, 1), generator=generator, device=device)}
+    if cfg.has_shadow_hint and not geometry_warmup:
+        out["shadow"] = torch.rand((n_rays, cfg.renderer.n_shadow_samples), generator=generator, device=device)
+    return out
 
 
 def render_rays(
@@ -253,16 +268,18 @@ def render_rays(
     ``is_training`` jitters the stratified samples (one offset per ray) and
     the shadow samples (one per sample); the uniforms come from
     ``uniforms`` ({"strat": [B, 1], "shadow": [B, n_shadow_samples]}) when
-    given, else from ``generator``.  The outputs carry gradients wherever
+    given, else from ``generator`` (``train_uniforms``).  The outputs carry gradients wherever
     the JAX package's do: the marches, the depth and the hints are cut.
     ``geometry_warmup`` zeroes both hints."""
     check_ported(cfg, is_training=is_training, geometry_warmup=geometry_warmup, mesh=mesh)
     if is_training and generator is None and uniforms is None:
         raise ValueError("render_rays(is_training=True) needs a generator or uniforms for its jitter")
-    uniforms = uniforms or {}
     rcfg = cfg.renderer
     rays_o, rays_d, rays_pl = rays.origins, rays.directions, rays.pl_positions
     batch = rays_o.shape[0]
+    if is_training and uniforms is None:
+        uniforms = train_uniforms(cfg, batch, generator, rays_o.device, geometry_warmup=geometry_warmup)
+    uniforms = uniforms or {}
     sample_dist = 2.0 / rcfg.n_samples
 
     z_vals = stratified_z_vals(

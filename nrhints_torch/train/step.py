@@ -16,25 +16,36 @@ backward) or "stash_xla" (D and F, then the stash backward as full-batch
 PyTorch).
 
 The JAX step is one jitted function of an immutable state; here the step
-runs eagerly and updates the state's parameters and optimizer in place
-(``torch.optim.Adam``; optax's Adam computes the same update).  The random
-key becomes a ``torch.Generator`` on the step's device; explicit uniforms
-may replace it (``render_rays``).  Several steps per dispatch (a CUDA
-graph) are a later slice.
+updates the state's parameters and optimizer in place (``torch.optim.Adam``;
+optax's Adam computes the same update).  The random key becomes a
+``torch.Generator`` on the step's device; explicit uniforms may replace it
+(``render_rays``).
+
+One step body serves the eager step and the CUDA graph of
+``make_train_step_scan``: every value that changes from step to step
+reaches it as a device tensor (the batch, the jitter uniforms,
+cos_anneal_ratio, each group's learning rate), and on the card the
+optimizer is ``Adam(capturable=True)`` with a 0-d tensor ``lr`` per group
+and its step count on the device.  On the CPU the optimizer keeps float
+learning rates.  ``make_train_step_scan`` runs K steps as one graph replay
+on the card (the JAX package's ``lax.scan``) and as K eager steps on the
+CPU.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, Sequence
 
 import torch
 
+from nrhints_torch import graphs
 from nrhints_torch.camera.model import CameraModel
 from nrhints_torch.camera.rays import generate_rays
 from nrhints_torch.configs.config import SystemConfig
 from nrhints_torch.core.structs import PixelBundle, RenderOutput
-from nrhints_torch.render.renderer import render_rays
+from nrhints_torch.render.renderer import render_rays, train_uniforms
 from nrhints_torch.utils import tree_leaves
 
 
@@ -68,15 +79,45 @@ def make_optimizer(cfg: SystemConfig, params: dict, lr_scale: float = 1.0) -> to
     """Two Adam groups over the {renderer, raygen} parameter tree; each group
     keeps its base rate as ``base_lr``, and the train step sets ``lr`` =
     base_lr * the schedule's factor before every update.  The leaves are
-    made to require gradients."""
-    groups = []
+    made to require gradients.  On the card the optimizer is capturable
+    and each group's ``lr`` a 0-d tensor on the card (``set_lr``)."""
+    groups, dev = [], None
     for name, base in (("renderer", cfg.model.lr), ("raygen", cfg.ray_generator.opt_lr)):
         leaves = tree_leaves(params[name])
         for t in leaves:
             t.requires_grad_(True)
         if leaves:
+            dev = leaves[0].device
             groups.append({"params": leaves, "name": name, "base_lr": lr_scale * base, "lr": lr_scale * base})
-    return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+    if dev is None or dev.type == "cpu":
+        return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+    for g in groups:
+        g["lr"] = torch.tensor(g["lr"], dtype=torch.float32, device=dev)
+    return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8, capturable=True)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, values) -> None:
+    """Each group's learning rate for the next update: a float, or a 0-d
+    tensor on the card, copied into the group's tensor ``lr`` where it has
+    one (so a CUDA graph that captured the update reads it)."""
+    for g, v in zip(optimizer.param_groups, values):
+        if isinstance(g["lr"], torch.Tensor):
+            if isinstance(v, torch.Tensor):
+                g["lr"].copy_(v)
+            else:
+                g["lr"].fill_(v)
+        else:
+            g["lr"] = v
+
+
+def step_scalars(cfg: SystemConfig, optimizer: torch.optim.Optimizer, step: int) -> tuple[float, list[float]]:
+    """(cos_anneal_ratio, each group's learning rate) of train step
+    ``step``: min(1, step / anneal_end), and base_lr times the warm-up-then-
+    cosine factor."""
+    m = cfg.model
+    cos = min(1.0, step / m.anneal_end) if m.anneal_end > 0 else 1.0
+    f = lr_factor_schedule(m.warm_up_end, m.end_iter, m.lr_alpha)(step)
+    return cos, [g["base_lr"] * f for g in optimizer.param_groups]
 
 
 @dataclass
@@ -144,12 +185,14 @@ def forward_pipeline(
 
 def loss_and_grads(state: TrainState, cfg: SystemConfig, camera: CameraModel, buffers: dict, batch: PixelBundle,
                    generator: torch.Generator | None = None, *, geometry_warmup: bool = False,
-                   uniforms: dict | None = None) -> dict:
+                   uniforms: dict | None = None, cos_anneal_ratio: torch.Tensor | None = None) -> dict:
     """One forward and backward at ``state``: fills every leaf's ``.grad``
     (zeros for a leaf the loss does not reach, as JAX's grad gives) and
-    returns the detached metrics."""
-    anneal_end = cfg.model.anneal_end
-    cos_anneal_ratio = min(1.0, state.step / anneal_end) if anneal_end > 0 else 1.0
+    returns the detached metrics.  ``cos_anneal_ratio``: a 0-d tensor on
+    the step's device; by default ``step_scalars``' value at ``state.step``."""
+    if cos_anneal_ratio is None:
+        cos = step_scalars(cfg, state.optimizer, state.step)[0]
+        cos_anneal_ratio = torch.full((), cos, device=batch.h_indices.device)
     state.optimizer.zero_grad(set_to_none=True)
     out = forward_pipeline(
         state.params, buffers, cfg, camera, batch, generator, is_training=True, geometry_warmup=geometry_warmup,
@@ -164,6 +207,18 @@ def loss_and_grads(state: TrainState, cfg: SystemConfig, camera: CameraModel, bu
     return {k: v.detach() for k, v in metrics.items()}
 
 
+def _step_body(state: TrainState, cfg: SystemConfig, camera: CameraModel, buffers: dict, batch: PixelBundle,
+               generator, uniforms, cos_anneal_ratio: torch.Tensor, lrs, *, geometry_warmup: bool) -> dict:
+    """One train step in place: forward, backward, the learning rates
+    ``lrs`` set, Adam's update.  The eager step and every step of a captured
+    K-step graph run this."""
+    metrics = loss_and_grads(state, cfg, camera, buffers, batch, generator, geometry_warmup=geometry_warmup,
+                             uniforms=uniforms, cos_anneal_ratio=cos_anneal_ratio)
+    set_lr(state.optimizer, lrs)
+    state.optimizer.step()
+    return metrics
+
+
 def make_train_step(
     cfg: SystemConfig,
     camera: CameraModel,
@@ -176,29 +231,133 @@ def make_train_step(
     """-> ``step_fn(state, batch, generator, uniforms=None) -> (state,
     metrics)`` for one phase (``geometry_warmup`` or not).  The step updates
     ``state`` in place and returns it; the metrics are detached 0-d tensors
-    (reading them waits for the device)."""
+    (reading them waits for the device).  ``parallel.steps_per_dispatch``
+    is the Trainer's choice, as in JAX; this step is always one step."""
     if mesh is not None:
         raise NotImplementedError("mesh sharding: the data-parallel step is a later slice")
-    if cfg.parallel.steps_per_dispatch > 1:
-        raise NotImplementedError("steps_per_dispatch > 1: several steps per dispatch (a CUDA graph) are a later slice")
-    factor = lr_factor_schedule(cfg.model.warm_up_end, cfg.model.end_iter, cfg.model.lr_alpha)
 
     def step_fn(state: TrainState, batch: PixelBundle, generator: torch.Generator | None = None,
                 uniforms: dict | None = None):
         if state.optimizer is not optimizer:
             raise ValueError("the state's optimizer is not the one this step was made with")
-        metrics = loss_and_grads(state, cfg, camera, buffers, batch, generator, geometry_warmup=geometry_warmup,
-                                 uniforms=uniforms)
-        f = factor(state.step)
-        for group in optimizer.param_groups:
-            group["lr"] = group["base_lr"] * f
-        optimizer.step()
+        cos, lrs = step_scalars(cfg, optimizer, state.step)
+        cos_t = torch.full((), cos, device=batch.h_indices.device)
+        metrics = _step_body(state, cfg, camera, buffers, batch, generator, uniforms, cos_t, lrs,
+                             geometry_warmup=geometry_warmup)
         state.step += 1
         return state, metrics
 
     return step_fn
 
 
-def make_train_step_scan(*args, **kwargs):
-    """Several steps in one dispatch: a CUDA graph in a later slice."""
-    raise NotImplementedError("make_train_step_scan: several steps per dispatch (a CUDA graph) are a later slice")
+def stack_bundles(batches) -> PixelBundle:
+    """K flat PixelBundles -> one with a leading [K] axis on every field."""
+    return PixelBundle(**{f.name: None if getattr(batches[0], f.name) is None
+                          else torch.stack([getattr(b, f.name) for b in batches])
+                          for f in dataclasses.fields(PixelBundle)})
+
+
+class _ScanGraph:
+    """The static inputs of a captured K-step dispatch (the stacked batch,
+    each step's uniforms, cos_anneal_ratio and learning rates), its graph
+    and its last step's metrics."""
+
+    def __init__(self, batches: PixelBundle, uniforms: list, n_groups: int, pool):
+        k, dev = batches.h_indices.shape[0], batches.h_indices.device
+        self.batches = PixelBundle(**{f.name: None if getattr(batches, f.name) is None
+                                      else torch.empty_like(getattr(batches, f.name))
+                                      for f in dataclasses.fields(PixelBundle)})
+        self.uniforms = {key: torch.empty((k,) + tuple(u.shape), device=dev) for key, u in uniforms[0].items()}
+        self.cos = torch.empty(k, device=dev)
+        self.lrs = torch.empty((k, n_groups), device=dev)
+        self.graph = graphs.Graph(pool)
+        self.metrics = None
+
+    def fill(self, batches: PixelBundle, uniforms: list, scalars: list) -> None:
+        with torch.no_grad():
+            for f in dataclasses.fields(PixelBundle):
+                if getattr(batches, f.name) is not None:
+                    getattr(self.batches, f.name).copy_(getattr(batches, f.name))
+            for key, t in self.uniforms.items():
+                t.copy_(torch.stack([u[key] for u in uniforms]))
+            # f32 values of the host's doubles, as the eager step's fill_ rounds them.
+            self.cos.copy_(torch.tensor([c for c, _ in scalars], dtype=torch.float32))
+            self.lrs.copy_(torch.tensor([lrs for _, lrs in scalars], dtype=torch.float32))
+
+    def run(self, state, cfg, camera, buffers, geometry_warmup: bool) -> dict:
+        """The K steps on the static inputs (eagerly, or under capture)."""
+        metrics = None
+        for i in range(self.cos.shape[0]):
+            u = {key: t[i] for key, t in self.uniforms.items()}
+            lrs = [self.lrs[i, g] for g in range(self.lrs.shape[1])]
+            metrics = _step_body(state, cfg, camera, buffers, self.batches[i], None, u, self.cos[i], lrs,
+                                 geometry_warmup=geometry_warmup)
+        return metrics
+
+
+def make_train_step_scan(
+    cfg: SystemConfig,
+    camera: CameraModel,
+    buffers: dict,
+    optimizer: torch.optim.Adam,
+    *,
+    n_steps: int,
+    geometry_warmup: bool = False,
+    mesh=None,
+    pool=None,
+):
+    """``n_steps`` train steps in one dispatch (JAX's ``lax.scan``) ->
+    ``scan_fn(state, batches, randomness) -> (state, the last step's
+    metrics)``.  ``batches``: a PixelBundle stacked on a leading
+    [n_steps] axis (``stack_bundles``); ``randomness``: one generator or
+    one ``uniforms`` dict per step, as ``make_train_step``'s step takes
+    them.  The state is updated in place, as by ``n_steps`` calls of
+    ``make_train_step``'s step.
+
+    On the card the K steps (forward, backward and Adam each) are one
+    ``torch.cuda.CUDAGraph``: the first call runs them eagerly on a side
+    stream (the warm-up, whose result is returned), then captures them;
+    every later call fills the static inputs and replays.  Each step's
+    uniforms are drawn outside the graph from its generator in
+    ``render_rays``' order (``render/renderer.py::train_uniforms``).
+    ``pool``: a graph memory pool to share with the caller's other graphs.
+    On the CPU the steps run eagerly, one by one."""
+    if mesh is not None:
+        raise NotImplementedError("mesh sharding: the data-parallel step is a later slice")
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be at least 1, got {n_steps}")
+    step_fn = make_train_step(cfg, camera, buffers, optimizer, geometry_warmup=geometry_warmup)
+    captured: _ScanGraph | None = None
+
+    def scan_fn(state: TrainState, batches: PixelBundle, randomness: Sequence):
+        nonlocal captured
+        if state.optimizer is not optimizer:
+            raise ValueError("the state's optimizer is not the one this step was made with")
+        if batches.h_indices.shape[0] != n_steps or len(randomness) != n_steps:
+            raise ValueError(f"scan_fn takes {n_steps} stacked batches and {n_steps} generators or uniforms")
+        dev = batches.h_indices.device
+        if dev.type == "cpu":
+            metrics = None
+            for i, r in enumerate(randomness):
+                gen, u = (None, r) if isinstance(r, dict) else (r, None)
+                state, metrics = step_fn(state, batches[i], gen, u)
+            return state, metrics
+        n_rays = batches.h_indices.shape[1]
+        uniforms = [r if isinstance(r, dict) else
+                    train_uniforms(cfg.model, n_rays, r, dev, geometry_warmup=geometry_warmup) for r in randomness]
+        scalars = [step_scalars(cfg, optimizer, state.step + i) for i in range(n_steps)]
+        if captured is None:
+            sg = _ScanGraph(batches, uniforms, len(optimizer.param_groups), pool)
+            sg.fill(batches, uniforms, scalars)
+            metrics = graphs.warm_up(lambda: sg.run(state, cfg, camera, buffers, geometry_warmup))
+            optimizer.zero_grad(set_to_none=True)
+            sg.metrics = sg.graph.capture(lambda: sg.run(state, cfg, camera, buffers, geometry_warmup))
+            captured = sg
+        else:
+            captured.fill(batches, uniforms, scalars)
+            captured.graph.replay()
+            metrics = {k: v.clone() for k, v in captured.metrics.items()}
+        state.step += n_steps
+        return state, metrics
+
+    return scan_fn

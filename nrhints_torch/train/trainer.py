@@ -4,18 +4,25 @@ fire when the step crosses an interval (log, checkpoint, test views, mesh,
 video), resume, and a profiler window.
 
 The loop draws each batch on the host (``DataManager``), copies it to the
-card and runs one eager train step; the metrics are read, which waits for
-the device, only at a log crossing.  Each step's jitter comes from a
-``torch.Generator`` seeded by (seed, step) alone, as JAX folds the step
-into one key, so a resumed run draws what the unbroken run drew.  The
-checkpoint holds the params, Adam's moments and step and the raygen
-buffers; its sidecar the sampler's streams and the jitter seed.  Test-time
-registration copies the registered pose and light rows back into the live
-raygen tensors in place, so Adam keeps its references and moments.
+card and runs one eager train step, or, with ``parallel.steps_per_dispatch``
+K > 1, draws K batches, stacks them on the host, copies them once and runs
+the K steps as one dispatch (``make_train_step_scan``: one CUDA graph
+replay on the card, K eager steps on the CPU).  A chunk that would cross
+``geometry_warmup_end`` or ``end_iter`` runs as single steps, as in JAX.
+The metrics are read, which waits for the device, only at a log crossing,
+and the hooks fire when a dispatch crosses their interval.  Each step's
+jitter comes from a ``torch.Generator`` seeded by (seed, step) alone, as
+JAX folds the step into one key, so a resumed or chunked run draws what the
+unbroken single-step run drew.  The checkpoint holds the params, Adam's
+moments and step and the raygen buffers; its sidecar the sampler's streams
+and the jitter seed.  Test-time registration copies the registered pose
+and light rows back into the live raygen tensors in place, so Adam keeps
+its references and moments.  The train graphs and the evaluator's graphs
+share one memory pool and live as long as the Trainer.
 
 Not ported yet (``NotImplementedError``): several processes or devices
-(``parallel.multihost``, ``data_axis_size`` or ``sample_axis_size`` > 1),
-``scale_global_batch`` and ``steps_per_dispatch`` > 1.
+(``parallel.multihost``, ``data_axis_size`` or ``sample_axis_size`` > 1)
+and ``scale_global_batch``.
 """
 from __future__ import annotations
 
@@ -37,7 +44,9 @@ from nrhints_torch.eval.evaluator import Evaluator
 from nrhints_torch.render.renderer import extract_sdf_grid, init_model_params
 from nrhints_torch.train.checkpoint import CheckpointIO
 from nrhints_torch.train.logging import MetricsLogger
-from nrhints_torch.train.step import TrainState, init_train_state, make_optimizer, make_train_step
+from nrhints_torch.train.step import (
+    TrainState, init_train_state, make_optimizer, make_train_step, make_train_step_scan, stack_bundles,
+)
 from nrhints_torch.utils import resolve_device, tree_items
 
 
@@ -49,7 +58,6 @@ def check_single_device(config: SystemConfig) -> None:
         "parallel.data_axis_size > 1": p.data_axis_size > 1,
         "parallel.sample_axis_size > 1": p.sample_axis_size > 1,
         "parallel.scale_global_batch": p.scale_global_batch,
-        "parallel.steps_per_dispatch > 1": p.steps_per_dispatch > 1,
     }
     missing = [name for name, hit in later.items() if hit]
     if missing:
@@ -110,8 +118,12 @@ class Trainer:
             if config.model.geometry_warmup_end > 0
             else None
         )
+        # K-step dispatches, built at first use, keyed by (geometry_warmup,
+        # n_steps); on the card their graphs and the evaluator's share a pool.
+        self._scan_steps: dict[tuple, object] = {}
+        self._graph_pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
 
-        self.evaluator = Evaluator(config, self.camera, self.buffers, device=self.device)
+        self.evaluator = Evaluator(config, self.camera, self.buffers, device=self.device, pool=self._graph_pool)
         self.ckpt_io = CheckpointIO(self.log_dir)
         self.global_step = 0
         self._load_ckpt()
@@ -145,12 +157,14 @@ class Trainer:
             for name, t in live.items():
                 t.copy_(saved[what][name])
         # The learning rates come from the config, as JAX's schedule does;
-        # the checkpoint gives Adam's moments and step.
-        base = [g["base_lr"] for g in self.optimizer.param_groups]
+        # the checkpoint gives Adam's moments and step.  The load makes new
+        # moment tensors, so a captured dispatch would hold stale ones.
+        live = [(g["base_lr"], g["lr"]) for g in self.optimizer.param_groups]
         self.optimizer.load_state_dict(saved["optimizer"])
-        for g, b in zip(self.optimizer.param_groups, base):
-            g["base_lr"] = b
+        for g, (base, lr) in zip(self.optimizer.param_groups, live):
+            g["base_lr"], g["lr"] = base, lr
         self.state.step = int(saved["step"])
+        self._scan_steps.clear()
 
     def _load_ckpt(self) -> None:
         saved, step = self.ckpt_io.load_newest(self.config.ckpt_path)
@@ -213,13 +227,40 @@ class Trainer:
         seed and the step only."""
         return torch.Generator(device=self.device).manual_seed((self._jitter_seed * 2**32 + step) % 2**63)
 
-    def train_iter(self) -> dict:
-        """One train step at ``global_step``; -> its metrics (0-d device
-        tensors)."""
+    def _next_chunk_size(self) -> int:
+        """Steps for the next dispatch: ``parallel.steps_per_dispatch``,
+        unless the chunk would cross ``geometry_warmup_end`` or ``end_iter``;
+        such a partial chunk runs as single steps, so only the one K-step
+        dispatch is ever captured (JAX's ``_next_chunk_size``)."""
+        k = self.config.parallel.steps_per_dispatch
+        if k <= 1:
+            return 1
+        gs = self.global_step
+        limit = self.config.model.end_iter - gs
+        wend = self.config.model.geometry_warmup_end
+        if self._step_warmup is not None and gs < wend:
+            limit = min(limit, wend - gs)
+        return k if k <= limit else 1
+
+    def train_iter(self, n_steps: int = 1) -> dict:
+        """``n_steps`` train steps from ``global_step`` in one dispatch ->
+        the last step's metrics (0-d device tensors)."""
         self._maybe_profile()
-        batch = self.data_manager.next_train_batch().to(self.device)
-        step_fn = self._step_warmup if self._in_warmup() else self._step_normal
-        self.state, metrics = step_fn(self.state, batch, self._jitter_generator(self.global_step))
+        warmup = self._in_warmup()
+        if n_steps == 1:
+            batch = self.data_manager.next_train_batch().to(self.device)
+            step_fn = self._step_warmup if warmup else self._step_normal
+            self.state, metrics = step_fn(self.state, batch, self._jitter_generator(self.global_step))
+            return metrics
+        scan_fn = self._scan_steps.get((warmup, n_steps))
+        if scan_fn is None:
+            scan_fn = self._scan_steps[(warmup, n_steps)] = make_train_step_scan(
+                self.config, self.camera, self.buffers, self.optimizer, n_steps=n_steps, geometry_warmup=warmup,
+                pool=self._graph_pool,
+            )
+        stacked = stack_bundles([self.data_manager.next_train_batch() for _ in range(n_steps)]).to(self.device)
+        gens = [self._jitter_generator(self.global_step + i) for i in range(n_steps)]
+        self.state, metrics = scan_fn(self.state, stacked, gens)
         return metrics
 
     @staticmethod
@@ -233,9 +274,10 @@ class Trainer:
             last_log_t = time.time()
             last_log_step = self.global_step
             while self.global_step < cfg.model.end_iter:
-                metrics = self.train_iter()
+                n_steps = self._next_chunk_size()
+                metrics = self.train_iter(n_steps)
                 prev = self.global_step
-                self.global_step += 1
+                self.global_step += n_steps
                 gs = self.global_step
                 if self._crossed(prev, gs, intervals.log_metrics):
                     m = {k: float(v) for k, v in metrics.items()}

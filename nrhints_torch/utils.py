@@ -34,6 +34,28 @@ def tree_items(tree, prefix: str = ""):
         yield prefix, tree
 
 
+def tree_map(tree, fn):
+    """A nested dict of tensors with ``fn`` applied to every leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
 def tree_leaves(tree) -> list[torch.Tensor]:
     """The leaves of a nested dict of tensors, in ``tree_items``'s order."""
     return [leaf for _, leaf in tree_items(tree)]
+
+
+_CONSTANTS: dict = {}
+
+
+def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A 1-d tensor of host constants on ``device``, made at first use and
+    kept for the process (callers only read it, so sharing is harmless).  A
+    CUDA graph capture cannot copy from the host, and the eager warm-up
+    before every capture makes the tensor first."""
+    key = (tuple(values), dtype, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(key[0], dtype=dtype, device=device)
+    return t

@@ -654,3 +654,184 @@ def _named(tree, prefix=""):
             yield from _named(tree[k], f"{prefix}/{k}")
     else:
         yield prefix, tree
+
+
+def _small_train(cuda, n_batches=2, **renderer_kw):
+    """(config, camera, device batches, a fresh train state on the card) of
+    nr-hints-cam-opt at the small widths on a 32 x 32 two-view scene."""
+    import dataclasses
+
+    from nrhints_torch.camera.model import CameraModel
+    from nrhints_torch.camera.rays import ray_generator_init
+    from nrhints_torch.configs.config import nr_hints_cam_opt
+    from nrhints_torch.core.structs import PixelBundle
+    from nrhints_torch.data.synthetic import scene_views
+    from nrhints_torch.fields.reflectance import ReflectanceNetConfig
+    from nrhints_torch.render.renderer import init_model_params
+    from nrhints_torch.train.step import init_train_state, make_optimizer
+
+    cfg = nr_hints_cam_opt()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, sdf_network=SMALL, reflectance_network=ReflectanceNetConfig(n_layers=2, d_hidden=32),
+        batch_size=64, warm_up_end=1, anneal_end=4,
+        renderer=dataclasses.replace(cfg.model.renderer, **renderer_kw)))
+    sc = scene_views(2, 32, 32)
+    cam = CameraModel(32, 32, 16.0, 16.0, sc["focal"], sc["focal"], 0.1, 6.0)
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(n_batches):
+        img, hh, ww = rng.integers(0, 2, 64), rng.integers(0, 32, 64), rng.integers(0, 32, 64)
+        pix = dict(h_indices=hh.astype(np.float32), w_indices=ww.astype(np.float32), poses=sc["poses"][img],
+                   pls=sc["pls"][img], img_indices=img, rgb_gt=sc["images"][img, hh, ww])
+        batches.append(PixelBundle(**{k: torch.as_tensor(v).to(cuda) for k, v in pix.items()}))
+    gen = torch.Generator().manual_seed(0)
+    params = {"renderer": init_model_params(cfg.model, gen, device=cuda)}
+    params["raygen"], _ = ray_generator_init(gen, cfg.ray_generator, 2, device=cuda)
+    params["raygen"]["cam_pose_adjustment"].normal_(0.0, 0.02)
+    return cfg, cam, batches, init_train_state(params, make_optimizer(cfg, params))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("renderer_kw", [{}, {"core_backward": "recompute"},
+                                         {"march_sweep_impl": "pallas", "march_rounds_impl": "pallas",
+                                          "shadow_split": False}],
+                         ids=["stash", "recompute", "round4-monolith"])
+def test_scan_graph_matches_eager_steps(cuda, renderer_kw):
+    """``make_train_step_scan`` at K = 2 on the card: its first call (eager,
+    then the capture) and a replay from the same state, batches and
+    generators give the params, Adam's state and the last metrics of two
+    eager ``make_train_step`` steps bit for bit (cos_anneal_ratio and the
+    learning rate change between the steps), and the replay adds the two
+    steps' launches to the counts."""
+    from chip_smoke import snapshot_err, train_restore, train_snapshot
+    from nrhints_torch.train.step import make_train_step, make_train_step_scan, stack_bundles
+
+    cfg, cam, batches, state = _small_train(cuda, **renderer_kw)
+    state.step = 2  # inside warm-up (factor 2 / warm_up_end) and anneal, past step 0's zero rate
+    start = train_snapshot(state)
+
+    def gens():
+        return [torch.Generator(device=cuda).manual_seed(10 + i) for i in range(2)]
+
+    step = make_train_step(cfg, cam, {}, state.optimizer)
+    before = dict(cuda_lib.launch_counts)
+    for b, g in zip(batches, gens()):
+        state, m_eager = step(state, b, g)
+    torch.cuda.synchronize()
+    per_two = {k: cuda_lib.launch_counts[k] - before[k] for k in before}
+    eager = train_snapshot(state)
+    scan = make_train_step_scan(cfg, cam, {}, state.optimizer, n_steps=2)
+    runs = []
+    for _ in range(3):  # the warm-up and capture, then two replays
+        train_restore(state, start)
+        before = dict(cuda_lib.launch_counts)
+        state, m = scan(state, stack_bundles(batches), gens())
+        torch.cuda.synchronize()
+        runs.append((train_snapshot(state), m, {k: cuda_lib.launch_counts[k] - before[k] for k in before}))
+    assert sum(per_two.values()) > 0
+    for snap, m, delta in runs:
+        assert snapshot_err(snap, eager) == (0.0, "")
+        assert snap["step"] == 4 and all(torch.equal(m[k], m_eager[k]) for k in m_eager)
+        assert delta == per_two
+
+
+def _small_view_setup(cuda, **renderer_kw):
+    import dataclasses
+
+    from nrhints_torch.camera.model import CameraModel
+    from nrhints_torch.configs.config import nr_hints_cam_opt
+    from nrhints_torch.core.structs import PixelBundle
+    from nrhints_torch.data.synthetic import scene_views
+    from nrhints_torch.eval.evaluator import Evaluator
+    from nrhints_torch.fields.reflectance import ReflectanceNetConfig
+    from nrhints_torch.render.renderer import init_model_params
+
+    cfg = nr_hints_cam_opt()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, sdf_network=SMALL, reflectance_network=ReflectanceNetConfig(n_layers=2, d_hidden=32),
+        batch_size=64, inference_chunk_size=100, renderer=dataclasses.replace(cfg.model.renderer, **renderer_kw)))
+    sc = scene_views(3, 12, 16)
+    cam = CameraModel(12, 16, 8.0, 6.0, sc["focal"], sc["focal"], 0.1, 6.0)
+    hh, ww = np.meshgrid(np.arange(12), np.arange(16), indexing="ij")
+
+    def view(i, img_idx=True):
+        return PixelBundle(h_indices=torch.tensor(hh, dtype=torch.float32),
+                           w_indices=torch.tensor(ww, dtype=torch.float32),
+                           poses=torch.tensor(np.broadcast_to(sc["poses"][i], (12, 16, 4, 4)).copy()),
+                           pls=torch.tensor(np.broadcast_to(sc["pls"][i], (12, 16, 3)).copy()),
+                           img_indices=torch.full((12, 16), i) if img_idx else None,
+                           rgb_gt=torch.tensor(sc["images"][i]))
+
+    params = {"renderer": init_model_params(cfg.model, torch.Generator().manual_seed(0), device=cuda),
+              "raygen": {"cam_pose_adjustment": torch.randn(3, 6, device=cuda) * 0.02}}
+    return Evaluator(cfg, cam, {}, device=cuda), params, view
+
+
+@pytest.mark.gpu
+def test_view_graph_matches_eager_sweep(cuda):
+    """``render_image`` on the card (the first view of a key eager, then
+    captured; later views replayed on new poses, lights and image indices)
+    gives the eager sweep's images bit for bit, on the device-built grid
+    with and without an image index and on a shuffled bundle, and counts
+    one view's launches per view."""
+    ev, params, view = _small_view_setup(cuda)
+    perm = torch.randperm(12 * 16, generator=torch.Generator().manual_seed(0))
+
+    def shuffle(v):
+        return type(v)(**{k: None if t is None else t.reshape(12 * 16, *t.shape[2:])[perm].reshape(t.shape)
+                          for k, t in vars(v).items()})
+
+    for make in (view, lambda i: view(i, img_idx=False), lambda i: shuffle(view(i))):
+        counts = []
+        for i in (0, 1, 2, 1):
+            pixels = make(i)
+            ref = ev._render_eager(params, pixels)
+            before = dict(cuda_lib.launch_counts)
+            out = ev._render_graph(params, pixels)
+            torch.cuda.synchronize()
+            counts.append({k: cuda_lib.launch_counts[k] - before[k] for k in before})
+            assert sorted(out) == sorted(ref) and all(torch.equal(out[k], ref[k]) for k in ref), i
+        assert all(c == counts[0] for c in counts) and counts[0]["sdf_core_fwd"] == 2
+        img = ev.render_image(params, make(0))
+        assert img["rgb"].shape == (12, 16, 3) and np.isfinite(img["rgb"]).all()
+
+
+@pytest.mark.gpu
+def test_registration_graph_matches_eager(cuda):
+    """``register_view`` on the card (one captured step replayed) against
+    ``_register_view_eager`` (the same step and capturable Adam, eagerly),
+    from the same generator: the registered pose deltas bit for bit, for a
+    first view (eager step, capture, replays) and a second (replays only,
+    on new parameters), with ``pixel_draws`` too; D and E once a step."""
+    ev, params, view = _small_view_setup(cuda)
+    for i, shift in ((1, 0.0), (2, 0.01)):
+        p = {"renderer": params["renderer"],
+             "raygen": {"cam_pose_adjustment": params["raygen"]["cam_pose_adjustment"] + shift}}
+        ref = ev._register_view_eager(p, view(i), steps=4)
+        before = dict(cuda_lib.launch_counts)
+        out = ev.register_view(p, view(i), steps=4)
+        delta = {k: cuda_lib.launch_counts[k] - before[k] for k in before}
+        assert torch.equal(out["raygen"]["cam_pose_adjustment"], ref["raygen"]["cam_pose_adjustment"])
+        assert not torch.equal(out["raygen"]["cam_pose_adjustment"], p["raygen"]["cam_pose_adjustment"])
+        assert delta["sdf_stash_fwd"] == delta["sdf_stash_bwd"] == 4 and delta["mlp_stash_fwd"] == 0
+    draws = [(torch.randint(0, 12, (64,)), torch.randint(0, 16, (64,))) for _ in range(3)]
+    a = ev.register_view(params, view(0), steps=3, pixel_draws=draws)["raygen"]["cam_pose_adjustment"]
+    b = ev._register_view_eager(params, view(0), steps=3, pixel_draws=draws)["raygen"]["cam_pose_adjustment"]
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [SMALL, SDFNetConfig()], ids=["small", "full"])
+def test_sdf_stash_bwd_without_weight_gradients(cuda, cfg):
+    """Kernel E with ``need_dw=False`` (registration) gives the full
+    backward's dx bit for bit and launches no dW pass."""
+    sp = sdf_init(torch.Generator().manual_seed(0), cfg, cuda)
+    w = core_mlp.materialize_sdf_weights_full(sp, cfg)
+    x = torch.randn((1000, 3), generator=torch.Generator().manual_seed(1)).to(cuda) * 0.4
+    _, _, _, stash = core_stash.sdf_stash_fwd(w, x, cfg)
+    g = torch.Generator().manual_seed(2)
+    cots = tuple(torch.randn(s, generator=g).to(cuda) for s in ((1000,), (1000, cfg.d_out_feat), (1000, 3)))
+    dws, dx = core_stash.sdf_stash_bwd(w, x, stash, cots, cfg)
+    none, dx_only = core_stash.sdf_stash_bwd(w, x, stash, cots, cfg, need_dw=False)
+    torch.cuda.synchronize()
+    assert none is None and dws is not None and torch.equal(dx_only, dx)

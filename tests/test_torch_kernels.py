@@ -489,6 +489,28 @@ def test_sdf_bwd_stash_plain_matches_jax(stash_case, dt):
             _close_scaled(_np(a), b, tol, f"{name} dw[{k}]")
 
 
+def test_sdf_stash_backward_without_weight_gradients(stash_case):
+    """Where no weight needs a gradient (registration), kernel E's plain
+    version and ``SdfStashFn`` compute no weight cotangent, and dx is the
+    full backward's bit for bit."""
+    _, tc, x, cots, _, tw = stash_case
+    xt = torch.tensor(x)
+    _, _, _, hs = tcs.sdf_core_fwd_hs_plain(tw, xt, tc, "bfloat16", "bfloat16")
+    tcots = tuple(torch.tensor(c) for c in cots)
+    dws, dx = tcs.sdf_core_bwd_stash_plain(tw, xt, hs, tcots, tc, "bfloat16")
+    none, dx_only = tcs.sdf_core_bwd_stash_plain(tw, xt, hs, tcots, tc, "bfloat16", need_dw=False)
+    assert none is None and len(dws) == len(tw) and torch.equal(dx_only, dx)
+    grads = []
+    for weights_grad in (True, False):
+        ws = [w.clone().requires_grad_(weights_grad) for w in tw]
+        xx = xt.clone().requires_grad_(True)
+        out = tcs.SdfStashFn.apply(tc, "bfloat16", "bfloat16", "kernel", xx, *ws)
+        torch.autograd.backward(out, tcots)
+        assert all((w.grad is not None) == weights_grad for w in ws)
+        grads.append(xx.grad)
+    assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0], dx)
+
+
 def _trunk_params():
     """A 45 -> 2 x 32 -> 3 weight-norm trunk: (JAX params as numpy, port params)."""
     from nrhints_torch.convert import params_from_jax

@@ -22,7 +22,13 @@ the gradients; measured 8.2e-3), its second moment, quadratic, to 4e-2
 steep where the two gradients nearly cancel in mhat, so it is compared on
 the entries where both gradients and mhat exceed 5e-2 of their leaf's
 largest entry, 2.5 times the gradients' noise floor: there it agrees to
-5e-2 of the leaf's largest change plus 1e-6 (measured 2.1e-2).
+5e-2 of the leaf's largest change plus 1e-6 (measured 2.1e-2).  The JAX
+side of the two steps is one run of its ``make_train_step_scan`` at K = 2
+(the step of ``make_train_step`` twice), shared by the port's two single
+steps and its K = 2 scan; the scan's parameters also agree to 2e-3 of
+each leaf's scale where the leaf does not start at 0.  The gradient cases
+include the branches only a train step reaches: the specular hint's
+gradient, SE(3) pose deltas, light deltas and the hint-less pl-naive.
 """
 import dataclasses
 
@@ -61,18 +67,29 @@ def _close_scaled(a, b, tol, what, atol=0.0):
     assert err <= tol * scale + atol, f"{what}: err {err:.3e} vs scale {scale:.3e}"
 
 
-def _setup(preset: str, n_batches: int = 1, **renderer_kw):
+def _setup(preset: str, n_batches: int = 1, raygen_kw: dict | None = None, **renderer_kw):
     """(JAX cfg, port cfg, JAX params, port params, cameras, the first
-    ``n_batches`` PixelSampler batches as JAX and port lists, key)."""
-    jm, tm = model_configs(march_dtype="float32", **renderer_kw)
+    ``n_batches`` PixelSampler batches as JAX and port lists, key).  The
+    preset's hints and ray generator, with ``raygen_kw`` and
+    ``renderer_kw`` over them; pose and light deltas of about 0.02 where
+    the ray generator learns them."""
+    r = tconf.PRESETS[preset]().model.renderer
+    jm, tm = model_configs(march_dtype="float32", **{"shadow_hint": r.shadow_hint, "specular_hint": r.specular_hint,
+                                                     **renderer_kw})
     # anneal_end=0: cos_anneal_ratio stays 1, so both steps see one gradient.
     sched = dict(warm_up_end=2, end_iter=100, anneal_end=0, batch_size=N_RAYS)
-    jcfg = dataclasses.replace(jconf.PRESETS[preset](), model=dataclasses.replace(jm, **sched))
-    tcfg = dataclasses.replace(tconf.PRESETS[preset](), model=dataclasses.replace(tm, **sched))
+    cfgs = []
+    for conf, m in ((jconf, jm), (tconf, tm)):
+        c = conf.PRESETS[preset]()
+        cfgs.append(dataclasses.replace(c, model=dataclasses.replace(m, **sched),
+                                        ray_generator=dataclasses.replace(c.ray_generator, **(raygen_kw or {}))))
+    jcfg, tcfg = cfgs
     jr, _ = model_params(jm)
     raygen = {}
     if jcfg.ray_generator.cam_opt_mode != "off":
         raygen["cam_pose_adjustment"] = (np.random.default_rng(3).normal(size=(N_VIEWS, 6)) * 0.02).astype(np.float32)
+    if jcfg.ray_generator.pl_opt:
+        raygen["pl_adjustment"] = (np.random.default_rng(4).normal(size=(N_VIEWS, 3)) * 0.02).astype(np.float32)
     jp = {"renderer": jr, "raygen": raygen}
     from nrhints_torch.convert import params_from_jax
 
@@ -112,16 +129,24 @@ def _jax_grads(jcfg, jp, jcam, jb, key, geometry_warmup):
 
 
 @pytest.mark.parametrize(
-    "preset,geometry_warmup,core_backward",
-    [("nr-hints", False, "stash"), ("nr-hints-cam-opt", False, "stash"), ("nr-hints", True, "stash"),
-     ("nr-hints-cam-opt", False, "recompute"), ("nr-hints-cam-opt", False, "stash_xla")],
-    ids=["nr-hints", "nr-hints-cam-opt", "geometry-warmup", "nr-hints-cam-opt-recompute", "nr-hints-cam-opt-stash_xla"],
+    "preset,geometry_warmup,core_backward,raygen_kw,renderer_kw",
+    [("nr-hints", False, "stash", {}, {}), ("nr-hints-cam-opt", False, "stash", {}, {}),
+     ("nr-hints", True, "stash", {}, {}), ("nr-hints-cam-opt", False, "recompute", {}, {}),
+     ("nr-hints-cam-opt", False, "stash_xla", {}, {}),
+     ("nr-hints", False, "stash", {}, {"specular_hint_gradient": True}),
+     ("nr-hints-cam-opt", False, "stash", {"cam_opt_mode": "SE3"}, {}),
+     ("nr-hints", False, "stash", {"pl_opt": True}, {}), ("pl-naive", False, "stash", {}, {})],
+    ids=["nr-hints", "nr-hints-cam-opt", "geometry-warmup", "nr-hints-cam-opt-recompute", "nr-hints-cam-opt-stash_xla",
+         "specular-hint-gradient", "cam-opt-SE3", "pl-opt", "pl-naive"],
 )
-def test_step_gradients_match_jax(preset, geometry_warmup, core_backward):
+def test_step_gradients_match_jax(preset, geometry_warmup, core_backward, raygen_kw, renderer_kw):
     """One step's loss, metrics and every gradient leaf under each ported
     backward schedule (the recompute op: kernels A, H, I, J on the card;
-    stash_xla: D, F and the stash backward as full-batch PyTorch)."""
-    jcfg, tcfg, jp, tp, jcam, tcam, (jb,), (tb,), key = _setup(preset, core_backward=core_backward)
+    stash_xla: D, F and the stash backward as full-batch PyTorch), and on
+    the branches the step reaches with the specular hint's gradient, SE(3)
+    pose deltas, light deltas (``pl_opt``) and no hints (``pl-naive``)."""
+    jcfg, tcfg, jp, tp, jcam, tcam, (jb,), (tb,), key = _setup(preset, raygen_kw=raygen_kw,
+                                                               core_backward=core_backward, **renderer_kw)
     jgrads, jmetrics = _jax_grads(jcfg, jp, jcam, jb, key, geometry_warmup)
     state = tstep.init_train_state(tp, tstep.make_optimizer(tcfg, tp))
     tmetrics = tstep.loss_and_grads(
@@ -133,8 +158,10 @@ def test_step_gradients_match_jax(preset, geometry_warmup, core_backward):
     port = dict(tree_items(tp))
     names = [n for n, _ in tree_items(jgrads)]
     assert names == sorted(port) and "/renderer/variance/variance" in names
-    if preset == "nr-hints-cam-opt":
+    if tcfg.ray_generator.cam_opt_mode != "off":
         assert "/raygen/cam_pose_adjustment" in names
+    if tcfg.ray_generator.pl_opt:
+        assert "/raygen/pl_adjustment" in names
     for name, g in tree_items(jgrads):
         _close_scaled(port[name].grad.numpy(), g, TOL["grad"], name)
     assert np.abs(np.asarray(jgrads["renderer"]["variance"]["variance"])) > 0
@@ -155,28 +182,43 @@ def _optax_moments(opt_state) -> dict:
     return out
 
 
-def test_two_steps_match_jax():
-    """Two whole steps of nr-hints-cam-opt through ``make_train_step`` on
-    both sides, from the same state, on two batches with two keys so that
-    the two gradients differ.  The first step (lr factor 0) moves nothing
-    but fills Adam's moments; the second moves every entry by lr * 0.5 *
-    mhat / (sqrt(vhat) + eps), which depends on both gradients, both betas
-    and the bias corrections.  Both moments and the change are compared."""
-    jcfg, tcfg, jp, tp, jcam, tcam, jbs, tbs, key = _setup("nr-hints-cam-opt", n_batches=2)
-    keys = [key, jax.random.PRNGKey(8)]
+@pytest.fixture(scope="module")
+def jax_two_steps():
+    """Two whole steps of nr-hints-cam-opt in JAX, from the converted state,
+    on the first two sampler batches, as one dispatch of JAX's
+    ``make_train_step_scan`` at K = 2 (the step of ``make_train_step``
+    twice, each step's key folded from the carried step): (the _setup
+    tuple, JAX's state after the two steps, its last metrics, each step's
+    key, each step's (gradients, metrics) at the starting parameters).  The
+    first step (lr factor 0) moves nothing, so both steps' gradients are
+    taken there."""
+    setup = _setup("nr-hints-cam-opt", n_batches=2)
+    jcfg, _, jp, _, jcam, _, jbs, _, key = setup
     opt = jstep.make_optimizer(jcfg)
-    jstate = jstep.init_train_state(jax.tree_util.tree_map(jnp.asarray, jp), opt)
-    jfn = jstep.make_train_step(jcfg, jcam, {}, opt, donate=False)
-    topt = tstep.make_optimizer(tcfg, tp)
-    tstate = tstep.init_train_state(tp, topt)
-    tfn = tstep.make_train_step(tcfg, tcam, {}, topt)
-    for jb, tb, k in zip(jbs, tbs, keys):
-        jstate, jm = jfn(jstate, jb, k)
-        tstate, tm = tfn(tstate, tb, uniforms=_jax_uniforms(k, N_RAYS, tcfg.model.renderer.n_shadow_samples))
-        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=TOL["metric"])
-    assert tstate.step == 2 and int(jstate.step) == 2
-    # Both gradients are taken at the starting parameters.
-    grads = [dict(tree_items(_jax_grads(jcfg, jp, jcam, jb, k, False)[0])) for jb, k in zip(jbs, keys)]
+    state = jstep.init_train_state(jax.tree_util.tree_map(jnp.asarray, jp), opt)
+    scan = jstep.make_train_step_scan(jcfg, jcam, {}, opt, n_steps=2, donate=False)
+    state, metrics = scan(state, jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *jbs), key)
+    keys = [jax.random.fold_in(key, i) for i in range(2)]
+    at_start = [_jax_grads(jcfg, jp, jcam, jb, k, False) for jb, k in zip(jbs, keys)]
+    return setup, state, metrics, keys, at_start
+
+
+def _fresh_port_state(setup):
+    """A port train state on the CPU from the fixture's JAX params (the
+    fixture's own port tree stays untouched)."""
+    from nrhints_torch.convert import params_from_jax
+
+    tcfg, jp = setup[1], setup[2]
+    tp = params_from_jax(jp, device="cpu")
+    return tstep.init_train_state(tp, tstep.make_optimizer(tcfg, tp))
+
+
+def _hold_two_steps(jax_two_steps, tstate) -> None:
+    """The port's state after two steps against JAX's: both Adam moments,
+    and the parameter change where it is clear of the gradients' noise."""
+    (_, tcfg, jp, _, _, _, _, _, _), jstate, _, _, at_start = jax_two_steps
+    topt = tstate.optimizer
+    grads = [dict(tree_items(g)) for g, _ in at_start]
     assert all(np.abs(grads[0][n] - grads[1][n]).max() > 0.1 * np.abs(grads[0][n]).max() for n in grads[0])
     moments = _optax_moments(jstate.opt_state)
     port = dict(tree_items(tstate.params))
@@ -204,6 +246,102 @@ def test_two_steps_match_jax():
         _close_scaled(d_port[clear], d_jax[clear], TOL["update"], name, atol=1e-6)
         moved += bool(clear.any() and np.abs(d_jax[clear]).min() > 0)
     assert moved == len(port)  # every leaf moved, raygen's pose deltas included
+
+
+@pytest.fixture(scope="module")
+def port_two_steps(jax_two_steps):
+    """The port's two steps from the same state, handed JAX's per-step
+    uniforms, two ways: ``make_train_step`` twice (-> the state and each
+    step's metrics) and ``make_train_step_scan`` at K = 2 (-> the state and
+    the last metrics)."""
+    setup, _, _, keys, _ = jax_two_steps
+    tcfg, tcam, tbs = setup[1], setup[5], setup[7]
+    uniforms = [_jax_uniforms(k, N_RAYS, tcfg.model.renderer.n_shadow_samples) for k in keys]
+    single = _fresh_port_state(setup)
+    tfn = tstep.make_train_step(tcfg, tcam, {}, single.optimizer)
+    per_step = []
+    for tb, u in zip(tbs, uniforms):
+        single, m = tfn(single, tb, uniforms=u)
+        per_step.append(m)
+    scanned = _fresh_port_state(setup)
+    scan = tstep.make_train_step_scan(tcfg, tcam, {}, scanned.optimizer, n_steps=2)
+    scanned, last = scan(scanned, tstep.stack_bundles(tbs), uniforms)
+    return (single, per_step), (scanned, last)
+
+
+def test_two_steps_match_jax(jax_two_steps, port_two_steps):
+    """Two whole steps of nr-hints-cam-opt through ``make_train_step``
+    against JAX's two steps (``jax_two_steps``), the port handed JAX's
+    per-step uniforms: each step's loss; Adam's moments and the parameter
+    change (``_hold_two_steps``).  The second step moves every entry by lr
+    * 0.5 * mhat / (sqrt(vhat) + eps), which depends on both gradients,
+    both betas and the bias corrections."""
+    (tstate, per_step), _ = port_two_steps
+    for tm, (_, jm) in zip(per_step, jax_two_steps[4]):
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=TOL["metric"])
+    assert tstate.step == 2
+    _hold_two_steps(jax_two_steps, tstate)
+
+
+def test_scan_matches_jax(jax_two_steps, port_two_steps):
+    """``make_train_step_scan`` at K = 2 on the CPU against JAX's, the port
+    handed JAX's per-step uniforms: the last step's metrics at the step's
+    5e-3, the step count, Adam's moments and the parameter change as
+    ``test_two_steps_match_jax`` holds them, and every parameter leaf that
+    does not start at 0 within 2e-3 of its scale (a leaf that starts at 0,
+    a bias, has the step's own size for scale, and Adam moves an entry whose
+    two gradients nearly cancel by noise: the change check holds those)."""
+    setup, jstate, jmetrics, _, _ = jax_two_steps
+    _, (tstate, metrics) = port_two_steps
+    assert tstate.step == 2 == int(jstate.step)
+    for k, v in jmetrics.items():
+        np.testing.assert_allclose(float(metrics[k]), float(v), rtol=TOL["metric"], err_msg=k)
+    _hold_two_steps(jax_two_steps, tstate)
+    port, p0s = dict(tree_items(tstate.params)), dict(tree_items(setup[2]))
+    for name, p1 in tree_items(jax.device_get(jstate.params)):
+        if np.abs(p0s[name]).max() > 0:
+            _close_scaled(port[name].detach().numpy(), p1, 2e-3, name)
+
+
+def test_scan_matches_single_steps(jax_two_steps, port_two_steps):
+    """On the CPU the K-step dispatch is K of ``make_train_step``'s steps:
+    from the same state and uniforms, the parameters, Adam's moments and
+    step counts and the last metrics are equal bit for bit; a dispatch of
+    the wrong length raises."""
+    (a, per_step), (b, mb) = port_two_steps
+    ma = per_step[-1]
+    assert a.step == b.step == 2 and ma.keys() == mb.keys()
+    assert all(torch.equal(ma[k], mb[k]) for k in ma)
+    for (name, pa), (_, pb) in zip(tree_items(a.params), tree_items(b.params)):
+        assert torch.equal(pa.detach(), pb.detach()), name
+        sa, sb = a.optimizer.state[pa], b.optimizer.state[pb]
+        assert all(torch.equal(sa[k], sb[k]) for k in ("step", "exp_avg", "exp_avg_sq")), name
+    setup = jax_two_steps[0]
+    scan3 = tstep.make_train_step_scan(setup[1], setup[5], {}, b.optimizer, n_steps=3)
+    with pytest.raises(ValueError):
+        scan3(b, tstep.stack_bundles(setup[7]), [torch.Generator()] * 2)
+
+
+@pytest.mark.parametrize("geometry_warmup", [False, True], ids=["normal", "geometry-warmup"])
+def test_train_uniforms_are_the_renders_draws(geometry_warmup):
+    """``train_uniforms`` draws from a generator what ``render_rays`` draws
+    from it, in its order (a CUDA graph of train steps draws them outside
+    the graph): the render with the generator and the render with the drawn
+    uniforms are equal bit for bit."""
+    from nrhints_torch.core.structs import RayBundle
+    from tests.torch_port_utils import camera_rays
+
+    _, tm = model_configs(march_dtype="float32")
+    params = tr.init_model_params(tm, torch.Generator().manual_seed(0), device="cpu")
+    rays = RayBundle(*[torch.as_tensor(a) for a in camera_rays(0)])
+    kw = dict(is_training=True, geometry_warmup=geometry_warmup)
+    a = tr.render_rays(params, tm, rays, torch.Generator().manual_seed(5), **kw)
+    u = tr.train_uniforms(tm, N_RAYS, torch.Generator().manual_seed(5), "cpu", geometry_warmup=geometry_warmup)
+    assert sorted(u) == (["strat"] if geometry_warmup else ["shadow", "strat"])
+    b = tr.render_rays(params, tm, rays, uniforms=u, **kw)
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        assert (va is None and vb is None) or torch.equal(va, vb), f.name
 
 
 def test_pixel_sampler_matches_jax():
@@ -264,11 +402,6 @@ def test_optimizer_groups_and_unported_step_options():
     assert [(g["name"], g["base_lr"]) for g in opt.param_groups] == [
         ("renderer", tcfg.model.lr), ("raygen", tcfg.ray_generator.opt_lr)]
     assert all(t.requires_grad for _, t in tree_items(tp))
-    with pytest.raises(NotImplementedError):
-        tstep.make_train_step_scan(tcfg, tcam, {}, opt, n_steps=4)
-    multi = dataclasses.replace(tcfg, parallel=dataclasses.replace(tcfg.parallel, steps_per_dispatch=4))
-    with pytest.raises(NotImplementedError):
-        tstep.make_train_step(multi, tcam, {}, opt)
 
 
 def test_eval_render_uses_no_stash_op(monkeypatch):

@@ -427,6 +427,76 @@ def test_main_trains_logs_and_writes_outputs(scene_dir, tmp_path):
     assert t2.ckpt_io.available_steps() == [2, 4, 6]
 
 
+def _with_parallel(cfg, **kw):
+    return dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel, **kw))
+
+
+def test_next_chunk_size_matches_jax():
+    """``_next_chunk_size`` against JAX's on the same trainer state: K steps,
+    or 1 where a chunk of K would cross the geometry warm-up's end or
+    end_iter (with and without a warm-up phase), and 1 for K = 1."""
+    import types
+
+    from nrhints_tpu.train.trainer import Trainer as JTrainer
+
+    base = tconf.SystemConfig()
+    seen = []
+    for k, wend, warm in ((4, 6, True), (4, 6, False), (1, 0, False)):
+        cfg = _with_parallel(dataclasses.replace(base, model=dataclasses.replace(
+            base.model, end_iter=10, geometry_warmup_end=wend)), steps_per_dispatch=k)
+        for gs in range(10):
+            fake = types.SimpleNamespace(config=cfg, global_step=gs, _step_warmup=object() if warm else None)
+            t = ttrainer.Trainer._next_chunk_size(fake)
+            assert t == JTrainer._next_chunk_size(fake), (k, wend, warm, gs)
+            seen.append(t)
+    assert seen[:10] == [4, 4, 4, 1, 1, 1, 4, 1, 1, 1]  # the warm-up ends at 6, the run at 10
+    assert seen[10:20] == [4, 4, 4, 4, 4, 4, 4, 1, 1, 1] and set(seen[20:]) == {1}
+
+
+def test_trainer_steps_per_dispatch_matches_jax(scene_dir, tmp_path):
+    """A 6-step run at ``steps_per_dispatch=2`` on both packages: 3
+    dispatches, a log every 3 steps and a checkpoint every 4, which fire
+    where a dispatch crosses them, so at the same steps in both (logs 4 and
+    6, a checkpoint at 4); finite losses, and the state at step 6."""
+    from nrhints_tpu.train.trainer import Trainer as JTrainer
+
+    jcfg, tcfg = (_with_parallel(c, steps_per_dispatch=2)
+                  for c in _configs(scene_dir, tmp_path, end_iter=6, log_metrics=3, save_ckpt=4))
+    jt = _no_final_eval(JTrainer(dataclasses.replace(jcfg, exp_name="jax")))
+    tt = _no_final_eval(ttrainer.Trainer(tcfg, device="cpu"))
+    jt.run()
+    tt.run()
+    jl, tl = _log_lines(jt), _log_lines(tt)
+    assert [r["step"] for r in tl] == [r["step"] for r in jl] == [4, 6]
+    assert all(np.isfinite(r["loss"]) for r in tl)
+    assert tt.ckpt_io.available_steps() == jt.ckpt_io.available_steps() == [4]
+    assert tt.global_step == tt.state.step == int(jt.state.step) == 6
+    assert list(tt._scan_steps) == [(False, 2)]
+
+
+def test_chunked_run_equals_single_steps(scene_dir, tmp_path):
+    """On the CPU a run at ``steps_per_dispatch=2`` is the single-step run
+    bit for bit: each step's jitter is seeded by (seed, step), and the
+    chunks that would cross the geometry warm-up's end (3) or end_iter (6)
+    run singly (dispatches 0-2, 2-3, 3-5, 5-6); its logs fire at the
+    crossings of each dispatch (every 2 steps: at 2, 5 and 6)."""
+    runs = []
+    for k in (1, 2):
+        _, cfg = _configs(scene_dir, tmp_path / f"k{k}", end_iter=6, log_metrics=2)
+        cfg = _with_parallel(dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, geometry_warmup_end=3)),
+                             steps_per_dispatch=k)
+        t = _no_final_eval(ttrainer.Trainer(cfg, device="cpu"))
+        t.run()
+        runs.append(t)
+    single, chunked = runs
+    assert [r["step"] for r in _log_lines(chunked)] == [2, 5, 6]
+    assert sorted(chunked._scan_steps) == [(False, 2), (True, 2)]
+    for n, t in _params(single).items():
+        assert torch.equal(_params(chunked)[n], t), n
+    last = {r["step"]: r["loss"] for r in _log_lines(single)}
+    assert {r["step"]: r["loss"] for r in _log_lines(chunked)}[6] == last[6]
+
+
 def test_entry_points_need_the_card_unless_asked(scene_dir, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -437,8 +507,8 @@ def test_entry_points_need_the_card_unless_asked(scene_dir, tmp_path):
 
 
 @pytest.mark.parametrize("parallel", [{"multihost": True}, {"data_axis_size": 2}, {"sample_axis_size": 2},
-                                      {"scale_global_batch": True}, {"steps_per_dispatch": 2}],
-                         ids=["multihost", "data_axis", "sample_axis", "scale_global_batch", "steps_per_dispatch"])
+                                      {"scale_global_batch": True}],
+                         ids=["multihost", "data_axis", "sample_axis", "scale_global_batch"])
 def test_unported_settings_raise(scene_dir, tmp_path, parallel):
     _, cfg = _configs(scene_dir, tmp_path)
     cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel, **parallel))
