@@ -143,6 +143,13 @@ CPU_TOL = {"rgb": 2e-2, "depth": 2e-2, "shadow_map": 2e-2}
 # orders, so bf16 rounding flips (and a few march samples they move) shift
 # each gradient by a few per cent of its largest entry at most.
 GRAD_TOL = 5e-2
+# Phase 11's ranks against the world-1 step on the card, the same kernels on
+# the same params: a rank's dW passes sum its 256 rays, so only the order of
+# the sums differs (PR 14's runs read 5.9e-6 to 8.7e-6 of a leaf's scale).
+# Faults in the global loss (a mean of per-rank means, a metric share left
+# out) move a leaf by far more.  The params after several Adam steps drift
+# further and keep GRAD_TOL.
+DP_GRAD_TOL = 1e-4
 TRAIN_STEPS, TRAIN_WARMUP = 20, 3
 RECOMPUTE_STEPS = 10
 ROUND4_STEPS = 5
@@ -158,7 +165,8 @@ RESUME_TOL = 1e-4
 # instances of the 64-point forward of csrc/sdf_fwd.cuh, E1 and H2 the two
 # of the 64-point chain of csrc/sdf_bwd.cuh; I, F and J1 the three of the
 # trunk's forward in csrc/mlp_stash.cu, whose one chain kernel is G1 in a
-# stash step and J2 in a recompute step.
+# stash step and J2 in a recompute step.  NCCL's kernels (phase 11) have
+# their own group.
 DW_GROUP = "dW passes of E/G/H/J (dw_sum.cuh)"
 TRUNK_CHAIN_GROUP = "trunk chain: G1, or J2 after J1"
 STEP_GROUPS = (
@@ -174,6 +182,7 @@ STEP_GROUPS = (
     ("march_kernel<false, true, false", "kernel L march_rounds"),
     ("march_kernel<true, true, false", "kernel M importance_march"),
     ("march_kernel<true, true, true", "kernel N shadow_march"),
+    ("nccl", "NCCL collectives"),
 )
 # The round-4 march configurations of phases 7 and 8.
 MONOLITH = {"march_sweep_impl": "pallas", "march_rounds_impl": "pallas", "shadow_split": False}
@@ -553,7 +562,8 @@ def train_entry_phase(smi: str, phase5_step_s: float, tmp: Path) -> dict:
     """Phase 9: ``python -m nrhints_torch``'s main, called in this process so
     the launch counts are readable, trains nr-hints-cam-opt at full width on
     a procedural scene written to disk (8 train, 1 val, 2 test views at
-    128x128): 512-ray batches, 30 steps, a log every 10 steps, a checkpoint
+    128x128): one rank on one card (``data_axis_size`` 1, whatever the
+    host's count of cards), 512-ray batches, 30 steps, a log every 10 steps, a checkpoint
     at 20, the video (2 + 2 frames) at 30, then the final mesh at resolution
     128 and both test views registered (500 Adam steps each), rendered and
     scored.  Checks the run directory's files and every kernel's launches
@@ -580,7 +590,8 @@ def train_entry_phase(smi: str, phase5_step_s: float, tmp: Path) -> dict:
     argv = ["config:nr-hints-cam-opt", "--config.data.path", str(scene), "--config.base-dir", str(tmp / "runs"),
             "--config.model.batch-size", "512", "--config.intervals.log-metrics", "10",
             "--config.intervals.save-ckpt", "20", "--config.intervals.render-video", "30",
-            "--config.data.video-frame-num", "2", "--config.final-mesh-resolution", str(mesh_res)]
+            "--config.data.video-frame-num", "2", "--config.final-mesh-resolution", str(mesh_res),
+            "--config.parallel.data-axis-size", "1"]
     torch.cuda.synchronize()
     cuda_lib.reset_launch_counts()
     with Timed(Evaluator, "register_view") as reg, Timed(Trainer, "render_test_views") as views, \
@@ -671,14 +682,20 @@ def train_entry_phase(smi: str, phase5_step_s: float, tmp: Path) -> dict:
         + ", ".join(f"{k} {v:.3f}" for k, v in groups.items()) + f"; on {smi}")
     loader_timing(tmp, smi)
 
-    check_resume("entry resume", argv, run_dir, {k: r["loss"] for k, r in train.items()})
-    return {"argv": argv, "losses": {k: r["loss"] for k, r in train.items()}}
+    resumed = check_resume("entry resume", argv, run_dir, {k: r["loss"] for k, r in train.items()})
+    val40 = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    val40 = [r for r in val40 if "val/psnr" in r and r["step"] == 40]
+    views = {"run_dir": run_dir, "base": tmp / "runs", "argv": argv,
+             "raygen": {k: v.detach().cpu().clone() for k, v in resumed.state.params["raygen"].items()},
+             "means": {k: v for k, v in val40[-1].items() if k.startswith("val/")}}
+    return {"argv": argv, "losses": {k: r["loss"] for k, r in train.items()}, "views": views}
 
 
-def check_resume(label: str, argv: list, run_dir: Path, losses: dict) -> None:
+def check_resume(label: str, argv: list, run_dir: Path, losses: dict):
     """A second main on ``argv``'s run directory, to step 40: it must load
     the step-20 checkpoint's params bit for bit, log steps 30 and 40, and
-    log step 30's loss within RESUME_TOL of ``losses[30]``, the first run's."""
+    log step 30's loss within RESUME_TOL of ``losses[30]``, the first run's.
+    -> the second main's trainer."""
     import torch
 
     from nrhints_torch.__main__ import main as nrhints_main
@@ -697,7 +714,7 @@ def check_resume(label: str, argv: list, run_dir: Path, losses: dict) -> None:
     try:
         n_lines = len((run_dir / "metrics.jsonl").read_text().splitlines())
         t0 = time.perf_counter()
-        nrhints_main(argv + ["--config.model.end-iter", "40"])
+        resumed = nrhints_main(argv + ["--config.model.end-iter", "40"])
         torch.cuda.synchronize()
         resume_s = time.perf_counter() - t0
     finally:
@@ -718,6 +735,7 @@ def check_resume(label: str, argv: list, run_dir: Path, losses: dict) -> None:
         f"run's {losses[30]:.7f}: rel {rel:.3e} (tol {RESUME_TOL})")
     if not rel <= RESUME_TOL:
         raise AssertionError(f"{label}: the resumed run's step-30 loss differs: rel {rel:.3e}")
+    return resumed
 
 
 def dispatch_entry_phase(smi: str, tmp: Path, eager_run: dict) -> None:
@@ -776,6 +794,428 @@ def dispatch_entry_phase(smi: str, tmp: Path, eager_run: dict) -> None:
     check_resume("dispatch 10(d) resume", argv, run_dir, {s_: r["loss"] for s_, r in train.items()})
 
 
+def train_data(dev, H: int, W: int) -> dict:
+    """Phase 5's training data: the nr-hints-cam-opt config, 8 procedural
+    views at H x W on ``dev`` and their camera, and ``next_batch(n_rays)``,
+    the next PixelSampler batch (512 rays, or its first ``n_rays``)."""
+    import torch
+
+    from nrhints_torch.camera.model import CameraModel
+    from nrhints_torch.configs.config import nr_hints_cam_opt
+    from nrhints_torch.core.structs import PixelBundle
+    from nrhints_torch.data.sampler import PixelSampler
+    from nrhints_torch.data.synthetic import scene_views
+
+    tcfg = nr_hints_cam_opt()
+    n_views = 8
+    sc = scene_views(n_views, H, W, seed=0)
+    sampler = PixelSampler(n_views, H, W, tcfg.model.batch_size)
+    images, poses, pls = (torch.tensor(sc[k], device=dev) for k in ("images", "poses", "pls"))
+
+    def next_batch(n_rays=None):
+        s_ = sampler.sample_batch()
+        img, hi, wi = (torch.as_tensor(a[:n_rays], device=dev) for a in (s_.img_indices, s_.h_indices, s_.w_indices))
+        return PixelBundle(h_indices=hi.float(), w_indices=wi.float(), poses=poses[img], pls=pls[img],
+                           img_indices=img, rgb_gt=images[img, hi, wi])
+
+    return {"cfg": tcfg, "n_views": n_views, "camera": CameraModel(H, W, W / 2.0, H / 2.0, sc["focal"], sc["focal"],
+                                                                    0.1, 6.0),
+            "images": images, "poses": poses, "pls": pls, "next_batch": next_batch}
+
+
+# Phase 11: data parallelism.  The K of the captured dispatch, the eager
+# steps of the two-rank runs, and how long spawned ranks may take (each set
+# takes under a minute; a rank that fails leaves its group undestroyed, since
+# a peer may wait in a collective, and the parent kills the set).
+DP_K, DP_EAGER_STEPS, DP_JOIN_S = 16, 3, 300.0
+
+
+def dp_grads(state) -> dict:
+    """Every leaf's gradient, on the host."""
+    from nrhints_torch.utils import tree_items
+
+    return {name: t.grad.detach().cpu().clone() for name, t in tree_items(state.params)}
+
+
+def scaled_err(a: dict, b: dict) -> tuple[float, str]:
+    """(largest max |a - b| over max |b| among the leaves, that leaf)."""
+    worst, where = 0.0, ""
+    for k in b:
+        e = (a[k].float() - b[k].float()).abs().max().item() / max(b[k].float().abs().max().item(), 1e-30)
+        if e > worst:
+            worst, where = e, k
+    return worst, where
+
+
+def spawn_ranks(fn, world: int, *args) -> None:
+    """Run ``fn(rank, *args)`` in ``world`` spawned processes; join them
+    within DP_JOIN_S seconds, killing them all on a failure or at the
+    deadline, and raise then."""
+    import torch
+
+    ctx = torch.multiprocessing.start_processes(fn, args=args, nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + DP_JOIN_S
+    try:
+        while not ctx.join(timeout=5.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the {world} ranks of {fn.__name__} did not finish in {DP_JOIN_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+
+
+def dp_rank_steps(rank: int, world: int, backend: str, one_card: bool, start_file: str, out_dir: str) -> None:
+    """A rank of phase 11(b) or (c): the start state of ``start_file`` on
+    this rank's card, its rows of the same global batches, and either
+    DP_EAGER_STEPS eager steps (gloo: each step's gradients and the params
+    after it kept) or one DP_K-step dispatch as a CUDA graph (NCCL: the
+    first call, then two replays from the same start, the last one timed;
+    the params, the last step's gradients and metrics kept)."""
+    import gc
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    if one_card:  # two "hosts" of one rank each, both on cuda:0
+        os.environ["LOCAL_WORLD_SIZE"], os.environ["LOCAL_RANK"] = "1", "0"
+    from nrhints_torch.parallel.mesh import initialize_multihost, make_mesh
+    from nrhints_torch.utils import resolve_device
+
+    out = Path(out_dir)
+    initialize_multihost(f"file://{out / 'rendezvous'}", rank, world, device=resolve_device("cuda"), backend=backend)
+    torch.save(dp_steps_body(make_mesh(world, device="cuda"), backend, start_file), out / f"rank{rank}.pt")
+    gc.collect()  # the dispatch's graph goes before the group: NCCL keeps a communicator a live graph uses
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+
+
+def dp_steps_body(mesh, backend: str, start_file: str) -> dict:
+    """``dp_rank_steps``' work on this rank -> what it keeps."""
+    import torch
+
+    from nrhints_torch.parallel.mesh import rank_rows
+    from nrhints_torch.train.step import init_train_state, make_optimizer, make_train_step, make_train_step_scan, \
+        stack_bundles
+    from nrhints_torch.utils import tree_items
+
+    world = mesh.world_size
+    blob = torch.load(start_file, map_location=mesh.device, weights_only=False)
+    cfg, cam, buffers, params = blob["cfg"], blob["camera"], blob["buffers"], blob["params"]
+    state = init_train_state(params, make_optimizer(cfg, params))
+    live = [(g["base_lr"], g["lr"]) for g in state.optimizer.param_groups]
+    state.optimizer.load_state_dict(blob["optimizer"])
+    for g, (base, lr) in zip(state.optimizer.param_groups, live):
+        g["base_lr"], g["lr"] = base, lr
+    state.step = blob["step"]
+    start = train_snapshot(state)
+    # This rank's rows of each global batch (one host of two ranks, or
+    # two hosts of one: rank r takes the r-th block either way).
+    rows = [b[rank_rows(mesh, b.h_indices.shape[0] // world)] for b in blob["batches"]]
+    res = {"mesh": (mesh.rank, mesh.world_size, mesh.backend, str(mesh.device))}
+    if backend == "gloo":
+        step_fn = make_train_step(cfg, cam, buffers, state.optimizer, mesh=mesh)
+        res["grads"], res["params"], secs = [], [], []
+        for i, b in enumerate(rows[:DP_EAGER_STEPS]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, b, torch.Generator(device=mesh.device).manual_seed(2000 + i))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            res["grads"].append(dp_grads(state))
+            res["params"].append({n: t.detach().cpu().clone() for n, t in tree_items(state.params)})
+        res["secs"] = secs
+    else:
+        scan = make_train_step_scan(cfg, cam, buffers, state.optimizer, n_steps=DP_K, mesh=mesh)
+        stacked = stack_bundles(rows[:DP_K])
+        secs = []
+        for _ in range(3):  # the first call (eager, then the capture), then two replays
+            train_restore(state, start)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = scan(state, stacked, [torch.Generator(device=mesh.device).manual_seed(2000 + i)
+                                                   for i in range(DP_K)])
+            torch.cuda.synchronize()
+            secs.append((time.perf_counter() - t0) / DP_K)
+        res.update(secs=secs, grads=dp_grads(state),
+                   params={n: t.detach().cpu().clone() for n, t in tree_items(state.params)},
+                   metrics={k: float(v) for k, v in metrics.items()})
+        # One eager step from the start: its gradients against the world-1 gradients.
+        train_restore(state, start)
+        make_train_step(cfg, cam, buffers, state.optimizer, mesh=mesh)(
+            state, rows[0], torch.Generator(device=mesh.device).manual_seed(2000))
+        res["first_grads"] = dp_grads(state)
+    return res
+
+
+def dp_rank_views(rank: int, world: int, argv: list, out_dir: str) -> None:
+    """A rank of phase 11(d): gloo on the one card, the Trainer of
+    ``argv`` (resuming its run directory's checkpoint) registers, renders
+    and scores its share of the test views through ``render_test_views``;
+    the merged raygen tables and the val/ means kept."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    os.environ["LOCAL_WORLD_SIZE"], os.environ["LOCAL_RANK"] = "1", "0"
+    from nrhints_torch.configs.cli import parse_cli
+    from nrhints_torch.configs.config import DEFAULT_PRESET, PRESETS
+    from nrhints_torch.parallel.mesh import initialize_multihost
+    from nrhints_torch.train.trainer import Trainer
+
+    out = Path(out_dir)
+    initialize_multihost(f"file://{out / 'rendezvous'}", rank, world, device="cuda", backend="gloo")
+    trainer = Trainer(parse_cli(PRESETS, DEFAULT_PRESET, argv), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    means = trainer.render_test_views(is_final=True)
+    torch.cuda.synchronize()
+    torch.save({"step": trainer.global_step, "means": means, "secs": time.perf_counter() - t0,
+                "raygen": {k: v.detach().cpu().clone() for k, v in trainer.state.params["raygen"].items()}},
+               out / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def data_parallel_phase(smi: str, dev, td: dict, batches: list, tmp: Path, views: dict | None) -> None:
+    """Phase 11, data parallelism over ranks (nrhints_torch/parallel/mesh.py):
+    (a) rank 0 of a world-1 NCCL group trains phase 10(a)'s steps eagerly
+    and as a DP_K-step CUDA graph with its collectives captured, each bit
+    for bit against the group-less eager steps, timed, and one dispatch
+    profiled; (b) two gloo ranks on this card take DP_EAGER_STEPS eager
+    steps of the same 512-ray global batches: equal to each other bit for
+    bit after each step, each step's gradients within DP_GRAD_TOL of each
+    leaf's scale of the world-1 gradients at the same params, and the
+    params within GRAD_TOL of the world-1 steps'; (c) where two cards are
+    visible, two NCCL ranks the DP_K-step graph: equal to each other, a
+    first eager step's gradients within DP_GRAD_TOL and the params after
+    the graph within GRAD_TOL of the world-1 steps'; (d) with ``views`` (phase 9's resumed
+    run), two gloo ranks on this card register, render and score phase 9's
+    two test views from its step-40 checkpoint: the merged raygen tables
+    equal phase 9's single-rank registration bit for bit, the val/ means
+    within 1e-6."""
+    import gc
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from nrhints_torch.camera.rays import ray_generator_init
+    from nrhints_torch.kernels import cuda_lib
+    from nrhints_torch.parallel.mesh import initialize_multihost, make_mesh
+    from nrhints_torch.render.renderer import init_model_params
+    from nrhints_torch.train.step import init_train_state, loss_and_grads, make_optimizer, make_train_step, \
+        make_train_step_scan, stack_bundles
+    from nrhints_torch.utils import tree_items
+
+    tcfg, tcam, n_views = td["cfg"], td["camera"], td["n_views"]
+    # Phase 10(a)'s start: a fresh seed-0 state after eager warm-up steps,
+    # set to step 1000 (the learning rate and cos_anneal_ratio change every
+    # step there).
+    gen = torch.Generator().manual_seed(0)
+    params = {"renderer": init_model_params(tcfg.model, gen, device=dev)}
+    params["raygen"], buffers = ray_generator_init(gen, tcfg.ray_generator, n_views, device=dev)
+    state = init_train_state(params, make_optimizer(tcfg, params))
+    plain = make_train_step(tcfg, tcam, buffers, state.optimizer)
+    warm = torch.Generator(device=dev).manual_seed(0)
+    for b in batches[-TRAIN_WARMUP:]:
+        state, _ = plain(state, b, warm)
+    state.step = 1000
+    start = train_snapshot(state)
+    run = batches[:DP_K]
+
+    def gens():
+        return [torch.Generator(device=dev).manual_seed(2000 + i) for i in range(DP_K)]
+
+    def timed(fn, n_steps=DP_K):
+        """(fn(), seconds a step over ``n_steps`` steps)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / n_steps
+
+    def eager(step_fn):
+        m = None
+        for b, g in zip(run, gens()):
+            _, m = step_fn(state, b, g)
+        return m
+
+    m_ref, plain_s = timed(lambda: eager(plain))
+    ref = train_snapshot(state)
+    per_step = dict(sdf_stash_fwd=1, sdf_stash_bwd=1, mlp_stash_fwd=1, mlp_stash_bwd=1, round_machinery=8,
+                    shadow_final=1)
+
+    # (a) Rank 0 of a world-1 NCCL group.
+    initialize_multihost(f"file://{tmp / 'rendezvous_11a'}", 0, 1, device="cuda")
+    try:
+        mesh = make_mesh(1, device="cuda")
+        if (mesh.world_size, mesh.backend) != (1, "nccl"):
+            raise AssertionError(f"11(a): a world-1 NCCL mesh expected, got {mesh}")
+        train_restore(state, start)
+        m_eager, mesh_eager_s = timed(lambda: eager(make_train_step(tcfg, tcam, buffers, state.optimizer,
+                                                                    mesh=mesh)))
+        err = max(snapshot_err(train_snapshot(state), ref), snapshot_err(m_eager, m_ref))
+        if err[0] != 0.0:
+            raise AssertionError(f"11(a): the world-1 NCCL eager steps differ from the group-less steps: {err}")
+        scan = make_train_step_scan(tcfg, tcam, buffers, state.optimizer, n_steps=DP_K, mesh=mesh)
+        stacked = stack_bundles(run)
+        expected = {k: v * DP_K for k, v in dict({k: 0 for k in cuda_lib.launch_counts}, **per_step).items()}
+        secs = []
+        for i in range(3):  # the first call (eager, then the capture), then two replays
+            train_restore(state, start)
+            cuda_lib.reset_launch_counts()
+            (_, m_graph), s_ = timed(lambda: scan(state, stacked, gens()))
+            secs.append(s_)
+            if dict(cuda_lib.launch_counts) != expected:
+                raise AssertionError(f"11(a) dispatch {i}: launches {dict(cuda_lib.launch_counts)}, expected {expected}")
+            err = max(snapshot_err(train_snapshot(state), ref), snapshot_err(m_graph, m_ref))
+            if err[0] != 0.0:
+                raise AssertionError(f"11(a) dispatch {i}: the NCCL graph's steps differ from the group-less steps: "
+                                     f"{err}")
+        train_restore(state, start)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            scan(state, stacked, gens())
+            torch.cuda.synchronize()
+        groups = device_groups(prof)
+        busy = sum(groups.values()) / DP_K
+        bs = tcfg.model.batch_size
+        log(f"[data-parallel 11(a)] rank 0 of a world-1 NCCL group, {DP_K} stash steps of {bs} rays: group-less eager "
+            f"{plain_s:.5f} s/step; NCCL eager {mesh_eager_s:.5f} s/step ({bs / mesh_eager_s:.1f} rays/s); NCCL CUDA "
+            f"graph replay {secs[2]:.5f} s/step ({bs / secs[2]:.1f} rays/s; the other replay {secs[1]:.5f}; the "
+            f"first call, eager then the capture, {secs[0]:.5f}); params, Adam's state and the last metrics against "
+            f"the group-less eager steps: bit for bit, eager and graph; launches {DP_K} x {per_step}; on {smi}")
+        if busy > 0:
+            log(f"[profile] one 11(a) NCCL dispatch: device busy {busy:.3f} ms a step; idle share "
+                f"{1 - busy / (secs[2] * 1e3):.3f} of the unprofiled replay ({secs[2] * 1e3:.3f} ms a step); by group "
+                f"(ms a step) " + ", ".join(f"{g} {ms / DP_K:.3f}" for g, ms in
+                                          sorted(groups.items(), key=lambda kv: -kv[1])))
+        else:
+            log("[profile] the profiler recorded no device time in the 11(a) dispatch: not measured")
+    finally:
+        scan = None  # its graph goes before the group: NCCL keeps a communicator a live graph uses
+        gc.collect()
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+
+    # The start state and the global batches for the spawned ranks, and the
+    # world-1 eager steps they are held to.
+    train_restore(state, start)
+    start_file = tmp / "dp_start.pt"
+    torch.save({"cfg": tcfg, "camera": tcam, "buffers": tree_to(buffers, "cpu"), "params": tree_to(state.params, "cpu"),
+                "optimizer": state.optimizer.state_dict(), "step": state.step,
+                "batches": [b.to("cpu") for b in run]}, start_file)
+    w1_params, w1_secs = [], []
+    for b, g in list(zip(run, gens()))[:DP_EAGER_STEPS]:
+        _, s_ = timed(lambda: plain(state, b, g), 1)
+        w1_secs.append(s_)
+        w1_params.append({n: t.detach().cpu().clone() for n, t in tree_items(state.params)})
+    torch.cuda.empty_cache()
+
+    # (b) Two gloo ranks on this card.
+    out_b = tmp / "dp_11b"
+    out_b.mkdir()
+    t0 = time.perf_counter()
+    spawn_ranks(dp_rank_steps, 2, 2, "gloo", True, str(start_file), str(out_b))
+    wall_b = time.perf_counter() - t0
+    ranks = [torch.load(out_b / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    # Each step's gradients against the world-1 gradients at the same
+    # parameters (the ranks' before that step) and the same global batch
+    # and jitter; the params against the world-1 steps' after each step.
+    g_errs, p_errs = [], []
+    for i in range(DP_EAGER_STEPS):
+        for what in ("grads", "params"):
+            a, b_ = ranks[0][what][i], ranks[1][what][i]
+            if any(not torch.equal(a[n], b_[n]) for n in a):
+                raise AssertionError(f"11(b) step {i}: the two ranks' {what} differ")
+        before = ranks[0]["params"][i - 1] if i else start
+        with torch.no_grad():
+            for n, t in tree_items(state.params):
+                t.copy_(before[n])
+        state.step = start["step"] + i
+        loss_and_grads(state, tcfg, tcam, buffers, run[i], gens()[i])
+        g_errs.append(scaled_err(ranks[0]["grads"][i], dp_grads(state)))
+        p_errs.append(scaled_err(ranks[0]["params"][i], w1_params[i]))
+    log(f"[data-parallel 11(b)] two gloo ranks on one card ({ranks[0]['mesh']}, {ranks[1]['mesh']}), {DP_EAGER_STEPS} "
+        f"eager steps of a {tcfg.model.batch_size}-ray global batch ({tcfg.model.batch_size // 2} rays a rank): the "
+        f"ranks' gradients and params equal bit for bit after every step; each step's gradients against the world-1 "
+        f"gradients at the same params, worst leaf a step (of its scale, tol {DP_GRAD_TOL}): "
+        + ", ".join(f"{e:.3e} {n}" for e, n in g_errs) + f"; params against the world-1 steps' (tol {GRAD_TOL}): "
+        + ", ".join(f"{e:.3e} {n}" for e, n in p_errs)
+        + f"; s/step after the first step, rank 0 {sum(ranks[0]['secs'][1:]) / (DP_EAGER_STEPS - 1):.5f}, rank 1 "
+        f"{sum(ranks[1]['secs'][1:]) / (DP_EAGER_STEPS - 1):.5f} (world-1 eager {sum(w1_secs[1:]) / (DP_EAGER_STEPS - 1):.5f} "
+        f"in this process); the first step {ranks[0]['secs'][0]:.3f} s; both ranks' processes {wall_b:.1f} s; on {smi}")
+    if not max(g_errs)[0] <= DP_GRAD_TOL or not max(p_errs)[0] <= GRAD_TOL:
+        raise AssertionError(f"11(b): the two-rank steps differ from the world-1 steps: gradients {max(g_errs)}, "
+                             f"params {max(p_errs)}")
+
+    # (c) Two NCCL ranks, one card each, the captured dispatch.
+    if torch.cuda.device_count() < 2:
+        log(f"[data-parallel 11(c)] not run: {torch.cuda.device_count()} card visible, two NCCL ranks need two")
+    else:
+        out_c = tmp / "dp_11c"
+        out_c.mkdir()
+        t0 = time.perf_counter()
+        spawn_ranks(dp_rank_steps, 2, 2, "nccl", False, str(start_file), str(out_c))
+        wall_c = time.perf_counter() - t0
+        ranks = [torch.load(out_c / f"rank{r}.pt", weights_only=False) for r in range(2)]
+        for what in ("first_grads", "grads", "params"):
+            if any(not torch.equal(ranks[0][what][n], ranks[1][what][n]) for n in ranks[0][what]):
+                raise AssertionError(f"11(c): the two ranks' {what} differ")
+        train_restore(state, start)
+        loss_and_grads(state, tcfg, tcam, buffers, run[0], gens()[0])
+        g_err = scaled_err(ranks[0]["first_grads"], dp_grads(state))
+        p_err = scaled_err(ranks[0]["params"], {n: v.cpu() for n, v in ref.items() if " " not in n and n != "step"})
+        s_c = ranks[0]["secs"][2]
+        log(f"[data-parallel 11(c)] two NCCL ranks on two cards ({ranks[0]['mesh']}, {ranks[1]['mesh']}), a "
+            f"{DP_K}-step CUDA graph with its collectives: the ranks equal bit for bit; a first step's gradients "
+            f"against the world-1 gradients at the same params, worst leaf {g_err[1]}: {g_err[0]:.3e} of its scale "
+            f"(tol {DP_GRAD_TOL}); params after {DP_K} steps against the world-1 steps', worst leaf {p_err[1]}: "
+            f"{p_err[0]:.3e} (tol {GRAD_TOL}); graph replay {s_c:.5f} s/step, {tcfg.model.batch_size / s_c:.1f} global rays/s (rank 1 "
+            f"{ranks[1]['secs'][2]:.5f}; the first call {ranks[0]['secs'][0]:.5f}); loss {ranks[0]['metrics']['loss']:.6f} "
+            f"against the world-1 run's {float(m_ref['loss']):.6f}; both ranks' processes {wall_c:.1f} s; on {smi}")
+        if not g_err[0] <= DP_GRAD_TOL or not p_err[0] <= GRAD_TOL:
+            raise AssertionError(f"11(c): the two NCCL ranks differ from the world-1 steps: gradients {g_err}, "
+                                 f"params {p_err}")
+
+    # (d) Phase 9's test views at two gloo ranks on this card.
+    if views is None:
+        return
+    src = views["run_dir"]
+    base = tmp / "runs_11d"
+    dst = base / src.relative_to(views["base"])
+    shutil.copytree(src / "ckpt" / "step_0000040", dst / "ckpt" / "step_0000040")
+    argv = [str(base) if a == str(views["base"]) else a for a in views["argv"]]
+    argv[argv.index("--config.parallel.data-axis-size") + 1] = "2"
+    argv += ["--config.model.end-iter", "40"]
+    out_d = tmp / "dp_11d"
+    out_d.mkdir()
+    t0 = time.perf_counter()
+    spawn_ranks(dp_rank_views, 2, 2, argv, str(out_d))
+    wall_d = time.perf_counter() - t0
+    ranks = [torch.load(out_d / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    for res in ranks:
+        if res["step"] != 40:
+            raise AssertionError(f"11(d): a rank resumed at step {res['step']}, not 40")
+        unequal = [k for k, v in views["raygen"].items() if not torch.equal(res["raygen"][k], v)]
+        if unequal:
+            raise AssertionError(f"11(d): merged raygen tables differ from phase 9's registration: {unequal}")
+        if res["means"].keys() != views["means"].keys():
+            raise AssertionError(f"11(d): val/ keys {sorted(res['means'])} against {sorted(views['means'])}")
+    rel = max(abs(res["means"][k] - v) / abs(v) for res in ranks for k, v in views["means"].items())
+    log(f"[data-parallel 11(d)] two gloo ranks on one card, render_test_views on phase 9's 2 test views from its step-40 "
+        f"checkpoint: the merged raygen tables equal phase 9's single-rank registration bit for bit on both ranks; "
+        f"val/ means {ranks[0]['means']} against {views['means']}: worst rel {rel:.3e} (tol 1e-6); the views "
+        f"{ranks[0]['secs']:.2f} / {ranks[1]['secs']:.2f} s a rank; both ranks' processes {wall_d:.1f} s; on {smi}")
+    if not rel <= 1e-6:
+        raise AssertionError(f"11(d): val/ means differ from phase 9's: rel {rel:.3e}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -787,12 +1227,8 @@ def main() -> int:
         print(f"chip_smoke: no nrhints_torch package next to {__file__}", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    from nrhints_torch.camera.model import CameraModel
     from nrhints_torch.camera.rays import ray_generator_init
-    from nrhints_torch.configs.config import nr_hints_cam_opt
     from nrhints_torch.core.structs import PixelBundle
-    from nrhints_torch.data.sampler import PixelSampler
-    from nrhints_torch.data.synthetic import scene_views
     from nrhints_torch.eval.evaluator import Evaluator
     from nrhints_torch.fields.sdf import _layer_dims
     from nrhints_torch.kernels import core_mlp, core_stash, cuda_lib, march
@@ -818,6 +1254,16 @@ def main() -> int:
         log(f"[build] csrc/{name}.cu: {rec['seconds']:.1f} s")
         for line in ptxas_summary(rec["ptxas"]):
             log(line)
+
+    if sys.argv[1:] == ["--data-parallel"]:  # phase 11 (a)-(c) alone, after the build
+        import tempfile
+
+        td = train_data(dev, 128, 128)
+        with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
+            data_parallel_phase(smi, dev, td, [td["next_batch"]() for _ in range(TRAIN_WARMUP + TRAIN_STEPS + 1)],
+                                Path(tmp), None)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+        return 0
 
     # 3. Kernels at the main path's shapes: one 512-ray chunk of the view.
     mc = march_chunk(dev)
@@ -1373,19 +1819,9 @@ def main() -> int:
 
     # 5. Train path: nr-hints-cam-opt at full width, 512-ray batches of 8
     # procedural views, through make_train_step.
-    tcfg = nr_hints_cam_opt()
-    n_views = 8
-    sc = scene_views(n_views, H, W, seed=0)
-    tcam = CameraModel(H, W, W / 2.0, H / 2.0, sc["focal"], sc["focal"], 0.1, 6.0)
-    sampler = PixelSampler(n_views, H, W, tcfg.model.batch_size)
-    images, poses, pls_v = (torch.tensor(sc[k], device=dev) for k in ("images", "poses", "pls"))
-
-    def next_batch(n_rays=None):
-        s_ = sampler.sample_batch()
-        img, hi, wi = (torch.as_tensor(a[:n_rays], device=dev) for a in (s_.img_indices, s_.h_indices, s_.w_indices))
-        return PixelBundle(h_indices=hi.float(), w_indices=wi.float(), poses=poses[img], pls=pls_v[img],
-                           img_indices=img, rgb_gt=images[img, hi, wi])
-
+    td = train_data(dev, H, W)
+    tcfg, n_views, tcam, next_batch = td["cfg"], td["n_views"], td["camera"], td["next_batch"]
+    images, poses, pls_v = td["images"], td["poses"], td["pls"]
     batches = [next_batch() for _ in range(TRAIN_WARMUP + TRAIN_STEPS + 1)]
     b64 = next_batch(64)
     urng = np.random.default_rng(7)
@@ -1629,6 +2065,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
         eager_run = train_entry_phase(smi, step_secs["train path"], Path(tmp))
         dispatch_entry_phase(smi, Path(tmp), eager_run)
+        # 11. Data parallelism over ranks.
+        data_parallel_phase(smi, dev, td, batches, Path(tmp), eager_run["views"])
 
     def entry(name, source, replaces, launches_, err, ms, plain_ms, bound_ms, by):
         return {"name": name, "route": "cuda", "source": f"nrhints_torch/csrc/{source}",

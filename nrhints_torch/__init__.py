@@ -11,10 +11,11 @@ down to kernels A, B and C), slice 2 the train step under the stash
 backward (kernels D-G), and slice 3 the recompute backward schedule
 (``core_backward="recompute"``: kernels H, I, J), ``"stash_xla"``, and the
 fused eval trunk (``eval_reflectance_impl="pallas"``: kernel I), slice 4
-the round-4 march (kernels K-N), and slice 12 the training entry point,
+the round-4 march (kernels K-N); later slices the training entry point,
 ``python -m nrhints_torch`` (``__main__.py``: the scene parser, the
 trainer with its logs and checkpoints, test-view registration and
-metrics, the mesh and the video).  Entry
+metrics, the mesh and the video), and data parallelism over ranks, one
+process a card (``parallel/mesh.py``).  Entry
 points and the functions that build the model state (``init_model_params``,
 ``ray_generator_init``, ``params_from_jax``) run on the CUDA device unless
 the caller passes ``device="cpu"``, and raise without CUDA; on the CPU every

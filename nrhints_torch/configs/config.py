@@ -22,15 +22,37 @@ class IntervalsConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """Distribution settings; only their defaults (one device, no scaled
-    batch) are meaningful until the parallel slice."""
+    """Data parallelism over ranks, one process a card (``parallel/mesh.py``;
+    the JAX package's mesh settings, rewritten for ranks)."""
 
     data_axis_size: int = -1
+    """Ranks on the 'data' axis: -1 = every visible card on "cuda" (one
+    process on "cpu"); any other value must be the world size.  Above one,
+    ``python -m nrhints_torch`` starts one rank per device itself
+    (``train/trainer.py::launch``); under torchrun it must equal
+    torchrun's world size."""
     sample_axis_size: int = 1
+    """A second axis sharding the shadow march's samples (JAX's 'sample'
+    axis): not ported; above 1 it raises."""
     scale_global_batch: bool = False
+    """If True, global batch = batch_size * world size (the original code
+    keeps the global batch constant whatever the world size; that is the
+    default here too).  512 rays over 4 cards leave 128 rays a card;
+    scaling the batch is how more cards train faster per step."""
     batch_scale_lr_rule: str = "linear"
+    """LR compensation when scale_global_batch multiplies the batch by k:
+    "linear" (lr *= k), "sqrt" (lr *= sqrt(k)), or "none"."""
     multihost: bool = False
+    """Join the process group torchrun describes (``MASTER_ADDR``,
+    ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``LOCAL_WORLD_SIZE``) before building the mesh; ``launch`` does so
+    under torchrun whatever this says."""
     steps_per_dispatch: int = 1
+    """Train steps a dispatch: K > 1 runs K steps as one CUDA graph replay
+    on the card, bit for bit the single steps (on the CPU, K eager steps).
+    Under NCCL the graph holds the steps' collectives; a gloo group on the
+    card cannot be captured and raises.  Interval hooks fire when a
+    dispatch crosses the interval boundary."""
 
 
 @dataclass(frozen=True)

@@ -16,8 +16,12 @@ each on ``batch_size`` pixels of the view drawn afresh, through the eval
 render with the L1 loss.  Gradients flow through the rays only: the SDF
 core runs its differentiable stash op (kernels D and E on the card, E
 without its weight-gradient passes), the renderer's parameters are
-detached and the training optimizer is not touched.  Mesh-sharded eval is
-a later slice.
+detached and the training optimizer is not touched.
+
+An evaluator keeps to its rank's card.  JAX's per-host eval mesh shards a
+view's rays over the host's chips; here each process owns one card, so the
+parallelism of evaluation is the Trainer's: test views and video frames
+strided over the ranks.
 
 On the card both loops are CUDA graphs, as JAX runs each as one jit: a
 view's chunk sweep is captured once per (H, W, bundle path) and replayed
@@ -41,6 +45,7 @@ from nrhints_torch.camera.model import CameraModel
 from nrhints_torch.configs.config import SystemConfig
 from nrhints_torch.core.structs import PixelBundle
 from nrhints_torch.eval.metrics import lpips, lpips_available, psnr, ssim
+from nrhints_torch.parallel.mesh import DataMesh
 from nrhints_torch.train.step import forward_pipeline
 from nrhints_torch.utils import resolve_device, tree_items, tree_map
 
@@ -107,15 +112,15 @@ def _registration_adam(leaves, lr: float) -> torch.optim.Adam:
 
 
 class Evaluator:
-    def __init__(self, cfg: SystemConfig, camera: CameraModel, buffers: dict, *, device="cuda", mesh=None,
-                 pool=None):
+    def __init__(self, cfg: SystemConfig, camera: CameraModel, buffers: dict, *, device="cuda",
+                 mesh: Optional[DataMesh] = None, pool=None):
         """``device``: "cuda" (the default) or "cpu"; with no CUDA device
-        the default raises rather than running on the CPU.  ``pool``: a
+        the default raises rather than running on the CPU.  ``mesh``: the
+        Trainer's ``DataMesh``, of which only the device is used (this
+        rank's card): a view's rays are not split over ranks.  ``pool``: a
         CUDA graph memory pool to share with the caller's graphs (the
         Trainer's); by default the evaluator's graphs share one of their own."""
-        if mesh is not None:
-            raise NotImplementedError("mesh-sharded eval is a later slice (parallel/)")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else mesh.device)
         self.cfg = cfg
         self.camera = camera
         self.buffers = self._on_device(buffers)

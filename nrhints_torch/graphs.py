@@ -19,7 +19,13 @@ The recipe every caller follows:
   (they never run at once);
 * a capture launches nothing, so ``Graph.capture`` takes back the launch
   counts its wrappers added, and every ``replay`` adds them again:
-  ``cuda_lib.launch_counts`` counts the kernels that ran.
+  ``cuda_lib.launch_counts`` counts the kernels that ran;
+* in a process of a ``torch.distributed`` group, a capture refuses unsafe
+  calls of its own thread only (``capture_error_mode="thread_local"``):
+  NCCL's watchdog thread queries the events of earlier collectives, and
+  those queries must not end the capture.  A K-step train graph under
+  NCCL holds its collectives; the group's communicator is made before
+  the first capture (``parallel/mesh.py::initialize_multihost``).
 
 A capture or a replay that fails raises; nothing falls back to the eager
 loop.
@@ -29,6 +35,7 @@ from __future__ import annotations
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 from nrhints_torch.kernels import cuda_lib
 
@@ -69,7 +76,8 @@ class Graph:
     def capture(self, fn: Callable[[], Any]) -> Any:
         """Capture ``fn()`` -> its outputs (tensors the replays rewrite)."""
         before = dict(cuda_lib.launch_counts)
-        with torch.cuda.graph(self.graph, pool=self.pool):
+        mode = "thread_local" if dist.is_initialized() else "global"
+        with torch.cuda.graph(self.graph, pool=self.pool, capture_error_mode=mode):
             out = fn()
         self.launches = {k: cuda_lib.launch_counts[k] - before[k] for k in before}
         for k, v in self.launches.items():

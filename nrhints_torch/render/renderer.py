@@ -160,13 +160,12 @@ def _neus_alpha_from_cos(sdf, true_cos, dists, inv_s, cos_anneal_ratio):
     return torch.clamp((prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5), 0.0, 1.0)
 
 
-def check_ported(cfg: ModelConfig, *, is_training: bool = False, geometry_warmup: bool = False, mesh=None) -> None:
+def check_ported(cfg: ModelConfig, *, is_training: bool = False, geometry_warmup: bool = False) -> None:
     """Raise ``NotImplementedError`` for any setting that would reach a
     branch the port does not have yet."""
     r = cfg.renderer
     later = {
         "use_outside_nerf": r.use_outside_nerf,
-        "mesh sharding": mesh is not None,
         f"depth_type={r.depth_type!r}": r.depth_type != "alpha_blending",
         "n_shadow_importance_clip != -1 (partial shadow hint)": r.n_shadow_importance_clip != -1,
         "shadow_hint_gradient": r.shadow_hint_gradient,
@@ -261,7 +260,6 @@ def render_rays(
     cos_anneal_ratio: float | torch.Tensor = 1.0,
     background_rgb: torch.Tensor | None = None,
     uniforms: dict | None = None,
-    mesh=None,
 ) -> RenderOutput:
     """Render a flat batch of rays -> RenderOutput.
 
@@ -270,8 +268,9 @@ def render_rays(
     ``uniforms`` ({"strat": [B, 1], "shadow": [B, n_shadow_samples]}) when
     given, else from ``generator`` (``train_uniforms``).  The outputs carry gradients wherever
     the JAX package's do: the marches, the depth and the hints are cut.
-    ``geometry_warmup`` zeroes both hints."""
-    check_ported(cfg, is_training=is_training, geometry_warmup=geometry_warmup, mesh=mesh)
+    ``geometry_warmup`` zeroes both hints.  There is no mesh argument, as
+    JAX's has: under data parallelism a rank renders its own rays."""
+    check_ported(cfg, is_training=is_training, geometry_warmup=geometry_warmup)
     if is_training and generator is None and uniforms is None:
         raise ValueError("render_rays(is_training=True) needs a generator or uniforms for its jitter")
     rcfg = cfg.renderer

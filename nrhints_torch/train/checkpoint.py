@@ -2,11 +2,15 @@
 ``torch.save`` in place of orbax, the same layout):
 
 * ``ckpt/step_XXXXXXX/state.pt`` every N steps, with ``meta.json`` holding
-  the world size;
-* ``rng_state/step_XXXXXXX_host_0.pickle``: the host's random state (the
+  the world size as the JAX package counts it (hosts: ``world_size``) and
+  the ranks (``ranks``);
+* ``rng_state/step_XXXXXXX_host_{h}.pickle``: host h's random state (the
   pixel sampler's streams), restored tolerantly: a failure warns;
 * resume from an explicit path, or else the newest checkpoint, falling back
   to the previous one when the newest does not load.
+
+Under data parallelism the Trainer hands the state to rank 0 alone, and
+each host's first rank its sidecar.
 
 The state is whatever dict of tensors and numbers the trainer hands over
 (its params, Adam's moments and step, the raygen buffers); it loads onto
@@ -35,21 +39,26 @@ class CheckpointIO:
         self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         self.rng_dir.mkdir(parents=True, exist_ok=True)
 
-    def save(self, step: int, state: dict, rng_sidecar: Optional[dict] = None,
-             world_size: Optional[int] = None) -> None:
-        path = self.ckpt_dir / f"step_{step:07d}"
-        path.mkdir(parents=True, exist_ok=True)
-        tmp = path / (STATE_FILE + ".tmp")
-        torch.save(state, tmp)
-        tmp.replace(path / STATE_FILE)
-        if world_size is not None:
-            (path / "meta.json").write_text(json.dumps({"world_size": world_size}))
+    def save(self, step: int, state: Optional[dict], rng_sidecar: Optional[dict] = None,
+             world_size: Optional[int] = None, *, host_index: int = 0, ranks: Optional[int] = None) -> None:
+        """``state`` (None: none written) and its ``meta.json`` with
+        ``world_size``, the host count, and ``ranks`` (default: one a host);
+        ``rng_sidecar`` as host ``host_index``'s."""
+        if state is not None:
+            path = self.ckpt_dir / f"step_{step:07d}"
+            path.mkdir(parents=True, exist_ok=True)
+            tmp = path / (STATE_FILE + ".tmp")
+            torch.save(state, tmp)
+            tmp.replace(path / STATE_FILE)
+            if world_size is not None:
+                meta = {"world_size": world_size, "ranks": world_size if ranks is None else ranks}
+                (path / "meta.json").write_text(json.dumps(meta))
         if rng_sidecar is not None:
-            with open(self._sidecar(step), "wb") as f:
+            with open(self._sidecar(step, host_index), "wb") as f:
                 pickle.dump(rng_sidecar, f)
 
-    def _sidecar(self, step: int) -> pathlib.Path:
-        return self.rng_dir / f"step_{step:07d}_host_0.pickle"  # one process: host 0
+    def _sidecar(self, step: int, host_index: int) -> pathlib.Path:
+        return self.rng_dir / f"step_{step:07d}_host_{host_index}.pickle"
 
     def available_steps(self) -> list[int]:
         steps = []
@@ -78,15 +87,16 @@ class CheckpointIO:
                 warnings.warn(f"no loadable checkpoint found (last error: {e!r})")
         return None, None
 
-    def load_rng_sidecar(self, step: int) -> Optional[dict]:
+    def load_rng_sidecar(self, step: int, host_index: int = 0) -> Optional[dict]:
         try:
-            with open(self._sidecar(step), "rb") as f:
+            with open(self._sidecar(step, host_index), "rb") as f:
                 return pickle.load(f)
         except Exception as e:
             warnings.warn(f"rng state resume failed ({e!r}); results may not be fully reproducible")
             return None
 
     def load_world_size(self, step: int) -> Optional[int]:
+        """The host count a checkpoint was written at (None if unrecorded)."""
         path = self.ckpt_dir / f"step_{step:07d}" / "meta.json"
         try:
             return int(json.loads(path.read_text())["world_size"])

@@ -30,6 +30,18 @@ and its step count on the device.  On the CPU the optimizer keeps float
 learning rates.  ``make_train_step_scan`` runs K steps as one graph replay
 on the card (the JAX package's ``lax.scan``) and as K eager steps on the
 CPU.
+
+With a distributed ``DataMesh`` (``parallel/mesh.py``) each rank steps on
+its own rows of the global batch and takes its rows of the global batch's
+jitter, drawn from the step's generator.  Its loss is its share of the
+global loss, as GSPMD differentiates the JAX step: its rgb L1 sum over the
+global batch, and its masked eikonal sum over the mask count of every rank
+(one scalar all-reduce in the forward).  After the backward one all-reduce
+sums every gradient and the metric shares through one flat f32 buffer, so
+every rank's Adam runs on the same bytes and the parameters stay equal bit
+for bit; the metrics are the global ones.  On the card, under NCCL, both
+collectives are captured in the K-step graph.  Without a process group
+the step is the single-device step, with no collective.
 """
 from __future__ import annotations
 
@@ -45,6 +57,7 @@ from nrhints_torch.camera.model import CameraModel
 from nrhints_torch.camera.rays import generate_rays
 from nrhints_torch.configs.config import SystemConfig
 from nrhints_torch.core.structs import PixelBundle, RenderOutput
+from nrhints_torch.parallel.mesh import DataMesh, all_reduce_grads, all_reduce_scalar, rank_rows
 from nrhints_torch.render.renderer import render_rays, train_uniforms
 from nrhints_torch.utils import tree_leaves
 
@@ -134,21 +147,38 @@ def init_train_state(params: dict, optimizer: torch.optim.Adam) -> TrainState:
     return TrainState(step=0, params=params, optimizer=optimizer)
 
 
-def compute_loss_dict(out: RenderOutput, rgb_gt: torch.Tensor, igr_weight: float) -> tuple[torch.Tensor, dict]:
+def compute_loss_dict(out: RenderOutput, rgb_gt: torch.Tensor, igr_weight: float,
+                      mesh: DataMesh | None = None) -> tuple[torch.Tensor, dict]:
+    """(loss, metric shares) of this rank's rows: its share of the global
+    loss (the rgb L1 sum over the global batch, the masked eikonal sum over
+    every rank's mask count) and its shares {rgb_loss, eikonal_loss, s_val,
+    mse}, which ``global_metrics`` turns into the global metrics once summed
+    over the ranks.  Only a distributed ``mesh`` runs the mask count's
+    scalar all-reduce; without one the shares are the batch's own."""
     batch = out.rgb.shape[0]
-    rgb_loss = torch.sum(torch.abs(out.rgb - rgb_gt)) / (batch + 1e-5)
+    world = 1 if mesh is None else mesh.world_size
+    rgb_loss = torch.sum(torch.abs(out.rgb - rgb_gt)) / (batch * world + 1e-5)
     grad_err = (torch.linalg.norm(out.analytic_normals, dim=-1) - 1.0) ** 2
     mask = out.relax_inside_sphere
-    eikonal_loss = torch.sum(mask * grad_err) / (torch.sum(mask) + 1e-5)
+    count = torch.sum(mask) if mesh is None else all_reduce_scalar(torch.sum(mask))
+    eikonal_loss = torch.sum(mask * grad_err) / (count + 1e-5)
     loss = rgb_loss + eikonal_loss * igr_weight
     mse = torch.mean((out.rgb - rgb_gt) ** 2)
-    psnr = -10.0 * torch.log10(mse + 1e-10)
-    return loss, {
-        "loss": loss,
+    return loss, {"rgb_loss": rgb_loss, "eikonal_loss": eikonal_loss, "s_val": torch.mean(out.s_val) / world,
+                  "mse": mse / world}
+
+
+def global_metrics(shares: dict, igr_weight: float) -> dict:
+    """The metrics {loss, rgb_loss, eikonal_loss, s_val, psnr} of the global
+    batch from the summed shares of ``compute_loss_dict`` (PSNR from the
+    global MSE)."""
+    rgb_loss, eikonal_loss = shares["rgb_loss"], shares["eikonal_loss"]
+    return {
+        "loss": rgb_loss + eikonal_loss * igr_weight,
         "rgb_loss": rgb_loss,
         "eikonal_loss": eikonal_loss,
-        "s_val": torch.mean(out.s_val),
-        "psnr": psnr,
+        "s_val": shares["s_val"],
+        "psnr": -10.0 * torch.log10(shares["mse"] + 1e-10),
     }
 
 
@@ -164,9 +194,9 @@ def forward_pipeline(
     geometry_warmup: bool,
     cos_anneal_ratio,
     uniforms: dict | None = None,
-    mesh=None,
 ) -> RenderOutput:
-    """{renderer, raygen} params + a flat pixel batch -> RenderOutput."""
+    """{renderer, raygen} params + a flat pixel batch -> RenderOutput.  It
+    takes no mesh: a rank's rays are its own."""
     rays = generate_rays(params["raygen"], buffers, camera, cfg.ray_generator, batch)
     bg = 1.0 if cfg.data.white_background else 0.0
     return render_rays(
@@ -179,41 +209,75 @@ def forward_pipeline(
         cos_anneal_ratio=cos_anneal_ratio,
         background_rgb=torch.full((1, 3), bg, device=rays.origins.device),
         uniforms=uniforms,
-        mesh=mesh,
     )
+
+
+def _live_mesh(mesh: DataMesh | None) -> DataMesh | None:
+    """The mesh the step runs collectives over: None without a process
+    group, so one rank alone runs the single-device step unchanged."""
+    return mesh if mesh is not None and mesh.distributed else None
+
+
+def rank_uniforms(cfg: SystemConfig, mesh: DataMesh | None, n_rays: int, generator: torch.Generator | None, device,
+                  *, geometry_warmup: bool = False) -> dict:
+    """This rank's rows of the jitter uniforms of the global batch of
+    ``n_rays`` x world size rays, drawn from the step's ``generator`` in
+    ``render_rays``' order, as JAX's global key and sharded uniforms give
+    them (all rows where there is no group)."""
+    mesh = _live_mesh(mesh)
+    world = 1 if mesh is None else mesh.world_size
+    u = train_uniforms(cfg.model, n_rays * world, generator, device, geometry_warmup=geometry_warmup)
+    return u if mesh is None else {k: v[rank_rows(mesh, n_rays)] for k, v in u.items()}
 
 
 def loss_and_grads(state: TrainState, cfg: SystemConfig, camera: CameraModel, buffers: dict, batch: PixelBundle,
                    generator: torch.Generator | None = None, *, geometry_warmup: bool = False,
-                   uniforms: dict | None = None, cos_anneal_ratio: torch.Tensor | None = None) -> dict:
+                   uniforms: dict | None = None, cos_anneal_ratio: torch.Tensor | None = None,
+                   mesh: DataMesh | None = None) -> dict:
     """One forward and backward at ``state``: fills every leaf's ``.grad``
     (zeros for a leaf the loss does not reach, as JAX's grad gives) and
     returns the detached metrics.  ``cos_anneal_ratio``: a 0-d tensor on
-    the step's device; by default ``step_scalars``' value at ``state.step``."""
+    the step's device; by default ``step_scalars``' value at ``state.step``.
+
+    With a distributed ``mesh``, ``batch`` and ``uniforms`` are this rank's
+    rows (a ``generator`` gives the global draw's rows), and after the
+    backward one all-reduce sums the gradients and the metric shares: the
+    leaves then hold the global loss's gradients, the same bytes on every
+    rank, and the metrics are the global batch's."""
+    mesh = _live_mesh(mesh)
     if cos_anneal_ratio is None:
         cos = step_scalars(cfg, state.optimizer, state.step)[0]
         cos_anneal_ratio = torch.full((), cos, device=batch.h_indices.device)
+    if mesh is not None and uniforms is None:
+        uniforms = rank_uniforms(cfg, mesh, batch.h_indices.shape[0], generator, batch.h_indices.device,
+                                 geometry_warmup=geometry_warmup)
+        generator = None
     state.optimizer.zero_grad(set_to_none=True)
     out = forward_pipeline(
         state.params, buffers, cfg, camera, batch, generator, is_training=True, geometry_warmup=geometry_warmup,
         cos_anneal_ratio=cos_anneal_ratio, uniforms=uniforms,
     )
-    loss, metrics = compute_loss_dict(out, batch.rgb_gt, cfg.model.igr_weight)
+    loss, shares = compute_loss_dict(out, batch.rgb_gt, cfg.model.igr_weight, mesh)
     loss.backward()
-    for group in state.optimizer.param_groups:
-        for p in group["params"]:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-    return {k: v.detach() for k, v in metrics.items()}
+    leaves = [p for group in state.optimizer.param_groups for p in group["params"]]
+    for p in leaves:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    shares = {k: v.detach() for k, v in shares.items()}
+    if mesh is not None:
+        shares = {k: v.clone() for k, v in shares.items()}
+        all_reduce_grads([p.grad for p in leaves] + list(shares.values()))
+    return global_metrics(shares, cfg.model.igr_weight)
 
 
 def _step_body(state: TrainState, cfg: SystemConfig, camera: CameraModel, buffers: dict, batch: PixelBundle,
-               generator, uniforms, cos_anneal_ratio: torch.Tensor, lrs, *, geometry_warmup: bool) -> dict:
-    """One train step in place: forward, backward, the learning rates
-    ``lrs`` set, Adam's update.  The eager step and every step of a captured
-    K-step graph run this."""
+               generator, uniforms, cos_anneal_ratio: torch.Tensor, lrs, *, geometry_warmup: bool,
+               mesh: DataMesh | None = None) -> dict:
+    """One train step in place: forward, backward (and with a mesh the
+    gradients' all-reduce), the learning rates ``lrs`` set, Adam's update.
+    The eager step and every step of a captured K-step graph run this."""
     metrics = loss_and_grads(state, cfg, camera, buffers, batch, generator, geometry_warmup=geometry_warmup,
-                             uniforms=uniforms, cos_anneal_ratio=cos_anneal_ratio)
+                             uniforms=uniforms, cos_anneal_ratio=cos_anneal_ratio, mesh=mesh)
     set_lr(state.optimizer, lrs)
     state.optimizer.step()
     return metrics
@@ -226,15 +290,16 @@ def make_train_step(
     optimizer: torch.optim.Adam,
     *,
     geometry_warmup: bool = False,
-    mesh=None,
+    mesh: DataMesh | None = None,
 ):
     """-> ``step_fn(state, batch, generator, uniforms=None) -> (state,
     metrics)`` for one phase (``geometry_warmup`` or not).  The step updates
     ``state`` in place and returns it; the metrics are detached 0-d tensors
     (reading them waits for the device).  ``parallel.steps_per_dispatch``
-    is the Trainer's choice, as in JAX; this step is always one step."""
-    if mesh is not None:
-        raise NotImplementedError("mesh sharding: the data-parallel step is a later slice")
+    is the Trainer's choice, as in JAX; this step is always one step.
+    ``mesh``: the Trainer's ``DataMesh``; the batch (and any ``uniforms``)
+    are then this rank's rows, and the step is the global batch's."""
+    mesh = _live_mesh(mesh)
 
     def step_fn(state: TrainState, batch: PixelBundle, generator: torch.Generator | None = None,
                 uniforms: dict | None = None):
@@ -243,7 +308,7 @@ def make_train_step(
         cos, lrs = step_scalars(cfg, optimizer, state.step)
         cos_t = torch.full((), cos, device=batch.h_indices.device)
         metrics = _step_body(state, cfg, camera, buffers, batch, generator, uniforms, cos_t, lrs,
-                             geometry_warmup=geometry_warmup)
+                             geometry_warmup=geometry_warmup, mesh=mesh)
         state.step += 1
         return state, metrics
 
@@ -284,14 +349,15 @@ class _ScanGraph:
             self.cos.copy_(torch.tensor([c for c, _ in scalars], dtype=torch.float32))
             self.lrs.copy_(torch.tensor([lrs for _, lrs in scalars], dtype=torch.float32))
 
-    def run(self, state, cfg, camera, buffers, geometry_warmup: bool) -> dict:
-        """The K steps on the static inputs (eagerly, or under capture)."""
+    def run(self, state, cfg, camera, buffers, geometry_warmup: bool, mesh: DataMesh | None) -> dict:
+        """The K steps on the static inputs (eagerly, or under capture),
+        with their collectives where there is a mesh."""
         metrics = None
         for i in range(self.cos.shape[0]):
             u = {key: t[i] for key, t in self.uniforms.items()}
             lrs = [self.lrs[i, g] for g in range(self.lrs.shape[1])]
             metrics = _step_body(state, cfg, camera, buffers, self.batches[i], None, u, self.cos[i], lrs,
-                                 geometry_warmup=geometry_warmup)
+                                 geometry_warmup=geometry_warmup, mesh=mesh)
         return metrics
 
 
@@ -303,7 +369,7 @@ def make_train_step_scan(
     *,
     n_steps: int,
     geometry_warmup: bool = False,
-    mesh=None,
+    mesh: DataMesh | None = None,
     pool=None,
 ):
     """``n_steps`` train steps in one dispatch (JAX's ``lax.scan``) ->
@@ -321,12 +387,20 @@ def make_train_step_scan(
     uniforms are drawn outside the graph from its generator in
     ``render_rays``' order (``render/renderer.py::train_uniforms``).
     ``pool``: a graph memory pool to share with the caller's other graphs.
-    On the CPU the steps run eagerly, one by one."""
-    if mesh is not None:
-        raise NotImplementedError("mesh sharding: the data-parallel step is a later slice")
+    On the CPU the steps run eagerly, one by one.
+
+    ``mesh``: as ``make_train_step``'s; ``batches`` are this rank's rows.
+    Under NCCL the graph holds every step's two collectives (the mask
+    count's and the gradients'), which every rank replays in the same
+    order.  A gloo group cannot be captured, so on the card it raises
+    ``ValueError`` rather than running the steps eagerly."""
+    mesh = _live_mesh(mesh)
     if n_steps < 1:
         raise ValueError(f"n_steps must be at least 1, got {n_steps}")
-    step_fn = make_train_step(cfg, camera, buffers, optimizer, geometry_warmup=geometry_warmup)
+    if mesh is not None and mesh.device.type == "cuda" and mesh.backend != "nccl":
+        raise ValueError(f"a {mesh.backend} group's collectives cannot be captured in a CUDA graph: "
+                         f"steps_per_dispatch > 1 on the card needs NCCL")
+    step_fn = make_train_step(cfg, camera, buffers, optimizer, geometry_warmup=geometry_warmup, mesh=mesh)
     captured: _ScanGraph | None = None
 
     def scan_fn(state: TrainState, batches: PixelBundle, randomness: Sequence):
@@ -344,14 +418,14 @@ def make_train_step_scan(
             return state, metrics
         n_rays = batches.h_indices.shape[1]
         uniforms = [r if isinstance(r, dict) else
-                    train_uniforms(cfg.model, n_rays, r, dev, geometry_warmup=geometry_warmup) for r in randomness]
+                    rank_uniforms(cfg, mesh, n_rays, r, dev, geometry_warmup=geometry_warmup) for r in randomness]
         scalars = [step_scalars(cfg, optimizer, state.step + i) for i in range(n_steps)]
         if captured is None:
             sg = _ScanGraph(batches, uniforms, len(optimizer.param_groups), pool)
             sg.fill(batches, uniforms, scalars)
-            metrics = graphs.warm_up(lambda: sg.run(state, cfg, camera, buffers, geometry_warmup))
+            metrics = graphs.warm_up(lambda: sg.run(state, cfg, camera, buffers, geometry_warmup, mesh))
             optimizer.zero_grad(set_to_none=True)
-            sg.metrics = sg.graph.capture(lambda: sg.run(state, cfg, camera, buffers, geometry_warmup))
+            sg.metrics = sg.graph.capture(lambda: sg.run(state, cfg, camera, buffers, geometry_warmup, mesh))
             captured = sg
         else:
             captured.fill(batches, uniforms, scalars)

@@ -1,7 +1,8 @@
-"""Training orchestration (port of ``nrhints_tpu/train/trainer.py``, one
-process on one device): the run directory, the train loop with hooks that
-fire when the step crosses an interval (log, checkpoint, test views, mesh,
-video), resume, and a profiler window.
+"""Training orchestration (port of ``nrhints_tpu/train/trainer.py``): the
+run directory, the train loop with hooks that fire when the step crosses an
+interval (log, checkpoint, test views, mesh, video), resume, a profiler
+window, and data parallelism over ranks, one process a card
+(``parallel/mesh.py``).
 
 The loop draws each batch on the host (``DataManager``), copies it to the
 card and runs one eager train step, or, with ``parallel.steps_per_dispatch``
@@ -20,19 +21,31 @@ and light rows back into the live raygen tensors in place, so Adam keeps
 its references and moments.  The train graphs and the evaluator's graphs
 share one memory pool and live as long as the Trainer.
 
-Not ported yet (``NotImplementedError``): several processes or devices
-(``parallel.multihost``, ``data_axis_size`` or ``sample_axis_size`` > 1)
-and ``scale_global_batch``.
+Under a process group (``launch`` spawns one rank a device, or torchrun
+starts them) every rank runs this loop in step with the others.  A host
+draws the host batch as a JAX process does and each rank steps on its
+rows; the parameters start from one seed and are broadcast from rank 0,
+and every step sums the gradients over the ranks, so the ranks' states
+stay equal bit for bit.  Rank 0 alone writes ``config.json``, the logs,
+the logged images, the checkpoint and the mesh; each host's first rank
+writes its sidecar.  Test views and video frames are strided over the
+ranks: the metrics are gathered (NaN-padded rows, as JAX's), each rank's
+registered rows merged by ownership into every rank's live tables, and
+rank 0 writes every frame.  ``sample_axis_size`` > 1 is not ported.
 """
 from __future__ import annotations
 
+import gc
 import json
+import os
 import pathlib
 import time
+import uuid
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nrhints_torch.camera.rays import ray_generator_init
 from nrhints_torch.configs.cli import config_to_dict
@@ -41,51 +54,59 @@ from nrhints_torch.data.manager import DataManager
 from nrhints_torch.data.parser import SceneData, parse_load_nr_data
 from nrhints_torch.data.png import read_png, write_png
 from nrhints_torch.eval.evaluator import Evaluator
+from nrhints_torch.parallel import mesh as mesh_lib
 from nrhints_torch.render.renderer import extract_sdf_grid, init_model_params
 from nrhints_torch.train.checkpoint import CheckpointIO
 from nrhints_torch.train.logging import MetricsLogger
 from nrhints_torch.train.step import (
-    TrainState, init_train_state, make_optimizer, make_train_step, make_train_step_scan, stack_bundles,
+    TrainState, batch_scale_lr_factor, init_train_state, make_optimizer, make_train_step, make_train_step_scan,
+    stack_bundles,
 )
 from nrhints_torch.utils import resolve_device, tree_items
 
 
-def check_single_device(config: SystemConfig) -> None:
-    """Raise for the parallel settings the port does not have yet."""
-    p = config.parallel
-    later = {
-        "parallel.multihost": p.multihost,
-        "parallel.data_axis_size > 1": p.data_axis_size > 1,
-        "parallel.sample_axis_size > 1": p.sample_axis_size > 1,
-        "parallel.scale_global_batch": p.scale_global_batch,
-    }
-    missing = [name for name, hit in later.items() if hit]
-    if missing:
-        raise NotImplementedError(
-            "nrhints_torch's trainer runs one process on one device; not ported: " + ", ".join(missing)
-        )
+def global_batch_sizes(config: SystemConfig, mesh: mesh_lib.DataMesh) -> tuple[int, int]:
+    """(global batch, a host's batch): ``model.batch_size``, times the world
+    size under ``scale_global_batch`` (JAX's times ``len(jax.devices())``),
+    split evenly over the hosts and their ranks."""
+    global_batch = config.model.batch_size
+    if config.parallel.scale_global_batch:
+        global_batch *= mesh.world_size
+    if global_batch % mesh.host_count:
+        raise ValueError(f"global batch size ({global_batch}) must be divisible by the number of hosts "
+                         f"({mesh.host_count})")
+    if global_batch % mesh.world_size:
+        raise ValueError(f"global batch size ({global_batch}) must be divisible by the number of ranks "
+                         f"({mesh.world_size})")
+    return global_batch, global_batch // mesh.host_count
 
 
 class Trainer:
     def __init__(self, config: SystemConfig, scene: Optional[SceneData] = None, *, device="cuda"):
-        check_single_device(config)
         self.config = config
-        self.device = resolve_device(device)
+        device = resolve_device(device)
+        if config.parallel.multihost and not dist.is_initialized():
+            mesh_lib.initialize_multihost(device=device)
+        self.mesh = mesh_lib.make_mesh(config.parallel.data_axis_size,
+                                       sample_axis_size=config.parallel.sample_axis_size, device=device)
+        self.device = self.mesh.device
 
         self.log_dir = pathlib.Path(config.base_dir) / config.exp_name / config.scene_name
         self.log_dir.mkdir(parents=True, exist_ok=True)
-        (self.log_dir / "config.json").write_text(json.dumps(config_to_dict(config), indent=2))
-        self.logger = MetricsLogger(
-            self.log_dir,
-            use_wandb=config.use_wandb,
-            wandb_kwargs={
-                "project": "NR2023",  # the original code's project name
-                "group": config.exp_name,
-                "name": config.scene_name,
-                "id": f"{config.exp_name}_{config.scene_name}".replace("/", "_"),
-                "resume": "allow",
-            },
-        )
+        self.logger = None
+        if self.is_main_process:
+            (self.log_dir / "config.json").write_text(json.dumps(config_to_dict(config), indent=2))
+            self.logger = MetricsLogger(
+                self.log_dir,
+                use_wandb=config.use_wandb,
+                wandb_kwargs={
+                    "project": "NR2023",  # the original code's project name
+                    "group": config.exp_name,
+                    "name": config.scene_name,
+                    "id": f"{config.exp_name}_{config.scene_name}".replace("/", "_"),
+                    "resume": "allow",
+                },
+            )
 
         if scene is None:
             scene = parse_load_nr_data(
@@ -93,14 +114,18 @@ class Trainer:
             )
         self.scene = scene
         self.camera = scene.camera
-        self.global_batch = config.model.batch_size
+        # The global batch is constant across world sizes (the original
+        # code's rule) unless scale_global_batch is set; a host draws its
+        # share, and each of its ranks steps on its rows.
+        self.global_batch, self.local_batch = global_batch_sizes(config, self.mesh)
         self.data_manager = DataManager(
             scene,
-            batch_size=self.global_batch,
+            batch_size=self.local_batch,
             strategy=config.data.pixel_sampling_strategy,
             training_view_num_limit=config.data.view_num_limit,
             image_idx_rng_seed=config.seed,
             pixel_idx_rng_seed=config.seed,
+            local_rank=self.mesh.host_index,
         )
 
         gen = torch.Generator().manual_seed(config.seed)
@@ -108,13 +133,16 @@ class Trainer:
         params["raygen"], self.buffers = ray_generator_init(
             gen, config.ray_generator, scene.total_image_num, device=self.device
         )
-        self.optimizer = make_optimizer(config, params)
+        mesh_lib.replicate(self.mesh, params)
+        mesh_lib.replicate(self.mesh, self.buffers)
+        self.optimizer = make_optimizer(config, params, lr_scale=batch_scale_lr_factor(config, self.global_batch))
         self.state: TrainState = init_train_state(params, self.optimizer)
         self._jitter_seed = config.seed
 
-        self._step_normal = make_train_step(config, self.camera, self.buffers, self.optimizer, geometry_warmup=False)
+        self._step_normal = make_train_step(config, self.camera, self.buffers, self.optimizer, geometry_warmup=False,
+                                            mesh=self.mesh)
         self._step_warmup = (
-            make_train_step(config, self.camera, self.buffers, self.optimizer, geometry_warmup=True)
+            make_train_step(config, self.camera, self.buffers, self.optimizer, geometry_warmup=True, mesh=self.mesh)
             if config.model.geometry_warmup_end > 0
             else None
         )
@@ -123,7 +151,7 @@ class Trainer:
         self._scan_steps: dict[tuple, object] = {}
         self._graph_pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
 
-        self.evaluator = Evaluator(config, self.camera, self.buffers, device=self.device, pool=self._graph_pool)
+        self.evaluator = Evaluator(config, self.camera, self.buffers, mesh=self.mesh, pool=self._graph_pool)
         self.ckpt_io = CheckpointIO(self.log_dir)
         self.global_step = 0
         self._load_ckpt()
@@ -137,6 +165,10 @@ class Trainer:
         self._profile_done = False
 
     # ------------------------------------------------------------------
+
+    @property
+    def is_main_process(self) -> bool:
+        return self.mesh.is_main
 
     def _state_dict(self) -> dict:
         return {
@@ -167,35 +199,65 @@ class Trainer:
         self._scan_steps.clear()
 
     def _load_ckpt(self) -> None:
-        saved, step = self.ckpt_io.load_newest(self.config.ckpt_path)
+        """Resume: rank 0 loads the newest checkpoint and broadcasts it with
+        its recorded host count; each host restores its own sidecar only if
+        that count is its own (JAX's rule)."""
+        m = self.mesh
+        saved, step, last_hosts = None, None, None
+        if m.is_main:
+            saved, step = self.ckpt_io.load_newest(self.config.ckpt_path)
+            if saved is not None:
+                step = int(step) if step is not None else int(saved["step"])
+                last_hosts = self.ckpt_io.load_world_size(step)
+        saved, step, last_hosts = mesh_lib.broadcast_object(m, (saved, step, last_hosts))
         if saved is None:
             return
         self._load_state_dict(saved)
-        self.global_step = int(step) if step is not None else self.state.step
-        last_world = self.ckpt_io.load_world_size(self.global_step)
-        if last_world is None or last_world == 1:
-            sidecar = self.ckpt_io.load_rng_sidecar(self.global_step)
+        self.global_step = step
+        if last_hosts is None or last_hosts == m.host_count:
+            sidecar = self.ckpt_io.load_rng_sidecar(self.global_step, m.host_index)
             if sidecar is not None:
                 self.data_manager.sampler.set_state(sidecar["sampler"])
                 self._jitter_seed = int(sidecar["jitter_seed"])
 
     def _save_ckpt(self) -> None:
+        """Rank 0 writes the state and ``meta.json``, each host's first rank
+        its sidecar; every rank waits for all of it."""
+        m = self.mesh
         self.ckpt_io.save(
             self.global_step,
-            self._state_dict(),
-            rng_sidecar={"sampler": self.data_manager.sampler.get_state(), "jitter_seed": self._jitter_seed},
-            world_size=1,
+            self._state_dict() if m.is_main else None,
+            rng_sidecar={"sampler": self.data_manager.sampler.get_state(), "jitter_seed": self._jitter_seed}
+            if m.local_rank == 0 else None,
+            world_size=m.host_count,
+            host_index=m.host_index,
+            ranks=m.world_size,
         )
+        mesh_lib.barrier(m)
 
-    @staticmethod
-    def _merge_registered_raygen(baseline: dict, updated: dict, owned_rows: list) -> dict:
-        raise NotImplementedError("merging registered raygen rows across hosts: the multi-host trainer is a later slice")
+    def _merge_registered_raygen(self, baseline: dict, updated: dict, owned_rows: list) -> dict:
+        """Every rank's registered raygen rows in one table (JAX's ownership
+        merge): each test view is registered by one rank, so each row is
+        taken from the rank that owns it as its registration left it, and
+        from ``baseline`` where no rank does; the merged tables equal one
+        rank registering every view, bit for bit.  Every rank enters, with
+        or without views of its own.  -> {name: numpy table}."""
+        rows = mesh_lib.all_gather_object_or_array(self.mesh, sorted(owned_rows))
+        merged = {}
+        for k in sorted(baseline):  # the same collective order on every rank
+            tables = mesh_lib.all_gather_object_or_array(self.mesh, updated[k].detach().cpu().numpy())
+            out = baseline[k].detach().cpu().numpy().copy()
+            for r, own in enumerate(rows):
+                out[own] = tables[r][own]
+            merged[k] = out
+        return merged
 
     # ------------------------------------------------------------------
 
     def _maybe_profile(self) -> None:
-        """Start or stop the profiler window at a crossing of its ends."""
-        if self._profile_range is None:
+        """Start or stop the profiler window at a crossing of its ends (on
+        rank 0)."""
+        if self._profile_range is None or not self.is_main_process:
             return
         a, b = self._profile_range
         if self._profiler is None and not self._profile_done and self.global_step >= a:
@@ -248,7 +310,7 @@ class Trainer:
         self._maybe_profile()
         warmup = self._in_warmup()
         if n_steps == 1:
-            batch = self.data_manager.next_train_batch().to(self.device)
+            batch = mesh_lib.shard_batch(self.mesh, self.data_manager.next_train_batch()).to(self.device)
             step_fn = self._step_warmup if warmup else self._step_normal
             self.state, metrics = step_fn(self.state, batch, self._jitter_generator(self.global_step))
             return metrics
@@ -256,9 +318,10 @@ class Trainer:
         if scan_fn is None:
             scan_fn = self._scan_steps[(warmup, n_steps)] = make_train_step_scan(
                 self.config, self.camera, self.buffers, self.optimizer, n_steps=n_steps, geometry_warmup=warmup,
-                pool=self._graph_pool,
+                mesh=self.mesh, pool=self._graph_pool,
             )
-        stacked = stack_bundles([self.data_manager.next_train_batch() for _ in range(n_steps)]).to(self.device)
+        stacked = stack_bundles([self.data_manager.next_train_batch() for _ in range(n_steps)])
+        stacked = mesh_lib.shard_batch(self.mesh, stacked, batch_axis=1).to(self.device)
         gens = [self._jitter_generator(self.global_step + i) for i in range(n_steps)]
         self.state, metrics = scan_fn(self.state, stacked, gens)
         return metrics
@@ -287,7 +350,8 @@ class Trainer:
                         m["steps_per_sec"] = steps / (now - last_log_t)
                         m["rays_per_sec"] = m["steps_per_sec"] * self.global_batch
                     last_log_t, last_log_step = now, gs
-                    self.logger.log(m, gs)
+                    if self.is_main_process:
+                        self.logger.log(m, gs)
                 if self._crossed(prev, gs, intervals.save_ckpt):
                     self._save_ckpt()
                 if self._crossed(prev, gs, intervals.render_test_views):
@@ -305,33 +369,45 @@ class Trainer:
 
     def render_test_views(self, is_final: bool = False) -> dict:
         """Register (with pose or light optimization on), render, score and
-        dump every ``testset_skip``-th test view (every one at the end);
-        log the metric means."""
+        dump every ``testset_skip``-th test view (every one at the end),
+        strided over the ranks as the original trainer strides them; gather
+        the metrics and log their means."""
+        m = self.mesh
+        total = self.data_manager.test_view_num
         skip = 1 if is_final else self.config.data.testset_skip
         rg = self.config.ray_generator
+        rg_on = rg.cam_opt_mode != "off" or rg.pl_opt
         params = self.state.params
-        metrics_list = []
-        for idx in range(0, self.data_manager.test_view_num, skip):
+        # The tables before registration, equal on every rank: the merge's baseline.
+        baseline = {k: v.detach().clone() for k, v in params["raygen"].items()} if rg_on else None
+        metrics_list, owned_rows = [], []
+        for idx in range(m.rank * skip, total, skip * m.world_size):
             pixels = self.data_manager.get_test_view(idx)
+            if rg_on and pixels.rgb_gt is not None:
+                owned_rows.append(int(pixels.img_indices.reshape(-1)[0]))
             img_dict, metrics, tensor_dict, params = self.evaluator.get_eval_dicts(params, pixels)
             self._save_dumps(idx, img_dict, tensor_dict)
-            if idx == 0:
+            if idx == 0 and self.is_main_process:
                 for k, v in img_dict.items():
                     self.logger.log_image(k, v * 0.5 + 0.5 if "normal" in k else v, self.global_step)
             metrics_list.append(metrics)
 
         # The registered rows persist into training, as the original code's
         # in-place ray generator makes them; test rows are never sampled.
-        if metrics_list and (rg.cam_opt_mode != "off" or rg.pl_opt):
+        # Copied into the live tensors in place, so Adam keeps them.
+        if rg_on:
+            registered = self._merge_registered_raygen(baseline, params["raygen"], owned_rows)
             with torch.no_grad():
                 for k, t in self.state.params["raygen"].items():
-                    t.copy_(params["raygen"][k])
+                    t.copy_(torch.as_tensor(registered[k]))
 
-        all_metrics = [m for m in metrics_list if m]
+        n_rows = -(-total // (skip * m.world_size))
+        all_metrics = _array_to_metrics(mesh_lib.all_gather_object_or_array(m, _metrics_to_array(metrics_list, n_rows)))
         means: dict = {}
         if all_metrics:
-            means = {f"val/{k}": float(np.mean([m[k] for m in all_metrics])) for k in all_metrics[0]}
-            self.logger.log(means, self.global_step)
+            means = {f"val/{k}": float(np.mean([mt[k] for mt in all_metrics])) for k in all_metrics[0]}
+            if self.is_main_process:
+                self.logger.log(means, self.global_step)
         return means
 
     def _save_dumps(self, view_idx: int, img_dict: dict, tensor_dict: dict) -> None:
@@ -351,7 +427,9 @@ class Trainer:
     def dump_mesh(self, resolution: int = 256) -> Optional[pathlib.Path]:
         """The SDF grid on the device, marching cubes on the host, the OBJ
         to disk (the raw grid as .npy when the marching cubes cannot
-        build)."""
+        build).  Rank 0 alone; the others return None."""
+        if not self.is_main_process:
+            return None
         mesh_dir = self.log_dir / "mesh"
         mesh_dir.mkdir(parents=True, exist_ok=True)
         bmin, bmax = [-1.01] * 3, [1.01] * 3
@@ -372,25 +450,41 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def render_video(self) -> None:
-        """Render both turntable clips' frames to PNGs, then encode them.
-        Frame i + 1 is queued on the device before frame i is read back, so
-        a frame's copy to the host overlaps the next frame's render."""
+        """Render both turntable clips' frames, strided over the ranks;
+        rank 0 writes every frame (gathered from the others) as PNGs and
+        encodes them.  Frame i + 1 is queued on the device before frame i is
+        read back, so a frame's copy to the host overlaps the next frame's
+        render.  Every rank enters every gather; one with no frame left
+        sends a black one."""
+        m = self.mesh
         video_dir = self.log_dir / "video"
         frame_dir = video_dir / f"step_{self.global_step:07d}"
-        frame_dir.mkdir(parents=True, exist_ok=True)
+        if self.is_main_process:
+            frame_dir.mkdir(parents=True, exist_ok=True)
         bundles = self.data_manager.get_video_pixel_bundles(
             self.config.data.video_frame_num, is_z_up=self.config.data.is_z_up
         )
         params = self.state.params
-        n = len(bundles)
-        pending = self.evaluator.render_image_async(params, bundles[0]) if n else None
-        for idx in range(n):
+        n, H, W = bundles.shape
+        rounds = -(-n // m.world_size)
+
+        def dispatch(i: int):
+            idx = i * m.world_size + m.rank
+            return self.evaluator.render_image_async(params, bundles[idx]) if idx < n else None
+
+        pending = dispatch(0) if rounds else None
+        for i in range(rounds):
             fin = pending
-            if idx + 1 < n:
-                pending = self.evaluator.render_image_async(params, bundles[idx + 1])
-            rgb = np.clip(fin()["rgb"] * 255, 0, 255).astype(np.uint8)
-            write_png(frame_dir / f"{idx:03d}.png", rgb)
-        self._encode_videos(frame_dir, video_dir, n)
+            if i + 1 < rounds:
+                pending = dispatch(i + 1)
+            rgb = np.clip(fin()["rgb"] * 255, 0, 255).astype(np.uint8) if fin is not None else \
+                np.zeros((H, W, 3), np.uint8)
+            frames = mesh_lib.all_gather_object_or_array(m, rgb)
+            for r in range(m.world_size):
+                if self.is_main_process and i * m.world_size + r < n:
+                    write_png(frame_dir / f"{i * m.world_size + r:03d}.png", frames[r])
+        if self.is_main_process:
+            self._encode_videos(frame_dir, video_dir, n)
 
     def _encode_videos(self, frame_dir, video_dir, n_frames: int) -> None:
         """The two clips as mp4 through imageio where it can, else the PNG
@@ -413,8 +507,97 @@ class Trainer:
             print(f"mp4 encode unavailable ({e!r}); PNG frames kept in {frame_dir}")
 
 
-def launch(config: SystemConfig, device="cuda") -> Trainer:
-    """Build a trainer and run it."""
-    trainer = Trainer(config, device=device)
-    trainer.run()
-    return trainer
+_METRIC_KEYS = ("psnr", "ssim", "lpips")
+JOIN_POLL_S = 60.0
+
+
+def _metrics_to_array(metrics_list, n_rows: int) -> np.ndarray:
+    """Metric dicts -> [n_rows, 3] f64 (psnr, ssim, lpips) for a gather, the
+    same shape on every rank: rows past a rank's views and absent metrics
+    are NaN (JAX's ``_metrics_to_array``, in f64)."""
+    arr = np.full((max(n_rows, 1), len(_METRIC_KEYS)), np.nan)
+    for i, mt in enumerate(metrics_list):
+        for j, k in enumerate(_METRIC_KEYS):
+            if k in mt:
+                arr[i, j] = mt[k]
+    return arr
+
+
+def _array_to_metrics(arr) -> list:
+    """Gathered rows -> the metric dicts of the views, NaN left out."""
+    out = []
+    for row in np.asarray(arr).reshape(-1, len(_METRIC_KEYS)):
+        mt = {k: float(v) for k, v in zip(_METRIC_KEYS, row) if np.isfinite(v)}
+        if mt:
+            out.append(mt)
+    return out
+
+
+def devices_wanted(config: SystemConfig, device) -> int:
+    """The ranks ``parallel.data_axis_size`` asks for on ``device``: -1 is
+    every visible card on the card and one process on the CPU; more cards
+    than are visible raise ``ValueError``."""
+    n = config.parallel.data_axis_size
+    if torch.device(device).type == "cuda":
+        visible = torch.cuda.device_count()
+        n = visible if n == -1 else n
+        if n > visible:
+            raise ValueError(f"data_axis_size {n} > the {visible} visible card(s)")
+    elif n == -1:
+        n = 1
+    if n < 1:
+        raise ValueError(f"data_axis_size must be -1 or at least 1, got {config.parallel.data_axis_size}")
+    return n
+
+
+def _spawned_rank(rank: int, config: SystemConfig, device: str, init_method: str, world_size: int) -> None:
+    """One rank of ``launch``'s workers: join the group, train, leave.  The
+    trainer and its CUDA graphs go before the group: NCCL does not destroy
+    a communicator that a live graph's kernels still use.  A rank that
+    fails leaves its group as it is (a peer may be waiting in a
+    collective); ``launch`` then stops every rank."""
+    if device == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
+    mesh_lib.initialize_multihost(init_method, rank, world_size, device=device)
+    _train(config, device)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.synchronize()  # the freed graphs release their NCCL resources
+    dist.destroy_process_group()
+
+
+def _train(config: SystemConfig, device: str) -> None:
+    Trainer(config, device=device).run()
+
+
+def launch(config: SystemConfig, device="cuda") -> Optional[Trainer]:
+    """Build a trainer and run it, on as many ranks as the config asks for.
+
+    * Under torchrun, or with ``parallel.multihost``: join the group torchrun
+      describes and run this rank's trainer -> the trainer.
+    * Else, where ``data_axis_size`` resolves to more than one device: start
+      one worker a device (``torch.multiprocessing``, spawn; a ``file://``
+      rendezvous in the run directory; NCCL on "cuda", gloo on "cpu"),
+      join them, and raise if any fails -> None, as the original launcher
+      did.
+    * With one device, one trainer in this process -> the trainer."""
+    device = resolve_device(device)
+    if mesh_lib.under_torchrun() and not dist.is_initialized():
+        mesh_lib.initialize_multihost(device=device)
+    n = 1 if dist.is_initialized() or config.parallel.multihost else devices_wanted(config, device)
+    if n == 1:
+        trainer = Trainer(config, device=device)
+        trainer.run()
+        return trainer
+    run_dir = pathlib.Path(config.base_dir) / config.exp_name / config.scene_name
+    run_dir.mkdir(parents=True, exist_ok=True)
+    rendezvous = (run_dir / f".rendezvous_{uuid.uuid4().hex}").resolve()
+    try:
+        ctx = torch.multiprocessing.start_processes(
+            _spawned_rank, args=(config, device.type, f"file://{rendezvous}", n), nprocs=n, join=False,
+            start_method="spawn")
+        while not ctx.join(timeout=JOIN_POLL_S):
+            pass
+    finally:
+        rendezvous.unlink(missing_ok=True)
+    return None

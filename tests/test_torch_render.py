@@ -64,7 +64,7 @@ UNPORTED = [
     ({"shadow_hint_gradient": True}, {}),
     ({"n_importance_samples": 32}, {}),
     ({"core_backward": "stash_all"}, {"is_training": True}),
-    ({}, {"mesh": object()}),
+    ({"n_shadow_samples": 32}, {}),  # a shadow march geometry the fused kernels do not take
 ]
 
 

@@ -506,13 +506,20 @@ def test_entry_points_need_the_card_unless_asked(scene_dir, tmp_path):
             build()
 
 
-@pytest.mark.parametrize("parallel", [{"multihost": True}, {"data_axis_size": 2}, {"sample_axis_size": 2},
-                                      {"scale_global_batch": True}],
-                         ids=["multihost", "data_axis", "sample_axis", "scale_global_batch"])
-def test_unported_settings_raise(scene_dir, tmp_path, parallel):
+@pytest.mark.parametrize("parallel,error", [({"multihost": True}, ValueError), ({"data_axis_size": 2}, ValueError),
+                                            ({"sample_axis_size": 2}, NotImplementedError)],
+                         ids=["multihost", "data_axis", "sample_axis"])
+def test_unported_settings_raise(scene_dir, tmp_path, monkeypatch, parallel, error):
+    """Sample-axis sharding is not ported; ``multihost`` without torchrun's
+    environment, and a ``data_axis_size`` other than the world size (here
+    one process in no group), raise ``ValueError`` rather than training on
+    one device.  The settings that run across ranks are tested in
+    tests/test_torch_parallel.py."""
+    from nrhints_torch.parallel.mesh import TORCHRUN_ENV
+
+    for v in TORCHRUN_ENV:
+        monkeypatch.delenv(v, raising=False)
     _, cfg = _configs(scene_dir, tmp_path)
     cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel, **parallel))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         ttrainer.Trainer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ttrainer.Trainer._merge_registered_raygen({}, {}, [])
