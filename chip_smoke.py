@@ -1216,6 +1216,409 @@ def data_parallel_phase(smi: str, dev, td: dict, batches: list, tmp: Path, views
         raise AssertionError(f"11(d): val/ means differ from phase 9's: rel {rel:.3e}")
 
 
+# Phase 12: the unfused renderer and what rides on it.  PARITY.md's
+# trajectory geometry (16 + 2 x 8 camera samples, 16 + 16 shadow samples);
+# the eager steps of each training sub-phase; the K of 12(a)'s graph.  The
+# hash table is JAX's default (16 levels of 2^19 rows of 2 features, 64 MiB).
+PARITY_GEOMETRY = dict(n_samples=16, n_importance_samples=16, up_sample_steps=2, n_shadow_samples=16,
+                       n_shadow_importance_samples=16)
+OFFPATH_WARMUP, OFFPATH_STEPS, OFFPATH_SHORT, OFFPATH_K = 3, 10, 5, 4
+# The partial hint's shadow map is the transmittance of one shadow ray per
+# pixel that ends at the camera ray's largest-weight sample, on the
+# surface, where its last samples lie; the bf16 march's draws there move
+# between the card's kernels and the CPU's plain versions (see z_err), and
+# the tau of a ray grazing the surface moves with them, more than at the
+# full hint's blended hit, so it is held at the gradients' GRAD_TOL.
+PARTIAL_SHADOW_TOL = 5e-2
+# A step's gradients can move with the last bits of its rays: the march's
+# draws where a ray's pdf is nearly uniform, and the background NeRF's
+# alpha, which weights the march's last samples by their spacing.  So phase
+# 12 measures each 64-ray step's conditioning, the CPU step again with the
+# camera origins an ulp away (on the CPU that moved a bg-NeRF step's
+# variance gradient by 0.115 of itself), and holds the card against the CPU
+# leaf by leaf at the larger of GRAD_TOL and CONTROL_FACTOR times that
+# control (the factor of the JAX package's trajectory test).
+CONTROL_FACTOR = 3.0
+# The hash table's gradient takes the eikonal term's share through the
+# spatial derivative of each point's trilinear weights, which jumps where a
+# point crosses a cell face (1,024 cells a side at the finest level), and a
+# row sums few points: a point whose position differs in its last bits
+# sends its share to other rows.  Card and CPU positions differ by more
+# than an ulp (an ulp of the origins alone moved the table's gradient by
+# 0.024-0.059 in relative norm, and 0.24 of its largest entry).  So 12(d)
+# holds the encoding on the same points on both devices at HASH_TOL (its
+# value, and the table's gradient through a loss with the eikonal term),
+# and a step's table gradient by the relative norm of its error at
+# HASH_STEP_TOL, which a wrong row or a missing term (an error of the
+# gradient's own size) crosses.
+HASH_TABLE = "/renderer/sdf/hash/table"
+HASH_TOL, HASH_STEP_TOL = 1e-5, 0.25
+# A sphere-traced depth stops at the first step whose |sdf| is below 1e-4.
+# A ray that grazes the surface may land within that band on one device and
+# step past it on the other, to a later crossing: its depth then jumps
+# (on an H100, 2 of the 64 pixels by up to 0.109).  The depth is held at
+# CPU_TOL on this share of the 64 pixels.
+SPHERE_DEPTH_SHARE = 0.9
+
+
+def with_model(cfg, sdf=None, **model_kw):
+    """``cfg`` with its SDF network's fields ``sdf`` and its model's
+    ``model_kw`` replaced."""
+    m = cfg.model
+    if sdf:
+        m = dataclasses.replace(m, sdf_network=dataclasses.replace(m.sdf_network, **sdf))
+    return dataclasses.replace(cfg, model=dataclasses.replace(m, **model_kw))
+
+
+def fresh_state(cfg, n_views: int, dev):
+    """A seed-0 train state of ``cfg`` on ``dev`` and its raygen buffers."""
+    import torch
+
+    from nrhints_torch.camera.rays import ray_generator_init
+    from nrhints_torch.render.renderer import init_model_params
+    from nrhints_torch.train.step import init_train_state, make_optimizer
+
+    gen = torch.Generator().manual_seed(0)
+    params = {"renderer": init_model_params(cfg.model, gen, device=dev)}
+    params["raygen"], buffers = ray_generator_init(gen, cfg.ray_generator, n_views, device=dev)
+    return init_train_state(params, make_optimizer(cfg, params)), buffers
+
+
+def launches_check(label: str, got: dict, per: dict, times: int = 1) -> None:
+    """Every kernel's launches equal ``per`` times ``times`` (0 for a kernel
+    ``per`` omits)."""
+    from nrhints_torch.kernels import cuda_lib
+
+    want = {k: per.get(k, 0) * times for k in cuda_lib.launch_counts}
+    if got != want:
+        raise AssertionError(f"[{label}] launches {got}, expected {want}")
+
+
+def offpath_train(label: str, smi: str, cfg, td: dict, batches: list, n_steps: int, per_step: dict, *,
+                  k_graph: int = 0, profile_step: bool = False) -> dict:
+    """Train a seed-0 state of ``cfg`` eagerly on ``batches`` (OFFPATH_WARMUP
+    steps, then ``n_steps`` timed, launches checked against ``per_step``),
+    optionally profile one more step (device busy, idle share) and run
+    ``k_graph`` steps as one CUDA graph against the same steps eager from the
+    same state; then hold one 64-ray step's gradients on the card against
+    the CPU's, leaf by leaf, at the larger of GRAD_TOL and CONTROL_FACTOR
+    times the CPU step's own change under an ulp of the rays (the hash
+    table at HASH_STEP_TOL).
+    -> {"s_step": ...}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nrhints_torch.core.structs import PixelBundle
+    from nrhints_torch.kernels import cuda_lib
+    from nrhints_torch.render.renderer import train_uniforms
+    from nrhints_torch.train.step import (
+        init_train_state, loss_and_grads, make_optimizer, make_train_step, make_train_step_scan, stack_bundles,
+    )
+    from nrhints_torch.utils import tree_items
+
+    dev, tcam = batches[0].h_indices.device, td["camera"]
+    state, buffers = fresh_state(cfg, td["n_views"], dev)
+    start = {name: t.detach().clone() for name, t in tree_items(state.params)}
+    step_fn = make_train_step(cfg, tcam, buffers, state.optimizer)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for b in batches[:OFFPATH_WARMUP]:
+        state, metrics = step_fn(state, b, gen)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for b in batches[OFFPATH_WARMUP:OFFPATH_WARMUP + n_steps]:
+        state, metrics = step_fn(state, b, gen)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    s_step = (time.perf_counter() - t0) / n_steps
+    launches_check(label, dict(cuda_lib.launch_counts), per_step, n_steps)
+    losses = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"[{label}] non-finite training loss: {losses}")
+    moved = sum(not torch.equal(t.detach(), start[name]) for name, t in tree_items(state.params))
+    if not any(not torch.equal(t.detach(), start[n]) for n, t in tree_items(state.params) if n.startswith("/raygen/")):
+        raise AssertionError(f"[{label}] the pose deltas did not move")
+    bs = cfg.model.batch_size
+    log(f"[{label}] {n_steps} eager steps of {bs} rays: {s_step:.5f} s/step, {bs / s_step:.1f} train rays/s on {smi}; "
+        f"loss {losses[0]:.5f} -> {losses[-1]:.5f}; {moved} of {len(start)} leaves moved; launches a step "
+        f"{per_step or 'none'}")
+    nxt = OFFPATH_WARMUP + n_steps
+    if profile_step:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, _ = step_fn(state, batches[nxt], gen)
+            torch.cuda.synchronize()
+        groups = device_groups(prof)
+        busy = sum(groups.values())
+        if busy > 0:
+            log(f"[profile] one {label} step: device busy {busy:.2f} ms; idle share {1 - busy / (s_step * 1e3):.3f} "
+                f"of the unprofiled step ({s_step * 1e3:.2f} ms); by group (ms) " + ", ".join(
+                    f"{g} {ms:.3f}" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
+        else:
+            log(f"[profile] the profiler recorded no device time in the {label} step: not measured")
+    if k_graph:
+        run = batches[:k_graph]
+        snap = train_snapshot(state)
+
+        def gens():
+            return [torch.Generator(device=dev).manual_seed(3000 + i) for i in range(k_graph)]
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b, g in zip(run, gens()):
+            state, m_eager = step_fn(state, b, g)
+        torch.cuda.synchronize()
+        eager_s = (time.perf_counter() - t0) / k_graph
+        eager = train_snapshot(state)
+        scan = make_train_step_scan(cfg, tcam, buffers, state.optimizer, n_steps=k_graph)
+        stacked = stack_bundles(run)
+        secs, worst = [], (0.0, "")
+        for i in range(2):  # the first call (eager, then the capture), then a replay
+            train_restore(state, snap)
+            torch.cuda.synchronize()
+            cuda_lib.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, m_graph = scan(state, stacked, gens())
+            torch.cuda.synchronize()
+            secs.append((time.perf_counter() - t0) / k_graph)
+            launches_check(f"{label} graph dispatch {i}", dict(cuda_lib.launch_counts), per_step, k_graph)
+            worst = max(worst, snapshot_err(train_snapshot(state), eager), snapshot_err(m_graph, m_eager))
+        if worst[0] > 1e-6:
+            raise AssertionError(f"[{label}] the graph's steps differ from the eager steps: {worst[1]} {worst[0]:.3e}")
+        verdict = "bit for bit" if worst[0] == 0.0 else f"within {worst[0]:.3e} of the scale of {worst[1]}"
+        log(f"[{label}] K = {k_graph} steps as one CUDA graph: replay {secs[1]:.5f} s/step "
+            f"({bs / secs[1]:.1f} rays/s), the first call {secs[0]:.5f} s/step, eager {eager_s:.5f} s/step; params, "
+            f"Adam's state and the last metrics against the eager steps: {verdict}; on {smi}")
+    # One 64-ray step from the trained state on the card and on the CPU, and
+    # the CPU's control: the same step with the camera origins an ulp away.
+    b64 = td["next_batch"](64)
+    shifted = PixelBundle(**{f: getattr(b64, f) for f in ("h_indices", "w_indices", "img_indices", "rgb_gt", "pls")},
+                          poses=b64.poses.clone())
+    shifted.poses[:, :3, 3] = torch.nextafter(shifted.poses[:, :3, 3], torch.full_like(shifted.poses[:, :3, 3], 9.0))
+    u64 = train_uniforms(cfg.model, 64, torch.Generator().manual_seed(7), "cpu")
+    grads = []
+    for where, bt in ((dev, b64), (torch.device("cpu"), b64), (torch.device("cpu"), shifted)):
+        p_ = tree_to(state.params, where)
+        st = init_train_state(p_, make_optimizer(cfg, p_))
+        st.step = state.step
+        m_ = loss_and_grads(st, cfg, tcam, tree_to(buffers, where), bt.to(where),
+                            uniforms={k: v.to(where) for k, v in u64.items()})
+        grads.append(({name: t.grad.detach().cpu() for name, t in tree_items(p_)}, float(m_["loss"])))
+    card, cpu, ctrl = (g for g, _ in grads)
+
+    def leaf_err(a, b, name):  # the hash table by the relative norm of its error (see HASH_STEP_TOL)
+        return ((a - b).norm() / b.norm()).item() if name == HASH_TABLE else scaled_err({0: a}, {0: b})[0]
+
+    rows = []
+    for n in cpu:
+        err, c_err = leaf_err(card[n], cpu[n], n), leaf_err(ctrl[n], cpu[n], n)
+        allowed = HASH_STEP_TOL if n == HASH_TABLE else max(GRAD_TOL, CONTROL_FACTOR * c_err)
+        rows.append((err / allowed, n, err, allowed, c_err))
+    ratio, leaf, err, allowed, _ = max(rows)
+    c_worst, c_leaf = max((r[4], r[1]) for r in rows)
+    msg = (f"worst gradient leaf {leaf}: {err:.3e} of its scale, allowed {allowed:.3e} (the larger of {GRAD_TOL} and "
+           f"{CONTROL_FACTOR} x the CPU control; {HASH_STEP_TOL} in relative norm for the hash table) over {len(cpu)} "
+           f"leaves; the control (origins an ulp away) moves {c_leaf} most, by {c_worst:.3e}")
+    log(f"[{label}] 64-ray step, card vs CPU: loss {grads[0][1]:.6f} vs {grads[1][1]:.6f} (control "
+        f"{grads[2][1]:.6f}); {msg}")
+    if not ratio <= 1.0:
+        raise AssertionError(f"[{label}] card and CPU gradients disagree: {msg}")
+    return {"s_step": s_step}
+
+
+def offpath_view(label: str, smi: str, dev, cfg, camera, params, pose, pl, per_chunk: dict, *,
+                 graph: bool = True, extra: dict | None = None, tols: dict | None = None,
+                 shares: dict | None = None) -> dict:
+    """One camera.H x camera.W view of ``params`` through
+    ``Evaluator.render_image`` on the card: through its view graph (the
+    first call, then a replay against the eager sweep bit for bit) or, with
+    ``graph=False``, the eager sweep the evaluator runs; launches against
+    ``per_chunk`` times the chunks (``extra`` added once a view); finite
+    outputs; then 64 of its pixels rendered on the CPU at CPU_TOL (``tols``
+    overrides an entry), every pixel, or the share of them ``shares``
+    names.  -> the host images."""
+    import numpy as np
+    import torch
+
+    from nrhints_torch.core.structs import PixelBundle
+    from nrhints_torch.eval.evaluator import Evaluator
+    from nrhints_torch.kernels import cuda_lib
+
+    H, W = camera.H, camera.W
+    hh, ww = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+    view = PixelBundle(h_indices=hh.float(), w_indices=ww.float(), poses=pose.expand(H, W, 4, 4),
+                       pls=pl.expand(H, W, 3))
+    ev = Evaluator(cfg, camera, {}, device=dev)
+    times, counts = [], []
+    for _ in range(2 if graph else 1):
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        img = ev.render_image(params, view)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts.append(dict(cuda_lib.launch_counts))
+    n_chunks = -(-H * W // cfg.model.inference_chunk_size)
+    want = {k: v * n_chunks for k, v in per_chunk.items()}
+    for k, v in (extra or {}).items():
+        want[k] = want.get(k, 0) + v
+    for c in counts:
+        launches_check(label, c, want)
+    secs = times[-1]
+    how = "eager sweep (no graph)"
+    if graph:
+        t0 = time.perf_counter()
+        eager = ev._render_eager(params, view)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        replay = ev._render_graph(params, view)
+        unequal = [k for k in eager if not torch.equal(replay[k], eager[k])]
+        if unequal or sorted(replay) != sorted(eager):
+            raise AssertionError(f"[{label}] the view graph's images differ from the eager sweep's on {unequal}")
+        how = (f"CUDA graph replay; the eager sweep {eager_s:.4f} s, the first call {times[0]:.4f} s; graph images = "
+               f"eager images bit for bit")
+    for k, v in img.items():
+        if v.shape[:2] != (H, W) or not np.all(np.isfinite(v)):
+            raise AssertionError(f"[{label}] output {k} malformed or not finite: {v.shape}")
+    log(f"[{label}] {H}x{W} view: {secs:.4f} s, {H * W / secs:.1f} rays/s ({how}); launches "
+        f"{ {k: v for k, v in want.items() if v} or 'none'}; on {smi}")
+    rows, cols = (torch.arange(n // 4, n // 4 + 8 * (n // 16), n // 16)[:8] for n in (H, W))
+    ph, pw = torch.meshgrid(rows, cols, indexing="ij")
+    sub = PixelBundle(h_indices=ph.reshape(1, -1).float(), w_indices=pw.reshape(1, -1).float(),
+                      poses=pose.expand(1, 64, 4, 4), pls=pl.expand(1, 64, 3))
+    cpu_img = Evaluator(cfg, camera, {}, device="cpu").render_image(tree_to(params, "cpu"), sub)
+    tols = dict(CPU_TOL, **(tols or {}))
+    errs = {k: np.abs(img[k][ph.numpy(), pw.numpy()].reshape(1, 64, -1) - cpu_img[k]).reshape(64, -1).max(-1)
+            for k in tols if k in img}
+    log(f"[{label}] 64 pixels, card vs CPU, max / mean / pixels over tol: " + ", ".join(
+        f"{k} {e.max():.3e} / {e.mean():.3e} / {int((e > tols[k]).sum())} (tol {tols[k]}"
+        + (f", at least {shares[k]:.0%} within" if k in (shares or {}) else "") + ")" for k, e in errs.items()))
+    shares = shares or {}
+    bad = [k for k, e in errs.items() if not (e <= tols[k]).mean() >= shares.get(k, 1.0)]
+    if bad:
+        raise AssertionError(f"[{label}] CPU and card renders disagree on {bad}")
+    return img
+
+
+def hash_check(smi: str, dev, hcfg) -> None:
+    """The hash encoding at JAX's default grid on the same 65,536 points in
+    [0, 1]^3 on the card and the CPU: its value, and the table's gradient
+    of sum(enc . c) + |d(enc . c)/dx|^2 (the eikonal term's path), each at
+    HASH_TOL of its scale; the encoding's forward timed on the card."""
+    import torch
+
+    from nrhints_torch.core.encodings import hash_encoding_apply, hash_encoding_init
+
+    gen = torch.Generator().manual_seed(1)
+    table = hash_encoding_init(gen, hcfg, device="cpu")["table"]
+    x = torch.rand((65536, 3), generator=gen)
+    c = torch.randn((hcfg.out_dim,), generator=gen)
+    outs = []
+    for where in (dev, torch.device("cpu")):
+        t, xx, cc = table.to(where).requires_grad_(True), x.to(where).requires_grad_(True), c.to(where)
+        enc = hash_encoding_apply({"table": t}, xx, hcfg)
+        (gx,) = torch.autograd.grad((enc @ cc).sum(), xx, create_graph=True)
+        ((enc @ cc).sum() + (gx**2).sum()).backward()
+        outs.append({"value": enc.detach().cpu(), "table gradient": t.grad.cpu()})
+    err, which = scaled_err(outs[0], outs[1])
+    ms = cuda_ms(lambda: hash_encoding_apply({"table": table.to(dev)}, x.to(dev), hcfg), 20)
+    log(f"[offpath 12(d) hash encoding] {hcfg.num_levels} levels of 2^{hcfg.log2_hashmap_size} rows, 65,536 points, "
+        f"card vs CPU on the same points: worst {which} {err:.3e} of its scale (tol {HASH_TOL}); the forward "
+        f"{ms:.4f} ms on {smi}")
+    if not err <= HASH_TOL:
+        raise AssertionError(f"the hash encoding differs between card and CPU: {which} {err:.3e}")
+
+
+def offpath_phase(smi: str, dev, mc: dict, td: dict) -> None:
+    """Phase 12, the unfused renderer and what rides on it, at full
+    published width (8x256 SDF with a skip at 4, 4x256 trunk, the 8x256
+    background NeRF, the default hash grid; random weights from seed 0):
+    (a) nr-hints-cam-opt at PARITY.md's geometry with shadow_hint_gradient,
+    the slice's main path: 3 + 10 eager steps of 512 rays (D, E, F and G once
+    a step, no march kernel), a profiled step, K = 4 steps as one CUDA graph
+    against 4 eager steps, a 64-ray step against the CPU; (b)
+    fused_kernels="off" at the shipping geometry: a 128x128 view through its
+    graph and the eager sweep, 5 train steps, no kernel at all; (c) the
+    partial shadow hint (n_shadow_importance_clip=32): a 64x64 view, B and C
+    once per shadow sub-chunk of 2048 rays; (d) the hash encoding and (e)
+    the background NeRF: 5 train steps and a 64x64 view each; (f) a
+    maximum_point 64x64 view through its graph and a sphere_tracing 32x32
+    view, eager, with the tracer's iterations."""
+    import torch
+
+    from nrhints_torch.camera.model import CameraModel
+    from nrhints_torch.camera.rays import generate_rays
+    from nrhints_torch.core.structs import PixelBundle
+    from nrhints_torch.render.renderer import init_model_params, sphere_trace_depth
+
+    t_phase = time.perf_counter()
+    tcfg = td["cfg"]
+    batches = [td["next_batch"]() for _ in range(OFFPATH_WARMUP + OFFPATH_STEPS + 1)]
+    stash = dict(sdf_stash_fwd=1, sdf_stash_bwd=1, mlp_stash_fwd=1, mlp_stash_bwd=1)
+    shipping_step = dict(stash, round_machinery=8, shadow_final=1)
+    shipping_view = dict(sdf_core_fwd=1, round_machinery=8, shadow_final=1)
+
+    # (a) The slice's main path.
+    cfg_a = with_renderer(tcfg, **PARITY_GEOMETRY, shadow_hint_gradient=True)
+    offpath_train("offpath 12(a) parity geometry, shadow_hint_gradient", smi, cfg_a, td, batches, OFFPATH_STEPS,
+                  stash, k_graph=OFFPATH_K, profile_step=True)
+
+    # The views: the nr-hints model of phase 4, its camera, and the same
+    # field of view at 64x64 and 32x32.
+    cfg, cam, pose, pl, params0 = (mc[k] for k in ("cfg", "camera", "pose", "pl", "renderer_params"))
+    cam64, cam32 = (CameraModel(n, n, n / 2.0, n / 2.0, cam.fx * n / cam.W, cam.fy * n / cam.H, cam.zn, cam.zf)
+                    for n in (64, 32))
+    params = {"renderer": params0, "raygen": {}}
+
+    def model_params(cfg_):
+        return {"renderer": init_model_params(cfg_.model, torch.Generator().manual_seed(0), device=dev), "raygen": {}}
+
+    # (b) The unfused path everywhere.
+    cfg_b = with_renderer(cfg, fused_kernels="off")
+    offpath_view("offpath 12(b) fused_kernels='off'", smi, dev, cfg_b, cam, params, pose, pl, {})
+    offpath_train("offpath 12(b) fused_kernels='off'", smi, with_renderer(tcfg, fused_kernels="off"), td, batches,
+                  OFFPATH_SHORT, {})
+
+    # (c) The partial hint: 64 x 64 = 8 chunks of 512 rays, each 512 x 32
+    # shadow rays in 8 sub-chunks of 2048, each sub-chunk one fused march.
+    cfg_c = with_renderer(cfg, n_shadow_importance_clip=32)
+    sub = -(-cfg_c.model.inference_chunk_size * 32 // cfg_c.model.shadow_mini_chunk_size)
+    offpath_view("offpath 12(c) partial shadow hint", smi, dev, cfg_c, cam64, params, pose, pl,
+                 dict(sdf_core_fwd=1, round_machinery=4 + 4 * sub, shadow_final=sub),
+                 tols={"shadow_map": PARTIAL_SHADOW_TOL})
+
+    # (d) The hash encoding: the unfused path, no kernel.
+    cfg_d, tcfg_d = (with_model(c, sdf=dict(encoding="hash")) for c in (cfg, tcfg))
+    hash_check(smi, dev, cfg_d.model.sdf_network.hash_config)
+    offpath_train("offpath 12(d) hash encoding", smi, tcfg_d, td, batches, OFFPATH_SHORT, {})
+    offpath_view("offpath 12(d) hash encoding", smi, dev, cfg_d, cam64, model_params(cfg_d), pose, pl, {})
+
+    # (e) The background NeRF on the shipping kernels.
+    cfg_e, tcfg_e = (with_renderer(c, use_outside_nerf=True) for c in (cfg, tcfg))
+    offpath_train("offpath 12(e) use_outside_nerf", smi, tcfg_e, td, batches, OFFPATH_SHORT, shipping_step)
+    offpath_view("offpath 12(e) use_outside_nerf", smi, dev, cfg_e, cam64, model_params(cfg_e), pose, pl,
+                 shipping_view)
+
+    # (f) The depth modes.
+    offpath_view("offpath 12(f) maximum_point", smi, dev, with_renderer(cfg, depth_type="maximum_point"), cam64, params,
+                 pose, pl, shipping_view)
+    cfg_s = with_renderer(cfg, depth_type="sphere_tracing")
+    offpath_view("offpath 12(f) sphere_tracing", smi, dev, cfg_s, cam32, params, pose, pl, shipping_view, graph=False,
+                 shares={"depth": SPHERE_DEPTH_SHARE})
+    hh, ww = torch.meshgrid(torch.arange(32.0, device=dev), torch.arange(32.0, device=dev), indexing="ij")
+    rays = generate_rays({}, {}, cam32, cfg_s.ray_generator, PixelBundle(
+        h_indices=hh.reshape(-1), w_indices=ww.reshape(-1), poses=pose.to(dev).expand(1024, 4, 4),
+        pls=pl.to(dev).expand(1024, 3)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    depth, iters = sphere_trace_depth(params0, cfg_s.model, rays.origins, rays.directions)
+    torch.cuda.synchronize()
+    log(f"[offpath 12(f) sphere_tracing] the 32x32 view's 1024 rays: {iters} iterations (convergence tested every "
+        f"16), {time.perf_counter() - t0:.4f} s; {int((depth < 100.0).sum())} rays hit, depth range "
+        f"[{float(depth.min()):.4f}, {float(depth.max()):.4f}]; on {smi}")
+    log(f"[offpath] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1262,6 +1665,11 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
             data_parallel_phase(smi, dev, td, [td["next_batch"]() for _ in range(TRAIN_WARMUP + TRAIN_STEPS + 1)],
                                 Path(tmp), None)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+        return 0
+
+    if sys.argv[1:] == ["--offpath"]:  # phase 12 alone, after the build
+        offpath_phase(smi, dev, march_chunk(dev), train_data(dev, 128, 128))
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return 0
 
@@ -2067,6 +2475,10 @@ def main() -> int:
         dispatch_entry_phase(smi, Path(tmp), eager_run)
         # 11. Data parallelism over ranks.
         data_parallel_phase(smi, dev, td, batches, Path(tmp), eager_run["views"])
+
+    # 12. The unfused renderer and what rides on it, on batches of its own
+    # (the same as ``--offpath`` draws).
+    offpath_phase(smi, dev, mc, train_data(dev, H, W))
 
     def entry(name, source, replaces, launches_, err, ms, plain_ms, bound_ms, by):
         return {"name": name, "route": "cuda", "source": f"nrhints_torch/csrc/{source}",

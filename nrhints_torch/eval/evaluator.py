@@ -31,7 +31,10 @@ Adam) on static copies of the parameters and the view and replays it once
 a step, the pixel draws drawn ahead from the view's generator.  The first
 call of a key runs eagerly and then captures (``graphs.py``).  On the CPU
 both are the eager loops (``_render_eager``, ``_register_view_eager``),
-which stay callable on the card for comparison.
+which stay callable on the card for comparison.  Under
+``depth_type="sphere_tracing"`` the card runs the eager loops too: the
+sphere tracer's loop ends on a test of the data, which a graph cannot hold
+(``renderer.graph_capturable``); the kernels are the same.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ from nrhints_torch.configs.config import SystemConfig
 from nrhints_torch.core.structs import PixelBundle
 from nrhints_torch.eval.metrics import lpips, lpips_available, psnr, ssim
 from nrhints_torch.parallel.mesh import DataMesh
+from nrhints_torch.render.renderer import graph_capturable
 from nrhints_torch.train.step import forward_pipeline
 from nrhints_torch.utils import resolve_device, tree_items, tree_map
 
@@ -266,12 +270,14 @@ class Evaluator:
     @torch.no_grad()
     def render_image_async(self, params, pixels: PixelBundle) -> Callable[[], Dict[str, np.ndarray]]:
         """Queue a [H, W] render on the device (a CUDA graph replay on the
-        card, the eager sweep on the CPU); return ``finalize()`` -> host dict
-        of [H, W, C] images.  Queueing view k+1 before finalizing view k
-        overlaps k's copy to the host with k+1's render."""
+        card, the eager sweep on the CPU and under sphere tracing); return
+        ``finalize()`` -> host dict of [H, W, C] images.  Queueing view k+1
+        before finalizing view k overlaps k's copy to the host with k+1's
+        render."""
         H, W = pixels.h_indices.shape[:2]
         n = H * W
-        res = self._render_eager(params, pixels) if self.device.type == "cpu" else self._render_graph(params, pixels)
+        eager = self.device.type == "cpu" or not graph_capturable(self.cfg.model)
+        res = self._render_eager(params, pixels) if eager else self._render_graph(params, pixels)
         pose_rot = _host(pixels.poses)[0, 0, :3, :3]
 
         def finalize() -> Dict[str, np.ndarray]:
@@ -327,11 +333,11 @@ class Evaluator:
         the raygen leaves -> {"renderer": the same renderer params, "raygen":
         the registered leaves}.  ``pixel_draws`` ([(rows, cols)] a step)
         replaces the draws of ``register_view_key``.  On the card one
-        captured step is replayed ``steps`` times; on the CPU the eager
-        loop runs."""
+        captured step is replayed ``steps`` times; on the CPU, and under
+        sphere tracing, the eager loop runs."""
         if not params["raygen"]:
             return params
-        if self.device.type == "cpu":
+        if self.device.type == "cpu" or not graph_capturable(self.cfg.model):
             return self._register_view_eager(params, pixels, steps, pixel_draws)
         image = pixels.to(self.device)
         H, W = image.h_indices.shape[:2]

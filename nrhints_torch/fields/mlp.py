@@ -50,7 +50,13 @@ def effective_weight(params: dict) -> tuple[torch.Tensor, torch.Tensor]:
     return params["w"], params["b"]
 
 
-def apply_linear_any(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """``x @ w + b`` in float32 for either parameterization."""
+def apply_linear_any(params: dict, x: torch.Tensor, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``x @ w + b`` for either parameterization, accumulated and returned
+    in float32.  ``compute_dtype`` (e.g. ``torch.bfloat16``) rounds the
+    operands to it where ``x`` is not already of that dtype, as the JAX
+    package's ``_dot_f32`` does: activations carried in bf16 then meet the
+    f32 weight, unrounded."""
     w, b = effective_weight(params)
-    return x @ w + b
+    if compute_dtype is not None and x.dtype != compute_dtype:
+        x, w = x.to(compute_dtype), w.to(compute_dtype)
+    return x.float() @ w.float() + b

@@ -3,9 +3,10 @@ direction, point light and the two hints (port of
 ``nrhints_tpu/fields/reflectance.py``).
 
 Input = [pts, PE(view, 4), normal, PE(pl, 4), feat, PE(vis, 4),
-PE(spec, 4)] -> n_layers x d_hidden ReLU MLP -> sigmoid RGB.  On the eval
-path the trunk runs in float32 as plain matmuls, as the JAX package's
-``eval_reflectance_impl="xla"`` default does.
+PE(spec, 4)] -> n_layers x d_hidden ReLU MLP -> sigmoid RGB.  This is the
+plain trunk: the eval path's ``eval_reflectance_impl="xla"`` default and
+the unfused path run it, in float32, or under ``compute_dtype="bfloat16"``
+with bf16 activations and f32 accumulation, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from nrhints_torch.fields.mlp import (
     maybe_weight_norm_params,
     torch_default_linear_init,
 )
+from nrhints_torch.fields.sdf import compute_dtype_of
 
 
 @dataclass(frozen=True)
@@ -80,11 +82,6 @@ def reflectance_forward(
     specular_cue: torch.Tensor | None = None,  # [N, R]
 ) -> torch.Tensor:
     """-> [N, 3] RGB in [0, 1], in the original concat order."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "ReflectanceNetConfig.compute_dtype='bfloat16' steers the unfused "
-            "training path, which is a later slice"
-        )
     parts = [
         points,
         nerf_encoding(view_dirs, cfg.multi_res),
@@ -97,11 +94,16 @@ def reflectance_forward(
     if specular_cue is not None:
         parts.append(nerf_encoding(specular_cue, cfg.multi_res))
     h = torch.cat(parts, dim=-1)
+    cdt = compute_dtype_of(cfg.compute_dtype)
+    if cdt is not None:
+        h = h.to(cdt)
     n_lin = cfg.n_layers + 1
     for i in range(n_lin):
-        h = apply_linear_any(params[f"lin{i}"], h)
+        h = apply_linear_any(params[f"lin{i}"], h, cdt)
         if i < n_lin - 1:
             h = torch.relu(h)
+            if cdt is not None:
+                h = h.to(cdt)
     if cfg.squeeze_out:
         h = torch.sigmoid(h)
     return h

@@ -27,7 +27,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from nrhints_torch.fields.mlp import effective_weight
-from nrhints_torch.fields.sdf import SDFNetConfig, _layer_dims, check_ported
+from nrhints_torch.fields.sdf import SDFNetConfig, _layer_dims
 from nrhints_torch.kernels import cuda_lib
 from nrhints_torch.kernels.common import INV_SQRT2, dot, softplus100_gate
 from nrhints_torch.utils import tree_leaves
@@ -182,7 +182,9 @@ def pack_sdf_mlp(weights: Sequence[torch.Tensor], cfg: SDFNetConfig, with_feat: 
     zero-padded to 16-multiples, f32 biases, the f32 sdf head column and
     the int meta vector.  ``weights`` ends with the sdf head, then (when
     ``with_feat``) the feature head."""
-    check_ported(cfg)
+    if cfg.encoding != "frequency":
+        raise ValueError("the CUDA SDF kernels take the frequency encoding; the renderer runs the hash "
+                         "encoding on the unfused path, as the JAX package does")
     if cfg.d_in != 3 or 0 in cfg.skip_in:
         raise NotImplementedError("the CUDA SDF kernels take 3-D points and no skip at layer 0")
     io, dims = _layer_dims(cfg)
@@ -628,7 +630,9 @@ def fused_sdf_value_feat_grad(
     autograd needs the op's gradient, ``backward`` is the schedule:
     "recompute" (``SdfCoreFn``: A, then H), "stash" (``core_stash.SdfStashFn``:
     D, then E) or "stash_xla" (D, then E's plain version over the whole
-    batch); "stash_all" is not ported."""
+    batch).  "stash_all" (JAX's variant that also stashes u_i and the
+    encoding cotangents) has no kernels in the port and raises
+    ``NotImplementedError``."""
     grad = needs_grad(x, *tree_leaves(params))
     weights = materialize_sdf_weights_full(params, cfg)
     if grad:
@@ -639,7 +643,8 @@ def fused_sdf_value_feat_grad(
 
             return SdfStashFn.apply(cfg, compute_dtype, "bfloat16", _stash_bwd_impl(backward), x.contiguous(), *weights)
         raise NotImplementedError(
-            f"core_backward={backward!r}: the port has 'recompute', 'stash' and 'stash_xla' (stash_all is a later slice)"
+            f"core_backward={backward!r}: the port's fused core has the 'recompute', 'stash' and 'stash_xla' "
+            "schedules; 'stash_all' is not ported"
         )
     if x.device.type == "cpu":
         return sdf_core_plain(weights, x, cfg, compute_dtype)
@@ -666,7 +671,8 @@ def fused_mlp_apply(params: dict, n_layers: int, x: torch.Tensor, *, backward: s
         from nrhints_torch.kernels.core_stash import MlpStashFn
 
         return MlpStashFn.apply(n_layers, "bfloat16", "bfloat16", _stash_bwd_impl(backward), x, *weights)
-    raise NotImplementedError(f"core_backward={backward!r}: the port has 'recompute', 'stash' and 'stash_xla'")
+    raise NotImplementedError(f"core_backward={backward!r}: the port's fused trunk has the 'recompute', 'stash', "
+                              "'stash_all' and 'stash_xla' schedules")
 
 
 def fused_reflectance_forward(

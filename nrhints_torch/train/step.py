@@ -58,7 +58,7 @@ from nrhints_torch.camera.rays import generate_rays
 from nrhints_torch.configs.config import SystemConfig
 from nrhints_torch.core.structs import PixelBundle, RenderOutput
 from nrhints_torch.parallel.mesh import DataMesh, all_reduce_grads, all_reduce_scalar, rank_rows
-from nrhints_torch.render.renderer import render_rays, train_uniforms
+from nrhints_torch.render.renderer import graph_capturable, render_rays, train_uniforms
 from nrhints_torch.utils import tree_leaves
 
 
@@ -387,7 +387,10 @@ def make_train_step_scan(
     uniforms are drawn outside the graph from its generator in
     ``render_rays``' order (``render/renderer.py::train_uniforms``).
     ``pool``: a graph memory pool to share with the caller's other graphs.
-    On the CPU the steps run eagerly, one by one.
+    On the CPU the steps run eagerly, one by one, and so they do on the
+    card under ``depth_type="sphere_tracing"``: its loop ends on a test of
+    the data, which a graph cannot hold, so the K steps run the same step
+    body eagerly, with the same kernels (``renderer.graph_capturable``).
 
     ``mesh``: as ``make_train_step``'s; ``batches`` are this rank's rows.
     Under NCCL the graph holds every step's two collectives (the mask
@@ -410,7 +413,7 @@ def make_train_step_scan(
         if batches.h_indices.shape[0] != n_steps or len(randomness) != n_steps:
             raise ValueError(f"scan_fn takes {n_steps} stacked batches and {n_steps} generators or uniforms")
         dev = batches.h_indices.device
-        if dev.type == "cpu":
+        if dev.type == "cpu" or not graph_capturable(cfg.model):
             metrics = None
             for i, r in enumerate(randomness):
                 gen, u = (None, r) if isinstance(r, dict) else (r, None)

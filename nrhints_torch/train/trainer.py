@@ -31,7 +31,9 @@ the logged images, the checkpoint and the mesh; each host's first rank
 writes its sidecar.  Test views and video frames are strided over the
 ranks: the metrics are gathered (NaN-padded rows, as JAX's), each rank's
 registered rows merged by ownership into every rank's live tables, and
-rank 0 writes every frame.  ``sample_axis_size`` > 1 is not ported.
+rank 0 writes every frame.  ``sample_axis_size`` > 1 is not ported.  Under
+``depth_type="sphere_tracing"`` the card runs every loop eagerly (the
+sphere tracer cannot be captured), and the Trainer says so once.
 """
 from __future__ import annotations
 
@@ -55,7 +57,7 @@ from nrhints_torch.data.parser import SceneData, parse_load_nr_data
 from nrhints_torch.data.png import read_png, write_png
 from nrhints_torch.eval.evaluator import Evaluator
 from nrhints_torch.parallel import mesh as mesh_lib
-from nrhints_torch.render.renderer import extract_sdf_grid, init_model_params
+from nrhints_torch.render.renderer import extract_sdf_grid, graph_capturable, init_model_params
 from nrhints_torch.train.checkpoint import CheckpointIO
 from nrhints_torch.train.logging import MetricsLogger
 from nrhints_torch.train.step import (
@@ -150,6 +152,9 @@ class Trainer:
         # n_steps); on the card their graphs and the evaluator's share a pool.
         self._scan_steps: dict[tuple, object] = {}
         self._graph_pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        if self.device.type == "cuda" and not graph_capturable(config.model) and self.is_main_process:
+            print("depth_type='sphere_tracing': its loop ends on a test of the data, so K-step dispatches, "
+                  "test views and registrations run as eager loops on the card, not as CUDA graphs")
 
         self.evaluator = Evaluator(config, self.camera, self.buffers, mesh=self.mesh, pool=self._graph_pool)
         self.ckpt_io = CheckpointIO(self.log_dir)

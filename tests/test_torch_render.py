@@ -55,16 +55,11 @@ def test_render_rays_matches_jax(march_dtype):
     assert float(np.asarray(jo.visibilities).min()) < 0.9  # the shadow hint is exercised
 
 
+# The off-path features ride the unfused renderer and are held against JAX
+# in tests/test_torch_offpath.py; the fused core's stash_all schedule is
+# not ported.
 UNPORTED = [
-    ({"use_outside_nerf": True}, {}),
-    ({"depth_type": "maximum_point"}, {}),
-    ({"depth_type": "sphere_tracing"}, {}),
-    ({"n_shadow_importance_clip": 32}, {}),
-    ({"fused_kernels": "off"}, {}),
-    ({"shadow_hint_gradient": True}, {}),
-    ({"n_importance_samples": 32}, {}),
     ({"core_backward": "stash_all"}, {"is_training": True}),
-    ({"n_shadow_samples": 32}, {}),  # a shadow march geometry the fused kernels do not take
 ]
 
 
@@ -191,10 +186,3 @@ def test_bad_march_knobs_raise(renderer_kw):
     _, tc = model_configs(**renderer_kw)
     with pytest.raises(ValueError):
         tr.check_ported(tc)
-
-
-def test_hash_encoding_raises():
-    from nrhints_torch.fields.sdf import SDFNetConfig, sdf_init
-
-    with pytest.raises(NotImplementedError):
-        sdf_init(torch.Generator().manual_seed(0), SDFNetConfig(encoding="hash"), device="cpu")

@@ -32,24 +32,37 @@ def jax_sdf_params(seed: int = 0):
     return jc, jp, TS(**SDF_KW), params_from_jax(jp, device="cpu")
 
 
-def model_configs(**renderer_kw):
-    """(JAX ModelConfig on its fused interpret-mode path, port ModelConfig)."""
+def model_configs(sdf_kw: dict | None = None, model_kw: dict | None = None, **renderer_kw):
+    """(JAX ModelConfig, port ModelConfig) with the same renderer settings:
+    JAX on its fused interpret-mode path unless ``renderer_kw`` sets
+    ``fused_kernels`` (then both packages take that value; "off" is JAX's
+    plain XLA path).  ``sdf_kw`` overrides the tiny SDF network's fields
+    (e.g. the hash encoding), ``model_kw`` the ModelConfig's own."""
+    from nrhints_torch.fields.bg_nerf import BgNeRFConfig as TBG
     from nrhints_torch.fields.reflectance import ReflectanceNetConfig as TR
     from nrhints_torch.fields.sdf import SDFNetConfig as TS
     from nrhints_torch.render import renderer as tr
+    from nrhints_tpu.fields.bg_nerf import BgNeRFConfig as JBG
     from nrhints_tpu.fields.reflectance import ReflectanceNetConfig as JR
     from nrhints_tpu.fields.sdf import SDFNetConfig as JS
     from nrhints_tpu.render import renderer as jr
 
+    sdf = {**SDF_KW, **(sdf_kw or {})}
+    refl = {**REFL_KW, **renderer_kw.pop("reflectance_kw", {})}
+    bg = renderer_kw.pop("bg_kw", {})
     j = jr.ModelConfig(
-        sdf_network=JS(**SDF_KW),
-        reflectance_network=JR(**REFL_KW),
-        renderer=jr.RendererConfig(fused_kernels="on", fused_interpret=True, **renderer_kw),
+        sdf_network=JS(**sdf),
+        reflectance_network=JR(**refl),
+        outside_nerf=JBG(**bg),
+        renderer=jr.RendererConfig(**{"fused_kernels": "on", "fused_interpret": True, **renderer_kw}),
+        **(model_kw or {}),
     )
     t = tr.ModelConfig(
-        sdf_network=TS(**SDF_KW),
-        reflectance_network=TR(**REFL_KW),
+        sdf_network=TS(**sdf),
+        reflectance_network=TR(**refl),
+        outside_nerf=TBG(**bg),
         renderer=tr.RendererConfig(**renderer_kw),
+        **(model_kw or {}),
     )
     return j, t
 
