@@ -69,7 +69,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    steps, and a full 500-step registration timed; (d) phase 9's main with
    parallel.steps_per_dispatch=10: its logs and checkpoint at the same
    crossings, its losses against phase 9's, its launches exactly, and a
-   resumed run.
+   resumed run;
+11. data parallelism over ranks (``--data-parallel``: 11(a)-(c) alone);
+12. the unfused renderer and what rides on it (``--offpath``: alone);
+13. core_backward="stash_all" (``--stash-all``: alone): (a) D's and E's
+   variants, which also stash and read the reverse sweep's u_i and g_enc,
+   at phase 3's shapes against plain D (bit for bit where they share
+   outputs) and their plain versions, timed and profiled beside plain D's
+   and E1's device time; (b) 16 train steps as one CUDA graph against 16
+   eager steps, bit for bit, under "stash" and "stash_all" in one call
+   (s/step, peak device memory, idle share); (c) a registration through
+   its graph against the eager loop; (d) a fake checkpoint of the original
+   PyTorch code at full width imported by ``python -m
+   nrhints_torch.import_ckpt``'s main, and the Trainer resumed from it on
+   the card for 5 steps.
 Phase 3 also holds kernels K (initial march sweep), L (refinement rounds),
 M (K and L in one kernel) and N (M and C's final sweep in one kernel), and
 B under the rank merge, against their plain versions, L = B's steps between
@@ -84,6 +97,7 @@ It prints a {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -165,14 +179,18 @@ RESUME_TOL = 1e-4
 # instances of the 64-point forward of csrc/sdf_fwd.cuh, E1 and H2 the two
 # of the 64-point chain of csrc/sdf_bwd.cuh; I, F and J1 the three of the
 # trunk's forward in csrc/mlp_stash.cu, whose one chain kernel is G1 in a
-# stash step and J2 in a recompute step.  NCCL's kernels (phase 11) have
-# their own group.
+# stash step and J2 in a recompute step; D's and E1's stash_all variants
+# (phase 13) are the forward's fourth instance and the chain's third.
+# NCCL's kernels (phase 11) have their own group.
 DW_GROUP = "dW passes of E/G/H/J (dw_sum.cuh)"
+D_ALL_GROUP = "kernel D stash_all variant sdf_stash_all_fwd"
+E1_ALL_GROUP = "kernel E stash_all variant sdf_stash_all_bwd (E1)"
 TRUNK_CHAIN_GROUP = "trunk chain: G1, or J2 after J1"
 STEP_GROUPS = (
     ("sdf_core_fwd_kernel<0>", "kernel A sdf_core_fwd"), ("sdf_core_fwd_kernel<1>", "kernel D sdf_stash_fwd"),
-    ("sdf_core_fwd_kernel<2>", "kernel H, forward pass (H1)"),
-    ("sdf_bwd_chain_kernel<false>", "kernel E sdf_stash_bwd (E1)"), ("sdf_bwd_chain_kernel<true>", "kernel H chain (H2)"),
+    ("sdf_core_fwd_kernel<2>", "kernel H, forward pass (H1)"), ("sdf_core_fwd_kernel<3>", D_ALL_GROUP),
+    ("sdf_bwd_chain_kernel<false, false>", "kernel E sdf_stash_bwd (E1)"),
+    ("sdf_bwd_chain_kernel<true, false>", "kernel H chain (H2)"), ("sdf_bwd_chain_kernel<false, true>", E1_ALL_GROUP),
     ("mlp_fwd_kernel<0>", "kernel I mlp_fwd"), ("mlp_fwd_kernel<1>", "kernel F mlp_stash_fwd"),
     ("mlp_fwd_kernel<2>", "kernel J, recompute pass (J1)"), ("mlp_bwd_chain_kernel", TRUNK_CHAIN_GROUP),
     ("dw_partial", DW_GROUP), ("dw_reduce", DW_GROUP), ("colsum", DW_GROUP),
@@ -872,7 +890,6 @@ def dp_rank_steps(rank: int, world: int, backend: str, one_card: bool, start_fil
     after it kept) or one DP_K-step dispatch as a CUDA graph (NCCL: the
     first call, then two replays from the same start, the last one timed;
     the params, the last step's gradients and metrics kept)."""
-    import gc
     import os
 
     import torch
@@ -997,7 +1014,6 @@ def data_parallel_phase(smi: str, dev, td: dict, batches: list, tmp: Path, views
     two test views from its step-40 checkpoint: the merged raygen tables
     equal phase 9's single-rank registration bit for bit, the val/ means
     within 1e-6."""
-    import gc
     import shutil
 
     import torch
@@ -1282,6 +1298,109 @@ def fresh_state(cfg, n_views: int, dev):
     params = {"renderer": init_model_params(cfg.model, gen, device=dev)}
     params["raygen"], buffers = ray_generator_init(gen, cfg.ray_generator, n_views, device=dev)
     return init_train_state(params, make_optimizer(cfg, params)), buffers
+
+
+def scan_phase(smi: str, dev, td: dict, batches: list, label: str, scfg_, n_steps: int, per_step: dict) -> dict:
+    """From a fresh seed-0 state of ``scfg_`` after TRAIN_WARMUP eager
+    steps, set to step 1000 (the learning rate and cos_anneal_ratio both
+    change every step there): ``n_steps`` eager steps of
+    ``make_train_step`` on ``batches``, then the same steps from the same
+    state, batches and generators through ``make_train_step_scan``: the
+    first call (eager on a side stream, then the capture) and two
+    replays, each timed and its launches counted (``per_step`` each
+    step).  Params, Adam's state and the last metrics against the eager
+    steps'; the peak of allocated device memory over them all, above what
+    was allocated before; one profiled replay: device busy and idle share.
+    ``td``: phase 5's training data.  -> the eager and graph s/step, the
+    peak and the last dispatch's launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nrhints_torch.camera.rays import ray_generator_init
+    from nrhints_torch.kernels import cuda_lib
+    from nrhints_torch.render.renderer import init_model_params
+    from nrhints_torch.train.step import (
+        init_train_state, make_optimizer, make_train_step, make_train_step_scan, stack_bundles,
+    )
+
+    n_views, tcam = td["n_views"], td["camera"]
+    tgen = torch.Generator().manual_seed(0)
+    tparams = {"renderer": init_model_params(scfg_.model, tgen, device=dev)}
+    tparams["raygen"], tbuffers = ray_generator_init(tgen, scfg_.ray_generator, n_views, device=dev)
+    opt = make_optimizer(scfg_, tparams)
+    state = init_train_state(tparams, opt)
+    step_fn = make_train_step(scfg_, tcam, tbuffers, opt)
+    warm_gen = torch.Generator(device=dev).manual_seed(0)
+    for b in batches[-TRAIN_WARMUP:]:
+        state, _ = step_fn(state, b, warm_gen)
+    state.step = 1000
+    start = train_snapshot(state)
+    run = batches[:n_steps]
+
+    def gens():
+        return [torch.Generator(device=dev).manual_seed(2000 + i) for i in range(n_steps)]
+
+    gc.collect()  # an earlier call's graph and its pool
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for b, g in zip(run, gens()):
+        state, m_eager = step_fn(state, b, g)
+    torch.cuda.synchronize()
+    eager_s = (time.perf_counter() - t0) / n_steps
+    eager = train_snapshot(state)
+    scan = make_train_step_scan(scfg_, tcam, tbuffers, opt, n_steps=n_steps)
+    stacked = stack_bundles(run)
+    expected_ = {k: v * n_steps for k, v in dict({k: 0 for k in cuda_lib.launch_counts}, **per_step).items()}
+    secs_, worst = [], (0.0, "")
+    for i in range(3):  # the first call, then two replays
+        train_restore(state, start)
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m_graph = scan(state, stacked, gens())
+        torch.cuda.synchronize()
+        secs_.append((time.perf_counter() - t0) / n_steps)
+        if dict(cuda_lib.launch_counts) != expected_:
+            raise AssertionError(f"[{label}] dispatch {i}: launches {dict(cuda_lib.launch_counts)}, expected "
+                                 f"{expected_}")
+        err = max(snapshot_err(train_snapshot(state), eager), snapshot_err(m_graph, m_eager))
+        worst = max(worst, err)
+    graph_s = secs_[2]
+    peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+    launches_ = dict(cuda_lib.launch_counts)
+    if worst[0] == 0.0:
+        verdict = "bit for bit"
+    elif worst[0] <= 1e-6:
+        verdict = f"within {worst[0]:.3e} of the scale of {worst[1]}"
+    else:
+        raise AssertionError(f"[{label}] the graph's steps differ from the eager steps: {worst[1]} {worst[0]:.3e}")
+    bs = scfg_.model.batch_size
+    log(f"[{label}] {n_steps} steps, core_backward={scfg_.model.renderer.core_backward!r}: eager "
+        f"{eager_s:.5f} s/step ({bs / eager_s:.1f} rays/s); CUDA graph replay {graph_s:.5f} s/step "
+        f"({bs / graph_s:.1f} rays/s; the other replay {secs_[1]:.5f}); the first call (eager, then the "
+        f"capture) {secs_[0]:.5f} s/step; params, Adam's state and the last metrics against the eager steps: "
+        f"{verdict}; launches {n_steps} x {per_step}; loss {float(m_graph['loss']):.6f}; peak device memory "
+        f"{peak_gb:.3f} GB above the {base_bytes / 1e9:.3f} GB allocated before; on {smi}")
+    train_restore(state, start)
+    scan(state, stacked, gens())  # the replay before the profile, as the timed ones
+    train_restore(state, start)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        scan(state, stacked, gens())
+        torch.cuda.synchronize()
+    groups = device_groups(prof)
+    busy = sum(groups.values()) / n_steps
+    if busy > 0:
+        log(f"[profile] one {label} dispatch: device busy {busy:.3f} ms a step; idle share "
+            f"{1 - busy / (graph_s * 1e3):.3f} of the unprofiled replay ({graph_s * 1e3:.3f} ms a step); by group "
+            f"(ms a step) " + ", ".join(f"{g} {ms / n_steps:.3f}" for g, ms in
+                                      sorted(groups.items(), key=lambda kv: -kv[1])))
+    else:
+        log(f"[profile] the profiler recorded no device time in the {label} dispatch: not measured")
+    return {"eager_s": eager_s, "graph_s": graph_s, "peak_gb": peak_gb, "launches": launches_,
+            "idle": 1 - busy / (graph_s * 1e3) if busy > 0 else float("nan")}
 
 
 def launches_check(label: str, got: dict, per: dict, times: int = 1) -> None:
@@ -1619,6 +1738,307 @@ def offpath_phase(smi: str, dev, mc: dict, td: dict) -> None:
     log(f"[offpath] phase 12 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 13: core_backward="stash_all".  The K of 13(b)'s graphs, the steps
+# of 13(c)'s registration check and of 13(d)'s resumed Trainer, and the
+# global step of 13(d)'s fake checkpoint of the original code.
+STASH_ALL_K, STASH_ALL_REG, IMPORT_STEPS, IMPORT_GLOBAL_STEP = 16, 50, 5, 123_456
+
+
+def stash_all_kernels(smi: str, dev, mc: dict) -> dict:
+    """13(a): D's and E's stash_all variants at phase 3's 65,536 points,
+    weights and cotangents.  D's variant against plain D (sdf, feat, grad
+    and the h_i bit for bit) and its plain version (with the u_i and
+    g_enc); E's variant twice (bit for bit), against its plain version at
+    D's variant's stash, and without its dW passes (dx bit for bit); each
+    timed with CUDA events and by device time from one profiled call,
+    beside its bound and plain D's and E1's device time in this call.  ->
+    the numbers of the kernels line."""
+    import numpy as np
+    import torch
+
+    from nrhints_torch.fields.sdf import _layer_dims
+    from nrhints_torch.kernels import core_stash
+
+    x, aw, scfg = mc["x"], mc["aw"], mc["cfg"].model.sdf_network
+    n_pts, n_w, L = x.shape[0], sum(w.numel() for w in aw), scfg.n_layers
+    io, dims = _layer_dims(scfg)
+    hidden, d_last, d_feat = sum(i * o_ for i, o_ in io), dims[-2], scfg.d_out_feat
+    gt, width = core_stash.sdf_stash_width(scfg), core_stash.sdf_stash_width(scfg, stash_us=True)
+    cols = core_stash.sdf_stash_columns(scfg, stash_us=True)
+    crng = np.random.default_rng(5)
+    cots = tuple(torch.tensor(crng.normal(size=shape).astype(np.float32), device=dev)
+                 for shape in ((n_pts,), (n_pts, d_feat), (n_pts, 3)))
+
+    d_all = core_stash.sdf_stash_fwd(aw, x, scfg, stash_us=True)
+    d_ref = core_stash.sdf_stash_fwd(aw, x, scfg)
+    if not (all(torch.equal(a, b) for a, b in zip(d_all[:3], d_ref[:3])) and torch.equal(d_all[3][:, :gt], d_ref[3])):
+        raise AssertionError("kernel D's stash_all variant's sdf, feat, grad or h_i differ from plain D's")
+    plain = core_stash.sdf_core_fwd_hs_plain(aw, x, scfg, "bfloat16", "bfloat16", return_us=True)
+    d_abs, d_rel = max_err([*d_all[:3], *core_stash.split_stash(d_all[3], cols)],
+                           [*plain[:3], *plain[3], *plain[4], plain[5]])
+    del plain
+    d_ms = cuda_ms(lambda: core_stash.sdf_stash_fwd(aw, x, scfg, stash_us=True), 10)
+    d_plain_ms = cuda_ms(lambda: core_stash.sdf_core_fwd_hs_plain(aw, x, scfg, "bfloat16", "bfloat16", return_us=True),
+                         3, warmup=1)
+    # D's operations; its inputs, outputs and the wider stash.
+    d_flops = 2.0 * n_pts * (2 * hidden + d_last * (1 + d_feat))
+    d_bound, d_by = bound(d_flops, n_pts * (4 * (3 + 1 + d_feat + 3) + 2 * width) + 2 * n_w, H100_BF16_FLOPS)
+    d_dev = profiled_groups(lambda: core_stash.sdf_stash_fwd(aw, x, scfg, stash_us=True)).get(D_ALL_GROUP, 0.0)
+    d0_dev = profiled_groups(lambda: core_stash.sdf_stash_fwd(aw, x, scfg)).get("kernel D sdf_stash_fwd", 0.0)
+    log(f"[13(a) kernel D stash_all] sdf_stash_all_fwd: N={n_pts}, stash [{n_pts}, {width}] bf16 "
+        f"({n_pts * width * 2 / 1e6:.1f} MB against plain D's {n_pts * gt * 2 / 1e6:.1f} MB); sdf, feat, grad and the "
+        f"h_i equal plain D's bit for bit; max abs err against its plain version {d_abs:.3e} (rel {d_rel:.3e}, tol "
+        f"{TOL['sdf_stash_fwd']}); {d_ms:.4f} ms, plain {d_plain_ms:.4f} ms, bound {d_bound:.4f} ms ({d_by}); one "
+        f"profiled call, device time {d_dev:.4f} ms against plain D's {d0_dev:.4f} ms in this call; on {smi}")
+    if not d_rel <= TOL["sdf_stash_fwd"]:
+        raise AssertionError(f"kernel D's stash_all variant disagrees with its plain version: rel {d_rel:.3e}")
+
+    e_dws, e_dx = core_stash.sdf_stash_bwd(aw, x, d_all[3], cots, scfg, stash_us=True)
+    e2_dws, e2_dx = core_stash.sdf_stash_bwd(aw, x, d_all[3], cots, scfg, stash_us=True)
+    if not (torch.equal(e_dx, e2_dx) and all(torch.equal(a, b) for a, b in zip(e_dws, e2_dws))):
+        raise AssertionError("kernel E's stash_all variant's gradients differ between two runs")
+    del e2_dws, e2_dx
+    parts = core_stash.split_stash(d_all[3], cols)
+
+    def e_plain():
+        return core_stash.sdf_core_bwd_stash_all_plain(aw, x, parts[:L], parts[L : 2 * L], parts[2 * L], cots, scfg,
+                                                       "bfloat16")
+
+    p_dws, p_dx = e_plain()
+    e_abs, e_rel = grad_err([e_dx, *e_dws], [p_dx, *p_dws])
+    del p_dws, p_dx
+    e_ms = cuda_ms(lambda: core_stash.sdf_stash_bwd(aw, x, d_all[3], cots, scfg, stash_us=True), 10)
+    e_plain_ms = cuda_ms(e_plain, 3, warmup=1)
+    # Multiply-adds per point: E's without the recomputed reverse sweep
+    # (the sweep's VJP, the z-chain and the two dW halves, 4 x hidden), the
+    # feature head's VJP and dW, the sdf head's two columns; it reads the
+    # wider stash.
+    e_flops = 2.0 * n_pts * (4 * hidden + 2 * d_last * d_feat + 2 * d_last)
+    in_out = n_pts * (2 * width + 4 * (3 + 1 + d_feat + 3) + 4 * 3)
+    e_bound, e_by = bound(e_flops, in_out + 2 * n_w + 4 * n_w, H100_BF16_FLOPS)
+    layers_pk = [(w_.shape[0], w_.shape[1]) for w_ in aw[0 : 2 * L : 2]]
+    op_bytes = 2.0 * (2 * n_pts * sum(i + o_ for i, o_ in layers_pk) + n_pts * (d_last + d_feat))
+    e1_bound, e1_by = bound(2.0 * n_pts * (2 * hidden + d_last * d_feat + 2 * d_last), in_out + op_bytes + 2 * n_w,
+                            H100_BF16_FLOPS)
+    e_parts = profiled_groups(lambda: core_stash.sdf_stash_bwd(aw, x, d_all[3], cots, scfg, stash_us=True))
+    e0_parts = profiled_groups(lambda: core_stash.sdf_stash_bwd(aw, x, d_ref[3], cots, scfg))
+    e1_dev, e1_plain_dev = e_parts.get(E1_ALL_GROUP, 0.0), e0_parts.get("kernel E sdf_stash_bwd (E1)", 0.0)
+    none, dx_only = core_stash.sdf_stash_bwd(aw, x, d_all[3], cots, scfg, need_dw=False, stash_us=True)
+    if none is not None or not torch.equal(dx_only, e_dx):
+        raise AssertionError("kernel E's stash_all variant without its dW passes gives another dx")
+    nodw = profiled_groups(lambda: core_stash.sdf_stash_bwd(aw, x, d_all[3], cots, scfg, need_dw=False,
+                                                           stash_us=True))
+    log(f"[13(a) kernel E stash_all] sdf_stash_all_bwd: N={n_pts}, repeats bit for bit, max abs err against its plain "
+        f"version {e_abs:.3e} (rel to each gradient {e_rel:.3e}, tol {TOL['sdf_stash_bwd']}), {e_ms:.4f} ms, plain "
+        f"{e_plain_ms:.4f} ms, bound {e_bound:.4f} ms ({e_by}, {e_flops / 1e9:.1f} GFLOP); one profiled call, device "
+        f"time: E1 {e1_dev:.4f} ms (bound {e1_bound:.4f} ms, {e1_by}) against plain E's E1 {e1_plain_dev:.4f} ms in "
+        f"this call, dW passes {e_parts.get(DW_GROUP, 0.0):.4f} ms against {e0_parts.get(DW_GROUP, 0.0):.4f} ms; "
+        f"need_dw=False: dx bit for bit, {sum(nodw.values()):.4f} ms (dW passes {nodw.get(DW_GROUP, 0.0):.4f} ms); "
+        f"on {smi}")
+    if not e_rel <= TOL["sdf_stash_bwd"]:
+        raise AssertionError(f"kernel E's stash_all variant disagrees with its plain version: rel {e_rel:.3e}")
+    return {"d": (d_abs, d_ms, d_plain_ms, d_bound, d_by), "e": (e_abs, e_ms, e_plain_ms, e_bound, e_by)}
+
+
+def stash_all_registration(smi: str, dev, td: dict) -> None:
+    """13(c): a test view's registration under stash_all (no weight needs a
+    gradient: E's variant without its dW passes) through its graph against
+    the eager loop, STASH_ALL_REG steps from one generator, bit for bit;
+    D's and E's variants once a step; one profiled call's device time by
+    group, with no dW pass in it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nrhints_torch.camera.rays import ray_generator_init
+    from nrhints_torch.core.structs import PixelBundle
+    from nrhints_torch.eval.evaluator import Evaluator
+    from nrhints_torch.kernels import cuda_lib
+    from nrhints_torch.render.renderer import init_model_params
+
+    cfg = with_renderer(td["cfg"], core_backward="stash_all")
+    gen = torch.Generator().manual_seed(0)
+    params = {"renderer": init_model_params(cfg.model, gen, device=dev)}
+    params["raygen"], buffers = ray_generator_init(gen, cfg.ray_generator, td["n_views"], device=dev)
+    H, W = td["camera"].H, td["camera"].W
+    hh, ww = torch.meshgrid(torch.arange(H, device=dev), torch.arange(W, device=dev), indexing="ij")
+    view = PixelBundle(h_indices=hh.float(), w_indices=ww.float(), poses=td["poses"][0].expand(H, W, 4, 4),
+                       pls=td["pls"][0].expand(H, W, 3), img_indices=torch.zeros((H, W), dtype=torch.long, device=dev),
+                       rgb_gt=td["images"][0])
+    ev = Evaluator(cfg, td["camera"], buffers, device="cuda")
+    n = STASH_ALL_REG
+    ref = ev._register_view_eager(params, view, steps=n)["raygen"]
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = ev.register_view(params, view, steps=n)["raygen"]
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3 / n
+    launches_check("13(c) registration", dict(cuda_lib.launch_counts),
+                   dict(sdf_stash_all_fwd=1, sdf_stash_all_bwd=1, shadow_final=1, round_machinery=8), n)
+    worst = snapshot_err(out, ref)
+    if worst[0] > 1e-6:
+        raise AssertionError(f"the stash_all registration graph differs from the eager loop: {worst}")
+    if all(torch.equal(out[k], params["raygen"][k]) for k in out):
+        raise AssertionError("the stash_all registration moved no raygen leaf")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev.register_view(params, view, steps=n)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ev.register_view(params, view, steps=n)
+        torch.cuda.synchronize()
+    groups = {k: v / n for k, v in sorted(device_groups(prof).items(), key=lambda kv: -kv[1])}
+    if groups.get(E1_ALL_GROUP, 0.0) <= 0.0 or groups.get(DW_GROUP, 0.0) > 0.0:
+        raise AssertionError(f"a stash_all registration step should run E's variant and no dW pass: {groups}")
+    busy = sum(groups.values())
+    verdict = "bit for bit" if worst[0] == 0.0 else f"within {worst[0]:.3e} of {worst[1]}'s scale"
+    log(f"[13(c) registration stash_all] {n} steps of a {H}x{W} test view: against the eager loop {verdict}; "
+        f"{wall_ms:.3f} ms a step through the graph (the first call {first_ms:.3f}); device busy {busy:.3f} ms a step, "
+        f"idle share {1 - busy / wall_ms:.3f}; by group (ms a step) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in groups.items()) + f"; on {smi}")
+
+
+# The original code's names of the background NeRF's layers other than
+# pts_linears.{i}.
+BG_NAMES = {"views_lin0": "views_linears.0", "feature": "feature_linear", "alpha": "alpha_linear",
+            "rgb": "rgb_linear"}
+
+
+def reference_state_dict(cfg, n_images: int, seed: int) -> dict:
+    """A ``pipeline.state_dict()`` of the original PyTorch code for ``cfg``
+    with random values from ``seed``: its key names, the shapes of a fresh
+    init of ``cfg`` (weights stored [out, in], weight norm's g [out, 1], the
+    background NeRF where the config has it) and the raygen tables
+    [n_images, .] the config learns."""
+    import torch
+
+    from nrhints_torch.render.renderer import init_model_params
+
+    fresh = init_model_params(cfg.model, torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for net, sub in (("sdf_network", "sdf"), ("color_network", "color")):
+        for name, p in fresh[sub].items():
+            d_in, d_out = p["v"].shape
+            key = f"renderer.{net}.{name}"
+            sd[f"{key}.weight_v"] = torch.randn((d_out, d_in), generator=g) / math.sqrt(d_in)
+            sd[f"{key}.weight_g"] = 1.0 + 0.1 * torch.randn((d_out, 1), generator=g)
+            sd[f"{key}.bias"] = 0.01 * torch.randn((d_out,), generator=g)
+    sd["renderer.deviation_network.variance"] = torch.tensor(0.3)
+    for name, p in fresh.get("bg", {}).items():
+        key = "renderer.outside_nerf." + BG_NAMES.get(name, name.replace("pts_lin", "pts_linears."))
+        d_in, d_out = p["w"].shape
+        sd[f"{key}.weight"] = torch.randn((d_out, d_in), generator=g) / math.sqrt(d_in)
+        sd[f"{key}.bias"] = 0.01 * torch.randn((d_out,), generator=g)
+    if cfg.ray_generator.cam_opt_mode != "off":
+        sd["ray_generator.cam_pose_adjustment"] = 0.001 * torch.randn((n_images, 6), generator=g)
+    if cfg.ray_generator.pl_opt:
+        sd["ray_generator.pl_adjustment"] = 0.001 * torch.randn((n_images, 3), generator=g)
+    return sd
+
+
+def import_phase(smi: str, tmp: Path) -> None:
+    """13(d): a fake checkpoint of the original code at full
+    nr-hints-cam-opt width (phase 9's scene: 8 + 1 + 2 views at 128x128),
+    imported by ``python -m nrhints_torch.import_ckpt``'s main in this
+    process on the card, then the Trainer on the card under stash_all
+    resumes from it: its params equal the converted ones bit for bit, and
+    IMPORT_STEPS steps (D's and E's variants once each) give finite
+    losses."""
+    import torch
+
+    from nrhints_torch.configs.cli import parse_cli
+    from nrhints_torch.configs.config import DEFAULT_PRESET, PRESETS
+    from nrhints_torch.data.synthetic import make_hints_scene
+    from nrhints_torch.import_ckpt import convert_pipeline_state_dict, main as import_main
+    from nrhints_torch.kernels import cuda_lib
+    from nrhints_torch.train.trainer import Trainer
+    from nrhints_torch.utils import tree_items
+
+    scene = make_hints_scene(tmp / "scene13", 8, 1, 2, 128, 128, seed=0)
+    argv = ["config:nr-hints-cam-opt", "--config.data.path", str(scene), "--config.base-dir", str(tmp / "runs13"),
+            "--config.model.batch-size", "512", "--config.model.renderer.core-backward", "stash_all",
+            "--config.parallel.data-axis-size", "1"]
+    cfg = parse_cli(PRESETS, DEFAULT_PRESET, argv)
+    sd = reference_state_dict(cfg, 11, seed=13)
+    ckpt = tmp / "Scene_step_0123456.ckpt"
+    torch.save({"world_size": 1, "global_step": IMPORT_GLOBAL_STEP, "pipeline": {f"module.{k}": v for k, v in sd.items()},
+                "optimizer": {}, "scheduler": {}}, ckpt)
+    t0 = time.perf_counter()
+    out = import_main([str(ckpt), *argv])
+    import_s = time.perf_counter() - t0
+    trainer = Trainer(cfg)
+    if trainer.global_step != IMPORT_GLOBAL_STEP or out != trainer.ckpt_io.ckpt_dir / f"step_{IMPORT_GLOBAL_STEP:07d}":
+        raise AssertionError(f"the Trainer resumed at {trainer.global_step} from {out}")
+    converted = dict(tree_items(convert_pipeline_state_dict(sd)[0]))
+    live = {k: t.detach().cpu() for k, t in tree_items(trainer.state.params)}
+    if sorted(live) != sorted(converted) or not all(torch.equal(live[k], t) for k, t in converted.items()):
+        raise AssertionError("the resumed Trainer's params differ from the imported ones")
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(IMPORT_STEPS):
+        losses.append(trainer.train_iter()["loss"])
+        trainer.global_step += 1
+    losses = [float(v) for v in losses]
+    step_s = (time.perf_counter() - t0) / IMPORT_STEPS
+    launches_check("13(d) imported run", dict(cuda_lib.launch_counts),
+                   dict(sdf_stash_all_fwd=1, sdf_stash_all_bwd=1, mlp_stash_fwd=1, mlp_stash_bwd=1, round_machinery=8,
+                        shadow_final=1), IMPORT_STEPS)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite losses after the import: {losses}")
+    log(f"[13(d) import] main() wrote {out.relative_to(tmp)} in {import_s:.2f} s; the Trainer on the card resumed at "
+        f"step {IMPORT_GLOBAL_STEP} with the {len(converted)} imported leaves bit for bit and trained {IMPORT_STEPS} "
+        f"steps under stash_all, {step_s:.4f} s/step on {smi}: losses {[round(v, 5) for v in losses]}")
+    del trainer
+
+
+def entry(name, source, replaces, launches_, err, ms, plain_ms, bound_ms, by) -> dict:
+    """One kernel of the kernels line."""
+    return {"name": name, "route": "cuda", "source": f"nrhints_torch/csrc/{source}",
+            "replaces": f"nrhints_tpu/kernels/{replaces}", "launches": launches_, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+
+
+def stash_all_entries(sa: dict) -> list:
+    """The kernels line's entries of D's and E's stash_all variants, their
+    launches those of phase 13(b)'s stash_all dispatch."""
+    return [entry("sdf_stash_all_fwd", "sdf_core.cu", "core_stash.py:369", sa["launches"]["sdf_stash_all_fwd"],
+                  *sa["d"]),
+            entry("sdf_stash_all_bwd", "sdf_stash.cu", "core_stash.py:422", sa["launches"]["sdf_stash_all_bwd"],
+                  *sa["e"])]
+
+
+def stash_all_phase(smi: str, dev, mc: dict, td: dict, tmp: Path) -> dict:
+    """Phase 13, core_backward="stash_all" and the import: (a) D's and E's
+    variants at phase 3's shapes; (b) K = STASH_ALL_K train steps of
+    nr-hints-cam-opt as one CUDA graph against as many eager steps, under
+    "stash" and then "stash_all" in this call (s/step, peak memory, idle
+    share), D's and E's variants once a step; (c) a registration; (d) the
+    import of a checkpoint of the original code and a resumed run.  -> the
+    numbers of the kernels line, with the launches of (b)'s dispatch."""
+    t_phase = time.perf_counter()
+    out = stash_all_kernels(smi, dev, mc)
+    batches = [td["next_batch"]() for _ in range(max(STASH_ALL_K, TRAIN_WARMUP))]
+    march = dict(round_machinery=8, shadow_final=1)
+    trunk = dict(mlp_stash_fwd=1, mlp_stash_bwd=1)
+    stash = scan_phase(smi, dev, td, batches, "graph 13(b) stash", td["cfg"], STASH_ALL_K,
+                       dict(sdf_stash_fwd=1, sdf_stash_bwd=1, **trunk, **march))
+    sa = scan_phase(smi, dev, td, batches, "graph 13(b) stash_all", with_renderer(td["cfg"], core_backward="stash_all"),
+                    STASH_ALL_K, dict(sdf_stash_all_fwd=1, sdf_stash_all_bwd=1, **trunk, **march))
+    log(f"[13(b)] {STASH_ALL_K}-step graphs in this call: stash_all {sa['graph_s']:.5f} s/step (eager "
+        f"{sa['eager_s']:.5f}), stash {stash['graph_s']:.5f} s/step (eager {stash['eager_s']:.5f}); peak device memory "
+        f"{sa['peak_gb']:.3f} GB against {stash['peak_gb']:.3f} GB; idle share {sa['idle']:.3f} against "
+        f"{stash['idle']:.3f}; on {smi}")
+    out["launches"] = sa["launches"]
+    stash_all_registration(smi, dev, td)
+    import_phase(smi, tmp)
+    log(f"[13] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1670,6 +2090,15 @@ def main() -> int:
 
     if sys.argv[1:] == ["--offpath"]:  # phase 12 alone, after the build
         offpath_phase(smi, dev, march_chunk(dev), train_data(dev, 128, 128))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+        return 0
+
+    if sys.argv[1:] == ["--stash-all"]:  # phase 13 alone, after the build
+        import tempfile
+
+        with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
+            sa = stash_all_phase(smi, dev, march_chunk(dev), train_data(dev, 128, 128), Path(tmp))
+        print(json.dumps({"kernels": stash_all_entries(sa)}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return 0
 
@@ -2335,92 +2764,10 @@ def main() -> int:
                               dict(stash_step, importance_march=1, shadow_march=1))
 
     # 10 (a)-(b). K train steps as one CUDA graph against K eager steps.
-    def scan_phase(label: str, scfg_, n_steps: int, per_step: dict) -> None:
-        """From a fresh seed-0 state of ``scfg_`` after TRAIN_WARMUP eager
-        steps, set to step 1000 (the learning rate and cos_anneal_ratio both
-        change every step there): ``n_steps`` eager steps of
-        ``make_train_step`` on ``batches``, then the same steps from the same
-        state, batches and generators through ``make_train_step_scan``: the
-        first call (eager on a side stream, then the capture) and two
-        replays, each timed and its launches counted (``per_step`` each
-        step).  Params, Adam's state and the last metrics against the eager
-        steps'; one profiled replay: device busy and idle share."""
-        from nrhints_torch.train.step import make_train_step_scan, stack_bundles
-
-        tgen = torch.Generator().manual_seed(0)
-        tparams = {"renderer": init_model_params(scfg_.model, tgen, device=dev)}
-        tparams["raygen"], tbuffers = ray_generator_init(tgen, scfg_.ray_generator, n_views, device=dev)
-        opt = make_optimizer(scfg_, tparams)
-        state = init_train_state(tparams, opt)
-        step_fn = make_train_step(scfg_, tcam, tbuffers, opt)
-        warm_gen = torch.Generator(device=dev).manual_seed(0)
-        for b in batches[-TRAIN_WARMUP:]:
-            state, _ = step_fn(state, b, warm_gen)
-        state.step = 1000
-        start = train_snapshot(state)
-        run = batches[:n_steps]
-
-        def gens():
-            return [torch.Generator(device=dev).manual_seed(2000 + i) for i in range(n_steps)]
-
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for b, g in zip(run, gens()):
-            state, m_eager = step_fn(state, b, g)
-        torch.cuda.synchronize()
-        eager_s = (time.perf_counter() - t0) / n_steps
-        eager = train_snapshot(state)
-        scan = make_train_step_scan(scfg_, tcam, tbuffers, opt, n_steps=n_steps)
-        stacked = stack_bundles(run)
-        expected_ = {k: v * n_steps for k, v in dict({k: 0 for k in cuda_lib.launch_counts}, **per_step).items()}
-        secs_, worst = [], (0.0, "")
-        for i in range(3):  # the first call, then two replays
-            train_restore(state, start)
-            torch.cuda.synchronize()
-            cuda_lib.reset_launch_counts()
-            t0 = time.perf_counter()
-            state, m_graph = scan(state, stacked, gens())
-            torch.cuda.synchronize()
-            secs_.append((time.perf_counter() - t0) / n_steps)
-            if dict(cuda_lib.launch_counts) != expected_:
-                raise AssertionError(f"[{label}] dispatch {i}: launches {dict(cuda_lib.launch_counts)}, expected "
-                                     f"{expected_}")
-            err = max(snapshot_err(train_snapshot(state), eager), snapshot_err(m_graph, m_eager))
-            worst = max(worst, err)
-        graph_s = secs_[2]
-        if worst[0] == 0.0:
-            verdict = "bit for bit"
-        elif worst[0] <= 1e-6:
-            verdict = f"within {worst[0]:.3e} of the scale of {worst[1]}"
-        else:
-            raise AssertionError(f"[{label}] the graph's steps differ from the eager steps: {worst[1]} {worst[0]:.3e}")
-        bs = scfg_.model.batch_size
-        log(f"[{label}] {n_steps} steps, core_backward={scfg_.model.renderer.core_backward!r}: eager "
-            f"{eager_s:.5f} s/step ({bs / eager_s:.1f} rays/s); CUDA graph replay {graph_s:.5f} s/step "
-            f"({bs / graph_s:.1f} rays/s; the other replay {secs_[1]:.5f}); the first call (eager, then the "
-            f"capture) {secs_[0]:.5f} s/step; params, Adam's state and the last metrics against the eager steps: "
-            f"{verdict}; launches {n_steps} x {per_step}; loss {float(m_graph['loss']):.6f}; on {smi}")
-        train_restore(state, start)
-        scan(state, stacked, gens())  # the replay before the profile, as the timed ones
-        train_restore(state, start)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            scan(state, stacked, gens())
-            torch.cuda.synchronize()
-        groups = device_groups(prof)
-        busy = sum(groups.values()) / n_steps
-        if busy > 0:
-            log(f"[profile] one {label} dispatch: device busy {busy:.3f} ms a step; idle share "
-                f"{1 - busy / (graph_s * 1e3):.3f} of the unprofiled replay ({graph_s * 1e3:.3f} ms a step); by group "
-                f"(ms a step) " + ", ".join(f"{g} {ms / n_steps:.3f}" for g, ms in
-                                          sorted(groups.items(), key=lambda kv: -kv[1])))
-        else:
-            log(f"[profile] the profiler recorded no device time in the {label} dispatch: not measured")
-
-    scan_phase("graph 10(a)", tcfg, 16, dict(stash_step, round_machinery=8, shadow_final=1))
-    scan_phase("graph 10(b) recompute", with_renderer(tcfg, core_backward="recompute"), 2,
+    scan_phase(smi, dev, td, batches, "graph 10(a)", tcfg, 16, dict(stash_step, round_machinery=8, shadow_final=1))
+    scan_phase(smi, dev, td, batches, "graph 10(b) recompute", with_renderer(tcfg, core_backward="recompute"), 2,
                dict(sdf_core_fwd=1, sdf_core_bwd=1, mlp_fwd=1, mlp_bwd=1, round_machinery=8, shadow_final=1))
-    scan_phase("graph 10(b) round-4 monolith", with_renderer(tcfg, **MONOLITH), 2,
+    scan_phase(smi, dev, td, batches, "graph 10(b) round-4 monolith", with_renderer(tcfg, **MONOLITH), 2,
                dict(stash_step, importance_march=1, shadow_march=1))
 
     # 10 (c). A test view's registration through its graph against the
@@ -2480,10 +2827,10 @@ def main() -> int:
     # (the same as ``--offpath`` draws).
     offpath_phase(smi, dev, mc, train_data(dev, H, W))
 
-    def entry(name, source, replaces, launches_, err, ms, plain_ms, bound_ms, by):
-        return {"name": name, "route": "cuda", "source": f"nrhints_torch/csrc/{source}",
-                "replaces": f"nrhints_tpu/kernels/{replaces}", "launches": launches_, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+    # 13. core_backward="stash_all" and the import, on batches of its own
+    # (the same as ``--stash-all`` draws).
+    with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
+        sa = stash_all_phase(smi, dev, mc, train_data(dev, H, W), Path(tmp))
 
     kernels = [
         entry("sdf_core_fwd", "sdf_core.cu", "core_mlp.py:227", launches["sdf_core_fwd"], a_abs, a_ms, a_plain_ms,
@@ -2514,6 +2861,7 @@ def main() -> int:
               m_abs, m_ms, m_plain_ms, m_bound, m_by),
         entry("shadow_march", "march_fused.cu", "march.py:595", view_launches["monolith"]["shadow_march"], n_abs,
               n_ms, n_plain_ms, n_bound, n_by),
+        *stash_all_entries(sa),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -1,7 +1,9 @@
 // The per-point chain of the SDF core's backward, shared by kernel E
-// (sdf_stash.cu, gates recovered from the stashed bf16 h_i) and kernel H
-// (sdf_core_bwd.cu, the f32 gates sigmoid(100 z_i) of its own forward
-// pass).  Its stages and design are described in sdf_stash.cu.
+// (sdf_stash.cu, gates recovered from the stashed bf16 h_i), E's stash_all
+// variant (US: u_i and g_enc read from the stash, stage 1's reverse sweep
+// skipped) and kernel H (sdf_core_bwd.cu, the f32 gates sigmoid(100 z_i)
+// of its own forward pass).  Its stages and design are described in
+// sdf_stash.cu.
 #pragma once
 
 #include "dw_sum.cuh"
@@ -26,7 +28,8 @@ __device__ __forceinline__ float gate_from_h(float h) { return 1.0f - expf(-100.
 // consecutive columns of one point per item (16-byte accesses to the
 // device-memory scratch, 8-byte ones to the stash), so each thread has a
 // few items, not dozens, of dependent global-memory round trips per pass.
-template <bool GATES>
+// The stash's rows are stash_row(m, US) wide.
+template <bool GATES, bool US>
 __global__ void __launch_bounds__(kChainThreads)
     sdf_bwd_chain_kernel(const float* __restrict__ x, const bf16* __restrict__ stash,
                          const float* __restrict__ gsc, const float* __restrict__ ds, const float* __restrict__ df,
@@ -43,7 +46,7 @@ __global__ void __launch_bounds__(kChainThreads)
 
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * kChainTP;
-  const int L = m.n_layers, F = m.multi_res, d0 = m.d0, GT = m.gates_total;
+  const int L = m.n_layers, F = m.multi_res, d0 = m.d0, GT = m.gates_total, ST = stash_row(m, US);
   const int DL = m.d_last, DF = m.d_feat, kpf = m.kpf, npf = m.npf;
   const size_t npad = (size_t)gridDim.x * kChainTP;
   // The block's rows of the device-memory scratch: U (u_i, then dL/dh_i),
@@ -60,12 +63,12 @@ __global__ void __launch_bounds__(kChainThreads)
   const int pw = GT + npf + 1 + 2 * kpf;
   float* prow = partial + (size_t)blockIdx.x * pw;
   auto hval = [&](int p, int col) -> float {
-    return p0 + p < n ? bf(stash[(size_t)(p0 + p) * GT + col]) : 0.0f;
+    return p0 + p < n ? bf(stash[(size_t)(p0 + p) * ST + col]) : 0.0f;
   };
   // Four columns of h_i (col a multiple of 4).
   auto hval4 = [&](int p, int col, float* v) {
     if (p0 + p < n)
-      ld_bf4(stash + (size_t)(p0 + p) * GT + col, v);
+      ld_bf4(stash + (size_t)(p0 + p) * ST + col, v);
     else
       v[0] = v[1] = v[2] = v[3] = 0.0f;
   };
@@ -85,7 +88,7 @@ __global__ void __launch_bounds__(kChainThreads)
   };
 
   // 0. Encoding of 3x; the cotangents.
-  stage_first_slabs<true>(wpack + m.w_off[L - 1], m.np_[L - 1], m.np_[L - 1], m.kp[L - 1], ring);
+  if (!US) stage_first_slabs<true>(wpack + m.w_off[L - 1], m.np_[L - 1], m.np_[L - 1], m.kp[L - 1], ring);
   for (int idx = tid; idx < kChainTP * kEncMax; idx += kChainThreads) {
     const int p = idx / kEncMax, c = idx % kEncMax, gp = p0 + p;
     float xs[3];
@@ -102,7 +105,20 @@ __global__ void __launch_bounds__(kChainThreads)
   __syncthreads();
 
   // 1. The reverse sweep at the stashed h: U_i = g before layer i's gate.
-  for (int i = L - 1; i >= 0; --i) {
+  // US: U_i and g_enc are read from the stash, its rounding to bf16 kept.
+  if (US) {
+    for (int idx = tid; idx < kChainTP * (GT / 4); idx += kChainThreads) {
+      const int p = idx / (GT / 4), c = (idx % (GT / 4)) * 4;
+      float u[4];
+      hval4(p, GT + c, u);
+      st_f4(U(p, c), u);
+    }
+    for (int idx = tid; idx < kChainTP * d0; idx += kChainThreads) {
+      const int p = idx / d0, c = idx % d0;
+      genc(p, c) = hval(p, 2 * GT + c);
+    }
+  }
+  for (int i = L - 1; i >= 0 && !US; --i) {
     const int np = m.np_[i], out = m.out_dim[i], in = m.in_dim[i], kp = m.kp[i], goff = m.b_off[i];
     if (i < L - 1) stage_first_slabs<true>(wpack + m.w_off[i], np, np, kp, ring);
     for (int idx = tid; idx < kChainTP * (np / 4); idx += kChainThreads) {
@@ -133,7 +149,7 @@ __global__ void __launch_bounds__(kChainThreads)
       __syncthreads();
     }
   }
-  for (int idx = tid; idx < kChainTP * d0; idx += kChainThreads) {
+  for (int idx = tid; idx < kChainTP * d0 && !US; idx += kChainThreads) {
     const int p = idx / d0, c = idx % d0;
     genc(p, c) += G[p * kLdZ + c];
   }
@@ -384,18 +400,18 @@ __global__ void __launch_bounds__(kChainThreads)
 
 // The chain, then dw_sum.cuh's passes, on `stream`; returns the first
 // launch error.
-template <bool GATES>
+template <bool GATES, bool US>
 inline int launch_sdf_bwd(const float* x, const bf16* stash, const float* gsc, const float* ds, const float* df,
                           const float* dgx, const bf16* wpack, const float* w_sdf, float* dx, bf16* scratch,
                           float* cscr, float* partial, float* colsum, float* part_dw, float* dw, const SdfMeta& m,
                           const DwJobs& jobs, int split, int n, float scale, cudaStream_t stream) {
   const size_t smem = kChainSmem;
-  int rc = (int)cudaFuncSetAttribute(sdf_bwd_chain_kernel<GATES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  int rc = (int)cudaFuncSetAttribute(sdf_bwd_chain_kernel<GATES, US>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                      (int)smem);
   if (rc) return rc;
   const int nblk = (n + kChainTP - 1) / kChainTP;
-  sdf_bwd_chain_kernel<GATES><<<nblk, kChainThreads, smem, stream>>>(x, stash, gsc, ds, df, dgx, wpack, w_sdf, dx,
-                                                                 scratch, cscr, partial, n, m, jobs, scale);
+  sdf_bwd_chain_kernel<GATES, US><<<nblk, kChainThreads, smem, stream>>>(x, stash, gsc, ds, df, dgx, wpack, w_sdf,
+                                                                     dx, scratch, cscr, partial, n, m, jobs, scale);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   const int pw = m.gates_total + m.npf + 1 + 2 * m.kpf;

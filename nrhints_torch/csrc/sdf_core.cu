@@ -17,6 +17,15 @@
 // code with one more 8-byte store per item of the layer loop (sdf_fwd.cuh,
 // MODE = kFwdStash).
 //
+// D's stash_all variant, sdf_stash_all_fwd, replaces the same pallas_call
+// with stash_us=True (core_backward="stash_all"): D's outputs and h_i bit
+// for bit, and also each layer's reverse-sweep value u_i (the g that meets
+// the layer's gate; u_{L-1} = w_sdf / scale) and g_enc, rounded to bf16,
+// in a stash [N, 2 x 2,016 + 48] (535 MB at 65,536 points; MODE =
+// kFwdStashAll).  D computes both in its reverse sweep for the gradient
+// anyway: the variant adds an 8-byte store per item of that sweep and a
+// pass over g_enc.  Its bound adds 271 MB of writes (0.081 ms).
+//
 // Bound on an H100: about 0.98 M multiply-adds per point (524,544 forward,
 // 458,752 reverse) = 1.97 MFLOP, so 129 GFLOP per 512-ray chunk of 65,536
 // points: 0.130 ms at 989 TFLOP/s bf16.  Its outputs (sdf, 256 feature
@@ -70,6 +79,16 @@ extern "C" int sdf_stash_fwd(const float* x, const void* wpack, const float* bpa
   if (rc || n <= 0) return rc;
   return launch_sdf_fwd<kFwdStash>(x, (const bf16*)wpack, bpack, w_sdf, sdf, feat, gx, (bf16*)stash, gates, n, m,
                                    scale, (cudaStream_t)stream);
+}
+
+extern "C" int sdf_stash_all_fwd(const float* x, const void* wpack, const float* bpack,
+                                 const float* w_sdf, float* sdf, float* feat, float* gx, void* stash,
+                                 float* gates, int n, const int* meta, float scale, void* stream) {
+  SdfMeta m;
+  const int rc = parse_meta(meta, &m);
+  if (rc || n <= 0) return rc;
+  return launch_sdf_fwd<kFwdStashAll>(x, (const bf16*)wpack, bpack, w_sdf, sdf, feat, gx, (bf16*)stash, gates, n, m,
+                                      scale, (cudaStream_t)stream);
 }
 
 extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

@@ -28,9 +28,9 @@
 //      every dot of the backward reads, as kernel D's stash) and every gate
 //      in f32 to device memory, where A keeps its own; no heads and no
 //      reverse sweep.  227,328 bytes of shared memory per block.
-//   H2 (sdf_bwd.cuh with GATES = true): kernel E's chain and its split-K dW
-//      passes (dw_sum.cuh), reading the f32 gates instead of recovering
-//      them from h.  The dW sums run in a fixed order: the gradients repeat
+//   H2 (sdf_bwd.cuh with GATES = true, US = false): kernel E's chain and
+//      its split-K dW passes (dw_sum.cuh), reading the f32 gates instead
+//      of recovering them from h.  The dW sums run in a fixed order: the gradients repeat
 //      bit for bit.
 // The scratch is 6 bytes per point per padded hidden unit (2,016 at full
 // width): 793 MB at 65,536 points (264 MB bf16 h, 528 MB f32 gates on
@@ -53,8 +53,8 @@ extern "C" int sdf_core_bwd(const float* x, const float* ds, const float* df, co
   rc = launch_sdf_fwd<kFwdRecompute>(x, (const bf16*)wpack, bpack, w_sdf, nullptr, nullptr, nullptr, (bf16*)hs,
                                      gates, n, m, scale, s);
   if (rc) return rc;
-  return launch_sdf_bwd<true>(x, (const bf16*)hs, gates, ds, df, dgx, (const bf16*)wpack, w_sdf, dx,
-                              (bf16*)scratch, cscr, partial, colsum, part_dw, dw, m, J, split, n, scale, s);
+  return launch_sdf_bwd<true, false>(x, (const bf16*)hs, gates, ds, df, dgx, (const bf16*)wpack, w_sdf, dx,
+                                     (bf16*)scratch, cscr, partial, colsum, part_dw, dw, m, J, split, n, scale, s);
 }
 
 extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

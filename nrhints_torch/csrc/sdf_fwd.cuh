@@ -5,6 +5,12 @@
 //   kFwdStash      those, and every layer's activation h_i rounded to bf16
 //                  into a packed stash [N, sum of the 16-padded widths]
 //                  (kernel D);
+//   kFwdStashAll   those, and also every layer's reverse-sweep value u_i
+//                  (the g that reaches the layer's gate) and the encoding
+//                  cotangent g_enc, rounded to bf16, in the stash_all
+//                  layout of stash_row (D's variant for
+//                  core_backward="stash_all"); sdf, feat, grad and the h_i
+//                  columns are kFwdStash's bit for bit;
 //   kFwdRecompute  the same bf16 stash and nothing else: no heads, no
 //                  reverse sweep (kernel H's forward pass).
 // Every mode writes every layer's gate sigmoid(100 z_i) in f32 to a
@@ -17,7 +23,7 @@
 
 namespace nrh {
 
-constexpr int kFwdPlain = 0, kFwdStash = 1, kFwdRecompute = 2;
+constexpr int kFwdPlain = 0, kFwdStash = 1, kFwdRecompute = 2, kFwdStashAll = 3;
 
 // Shared memory of the forward: the bf16 activation tile (each layer's
 // output written in place once the product that read it has returned), the
@@ -47,6 +53,7 @@ __global__ void __launch_bounds__(kChainThreads)
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * kChainTP;
   const int L = m.n_layers, F = m.multi_res, d0 = m.d0, GT = m.gates_total;
+  const int ST = stash_row(m, MODE == kFwdStashAll);  // the stash's row stride
   float* grow = gsc + (size_t)p0 * GT;  // the block's rows of the gate scratch
 
   // Encoding of 3x, and the first layer's bf16 input.
@@ -97,7 +104,7 @@ __global__ void __launch_bounds__(kChainThreads)
       st_bf4(act + p * kLdA + c, a);
       if (c < np) {
         st_f4(grow + (size_t)p * GT + goff + c, g);
-        if (MODE != kFwdPlain && p0 + p < n) st_bf4(stash + (size_t)(p0 + p) * GT + goff + c, h);
+        if (MODE != kFwdPlain && p0 + p < n) st_bf4(stash + (size_t)(p0 + p) * ST + goff + c, h);
       }
     }
   }
@@ -149,6 +156,12 @@ __global__ void __launch_bounds__(kChainThreads)
 #pragma unroll
       for (int k = 0; k < 4; ++k) t[k] = c + k < out ? u[k] * gate[k] : 0.0f;
       st_bf4(act + p * kLdA + c, t);
+      if (MODE == kFwdStashAll && p0 + p < n) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (c + k >= out) u[k] = 0.0f;
+        st_bf4(stash + (size_t)(p0 + p) * ST + GT + goff + c, u);
+      }
     }
     gemm_rows64<true>(act, kLdA, wpack + m.w_off[i], np, np, kp, G, kLdZ, ring);
     __syncthreads();
@@ -190,6 +203,15 @@ __global__ void __launch_bounds__(kChainThreads)
       acc = f == 0 ? dS : acc + dS * (float)(1 << f);
     }
     gx_out[(size_t)gp * 3 + d] = (ge[d] + g[d] + acc) * scale;
+  }
+  if (MODE == kFwdStashAll) {  // g_enc = the skip's share + the last carry, zero-padded
+    const int ew = ST - 2 * GT;
+    for (int idx = tid; idx < kChainTP * ew; idx += kChainThreads) {
+      const int p = idx / ew, c = idx % ew;
+      if (p0 + p < n)
+        stash[(size_t)(p0 + p) * ST + 2 * GT + c] =
+            to_bf16(c < d0 ? genc[p * kEncMax + c] + G[p * kLdZ + c] : 0.0f);
+    }
   }
 }
 

@@ -67,6 +67,14 @@ inline int parse_meta(const int* meta, SdfMeta* m) {
   return 0;
 }
 
+// Columns of kernel D's packed bf16 stash (core_stash.py::sdf_stash_width):
+// every layer's h_i on 16-column boundaries (gates_total columns); with us
+// (core_backward="stash_all") then every layer's u_i at the same offsets
+// plus gates_total, and g_enc at 2 gates_total, d0 columns padded to 16.
+__host__ __device__ inline int stash_row(const SdfMeta& m, bool us) {
+  return us ? 2 * m.gates_total + (m.d0 + 15) / 16 * 16 : m.gates_total;
+}
+
 // softplus(100 z) * 0.01 and sigmoid(100 z) from one exponential, exactly
 // as kernels/common.py::softplus100_gate writes them.
 __device__ __forceinline__ void softplus100_gate(float z, float* sp, float* gate) {

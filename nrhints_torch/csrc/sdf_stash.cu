@@ -44,7 +44,18 @@
 //   sums the chunks and the column sums in a fixed order: no atomics, so
 //   the gradients repeat bit for bit.
 // The ragged edge is masked: rows past N read zeros, store nothing to dx,
-// and contribute zeros to every sum.  The chain lives in sdf_bwd.cuh, where
+// and contribute zeros to every sum.
+//
+// E's stash_all variant, sdf_stash_all_bwd, replaces the same pallas_call
+// with stash_us=True (core_backward="stash_all"): sdf_core_bwd_stash_all_ref
+// at the u_i and g_enc that D's variant stashed in bf16 (the port of the
+// arithmetic is core_stash.py::sdf_core_bwd_stash_all_plain).  E1 skips
+// its first stage, the reverse sweep's L products, and copies the stashed
+// u_i and g_enc into the f32 scratch instead (as f32 of the bf16 values,
+// as the reference reads them); no shared memory is added.  Its bound
+// drops the recomputed sweep's 458,752 multiply-adds a point (60.1 GFLOP,
+// 0.061 ms) and reads the 535 MB stash (0.160 ms).  Every later stage is
+// E's.  The chain lives in sdf_bwd.cuh, where
 // kernel H (sdf_core_bwd.cu) runs it with its own f32 gates.
 #include "sdf_bwd.cuh"
 
@@ -59,9 +70,24 @@ extern "C" int sdf_stash_bwd(const float* x, const void* stash, const float* ds,
   DwJobs J;
   const int rc = parse_sdf_bwd(meta, jobs, n_jobs, &m, &J);
   if (rc || n <= 0) return rc;
-  return launch_sdf_bwd<false>(x, (const bf16*)stash, nullptr, ds, df, dgx, (const bf16*)wpack, w_sdf, dx,
-                               (bf16*)scratch, cscr, partial, colsum, part_dw, dw, m, J, split, n, scale,
-                               (cudaStream_t)stream);
+  return launch_sdf_bwd<false, false>(x, (const bf16*)stash, nullptr, ds, df, dgx, (const bf16*)wpack, w_sdf, dx,
+                                      (bf16*)scratch, cscr, partial, colsum, part_dw, dw, m, J, split, n, scale,
+                                      (cudaStream_t)stream);
+}
+
+// E's stash_all variant: the same arguments, at the stash of D's variant.
+extern "C" int sdf_stash_all_bwd(const float* x, const void* stash, const float* ds, const float* df,
+                                 const float* dgx, const void* wpack, const float* w_sdf, float* dx,
+                                 void* scratch, float* cscr, float* partial, float* colsum, float* part_dw, float* dw,
+                                 const long long* jobs, int n_jobs, int split, int n, const int* meta,
+                                 float scale, void* stream) {
+  SdfMeta m;
+  DwJobs J;
+  const int rc = parse_sdf_bwd(meta, jobs, n_jobs, &m, &J);
+  if (rc || n <= 0) return rc;
+  return launch_sdf_bwd<false, true>(x, (const bf16*)stash, nullptr, ds, df, dgx, (const bf16*)wpack, w_sdf, dx,
+                                     (bf16*)scratch, cscr, partial, colsum, part_dw, dw, m, J, split, n, scale,
+                                     (cudaStream_t)stream);
 }
 
 extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

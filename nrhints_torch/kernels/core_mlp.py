@@ -9,7 +9,7 @@ both ops.
 port of ``sdf_core_ref``, on a CPU tensor.  With one, ``backward`` picks the
 schedule: "recompute" runs ``SdfCoreFn`` (A forward, H backward,
 ``csrc/sdf_core_bwd.cu``; only x and the weights are kept between them),
-"stash" and "stash_xla" the stash op of ``core_stash.py``.
+"stash", "stash_all" and "stash_xla" the stash op of ``core_stash.py``.
 ``fused_mlp_apply`` runs the reflectance trunk the same way: kernel I
 (``csrc/mlp_stash.cu``) without a gradient, ``MlpFn`` (I forward, J
 backward) under "recompute", the stash op (F, G) otherwise.
@@ -87,8 +87,9 @@ def sdf_core_plain(
     ``sdf_core_ref``.  ``weights`` = (w0, b0, ..., w_sdf, b_sdf, w_feat,
     b_feat), w [in, out].  ``compute_dtype="bfloat16"`` rounds only the
     dot operands; the gradient is a manual reverse sweep with the gates
-    sigmoid(100 z).  ``return_hs`` appends the list of every layer's f32
-    activation h_i (the stash of ``core_stash.py``)."""
+    sigmoid(100 z).  ``return_hs`` appends the lists of every layer's f32
+    activation h_i and reverse-sweep value u_i (the g that reaches layer
+    i's gate), and g_enc (the stashes of ``core_stash.py``)."""
     L, F, d_in = cfg.n_layers, cfg.multi_res, cfg.d_in
     enc, sin_b, cos_b = encode_points(x, cfg)
 
@@ -105,13 +106,13 @@ def sdf_core_plain(
     sdf = (dot(h, w_sdf, compute_dtype) + b_sdf) / cfg.scale
     feat = dot(h, w_feat, compute_dtype) + b_feat
 
-    g_enc, _ = reverse_sweep(weights, gates, cfg, enc, compute_dtype)
+    g_enc, us = reverse_sweep(weights, gates, cfg, enc, compute_dtype)
     g_sin = g_enc[:, d_in : d_in + d_in * F]
     g_cos = g_enc[:, d_in + d_in * F :]
     dS = g_sin * cos_b - g_cos * sin_b
     gx = (g_enc[:, :d_in] + per_dim_sum(dS, d_in, F)) * cfg.scale
     if return_hs:
-        return sdf[:, 0], feat, gx, hs
+        return sdf[:, 0], feat, gx, hs, us, g_enc
     return sdf[:, 0], feat, gx
 
 
@@ -368,11 +369,13 @@ def sdf_core_fwd(
 
 
 def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, stash: torch.Tensor | None = None,
-                   need_dw: bool = True):
+                   need_dw: bool = True, stash_us: bool = False):
     """The SDF core's backward on the card -> (dws, dx) with the shapes of
-    ``sdf_core_bwd_plain``'s: kernel E at the bf16 ``stash`` of kernel D, or,
-    with ``stash=None``, kernel H, which first recomputes the layers into a
-    scratch of its own (bf16 h_i and f32 gates, freed when this returns).
+    ``sdf_core_bwd_plain``'s: kernel E at the bf16 ``stash`` of kernel D
+    (with ``stash_us``, E's stash_all variant at D's stash_all stash, which
+    also holds u_i and g_enc), or, with ``stash=None``, kernel H, which
+    first recomputes the layers into a scratch of its own (bf16 h_i and f32
+    gates, freed when this returns).
     Both run the per-point chain on 64-point blocks (dx, the dW operands in
     bf16 scratch, per-block f32 column sums of the bias cotangents, and u_i
     and the encoding cotangents in an f32 scratch of ``chain_layout``'s
@@ -387,7 +390,9 @@ def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, 
     L, d_feat, d_last, kpf, npf, gt = (int(meta[k]) for k in (0, 3, 4, 5, 6, 9))
     require_cuda(x, (None, 3), "x")
     if stash is not None:
-        require_cuda(stash, (n, gt), "stash", torch.bfloat16)
+        from nrhints_torch.kernels.core_stash import sdf_stash_width
+
+        require_cuda(stash, (n, sdf_stash_width(cfg, stash_us)), "stash", torch.bfloat16)
     require_cuda(ds, (n,), "d_sdf")
     require_cuda(df, (n, d_feat), "d_feat")
     require_cuda(dgx, (n, 3), "d_grad")
@@ -416,8 +421,9 @@ def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, 
             pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr(), hs.data_ptr(), gates.data_ptr(), *tail,
         )
     elif n > 0:
+        name = "sdf_stash_all_bwd" if stash_us else "sdf_stash_bwd"
         _launch(
-            cuda_lib.load("sdf_stash"), "sdf_stash_bwd", "sdf_stash_bwd",
+            cuda_lib.load("sdf_stash"), name, name,
             x.data_ptr(), stash.data_ptr(), ds.data_ptr(), df.data_ptr(), dgx.data_ptr(), pk["wpack"].data_ptr(),
             pk["w_sdf"].data_ptr(), *tail,
         )
@@ -629,23 +635,21 @@ def fused_sdf_value_feat_grad(
     tensors through ``sdf_core_plain``, whatever ``backward`` says.  When
     autograd needs the op's gradient, ``backward`` is the schedule:
     "recompute" (``SdfCoreFn``: A, then H), "stash" (``core_stash.SdfStashFn``:
-    D, then E) or "stash_xla" (D, then E's plain version over the whole
-    batch).  "stash_all" (JAX's variant that also stashes u_i and the
-    encoding cotangents) has no kernels in the port and raises
-    ``NotImplementedError``."""
+    D, then E), "stash_all" (D's and E's variants that also stash and read
+    the reverse sweep's u_i and g_enc) or "stash_xla" (D, then E's plain
+    version over the whole batch)."""
     grad = needs_grad(x, *tree_leaves(params))
     weights = materialize_sdf_weights_full(params, cfg)
     if grad:
         if backward == "recompute":
             return SdfCoreFn.apply(cfg, compute_dtype, x.contiguous(), *weights)
-        if backward in ("stash", "stash_xla"):
+        if backward in ("stash", "stash_all", "stash_xla"):
             from nrhints_torch.kernels.core_stash import SdfStashFn
 
-            return SdfStashFn.apply(cfg, compute_dtype, "bfloat16", _stash_bwd_impl(backward), x.contiguous(), *weights)
-        raise NotImplementedError(
-            f"core_backward={backward!r}: the port's fused core has the 'recompute', 'stash' and 'stash_xla' "
-            "schedules; 'stash_all' is not ported"
-        )
+            return SdfStashFn.apply(cfg, compute_dtype, "bfloat16", _stash_bwd_impl(backward), backward == "stash_all",
+                                    x.contiguous(), *weights)
+        raise NotImplementedError(f"core_backward={backward!r}: the port's fused core has the 'recompute', 'stash', "
+                                  "'stash_all' and 'stash_xla' schedules")
     if x.device.type == "cpu":
         return sdf_core_plain(weights, x, cfg, compute_dtype)
     check_kernel_dtype(compute_dtype)

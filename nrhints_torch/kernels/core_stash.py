@@ -18,6 +18,10 @@ and the forward z-chain follow (``sdf_core_bwd_stash_all_ref``'s formulas).
 The weight cotangent of layer i is inp_i^T Gz_i + v_i^T t_i, one product
 with K = 2N rows that the kernel sums in a second, deterministic pass.
 
+Under ``core_backward="stash_all"`` D's variant also stashes u_i and g_enc
+(bf16, as JAX's ``stash_us``), and E's variant reads them where E
+recomputes them: its chain runs 2L per-layer products instead of 3L.
+
 The trunk op (kernels F and G, ``csrc/mlp_stash.cu``) stashes the ReLU
 pre-activations z_i and back-propagates at them.
 
@@ -66,22 +70,43 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # Plain versions
 
 
-def sdf_core_fwd_hs_plain(weights, x, cfg: SDFNetConfig, compute_dtype="float32", stash_dtype="float32"):
+def sdf_core_fwd_hs_plain(weights, x, cfg: SDFNetConfig, compute_dtype="float32", stash_dtype="float32",
+                          return_us: bool = False):
     """-> (sdf [N], feat, grad, hs): ``sdf_core_plain``'s outputs and every
     layer's activation h_i [N, out_i] in ``stash_dtype`` (port of
-    ``sdf_core_fwd_hs_ref``)."""
-    sdf, feat, gx, hs = sdf_core_plain(weights, x, cfg, compute_dtype, return_hs=True)
-    return sdf, feat, gx, [h.to(_DTYPES[stash_dtype]) for h in hs]
+    ``sdf_core_fwd_hs_ref``).  ``return_us`` also returns the reverse
+    sweep's values, in ``stash_dtype`` too: every layer's u_i [N, out_i]
+    (the g that reaches layer i's gate; u_{L-1} is w_sdf / scale at every
+    point) and g_enc [N, d0] -> (sdf, feat, grad, hs, us, g_enc)."""
+    sdf, feat, gx, hs, us, g_enc = sdf_core_plain(weights, x, cfg, compute_dtype, return_hs=True)
+    dt = _DTYPES[stash_dtype]
+    hs = [h.to(dt) for h in hs]
+    if return_us:
+        return sdf, feat, gx, hs, [u.to(dt) for u in us], g_enc.to(dt)
+    return sdf, feat, gx, hs
 
 
 def sdf_core_bwd_stash_plain(weights, x, hs, cots, cfg: SDFNetConfig, compute_dtype="float32", need_dw=True):
     """Backward at the stashed hs -> (dws, dx), in kernel E's order: the
-    reverse sweep's u_i and g_enc recomputed from hs, then the hand VJPs of
-    ``sdf_core_bwd_stash_all_ref`` (Tail, the sweep in ascending order,
-    Heads, the forward z-chain, the encoding).  ``cots`` = (d sdf [N],
+    reverse sweep's u_i and g_enc recomputed from hs in f32, then
+    ``sdf_core_bwd_stash_all_plain`` at them.  ``cots`` = (d sdf [N],
     d feat [N, F], d grad [N, 3]); ``dws`` has the shapes of ``weights``.
     ``need_dw=False`` computes no weight cotangent -> (None, dx), dx the
     same bit for bit (kernel E's chain without its dW passes)."""
+    enc, _, _ = encode_points(x, cfg)
+    gates = [gate_from_h(h.float()) for h in hs]
+    g_enc, us = reverse_sweep(weights, gates, cfg, enc, compute_dtype)
+    return sdf_core_bwd_stash_all_plain(weights, x, hs, us, g_enc, cots, cfg, compute_dtype, need_dw)
+
+
+def sdf_core_bwd_stash_all_plain(weights, x, hs, us, g_enc, cots, cfg: SDFNetConfig, compute_dtype="float32",
+                                 need_dw=True):
+    """Backward at the stashed hs, u_i and g_enc -> (dws, dx) (port of
+    ``sdf_core_bwd_stash_all_ref``): the Tail VJP at g_enc, the VJP of the
+    reverse sweep in ascending order at the u_i, the heads, the forward
+    z-chain in descending order, the encoding.  Every stash is read as f32;
+    the gates are 1 - exp(-100 h).  ``cots`` and ``need_dw`` as
+    ``sdf_core_bwd_stash_plain``'s."""
     cd = compute_dtype
     ds, df, dgx = cots
     L, F, d_in, scale = cfg.n_layers, cfg.multi_res, cfg.d_in, cfg.scale
@@ -89,14 +114,12 @@ def sdf_core_bwd_stash_plain(weights, x, hs, cots, cfg: SDFNetConfig, compute_dt
     enc, sin_b, cos_b = encode_points(x, cfg)
     d0 = enc.shape[-1]
     hs = [h.float() for h in hs]
+    us = [u.float() for u in us]
+    g_enc = g_enc.float()
     gates = [gate_from_h(h) for h in hs]
     L2 = 2 * L
 
-    # 1) The reverse sweep at the stashed hs: u_i (g before layer i's gate)
-    # and g_enc.
-    g_enc, us = reverse_sweep(weights, gates, cfg, enc, cd)
-
-    # 2) Tail VJP: gx = (g_enc[:, :3] + sum_f dS_f 2^f) * scale.
+    # 1) Tail VJP: gx = (g_enc[:, :3] + sum_f dS_f 2^f) * scale.
     c = dgx * scale
     cdS = torch.cat([c[:, d : d + 1] * (2.0**f) for d in range(d_in) for f in range(F)], dim=-1)
     g_sin = g_enc[:, d_in : d_in + d_in * F]
@@ -105,7 +128,7 @@ def sdf_core_bwd_stash_plain(weights, x, hs, cots, cfg: SDFNetConfig, compute_dt
     d_sin_t = -cdS * g_cos
     d_cos_t = cdS * g_sin
 
-    # 3) VJP of the reverse sweep, ascending.
+    # 2) VJP of the reverse sweep, ascending.
     dw_rev, dhs_r = [None] * L, [None] * L
     carry = d_genc
     for i in range(L):
@@ -116,7 +139,7 @@ def sdf_core_bwd_stash_plain(weights, x, hs, cots, cfg: SDFNetConfig, compute_dt
         dhs_r[i] = dt * us[i] * (100.0 * (1.0 - gates[i]))
         carry = dt * gates[i]
 
-    # 3b) Heads.
+    # 3) Heads.
     h_L = hs[L - 1]
     ds_s = ds.reshape(-1, 1) / scale
     dws = [None] * len(weights)
@@ -175,15 +198,26 @@ def mlp_relu_bwd_stash_plain(weights, x, zs, g, n_layers: int, compute_dtype="fl
 # Layouts shared with the kernels
 
 
-def sdf_stash_columns(cfg: SDFNetConfig) -> list[tuple[int, int]]:
-    """(column offset, width) of each layer's h_i in kernel D's packed
-    stash [N, sum of the 16-padded widths]."""
+def sdf_stash_columns(cfg: SDFNetConfig, stash_us: bool = False) -> list[tuple[int, int]]:
+    """(column offset, width) of each part of kernel D's packed stash [N,
+    ``sdf_stash_width``]: every layer's h_i at 16-column boundaries (GT
+    columns in all, ``gates_total`` of ``pack_sdf_mlp``'s meta); with
+    ``stash_us`` (``core_backward="stash_all"``) then every layer's u_i at
+    the same offsets plus GT, and g_enc [N, d0] at 2 GT."""
     io, _ = _layer_dims(cfg)
     cols, off = [], 0
     for _, out in io:
         cols.append((off, out))
         off += _round16(out)
+    if stash_us:
+        cols += [(off + o, w) for o, w in cols] + [(2 * off, cfg.d_encoded)]
     return cols
+
+
+def sdf_stash_width(cfg: SDFNetConfig, stash_us: bool = False) -> int:
+    """Columns of kernel D's packed stash (``csrc/sdf_mlp.cuh::stash_row``)."""
+    off, w = sdf_stash_columns(cfg, stash_us)[-1]
+    return off + _round16(w)
 
 
 def split_stash(stash: torch.Tensor, cols) -> list[torch.Tensor]:
@@ -195,24 +229,29 @@ def split_stash(stash: torch.Tensor, cols) -> list[torch.Tensor]:
 # Kernels D and E
 
 
-def sdf_stash_fwd(weights: Sequence[torch.Tensor], x: torch.Tensor, cfg: SDFNetConfig, pk: dict | None = None):
+def sdf_stash_fwd(weights: Sequence[torch.Tensor], x: torch.Tensor, cfg: SDFNetConfig, pk: dict | None = None,
+                  stash_us: bool = False):
     """Kernel D on the card -> (sdf [N], feat [N, F], grad [N, 3], stash
-    [N, GT] bf16): kernel A's outputs, bit for bit, and every h_i at its
-    ``sdf_stash_columns`` offset.  Its f32 gates go to a scratch of
-    ``core_mlp.gate_layout``'s size, freed when this returns."""
+    [N, ``sdf_stash_width``] bf16): kernel A's outputs, bit for bit, and
+    every h_i at its ``sdf_stash_columns`` offset; with ``stash_us`` (D's
+    stash_all variant) also every u_i and g_enc, rounded to bf16, where
+    the h_i columns and the outputs stay plain D's bit for bit.  Its f32
+    gates go to a scratch of ``core_mlp.gate_layout``'s size, freed when
+    this returns."""
     require_cuda(x, (None, 3), "x")
     n, dev = x.shape[0], x.device
     pk = pack_sdf_mlp(weights, cfg, with_feat=True) if pk is None else pk
     gt = int(pk["meta"][9])
+    name = "sdf_stash_all_fwd" if stash_us else "sdf_stash_fwd"
     sdf = torch.empty(n, device=dev)
     feat = torch.empty((n, cfg.d_out_feat), device=dev)
     gx = torch.empty((n, 3), device=dev)
-    stash = torch.empty((n, gt), dtype=torch.bfloat16, device=dev)
+    stash = torch.empty((n, sdf_stash_width(cfg, stash_us)), dtype=torch.bfloat16, device=dev)
     if n == 0:
         return sdf, feat, gx, stash
     gates = torch.empty(gate_layout(n, gt)[2], device=dev)
     _launch(
-        cuda_lib.load("sdf_core"), "sdf_stash_fwd", "sdf_stash_fwd",
+        cuda_lib.load("sdf_core"), name, name,
         x.data_ptr(), pk["wpack"].data_ptr(), pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr(),
         sdf.data_ptr(), feat.data_ptr(), gx.data_ptr(), stash.data_ptr(), gates.data_ptr(), n,
         pk["meta"].ctypes.data, float(cfg.scale), cuda_lib.stream_ptr(dev),
@@ -220,12 +259,15 @@ def sdf_stash_fwd(weights: Sequence[torch.Tensor], x: torch.Tensor, cfg: SDFNetC
     return sdf, feat, gx, stash
 
 
-def sdf_stash_bwd(weights, x, stash, cots, cfg: SDFNetConfig, pk: dict | None = None, need_dw: bool = True):
+def sdf_stash_bwd(weights, x, stash, cots, cfg: SDFNetConfig, pk: dict | None = None, need_dw: bool = True,
+                  stash_us: bool = False):
     """Kernel E on the card -> (dws, dx) with the shapes of
     ``sdf_core_bwd_stash_plain``'s, at kernel D's stash
     (``core_mlp.sdf_bwd_launch``); ``need_dw=False`` -> (None, dx) without
-    the dW passes."""
-    return sdf_bwd_launch(weights, x, cots, cfg, pk, stash=stash, need_dw=need_dw)
+    the dW passes.  ``stash_us``: E's stash_all variant, at the u_i and
+    g_enc of D's stash_all variant (``sdf_core_bwd_stash_all_plain``'s
+    function)."""
+    return sdf_bwd_launch(weights, x, cots, cfg, pk, stash=stash, need_dw=need_dw, stash_us=stash_us)
 
 
 # ---------------------------------------------------------------------------
@@ -277,24 +319,29 @@ class SdfStashFn(torch.autograd.Function):
     """(sdf [N], feat [N, F], grad [N, 3]) with the stash backward: forward
     kernel D and backward kernel E on CUDA tensors (with ``bwd_impl="xla"``,
     E's plain version on the card's tensors), the plain versions on CPU
-    tensors.  The backward is the full first-order VJP of all three
-    outputs; the eikonal loss's second-order terms are inside it, so nothing
-    differentiates through it again.  Where no weight needs a gradient
-    (registration differentiates the rays alone, as JAX's does), it computes
-    dx only: kernel E without its dW passes."""
+    tensors.  ``stash_us`` (``core_backward="stash_all"``) also stashes the
+    reverse sweep's u_i and g_enc, and the backward reads them instead of
+    recomputing the sweep: D's and E's stash_all variants.  The backward is
+    the full first-order VJP of all three outputs; the eikonal loss's
+    second-order terms are inside it, so nothing differentiates through it
+    again.  Where no weight needs a gradient (registration differentiates
+    the rays alone, as JAX's does), it computes dx only: kernel E without
+    its dW passes."""
 
     @staticmethod
-    def forward(ctx, cfg, compute_dtype, stash_dtype, bwd_impl, x, *weights):
-        ctx.cfg, ctx.compute_dtype, ctx.bwd_impl = cfg, compute_dtype, bwd_impl
+    def forward(ctx, cfg, compute_dtype, stash_dtype, bwd_impl, stash_us, x, *weights):
+        ctx.cfg, ctx.compute_dtype, ctx.bwd_impl, ctx.stash_us = cfg, compute_dtype, bwd_impl, stash_us
         if x.device.type == "cpu":
-            sdf, feat, gx, hs = sdf_core_fwd_hs_plain(weights, x, cfg, compute_dtype, stash_dtype)
+            out = sdf_core_fwd_hs_plain(weights, x, cfg, compute_dtype, stash_dtype, return_us=stash_us)
+            sdf, feat, gx, hs = out[:4]
+            stash = [*hs, *out[4], out[5]] if stash_us else hs
             ctx.pk = None
         else:
             _check_kernel_dtypes(compute_dtype, stash_dtype)
             ctx.pk = pack_sdf_mlp([w.detach() for w in weights], cfg, with_feat=True)
-            sdf, feat, gx, stash = sdf_stash_fwd(weights, x, cfg, ctx.pk)
-            hs = [stash]
-        ctx.save_for_backward(x, *weights, *hs)
+            sdf, feat, gx, packed = sdf_stash_fwd(weights, x, cfg, ctx.pk, stash_us)
+            stash = [packed]
+        ctx.save_for_backward(x, *weights, *stash)
         ctx.n_w = len(weights)
         return sdf, feat, gx
 
@@ -302,22 +349,26 @@ class SdfStashFn(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, d_sdf, d_feat, d_gx):
         saved = ctx.saved_tensors
-        x, weights, hs = saved[0], saved[1 : 1 + ctx.n_w], saved[1 + ctx.n_w :]
-        n = x.shape[0]
+        x, weights, stash = saved[0], saved[1 : 1 + ctx.n_w], saved[1 + ctx.n_w :]
+        cfg, n = ctx.cfg, x.shape[0]
         cots = (
             cotangent(d_sdf, (n,), x.device),
-            cotangent(d_feat, (n, ctx.cfg.d_out_feat), x.device),
+            cotangent(d_feat, (n, cfg.d_out_feat), x.device),
             cotangent(d_gx, (n, 3), x.device),
         )
-        need_dw = any(ctx.needs_input_grad[5:])
-        if x.device.type == "cpu":
-            dws, dx = sdf_core_bwd_stash_plain(weights, x, hs, cots, ctx.cfg, ctx.compute_dtype, need_dw)
-        elif ctx.bwd_impl == "xla":
-            hs = split_stash(hs[0], sdf_stash_columns(ctx.cfg))
-            dws, dx = sdf_core_bwd_stash_plain(weights, x, hs, cots, ctx.cfg, ctx.compute_dtype, need_dw)
+        need_dw = any(ctx.needs_input_grad[6:])
+        if x.device.type == "cuda" and ctx.bwd_impl != "xla":
+            dws, dx = sdf_stash_bwd(weights, x, stash[0], cots, cfg, ctx.pk, need_dw, ctx.stash_us)
         else:
-            dws, dx = sdf_stash_bwd(weights, x, hs[0], cots, ctx.cfg, ctx.pk, need_dw)
-        return (None, None, None, None, dx, *(dws or [None] * ctx.n_w))
+            if x.device.type == "cuda":
+                stash = split_stash(stash[0], sdf_stash_columns(cfg, ctx.stash_us))
+            L = cfg.n_layers
+            if ctx.stash_us:
+                dws, dx = sdf_core_bwd_stash_all_plain(weights, x, stash[:L], stash[L : 2 * L], stash[2 * L], cots,
+                                                       cfg, ctx.compute_dtype, need_dw)
+            else:
+                dws, dx = sdf_core_bwd_stash_plain(weights, x, stash, cots, cfg, ctx.compute_dtype, need_dw)
+        return (None, None, None, None, None, dx, *(dws or [None] * ctx.n_w))
 
 
 class MlpStashFn(torch.autograd.Function):

@@ -41,6 +41,7 @@ NVCC_FLAGS = [
 launch_counts = {
     "sdf_core_fwd": 0, "round_machinery": 0, "shadow_final": 0,
     "sdf_stash_fwd": 0, "sdf_stash_bwd": 0, "mlp_stash_fwd": 0, "mlp_stash_bwd": 0,
+    "sdf_stash_all_fwd": 0, "sdf_stash_all_bwd": 0,
     "sdf_core_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0,
     "march_sweep": 0, "march_rounds": 0, "importance_march": 0, "shadow_march": 0,
 }
@@ -50,8 +51,12 @@ _SIGNATURES = {
     "sdf_core": {
         "sdf_core_fwd": [_P] * 8 + [_I, _P, _F, _P],
         "sdf_stash_fwd": [_P] * 9 + [_I, _P, _F, _P],
+        "sdf_stash_all_fwd": [_P] * 9 + [_I, _P, _F, _P],
     },
-    "sdf_stash": {"sdf_stash_bwd": [_P] * 15 + [_I, _I, _I, _P, _F, _P]},
+    "sdf_stash": {
+        "sdf_stash_bwd": [_P] * 15 + [_I, _I, _I, _P, _F, _P],
+        "sdf_stash_all_bwd": [_P] * 15 + [_I, _I, _I, _P, _F, _P],
+    },
     "sdf_core_bwd": {"sdf_core_bwd": [_P] * 17 + [_I, _I, _I, _P, _F, _P]},
     "mlp_stash": {
         "mlp_stash_fwd": [_P, _P, _P, _P, _P, _I, _P, _P],

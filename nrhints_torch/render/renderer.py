@@ -9,8 +9,9 @@ the shipping ``RendererConfig`` plain sweeps and kernel B; the round-4
 knobs ``importance_split``, ``march_sweep_impl``, ``march_rounds_impl``,
 ``march_merge`` route it through kernels K, L or M as in JAX), the SDF core
 with normals (kernel A without a gradient; with one, the ``core_backward``
-schedule: kernels D and E for "stash", A and H for "recompute", D and E's
-plain version for "stash_xla"), and the shadow hint as the transmittance of
+schedule: kernels D and E for "stash", their variants that also stash the
+reverse sweep for "stash_all", A and H for "recompute", D and E's plain
+version for "stash_xla"), and the shadow hint as the transmittance of
 a 64 + 4 x 16 march from the light (kernels B and C, or under
 ``shadow_split=False`` the monolith N).  Everywhere else it takes the
 unfused path, the plain PyTorch program of JAX's XLA path: the march as
@@ -34,7 +35,7 @@ reflectance trunk: ``reflectance_impl`` in training and
 fused trunk (kernel I without a gradient; F and G, or I and J under
 "recompute", with one).  On CUDA tensors every kernel runs on the card; on
 CPU tensors each kernel wrapper runs its plain version.  What the port
-does not have raises ``NotImplementedError`` (``check_ported``).
+does not have raises ``NotImplementedError`` where it is reached.
 """
 from __future__ import annotations
 
@@ -209,19 +210,12 @@ def use_fused_core(cfg: ModelConfig) -> bool:
     return use_fused(cfg.renderer) and cfg.sdf_network.encoding == "frequency"
 
 
-def check_ported(cfg: ModelConfig, *, is_training: bool = False, geometry_warmup: bool = False) -> None:
-    """Raise ``NotImplementedError`` for a setting that would reach a branch
-    the port does not have (a training step of the fused core under
-    ``core_backward="stash_all"``), and ``ValueError`` for a value outside
-    its JAX set.  The port's other gaps raise where they are reached: f32
-    march weights on the card in the march kernels, ``sample_axis_size >
-    1`` in ``parallel/mesh.py``."""
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a router or march knob outside its JAX set.
+    The port's gaps raise ``NotImplementedError`` where they are reached:
+    f32 march weights on the card in the march kernels,
+    ``sample_axis_size > 1`` in ``parallel/mesh.py``."""
     r = cfg.renderer
-    if is_training and use_fused_core(cfg) and r.core_backward not in ("stash", "recompute", "stash_xla"):
-        raise NotImplementedError(
-            f"nrhints_torch has not ported core_backward={r.core_backward!r} in training "
-            "(the fused core has 'stash', 'recompute' and 'stash_xla')"
-        )
     if r.fused_kernels not in ("auto", "on", "off"):
         raise ValueError(f"fused_kernels must be 'auto', 'on' or 'off', got {r.fused_kernels!r}")
     for knob in ("march_sweep_impl", "march_rounds_impl", "shadow_final_impl"):
@@ -464,7 +458,7 @@ def render_rays(
     background's; the depth and the hints read the NeuS weights only.
     There is no mesh argument, as JAX's has: under data parallelism a rank
     renders its own rays."""
-    check_ported(cfg, is_training=is_training, geometry_warmup=geometry_warmup)
+    check_ported(cfg)
     if is_training and generator is None and uniforms is None:
         raise ValueError("render_rays(is_training=True) needs a generator or uniforms for its jitter")
     rcfg = cfg.renderer

@@ -193,13 +193,16 @@ class Trainer:
                 raise ValueError(f"checkpoint {what} {sorted(saved[what])} do not match the config's {sorted(live)}")
             for name, t in live.items():
                 t.copy_(saved[what][name])
-        # The learning rates come from the config, as JAX's schedule does;
-        # the checkpoint gives Adam's moments and step.  The load makes new
-        # moment tensors, so a captured dispatch would hold stale ones.
-        live = [(g["base_lr"], g["lr"]) for g in self.optimizer.param_groups]
+        # The learning rates come from the config, as JAX's schedule does,
+        # and ``capturable`` from this device (``import_ckpt`` writes a
+        # fresh CPU optimizer's state); the checkpoint gives Adam's moments
+        # and step.  The load
+        # makes new moment tensors, so a captured dispatch would hold stale
+        # ones.
+        live = [(g["base_lr"], g["lr"], g["capturable"]) for g in self.optimizer.param_groups]
         self.optimizer.load_state_dict(saved["optimizer"])
-        for g, (base, lr) in zip(self.optimizer.param_groups, live):
-            g["base_lr"], g["lr"] = base, lr
+        for g, (base, lr, capturable) in zip(self.optimizer.param_groups, live):
+            g["base_lr"], g["lr"], g["capturable"] = base, lr, capturable
         self.state.step = int(saved["step"])
         self._scan_steps.clear()
 

@@ -14,7 +14,8 @@ Kernels E, G, H and J: 2e-2 of each gradient's scale: the backward chains
 twice as many bf16-operand products as the forward, and the dW sums over
 the points run in another order (H's plain version is autograd, which
 rounds each dot's result to bf16 where the kernel rounds its operands).
-Kernel D's outputs are kernel A's bit for bit, I's are F's, J's gradients
+Kernel D's outputs are kernel A's bit for bit (and D's stash_all
+variant's, with the h_i of its stash, plain D's), I's are F's, J's gradients
 are G's at F's stash (the ReLU backward reads only what a bf16 z keeps),
 A gives the same outputs and E, G, H and J the same gradients bit for bit
 on every run (no atomics).  J's plain version recomputes the z_i in
@@ -191,6 +192,7 @@ def test_render_rays_card_matches_cpu(cuda):
     assert {k: cuda_lib.launch_counts[k] - before[k] for k in before} == {
         "sdf_core_fwd": 1, "round_machinery": 8, "shadow_final": 1,
         "sdf_stash_fwd": 0, "sdf_stash_bwd": 0, "mlp_stash_fwd": 0, "mlp_stash_bwd": 0,
+        "sdf_stash_all_fwd": 0, "sdf_stash_all_bwd": 0,
         "sdf_core_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0,
         "march_sweep": 0, "march_rounds": 0, "importance_march": 0, "shadow_march": 0}
     for k in ("rgb", "depth", "visibilities"):
@@ -248,6 +250,43 @@ def test_sdf_stash_kernels_match_plain(cuda, cfg, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [SMALL, SDFNetConfig()], ids=["small", "full"])
+@pytest.mark.parametrize("n", SDF_BWD_N)
+def test_sdf_stash_all_kernels_match_plain(cuda, cfg, n):
+    """D's stash_all variant against plain D (sdf, feat, grad and the h_i
+    bit for bit) and its plain version (h_i, u_i and g_enc); E's variant
+    against its plain version at the variant's stash, twice bit for bit,
+    and without its dW passes (dx bit for bit)."""
+    w, x, cots = _gpu_sdf_case(cuda, cfg, n)
+    L, gt = cfg.n_layers, core_stash.sdf_stash_width(cfg)
+    cols = core_stash.sdf_stash_columns(cfg, stash_us=True)
+    before = dict(cuda_lib.launch_counts)
+    sdf, feat, gx, stash = core_stash.sdf_stash_fwd(w, x, cfg, stash_us=True)
+    ref = core_stash.sdf_stash_fwd(w, x, cfg)
+    assert stash.shape == (n, core_stash.sdf_stash_width(cfg, stash_us=True))
+    assert all(torch.equal(k, a) for k, a in zip((sdf, feat, gx), ref[:3])) and torch.equal(stash[:, :gt], ref[3])
+    _, _, _, hs, us, g_enc = core_stash.sdf_core_fwd_hs_plain(w, x, cfg, "bfloat16", "bfloat16", return_us=True)
+    parts = core_stash.split_stash(stash, cols)
+    for k, p in zip(parts, [*hs, *us, g_enc]):
+        _close(k.float(), p.float(), 1e-2)
+    dws, dx = core_stash.sdf_stash_bwd(w, x, stash, cots, cfg, stash_us=True)
+    torch.cuda.synchronize()
+    p_dws, p_dx = core_stash.sdf_core_bwd_stash_all_plain(w, x, parts[:L], parts[L : 2 * L], parts[2 * L], cots, cfg,
+                                                          "bfloat16")
+    _close_rel(dx, p_dx, 2e-2)
+    assert len(dws) == len(p_dws)
+    for k, p in zip(dws, p_dws):
+        assert k.shape == p.shape
+        _close_rel(k, p, 2e-2)
+    dws2, dx2 = core_stash.sdf_stash_bwd(w, x, stash, cots, cfg, stash_us=True)
+    none, dx_only = core_stash.sdf_stash_bwd(w, x, stash, cots, cfg, need_dw=False, stash_us=True)
+    assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(dws, dws2))
+    assert none is None and torch.equal(dx_only, dx)
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in before if cuda_lib.launch_counts[k] != before[k]} == {
+        "sdf_stash_all_fwd": 1, "sdf_stash_fwd": 1, "sdf_stash_all_bwd": 3}
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dims", [(45, 32, 32, 3), (361, 256, 256, 256, 256, 3)], ids=["small", "full"])
 @pytest.mark.parametrize("n", TRUNK_N)
 def test_mlp_stash_kernels_match_plain(cuda, dims, n):
@@ -283,11 +322,12 @@ STEP_LAUNCHES = {
     "stash": {"sdf_stash_fwd": 1, "sdf_stash_bwd": 1, "mlp_stash_fwd": 1, "mlp_stash_bwd": 1},
     "recompute": {"sdf_core_fwd": 1, "sdf_core_bwd": 1, "mlp_fwd": 1, "mlp_bwd": 1},
     "stash_xla": {"sdf_stash_fwd": 1, "mlp_stash_fwd": 1},
+    "stash_all": {"sdf_stash_all_fwd": 1, "sdf_stash_all_bwd": 1, "mlp_stash_fwd": 1, "mlp_stash_bwd": 1},
 }
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("core_backward", ["stash", "recompute", "stash_xla"])
+@pytest.mark.parametrize("core_backward", ["stash", "recompute", "stash_xla", "stash_all"])
 def test_train_step_card_matches_cpu(cuda, core_backward):
     """One train step's gradients on the card (kernels B, C and the
     schedule's core kernels) against the same step on the CPU (plain

@@ -504,11 +504,106 @@ def test_sdf_stash_backward_without_weight_gradients(stash_case):
     for weights_grad in (True, False):
         ws = [w.clone().requires_grad_(weights_grad) for w in tw]
         xx = xt.clone().requires_grad_(True)
-        out = tcs.SdfStashFn.apply(tc, "bfloat16", "bfloat16", "kernel", xx, *ws)
+        out = tcs.SdfStashFn.apply(tc, "bfloat16", "bfloat16", "kernel", False, xx, *ws)
         torch.autograd.backward(out, tcots)
         assert all((w.grad is not None) == weights_grad for w in ws)
         grads.append(xx.grad)
     assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0], dx)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_sdf_fwd_hs_plain_return_us_matches_jax(stash_case, dt):
+    """Kernel D's stash_all variant's plain version (``return_us``) against
+    ``sdf_core_fwd_hs_ref(return_us=True)`` and the Pallas stash forward
+    with ``stash_us=True`` (interpret mode): the outputs, and every h_i,
+    u_i and g_enc in the stash's dtype."""
+    from nrhints_tpu.kernels import core_stash as jcs
+
+    jc, tc, x, _, jw, tw = stash_case
+    L = tc.n_layers
+    port = tcs.sdf_core_fwd_hs_plain(tw, torch.tensor(x), tc, dt, dt, return_us=True)
+    ref = jcs.sdf_core_fwd_hs_ref(list(jw), jnp.asarray(x), jc, dt, return_us=True)
+    (psdf, pfeat, pgx), extras = jcs._sdf_stash_fwd_pallas((jc, 32, 32, True, dt, dt, True), jw, jnp.asarray(x))
+    for p, r, q in zip(port[:3], ref[:3], (psdf, pfeat, pgx)):
+        _close_scaled(_np(p), np.asarray(r).reshape(p.shape), 1e-5 if dt == "float32" else 2e-3)
+        _close_scaled(_np(p), np.asarray(q).reshape(p.shape), 1e-5 if dt == "float32" else 2e-3)
+    stash = [*port[3], *port[4], port[5]]
+    assert len(stash) == len(extras) == 2 * L + 1
+    for k, (s, r, q) in enumerate(zip(stash, [*ref[3], *ref[4], ref[5]], extras)):
+        assert s.dtype == tcs._DTYPES[dt] and tuple(s.shape) == q.shape, k
+        _close_scaled(_np(s), np.asarray(q, np.float32), 1e-5 if dt == "float32" else 2e-2, f"stash {k}")
+        _close_scaled(_np(s), np.asarray(r), 1e-5 if dt == "float32" else 2e-2, f"stash {k}")
+    u_last = (tw[2 * L].reshape(1, -1) / tc.scale).to(tcs._DTYPES[dt]).expand(x.shape[0], -1)
+    assert torch.equal(port[4][L - 1], u_last)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_sdf_bwd_stash_all_plain_matches_jax(stash_case, dt):
+    """Kernel E's stash_all variant's plain version against
+    ``sdf_core_bwd_stash_all_ref`` and the Pallas stash backward with
+    ``stash_us=True`` (interpret mode), at the same h_i, u_i and g_enc
+    rounded to the stash's dtype."""
+    from nrhints_tpu.kernels import core_stash as jcs
+
+    jc, tc, x, cots, jw, tw = stash_case
+    L = tc.n_layers
+    _, _, _, jhs, jus, jge = jcs.sdf_core_fwd_hs_ref(list(jw), jnp.asarray(x), jc, dt, return_us=True)
+    stash = [a.astype(jnp.dtype(dt)) for a in (*jhs, *jus, jge)]
+    f32 = [a.astype(jnp.float32) for a in stash]
+    jcots = (jnp.asarray(cots[0]).reshape(-1, 1), jnp.asarray(cots[1]), jnp.asarray(cots[2]))
+    ref_dws, ref_dx = jcs.sdf_core_bwd_stash_all_ref(list(jw), jnp.asarray(x), f32[:L], f32[L : 2 * L], f32[2 * L],
+                                                     jcots, jc, dt)
+    pal_dws, pal_dx = jcs._sdf_stash_bwd_pallas((jc, 32, 32, True, dt, dt, True), jw, jnp.asarray(x), stash,
+                                                (jnp.asarray(cots[0]), jcots[1], jcots[2]))
+    ts = [torch.tensor(np.asarray(a)).to(tcs._DTYPES[dt]) for a in f32]
+    dws, dx = tcs.sdf_core_bwd_stash_all_plain(tw, torch.tensor(x), ts[:L], ts[L : 2 * L], ts[2 * L],
+                                               tuple(torch.tensor(c) for c in cots), tc, dt)
+    tol = STASH_TOL[dt]
+    for r_dws, r_dx, name in ((ref_dws, ref_dx, "stash_all_ref"), (pal_dws, pal_dx, "pallas")):
+        _close_scaled(_np(dx), r_dx, tol, f"{name} dx")
+        assert len(dws) == len(r_dws)
+        for k, (a, b) in enumerate(zip(dws, r_dws)):
+            _close_scaled(_np(a), b, tol, f"{name} dw[{k}]")
+
+
+def test_stash_all_sdf_op_matches_jax_vjp(sdf, stash_case):
+    """``fused_sdf_value_feat_grad(backward="stash_all")`` through autograd
+    (``SdfStashFn`` with ``stash_us``, weight norm outside) against
+    ``jax.vjp`` of JAX's ``fused_sdf_value_feat_grad_stash(stash_us=True)``
+    in interpret mode, bf16 operands and stash: the outputs, and the
+    cotangents of every weight-norm leaf and of x (2e-2 of each scale).
+    With no weight needing a gradient, dx is the full backward's bit for
+    bit."""
+    from nrhints_tpu.kernels import core_stash as jcs
+    from nrhints_torch.utils import tree_items
+
+    jc, jp, tc, tp = sdf
+    _, _, x, cots, _, _ = stash_case
+    j_out, vjp = jax.vjp(lambda p, xx: jcs.fused_sdf_value_feat_grad_stash(
+        p, jc, xx, block_pts=32, block_pts_bwd=32, interpret=True, stash_us=True),
+        jax.tree_util.tree_map(jnp.asarray, jp), jnp.asarray(x))
+    j_dp, j_dx = vjp(tuple(jnp.asarray(c) for c in cots))
+    leaves = {n: t.detach().clone().requires_grad_(True) for n, t in tree_items(tp)}
+    params = {}
+    for n, t in leaves.items():
+        layer, key = n.strip("/").split("/")
+        params.setdefault(layer, {})[key] = t
+    xt = torch.tensor(x, requires_grad=True)
+    tcots = tuple(torch.tensor(c) for c in cots)
+    out = tcm.fused_sdf_value_feat_grad(params, tc, xt, backward="stash_all")
+    assert type(out[0].grad_fn).__name__.startswith("SdfStashFn") and len(out[0].grad_fn.saved_tensors) > 0
+    grads = torch.autograd.grad(out, [xt, *leaves.values()], tcots)
+    for a, b in zip(out, j_out):
+        _close_scaled(_np(a), b, 2e-3)
+    _close_scaled(_np(grads[0]), j_dx, STASH_TOL["bfloat16"], "dx")
+    j_named = dict(tree_items(j_dp))
+    assert sorted(j_named) == sorted(leaves)
+    for (name, _), g in zip(leaves.items(), grads[1:]):
+        _close_scaled(_np(g), j_named[name], STASH_TOL["bfloat16"], name)
+    frozen = {k: {kk: vv.detach() for kk, vv in v.items()} for k, v in params.items()}
+    xt2 = torch.tensor(x, requires_grad=True)
+    dx_only = torch.autograd.grad(tcm.fused_sdf_value_feat_grad(frozen, tc, xt2, backward="stash_all"), xt2, tcots)
+    assert torch.equal(dx_only[0], grads[0])
 
 
 def _trunk_params():
@@ -577,7 +672,7 @@ def test_sdf_stash_fn_matches_double_backward(stash_case):
     coef = [torch.tensor(c) for c in cots]
     ws = [w.detach().clone().requires_grad_(True) for w in tw]
     xt = torch.tensor(x, requires_grad=True)
-    s, f, gx = tcs.SdfStashFn.apply(tc, "float32", "float32", "kernel", xt, *ws)
+    s, f, gx = tcs.SdfStashFn.apply(tc, "float32", "float32", "kernel", False, xt, *ws)
     g_port = torch.autograd.grad(_stash_loss(s, f, gx, coef), [xt, *ws])
 
     ws2 = [w.detach().clone().requires_grad_(True) for w in tw]
@@ -613,6 +708,7 @@ def test_stash_layouts():
     cols = tcs.sdf_stash_columns(SDFNetConfig())
     assert [w for _, w in cols] == [256, 256, 256, 217, 256, 256, 256, 256]
     assert all(off % 16 == 0 for off, _ in cols) and cols[-1][0] + 256 == 2016
+    assert tcs.sdf_stash_width(SDFNetConfig()) == 2016
     jobs, n_scratch, n_dw = tcm.dw_jobs([(64, 48, 256), (64, 256, 224), (32, 256, 256)])
     assert (jobs[:, :2] % 16 == 0).all() and (jobs[:, 5] % 16 == 0).all()
     assert n_scratch == 64 * (48 + 256) + 64 * (256 + 224) + 32 * 512 and n_dw == 48 * 256 + 256 * 224 + 256 * 256
@@ -624,6 +720,25 @@ def test_stash_layouts():
     pk = tcm.pack_mlp(w, 2)
     assert list(pk["meta"][:4]) == [3, 361, 3, 512]
     assert tcs.mlp_stash_columns(pk) == [(0, 256), (256, 256)]
+
+
+def test_stash_all_layout():
+    """D's stash_all layout: the h_i, then every u_i at the same offsets
+    plus GT, then g_enc at 2 GT, 16-padded (csrc/sdf_mlp.cuh::stash_row),
+    and its launcher names: 535 MB at 65,536 points at full width."""
+    from nrhints_torch.fields.sdf import SDFNetConfig
+
+    cfg = SDFNetConfig()
+    hs, cols = tcs.sdf_stash_columns(cfg), tcs.sdf_stash_columns(cfg, stash_us=True)
+    assert cols[:8] == hs and cols[8:16] == [(off + 2016, w) for off, w in hs] and cols[16] == (4032, 39)
+    assert tcs.sdf_stash_width(cfg, stash_us=True) == 4080 and 65536 * 4080 * 2 == 534_773_760
+    small = tcs.sdf_stash_columns(SDFNetConfig(n_layers=4, d_hidden=32, skip_in=(2,), multi_res=4), stash_us=True)
+    assert small[-1] == (2 * (32 + 16 + 32 + 32), 27) and all(off % 16 == 0 for off, _ in small)
+    src = (cuda_lib.CSRC / "sdf_mlp.cuh").read_text()
+    assert "return us ? 2 * m.gates_total + (m.d0 + 15) / 16 * 16 : m.gates_total;" in src
+    assert {"sdf_stash_all_fwd", "sdf_stash_all_bwd"} <= set(cuda_lib.launch_counts)
+    assert "sdf_stash_all_fwd" in cuda_lib._SIGNATURES["sdf_core"]
+    assert "sdf_stash_all_bwd" in cuda_lib._SIGNATURES["sdf_stash"]
 
 
 @pytest.mark.parametrize("n, nblk", [(1, 1), (63, 1), (64, 1), (65, 2), (4161, 66), (65536, 1024)])

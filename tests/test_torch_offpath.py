@@ -452,13 +452,14 @@ def test_routes_take_jax_kernels(monkeypatch, route, expect):
         assert counts[k] == v, (k, counts)
 
 
-def test_check_ported_raises_only_for_stash_all():
-    _, tc = model_configs(core_backward="stash_all")
-    with pytest.raises(NotImplementedError):
-        tr.check_ported(tc, is_training=True)
-    tr.check_ported(tc)  # eval has no backward schedule
-    _, th = model_configs(sdf_kw=HASH, core_backward="stash_all")
-    tr.check_ported(th, is_training=True)  # the hash encoding never reaches the fused core
+def test_check_ported_accepts_stash_all():
+    """Every ``core_backward`` schedule is ported, ``stash_all`` too, under
+    both encodings (the hash encoding never reaches the fused core); a
+    router knob outside its JAX set still raises."""
+    for sdf_kw in (None, HASH):
+        _, tc = model_configs(sdf_kw=sdf_kw, core_backward="stash_all")
+        tr.check_ported(tc)
+        assert tr.use_fused_core(tc) == (sdf_kw is None)
     for kw in (dict(fused_kernels="sometimes"), dict(depth_type="median")):
         with pytest.raises(ValueError):
             tr.check_ported(model_configs(**kw)[1])

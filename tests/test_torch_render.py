@@ -13,7 +13,6 @@ a bf16 ulp of the sdf's effect: rgb 1e-3, weights 1e-2 (a single weight
 moves with its sample), depth and shadow map 5e-3.  Per-sample normals are
 compared through their weighted sum per ray, as the evaluator uses them.
 """
-import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -55,24 +54,6 @@ def test_render_rays_matches_jax(march_dtype):
     assert float(np.asarray(jo.visibilities).min()) < 0.9  # the shadow hint is exercised
 
 
-# The off-path features ride the unfused renderer and are held against JAX
-# in tests/test_torch_offpath.py; the fused core's stash_all schedule is
-# not ported.
-UNPORTED = [
-    ({"core_backward": "stash_all"}, {"is_training": True}),
-]
-
-
-@pytest.mark.parametrize("renderer_kw,call_kw", UNPORTED)
-def test_unported_branches_raise(renderer_kw, call_kw):
-    _, tc = model_configs()
-    _, tp = model_params(model_configs()[0])
-    tc = dataclasses.replace(tc, renderer=dataclasses.replace(tc.renderer, **renderer_kw))
-    _, trays = ray_bundles(0, n=4)
-    with pytest.raises(NotImplementedError):
-        tr.render_rays(tp, tc, trays, torch.Generator().manual_seed(0), **call_kw)
-
-
 @pytest.mark.parametrize(
     "call_kw", [{"is_training": True}, {"geometry_warmup": True}, {"is_training": True, "geometry_warmup": True}],
     ids=["is_training", "geometry_warmup", "training_geometry_warmup"],
@@ -109,6 +90,7 @@ SPLIT = {"importance_split": True, "march_sweep_impl": "pallas", "march_rounds_i
 PORTED = [
     ({"core_backward": "recompute"}, True),
     ({"core_backward": "stash_xla"}, True),
+    ({"core_backward": "stash_all"}, True),
     ({"reflectance_impl": "xla"}, True),
     ({"eval_reflectance_impl": "pallas"}, False),
     (MONOLITH, False),
@@ -126,7 +108,7 @@ PORTED = [
 
 
 @pytest.mark.parametrize("renderer_kw,is_training", PORTED, ids=[
-    "recompute", "stash_xla", "train_trunk_xla", "eval_trunk_pallas", "monolith_march", "monolith_march_training",
+    "recompute", "stash_xla", "stash_all", "train_trunk_xla", "eval_trunk_pallas", "monolith_march", "monolith_march_training",
     "split_march_rank", "merge_rank", "sweep_pallas", "rounds_pallas", "shadow_final_xla", "pl_naive_no_hints",
     "force_shadow_map", "force_specular_cue", "normal_analytic"])
 def test_ported_settings_match_jax(renderer_kw, is_training):

@@ -132,17 +132,19 @@ def _jax_grads(jcfg, jp, jcam, jb, key, geometry_warmup):
     "preset,geometry_warmup,core_backward,raygen_kw,renderer_kw",
     [("nr-hints", False, "stash", {}, {}), ("nr-hints-cam-opt", False, "stash", {}, {}),
      ("nr-hints", True, "stash", {}, {}), ("nr-hints-cam-opt", False, "recompute", {}, {}),
-     ("nr-hints-cam-opt", False, "stash_xla", {}, {}),
+     ("nr-hints-cam-opt", False, "stash_xla", {}, {}), ("nr-hints-cam-opt", False, "stash_all", {}, {}),
      ("nr-hints", False, "stash", {}, {"specular_hint_gradient": True}),
      ("nr-hints-cam-opt", False, "stash", {"cam_opt_mode": "SE3"}, {}),
      ("nr-hints", False, "stash", {"pl_opt": True}, {}), ("pl-naive", False, "stash", {}, {})],
     ids=["nr-hints", "nr-hints-cam-opt", "geometry-warmup", "nr-hints-cam-opt-recompute", "nr-hints-cam-opt-stash_xla",
+         "nr-hints-cam-opt-stash_all",
          "specular-hint-gradient", "cam-opt-SE3", "pl-opt", "pl-naive"],
 )
 def test_step_gradients_match_jax(preset, geometry_warmup, core_backward, raygen_kw, renderer_kw):
     """One step's loss, metrics and every gradient leaf under each ported
     backward schedule (the recompute op: kernels A, H, I, J on the card;
-    stash_xla: D, F and the stash backward as full-batch PyTorch), and on
+    stash_xla: D, F and the stash backward as full-batch PyTorch;
+    stash_all: D's and E's variants with the reverse sweep stashed), and on
     the branches the step reaches with the specular hint's gradient, SE(3)
     pose deltas, light deltas (``pl_opt``) and no hints (``pl-naive``)."""
     jcfg, tcfg, jp, tp, jcam, tcam, (jb,), (tb,), key = _setup(preset, raygen_kw=raygen_kw,
