@@ -83,6 +83,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    PyTorch code at full width imported by ``python -m
    nrhints_torch.import_ckpt``'s main, and the Trainer resumed from it on
    the card for 5 steps.
+14. march_dtype="float32" (``--march-f32``: alone): (a) the f32 instances
+   of C, K, L, M and N at phase 3's shapes against their plain f32
+   versions, L = B's steps between K's sweeps, M = L(K(.)) and N = C(M(.))
+   bit for bit, each timed and profiled beside the bf16 instance and its
+   f32 bound; (b) the full-width view at f32 through its graph on the
+   shipping route, the round-4 monolith and the split march: exact
+   launches, graph against eager bit for bit, 64 pixels against the CPU;
+   (c) a K = 16 graph of f32-march stash steps against its eager steps;
+15. sample-axis sharding (``--sample-axis``: alone): (a) two gloo ranks on
+   the card as a 1 x 2 ('data', 'sample') grid, the marches flatten-sharded
+   (shipping) or sample-sharded (fused_kernels="off") against the same
+   marches with no grid, 3 eager steps against the world-1 gradients;
+   (b) where four cards are visible (``--chips 4``), four NCCL ranks as a
+   2 x 2 grid, a K = 16 graph holding the all-gathers against its eager
+   steps.
 Phase 3 also holds kernels K (initial march sweep), L (refinement rounds),
 M (K and L in one kernel) and N (M and C's final sweep in one kernel), and
 B under the rank merge, against their plain versions, L = B's steps between
@@ -101,6 +116,7 @@ import gc
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -200,6 +216,11 @@ STEP_GROUPS = (
     ("march_kernel<false, true, false", "kernel L march_rounds"),
     ("march_kernel<true, true, false", "kernel M importance_march"),
     ("march_kernel<true, true, true", "kernel N shadow_march"),
+    ("march_kernel_f32<false, false, true", "kernel C f32 shadow_final_f32"),
+    ("march_kernel_f32<true, false, false", "kernel K f32 march_sweep_f32"),
+    ("march_kernel_f32<false, true, false", "kernel L f32 march_rounds_f32"),
+    ("march_kernel_f32<true, true, false", "kernel M f32 importance_march_f32"),
+    ("march_kernel_f32<true, true, true", "kernel N f32 shadow_march_f32"),
     ("nccl", "NCCL collectives"),
 )
 # The round-4 march configurations of phases 7 and 8.
@@ -346,6 +367,16 @@ def profiled_groups(fn, tries: int = 3) -> dict[str, float]:
         if labels & groups.keys():
             break
     return groups
+
+
+def kernel_device_ms(fn, group: str, tries: int = 3) -> float:
+    """``group``'s device ms in a profiled call of ``fn``: the median of the
+    ``tries`` profiled calls that record it (the profiler now and then
+    drops or splits a short window's kernels).  Raises if none records it."""
+    seen = [ms for ms in (profiled_groups(fn).get(group, 0.0) for _ in range(tries)) if ms > 0]
+    if not seen:
+        raise RuntimeError(f"no profiled call of {tries} recorded {group!r}")
+    return statistics.median(seen)
 
 
 def z_err(kernel_z, plain_z, z0) -> tuple[float, float, float, bool]:
@@ -2039,6 +2070,386 @@ def stash_all_phase(smi: str, dev, mc: dict, td: dict, tmp: Path) -> dict:
     return out
 
 
+# Phase 14: march_dtype="float32".  The f32 instances of C, K, L, M and N
+# against their plain f32 versions on phase 3's inputs: the same f32
+# products summed in another order (sequential FMAs against the card's f32
+# GEMM), so sdf0 differs by a few ulps of a sweep's sums and tau by those
+# passed through sigmoid(inv_s x) and 127 log factors; K's sdf0 at
+# F32_TOL["sdf0"] and C's and N's tau at F32_TOL["tau"] of max(1, scale).
+# L's and M's z by Z_NN_SHARE as in bf16 (phase 3), their shares printed
+# beside bf16's.  The views of (b) against the CPU at CPU_TOL, and the
+# K = F32_K graph of (c) against its eager steps bit for bit.
+F32_TOL = {"sdf0": 1e-5, "tau": 1e-4}
+F32_K = 16
+F32_ROUTES = {  # 14(b)'s views: renderer settings, launches a chunk beside sdf_core_fwd's one
+    "shipping": ({}, dict(round_machinery=8, shadow_final_f32=1)),
+    "monolith": (MONOLITH, dict(importance_march_f32=1, shadow_march_f32=1)),
+    "split": (SPLIT, dict(march_sweep_f32=1, march_rounds_f32=1, importance_march_f32=1, shadow_final_f32=1)),
+}
+
+
+def march_f32_kernels(smi: str, dev, mc: dict) -> dict:
+    """Phase 14(a): K, L, M, N and C's f32 instances at phase 3's shapes
+    against their plain f32 versions; L = B's steps between K's sweeps, M =
+    L(K(.)) and N = C(M(.)) (both merges) bit for bit; each timed by CUDA
+    events beside its plain version, and by device time from one profiled
+    call beside the bf16 instance's in this call and the f32 bound.  ->
+    per kernel (max abs err, ms, plain ms, bound ms, bound by)."""
+    import torch
+
+    from nrhints_torch.fields.sdf import _layer_dims
+    from nrhints_torch.kernels import march
+
+    cfg = mc["cfg"]
+    scfg = cfg.model.sdf_network
+    o, d, z0, w16 = mc["o"], mc["d"], mc["z0"], mc["mw"]
+    sl, sdir, sdist, z0s, inv_s, anneal = (mc[k] for k in ("sl", "sdir", "sdist", "z0s", "inv_s", "anneal"))
+    sdf_params = mc["renderer_params"]["sdf"]
+    w32 = march.march_weights(sdf_params, scfg, "float32")
+    sz = march.fused_importance_z(sdf_params, scfg, sl, sdir, z0s, mlp_dtype="float32", split=True,
+                                  sweep_impl="xla", rounds_impl="xla")
+    io, dims = _layer_dims(scfg)
+    vm = sum(i * o_ for i, o_ in io) + dims[-2]  # multiply-adds of a value sweep a point
+    w_bytes = 4 * vm
+    bounds = {
+        "C": bound(2.0 * 512 * 128 * 2 * vm, 512 * 4 * (128 + 3 + 3 + 1 + 1) + w_bytes, H100_F32_FLOPS),
+        "K": bound(2.0 * 512 * 64 * vm, 512 * 4 * (64 + 3 + 3 + 64) + w_bytes, H100_F32_FLOPS),
+        "L": bound(2.0 * 512 * 48 * vm, 512 * 4 * (64 + 64 + 3 + 3 + 128) + w_bytes, H100_F32_FLOPS),
+        "M": bound(2.0 * 512 * 112 * vm, 512 * 4 * (64 + 3 + 3 + 128) + w_bytes, H100_F32_FLOPS),
+        "N": bound(2.0 * 512 * (112 * vm + 128 * 2 * vm), 512 * 4 * (64 + 3 + 3 + 1 + 1) + w_bytes, H100_F32_FLOPS),
+    }
+
+    def scaled(k, p) -> tuple[float, float]:
+        e = (k - p).abs().max().item()
+        return e, e / max(1.0, p.abs().max().item())
+
+    k_sdf0 = march.march_sweep(z0, o, d, w32, scfg)
+    k_err = scaled(k_sdf0, march.march_sweep_plain(z0, o, d, w32, scfg))
+    c_tau = march.shadow_final(sz, sl, sdir, sdist, inv_s, anneal, w32, scfg)
+    c_err = scaled(c_tau, march.shadow_final_plain(sz, sl, sdir, sdist, inv_s, anneal, w32, scfg))
+    l_z = march.march_rounds(z0, k_sdf0, o, d, w32, scfg)
+    l_is_bk = torch.equal(l_z, march._rounds(w32, scfg, o, d, z0, k_sdf0, 4, 16, 64.0, "bitonic",
+                                             march.round_machinery, sweep16(o, d, w32, scfg)))
+    l_abs, l_slots, l_share, l_sorted = z_err(l_z, march.march_rounds_plain(z0, k_sdf0, o, d, w32, scfg), z0)
+    m_z = march.importance_march(z0, o, d, w32, scfg)
+    m_abs, m_slots, m_share, m_sorted = z_err(m_z, march.importance_march_plain(z0, o, d, w32, scfg), z0)
+    m_is_lk = torch.equal(m_z, l_z)
+    n_err, n_is_cm = (0.0, 0.0), {}
+    for merge in ("bitonic", "rank"):
+        n_tau = march.shadow_march(z0s, sl, sdir, sdist, inv_s, anneal, w32, scfg, merge=merge)
+        n_is_cm[merge] = torch.equal(n_tau, march.shadow_final(
+            march.importance_march(z0s, sl, sdir, w32, scfg, merge=merge), sl, sdir, sdist, inv_s, anneal, w32, scfg))
+        n_err = max(n_err, scaled(n_tau, march.shadow_march_plain(z0s, sl, sdir, sdist, inv_s, anneal, w32, scfg,
+                                                                   merge=merge)))
+    calls = {
+        "C": (lambda w: march.shadow_final(sz, sl, sdir, sdist, inv_s, anneal, w, scfg),
+              lambda: march.shadow_final_plain(sz, sl, sdir, sdist, inv_s, anneal, w32, scfg), "shadow_final"),
+        "K": (lambda w: march.march_sweep(z0, o, d, w, scfg),
+              lambda: march.march_sweep_plain(z0, o, d, w32, scfg), "march_sweep"),
+        "L": (lambda w: march.march_rounds(z0, k_sdf0, o, d, w, scfg),
+              lambda: march.march_rounds_plain(z0, k_sdf0, o, d, w32, scfg), "march_rounds"),
+        "M": (lambda w: march.importance_march(z0, o, d, w, scfg),
+              lambda: march.importance_march_plain(z0, o, d, w32, scfg), "importance_march"),
+        "N": (lambda w: march.shadow_march(z0s, sl, sdir, sdist, inv_s, anneal, w, scfg),
+              lambda: march.shadow_march_plain(z0s, sl, sdir, sdist, inv_s, anneal, w32, scfg), "shadow_march"),
+    }
+    errs = {"C": c_err, "K": k_err, "L": (l_abs, 0.0), "M": (m_abs, 0.0), "N": n_err}
+    out = {}
+    for name, (kern, plain, fn) in calls.items():
+        ms, plain_ms = cuda_ms(lambda: kern(w32), 10), cuda_ms(plain, 3, warmup=1)
+        dev32 = kernel_device_ms(lambda: kern(w32), f"kernel {name} f32 {fn}_f32")
+        dev16 = kernel_device_ms(lambda: kern(w16), f"kernel {name} {fn}")
+        bd, by = bounds[name]
+        out[name] = (errs[name][0], ms, plain_ms, bd, by)
+        log(f"[14(a) kernel {name} f32] {fn}_f32: B=512, max abs err against its plain f32 version "
+            f"{errs[name][0]:.3e}; {ms:.4f} ms, plain {plain_ms:.4f} ms; device time (median of the profiled calls that "
+            f"record it) {dev32:.4f} ms against the bf16 instance's {dev16:.4f} ms in this run; f32 bound {bd:.4f} ms ({by}, at "
+            f"{H100_F32_FLOPS / 1e12:.0f} TFLOP/s f32), {dev32 / bd:.2f}x it; on {smi}")
+    log(f"[14(a)] K's sdf0 {k_err[1]:.3e} of its scale (tol {F32_TOL['sdf0']}); C's tau {c_err[1]:.3e}, N's "
+        f"{n_err[1]:.3e} (tol {F32_TOL['tau']}); L's z: {l_share:.4f} of the samples within {Z_TOL} of a plain "
+        f"sample, slot by slot {l_slots:.4f}; M's {m_share:.4f} and {m_slots:.4f} (bf16's M, PR 4: 0.9100 and "
+        f"0.8637; tol {Z_NN_SHARE}); L = B's steps between K's sweeps bit for bit: {l_is_bk}; M = L(K(.)): "
+        f"{m_is_lk}; N = C(M(.)): {n_is_cm}")
+    if not (k_err[1] <= F32_TOL["sdf0"] and c_err[1] <= F32_TOL["tau"] and n_err[1] <= F32_TOL["tau"]):
+        raise AssertionError(f"14(a): an f32 instance disagrees with its plain version: K {k_err}, C {c_err}, N {n_err}")
+    if not (l_sorted and m_sorted and l_share >= Z_NN_SHARE and m_share >= Z_NN_SHARE):
+        raise AssertionError(f"14(a): L's or M's f32 z disagree with the plain march: {l_share:.4f}, {m_share:.4f}")
+    if not (l_is_bk and m_is_lk and all(n_is_cm.values())):
+        raise AssertionError(f"14(a): an f32 identity fails: L = B/K {l_is_bk}, M = L(K) {m_is_lk}, N = C(M) {n_is_cm}")
+    return out
+
+
+def march_f32_phase(smi: str, dev, mc: dict, td: dict) -> dict:
+    """Phase 14, march_dtype="float32" on the card: (a) the f32 instances at
+    phase 3's shapes (``march_f32_kernels``); (b) phase 4's full-width
+    128x128 view at march_dtype="float32" through its graph on the shipping
+    route (kernel C's f32 instance), the round-4 monolith (M and N's) and
+    the split march (K, L, M and C's), each with its exact launches, its
+    graph against its eager sweep bit for bit and 64 pixels against the
+    CPU; (c) a K = F32_K graph of stash train steps of nr-hints-cam-opt at
+    march_dtype="float32" against as many eager steps, bit for bit.  -> the
+    kernels line's entries of the five f32 instances, their launches those
+    of (b)'s views."""
+    t_phase = time.perf_counter()
+    out = march_f32_kernels(smi, dev, mc)
+    cfg, camera = mc["cfg"], mc["camera"]
+    n_chunks = -(-camera.H * camera.W // cfg.model.inference_chunk_size)
+    launches = {}
+    for name, (kw, per_chunk) in F32_ROUTES.items():
+        offpath_view(f"14(b) f32 {name}", smi, dev, with_renderer(cfg, march_dtype="float32", **kw), camera,
+                     {"renderer": mc["renderer_params"], "raygen": {}}, mc["pose"], mc["pl"],
+                     dict(sdf_core_fwd=1, **per_chunk))
+        launches.update({k: v * n_chunks for k, v in per_chunk.items() if k.endswith("_f32")})
+    batches = [td["next_batch"]() for _ in range(max(F32_K, TRAIN_WARMUP))]
+    scan_phase(smi, dev, td, batches, "graph 14(c) f32 march", with_renderer(td["cfg"], march_dtype="float32"), F32_K,
+               dict(sdf_stash_fwd=1, sdf_stash_bwd=1, mlp_stash_fwd=1, mlp_stash_bwd=1, round_machinery=8,
+                    shadow_final_f32=1))
+    log(f"[14] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    where = {"C": ("shadow_final_f32", "march.cu", "march.py:574"),
+             "K": ("march_sweep_f32", "march_fused.cu", "march.py:507"),
+             "L": ("march_rounds_f32", "march_fused.cu", "march.py:522"),
+             "M": ("importance_march_f32", "march_fused.cu", "march.py:488"),
+             "N": ("shadow_march_f32", "march_fused.cu", "march.py:595")}
+    return {"entries": [entry(fn, src, rep, launches[fn], *out[k]) for k, (fn, src, rep) in where.items()]}
+
+
+# Phase 15: sample-axis sharding.  (a) two gloo ranks on this card as a 1 x 2
+# ('data', 'sample') grid (LOCAL_WORLD_SIZE=1, so both take cuda:0: NCCL
+# refuses two ranks on one card), SAMPLE_EAGER_STEPS eager steps under the
+# shipping march (the fused kernels flatten-sharded: each rank marches half
+# the rays, then the group all-gathers them) and under fused_kernels="off"
+# (the sample-sharded plain march); (b) four NCCL ranks as a 2 x 2 grid, one
+# card each, where four are visible: a SAMPLE_K-step graph holding the
+# all-gathers against its eager steps.  A rank's gradients are held to the
+# world-1 gradients at the same params at DP_GRAD_TOL, as phase 11's.
+SAMPLE_EAGER_STEPS, SAMPLE_K = 3, 16
+SAMPLE_CFGS = {"shipping": {}, "off": {"fused_kernels": "off"}}
+
+
+def grid_marches(cfg, mesh, params, buffers, camera, batch) -> dict:
+    """The importance and shadow marches of ``batch``'s rays under ``cfg``
+    on ``mesh`` and with no mesh -> {march: (on the grid, alone)}."""
+    import torch
+
+    from nrhints_torch.camera.rays import generate_rays
+    from nrhints_torch.core.sampling import stratified_z_vals
+    from nrhints_torch.render import renderer as tr
+
+    with torch.no_grad():
+        rays = generate_rays(params["raygen"], buffers, camera, cfg.ray_generator, batch)
+        o, d = rays.origins.detach(), rays.directions.detach()
+        z0 = stratified_z_vals(rays.nears, rays.fars, cfg.model.renderer.n_samples)
+        hits = o + d * 0.5 * (rays.nears + rays.fars)
+        return {"z": tuple(tr._importance_sample_z(params["renderer"], cfg.model, o, d, z0, m) for m in (mesh, None)),
+                "tau": tuple(tr._shadow_transmittance(params["renderer"], cfg.model, rays.pl_positions, hits, 1.0,
+                                                      None, m) for m in (mesh, None))}
+
+
+def grid_rank(rank: int, world: int, backend: str, start_file: str, out_dir: str) -> None:
+    """A rank of phase 15: the start state of ``start_file`` on this rank's
+    card (gloo: both ranks on cuda:0, two hosts of one rank; NCCL: one card
+    a rank) as rank ``rank`` of a (world / 2) x 2 grid, its rows of the
+    global batches (its data index's).  gloo: under each of SAMPLE_CFGS the
+    marches of the first batch on the grid and alone, then
+    SAMPLE_EAGER_STEPS eager steps (each step's gradients and the params
+    after it kept).  NCCL: SAMPLE_K eager steps, then the same steps as one
+    CUDA graph from the same start (the first call and two replays, the
+    last timed), the params and Adam's state after each, and a first eager
+    step's gradients."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    if backend == "gloo":  # two "hosts" of one rank each, both on cuda:0
+        os.environ["LOCAL_WORLD_SIZE"], os.environ["LOCAL_RANK"] = "1", "0"
+    from nrhints_torch.parallel.mesh import initialize_multihost, make_mesh, rank_rows
+    from nrhints_torch.train.step import (
+        init_train_state, make_optimizer, make_train_step, make_train_step_scan, stack_bundles,
+    )
+    from nrhints_torch.utils import resolve_device, tree_items
+
+    out = Path(out_dir)
+    initialize_multihost(f"file://{out / 'rendezvous'}", rank, world, device=resolve_device("cuda"), backend=backend)
+    mesh = make_mesh(sample_axis_size=2, device="cuda")
+    blob = torch.load(start_file, map_location=mesh.device, weights_only=False)
+    cam, buffers = blob["camera"], blob["buffers"]
+    rows = [b[rank_rows(mesh, b.h_indices.shape[0] // mesh.data_size)] for b in blob["batches"]]
+    res = {"mesh": (mesh.rank, mesh.world_size, mesh.data_index, mesh.sample_index, mesh.backend, str(mesh.device))}
+
+    def gens(n):
+        return [torch.Generator(device=mesh.device).manual_seed(2000 + i) for i in range(n)]
+
+    for name, kw in (SAMPLE_CFGS if backend == "gloo" else {"shipping": SAMPLE_CFGS["shipping"]}).items():
+        cfg = with_renderer(blob["cfg"], **kw)
+        params = tree_to(blob["params"], mesh.device)
+        state = init_train_state(params, make_optimizer(cfg, params))
+        live = [(g["base_lr"], g["lr"]) for g in state.optimizer.param_groups]
+        state.optimizer.load_state_dict(blob["optimizer"])
+        for g, (base, lr) in zip(state.optimizer.param_groups, live):
+            g["base_lr"], g["lr"] = base, lr
+        state.step = blob["step"]
+        start = train_snapshot(state)
+        step_fn = make_train_step(cfg, cam, buffers, state.optimizer, mesh=mesh)
+        if backend == "gloo":
+            r = res[name] = {"marches": grid_marches(cfg, mesh, state.params, buffers, cam, rows[0]),
+                             "grads": [], "params": [], "secs": []}
+            for b, g in zip(rows[:SAMPLE_EAGER_STEPS], gens(SAMPLE_EAGER_STEPS)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = step_fn(state, b, g)
+                torch.cuda.synchronize()
+                r["secs"].append(time.perf_counter() - t0)
+                r["grads"].append(dp_grads(state))
+                r["params"].append({n: t.detach().cpu().clone() for n, t in tree_items(state.params)})
+            r["marches"] = {k: tuple(t.cpu() for t in v) for k, v in r["marches"].items()}
+            continue
+        state, _ = step_fn(state, rows[0], gens(1)[0])
+        res["first_grads"] = dp_grads(state)
+        train_restore(state, start)
+        for b, g in zip(rows[:SAMPLE_K], gens(SAMPLE_K)):
+            state, m_eager = step_fn(state, b, g)
+        eager = train_snapshot(state)
+        scan = make_train_step_scan(cfg, cam, buffers, state.optimizer, n_steps=SAMPLE_K, mesh=mesh)
+        stacked, secs, errs = stack_bundles(rows[:SAMPLE_K]), [], []
+        for _ in range(3):  # the first call (eager, then the capture), then two replays
+            train_restore(state, start)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m_graph = scan(state, stacked, gens(SAMPLE_K))
+            torch.cuda.synchronize()
+            secs.append((time.perf_counter() - t0) / SAMPLE_K)
+            errs.append(max(snapshot_err(train_snapshot(state), eager), snapshot_err(m_graph, m_eager)))
+        res.update(secs=secs, graph_errs=errs, loss=float(m_graph["loss"]),
+                   params={n: t.detach().cpu().clone() for n, t in tree_items(state.params)})
+        scan = None  # its graph goes before the group: NCCL keeps a communicator a live graph uses
+    torch.save(res, out / f"rank{rank}.pt")
+    gc.collect()
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+
+
+def sample_axis_phase(smi: str, dev, td: dict, batches: list, tmp: Path) -> None:
+    """Phase 15, sample-axis sharding (``parallel.sample_axis_size``): (a)
+    two gloo ranks on this card as a 1 x 2 grid: under the shipping march
+    the marches of a 512-ray batch flatten-sharded over the two ranks equal
+    the marches with no grid bit for bit, and SAMPLE_EAGER_STEPS eager steps'
+    gradients equal the world-1 gradients at the same params within
+    DP_GRAD_TOL; under fused_kernels="off" the sample-sharded marches and
+    the steps the same way, the marches held by phase 3's order-free share
+    and tau within CPU_TOL's shadow bound; the two ranks bit for bit
+    throughout.  (b) where four cards are visible, four NCCL ranks as a 2 x 2
+    grid: a SAMPLE_K-step graph against its eager steps bit for bit on every
+    rank, the ranks bit for bit, a first step's gradients against the
+    world-1 gradients within DP_GRAD_TOL."""
+    import torch
+
+    from nrhints_torch.camera.rays import ray_generator_init
+    from nrhints_torch.render.renderer import init_model_params
+    from nrhints_torch.train.step import init_train_state, loss_and_grads, make_optimizer, make_train_step
+    from nrhints_torch.utils import tree_items
+
+    t_phase = time.perf_counter()
+    tcfg, tcam, n_views = td["cfg"], td["camera"], td["n_views"]
+    gen = torch.Generator().manual_seed(0)
+    params = {"renderer": init_model_params(tcfg.model, gen, device=dev)}
+    params["raygen"], buffers = ray_generator_init(gen, tcfg.ray_generator, n_views, device=dev)
+    state = init_train_state(params, make_optimizer(tcfg, params))
+    plain = make_train_step(tcfg, tcam, buffers, state.optimizer)
+    warm = torch.Generator(device=dev).manual_seed(0)
+    for b in batches[-TRAIN_WARMUP:]:
+        state, _ = plain(state, b, warm)
+    state.step = 1000
+    start = train_snapshot(state)
+    n_run = SAMPLE_K if torch.cuda.device_count() >= 4 else SAMPLE_EAGER_STEPS
+    run = batches[:n_run]
+    start_file = tmp / "grid_start.pt"
+    torch.save({"cfg": tcfg, "camera": tcam, "buffers": tree_to(buffers, "cpu"), "params": tree_to(state.params, "cpu"),
+                "optimizer": state.optimizer.state_dict(), "step": state.step,
+                "batches": [b.to("cpu") for b in run]}, start_file)
+
+    def gens(n):
+        return [torch.Generator(device=dev).manual_seed(2000 + i) for i in range(n)]
+
+    def world1_grads(cfg, before: dict, i: int) -> dict:
+        """The group-less step's gradients at the params ``before`` step i."""
+        with torch.no_grad():
+            for n, t in tree_items(state.params):
+                t.copy_(before[n])
+        state.step = start["step"] + i
+        loss_and_grads(state, cfg, tcam, buffers, run[i], gens(i + 1)[i])
+        return dp_grads(state)
+
+    # (a) Two gloo ranks on this card.
+    out_a = tmp / "grid_15a"
+    out_a.mkdir()
+    t0 = time.perf_counter()
+    spawn_ranks(grid_rank, 2, 2, "gloo", str(start_file), str(out_a))
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(out_a / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    for name, kw in SAMPLE_CFGS.items():
+        cfg = with_renderer(tcfg, **kw)
+        a, b_ = ranks[0][name], ranks[1][name]
+        for what in ("grads", "params"):
+            for i in range(SAMPLE_EAGER_STEPS):
+                if any(not torch.equal(a[what][i][n], b_[what][i][n]) for n in a[what][i]):
+                    raise AssertionError(f"15(a) {name} step {i}: the two ranks' {what} differ")
+        (z_g, z_1), (t_g, t_1) = a["marches"]["z"], a["marches"]["tau"]
+        z_equal, t_equal = torch.equal(z_g, z_1), torch.equal(t_g, t_1)
+        _, slots, share, ok = z_err(z_g, z_1, z_g[:, :0])
+        t_abs = (t_g - t_1).abs().max().item()
+        g_errs = [scaled_err(a["grads"][i], world1_grads(cfg, a["params"][i - 1] if i else start, i))
+                  for i in range(SAMPLE_EAGER_STEPS)]
+        log(f"[sample-axis 15(a) {name}] two gloo ranks on one card as a 1 x 2 grid ({ranks[0]['mesh']}, "
+            f"{ranks[1]['mesh']}), a {tcfg.model.batch_size}-ray batch: the grid's marches against the same marches "
+            f"with no grid: z equal bit for bit {z_equal} (order-free share {share:.4f}, slot by slot {slots:.4f}), "
+            f"tau equal bit for bit {t_equal} (max abs err {t_abs:.3e}); {SAMPLE_EAGER_STEPS} eager steps, the ranks' "
+            f"gradients and params equal bit for bit; each step's gradients against the world-1 gradients at the "
+            f"same params, worst leaf a step (of its scale, tol {DP_GRAD_TOL}): "
+            + ", ".join(f"{e:.3e} {n}" for e, n in g_errs)
+            + f"; s/step after the first, rank 0 {sum(a['secs'][1:]) / (SAMPLE_EAGER_STEPS - 1):.5f}, rank 1 "
+            f"{sum(b_['secs'][1:]) / (SAMPLE_EAGER_STEPS - 1):.5f}; on {smi}")
+        if name == "shipping" and not (z_equal and t_equal):
+            raise AssertionError("15(a): the flatten-sharded fused marches differ from the marches with no grid")
+        if not (ok and share >= Z_NN_SHARE and t_abs <= CPU_TOL["shadow_map"]):
+            raise AssertionError(f"15(a) {name}: the grid's marches differ from the marches with no grid")
+        if not max(g_errs)[0] <= DP_GRAD_TOL:
+            raise AssertionError(f"15(a) {name}: the grid's gradients differ from the world-1 steps': {max(g_errs)}")
+    log(f"[sample-axis 15(a)] both ranks' processes {wall:.1f} s")
+
+    # (b) Four NCCL ranks, one card each, the captured dispatch.
+    if torch.cuda.device_count() < 4:
+        log(f"[sample-axis 15(b)] not run: {torch.cuda.device_count()} card(s) visible, a 2 x 2 grid of NCCL ranks "
+            f"needs four")
+    else:
+        out_b = tmp / "grid_15b"
+        out_b.mkdir()
+        t0 = time.perf_counter()
+        spawn_ranks(grid_rank, 4, 4, "nccl", str(start_file), str(out_b))
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(out_b / f"rank{r}.pt", weights_only=False) for r in range(4)]
+        for r in ranks[1:]:
+            for what in ("first_grads", "params"):
+                if any(not torch.equal(ranks[0][what][n], r[what][n]) for n in r[what]):
+                    raise AssertionError(f"15(b): rank {r['mesh']}'s {what} differ from rank 0's")
+        worst = max(e for r in ranks for e in r["graph_errs"])
+        g_err = scaled_err(ranks[0]["first_grads"], world1_grads(tcfg, start, 0))
+        s_b = ranks[0]["secs"][2]
+        log(f"[sample-axis 15(b)] four NCCL ranks as a 2 x 2 grid ({', '.join(str(r['mesh']) for r in ranks)}), a "
+            f"{SAMPLE_K}-step CUDA graph with the marches' all-gathers and the data group's all-reduces: against its "
+            f"eager steps on every rank, worst {worst[1] or 'none'} {worst[0]:.3e}; the ranks bit for bit; a first "
+            f"step's gradients against the world-1 gradients, worst leaf {g_err[1]}: {g_err[0]:.3e} of its scale (tol "
+            f"{DP_GRAD_TOL}); graph replay {s_b:.5f} s/step, {tcfg.model.batch_size / s_b:.1f} global rays/s (the "
+            f"first call {ranks[0]['secs'][0]:.5f}); loss {ranks[0]['loss']:.6f}; the ranks' processes {wall:.1f} s; "
+            f"on {smi}")
+        if worst[0] != 0.0:
+            raise AssertionError(f"15(b): the graph's steps differ from the eager steps: {worst}")
+        if not g_err[0] <= DP_GRAD_TOL:
+            raise AssertionError(f"15(b): the grid's gradients differ from the world-1 gradients: {g_err}")
+    log(f"[15] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2101,6 +2512,27 @@ def main() -> int:
         print(json.dumps({"kernels": stash_all_entries(sa)}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return 0
+
+    if sys.argv[1:] == ["--march-f32"]:  # phase 14 alone, after the build
+        f32 = march_f32_phase(smi, dev, march_chunk(dev), train_data(dev, 128, 128))
+        print(json.dumps({"kernels": f32["entries"]}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+        return 0
+
+    if sys.argv[1:] == ["--sample-axis"]:  # phase 15 alone, after the build
+        import tempfile
+
+        td = train_data(dev, 128, 128)
+        with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
+            sample_axis_phase(smi, dev, td, [td["next_batch"]() for _ in range(max(SAMPLE_K, TRAIN_WARMUP))],
+                              Path(tmp))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+        return 0
+
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; flags: --data-parallel, --offpath, --stash-all, "
+              f"--march-f32, --sample-axis", file=sys.stderr)
+        return 2
 
     # 3. Kernels at the main path's shapes: one 512-ray chunk of the view.
     mc = march_chunk(dev)
@@ -2832,6 +3264,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
         sa = stash_all_phase(smi, dev, mc, train_data(dev, H, W), Path(tmp))
 
+    # 14. march_dtype="float32", on batches of its own (as ``--march-f32``).
+    f32 = march_f32_phase(smi, dev, mc, train_data(dev, H, W))
+
+    # 15. Sample-axis sharding, on batches of its own (as ``--sample-axis``).
+    td15 = train_data(dev, H, W)
+    with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
+        sample_axis_phase(smi, dev, td15, [td15["next_batch"]() for _ in range(max(SAMPLE_K, TRAIN_WARMUP))],
+                          Path(tmp))
+
     kernels = [
         entry("sdf_core_fwd", "sdf_core.cu", "core_mlp.py:227", launches["sdf_core_fwd"], a_abs, a_ms, a_plain_ms,
               a_bound, a_by),
@@ -2862,6 +3303,7 @@ def main() -> int:
         entry("shadow_march", "march_fused.cu", "march.py:595", view_launches["monolith"]["shadow_march"], n_abs,
               n_ms, n_plain_ms, n_bound, n_by),
         *stash_all_entries(sa),
+        *f32["entries"],
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -47,6 +47,10 @@
 // softplus, the fragment loads with the MMAs, the exposed slab copies and
 // the rest (barriers, heads, encoding) take 0.30, 0.36, 0.17 and 0.26 ms
 // of it, one after another (scripts/probe_march_parts.py).
+// shadow_final_f32 is kernel C with f32 march weights, march_kernel_f32 on
+// mma_rows.cuh::sdf_rows_f32: the same multiply-adds as f32 FMAs on the CUDA
+// cores, 1.80 ms a 512-ray launch at the 67 TFLOP/s f32 peak; 16 dual passes
+// of 32 sections and their tangents a block.
 #include "march_common.cuh"
 
 using namespace nrh;
@@ -117,8 +121,18 @@ extern "C" int shadow_final(const float* z, const float* o, const float* d, cons
                             const void* wpack, const float* bpack, const float* w_sdf,
                             const float* inv_s, const float* anneal, float* tau, int b,
                             const int* meta, float scale, void* stream) {
-  return launch_march<false, false, true, false>(z, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal,
-                                                 tau, b, meta, scale, 0.0f, stream);
+  return launch_march<false, false, false, true, false>(z, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal,
+                                                        tau, b, meta, scale, 0.0f, stream);
+}
+
+// Kernel C with f32 march weights (march_dtype="float32"): wpack holds the
+// f32 pack of pack_sdf_mlp(..., dtype=float32).
+extern "C" int shadow_final_f32(const float* z, const float* o, const float* d, const float* sdist,
+                                const void* wpack, const float* bpack, const float* w_sdf,
+                                const float* inv_s, const float* anneal, float* tau, int b,
+                                const int* meta, float scale, void* stream) {
+  return launch_march<true, false, false, true, false>(z, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal,
+                                                       tau, b, meta, scale, 0.0f, stream);
 }
 
 extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

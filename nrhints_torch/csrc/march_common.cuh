@@ -26,14 +26,22 @@
 //   computes the value, with the forward-mode tangent of
 //   _mlp_sdf_dirderiv_3d (:117) for the final sweep.  So L is B's steps
 //   between K's sweeps, M's z is L(K(.)) and N's tau C(M(.)), bit for bit.
+// * The march weights' dtype picks the engine (the Engine parameter of
+//   march_body): Bf16Rows, the kernels march_kernel<...>, or F32Rows, the
+//   f32 instances march_kernel_f32<...> (march_dtype="float32"), whose
+//   sweeps run sdf_rows_f32 with wdt = float32.  The rounds and merges are
+//   the same code, so the identities above hold in f32 too.
 //
 // Layout: a march block holds kMarchRays = 4 rays on 512 threads; thread t
 // loads and stores slot t & 127 of ray t >> 7, and warp w < 4 runs ray w's
-// machinery.  A block's sweeps are 2 value passes of 128 rows (its 4 rays'
-// 64 stratified samples), one value pass of 64 rows per swept round (4 rays
-// x 16 new samples), and 8 dual passes of 64 sections and their 64 tangent
-// rows.
+// machinery.  A block's sweeps are, with bf16 weights, 2 value passes of 128
+// rows (its 4 rays' 64 stratified samples), one value pass of 64 rows per
+// swept round (4 rays x 16 new samples), and 8 dual passes of 64 sections
+// and their 64 tangent rows; with f32 weights, 4 value passes of 64 rows,
+// the same round passes and 16 dual passes of 32 sections.
 #pragma once
+
+#include <type_traits>
 
 #include "mma_rows.cuh"
 
@@ -295,9 +303,45 @@ __device__ __forceinline__ float shadow_log_factor(float sdf_v, float dcos, floa
 // ---------------------------------------------------------------------------
 // The fused march kernel
 
+// The sweeps' engines: shared memory, weight type, the rows of an initial-
+// sweep pass and the sections of a dual pass.
+struct Bf16Rows {
+  using Smem = RowsSmem;
+  using W = bf16;
+  static constexpr int kValueRows = kRowsMax;
+  static constexpr int kSections = 64;
+  template <int ROWS>
+  static __device__ __forceinline__ void values(Smem& S, const W* wpack, const float* bpack, const float* w_sdf,
+                                                const SdfMeta& m, float scale) {
+    sdf_rows<false, ROWS / 64>(S, nullptr, wpack, bpack, w_sdf, m, scale);
+  }
+  static __device__ __forceinline__ void dual(Smem& S, const float* dir, const W* wpack, const float* bpack,
+                                              const float* w_sdf, const SdfMeta& m, float scale) {
+    sdf_rows<true, 2>(S, dir, wpack, bpack, w_sdf, m, scale);
+  }
+};
+
+struct F32Rows {
+  using Smem = RowsSmemF32;
+  using W = float;
+  static constexpr int kValueRows = kRowsF32;
+  static constexpr int kSections = kRowsF32 / 2;
+  template <int ROWS>
+  static __device__ __forceinline__ void values(Smem& S, const W* wpack, const float* bpack, const float* w_sdf,
+                                                const SdfMeta& m, float scale) {
+    static_assert(ROWS == kRowsF32, "the f32 engine runs 64-row passes");
+    sdf_rows_f32<false>(S, nullptr, wpack, bpack, w_sdf, m, scale);
+  }
+  static __device__ __forceinline__ void dual(Smem& S, const float* dir, const W* wpack, const float* bpack,
+                                              const float* w_sdf, const SdfMeta& m, float scale) {
+    sdf_rows_f32<true>(S, dir, wpack, bpack, w_sdf, m, scale);
+  }
+};
+
+template <class Engine>
 struct MarchSmem {
   static constexpr int R = kMarchRays;
-  RowsSmem t;
+  typename Engine::Smem t;
   float sz[R][NBUF], ss[R][NBUF];  // each ray's buffer (z, sdf), and its machinery's scratch with sc
   float sc[R][NBUF];
   float dists[R][NBUF], logs[R][NBUF];
@@ -311,17 +355,18 @@ struct MarchSmem {
 // buffer [b, 128] (kernel C); sdf0_in [b, 64] (ROUNDS without SWEEP); sdist
 // [b, 1], inv_s and anneal (device scalars) with FINAL.  out: sdf0 [b, 64]
 // (SWEEP alone), z [b, 128] (ROUNDS without FINAL) or tau [b, 1] (FINAL).
-template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK>
-__global__ void __launch_bounds__(kRowsThreads)
-    march_kernel(const float* __restrict__ z_in, const float* __restrict__ sdf0_in,
-                 const float* __restrict__ o, const float* __restrict__ d,
-                 const float* __restrict__ sdist, const bf16* __restrict__ wpack,
-                 const float* __restrict__ bpack, const float* __restrict__ w_sdf,
-                 const float* __restrict__ inv_s_ptr, const float* __restrict__ anneal_ptr,
-                 float* __restrict__ out, int b, const SdfMeta m, float scale, float base_inv_s) {
-  constexpr int RPB = kMarchRays;
+template <class Engine, bool SWEEP, bool ROUNDS, bool FINAL, bool RANK>
+__device__ __forceinline__ void march_body(const float* __restrict__ z_in, const float* __restrict__ sdf0_in,
+                                           const float* __restrict__ o, const float* __restrict__ d,
+                                           const float* __restrict__ sdist,
+                                           const typename Engine::W* __restrict__ wpack,
+                                           const float* __restrict__ bpack, const float* __restrict__ w_sdf,
+                                           const float* __restrict__ inv_s_ptr, const float* __restrict__ anneal_ptr,
+                                           float* __restrict__ out, int b, const SdfMeta& m, float scale,
+                                           float base_inv_s) {
+  constexpr int RPB = kMarchRays, kVal = Engine::kValueRows, kSec = Engine::kSections;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  MarchSmem& S = *reinterpret_cast<MarchSmem*>(smem_raw);
+  MarchSmem<Engine>& S = *reinterpret_cast<MarchSmem<Engine>*>(smem_raw);
   const int tid = threadIdx.x, h = tid >> 7, k = tid & (NBUF - 1), warp = tid >> 5, lane = tid & 31;
   const int ray = blockIdx.x * RPB + h;
   const bool live = ray < b;
@@ -339,16 +384,17 @@ __global__ void __launch_bounds__(kRowsThreads)
   __syncthreads();
 
   if constexpr (SWEEP) {
-    // Initial sweep: pass p holds the 64 stratified samples of rays 2p and
-    // 2p + 1, one row each.
-    for (int p = 0; p < RPB * N0 / kRowsMax; ++p) {
-      if (tid < kRowsMax * 3) {
-        const int r = tid / 3, j = tid % 3, hr = 2 * p + r / N0;
+    // Initial sweep: pass p holds the 64 stratified samples of kVal / 64
+    // rays from ray (kVal / 64) p, one row each.
+    constexpr int kRaysPass = kVal / N0;
+    for (int p = 0; p < RPB * N0 / kVal; ++p) {
+      if (tid < kVal * 3) {
+        const int r = tid / 3, j = tid % 3, hr = kRaysPass * p + r / N0;
         S.t.pts[r][j] = S.ro[hr][j] + S.rd[hr][j] * S.sz[hr][r % N0];
       }
       __syncthreads();
-      sdf_rows<false, 2>(S.t, nullptr, wpack, bpack, w_sdf, m, scale);
-      if (tid < kRowsMax) S.sweep0[2 * p + tid / N0][tid % N0] = S.t.sdf[tid];
+      Engine::template values<kVal>(S.t, wpack, bpack, w_sdf, m, scale);
+      if (tid < kVal) S.sweep0[kRaysPass * p + tid / N0][tid % N0] = S.t.sdf[tid];
       __syncthreads();
     }
     if (k < N0) sk = S.sweep0[h][k];
@@ -406,7 +452,7 @@ __global__ void __launch_bounds__(kRowsThreads)
         S.t.pts[r][j] = S.ro[hr][j] + S.rd[hr][j] * S.new_z[hr][r % NNEW];
       }
       __syncthreads();
-      sdf_rows<false, 1>(S.t, nullptr, wpack, bpack, w_sdf, m, scale);
+      Engine::template values<64>(S.t, wpack, bpack, w_sdf, m, scale);
     }
     if (!FINAL) {
       if (live) out[(size_t)ray * NBUF + k] = S.sz[h][k];
@@ -417,24 +463,24 @@ __global__ void __launch_bounds__(kRowsThreads)
   if constexpr (FINAL) {
     // Final sweep of the refined buffer S.sz: section midpoints (the last
     // section is the ray's sample_dist long), sdf and d . grad sdf, then
-    // tau = exp(sum of the 127 log factors).  Pass t holds 64 sections of
-    // ray t / 2 and their tangent rows.
+    // tau = exp(sum of the 127 log factors).  Pass t holds kSec sections of
+    // ray t / (128 / kSec) and their tangent rows.
     const float inv_s = *inv_s_ptr, anneal = *anneal_ptr;
     S.dists[h][k] = k == NBUF - 1 ? sdist[rl] : S.sz[h][k + 1] - S.sz[h][k];
     __syncthreads();
-    for (int t = 0; t < RPB * NBUF / 64; ++t) {
-      const int hr = t / (NBUF / 64), s0 = (t % (NBUF / 64)) * 64;
-      if (tid < 64 * 3) {
+    for (int t = 0; t < RPB * NBUF / kSec; ++t) {
+      const int hr = t / (NBUF / kSec), s0 = (t % (NBUF / kSec)) * kSec;
+      if (tid < kSec * 3) {
         const int r = tid / 3, j = tid % 3, kk = s0 + r;
         const float mid = S.sz[hr][kk] + S.dists[hr][kk] * 0.5f;
         S.t.pts[r][j] = S.ro[hr][j] + S.rd[hr][j] * mid;
       }
       __syncthreads();
-      sdf_rows<true, 2>(S.t, S.rd[hr], wpack, bpack, w_sdf, m, scale);
-      if (tid < 64) {
+      Engine::dual(S.t, S.rd[hr], wpack, bpack, w_sdf, m, scale);
+      if (tid < kSec) {
         const int kk = s0 + tid;
         S.logs[hr][kk] =
-            shadow_log_factor(S.t.sdf[tid], S.t.sdf[64 + tid], S.dists[hr][kk], inv_s, anneal, kk == NBUF - 1);
+            shadow_log_factor(S.t.sdf[tid], S.t.sdf[kSec + tid], S.dists[hr][kk], inv_s, anneal, kk == NBUF - 1);
       }
       __syncthreads();
     }
@@ -450,22 +496,50 @@ __global__ void __launch_bounds__(kRowsThreads)
   }
 }
 
-// One launch on `stream`; returns its launch error.
+#define NRH_MARCH_PARAMS(WT)                                                                                 \
+  const float *__restrict__ z_in, const float *__restrict__ sdf0_in, const float *__restrict__ o,              \
+      const float *__restrict__ d, const float *__restrict__ sdist, const WT *__restrict__ wpack,              \
+      const float *__restrict__ bpack, const float *__restrict__ w_sdf, const float *__restrict__ inv_s_ptr,   \
+      const float *__restrict__ anneal_ptr, float *__restrict__ out, int b, const SdfMeta m, float scale,       \
+      float base_inv_s
+#define NRH_MARCH_ARGS z_in, sdf0_in, o, d, sdist, wpack, bpack, w_sdf, inv_s_ptr, anneal_ptr, out, b, m, scale, base_inv_s
+
+// The bf16 instances (kernels C, K, L, M and N) and the f32 ones.
 template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK>
+__global__ void __launch_bounds__(kRowsThreads) march_kernel(NRH_MARCH_PARAMS(bf16)) {
+  march_body<Bf16Rows, SWEEP, ROUNDS, FINAL, RANK>(NRH_MARCH_ARGS);
+}
+template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK>
+__global__ void __launch_bounds__(kRowsThreads) march_kernel_f32(NRH_MARCH_PARAMS(float)) {
+  march_body<F32Rows, SWEEP, ROUNDS, FINAL, RANK>(NRH_MARCH_ARGS);
+}
+#undef NRH_MARCH_PARAMS
+#undef NRH_MARCH_ARGS
+
+// One launch on `stream` of the bf16 instance, or with F32 the f32 one
+// (wpack then holds f32 weights); returns its launch error.
+template <bool F32, bool SWEEP, bool ROUNDS, bool FINAL, bool RANK>
 inline int launch_march(const float* z_in, const float* sdf0_in, const float* o, const float* d,
                         const float* sdist, const void* wpack, const float* bpack, const float* w_sdf,
                         const float* inv_s, const float* anneal, float* out, int b, const int* meta,
                         float scale, float base_inv_s, void* stream) {
+  using Engine = typename std::conditional<F32, F32Rows, Bf16Rows>::type;
+  using W = typename Engine::W;
   SdfMeta m;
   int rc = parse_meta(meta, &m);
   if (rc) return rc;
   if (b <= 0) return 0;
-  const int smem = (int)sizeof(MarchSmem);
-  auto kernel = march_kernel<SWEEP, ROUNDS, FINAL, RANK>;
+  const int smem = (int)sizeof(MarchSmem<Engine>);
+  void (*kernel)(const float*, const float*, const float*, const float*, const float*, const W*, const float*,
+                 const float*, const float*, const float*, float*, int, const SdfMeta, float, float);
+  if constexpr (F32)
+    kernel = march_kernel_f32<SWEEP, ROUNDS, FINAL, RANK>;
+  else
+    kernel = march_kernel<SWEEP, ROUNDS, FINAL, RANK>;
   rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc) return rc;
   kernel<<<(b + kMarchRays - 1) / kMarchRays, kRowsThreads, smem, (cudaStream_t)stream>>>(
-      z_in, sdf0_in, o, d, sdist, (const bf16*)wpack, bpack, w_sdf, inv_s, anneal, out, b, m, scale, base_inv_s);
+      z_in, sdf0_in, o, d, sdist, (const W*)wpack, bpack, w_sdf, inv_s, anneal, out, b, m, scale, base_inv_s);
   return (int)cudaGetLastError();
 }
 

@@ -33,40 +33,92 @@
 // K runs 9x, L 14x and M 11x their bounds: each layer's product and its
 // softplus epilogue run one after the other (scripts/probe_march_parts.py).
 // merge selects the network: rank != 0 is the rank merge.
+// Each has an f32 instance, *_f32, for march_dtype="float32": the same
+// template on mma_rows.cuh::sdf_rows_f32 (f32 weights and activations, f32
+// FMAs on the CUDA cores).  At the 67 TFLOP/s f32 peak the bounds are K
+// 0.449 ms, L 0.337, M 0.786 and N 2.582 a 512-ray launch.
 #include "march_common.cuh"
 
 using namespace nrh;
 
-extern "C" int march_sweep(const float* z0, const float* o, const float* d, const void* wpack,
-                           const float* bpack, const float* w_sdf, float* sdf0, int b, const int* meta,
-                           float scale, void* stream) {
-  return launch_march<true, false, false, false>(z0, nullptr, o, d, nullptr, wpack, bpack, w_sdf, nullptr,
-                                                 nullptr, sdf0, b, meta, scale, 0.0f, stream);
+namespace {
+
+// Each entry point's bf16 instance, or with F32 its f32 one.
+template <bool F32>
+int sweep(const float* z0, const float* o, const float* d, const void* wpack, const float* bpack,
+          const float* w_sdf, float* sdf0, int b, const int* meta, float scale, void* stream) {
+  return launch_march<F32, true, false, false, false>(z0, nullptr, o, d, nullptr, wpack, bpack, w_sdf, nullptr,
+                                                      nullptr, sdf0, b, meta, scale, 0.0f, stream);
 }
 
-extern "C" int march_rounds(const float* z0, const float* sdf0, const float* o, const float* d,
-                            const void* wpack, const float* bpack, const float* w_sdf, float* z, int b,
-                            const int* meta, float scale, float base_inv_s, int rank, void* stream) {
-  auto launch = rank ? launch_march<false, true, false, true> : launch_march<false, true, false, false>;
+template <bool F32>
+int rounds(const float* z0, const float* sdf0, const float* o, const float* d, const void* wpack,
+           const float* bpack, const float* w_sdf, float* z, int b, const int* meta, float scale, float base_inv_s,
+           int rank, void* stream) {
+  auto launch = rank ? launch_march<F32, false, true, false, true> : launch_march<F32, false, true, false, false>;
   return launch(z0, sdf0, o, d, nullptr, wpack, bpack, w_sdf, nullptr, nullptr, z, b, meta, scale, base_inv_s,
                 stream);
 }
 
-extern "C" int importance_march(const float* z0, const float* o, const float* d, const void* wpack,
-                                const float* bpack, const float* w_sdf, float* z, int b, const int* meta,
-                                float scale, float base_inv_s, int rank, void* stream) {
-  auto launch = rank ? launch_march<true, true, false, true> : launch_march<true, true, false, false>;
+template <bool F32>
+int importance(const float* z0, const float* o, const float* d, const void* wpack, const float* bpack,
+               const float* w_sdf, float* z, int b, const int* meta, float scale, float base_inv_s, int rank,
+               void* stream) {
+  auto launch = rank ? launch_march<F32, true, true, false, true> : launch_march<F32, true, true, false, false>;
   return launch(z0, nullptr, o, d, nullptr, wpack, bpack, w_sdf, nullptr, nullptr, z, b, meta, scale, base_inv_s,
                 stream);
 }
 
-extern "C" int shadow_march(const float* z0, const float* o, const float* d, const float* sdist,
-                            const float* inv_s, const float* anneal, const void* wpack, const float* bpack,
-                            const float* w_sdf, float* tau, int b, const int* meta, float scale,
-                            float base_inv_s, int rank, void* stream) {
-  auto launch = rank ? launch_march<true, true, true, true> : launch_march<true, true, true, false>;
+template <bool F32>
+int shadow(const float* z0, const float* o, const float* d, const float* sdist, const float* inv_s,
+           const float* anneal, const void* wpack, const float* bpack, const float* w_sdf, float* tau, int b,
+           const int* meta, float scale, float base_inv_s, int rank, void* stream) {
+  auto launch = rank ? launch_march<F32, true, true, true, true> : launch_march<F32, true, true, true, false>;
   return launch(z0, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal, tau, b, meta, scale, base_inv_s,
                 stream);
+}
+
+}  // namespace
+
+#define NRH_SWEEP_ARGS                                                                                     \
+  const float *z0, const float *o, const float *d, const void *wpack, const float *bpack, const float *w_sdf, \
+      float *sdf0, int b, const int *meta, float scale, void *stream
+#define NRH_ROUNDS_ARGS                                                                                    \
+  const float *z0, const float *sdf0, const float *o, const float *d, const void *wpack, const float *bpack, \
+      const float *w_sdf, float *z, int b, const int *meta, float scale, float base_inv_s, int rank, void *stream
+#define NRH_IMPORTANCE_ARGS                                                                                 \
+  const float *z0, const float *o, const float *d, const void *wpack, const float *bpack, const float *w_sdf, \
+      float *z, int b, const int *meta, float scale, float base_inv_s, int rank, void *stream
+#define NRH_SHADOW_ARGS                                                                                     \
+  const float *z0, const float *o, const float *d, const float *sdist, const float *inv_s, const float *anneal, \
+      const void *wpack, const float *bpack, const float *w_sdf, float *tau, int b, const int *meta, float scale, \
+      float base_inv_s, int rank, void *stream
+
+extern "C" int march_sweep(NRH_SWEEP_ARGS) {
+  return sweep<false>(z0, o, d, wpack, bpack, w_sdf, sdf0, b, meta, scale, stream);
+}
+extern "C" int march_sweep_f32(NRH_SWEEP_ARGS) {
+  return sweep<true>(z0, o, d, wpack, bpack, w_sdf, sdf0, b, meta, scale, stream);
+}
+extern "C" int march_rounds(NRH_ROUNDS_ARGS) {
+  return rounds<false>(z0, sdf0, o, d, wpack, bpack, w_sdf, z, b, meta, scale, base_inv_s, rank, stream);
+}
+extern "C" int march_rounds_f32(NRH_ROUNDS_ARGS) {
+  return rounds<true>(z0, sdf0, o, d, wpack, bpack, w_sdf, z, b, meta, scale, base_inv_s, rank, stream);
+}
+extern "C" int importance_march(NRH_IMPORTANCE_ARGS) {
+  return importance<false>(z0, o, d, wpack, bpack, w_sdf, z, b, meta, scale, base_inv_s, rank, stream);
+}
+extern "C" int importance_march_f32(NRH_IMPORTANCE_ARGS) {
+  return importance<true>(z0, o, d, wpack, bpack, w_sdf, z, b, meta, scale, base_inv_s, rank, stream);
+}
+extern "C" int shadow_march(NRH_SHADOW_ARGS) {
+  return shadow<false>(z0, o, d, sdist, inv_s, anneal, wpack, bpack, w_sdf, tau, b, meta, scale, base_inv_s, rank,
+                       stream);
+}
+extern "C" int shadow_march_f32(NRH_SHADOW_ARGS) {
+  return shadow<true>(z0, o, d, sdist, inv_s, anneal, wpack, bpack, w_sdf, tau, b, meta, scale, base_inv_s, rank,
+                      stream);
 }
 
 extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

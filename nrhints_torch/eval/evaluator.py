@@ -21,7 +21,9 @@ detached and the training optimizer is not touched.
 An evaluator keeps to its rank's card.  JAX's per-host eval mesh shards a
 view's rays over the host's chips; here each process owns one card, so the
 parallelism of evaluation is the Trainer's: test views and video frames
-strided over the ranks.
+strided over the ranks.  Under a (data, sample) grid that is the flattened
+1-D mesh of all ranks, as JAX's Evaluator flattens each host's devices: a
+view renders whole on one rank, no march split over a sample group.
 
 On the card both loops are CUDA graphs, as JAX runs each as one jit: a
 view's chunk sweep is captured once per (H, W, bundle path) and replayed

@@ -178,11 +178,16 @@ def _round16(v: int) -> int:
     return -(-v // 16) * 16
 
 
-def pack_sdf_mlp(weights: Sequence[torch.Tensor], cfg: SDFNetConfig, with_feat: bool) -> dict:
-    """Lay the SDF MLP out as ``csrc/sdf_mlp.cuh`` reads it: bf16 weights
-    zero-padded to 16-multiples, f32 biases, the f32 sdf head column and
-    the int meta vector.  ``weights`` ends with the sdf head, then (when
-    ``with_feat``) the feature head."""
+def pack_sdf_mlp(weights: Sequence[torch.Tensor], cfg: SDFNetConfig, with_feat: bool,
+                 dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Lay the SDF MLP out as ``csrc/sdf_mlp.cuh`` reads it: weights in
+    ``dtype`` zero-padded to 16-multiples, f32 biases, the f32 sdf head
+    column and the int meta vector.  ``weights`` ends with the sdf head,
+    then (when ``with_feat``) the feature head.  ``dtype`` is bf16 for every
+    kernel but the f32 march instances (``march_dtype="float32"``), which
+    read f32 weights in the same layout (``csrc/mma_rows.cuh::sdf_rows_f32``)."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the packed SDF weights are bf16 or f32, got {dtype}")
     if cfg.encoding != "frequency":
         raise ValueError("the CUDA SDF kernels take the frequency encoding; the renderer runs the hash "
                          "encoding on the unfused path, as the JAX package does")
@@ -203,14 +208,14 @@ def pack_sdf_mlp(weights: Sequence[torch.Tensor], cfg: SDFNetConfig, with_feat: 
         w_off += kp * np_
         b_off += np_
     wf_off, bf_off = w_off, b_off
-    wpack = torch.zeros(w_off + kpf * npf, dtype=torch.bfloat16, device=dev)
+    wpack = torch.zeros(w_off + kpf * npf, dtype=dtype, device=dev)
     bpack = torch.zeros(b_off + npf + 1, dtype=torch.float32, device=dev)
     blocks = [(weights[2 * i], weights[2 * i + 1], lay[5], lay[6], lay[2], lay[3]) for i, lay in enumerate(layers)]
     if with_feat:
         blocks.append((weights[2 * L + 2], weights[2 * L + 3], wf_off, bf_off, kpf, npf))
     for w, b, wo, bo, kp, np_ in blocks:
-        wp = torch.zeros(kp, np_, dtype=torch.bfloat16, device=dev)
-        wp[: w.shape[0], : w.shape[1]] = w.to(torch.bfloat16)
+        wp = torch.zeros(kp, np_, dtype=dtype, device=dev)
+        wp[: w.shape[0], : w.shape[1]] = w.to(dtype)
         wpack[wo : wo + kp * np_] = wp.reshape(-1)
         bpack[bo : bo + b.numel()] = b.reshape(-1).float()
     bpack[bf_off + npf] = weights[2 * L + 1].reshape(())

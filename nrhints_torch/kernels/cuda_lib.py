@@ -15,7 +15,8 @@ SDF forward of kernels A, D and H, ``sdf_bwd.cuh`` the chain of E and H,
 cp.async-staged products of that forward, that chain and those passes,
 ``march_common.cuh`` the march machinery (one warp a ray) and template of B,
 C, K, L, M and N, ``mma_rows.cuh`` the ldmatrix and mma.sync row engine of
-the sweeps of C, K, L, M and N.
+the sweeps of C, K, L, M and N, and the f32 engine of their f32 instances
+(``*_f32``, counted under their own names).
 """
 from __future__ import annotations
 
@@ -44,6 +45,8 @@ launch_counts = {
     "sdf_stash_all_fwd": 0, "sdf_stash_all_bwd": 0,
     "sdf_core_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0,
     "march_sweep": 0, "march_rounds": 0, "importance_march": 0, "shadow_march": 0,
+    "shadow_final_f32": 0, "march_sweep_f32": 0, "march_rounds_f32": 0, "importance_march_f32": 0,
+    "shadow_march_f32": 0,
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -67,12 +70,17 @@ _SIGNATURES = {
     "march": {
         "round_machinery": [_P] * 9 + [_I, _I, _I, _F, _I, _I, _P],
         "shadow_final": [_P] * 10 + [_I, _P, _F, _P],
+        "shadow_final_f32": [_P] * 10 + [_I, _P, _F, _P],
     },
     "march_fused": {
         "march_sweep": [_P] * 7 + [_I, _P, _F, _P],
         "march_rounds": [_P] * 8 + [_I, _P, _F, _F, _I, _P],
         "importance_march": [_P] * 7 + [_I, _P, _F, _F, _I, _P],
         "shadow_march": [_P] * 10 + [_I, _P, _F, _F, _I, _P],
+        "march_sweep_f32": [_P] * 7 + [_I, _P, _F, _P],
+        "march_rounds_f32": [_P] * 8 + [_I, _P, _F, _F, _I, _P],
+        "importance_march_f32": [_P] * 7 + [_I, _P, _F, _F, _I, _P],
+        "shadow_march_f32": [_P] * 10 + [_I, _P, _F, _F, _I, _P],
     },
 }
 _libs: dict[str, ctypes.CDLL] = {}

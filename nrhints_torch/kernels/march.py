@@ -18,7 +18,10 @@ On CUDA tensors the wrappers launch the kernels in ``csrc/march.cu`` and
 ``csrc/march_fused.cu``; on CPU tensors they run the ``*_plain`` versions.
 The march weights hold the matrices in the march dtype (bf16 by default)
 and the biases in f32; a bf16 sweep rounds its activations to bf16 after
-every layer, as the JAX sweeps do.
+every layer, as the JAX sweeps do.  The weights' dtype picks the instance
+of C, K, L, M and N: bf16 weights the bf16 kernels, f32 weights
+(``march_dtype="float32"``) their f32 instances (``*_f32``: f32 weights,
+activations and FMAs, no rounding), counted under their own names.
 """
 from __future__ import annotations
 
@@ -344,14 +347,25 @@ def shadow_final_plain(z, o, d, sdist, inv_s, cos_anneal, weights, cfg: SDFNetCo
     return torch.exp(torch.sum(logs, dim=-1, keepdim=True))
 
 
+def _kernel_fn(fn: str, weights) -> tuple[str, torch.dtype]:
+    """(entry point, packed weight dtype) of a march kernel's instance for
+    the weights' dtype: bf16 -> ``fn``, f32 -> ``fn``_f32."""
+    dt = weights[0].dtype
+    if dt == torch.bfloat16:
+        return fn, dt
+    if dt == torch.float32:
+        return f"{fn}_f32", dt
+    raise ValueError(f"{fn}: the march kernels take bf16 or f32 march weights, got {dt}")
+
+
 def shadow_final(z, o, d, sdist, inv_s, cos_anneal, weights, cfg: SDFNetConfig) -> torch.Tensor:
-    """tau [B, 1]: kernel C on CUDA tensors (bf16 march weights only), the
-    plain version on CPU tensors.  ``inv_s`` and ``cos_anneal`` may be
-    0-d tensors; the kernel reads them on the device, so no host sync."""
+    """tau [B, 1]: kernel C on CUDA tensors (its bf16 or f32 instance, by
+    the weights' dtype), the plain version on CPU tensors.  ``inv_s`` and
+    ``cos_anneal`` may be 0-d tensors; the kernel reads them on the device,
+    so no host sync."""
     if z.device.type == "cpu":
         return shadow_final_plain(z, o, d, sdist, inv_s, cos_anneal, weights, cfg)
-    if weights[0].dtype != torch.bfloat16:
-        raise NotImplementedError("kernel C computes with bf16 march weights (march_dtype='bfloat16') only")
+    fn, wdt = _kernel_fn("shadow_final", weights)
     b, dev = z.shape[0], z.device
     for t, shape, name in ((z, (b, N_BUF), "z"), (o, (b, 3), "o"), (d, (b, 3), "d"), (sdist, (b, 1), "sdist")):
         require_cuda(t, shape, name)
@@ -360,16 +374,16 @@ def shadow_final(z, o, d, sdist, inv_s, cos_anneal, weights, cfg: SDFNetConfig) 
         return tau
     inv_s_t = torch.as_tensor(inv_s, dtype=torch.float32, device=dev).reshape(1)
     anneal_t = torch.as_tensor(cos_anneal, dtype=torch.float32, device=dev).reshape(1)
-    pk = pack_sdf_mlp(weights, cfg, with_feat=False)
+    pk = pack_sdf_mlp(weights, cfg, with_feat=False, dtype=wdt)
     lib = cuda_lib.load("march")
-    rc = lib.shadow_final(
+    rc = getattr(lib, fn)(
         z.data_ptr(), o.data_ptr(), d.data_ptr(), sdist.data_ptr(),
         pk["wpack"].data_ptr(), pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr(),
         inv_s_t.data_ptr(), anneal_t.data_ptr(), tau.data_ptr(), b, pk["meta"].ctypes.data,
         float(cfg.scale), cuda_lib.stream_ptr(dev),
     )
-    cuda_lib.check(lib, rc, "shadow_final")
-    cuda_lib.launch_counts["shadow_final"] += 1
+    cuda_lib.check(lib, rc, fn)
+    cuda_lib.launch_counts[fn] += 1
     return tau
 
 
@@ -419,11 +433,11 @@ def _check_merge(merge: str) -> int:
 
 def _launch_fused(name: str, fn: str, weights, cfg: SDFNetConfig, inputs, out_cols: int, rounds=4, n_new=16,
                   scalars=()) -> torch.Tensor:
-    """Kernel ``name`` (``fn`` of ``csrc/march_fused.cu``) on CUDA tensors:
-    checks ``inputs`` ([(tensor, shape, name), ...], the kernel's pointer
-    arguments in order), packs the bf16 weights, launches -> [B, out_cols]."""
-    if weights[0].dtype != torch.bfloat16:
-        raise NotImplementedError(f"kernel {name} computes with bf16 march weights (march_dtype='bfloat16') only")
+    """Kernel ``name`` (``fn`` of ``csrc/march_fused.cu``, or ``fn``_f32 for
+    f32 weights) on CUDA tensors: checks ``inputs`` ([(tensor, shape, name),
+    ...], the kernel's pointer arguments in order), packs the weights in
+    their dtype, launches -> [B, out_cols]."""
+    fn, wdt = _kernel_fn(fn, weights)
     if (rounds, n_new) != (4, 16):
         raise NotImplementedError(f"kernel {name} runs 4 rounds of 16 samples")
     for t, shape, tname in inputs:
@@ -432,7 +446,7 @@ def _launch_fused(name: str, fn: str, weights, cfg: SDFNetConfig, inputs, out_co
     out = torch.empty((b, out_cols), device=dev)
     if b == 0:
         return out
-    pk = pack_sdf_mlp(weights, cfg, with_feat=False)
+    pk = pack_sdf_mlp(weights, cfg, with_feat=False, dtype=wdt)
     lib = cuda_lib.load("march_fused")
     rc = getattr(lib, fn)(
         *(t.data_ptr() for t, _, _ in inputs), pk["wpack"].data_ptr(), pk["bpack"].data_ptr(),
@@ -450,8 +464,8 @@ def _ray_inputs(z0, o, d):
 
 
 def march_sweep(z0, o, d, weights, cfg: SDFNetConfig) -> torch.Tensor:
-    """sdf0 [B, 64]: kernel K on CUDA tensors (bf16 march weights only),
-    the plain version on CPU tensors."""
+    """sdf0 [B, 64]: kernel K on CUDA tensors (its bf16 or f32 instance,
+    by the weights' dtype), the plain version on CPU tensors."""
     if z0.device.type == "cpu":
         return march_sweep_plain(z0, o, d, weights, cfg)
     return _launch_fused("K", "march_sweep", weights, cfg, _ray_inputs(z0, o, d), 64)

@@ -24,14 +24,23 @@ them every rank is on one host.
 JAX's ``shard_rays_call`` has no counterpart: XLA cannot partition a Pallas
 call, so JAX runs each kernel under ``shard_map``; here each rank runs the
 kernels on its own rows, which is all the partitioning there is.
+
+With ``sample_axis_size`` k > 1 the ranks form JAX's 2-D ``('data',
+'sample')`` grid: rank r is device (r // k, r % k) of the (data, k) mesh.
+The k ranks of a sample group (one data index) hold the same rows of the
+global batch, as JAX replicates the batch over 'sample'; the renderer's
+marches split their work over the sample group and all-gather it
+(``render/renderer.py``), and the gradients are summed over the data group
+(the ranks of one sample index), so each row counts once.  Each group is a
+``dist.new_group``, made by every rank in the same order.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from datetime import timedelta
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -90,7 +99,10 @@ def initialize_multihost(init_method: Optional[str] = None, rank: Optional[int] 
 @dataclass(frozen=True)
 class DataMesh:
     """This rank's place in the data-parallel group.  ``backend`` is None
-    where there is no process group (one rank: the single-device step)."""
+    where there is no process group (one rank: the single-device step).
+    With ``sample_axis_size`` k > 1, the (data, k) grid: ``sample_group``
+    holds the k ranks of this rank's data index, ``data_group`` the ranks
+    of its sample index (both None where k is 1: the whole group serves)."""
 
     rank: int
     world_size: int
@@ -98,10 +110,44 @@ class DataMesh:
     local_world_size: int
     device: torch.device
     backend: Optional[str] = None
+    sample_axis_size: int = 1
+    sample_group: Any = field(default=None, compare=False, repr=False)
+    data_group: Any = field(default=None, compare=False, repr=False)
 
     @property
     def distributed(self) -> bool:
         return self.backend is not None
+
+    @property
+    def data_size(self) -> int:
+        """Ranks on the 'data' axis: the batch's row blocks."""
+        return self.world_size // self.sample_axis_size
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.sample_axis_size
+
+    @property
+    def sample_index(self) -> int:
+        return self.rank % self.sample_axis_size
+
+    @property
+    def host_data_rows(self) -> int:
+        """Row blocks of a host's batch: its ranks' data indices (one where a
+        sample group spans several hosts)."""
+        return max(1, self.local_world_size // self.sample_axis_size)
+
+    @property
+    def draw_index(self) -> int:
+        """The host batch this rank's host draws (``DataManager``'s
+        ``local_rank``): the host index, or where a sample group spans
+        hosts, the data index, so the hosts of one group draw alike."""
+        return self.host_index * self.local_world_size // self.sample_axis_size // self.host_data_rows
+
+    @property
+    def draw_count(self) -> int:
+        """Distinct host batches: the global batch splits into this many."""
+        return self.data_size // self.host_data_rows
 
     @property
     def host_index(self) -> int:
@@ -124,35 +170,60 @@ class DataMesh:
 
 def make_mesh(data_axis_size: int = -1, *, sample_axis_size: int = 1, device="cpu") -> DataMesh:
     """The ``('data',)`` axis over every rank of the group (one rank where
-    no group was joined).  ``data_axis_size``: -1 for the world size, else
-    it must equal it.  ``device``: "cpu", or "cuda" for this rank's card."""
-    if sample_axis_size > 1:
-        raise NotImplementedError("sample_axis_size > 1: sample-axis sharding is not ported")
+    no group was joined), or with ``sample_axis_size`` k > 1 the (data, k)
+    grid of JAX's ``make_mesh``: rank r at (r // k, r % k).
+    ``data_axis_size``: -1 for the world size (with k, the world size // k),
+    else it must give a grid of exactly the group's ranks; a grid larger
+    than the group raises ``ValueError`` as JAX's does for one larger than
+    its devices (so does one smaller: one rank a device, none idle).
+    ``device``: "cpu", or "cuda" for this rank's card.  With k > 1 every
+    rank makes the sample groups, then the data groups, in order."""
     if dist.is_initialized():
         rank, world, backend = dist.get_rank(), dist.get_world_size(), dist.get_backend()
     else:
         rank, world, backend = 0, 1, None
-    if data_axis_size not in (-1, world):
+    k = sample_axis_size
+    if k < 1:
+        raise ValueError(f"sample_axis_size must be at least 1, got {k}")
+    data = (world // k if data_axis_size == -1 else data_axis_size)
+    if k == 1 and data != world:
         raise ValueError(f"data_axis_size {data_axis_size} != the world size {world}: one rank a device, every rank "
                          f"on the 'data' axis")
+    if k > 1 and (data < 1 or data * k != world):
+        raise ValueError(f"a {data}x{k} ('data', 'sample') grid needs {max(data, 1) * k} ranks; the group has "
+                         f"{world}: one rank a device, every rank on the grid")
     local_rank, per_host = local_layout(rank, world)
+    if k > 1 and per_host % k and k % per_host:
+        raise ValueError(f"{per_host} ranks a host and sample_axis_size {k}: one must divide the other")
     dev = torch.device(device)
     if dev.type == "cuda" and backend is not None:
         dev = torch.device("cuda", local_rank)
-    return DataMesh(rank, world, local_rank, per_host, dev, backend)
+    groups = {}
+    if k > 1:
+        for i in range(data):
+            g = dist.new_group([i * k + j for j in range(k)])
+            if i == rank // k:
+                groups["sample_group"] = g
+        for j in range(k):
+            g = dist.new_group([i * k + j for i in range(data)])
+            if j == rank % k:
+                groups["data_group"] = g
+    return DataMesh(rank, world, local_rank, per_host, dev, backend, k, **groups)
 
 
 def shard_batch(mesh: Optional[DataMesh], batch, batch_axis: int = 0):
     """This rank's contiguous block of a host batch (a tensor or a
-    ``PixelBundle``), in rank order along ``batch_axis`` (1 for a stacked
-    [K, rays, ...] batch)."""
-    if mesh is None or mesh.local_world_size == 1:
+    ``PixelBundle``), in the host's data order along ``batch_axis`` (1 for
+    a stacked [K, rays, ...] batch): the k ranks of a sample group take the
+    same block."""
+    if mesh is None or mesh.host_data_rows == 1:
         return batch
     n = (batch if isinstance(batch, torch.Tensor) else batch.h_indices).shape[batch_axis]
-    if n % mesh.local_world_size:
-        raise ValueError(f"a host batch of {n} rays does not split over {mesh.local_world_size} ranks")
-    per = n // mesh.local_world_size
-    idx = (slice(None),) * batch_axis + (slice(mesh.local_rank * per, (mesh.local_rank + 1) * per),)
+    parts = mesh.host_data_rows
+    if n % parts:
+        raise ValueError(f"a host batch of {n} rays does not split over {parts} ranks")
+    per, local = n // parts, mesh.local_rank // mesh.sample_axis_size
+    idx = (slice(None),) * batch_axis + (slice(local * per, (local + 1) * per),)
 
     def rows(x):
         return None if x is None else x[idx].contiguous()
@@ -163,8 +234,9 @@ def shard_batch(mesh: Optional[DataMesh], batch, batch_axis: int = 0):
 
 
 def rank_rows(mesh: DataMesh, n_local: int) -> slice:
-    """This rank's rows of a global batch of ``n_local * world_size`` rays."""
-    return slice(mesh.rank * n_local, (mesh.rank + 1) * n_local)
+    """This rank's rows of a global batch of ``n_local * data_size`` rays
+    (those of its data index)."""
+    return slice(mesh.data_index * n_local, (mesh.data_index + 1) * n_local)
 
 
 @torch.no_grad()
@@ -177,22 +249,32 @@ def replicate(mesh: Optional[DataMesh], tree):
     return tree
 
 
-def all_reduce_grads(tensors: list) -> None:
-    """Sum ``tensors`` over the group's ranks in place through one flat f32
-    buffer: one all-reduce, which a CUDA graph can hold.  Every rank gets
-    the same bytes."""
+def all_reduce_grads(tensors: list, group=None) -> None:
+    """Sum ``tensors`` over ``group``'s ranks (the whole group by default)
+    in place through one flat f32 buffer: one all-reduce, which a CUDA
+    graph can hold.  Every rank gets the same bytes."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     offset = 0
     for t in tensors:
         t.copy_(flat[offset : offset + t.numel()].view_as(t))
         offset += t.numel()
 
 
-def all_reduce_scalar(t: torch.Tensor) -> torch.Tensor:
-    """The sum of a 0-d tensor over the group's ranks, as a new tensor."""
+def all_reduce_scalar(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of a 0-d tensor over ``group``'s ranks, as a new tensor."""
     out = t.detach().clone()
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def sample_all_gather(mesh: DataMesh, t: torch.Tensor) -> torch.Tensor:
+    """[k * rows, ...]: ``t`` of every rank of this rank's sample group,
+    stacked along the first axis in sample order (one
+    ``all_gather_into_tensor``, which a CUDA graph can hold under NCCL)."""
+    t = t.contiguous()
+    out = torch.empty((mesh.sample_axis_size * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out, t, group=mesh.sample_group)
     return out
 
 

@@ -34,8 +34,17 @@ reflectance trunk: ``reflectance_impl`` in training and
 ``eval_reflectance_impl`` in eval pick f32 plain matmuls ("xla") or the
 fused trunk (kernel I without a gradient; F and G, or I and J under
 "recompute", with one).  On CUDA tensors every kernel runs on the card; on
-CPU tensors each kernel wrapper runs its plain version.  What the port
-does not have raises ``NotImplementedError`` where it is reached.
+CPU tensors each kernel wrapper runs its plain version.  The march kernels
+take ``march_dtype`` "bfloat16" or "float32" (their f32 instances).
+
+Under a ``DataMesh`` with a sample axis (``parallel/mesh.py``) the marches
+route as JAX's on its ('data', 'sample') mesh: the fused kernels
+flatten-shard a rank's rays over its sample group where they divide it
+(each rank marches its 1/k of them, then the rows are all-gathered in
+sample order), else the march is sample-sharded (each round's sweep on a
+1/k slice of the samples, the [rays, S] values and the final sweep's
+alphas all-gathered, the CDF and the merge replicated), else it runs
+whole on every rank.
 """
 from __future__ import annotations
 
@@ -60,6 +69,7 @@ from nrhints_torch.fields.sdf import SDFNetConfig, sdf_init, sdf_only, sdf_value
 from nrhints_torch.fields.variance import VarianceConfig, inv_s_from_params, variance_init
 from nrhints_torch.kernels.core_mlp import fused_reflectance_forward, fused_sdf_value_feat_grad
 from nrhints_torch.kernels.march import fused_importance_z, fused_shadow_tau
+from nrhints_torch.parallel.mesh import DataMesh, sample_all_gather
 from nrhints_torch.utils import resolve_device
 
 
@@ -211,10 +221,7 @@ def use_fused_core(cfg: ModelConfig) -> bool:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``ValueError`` for a router or march knob outside its JAX set.
-    The port's gaps raise ``NotImplementedError`` where they are reached:
-    f32 march weights on the card in the march kernels,
-    ``sample_axis_size > 1`` in ``parallel/mesh.py``."""
+    """Raise ``ValueError`` for a router or march knob outside its JAX set."""
     r = cfg.renderer
     if r.fused_kernels not in ("auto", "on", "off"):
         raise ValueError(f"fused_kernels must be 'auto', 'on' or 'off', got {r.fused_kernels!r}")
@@ -223,20 +230,68 @@ def check_ported(cfg: ModelConfig) -> None:
             raise ValueError(f"{knob} must be 'pallas' or 'xla', got {getattr(r, knob)!r}")
     if r.march_merge not in ("bitonic", "rank"):
         raise ValueError(f"march_merge must be 'bitonic' or 'rank', got {r.march_merge!r}")
+    if r.march_dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"march_dtype must be 'bfloat16' or 'float32', got {r.march_dtype!r}")
     if r.depth_type not in ("alpha_blending", "maximum_point", "sphere_tracing"):
         raise ValueError(f"unknown depth_type {r.depth_type!r}")
 
 
-def _unfused_march(params, cfg: ModelConfig, rays_o, rays_d, z_vals, n_importance: int) -> torch.Tensor:
+def _sample_axis_size(mesh: DataMesh | None) -> int:
+    """k of a distributed mesh's sample axis (1 without one)."""
+    return 1 if mesh is None or not mesh.distributed else mesh.sample_axis_size
+
+
+def _flatten_sharded(mesh: DataMesh | None, fn, *rows):
+    """``fn(*rows)`` with the rays flatten-sharded over the sample group
+    (JAX's ``_ray_shard`` over both mesh axes): this rank runs its 1/k of
+    the rows, then the group all-gathers them in sample order.  Every ray's
+    march is independent, so the result is the unsharded call's.  Without
+    a sample axis, ``fn(*rows)``."""
+    k = _sample_axis_size(mesh)
+    if k == 1:
+        return fn(*rows)
+    n = rows[0].shape[0] // k
+    part = slice(mesh.sample_index * n, (mesh.sample_index + 1) * n)
+    return sample_all_gather(mesh, fn(*(t[part].contiguous() for t in rows)))
+
+
+def _sample_slice(mesh: DataMesh | None, t: torch.Tensor) -> torch.Tensor:
+    """This rank's 1/k of the last axis of ``t`` (``t`` itself without a
+    sample axis)."""
+    k = _sample_axis_size(mesh)
+    if k == 1:
+        return t
+    sl = t.shape[-1] // k
+    return t[..., mesh.sample_index * sl : (mesh.sample_index + 1) * sl]
+
+
+def _gather_samples(mesh: DataMesh | None, vals: torch.Tensor) -> torch.Tensor:
+    """[rays, s] values of this rank's slice of the samples -> [rays, k s],
+    the sample group's slices in sample order (JAX's tiled ``all_gather``
+    over 'sample' on axis 1); ``vals`` itself without a sample axis."""
+    k = _sample_axis_size(mesh)
+    if k == 1:
+        return vals
+    rays, s = vals.shape
+    return sample_all_gather(mesh, vals).reshape(k, rays, s).permute(1, 0, 2).reshape(rays, -1)
+
+
+def _unfused_march(params, cfg: ModelConfig, rays_o, rays_d, z_vals, n_importance: int,
+                   mesh: DataMesh | None = None) -> torch.Tensor:
     """The plain march: ``sdf_only`` at the samples, then ``up_sample_steps``
     rounds of ``neus_up_sample`` at inv_s = 64 * 2^i, each merged into the
-    buffer (the last round's draws without their sdf) -> [B, n + n_imp]."""
+    buffer (the last round's draws without their sdf) -> [B, n + n_imp].
+    With ``mesh``'s sample axis (JAX's ``_importance_z_sample_sharded``),
+    every sweep takes this rank's 1/k of the samples and the group
+    all-gathers the [B, S] values; the CDF and the merge are replicated."""
     batch = z_vals.shape[0]
     steps = cfg.renderer.up_sample_steps
 
     def sdf_at(z):
-        pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., :, None]
-        return sdf_only(params["sdf"], cfg.sdf_network, pts.reshape(-1, 3)).reshape(batch, z.shape[-1])
+        zc = _sample_slice(mesh, z)
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * zc[..., :, None]
+        vals = sdf_only(params["sdf"], cfg.sdf_network, pts.reshape(-1, 3)).reshape(batch, zc.shape[-1])
+        return _gather_samples(mesh, vals)
 
     sdf = sdf_at(z_vals)
     for i in range(steps):
@@ -248,35 +303,53 @@ def _unfused_march(params, cfg: ModelConfig, rays_o, rays_d, z_vals, n_importanc
     return z_vals
 
 
-def _importance_sample_z(params, cfg: ModelConfig, rays_o, rays_d, z_vals):
+def _importance_sample_z(params, cfg: ModelConfig, rays_o, rays_d, z_vals, mesh: DataMesh | None = None):
     """n stratified -> n + n_importance refined z per ray, with no gradient
-    (JAX cuts the march with ``stop_gradient``).  The fused march where JAX
-    takes it, split where JAX splits it (renderer.py:372-376); else the
-    plain march."""
+    (JAX cuts the march with ``stop_gradient``).  Routed as JAX's
+    (renderer.py:346-409): the fused march where JAX takes it, split where
+    JAX splits it, flatten-sharded over a sample group where the rays divide
+    it; else, with a sample axis that divides the samples, the
+    sample-sharded plain march; else the plain march."""
     r = cfg.renderer
+    k = _sample_axis_size(mesh)
+    steps = r.up_sample_steps
+    sample_ok = k > 1 and z_vals.shape[-1] % k == 0 and (steps == 0 or (r.n_importance_samples // steps) % k == 0)
+    fused_ok = use_fused(r) and fused_march_compatible(r, cfg.sdf_network)
+    march_full = k > 1 and z_vals.shape[0] % k == 0
     with torch.no_grad():
-        if use_fused(r) and fused_march_compatible(r, cfg.sdf_network):
-            return fused_importance_z(
-                params["sdf"], cfg.sdf_network, rays_o, rays_d, z_vals, mlp_dtype=r.march_dtype,
-                merge=r.march_merge,
-                split=r.importance_split or r.march_sweep_impl == "xla" or r.march_rounds_impl == "xla",
-                sweep_impl=r.march_sweep_impl, rounds_impl=r.march_rounds_impl,
-            )
-        return _unfused_march(params, cfg, rays_o, rays_d, z_vals, r.n_importance_samples)
+        if fused_ok and (march_full or not sample_ok):
+            def march(o, d, z):
+                return fused_importance_z(
+                    params["sdf"], cfg.sdf_network, o, d, z, mlp_dtype=r.march_dtype, merge=r.march_merge,
+                    split=r.importance_split or r.march_sweep_impl == "xla" or r.march_rounds_impl == "xla",
+                    sweep_impl=r.march_sweep_impl, rounds_impl=r.march_rounds_impl,
+                )
+
+            return _flatten_sharded(mesh if march_full else None, march, rays_o, rays_d, z_vals)
+        return _unfused_march(params, cfg, rays_o, rays_d, z_vals, r.n_importance_samples,
+                              mesh if sample_ok else None)
 
 
-def _shadow_transmittance(params, cfg: ModelConfig, pls, target_points, cos_anneal_ratio, jitter: dict | None):
+def _shadow_transmittance(params, cfg: ModelConfig, pls, target_points, cos_anneal_ratio, jitter: dict | None,
+                          mesh: DataMesh | None = None):
     """Final transmittance of a march from the light to just before the
     target point -> [N, 1]; sample_dist = |light - target| / n per ray.
     ``jitter`` (training) moves every shadow sample inside its bin: {"u": [N,
     n] uniforms or None, "generator": ...}.  The fused march has no
     gradient; the unfused one carries the gradient of every input and
     parameter under ``shadow_hint_gradient`` (JAX puts no ``stop_gradient``
-    inside it) and none otherwise."""
+    inside it) and none otherwise.  Routed over ``mesh``'s sample axis as
+    JAX's (renderer.py:489-590): the fused march flatten-sharded where the
+    rays divide the sample group, else the sample-sharded plain march where
+    the sample counts divide it (never under ``shadow_hint_gradient``)."""
     rcfg = cfg.renderer
-    fused = use_fused(rcfg) and fused_shadow_compatible(rcfg, cfg.sdf_network)
+    n, n_imp, steps = rcfg.n_shadow_samples, rcfg.n_shadow_importance_samples, rcfg.up_sample_steps
+    k = _sample_axis_size(mesh)
+    sample_ok = (k > 1 and not rcfg.shadow_hint_gradient and n % k == 0
+                 and (n_imp == 0 or steps == 0 or (n_imp // steps) % k == 0) and (n + n_imp) % k == 0)
+    march_full = k > 1 and pls.shape[0] % k == 0
+    fused = use_fused(rcfg) and fused_shadow_compatible(rcfg, cfg.sdf_network) and (march_full or not sample_ok)
     with torch.set_grad_enabled(torch.is_grad_enabled() and rcfg.shadow_hint_gradient and not fused):
-        n = rcfg.n_shadow_samples
         d = target_points - pls
         light_norm = torch.linalg.norm(d, dim=-1, keepdim=True)
         sample_dist = light_norm / n
@@ -290,30 +363,40 @@ def _shadow_transmittance(params, cfg: ModelConfig, pls, target_points, cos_anne
             s = rcfg.shadow_split
             if not isinstance(cos_anneal_ratio, torch.Tensor):  # a fill, not a host copy: graph-safe
                 cos_anneal_ratio = torch.full((), cos_anneal_ratio, dtype=torch.float32, device=d.device)
-            return fused_shadow_tau(
-                params["sdf"], cfg.sdf_network, pls.contiguous(), ray_d, z_vals, sample_dist,
-                inv_s_from_params(params["variance"]), cos_anneal_ratio,
-                mlp_dtype=rcfg.march_dtype, split=s, merge=rcfg.march_merge,
-                sweep_impl=rcfg.march_sweep_impl if s else "pallas",
-                final_impl=rcfg.shadow_final_impl if s else "pallas",
-                rounds_impl=rcfg.march_rounds_impl if s else "pallas",
-            )
+            inv_s = inv_s_from_params(params["variance"])
+
+            def march(o, rd, z, sdist):
+                return fused_shadow_tau(
+                    params["sdf"], cfg.sdf_network, o, rd, z, sdist, inv_s, cos_anneal_ratio,
+                    mlp_dtype=rcfg.march_dtype, split=s, merge=rcfg.march_merge,
+                    sweep_impl=rcfg.march_sweep_impl if s else "pallas",
+                    final_impl=rcfg.shadow_final_impl if s else "pallas",
+                    rounds_impl=rcfg.march_rounds_impl if s else "pallas",
+                )
+
+            return _flatten_sharded(mesh if march_full else None, march, pls.contiguous(), ray_d, z_vals, sample_dist)
+        # The plain march; with a sample axis (JAX's
+        # ``_shadow_transmittance_sample_sharded``, no gradient) every sweep
+        # takes this rank's 1/k of the samples, the final one its 1/k of the
+        # sections, whose alphas the group all-gathers in sample order.
+        shard = mesh if sample_ok else None
         if rcfg.n_shadow_importance_samples > 0:
-            z_vals = _unfused_march(params, cfg, pls, ray_d, z_vals, rcfg.n_shadow_importance_samples)
-        batch, n_total = z_vals.shape
+            z_vals = _unfused_march(params, cfg, pls, ray_d, z_vals, rcfg.n_shadow_importance_samples, shard)
+        batch = z_vals.shape[0]
         dists = torch.cat([z_vals[..., 1:] - z_vals[..., :-1], sample_dist], dim=-1)
-        mid_z = z_vals + dists * 0.5
+        mid_z, dists = _sample_slice(shard, z_vals + dists * 0.5), _sample_slice(shard, dists)
+        n_swept = mid_z.shape[-1]
         pts = (pls[:, None, :] + ray_d[:, None, :] * mid_z[..., :, None]).reshape(-1, 3)
-        dirs = ray_d[:, None, :].expand(batch, n_total, 3).reshape(-1, 3)
+        dirs = ray_d[:, None, :].expand(batch, n_swept, 3).reshape(-1, 3)
         sdf, dcos = sdf_value_and_dirderiv(params["sdf"], cfg.sdf_network, pts, dirs)
         alpha = _neus_alpha_from_cos(
             sdf, dcos, dists.reshape(-1), inv_s_from_params(params["variance"]), cos_anneal_ratio
-        ).reshape(batch, n_total)
-        return transmittance(alpha)[..., -1:]
+        ).reshape(batch, n_swept)
+        return transmittance(_gather_samples(shard, alpha))[..., -1:]
 
 
 def _partial_shadow_hint(params, cfg: ModelConfig, rays_o, rays_d, rays_pl, z_vals, weights, cos_anneal_ratio,
-                         jitter: dict | None):
+                         jitter: dict | None, mesh: DataMesh | None = None):
     """The partial hint (``n_shadow_importance_clip`` > 0): shadow rays to
     ``n_clip`` evenly strided samples of every camera ray, marched in chunks
     of ``shadow_mini_chunk_size`` rows (the last padded with rows at
@@ -346,7 +429,7 @@ def _partial_shadow_hint(params, cfg: ModelConfig, rays_o, rays_d, rays_pl, z_va
     for c in range(n_chunks):
         rows = slice(c * chunk, (c + 1) * chunk)
         jit = None if jitter is None else {"u": None if u is None else u[rows], "generator": jitter["generator"]}
-        vis.append(_shadow_transmittance(params, cfg, hint_pls[rows], hint_pts[rows], cos_anneal_ratio, jit))
+        vis.append(_shadow_transmittance(params, cfg, hint_pls[rows], hint_pts[rows], cos_anneal_ratio, jit, mesh))
     vis = torch.cat(vis)[:total].reshape(batch, n_clip, 1)
     if not rcfg.shadow_hint_gradient:
         vis = vis.detach()
@@ -444,6 +527,7 @@ def render_rays(
     cos_anneal_ratio: float | torch.Tensor = 1.0,
     background_rgb: torch.Tensor | None = None,
     uniforms: dict | None = None,
+    mesh: DataMesh | None = None,
 ) -> RenderOutput:
     """Render a flat batch of rays -> RenderOutput.
 
@@ -456,8 +540,11 @@ def render_rays(
     otherwise.  ``geometry_warmup`` zeroes both hints.  Under
     ``use_outside_nerf`` ``weights`` runs past the NeuS samples over the
     background's; the depth and the hints read the NeuS weights only.
-    There is no mesh argument, as JAX's has: under data parallelism a rank
-    renders its own rays."""
+    ``mesh``: the ``DataMesh`` or None, as JAX's mesh argument.  A rank
+    renders its own rays; with a sample axis the ranks of a sample group
+    hold the same rays, and the importance and shadow marches split their
+    work over the group (see the module docstring); everything else runs
+    whole on every rank of the group."""
     check_ported(cfg)
     if is_training and generator is None and uniforms is None:
         raise ValueError("render_rays(is_training=True) needs a generator or uniforms for its jitter")
@@ -473,7 +560,7 @@ def render_rays(
         rays.nears, rays.fars, rcfg.n_samples, jitter=is_training, u=uniforms.get("strat"), generator=generator
     )
     if rcfg.n_importance_samples > 0:
-        z_vals = _importance_sample_z(params, cfg, rays_o.detach(), rays_d.detach(), z_vals.detach())
+        z_vals = _importance_sample_z(params, cfg, rays_o.detach(), rays_d.detach(), z_vals.detach(), mesh)
 
     bg_alpha = bg_color = None
     if rcfg.use_outside_nerf:
@@ -528,13 +615,13 @@ def render_rays(
     elif cfg.has_shadow_hint:
         jitter = {"u": uniforms.get("shadow"), "generator": generator} if is_training else None
         if rcfg.n_shadow_importance_clip == -1:
-            shadow_map = _shadow_transmittance(params, cfg, rays_pl, hit_points, cos_anneal_ratio, jitter)
+            shadow_map = _shadow_transmittance(params, cfg, rays_pl, hit_points, cos_anneal_ratio, jitter, mesh)
             if not rcfg.shadow_hint_gradient:
                 shadow_map = shadow_map.detach()
             visibilities = shadow_map[:, None, :].expand(batch, n_total, 1).reshape(-1, 1)
         else:
             visibilities, shadow_map = _partial_shadow_hint(
-                params, cfg, rays_o, rays_d, rays_pl, z_vals, weights, cos_anneal_ratio, jitter
+                params, cfg, rays_o, rays_d, rays_pl, z_vals, weights, cos_anneal_ratio, jitter, mesh
             )
 
     normalized_normal = normalize(grads)

@@ -42,6 +42,14 @@ every rank's Adam runs on the same bytes and the parameters stay equal bit
 for bit; the metrics are the global ones.  On the card, under NCCL, both
 collectives are captured in the K-step graph.  Without a process group
 the step is the single-device step, with no collective.
+
+With a sample axis (the (data, k) grid of ``parallel/mesh.py``) the k ranks
+of a sample group step on the same rows with the same jitter (the rows of
+their data index), their marches split over the group
+(``render/renderer.py``), and both collectives run over the data group:
+every rank of a sample group computes the same gradients, so a sum over
+the whole world would count each row k times.  Under NCCL the marches'
+all-gathers are captured in the K-step graph with the rest.
 """
 from __future__ import annotations
 
@@ -151,16 +159,17 @@ def compute_loss_dict(out: RenderOutput, rgb_gt: torch.Tensor, igr_weight: float
                       mesh: DataMesh | None = None) -> tuple[torch.Tensor, dict]:
     """(loss, metric shares) of this rank's rows: its share of the global
     loss (the rgb L1 sum over the global batch, the masked eikonal sum over
-    every rank's mask count) and its shares {rgb_loss, eikonal_loss, s_val,
-    mse}, which ``global_metrics`` turns into the global metrics once summed
-    over the ranks.  Only a distributed ``mesh`` runs the mask count's
-    scalar all-reduce; without one the shares are the batch's own."""
+    every data index's mask count) and its shares {rgb_loss, eikonal_loss,
+    s_val, mse}, which ``global_metrics`` turns into the global metrics once
+    summed over the data group.  Only a distributed ``mesh`` runs the mask
+    count's scalar all-reduce (over the data group); without one the shares
+    are the batch's own."""
     batch = out.rgb.shape[0]
-    world = 1 if mesh is None else mesh.world_size
+    world = 1 if mesh is None else mesh.data_size
     rgb_loss = torch.sum(torch.abs(out.rgb - rgb_gt)) / (batch * world + 1e-5)
     grad_err = (torch.linalg.norm(out.analytic_normals, dim=-1) - 1.0) ** 2
     mask = out.relax_inside_sphere
-    count = torch.sum(mask) if mesh is None else all_reduce_scalar(torch.sum(mask))
+    count = torch.sum(mask) if mesh is None else all_reduce_scalar(torch.sum(mask), mesh.data_group)
     eikonal_loss = torch.sum(mask * grad_err) / (count + 1e-5)
     loss = rgb_loss + eikonal_loss * igr_weight
     mse = torch.mean((out.rgb - rgb_gt) ** 2)
@@ -194,9 +203,11 @@ def forward_pipeline(
     geometry_warmup: bool,
     cos_anneal_ratio,
     uniforms: dict | None = None,
+    mesh: DataMesh | None = None,
 ) -> RenderOutput:
-    """{renderer, raygen} params + a flat pixel batch -> RenderOutput.  It
-    takes no mesh: a rank's rays are its own."""
+    """{renderer, raygen} params + a flat pixel batch -> RenderOutput.  A
+    rank's rays are its own; ``mesh`` goes to ``render_rays``, whose marches
+    split over a sample axis."""
     rays = generate_rays(params["raygen"], buffers, camera, cfg.ray_generator, batch)
     bg = 1.0 if cfg.data.white_background else 0.0
     return render_rays(
@@ -209,6 +220,7 @@ def forward_pipeline(
         cos_anneal_ratio=cos_anneal_ratio,
         background_rgb=torch.full((1, 3), bg, device=rays.origins.device),
         uniforms=uniforms,
+        mesh=mesh,
     )
 
 
@@ -221,11 +233,12 @@ def _live_mesh(mesh: DataMesh | None) -> DataMesh | None:
 def rank_uniforms(cfg: SystemConfig, mesh: DataMesh | None, n_rays: int, generator: torch.Generator | None, device,
                   *, geometry_warmup: bool = False) -> dict:
     """This rank's rows of the jitter uniforms of the global batch of
-    ``n_rays`` x world size rays, drawn from the step's ``generator`` in
+    ``n_rays`` x data size rays, drawn from the step's ``generator`` in
     ``render_rays``' order, as JAX's global key and sharded uniforms give
-    them (all rows where there is no group)."""
+    them: the rows of its data index, so the ranks of a sample group draw
+    alike (all rows where there is no group)."""
     mesh = _live_mesh(mesh)
-    world = 1 if mesh is None else mesh.world_size
+    world = 1 if mesh is None else mesh.data_size
     u = train_uniforms(cfg.model, n_rays * world, generator, device, geometry_warmup=geometry_warmup)
     return u if mesh is None else {k: v[rank_rows(mesh, n_rays)] for k, v in u.items()}
 
@@ -241,9 +254,9 @@ def loss_and_grads(state: TrainState, cfg: SystemConfig, camera: CameraModel, bu
 
     With a distributed ``mesh``, ``batch`` and ``uniforms`` are this rank's
     rows (a ``generator`` gives the global draw's rows), and after the
-    backward one all-reduce sums the gradients and the metric shares: the
-    leaves then hold the global loss's gradients, the same bytes on every
-    rank, and the metrics are the global batch's."""
+    backward one all-reduce over the data group sums the gradients and the
+    metric shares: the leaves then hold the global loss's gradients, the
+    same bytes on every rank, and the metrics are the global batch's."""
     mesh = _live_mesh(mesh)
     if cos_anneal_ratio is None:
         cos = step_scalars(cfg, state.optimizer, state.step)[0]
@@ -255,7 +268,7 @@ def loss_and_grads(state: TrainState, cfg: SystemConfig, camera: CameraModel, bu
     state.optimizer.zero_grad(set_to_none=True)
     out = forward_pipeline(
         state.params, buffers, cfg, camera, batch, generator, is_training=True, geometry_warmup=geometry_warmup,
-        cos_anneal_ratio=cos_anneal_ratio, uniforms=uniforms,
+        cos_anneal_ratio=cos_anneal_ratio, uniforms=uniforms, mesh=mesh,
     )
     loss, shares = compute_loss_dict(out, batch.rgb_gt, cfg.model.igr_weight, mesh)
     loss.backward()
@@ -266,7 +279,7 @@ def loss_and_grads(state: TrainState, cfg: SystemConfig, camera: CameraModel, bu
     shares = {k: v.detach() for k, v in shares.items()}
     if mesh is not None:
         shares = {k: v.clone() for k, v in shares.items()}
-        all_reduce_grads([p.grad for p in leaves] + list(shares.values()))
+        all_reduce_grads([p.grad for p in leaves] + list(shares.values()), mesh.data_group)
     return global_metrics(shares, cfg.model.igr_weight)
 
 
@@ -394,8 +407,8 @@ def make_train_step_scan(
 
     ``mesh``: as ``make_train_step``'s; ``batches`` are this rank's rows.
     Under NCCL the graph holds every step's two collectives (the mask
-    count's and the gradients'), which every rank replays in the same
-    order.  A gloo group cannot be captured, so on the card it raises
+    count's and the gradients'), and with a sample axis the marches'
+    all-gathers, which every rank replays in the same order.  A gloo group cannot be captured, so on the card it raises
     ``ValueError`` rather than running the steps eagerly."""
     mesh = _live_mesh(mesh)
     if n_steps < 1:

@@ -31,7 +31,12 @@ the logged images, the checkpoint and the mesh; each host's first rank
 writes its sidecar.  Test views and video frames are strided over the
 ranks: the metrics are gathered (NaN-padded rows, as JAX's), each rank's
 registered rows merged by ownership into every rank's live tables, and
-rank 0 writes every frame.  ``sample_axis_size`` > 1 is not ported.  Under
+rank 0 writes every frame.  With ``parallel.sample_axis_size`` k > 1 the
+ranks form JAX's (data, k) grid (``parallel/mesh.py``): the k ranks of a
+sample group step on the same rows, their marches split over the group,
+and the gradients are summed over the data group; test views,
+registration and video run on the flattened 1-D mesh of all ranks, as
+JAX's Evaluator does.  Under
 ``depth_type="sphere_tracing"`` the card runs every loop eagerly (the
 sphere tracer cannot be captured), and the Trainer says so once.
 """
@@ -70,17 +75,18 @@ from nrhints_torch.utils import resolve_device, tree_items
 def global_batch_sizes(config: SystemConfig, mesh: mesh_lib.DataMesh) -> tuple[int, int]:
     """(global batch, a host's batch): ``model.batch_size``, times the world
     size under ``scale_global_batch`` (JAX's times ``len(jax.devices())``),
-    split evenly over the hosts and their ranks."""
+    split evenly over the hosts' batches and the data axis (the ranks of a
+    sample group share their rows)."""
     global_batch = config.model.batch_size
     if config.parallel.scale_global_batch:
         global_batch *= mesh.world_size
-    if global_batch % mesh.host_count:
+    if global_batch % mesh.draw_count:
         raise ValueError(f"global batch size ({global_batch}) must be divisible by the number of hosts "
-                         f"({mesh.host_count})")
-    if global_batch % mesh.world_size:
+                         f"({mesh.draw_count})")
+    if global_batch % mesh.data_size:
         raise ValueError(f"global batch size ({global_batch}) must be divisible by the number of ranks "
-                         f"({mesh.world_size})")
-    return global_batch, global_batch // mesh.host_count
+                         f"on the data axis ({mesh.data_size})")
+    return global_batch, global_batch // mesh.draw_count
 
 
 class Trainer:
@@ -127,7 +133,7 @@ class Trainer:
             training_view_num_limit=config.data.view_num_limit,
             image_idx_rng_seed=config.seed,
             pixel_idx_rng_seed=config.seed,
-            local_rank=self.mesh.host_index,
+            local_rank=self.mesh.draw_index,
         )
 
         gen = torch.Generator().manual_seed(config.seed)
@@ -542,20 +548,23 @@ def _array_to_metrics(arr) -> list:
 
 
 def devices_wanted(config: SystemConfig, device) -> int:
-    """The ranks ``parallel.data_axis_size`` asks for on ``device``: -1 is
-    every visible card on the card and one process on the CPU; more cards
-    than are visible raise ``ValueError``."""
-    n = config.parallel.data_axis_size
+    """The ranks ``parallel.data_axis_size`` x ``sample_axis_size`` ask for
+    on ``device``: a data size of -1 is every visible card's (// the sample
+    size) on the card and one on the CPU; more cards than are visible raise
+    ``ValueError``."""
+    n, k = config.parallel.data_axis_size, config.parallel.sample_axis_size
+    if k < 1:
+        raise ValueError(f"sample_axis_size must be at least 1, got {k}")
     if torch.device(device).type == "cuda":
         visible = torch.cuda.device_count()
-        n = visible if n == -1 else n
-        if n > visible:
-            raise ValueError(f"data_axis_size {n} > the {visible} visible card(s)")
+        n = visible // k if n == -1 else n
+        if n * k > visible:
+            raise ValueError(f"a {n}x{k} grid of ranks > the {visible} visible card(s)")
     elif n == -1:
         n = 1
     if n < 1:
         raise ValueError(f"data_axis_size must be -1 or at least 1, got {config.parallel.data_axis_size}")
-    return n
+    return n * k
 
 
 def _spawned_rank(rank: int, config: SystemConfig, device: str, init_method: str, world_size: int) -> None:
@@ -583,8 +592,8 @@ def launch(config: SystemConfig, device="cuda") -> Optional[Trainer]:
 
     * Under torchrun, or with ``parallel.multihost``: join the group torchrun
       describes and run this rank's trainer -> the trainer.
-    * Else, where ``data_axis_size`` resolves to more than one device: start
-      one worker a device (``torch.multiprocessing``, spawn; a ``file://``
+    * Else, where ``data_axis_size`` x ``sample_axis_size`` resolves to more
+      than one device: start one worker a device (``torch.multiprocessing``, spawn; a ``file://``
       rendezvous in the run directory; NCCL on "cuda", gloo on "cpu"),
       join them, and raise if any fails -> None, as the original launcher
       did.

@@ -194,7 +194,9 @@ def test_render_rays_card_matches_cpu(cuda):
         "sdf_stash_fwd": 0, "sdf_stash_bwd": 0, "mlp_stash_fwd": 0, "mlp_stash_bwd": 0,
         "sdf_stash_all_fwd": 0, "sdf_stash_all_bwd": 0,
         "sdf_core_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0,
-        "march_sweep": 0, "march_rounds": 0, "importance_march": 0, "shadow_march": 0}
+        "march_sweep": 0, "march_rounds": 0, "importance_march": 0, "shadow_march": 0,
+        "shadow_final_f32": 0, "march_sweep_f32": 0, "march_rounds_f32": 0, "importance_march_f32": 0,
+        "shadow_march_f32": 0}
     for k in ("rgb", "depth", "visibilities"):
         assert (getattr(card, k).cpu() - getattr(cpu, k)).abs().max().item() <= 2e-2, k
 
@@ -664,16 +666,20 @@ def test_render_rays_round4_card_matches_cpu(cuda, route):
 
 @pytest.mark.gpu
 def test_march_wrappers_raise_on_bad_inputs(cuda):
+    """Bad inputs raise; f32 march weights reach the f32 instances (values
+    against the plain f32 versions, at F32_TOL), weights of another dtype
+    raise."""
     p = sdf_init(torch.Generator().manual_seed(0), SMALL, cuda)
     o, d, z0 = _rays(cuda)
     w32, w16 = march.march_weights(p, SMALL, "float32"), march.march_weights(p, SMALL, "bfloat16")
     sdist = torch.full((o.shape[0], 1), 2.0 / 64, device=cuda)
-    with pytest.raises(NotImplementedError):
-        march.march_sweep(z0, o, d, w32, SMALL)
-    with pytest.raises(NotImplementedError):
-        march.importance_march(z0, o, d, w32, SMALL)
-    with pytest.raises(NotImplementedError):
-        march.shadow_march(z0, o, d, sdist, 64.0, 1.0, w32, SMALL)
+    _close(march.march_sweep(z0, o, d, w32, SMALL), march.march_sweep_plain(z0, o, d, w32, SMALL), F32_TOL["sdf0"])
+    _assert_z_close(march.importance_march(z0, o, d, w32, SMALL), march.importance_march_plain(z0, o, d, w32, SMALL),
+                    z0)
+    _close(march.shadow_march(z0, o, d, sdist, 64.0, 1.0, w32, SMALL),
+           march.shadow_march_plain(z0, o, d, sdist, 64.0, 1.0, w32, SMALL), F32_TOL["tau"])
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        march.march_sweep(z0, o, d, [w.double() for w in w32], SMALL)
     with pytest.raises(ValueError):
         march.march_sweep(z0[:, :32].contiguous(), o, d, w16, SMALL)
     with pytest.raises(ValueError):
@@ -682,6 +688,51 @@ def test_march_wrappers_raise_on_bad_inputs(cuda):
         march.importance_march(z0.t().contiguous().t(), o, d, w16, SMALL)
     with pytest.raises(ValueError):
         march.shadow_march(z0, o, d, sdist[:3], 64.0, 1.0, w16, SMALL)
+
+
+# The f32 instances of C, K, L, M and N against their plain f32 versions:
+# the same f32 products in another summation order (sequential FMAs against
+# the card's f32 matmul), so sdf0 differs by a few f32 ulps of the sweep's
+# sums; tau passes each sdf through sigmoid(inv_s x) and 127 log factors,
+# which multiply such differences by up to inv_s (64 here) and sum them.
+F32_TOL = {"sdf0": 1e-5, "tau": 1e-4}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("merge", ["bitonic", "rank"])
+@pytest.mark.parametrize("cfg", [SMALL, SDFNetConfig()], ids=["small", "full"])
+@pytest.mark.parametrize("n", [1, 5, 130])
+def test_march_kernels_f32_match_plain(cuda, cfg, merge, n):
+    """The f32 instances (march_dtype="float32") of K, L, M, N and C against
+    their plain f32 versions, at ray counts that fill 4-ray blocks in part;
+    L = B's steps between K's sweeps, M = L(K(.)) and N = C(M(.)) bit for
+    bit, as in bf16; one launch each, counted under the *_f32 names."""
+    p = sdf_init(torch.Generator().manual_seed(0), cfg, cuda)
+    o, d, z0 = _rays(cuda, n)
+    w = march.march_weights(p, cfg, "float32")
+    sdist = torch.full((n, 1), 2.0 / 64, device=cuda)
+    inv_s, anneal = torch.tensor(64.0, device=cuda), torch.tensor(0.7, device=cuda)
+    names = ("march_sweep_f32", "march_rounds_f32", "importance_march_f32", "shadow_march_f32", "shadow_final_f32")
+    before = dict(cuda_lib.launch_counts)
+    sdf0 = march.march_sweep(z0, o, d, w, cfg)
+    z_l = march.march_rounds(z0, sdf0, o, d, w, cfg, merge=merge)
+    z_m = march.importance_march(z0, o, d, w, cfg, merge=merge)
+    tau = march.shadow_march(z0, o, d, sdist, inv_s, anneal, w, cfg, merge=merge)
+    tau_c = march.shadow_final(z_m, o, d, sdist, inv_s, anneal, w, cfg)
+    torch.cuda.synchronize()
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in before} == {
+        k: int(k in names) for k in before}
+    assert sdf0.shape == (n, 64) and z_l.shape == z_m.shape == (n, 128) and tau.shape == (n, 1)
+    _close(sdf0, march.march_sweep_plain(z0, o, d, w, cfg), F32_TOL["sdf0"])
+    from chip_smoke import sweep16
+
+    assert torch.equal(z_l, march._rounds(w, cfg, o, d, z0, sdf0, 4, 16, 64.0, merge, march.round_machinery,
+                                          sweep16(o, d, w, cfg)))
+    _assert_z_close(z_m, march.importance_march_plain(z0, o, d, w, cfg, merge=merge), z0)
+    assert torch.equal(z_m, z_l)
+    assert torch.equal(tau, tau_c)
+    _close(tau, march.shadow_march_plain(z0, o, d, sdist, inv_s, anneal, w, cfg, merge=merge), F32_TOL["tau"])
+    _close(tau_c, march.shadow_final_plain(z_m, o, d, sdist, inv_s, anneal, w, cfg), F32_TOL["tau"])
 
 
 def _tree_to(tree, dev):

@@ -803,14 +803,15 @@ def test_chain_constants_match_the_headers():
     assert not hasattr(tcm, "TP")
 
 
-# The march template's instances by kernel: (source, SWEEP, ROUNDS, FINAL).
-# Every instance that runs the rounds is launched under both merges.
+# The march template's instances by kernel: (source, SWEEP, ROUNDS, FINAL,
+# C entry point).  Every instance that runs the rounds is launched under
+# both merges, and each has an f32 instance (<entry point>_f32).
 MARCH_INSTANCES = {
-    "C": ("march.cu", "false", "false", "true"),
-    "K": ("march_fused.cu", "true", "false", "false"),
-    "L": ("march_fused.cu", "false", "true", "false"),
-    "M": ("march_fused.cu", "true", "true", "false"),
-    "N": ("march_fused.cu", "true", "true", "true"),
+    "C": ("march.cu", "false", "false", "true", "shadow_final"),
+    "K": ("march_fused.cu", "true", "false", "false", "march_sweep"),
+    "L": ("march_fused.cu", "false", "true", "false", "march_rounds"),
+    "M": ("march_fused.cu", "true", "true", "false", "importance_march"),
+    "N": ("march_fused.cu", "true", "true", "true", "shadow_march"),
 }
 
 
@@ -818,8 +819,9 @@ MARCH_INSTANCES = {
 def test_march_kernels_run_the_row_engine(kernel):
     """Every march instance, C, K, L, M and N, runs the row engine: 4 rays on
     blocks of kRowsThreads = kChainThreads threads, every sweep through
-    mma_rows.cuh::sdf_rows (ldmatrix + mma.sync on staged slabs); no 2-ray
-    path (sdf_tile, TileSmem, MTHREADS, the WIDE template flag) is left in
+    mma_rows.cuh::sdf_rows (ldmatrix + mma.sync on staged slabs), or in its
+    f32 instance sdf_rows_f32 (fmaf on staged f32 slabs); no 2-ray path
+    (sdf_tile, TileSmem, MTHREADS, the WIDE template flag) is left in
     csrc/."""
     def const(header, name):
         return int(re.search(rf"constexpr int {name} = (\d+);", (cuda_lib.CSRC / header).read_text()).group(1))
@@ -827,15 +829,21 @@ def test_march_kernels_run_the_row_engine(kernel):
     assert const("mma_rows.cuh", "kRowsThreads") == const("staged_mma.cuh", "kChainThreads") == 4 * tm.N_BUF
     rows = (cuda_lib.CSRC / "mma_rows.cuh").read_text()
     assert "wmma::" not in rows and "mma.sync.aligned.m16n8k16" in rows and "ldmatrix.sync.aligned" in rows
+    f32 = rows[rows.index("void rows_product_f32("):rows.index("void rows_epilogue_f32(")]
+    assert "fmaf(av, w.x, acc[i][0])" in f32 and "mma" not in f32
     common = (cuda_lib.CSRC / "march_common.cuh").read_text()
-    assert "wmma::" not in common and "sdf_rows<false, 1>(S.t," in common
+    assert "wmma::" not in common and "Engine::template values<64>(S.t," in common
+    assert "sdf_rows<false, ROWS / 64>(S," in common and "sdf_rows_f32<true>(S, dir," in common
     assert "kernel<<<(b + kMarchRays - 1) / kMarchRays, kRowsThreads, smem," in common
     for path in sorted(cuda_lib.CSRC.iterdir()):
         assert not re.search(r"\bsdf_tile\b|\bTileSmem\b|\bMTHREADS\b|\bMWARPS\b|\bWIDE\b|march_rpb",
                              path.read_text()), path.name
-    src, sweep, rounds, final = MARCH_INSTANCES[kernel]
-    launches = re.findall(rf"launch_march<{sweep}, {rounds}, {final}, (true|false)>", (cuda_lib.CSRC / src).read_text())
-    assert sorted(launches) == (["false", "true"] if rounds == "true" else ["false"])
+    src, sweep, rounds, final, fn = MARCH_INSTANCES[kernel]
+    text = (cuda_lib.CSRC / src).read_text()
+    launches = re.findall(rf"launch_march<(?:F32|false|true), {sweep}, {rounds}, {final}, (true|false)>", text)
+    assert sorted(set(launches)) == (["false", "true"] if rounds == "true" else ["false"])
+    assert f'extern "C" int {fn}(' in text and f'extern "C" int {fn}_f32(' in text
+    assert fn in cuda_lib.launch_counts and f"{fn}_f32" in cuda_lib.launch_counts
 
 
 def test_round_machinery_runs_one_warp_a_ray():

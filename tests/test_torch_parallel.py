@@ -68,15 +68,17 @@ def _log_lines(run_dir) -> list:
 
 def test_mesh_without_a_group_and_rank_rows(monkeypatch):
     """No group: one rank, no backend, the single-device step.  A
-    ``data_axis_size`` other than the world size raises ``ValueError``,
-    sample-axis sharding ``NotImplementedError``.  ``shard_batch`` keeps a
+    ``data_axis_size`` other than the world size raises ``ValueError``, and
+    so does a 1 x 2 sample grid, which needs two ranks (JAX's make_mesh
+    raises ``ValueError`` for a grid larger than its devices; the grid
+    itself is tested on gloo ranks in tests/test_torch_grid.py).  ``shard_batch`` keeps a
     rank's contiguous block of its host's rows (axis 1 of a stacked
     batch), ``rank_rows`` its block of the global batch."""
     m = tmesh.make_mesh()
     assert (m.rank, m.world_size, m.host_count, m.backend, m.distributed) == (0, 1, 1, None, False)
     with pytest.raises(ValueError):
         tmesh.make_mesh(2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tmesh.make_mesh(sample_axis_size=2)
     b = torch.arange(2 * 24 * 3).reshape(2, 24, 3)
     r3 = tmesh.DataMesh(rank=3, world_size=4, local_rank=1, local_world_size=2, device=torch.device("cpu"),

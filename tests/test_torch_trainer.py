@@ -507,14 +507,15 @@ def test_entry_points_need_the_card_unless_asked(scene_dir, tmp_path):
 
 
 @pytest.mark.parametrize("parallel,error", [({"multihost": True}, ValueError), ({"data_axis_size": 2}, ValueError),
-                                            ({"sample_axis_size": 2}, NotImplementedError)],
+                                            ({"sample_axis_size": 2}, ValueError)],
                          ids=["multihost", "data_axis", "sample_axis"])
 def test_unported_settings_raise(scene_dir, tmp_path, monkeypatch, parallel, error):
-    """Sample-axis sharding is not ported; ``multihost`` without torchrun's
-    environment, and a ``data_axis_size`` other than the world size (here
-    one process in no group), raise ``ValueError`` rather than training on
-    one device.  The settings that run across ranks are tested in
-    tests/test_torch_parallel.py."""
+    """``multihost`` without torchrun's environment, a ``data_axis_size``
+    other than the world size and a 1 x 2 sample grid (here one process in
+    no group: the grid needs two ranks, as JAX's make_mesh needs two
+    devices) raise ``ValueError`` rather than training on one device.  The
+    settings that run across ranks are tested in
+    tests/test_torch_parallel.py and tests/test_torch_grid.py."""
     from nrhints_torch.parallel.mesh import TORCHRUN_ENV
 
     for v in TORCHRUN_ENV:

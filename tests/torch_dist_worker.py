@@ -224,3 +224,58 @@ def trainer_body(rank: int, world: int, out_dir, cfg, reg_steps: int) -> dict:
                     "mesh": (t.mesh.rank, t.mesh.world_size, t.mesh.host_index, t.mesh.host_count),
                     "params": {n: p.detach().clone() for n, p in tree_items(t.state.params)}}
     return out
+
+
+def grid_marches_body(rank: int, world: int, out_dir, payload: dict) -> dict:
+    """The marches on a 1 x ``world`` ('data', 'sample') grid, every rank
+    holding the same rays: the sample-sharded shadow and importance marches
+    of ``payload["cfg_off"]`` (fused_kernels="off") on the ``sharded``
+    rays, and the fused route of ``payload["cfg_on"]`` flatten-sharded over
+    the group on the ``fused`` rays (their count divides the group), each
+    beside the same march with no mesh; the rows each fused call took."""
+    from nrhints_torch.convert import params_from_jax
+    from nrhints_torch.parallel.mesh import make_mesh
+    from nrhints_torch.render import renderer as tr
+
+    mesh = make_mesh(sample_axis_size=world)
+    params = params_from_jax(payload["params"], device="cpu")
+    calls = []
+    for name in ("fused_importance_z", "fused_shadow_tau"):
+        orig = getattr(tr, name)
+
+        def rec(*a, _orig=orig, _name=name, **kw):
+            calls.append((_name, int(a[3].shape[0])))
+            return _orig(*a, **kw)
+
+        setattr(tr, name, rec)
+    out = {"mesh": (mesh.rank, mesh.world_size, mesh.data_size, mesh.data_index, mesh.sample_index)}
+    for key, cfg in (("sharded", payload["cfg_off"]), ("fused", payload["cfg_on"])):
+        pls, tp, o, d, z0 = (torch.as_tensor(a) for a in payload[key])
+        with torch.no_grad():
+            for m, tag in ((mesh, ""), (None, "_ref")):
+                out[f"{key}_tau{tag}"] = tr._shadow_transmittance(params, cfg, pls, tp, 1.0, None, m)
+                out[f"{key}_z{tag}"] = tr._importance_sample_z(params, cfg, o, d, z0, m)
+    out["calls"] = calls
+    return out
+
+
+def grid_step_body(rank: int, world: int, out_dir, payload: dict) -> dict:
+    """One train step on a 1 x ``world`` grid, every rank on the whole
+    batch with JAX's global uniforms: the metrics, every leaf's gradient
+    and the params after the step."""
+    from nrhints_torch.convert import params_from_jax
+    from nrhints_torch.core.structs import PixelBundle
+    from nrhints_torch.parallel.mesh import make_mesh
+    from nrhints_torch.train import step as tstep
+    from nrhints_torch.utils import tree_items
+
+    cfg = payload["cfg"]
+    mesh = make_mesh(sample_axis_size=world)
+    params = params_from_jax(payload["params"], device="cpu")
+    state = tstep.init_train_state(params, tstep.make_optimizer(cfg, params))
+    step_fn = tstep.make_train_step(cfg, payload["camera"], {}, state.optimizer, mesh=mesh)
+    u = {k: torch.as_tensor(v) for k, v in payload["uniforms"].items()}
+    state, metrics = step_fn(state, PixelBundle(**_tensors(payload["batch"])), uniforms=u)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {n: t.grad.detach().clone() for n, t in tree_items(state.params)},
+            "params": {n: t.detach().clone() for n, t in tree_items(state.params)}}
