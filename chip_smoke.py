@@ -97,7 +97,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    marches with no grid, 3 eager steps against the world-1 gradients;
    (b) where four cards are visible (``--chips 4``), four NCCL ranks as a
    2 x 2 grid, a K = 16 graph holding the all-gathers against its eager
-   steps.
+   steps;
+16. the SDF core at compute_dtype="float32" and stash_dtype="float32"
+   (``--core-f32``: alone): (a) A's and H's f32 instances and D's, E's and
+   their stash_all variants' instances at f32 operands and stash, f32
+   operands and a bf16 stash, and bf16 operands and an f32 stash, at phase
+   3's 65,536 points against their plain versions (D = A bit for bit; E and
+   H repeat bit for bit; f32 E against f32 H), each timed beside the bf16
+   instance's device time and its bound; (b) fused_sdf_value_feat_grad at
+   compute_dtype="float32" under each backward schedule and
+   fused_sdf_value_feat_grad_stash at f32 stashes against autograd over the
+   plain forward, with the launches of every f32 instance.
 Phase 3 also holds kernels K (initial march sweep), L (refinement rounds),
 M (K and L in one kernel) and N (M and C's final sweep in one kernel), and
 B under the rank merge, against their plain versions, L = B's steps between
@@ -191,22 +201,33 @@ ROUND4_STEPS = 5
 # 1e-4 of itself (the run prints the difference).
 RESUME_TOL = 1e-4
 # Device-time groups of a profiled view or train step: (substring of the
-# kernel's name, group), the first match wins.  A, D and H1 are the three
-# instances of the 64-point forward of csrc/sdf_fwd.cuh, E1 and H2 the two
-# of the 64-point chain of csrc/sdf_bwd.cuh; I, F and J1 the three of the
-# trunk's forward in csrc/mlp_stash.cu, whose one chain kernel is G1 in a
-# stash step and J2 in a recompute step; D's and E1's stash_all variants
-# (phase 13) are the forward's fourth instance and the chain's third.
-# NCCL's kernels (phase 11) have their own group.
+# kernel's name, group), the first match wins.  A, D and H1 are the modes
+# of the 64-point forward of csrc/sdf_fwd.cuh, E1 and H2 of the 64-point
+# chain of csrc/sdf_bwd.cuh; D's and E1's stash_all variants (phase 13) are
+# the forward's fourth mode and the chain's third (CORE_MODES, by template
+# arguments after the operand and stash types: core_group names each bf16
+# instance as before and the f32 and mixed instances of phase 16 by their
+# dtypes); I, F and J1 the three instances of the trunk's forward in
+# csrc/mlp_stash.cu, whose one chain kernel is G1 in a stash step and J2 in
+# a recompute step.  NCCL's kernels (phase 11) have their own group.
 DW_GROUP = "dW passes of E/G/H/J (dw_sum.cuh)"
 D_ALL_GROUP = "kernel D stash_all variant sdf_stash_all_fwd"
 E1_ALL_GROUP = "kernel E stash_all variant sdf_stash_all_bwd (E1)"
 TRUNK_CHAIN_GROUP = "trunk chain: G1, or J2 after J1"
+# The SDF core's kernel templates: (template, the arguments after <T, S, >)
+# -> (the bf16 instance's group, the kernel's label in an f32 or mixed
+# instance's group, core_f32_group).
+CORE_MODES = {
+    ("sdf_core_fwd_kernel", "0"): ("kernel A sdf_core_fwd", "kernel A"),
+    ("sdf_core_fwd_kernel", "1"): ("kernel D sdf_stash_fwd", "kernel D"),
+    ("sdf_core_fwd_kernel", "2"): ("kernel H, forward pass (H1)", "kernel H1"),
+    ("sdf_core_fwd_kernel", "3"): (D_ALL_GROUP, "kernel D stash_all"),
+    ("sdf_bwd_chain_kernel", "false, false"): ("kernel E sdf_stash_bwd (E1)", "kernel E1"),
+    ("sdf_bwd_chain_kernel", "true, false"): ("kernel H chain (H2)", "kernel H2"),
+    ("sdf_bwd_chain_kernel", "false, true"): (E1_ALL_GROUP, "kernel E1 stash_all"),
+}
+_CORE_KERNEL = re.compile(r"(sdf_core_fwd_kernel|sdf_bwd_chain_kernel)<([\w:]+), ([\w:]+), ([a-z0-9, ]+)>")
 STEP_GROUPS = (
-    ("sdf_core_fwd_kernel<0>", "kernel A sdf_core_fwd"), ("sdf_core_fwd_kernel<1>", "kernel D sdf_stash_fwd"),
-    ("sdf_core_fwd_kernel<2>", "kernel H, forward pass (H1)"), ("sdf_core_fwd_kernel<3>", D_ALL_GROUP),
-    ("sdf_bwd_chain_kernel<false, false>", "kernel E sdf_stash_bwd (E1)"),
-    ("sdf_bwd_chain_kernel<true, false>", "kernel H chain (H2)"), ("sdf_bwd_chain_kernel<false, true>", E1_ALL_GROUP),
     ("mlp_fwd_kernel<0>", "kernel I mlp_fwd"), ("mlp_fwd_kernel<1>", "kernel F mlp_stash_fwd"),
     ("mlp_fwd_kernel<2>", "kernel J, recompute pass (J1)"), ("mlp_bwd_chain_kernel", TRUNK_CHAIN_GROUP),
     ("dw_partial", DW_GROUP), ("dw_reduce", DW_GROUP), ("colsum", DW_GROUP),
@@ -331,9 +352,22 @@ def snapshot_err(a: dict, b: dict) -> tuple[float, str]:
     return worst, where
 
 
+def core_group(key: str) -> str | None:
+    """The group of an SDF core kernel by its name (CORE_MODES), else None:
+    the bf16 instance's group, or core_f32_group's label of an f32 or mixed
+    instance."""
+    m = _CORE_KERNEL.search(key)
+    if m is None or (m.group(1), m.group(4)) not in CORE_MODES:
+        return None
+    bf16_group, label = CORE_MODES[(m.group(1), m.group(4))]
+    t, s = ("bfloat16" if "bfloat16" in a else "float32" for a in (m.group(2), m.group(3)))
+    return bf16_group if t == s == "bfloat16" else core_f32_group(label, t, s)
+
+
 def device_groups(prof) -> dict[str, float]:
     """Device ms by group from a torch.profiler run; kernels outside
-    STEP_GROUPS count as cuBLAS or other PyTorch kernels."""
+    STEP_GROUPS and the SDF core's count as cuBLAS or other PyTorch
+    kernels."""
     import torch
 
     out: dict[str, float] = {}
@@ -341,7 +375,7 @@ def device_groups(prof) -> dict[str, float]:
         us = getattr(e, "self_device_time_total", 0.0)
         if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        g = next((label for key, label in STEP_GROUPS if key in e.key), None)
+        g = core_group(e.key) or next((label for key, label in STEP_GROUPS if key in e.key), None)
         if g is None:
             low = e.key.lower()
             g = "matmul (cuBLAS)" if ("gemm" in low or "cutlass" in low) else "other PyTorch kernels"
@@ -357,23 +391,25 @@ def profiled_groups(fn, tries: int = 3) -> dict[str, float]:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    labels = {label for _, label in STEP_GROUPS}
     for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         groups = device_groups(prof)
-        if labels & groups.keys():
+        if groups.keys() - {"matmul (cuBLAS)", "other PyTorch kernels"}:
             break
     return groups
 
 
-def kernel_device_ms(fn, group: str, tries: int = 3) -> float:
-    """``group``'s device ms in a profiled call of ``fn``: the median of the
-    ``tries`` profiled calls that record it (the profiler now and then
-    drops or splits a short window's kernels).  Raises if none records it."""
-    seen = [ms for ms in (profiled_groups(fn).get(group, 0.0) for _ in range(tries)) if ms > 0]
+def kernel_device_ms(fn, group: str | tuple, tries: int = 3) -> float:
+    """``group``'s device ms in a profiled call of ``fn`` (a tuple of groups:
+    their sum): the median of the ``tries`` profiled calls that record it
+    (the profiler now and then drops or splits a short window's kernels).
+    Raises if none records it."""
+    groups = (group,) if isinstance(group, str) else group
+    seen = [sum(g[k] for k in groups) for g in (profiled_groups(fn) for _ in range(tries))
+            if all(g.get(k, 0.0) > 0 for k in groups)]
     if not seen:
         raise RuntimeError(f"no profiled call of {tries} recorded {group!r}")
     return statistics.median(seen)
@@ -2213,6 +2249,282 @@ def march_f32_phase(smi: str, dev, mc: dict, td: dict) -> dict:
     return {"entries": [entry(fn, src, rep, launches[fn], *out[k]) for k, (fn, src, rep) in where.items()]}
 
 
+# Phase 16: the SDF core's f32 instances (compute_dtype="float32", and the
+# f32 stash of stash_dtype="float32").  Tolerances against the plain
+# versions on the card (f32 matmuls without TF32), as tests/test_torch_gpu.py
+# holds them: exact f32 dots on both sides summed in other orders, so the
+# outputs and an f32 stash within CORE_F32_TOL["out"] of max(1, scale) and
+# each gradient within CORE_F32_TOL["grad"] of its own scale; a bf16 stash
+# within TOL["sdf_stash_fwd"] (an f32 value within an ulp of a bf16 rounding
+# boundary rounds the other way), E read at the kernel's own stash on both
+# sides; the instance with bf16 operands and an f32 stash at the bf16
+# instances' TOL.  16(b)'s entry points against autograd over the plain
+# forward at the same dtype: CORE_F32_TOL at f32 operands and stash, TOL's
+# gradient tolerance where a bf16 stash or bf16 operands enter the
+# backward (autograd's backward dots run on f32 cotangents there).
+CORE_F32_TOL = {"out": 1e-5, "grad": 1e-4}
+# (compute, stash) of D's and E's instances in 16(a).
+CORE_F32_PAIRS = (("float32", "float32"), ("float32", "bfloat16"), ("bfloat16", "float32"))
+# 16(b)'s calls: (label, entry point keywords or a backward schedule).
+CORE_F32_CALLS = (
+    ("fused_sdf_value_feat_grad recompute", dict(backward="recompute")),
+    ("fused_sdf_value_feat_grad stash", dict(backward="stash")),
+    ("fused_sdf_value_feat_grad stash_all", dict(backward="stash_all")),
+    ("fused_sdf_value_feat_grad stash_xla", dict(backward="stash_xla")),
+    ("fused_sdf_value_feat_grad_stash f32/f32", dict(stash_dtype="float32")),
+    ("fused_sdf_value_feat_grad_stash f32/f32 stash_us", dict(stash_dtype="float32", stash_us=True)),
+    ("fused_sdf_value_feat_grad_stash bf16/f32", dict(compute_dtype="bfloat16", stash_dtype="float32")),
+    ("fused_sdf_value_feat_grad_stash bf16/f32 stash_us", dict(compute_dtype="bfloat16", stash_dtype="float32",
+                                                              stash_us=True)),
+)
+
+
+def core_f32_group(kernel: str, compute: str, stash: str | None) -> str:
+    """The STEP_GROUPS label of an SDF core instance: the kernel's label,
+    then the instance's dtypes (f32 operands and stash, or the mixed pair)."""
+    return f"{kernel} {compute}/{stash or compute}"
+
+
+def core_f32_kernels(smi: str, dev, mc: dict) -> dict:
+    """Phase 16(a): at phase 3's 65,536 points and the full nr-hints width,
+    A's and H's f32 instances and D's, E's and their stash_all variants'
+    instances at each CORE_F32_PAIRS pair against their plain versions; D's
+    outputs equal A's at the same operand dtype bit for bit; E and H repeat
+    bit for bit and E's dx is the same without its dW passes; f32 E against
+    f32 H.  Each timed by CUDA events beside its plain version and by device
+    time (the median of the profiled calls that record it) beside the bf16
+    instance's in this call and its bound.  -> {instance name: (max abs err,
+    ms, plain ms, bound ms, bound by)}."""
+    import numpy as np
+    import torch
+
+    from nrhints_torch.fields.sdf import _layer_dims
+    from nrhints_torch.kernels import core_mlp, core_stash
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, aw, scfg = mc["x"], mc["aw"], mc["cfg"].model.sdf_network
+    n_pts, n_w, L = x.shape[0], sum(w.numel() for w in aw), scfg.n_layers
+    io, dims = _layer_dims(scfg)
+    hidden, d_last, d_feat = sum(i * o_ for i, o_ in io), dims[-2], scfg.d_out_feat
+    crng = np.random.default_rng(5)
+    cots = tuple(torch.tensor(crng.normal(size=shape).astype(np.float32), device=dev)
+                 for shape in ((n_pts,), (n_pts, d_feat), (n_pts, 3)))
+    io_bytes = n_pts * 4 * (3 + 1 + d_feat + 3)  # x in; sdf, feat and grad out (the cotangents and dx alike)
+    fwd_flops = 2.0 * n_pts * (2 * hidden + d_last * (1 + d_feat))
+    bwd_flops = {False: 2.0 * n_pts * (5 * hidden + 2 * d_last * d_feat + 2 * d_last),
+                 True: 2.0 * n_pts * (4 * hidden + 2 * d_last * d_feat + 2 * d_last)}
+
+    def size(dt):
+        return 4 if dt == "float32" else 2
+
+    def peak(compute):
+        return H100_F32_FLOPS if compute == "float32" else H100_BF16_FLOPS
+
+    out, bf16_dev = {}, {}
+
+    def record(name, checks, fn, plain_fn, group, bf16_fn, bf16_group, bd):
+        """Time an instance and log it; checks: (what, (abs err, rel err),
+        tol) against the plain version."""
+        ms, plain_ms = cuda_ms(fn, 10), cuda_ms(plain_fn, 3, warmup=1)
+        dev_ms = kernel_device_ms(fn, group)
+        if bf16_group not in bf16_dev:
+            bf16_dev[bf16_group] = kernel_device_ms(bf16_fn, bf16_group)
+        out[name] = (max(e[0] for _, e, _ in checks), ms, plain_ms, bd[0], bd[1])
+        errs = "; ".join(f"{what} {e[0]:.3e} (rel {e[1]:.3e}, tol {tol})" for what, e, tol in checks)
+        log(f"[16(a) {name}] N={n_pts}: max abs err against its plain version: {errs}; {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms; device time {dev_ms:.4f} ms against the bf16 instance's {bf16_dev[bf16_group]:.4f} "
+            f"ms in this call; bound {bd[0]:.4f} ms ({bd[1]}), {dev_ms / bd[0]:.2f}x it; on {smi}")
+        for what, e, tol in checks:
+            if not e[1] <= tol:
+                raise AssertionError(f"16(a): {name}'s {what} disagree with its plain version: rel {e[1]:.3e} "
+                                     f"(tol {tol})")
+
+    # A.
+    a32 = core_mlp.sdf_core_fwd(aw, x, scfg, compute_dtype="float32")
+    a16 = core_mlp.sdf_core_fwd(aw, x, scfg)
+    record("sdf_core_fwd_f32",
+           [("outputs", max_err(a32, core_mlp.sdf_core_plain(aw, x, scfg, "float32")), CORE_F32_TOL["out"])],
+           lambda: core_mlp.sdf_core_fwd(aw, x, scfg, compute_dtype="float32"),
+           lambda: core_mlp.sdf_core_plain(aw, x, scfg, "float32"), core_f32_group("kernel A", "float32", None),
+           lambda: core_mlp.sdf_core_fwd(aw, x, scfg), "kernel A sdf_core_fwd",
+           bound(fwd_flops, io_bytes + 4 * n_w, H100_F32_FLOPS))
+
+    # D, E and their stash_all variants at each pair.
+    e_f32 = None
+    for us in (False, True):
+        width = core_stash.sdf_stash_width(scfg, us)
+        cols = core_stash.sdf_stash_columns(scfg, us)
+        fwd, bwd = ("sdf_stash_all_fwd", "sdf_stash_all_bwd") if us else ("sdf_stash_fwd", "sdf_stash_bwd")
+        d_label, e_label = ("kernel D stash_all", "kernel E1 stash_all") if us else ("kernel D", "kernel E1")
+        d16_group = D_ALL_GROUP if us else "kernel D sdf_stash_fwd"
+        e16_group = E1_ALL_GROUP if us else "kernel E sdf_stash_bwd (E1)"
+        d16 = core_stash.sdf_stash_fwd(aw, x, scfg, stash_us=us)
+        for compute, stash_dt in CORE_F32_PAIRS:
+            kw = dict(stash_us=us, compute_dtype=compute, stash_dtype=stash_dt)
+            out_tol = CORE_F32_TOL["out"] if compute == "float32" else TOL["sdf_stash_fwd"]
+            stash_tol = out_tol if stash_dt == "float32" else TOL["sdf_stash_fwd"]
+            grad_tol = CORE_F32_TOL["grad"] if compute == "float32" else TOL["sdf_stash_bwd"]
+            d_out = core_stash.sdf_stash_fwd(aw, x, scfg, **kw)
+            a_same = a32 if compute == "float32" else a16
+            if not all(torch.equal(u, v) for u, v in zip(d_out[:3], a_same)):
+                raise AssertionError(f"16(a): {fwd} at {compute}/{stash_dt}: outputs differ from kernel A's")
+            plain = core_stash.sdf_core_fwd_hs_plain(aw, x, scfg, compute, stash_dt, return_us=us)
+            parts = core_stash.split_stash(d_out[3], cols)
+            checks = [("outputs", max_err(d_out[:3], plain[:3]), out_tol),
+                      ("stash", max_err(parts, [*plain[3], *plain[4], plain[5]] if us else plain[3]), stash_tol)]
+            del plain
+            name = core_mlp.instance_name(fwd, compute, stash_dt)
+            record(name, checks, lambda: core_stash.sdf_stash_fwd(aw, x, scfg, **kw),
+                   lambda: core_stash.sdf_core_fwd_hs_plain(aw, x, scfg, compute, stash_dt, return_us=us),
+                   core_f32_group(d_label, compute, stash_dt),
+                   lambda: core_stash.sdf_stash_fwd(aw, x, scfg, stash_us=us), d16_group,
+                   bound(fwd_flops, io_bytes + n_pts * width * size(stash_dt) + size(compute) * n_w, peak(compute)))
+
+            e_dws, e_dx = core_stash.sdf_stash_bwd(aw, x, d_out[3], cots, scfg, **kw)
+            e2_dws, e2_dx = core_stash.sdf_stash_bwd(aw, x, d_out[3], cots, scfg, **kw)
+            none, dx_only = core_stash.sdf_stash_bwd(aw, x, d_out[3], cots, scfg, need_dw=False, **kw)
+            bwd_name = core_mlp.instance_name(bwd, compute, stash_dt)
+            if not (torch.equal(e_dx, e2_dx) and all(torch.equal(u, v) for u, v in zip(e_dws, e2_dws))):
+                raise AssertionError(f"16(a): {bwd_name}'s gradients differ between two runs")
+            if none is not None or not torch.equal(dx_only, e_dx):
+                raise AssertionError(f"16(a): {bwd_name} without its dW passes gives another dx")
+            del e2_dws, e2_dx, dx_only
+
+            def e_plain(parts=parts, compute=compute, us=us):
+                if us:
+                    return core_stash.sdf_core_bwd_stash_all_plain(aw, x, parts[:L], parts[L : 2 * L], parts[2 * L],
+                                                                   cots, scfg, compute)
+                return core_stash.sdf_core_bwd_stash_plain(aw, x, parts, cots, scfg, compute)
+
+            p_dws, p_dx = e_plain()
+            err = grad_err([e_dx, *e_dws], [p_dx, *p_dws])
+            del p_dws, p_dx
+            if (compute, stash_dt, us) == ("float32", "float32", False):
+                e_f32 = (e_dx, e_dws)
+            del e_dws, e_dx
+            record(bwd_name, [("gradients", err, grad_tol)],
+                   lambda: core_stash.sdf_stash_bwd(aw, x, d_out[3], cots, scfg, **kw),
+                   e_plain, (core_f32_group(e_label, compute, stash_dt), DW_GROUP),
+                   lambda: core_stash.sdf_stash_bwd(aw, x, d16[3], cots, scfg, stash_us=us), (e16_group, DW_GROUP),
+                   bound(bwd_flops[us], io_bytes + n_pts * width * size(stash_dt) + (size(compute) + 4) * n_w,
+                         peak(compute)))
+            del d_out, parts
+        del d16
+
+    # H, and f32 E against f32 H.
+    h_dws, h_dx = core_mlp.sdf_core_bwd(aw, x, cots, scfg, compute_dtype="float32")
+    h2_dws, h2_dx = core_mlp.sdf_core_bwd(aw, x, cots, scfg, compute_dtype="float32")
+    if not (torch.equal(h_dx, h2_dx) and all(torch.equal(u, v) for u, v in zip(h_dws, h2_dws))):
+        raise AssertionError("16(a): sdf_core_bwd_f32's gradients differ between two runs")
+    del h2_dws, h2_dx
+    hp_dws, hp_dx = core_mlp.sdf_core_bwd_plain(aw, x, cots, scfg, "float32")
+    err = grad_err([h_dx, *h_dws], [hp_dx, *hp_dws])
+    del hp_dws, hp_dx
+    he = grad_err([e_f32[0], *e_f32[1]], [h_dx, *h_dws])[1]
+    h16 = core_mlp.sdf_core_bwd(aw, x, cots, scfg)
+    e16 = core_stash.sdf_stash_bwd(aw, x, core_stash.sdf_stash_fwd(aw, x, scfg)[3], cots, scfg)
+    he16 = grad_err([e16[1], *e16[0]], [h16[1], *h16[0]])[1]
+    del h_dws, h_dx, h16, e16, e_f32
+    record("sdf_core_bwd_f32", [("gradients", err, CORE_F32_TOL["grad"])],
+           lambda: core_mlp.sdf_core_bwd(aw, x, cots, scfg, compute_dtype="float32"),
+           lambda: core_mlp.sdf_core_bwd_plain(aw, x, cots, scfg, "float32"),
+           tuple(core_f32_group(k, "float32", None) for k in ("kernel H1", "kernel H2")) + (DW_GROUP,),
+           lambda: core_mlp.sdf_core_bwd(aw, x, cots, scfg),
+           ("kernel H, forward pass (H1)", "kernel H chain (H2)", DW_GROUP), bound(bwd_flops[False] + 2.0 * n_pts * hidden, io_bytes + 8 * n_w, H100_F32_FLOPS))
+    log(f"[16(a)] E's f32 instance (f32 stash) against H's f32 instance: {he:.3e} of each gradient's scale; the bf16 "
+        f"instances E against H: {he16:.3e} (E's gates 1 - exp(-100 h) of the stash, H's sigmoid(100 z): equal in "
+        f"exact arithmetic, so the f32 pair differs by rounding and the bf16 pair by bf16's)")
+    return out
+
+
+def core_f32_phase(smi: str, dev, mc: dict) -> list:
+    """Phase 16, the SDF core at compute_dtype="float32" and
+    stash_dtype="float32": (a) every f32 instance at phase 3's shapes
+    (``core_f32_kernels``); (b) the entry points a user calls, at the same
+    65,536 points with the nr-hints weight-norm params:
+    ``fused_sdf_value_feat_grad(compute_dtype="float32")`` under each
+    backward schedule and ``fused_sdf_value_feat_grad_stash`` at f32 stashes
+    (CORE_F32_CALLS), each against torch.autograd over ``sdf_core_plain`` at
+    its operand dtype: the outputs, and the gradients of x and of every
+    weight-norm leaf at random cotangents; the launch counts, set to 0
+    before (b) and read after, show that every f32 instance ran and no bf16
+    core instance did.  -> the kernels line's entries of the f32
+    instances, their launches (b)'s."""
+    import numpy as np
+    import torch
+
+    from nrhints_torch.kernels import core_mlp, core_stash, cuda_lib
+    from nrhints_torch.utils import tree_items
+
+    t_phase = time.perf_counter()
+    nums = core_f32_kernels(smi, dev, mc)
+    scfg, x = mc["cfg"].model.sdf_network, mc["x"]
+    n_pts = x.shape[0]
+    leaves = {n: t.detach().clone().requires_grad_(True) for n, t in tree_items(mc["renderer_params"]["sdf"])}
+    params = {}
+    for name, t in leaves.items():
+        layer, key = name.strip("/").split("/")
+        params.setdefault(layer, {})[key] = t
+    crng = np.random.default_rng(7)
+    cots = [torch.tensor(crng.normal(size=s).astype(np.float32), device=dev)
+            for s in ((n_pts,), (n_pts, scfg.d_out_feat), (n_pts, 3))]
+    refs = {}
+    for compute in ("float32", "bfloat16"):
+        xr = x.detach().clone().requires_grad_(True)
+        o = core_mlp.sdf_core_plain(core_mlp.materialize_sdf_weights_full(params, scfg), xr, scfg, compute)
+        refs[compute] = ([t.detach() for t in o], torch.autograd.grad(o, [xr, *leaves.values()], cots))
+        del o
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    with torch.no_grad():
+        nograd = core_mlp.fused_sdf_value_feat_grad(params, scfg, x, compute_dtype="float32")
+    e = max_err(nograd, refs["float32"][0])
+    results = [("fused_sdf_value_feat_grad, no gradient", e[1], 0.0, CORE_F32_TOL["out"], 0.0)]
+    for label, kw in CORE_F32_CALLS:
+        compute = kw.get("compute_dtype", "float32")
+        stash_dt = kw.get("stash_dtype", None if kw.get("backward") == "recompute" else "bfloat16")
+        xx = x.detach().clone().requires_grad_(True)
+        if "backward" in kw:
+            o = core_mlp.fused_sdf_value_feat_grad(params, scfg, xx, compute_dtype="float32", **kw)
+        else:
+            o = core_stash.fused_sdf_value_feat_grad_stash(params, scfg, xx, **dict(dict(compute_dtype="float32"),
+                                                                                     **kw))
+        g = torch.autograd.grad(o, [xx, *leaves.values()], cots)
+        ref_o, ref_g = refs[compute]
+        exact = compute == "float32" and stash_dt in (None, "float32")
+        out_tol = CORE_F32_TOL["out"] if compute == "float32" else TOL["sdf_core_fwd"]
+        grad_tol = CORE_F32_TOL["grad"] if exact else TOL["sdf_stash_bwd"]
+        results.append((label, max_err(o, ref_o)[1], grad_err(g, ref_g)[1], out_tol, grad_tol))
+        del o, g
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launch_counts)
+    for label, oe, ge, ot, gt_ in results:
+        log(f"[16(b) {label}] N={n_pts}: outputs {oe:.3e} of max(1, scale) (tol {ot}), gradients of x and the "
+            f"weight-norm leaves {ge:.3e} of each scale (tol {gt_}) against autograd over sdf_core_plain")
+        if not (oe <= ot and ge <= gt_):
+            raise AssertionError(f"16(b): {label} disagrees with autograd: outputs {oe:.3e}, gradients {ge:.3e}")
+    ran = {k: v for k, v in launches.items() if v}
+    want = {"sdf_core_fwd_f32": 2, "sdf_core_bwd_f32": 1, "sdf_stash_fwd_f32_bf16stash": 2,
+            "sdf_stash_bwd_f32_bf16stash": 1, "sdf_stash_all_fwd_f32_bf16stash": 1,
+            "sdf_stash_all_bwd_f32_bf16stash": 1, "sdf_stash_fwd_f32": 1, "sdf_stash_bwd_f32": 1,
+            "sdf_stash_all_fwd_f32": 1, "sdf_stash_all_bwd_f32": 1, "sdf_stash_fwd_f32stash": 1,
+            "sdf_stash_bwd_f32stash": 1, "sdf_stash_all_fwd_f32stash": 1, "sdf_stash_all_bwd_f32stash": 1}
+    log(f"[16(b)] launches of the entry points' run: {ran}")
+    if ran != want:
+        raise AssertionError(f"16(b): launches {ran}, expected {want}")
+    log(f"[16] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    where = {"sdf_core_fwd": ("sdf_core.cu", "core_mlp.py:227"), "sdf_core_bwd": ("sdf_core_bwd.cu", "core_mlp.py:260"),
+             "sdf_stash_fwd": ("sdf_core.cu", "core_stash.py:369"), "sdf_stash_all_fwd": ("sdf_core.cu",
+                                                                                         "core_stash.py:369"),
+             "sdf_stash_bwd": ("sdf_stash.cu", "core_stash.py:422"), "sdf_stash_all_bwd": ("sdf_stash.cu",
+                                                                                          "core_stash.py:422")}
+    entries = []
+    for name, num in nums.items():
+        base = re.sub(r"_f32.*$", "", name)
+        entries.append(entry(name, *where[base], launches[name], *num))
+    return entries
+
+
 # Phase 15: sample-axis sharding.  (a) two gloo ranks on this card as a 1 x 2
 # ('data', 'sample') grid (LOCAL_WORLD_SIZE=1, so both take cuda:0: NCCL
 # refuses two ranks on one card), SAMPLE_EAGER_STEPS eager steps under the
@@ -2519,6 +2831,12 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return 0
 
+    if sys.argv[1:] == ["--core-f32"]:  # phase 16 alone, after the build
+        entries = core_f32_phase(smi, dev, march_chunk(dev))
+        print(json.dumps({"kernels": entries}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+        return 0
+
     if sys.argv[1:] == ["--sample-axis"]:  # phase 15 alone, after the build
         import tempfile
 
@@ -2531,7 +2849,7 @@ def main() -> int:
 
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}; flags: --data-parallel, --offpath, --stash-all, "
-              f"--march-f32, --sample-axis", file=sys.stderr)
+              f"--march-f32, --sample-axis, --core-f32", file=sys.stderr)
         return 2
 
     # 3. Kernels at the main path's shapes: one 512-ray chunk of the view.
@@ -3273,6 +3591,9 @@ def main() -> int:
         sample_axis_phase(smi, dev, td15, [td15["next_batch"]() for _ in range(max(SAMPLE_K, TRAIN_WARMUP))],
                           Path(tmp))
 
+    # 16. The SDF core at compute_dtype="float32" and stash_dtype="float32".
+    core_f32 = core_f32_phase(smi, dev, mc)
+
     kernels = [
         entry("sdf_core_fwd", "sdf_core.cu", "core_mlp.py:227", launches["sdf_core_fwd"], a_abs, a_ms, a_plain_ms,
               a_bound, a_by),
@@ -3304,6 +3625,7 @@ def main() -> int:
               n_ms, n_plain_ms, n_bound, n_by),
         *stash_all_entries(sa),
         *f32["entries"],
+        *core_f32,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -32,8 +32,12 @@ class ParallelConfig:
     (``train/trainer.py::launch``); under torchrun it must equal
     torchrun's world size."""
     sample_axis_size: int = 1
-    """A second axis sharding the shadow march's samples (JAX's 'sample'
-    axis): not ported; above 1 it raises."""
+    """Ranks on the 'sample' axis (JAX's): above 1 the ranks form a
+    (data, sample) grid (``parallel/mesh.py::make_mesh``), each sample group
+    of this many ranks splitting the marches' samples (or, on the fused
+    route, its rays) and all-gathering them, and the gradients summed over
+    the data group; the world size must be this times the 'data' axis's
+    ranks."""
     scale_global_batch: bool = False
     """If True, global batch = batch_size * world size (the original code
     keeps the global batch constant whatever the world size; that is the

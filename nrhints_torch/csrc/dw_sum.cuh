@@ -21,6 +21,16 @@
 // from shared memory with padded strides.  An operand row is read once per
 // 128-column output tile on the other side: twice for the 256-wide
 // products of kernels E and H.
+//
+// The f32 instances of E and H (compute_dtype="float32") leave f32
+// operands in an f32 scratch: dw_partial_f32_kernel computes the same
+// tiles of the same row chunks with one fmaf a multiply-add, rows in order,
+// 256 threads of 8 x 8 outputs each (rows 4 ty .. +3 and 64 + 4 ty .. +3 of
+// the tile, columns 4 tx .. +3 and 64 + 4 tx .. +3, ty = t / 16, tx =
+// t % 16), from a three-stage ring of 32-row f32 slabs (96 KB); each row of
+// a slab gives a thread two float4 of A^T's column and two of B's for 64
+// FMAs.  dw_reduce_kernel and colsum_kernel are shared, so the f32
+// gradients too repeat bit for bit.
 #pragma once
 
 #include "staged_mma.cuh"
@@ -150,6 +160,93 @@ __global__ void __launch_bounds__(256)
         wmma::store_matrix_sync(C + (size_t)(kw + 16 * i) * nb + nw + 16 * f, acc[i][f], nb, wmma::mem_row_major);
 }
 
+constexpr int kDwSlabF32 = 32;  // rows of an f32 ring slab
+constexpr size_t kDwSmemF32 = (size_t)kDwStages * 2 * kDwSlabF32 * kDwTile * sizeof(float);
+
+__global__ void __launch_bounds__(256)
+    dw_partial_f32_kernel(const float* __restrict__ scratch, float* __restrict__ part, const DwJobs jobs, int split) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);  // [stage][A slab, B slab][kDwSlabF32][kDwTile]
+  const int tile = blockIdx.x, s = blockIdx.y;
+  int j = 0;
+  while (j + 1 < jobs.n && tile >= jobs.tile_start[j + 1]) ++j;
+  const int t = tile - jobs.tile_start[j];
+  const int k0 = (t / jobs.tiles_n[j]) * kDwTile, n0 = (t % jobs.tiles_n[j]) * kDwTile;
+  const int ka = jobs.ka[j], nb = jobs.nb[j], rows = jobs.rows[j];
+  const int chunk = ((rows + split - 1) / split + 15) / 16 * 16;
+  const int r0 = s * chunk, r1 = min(rows, r0 + chunk);
+  const int nsl = r1 > r0 ? (r1 - r0 + kDwSlabF32 - 1) / kDwSlabF32 : 0;
+  const float* A = scratch + jobs.a_off[j];
+  const float* B = scratch + jobs.b_off[j];
+  float* C = part + (size_t)s * jobs.n_dw + jobs.c_off[j];
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+
+  // Slab q: rows r0 + 32 q .. of A's columns k0.. and B's columns n0..,
+  // 32 copies of 16 bytes per row and operand.
+  auto load = [&](int q) {
+    float* As = ring + (q % kDwStages) * 2 * kDwSlabF32 * kDwTile;
+    float* Bs = As + kDwSlabF32 * kDwTile;
+    for (int idx = tid; idx < 2 * kDwSlabF32 * (kDwTile / 4); idx += 256) {
+      const int op = idx / (kDwSlabF32 * (kDwTile / 4)), rem = idx % (kDwSlabF32 * (kDwTile / 4));
+      const int r = rem / (kDwTile / 4), c = (rem % (kDwTile / 4)) * 4, gr = r0 + q * kDwSlabF32 + r;
+      if (gr >= r1) continue;
+      if (op == 0) {
+        if (k0 + c < ka) cp_async16(As + r * kDwTile + c, A + (size_t)gr * ka + k0 + c);
+      } else if (n0 + c < nb) {
+        cp_async16(Bs + r * kDwTile + c, B + (size_t)gr * nb + n0 + c);
+      }
+    }
+  };
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int f = 0; f < 8; ++f) acc[i][f] = 0.0f;
+#pragma unroll
+  for (int q = 0; q < kDwStages - 1; ++q) {
+    if (q < nsl) load(q);
+    cp_async_commit();
+  }
+  for (int q = 0; q < nsl; ++q) {
+    cp_async_wait<kDwStages - 2>();
+    __syncthreads();
+    if (q + kDwStages - 1 < nsl) load(q + kDwStages - 1);
+    cp_async_commit();
+    const float* As = ring + (q % kDwStages) * 2 * kDwSlabF32 * kDwTile;
+    const float* Bs = As + kDwSlabF32 * kDwTile;
+    const int nr = min(kDwSlabF32, r1 - r0 - q * kDwSlabF32);
+    for (int r = 0; r < nr; ++r) {
+      float a[8], b[8];
+      ld_f4(As + r * kDwTile + 4 * ty, a);
+      ld_f4(As + r * kDwTile + 64 + 4 * ty, a + 4);
+      ld_f4(Bs + r * kDwTile + 4 * tx, b);
+      ld_f4(Bs + r * kDwTile + 64 + 4 * tx, b + 4);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int f = 0; f < 8; ++f) acc[i][f] = fmaf(a[i], b[f], acc[i][f]);
+    }
+  }
+  cp_async_wait<0>();
+  // Output rows and columns past ka or nb are not stored: ka and nb are
+  // multiples of 16, so each group of 4 lies wholly inside or outside.
+#pragma unroll
+  for (int i = 0; i < 8; i += 4) {
+    const int k = k0 + (i ? 64 : 0) + 4 * ty;
+    if (k >= ka) continue;
+#pragma unroll
+    for (int f = 0; f < 8; f += 4) {
+      const int col = n0 + (f ? 64 : 0) + 4 * tx;
+      if (col >= nb) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v[4] = {acc[i + e][f], acc[i + e][f + 1], acc[i + e][f + 2], acc[i + e][f + 3]};
+        st_f4(C + (size_t)(k + e) * nb + col, v);
+      }
+    }
+  }
+}
+
 __global__ void dw_reduce_kernel(const float* __restrict__ part, int split, long long n_dw, float* __restrict__ dw) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n_dw) return;
@@ -178,14 +275,25 @@ __global__ void colsum_kernel(const float* __restrict__ part, int nrows, int nco
 
 // The three passes on `stream`; returns the first launch error.  split = 0
 // launches none of them: no weight cotangent is wanted (registration's
-// backward through the rays), and part_dw, dw and colsum may be null.
-inline int launch_dw_sums(const bf16* scratch, float* part_dw, float* dw, const DwJobs& jobs, int split,
+// backward through the rays), and part_dw, dw and colsum may be null.  The
+// scratch's type picks the partial products' kernel: bf16 WMMA, or f32.
+template <typename T>
+inline int launch_dw_sums(const T* scratch, float* part_dw, float* dw, const DwJobs& jobs, int split,
                           const float* partial, int nblk, int pw, float* colsum, cudaStream_t stream) {
   if (split < 0) return (int)cudaErrorInvalidValue;
   if (split == 0) return 0;
-  int rc = (int)cudaFuncSetAttribute(dw_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDwSmem);
-  if (rc) return rc;
-  dw_partial_kernel<<<dim3(jobs.tile_start[jobs.n], split), 256, kDwSmem, stream>>>(scratch, part_dw, jobs, split);
+  const dim3 grid(jobs.tile_start[jobs.n], split);
+  int rc;
+  if constexpr (std::is_same<T, float>::value) {
+    rc = (int)cudaFuncSetAttribute(dw_partial_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)kDwSmemF32);
+    if (rc) return rc;
+    dw_partial_f32_kernel<<<grid, 256, kDwSmemF32, stream>>>(scratch, part_dw, jobs, split);
+  } else {
+    rc = (int)cudaFuncSetAttribute(dw_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDwSmem);
+    if (rc) return rc;
+    dw_partial_kernel<<<grid, 256, kDwSmem, stream>>>(scratch, part_dw, jobs, split);
+  }
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   dw_reduce_kernel<<<(unsigned)((jobs.n_dw + 255) / 256), 256, 0, stream>>>(part_dw, split, jobs.n_dw, dw);

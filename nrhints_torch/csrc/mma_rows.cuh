@@ -43,6 +43,11 @@
 //   float4 (one address a warp: a broadcast) and 4 float4 of the slab (512
 //   consecutive bytes a warp) for 128 FMAs.  In dual mode a thread's rows
 //   are 4 sections and their 4 tangent rows, so the gate stays in registers.
+// * The SDF core's f32 instances (kernels A, D, E and H at
+//   compute_dtype="float32": sdf_fwd.cuh, sdf_bwd.cuh) run their 64-point
+//   products on rows_product_f32 too, through gemm_rows64's f32 overload at
+//   the end of this file, with a ring of kChainStagesF32 stages.
+#pragma once
 
 #include "staged_mma.cuh"
 
@@ -259,10 +264,12 @@ struct RowsSmemF32 {
 };
 
 // Issue (and commit, as one group) the copy of k-slab s of the row-major f32
-// [K, N] weight B into ring stage s % kChainStages; an empty group past K.
+// [K, N] weight B into ring stage s % STAGES; an empty group past K.  The
+// march's ring has kChainStages stages, the SDF core's f32 chain two.
+template <int STAGES = kChainStages>
 __device__ __forceinline__ void stage_slab_f32(const float* __restrict__ B, int K, int N, float* ring, int s) {
   const int tid = threadIdx.x, k0 = s * kSlabF32, cpr = N / 4;
-  float* dst = ring + (s % kChainStages) * kRingStageF32;
+  float* dst = ring + (s % STAGES) * kRingStageF32;
   if (k0 < K) {
     for (int idx = tid; idx < kSlabF32 * cpr; idx += kRowsThreads) {
       const int r = idx / cpr, c = (idx % cpr) * 4;
@@ -272,9 +279,10 @@ __device__ __forceinline__ void stage_slab_f32(const float* __restrict__ B, int 
   cp_async_commit();
 }
 
+template <int STAGES = kChainStages>
 __device__ __forceinline__ void stage_first_slabs_f32(const float* __restrict__ B, int K, int N, float* ring) {
 #pragma unroll
-  for (int s = 0; s < kChainStages - 1; ++s) stage_slab_f32(B, K, N, ring, s);
+  for (int s = 0; s < STAGES - 1; ++s) stage_slab_f32<STAGES>(B, K, N, ring, s);
 }
 
 // Row i (0-7) of row group g (0-7): dual mode, sections 4 g .. +3 and their
@@ -288,7 +296,7 @@ __device__ __forceinline__ int f32_row(int g, int i) {
 // where they lie past np), after stage_first_slabs_f32(W, kp, np, ring).
 // Every thread must call it; it begins with a barrier and returns with the
 // ring free and every thread past its last read of A.
-template <bool DUAL>
+template <bool DUAL, int STAGES = kChainStages>
 __device__ __forceinline__ void rows_product_f32(const float* A, const float* __restrict__ W, int kp, int np,
                                                  float* ring, float (&acc)[8][4]) {
   const int g = threadIdx.x >> 6, c0 = (threadIdx.x & 63) * 4;
@@ -298,10 +306,10 @@ __device__ __forceinline__ void rows_product_f32(const float* A, const float* __
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
   const int nslab = (kp + kSlabF32 - 1) / kSlabF32;
   for (int s = 0; s < nslab; ++s) {
-    cp_async_wait<kChainStages - 2>();
+    cp_async_wait<STAGES - 2>();
     __syncthreads();
-    stage_slab_f32(W, kp, np, ring, s + kChainStages - 1);
-    const float* Ws = ring + (s % kChainStages) * kRingStageF32 + c0;
+    stage_slab_f32<STAGES>(W, kp, np, ring, s + STAGES - 1);
+    const float* Ws = ring + (s % STAGES) * kRingStageF32 + c0;
     const int kend = min(kSlabF32, kp - s * kSlabF32);
     if (c0 < np) {
       for (int kk = 0; kk < kend; kk += 4) {
@@ -413,6 +421,60 @@ __device__ void sdf_rows_f32(RowsSmemF32& S, const float* dir, const float* __re
     if (lane == 0) S.sdf[r] = DUAL && r >= kPts ? s / scale : (s + b_sdf) / scale;
   }
   __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// gemm_rows64's f32 overload: the products of the SDF core's f32 instances
+
+// The f32 chain's ring: two stages of kSlabF32 f32 k-rows (64 KB); with its
+// f32 activation and carry tiles and the encoding, a 64-point block of the
+// forward needs 215,040 bytes, the backward chain 215,296 (sdf_fwd.cuh,
+// sdf_bwd.cuh), where three stages would need 247,808.
+constexpr int kChainStagesF32 = 2;
+
+// The dtypes argument of the SDF core's C entry points: bit 0 selects f32
+// dot operands (compute_dtype="float32"), bit 1 an f32 stash
+// (stash_dtype="float32"); core_mlp.py::dtype_bits writes it.
+constexpr int kF32Compute = 1, kF32Stash = 2;
+
+// The SDF core's shared-memory layout by operand type: the activation
+// tile's row stride and the ring's elements of T.
+template <typename T>
+struct CoreTile;
+template <>
+struct CoreTile<bf16> {
+  static constexpr int kLdAct = kLdA, kRing = kChainStages * kRingStage;
+};
+template <>
+struct CoreTile<float> {
+  static constexpr int kLdAct = kLdZ, kRing = kChainStagesF32 * kRingStageF32;
+};
+
+// stage_first_slabs with f32 operands: B is the row-major [K, N] f32 block
+// (row stride N; ldb is not read).  A reverse-sweep product, which the bf16
+// instances read as the transpose of the [N, K] weight, reads the weight's
+// own transposed block of the f32 pack (core_mlp.pack_sdf_mlp's wtpack).
+template <bool TRANS_B>
+__device__ __forceinline__ void stage_first_slabs(const float* __restrict__ B, int ldb, int K, int N, float* ring) {
+  stage_first_slabs_f32<kChainStagesF32>(B, K, N, ring);
+}
+
+// C[64, N] = A[64, K] @ B with f32 operands (exact f32 dots: one fmaf a
+// multiply-add in k order, as sdf_core_ref computes with cdt=None), after
+// stage_first_slabs with the same arguments.  A is an f32 tile of row
+// stride kLdZ (lda is not read), B the row-major [K, N] block as above.
+// The same contract as the bf16 gemm_rows64: every thread calls it, it
+// begins with a barrier and returns with the ring free; C is complete after
+// the caller's next __syncthreads().
+template <bool TRANS_B>
+__device__ void gemm_rows64(const float* A, int lda, const float* __restrict__ B, int ldb, int K, int N, float* C,
+                            int ldc, float* ring) {
+  float acc[8][4];
+  rows_product_f32<false, kChainStagesF32>(A, B, K, N, ring, acc);
+  const int g = threadIdx.x >> 6, c0 = (threadIdx.x & 63) * 4;
+  if (c0 < N)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) st_f4(C + f32_row<false>(g, i) * ldc + c0, acc[i]);
 }
 
 }  // namespace nrh

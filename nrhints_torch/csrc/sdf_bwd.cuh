@@ -4,18 +4,32 @@
 // skipped) and kernel H (sdf_core_bwd.cu, the f32 gates sigmoid(100 z_i)
 // of its own forward pass).  Its stages and design are described in
 // sdf_stash.cu.
+//
+// T is the dot operands' type, S the stash's, as in sdf_fwd.cuh: at
+// compute_dtype="float32" the activation tile, the ring, the weights and
+// the dW operands in the scratch are f32 (every product on mma_rows.cuh's
+// f32 gemm_rows64, the dW passes on dw_sum.cuh's f32 tiles) and nothing is
+// rounded but what the stash's type S rounds.  H's f32 instance reads its
+// own f32 h_i (S = T).  Every T-dependent step reduces to the bf16
+// expressions at T = S = bf16, so the bf16 instance gives the shipping
+// gradients bit for bit (scripts/compare_sdf_fwd.py).
 #pragma once
 
 #include "dw_sum.cuh"
+#include "mma_rows.cuh"
 
 namespace nrh {
 
-// Shared memory of the chain: the bf16 activation tile, the f32 carry tile
+// Shared memory of the chain: the activation tile of T, the f32 carry tile
 // (every product writes its output there in place), the encoding, the
-// weight ring and d sdf / scale per point: 227,584 bytes, one block per SM.
-constexpr size_t kChainSmem = kChainTP * kLdA * sizeof(bf16) + kChainTP * kLdZ * sizeof(float) +
-                              kChainTP * kEncMax * sizeof(float) + kChainStages * kRingStage * sizeof(bf16) +
-                              kChainTP * sizeof(float);
+// weight ring and d sdf / scale per point: 227,584 bytes in bf16, 215,296
+// in f32 (two 32-row f32 stages), one block per SM.
+template <typename T>
+constexpr size_t chain_smem() {
+  return kChainTP * CoreTile<T>::kLdAct * sizeof(T) + kChainTP * kLdZ * sizeof(float) +
+         kChainTP * kEncMax * sizeof(float) + CoreTile<T>::kRing * sizeof(T) + kChainTP * sizeof(float);
+}
+static_assert(chain_smem<bf16>() == 227584 && chain_smem<float>() == 215296, "the chain's shared-memory budget");
 
 // f32 per point of the chain's device-memory scratch: u_i then dL/dh_i of
 // every layer (gates_total), then g_enc, its cotangent, the Tail's direct
@@ -28,21 +42,25 @@ __device__ __forceinline__ float gate_from_h(float h) { return 1.0f - expf(-100.
 // consecutive columns of one point per item (16-byte accesses to the
 // device-memory scratch, 8-byte ones to the stash), so each thread has a
 // few items, not dozens, of dependent global-memory round trips per pass.
-// The stash's rows are stash_row(m, US) wide.
-template <bool GATES, bool US>
+// The stash's rows are stash_row(m, US) wide.  The transposed products read
+// wpack through column-major fragments in bf16 and wtpack's transposed
+// blocks in f32 (null in bf16), as in sdf_fwd.cuh.
+template <typename T, typename S, bool GATES, bool US>
 __global__ void __launch_bounds__(kChainThreads)
-    sdf_bwd_chain_kernel(const float* __restrict__ x, const bf16* __restrict__ stash,
+    sdf_bwd_chain_kernel(const float* __restrict__ x, const S* __restrict__ stash,
                          const float* __restrict__ gsc, const float* __restrict__ ds, const float* __restrict__ df,
-                         const float* __restrict__ dgx, const bf16* __restrict__ wpack,
+                         const float* __restrict__ dgx, const T* __restrict__ wpack, const T* __restrict__ wtpack,
                          const float* __restrict__ w_sdf, float* __restrict__ dx,
-                         bf16* __restrict__ scratch, float* __restrict__ cscr, float* __restrict__ partial, int n,
+                         T* __restrict__ scratch, float* __restrict__ cscr, float* __restrict__ partial, int n,
                          const SdfMeta m, const DwJobs jobs, float scale) {
+  constexpr int kLdAct = CoreTile<T>::kLdAct;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* act = reinterpret_cast<bf16*>(smem);
-  float* G = reinterpret_cast<float*>(act + kChainTP * kLdA);
+  T* act = reinterpret_cast<T*>(smem);
+  float* G = reinterpret_cast<float*>(act + kChainTP * kLdAct);
   float* enc = G + kChainTP * kLdZ;
-  bf16* ring = reinterpret_cast<bf16*>(enc + kChainTP * kEncMax);
-  float* dss = reinterpret_cast<float*>(ring + kChainStages * kRingStage);  // d sdf / scale per point
+  T* ring = reinterpret_cast<T*>(enc + kChainTP * kEncMax);
+  float* dss = reinterpret_cast<float*>(ring + CoreTile<T>::kRing);  // d sdf / scale per point
+  const T* wt = std::is_same<T, float>::value ? wtpack : wpack;  // the transposed products' weights
 
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * kChainTP;
@@ -63,12 +81,12 @@ __global__ void __launch_bounds__(kChainThreads)
   const int pw = GT + npf + 1 + 2 * kpf;
   float* prow = partial + (size_t)blockIdx.x * pw;
   auto hval = [&](int p, int col) -> float {
-    return p0 + p < n ? bf(stash[(size_t)(p0 + p) * ST + col]) : 0.0f;
+    return p0 + p < n ? to_f(stash[(size_t)(p0 + p) * ST + col]) : 0.0f;
   };
   // Four columns of h_i (col a multiple of 4).
   auto hval4 = [&](int p, int col, float* v) {
     if (p0 + p < n)
-      ld_bf4(stash + (size_t)(p0 + p) * ST + col, v);
+      ld4(stash + (size_t)(p0 + p) * ST + col, v);
     else
       v[0] = v[1] = v[2] = v[3] = 0.0f;
   };
@@ -88,7 +106,7 @@ __global__ void __launch_bounds__(kChainThreads)
   };
 
   // 0. Encoding of 3x; the cotangents.
-  if (!US) stage_first_slabs<true>(wpack + m.w_off[L - 1], m.np_[L - 1], m.np_[L - 1], m.kp[L - 1], ring);
+  if (!US) stage_first_slabs<true>(wt + m.w_off[L - 1], m.np_[L - 1], m.np_[L - 1], m.kp[L - 1], ring);
   for (int idx = tid; idx < kChainTP * kEncMax; idx += kChainThreads) {
     const int p = idx / kEncMax, c = idx % kEncMax, gp = p0 + p;
     float xs[3];
@@ -105,7 +123,7 @@ __global__ void __launch_bounds__(kChainThreads)
   __syncthreads();
 
   // 1. The reverse sweep at the stashed h: U_i = g before layer i's gate.
-  // US: U_i and g_enc are read from the stash, its rounding to bf16 kept.
+  // US: U_i and g_enc are read from the stash, its rounding to S kept.
   if (US) {
     for (int idx = tid; idx < kChainTP * (GT / 4); idx += kChainThreads) {
       const int p = idx / (GT / 4), c = (idx % (GT / 4)) * 4;
@@ -120,7 +138,7 @@ __global__ void __launch_bounds__(kChainThreads)
   }
   for (int i = L - 1; i >= 0 && !US; --i) {
     const int np = m.np_[i], out = m.out_dim[i], in = m.in_dim[i], kp = m.kp[i], goff = m.b_off[i];
-    if (i < L - 1) stage_first_slabs<true>(wpack + m.w_off[i], np, np, kp, ring);
+    if (i < L - 1) stage_first_slabs<true>(wt + m.w_off[i], np, np, kp, ring);
     for (int idx = tid; idx < kChainTP * (np / 4); idx += kChainThreads) {
       const int p = idx / (np / 4), c = (idx % (np / 4)) * 4;
       float u[4], gate[4], t[4];
@@ -132,9 +150,9 @@ __global__ void __launch_bounds__(kChainThreads)
         t[k] = u[k] * gate[k];
       }
       st_f4(U(p, goff + c), u);
-      st_bf4(act + p * kLdA + c, t);
+      st4(act + p * kLdAct + c, t);
     }
-    gemm_rows64<true>(act, kLdA, wpack + m.w_off[i], np, np, kp, G, kLdZ, ring);
+    gemm_rows64<true>(act, kLdAct, wt + m.w_off[i], np, np, kp, G, kLdZ, ring);
     __syncthreads();
     if (m.skip[i]) {  // elsewhere the product is already the carry
       const int split = in - d0;
@@ -188,8 +206,8 @@ __global__ void __launch_bounds__(kChainThreads)
   for (int i = 0; i < L; ++i) {
     const int np = m.np_[i], out = m.out_dim[i], in = m.in_dim[i], kp = m.kp[i], goff = m.b_off[i];
     const int split = m.skip[i] ? in - d0 : in;
-    bf16* Aop = scratch + jobs.a_off[i];
-    bf16* Bop = scratch + jobs.b_off[i];
+    T* Aop = scratch + jobs.a_off[i];
+    T* Bop = scratch + jobs.b_off[i];
     if (i > 0) stage_first_slabs<false>(wpack + m.w_off[i], np, kp, np, ring);
     for (int idx = tid; idx < kChainTP * (kp / 4); idx += kChainThreads) {
       const int p = idx / (kp / 4), c = (idx % (kp / 4)) * 4;
@@ -205,10 +223,10 @@ __global__ void __launch_bounds__(kChainThreads)
             v[k] = G[p * kLdZ + ck];
         }
       }
-      st_bf4(act + p * kLdA + c, v);
-      st_bf4(Aop + (size_t)(p0 + p) * kp + c, v);
+      st4(act + p * kLdAct + c, v);
+      st4(Aop + (size_t)(p0 + p) * kp + c, v);
     }
-    gemm_rows64<false>(act, kLdA, wpack + m.w_off[i], np, kp, np, G, kLdZ, ring);
+    gemm_rows64<false>(act, kLdAct, wpack + m.w_off[i], np, kp, np, G, kLdZ, ring);
     __syncthreads();
     // t_i (dW_i's first B operand) from the same u_i and gates.
     for (int idx = tid; idx < kChainTP * (np / 4); idx += kChainThreads) {
@@ -226,7 +244,7 @@ __global__ void __launch_bounds__(kChainThreads)
           carry[k] = dt[k] * gate[k];
         }
       }
-      st_bf4(Bop + (size_t)(p0 + p) * np + c, t);
+      st4(Bop + (size_t)(p0 + p) * np + c, t);
       st_f4(U(p, goff + c), dh);
       st_f4(G + p * kLdZ + c, carry);
     }
@@ -234,17 +252,17 @@ __global__ void __launch_bounds__(kChainThreads)
   }
 
   // 3b. The heads.  Column sums: the final carry (the sdf head's column,
-  // / scale by the caller), h_L . bf16(ds / scale), d b_sdf, d b_feat.
+  // / scale by the caller), h_L . rnd<T>(ds / scale), d b_sdf, d b_feat.
   const int o_bf = GT, o_bs = GT + npf, o_hds = GT + npf + 1, o_carry = o_hds + kpf;
   const int lgoff = m.b_off[L - 1];
-  stage_first_slabs<true>(wpack + m.wf_off, npf, npf, kpf, ring);
+  stage_first_slabs<true>(wt + m.wf_off, npf, npf, kpf, ring);
   for (int c = tid; c < kpf; c += kChainThreads) {
     float sc = 0.0f, sh = 0.0f;
     if (c < DL) {
 #pragma unroll 8
       for (int p = 0; p < kChainTP; ++p) {
         sc += G[p * kLdZ + c];
-        sh += bf(to_bf16(hval(p, lgoff + c))) * bf(to_bf16(dss[p]));
+        sh += rnd<T>(hval(p, lgoff + c)) * rnd<T>(dss[p]);
       }
     }
     prow[o_carry + c] = sc;
@@ -264,8 +282,8 @@ __global__ void __launch_bounds__(kChainThreads)
     prow[o_bs] = s;
   }
   {
-    bf16* Aop = scratch + jobs.a_off[L];
-    bf16* Bop = scratch + jobs.b_off[L];
+    T* Aop = scratch + jobs.a_off[L];
+    T* Bop = scratch + jobs.b_off[L];
     for (int idx = tid; idx < kChainTP * (kpf / 4); idx += kChainThreads) {
       const int p = idx / (kpf / 4), c = (idx % (kpf / 4)) * 4;
       float h[4];
@@ -273,22 +291,22 @@ __global__ void __launch_bounds__(kChainThreads)
 #pragma unroll
       for (int k = 0; k < 4; ++k)
         if (c + k >= DL) h[k] = 0.0f;
-      st_bf4(Aop + (size_t)(p0 + p) * kpf + c, h);
+      st4(Aop + (size_t)(p0 + p) * kpf + c, h);
     }
     for (int idx = tid; idx < kChainTP * (npf / 4); idx += kChainThreads) {
       const int p = idx / (npf / 4), c = (idx % (npf / 4)) * 4;
       float v[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) v[k] = c + k < DF && p0 + p < n ? df[(size_t)(p0 + p) * DF + c + k] : 0.0f;
-      st_bf4(Bop + (size_t)(p0 + p) * npf + c, v);
-      st_bf4(act + p * kLdA + c, v);
+      st4(Bop + (size_t)(p0 + p) * npf + c, v);
+      st4(act + p * kLdAct + c, v);
     }
   }
-  // dh_L = bf16(ds/scale) bf16(w_sdf) + df W_feat^T, then + dL/dh_{L-1}.
+  // dh_L = rnd<T>(ds/scale) rnd<T>(w_sdf) + df W_feat^T, then + dL/dh_{L-1}.
   // The carry's column sums above read G before the product overwrites it.
-  gemm_rows64<true>(act, kLdA, wpack + m.wf_off, npf, npf, kpf, G, kLdZ, ring);
+  gemm_rows64<true>(act, kLdAct, wt + m.wf_off, npf, npf, kpf, G, kLdZ, ring);
   __syncthreads();
-  stage_first_slabs<true>(wpack + m.w_off[L - 1], m.np_[L - 1], m.np_[L - 1], m.kp[L - 1], ring);
+  stage_first_slabs<true>(wt + m.w_off[L - 1], m.np_[L - 1], m.np_[L - 1], m.kp[L - 1], ring);
   for (int idx = tid; idx < kChainTP * (m.np_[L - 1] / 4); idx += kChainThreads) {
     const int p = idx / (m.np_[L - 1] / 4), c = (idx % (m.np_[L - 1] / 4)) * 4;
     float z[4], u[4], g[4];
@@ -296,7 +314,7 @@ __global__ void __launch_bounds__(kChainThreads)
     ld_f4(U(p, lgoff + c), u);
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      g[k] = c + k < DL ? bf(to_bf16(dss[p])) * bf(to_bf16(w_sdf[c + k])) + z[k] + u[k] : 0.0f;
+      g[k] = c + k < DL ? rnd<T>(dss[p]) * rnd<T>(w_sdf[c + k]) + z[k] + u[k] : 0.0f;
     st_f4(G + p * kLdZ + c, g);
   }
   __syncthreads();
@@ -307,8 +325,8 @@ __global__ void __launch_bounds__(kChainThreads)
     const int np = m.np_[i], out = m.out_dim[i], in = m.in_dim[i], kp = m.kp[i], goff = m.b_off[i];
     const int split = m.skip[i] ? in - d0 : in;
     const int poff = i > 0 ? m.b_off[i - 1] : 0;
-    bf16* Aop = scratch + jobs.a_off[i] + npad * kp;
-    bf16* Bop = scratch + jobs.b_off[i] + npad * np;
+    T* Aop = scratch + jobs.a_off[i] + npad * kp;
+    T* Bop = scratch + jobs.b_off[i] + npad * np;
     for (int idx = tid; idx < kChainTP * (np / 4); idx += kChainThreads) {
       const int p = idx / (np / 4), c = (idx % (np / 4)) * 4;
       float g[4], gate[4], gz[4];
@@ -317,8 +335,8 @@ __global__ void __launch_bounds__(kChainThreads)
 #pragma unroll
       for (int k = 0; k < 4; ++k) gz[k] = c + k < out ? g[k] * gate[k] : 0.0f;
       st_f4(G + p * kLdZ + c, gz);
-      st_bf4(act + p * kLdA + c, gz);
-      st_bf4(Bop + (size_t)(p0 + p) * np + c, gz);
+      st4(act + p * kLdAct + c, gz);
+      st4(Bop + (size_t)(p0 + p) * np + c, gz);
     }
     for (int idx = tid; idx < kChainTP * (kp / 4); idx += kChainThreads) {
       const int p = idx / (kp / 4), c = (idx % (kp / 4)) * 4;
@@ -339,7 +357,7 @@ __global__ void __launch_bounds__(kChainThreads)
           }
         }
       }
-      st_bf4(Aop + (size_t)(p0 + p) * kp + c, v);
+      st4(Aop + (size_t)(p0 + p) * kp + c, v);
     }
     __syncthreads();
     for (int c = tid; c < np; c += kChainThreads) {
@@ -348,10 +366,10 @@ __global__ void __launch_bounds__(kChainThreads)
       for (int p = 0; p < kChainTP; ++p) s += G[p * kLdZ + c];
       prow[goff + c] = s;
     }
-    gemm_rows64<true>(act, kLdA, wpack + m.w_off[i], np, np, kp, G, kLdZ, ring);
+    gemm_rows64<true>(act, kLdAct, wt + m.w_off[i], np, np, kp, G, kLdZ, ring);
     __syncthreads();
     // The next layer's first slabs (the head's product staged layer L - 1's).
-    if (i > 0) stage_first_slabs<true>(wpack + m.w_off[i - 1], m.np_[i - 1], m.np_[i - 1], m.kp[i - 1], ring);
+    if (i > 0) stage_first_slabs<true>(wt + m.w_off[i - 1], m.np_[i - 1], m.np_[i - 1], m.kp[i - 1], ring);
     if (i > 0 && !m.skip[i]) {
       for (int idx = tid; idx < kChainTP * (kp / 4); idx += kChainThreads) {
         const int p = idx / (kp / 4), c = (idx % (kp / 4)) * 4;
@@ -400,22 +418,45 @@ __global__ void __launch_bounds__(kChainThreads)
 
 // The chain, then dw_sum.cuh's passes, on `stream`; returns the first
 // launch error.
-template <bool GATES, bool US>
-inline int launch_sdf_bwd(const float* x, const bf16* stash, const float* gsc, const float* ds, const float* df,
-                          const float* dgx, const bf16* wpack, const float* w_sdf, float* dx, bf16* scratch,
-                          float* cscr, float* partial, float* colsum, float* part_dw, float* dw, const SdfMeta& m,
-                          const DwJobs& jobs, int split, int n, float scale, cudaStream_t stream) {
-  const size_t smem = kChainSmem;
-  int rc = (int)cudaFuncSetAttribute(sdf_bwd_chain_kernel<GATES, US>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)smem);
+template <typename T, typename S, bool GATES, bool US>
+inline int launch_sdf_bwd(const float* x, const void* stash, const float* gsc, const float* ds, const float* df,
+                          const float* dgx, const void* wpack, const void* wtpack, const float* w_sdf, float* dx,
+                          void* scratch, float* cscr, float* partial, float* colsum, float* part_dw, float* dw,
+                          const SdfMeta& m, const DwJobs& jobs, int split, int n, float scale, cudaStream_t stream) {
+  const size_t smem = chain_smem<T>();
+  int rc = (int)cudaFuncSetAttribute(sdf_bwd_chain_kernel<T, S, GATES, US>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc) return rc;
   const int nblk = (n + kChainTP - 1) / kChainTP;
-  sdf_bwd_chain_kernel<GATES, US><<<nblk, kChainThreads, smem, stream>>>(x, stash, gsc, ds, df, dgx, wpack, w_sdf,
-                                                                     dx, scratch, cscr, partial, n, m, jobs, scale);
+  sdf_bwd_chain_kernel<T, S, GATES, US><<<nblk, kChainThreads, smem, stream>>>(
+      x, (const S*)stash, gsc, ds, df, dgx, (const T*)wpack, (const T*)wtpack, w_sdf, dx, (T*)scratch, cscr,
+      partial, n, m, jobs, scale);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   const int pw = m.gates_total + m.npf + 1 + 2 * m.kpf;
-  return launch_dw_sums(scratch, part_dw, dw, jobs, split, partial, nblk, pw, colsum, stream);
+  return launch_dw_sums((const T*)scratch, part_dw, dw, jobs, split, partial, nblk, pw, colsum, stream);
+}
+
+// launch_sdf_bwd at the instance the dtypes select (kF32Compute,
+// kF32Stash); H's chain (GATES) reads its own h_i, S = T.
+template <bool GATES, bool US, typename... A>
+inline int launch_sdf_bwd_dtypes(int dtypes, A... a) {
+  if constexpr (GATES) {
+    return dtypes & kF32Compute ? launch_sdf_bwd<float, float, GATES, US>(a...)
+                                : launch_sdf_bwd<bf16, bf16, GATES, US>(a...);
+  } else {
+    switch (dtypes) {
+      case 0:
+        return launch_sdf_bwd<bf16, bf16, GATES, US>(a...);
+      case kF32Compute:
+        return launch_sdf_bwd<float, bf16, GATES, US>(a...);
+      case kF32Stash:
+        return launch_sdf_bwd<bf16, float, GATES, US>(a...);
+      case kF32Compute | kF32Stash:
+        return launch_sdf_bwd<float, float, GATES, US>(a...);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The checks both launchers make on their tables.

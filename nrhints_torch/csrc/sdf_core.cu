@@ -57,38 +57,53 @@
 // is masked: rows past N read x = 0 and store only their gates.  The kernel
 // itself lives in sdf_fwd.cuh: kernel H (sdf_core_bwd.cu) runs its layers
 // as its own first pass.
+//
+// The f32 instances replace the same pallas_calls at compute_dtype="float32"
+// (sdf_core_ref with cdt=None: exact f32 dots) and, for D, at
+// stash_dtype="float32" (an f32 stash): the dtypes argument selects
+// sdf_core_fwd_kernel<T, S, MODE> (sdf_fwd.cuh).  Bound on an H100: A's and
+// D's 128.9 GFLOP at the 67 TFLOP/s f32 peak, 1.92 ms a 65,536-point call.
+// Design: every product on mma_rows.cuh's f32 gemm_rows64 (the march's f32 row
+// engine, one fmaf a multiply-add in k order, on a 2-stage ring of 32-row
+// f32 slabs), an f32 activation tile beside the f32 carry tile: 215,040
+// bytes of shared memory, one block per SM; the reverse sweep's transposed
+// products read the f32 pack's transposed blocks (wtpack).
 #include "sdf_fwd.cuh"
 
 using namespace nrh;
 
-extern "C" int sdf_core_fwd(const float* x, const void* wpack, const float* bpack,
+// dtypes: kF32Compute selects A's f32 instance (wpack and wtpack the f32
+// pack; wtpack is null in bf16).
+extern "C" int sdf_core_fwd(const float* x, const void* wpack, const void* wtpack, const float* bpack,
                             const float* w_sdf, float* sdf, float* feat, float* gx, float* gates, int n,
-                            const int* meta, float scale, void* stream) {
+                            const int* meta, float scale, int dtypes, void* stream) {
   SdfMeta m;
   const int rc = parse_meta(meta, &m);
   if (rc || n <= 0) return rc;
-  return launch_sdf_fwd<kFwdPlain>(x, (const bf16*)wpack, bpack, w_sdf, sdf, feat, gx, nullptr, gates, n, m,
-                                   scale, (cudaStream_t)stream);
+  return launch_sdf_fwd_dtypes<kFwdPlain>(dtypes, x, wpack, wtpack, bpack, w_sdf, sdf, feat, gx, nullptr, gates,
+                                          n, m, scale, (cudaStream_t)stream);
 }
 
-extern "C" int sdf_stash_fwd(const float* x, const void* wpack, const float* bpack,
+// dtypes: kF32Compute and kF32Stash select D's instance (its dot operands'
+// and its stash's types).
+extern "C" int sdf_stash_fwd(const float* x, const void* wpack, const void* wtpack, const float* bpack,
                              const float* w_sdf, float* sdf, float* feat, float* gx, void* stash,
-                             float* gates, int n, const int* meta, float scale, void* stream) {
+                             float* gates, int n, const int* meta, float scale, int dtypes, void* stream) {
   SdfMeta m;
   const int rc = parse_meta(meta, &m);
   if (rc || n <= 0) return rc;
-  return launch_sdf_fwd<kFwdStash>(x, (const bf16*)wpack, bpack, w_sdf, sdf, feat, gx, (bf16*)stash, gates, n, m,
-                                   scale, (cudaStream_t)stream);
+  return launch_sdf_fwd_dtypes<kFwdStash>(dtypes, x, wpack, wtpack, bpack, w_sdf, sdf, feat, gx, stash, gates, n,
+                                          m, scale, (cudaStream_t)stream);
 }
 
-extern "C" int sdf_stash_all_fwd(const float* x, const void* wpack, const float* bpack,
+extern "C" int sdf_stash_all_fwd(const float* x, const void* wpack, const void* wtpack, const float* bpack,
                                  const float* w_sdf, float* sdf, float* feat, float* gx, void* stash,
-                                 float* gates, int n, const int* meta, float scale, void* stream) {
+                                 float* gates, int n, const int* meta, float scale, int dtypes, void* stream) {
   SdfMeta m;
   const int rc = parse_meta(meta, &m);
   if (rc || n <= 0) return rc;
-  return launch_sdf_fwd<kFwdStashAll>(x, (const bf16*)wpack, bpack, w_sdf, sdf, feat, gx, (bf16*)stash, gates, n, m,
-                                      scale, (cudaStream_t)stream);
+  return launch_sdf_fwd_dtypes<kFwdStashAll>(dtypes, x, wpack, wtpack, bpack, w_sdf, sdf, feat, gx, stash, gates,
+                                             n, m, scale, (cudaStream_t)stream);
 }
 
 extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

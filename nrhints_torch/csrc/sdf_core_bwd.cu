@@ -35,26 +35,39 @@
 // The scratch is 6 bytes per point per padded hidden unit (2,016 at full
 // width): 793 MB at 65,536 points (264 MB bf16 h, 528 MB f32 gates on
 // core_mlp.gate_layout's padded rows).
+//
+// H's f32 instance replaces the same pallas_call at compute_dtype="float32"
+// (the dtypes argument): H1 and H2 as above with T = f32 (f32 h_i in the
+// scratch, 1.06 GB at 65,536 points; f32 dW operands), their products on
+// mma_rows.cuh's f32 gemm_rows64 and dw_sum.cuh's dw_partial_f32_kernel.
+// Bound: 378.0 GFLOP at the 67 TFLOP/s f32 peak, 5.64 ms a 65,536-point
+// call.  With an f32 stash, E's gates 1 - exp(-100 h) and H's sigmoid(100 z)
+// agree to rounding, so the f32 E and H give the same gradients but for
+// rounding (chip_smoke.py phase 16 prints the gap).
 #include "sdf_bwd.cuh"
 #include "sdf_fwd.cuh"
 
 using namespace nrh;
 
+// dtypes: kF32Compute selects H's f32 instance: H1 and H2 with f32 dot
+// operands, its h_i and its dW scratch in f32 (wpack and wtpack the f32
+// pack; wtpack is null in bf16).
 extern "C" int sdf_core_bwd(const float* x, const float* ds, const float* df, const float* dgx,
-                            const void* wpack, const float* bpack, const float* w_sdf, void* hs, float* gates,
-                            float* dx, void* scratch, float* cscr, float* partial, float* colsum, float* part_dw,
-                            float* dw, const long long* jobs, int n_jobs, int split, int n, const int* meta,
-                            float scale, void* stream) {
+                            const void* wpack, const void* wtpack, const float* bpack, const float* w_sdf, void* hs,
+                            float* gates, float* dx, void* scratch, float* cscr, float* partial, float* colsum,
+                            float* part_dw, float* dw, const long long* jobs, int n_jobs, int split, int n,
+                            const int* meta, float scale, int dtypes, void* stream) {
   SdfMeta m;
   DwJobs J;
   int rc = parse_sdf_bwd(meta, jobs, n_jobs, &m, &J);
   if (rc || n <= 0) return rc;
+  if (dtypes & ~kF32Compute) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  rc = launch_sdf_fwd<kFwdRecompute>(x, (const bf16*)wpack, bpack, w_sdf, nullptr, nullptr, nullptr, (bf16*)hs,
-                                     gates, n, m, scale, s);
+  rc = launch_sdf_fwd_dtypes<kFwdRecompute>(dtypes, x, wpack, wtpack, bpack, w_sdf, nullptr, nullptr, nullptr, hs,
+                                            gates, n, m, scale, s);
   if (rc) return rc;
-  return launch_sdf_bwd<true, false>(x, (const bf16*)hs, gates, ds, df, dgx, (const bf16*)wpack, w_sdf, dx,
-                                     (bf16*)scratch, cscr, partial, colsum, part_dw, dw, m, J, split, n, scale, s);
+  return launch_sdf_bwd_dtypes<true, false>(dtypes, x, hs, gates, ds, df, dgx, wpack, wtpack, w_sdf, dx, scratch,
+                                            cscr, partial, colsum, part_dw, dw, m, J, split, n, scale, s);
 }
 
 extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

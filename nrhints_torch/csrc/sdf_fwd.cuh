@@ -17,38 +17,56 @@
 // device-memory scratch gsc [padded N, gates_total] of the same column
 // layout (core_mlp.gate_layout); A and D read it back in their reverse
 // sweep, H in its chain (sdf_bwd.cuh).
+//
+// T is the dot operands' type: bf16 (the shipping compute_dtype) or f32
+// (compute_dtype="float32": the activation tile, the ring and the weights
+// in f32, every product on mma_rows.cuh's f32 gemm_rows64, the sdf head
+// unrounded).  S is the stash's type (stash_dtype; "bf16" above reads S):
+// the h_i, u_i and g_enc are rounded to S, nothing else is.  Every
+// T-dependent step reduces to the bf16 expressions at T = S = bf16, so the
+// bf16 instance gives the shipping outputs bit for bit
+// (scripts/compare_sdf_fwd.py holds it against a parent tree).
 #pragma once
 
-#include "staged_mma.cuh"
+#include "mma_rows.cuh"
 
 namespace nrh {
 
 constexpr int kFwdPlain = 0, kFwdStash = 1, kFwdRecompute = 2, kFwdStashAll = 3;
 
-// Shared memory of the forward: the bf16 activation tile (each layer's
+// Shared memory of the forward: the activation tile of T (each layer's
 // output written in place once the product that read it has returned), the
 // f32 carry tile (Z in the forward, G in the reverse sweep; every product
 // writes there), the encoding (the encoding's cotangent g_enc once the
 // forward has read it for the last time) and the weight ring: 227,328
-// bytes, one block per SM.
-constexpr size_t kFwdSmem = kChainTP * kLdA * sizeof(bf16) + kChainTP * kLdZ * sizeof(float) +
-                            kChainTP * kEncMax * sizeof(float) + kChainStages * kRingStage * sizeof(bf16);
+// bytes in bf16, 215,040 in f32 (two 32-row f32 stages), one block per SM.
+template <typename T>
+constexpr size_t fwd_smem() {
+  return kChainTP * CoreTile<T>::kLdAct * sizeof(T) + kChainTP * kLdZ * sizeof(float) +
+         kChainTP * kEncMax * sizeof(float) + CoreTile<T>::kRing * sizeof(T);
+}
+static_assert(fwd_smem<bf16>() == 227328 && fwd_smem<float>() == 215040, "the forward's shared-memory budget");
 
 // The forward of one 64-point block: every product through gemm_rows64,
 // each product's first slabs requested before the elementwise pass in front
-// of it, the elementwise passes four columns of one point per item.
-template <int MODE>
+// of it, the elementwise passes four columns of one point per item.  The
+// reverse sweep multiplies by each weight's transpose: the bf16 instance
+// reads wpack through column-major fragments; the f32 instance reads the
+// transposed blocks of wtpack (the same offsets; null in bf16).
+template <typename T, typename S, int MODE>
 __global__ void __launch_bounds__(kChainThreads)
-    sdf_core_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ wpack,
+    sdf_core_fwd_kernel(const float* __restrict__ x, const T* __restrict__ wpack, const T* __restrict__ wtpack,
                         const float* __restrict__ bpack, const float* __restrict__ w_sdf,
                         float* __restrict__ sdf_out, float* __restrict__ feat_out,
-                        float* __restrict__ gx_out, bf16* __restrict__ stash, float* __restrict__ gsc,
+                        float* __restrict__ gx_out, S* __restrict__ stash, float* __restrict__ gsc,
                         int n, const SdfMeta m, float scale) {
+  constexpr int kLdAct = CoreTile<T>::kLdAct;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* act = reinterpret_cast<bf16*>(smem);
-  float* Z = reinterpret_cast<float*>(act + kChainTP * kLdA);
+  T* act = reinterpret_cast<T*>(smem);
+  float* Z = reinterpret_cast<float*>(act + kChainTP * kLdAct);
   float* enc = Z + kChainTP * kLdZ;
-  bf16* ring = reinterpret_cast<bf16*>(enc + kChainTP * kEncMax);
+  T* ring = reinterpret_cast<T*>(enc + kChainTP * kEncMax);
+  const T* wt = std::is_same<T, float>::value ? wtpack : wpack;  // the reverse products' weights
 
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * kChainTP;
@@ -56,7 +74,7 @@ __global__ void __launch_bounds__(kChainThreads)
   const int ST = stash_row(m, MODE == kFwdStashAll);  // the stash's row stride
   float* grow = gsc + (size_t)p0 * GT;  // the block's rows of the gate scratch
 
-  // Encoding of 3x, and the first layer's bf16 input.
+  // Encoding of 3x, and the first layer's input (of T).
   stage_first_slabs<false>(wpack + m.w_off[0], m.np_[0], m.kp[0], m.np_[0], ring);
   for (int idx = tid; idx < kChainTP * kEncMax; idx += kChainThreads) {
     const int p = idx / kEncMax, c = idx % kEncMax, gp = p0 + p;
@@ -64,13 +82,13 @@ __global__ void __launch_bounds__(kChainThreads)
     for (int d = 0; d < 3; ++d) xs[d] = gp < n ? x[gp * 3 + d] * scale : 0.0f;
     const float v = c < d0 ? freq_channel(xs, nullptr, c, F, nullptr) : 0.0f;
     enc[idx] = v;
-    if (c < m.kp[0]) act[p * kLdA + c] = to_bf16(v);
+    if (c < m.kp[0]) act[p * kLdAct + c] = from_f<T>(v);
   }
 
   // Forward: z_i = h_{i-1} W_i + b_i; h_i = softplus(100 z_i)/100, gate_i.
   for (int i = 0; i < L; ++i) {
     const int np = m.np_[i], out = m.out_dim[i], goff = m.b_off[i];
-    gemm_rows64<false>(act, kLdA, wpack + m.w_off[i], np, m.kp[i], np, Z, kLdZ, ring);
+    gemm_rows64<false>(act, kLdAct, wpack + m.w_off[i], np, m.kp[i], np, Z, kLdZ, ring);
     __syncthreads();
     const bool last = i + 1 == L;
     if (!last)
@@ -101,25 +119,25 @@ __global__ void __launch_bounds__(kChainThreads)
           a[k] = next_skip && ck - out < d0 ? enc[p * kEncMax + ck - out] * kInvSqrt2 : 0.0f;
         }
       }
-      st_bf4(act + p * kLdA + c, a);
+      st4(act + p * kLdAct + c, a);
       if (c < np) {
         st_f4(grow + (size_t)p * GT + goff + c, g);
-        if (MODE != kFwdPlain && p0 + p < n) st_bf4(stash + (size_t)(p0 + p) * ST + goff + c, h);
+        if (MODE != kFwdPlain && p0 + p < n) st4(stash + (size_t)(p0 + p) * ST + goff + c, h);
       }
     }
   }
   if (MODE == kFwdRecompute) return;
 
-  // Heads: feat = h W_feat + b_feat (WMMA); sdf = (h . w_sdf + b_sdf)/scale
-  // with both operands rounded to bf16, one warp per point.  The product
-  // began with a barrier, so h is complete in act.
-  gemm_rows64<false>(act, kLdA, wpack + m.wf_off, m.npf, m.kpf, m.npf, Z, kLdZ, ring);
+  // Heads: feat = h W_feat + b_feat (gemm_rows64); sdf = (h . w_sdf +
+  // b_sdf)/scale with both operands of type T, one warp per point.  The
+  // product began with a barrier, so h is complete in act.
+  gemm_rows64<false>(act, kLdAct, wpack + m.wf_off, m.npf, m.kpf, m.npf, Z, kLdZ, ring);
   {
     const int warp = tid >> 5, lane = tid & 31;
     const float b_sdf = bpack[m.bf_off + m.npf];
     for (int p = warp; p < kChainTP; p += kChainThreads / 32) {
       float s = 0.0f;
-      for (int k = lane; k < m.d_last; k += 32) s += bf(act[p * kLdA + k]) * bf(to_bf16(w_sdf[k]));
+      for (int k = lane; k < m.d_last; k += 32) s += to_f(act[p * kLdAct + k]) * rnd<T>(w_sdf[k]);
       for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
       if (lane == 0 && p0 + p < n) sdf_out[p0 + p] = (s + b_sdf) / scale;
     }
@@ -128,7 +146,7 @@ __global__ void __launch_bounds__(kChainThreads)
 
   // The reverse sweep's first slabs; feat; g_enc = 0 in the enc tile; and
   // layer L - 1's gated cotangent, with g = w_sdf / scale (f32, unrounded).
-  stage_first_slabs<true>(wpack + m.w_off[L - 1], m.np_[L - 1], m.np_[L - 1], m.kp[L - 1], ring);
+  stage_first_slabs<true>(wt + m.w_off[L - 1], m.np_[L - 1], m.np_[L - 1], m.kp[L - 1], ring);
   for (int idx = tid; idx < kChainTP * m.d_feat; idx += kChainThreads) {
     const int p = idx / m.d_feat, c = idx % m.d_feat;
     if (p0 + p < n) feat_out[(size_t)(p0 + p) * m.d_feat + c] = Z[p * kLdZ + c] + bpack[m.bf_off + c];
@@ -142,7 +160,7 @@ __global__ void __launch_bounds__(kChainThreads)
   float* G = Z;
   for (int i = L - 1; i >= 0; --i) {
     const int np = m.np_[i], out = m.out_dim[i], in = m.in_dim[i], kp = m.kp[i], goff = m.b_off[i];
-    if (i < L - 1) stage_first_slabs<true>(wpack + m.w_off[i], np, np, kp, ring);
+    if (i < L - 1) stage_first_slabs<true>(wt + m.w_off[i], np, np, kp, ring);
     for (int idx = tid; idx < kChainTP * (np / 4); idx += kChainThreads) {
       const int p = idx / (np / 4), c = (idx % (np / 4)) * 4;
       float u[4], gate[4], t[4];
@@ -155,15 +173,15 @@ __global__ void __launch_bounds__(kChainThreads)
       ld_f4(grow + (size_t)p * GT + goff + c, gate);
 #pragma unroll
       for (int k = 0; k < 4; ++k) t[k] = c + k < out ? u[k] * gate[k] : 0.0f;
-      st_bf4(act + p * kLdA + c, t);
+      st4(act + p * kLdAct + c, t);
       if (MODE == kFwdStashAll && p0 + p < n) {
 #pragma unroll
         for (int k = 0; k < 4; ++k)
           if (c + k >= out) u[k] = 0.0f;
-        st_bf4(stash + (size_t)(p0 + p) * ST + GT + goff + c, u);
+        st4(stash + (size_t)(p0 + p) * ST + GT + goff + c, u);
       }
     }
-    gemm_rows64<true>(act, kLdA, wpack + m.w_off[i], np, np, kp, G, kLdZ, ring);
+    gemm_rows64<true>(act, kLdAct, wt + m.w_off[i], np, np, kp, G, kLdZ, ring);
     __syncthreads();
     if (m.skip[i]) {  // elsewhere the product is already the carry
       const int split = in - d0;
@@ -210,23 +228,46 @@ __global__ void __launch_bounds__(kChainThreads)
       const int p = idx / ew, c = idx % ew;
       if (p0 + p < n)
         stash[(size_t)(p0 + p) * ST + 2 * GT + c] =
-            to_bf16(c < d0 ? genc[p * kEncMax + c] + G[p * kLdZ + c] : 0.0f);
+            from_f<S>(c < d0 ? genc[p * kEncMax + c] + G[p * kLdZ + c] : 0.0f);
     }
   }
 }
 
 // One launch of the forward on `stream`; returns its launch error.  gsc is
 // the gate scratch of (n + kChainTP - 1) / kChainTP * kChainTP rows.
-template <int MODE>
-inline int launch_sdf_fwd(const float* x, const bf16* wpack, const float* bpack, const float* w_sdf, float* sdf,
-                          float* feat, float* gx, bf16* stash, float* gsc, int n, const SdfMeta& m, float scale,
-                          cudaStream_t stream) {
-  int rc = (int)cudaFuncSetAttribute(sdf_core_fwd_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+template <typename T, typename S, int MODE>
+inline int launch_sdf_fwd(const float* x, const void* wpack, const void* wtpack, const float* bpack,
+                          const float* w_sdf, float* sdf, float* feat, float* gx, void* stash, float* gsc, int n,
+                          const SdfMeta& m, float scale, cudaStream_t stream) {
+  constexpr size_t kFwdSmem = fwd_smem<T>();
+  int rc = (int)cudaFuncSetAttribute(sdf_core_fwd_kernel<T, S, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                      (int)kFwdSmem);
   if (rc) return rc;
-  sdf_core_fwd_kernel<MODE><<<(n + kChainTP - 1) / kChainTP, kChainThreads, kFwdSmem, stream>>>(
-      x, wpack, bpack, w_sdf, sdf, feat, gx, stash, gsc, n, m, scale);
+  sdf_core_fwd_kernel<T, S, MODE><<<(n + kChainTP - 1) / kChainTP, kChainThreads, kFwdSmem, stream>>>(
+      x, (const T*)wpack, (const T*)wtpack, bpack, w_sdf, sdf, feat, gx, (S*)stash, gsc, n, m, scale);
   return (int)cudaGetLastError();
+}
+
+// launch_sdf_fwd at the instance the dtypes select; the modes that keep no
+// stash of their own choosing take S = T (H's first pass stashes its h_i
+// in the operand type).
+template <int MODE, typename... A>
+inline int launch_sdf_fwd_dtypes(int dtypes, A... a) {
+  if constexpr (MODE == kFwdPlain || MODE == kFwdRecompute) {
+    return dtypes & kF32Compute ? launch_sdf_fwd<float, float, MODE>(a...) : launch_sdf_fwd<bf16, bf16, MODE>(a...);
+  } else {
+    switch (dtypes) {
+      case 0:
+        return launch_sdf_fwd<bf16, bf16, MODE>(a...);
+      case kF32Compute:
+        return launch_sdf_fwd<float, bf16, MODE>(a...);
+      case kF32Stash:
+        return launch_sdf_fwd<bf16, float, MODE>(a...);
+      case kF32Compute | kF32Stash:
+        return launch_sdf_fwd<float, float, MODE>(a...);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace nrh

@@ -57,37 +57,51 @@
 // 0.061 ms) and reads the 535 MB stash (0.160 ms).  Every later stage is
 // E's.  The chain lives in sdf_bwd.cuh, where
 // kernel H (sdf_core_bwd.cu) runs it with its own f32 gates.
+//
+// The f32 instances replace the same pallas_call at compute_dtype="float32"
+// and stash_dtype="float32" (the dtypes argument; each pair is an instance
+// of sdf_bwd_chain_kernel<T, S, false, US>).  Bound on an H100: E's 317.9
+// GFLOP (the variant's 257.8) at the 67 TFLOP/s f32 peak, 4.75 ms (3.85) a
+// 65,536-point call.  Design: E1's stages as above, every product on
+// mma_rows.cuh's f32 gemm_rows64 (215,296 bytes of shared memory, one
+// block per SM), the dW operands in an f32 scratch (2.15 GB at 65,536
+// points) and their products on dw_sum.cuh's dw_partial_f32_kernel over the
+// same row chunks, summed by the same in-order passes: the f32 gradients
+// repeat bit for bit too.
 #include "sdf_bwd.cuh"
 
 using namespace nrh;
 
+// dtypes: kF32Compute and kF32Stash select E's instance (its dot operands',
+// and so its scratch's, and its stash's types); wtpack is the f32 pack's
+// transposed blocks (null in bf16).
 extern "C" int sdf_stash_bwd(const float* x, const void* stash, const float* ds, const float* df,
-                             const float* dgx, const void* wpack, const float* w_sdf, float* dx,
+                             const float* dgx, const void* wpack, const void* wtpack, const float* w_sdf, float* dx,
                              void* scratch, float* cscr, float* partial, float* colsum, float* part_dw, float* dw,
                              const long long* jobs, int n_jobs, int split, int n, const int* meta,
-                             float scale, void* stream) {
+                             float scale, int dtypes, void* stream) {
   SdfMeta m;
   DwJobs J;
   const int rc = parse_sdf_bwd(meta, jobs, n_jobs, &m, &J);
   if (rc || n <= 0) return rc;
-  return launch_sdf_bwd<false, false>(x, (const bf16*)stash, nullptr, ds, df, dgx, (const bf16*)wpack, w_sdf, dx,
-                                      (bf16*)scratch, cscr, partial, colsum, part_dw, dw, m, J, split, n, scale,
-                                      (cudaStream_t)stream);
+  return launch_sdf_bwd_dtypes<false, false>(dtypes, x, stash, nullptr, ds, df, dgx, wpack, wtpack, w_sdf, dx,
+                                             scratch, cscr, partial, colsum, part_dw, dw, m, J, split, n, scale,
+                                             (cudaStream_t)stream);
 }
 
 // E's stash_all variant: the same arguments, at the stash of D's variant.
 extern "C" int sdf_stash_all_bwd(const float* x, const void* stash, const float* ds, const float* df,
-                                 const float* dgx, const void* wpack, const float* w_sdf, float* dx,
-                                 void* scratch, float* cscr, float* partial, float* colsum, float* part_dw, float* dw,
-                                 const long long* jobs, int n_jobs, int split, int n, const int* meta,
-                                 float scale, void* stream) {
+                                 const float* dgx, const void* wpack, const void* wtpack, const float* w_sdf,
+                                 float* dx, void* scratch, float* cscr, float* partial, float* colsum,
+                                 float* part_dw, float* dw, const long long* jobs, int n_jobs, int split, int n,
+                                 const int* meta, float scale, int dtypes, void* stream) {
   SdfMeta m;
   DwJobs J;
   const int rc = parse_sdf_bwd(meta, jobs, n_jobs, &m, &J);
   if (rc || n <= 0) return rc;
-  return launch_sdf_bwd<false, true>(x, (const bf16*)stash, nullptr, ds, df, dgx, (const bf16*)wpack, w_sdf, dx,
-                                     (bf16*)scratch, cscr, partial, colsum, part_dw, dw, m, J, split, n, scale,
-                                     (cudaStream_t)stream);
+  return launch_sdf_bwd_dtypes<false, true>(dtypes, x, stash, nullptr, ds, df, dgx, wpack, wtpack, w_sdf, dx,
+                                            scratch, cscr, partial, colsum, part_dw, dw, m, J, split, n, scale,
+                                            (cudaStream_t)stream);
 }
 
 extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

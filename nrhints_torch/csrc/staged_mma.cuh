@@ -71,6 +71,26 @@ __device__ __forceinline__ void st_f4(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
+// The SDF core's operand type T (bf16; f32 at compute_dtype="float32") and
+// stash type S by overload: four consecutive values as floats and from
+// floats (ld4, st4: the helpers above), one value as a float (to_f) and
+// from a float (from_f), and rnd<T>(x), the value x carries as a dot
+// operand of type T (x rounded to bf16, or x itself).
+__device__ __forceinline__ void ld4(const bf16* p, float* v) { ld_bf4(p, v); }
+__device__ __forceinline__ void ld4(const float* p, float* v) { ld_f4(p, v); }
+__device__ __forceinline__ void st4(bf16* p, const float* v) { st_bf4(p, v); }
+__device__ __forceinline__ void st4(float* p, const float* v) { st_f4(p, v); }
+__device__ __forceinline__ float to_f(bf16 x) { return bf(x); }
+__device__ __forceinline__ float to_f(float x) { return x; }
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float x) { return to_bf16(x); }
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <typename T>
+__device__ __forceinline__ float rnd(float x) { return to_f(from_f<T>(x)); }
+
 // Issue (and commit, as one group) the copy of k-slab s of B into ring
 // stage s % kChainStages; an empty group when s is past K.
 template <bool TRANS_B>

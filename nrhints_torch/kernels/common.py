@@ -10,6 +10,14 @@ from nrhints_torch.fields.mlp import effective_weight
 from nrhints_torch.fields.sdf import SDFNetConfig
 
 INV_SQRT2 = 1.0 / math.sqrt(2.0)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a ``compute_dtype`` or ``stash_dtype`` name."""
+    if name not in DTYPES:
+        raise ValueError(f"expected 'float32' or 'bfloat16', got {name!r}")
+    return DTYPES[name]
 
 
 def materialize_sdf_weights(params: dict, cfg: SDFNetConfig) -> tuple:

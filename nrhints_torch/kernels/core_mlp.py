@@ -14,6 +14,12 @@ schedule: "recompute" runs ``SdfCoreFn`` (A forward, H backward,
 (``csrc/mlp_stash.cu``) without a gradient, ``MlpFn`` (I forward, J
 backward) under "recompute", the stash op (F, G) otherwise.
 
+``compute_dtype`` picks the SDF core's instance on the card: "bfloat16"
+(the shipping bf16 dot operands) or "float32" (exact f32 dots: A's and H's
+f32 instances, counted as ``sdf_core_fwd_f32`` and ``sdf_core_bwd_f32``).
+The trunk's kernels compute with bf16 operands only; their f32 instances
+are the next port slice.
+
 On CPU tensors every wrapper runs its plain version; on CUDA tensors it
 launches its kernel or raises.
 """
@@ -29,7 +35,7 @@ from torch.autograd.function import once_differentiable
 from nrhints_torch.fields.mlp import effective_weight
 from nrhints_torch.fields.sdf import SDFNetConfig, _layer_dims
 from nrhints_torch.kernels import cuda_lib
-from nrhints_torch.kernels.common import INV_SQRT2, dot, softplus100_gate
+from nrhints_torch.kernels.common import INV_SQRT2, dot, softplus100_gate, torch_dtype
 from nrhints_torch.utils import tree_leaves
 
 
@@ -184,8 +190,12 @@ def pack_sdf_mlp(weights: Sequence[torch.Tensor], cfg: SDFNetConfig, with_feat: 
     ``dtype`` zero-padded to 16-multiples, f32 biases, the f32 sdf head
     column and the int meta vector.  ``weights`` ends with the sdf head,
     then (when ``with_feat``) the feature head.  ``dtype`` is bf16 for every
-    kernel but the f32 march instances (``march_dtype="float32"``), which
-    read f32 weights in the same layout (``csrc/mma_rows.cuh::sdf_rows_f32``)."""
+    bf16 instance; the f32 march instances (``march_dtype="float32"``,
+    ``csrc/mma_rows.cuh::sdf_rows_f32``) and the SDF core's f32 instances
+    (``compute_dtype="float32"``) read f32 weights in the same layout.  The
+    f32 core layout (``with_feat``) also holds "wtpack": every block
+    transposed at the same offset, the B operand of the reverse products
+    (``mma_rows.cuh``'s f32 ``gemm_rows64`` reads B row-major)."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the packed SDF weights are bf16 or f32, got {dtype}")
     if cfg.encoding != "frequency":
@@ -222,12 +232,51 @@ def pack_sdf_mlp(weights: Sequence[torch.Tensor], cfg: SDFNetConfig, with_feat: 
     meta = [L, cfg.multi_res, d0, d_feat, d_last, kpf, npf, wf_off, bf_off, sum(l[3] for l in layers)]
     for lay in layers:
         meta += list(lay)
-    return {
+    pk = {
         "wpack": wpack,
         "bpack": bpack,
         "w_sdf": weights[2 * L].reshape(-1).float().contiguous(),
         "meta": np.asarray(meta, dtype=np.int32),
     }
+    if dtype == torch.float32 and with_feat:
+        pk["wtpack"] = torch.zeros_like(wpack)
+        for _, _, wo, _, kp, np_ in blocks:
+            pk["wtpack"][wo : wo + kp * np_] = wpack[wo : wo + kp * np_].view(kp, np_).t().reshape(-1)
+    return pk
+
+
+def core_pack(weights: Sequence[torch.Tensor], cfg: SDFNetConfig, compute_dtype: str, pk: dict | None = None) -> dict:
+    """The SDF core's pack for ``compute_dtype`` (``pk`` when given, checked
+    against it)."""
+    dt = torch_dtype(compute_dtype)
+    pk = pack_sdf_mlp(weights, cfg, with_feat=True, dtype=dt) if pk is None else pk
+    if pk["wpack"].dtype != dt:
+        raise ValueError(f"the pack holds {pk['wpack'].dtype} weights where compute_dtype is {compute_dtype!r}")
+    return pk
+
+
+def dtype_bits(compute_dtype: str, stash_dtype: str = "bfloat16") -> int:
+    """The dtypes int of the SDF core's C entry points: 1 for f32 dot
+    operands, 2 for an f32 stash (``csrc/mma_rows.cuh``: kF32Compute,
+    kF32Stash)."""
+    torch_dtype(compute_dtype), torch_dtype(stash_dtype)
+    return int(compute_dtype == "float32") | int(stash_dtype == "float32") << 1
+
+
+def instance_name(kernel: str, compute_dtype: str, stash_dtype: str | None = None) -> str:
+    """The launch counter of an SDF core kernel's instance: the kernel's name
+    for bf16 operands, + "_f32" for f32 operands, + "_f32stash" or
+    "_bf16stash" for a stash dtype other than the operands'."""
+    name = kernel + ("_f32" if compute_dtype == "float32" else "")
+    if stash_dtype is not None and stash_dtype != compute_dtype:
+        name += "_f32stash" if stash_dtype == "float32" else "_bf16stash"
+    return name
+
+
+def _wt(pk: dict):
+    """The f32 pack's transposed blocks, or None (the bf16 instances read
+    the transposes of wpack's blocks)."""
+    return pk["wtpack"].data_ptr() if "wtpack" in pk else None
 
 
 def require_cuda(t: torch.Tensor, shape: tuple, name: str, dtype=torch.float32) -> None:
@@ -350,54 +399,60 @@ def _launch(lib, fn: str, kernel: str, *args) -> None:
 
 
 def sdf_core_fwd(
-    weights: Sequence[torch.Tensor], x: torch.Tensor, cfg: SDFNetConfig, pk: dict | None = None
+    weights: Sequence[torch.Tensor], x: torch.Tensor, cfg: SDFNetConfig, pk: dict | None = None,
+    compute_dtype: str = "bfloat16",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel A on the card: (sdf [N], feat [N, F], grad [N, 3]) with bf16
-    dot operands, f32 everything else.  Its f32 gates go to a scratch of
-    ``gate_layout``'s size, freed when this returns."""
+    """Kernel A on the card: (sdf [N], feat [N, F], grad [N, 3]) with dot
+    operands of ``compute_dtype`` (bf16, or exact f32: A's f32 instance), f32
+    everything else.  Its f32 gates go to a scratch of ``gate_layout``'s
+    size, freed when this returns."""
     require_cuda(x, (None, 3), "x")
     n = x.shape[0]
     sdf = torch.empty(n, device=x.device)
     feat = torch.empty((n, cfg.d_out_feat), device=x.device)
     gx = torch.empty((n, 3), device=x.device)
+    pk = core_pack(weights, cfg, compute_dtype, pk)
     if n == 0:
         return sdf, feat, gx
-    pk = pack_sdf_mlp(weights, cfg, with_feat=True) if pk is None else pk
     gates = torch.empty(gate_layout(n, int(pk["meta"][9]))[2], device=x.device)
     _launch(
-        cuda_lib.load("sdf_core"), "sdf_core_fwd", "sdf_core_fwd",
-        x.data_ptr(), pk["wpack"].data_ptr(), pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr(),
+        cuda_lib.load("sdf_core"), "sdf_core_fwd", instance_name("sdf_core_fwd", compute_dtype),
+        x.data_ptr(), pk["wpack"].data_ptr(), _wt(pk), pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr(),
         sdf.data_ptr(), feat.data_ptr(), gx.data_ptr(), gates.data_ptr(), n, pk["meta"].ctypes.data,
-        float(cfg.scale), cuda_lib.stream_ptr(x.device),
+        float(cfg.scale), dtype_bits(compute_dtype), cuda_lib.stream_ptr(x.device),
     )
     return sdf, feat, gx
 
 
 def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, stash: torch.Tensor | None = None,
-                   need_dw: bool = True, stash_us: bool = False):
+                   need_dw: bool = True, stash_us: bool = False, compute_dtype: str = "bfloat16",
+                   stash_dtype: str = "bfloat16"):
     """The SDF core's backward on the card -> (dws, dx) with the shapes of
-    ``sdf_core_bwd_plain``'s: kernel E at the bf16 ``stash`` of kernel D
-    (with ``stash_us``, E's stash_all variant at D's stash_all stash, which
-    also holds u_i and g_enc), or, with ``stash=None``, kernel H, which
-    first recomputes the layers into a scratch of its own (bf16 h_i and f32
-    gates, freed when this returns).
+    ``sdf_core_bwd_plain``'s: kernel E at the ``stash`` (of ``stash_dtype``)
+    of kernel D (with ``stash_us``, E's stash_all variant at D's stash_all
+    stash, which also holds u_i and g_enc), or, with ``stash=None``, kernel
+    H, which first recomputes the layers into a scratch of its own (h_i in
+    the operands' dtype and f32 gates, freed when this returns).
     Both run the per-point chain on 64-point blocks (dx, the dW operands in
-    bf16 scratch, per-block f32 column sums of the bias cotangents, and u_i
-    and the encoding cotangents in an f32 scratch of ``chain_layout``'s
-    size, freed when this returns), the split-K dW products and the
-    in-order sums of the partials (no atomics: the gradients repeat bit for
-    bit).  ``need_dw=False`` launches the chain alone -> (None, dx): no dW
-    pass runs, and dx is the same bit for bit."""
+    a scratch of the operands' dtype, per-block f32 column sums of the bias
+    cotangents, and u_i and the encoding cotangents in an f32 scratch of
+    ``chain_layout``'s size, freed when this returns), the split-K dW
+    products and the in-order sums of the partials (no atomics: the
+    gradients repeat bit for bit).  ``compute_dtype`` picks bf16 or exact
+    f32 dot operands (the f32 instances).  ``need_dw=False`` launches the
+    chain alone -> (None, dx): no dW pass runs, and dx is the same bit for
+    bit."""
     ds, df, dgx = cots
     n, dev = x.shape[0], x.device
-    pk = pack_sdf_mlp(weights, cfg, with_feat=True) if pk is None else pk
+    pk = core_pack(weights, cfg, compute_dtype, pk)
+    cdt = torch_dtype(compute_dtype)
     meta = pk["meta"]
     L, d_feat, d_last, kpf, npf, gt = (int(meta[k]) for k in (0, 3, 4, 5, 6, 9))
     require_cuda(x, (None, 3), "x")
     if stash is not None:
         from nrhints_torch.kernels.core_stash import sdf_stash_width
 
-        require_cuda(stash, (n, sdf_stash_width(cfg, stash_us)), "stash", torch.bfloat16)
+        require_cuda(stash, (n, sdf_stash_width(cfg, stash_us)), "stash", torch_dtype(stash_dtype))
     require_cuda(ds, (n,), "d_sdf")
     require_cuda(df, (n, d_feat), "d_feat")
     require_cuda(dgx, (n, 3), "d_grad")
@@ -408,29 +463,29 @@ def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, 
     pw = gt + npf + 1 + 2 * kpf
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty((n, 3), **f32)
-    scratch = torch.empty(n_scratch, dtype=torch.bfloat16, device=dev)
+    scratch = torch.empty(n_scratch, dtype=cdt, device=dev)
     chain = torch.empty(n_chain, **f32)
     partial = torch.empty((nblk, pw), **f32)
     colsum, part_dw, dw = (torch.empty(pw, **f32), torch.empty((split, n_dw), **f32),
                            torch.empty(n_dw, **f32)) if need_dw else (None, None, None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     tail = (dx.data_ptr(), scratch.data_ptr(), chain.data_ptr(), partial.data_ptr(), ptr(colsum),
-            ptr(part_dw), ptr(dw), jobs.ctypes.data, len(jobs), split, n, meta.ctypes.data,
-            float(cfg.scale), cuda_lib.stream_ptr(dev))
+            ptr(part_dw), ptr(dw), jobs.ctypes.data, len(jobs), split, n, meta.ctypes.data, float(cfg.scale))
     if n > 0 and stash is None:
-        hs = torch.empty((n, gt), dtype=torch.bfloat16, device=dev)
+        hs = torch.empty((n, gt), dtype=cdt, device=dev)
         gates = torch.empty(gate_layout(n, gt)[2], **f32)
         _launch(
-            cuda_lib.load("sdf_core_bwd"), "sdf_core_bwd", "sdf_core_bwd",
-            x.data_ptr(), ds.data_ptr(), df.data_ptr(), dgx.data_ptr(), pk["wpack"].data_ptr(),
+            cuda_lib.load("sdf_core_bwd"), "sdf_core_bwd", instance_name("sdf_core_bwd", compute_dtype),
+            x.data_ptr(), ds.data_ptr(), df.data_ptr(), dgx.data_ptr(), pk["wpack"].data_ptr(), _wt(pk),
             pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr(), hs.data_ptr(), gates.data_ptr(), *tail,
+            dtype_bits(compute_dtype), cuda_lib.stream_ptr(dev),
         )
     elif n > 0:
         name = "sdf_stash_all_bwd" if stash_us else "sdf_stash_bwd"
         _launch(
-            cuda_lib.load("sdf_stash"), name, name,
+            cuda_lib.load("sdf_stash"), name, instance_name(name, compute_dtype, stash_dtype),
             x.data_ptr(), stash.data_ptr(), ds.data_ptr(), df.data_ptr(), dgx.data_ptr(), pk["wpack"].data_ptr(),
-            pk["w_sdf"].data_ptr(), *tail,
+            _wt(pk), pk["w_sdf"].data_ptr(), *tail, dtype_bits(compute_dtype, stash_dtype), cuda_lib.stream_ptr(dev),
         )
     elif need_dw:
         colsum.zero_()
@@ -452,11 +507,11 @@ def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, 
     return tuple(dws), dx
 
 
-def sdf_core_bwd(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None):
+def sdf_core_bwd(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, compute_dtype: str = "bfloat16"):
     """Kernel H on the card -> (dws, dx): the recompute VJP of kernel A's
     function from x and the cotangents alone, with A's gates sigmoid(100 z)
-    in f32 (``sdf_bwd_launch``)."""
-    return sdf_bwd_launch(weights, x, cots, cfg, pk)
+    in f32, at dot operands of ``compute_dtype`` (``sdf_bwd_launch``)."""
+    return sdf_bwd_launch(weights, x, cots, cfg, pk, compute_dtype=compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -535,9 +590,14 @@ def mlp_bwd(weights, x: torch.Tensor, g: torch.Tensor, n_layers: int, pk: dict |
 # The autograd ops of the recompute schedule
 
 
-def check_kernel_dtype(compute_dtype: str) -> None:
-    if compute_dtype != "bfloat16":
-        raise NotImplementedError("the CUDA core kernels compute with bf16 dot operands only")
+def check_kernel_dtype(dtype: str) -> None:
+    """Raise for a ``compute_dtype`` or ``stash_dtype`` the CUDA trunk
+    kernels do not take: bf16 only, until their f32 instances are ported
+    (the SDF core's kernels take both)."""
+    torch_dtype(dtype)
+    if dtype != "bfloat16":
+        raise NotImplementedError("the CUDA trunk kernels F, G, I and J take bf16 dot operands and a bf16 stash only: "
+                                  "their f32 instances (compute_dtype or stash_dtype 'float32') are the next port slice")
 
 
 def cotangent(g, shape, device) -> torch.Tensor:
@@ -560,9 +620,8 @@ class SdfCoreFn(torch.autograd.Function):
             out = sdf_core_plain(weights, x, cfg, compute_dtype)
             ctx.pk = None
         else:
-            check_kernel_dtype(compute_dtype)
-            ctx.pk = pack_sdf_mlp([w.detach() for w in weights], cfg, with_feat=True)
-            out = sdf_core_fwd(weights, x, cfg, ctx.pk)
+            ctx.pk = core_pack([w.detach() for w in weights], cfg, compute_dtype)
+            out = sdf_core_fwd(weights, x, cfg, ctx.pk, compute_dtype)
         ctx.save_for_backward(x, *weights)
         return out
 
@@ -576,7 +635,7 @@ class SdfCoreFn(torch.autograd.Function):
         if x.device.type == "cpu":
             dws, dx = sdf_core_bwd_plain(weights, x, cots, ctx.cfg, ctx.compute_dtype)
         else:
-            dws, dx = sdf_core_bwd(weights, x, cots, ctx.cfg, ctx.pk)
+            dws, dx = sdf_core_bwd(weights, x, cots, ctx.cfg, ctx.pk, ctx.compute_dtype)
         return (None, None, dx, *dws)
 
 
@@ -633,32 +692,41 @@ def fused_sdf_value_feat_grad(
     compute_dtype: str = "bfloat16",
     backward: str = "stash",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(sdf [N], feat [N, F], grad [N, 3]) of the SDF field at ``x``.
+    """(sdf [N], feat [N, F], grad [N, 3]) of the SDF field at ``x``, with
+    dot operands of ``compute_dtype`` ("bfloat16", or "float32": exact f32
+    dots, the kernels' f32 instances).
 
-    With no gradient wanted, CUDA tensors go through kernel A (bf16
-    operands only; it raises for any other ``compute_dtype``) and CPU
+    With no gradient wanted, CUDA tensors go through kernel A and CPU
     tensors through ``sdf_core_plain``, whatever ``backward`` says.  When
     autograd needs the op's gradient, ``backward`` is the schedule:
-    "recompute" (``SdfCoreFn``: A, then H), "stash" (``core_stash.SdfStashFn``:
-    D, then E), "stash_all" (D's and E's variants that also stash and read
-    the reverse sweep's u_i and g_enc) or "stash_xla" (D, then E's plain
-    version over the whole batch)."""
+    "recompute" (``SdfCoreFn``: A, then H), "stash", "stash_all" and
+    "stash_xla" ``core_stash.fused_sdf_value_feat_grad_stash`` with a bf16
+    stash, as JAX's op: "stash" D, then E; "stash_all" D's and E's variants
+    that also stash and read the reverse sweep's u_i and g_enc; "stash_xla"
+    D, then E's plain version over the whole batch."""
     grad = needs_grad(x, *tree_leaves(params))
-    weights = materialize_sdf_weights_full(params, cfg)
-    if grad:
-        if backward == "recompute":
-            return SdfCoreFn.apply(cfg, compute_dtype, x.contiguous(), *weights)
-        if backward in ("stash", "stash_all", "stash_xla"):
-            from nrhints_torch.kernels.core_stash import SdfStashFn
+    if grad and backward in ("stash", "stash_all", "stash_xla"):
+        from nrhints_torch.kernels.core_stash import fused_sdf_value_feat_grad_stash
 
-            return SdfStashFn.apply(cfg, compute_dtype, "bfloat16", _stash_bwd_impl(backward), backward == "stash_all",
-                                    x.contiguous(), *weights)
+        return fused_sdf_value_feat_grad_stash(params, cfg, x, compute_dtype=compute_dtype,
+                                               stash_us=backward == "stash_all",
+                                               bwd_impl="xla" if backward == "stash_xla" else "pallas")
+    if grad and backward != "recompute":
         raise NotImplementedError(f"core_backward={backward!r}: the port's fused core has the 'recompute', 'stash', "
                                   "'stash_all' and 'stash_xla' schedules")
+    weights = materialize_sdf_weights_full(params, cfg)
+    if grad:
+        return SdfCoreFn.apply(cfg, compute_dtype, x.contiguous(), *weights)
+    return sdf_core_primal(weights, x, cfg, compute_dtype)
+
+
+def sdf_core_primal(weights, x: torch.Tensor, cfg: SDFNetConfig, compute_dtype: str):
+    """The undifferentiated core: kernel A on a CUDA tensor,
+    ``sdf_core_plain`` on a CPU tensor (as JAX's ops dispatch their
+    non-stash forward for the undifferentiated primal)."""
     if x.device.type == "cpu":
         return sdf_core_plain(weights, x, cfg, compute_dtype)
-    check_kernel_dtype(compute_dtype)
-    return sdf_core_fwd(weights, x.contiguous(), cfg)
+    return sdf_core_fwd(weights, x.contiguous(), cfg, compute_dtype=compute_dtype)
 
 
 def fused_mlp_apply(params: dict, n_layers: int, x: torch.Tensor, *, backward: str = "stash") -> torch.Tensor:

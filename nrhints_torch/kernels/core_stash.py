@@ -29,10 +29,16 @@ Under ``core_backward="stash_xla"`` the ops keep kernels D and F but run
 their backward as the plain versions over the whole batch (the JAX package
 runs the same program through XLA there).
 
+``fused_sdf_value_feat_grad_stash`` is the SDF op's entry point, with
+JAX's signature: ``compute_dtype`` (bf16 or exact f32 dot operands) and
+``stash_dtype`` (a bf16 or f32 stash) pick D's and E's instances on the
+card, each counted under ``core_mlp.instance_name``.  The trunk's kernels
+compute with bf16 operands and keep a bf16 stash only; their f32 instances
+are the next port slice.
+
 On CPU tensors every wrapper runs its plain version; on CUDA tensors it
-launches its kernel or raises.  The kernels compute with bf16 dot operands
-and a bf16 stash only.  The layouts and backward launchers shared with the
-recompute kernels live in ``core_mlp.py``.
+launches its kernel or raises.  The layouts and backward launchers shared
+with the recompute kernels live in ``core_mlp.py``.
 """
 from __future__ import annotations
 
@@ -43,27 +49,32 @@ from torch.autograd.function import once_differentiable
 
 from nrhints_torch.fields.sdf import SDFNetConfig, _layer_dims
 from nrhints_torch.kernels import cuda_lib
-from nrhints_torch.kernels.common import INV_SQRT2, dot, gate_from_h
+from nrhints_torch.kernels.common import DTYPES as _DTYPES, INV_SQRT2, dot, gate_from_h, torch_dtype
 from nrhints_torch.kernels.core_mlp import (
     _launch,
     _round16,
+    _wt,
     check_kernel_dtype,
+    core_pack,
     cotangent,
+    dtype_bits,
     encode_points,
     gate_layout,
+    instance_name,
+    materialize_sdf_weights_full,
     mlp_bwd_launch,
     mlp_relu_bwd_plain,
     mlp_relu_plain,
+    needs_grad,
     pack_mlp,
-    pack_sdf_mlp,
     per_dim_sum,
     require_cuda,
     reverse_sweep,
     sdf_bwd_launch,
     sdf_core_plain,
+    sdf_core_primal,
 )
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+from nrhints_torch.utils import tree_leaves
 
 
 # ---------------------------------------------------------------------------
@@ -200,7 +211,8 @@ def mlp_relu_bwd_stash_plain(weights, x, zs, g, n_layers: int, compute_dtype="fl
 
 def sdf_stash_columns(cfg: SDFNetConfig, stash_us: bool = False) -> list[tuple[int, int]]:
     """(column offset, width) of each part of kernel D's packed stash [N,
-    ``sdf_stash_width``]: every layer's h_i at 16-column boundaries (GT
+    ``sdf_stash_width``], in columns of the stash's dtype, the same for a
+    bf16 and an f32 stash: every layer's h_i at 16-column boundaries (GT
     columns in all, ``gates_total`` of ``pack_sdf_mlp``'s meta); with
     ``stash_us`` (``core_backward="stash_all"``) then every layer's u_i at
     the same offsets plus GT, and g_enc [N, d0] at 2 GT."""
@@ -230,44 +242,45 @@ def split_stash(stash: torch.Tensor, cols) -> list[torch.Tensor]:
 
 
 def sdf_stash_fwd(weights: Sequence[torch.Tensor], x: torch.Tensor, cfg: SDFNetConfig, pk: dict | None = None,
-                  stash_us: bool = False):
+                  stash_us: bool = False, compute_dtype: str = "bfloat16", stash_dtype: str = "bfloat16"):
     """Kernel D on the card -> (sdf [N], feat [N, F], grad [N, 3], stash
-    [N, ``sdf_stash_width``] bf16): kernel A's outputs, bit for bit, and
-    every h_i at its ``sdf_stash_columns`` offset; with ``stash_us`` (D's
-    stash_all variant) also every u_i and g_enc, rounded to bf16, where
-    the h_i columns and the outputs stay plain D's bit for bit.  Its f32
-    gates go to a scratch of ``core_mlp.gate_layout``'s size, freed when
-    this returns."""
+    [N, ``sdf_stash_width``] of ``stash_dtype``): kernel A's outputs at the
+    same ``compute_dtype``, bit for bit, and every h_i at its
+    ``sdf_stash_columns`` offset; with ``stash_us`` (D's stash_all variant)
+    also every u_i and g_enc, rounded to ``stash_dtype``, where the h_i
+    columns and the outputs stay plain D's bit for bit.  Its f32 gates go to
+    a scratch of ``core_mlp.gate_layout``'s size, freed when this returns."""
     require_cuda(x, (None, 3), "x")
     n, dev = x.shape[0], x.device
-    pk = pack_sdf_mlp(weights, cfg, with_feat=True) if pk is None else pk
+    pk = core_pack(weights, cfg, compute_dtype, pk)
     gt = int(pk["meta"][9])
     name = "sdf_stash_all_fwd" if stash_us else "sdf_stash_fwd"
     sdf = torch.empty(n, device=dev)
     feat = torch.empty((n, cfg.d_out_feat), device=dev)
     gx = torch.empty((n, 3), device=dev)
-    stash = torch.empty((n, sdf_stash_width(cfg, stash_us)), dtype=torch.bfloat16, device=dev)
+    stash = torch.empty((n, sdf_stash_width(cfg, stash_us)), dtype=torch_dtype(stash_dtype), device=dev)
     if n == 0:
         return sdf, feat, gx, stash
     gates = torch.empty(gate_layout(n, gt)[2], device=dev)
     _launch(
-        cuda_lib.load("sdf_core"), name, name,
-        x.data_ptr(), pk["wpack"].data_ptr(), pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr(),
+        cuda_lib.load("sdf_core"), name, instance_name(name, compute_dtype, stash_dtype),
+        x.data_ptr(), pk["wpack"].data_ptr(), _wt(pk), pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr(),
         sdf.data_ptr(), feat.data_ptr(), gx.data_ptr(), stash.data_ptr(), gates.data_ptr(), n,
-        pk["meta"].ctypes.data, float(cfg.scale), cuda_lib.stream_ptr(dev),
+        pk["meta"].ctypes.data, float(cfg.scale), dtype_bits(compute_dtype, stash_dtype), cuda_lib.stream_ptr(dev),
     )
     return sdf, feat, gx, stash
 
 
 def sdf_stash_bwd(weights, x, stash, cots, cfg: SDFNetConfig, pk: dict | None = None, need_dw: bool = True,
-                  stash_us: bool = False):
+                  stash_us: bool = False, compute_dtype: str = "bfloat16", stash_dtype: str = "bfloat16"):
     """Kernel E on the card -> (dws, dx) with the shapes of
-    ``sdf_core_bwd_stash_plain``'s, at kernel D's stash
-    (``core_mlp.sdf_bwd_launch``); ``need_dw=False`` -> (None, dx) without
-    the dW passes.  ``stash_us``: E's stash_all variant, at the u_i and
-    g_enc of D's stash_all variant (``sdf_core_bwd_stash_all_plain``'s
-    function)."""
-    return sdf_bwd_launch(weights, x, cots, cfg, pk, stash=stash, need_dw=need_dw, stash_us=stash_us)
+    ``sdf_core_bwd_stash_plain``'s, at kernel D's stash of ``stash_dtype``
+    with dot operands of ``compute_dtype`` (``core_mlp.sdf_bwd_launch``);
+    ``need_dw=False`` -> (None, dx) without the dW passes.  ``stash_us``:
+    E's stash_all variant, at the u_i and g_enc of D's stash_all variant
+    (``sdf_core_bwd_stash_all_plain``'s function)."""
+    return sdf_bwd_launch(weights, x, cots, cfg, pk, stash=stash, need_dw=need_dw, stash_us=stash_us,
+                          compute_dtype=compute_dtype, stash_dtype=stash_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -309,16 +322,11 @@ def mlp_stash_bwd(weights, x: torch.Tensor, zs: torch.Tensor, g: torch.Tensor, n
 # The autograd ops
 
 
-def _check_kernel_dtypes(compute_dtype: str, stash_dtype: str) -> None:
-    check_kernel_dtype(compute_dtype)
-    if stash_dtype != "bfloat16":
-        raise NotImplementedError("the CUDA stash kernels keep a bf16 stash only")
-
-
 class SdfStashFn(torch.autograd.Function):
     """(sdf [N], feat [N, F], grad [N, 3]) with the stash backward: forward
-    kernel D and backward kernel E on CUDA tensors (with ``bwd_impl="xla"``,
-    E's plain version on the card's tensors), the plain versions on CPU
+    kernel D and backward kernel E on CUDA tensors, their instances at
+    ``compute_dtype`` and ``stash_dtype`` (with ``bwd_impl="xla"``, E's
+    plain version on the card's tensors), the plain versions on CPU
     tensors.  ``stash_us`` (``core_backward="stash_all"``) also stashes the
     reverse sweep's u_i and g_enc, and the backward reads them instead of
     recomputing the sweep: D's and E's stash_all variants.  The backward is
@@ -331,15 +339,15 @@ class SdfStashFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, compute_dtype, stash_dtype, bwd_impl, stash_us, x, *weights):
         ctx.cfg, ctx.compute_dtype, ctx.bwd_impl, ctx.stash_us = cfg, compute_dtype, bwd_impl, stash_us
+        ctx.stash_dtype = stash_dtype
         if x.device.type == "cpu":
             out = sdf_core_fwd_hs_plain(weights, x, cfg, compute_dtype, stash_dtype, return_us=stash_us)
             sdf, feat, gx, hs = out[:4]
             stash = [*hs, *out[4], out[5]] if stash_us else hs
             ctx.pk = None
         else:
-            _check_kernel_dtypes(compute_dtype, stash_dtype)
-            ctx.pk = pack_sdf_mlp([w.detach() for w in weights], cfg, with_feat=True)
-            sdf, feat, gx, packed = sdf_stash_fwd(weights, x, cfg, ctx.pk, stash_us)
+            ctx.pk = core_pack([w.detach() for w in weights], cfg, compute_dtype)
+            sdf, feat, gx, packed = sdf_stash_fwd(weights, x, cfg, ctx.pk, stash_us, compute_dtype, stash_dtype)
             stash = [packed]
         ctx.save_for_backward(x, *weights, *stash)
         ctx.n_w = len(weights)
@@ -358,7 +366,8 @@ class SdfStashFn(torch.autograd.Function):
         )
         need_dw = any(ctx.needs_input_grad[6:])
         if x.device.type == "cuda" and ctx.bwd_impl != "xla":
-            dws, dx = sdf_stash_bwd(weights, x, stash[0], cots, cfg, ctx.pk, need_dw, ctx.stash_us)
+            dws, dx = sdf_stash_bwd(weights, x, stash[0], cots, cfg, ctx.pk, need_dw, ctx.stash_us, ctx.compute_dtype,
+                                    ctx.stash_dtype)
         else:
             if x.device.type == "cuda":
                 stash = split_stash(stash[0], sdf_stash_columns(cfg, ctx.stash_us))
@@ -383,7 +392,8 @@ class MlpStashFn(torch.autograd.Function):
             out, zs = mlp_relu_fwd_zs_plain(weights, x, n_layers, compute_dtype, stash_dtype)
             ctx.pk = None
         else:
-            _check_kernel_dtypes(compute_dtype, stash_dtype)
+            check_kernel_dtype(compute_dtype)
+            check_kernel_dtype(stash_dtype)
             ctx.pk = pack_mlp([w.detach() for w in weights], n_layers)
             out, stash = mlp_stash_fwd(weights, x, n_layers, ctx.pk)
             zs = [stash]
@@ -405,3 +415,37 @@ class MlpStashFn(torch.autograd.Function):
         else:
             dws, dx = mlp_stash_bwd(weights, x, zs[0], g, ctx.n_layers, ctx.pk)
         return (None, None, None, None, dx, *dws)
+
+
+# ---------------------------------------------------------------------------
+# Entry point
+
+
+def fused_sdf_value_feat_grad_stash(
+    params: dict,
+    cfg: SDFNetConfig,
+    x: torch.Tensor,
+    *,
+    compute_dtype: str = "bfloat16",
+    stash_dtype: str = "bfloat16",
+    stash_us: bool = False,
+    bwd_impl: str = "pallas",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(sdf [N], feat [N, F], grad [N, 3]) of the SDF field at ``x`` with
+    the stash backward (port of ``core_stash.py::fused_sdf_value_feat_grad_stash``):
+    the outputs and forward numerics of ``core_mlp.fused_sdf_value_feat_grad``.
+    With no gradient wanted it runs the undifferentiated core (kernel A, or
+    ``sdf_core_plain`` on a CPU tensor), as JAX's op does; with one,
+    ``SdfStashFn``: D's and E's instances at ``compute_dtype`` ("bfloat16"
+    or exact-f32 "float32" dot operands) and ``stash_dtype`` (the stash's
+    dtype); ``stash_us`` their stash_all variants; ``bwd_impl="xla"`` E's
+    plain version over the whole batch ("pallas", JAX's name, is the CUDA
+    kernel)."""
+    if bwd_impl not in ("pallas", "xla"):
+        raise ValueError(f"bwd_impl must be 'pallas' or 'xla', got {bwd_impl!r}")
+    torch_dtype(compute_dtype), torch_dtype(stash_dtype)
+    weights = materialize_sdf_weights_full(params, cfg)
+    if not needs_grad(x, *tree_leaves(params)):
+        return sdf_core_primal(weights, x, cfg, compute_dtype)
+    return SdfStashFn.apply(cfg, compute_dtype, stash_dtype, "xla" if bwd_impl == "xla" else "kernel", stash_us,
+                            x.contiguous(), *weights)

@@ -16,7 +16,12 @@ cp.async-staged products of that forward, that chain and those passes,
 ``march_common.cuh`` the march machinery (one warp a ray) and template of B,
 C, K, L, M and N, ``mma_rows.cuh`` the ldmatrix and mma.sync row engine of
 the sweeps of C, K, L, M and N, and the f32 engine of their f32 instances
-(``*_f32``, counted under their own names).
+(``*_f32``, counted under their own names) and of the SDF core's f32
+instances.  The SDF core's entry points (A, D, E, H and D's and E's
+stash_all variants) take an int of dtype bits (``core_mlp.dtype_bits``);
+each instance counts under ``core_mlp.instance_name``: the kernel's name,
+with ``_f32`` for f32 dot operands and ``_f32stash`` / ``_bf16stash`` for a
+stash dtype other than the operands'.
 """
 from __future__ import annotations
 
@@ -39,6 +44,13 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+# The launch counters of the SDF core's instances (core_mlp.instance_name).
+SDF_CORE_INSTANCES = (
+    ["sdf_core_fwd", "sdf_core_fwd_f32", "sdf_core_bwd", "sdf_core_bwd_f32"]
+    + [f"{k}{c}" for k in ("sdf_stash_fwd", "sdf_stash_bwd", "sdf_stash_all_fwd", "sdf_stash_all_bwd")
+       for c in ("", "_f32", "_f32_bf16stash", "_f32stash")]
+)
+
 launch_counts = {
     "sdf_core_fwd": 0, "round_machinery": 0, "shadow_final": 0,
     "sdf_stash_fwd": 0, "sdf_stash_bwd": 0, "mlp_stash_fwd": 0, "mlp_stash_bwd": 0,
@@ -48,19 +60,20 @@ launch_counts = {
     "shadow_final_f32": 0, "march_sweep_f32": 0, "march_rounds_f32": 0, "importance_march_f32": 0,
     "shadow_march_f32": 0,
 }
+launch_counts.update({k: 0 for k in SDF_CORE_INSTANCES if k not in launch_counts})
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "sdf_core": {
-        "sdf_core_fwd": [_P] * 8 + [_I, _P, _F, _P],
-        "sdf_stash_fwd": [_P] * 9 + [_I, _P, _F, _P],
-        "sdf_stash_all_fwd": [_P] * 9 + [_I, _P, _F, _P],
+        "sdf_core_fwd": [_P] * 9 + [_I, _P, _F, _I, _P],
+        "sdf_stash_fwd": [_P] * 10 + [_I, _P, _F, _I, _P],
+        "sdf_stash_all_fwd": [_P] * 10 + [_I, _P, _F, _I, _P],
     },
     "sdf_stash": {
-        "sdf_stash_bwd": [_P] * 15 + [_I, _I, _I, _P, _F, _P],
-        "sdf_stash_all_bwd": [_P] * 15 + [_I, _I, _I, _P, _F, _P],
+        "sdf_stash_bwd": [_P] * 16 + [_I, _I, _I, _P, _F, _I, _P],
+        "sdf_stash_all_bwd": [_P] * 16 + [_I, _I, _I, _P, _F, _I, _P],
     },
-    "sdf_core_bwd": {"sdf_core_bwd": [_P] * 17 + [_I, _I, _I, _P, _F, _P]},
+    "sdf_core_bwd": {"sdf_core_bwd": [_P] * 18 + [_I, _I, _I, _P, _F, _I, _P]},
     "mlp_stash": {
         "mlp_stash_fwd": [_P, _P, _P, _P, _P, _I, _P, _P],
         "mlp_fwd": [_P, _P, _P, _P, _I, _P, _P],

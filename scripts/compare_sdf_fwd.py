@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
-"""Kernel A of two checkouts of the PyTorch/CUDA port, compared bit for bit.
+"""The SDF core's bf16 kernels of two checkouts of the PyTorch/CUDA port,
+compared bit for bit.
 
     python3 scripts/compare_sdf_fwd.py TREE_A TREE_B
 
-Each tree's ``nrhints_torch`` runs ``core_mlp.sdf_core_fwd`` on a CUDA card,
-in a process of its own, on the same 65,536 points (seed 0, one train
-step's core call) and the full-width SDF weights made from seed 0; the
-script prints each output's largest absolute difference and whether all
-three are equal.  It needs one card.
+Each tree's ``nrhints_torch`` runs, on a CUDA card, in a process of its own,
+on the same 65,536 points (seed 0, one train step's core call), the
+full-width SDF weights made from seed 0 and the same cotangents (seed 1):
+kernel A (``core_mlp.sdf_core_fwd``), D and D's stash_all variant
+(``core_stash.sdf_stash_fwd``: outputs and stash), E and E's variant at
+their own tree's D stash (``core_stash.sdf_stash_bwd``) and H
+(``core_mlp.sdf_core_bwd``), each with its default (bf16) dtypes, which
+both trees take.  The script prints each kernel's largest absolute
+difference and whether all its outputs are equal.  It needs one card.
 """
 from __future__ import annotations
 
@@ -22,12 +27,23 @@ def run(tree: str, out: str) -> None:
     import numpy as np
     import torch
     from nrhints_torch.fields.sdf import SDFNetConfig, sdf_init
-    from nrhints_torch.kernels import core_mlp
+    from nrhints_torch.kernels import core_mlp, core_stash
 
     cfg = SDFNetConfig()
+    n = 65536
     w = core_mlp.materialize_sdf_weights_full(sdf_init(torch.Generator().manual_seed(0), cfg, "cuda"), cfg)
-    x = torch.tensor(np.random.default_rng(0).normal(size=(65536, 3)).astype(np.float32) * 0.5, device="cuda")
-    torch.save([t.cpu() for t in core_mlp.sdf_core_fwd(w, x, cfg)], out)
+    x = torch.tensor(np.random.default_rng(0).normal(size=(n, 3)).astype(np.float32) * 0.5, device="cuda")
+    rng = np.random.default_rng(1)
+    cots = tuple(torch.tensor(rng.normal(size=s).astype(np.float32), device="cuda")
+                 for s in ((n,), (n, cfg.d_out_feat), (n, 3)))
+    res = {"A": list(core_mlp.sdf_core_fwd(w, x, cfg))}
+    for name, us in (("D", False), ("D stash_all", True)):
+        res[name] = list(core_stash.sdf_stash_fwd(w, x, cfg, stash_us=us))
+        e_dws, e_dx = core_stash.sdf_stash_bwd(w, x, res[name][3], cots, cfg, stash_us=us)
+        res[name.replace("D", "E")] = [e_dx, *e_dws]
+    h_dws, h_dx = core_mlp.sdf_core_bwd(w, x, cots, cfg)
+    res["H"] = [h_dx, *h_dws]
+    torch.save({k: [t.cpu() for t in v] for k, v in res.items()}, out)
 
 
 def main() -> int:
@@ -42,9 +58,12 @@ def main() -> int:
             path = str(Path(tmp) / f"{i}.pt")
             subprocess.run([sys.executable, __file__, "--run", tree, path], check=True)
             outs.append(torch.load(path))
-    diffs = {name: (a - b).abs().max().item() for name, a, b in zip(("sdf", "feat", "grad"), *outs)}
-    equal = all(torch.equal(a, b) for a, b in zip(*outs))
-    print(f"kernel A, {sys.argv[1]} against {sys.argv[2]}: max abs difference {diffs}; equal bit for bit: {equal}")
+    for name in outs[0]:
+        a, b = outs[0][name], outs[1][name]
+        diff = max((u.float() - v.float()).abs().max().item() for u, v in zip(a, b))
+        equal = len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
+        print(f"kernel {name}, {sys.argv[1]} against {sys.argv[2]}: max abs difference {diff:.3e}; equal bit for "
+              f"bit: {equal}")
     return 0
 
 

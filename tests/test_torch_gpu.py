@@ -34,6 +34,15 @@ every stratified sample kept, Z_NN_SHARE of the samples within 1e-4 of a
 plain sample: near-ties of the cdf and the u grid send a draw to the next
 interval when a sweep rounds otherwise).  Kernel B's rank merge gives the
 bitonic network's z bit for bit.
+The SDF core's f32 instances (compute_dtype="float32": A, D, E, H and D's
+and E's stash_all variants) against their plain f32 versions: 1e-5 of
+max(1, scale) for the outputs, 1e-4 of each gradient's scale (exact f32
+dots on both sides, summed in other orders; the dW sums run over every
+point); f32 matmuls run without TF32.  An f32 stash holds the kernel's
+h_i, u_i and g_enc to 1e-5; a bf16 stash to 1e-2 (a value within an f32
+ulp of a bf16 rounding boundary rounds the other way), and E reads the
+kernel's own stash on both sides.  The mixed instance with bf16 operands
+and an f32 stash keeps the bf16 tolerances above.
 """
 import numpy as np
 import pytest
@@ -189,14 +198,8 @@ def test_render_rays_card_matches_cpu(cuda):
     before = dict(cuda_lib.launch_counts)
     card = render_rays(to_card(params), cfg, RayBundle(*(to_card(t) for t in (o, d, pl_, z0[:, :1], z0[:, -1:]))))
     torch.cuda.synchronize()
-    assert {k: cuda_lib.launch_counts[k] - before[k] for k in before} == {
-        "sdf_core_fwd": 1, "round_machinery": 8, "shadow_final": 1,
-        "sdf_stash_fwd": 0, "sdf_stash_bwd": 0, "mlp_stash_fwd": 0, "mlp_stash_bwd": 0,
-        "sdf_stash_all_fwd": 0, "sdf_stash_all_bwd": 0,
-        "sdf_core_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0,
-        "march_sweep": 0, "march_rounds": 0, "importance_march": 0, "shadow_march": 0,
-        "shadow_final_f32": 0, "march_sweep_f32": 0, "march_rounds_f32": 0, "importance_march_f32": 0,
-        "shadow_march_f32": 0}
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in before} == dict(
+        {k: 0 for k in before}, sdf_core_fwd=1, round_machinery=8, shadow_final=1)
     for k in ("rgb", "depth", "visibilities"):
         assert (getattr(card, k).cpu() - getattr(cpu, k)).abs().max().item() <= 2e-2, k
 
@@ -209,8 +212,21 @@ def test_wrappers_raise_on_bad_inputs(cuda):
         core_mlp.sdf_core_fwd(w, torch.zeros((4, 3), dtype=torch.float64, device=cuda), SMALL)
     with pytest.raises(ValueError):
         core_mlp.sdf_core_fwd(w, torch.zeros((3, 4), device=cuda).t(), SMALL)
-    with pytest.raises(NotImplementedError):
-        core_mlp.fused_sdf_value_feat_grad(p, SMALL, torch.zeros((4, 3), device=cuda), compute_dtype="float32")
+    # compute_dtype="float32" runs A's f32 instance (it raised before that
+    # instance existed); the trunk still refuses f32 operands.
+    x = torch.tensor(np.random.default_rng(3).normal(size=(37, 3)).astype(np.float32) * 0.5, device=cuda)
+    before = cuda_lib.launch_counts["sdf_core_fwd_f32"]
+    out = core_mlp.fused_sdf_value_feat_grad(p, SMALL, x, compute_dtype="float32")
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["sdf_core_fwd_f32"] == before + 1
+    for k, ref in zip(out, core_mlp.sdf_core_plain(w, x, SMALL, "float32")):
+        _close(k, ref, 1e-5)
+    with pytest.raises(ValueError):
+        core_mlp.fused_sdf_value_feat_grad(p, SMALL, x, compute_dtype="float16")
+    tw = [torch.zeros((45, 32), device=cuda), torch.zeros(32, device=cuda), torch.zeros((32, 3), device=cuda),
+          torch.zeros(3, device=cuda)]
+    with pytest.raises(NotImplementedError, match="next port slice"):
+        core_mlp.MlpFn.apply(1, "float32", torch.zeros((4, 45), device=cuda), *tw)
 
 
 def _gpu_sdf_case(cuda, cfg, n):
@@ -926,3 +942,162 @@ def test_sdf_stash_bwd_without_weight_gradients(cuda, cfg):
     none, dx_only = core_stash.sdf_stash_bwd(w, x, stash, cots, cfg, need_dw=False)
     torch.cuda.synchronize()
     assert none is None and dws is not None and torch.equal(dx_only, dx)
+
+
+# The SDF core's f32 instances.  (compute, stash) of D and E: both f32, f32
+# operands with the shipping bf16 stash (JAX's fused_sdf_value_feat_grad at
+# compute_dtype="float32"), and bf16 operands with an f32 stash.
+F32_COMBOS = [("float32", "float32"), ("float32", "bfloat16"), ("bfloat16", "float32")]
+# Point counts: one point, a ragged 64-point block, and several dW row
+# chunks with a ragged last block.
+F32_N = [1, 65, 4161]
+
+
+def _tols(compute, stash):
+    """(output tol, stash tol, gradient tol) of an instance against its
+    plain version (see the module's docstring)."""
+    if compute == "bfloat16":
+        return 1e-2, 1e-2, 2e-2
+    return 1e-5, 1e-5 if stash == "float32" else 1e-2, 1e-4
+
+
+@pytest.fixture
+def exact_f32(cuda):
+    """f32 matmuls in full f32 on the card for the plain versions."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [SMALL, SDFNetConfig()], ids=["small", "full"])
+@pytest.mark.parametrize("n", F32_N)
+def test_sdf_core_f32_kernels_match_plain(exact_f32, cfg, n):
+    """A's and H's f32 instances against sdf_core_plain and
+    sdf_core_bwd_plain at "float32"; H repeats bit for bit; one launch
+    each, counted under sdf_core_fwd_f32 and sdf_core_bwd_f32."""
+    w, x, cots = _gpu_sdf_case(exact_f32, cfg, n)
+    before = dict(cuda_lib.launch_counts)
+    out = core_mlp.sdf_core_fwd(w, x, cfg, compute_dtype="float32")
+    for k, p in zip(out, core_mlp.sdf_core_plain(w, x, cfg, "float32")):
+        _close(k, p, 1e-5)
+    dws, dx = core_mlp.sdf_core_bwd(w, x, cots, cfg, compute_dtype="float32")
+    torch.cuda.synchronize()
+    p_dws, p_dx = core_mlp.sdf_core_bwd_plain(w, x, cots, cfg, "float32")
+    _close_rel(dx, p_dx, 1e-4)
+    for k, p in zip(dws, p_dws):
+        assert k.shape == p.shape
+        _close_rel(k, p, 1e-4)
+    dws2, dx2 = core_mlp.sdf_core_bwd(w, x, cots, cfg, compute_dtype="float32")
+    assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(dws, dws2))
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in before if cuda_lib.launch_counts[k] != before[k]} == {
+        "sdf_core_fwd_f32": 1, "sdf_core_bwd_f32": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stash_us", [False, True], ids=["stash", "stash_all"])
+@pytest.mark.parametrize("compute,stash_dt", F32_COMBOS)
+@pytest.mark.parametrize("cfg", [SMALL, SDFNetConfig()], ids=["small", "full"])
+@pytest.mark.parametrize("n", F32_N)
+def test_sdf_stash_f32_kernels_match_plain(exact_f32, cfg, n, compute, stash_dt, stash_us):
+    """D's instance (or its stash_all variant's) at (compute, stash):
+    outputs equal A's at the same compute dtype bit for bit, the stash
+    against sdf_core_fwd_hs_plain; E's instance against its plain version
+    at D's stash, twice bit for bit, and without its dW passes (dx bit for
+    bit); each launch counted under its instance's name."""
+    w, x, cots = _gpu_sdf_case(exact_f32, cfg, n)
+    out_tol, stash_tol, grad_tol = _tols(compute, stash_dt)
+    L = cfg.n_layers
+    cols = core_stash.sdf_stash_columns(cfg, stash_us)
+    kw = dict(compute_dtype=compute, stash_dtype=stash_dt)
+    before = dict(cuda_lib.launch_counts)
+    sdf, feat, gx, stash = core_stash.sdf_stash_fwd(w, x, cfg, stash_us=stash_us, **kw)
+    assert stash.dtype == core_stash._DTYPES[stash_dt] and stash.shape == (n, core_stash.sdf_stash_width(cfg, stash_us))
+    for k, a in zip((sdf, feat, gx), core_mlp.sdf_core_fwd(w, x, cfg, compute_dtype=compute)):
+        assert torch.equal(k, a)
+    plain = core_stash.sdf_core_fwd_hs_plain(w, x, cfg, compute, stash_dt, return_us=stash_us)
+    for k, p in zip((sdf, feat, gx), plain[:3]):
+        _close(k, p, out_tol)
+    parts = core_stash.split_stash(stash, cols)
+    for k, p in zip(parts, [*plain[3], *plain[4], plain[5]] if stash_us else plain[3]):
+        _close(k.float(), p.float(), stash_tol)
+    dws, dx = core_stash.sdf_stash_bwd(w, x, stash, cots, cfg, stash_us=stash_us, **kw)
+    torch.cuda.synchronize()
+    if stash_us:
+        p_dws, p_dx = core_stash.sdf_core_bwd_stash_all_plain(w, x, parts[:L], parts[L : 2 * L], parts[2 * L], cots,
+                                                              cfg, compute)
+    else:
+        p_dws, p_dx = core_stash.sdf_core_bwd_stash_plain(w, x, parts, cots, cfg, compute)
+    _close_rel(dx, p_dx, grad_tol)
+    assert len(dws) == len(p_dws)
+    for k, p in zip(dws, p_dws):
+        assert k.shape == p.shape
+        _close_rel(k, p, grad_tol)
+    dws2, dx2 = core_stash.sdf_stash_bwd(w, x, stash, cots, cfg, stash_us=stash_us, **kw)
+    none, dx_only = core_stash.sdf_stash_bwd(w, x, stash, cots, cfg, need_dw=False, stash_us=stash_us, **kw)
+    assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(dws, dws2))
+    assert none is None and torch.equal(dx_only, dx)
+    fwd, bwd = ("sdf_stash_all_fwd", "sdf_stash_all_bwd") if stash_us else ("sdf_stash_fwd", "sdf_stash_bwd")
+    a_name = core_mlp.instance_name("sdf_core_fwd", compute)
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in before if cuda_lib.launch_counts[k] != before[k]} == {
+        core_mlp.instance_name(fwd, compute, stash_dt): 1, a_name: 1,
+        core_mlp.instance_name(bwd, compute, stash_dt): 3}
+
+
+def _sdf_leaves(cfg, dev):
+    from nrhints_torch.utils import tree_items
+
+    p = sdf_init(torch.Generator().manual_seed(0), cfg, dev)
+    leaves = {n: t.detach().clone().requires_grad_(True) for n, t in tree_items(p)}
+    params = {}
+    for name, t in leaves.items():
+        layer, key = name.strip("/").split("/")
+        params.setdefault(layer, {})[key] = t
+    return params, leaves
+
+
+# The f32 entry points and the instances each schedule launches.
+F32_ENTRY = {
+    "recompute": (None, {"sdf_core_fwd_f32": 1, "sdf_core_bwd_f32": 1}),
+    "stash": (None, {"sdf_stash_fwd_f32_bf16stash": 1, "sdf_stash_bwd_f32_bf16stash": 1}),
+    "stash_all": (None, {"sdf_stash_all_fwd_f32_bf16stash": 1, "sdf_stash_all_bwd_f32_bf16stash": 1}),
+    "stash_xla": (None, {"sdf_stash_fwd_f32_bf16stash": 1}),
+    "stash f32": (dict(stash_dtype="float32"), {"sdf_stash_fwd_f32": 1, "sdf_stash_bwd_f32": 1}),
+    "stash_all f32": (dict(stash_dtype="float32", stash_us=True), {"sdf_stash_all_fwd_f32": 1,
+                                                                     "sdf_stash_all_bwd_f32": 1}),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", sorted(F32_ENTRY))
+def test_f32_entry_points_match_autograd(exact_f32, route):
+    """fused_sdf_value_feat_grad(compute_dtype="float32") under each
+    backward schedule, and fused_sdf_value_feat_grad_stash at an f32 stash,
+    against torch.autograd over sdf_core_plain(..., "float32") (the eikonal
+    term's second order included): outputs 1e-5, the weight-norm leaves'
+    and x's gradients 1e-4 of scale (2e-2, the bf16 stash's tolerance,
+    where the stash is bf16: the backward reads the h_i rounded to bf16);
+    the f32 instances' launches, and no other kernel's."""
+    cfg = SMALL
+    stash_kw, want = F32_ENTRY[route]
+    params, leaves = _sdf_leaves(cfg, exact_f32)
+    rng = np.random.default_rng(9)
+    x = torch.tensor(rng.normal(size=(300, 3)).astype(np.float32) * 0.5, device=exact_f32, requires_grad=True)
+    cots = [torch.tensor(rng.normal(size=s).astype(np.float32), device=exact_f32)
+            for s in ((300,), (300, cfg.d_out_feat), (300, 3))]
+    before = dict(cuda_lib.launch_counts)
+    if stash_kw is None:
+        out = core_mlp.fused_sdf_value_feat_grad(params, cfg, x, compute_dtype="float32", backward=route)
+    else:
+        out = core_stash.fused_sdf_value_feat_grad_stash(params, cfg, x, compute_dtype="float32", **stash_kw)
+    grads = torch.autograd.grad(out, [x, *leaves.values()], cots)
+    torch.cuda.synchronize()
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in before if cuda_lib.launch_counts[k] != before[k]} == want
+    ref_out = core_mlp.sdf_core_plain(core_mlp.materialize_sdf_weights_full(params, cfg), x, cfg, "float32")
+    ref = torch.autograd.grad(ref_out, [x, *leaves.values()], cots)
+    for k, p in zip(out, ref_out):
+        _close(k, p, 1e-5)
+    tol = 1e-4 if stash_kw is not None or route == "recompute" else 2e-2
+    for k, p in zip(grads, ref):
+        _close_rel(k, p, tol)
