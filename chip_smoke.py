@@ -108,6 +108,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    compute_dtype="float32" under each backward schedule and
    fused_sdf_value_feat_grad_stash at f32 stashes against autograd over the
    plain forward, with the launches of every f32 instance.
+17. the reflectance trunk at compute_dtype="float32" and
+   stash_dtype="float32" (``--trunk-f32``: alone): (a) F's and G's
+   instances at the same three dtype pairs and I's and J's f32 instances at
+   phase 3's 65,536 points and full width against their plain versions (I =
+   F, G and J repeat, J = G at F's f32 stash, bf16 operands with an f32
+   stash = the bf16 pair, all bit for bit; J also against the wholly plain
+   backward by the norm), each timed beside the bf16 instance's device time
+   and its bound; (b) fused_mlp_apply at compute_dtype="float32" under each
+   backward schedule, fused_mlp_apply_stash at each dtype pair and with
+   bwd_impl="xla", and fused_reflectance_forward at compute_dtype="float32"
+   against autograd over the plain forward (at the kernels' own ReLU masks,
+   and wholly plain by the norm), with the launches of every f32 instance.
 Phase 3 also holds kernels K (initial march sweep), L (refinement rounds),
 M (K and L in one kernel) and N (M and C's final sweep in one kernel), and
 B under the rank merge, against their plain versions, L = B's steps between
@@ -122,6 +134,7 @@ It prints a {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -204,19 +217,19 @@ RESUME_TOL = 1e-4
 # kernel's name, group), the first match wins.  A, D and H1 are the modes
 # of the 64-point forward of csrc/sdf_fwd.cuh, E1 and H2 of the 64-point
 # chain of csrc/sdf_bwd.cuh; D's and E1's stash_all variants (phase 13) are
-# the forward's fourth mode and the chain's third (CORE_MODES, by template
+# the forward's fourth mode and the chain's third; I, F and J1 the three
+# modes of the trunk's forward in csrc/mlp_stash.cu, whose one chain kernel
+# is G1 in a stash step and J2 in a recompute step (CORE_MODES, by template
 # arguments after the operand and stash types: core_group names each bf16
-# instance as before and the f32 and mixed instances of phase 16 by their
-# dtypes); I, F and J1 the three instances of the trunk's forward in
-# csrc/mlp_stash.cu, whose one chain kernel is G1 in a stash step and J2 in
-# a recompute step.  NCCL's kernels (phase 11) have their own group.
+# instance as before and the f32 and mixed instances of phases 16 and 17 by
+# their dtypes).  NCCL's kernels (phase 11) have their own group.
 DW_GROUP = "dW passes of E/G/H/J (dw_sum.cuh)"
 D_ALL_GROUP = "kernel D stash_all variant sdf_stash_all_fwd"
 E1_ALL_GROUP = "kernel E stash_all variant sdf_stash_all_bwd (E1)"
 TRUNK_CHAIN_GROUP = "trunk chain: G1, or J2 after J1"
-# The SDF core's kernel templates: (template, the arguments after <T, S, >)
-# -> (the bf16 instance's group, the kernel's label in an f32 or mixed
-# instance's group, core_f32_group).
+# The SDF core's and the trunk's kernel templates: (template, the arguments
+# after <T, S>) -> (the bf16 instance's group, the kernel's label in an f32
+# or mixed instance's group, core_f32_group).
 CORE_MODES = {
     ("sdf_core_fwd_kernel", "0"): ("kernel A sdf_core_fwd", "kernel A"),
     ("sdf_core_fwd_kernel", "1"): ("kernel D sdf_stash_fwd", "kernel D"),
@@ -225,11 +238,14 @@ CORE_MODES = {
     ("sdf_bwd_chain_kernel", "false, false"): ("kernel E sdf_stash_bwd (E1)", "kernel E1"),
     ("sdf_bwd_chain_kernel", "true, false"): ("kernel H chain (H2)", "kernel H2"),
     ("sdf_bwd_chain_kernel", "false, true"): (E1_ALL_GROUP, "kernel E1 stash_all"),
+    ("mlp_fwd_kernel", "0"): ("kernel I mlp_fwd", "kernel I"),
+    ("mlp_fwd_kernel", "1"): ("kernel F mlp_stash_fwd", "kernel F"),
+    ("mlp_fwd_kernel", "2"): ("kernel J, recompute pass (J1)", "kernel J1"),
+    ("mlp_bwd_chain_kernel", ""): (TRUNK_CHAIN_GROUP, "trunk chain"),
 }
-_CORE_KERNEL = re.compile(r"(sdf_core_fwd_kernel|sdf_bwd_chain_kernel)<([\w:]+), ([\w:]+), ([a-z0-9, ]+)>")
+_CORE_KERNEL = re.compile(
+    r"(sdf_core_fwd_kernel|sdf_bwd_chain_kernel|mlp_fwd_kernel|mlp_bwd_chain_kernel)<([\w:]+), ([\w:]+)(?:, ([a-z0-9, ]+))?>")
 STEP_GROUPS = (
-    ("mlp_fwd_kernel<0>", "kernel I mlp_fwd"), ("mlp_fwd_kernel<1>", "kernel F mlp_stash_fwd"),
-    ("mlp_fwd_kernel<2>", "kernel J, recompute pass (J1)"), ("mlp_bwd_chain_kernel", TRUNK_CHAIN_GROUP),
     ("dw_partial", DW_GROUP), ("dw_reduce", DW_GROUP), ("colsum", DW_GROUP),
     ("round_machinery", "kernel B round_machinery"),
     ("march_kernel<false, false, true", "kernel C shadow_final"),
@@ -353,13 +369,13 @@ def snapshot_err(a: dict, b: dict) -> tuple[float, str]:
 
 
 def core_group(key: str) -> str | None:
-    """The group of an SDF core kernel by its name (CORE_MODES), else None:
-    the bf16 instance's group, or core_f32_group's label of an f32 or mixed
-    instance."""
+    """The group of an SDF core or trunk kernel by its name (CORE_MODES),
+    else None: the bf16 instance's group, or core_f32_group's label of an
+    f32 or mixed instance."""
     m = _CORE_KERNEL.search(key)
-    if m is None or (m.group(1), m.group(4)) not in CORE_MODES:
+    if m is None or (m.group(1), m.group(4) or "") not in CORE_MODES:
         return None
-    bf16_group, label = CORE_MODES[(m.group(1), m.group(4))]
+    bf16_group, label = CORE_MODES[(m.group(1), m.group(4) or "")]
     t, s = ("bfloat16" if "bfloat16" in a else "float32" for a in (m.group(2), m.group(3)))
     return bf16_group if t == s == "bfloat16" else core_f32_group(label, t, s)
 
@@ -2280,9 +2296,33 @@ CORE_F32_CALLS = (
 
 
 def core_f32_group(kernel: str, compute: str, stash: str | None) -> str:
-    """The STEP_GROUPS label of an SDF core instance: the kernel's label,
-    then the instance's dtypes (f32 operands and stash, or the mixed pair)."""
+    """The group of an SDF core or trunk instance: the kernel's label, then
+    the instance's dtypes (f32 operands and stash, or the mixed pair)."""
     return f"{kernel} {compute}/{stash or compute}"
+
+
+def f32_record(phase: str, out: dict, bf16_dev: dict, n_pts: int, smi: str, name: str, checks, fn, plain_fn, group,
+               bf16_fn, bf16_group, bd) -> None:
+    """Time an f32 or mixed instance and log it (phases 16(a) and 17(a)):
+    CUDA events around ``fn`` and its plain version, ``group``'s device time
+    (the median of the profiled calls that record it) beside the bf16
+    instance's in this call (``bf16_fn``'s ``bf16_group``, profiled once a
+    call into ``bf16_dev``) and the bound ``bd``; checks: (what, (abs err,
+    rel err), tol) against the plain version, each raising past its tol.
+    -> out[name] = (max abs err, ms, plain ms, bound ms, bound by)."""
+    ms, plain_ms = cuda_ms(fn, 10), cuda_ms(plain_fn, 3, warmup=1)
+    dev_ms = kernel_device_ms(fn, group)
+    if bf16_group not in bf16_dev:
+        bf16_dev[bf16_group] = kernel_device_ms(bf16_fn, bf16_group)
+    out[name] = (max(e[0] for _, e, _ in checks), ms, plain_ms, bd[0], bd[1])
+    errs = "; ".join(f"{what} {e[0]:.3e} (rel {e[1]:.3e}, tol {tol})" for what, e, tol in checks)
+    log(f"[{phase} {name}] N={n_pts}: max abs err against its plain version: {errs}; {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms; device time {dev_ms:.4f} ms against the bf16 instance's {bf16_dev[bf16_group]:.4f} "
+        f"ms in this call; bound {bd[0]:.4f} ms ({bd[1]}), {dev_ms / bd[0]:.2f}x it; on {smi}")
+    for what, e, tol in checks:
+        if not e[1] <= tol:
+            raise AssertionError(f"{phase}: {name}'s {what} disagree with its plain version: rel {e[1]:.3e} "
+                                 f"(tol {tol})")
 
 
 def core_f32_kernels(smi: str, dev, mc: dict) -> dict:
@@ -2320,24 +2360,8 @@ def core_f32_kernels(smi: str, dev, mc: dict) -> dict:
     def peak(compute):
         return H100_F32_FLOPS if compute == "float32" else H100_BF16_FLOPS
 
-    out, bf16_dev = {}, {}
-
-    def record(name, checks, fn, plain_fn, group, bf16_fn, bf16_group, bd):
-        """Time an instance and log it; checks: (what, (abs err, rel err),
-        tol) against the plain version."""
-        ms, plain_ms = cuda_ms(fn, 10), cuda_ms(plain_fn, 3, warmup=1)
-        dev_ms = kernel_device_ms(fn, group)
-        if bf16_group not in bf16_dev:
-            bf16_dev[bf16_group] = kernel_device_ms(bf16_fn, bf16_group)
-        out[name] = (max(e[0] for _, e, _ in checks), ms, plain_ms, bd[0], bd[1])
-        errs = "; ".join(f"{what} {e[0]:.3e} (rel {e[1]:.3e}, tol {tol})" for what, e, tol in checks)
-        log(f"[16(a) {name}] N={n_pts}: max abs err against its plain version: {errs}; {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms; device time {dev_ms:.4f} ms against the bf16 instance's {bf16_dev[bf16_group]:.4f} "
-            f"ms in this call; bound {bd[0]:.4f} ms ({bd[1]}), {dev_ms / bd[0]:.2f}x it; on {smi}")
-        for what, e, tol in checks:
-            if not e[1] <= tol:
-                raise AssertionError(f"16(a): {name}'s {what} disagree with its plain version: rel {e[1]:.3e} "
-                                     f"(tol {tol})")
+    out: dict = {}
+    record = functools.partial(f32_record, "16(a)", out, {}, n_pts, smi)
 
     # A.
     a32 = core_mlp.sdf_core_fwd(aw, x, scfg, compute_dtype="float32")
@@ -2523,6 +2547,321 @@ def core_f32_phase(smi: str, dev, mc: dict) -> list:
         base = re.sub(r"_f32.*$", "", name)
         entries.append(entry(name, *where[base], launches[name], *num))
     return entries
+
+
+# Phase 17: the reflectance trunk's f32 instances (compute_dtype="float32",
+# and the f32 stash of stash_dtype="float32"), held as phase 16 holds the
+# SDF core's: CORE_F32_TOL at f32 operands (a bf16 stash at the bf16
+# instances' TOL), TOL at bf16 operands.  The ReLU backward jumps at z_i = 0,
+# so J, whose plain version recomputes the z_i in another summation order,
+# is held two ways, as phase 3 holds bf16 J: entry by entry against the
+# plain backward at the forward's own z_i (F's, which J1 recomputes bit for
+# bit), and against the wholly plain backward by the relative norm of the
+# error, TRUNK_F32_NORM_TOL.  A z_i within f32 rounding of 0 takes the other
+# side of the ReLU there and moves one point's dx by a unit's share, about
+# 2.5e-4 of dx's norm at 65,536 points; tens of such flips fit the bound, a
+# wrong mask or layer moves the norm by O(1).  17(b)'s entry points the
+# same two ways: against autograd over the plain forward at the kernel's
+# own ReLU masks (z_i from F at the call's operand dtype with an f32 stash)
+# entry by entry, and against autograd over the wholly plain forward by the
+# norm (TOL["mlp_bwd"] where bf16 enters).
+TRUNK_F32_NORM_TOL = 1e-2
+# 17(b)'s calls: (label, entry point, keywords, operand dtype, stash dtype).
+TRUNK_F32_CALLS = (
+    ("fused_mlp_apply recompute", "apply", dict(backward="recompute"), "float32", None),
+    ("fused_mlp_apply stash", "apply", dict(backward="stash"), "float32", "bfloat16"),
+    ("fused_mlp_apply stash_all", "apply", dict(backward="stash_all"), "float32", "bfloat16"),
+    ("fused_mlp_apply stash_xla", "apply", dict(backward="stash_xla"), "float32", "bfloat16"),
+    ("fused_mlp_apply_stash f32/f32", "stash", dict(stash_dtype="float32"), "float32", "float32"),
+    ("fused_mlp_apply_stash f32/bf16", "stash", dict(stash_dtype="bfloat16"), "float32", "bfloat16"),
+    ("fused_mlp_apply_stash bf16/f32", "stash", dict(stash_dtype="float32"), "bfloat16", "float32"),
+    ("fused_mlp_apply_stash bf16/f32 xla", "stash", dict(stash_dtype="float32", bwd_impl="xla"), "bfloat16",
+     "float32"),
+    ("fused_reflectance_forward recompute", "reflectance", {}, "float32", None),
+)
+# 17(b)'s launches: the calls above and one undifferentiated fused_mlp_apply.
+TRUNK_F32_LAUNCHES = {"mlp_fwd_f32": 3, "mlp_bwd_f32": 2, "mlp_stash_fwd_f32": 1, "mlp_stash_bwd_f32": 1,
+                      "mlp_stash_fwd_f32_bf16stash": 4, "mlp_stash_bwd_f32_bf16stash": 3,
+                      "mlp_stash_fwd_f32stash": 2, "mlp_stash_bwd_f32stash": 1}
+
+
+def trunk_kernel_masks(tw, x, n_lay: int, compute: str) -> list:
+    """The ReLU masks [z_i > 0] of the trunk kernels at dot operands of
+    ``compute``: the z_i of kernel F with an f32 stash (I and J1 compute
+    them bit for bit the same; a bf16 stash keeps their signs)."""
+    import torch
+
+    from nrhints_torch.kernels import core_mlp, core_stash
+
+    with torch.no_grad():
+        _, zs = core_stash.mlp_stash_fwd(tw, x, n_lay, compute_dtype=compute, stash_dtype="float32")
+    cols = core_stash.mlp_stash_columns(core_mlp.pack_mlp(tw, n_lay))
+    return [(z > 0).float() for z in core_stash.split_stash(zs, cols)]
+
+
+def trunk_masked_plain(weights, x, n_lay: int, compute: str, masks):
+    """mlp_relu_plain with each ReLU replaced by the given masks: the plain
+    forward on the kernel's side of every z_i = 0, so its autograd backward
+    is the plain backward at the kernel's own masks."""
+    from nrhints_torch.kernels.common import dot
+
+    h = x
+    for i in range(n_lay + 1):
+        h = dot(h, weights[2 * i], compute) + weights[2 * i + 1]
+        if i < n_lay:
+            h = h * masks[i]
+    return h
+
+
+def trunk_f32_kernels(smi: str, dev, mc: dict) -> dict:
+    """Phase 17(a): at phase 3's 65,536 points and the full nr-hints trunk
+    (361 -> 4 x 256 -> 3), F's and G's instances at each CORE_F32_PAIRS
+    pair and I's and J's f32 instances against their plain versions; I
+    equals F's (f32, f32) output, G and J repeat, J equals G at F's f32
+    stash, and bf16 operands with an f32 stash give the (bf16, bf16) pair's
+    output and gradients, all bit for bit; J against the wholly plain
+    backward by the norm (TRUNK_F32_NORM_TOL), with its ReLU flips counted.
+    Each timed as phase 16(a)'s instances.  -> {instance name: (max abs err,
+    ms, plain ms, bound ms, bound by)}."""
+    import numpy as np
+    import torch
+
+    from nrhints_torch.kernels import core_mlp, core_stash
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n_pts = mc["x"].shape[0]
+    n_lay = mc["cfg"].model.reflectance_network.n_layers
+    tw = core_mlp.materialize_mlp_weights(mc["renderer_params"]["color"], n_lay)
+    d_tin, n_tw = tw[0].shape[0], sum(w.numel() for w in tw)
+    trng = np.random.default_rng(6)  # phase 3's trunk inputs
+    xt = torch.tensor(trng.normal(size=(n_pts, d_tin)).astype(np.float32), device=dev)
+    gt = torch.tensor(trng.normal(size=(n_pts, 3)).astype(np.float32), device=dev)
+    cols = core_stash.mlp_stash_columns(core_mlp.pack_mlp(tw, n_lay))
+    zt = sum(w for _, w in cols)
+    macs = sum(w.shape[0] * w.shape[1] for w in tw[0::2])
+    io_bytes = n_pts * 4 * (d_tin + 3)  # x in, the output out (g in, dx out: twice in a backward)
+
+    def size(dt):
+        return 4 if dt == "float32" else 2
+
+    def peak(compute):
+        return H100_F32_FLOPS if compute == "float32" else H100_BF16_FLOPS
+
+    def same(a, b):
+        return all(torch.equal(u, v) for u, v in zip(a, b))
+
+    def flat(r):
+        return [r[1], *r[0]]
+
+    out: dict = {}
+    record = functools.partial(f32_record, "17(a)", out, {}, n_pts, smi)
+    chain = (TRUNK_CHAIN_GROUP, DW_GROUP)
+    f16_out, f16_zs = core_stash.mlp_stash_fwd(tw, xt, n_lay)
+    g16 = core_stash.mlp_stash_bwd(tw, xt, f16_zs, gt, n_lay)
+    f32_out = g32 = zs32 = None
+    for compute, stash_dt in CORE_F32_PAIRS:
+        kw = dict(compute_dtype=compute, stash_dtype=stash_dt)
+        out_tol = CORE_F32_TOL["out"] if compute == "float32" else TOL["mlp_stash_fwd"]
+        stash_tol = out_tol if stash_dt == "float32" else TOL["mlp_stash_fwd"]
+        grad_tol = CORE_F32_TOL["grad"] if compute == "float32" else TOL["mlp_stash_bwd"]
+        f_out, zs = core_stash.mlp_stash_fwd(tw, xt, n_lay, **kw)
+        p_out, p_zs = core_stash.mlp_relu_fwd_zs_plain(tw, xt, n_lay, compute, stash_dt)
+        checks = [("output", max_err([f_out], [p_out]), out_tol),
+                  ("stash", max_err(core_stash.split_stash(zs, cols), p_zs), stash_tol)]
+        del p_out, p_zs
+        if compute == "bfloat16" and not (torch.equal(f_out, f16_out) and torch.equal(zs.to(torch.bfloat16), f16_zs)):
+            raise AssertionError("17(a): F at bf16/f32 differs from F at bf16/bf16 (output, or the stash rounded)")
+        record(core_mlp.instance_name("mlp_stash_fwd", compute, stash_dt), checks,
+               lambda: core_stash.mlp_stash_fwd(tw, xt, n_lay, **kw),
+               lambda: core_stash.mlp_relu_fwd_zs_plain(tw, xt, n_lay, compute, stash_dt),
+               core_f32_group("kernel F", compute, stash_dt), lambda: core_stash.mlp_stash_fwd(tw, xt, n_lay),
+               "kernel F mlp_stash_fwd",
+               bound(2.0 * n_pts * macs, io_bytes + n_pts * zt * size(stash_dt) + size(compute) * n_tw, peak(compute)))
+
+        g = core_stash.mlp_stash_bwd(tw, xt, zs, gt, n_lay, **kw)
+        if not same(flat(g), flat(core_stash.mlp_stash_bwd(tw, xt, zs, gt, n_lay, **kw))):
+            raise AssertionError(f"17(a): G at {compute}/{stash_dt} differs between two runs")
+        if compute == "bfloat16" and not same(flat(g), flat(g16)):
+            raise AssertionError("17(a): G at bf16/f32 differs from G at bf16/bf16 at the same forward")
+
+        def g_plain(zs=zs, compute=compute):
+            return core_stash.mlp_relu_bwd_stash_plain(tw, xt, core_stash.split_stash(zs, cols), gt, n_lay, compute)
+
+        p_dws, p_dx = g_plain()
+        err = grad_err(flat(g), [p_dx, *p_dws])
+        del p_dws, p_dx
+        record(core_mlp.instance_name("mlp_stash_bwd", compute, stash_dt), [("gradients", err, grad_tol)],
+               lambda: core_stash.mlp_stash_bwd(tw, xt, zs, gt, n_lay, **kw), g_plain,
+               (core_f32_group("trunk chain", compute, stash_dt), DW_GROUP),
+               lambda: core_stash.mlp_stash_bwd(tw, xt, f16_zs, gt, n_lay), chain,
+               bound(4.0 * n_pts * macs, 2 * io_bytes + n_pts * zt * size(stash_dt) + (size(compute) + 4) * n_tw,
+                     peak(compute)))
+        if (compute, stash_dt) == ("float32", "float32"):
+            f32_out, g32, zs32 = f_out, g, zs
+        del f_out, zs, g
+
+    # I and J, f32: I = F's output; J = G at F's stash; J repeats.
+    i_out = core_mlp.mlp_fwd(tw, xt, n_lay, compute_dtype="float32")
+    if not torch.equal(i_out, f32_out):
+        raise AssertionError("17(a): I's f32 output differs from F's (f32, f32) output")
+    record("mlp_fwd_f32", [("output", max_err([i_out], [core_mlp.mlp_relu_plain(tw, xt, n_lay, "float32")]),
+                            CORE_F32_TOL["out"])],
+           lambda: core_mlp.mlp_fwd(tw, xt, n_lay, compute_dtype="float32"),
+           lambda: core_mlp.mlp_relu_plain(tw, xt, n_lay, "float32"), core_f32_group("kernel I", "float32", None),
+           lambda: core_mlp.mlp_fwd(tw, xt, n_lay), "kernel I mlp_fwd",
+           bound(2.0 * n_pts * macs, io_bytes + 4 * n_tw, H100_F32_FLOPS))
+    del i_out
+    j = core_mlp.mlp_bwd(tw, xt, gt, n_lay, compute_dtype="float32")
+    j2 = core_mlp.mlp_bwd(tw, xt, gt, n_lay, compute_dtype="float32")
+    jl = flat(j)
+    if not same(jl, flat(j2)):
+        raise AssertionError("17(a): J's f32 gradients differ between two runs")
+    if not same(jl, flat(g32)):
+        raise AssertionError("17(a): J's f32 gradients differ from G's (f32, f32) at F's f32 stash")
+    del j2, g32
+    zsplit = core_stash.split_stash(zs32, cols)
+    z_dws, z_dx = core_mlp.mlp_relu_bwd_plain(tw, xt, gt, n_lay, "float32", zs=zsplit)
+    err_z = grad_err(jl, [z_dx, *z_dws])
+    del z_dws, z_dx
+    p_dws, p_dx = core_mlp.mlp_relu_bwd_plain(tw, xt, gt, n_lay, "float32")
+    norm, err_p = grad_norm_err(jl, [p_dx, *p_dws]), grad_err(jl, [p_dx, *p_dws])
+    del p_dws, p_dx
+    _, p_zs = core_mlp.mlp_relu_plain(tw, xt, n_lay, "float32", return_zs=True)
+    flips = sum(int(((a > 0) != (b > 0)).sum()) for a, b in zip(zsplit, p_zs))
+    del p_zs, zsplit, jl
+    log(f"[17(a) mlp_bwd_f32] N={n_pts}: repeats bit for bit and equals G's (f32, f32) at F's f32 stash; against the "
+        f"wholly plain backward: relative norm of the error {norm:.3e} (tol {TRUNK_F32_NORM_TOL}), largest entry "
+        f"{err_p[1]:.3e} of its gradient's scale, {flips} of {n_pts * zt} z_i on the other side of 0 in the plain "
+        f"forward")
+    if not norm <= TRUNK_F32_NORM_TOL:
+        raise AssertionError(f"17(a): J's f32 gradients disagree with the plain backward: relative norm {norm:.3e}")
+    record("mlp_bwd_f32", [("gradients at F's z_i", err_z, CORE_F32_TOL["grad"])],
+           lambda: core_mlp.mlp_bwd(tw, xt, gt, n_lay, compute_dtype="float32"),
+           lambda: core_mlp.mlp_relu_bwd_plain(tw, xt, gt, n_lay, "float32"),
+           (core_f32_group("kernel J1", "float32", None), core_f32_group("trunk chain", "float32", None), DW_GROUP),
+           lambda: core_mlp.mlp_bwd(tw, xt, gt, n_lay), ("kernel J, recompute pass (J1)",) + chain,
+           bound(6.0 * n_pts * macs, 2 * io_bytes + 8 * n_tw, H100_F32_FLOPS))
+    del j, f32_out, zs32, f16_out, f16_zs, g16
+    torch.cuda.empty_cache()
+    return out
+
+
+def trunk_f32_phase(smi: str, dev, mc: dict) -> list:
+    """Phase 17, the reflectance trunk at compute_dtype="float32" and
+    stash_dtype="float32": (a) every f32 instance at phase 3's shapes
+    (``trunk_f32_kernels``); (b) the entry points a user calls, at 65,536
+    points with the nr-hints color params' weight-norm leaves:
+    ``fused_mlp_apply(compute_dtype="float32")`` under each backward
+    schedule, ``fused_mlp_apply_stash`` at each dtype pair and with
+    ``bwd_impl="xla"``, and ``fused_reflectance_forward(compute_dtype=
+    "float32")`` on the shadow and specular hints' inputs (TRUNK_F32_CALLS),
+    each against torch.autograd over the plain forward at its operand dtype
+    the two ways above: the outputs, and the gradients of the trunk's input
+    (the reflectance call's seven inputs) and of every weight-norm leaf at
+    random cotangents; the launch counts, set to 0 before (b) and read
+    after, show that every f32 trunk instance ran (TRUNK_F32_LAUNCHES) and
+    no bf16 trunk instance did.  -> the kernels line's entries of the f32
+    instances, their launches (b)'s."""
+    import numpy as np
+    import torch
+
+    from nrhints_torch.core.encodings import nerf_encoding
+    from nrhints_torch.fields.reflectance import reflectance_forward
+    from nrhints_torch.kernels import core_mlp, core_stash, cuda_lib
+    from nrhints_torch.utils import tree_items
+
+    t_phase = time.perf_counter()
+    nums = trunk_f32_kernels(smi, dev, mc)
+    rcfg = mc["cfg"].model.reflectance_network
+    n_lay, n_pts = rcfg.n_layers, mc["x"].shape[0]
+    leaves = {n: t.detach().clone().requires_grad_(True) for n, t in tree_items(mc["renderer_params"]["color"])}
+    params = {}
+    for name, t in leaves.items():
+        layer, key = name.strip("/").split("/")
+        params.setdefault(layer, {})[key] = t
+    d_tin = params["lin0"]["v"].shape[0]
+    rng = np.random.default_rng(8)
+    x = torch.tensor(rng.normal(size=(n_pts, d_tin)).astype(np.float32), device=dev)
+    cot = torch.tensor(rng.normal(size=(n_pts, 3)).astype(np.float32), device=dev)
+    # The reflectance call's inputs: points, normals, view dirs, features,
+    # point lights, the shadow hint [N, 1] and the specular hint [N, 4].
+    d_feat = d_tin - (4 * 3 + 2 * 3 * 2 * rcfg.multi_res + (1 + 2 * rcfg.multi_res) + 4 * (1 + 2 * rcfg.multi_res))
+    shapes = ((n_pts, 3), (n_pts, 3), (n_pts, 3), (n_pts, d_feat), (n_pts, 3), (n_pts, 1), (n_pts, 4))
+    r_ins = [torch.tensor(rng.normal(size=sh).astype(np.float32), device=dev) for sh in shapes]
+    r_ins[5], r_ins[6] = r_ins[5].abs(), r_ins[6].abs()
+    pts, nrm, vd, feat, pl_, vis, spec = r_ins
+    r_in = torch.cat([pts, nerf_encoding(vd, rcfg.multi_res), nrm, nerf_encoding(pl_, rcfg.multi_res), feat,
+                      nerf_encoding(vis, rcfg.multi_res), nerf_encoding(spec, rcfg.multi_res)], dim=-1)
+    if r_in.shape[1] != d_tin:
+        raise AssertionError(f"17(b): the reflectance input is {r_in.shape[1]} wide, the trunk takes {d_tin}")
+
+    def grads_of(o, ins):
+        return torch.autograd.grad(o, [*ins, *leaves.values()], cot)
+
+    # References, before the counts are reset: autograd over the plain
+    # forward at the kernel's ReLU masks, and over the wholly plain forward.
+    refs = {}
+    for compute in ("float32", "bfloat16"):
+        masks = trunk_kernel_masks(core_mlp.materialize_mlp_weights(params, n_lay), x, n_lay, compute)
+        xr = x.detach().clone().requires_grad_(True)
+        om = trunk_masked_plain(core_mlp.materialize_mlp_weights(params, n_lay), xr, n_lay, compute, masks)
+        op = core_mlp.mlp_relu_plain(core_mlp.materialize_mlp_weights(params, n_lay), xr, n_lay, compute)
+        refs[compute] = (om.detach(), grads_of(om, [xr]), grads_of(op, [xr]))
+        del masks, om, op
+    rins = [t.detach().clone().requires_grad_(True) for t in r_ins]
+    rr = torch.cat([rins[0], nerf_encoding(rins[2], rcfg.multi_res), rins[1], nerf_encoding(rins[4], rcfg.multi_res),
+                    rins[3], nerf_encoding(rins[5], rcfg.multi_res), nerf_encoding(rins[6], rcfg.multi_res)], dim=-1)
+    masks = trunk_kernel_masks(core_mlp.materialize_mlp_weights(params, n_lay), r_in, n_lay, "float32")
+    om = torch.sigmoid(trunk_masked_plain(core_mlp.materialize_mlp_weights(params, n_lay), rr, n_lay, "float32",
+                                          masks))
+    op = reflectance_forward(params, dataclasses.replace(rcfg, compute_dtype="float32"), *rins)
+    refs["reflectance"] = (om.detach(), grads_of(om, rins), grads_of(op, rins))
+    del masks, om, op, rr, rins
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    with torch.no_grad():
+        nograd = core_mlp.fused_mlp_apply(params, n_lay, x, compute_dtype="float32")
+    results = [("fused_mlp_apply, no gradient", max_err([nograd], [refs["float32"][0]])[1], 0.0, 0.0,
+                CORE_F32_TOL["out"], 0.0, 0.0)]
+    del nograd
+    for label, fn, kw, compute, stash_dt in TRUNK_F32_CALLS:
+        if fn == "reflectance":
+            ins = [t.detach().clone().requires_grad_(True) for t in r_ins]
+            o = core_mlp.fused_reflectance_forward(params, rcfg, *ins, compute_dtype=compute, **kw)
+            ref_o, ref_m, ref_p = refs["reflectance"]
+        else:
+            ins = [x.detach().clone().requires_grad_(True)]
+            call = core_mlp.fused_mlp_apply if fn == "apply" else core_stash.fused_mlp_apply_stash
+            o = call(params, n_lay, ins[0], compute_dtype=compute, **kw)
+            ref_o, ref_m, ref_p = refs[compute]
+        g = grads_of(o, ins)
+        exact = compute == "float32" and stash_dt in (None, "float32")
+        out_tol = CORE_F32_TOL["out"] if compute == "float32" else TOL["mlp_fwd"]
+        grad_tol = CORE_F32_TOL["grad"] if exact else TOL["mlp_stash_bwd"]
+        norm_tol = TRUNK_F32_NORM_TOL if exact else TOL["mlp_bwd"]
+        results.append((label, max_err([o], [ref_o])[1], grad_err(g, ref_m)[1], grad_norm_err(g, ref_p), out_tol,
+                        grad_tol, norm_tol))
+        del o, g, ins
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launch_counts)
+    for label, oe, ge, ne, ot, gt_, nt in results:
+        log(f"[17(b) {label}] N={n_pts}: outputs {oe:.3e} of max(1, scale) (tol {ot}); gradients of the inputs and "
+            f"the weight-norm leaves against autograd at the kernel's ReLU masks {ge:.3e} of each scale (tol {gt_}), "
+            f"against autograd over the wholly plain forward by the relative norm {ne:.3e} (tol {nt})")
+        if not (oe <= ot and ge <= gt_ and ne <= nt):
+            raise AssertionError(f"17(b): {label} disagrees with autograd: outputs {oe:.3e}, gradients {ge:.3e}, "
+                                 f"norm {ne:.3e}")
+    ran = {k: v for k, v in launches.items() if v}
+    log(f"[17(b)] launches of the entry points' run: {ran}")
+    if ran != TRUNK_F32_LAUNCHES:
+        raise AssertionError(f"17(b): launches {ran}, expected {TRUNK_F32_LAUNCHES}")
+    del refs
+    torch.cuda.empty_cache()
+    log(f"[17] phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    where = {"mlp_fwd": "core_mlp.py:397", "mlp_bwd": "core_mlp.py:420", "mlp_stash_fwd": "core_stash.py:588",
+             "mlp_stash_bwd": "core_stash.py:622"}
+    return [entry(name, "mlp_stash.cu", where[re.sub(r"_f32.*$", "", name)], launches[name], *num)
+            for name, num in nums.items()]
 
 
 # Phase 15: sample-axis sharding.  (a) two gloo ranks on this card as a 1 x 2
@@ -2837,6 +3176,12 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return 0
 
+    if sys.argv[1:] == ["--trunk-f32"]:  # phase 17 alone, after the build
+        entries = trunk_f32_phase(smi, dev, march_chunk(dev))
+        print(json.dumps({"kernels": entries}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+        return 0
+
     if sys.argv[1:] == ["--sample-axis"]:  # phase 15 alone, after the build
         import tempfile
 
@@ -2849,7 +3194,7 @@ def main() -> int:
 
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}; flags: --data-parallel, --offpath, --stash-all, "
-              f"--march-f32, --sample-axis, --core-f32", file=sys.stderr)
+              f"--march-f32, --sample-axis, --core-f32, --trunk-f32", file=sys.stderr)
         return 2
 
     # 3. Kernels at the main path's shapes: one 512-ray chunk of the view.
@@ -3594,6 +3939,10 @@ def main() -> int:
     # 16. The SDF core at compute_dtype="float32" and stash_dtype="float32".
     core_f32 = core_f32_phase(smi, dev, mc)
 
+    # 17. The reflectance trunk at compute_dtype="float32" and
+    # stash_dtype="float32".
+    trunk_f32 = trunk_f32_phase(smi, dev, mc)
+
     kernels = [
         entry("sdf_core_fwd", "sdf_core.cu", "core_mlp.py:227", launches["sdf_core_fwd"], a_abs, a_ms, a_plain_ms,
               a_bound, a_by),
@@ -3626,6 +3975,7 @@ def main() -> int:
         *stash_all_entries(sa),
         *f32["entries"],
         *core_f32,
+        *trunk_f32,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -58,22 +58,64 @@
 // design bit for bit (scripts/compare_trunk.py holds two checkouts to it).
 // The ragged edge is masked: rows past N read zeros and store nothing but
 // the dW operands' zero rows.
+//
+// The f32 instances replace the same pallas_calls at compute_dtype="float32"
+// (mlp_relu_ref and its twins with cdt=None: exact f32 dots) and, for F and
+// G, at stash_dtype="float32" (an f32 stash): the dtypes argument selects
+// mlp_fwd_kernel<T, S, MODE> and mlp_bwd_chain_kernel<T, S>, T the dot
+// operands' type and S the stash's (F and G at every pair; I at T = S; J
+// at T = S, so J's f32 instance keeps its transient stash in f32, as JAX's
+// f32 vjp reads relu(z_i) unrounded, and J's gradients are G's at F's stash
+// bit for bit at f32 too).  Every T- and S-dependent step goes through
+// staged_mma.cuh's ld4, st4 and mma_rows.cuh's CoreTile, which reduce to
+// the bf16 expressions at T = S = bf16, so the bf16 instances give the
+// shipping outputs bit for bit.  Bound on an H100 at 65,536 points and the
+// 67 TFLOP/s f32 peak: F and I 0.57 ms, G 1.13 ms, J 1.70 ms (operations).
+// Design: every product on mma_rows.cuh's f32 gemm_rows64_f32 (one fmaf a
+// multiply-add in k order, a 2-stage ring of 32-row f32 slabs; layer 0's
+// 368-deep product walks 11.5 slabs), the dW operands in an f32 scratch and
+// their products on dw_sum.cuh's dw_partial_f32_kernel over the same row
+// chunks, summed by the same in-order passes, so the f32 gradients repeat
+// bit for bit.  The chain's transposed products read the f32 pack's
+// transposed blocks (core_mlp.pack_mlp's wtpack): dx = G_0 W_0^T reads
+// columns 0-255 and 256-367 of W_0^T [256][368].  Shared memory (one block
+// per SM):
+//   forward  the f32 input tile [64][kInMax + 4] (each hidden layer's
+//            relu(z + b) written in place, as in bf16), the f32 product
+//            tile and the ring: 99,328 + 66,560 + 65,536 = 231,424 B;
+//   chain    the f32 running cotangent, the f32 operand tile and the ring:
+//            66,560 + 66,560 + 65,536 = 198,656 B.
 #include "dw_sum.cuh"
+#include "mma_rows.cuh"
 
 using namespace nrh;
 
 namespace {
 
 constexpr int kInMax = 384;         // widest padded trunk input (core_mlp.IN_MAX)
-constexpr int kLdX = kInMax + 8;    // bf16 row stride of the forward's input tile
 constexpr int kSumRows = 16;        // points per row of the bias sums (core_mlp.SUM_ROWS)
 constexpr int kMlpPlain = 0, kMlpStash = 1, kMlpRecompute = 2;
 
-constexpr size_t kMlpFwdSmem = kChainTP * kLdX * sizeof(bf16) + kChainTP * kLdZ * sizeof(float) +
-                               kChainStages * kRingStage * sizeof(bf16);
-constexpr size_t kMlpChainSmem = kChainTP * kLdZ * sizeof(float) + kChainTP * kLdA * sizeof(bf16) +
-                                 kChainStages * kRingStage * sizeof(bf16);
-static_assert(kMlpFwdSmem <= 232448 && kMlpChainSmem <= 232448, "a block may have 227 KB of shared memory");
+// The row stride of the forward's input tile, in elements of T.
+template <typename T>
+__host__ __device__ constexpr int ld_x() {
+  return std::is_same<T, float>::value ? kInMax + 4 : kInMax + 8;
+}
+
+// Shared memory by operand type T: the forward's input tile, f32 product
+// tile and ring; the chain's f32 running cotangent, operand tile and ring.
+template <typename T>
+constexpr size_t mlp_fwd_smem() {
+  return kChainTP * ld_x<T>() * sizeof(T) + kChainTP * kLdZ * sizeof(float) + CoreTile<T>::kRing * sizeof(T);
+}
+template <typename T>
+constexpr size_t mlp_chain_smem() {
+  return kChainTP * kLdZ * sizeof(float) + kChainTP * CoreTile<T>::kLdAct * sizeof(T) +
+         CoreTile<T>::kRing * sizeof(T);
+}
+static_assert(mlp_fwd_smem<bf16>() == 227328 && mlp_fwd_smem<float>() == 231424 &&
+                  mlp_chain_smem<bf16>() == 210944 && mlp_chain_smem<float>() == 198656,
+              "the trunk's shared-memory budget (a block may have 227 KB)");
 
 struct MlpMeta {
   int n_lin, d0, d_out, zt;
@@ -103,24 +145,46 @@ int parse_mlp_meta(const int* meta, MlpMeta* m) {
   return 0;
 }
 
-// The forward of one 64-point block.  MODE says what it writes:
+// The chain's transposed product G_i W_i^T at the layer's input columns
+// c0 .. c0 + nc (at most kWMax): its first slabs, and the product into C.
+// bf16 reads rows c0.. of W_i [kp, np] (wpack) through column-major
+// fragments; f32 reads columns c0.. of the transposed block W_i^T [np, kp]
+// (wtpack; row stride kp).
+__device__ __forceinline__ void stage_wt(const bf16* w, int np, int kp, int c0, int nc, bf16* ring) {
+  stage_first_slabs<true>(w + (size_t)c0 * np, np, np, nc, ring);
+}
+__device__ __forceinline__ void stage_wt(const float* wt, int np, int kp, int c0, int nc, float* ring) {
+  stage_first_slabs_f32<kChainStagesF32>(wt + c0, kp, np, nc, ring);
+}
+__device__ __forceinline__ void product_wt(const bf16* A, const bf16* w, int np, int kp, int c0, int nc, float* C,
+                                           bf16* ring) {
+  gemm_rows64<true>(A, kLdA, w + (size_t)c0 * np, np, np, nc, C, kLdZ, ring);
+}
+__device__ __forceinline__ void product_wt(const float* A, const float* wt, int np, int kp, int c0, int nc, float* C,
+                                           float* ring) {
+  gemm_rows64_f32(A, kLdZ, wt + c0, kp, np, nc, C, kLdZ, ring);
+}
+
+// The forward of one 64-point block, dot operands of T.  MODE says what it
+// writes:
 //   kMlpPlain      the output (kernel I);
-//   kMlpStash      the output and every hidden z_i rounded to bf16 into
-//                  the packed stash [N, ZT] (kernel F);
+//   kMlpStash      the output and every hidden z_i rounded to S into the
+//                  packed stash [N, ZT] (kernel F);
 //   kMlpRecompute  the stash and nothing else: no output layer (J1).
-template <int MODE>
+template <typename T, typename S, int MODE>
 __global__ void __launch_bounds__(kChainThreads)
-    mlp_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ wpack, const float* __restrict__ bpack,
-                   float* __restrict__ out, bf16* __restrict__ zs, int n, const MlpMeta m) {
+    mlp_fwd_kernel(const float* __restrict__ x, const T* __restrict__ wpack, const float* __restrict__ bpack,
+                   float* __restrict__ out, S* __restrict__ zs, int n, const MlpMeta m) {
+  constexpr int kLdX = ld_x<T>();
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* act = reinterpret_cast<bf16*>(smem);                  // [kChainTP][kLdX]
+  T* act = reinterpret_cast<T*>(smem);                         // [kChainTP][kLdX]
   float* Z = reinterpret_cast<float*>(act + kChainTP * kLdX);  // [kChainTP][kLdZ]
-  bf16* ring = reinterpret_cast<bf16*>(Z + kChainTP * kLdZ);
+  T* ring = reinterpret_cast<T*>(Z + kChainTP * kLdZ);
   const int tid = threadIdx.x, p0 = blockIdx.x * kChainTP;
   const int last = m.n_lin - 1, n_run = MODE == kMlpRecompute ? last : m.n_lin;
 
-  // The input tile: x rounded to bf16, zero past d0 and past N (x's rows
-  // are d0 = 361 floats, so not 16-byte aligned: four scalar loads).
+  // The input tile: x as a dot operand of T, zero past d0 and past N (x's
+  // rows are d0 = 361 floats, so not 16-byte aligned: four scalar loads).
   stage_first_slabs<false>(wpack + m.w_off[0], m.np_[0], m.kp[0], m.np_[0], ring);
   const int w4 = m.kp[0] / 4;
   for (int idx = tid; idx < kChainTP * w4; idx += kChainThreads) {
@@ -128,10 +192,10 @@ __global__ void __launch_bounds__(kChainThreads)
     float v[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) v[k] = c + k < m.d0 && p0 + p < n ? x[(size_t)(p0 + p) * m.d0 + c + k] : 0.0f;
-    st_bf4(act + p * kLdX + c, v);
+    st4(act + p * kLdX + c, v);
   }
 
-  // z_i = h_{i-1} W_i + b_i; h_i = relu(z_i) in bf16, over h_{i-1} in act.
+  // z_i = h_{i-1} W_i + b_i; h_i = relu(z_i) in T, over h_{i-1} in act.
   for (int i = 0; i < n_run; ++i) {
     const int np = m.np_[i], o = m.out_dim[i];
     const float* b = bpack + m.b_off[i];
@@ -156,40 +220,46 @@ __global__ void __launch_bounds__(kChainThreads)
         z[k] = c + k < o ? z[k] + bb[k] : 0.0f;
         h[k] = fmaxf(z[k], 0.0f);
       }
-      st_bf4(act + p * kLdX + c, h);
-      if (MODE != kMlpPlain && p0 + p < n) st_bf4(zs + (size_t)(p0 + p) * m.zt + m.z_off[i] + c, z);
+      st4(act + p * kLdX + c, h);
+      if (MODE != kMlpPlain && p0 + p < n) st4(zs + (size_t)(p0 + p) * m.zt + m.z_off[i] + c, z);
     }
   }
 }
 
-// The backward chain of one 64-point block at the bf16 stash zs: G1, and J2
-// on J1's transient stash.  G_i = G [z_i > 0] (the cotangent g at the
-// output layer), then G <- G_i W_i^T, down to dx.
+// The backward chain of one 64-point block at the stash zs of S, dot
+// operands of T: G1, and J2 on J1's transient stash.  G_i = G [z_i > 0]
+// (the cotangent g at the output layer), then G <- G_i W_i^T, down to dx.
+// The transposed products read wpack in bf16 and wtpack in f32 (null in
+// bf16; stage_wt).
+template <typename T, typename S>
 __global__ void __launch_bounds__(kChainThreads)
-    mlp_bwd_chain_kernel(const float* __restrict__ x, const bf16* __restrict__ zs, const float* __restrict__ g,
-                         const bf16* __restrict__ wpack, float* __restrict__ dx, bf16* __restrict__ scratch,
-                         float* __restrict__ partial, int n, const MlpMeta m, const DwJobs jobs, int bt) {
+    mlp_bwd_chain_kernel(const float* __restrict__ x, const S* __restrict__ zs, const float* __restrict__ g,
+                         const T* __restrict__ wpack, const T* __restrict__ wtpack, float* __restrict__ dx,
+                         T* __restrict__ scratch, float* __restrict__ partial, int n, const MlpMeta m,
+                         const DwJobs jobs, int bt) {
+  constexpr int kLdAct = CoreTile<T>::kLdAct;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* Gf = reinterpret_cast<float*>(smem);                 // [kChainTP][kLdZ] the running cotangent
-  bf16* act = reinterpret_cast<bf16*>(Gf + kChainTP * kLdZ);  // [kChainTP][kLdA] the product's operand
-  bf16* ring = act + kChainTP * kLdA;
+  float* Gf = reinterpret_cast<float*>(smem);             // [kChainTP][kLdZ] the running cotangent
+  T* act = reinterpret_cast<T*>(Gf + kChainTP * kLdZ);    // [kChainTP][kLdAct] the product's operand
+  T* ring = act + kChainTP * kLdAct;
+  const T* wt = std::is_same<T, float>::value ? wtpack : wpack;
   const int tid = threadIdx.x, p0 = blockIdx.x * kChainTP;
   const int last = m.n_lin - 1, d0 = m.d0;
   // Four columns of the stash (zero past N).
   auto z4 = [&](int p, int col, float* v) {
     if (p0 + p < n)
-      ld_bf4(zs + (size_t)(p0 + p) * m.zt + col, v);
+      ld4(zs + (size_t)(p0 + p) * m.zt + col, v);
     else
       v[0] = v[1] = v[2] = v[3] = 0.0f;
   };
 
-  stage_first_slabs<true>(wpack + m.w_off[last], m.np_[last], m.np_[last], min(m.kp[last], kWMax), ring);
+  stage_wt(wt + m.w_off[last], m.np_[last], m.kp[last], 0, min(m.kp[last], kWMax), ring);
   for (int i = last; i >= 0; --i) {
     const int np = m.np_[i], o = m.out_dim[i], kp = m.kp[i], in = m.in_dim[i];
-    bf16* Aop = scratch + jobs.a_off[i];
-    bf16* Bop = scratch + jobs.b_off[i];
-    if (i < last) stage_first_slabs<true>(wpack + m.w_off[i], np, np, min(kp, kWMax), ring);
-    // G_i in f32 (for the bias sums), and in bf16 as the product's operand
+    T* Aop = scratch + jobs.a_off[i];
+    T* Bop = scratch + jobs.b_off[i];
+    if (i < last) stage_wt(wt + m.w_off[i], np, kp, 0, min(kp, kWMax), ring);
+    // G_i in f32 (for the bias sums), and in T as the product's operand
     // and dW_i's B operand.
     for (int idx = tid; idx < kChainTP * (np / 4); idx += kChainThreads) {
       const int p = idx / (np / 4), c = (idx % (np / 4)) * 4;
@@ -204,10 +274,10 @@ __global__ void __launch_bounds__(kChainThreads)
         for (int k = 0; k < 4; ++k) v[k] = c + k < o ? v[k] * (z[k] > 0.0f ? 1.0f : 0.0f) : 0.0f;
       }
       st_f4(Gf + p * kLdZ + c, v);
-      st_bf4(act + p * kLdA + c, v);
-      st_bf4(Bop + (size_t)(p0 + p) * np + c, v);
+      st4(act + p * kLdAct + c, v);
+      st4(Bop + (size_t)(p0 + p) * np + c, v);
     }
-    // dW_i's A operand: the layer's input in bf16 (x, or relu(z_{i-1})).
+    // dW_i's A operand: the layer's input in T (x, or relu(z_{i-1})).
     for (int idx = tid; idx < kChainTP * (kp / 4); idx += kChainThreads) {
       const int p = idx / (kp / 4), c = (idx % (kp / 4)) * 4;
       float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -222,7 +292,7 @@ __global__ void __launch_bounds__(kChainThreads)
           for (int k = 0; k < 4; ++k) v[k] = c + k < in ? fmaxf(v[k], 0.0f) : 0.0f;
         }
       }
-      st_bf4(Aop + (size_t)(p0 + p) * kp + c, v);
+      st4(Aop + (size_t)(p0 + p) * kp + c, v);
     }
     __syncthreads();
     // db_i's partial sums: one row per kSumRows points, summed in point
@@ -235,16 +305,15 @@ __global__ void __launch_bounds__(kChainThreads)
       partial[((size_t)blockIdx.x * (kChainTP / kSumRows) + q) * bt + m.b_off[i] + c] = s;
     }
     if (i > 0) {
-      gemm_rows64<true>(act, kLdA, wpack + m.w_off[i], np, np, kp, Gf, kLdZ, ring);
+      product_wt(act, wt + m.w_off[i], np, kp, 0, kp, Gf, ring);
       __syncthreads();
       continue;
     }
     // dx = G_0 W_0^T, in column passes of at most kWMax, each stored to dx.
     for (int c0 = 0; c0 < kp; c0 += kWMax) {
       const int nc = min(kp - c0, kWMax);
-      const bf16* W = wpack + m.w_off[0] + (size_t)c0 * np;  // rows c0.. of W_0 [kp, np]
-      if (c0 > 0) stage_first_slabs<true>(W, np, np, nc, ring);
-      gemm_rows64<true>(act, kLdA, W, np, np, nc, Gf, kLdZ, ring);
+      if (c0 > 0) stage_wt(wt + m.w_off[0], np, kp, c0, nc, ring);
+      product_wt(act, wt + m.w_off[0], np, kp, c0, nc, Gf, ring);
       __syncthreads();
       for (int idx = tid; idx < kChainTP * nc; idx += kChainThreads) {
         const int p = idx / nc, c = idx % nc;
@@ -256,32 +325,87 @@ __global__ void __launch_bounds__(kChainThreads)
 
 int nblocks(int n) { return (n + kChainTP - 1) / kChainTP; }
 
-template <int MODE>
-int launch_fwd(const float* x, const bf16* wpack, const float* bpack, float* out, bf16* zs, int n, const MlpMeta& m,
+template <typename T, typename S, int MODE>
+int launch_fwd(const float* x, const void* wpack, const float* bpack, float* out, void* zs, int n, const MlpMeta& m,
                cudaStream_t stream) {
-  int rc = (int)cudaFuncSetAttribute(mlp_fwd_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  constexpr size_t kMlpFwdSmem = mlp_fwd_smem<T>();
+  int rc = (int)cudaFuncSetAttribute(mlp_fwd_kernel<T, S, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                      (int)kMlpFwdSmem);
   if (rc) return rc;
-  mlp_fwd_kernel<MODE><<<nblocks(n), kChainThreads, kMlpFwdSmem, stream>>>(x, wpack, bpack, out, zs, n, m);
+  mlp_fwd_kernel<T, S, MODE><<<nblocks(n), kChainThreads, kMlpFwdSmem, stream>>>(x, (const T*)wpack, bpack, out,
+                                                                                  (S*)zs, n, m);
   return (int)cudaGetLastError();
 }
 
 // The chain, then dw_sum.cuh's passes over its nblk * kChainTP / kSumRows
-// rows of bias sums.
-int launch_chain(const float* x, const bf16* zs, const float* g, const bf16* wpack, float* dx, bf16* scratch,
-                 float* partial, float* colsum, float* part_dw, float* dw, const DwJobs& J, int split, int n,
-                 const MlpMeta& m, cudaStream_t stream) {
-  int rc = (int)cudaFuncSetAttribute(mlp_bwd_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+// rows of bias sums (the scratch's type T picks the partial products'
+// kernel).
+template <typename T, typename S>
+int launch_chain(const float* x, const void* zs, const float* g, const void* wpack, const void* wtpack, float* dx,
+                 void* scratch, float* partial, float* colsum, float* part_dw, float* dw, const DwJobs& J, int split,
+                 int n, const MlpMeta& m, cudaStream_t stream) {
+  constexpr size_t kMlpChainSmem = mlp_chain_smem<T>();
+  int rc = (int)cudaFuncSetAttribute(mlp_bwd_chain_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                      (int)kMlpChainSmem);
   if (rc) return rc;
   int bt = 0;
   for (int i = 0; i < m.n_lin; ++i) bt += m.np_[i];
   const int nblk = nblocks(n);
-  mlp_bwd_chain_kernel<<<nblk, kChainThreads, kMlpChainSmem, stream>>>(x, zs, g, wpack, dx, scratch, partial, n, m,
-                                                                       J, bt);
+  mlp_bwd_chain_kernel<T, S><<<nblk, kChainThreads, kMlpChainSmem, stream>>>(
+      x, (const S*)zs, g, (const T*)wpack, (const T*)wtpack, dx, (T*)scratch, partial, n, m, J, bt);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
-  return launch_dw_sums(scratch, part_dw, dw, J, split, partial, nblk * (kChainTP / kSumRows), bt, colsum, stream);
+  return launch_dw_sums((const T*)scratch, part_dw, dw, J, split, partial, nblk * (kChainTP / kSumRows), bt, colsum,
+                        stream);
+}
+
+// J at operand type T: the recompute pass J1 into the transient stash zsc
+// [N, ZT] of T, then the chain on it.
+template <typename T>
+int launch_recompute_bwd(const float* x, const float* g, const void* wpack, const void* wtpack, const float* bpack,
+                         void* zsc, float* dx, void* scratch, float* partial, float* colsum, float* part_dw, float* dw,
+                         const DwJobs& J, int split, int n, const MlpMeta& m, cudaStream_t stream) {
+  if (m.n_lin > 1) {
+    const int rc = launch_fwd<T, T, kMlpRecompute>(x, wpack, bpack, nullptr, zsc, n, m, stream);
+    if (rc) return rc;
+  }
+  return launch_chain<T, T>(x, zsc, g, wpack, wtpack, dx, scratch, partial, colsum, part_dw, dw, J, split, n, m,
+                            stream);
+}
+
+// The instance the dtypes select: F and G at each (T, S) pair; I at T = S.
+template <int MODE, typename... A>
+int launch_fwd_dtypes(int dtypes, A... a) {
+  if constexpr (MODE == kMlpPlain) {
+    return dtypes & kF32Compute ? launch_fwd<float, float, MODE>(a...) : launch_fwd<bf16, bf16, MODE>(a...);
+  } else {
+    switch (dtypes) {
+      case 0:
+        return launch_fwd<bf16, bf16, MODE>(a...);
+      case kF32Compute:
+        return launch_fwd<float, bf16, MODE>(a...);
+      case kF32Stash:
+        return launch_fwd<bf16, float, MODE>(a...);
+      case kF32Compute | kF32Stash:
+        return launch_fwd<float, float, MODE>(a...);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename... A>
+int launch_chain_dtypes(int dtypes, A... a) {
+  switch (dtypes) {
+    case 0:
+      return launch_chain<bf16, bf16>(a...);
+    case kF32Compute:
+      return launch_chain<float, bf16>(a...);
+    case kF32Stash:
+      return launch_chain<bf16, float>(a...);
+    case kF32Compute | kF32Stash:
+      return launch_chain<float, float>(a...);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int parse_bwd(const int* meta, const long long* jobs, int n_jobs, MlpMeta* m, DwJobs* J) {
@@ -294,49 +418,57 @@ int parse_bwd(const int* meta, const long long* jobs, int n_jobs, MlpMeta* m, Dw
 
 }  // namespace
 
+// dtypes: kF32Compute and kF32Stash select F's instance (its dot operands'
+// and its stash's types; wpack holds the operands' type).
 extern "C" int mlp_stash_fwd(const float* x, const void* wpack, const float* bpack, float* out, void* zs, int n,
-                             const int* meta, void* stream) {
+                             const int* meta, int dtypes, void* stream) {
   MlpMeta m;
   const int rc = parse_mlp_meta(meta, &m);
   if (rc || n <= 0) return rc;
-  return launch_fwd<kMlpStash>(x, (const bf16*)wpack, bpack, out, (bf16*)zs, n, m, (cudaStream_t)stream);
+  return launch_fwd_dtypes<kMlpStash>(dtypes, x, wpack, bpack, out, zs, n, m, (cudaStream_t)stream);
 }
 
+// dtypes: kF32Compute selects I's f32 instance.
 extern "C" int mlp_fwd(const float* x, const void* wpack, const float* bpack, float* out, int n, const int* meta,
-                       void* stream) {
+                       int dtypes, void* stream) {
   MlpMeta m;
   const int rc = parse_mlp_meta(meta, &m);
   if (rc || n <= 0) return rc;
-  return launch_fwd<kMlpPlain>(x, (const bf16*)wpack, bpack, out, nullptr, n, m, (cudaStream_t)stream);
+  return launch_fwd_dtypes<kMlpPlain>(dtypes, x, wpack, bpack, out, nullptr, n, m, (cudaStream_t)stream);
 }
 
-extern "C" int mlp_stash_bwd(const float* x, const void* zs, const float* g, const void* wpack, float* dx,
-                             void* scratch, float* partial, float* colsum, float* part_dw, float* dw,
-                             const long long* jobs, int n_jobs, int split, int n, const int* meta, void* stream) {
+// dtypes: kF32Compute and kF32Stash select G's instance (its dot operands',
+// and so its scratch's, and its stash's types); wtpack is the f32 pack's
+// transposed blocks (null in bf16).
+extern "C" int mlp_stash_bwd(const float* x, const void* zs, const float* g, const void* wpack, const void* wtpack,
+                             float* dx, void* scratch, float* partial, float* colsum, float* part_dw, float* dw,
+                             const long long* jobs, int n_jobs, int split, int n, const int* meta, int dtypes,
+                             void* stream) {
   MlpMeta m;
   DwJobs J;
   const int rc = parse_bwd(meta, jobs, n_jobs, &m, &J);
   if (rc || n <= 0) return rc;
-  return launch_chain(x, (const bf16*)zs, g, (const bf16*)wpack, dx, (bf16*)scratch, partial, colsum, part_dw, dw, J,
-                      split, n, m, (cudaStream_t)stream);
+  return launch_chain_dtypes(dtypes, x, zs, g, wpack, wtpack, dx, scratch, partial, colsum, part_dw, dw, J, split, n,
+                             m, (cudaStream_t)stream);
 }
 
 // J: the recompute pass J1 into the transient stash zsc [N, ZT], then the
-// chain on it.
-extern "C" int mlp_bwd(const float* x, const float* g, const void* wpack, const float* bpack, void* zsc, float* dx,
-                       void* scratch, float* partial, float* colsum, float* part_dw, float* dw, const long long* jobs,
-                       int n_jobs, int split, int n, const int* meta, void* stream) {
+// chain on it; dtypes: kF32Compute selects J's f32 instance, whose zsc is
+// f32.
+extern "C" int mlp_bwd(const float* x, const float* g, const void* wpack, const void* wtpack, const float* bpack,
+                       void* zsc, float* dx, void* scratch, float* partial, float* colsum, float* part_dw, float* dw,
+                       const long long* jobs, int n_jobs, int split, int n, const int* meta, int dtypes,
+                       void* stream) {
   MlpMeta m;
   DwJobs J;
-  int rc = parse_bwd(meta, jobs, n_jobs, &m, &J);
+  const int rc = parse_bwd(meta, jobs, n_jobs, &m, &J);
   if (rc || n <= 0) return rc;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (m.n_lin > 1) {
-    rc = launch_fwd<kMlpRecompute>(x, (const bf16*)wpack, bpack, nullptr, (bf16*)zsc, n, m, s);
-    if (rc) return rc;
-  }
-  return launch_chain(x, (const bf16*)zsc, g, (const bf16*)wpack, dx, (bf16*)scratch, partial, colsum, part_dw, dw, J,
-                      split, n, m, s);
+  if (dtypes & kF32Compute)
+    return launch_recompute_bwd<float>(x, g, wpack, wtpack, bpack, zsc, dx, scratch, partial, colsum, part_dw, dw, J,
+                                       split, n, m, s);
+  return launch_recompute_bwd<bf16>(x, g, wpack, wtpack, bpack, zsc, dx, scratch, partial, colsum, part_dw, dw, J,
+                                    split, n, m, s);
 }
 
 extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

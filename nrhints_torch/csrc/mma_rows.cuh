@@ -44,9 +44,10 @@
 //   consecutive bytes a warp) for 128 FMAs.  In dual mode a thread's rows
 //   are 4 sections and their 4 tangent rows, so the gate stays in registers.
 // * The SDF core's f32 instances (kernels A, D, E and H at
-//   compute_dtype="float32": sdf_fwd.cuh, sdf_bwd.cuh) run their 64-point
-//   products on rows_product_f32 too, through gemm_rows64's f32 overload at
-//   the end of this file, with a ring of kChainStagesF32 stages.
+//   compute_dtype="float32": sdf_fwd.cuh, sdf_bwd.cuh) and the reflectance
+//   trunk's (F, G, I and J: mlp_stash.cu) run their 64-point products on
+//   rows_product_f32 too, through gemm_rows64_f32 and gemm_rows64's f32
+//   overload at the end of this file, with a ring of kChainStagesF32 stages.
 #pragma once
 
 #include "staged_mma.cuh"
@@ -264,25 +265,28 @@ struct RowsSmemF32 {
 };
 
 // Issue (and commit, as one group) the copy of k-slab s of the row-major f32
-// [K, N] weight B into ring stage s % STAGES; an empty group past K.  The
-// march's ring has kChainStages stages, the SDF core's f32 chain two.
+// [K, N] weight B of row stride ldb (a multiple of 4) into ring stage
+// s % STAGES; an empty group past K.  The march's ring has kChainStages
+// stages, the 64-point kernels' f32 instances two.
 template <int STAGES = kChainStages>
-__device__ __forceinline__ void stage_slab_f32(const float* __restrict__ B, int K, int N, float* ring, int s) {
+__device__ __forceinline__ void stage_slab_f32(const float* __restrict__ B, int ldb, int K, int N, float* ring,
+                                               int s) {
   const int tid = threadIdx.x, k0 = s * kSlabF32, cpr = N / 4;
   float* dst = ring + (s % STAGES) * kRingStageF32;
   if (k0 < K) {
     for (int idx = tid; idx < kSlabF32 * cpr; idx += kRowsThreads) {
       const int r = idx / cpr, c = (idx % cpr) * 4;
-      if (k0 + r < K) cp_async16(dst + r * kWMax + c, B + (size_t)(k0 + r) * N + c);
+      if (k0 + r < K) cp_async16(dst + r * kWMax + c, B + (size_t)(k0 + r) * ldb + c);
     }
   }
   cp_async_commit();
 }
 
 template <int STAGES = kChainStages>
-__device__ __forceinline__ void stage_first_slabs_f32(const float* __restrict__ B, int K, int N, float* ring) {
+__device__ __forceinline__ void stage_first_slabs_f32(const float* __restrict__ B, int ldb, int K, int N,
+                                                      float* ring) {
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) stage_slab_f32<STAGES>(B, K, N, ring, s);
+  for (int s = 0; s < STAGES - 1; ++s) stage_slab_f32<STAGES>(B, ldb, K, N, ring, s);
 }
 
 // Row i (0-7) of row group g (0-7): dual mode, sections 4 g .. +3 and their
@@ -293,12 +297,13 @@ __device__ __forceinline__ int f32_row(int g, int i) {
 }
 
 // acc = A[the thread's 8 rows, :kp] @ W[kp, np] at its 4 columns (zeros
-// where they lie past np), after stage_first_slabs_f32(W, kp, np, ring).
-// Every thread must call it; it begins with a barrier and returns with the
-// ring free and every thread past its last read of A.
+// where they lie past np), after stage_first_slabs_f32(W, ldw, kp, np,
+// ring); A's row stride is lda, W's ldw (multiples of 4).  Every thread
+// must call it; it begins with a barrier and returns with the ring free and
+// every thread past its last read of A.
 template <bool DUAL, int STAGES = kChainStages>
-__device__ __forceinline__ void rows_product_f32(const float* A, const float* __restrict__ W, int kp, int np,
-                                                 float* ring, float (&acc)[8][4]) {
+__device__ __forceinline__ void rows_product_f32(const float* A, int lda, const float* __restrict__ W, int ldw,
+                                                 int kp, int np, float* ring, float (&acc)[8][4]) {
   const int g = threadIdx.x >> 6, c0 = (threadIdx.x & 63) * 4;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -308,7 +313,7 @@ __device__ __forceinline__ void rows_product_f32(const float* A, const float* __
   for (int s = 0; s < nslab; ++s) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();
-    stage_slab_f32<STAGES>(W, kp, np, ring, s + STAGES - 1);
+    stage_slab_f32<STAGES>(W, ldw, kp, np, ring, s + STAGES - 1);
     const float* Ws = ring + (s % STAGES) * kRingStageF32 + c0;
     const int kend = min(kSlabF32, kp - s * kSlabF32);
     if (c0 < np) {
@@ -316,7 +321,7 @@ __device__ __forceinline__ void rows_product_f32(const float* A, const float* __
         float4 a[8];
 #pragma unroll
         for (int i = 0; i < 8; ++i)
-          a[i] = *reinterpret_cast<const float4*>(A + f32_row<DUAL>(g, i) * kLdZ + s * kSlabF32 + kk);
+          a[i] = *reinterpret_cast<const float4*>(A + f32_row<DUAL>(g, i) * lda + s * kSlabF32 + kk);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const float4 w = *reinterpret_cast<const float4*>(Ws + (kk + q) * kWMax);
@@ -375,7 +380,7 @@ __device__ void sdf_rows_f32(RowsSmemF32& S, const float* dir, const float* __re
   const int L = m.n_layers, F = m.multi_res, d0 = m.d0;
 
   // The encoding, which is also the first layer's input.
-  stage_first_slabs_f32(wpack + m.w_off[0], m.kp[0], m.np_[0], S.ring);
+  stage_first_slabs_f32(wpack + m.w_off[0], m.np_[0], m.kp[0], m.np_[0], S.ring);
   for (int idx = tid; idx < kPts * kEncMax; idx += kRowsThreads) {
     const int r = idx / kEncMax, c = idx % kEncMax;
     float xs[3], ts[3];
@@ -398,8 +403,8 @@ __device__ void sdf_rows_f32(RowsSmemF32& S, const float* dir, const float* __re
     const bool last = i + 1 == L, next_skip = !last && m.skip[i + 1];
     const int kp_next = last ? ((m.d_last + 15) / 16) * 16 : m.kp[i + 1];
     float acc[8][4];
-    rows_product_f32<DUAL>(&S.a[0][0], wpack + m.w_off[i], m.kp[i], m.np_[i], S.ring, acc);
-    if (!last) stage_first_slabs_f32(wpack + m.w_off[i + 1], m.kp[i + 1], m.np_[i + 1], S.ring);
+    rows_product_f32<DUAL>(&S.a[0][0], kLdZ, wpack + m.w_off[i], m.np_[i], m.kp[i], m.np_[i], S.ring, acc);
+    if (!last) stage_first_slabs_f32(wpack + m.w_off[i + 1], m.np_[i + 1], m.kp[i + 1], m.np_[i + 1], S.ring);
     rows_epilogue_f32<DUAL>(&S.a[0][0], acc, bpack + m.b_off[i], out, next_skip);
     // Columns past this layer's output: the skip layer's encoding half
     // (x 1/sqrt2), then zeros up to the next padded width.
@@ -424,7 +429,8 @@ __device__ void sdf_rows_f32(RowsSmemF32& S, const float* dir, const float* __re
 }
 
 // ---------------------------------------------------------------------------
-// gemm_rows64's f32 overload: the products of the SDF core's f32 instances
+// gemm_rows64's f32 overload: the products of the 64-point kernels' f32
+// instances (the SDF core's and the reflectance trunk's)
 
 // The f32 chain's ring: two stages of kSlabF32 f32 k-rows (64 KB); with its
 // f32 activation and carry tiles and the encoding, a 64-point block of the
@@ -432,13 +438,13 @@ __device__ void sdf_rows_f32(RowsSmemF32& S, const float* dir, const float* __re
 // sdf_bwd.cuh), where three stages would need 247,808.
 constexpr int kChainStagesF32 = 2;
 
-// The dtypes argument of the SDF core's C entry points: bit 0 selects f32
-// dot operands (compute_dtype="float32"), bit 1 an f32 stash
+// The dtypes argument of the SDF core's and the trunk's C entry points: bit
+// 0 selects f32 dot operands (compute_dtype="float32"), bit 1 an f32 stash
 // (stash_dtype="float32"); core_mlp.py::dtype_bits writes it.
 constexpr int kF32Compute = 1, kF32Stash = 2;
 
-// The SDF core's shared-memory layout by operand type: the activation
-// tile's row stride and the ring's elements of T.
+// The 64-point kernels' shared-memory layout by operand type: the
+// activation tile's row stride and the ring's elements of T.
 template <typename T>
 struct CoreTile;
 template <>
@@ -450,31 +456,40 @@ struct CoreTile<float> {
   static constexpr int kLdAct = kLdZ, kRing = kChainStagesF32 * kRingStageF32;
 };
 
-// stage_first_slabs with f32 operands: B is the row-major [K, N] f32 block
-// (row stride N; ldb is not read).  A reverse-sweep product, which the bf16
-// instances read as the transpose of the [N, K] weight, reads the weight's
-// own transposed block of the f32 pack (core_mlp.pack_sdf_mlp's wtpack).
-template <bool TRANS_B>
-__device__ __forceinline__ void stage_first_slabs(const float* __restrict__ B, int ldb, int K, int N, float* ring) {
-  stage_first_slabs_f32<kChainStagesF32>(B, K, N, ring);
-}
-
 // C[64, N] = A[64, K] @ B with f32 operands (exact f32 dots: one fmaf a
-// multiply-add in k order, as sdf_core_ref computes with cdt=None), after
-// stage_first_slabs with the same arguments.  A is an f32 tile of row
-// stride kLdZ (lda is not read), B the row-major [K, N] block as above.
-// The same contract as the bf16 gemm_rows64: every thread calls it, it
-// begins with a barrier and returns with the ring free; C is complete after
-// the caller's next __syncthreads().
-template <bool TRANS_B>
-__device__ void gemm_rows64(const float* A, int lda, const float* __restrict__ B, int ldb, int K, int N, float* C,
-                            int ldc, float* ring) {
+// multiply-add in k order, as sdf_core_ref and mlp_relu_ref compute with
+// cdt=None), after stage_first_slabs_f32<kChainStagesF32>(B, ldb, K, N,
+// ring).  A is an f32 tile of row stride lda, B a row-major [K, N] f32
+// block of row stride ldb (multiples of 4; N at most kWMax).  The same
+// contract as the bf16 gemm_rows64: every thread calls it, it begins with a
+// barrier and returns with the ring free; C is complete after the caller's
+// next __syncthreads().  C may be A itself: every thread is past its last
+// read of A before any C is stored.
+__device__ __forceinline__ void gemm_rows64_f32(const float* A, int lda, const float* __restrict__ B, int ldb, int K,
+                                                int N, float* C, int ldc, float* ring) {
   float acc[8][4];
-  rows_product_f32<false, kChainStagesF32>(A, B, K, N, ring, acc);
+  rows_product_f32<false, kChainStagesF32>(A, lda, B, ldb, K, N, ring, acc);
   const int g = threadIdx.x >> 6, c0 = (threadIdx.x & 63) * 4;
   if (c0 < N)
 #pragma unroll
     for (int i = 0; i < 8; ++i) st_f4(C + f32_row<false>(g, i) * ldc + c0, acc[i]);
+}
+
+// stage_first_slabs and gemm_rows64 with f32 operands, in the bf16
+// overloads' argument order: B is the row-major [K, N] f32 block of row
+// stride N (ldb is not read), A the f32 tile of row stride lda.  A
+// transposed product, which the bf16 instances read as the transpose of the
+// [N, K] weight, reads the weight's own transposed block of the f32 pack
+// (core_mlp.pack_sdf_mlp's and pack_mlp's wtpack).
+template <bool TRANS_B>
+__device__ __forceinline__ void stage_first_slabs(const float* __restrict__ B, int ldb, int K, int N, float* ring) {
+  stage_first_slabs_f32<kChainStagesF32>(B, N, K, N, ring);
+}
+
+template <bool TRANS_B>
+__device__ void gemm_rows64(const float* A, int lda, const float* __restrict__ B, int ldb, int K, int N, float* C,
+                            int ldc, float* ring) {
+  gemm_rows64_f32(A, lda, B, N, K, N, C, ldc, ring);
 }
 
 }  // namespace nrh

@@ -12,13 +12,13 @@ schedule: "recompute" runs ``SdfCoreFn`` (A forward, H backward,
 "stash", "stash_all" and "stash_xla" the stash op of ``core_stash.py``.
 ``fused_mlp_apply`` runs the reflectance trunk the same way: kernel I
 (``csrc/mlp_stash.cu``) without a gradient, ``MlpFn`` (I forward, J
-backward) under "recompute", the stash op (F, G) otherwise.
+backward) under "recompute", ``core_stash.fused_mlp_apply_stash`` (F, G)
+otherwise.
 
-``compute_dtype`` picks the SDF core's instance on the card: "bfloat16"
-(the shipping bf16 dot operands) or "float32" (exact f32 dots: A's and H's
-f32 instances, counted as ``sdf_core_fwd_f32`` and ``sdf_core_bwd_f32``).
-The trunk's kernels compute with bf16 operands only; their f32 instances
-are the next port slice.
+``compute_dtype`` picks each kernel's instance on the card: "bfloat16"
+(the shipping bf16 dot operands) or "float32" (exact f32 dots: the f32
+instances of A, H, I and J, counted as ``sdf_core_fwd_f32``,
+``sdf_core_bwd_f32``, ``mlp_fwd_f32`` and ``mlp_bwd_f32``).
 
 On CPU tensors every wrapper runs its plain version; on CUDA tensors it
 launches its kernel or raises.
@@ -256,15 +256,15 @@ def core_pack(weights: Sequence[torch.Tensor], cfg: SDFNetConfig, compute_dtype:
 
 
 def dtype_bits(compute_dtype: str, stash_dtype: str = "bfloat16") -> int:
-    """The dtypes int of the SDF core's C entry points: 1 for f32 dot
-    operands, 2 for an f32 stash (``csrc/mma_rows.cuh``: kF32Compute,
-    kF32Stash)."""
+    """The dtypes int of the SDF core's and the trunk's C entry points: 1
+    for f32 dot operands, 2 for an f32 stash (``csrc/mma_rows.cuh``:
+    kF32Compute, kF32Stash)."""
     torch_dtype(compute_dtype), torch_dtype(stash_dtype)
     return int(compute_dtype == "float32") | int(stash_dtype == "float32") << 1
 
 
 def instance_name(kernel: str, compute_dtype: str, stash_dtype: str | None = None) -> str:
-    """The launch counter of an SDF core kernel's instance: the kernel's name
+    """The launch counter of an SDF core or trunk kernel's instance: the kernel's name
     for bf16 operands, + "_f32" for f32 operands, + "_f32stash" or
     "_bf16stash" for a stash dtype other than the operands'."""
     name = kernel + ("_f32" if compute_dtype == "float32" else "")
@@ -275,7 +275,7 @@ def instance_name(kernel: str, compute_dtype: str, stash_dtype: str | None = Non
 
 def _wt(pk: dict):
     """The f32 pack's transposed blocks, or None (the bf16 instances read
-    the transposes of wpack's blocks)."""
+    the transposes of wpack's blocks); the SDF core's and the trunk's."""
     return pk["wtpack"].data_ptr() if "wtpack" in pk else None
 
 
@@ -319,11 +319,11 @@ def chain_layout(n: int, gates_total: int) -> tuple[int, int, int]:
 
 
 def trunk_layout(n: int, zt: int) -> tuple[int, int, int, int]:
-    """-> (blocks, padded points, rows of the bias sums, bf16 elements of
-    kernel J's transient z stash) of the trunk's kernels (``csrc/mlp_stash.cu``)
+    """-> (blocks, padded points, rows of the bias sums, elements of kernel
+    J's transient z stash) of the trunk's kernels (``csrc/mlp_stash.cu``)
     at n points and ZT stash columns: 64-point blocks; one row of f32 column
     sums of every G_i per ``SUM_ROWS`` padded points; J's stash has kernel
-    F's layout [n, ZT]."""
+    F's layout [n, ZT], in J's operand dtype."""
     nblk, npad, _ = gate_layout(n, 0)
     return nblk, npad, npad // SUM_ROWS, n * zt
 
@@ -337,11 +337,18 @@ def materialize_mlp_weights(params: dict, n_layers: int) -> tuple:
     return tuple(out)
 
 
-def pack_mlp(weights: Sequence[torch.Tensor], n_layers: int) -> dict:
+def pack_mlp(weights: Sequence[torch.Tensor], n_layers: int, dtype: torch.dtype = torch.bfloat16) -> dict:
     """Lay the trunk out as ``csrc/mlp_stash.cu`` reads it: per layer a
-    zero-padded bf16 [kp, np] block (w [in, out]) and a padded f32 bias,
-    and the int meta vector [n_lin, d0, d_out, ZT, then per layer in, out,
-    kp, np, w_off, b_off, z_off]; ZT is the width of the packed z_i."""
+    zero-padded [kp, np] block (w [in, out]) in ``dtype`` and a padded f32
+    bias, and the int meta vector [n_lin, d0, d_out, ZT, then per layer in,
+    out, kp, np, w_off, b_off, z_off]; ZT is the width of the packed z_i.
+    ``dtype`` is bf16 for the bf16 instances; the f32 instances
+    (``compute_dtype="float32"``) read f32 blocks in the same layout and
+    "wtpack": every block transposed at the same offset, the B operand of
+    the chain's products G_i W_i^T (``mma_rows.cuh``'s f32 products read B
+    row-major)."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the packed trunk weights are bf16 or f32, got {dtype}")
     dev = weights[0].device
     dims = [(weights[2 * i].shape[0], weights[2 * i].shape[1]) for i in range(n_layers + 1)]
     if max(_round16(o) for _, o in dims) > 256 or _round16(dims[0][0]) > IN_MAX or any(
@@ -355,16 +362,32 @@ def pack_mlp(weights: Sequence[torch.Tensor], n_layers: int) -> dict:
         w_off, b_off = w_off + kp * np_, b_off + np_
         z_off += np_
     zt = sum(_round16(o) for _, o in dims[:-1])
-    wpack = torch.zeros(w_off, dtype=torch.bfloat16, device=dev)
+    wpack = torch.zeros(w_off, dtype=dtype, device=dev)
     bpack = torch.zeros(b_off, dtype=torch.float32, device=dev)
+    wtpack = torch.zeros(w_off, dtype=dtype, device=dev) if dtype == torch.float32 else None
     for i, (din, dout) in enumerate(dims):
         _, _, kp, np_, wo, bo, _ = meta[7 * i : 7 * i + 7]
-        wp = torch.zeros(kp, np_, dtype=torch.bfloat16, device=dev)
-        wp[:din, :dout] = weights[2 * i].to(torch.bfloat16)
+        wp = torch.zeros(kp, np_, dtype=dtype, device=dev)
+        wp[:din, :dout] = weights[2 * i].to(dtype)
         wpack[wo : wo + kp * np_] = wp.reshape(-1)
+        if wtpack is not None:
+            wtpack[wo : wo + kp * np_] = wp.t().reshape(-1)
         bpack[bo : bo + dout] = weights[2 * i + 1].reshape(-1).float()
     meta = [n_layers + 1, dims[0][0], dims[-1][1], zt] + meta
-    return {"wpack": wpack, "bpack": bpack, "meta": np.asarray(meta, dtype=np.int32)}
+    pk = {"wpack": wpack, "bpack": bpack, "meta": np.asarray(meta, dtype=np.int32)}
+    if wtpack is not None:
+        pk["wtpack"] = wtpack
+    return pk
+
+
+def trunk_pack(weights: Sequence[torch.Tensor], n_layers: int, compute_dtype: str, pk: dict | None = None) -> dict:
+    """The trunk's pack for ``compute_dtype`` (``pk`` when given, checked
+    against it)."""
+    dt = torch_dtype(compute_dtype)
+    pk = pack_mlp(weights, n_layers, dt) if pk is None else pk
+    if pk["wpack"].dtype != dt:
+        raise ValueError(f"the pack holds {pk['wpack'].dtype} weights where compute_dtype is {compute_dtype!r}")
+    return pk
 
 
 def dw_jobs(shapes) -> tuple[np.ndarray, int, int]:
@@ -518,37 +541,43 @@ def sdf_core_bwd(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, co
 # Kernels I and J, and the backward plumbing they share with kernel G
 
 
-def mlp_fwd(weights, x: torch.Tensor, n_layers: int, pk: dict | None = None) -> torch.Tensor:
+def mlp_fwd(weights, x: torch.Tensor, n_layers: int, pk: dict | None = None,
+            compute_dtype: str = "bfloat16") -> torch.Tensor:
     """Kernel I on the card -> out [N, d_out] f32 (kernel F without its
-    stash; ``trunk_layout``'s 64-point blocks)."""
-    pk = pack_mlp(weights, n_layers) if pk is None else pk
+    stash; ``trunk_layout``'s 64-point blocks), with dot operands of
+    ``compute_dtype`` (bf16, or exact f32: I's f32 instance)."""
+    pk = trunk_pack(weights, n_layers, compute_dtype, pk)
     meta = pk["meta"]
     n, dev = x.shape[0], x.device
     require_cuda(x, (None, int(meta[1])), "x")
     out = torch.empty((n, int(meta[2])), device=dev)
     if n > 0:
         _launch(
-            cuda_lib.load("mlp_stash"), "mlp_fwd", "mlp_fwd",
+            cuda_lib.load("mlp_stash"), "mlp_fwd", instance_name("mlp_fwd", compute_dtype),
             x.data_ptr(), pk["wpack"].data_ptr(), pk["bpack"].data_ptr(), out.data_ptr(), n, meta.ctypes.data,
-            cuda_lib.stream_ptr(dev),
+            dtype_bits(compute_dtype), cuda_lib.stream_ptr(dev),
         )
     return out
 
 
 def mlp_bwd_launch(weights, x: torch.Tensor, g: torch.Tensor, n_layers: int, pk: dict | None = None,
-                   zs: torch.Tensor | None = None):
-    """The trunk's backward on the card -> (dws, dx): kernel G at the bf16
-    ``zs`` stash of kernel F, or, with ``zs=None``, kernel J, which first
-    recomputes the z_i into a transient stash of F's layout (freed when this
-    returns).  Both run the per-point chain on 64-point blocks, then the same
-    split-K dW products and in-order sums as kernel E (``trunk_layout``)."""
-    pk = pack_mlp(weights, n_layers) if pk is None else pk
+                   zs: torch.Tensor | None = None, compute_dtype: str = "bfloat16", stash_dtype: str = "bfloat16"):
+    """The trunk's backward on the card -> (dws, dx): kernel G at the ``zs``
+    stash (of ``stash_dtype``) of kernel F, or, with ``zs=None``, kernel J,
+    which first recomputes the z_i into a transient stash of F's layout in
+    the operands' dtype (freed when this returns).  Both run the per-point
+    chain on 64-point blocks, then the same split-K dW products and in-order
+    sums as kernel E (``trunk_layout``; the dW operands in a scratch of the
+    operands' dtype), at dot operands of ``compute_dtype`` (bf16, or exact
+    f32: the f32 instances)."""
+    pk = trunk_pack(weights, n_layers, compute_dtype, pk)
+    cdt = torch_dtype(compute_dtype)
     meta = pk["meta"]
     n_lin, d0, d_out, zt = (int(v) for v in meta[:4])
     n, dev = x.shape[0], x.device
     require_cuda(x, (n, d0), "x")
     if zs is not None:
-        require_cuda(zs, (n, zt), "zs", torch.bfloat16)
+        require_cuda(zs, (n, zt), "zs", torch_dtype(stash_dtype))
     require_cuda(g, (n, d_out), "g")
     layers = [tuple(int(v) for v in meta[4 + 7 * i : 11 + 7 * i]) for i in range(n_lin)]
     _, npad, sum_rows, n_zs = trunk_layout(n, zt)
@@ -557,20 +586,22 @@ def mlp_bwd_launch(weights, x: torch.Tensor, g: torch.Tensor, n_layers: int, pk:
     bt = sum(lay[3] for lay in layers)
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty((n, d0), **f32)
-    scratch = torch.empty(n_scratch, dtype=torch.bfloat16, device=dev)
+    scratch = torch.empty(n_scratch, dtype=cdt, device=dev)
     partial = torch.empty((sum_rows, bt), **f32)
     colsum = torch.empty(bt, **f32)
     part_dw = torch.empty((split, n_dw), **f32)
     dw = torch.empty(n_dw, **f32)
     tail = (dx.data_ptr(), scratch.data_ptr(), partial.data_ptr(), colsum.data_ptr(), part_dw.data_ptr(),
-            dw.data_ptr(), jobs.ctypes.data, len(jobs), split, n, meta.ctypes.data, cuda_lib.stream_ptr(dev))
+            dw.data_ptr(), jobs.ctypes.data, len(jobs), split, n, meta.ctypes.data)
     if n > 0 and zs is None:
-        zsc = torch.empty(n_zs, dtype=torch.bfloat16, device=dev)
-        _launch(cuda_lib.load("mlp_stash"), "mlp_bwd", "mlp_bwd", x.data_ptr(), g.data_ptr(), pk["wpack"].data_ptr(),
-                pk["bpack"].data_ptr(), zsc.data_ptr(), *tail)
+        zsc = torch.empty(n_zs, dtype=cdt, device=dev)
+        _launch(cuda_lib.load("mlp_stash"), "mlp_bwd", instance_name("mlp_bwd", compute_dtype), x.data_ptr(),
+                g.data_ptr(), pk["wpack"].data_ptr(), _wt(pk), pk["bpack"].data_ptr(), zsc.data_ptr(), *tail,
+                dtype_bits(compute_dtype), cuda_lib.stream_ptr(dev))
     elif n > 0:
-        _launch(cuda_lib.load("mlp_stash"), "mlp_stash_bwd", "mlp_stash_bwd", x.data_ptr(), zs.data_ptr(),
-                g.data_ptr(), pk["wpack"].data_ptr(), *tail)
+        _launch(cuda_lib.load("mlp_stash"), "mlp_stash_bwd", instance_name("mlp_stash_bwd", compute_dtype, stash_dtype),
+                x.data_ptr(), zs.data_ptr(), g.data_ptr(), pk["wpack"].data_ptr(), _wt(pk), *tail,
+                dtype_bits(compute_dtype, stash_dtype), cuda_lib.stream_ptr(dev))
     else:
         colsum.zero_()
         dw.zero_()
@@ -581,23 +612,15 @@ def mlp_bwd_launch(weights, x: torch.Tensor, g: torch.Tensor, n_layers: int, pk:
     return tuple(dws), dx
 
 
-def mlp_bwd(weights, x: torch.Tensor, g: torch.Tensor, n_layers: int, pk: dict | None = None):
-    """Kernel J on the card -> (dws, dx) (``mlp_bwd_launch``)."""
-    return mlp_bwd_launch(weights, x, g, n_layers, pk)
+def mlp_bwd(weights, x: torch.Tensor, g: torch.Tensor, n_layers: int, pk: dict | None = None,
+            compute_dtype: str = "bfloat16"):
+    """Kernel J on the card -> (dws, dx) at dot operands of
+    ``compute_dtype`` (``mlp_bwd_launch``)."""
+    return mlp_bwd_launch(weights, x, g, n_layers, pk, compute_dtype=compute_dtype)
 
 
 # ---------------------------------------------------------------------------
 # The autograd ops of the recompute schedule
-
-
-def check_kernel_dtype(dtype: str) -> None:
-    """Raise for a ``compute_dtype`` or ``stash_dtype`` the CUDA trunk
-    kernels do not take: bf16 only, until their f32 instances are ported
-    (the SDF core's kernels take both)."""
-    torch_dtype(dtype)
-    if dtype != "bfloat16":
-        raise NotImplementedError("the CUDA trunk kernels F, G, I and J take bf16 dot operands and a bf16 stash only: "
-                                  "their f32 instances (compute_dtype or stash_dtype 'float32') are the next port slice")
 
 
 def cotangent(g, shape, device) -> torch.Tensor:
@@ -641,8 +664,9 @@ class SdfCoreFn(torch.autograd.Function):
 
 class MlpFn(torch.autograd.Function):
     """The ReLU trunk with the recompute backward: kernels I and J on CUDA
-    tensors, ``mlp_relu_plain`` and ``mlp_relu_bwd_plain`` on CPU tensors;
-    it saves only x and the weights."""
+    tensors, their instances at ``compute_dtype``, ``mlp_relu_plain`` and
+    ``mlp_relu_bwd_plain`` on CPU tensors; it saves only x and the
+    weights."""
 
     @staticmethod
     def forward(ctx, n_layers, compute_dtype, x, *weights):
@@ -651,9 +675,8 @@ class MlpFn(torch.autograd.Function):
             out = mlp_relu_plain(weights, x, n_layers, compute_dtype)
             ctx.pk = None
         else:
-            check_kernel_dtype(compute_dtype)
-            ctx.pk = pack_mlp([w.detach() for w in weights], n_layers)
-            out = mlp_fwd(weights, x, n_layers, ctx.pk)
+            ctx.pk = trunk_pack([w.detach() for w in weights], n_layers, compute_dtype)
+            out = mlp_fwd(weights, x, n_layers, ctx.pk, compute_dtype)
         ctx.save_for_backward(x, *weights)
         return out
 
@@ -665,7 +688,7 @@ class MlpFn(torch.autograd.Function):
         if x.device.type == "cpu":
             dws, dx = mlp_relu_bwd_plain(weights, x, g, ctx.n_layers, ctx.compute_dtype)
         else:
-            dws, dx = mlp_bwd(weights, x, g, ctx.n_layers, ctx.pk)
+            dws, dx = mlp_bwd(weights, x, g, ctx.n_layers, ctx.pk, ctx.compute_dtype)
         return (None, None, dx, *dws)
 
 
@@ -676,12 +699,6 @@ class MlpFn(torch.autograd.Function):
 def needs_grad(*tensors: torch.Tensor) -> bool:
     """True when autograd will want a gradient of an op on ``tensors``."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
-def _stash_bwd_impl(backward: str) -> str:
-    """The stash op's backward for a ``core_backward`` value: its kernel,
-    or full-batch PyTorch for "stash_xla" (where JAX runs XLA)."""
-    return "xla" if backward == "stash_xla" else "kernel"
 
 
 def fused_sdf_value_feat_grad(
@@ -729,25 +746,38 @@ def sdf_core_primal(weights, x: torch.Tensor, cfg: SDFNetConfig, compute_dtype: 
     return sdf_core_fwd(weights, x.contiguous(), cfg, compute_dtype=compute_dtype)
 
 
-def fused_mlp_apply(params: dict, n_layers: int, x: torch.Tensor, *, backward: str = "stash") -> torch.Tensor:
-    """The weight-norm ReLU trunk on pre-encoded inputs -> [N, d_out]
-    logits, with bf16 dot operands.  Without a gradient: kernel I (or
-    ``mlp_relu_plain`` on the CPU) for every ``backward``, as JAX's stash op
-    dispatches its non-stash forward for the undifferentiated primal.  With
-    one: ``MlpFn`` (I, J) for "recompute", ``core_stash.MlpStashFn`` (F, then
-    G, or G's plain version for "stash_xla") for the stash schedules ("stash_all"
-    maps to the stash backward, as in JAX)."""
-    x = x.contiguous()
-    grad = needs_grad(x, *tree_leaves(params))
-    weights = materialize_mlp_weights(params, n_layers)
-    if not grad:
-        return mlp_relu_plain(weights, x, n_layers, "bfloat16") if x.device.type == "cpu" else mlp_fwd(weights, x, n_layers)
-    if backward == "recompute":
-        return MlpFn.apply(n_layers, "bfloat16", x, *weights)
-    if backward in ("stash", "stash_all", "stash_xla"):
-        from nrhints_torch.kernels.core_stash import MlpStashFn
+def mlp_primal(weights, x: torch.Tensor, n_layers: int, compute_dtype: str) -> torch.Tensor:
+    """The undifferentiated trunk: kernel I on a CUDA tensor,
+    ``mlp_relu_plain`` on a CPU tensor (as JAX's ops dispatch their
+    non-stash forward for the undifferentiated primal)."""
+    if x.device.type == "cpu":
+        return mlp_relu_plain(weights, x, n_layers, compute_dtype)
+    return mlp_fwd(weights, x.contiguous(), n_layers, compute_dtype=compute_dtype)
 
-        return MlpStashFn.apply(n_layers, "bfloat16", "bfloat16", _stash_bwd_impl(backward), x, *weights)
+
+def fused_mlp_apply(params: dict, n_layers: int, x: torch.Tensor, *, compute_dtype: str = "bfloat16",
+                    backward: str = "recompute") -> torch.Tensor:
+    """The weight-norm ReLU trunk on pre-encoded inputs -> [N, d_out]
+    logits, with dot operands of ``compute_dtype`` ("bfloat16", or
+    "float32": exact f32 dots, the kernels' f32 instances).  Without a
+    gradient: kernel I (or ``mlp_relu_plain`` on the CPU) for every
+    ``backward``, as JAX's ops dispatch their non-stash forward for the
+    undifferentiated primal.  With one: ``MlpFn`` (I, J) for "recompute";
+    the stash schedules go to ``core_stash.fused_mlp_apply_stash`` with a
+    bf16 stash, as JAX's routing does: F, then G, or G's plain version for
+    "stash_xla" ("stash_all" maps to the stash backward, as in JAX)."""
+    torch_dtype(compute_dtype)
+    if backward in ("stash", "stash_all", "stash_xla"):
+        from nrhints_torch.kernels.core_stash import fused_mlp_apply_stash
+
+        return fused_mlp_apply_stash(params, n_layers, x, compute_dtype=compute_dtype,
+                                     bwd_impl="xla" if backward == "stash_xla" else "pallas")
+    x = x.contiguous()
+    weights = materialize_mlp_weights(params, n_layers)
+    if not needs_grad(x, *tree_leaves(params)):
+        return mlp_primal(weights, x, n_layers, compute_dtype)
+    if backward == "recompute":
+        return MlpFn.apply(n_layers, compute_dtype, x, *weights)
     raise NotImplementedError(f"core_backward={backward!r}: the port's fused trunk has the 'recompute', 'stash', "
                               "'stash_all' and 'stash_xla' schedules")
 
@@ -763,11 +793,12 @@ def fused_reflectance_forward(
     visibilities: torch.Tensor | None = None,
     specular_cue: torch.Tensor | None = None,
     *,
-    backward: str = "stash",
+    compute_dtype: str = "bfloat16",
+    backward: str = "recompute",
 ) -> torch.Tensor:
     """The reflectance field on the fused path: the frequency encodings and
-    the concat in PyTorch, the trunk through ``fused_mlp_apply`` under the
-    ``backward`` schedule, then the sigmoid
+    the concat in PyTorch, the trunk through ``fused_mlp_apply`` at
+    ``compute_dtype`` under the ``backward`` schedule, then the sigmoid
     (``core_mlp.py::fused_reflectance_forward`` of the JAX package)."""
     from nrhints_torch.core.encodings import nerf_encoding
 
@@ -777,5 +808,6 @@ def fused_reflectance_forward(
         parts.append(nerf_encoding(visibilities, cfg.multi_res))
     if specular_cue is not None:
         parts.append(nerf_encoding(specular_cue, cfg.multi_res))
-    out = fused_mlp_apply(params, cfg.n_layers, torch.cat(parts, dim=-1), backward=backward)
+    out = fused_mlp_apply(params, cfg.n_layers, torch.cat(parts, dim=-1), compute_dtype=compute_dtype,
+                          backward=backward)
     return torch.sigmoid(out) if cfg.squeeze_out else out

@@ -29,12 +29,11 @@ Under ``core_backward="stash_xla"`` the ops keep kernels D and F but run
 their backward as the plain versions over the whole batch (the JAX package
 runs the same program through XLA there).
 
-``fused_sdf_value_feat_grad_stash`` is the SDF op's entry point, with
-JAX's signature: ``compute_dtype`` (bf16 or exact f32 dot operands) and
-``stash_dtype`` (a bf16 or f32 stash) pick D's and E's instances on the
-card, each counted under ``core_mlp.instance_name``.  The trunk's kernels
-compute with bf16 operands and keep a bf16 stash only; their f32 instances
-are the next port slice.
+``fused_sdf_value_feat_grad_stash`` and ``fused_mlp_apply_stash`` are the
+two ops' entry points, with JAX's signatures: ``compute_dtype`` (bf16 or
+exact f32 dot operands) and ``stash_dtype`` (a bf16 or f32 stash) pick D's
+and E's, or F's and G's, instances on the card, each counted under
+``core_mlp.instance_name``.
 
 On CPU tensors every wrapper runs its plain version; on CUDA tensors it
 launches its kernel or raises.  The layouts and backward launchers shared
@@ -54,7 +53,6 @@ from nrhints_torch.kernels.core_mlp import (
     _launch,
     _round16,
     _wt,
-    check_kernel_dtype,
     core_pack,
     cotangent,
     dtype_bits,
@@ -62,17 +60,19 @@ from nrhints_torch.kernels.core_mlp import (
     gate_layout,
     instance_name,
     materialize_sdf_weights_full,
+    materialize_mlp_weights,
     mlp_bwd_launch,
+    mlp_primal,
     mlp_relu_bwd_plain,
     mlp_relu_plain,
     needs_grad,
-    pack_mlp,
     per_dim_sum,
     require_cuda,
     reverse_sweep,
     sdf_bwd_launch,
     sdf_core_plain,
     sdf_core_primal,
+    trunk_pack,
 )
 from nrhints_torch.utils import tree_leaves
 
@@ -293,29 +293,32 @@ def mlp_stash_columns(pk: dict) -> list[tuple[int, int]]:
     return [(int(meta[4 + 7 * i + 6]), int(meta[4 + 7 * i + 1])) for i in range(int(meta[0]) - 1)]
 
 
-def mlp_stash_fwd(weights, x: torch.Tensor, n_layers: int, pk: dict | None = None):
-    """Kernel F on the card -> (out [N, d_out] f32, zs stash [N, ZT] bf16),
-    on ``core_mlp.trunk_layout``'s 64-point blocks."""
-    pk = pack_mlp(weights, n_layers) if pk is None else pk
+def mlp_stash_fwd(weights, x: torch.Tensor, n_layers: int, pk: dict | None = None, compute_dtype: str = "bfloat16",
+                  stash_dtype: str = "bfloat16"):
+    """Kernel F on the card -> (out [N, d_out] f32, zs stash [N, ZT] of
+    ``stash_dtype``), on ``core_mlp.trunk_layout``'s 64-point blocks, with
+    dot operands of ``compute_dtype`` (bf16, or exact f32)."""
+    pk = trunk_pack(weights, n_layers, compute_dtype, pk)
     meta = pk["meta"]
     n, dev = x.shape[0], x.device
     require_cuda(x, (None, int(meta[1])), "x")
     out = torch.empty((n, int(meta[2])), device=dev)
-    zs = torch.empty((n, int(meta[3])), dtype=torch.bfloat16, device=dev)
+    zs = torch.empty((n, int(meta[3])), dtype=torch_dtype(stash_dtype), device=dev)
     if n > 0:
-        lib = cuda_lib.load("mlp_stash")
         _launch(
-            lib, "mlp_stash_fwd", "mlp_stash_fwd",
+            cuda_lib.load("mlp_stash"), "mlp_stash_fwd", instance_name("mlp_stash_fwd", compute_dtype, stash_dtype),
             x.data_ptr(), pk["wpack"].data_ptr(), pk["bpack"].data_ptr(), out.data_ptr(), zs.data_ptr(), n,
-            meta.ctypes.data, cuda_lib.stream_ptr(dev),
+            meta.ctypes.data, dtype_bits(compute_dtype, stash_dtype), cuda_lib.stream_ptr(dev),
         )
     return out, zs
 
 
-def mlp_stash_bwd(weights, x: torch.Tensor, zs: torch.Tensor, g: torch.Tensor, n_layers: int, pk: dict | None = None):
-    """Kernel G on the card -> (dws, dx) at kernel F's stash
+def mlp_stash_bwd(weights, x: torch.Tensor, zs: torch.Tensor, g: torch.Tensor, n_layers: int, pk: dict | None = None,
+                  compute_dtype: str = "bfloat16", stash_dtype: str = "bfloat16"):
+    """Kernel G on the card -> (dws, dx) at kernel F's stash of
+    ``stash_dtype``, with dot operands of ``compute_dtype``
     (``core_mlp.mlp_bwd_launch``)."""
-    return mlp_bwd_launch(weights, x, g, n_layers, pk, zs=zs)
+    return mlp_bwd_launch(weights, x, g, n_layers, pk, zs=zs, compute_dtype=compute_dtype, stash_dtype=stash_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -382,20 +385,19 @@ class SdfStashFn(torch.autograd.Function):
 
 class MlpStashFn(torch.autograd.Function):
     """The ReLU trunk with the stash backward: kernels F and G on CUDA
-    tensors (with ``bwd_impl="xla"``, G's plain version on the card's
-    tensors), the plain versions on CPU tensors."""
+    tensors, their instances at ``compute_dtype`` and ``stash_dtype`` (with
+    ``bwd_impl="xla"``, G's plain version on the card's tensors), the plain
+    versions on CPU tensors."""
 
     @staticmethod
     def forward(ctx, n_layers, compute_dtype, stash_dtype, bwd_impl, x, *weights):
-        ctx.n_layers, ctx.compute_dtype, ctx.bwd_impl = n_layers, compute_dtype, bwd_impl
+        ctx.n_layers, ctx.compute_dtype, ctx.stash_dtype, ctx.bwd_impl = n_layers, compute_dtype, stash_dtype, bwd_impl
         if x.device.type == "cpu":
             out, zs = mlp_relu_fwd_zs_plain(weights, x, n_layers, compute_dtype, stash_dtype)
             ctx.pk = None
         else:
-            check_kernel_dtype(compute_dtype)
-            check_kernel_dtype(stash_dtype)
-            ctx.pk = pack_mlp([w.detach() for w in weights], n_layers)
-            out, stash = mlp_stash_fwd(weights, x, n_layers, ctx.pk)
+            ctx.pk = trunk_pack([w.detach() for w in weights], n_layers, compute_dtype)
+            out, stash = mlp_stash_fwd(weights, x, n_layers, ctx.pk, compute_dtype, stash_dtype)
             zs = [stash]
         ctx.save_for_backward(x, *weights, *zs)
         ctx.n_w = len(weights)
@@ -413,12 +415,12 @@ class MlpStashFn(torch.autograd.Function):
             zs = split_stash(zs[0], mlp_stash_columns(ctx.pk))
             dws, dx = mlp_relu_bwd_stash_plain(weights, x, zs, g, ctx.n_layers, ctx.compute_dtype)
         else:
-            dws, dx = mlp_stash_bwd(weights, x, zs[0], g, ctx.n_layers, ctx.pk)
+            dws, dx = mlp_stash_bwd(weights, x, zs[0], g, ctx.n_layers, ctx.pk, ctx.compute_dtype, ctx.stash_dtype)
         return (None, None, None, None, dx, *dws)
 
 
 # ---------------------------------------------------------------------------
-# Entry point
+# Entry points
 
 
 def fused_sdf_value_feat_grad_stash(
@@ -449,3 +451,33 @@ def fused_sdf_value_feat_grad_stash(
         return sdf_core_primal(weights, x, cfg, compute_dtype)
     return SdfStashFn.apply(cfg, compute_dtype, stash_dtype, "xla" if bwd_impl == "xla" else "kernel", stash_us,
                             x.contiguous(), *weights)
+
+
+def fused_mlp_apply_stash(
+    params: dict,
+    n_layers: int,
+    x: torch.Tensor,
+    *,
+    compute_dtype: str = "bfloat16",
+    stash_dtype: str = "bfloat16",
+    bwd_impl: str = "pallas",
+) -> torch.Tensor:
+    """The weight-norm ReLU trunk on pre-encoded inputs -> [N, d_out]
+    logits with the stash backward (port of
+    ``core_stash.py::fused_mlp_apply_stash``, the stash twin of
+    ``core_mlp.fused_mlp_apply``).  With no gradient wanted it runs the
+    undifferentiated trunk (kernel I at ``compute_dtype``, or
+    ``mlp_relu_plain`` on a CPU tensor), as JAX's op does; with one,
+    ``MlpStashFn``: F's and G's instances at ``compute_dtype`` ("bfloat16"
+    or exact-f32 "float32" dot operands) and ``stash_dtype`` (the stash's
+    dtype); ``bwd_impl="xla"`` G's plain version over the whole batch
+    ("pallas", JAX's name, is the CUDA kernel)."""
+    if bwd_impl not in ("pallas", "xla"):
+        raise ValueError(f"bwd_impl must be 'pallas' or 'xla', got {bwd_impl!r}")
+    torch_dtype(compute_dtype), torch_dtype(stash_dtype)
+    x = x.contiguous()
+    weights = materialize_mlp_weights(params, n_layers)
+    if not needs_grad(x, *tree_leaves(params)):
+        return mlp_primal(weights, x, n_layers, compute_dtype)
+    return MlpStashFn.apply(n_layers, compute_dtype, stash_dtype, "xla" if bwd_impl == "xla" else "kernel", x,
+                            *weights)

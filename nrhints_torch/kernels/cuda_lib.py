@@ -17,11 +17,12 @@ cp.async-staged products of that forward, that chain and those passes,
 C, K, L, M and N, ``mma_rows.cuh`` the ldmatrix and mma.sync row engine of
 the sweeps of C, K, L, M and N, and the f32 engine of their f32 instances
 (``*_f32``, counted under their own names) and of the SDF core's f32
-instances.  The SDF core's entry points (A, D, E, H and D's and E's
-stash_all variants) take an int of dtype bits (``core_mlp.dtype_bits``);
-each instance counts under ``core_mlp.instance_name``: the kernel's name,
-with ``_f32`` for f32 dot operands and ``_f32stash`` / ``_bf16stash`` for a
-stash dtype other than the operands'.
+instances and the trunk's.  The SDF core's entry points (A, D, E, H and
+D's and E's stash_all variants) and the trunk's (F, G, I and J) take an
+int of dtype bits (``core_mlp.dtype_bits``); each instance counts under
+``core_mlp.instance_name``: the kernel's name, with ``_f32`` for f32 dot
+operands and ``_f32stash`` / ``_bf16stash`` for a stash dtype other than
+the operands'.
 """
 from __future__ import annotations
 
@@ -44,11 +45,16 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# The launch counters of the SDF core's instances (core_mlp.instance_name).
+# The launch counters of the SDF core's and the trunk's instances
+# (core_mlp.instance_name).
 SDF_CORE_INSTANCES = (
     ["sdf_core_fwd", "sdf_core_fwd_f32", "sdf_core_bwd", "sdf_core_bwd_f32"]
     + [f"{k}{c}" for k in ("sdf_stash_fwd", "sdf_stash_bwd", "sdf_stash_all_fwd", "sdf_stash_all_bwd")
        for c in ("", "_f32", "_f32_bf16stash", "_f32stash")]
+)
+TRUNK_INSTANCES = (
+    ["mlp_fwd", "mlp_fwd_f32", "mlp_bwd", "mlp_bwd_f32"]
+    + [f"{k}{c}" for k in ("mlp_stash_fwd", "mlp_stash_bwd") for c in ("", "_f32", "_f32_bf16stash", "_f32stash")]
 )
 
 launch_counts = {
@@ -60,7 +66,7 @@ launch_counts = {
     "shadow_final_f32": 0, "march_sweep_f32": 0, "march_rounds_f32": 0, "importance_march_f32": 0,
     "shadow_march_f32": 0,
 }
-launch_counts.update({k: 0 for k in SDF_CORE_INSTANCES if k not in launch_counts})
+launch_counts.update({k: 0 for k in SDF_CORE_INSTANCES + TRUNK_INSTANCES if k not in launch_counts})
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -75,10 +81,10 @@ _SIGNATURES = {
     },
     "sdf_core_bwd": {"sdf_core_bwd": [_P] * 18 + [_I, _I, _I, _P, _F, _I, _P]},
     "mlp_stash": {
-        "mlp_stash_fwd": [_P, _P, _P, _P, _P, _I, _P, _P],
-        "mlp_fwd": [_P, _P, _P, _P, _I, _P, _P],
-        "mlp_stash_bwd": [_P] * 11 + [_I, _I, _I, _P, _P],
-        "mlp_bwd": [_P] * 12 + [_I, _I, _I, _P, _P],
+        "mlp_stash_fwd": [_P] * 5 + [_I, _P, _I, _P],
+        "mlp_fwd": [_P] * 4 + [_I, _P, _I, _P],
+        "mlp_stash_bwd": [_P] * 12 + [_I, _I, _I, _P, _I, _P],
+        "mlp_bwd": [_P] * 13 + [_I, _I, _I, _P, _I, _P],
     },
     "march": {
         "round_machinery": [_P] * 9 + [_I, _I, _I, _F, _I, _I, _P],

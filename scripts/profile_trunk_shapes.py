@@ -90,11 +90,11 @@ def main() -> int:
         n_layers = len(dims) - 2
         pk = core_mlp.pack_mlp(w, n_layers)
         x = torch.tensor(np.random.default_rng(0).normal(size=(n, dims[0])).astype(np.float32), device=dev)
-        ms[name] = device_ms(lambda: core_mlp.mlp_fwd(w, x, n_layers, pk), "mlp_fwd_kernel<0>")
+        ms[name] = device_ms(lambda: core_mlp.mlp_fwd(w, x, n_layers, pk), "mlp_fwd_kernel<__nv_bfloat16, __nv_bfloat16, 0>")
         waves = -(-n // 64) / 132
         line = f"kernel I, {name} ({n} points, {waves:.2f} waves): {ms[name]:.4f} ms, {ms[name] / waves:.4f} ms a wave"
         if dims == SHIPPING and n == 65536:
-            f_ms = device_ms(lambda: core_stash.mlp_stash_fwd(w, x, n_layers, pk), "mlp_fwd_kernel<1>")
+            f_ms = device_ms(lambda: core_stash.mlp_stash_fwd(w, x, n_layers, pk), "mlp_fwd_kernel<__nv_bfloat16, __nv_bfloat16, 1>")
             line += f"; kernel F {f_ms:.4f} ms (the stash store {f_ms - ms[name]:.4f} ms)"
         print(line, flush=True)
     for label, a, b in PAIRS:

@@ -43,6 +43,14 @@ h_i, u_i and g_enc to 1e-5; a bf16 stash to 1e-2 (a value within an f32
 ulp of a bf16 rounding boundary rounds the other way), and E reads the
 kernel's own stash on both sides.  The mixed instance with bf16 operands
 and an f32 stash keeps the bf16 tolerances above.
+The trunk's f32 instances (F and G at each (compute, stash) pair, I and J
+at compute_dtype="float32") against their plain versions at the same
+tolerances; I equals F's output and J's gradients G's at F's f32 stash bit
+for bit, G and J repeat bit for bit, and J is held the two ways above (1e-4
+entry by entry at F's z_i, 1e-4 by the relative norm against the wholly
+plain backward).  bf16 operands with an f32 stash give the (bf16, bf16)
+pair's output and gradients bit for bit, and the stash rounds to its stash:
+bf16(relu(z)) = relu(bf16(z)), and the ReLU mask reads only z's sign.
 """
 import numpy as np
 import pytest
@@ -205,15 +213,16 @@ def test_render_rays_card_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
-def test_wrappers_raise_on_bad_inputs(cuda):
+def test_wrappers_raise_on_bad_inputs(exact_f32):
+    cuda = exact_f32
     p = sdf_init(torch.Generator().manual_seed(0), SMALL, cuda)
     w = core_mlp.materialize_sdf_weights_full(p, SMALL)
     with pytest.raises(ValueError):
         core_mlp.sdf_core_fwd(w, torch.zeros((4, 3), dtype=torch.float64, device=cuda), SMALL)
     with pytest.raises(ValueError):
         core_mlp.sdf_core_fwd(w, torch.zeros((3, 4), device=cuda).t(), SMALL)
-    # compute_dtype="float32" runs A's f32 instance (it raised before that
-    # instance existed); the trunk still refuses f32 operands.
+    # compute_dtype="float32" runs A's f32 instance, and an f32 MlpFn I's and
+    # J's (each raised before its f32 instance existed).
     x = torch.tensor(np.random.default_rng(3).normal(size=(37, 3)).astype(np.float32) * 0.5, device=cuda)
     before = cuda_lib.launch_counts["sdf_core_fwd_f32"]
     out = core_mlp.fused_sdf_value_feat_grad(p, SMALL, x, compute_dtype="float32")
@@ -223,10 +232,35 @@ def test_wrappers_raise_on_bad_inputs(cuda):
         _close(k, ref, 1e-5)
     with pytest.raises(ValueError):
         core_mlp.fused_sdf_value_feat_grad(p, SMALL, x, compute_dtype="float16")
-    tw = [torch.zeros((45, 32), device=cuda), torch.zeros(32, device=cuda), torch.zeros((32, 3), device=cuda),
-          torch.zeros(3, device=cuda)]
-    with pytest.raises(NotImplementedError, match="next port slice"):
-        core_mlp.MlpFn.apply(1, "float32", torch.zeros((4, 45), device=cuda), *tw)
+    tw, _, xt, gt = _gpu_trunk_case(cuda, (45, 32, 3), 37)
+    tw = [w.requires_grad_(True) for w in tw]
+    xt.requires_grad_(True)
+    before = dict(cuda_lib.launch_counts)
+    out = core_mlp.MlpFn.apply(1, "float32", xt, *tw)
+    grads = torch.autograd.grad(out, [xt, *tw], gt)
+    torch.cuda.synchronize()
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in before if cuda_lib.launch_counts[k] != before[k]} == {
+        "mlp_fwd_f32": 1, "mlp_bwd_f32": 1}
+    ref_out = core_mlp.mlp_relu_plain(tw, xt, 1, "float32")
+    _close(out, ref_out, 1e-5)
+    for k, ref in zip(grads, torch.autograd.grad(ref_out, [xt, *tw], gt)):
+        _close_rel(k, ref, 1e-4)
+
+
+def _gpu_trunk_case(dev, dims, n):
+    """(weights, n_layers, x, g): the trunk dims[0] -> ... -> dims[-1] with
+    torch.nn.Linear's default init from seed 1, and n random inputs and
+    output cotangents (seed n)."""
+    from nrhints_torch.fields.mlp import torch_default_linear_init
+
+    gen = torch.Generator().manual_seed(1)
+    w = []
+    for i in range(len(dims) - 1):
+        w += list(torch_default_linear_init(gen, dims[i], dims[i + 1], dev))
+    rng = np.random.default_rng(n)
+    x = torch.tensor(rng.normal(size=(n, dims[0])).astype(np.float32), device=dev)
+    g = torch.tensor(rng.normal(size=(n, dims[-1])).astype(np.float32), device=dev)
+    return w, len(dims) - 2, x, g
 
 
 def _gpu_sdf_case(cuda, cfg, n):
@@ -309,16 +343,7 @@ def test_sdf_stash_all_kernels_match_plain(cuda, cfg, n):
 @pytest.mark.parametrize("n", TRUNK_N)
 def test_mlp_stash_kernels_match_plain(cuda, dims, n):
     """Kernels F and G against the plain trunk forward and backward."""
-    from nrhints_torch.fields.mlp import torch_default_linear_init
-
-    gen = torch.Generator().manual_seed(1)
-    w = []
-    for i in range(len(dims) - 1):
-        w += [t.to(cuda) for t in torch_default_linear_init(gen, dims[i], dims[i + 1], "cpu")]
-    n_layers = len(dims) - 2
-    rng = np.random.default_rng(n)
-    x = torch.tensor(rng.normal(size=(n, dims[0])).astype(np.float32), device=cuda)
-    g = torch.tensor(rng.normal(size=(n, 3)).astype(np.float32), device=cuda)
+    w, n_layers, x, g = _gpu_trunk_case(cuda, dims, n)
     out, zs = core_stash.mlp_stash_fwd(w, x, n_layers)
     p_out, p_zs = core_stash.mlp_relu_fwd_zs_plain(w, x, n_layers, "bfloat16", "bfloat16")
     _close(out, p_out, 1e-2)
@@ -421,16 +446,7 @@ def test_sdf_core_bwd_matches_plain(cuda, cfg, n):
 def test_mlp_recompute_kernels_match_plain(cuda, dims, n):
     """Kernels I and J against the plain trunk and its backward; I equals
     F's output and J equals G at F's stash, bit for bit; J repeats."""
-    from nrhints_torch.fields.mlp import torch_default_linear_init
-
-    gen = torch.Generator().manual_seed(1)
-    w = []
-    for i in range(len(dims) - 1):
-        w += list(torch_default_linear_init(gen, dims[i], dims[i + 1], cuda))
-    n_layers = len(dims) - 2
-    rng = np.random.default_rng(n)
-    x = torch.tensor(rng.normal(size=(n, dims[0])).astype(np.float32), device=cuda)
-    g = torch.tensor(rng.normal(size=(n, 3)).astype(np.float32), device=cuda)
+    w, n_layers, x, g = _gpu_trunk_case(cuda, dims, n)
     before = dict(cuda_lib.launch_counts)
     out = core_mlp.mlp_fwd(w, x, n_layers)
     _close(out, core_mlp.mlp_relu_plain(w, x, n_layers, "bfloat16"), 1e-2)
@@ -1098,6 +1114,136 @@ def test_f32_entry_points_match_autograd(exact_f32, route):
     ref = torch.autograd.grad(ref_out, [x, *leaves.values()], cots)
     for k, p in zip(out, ref_out):
         _close(k, p, 1e-5)
+    tol = 1e-4 if stash_kw is not None or route == "recompute" else 2e-2
+    for k, p in zip(grads, ref):
+        _close_rel(k, p, tol)
+
+
+# The trunk's f32 instances: F and G at each F32_COMBOS pair, I and J at f32.
+TRUNK_DIMS = [(45, 32, 32, 3), (361, 256, 256, 256, 256, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute,stash_dt", F32_COMBOS)
+@pytest.mark.parametrize("dims", TRUNK_DIMS, ids=["small", "full"])
+@pytest.mark.parametrize("n", [1, 65, 1000])
+def test_mlp_stash_f32_kernels_match_plain(exact_f32, dims, n, compute, stash_dt):
+    """F's instance at (compute, stash) against mlp_relu_fwd_zs_plain, G's
+    against mlp_relu_bwd_stash_plain at F's stash, twice bit for bit; bf16
+    operands with an f32 stash give the (bf16, bf16) pair's output and
+    gradients bit for bit, and a stash that rounds to its stash; each
+    launch counted under its instance's name."""
+    w, n_layers, x, g = _gpu_trunk_case(exact_f32, dims, n)
+    out_tol, stash_tol, grad_tol = _tols(compute, stash_dt)
+    kw = dict(compute_dtype=compute, stash_dtype=stash_dt)
+    cols = core_stash.mlp_stash_columns(core_mlp.pack_mlp(w, n_layers))
+    before = dict(cuda_lib.launch_counts)
+    out, zs = core_stash.mlp_stash_fwd(w, x, n_layers, **kw)
+    assert zs.dtype == core_stash._DTYPES[stash_dt]
+    p_out, p_zs = core_stash.mlp_relu_fwd_zs_plain(w, x, n_layers, compute, stash_dt)
+    _close(out, p_out, out_tol)
+    for k, p in zip(core_stash.split_stash(zs, cols), p_zs):
+        _close(k.float(), p.float(), stash_tol)
+    dws, dx = core_stash.mlp_stash_bwd(w, x, zs, g, n_layers, **kw)
+    torch.cuda.synchronize()
+    p_dws, p_dx = core_stash.mlp_relu_bwd_stash_plain(w, x, core_stash.split_stash(zs, cols), g, n_layers, compute)
+    _close_rel(dx, p_dx, grad_tol)
+    for k, p in zip(dws, p_dws):
+        assert k.shape == p.shape
+        _close_rel(k, p, grad_tol)
+    dws2, dx2 = core_stash.mlp_stash_bwd(w, x, zs, g, n_layers, **kw)
+    assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(dws, dws2))
+    want = {core_mlp.instance_name("mlp_stash_fwd", compute, stash_dt): 1,
+            core_mlp.instance_name("mlp_stash_bwd", compute, stash_dt): 2}
+    if compute == "bfloat16":
+        b_out, b_zs = core_stash.mlp_stash_fwd(w, x, n_layers)
+        b_dws, b_dx = core_stash.mlp_stash_bwd(w, x, b_zs, g, n_layers)
+        assert torch.equal(out, b_out) and torch.equal(zs.to(torch.bfloat16), b_zs)
+        assert torch.equal(dx, b_dx) and all(torch.equal(a, b) for a, b in zip(dws, b_dws))
+        want.update(mlp_stash_fwd=1, mlp_stash_bwd=1)
+    torch.cuda.synchronize()
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in before if cuda_lib.launch_counts[k] != before[k]} == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", TRUNK_DIMS, ids=["small", "full"])
+@pytest.mark.parametrize("n", [1, 65, 1000])
+def test_mlp_recompute_f32_kernels_match_plain(exact_f32, dims, n):
+    """I's and J's f32 instances against mlp_relu_plain and
+    mlp_relu_bwd_plain at "float32": I equals F's (f32, f32) output, J's
+    gradients G's at F's f32 stash, bit for bit; J repeats; J entry by
+    entry against the plain backward at F's z_i and by the relative norm
+    against the wholly plain backward."""
+    w, n_layers, x, g = _gpu_trunk_case(exact_f32, dims, n)
+    kw = dict(compute_dtype="float32", stash_dtype="float32")
+    before = dict(cuda_lib.launch_counts)
+    out = core_mlp.mlp_fwd(w, x, n_layers, compute_dtype="float32")
+    _close(out, core_mlp.mlp_relu_plain(w, x, n_layers, "float32"), 1e-5)
+    f_out, zs = core_stash.mlp_stash_fwd(w, x, n_layers, **kw)
+    assert torch.equal(out, f_out)
+    dws, dx = core_mlp.mlp_bwd(w, x, g, n_layers, compute_dtype="float32")
+    torch.cuda.synchronize()
+    cols = core_stash.mlp_stash_columns(core_mlp.pack_mlp(w, n_layers))
+    z_dws, z_dx = core_mlp.mlp_relu_bwd_plain(w, x, g, n_layers, "float32", zs=core_stash.split_stash(zs, cols))
+    p_dws, p_dx = core_mlp.mlp_relu_bwd_plain(w, x, g, n_layers, "float32")
+    for k, z, p in zip((dx, *dws), (z_dx, *z_dws), (p_dx, *p_dws)):
+        assert k.shape == p.shape
+        _close_rel(k, z, 1e-4)
+        assert (k - p).norm().item() <= 1e-4 * p.norm().item() + 1e-7
+    g_dws, g_dx = core_stash.mlp_stash_bwd(w, x, zs, g, n_layers, **kw)
+    assert torch.equal(dx, g_dx) and all(torch.equal(a, b) for a, b in zip(dws, g_dws))
+    dws2, dx2 = core_mlp.mlp_bwd(w, x, g, n_layers, compute_dtype="float32")
+    assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(dws, dws2))
+    torch.cuda.synchronize()
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in before if cuda_lib.launch_counts[k] != before[k]} == {
+        "mlp_fwd_f32": 1, "mlp_stash_fwd_f32": 1, "mlp_bwd_f32": 2, "mlp_stash_bwd_f32": 1}
+
+
+# The trunk's f32 entry points and the instances each launches.
+TRUNK_F32_ENTRY = {
+    "recompute": (None, {"mlp_fwd_f32": 1, "mlp_bwd_f32": 1}),
+    "stash": (None, {"mlp_stash_fwd_f32_bf16stash": 1, "mlp_stash_bwd_f32_bf16stash": 1}),
+    "stash_all": (None, {"mlp_stash_fwd_f32_bf16stash": 1, "mlp_stash_bwd_f32_bf16stash": 1}),
+    "stash_xla": (None, {"mlp_stash_fwd_f32_bf16stash": 1}),
+    "stash f32": (dict(stash_dtype="float32"), {"mlp_stash_fwd_f32": 1, "mlp_stash_bwd_f32": 1}),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", sorted(TRUNK_F32_ENTRY))
+def test_trunk_f32_entry_points_match_autograd(exact_f32, route):
+    """fused_mlp_apply(compute_dtype="float32") under each backward schedule
+    and fused_mlp_apply_stash at an f32 stash against torch.autograd over
+    mlp_relu_plain(..., "float32"): output 1e-5, the weight-norm leaves' and
+    x's gradients 1e-4 of scale (2e-2 where the stash is bf16); the f32
+    instances' launches, and no other kernel's."""
+    from nrhints_torch.fields.mlp import torch_default_linear_init, weight_norm_params
+    from nrhints_torch.utils import tree_items
+
+    gen = torch.Generator().manual_seed(2)
+    dims = (45, 32, 32, 3)
+    params = {f"lin{i}": weight_norm_params(*torch_default_linear_init(gen, dims[i], dims[i + 1], exact_f32))
+              for i in range(3)}
+    leaves = {n: t.detach().clone().requires_grad_(True) for n, t in tree_items(params)}
+    params = {}
+    for name, t in leaves.items():
+        layer, key = name.strip("/").split("/")
+        params.setdefault(layer, {})[key] = t
+    stash_kw, want = TRUNK_F32_ENTRY[route]
+    rng = np.random.default_rng(9)
+    x = torch.tensor(rng.normal(size=(300, 45)).astype(np.float32), device=exact_f32, requires_grad=True)
+    cot = torch.tensor(rng.normal(size=(300, 3)).astype(np.float32), device=exact_f32)
+    before = dict(cuda_lib.launch_counts)
+    if stash_kw is None:
+        out = core_mlp.fused_mlp_apply(params, 2, x, compute_dtype="float32", backward=route)
+    else:
+        out = core_stash.fused_mlp_apply_stash(params, 2, x, compute_dtype="float32", **stash_kw)
+    grads = torch.autograd.grad(out, [x, *leaves.values()], cot)
+    torch.cuda.synchronize()
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in before if cuda_lib.launch_counts[k] != before[k]} == want
+    ref_out = core_mlp.mlp_relu_plain(core_mlp.materialize_mlp_weights(params, 2), x, 2, "float32")
+    ref = torch.autograd.grad(ref_out, [x, *leaves.values()], cot)
+    _close(out, ref_out, 1e-5)
     tol = 1e-4 if stash_kw is not None or route == "recompute" else 2e-2
     for k, p in zip(grads, ref):
         _close_rel(k, p, tol)

@@ -797,7 +797,10 @@ def test_chain_constants_match_the_headers():
     assert "<<<nblocks(n), kChainThreads, kMlpFwdSmem" in trunk
     assert "<<<nblk, kChainThreads, kMlpChainSmem" in trunk
     assert "return (n + kChainTP - 1) / kChainTP;" in trunk
-    assert trunk.count("gemm_rows64<") == 3 and "wmma::" not in trunk  # every product through gemm_rows64
+    # Every product through gemm_rows64: the forward's at both operand types,
+    # the chain's transposed ones in bf16; f32 transposed ones (row stride kp
+    # in wtpack) through gemm_rows64_f32.
+    assert trunk.count("gemm_rows64<") == 2 and trunk.count("gemm_rows64_f32(") == 1 and "wmma::" not in trunk
     for path in sorted(cuda_lib.CSRC.iterdir()):
         assert not re.search(r"\bkTP\b|\bkThreads\b|\bkWarps\b|gemm_rows16", path.read_text()), path.name
     assert not hasattr(tcm, "TP")
@@ -947,10 +950,9 @@ def test_mlp_plain_matches_pallas(trunk_case, dt):
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_recompute_mlp_op_matches_jax_vjp(trunk_case, dt):
-    """``fused_mlp_apply(backward="recompute")`` (``MlpFn``) against
-    ``jax.vjp`` of the JAX ``fused_mlp_apply`` in interpret mode, at the
-    weight-norm leaves and x.  The port's op is always bf16; the f32 case
-    runs ``MlpFn`` at f32 on the materialized weights."""
+    """``fused_mlp_apply(compute_dtype=dt, backward="recompute")``
+    (``MlpFn``) against ``jax.vjp`` of the JAX ``fused_mlp_apply`` in
+    interpret mode, at the weight-norm leaves and x."""
     from nrhints_torch.utils import tree_items
 
     n_layers, _, _, x, g = trunk_case
@@ -961,10 +963,7 @@ def test_recompute_mlp_op_matches_jax_vjp(trunk_case, dt):
         layer, key = n.strip("/").split("/")
         params.setdefault(layer, {})[key] = t
     xt = torch.tensor(x, requires_grad=True)
-    if dt == "bfloat16":
-        out = tcm.fused_mlp_apply(params, n_layers, xt, backward="recompute")
-    else:
-        out = tcm.MlpFn.apply(n_layers, dt, xt, *tcm.materialize_mlp_weights(params, n_layers))
+    out = tcm.fused_mlp_apply(params, n_layers, xt, compute_dtype=dt, backward="recompute")
     assert type(out.grad_fn).__name__.startswith("MlpFn")
     grads = torch.autograd.grad(out, [xt, *leaves.values()], torch.tensor(g))
     kw = dict(block_pts=32, block_pts_bwd=32, interpret=True, compute_dtype=dt, backward="recompute")
