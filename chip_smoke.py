@@ -120,6 +120,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bwd_impl="xla", and fused_reflectance_forward at compute_dtype="float32"
    against autograd over the plain forward (at the kernels' own ReLU masks,
    and wholly plain by the norm), with the launches of every f32 instance.
+18. the SDF core above the presets' widths (``--wide-sdf``: alone):
+   nr-hints-cam-opt at sdf_network.d_hidden=512 with
+   renderer.shadow_final_impl="xla": (a) A's, D's, E's and H's wide
+   instances and D's and E's stash_all variants' at phase 3's 65,536 points,
+   and at d_out_feat=512, multi_res=12, against their plain versions (D = A,
+   the variant = D, E and H repeat, E without its dW passes, bit for bit),
+   each by device time beside the 256-wide instance's and its bound; (b) a
+   K = 16 graph of wide stash steps against its eager steps, a 64-ray step's
+   gradients against the CPU, one recompute and one stash_all step; (c) a
+   128x128 view through its graph against the eager sweep and 64 pixels on
+   the CPU; (d) python -m nrhints_torch's main for 10 steps; (e) the
+   shipping shadow route and an SDF 528 wide raise NotImplementedError
+   before any launch.
 Phase 3 also holds kernels K (initial march sweep), L (refinement rounds),
 M (K and L in one kernel) and N (M and C's final sweep in one kernel), and
 B under the rank merge, against their plain versions, L = B's steps between
@@ -245,6 +258,18 @@ CORE_MODES = {
 }
 _CORE_KERNEL = re.compile(
     r"(sdf_core_fwd_kernel|sdf_bwd_chain_kernel|mlp_fwd_kernel|mlp_bwd_chain_kernel)<([\w:]+), ([\w:]+)(?:, ([a-z0-9, ]+))?>")
+# The SDF core's wide instances (phase 18): (template, its arguments) ->
+# group; each named "kernel X <launch counter> ..." where it has one.
+WIDE_MODES = {
+    ("sdf_core_fwd_wide_kernel", "0"): "kernel A sdf_core_fwd_wide",
+    ("sdf_core_fwd_wide_kernel", "1"): "kernel D sdf_stash_fwd_wide",
+    ("sdf_core_fwd_wide_kernel", "2"): "kernel H wide, forward pass (H1)",
+    ("sdf_core_fwd_wide_kernel", "3"): "kernel D' sdf_stash_all_fwd_wide",
+    ("sdf_bwd_chain_wide_kernel", "false, false"): "kernel E sdf_stash_bwd_wide (E1)",
+    ("sdf_bwd_chain_wide_kernel", "true, false"): "kernel H wide chain (H2)",
+    ("sdf_bwd_chain_wide_kernel", "false, true"): "kernel E' sdf_stash_all_bwd_wide (E1)",
+}
+_WIDE_KERNEL = re.compile(r"(sdf_core_fwd_wide_kernel|sdf_bwd_chain_wide_kernel)<([a-z0-9, ]+)>")
 STEP_GROUPS = (
     ("dw_partial", DW_GROUP), ("dw_reduce", DW_GROUP), ("colsum", DW_GROUP),
     ("round_machinery", "kernel B round_machinery"),
@@ -372,6 +397,9 @@ def core_group(key: str) -> str | None:
     """The group of an SDF core or trunk kernel by its name (CORE_MODES),
     else None: the bf16 instance's group, or core_f32_group's label of an
     f32 or mixed instance."""
+    wide = _WIDE_KERNEL.search(key)
+    if wide is not None:
+        return WIDE_MODES.get((wide.group(1), wide.group(2)))
     m = _CORE_KERNEL.search(key)
     if m is None or (m.group(1), m.group(4) or "") not in CORE_MODES:
         return None
@@ -420,14 +448,21 @@ def profiled_groups(fn, tries: int = 3) -> dict[str, float]:
 
 def kernel_device_ms(fn, group: str | tuple, tries: int = 3) -> float:
     """``group``'s device ms in a profiled call of ``fn`` (a tuple of groups:
-    their sum): the median of the ``tries`` profiled calls that record it
-    (the profiler now and then drops or splits a short window's kernels).
-    Raises if none records it."""
+    their sum): the median of the first ``tries`` profiled calls that record
+    every group, out of at most 3 ``tries`` calls (the profiler now and then
+    drops or splits a short window's kernels: one smoke run on an H100 lost
+    one of J's three kernels in three calls in a row).  Raises if none
+    records it."""
     groups = (group,) if isinstance(group, str) else group
-    seen = [sum(g[k] for k in groups) for g in (profiled_groups(fn) for _ in range(tries))
-            if all(g.get(k, 0.0) > 0 for k in groups)]
+    seen = []
+    for _ in range(3 * tries):
+        g = profiled_groups(fn)
+        if all(g.get(k, 0.0) > 0 for k in groups):
+            seen.append(sum(g[k] for k in groups))
+            if len(seen) == tries:
+                break
     if not seen:
-        raise RuntimeError(f"no profiled call of {tries} recorded {group!r}")
+        raise RuntimeError(f"no profiled call of {3 * tries} recorded {group!r}")
     return statistics.median(seen)
 
 
@@ -453,6 +488,76 @@ def sweep16(o, d, weights, cfg):
         return march.march_sweep(new_z.repeat(1, 4).contiguous(), o, d, weights, cfg)[:, :16].contiguous()
 
     return sweep
+
+
+def view_through_graph(label: str, ev_, params: dict, view, smi: str) -> tuple:
+    """A view through ``ev_.render_image`` on the card: the first call (the
+    eager sweep, then its capture) and a replay of the view graph, each
+    timed and its launches counted, then the eager sweep (``_render_eager``)
+    timed, and the graph's images held against the eager sweep's bit for
+    bit.  -> (the replay's images, its seconds, the first call's
+    launches)."""
+    import torch
+
+    from nrhints_torch.kernels import cuda_lib
+
+    H, W = view.h_indices.shape
+    times, counts = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        img_ = ev_.render_image(params, view)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts.append(dict(cuda_lib.launch_counts))
+    if counts[0] != counts[1]:
+        raise AssertionError(f"{label}: the replay counted {counts[1]} launches, the first view {counts[0]}")
+    t0 = time.perf_counter()
+    eager = ev_._render_eager(params, view)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    graph = ev_._render_graph(params, view)
+    unequal = [k for k in eager if not torch.equal(graph[k], eager[k])]
+    if unequal or sorted(graph) != sorted(eager):
+        raise AssertionError(f"{label}: the view graph's images differ from the eager sweep's on {unequal}")
+    log(f"[{label}] {H}x{W} view through the CUDA graph: {times[1]:.4f} s, {H * W / times[1]:.1f} rays/s; the "
+        f"eager sweep {eager_s:.4f} s, {H * W / eager_s:.1f} rays/s; the first call (eager sweep, then the "
+        f"capture) {times[0]:.4f} s; graph images = eager images bit for bit ({len(eager)} outputs); on {smi}")
+    return img_, times[1], counts[0]
+
+
+def card_cpu_grads(label: str, cfg, state, camera, buffers, b64, u64: dict) -> float:
+    """One 64-ray step from ``state``'s params on the card and on the CPU
+    (plain versions), the same pixels ``b64`` and uniforms ``u64``: every
+    gradient leaf against its CPU twin's scale, within GRAD_TOL.  -> the
+    worst leaf's error."""
+    import torch
+
+    from nrhints_torch.core.structs import PixelBundle
+    from nrhints_torch.train.step import init_train_state, loss_and_grads, make_optimizer
+    from nrhints_torch.utils import tree_items
+
+    grads = {}
+    for where in ("cuda", "cpu"):
+        p_ = tree_to(state.params, where)
+        st = init_train_state(p_, make_optimizer(cfg, p_))
+        st.step = state.step
+        bt = PixelBundle(**{f: getattr(b64, f).to(where) for f in ("h_indices", "w_indices", "poses", "pls",
+                                                                   "img_indices", "rgb_gt")})
+        m_ = loss_and_grads(st, cfg, camera, tree_to(buffers, where), bt,
+                            uniforms={k: torch.tensor(v, device=where) for k, v in u64.items()})
+        grads[where] = ({name: t.grad.detach().cpu() for name, t in tree_items(p_)}, float(m_["loss"]))
+    worst, worst_leaf = 0.0, ""
+    for name, g in grads["cpu"][0].items():
+        e = (grads["cuda"][0][name] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+        if e > worst:
+            worst, worst_leaf = e, name
+    log(f"[{label}] 64-ray step, card vs CPU plain: loss {grads['cuda'][1]:.6f} vs {grads['cpu'][1]:.6f}; worst "
+        f"gradient leaf {worst_leaf}: {worst:.3e} of its scale (tol {GRAD_TOL}) over {len(grads['cpu'][0])} leaves")
+    if not worst <= GRAD_TOL:
+        raise AssertionError(f"card and CPU gradients disagree: {worst_leaf} {worst:.3e}")
+    return worst
 
 
 def with_renderer(cfg, **kw):
@@ -2301,24 +2406,28 @@ def core_f32_group(kernel: str, compute: str, stash: str | None) -> str:
     return f"{kernel} {compute}/{stash or compute}"
 
 
-def f32_record(phase: str, out: dict, bf16_dev: dict, n_pts: int, smi: str, name: str, checks, fn, plain_fn, group,
-               bf16_fn, bf16_group, bd) -> None:
-    """Time an f32 or mixed instance and log it (phases 16(a) and 17(a)):
-    CUDA events around ``fn`` and its plain version, ``group``'s device time
-    (the median of the profiled calls that record it) beside the bf16
-    instance's in this call (``bf16_fn``'s ``bf16_group``, profiled once a
-    call into ``bf16_dev``) and the bound ``bd``; checks: (what, (abs err,
+def instance_record(phase: str, out: dict, base_dev: dict, n_pts: int, smi: str, name: str, checks, fn, plain_fn,
+                    group, base_fn, base_group, bd, *, base: str = "the bf16 instance's", iters: int = 10,
+                    tries: int = 3) -> None:
+    """Time an instance and log it (phases 16(a), 17(a) and 18(a)): CUDA
+    events around ``fn`` (``iters`` launches) and its plain version,
+    ``group``'s device time (the median of the ``tries`` profiled calls that
+    record it) beside ``base``'s device time in this call (``base_fn``'s
+    ``base_group``: the bf16 instance's for an f32 or mixed one, the
+    256-wide instance's for a wide one; profiled ``tries`` times once a
+    call into ``base_dev``) and the bound ``bd``; checks: (what, (abs err,
     rel err), tol) against the plain version, each raising past its tol.
     -> out[name] = (max abs err, ms, plain ms, bound ms, bound by)."""
-    ms, plain_ms = cuda_ms(fn, 10), cuda_ms(plain_fn, 3, warmup=1)
-    dev_ms = kernel_device_ms(fn, group)
-    if bf16_group not in bf16_dev:
-        bf16_dev[bf16_group] = kernel_device_ms(bf16_fn, bf16_group)
+    ms, plain_ms = cuda_ms(fn, iters), cuda_ms(plain_fn, 3, warmup=1)
+    dev_ms = kernel_device_ms(fn, group, tries)
+    if base_group not in base_dev:
+        base_dev[base_group] = kernel_device_ms(base_fn, base_group, tries)
     out[name] = (max(e[0] for _, e, _ in checks), ms, plain_ms, bd[0], bd[1])
     errs = "; ".join(f"{what} {e[0]:.3e} (rel {e[1]:.3e}, tol {tol})" for what, e, tol in checks)
     log(f"[{phase} {name}] N={n_pts}: max abs err against its plain version: {errs}; {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms; device time {dev_ms:.4f} ms against the bf16 instance's {bf16_dev[bf16_group]:.4f} "
-        f"ms in this call; bound {bd[0]:.4f} ms ({bd[1]}), {dev_ms / bd[0]:.2f}x it; on {smi}")
+        f"{plain_ms:.4f} ms; device time {dev_ms:.4f} ms against {base} {base_dev[base_group]:.4f} ms in this "
+        f"call ({dev_ms / base_dev[base_group]:.2f}x); bound {bd[0]:.4f} ms ({bd[1]}), {dev_ms / bd[0]:.2f}x it; on "
+        f"{smi}")
     for what, e, tol in checks:
         if not e[1] <= tol:
             raise AssertionError(f"{phase}: {name}'s {what} disagree with its plain version: rel {e[1]:.3e} "
@@ -2361,7 +2470,7 @@ def core_f32_kernels(smi: str, dev, mc: dict) -> dict:
         return H100_F32_FLOPS if compute == "float32" else H100_BF16_FLOPS
 
     out: dict = {}
-    record = functools.partial(f32_record, "16(a)", out, {}, n_pts, smi)
+    record = functools.partial(instance_record, "16(a)", out, {}, n_pts, smi)
 
     # A.
     a32 = core_mlp.sdf_core_fwd(aw, x, scfg, compute_dtype="float32")
@@ -2654,7 +2763,7 @@ def trunk_f32_kernels(smi: str, dev, mc: dict) -> dict:
         return [r[1], *r[0]]
 
     out: dict = {}
-    record = functools.partial(f32_record, "17(a)", out, {}, n_pts, smi)
+    record = functools.partial(instance_record, "17(a)", out, {}, n_pts, smi)
     chain = (TRUNK_CHAIN_GROUP, DW_GROUP)
     f16_out, f16_zs = core_stash.mlp_stash_fwd(tw, xt, n_lay)
     g16 = core_stash.mlp_stash_bwd(tw, xt, f16_zs, gt, n_lay)
@@ -2862,6 +2971,361 @@ def trunk_f32_phase(smi: str, dev, mc: dict) -> list:
              "mlp_stash_bwd": "core_stash.py:622"}
     return [entry(name, "mlp_stash.cu", where[re.sub(r"_f32.*$", "", name)], launches[name], *num)
             for name, num in nums.items()]
+
+
+# Phase 18: the SDF core above the presets' widths (its wide instances:
+# 32-point blocks, padded widths up to 512, encodings up to 128, bf16).  The
+# model is nr-hints-cam-opt at sdf_network.d_hidden=512 (8 layers, a skip at
+# 4, multi_res 6, a 256-wide feature head, so the trunk keeps its 361 inputs)
+# with renderer.shadow_final_impl="xla": the row engine's kernels C, K, L, M
+# and N take the presets' widths only (ROADMAP Queue 2 item 13), and that
+# setting keeps every march on plain sweeps and kernel B.  (a) every wide
+# instance at phase 3's 65,536 points against its plain version at TOL, with
+# D = A, the variant = D where they share outputs, E and H repeating and E
+# without its dW passes, bit for bit; a kernel-level case WIDE_FEAT takes the
+# feature head's and the encoding's wide paths; each instance's device ms
+# from one profiled call beside the 256-wide instance's in the same call.
+# (b) a K = WIDE_K graph of stash steps against its eager steps; a 64-ray
+# step's gradients against the CPU; one recompute step (H) and one stash_all
+# step (D's and E's variants).  (c) a 128x128 view through its graph.  (d)
+# python -m nrhints_torch's main for WIDE_ENTRY_STEPS steps.  (e) the limits:
+# the same config on the shipping shadow route, and an SDF 528 wide, raise
+# NotImplementedError before any launch.
+WIDE_SDF = {"d_hidden": 512}
+WIDE_FEAT = {"d_out_feat": 512, "multi_res": 12}
+WIDE_K, WIDE_ENTRY_STEPS = 16, 10
+WIDE_RENDERER = {"shadow_final_impl": "xla"}
+WIDE_WHERE = {"sdf_core_fwd_wide": ("sdf_core.cu", "core_mlp.py:227"),
+              "sdf_stash_fwd_wide": ("sdf_core.cu", "core_stash.py:369"),
+              "sdf_stash_all_fwd_wide": ("sdf_core.cu", "core_stash.py:369"),
+              "sdf_stash_bwd_wide": ("sdf_stash.cu", "core_stash.py:422"),
+              "sdf_stash_all_bwd_wide": ("sdf_stash.cu", "core_stash.py:422"),
+              "sdf_core_bwd_wide": ("sdf_core_bwd.cu", "core_mlp.py:260")}
+
+
+def wide_cfg(cfg, **renderer_kw):
+    """``cfg`` with WIDE_SDF's SDF network and WIDE_RENDERER's renderer
+    settings (``renderer_kw`` over them)."""
+    return with_renderer(with_model(cfg, sdf=WIDE_SDF), **dict(WIDE_RENDERER, **renderer_kw))
+
+
+def wide_kernels(smi: str, dev, mc: dict) -> dict:
+    """Phase 18(a): at phase 3's 65,536 points, A's, D's, E's and H's wide
+    instances and D's and E's stash_all variants' at WIDE_SDF, and the same
+    at WIDE_FEAT (a 512-wide feature head, multi_res 12: d0 = 75), against
+    their plain versions, with the identities; each timed (CUDA events,
+    WIDE_SDF only) and by device time from one profiled call, beside the
+    256-wide instance's in this call and its bound.  -> {instance name:
+    (max abs err, ms, plain ms, bound ms, bound by)} of the WIDE_SDF
+    instances."""
+    import numpy as np
+    import torch
+
+    from nrhints_torch.fields.sdf import _layer_dims, sdf_init
+    from nrhints_torch.kernels import core_mlp, core_stash
+
+    x, aw, ncfg = mc["x"], mc["aw"], mc["cfg"].model.sdf_network
+    n_pts = x.shape[0]
+    out, base_dev = {}, {}
+
+    def cotangents(d_feat):
+        crng = np.random.default_rng(5)
+        return tuple(torch.tensor(crng.normal(size=s).astype(np.float32), device=dev)
+                     for s in ((n_pts,), (n_pts, d_feat), (n_pts, 3)))
+
+    ncots = cotangents(ncfg.d_out_feat)
+    for case, kw in (("d512", WIDE_SDF), ("feat512", WIDE_FEAT)):
+        scfg = dataclasses.replace(ncfg, **kw)
+        if core_mlp.core_class(scfg) is not core_mlp.WIDE:
+            raise AssertionError(f"18(a): {kw} does not take the wide instances")
+        w = core_mlp.materialize_sdf_weights_full(sdf_init(torch.Generator().manual_seed(0), scfg, dev), scfg)
+        n_w, L = sum(t.numel() for t in w), scfg.n_layers
+        io, dims = _layer_dims(scfg)
+        hidden, d_last, d_feat = sum(i * o_ for i, o_ in io), dims[-2], scfg.d_out_feat
+        cots = cotangents(d_feat)
+        io_bytes = n_pts * 4 * (3 + 1 + d_feat + 3)
+        fwd_flops = 2.0 * n_pts * (2 * hidden + d_last * (1 + d_feat))
+        bwd_flops = {us: 2.0 * n_pts * ((4 if us else 5) * hidden + 2 * d_last * d_feat + 2 * d_last)
+                     for us in (False, True)}
+        timed = case == "d512"
+        label = "" if timed else f" {case}"
+
+        def record(name, checks, fn, plain_fn, group, base_fn, base_group, bd, timed=timed, label=label):
+            instance_record("18(a)", out if timed else {}, base_dev, n_pts, smi, name + label, checks, fn, plain_fn,
+                            group, base_fn, base_group, bd, base="the 256-wide instance's", iters=10 if timed else 2,
+                            tries=1)
+
+        a = core_mlp.sdf_core_fwd(w, x, scfg)
+        if not all(torch.equal(u, v) for u, v in zip(a, core_mlp.sdf_core_fwd(w, x, scfg))):
+            raise AssertionError(f"18(a) {case}: kernel A's wide instance differs between two runs")
+        record("sdf_core_fwd_wide", [("outputs", max_err(a, core_mlp.sdf_core_plain(w, x, scfg, "bfloat16")),
+                                      TOL["sdf_core_fwd"])],
+               lambda: core_mlp.sdf_core_fwd(w, x, scfg), lambda: core_mlp.sdf_core_plain(w, x, scfg, "bfloat16"),
+               WIDE_MODES[("sdf_core_fwd_wide_kernel", "0")], lambda: core_mlp.sdf_core_fwd(aw, x, ncfg),
+               "kernel A sdf_core_fwd", bound(fwd_flops, io_bytes + 2 * n_w, H100_BF16_FLOPS))
+        d16 = None
+        for us in (False, True):
+            fn_d, fn_e = ("sdf_stash_all_fwd", "sdf_stash_all_bwd") if us else ("sdf_stash_fwd", "sdf_stash_bwd")
+            width = core_stash.sdf_stash_width(scfg, us)
+            d = core_stash.sdf_stash_fwd(w, x, scfg, stash_us=us)
+            if not all(torch.equal(u, v) for u, v in zip(d[:3], a)):
+                raise AssertionError(f"18(a) {case}: {fn_d}_wide's outputs differ from kernel A's")
+            if us and not torch.equal(d[3][:, : core_stash.sdf_stash_width(scfg)], d16[3]):
+                raise AssertionError(f"18(a) {case}: the stash_all variant's h_i differ from kernel D's")
+            plain = core_stash.sdf_core_fwd_hs_plain(w, x, scfg, "bfloat16", "bfloat16", return_us=us)
+            parts = core_stash.split_stash(d[3], core_stash.sdf_stash_columns(scfg, us))
+            checks = [("outputs", max_err(d[:3], plain[:3]), TOL["sdf_stash_fwd"]),
+                      ("stash", max_err(parts, [*plain[3], *plain[4], plain[5]] if us else plain[3]),
+                       TOL["sdf_stash_fwd"])]
+            del plain
+            record(f"{fn_d}_wide", checks, lambda us=us: core_stash.sdf_stash_fwd(w, x, scfg, stash_us=us),
+                   lambda us=us: core_stash.sdf_core_fwd_hs_plain(w, x, scfg, "bfloat16", "bfloat16", return_us=us),
+                   WIDE_MODES[("sdf_core_fwd_wide_kernel", "3" if us else "1")],
+                   lambda us=us: core_stash.sdf_stash_fwd(aw, x, ncfg, stash_us=us),
+                   D_ALL_GROUP if us else "kernel D sdf_stash_fwd",
+                   bound(fwd_flops, io_bytes + 2 * n_pts * width + 2 * n_w, H100_BF16_FLOPS))
+
+            e_dws, e_dx = core_stash.sdf_stash_bwd(w, x, d[3], cots, scfg, stash_us=us)
+            e2_dws, e2_dx = core_stash.sdf_stash_bwd(w, x, d[3], cots, scfg, stash_us=us)
+            none, dx_only = core_stash.sdf_stash_bwd(w, x, d[3], cots, scfg, need_dw=False, stash_us=us)
+            if not (torch.equal(e_dx, e2_dx) and all(torch.equal(u, v) for u, v in zip(e_dws, e2_dws))):
+                raise AssertionError(f"18(a) {case}: {fn_e}_wide's gradients differ between two runs")
+            if none is not None or not torch.equal(dx_only, e_dx):
+                raise AssertionError(f"18(a) {case}: {fn_e}_wide without its dW passes gives another dx")
+            del e2_dws, e2_dx, dx_only
+
+            def e_plain(parts=parts, us=us):
+                if us:
+                    return core_stash.sdf_core_bwd_stash_all_plain(w, x, parts[:L], parts[L : 2 * L], parts[2 * L],
+                                                                   cots, scfg, "bfloat16")
+                return core_stash.sdf_core_bwd_stash_plain(w, x, parts, cots, scfg, "bfloat16")
+
+            p_dws, p_dx = e_plain()
+            err = grad_err([e_dx, *e_dws], [p_dx, *p_dws])
+            del p_dws, p_dx, e_dws, e_dx
+            base_stash = core_stash.sdf_stash_fwd(aw, x, ncfg, stash_us=us)[3]
+            record(f"{fn_e}_wide", [("gradients", err, TOL["sdf_stash_bwd"])],
+                   lambda us=us, st=d[3]: core_stash.sdf_stash_bwd(w, x, st, cots, scfg, stash_us=us), e_plain,
+                   (WIDE_MODES[("sdf_bwd_chain_wide_kernel", "false, true" if us else "false, false")], DW_GROUP),
+                   lambda us=us, st=base_stash: core_stash.sdf_stash_bwd(aw, x, st, ncots, ncfg, stash_us=us),
+                   (E1_ALL_GROUP if us else "kernel E sdf_stash_bwd (E1)", DW_GROUP),
+                   bound(bwd_flops[us], io_bytes + 2 * n_pts * width + 6 * n_w, H100_BF16_FLOPS))
+            del base_stash
+            if us:
+                del d16
+            else:
+                d16 = d
+
+        h_dws, h_dx = core_mlp.sdf_core_bwd(w, x, cots, scfg)
+        h2_dws, h2_dx = core_mlp.sdf_core_bwd(w, x, cots, scfg)
+        if not (torch.equal(h_dx, h2_dx) and all(torch.equal(u, v) for u, v in zip(h_dws, h2_dws))):
+            raise AssertionError(f"18(a) {case}: kernel H's wide instance differs between two runs")
+        hp_dws, hp_dx = core_mlp.sdf_core_bwd_plain(w, x, cots, scfg, "bfloat16")
+        err = grad_err([h_dx, *h_dws], [hp_dx, *hp_dws])
+        del h_dws, h_dx, h2_dws, h2_dx, hp_dws, hp_dx, d
+        record("sdf_core_bwd_wide", [("gradients", err, TOL["sdf_core_bwd"])],
+               lambda: core_mlp.sdf_core_bwd(w, x, cots, scfg),
+               lambda: core_mlp.sdf_core_bwd_plain(w, x, cots, scfg, "bfloat16"),
+               (WIDE_MODES[("sdf_core_fwd_wide_kernel", "2")], WIDE_MODES[("sdf_bwd_chain_wide_kernel", "true, false")],
+                DW_GROUP),
+               lambda: core_mlp.sdf_core_bwd(aw, x, ncots, ncfg),
+               ("kernel H, forward pass (H1)", "kernel H chain (H2)", DW_GROUP),
+               bound(bwd_flops[False] + 2.0 * n_pts * hidden, io_bytes + 6 * n_w, H100_BF16_FLOPS))
+        torch.cuda.empty_cache()
+    return out
+
+
+def wide_one_step(label: str, smi: str, dev, cfg, td: dict, batch, per_step: dict) -> dict:
+    """One eager step of a fresh seed-0 state of ``cfg`` (18(b)): a finite
+    loss and exactly ``per_step``'s launches.  -> the launches."""
+    import torch
+
+    from nrhints_torch.kernels import cuda_lib
+    from nrhints_torch.train.step import make_train_step
+
+    state, buffers = fresh_state(cfg, td["n_views"], dev)
+    step_fn = make_train_step(cfg, td["camera"], buffers, state.optimizer)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = step_fn(state, batch, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(cuda_lib.launch_counts)
+    launches_check(label, launches, per_step)
+    loss = float(metrics["loss"])
+    if not math.isfinite(loss):
+        raise AssertionError(f"[{label}] non-finite loss {loss}")
+    log(f"[{label}] one eager step (the first of a fresh state), core_backward="
+        f"{cfg.model.renderer.core_backward!r}: {secs:.4f} s, loss {loss:.6f}; launches {per_step}; on {smi}")
+    return launches
+
+
+def wide_entry(smi: str, tmp: Path) -> None:
+    """Phase 18(d): ``python -m nrhints_torch``'s main in this process on a
+    procedural scene (8 train, 1 val, no test views: no registration),
+    ``config:nr-hints-cam-opt --config.model.sdf-network.d-hidden 512
+    --config.model.renderer.shadow-final-impl xla``, WIDE_ENTRY_STEPS steps
+    of 512 rays, a log at the last, the final mesh at resolution 32 (plain
+    sweeps); the logged loss finite and every kernel's launches exact."""
+    import torch
+
+    from nrhints_torch.__main__ import main as nrhints_main
+    from nrhints_torch.data.synthetic import make_hints_scene
+    from nrhints_torch.kernels import cuda_lib
+
+    scene = make_hints_scene(tmp / "wide_scene", 8, 1, 0, 128, 128, seed=0)
+    steps = WIDE_ENTRY_STEPS
+    argv = ["config:nr-hints-cam-opt", "--config.data.path", str(scene), "--config.base-dir", str(tmp / "wide_runs"),
+            "--config.model.sdf-network.d-hidden", str(WIDE_SDF["d_hidden"]),
+            "--config.model.renderer.shadow-final-impl", WIDE_RENDERER["shadow_final_impl"],
+            "--config.model.batch-size", "512", "--config.intervals.log-metrics", str(steps),
+            "--config.final-mesh-resolution", "32", "--config.parallel.data-axis-size", "1",
+            "--config.model.end-iter", str(steps)]
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = nrhints_main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches_check("18(d) entry", dict(cuda_lib.launch_counts),
+                   dict(sdf_stash_fwd_wide=1, sdf_stash_bwd_wide=1, mlp_stash_fwd=1, mlp_stash_bwd=1, round_machinery=8),
+                   steps)
+    lines = [json.loads(line) for line in (trainer.log_dir / "metrics.jsonl").read_text().splitlines()]
+    train = {r["step"]: r for r in lines if "loss" in r}
+    if sorted(train) != [steps] or not math.isfinite(train[steps]["loss"]):
+        raise AssertionError(f"18(d): metrics.jsonl's train lines {train}, expected one finite line at {steps}")
+    if trainer.config.model.sdf_network.d_hidden != WIDE_SDF["d_hidden"]:
+        raise AssertionError("18(d): the CLI did not set sdf_network.d_hidden")
+    r = train[steps]
+    log(f"[18(d) entry] python -m nrhints_torch's main at d_hidden {WIDE_SDF['d_hidden']}: {steps} steps and the "
+        f"final mesh in {run_s:.2f} s; loss {r['loss']:.6f} at step {steps}; the Trainer's own log: "
+        f"{r['rays_per_sec']:.1f} rays/s, {1.0 / r['steps_per_sec']:.5f} s/step; launches exact; on {smi}")
+    del trainer
+
+
+def wide_limits(dev, td: dict, batch) -> None:
+    """Phase 18(e): a train step of the wide config on the shipping shadow
+    route (kernel C's row engine), and of an SDF 528 wide with the wide
+    config's routes, raise NotImplementedError before any launch."""
+    import torch
+
+    from nrhints_torch.kernels import cuda_lib
+    from nrhints_torch.train.step import make_train_step
+
+    for label, cfg, item in (
+            ("shadow_final_impl='pallas'", with_model(td["cfg"], sdf=WIDE_SDF), "item 13"),
+            ("d_hidden 528", with_model(wide_cfg(td["cfg"]), sdf={"d_hidden": 528}), "item 15")):
+        state, buffers = fresh_state(cfg, td["n_views"], dev)
+        step_fn = make_train_step(cfg, td["camera"], buffers, state.optimizer)
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        try:
+            step_fn(state, batch, torch.Generator(device=dev).manual_seed(0))
+        except NotImplementedError as e:
+            msg = str(e)
+        else:
+            raise AssertionError(f"18(e): a step at {label} ran")
+        torch.cuda.synchronize()
+        if item not in msg or any(cuda_lib.launch_counts.values()):
+            raise AssertionError(f"18(e): {label}: {msg!r}, launches {dict(cuda_lib.launch_counts)}")
+        log(f"[18(e) limits] a step at {label} raises NotImplementedError before any launch: {msg}")
+
+
+def wide_sdf_phase(smi: str, dev, mc: dict, tmp: Path) -> list:
+    """Phase 18, the SDF core's wide instances (see above).  -> the kernels
+    line's entries of the WIDE_SDF instances, each with its launches from
+    the path that runs it: A's from (c)'s view, D's and E's from (b)'s K =
+    WIDE_K dispatch, H's from the recompute step, the variants' from the
+    stash_all step."""
+    import numpy as np
+    import torch
+
+    from nrhints_torch.core.structs import PixelBundle
+    from nrhints_torch.eval.evaluator import Evaluator
+    from nrhints_torch.kernels import cuda_lib
+    from nrhints_torch.render.renderer import init_model_params
+
+    t_phase = time.perf_counter()
+    nums = wide_kernels(smi, dev, mc)
+    t_a = time.perf_counter() - t_phase
+
+    # (b) The train path.
+    td = train_data(dev, 128, 128)
+    wcfg = wide_cfg(td["cfg"])
+    batches = [td["next_batch"]() for _ in range(WIDE_K + TRAIN_WARMUP)]
+    b64 = td["next_batch"](64)
+    stash_step = dict(sdf_stash_fwd_wide=1, sdf_stash_bwd_wide=1, mlp_stash_fwd=1, mlp_stash_bwd=1, round_machinery=8)
+    sc = scan_phase(smi, dev, td, batches, "18(b) wide graph", wcfg, WIDE_K, stash_step)
+    state, buffers = fresh_state(wcfg, td["n_views"], dev)
+    from nrhints_torch.train.step import make_train_step
+
+    step_fn = make_train_step(wcfg, td["camera"], buffers, state.optimizer)
+    state, _ = step_fn(state, batches[0], torch.Generator(device=dev).manual_seed(0))
+    urng = np.random.default_rng(7)
+    u64 = {"strat": urng.random((64, 1), dtype=np.float32),
+           "shadow": urng.random((64, wcfg.model.renderer.n_shadow_samples), dtype=np.float32)}
+    card_cpu_grads("18(b) wide train path", wcfg, state, td["camera"], buffers, b64, u64)
+    del state, step_fn, buffers
+    rec_step = dict(sdf_core_fwd_wide=1, sdf_core_bwd_wide=1, mlp_fwd=1, mlp_bwd=1, round_machinery=8)
+    rec = wide_one_step("18(b) wide recompute step", smi, dev, with_renderer(wcfg, core_backward="recompute"), td,
+                        batches[1], rec_step)
+    all_step = dict(sdf_stash_all_fwd_wide=1, sdf_stash_all_bwd_wide=1, mlp_stash_fwd=1, mlp_stash_bwd=1,
+                    round_machinery=8)
+    sa = wide_one_step("18(b) wide stash_all step", smi, dev, with_renderer(wcfg, core_backward="stash_all"), td,
+                       batches[2], all_step)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) The eval path: one 128x128 view of nr-hints at d_hidden 512.
+    camera, pose, pl = mc["camera"], mc["pose"], mc["pl"]
+    H, W = camera.H, camera.W
+    vcfg = wide_cfg(mc["cfg"])
+    params = {"renderer": init_model_params(vcfg.model, torch.Generator().manual_seed(0), device=dev), "raygen": {}}
+    hh, ww = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+    view = PixelBundle(h_indices=hh.float(), w_indices=ww.float(), poses=pose.expand(H, W, 4, 4),
+                       pls=pl.expand(H, W, 3))
+    ev = Evaluator(vcfg, camera, {}, device="cuda")
+    img, secs, launches = view_through_graph("18(c) wide view", ev, params, view, smi)
+    n_chunks = -(-H * W // vcfg.model.inference_chunk_size)
+    launches_check("18(c) wide view", launches, dict(sdf_core_fwd_wide=n_chunks, round_machinery=8 * n_chunks))
+    if not all(np.all(np.isfinite(v)) for v in img.values()):
+        raise AssertionError("18(c): non-finite values in the wide view")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ev.render_image(params, view)
+        torch.cuda.synchronize()
+    groups = device_groups(prof)
+    busy = sum(groups.values())
+    log(f"[18(c) wide view] {H}x{W}: {secs:.4f} s through the graph; one profiled replay: device busy {busy:.1f} ms, "
+        f"idle share {1 - busy / (secs * 1e3):.3f} of the unprofiled view; by group (ms) "
+        + ", ".join(f"{g} {ms:.2f}" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
+    rows = torch.arange(36, 100, 8)
+    ph, pw = torch.meshgrid(rows, rows, indexing="ij")
+    sub = PixelBundle(h_indices=ph.reshape(1, -1).float(), w_indices=pw.reshape(1, -1).float(),
+                      poses=pose.expand(1, 64, 4, 4), pls=pl.expand(1, 64, 3))
+    cpu_img = Evaluator(vcfg, camera, {}, device="cpu").render_image(params, sub)
+    for k, tol in CPU_TOL.items():
+        e = float(np.abs(img[k][ph.numpy(), pw.numpy()].reshape(1, 64, -1) - cpu_img[k]).max())
+        log(f"[18(c) wide view] CPU plain vs card, 64 pixels, {k}: max abs err {e:.3e} (tol {tol})")
+        if not e <= tol:
+            raise AssertionError(f"18(c): CPU and card renders disagree on {k}: {e:.3e}")
+    del ev, params, img
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) The entry point; (e) the limits.
+    wide_entry(smi, tmp)
+    wide_limits(dev, td, batches[0])
+    log(f"[18] phase 18 took {time.perf_counter() - t_phase:.1f} s ((a) {t_a:.1f} s)")
+    got = dict(sdf_core_fwd_wide=launches["sdf_core_fwd_wide"],
+               sdf_stash_fwd_wide=sc["launches"]["sdf_stash_fwd_wide"],
+               sdf_stash_bwd_wide=sc["launches"]["sdf_stash_bwd_wide"],
+               sdf_core_bwd_wide=rec["sdf_core_bwd_wide"],
+               sdf_stash_all_fwd_wide=sa["sdf_stash_all_fwd_wide"],
+               sdf_stash_all_bwd_wide=sa["sdf_stash_all_bwd_wide"])
+    return [entry(name, *WIDE_WHERE[name], got[name], *num) for name, num in nums.items()]
 
 
 # Phase 15: sample-axis sharding.  (a) two gloo ranks on this card as a 1 x 2
@@ -3182,6 +3646,15 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return 0
 
+    if sys.argv[1:] == ["--wide-sdf"]:  # phase 18 alone, after the build
+        import tempfile
+
+        with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
+            entries = wide_sdf_phase(smi, dev, march_chunk(dev), Path(tmp))
+        print(json.dumps({"kernels": entries}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+        return 0
+
     if sys.argv[1:] == ["--sample-axis"]:  # phase 15 alone, after the build
         import tempfile
 
@@ -3194,7 +3667,7 @@ def main() -> int:
 
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}; flags: --data-parallel, --offpath, --stash-all, "
-              f"--march-f32, --sample-axis, --core-f32, --trunk-f32", file=sys.stderr)
+              f"--march-f32, --sample-axis, --core-f32, --trunk-f32, --wide-sdf", file=sys.stderr)
         return 2
 
     # 3. Kernels at the main path's shapes: one 512-ray chunk of the view.
@@ -3607,39 +4080,8 @@ def main() -> int:
         h_indices=hh.float(), w_indices=ww.float(),
         poses=pose.expand(H, W, 4, 4), pls=pl.expand(H, W, 3),
     )
-    def view_through_graph(label: str, ev_) -> tuple:
-        """A view through ``ev_.render_image`` on the card: the first call
-        (the eager sweep, then its capture) and a replay of the view graph,
-        each timed and its launches counted, then the eager sweep
-        (``_render_eager``) timed, and the graph's images held against the
-        eager sweep's bit for bit.  -> (the replay's images, its seconds,
-        the first call's launches)."""
-        times, counts = [], []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            cuda_lib.reset_launch_counts()
-            t0 = time.perf_counter()
-            img_ = ev_.render_image(params, view)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            counts.append(dict(cuda_lib.launch_counts))
-        if counts[0] != counts[1]:
-            raise AssertionError(f"{label}: the replay counted {counts[1]} launches, the first view {counts[0]}")
-        t0 = time.perf_counter()
-        eager = ev_._render_eager(params, view)
-        torch.cuda.synchronize()
-        eager_s = time.perf_counter() - t0
-        graph = ev_._render_graph(params, view)
-        unequal = [k for k in eager if not torch.equal(graph[k], eager[k])]
-        if unequal or sorted(graph) != sorted(eager):
-            raise AssertionError(f"{label}: the view graph's images differ from the eager sweep's on {unequal}")
-        log(f"[{label}] {H}x{W} view through the CUDA graph: {times[1]:.4f} s, {H * W / times[1]:.1f} rays/s; the "
-            f"eager sweep {eager_s:.4f} s, {H * W / eager_s:.1f} rays/s; the first call (eager sweep, then the "
-            f"capture) {times[0]:.4f} s; graph images = eager images bit for bit ({len(eager)} outputs); on {smi}")
-        return img_, times[1], counts[0]
-
     ev = Evaluator(cfg, camera, {}, device="cuda")
-    img, secs, launches = view_through_graph("main path", ev)
+    img, secs, launches = view_through_graph("main path", ev, params, view, smi)
     n_chunks = -(-H * W // mcfg.inference_chunk_size)
     expected = {k: 0 for k in cuda_lib.launch_counts}
     expected.update(sdf_core_fwd=n_chunks, round_machinery=8 * n_chunks, shadow_final=n_chunks)
@@ -3705,7 +4147,7 @@ def main() -> int:
 
     # 4b. The same view with the fused eval trunk (kernel I, never F).
     ev_p = Evaluator(with_renderer(cfg, eval_reflectance_impl="pallas"), camera, {}, device="cuda")
-    img_p, secs_p, launches_p = view_through_graph("main path 4b", ev_p)
+    img_p, secs_p, launches_p = view_through_graph("main path 4b", ev_p, params, view, smi)
     expected_p = dict(expected, mlp_fwd=n_chunks)
     log(f"[main path 4b] {H}x{W} view, eval_reflectance_impl='pallas': {secs_p:.4f} s, {H * W / secs_p:.1f} rays/s "
         f"on {smi}; launches {launches_p}")
@@ -3731,7 +4173,7 @@ def main() -> int:
     view_launches, round4_evs = {}, {}
     for name, (kw, counts) in round4.items():
         ev7 = Evaluator(with_renderer(cfg, **kw), camera, {}, device="cuda")
-        img7, secs7, launches7 = view_through_graph(f"round-4 {name}", ev7)
+        img7, secs7, launches7 = view_through_graph(f"round-4 {name}", ev7, params, view, smi)
         expected7 = dict({k: 0 for k in cuda_lib.launch_counts}, sdf_core_fwd=n_chunks, **counts)
         log(f"[round-4 {name}] {H}x{W} view {kw}: {secs7:.4f} s, {H * W / secs7:.1f} rays/s on {smi}; launches "
             f"{launches7}")
@@ -3822,27 +4264,7 @@ def main() -> int:
         else:
             log("[profile] the profiler recorded no device time: breakdown not measured")
 
-        # One 64-ray step from the trained state on the card and on the CPU
-        # (plain versions), the same pixels and uniforms: every gradient leaf.
-        grads = {}
-        for where in ("cuda", "cpu"):
-            p_ = tree_to(state.params, where)
-            st = init_train_state(p_, make_optimizer(scfg_, p_))
-            st.step = state.step
-            bt = PixelBundle(**{f: getattr(b64, f).to(where) for f in ("h_indices", "w_indices", "poses", "pls",
-                                                                       "img_indices", "rgb_gt")})
-            m_ = loss_and_grads(st, scfg_, tcam, tree_to(tbuffers, where), bt,
-                                uniforms={k: torch.tensor(v, device=where) for k, v in u64.items()})
-            grads[where] = ({name: t.grad.detach().cpu() for name, t in tree_items(p_)}, float(m_["loss"]))
-        worst, worst_leaf = 0.0, ""
-        for name, g in grads["cpu"][0].items():
-            e = (grads["cuda"][0][name] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
-            if e > worst:
-                worst, worst_leaf = e, name
-        log(f"[{label}] 64-ray step, card vs CPU plain: loss {grads['cuda'][1]:.6f} vs {grads['cpu'][1]:.6f}; worst "
-            f"gradient leaf {worst_leaf}: {worst:.3e} of its scale (tol {GRAD_TOL}) over {len(grads['cpu'][0])} leaves")
-        if not worst <= GRAD_TOL:
-            raise AssertionError(f"card and CPU gradients disagree: {worst_leaf} {worst:.3e}")
+        card_cpu_grads(label, scfg_, state, tcam, tbuffers, b64, u64)
         return launches_
 
     stash_step = dict(sdf_stash_fwd=1, sdf_stash_bwd=1, mlp_stash_fwd=1, mlp_stash_bwd=1)
@@ -3943,6 +4365,10 @@ def main() -> int:
     # stash_dtype="float32".
     trunk_f32 = trunk_f32_phase(smi, dev, mc)
 
+    # 18. The SDF core above the presets' widths.
+    with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
+        wide = wide_sdf_phase(smi, dev, mc, Path(tmp))
+
     kernels = [
         entry("sdf_core_fwd", "sdf_core.cu", "core_mlp.py:227", launches["sdf_core_fwd"], a_abs, a_ms, a_plain_ms,
               a_bound, a_by),
@@ -3976,6 +4402,7 @@ def main() -> int:
         *f32["entries"],
         *core_f32,
         *trunk_f32,
+        *wide,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -20,7 +20,10 @@
 // (staged_mma.cuh); the fragments, A's column-major ones included, come
 // from shared memory with padded strides.  An operand row is read once per
 // 128-column output tile on the other side: twice for the 256-wide
-// products of kernels E and H.
+// products of kernels E and H, four times for the 512-wide ones of their
+// wide instances (any ka and nb that are multiples of 16 tile so; the
+// column sums take any count of per-block rows, 2,048 of the wide
+// instances' 32-point blocks at 65,536 points).
 //
 // The f32 instances of E and H (compute_dtype="float32") leave f32
 // operands in an f32 scratch: dw_partial_f32_kernel computes the same

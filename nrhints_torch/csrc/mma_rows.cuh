@@ -442,6 +442,9 @@ constexpr int kChainStagesF32 = 2;
 // 0 selects f32 dot operands (compute_dtype="float32"), bit 1 an f32 stash
 // (stash_dtype="float32"); core_mlp.py::dtype_bits writes it.
 constexpr int kF32Compute = 1, kF32Stash = 2;
+// Bit 2 of the SDF core's dtypes selects the wide instances (CoreWide, bf16
+// operands and stash; core_mlp.py's wide class).
+constexpr int kWideClass = 4;
 
 // The 64-point kernels' shared-memory layout by operand type: the
 // activation tile's row stride and the ring's elements of T.
@@ -490,6 +493,27 @@ template <bool TRANS_B>
 __device__ void gemm_rows64(const float* A, int lda, const float* __restrict__ B, int ldb, int K, int N, float* C,
                             int ldc, float* ring) {
   gemm_rows64_f32(A, lda, B, N, K, N, C, ldc, ring);
+}
+
+// The SDF core's products by width class (CoreNarrow, CoreWide) and operand
+// type: the first slabs of a product (the first column pass's in the wide
+// class), and the product, gemm_rows64 or gemm_rows32.  The wide class is
+// bf16 only.  kCoreLdAct is the activation tile's row stride.
+template <class Cls, typename T>
+constexpr int kCoreLdAct = std::is_same<T, float>::value ? Cls::kLdC : Cls::kW + 8;
+
+template <class Cls, bool TRANS_B, typename T>
+__device__ __forceinline__ void core_stage(const T* __restrict__ B, int ldb, int K, int N, T* ring) {
+  stage_first_slabs<TRANS_B>(B, ldb, K, Cls::kPts == kChainTP ? N : min(N, kWMax), ring);
+}
+
+template <class Cls, bool TRANS_B, typename T>
+__device__ __forceinline__ void core_gemm(const T* A, int lda, const T* __restrict__ B, int ldb, int K, int N,
+                                          float* C, int ldc, T* ring) {
+  if constexpr (Cls::kPts == kChainTP)
+    gemm_rows64<TRANS_B>(A, lda, B, ldb, K, N, C, ldc, ring);
+  else
+    gemm_rows32<TRANS_B>(A, lda, B, ldb, K, N, C, ldc, ring);
 }
 
 }  // namespace nrh

@@ -13,6 +13,12 @@
 // own f32 h_i (S = T).  Every T-dependent step reduces to the bf16
 // expressions at T = S = bf16, so the bf16 instance gives the shipping
 // gradients bit for bit (scripts/compare_sdf_fwd.py).
+//
+// Cls is the width class, as in sdf_fwd.cuh: CoreNarrow, the 64-point
+// instances sdf_bwd_chain_kernel<T, S, GATES, US>; or CoreWide,
+// sdf_bwd_chain_wide_kernel<GATES, US> (bf16 operands and stash): 32-point
+// blocks, padded widths up to 512 and encodings up to 128, every product
+// in gemm_rows32's column passes.
 #pragma once
 
 #include "dw_sum.cuh"
@@ -23,61 +29,63 @@ namespace nrh {
 // Shared memory of the chain: the activation tile of T, the f32 carry tile
 // (every product writes its output there in place), the encoding, the
 // weight ring and d sdf / scale per point: 227,584 bytes in bf16, 215,296
-// in f32 (two 32-row f32 stages), one block per SM.
-template <typename T>
+// in f32 (two 32-row f32 stages), 226,432 in the wide class (32 points),
+// one block per SM.
+template <class Cls, typename T>
 constexpr size_t chain_smem() {
-  return kChainTP * CoreTile<T>::kLdAct * sizeof(T) + kChainTP * kLdZ * sizeof(float) +
-         kChainTP * kEncMax * sizeof(float) + CoreTile<T>::kRing * sizeof(T) + kChainTP * sizeof(float);
+  return Cls::kPts * kCoreLdAct<Cls, T> * sizeof(T) + Cls::kPts * Cls::kLdC * sizeof(float) +
+         Cls::kPts * Cls::kEnc * sizeof(float) + CoreTile<T>::kRing * sizeof(T) + Cls::kPts * sizeof(float);
 }
-static_assert(chain_smem<bf16>() == 227584 && chain_smem<float>() == 215296, "the chain's shared-memory budget");
+static_assert(chain_smem<CoreNarrow, bf16>() == 227584 && chain_smem<CoreNarrow, float>() == 215296 &&
+                  chain_smem<CoreWide, bf16>() == 226432,
+              "the chain's shared-memory budget");
 
 // f32 per point of the chain's device-memory scratch: u_i then dL/dh_i of
 // every layer (gates_total), then g_enc, its cotangent, the Tail's direct
-// cotangents and the cotangent of enc from the two sweeps (kEncMax each).
-__host__ __device__ inline int chain_row(const SdfMeta& m) { return m.gates_total + 4 * kEncMax; }
+// cotangents and the cotangent of enc from the two sweeps (Cls::kEnc each).
+template <class Cls>
+__host__ __device__ inline int chain_row(const SdfMeta& m) { return m.gates_total + 4 * Cls::kEnc; }
 
 __device__ __forceinline__ float gate_from_h(float h) { return 1.0f - expf(-100.0f * h); }
 
-// The chain of one 64-point block.  Its elementwise passes take four
-// consecutive columns of one point per item (16-byte accesses to the
+// The chain of one block of Cls::kPts points.  Its elementwise passes take
+// four consecutive columns of one point per item (16-byte accesses to the
 // device-memory scratch, 8-byte ones to the stash), so each thread has a
 // few items, not dozens, of dependent global-memory round trips per pass.
 // The stash's rows are stash_row(m, US) wide.  The transposed products read
 // wpack through column-major fragments in bf16 and wtpack's transposed
 // blocks in f32 (null in bf16), as in sdf_fwd.cuh.
-template <typename T, typename S, bool GATES, bool US>
-__global__ void __launch_bounds__(kChainThreads)
-    sdf_bwd_chain_kernel(const float* __restrict__ x, const S* __restrict__ stash,
-                         const float* __restrict__ gsc, const float* __restrict__ ds, const float* __restrict__ df,
-                         const float* __restrict__ dgx, const T* __restrict__ wpack, const T* __restrict__ wtpack,
-                         const float* __restrict__ w_sdf, float* __restrict__ dx,
-                         T* __restrict__ scratch, float* __restrict__ cscr, float* __restrict__ partial, int n,
-                         const SdfMeta m, const DwJobs jobs, float scale) {
-  constexpr int kLdAct = CoreTile<T>::kLdAct;
-  extern __shared__ __align__(128) unsigned char smem[];
+template <class Cls, typename T, typename S, bool GATES, bool US>
+__device__ __forceinline__ void sdf_bwd_chain_block(
+    unsigned char* smem, const float* __restrict__ x, const S* __restrict__ stash, const float* __restrict__ gsc,
+    const float* __restrict__ ds, const float* __restrict__ df, const float* __restrict__ dgx,
+    const T* __restrict__ wpack, const T* __restrict__ wtpack, const float* __restrict__ w_sdf,
+    float* __restrict__ dx, T* __restrict__ scratch, float* __restrict__ cscr, float* __restrict__ partial, int n,
+    const SdfMeta& m, const DwJobs& jobs, float scale) {
+  constexpr int kLdAct = kCoreLdAct<Cls, T>, kPts = Cls::kPts, kLdC = Cls::kLdC, kEnc = Cls::kEnc;
   T* act = reinterpret_cast<T*>(smem);
-  float* G = reinterpret_cast<float*>(act + kChainTP * kLdAct);
-  float* enc = G + kChainTP * kLdZ;
-  T* ring = reinterpret_cast<T*>(enc + kChainTP * kEncMax);
+  float* G = reinterpret_cast<float*>(act + kPts * kLdAct);
+  float* enc = G + kPts * kLdC;
+  T* ring = reinterpret_cast<T*>(enc + kPts * kEnc);
   float* dss = reinterpret_cast<float*>(ring + CoreTile<T>::kRing);  // d sdf / scale per point
   const T* wt = std::is_same<T, float>::value ? wtpack : wpack;  // the transposed products' weights
 
   const int tid = threadIdx.x;
-  const int p0 = blockIdx.x * kChainTP;
+  const int p0 = blockIdx.x * kPts;
   const int L = m.n_layers, F = m.multi_res, d0 = m.d0, GT = m.gates_total, ST = stash_row(m, US);
   const int DL = m.d_last, DF = m.d_feat, kpf = m.kpf, npf = m.npf;
-  const size_t npad = (size_t)gridDim.x * kChainTP;
+  const size_t npad = (size_t)gridDim.x * kPts;
   // The block's rows of the device-memory scratch: U (u_i, then dL/dh_i),
   // genc (the recomputed g_enc), dgenc (its cotangent, the Tail VJP), tail
   // (the Tail's direct sin / cos cotangents), denc (cotangent of enc from
   // the two sweeps).
-  const int CW = chain_row(m);
+  const int CW = chain_row<Cls>(m);
   float* crow = cscr + (size_t)p0 * CW;
   auto U = [&](int p, int col) -> float* { return crow + (size_t)p * CW + col; };
   auto genc = [&](int p, int c) -> float& { return crow[(size_t)p * CW + GT + c]; };
-  auto dgenc = [&](int p, int c) -> float& { return crow[(size_t)p * CW + GT + kEncMax + c]; };
-  auto tail = [&](int p, int c) -> float& { return crow[(size_t)p * CW + GT + 2 * kEncMax + c]; };
-  auto denc = [&](int p, int c) -> float& { return crow[(size_t)p * CW + GT + 3 * kEncMax + c]; };
+  auto dgenc = [&](int p, int c) -> float& { return crow[(size_t)p * CW + GT + kEnc + c]; };
+  auto tail = [&](int p, int c) -> float& { return crow[(size_t)p * CW + GT + 2 * kEnc + c]; };
+  auto denc = [&](int p, int c) -> float& { return crow[(size_t)p * CW + GT + 3 * kEnc + c]; };
   const int pw = GT + npf + 1 + 2 * kpf;
   float* prow = partial + (size_t)blockIdx.x * pw;
   auto hval = [&](int p, int col) -> float {
@@ -106,43 +114,43 @@ __global__ void __launch_bounds__(kChainThreads)
   };
 
   // 0. Encoding of 3x; the cotangents.
-  if (!US) stage_first_slabs<true>(wt + m.w_off[L - 1], m.np_[L - 1], m.np_[L - 1], m.kp[L - 1], ring);
-  for (int idx = tid; idx < kChainTP * kEncMax; idx += kChainThreads) {
-    const int p = idx / kEncMax, c = idx % kEncMax, gp = p0 + p;
+  if (!US) core_stage<Cls, true>(wt + m.w_off[L - 1], m.np_[L - 1], m.np_[L - 1], m.kp[L - 1], ring);
+  for (int idx = tid; idx < kPts * kEnc; idx += kChainThreads) {
+    const int p = idx / kEnc, c = idx % kEnc, gp = p0 + p;
     float xs[3];
     for (int d = 0; d < 3; ++d) xs[d] = gp < n ? x[gp * 3 + d] * scale : 0.0f;
     enc[idx] = c < d0 ? freq_channel(xs, nullptr, c, F, nullptr) : 0.0f;
     genc(p, c) = 0.0f;
     denc(p, c) = 0.0f;
   }
-  if (tid < kChainTP) dss[tid] = (p0 + tid < n ? ds[p0 + tid] : 0.0f) / scale;
-  for (int idx = tid; idx < kChainTP * DL; idx += kChainThreads) {
+  if (tid < kPts) dss[tid] = (p0 + tid < n ? ds[p0 + tid] : 0.0f) / scale;
+  for (int idx = tid; idx < kPts * DL; idx += kChainThreads) {
     const int p = idx / DL, c = idx % DL;
-    G[p * kLdZ + c] = w_sdf[c] / scale;
+    G[p * kLdC + c] = w_sdf[c] / scale;
   }
   __syncthreads();
 
   // 1. The reverse sweep at the stashed h: U_i = g before layer i's gate.
   // US: U_i and g_enc are read from the stash, its rounding to S kept.
   if (US) {
-    for (int idx = tid; idx < kChainTP * (GT / 4); idx += kChainThreads) {
+    for (int idx = tid; idx < kPts * (GT / 4); idx += kChainThreads) {
       const int p = idx / (GT / 4), c = (idx % (GT / 4)) * 4;
       float u[4];
       hval4(p, GT + c, u);
       st_f4(U(p, c), u);
     }
-    for (int idx = tid; idx < kChainTP * d0; idx += kChainThreads) {
+    for (int idx = tid; idx < kPts * d0; idx += kChainThreads) {
       const int p = idx / d0, c = idx % d0;
       genc(p, c) = hval(p, 2 * GT + c);
     }
   }
   for (int i = L - 1; i >= 0 && !US; --i) {
     const int np = m.np_[i], out = m.out_dim[i], in = m.in_dim[i], kp = m.kp[i], goff = m.b_off[i];
-    if (i < L - 1) stage_first_slabs<true>(wt + m.w_off[i], np, np, kp, ring);
-    for (int idx = tid; idx < kChainTP * (np / 4); idx += kChainThreads) {
+    if (i < L - 1) core_stage<Cls, true>(wt + m.w_off[i], np, np, kp, ring);
+    for (int idx = tid; idx < kPts * (np / 4); idx += kChainThreads) {
       const int p = idx / (np / 4), c = (idx % (np / 4)) * 4;
       float u[4], gate[4], t[4];
-      ld_f4(G + p * kLdZ + c, u);
+      ld_f4(G + p * kLdC + c, u);
       gval4(p, goff + c, gate);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
@@ -152,33 +160,33 @@ __global__ void __launch_bounds__(kChainThreads)
       st_f4(U(p, goff + c), u);
       st4(act + p * kLdAct + c, t);
     }
-    gemm_rows64<true>(act, kLdAct, wt + m.w_off[i], np, np, kp, G, kLdZ, ring);
+    core_gemm<Cls, true>(act, kLdAct, wt + m.w_off[i], np, np, kp, G, kLdC, ring);
     __syncthreads();
     if (m.skip[i]) {  // elsewhere the product is already the carry
       const int split = in - d0;
-      for (int idx = tid; idx < kChainTP * in; idx += kChainThreads) {
+      for (int idx = tid; idx < kPts * in; idx += kChainThreads) {
         const int p = idx / in, c = idx % in;
-        const float v = G[p * kLdZ + c] * kInvSqrt2;
+        const float v = G[p * kLdC + c] * kInvSqrt2;
         if (c < split)
-          G[p * kLdZ + c] = v;
+          G[p * kLdC + c] = v;
         else
           genc(p, c - split) += v;
       }
       __syncthreads();
     }
   }
-  for (int idx = tid; idx < kChainTP * d0 && !US; idx += kChainThreads) {
+  for (int idx = tid; idx < kPts * d0 && !US; idx += kChainThreads) {
     const int p = idx / d0, c = idx % d0;
-    genc(p, c) += G[p * kLdZ + c];
+    genc(p, c) += G[p * kLdC + c];
   }
   __syncthreads();
 
   // 2. The Tail VJP: gx = (g_enc[:3] + sum_f dS_f 2^f) * scale with
   // dS = g_sin cos_b - g_cos sin_b.
-  stage_first_slabs<false>(wpack + m.w_off[0], m.np_[0], m.kp[0], m.np_[0], ring);
-  for (int idx = tid; idx < kChainTP * d0; idx += kChainThreads) {
+  core_stage<Cls, false>(wpack + m.w_off[0], m.np_[0], m.kp[0], m.np_[0], ring);
+  for (int idx = tid; idx < kPts * d0; idx += kChainThreads) {
     const int p = idx / d0, c = idx % d0, gp = p0 + p;
-    const float* e = enc + p * kEncMax;
+    const float* e = enc + p * kEnc;
     const float* ge = &genc(p, 0);
     float dg = 0.0f, tv = 0.0f;
     if (c < 3) {
@@ -196,7 +204,7 @@ __global__ void __launch_bounds__(kChainThreads)
     }
     dgenc(p, c) = dg;
     tail(p, c) = tv;
-    G[p * kLdZ + c] = dg;  // the ascending pass's carry starts at d g_enc
+    G[p * kLdC + c] = dg;  // the ascending pass's carry starts at d g_enc
   }
   __syncthreads();
 
@@ -208,8 +216,8 @@ __global__ void __launch_bounds__(kChainThreads)
     const int split = m.skip[i] ? in - d0 : in;
     T* Aop = scratch + jobs.a_off[i];
     T* Bop = scratch + jobs.b_off[i];
-    if (i > 0) stage_first_slabs<false>(wpack + m.w_off[i], np, kp, np, ring);
-    for (int idx = tid; idx < kChainTP * (kp / 4); idx += kChainThreads) {
+    if (i > 0) core_stage<Cls, false>(wpack + m.w_off[i], np, kp, np, ring);
+    for (int idx = tid; idx < kPts * (kp / 4); idx += kChainThreads) {
       const int p = idx / (kp / 4), c = (idx % (kp / 4)) * 4;
       float v[4];
 #pragma unroll
@@ -218,21 +226,21 @@ __global__ void __launch_bounds__(kChainThreads)
         v[k] = 0.0f;
         if (ck < in && p0 + p < n) {
           if (m.skip[i])
-            v[k] = (ck < split ? G[p * kLdZ + ck] : dgenc(p, ck - split)) * kInvSqrt2;
+            v[k] = (ck < split ? G[p * kLdC + ck] : dgenc(p, ck - split)) * kInvSqrt2;
           else
-            v[k] = G[p * kLdZ + ck];
+            v[k] = G[p * kLdC + ck];
         }
       }
       st4(act + p * kLdAct + c, v);
       st4(Aop + (size_t)(p0 + p) * kp + c, v);
     }
-    gemm_rows64<false>(act, kLdAct, wpack + m.w_off[i], np, kp, np, G, kLdZ, ring);
+    core_gemm<Cls, false>(act, kLdAct, wpack + m.w_off[i], np, kp, np, G, kLdC, ring);
     __syncthreads();
     // t_i (dW_i's first B operand) from the same u_i and gates.
-    for (int idx = tid; idx < kChainTP * (np / 4); idx += kChainThreads) {
+    for (int idx = tid; idx < kPts * (np / 4); idx += kChainThreads) {
       const int p = idx / (np / 4), c = (idx % (np / 4)) * 4;
       float dt[4], u[4], gate[4], t[4], dh[4], carry[4];
-      ld_f4(G + p * kLdZ + c, dt);
+      ld_f4(G + p * kLdC + c, dt);
       ld_f4(U(p, goff + c), u);
       gval4(p, goff + c, gate);
 #pragma unroll
@@ -246,7 +254,7 @@ __global__ void __launch_bounds__(kChainThreads)
       }
       st4(Bop + (size_t)(p0 + p) * np + c, t);
       st_f4(U(p, goff + c), dh);
-      st_f4(G + p * kLdZ + c, carry);
+      st_f4(G + p * kLdC + c, carry);
     }
     __syncthreads();
   }
@@ -255,13 +263,13 @@ __global__ void __launch_bounds__(kChainThreads)
   // / scale by the caller), h_L . rnd<T>(ds / scale), d b_sdf, d b_feat.
   const int o_bf = GT, o_bs = GT + npf, o_hds = GT + npf + 1, o_carry = o_hds + kpf;
   const int lgoff = m.b_off[L - 1];
-  stage_first_slabs<true>(wt + m.wf_off, npf, npf, kpf, ring);
+  core_stage<Cls, true>(wt + m.wf_off, npf, npf, kpf, ring);
   for (int c = tid; c < kpf; c += kChainThreads) {
     float sc = 0.0f, sh = 0.0f;
     if (c < DL) {
 #pragma unroll 8
-      for (int p = 0; p < kChainTP; ++p) {
-        sc += G[p * kLdZ + c];
+      for (int p = 0; p < kPts; ++p) {
+        sc += G[p * kLdC + c];
         sh += rnd<T>(hval(p, lgoff + c)) * rnd<T>(dss[p]);
       }
     }
@@ -272,19 +280,19 @@ __global__ void __launch_bounds__(kChainThreads)
     float s = 0.0f;
     if (c < DF) {
 #pragma unroll 8
-      for (int p = 0; p < kChainTP; ++p) s += p0 + p < n ? df[(size_t)(p0 + p) * DF + c] : 0.0f;
+      for (int p = 0; p < kPts; ++p) s += p0 + p < n ? df[(size_t)(p0 + p) * DF + c] : 0.0f;
     }
     prow[o_bf + c] = s;
   }
   if (tid == 0) {
     float s = 0.0f;
-    for (int p = 0; p < kChainTP; ++p) s += dss[p];
+    for (int p = 0; p < kPts; ++p) s += dss[p];
     prow[o_bs] = s;
   }
   {
     T* Aop = scratch + jobs.a_off[L];
     T* Bop = scratch + jobs.b_off[L];
-    for (int idx = tid; idx < kChainTP * (kpf / 4); idx += kChainThreads) {
+    for (int idx = tid; idx < kPts * (kpf / 4); idx += kChainThreads) {
       const int p = idx / (kpf / 4), c = (idx % (kpf / 4)) * 4;
       float h[4];
       hval4(p, lgoff + c, h);
@@ -293,7 +301,7 @@ __global__ void __launch_bounds__(kChainThreads)
         if (c + k >= DL) h[k] = 0.0f;
       st4(Aop + (size_t)(p0 + p) * kpf + c, h);
     }
-    for (int idx = tid; idx < kChainTP * (npf / 4); idx += kChainThreads) {
+    for (int idx = tid; idx < kPts * (npf / 4); idx += kChainThreads) {
       const int p = idx / (npf / 4), c = (idx % (npf / 4)) * 4;
       float v[4];
 #pragma unroll
@@ -304,18 +312,18 @@ __global__ void __launch_bounds__(kChainThreads)
   }
   // dh_L = rnd<T>(ds/scale) rnd<T>(w_sdf) + df W_feat^T, then + dL/dh_{L-1}.
   // The carry's column sums above read G before the product overwrites it.
-  gemm_rows64<true>(act, kLdAct, wt + m.wf_off, npf, npf, kpf, G, kLdZ, ring);
+  core_gemm<Cls, true>(act, kLdAct, wt + m.wf_off, npf, npf, kpf, G, kLdC, ring);
   __syncthreads();
-  stage_first_slabs<true>(wt + m.w_off[L - 1], m.np_[L - 1], m.np_[L - 1], m.kp[L - 1], ring);
-  for (int idx = tid; idx < kChainTP * (m.np_[L - 1] / 4); idx += kChainThreads) {
+  core_stage<Cls, true>(wt + m.w_off[L - 1], m.np_[L - 1], m.np_[L - 1], m.kp[L - 1], ring);
+  for (int idx = tid; idx < kPts * (m.np_[L - 1] / 4); idx += kChainThreads) {
     const int p = idx / (m.np_[L - 1] / 4), c = (idx % (m.np_[L - 1] / 4)) * 4;
     float z[4], u[4], g[4];
-    ld_f4(G + p * kLdZ + c, z);
+    ld_f4(G + p * kLdC + c, z);
     ld_f4(U(p, lgoff + c), u);
 #pragma unroll
     for (int k = 0; k < 4; ++k)
       g[k] = c + k < DL ? rnd<T>(dss[p]) * rnd<T>(w_sdf[c + k]) + z[k] + u[k] : 0.0f;
-    st_f4(G + p * kLdZ + c, g);
+    st_f4(G + p * kLdC + c, g);
   }
   __syncthreads();
 
@@ -327,18 +335,18 @@ __global__ void __launch_bounds__(kChainThreads)
     const int poff = i > 0 ? m.b_off[i - 1] : 0;
     T* Aop = scratch + jobs.a_off[i] + npad * kp;
     T* Bop = scratch + jobs.b_off[i] + npad * np;
-    for (int idx = tid; idx < kChainTP * (np / 4); idx += kChainThreads) {
+    for (int idx = tid; idx < kPts * (np / 4); idx += kChainThreads) {
       const int p = idx / (np / 4), c = (idx % (np / 4)) * 4;
       float g[4], gate[4], gz[4];
-      ld_f4(G + p * kLdZ + c, g);
+      ld_f4(G + p * kLdC + c, g);
       gval4(p, goff + c, gate);
 #pragma unroll
       for (int k = 0; k < 4; ++k) gz[k] = c + k < out ? g[k] * gate[k] : 0.0f;
-      st_f4(G + p * kLdZ + c, gz);
+      st_f4(G + p * kLdC + c, gz);
       st4(act + p * kLdAct + c, gz);
       st4(Bop + (size_t)(p0 + p) * np + c, gz);
     }
-    for (int idx = tid; idx < kChainTP * (kp / 4); idx += kChainThreads) {
+    for (int idx = tid; idx < kPts * (kp / 4); idx += kChainThreads) {
       const int p = idx / (kp / 4), c = (idx % (kp / 4)) * 4;
       float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       if (p0 + p < n) {
@@ -349,9 +357,9 @@ __global__ void __launch_bounds__(kChainThreads)
           for (int k = 0; k < 4; ++k) {
             const int ck = c + k;
             if (i == 0)
-              v[k] = ck < d0 ? enc[p * kEncMax + ck] : 0.0f;
+              v[k] = ck < d0 ? enc[p * kEnc + ck] : 0.0f;
             else if (m.skip[i])
-              v[k] = (ck < split ? hval(p, poff + ck) : (ck < in ? enc[p * kEncMax + ck - split] : 0.0f)) * kInvSqrt2;
+              v[k] = (ck < split ? hval(p, poff + ck) : (ck < in ? enc[p * kEnc + ck - split] : 0.0f)) * kInvSqrt2;
             else
               v[k] = ck < in ? hval(p, poff + ck) : 0.0f;
           }
@@ -363,32 +371,32 @@ __global__ void __launch_bounds__(kChainThreads)
     for (int c = tid; c < np; c += kChainThreads) {
       float s = 0.0f;
 #pragma unroll 8
-      for (int p = 0; p < kChainTP; ++p) s += G[p * kLdZ + c];
+      for (int p = 0; p < kPts; ++p) s += G[p * kLdC + c];
       prow[goff + c] = s;
     }
-    gemm_rows64<true>(act, kLdAct, wt + m.w_off[i], np, np, kp, G, kLdZ, ring);
+    core_gemm<Cls, true>(act, kLdAct, wt + m.w_off[i], np, np, kp, G, kLdC, ring);
     __syncthreads();
     // The next layer's first slabs (the head's product staged layer L - 1's).
-    if (i > 0) stage_first_slabs<true>(wt + m.w_off[i - 1], m.np_[i - 1], m.np_[i - 1], m.kp[i - 1], ring);
+    if (i > 0) core_stage<Cls, true>(wt + m.w_off[i - 1], m.np_[i - 1], m.np_[i - 1], m.kp[i - 1], ring);
     if (i > 0 && !m.skip[i]) {
-      for (int idx = tid; idx < kChainTP * (kp / 4); idx += kChainThreads) {
+      for (int idx = tid; idx < kPts * (kp / 4); idx += kChainThreads) {
         const int p = idx / (kp / 4), c = (idx % (kp / 4)) * 4;
         float z[4], u[4];
-        ld_f4(G + p * kLdZ + c, z);
+        ld_f4(G + p * kLdC + c, z);
         ld_f4(U(p, poff + c), u);
 #pragma unroll
         for (int k = 0; k < 4; ++k) z[k] = c + k < in ? z[k] + u[k] : z[k];
-        st_f4(G + p * kLdZ + c, z);
+        st_f4(G + p * kLdC + c, z);
       }
     } else {
-      for (int idx = tid; idx < kChainTP * in; idx += kChainThreads) {
+      for (int idx = tid; idx < kPts * in; idx += kChainThreads) {
         const int p = idx / in, c = idx % in;
-        float v = G[p * kLdZ + c];
+        float v = G[p * kLdC + c];
         if (m.skip[i]) v *= kInvSqrt2;
         if (i == 0)
           denc(p, c) += v;
         else if (c < split)
-          G[p * kLdZ + c] = v + *U(p, poff + c);
+          G[p * kLdC + c] = v + *U(p, poff + c);
         else
           denc(p, c - split) += v;
       }
@@ -398,10 +406,10 @@ __global__ void __launch_bounds__(kChainThreads)
   cp_async_wait<0>();
 
   // 5. The encoding chain -> dx.
-  for (int idx = tid; idx < kChainTP * 3; idx += kChainThreads) {
+  for (int idx = tid; idx < kPts * 3; idx += kChainThreads) {
     const int p = idx / 3, d = idx % 3;
     if (p0 + p >= n) continue;
-    const float* e = enc + p * kEncMax;
+    const float* e = enc + p * kEnc;
     const float* de = &denc(p, 0);
     const float* tv = &tail(p, 0);
     float acc = 0.0f;
@@ -416,6 +424,32 @@ __global__ void __launch_bounds__(kChainThreads)
   }
 }
 
+template <typename T, typename S, bool GATES, bool US>
+__global__ void __launch_bounds__(kChainThreads)
+    sdf_bwd_chain_kernel(const float* __restrict__ x, const S* __restrict__ stash,
+                         const float* __restrict__ gsc, const float* __restrict__ ds, const float* __restrict__ df,
+                         const float* __restrict__ dgx, const T* __restrict__ wpack, const T* __restrict__ wtpack,
+                         const float* __restrict__ w_sdf, float* __restrict__ dx,
+                         T* __restrict__ scratch, float* __restrict__ cscr, float* __restrict__ partial, int n,
+                         const SdfMeta m, const DwJobs jobs, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  sdf_bwd_chain_block<CoreNarrow, T, S, GATES, US>(smem, x, stash, gsc, ds, df, dgx, wpack, wtpack, w_sdf, dx,
+                                                   scratch, cscr, partial, n, m, jobs, scale);
+}
+
+template <bool GATES, bool US>
+__global__ void __launch_bounds__(kChainThreads)
+    sdf_bwd_chain_wide_kernel(const float* __restrict__ x, const bf16* __restrict__ stash,
+                              const float* __restrict__ gsc, const float* __restrict__ ds,
+                              const float* __restrict__ df, const float* __restrict__ dgx,
+                              const bf16* __restrict__ wpack, const float* __restrict__ w_sdf,
+                              float* __restrict__ dx, bf16* __restrict__ scratch, float* __restrict__ cscr,
+                              float* __restrict__ partial, int n, const SdfMeta m, const DwJobs jobs, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  sdf_bwd_chain_block<CoreWide, bf16, bf16, GATES, US>(smem, x, stash, gsc, ds, df, dgx, wpack, nullptr, w_sdf, dx,
+                                                       scratch, cscr, partial, n, m, jobs, scale);
+}
+
 // The chain, then dw_sum.cuh's passes, on `stream`; returns the first
 // launch error.
 template <typename T, typename S, bool GATES, bool US>
@@ -423,7 +457,7 @@ inline int launch_sdf_bwd(const float* x, const void* stash, const float* gsc, c
                           const float* dgx, const void* wpack, const void* wtpack, const float* w_sdf, float* dx,
                           void* scratch, float* cscr, float* partial, float* colsum, float* part_dw, float* dw,
                           const SdfMeta& m, const DwJobs& jobs, int split, int n, float scale, cudaStream_t stream) {
-  const size_t smem = chain_smem<T>();
+  const size_t smem = chain_smem<CoreNarrow, T>();
   int rc = (int)cudaFuncSetAttribute(sdf_bwd_chain_kernel<T, S, GATES, US>,
                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc) return rc;
@@ -437,10 +471,35 @@ inline int launch_sdf_bwd(const float* x, const void* stash, const float* gsc, c
   return launch_dw_sums((const T*)scratch, part_dw, dw, jobs, split, partial, nblk, pw, colsum, stream);
 }
 
+// The wide instance's chain (32-point blocks) and the same dW passes;
+// wtpack is not read.
+template <bool GATES, bool US>
+inline int launch_sdf_bwd_wide(const float* x, const void* stash, const float* gsc, const float* ds,
+                               const float* df, const float* dgx, const void* wpack, const void*, const float* w_sdf,
+                               float* dx, void* scratch, float* cscr, float* partial, float* colsum, float* part_dw,
+                               float* dw, const SdfMeta& m, const DwJobs& jobs, int split, int n, float scale,
+                               cudaStream_t stream) {
+  const size_t smem = chain_smem<CoreWide, bf16>();
+  int rc = (int)cudaFuncSetAttribute(sdf_bwd_chain_wide_kernel<GATES, US>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (rc) return rc;
+  const int nblk = (n + kWidePts - 1) / kWidePts;
+  sdf_bwd_chain_wide_kernel<GATES, US><<<nblk, kChainThreads, smem, stream>>>(
+      x, (const bf16*)stash, gsc, ds, df, dgx, (const bf16*)wpack, w_sdf, dx, (bf16*)scratch, cscr, partial, n, m,
+      jobs, scale);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  const int pw = m.gates_total + m.npf + 1 + 2 * m.kpf;
+  return launch_dw_sums((const bf16*)scratch, part_dw, dw, jobs, split, partial, nblk, pw, colsum, stream);
+}
+
 // launch_sdf_bwd at the instance the dtypes select (kF32Compute,
-// kF32Stash); H's chain (GATES) reads its own h_i, S = T.
+// kF32Stash; kWideClass alone the wide instance); H's chain (GATES) reads
+// its own h_i, S = T.
 template <bool GATES, bool US, typename... A>
 inline int launch_sdf_bwd_dtypes(int dtypes, A... a) {
+  if (dtypes & kWideClass)
+    return dtypes == kWideClass ? launch_sdf_bwd_wide<GATES, US>(a...) : (int)cudaErrorInvalidValue;
   if constexpr (GATES) {
     return dtypes & kF32Compute ? launch_sdf_bwd<float, float, GATES, US>(a...)
                                 : launch_sdf_bwd<bf16, bf16, GATES, US>(a...);
@@ -459,9 +518,10 @@ inline int launch_sdf_bwd_dtypes(int dtypes, A... a) {
   }
 }
 
-// The checks both launchers make on their tables.
-inline int parse_sdf_bwd(const int* meta, const long long* jobs, int n_jobs, SdfMeta* m, DwJobs* J) {
-  int rc = parse_meta(meta, m);
+// The checks both launchers make on their tables (the meta at the limits
+// of the width class the dtypes select).
+inline int parse_sdf_bwd(const int* meta, const long long* jobs, int n_jobs, int dtypes, SdfMeta* m, DwJobs* J) {
+  int rc = parse_meta(meta, m, dtypes & kWideClass);
   if (rc) return rc;
   rc = parse_jobs(jobs, n_jobs, J);
   if (rc) return rc;

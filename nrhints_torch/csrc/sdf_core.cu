@@ -68,29 +68,52 @@
 // f32 slabs), an f32 activation tile beside the f32 carry tile: 215,040
 // bytes of shared memory, one block per SM; the reverse sweep's transposed
 // products read the f32 pack's transposed blocks (wtpack).
+//
+// The wide instances replace the same pallas_calls above the presets'
+// widths (JAX's Pallas kernels take any SDFNetConfig): padded hidden and
+// feature widths up to 512, encodings up to 128 (multi_res <= 20), bf16
+// operands and stash; the dtypes argument's kWideClass bit selects
+// sdf_core_fwd_wide_kernel<MODE> (sdf_fwd.cuh).  Bound on an H100 at
+// d_hidden = 512 (8 layers, skip at 4, multi_res 6, a 256-wide feature
+// head): 3.80 M multiply-adds a point, 498 GFLOP a 65,536-point call, 0.50
+// ms at 989 TFLOP/s bf16 (3.9x the 256-wide); D adds 533 MB of bf16 stash
+// (0.16 ms).  Bound by operations.
+// Design: the 64-point tiles at width 512 would need 66,560 B of bf16
+// activations, 132,096 B of f32 carry and 32,768 B of encoding beside the
+// 110,592 B ring, more than a block's 232,448 B.  So a block takes 32
+// points (kWidePts) on the same 512 threads: activations 33,280, carry
+// 66,048, encoding 16,384 and the same three-stage ring, 226,304 bytes,
+// one block per SM.  Every product runs as column passes of at most 256
+// (staged_mma.cuh::gemm_rows32: the 16 warps over 32 rows x 256 columns, 2
+// accumulator tiles a warp); the carry tile holds the whole output, so the
+// product's input stays intact until its last pass has read it.  A weight
+// byte fetched from L2 serves 32 points, half the 64-point instances'
+// reuse, at 4x the products a point.  The gate scratch keeps the same
+// column layout on 32-point padded rows (core_mlp.gate_layout at the wide
+// class's block): 1.06 GB at 65,536 points at d_hidden 512.
 #include "sdf_fwd.cuh"
 
 using namespace nrh;
 
 // dtypes: kF32Compute selects A's f32 instance (wpack and wtpack the f32
-// pack; wtpack is null in bf16).
+// pack; wtpack is null in bf16), kWideClass alone the wide instance.
 extern "C" int sdf_core_fwd(const float* x, const void* wpack, const void* wtpack, const float* bpack,
                             const float* w_sdf, float* sdf, float* feat, float* gx, float* gates, int n,
                             const int* meta, float scale, int dtypes, void* stream) {
   SdfMeta m;
-  const int rc = parse_meta(meta, &m);
+  const int rc = parse_meta(meta, &m, dtypes & kWideClass);
   if (rc || n <= 0) return rc;
   return launch_sdf_fwd_dtypes<kFwdPlain>(dtypes, x, wpack, wtpack, bpack, w_sdf, sdf, feat, gx, nullptr, gates,
                                           n, m, scale, (cudaStream_t)stream);
 }
 
 // dtypes: kF32Compute and kF32Stash select D's instance (its dot operands'
-// and its stash's types).
+// and its stash's types), kWideClass alone the wide instance.
 extern "C" int sdf_stash_fwd(const float* x, const void* wpack, const void* wtpack, const float* bpack,
                              const float* w_sdf, float* sdf, float* feat, float* gx, void* stash,
                              float* gates, int n, const int* meta, float scale, int dtypes, void* stream) {
   SdfMeta m;
-  const int rc = parse_meta(meta, &m);
+  const int rc = parse_meta(meta, &m, dtypes & kWideClass);
   if (rc || n <= 0) return rc;
   return launch_sdf_fwd_dtypes<kFwdStash>(dtypes, x, wpack, wtpack, bpack, w_sdf, sdf, feat, gx, stash, gates, n,
                                           m, scale, (cudaStream_t)stream);
@@ -100,7 +123,7 @@ extern "C" int sdf_stash_all_fwd(const float* x, const void* wpack, const void* 
                                  const float* w_sdf, float* sdf, float* feat, float* gx, void* stash,
                                  float* gates, int n, const int* meta, float scale, int dtypes, void* stream) {
   SdfMeta m;
-  const int rc = parse_meta(meta, &m);
+  const int rc = parse_meta(meta, &m, dtypes & kWideClass);
   if (rc || n <= 0) return rc;
   return launch_sdf_fwd_dtypes<kFwdStashAll>(dtypes, x, wpack, wtpack, bpack, w_sdf, sdf, feat, gx, stash, gates,
                                              n, m, scale, (cudaStream_t)stream);

@@ -44,6 +44,15 @@
 // call.  With an f32 stash, E's gates 1 - exp(-100 h) and H's sigmoid(100 z)
 // agree to rounding, so the f32 E and H give the same gradients but for
 // rounding (chip_smoke.py phase 16 prints the gap).
+//
+// H's wide instance replaces the same pallas_call above the presets'
+// widths (kWideClass in the dtypes argument): H1 and H2 on the wide
+// instances' 32-point blocks (sdf_core_fwd_wide_kernel<2>,
+// sdf_bwd_chain_wide_kernel<true, false>), bf16 operands, the same dW
+// passes.  Bound on an H100 at d_hidden = 512 (8 layers, skip at 4,
+// multi_res 6, a 256-wide feature head): 1,478 GFLOP a 65,536-point call,
+// 1.49 ms at 989 TFLOP/s bf16; bound by operations.  Its scratch: 533 MB of
+// bf16 h and 1.06 GB of f32 gates at 65,536 points.
 #include "sdf_bwd.cuh"
 #include "sdf_fwd.cuh"
 
@@ -51,7 +60,7 @@ using namespace nrh;
 
 // dtypes: kF32Compute selects H's f32 instance: H1 and H2 with f32 dot
 // operands, its h_i and its dW scratch in f32 (wpack and wtpack the f32
-// pack; wtpack is null in bf16).
+// pack; wtpack is null in bf16); kWideClass alone the wide instance.
 extern "C" int sdf_core_bwd(const float* x, const float* ds, const float* df, const float* dgx,
                             const void* wpack, const void* wtpack, const float* bpack, const float* w_sdf, void* hs,
                             float* gates, float* dx, void* scratch, float* cscr, float* partial, float* colsum,
@@ -59,9 +68,9 @@ extern "C" int sdf_core_bwd(const float* x, const float* ds, const float* df, co
                             const int* meta, float scale, int dtypes, void* stream) {
   SdfMeta m;
   DwJobs J;
-  int rc = parse_sdf_bwd(meta, jobs, n_jobs, &m, &J);
+  int rc = parse_sdf_bwd(meta, jobs, n_jobs, dtypes, &m, &J);
   if (rc || n <= 0) return rc;
-  if (dtypes & ~kF32Compute) return (int)cudaErrorInvalidValue;
+  if (dtypes & ~(kF32Compute | kWideClass)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   rc = launch_sdf_fwd_dtypes<kFwdRecompute>(dtypes, x, wpack, wtpack, bpack, w_sdf, nullptr, nullptr, nullptr, hs,
                                             gates, n, m, scale, s);

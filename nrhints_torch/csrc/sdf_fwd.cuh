@@ -26,6 +26,13 @@
 // T-dependent step reduces to the bf16 expressions at T = S = bf16, so the
 // bf16 instance gives the shipping outputs bit for bit
 // (scripts/compare_sdf_fwd.py holds it against a parent tree).
+//
+// Cls is the width class (staged_mma.cuh): CoreNarrow, the 64-point
+// instances sdf_core_fwd_kernel<T, S, MODE> at the presets' widths; or
+// CoreWide, sdf_core_fwd_wide_kernel<MODE> (bf16 operands and stash), the
+// same code on 32-point blocks with padded widths up to 512 and encodings
+// up to 128, every product in gemm_rows32's column passes of at most 256
+// (sdf_core.cu says why).
 #pragma once
 
 #include "mma_rows.cuh"
@@ -39,45 +46,48 @@ constexpr int kFwdPlain = 0, kFwdStash = 1, kFwdRecompute = 2, kFwdStashAll = 3;
 // f32 carry tile (Z in the forward, G in the reverse sweep; every product
 // writes there), the encoding (the encoding's cotangent g_enc once the
 // forward has read it for the last time) and the weight ring: 227,328
-// bytes in bf16, 215,040 in f32 (two 32-row f32 stages), one block per SM.
-template <typename T>
+// bytes in bf16, 215,040 in f32 (two 32-row f32 stages), 226,304 in the wide
+// class (32 points: activations 33,280, carry 66,048, encoding 16,384, the
+// same ring), one block per SM.
+template <class Cls, typename T>
 constexpr size_t fwd_smem() {
-  return kChainTP * CoreTile<T>::kLdAct * sizeof(T) + kChainTP * kLdZ * sizeof(float) +
-         kChainTP * kEncMax * sizeof(float) + CoreTile<T>::kRing * sizeof(T);
+  return Cls::kPts * kCoreLdAct<Cls, T> * sizeof(T) + Cls::kPts * Cls::kLdC * sizeof(float) +
+         Cls::kPts * Cls::kEnc * sizeof(float) + CoreTile<T>::kRing * sizeof(T);
 }
-static_assert(fwd_smem<bf16>() == 227328 && fwd_smem<float>() == 215040, "the forward's shared-memory budget");
+static_assert(fwd_smem<CoreNarrow, bf16>() == 227328 && fwd_smem<CoreNarrow, float>() == 215040 &&
+                  fwd_smem<CoreWide, bf16>() == 226304,
+              "the forward's shared-memory budget");
 
-// The forward of one 64-point block: every product through gemm_rows64,
-// each product's first slabs requested before the elementwise pass in front
-// of it, the elementwise passes four columns of one point per item.  The
-// reverse sweep multiplies by each weight's transpose: the bf16 instance
-// reads wpack through column-major fragments; the f32 instance reads the
-// transposed blocks of wtpack (the same offsets; null in bf16).
-template <typename T, typename S, int MODE>
-__global__ void __launch_bounds__(kChainThreads)
-    sdf_core_fwd_kernel(const float* __restrict__ x, const T* __restrict__ wpack, const T* __restrict__ wtpack,
-                        const float* __restrict__ bpack, const float* __restrict__ w_sdf,
-                        float* __restrict__ sdf_out, float* __restrict__ feat_out,
-                        float* __restrict__ gx_out, S* __restrict__ stash, float* __restrict__ gsc,
-                        int n, const SdfMeta m, float scale) {
-  constexpr int kLdAct = CoreTile<T>::kLdAct;
-  extern __shared__ __align__(128) unsigned char smem[];
+// The forward of one block of Cls::kPts points: every product through
+// core_gemm, each product's first slabs requested before the elementwise
+// pass in front of it, the elementwise passes four columns of one point per
+// item.  The reverse sweep multiplies by each weight's transpose: the bf16
+// instances read wpack through column-major fragments; the f32 instance
+// reads the transposed blocks of wtpack (the same offsets; null in bf16).
+template <class Cls, typename T, typename S, int MODE>
+__device__ __forceinline__ void sdf_fwd_block(unsigned char* smem, const float* __restrict__ x,
+                                              const T* __restrict__ wpack, const T* __restrict__ wtpack,
+                                              const float* __restrict__ bpack, const float* __restrict__ w_sdf,
+                                              float* __restrict__ sdf_out, float* __restrict__ feat_out,
+                                              float* __restrict__ gx_out, S* __restrict__ stash,
+                                              float* __restrict__ gsc, int n, const SdfMeta& m, float scale) {
+  constexpr int kLdAct = kCoreLdAct<Cls, T>, kPts = Cls::kPts, kLdC = Cls::kLdC, kEnc = Cls::kEnc;
   T* act = reinterpret_cast<T*>(smem);
-  float* Z = reinterpret_cast<float*>(act + kChainTP * kLdAct);
-  float* enc = Z + kChainTP * kLdZ;
-  T* ring = reinterpret_cast<T*>(enc + kChainTP * kEncMax);
+  float* Z = reinterpret_cast<float*>(act + kPts * kLdAct);
+  float* enc = Z + kPts * kLdC;
+  T* ring = reinterpret_cast<T*>(enc + kPts * kEnc);
   const T* wt = std::is_same<T, float>::value ? wtpack : wpack;  // the reverse products' weights
 
   const int tid = threadIdx.x;
-  const int p0 = blockIdx.x * kChainTP;
+  const int p0 = blockIdx.x * kPts;
   const int L = m.n_layers, F = m.multi_res, d0 = m.d0, GT = m.gates_total;
   const int ST = stash_row(m, MODE == kFwdStashAll);  // the stash's row stride
   float* grow = gsc + (size_t)p0 * GT;  // the block's rows of the gate scratch
 
   // Encoding of 3x, and the first layer's input (of T).
-  stage_first_slabs<false>(wpack + m.w_off[0], m.np_[0], m.kp[0], m.np_[0], ring);
-  for (int idx = tid; idx < kChainTP * kEncMax; idx += kChainThreads) {
-    const int p = idx / kEncMax, c = idx % kEncMax, gp = p0 + p;
+  core_stage<Cls, false>(wpack + m.w_off[0], m.np_[0], m.kp[0], m.np_[0], ring);
+  for (int idx = tid; idx < kPts * kEnc; idx += kChainThreads) {
+    const int p = idx / kEnc, c = idx % kEnc, gp = p0 + p;
     float xs[3];
     for (int d = 0; d < 3; ++d) xs[d] = gp < n ? x[gp * 3 + d] * scale : 0.0f;
     const float v = c < d0 ? freq_channel(xs, nullptr, c, F, nullptr) : 0.0f;
@@ -88,24 +98,24 @@ __global__ void __launch_bounds__(kChainThreads)
   // Forward: z_i = h_{i-1} W_i + b_i; h_i = softplus(100 z_i)/100, gate_i.
   for (int i = 0; i < L; ++i) {
     const int np = m.np_[i], out = m.out_dim[i], goff = m.b_off[i];
-    gemm_rows64<false>(act, kLdAct, wpack + m.w_off[i], np, m.kp[i], np, Z, kLdZ, ring);
+    core_gemm<Cls, false>(act, kLdAct, wpack + m.w_off[i], np, m.kp[i], np, Z, kLdC, ring);
     __syncthreads();
     const bool last = i + 1 == L;
     if (!last)
-      stage_first_slabs<false>(wpack + m.w_off[i + 1], m.np_[i + 1], m.kp[i + 1], m.np_[i + 1], ring);
+      core_stage<Cls, false>(wpack + m.w_off[i + 1], m.np_[i + 1], m.kp[i + 1], m.np_[i + 1], ring);
     else if (MODE != kFwdRecompute)
-      stage_first_slabs<false>(wpack + m.wf_off, m.npf, m.kpf, m.npf, ring);
+      core_stage<Cls, false>(wpack + m.wf_off, m.npf, m.kpf, m.npf, ring);
     // The next product's input, written over this one's: h_i (x 1/sqrt2
     // before the skip layer), then the skip layer's encoding half (x
     // 1/sqrt2), then zeros up to the next padded width (>= np).
     const bool next_skip = !last && m.skip[i + 1];
     const int w4 = (last ? m.kpf : m.kp[i + 1]) / 4;
     const float* b = bpack + goff;
-    for (int idx = tid; idx < kChainTP * w4; idx += kChainThreads) {
+    for (int idx = tid; idx < kPts * w4; idx += kChainThreads) {
       const int p = idx / w4, c = (idx % w4) * 4;
       float z[4] = {0.0f, 0.0f, 0.0f, 0.0f}, bb[4] = {0.0f, 0.0f, 0.0f, 0.0f}, a[4], h[4], g[4];
       if (c < np) {
-        ld_f4(Z + p * kLdZ + c, z);
+        ld_f4(Z + p * kLdC + c, z);
         ld_f4(b + c, bb);
       }
 #pragma unroll
@@ -116,7 +126,7 @@ __global__ void __launch_bounds__(kChainThreads)
           softplus100_gate(z[k] + bb[k], &h[k], &g[k]);
           a[k] = next_skip ? h[k] * kInvSqrt2 : h[k];
         } else {
-          a[k] = next_skip && ck - out < d0 ? enc[p * kEncMax + ck - out] * kInvSqrt2 : 0.0f;
+          a[k] = next_skip && ck - out < d0 ? enc[p * kEnc + ck - out] * kInvSqrt2 : 0.0f;
         }
       }
       st4(act + p * kLdAct + c, a);
@@ -128,14 +138,14 @@ __global__ void __launch_bounds__(kChainThreads)
   }
   if (MODE == kFwdRecompute) return;
 
-  // Heads: feat = h W_feat + b_feat (gemm_rows64); sdf = (h . w_sdf +
+  // Heads: feat = h W_feat + b_feat (core_gemm); sdf = (h . w_sdf +
   // b_sdf)/scale with both operands of type T, one warp per point.  The
   // product began with a barrier, so h is complete in act.
-  gemm_rows64<false>(act, kLdAct, wpack + m.wf_off, m.npf, m.kpf, m.npf, Z, kLdZ, ring);
+  core_gemm<Cls, false>(act, kLdAct, wpack + m.wf_off, m.npf, m.kpf, m.npf, Z, kLdC, ring);
   {
     const int warp = tid >> 5, lane = tid & 31;
     const float b_sdf = bpack[m.bf_off + m.npf];
-    for (int p = warp; p < kChainTP; p += kChainThreads / 32) {
+    for (int p = warp; p < kPts; p += kChainThreads / 32) {
       float s = 0.0f;
       for (int k = lane; k < m.d_last; k += 32) s += to_f(act[p * kLdAct + k]) * rnd<T>(w_sdf[k]);
       for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
@@ -146,13 +156,13 @@ __global__ void __launch_bounds__(kChainThreads)
 
   // The reverse sweep's first slabs; feat; g_enc = 0 in the enc tile; and
   // layer L - 1's gated cotangent, with g = w_sdf / scale (f32, unrounded).
-  stage_first_slabs<true>(wt + m.w_off[L - 1], m.np_[L - 1], m.np_[L - 1], m.kp[L - 1], ring);
-  for (int idx = tid; idx < kChainTP * m.d_feat; idx += kChainThreads) {
+  core_stage<Cls, true>(wt + m.w_off[L - 1], m.np_[L - 1], m.np_[L - 1], m.kp[L - 1], ring);
+  for (int idx = tid; idx < kPts * m.d_feat; idx += kChainThreads) {
     const int p = idx / m.d_feat, c = idx % m.d_feat;
-    if (p0 + p < n) feat_out[(size_t)(p0 + p) * m.d_feat + c] = Z[p * kLdZ + c] + bpack[m.bf_off + c];
+    if (p0 + p < n) feat_out[(size_t)(p0 + p) * m.d_feat + c] = Z[p * kLdC + c] + bpack[m.bf_off + c];
   }
   float* genc = enc;
-  for (int idx = tid; idx < kChainTP * kEncMax; idx += kChainThreads) genc[idx] = 0.0f;
+  for (int idx = tid; idx < kPts * kEnc; idx += kChainThreads) genc[idx] = 0.0f;
 
   // Reverse sweep: g <- (g gate_i) W_i^T, the product written in place into
   // the carry tile G; at the skip layer x 1/sqrt2, split into the carry and
@@ -160,15 +170,15 @@ __global__ void __launch_bounds__(kChainThreads)
   float* G = Z;
   for (int i = L - 1; i >= 0; --i) {
     const int np = m.np_[i], out = m.out_dim[i], in = m.in_dim[i], kp = m.kp[i], goff = m.b_off[i];
-    if (i < L - 1) stage_first_slabs<true>(wt + m.w_off[i], np, np, kp, ring);
-    for (int idx = tid; idx < kChainTP * (np / 4); idx += kChainThreads) {
+    if (i < L - 1) core_stage<Cls, true>(wt + m.w_off[i], np, np, kp, ring);
+    for (int idx = tid; idx < kPts * (np / 4); idx += kChainThreads) {
       const int p = idx / (np / 4), c = (idx % (np / 4)) * 4;
       float u[4], gate[4], t[4];
       if (i == L - 1) {
 #pragma unroll
         for (int k = 0; k < 4; ++k) u[k] = c + k < out ? w_sdf[c + k] / scale : 0.0f;
       } else {
-        ld_f4(G + p * kLdZ + c, u);
+        ld_f4(G + p * kLdC + c, u);
       }
       ld_f4(grow + (size_t)p * GT + goff + c, gate);
 #pragma unroll
@@ -181,23 +191,23 @@ __global__ void __launch_bounds__(kChainThreads)
         st4(stash + (size_t)(p0 + p) * ST + GT + goff + c, u);
       }
     }
-    gemm_rows64<true>(act, kLdAct, wt + m.w_off[i], np, np, kp, G, kLdZ, ring);
+    core_gemm<Cls, true>(act, kLdAct, wt + m.w_off[i], np, np, kp, G, kLdC, ring);
     __syncthreads();
     if (m.skip[i]) {  // elsewhere the product is already the carry
       const int split = in - d0;
-      for (int idx = tid; idx < kChainTP * (kp / 4); idx += kChainThreads) {
+      for (int idx = tid; idx < kPts * (kp / 4); idx += kChainThreads) {
         const int p = idx / (kp / 4), c = (idx % (kp / 4)) * 4;
         float v[4];
-        ld_f4(G + p * kLdZ + c, v);
+        ld_f4(G + p * kLdC + c, v);
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const int ck = c + k;
           if (ck < in) {
             v[k] *= kInvSqrt2;
-            if (ck >= split) genc[p * kEncMax + ck - split] += v[k];
+            if (ck >= split) genc[p * kEnc + ck - split] += v[k];
           }
         }
-        st_f4(G + p * kLdZ + c, v);
+        st_f4(G + p * kLdC + c, v);
       }
       __syncthreads();
     }
@@ -206,11 +216,11 @@ __global__ void __launch_bounds__(kChainThreads)
   // Through the encoding: enc = [xs, sin(S), cos(S)], S_{d,f} = xs_d 2^f,
   // with sin and cos recomputed from x as the encoding pass computed them;
   // d sdf / d enc = g_enc + the last carry.
-  for (int idx = tid; idx < kChainTP * 3; idx += kChainThreads) {
+  for (int idx = tid; idx < kPts * 3; idx += kChainThreads) {
     const int p = idx / 3, d = idx % 3, gp = p0 + p;
     if (gp >= n) continue;
-    const float* ge = genc + p * kEncMax;
-    const float* g = G + p * kLdZ;
+    const float* ge = genc + p * kEnc;
+    const float* g = G + p * kLdC;
     const float xs = x[gp * 3 + d] * scale;
     float acc = 0.0f;
     for (int f = 0; f < F; ++f) {
@@ -224,13 +234,37 @@ __global__ void __launch_bounds__(kChainThreads)
   }
   if (MODE == kFwdStashAll) {  // g_enc = the skip's share + the last carry, zero-padded
     const int ew = ST - 2 * GT;
-    for (int idx = tid; idx < kChainTP * ew; idx += kChainThreads) {
+    for (int idx = tid; idx < kPts * ew; idx += kChainThreads) {
       const int p = idx / ew, c = idx % ew;
       if (p0 + p < n)
         stash[(size_t)(p0 + p) * ST + 2 * GT + c] =
-            from_f<S>(c < d0 ? genc[p * kEncMax + c] + G[p * kLdZ + c] : 0.0f);
+            from_f<S>(c < d0 ? genc[p * kEnc + c] + G[p * kLdC + c] : 0.0f);
     }
   }
+}
+
+template <typename T, typename S, int MODE>
+__global__ void __launch_bounds__(kChainThreads)
+    sdf_core_fwd_kernel(const float* __restrict__ x, const T* __restrict__ wpack, const T* __restrict__ wtpack,
+                        const float* __restrict__ bpack, const float* __restrict__ w_sdf,
+                        float* __restrict__ sdf_out, float* __restrict__ feat_out,
+                        float* __restrict__ gx_out, S* __restrict__ stash, float* __restrict__ gsc,
+                        int n, const SdfMeta m, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  sdf_fwd_block<CoreNarrow, T, S, MODE>(smem, x, wpack, wtpack, bpack, w_sdf, sdf_out, feat_out, gx_out, stash, gsc,
+                                        n, m, scale);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(kChainThreads)
+    sdf_core_fwd_wide_kernel(const float* __restrict__ x, const bf16* __restrict__ wpack,
+                             const float* __restrict__ bpack, const float* __restrict__ w_sdf,
+                             float* __restrict__ sdf_out, float* __restrict__ feat_out, float* __restrict__ gx_out,
+                             bf16* __restrict__ stash, float* __restrict__ gsc, int n, const SdfMeta m,
+                             float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  sdf_fwd_block<CoreWide, bf16, bf16, MODE>(smem, x, wpack, nullptr, bpack, w_sdf, sdf_out, feat_out, gx_out, stash,
+                                            gsc, n, m, scale);
 }
 
 // One launch of the forward on `stream`; returns its launch error.  gsc is
@@ -239,7 +273,7 @@ template <typename T, typename S, int MODE>
 inline int launch_sdf_fwd(const float* x, const void* wpack, const void* wtpack, const float* bpack,
                           const float* w_sdf, float* sdf, float* feat, float* gx, void* stash, float* gsc, int n,
                           const SdfMeta& m, float scale, cudaStream_t stream) {
-  constexpr size_t kFwdSmem = fwd_smem<T>();
+  constexpr size_t kFwdSmem = fwd_smem<CoreNarrow, T>();
   int rc = (int)cudaFuncSetAttribute(sdf_core_fwd_kernel<T, S, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                      (int)kFwdSmem);
   if (rc) return rc;
@@ -248,11 +282,28 @@ inline int launch_sdf_fwd(const float* x, const void* wpack, const void* wtpack,
   return (int)cudaGetLastError();
 }
 
+// The wide instance's launch: gsc has (n + kWidePts - 1) / kWidePts *
+// kWidePts rows; wtpack is not read.
+template <int MODE>
+inline int launch_sdf_fwd_wide(const float* x, const void* wpack, const void*, const float* bpack,
+                               const float* w_sdf, float* sdf, float* feat, float* gx, void* stash, float* gsc, int n,
+                               const SdfMeta& m, float scale, cudaStream_t stream) {
+  constexpr size_t kFwdSmem = fwd_smem<CoreWide, bf16>();
+  int rc = (int)cudaFuncSetAttribute(sdf_core_fwd_wide_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)kFwdSmem);
+  if (rc) return rc;
+  sdf_core_fwd_wide_kernel<MODE><<<(n + kWidePts - 1) / kWidePts, kChainThreads, kFwdSmem, stream>>>(
+      x, (const bf16*)wpack, bpack, w_sdf, sdf, feat, gx, (bf16*)stash, gsc, n, m, scale);
+  return (int)cudaGetLastError();
+}
+
 // launch_sdf_fwd at the instance the dtypes select; the modes that keep no
 // stash of their own choosing take S = T (H's first pass stashes its h_i
-// in the operand type).
+// in the operand type).  kWideClass alone selects the wide instance (bf16
+// operands and stash; with an f32 bit it is refused).
 template <int MODE, typename... A>
 inline int launch_sdf_fwd_dtypes(int dtypes, A... a) {
+  if (dtypes & kWideClass) return dtypes == kWideClass ? launch_sdf_fwd_wide<MODE>(a...) : (int)cudaErrorInvalidValue;
   if constexpr (MODE == kFwdPlain || MODE == kFwdRecompute) {
     return dtypes & kF32Compute ? launch_sdf_fwd<float, float, MODE>(a...) : launch_sdf_fwd<bf16, bf16, MODE>(a...);
   } else {

@@ -28,6 +28,10 @@ constexpr int kWMax = 256;        // widest padded layer output, and input but t
 constexpr int kEncMax = 64;       // widest padded frequency encoding
 constexpr int kLdA = kWMax + 8;   // bf16 row stride of activation tiles
 constexpr int kLdZ = kWMax + 4;   // f32 row stride of accumulator tiles
+// The SDF core's wide instances (sdf_fwd.cuh, sdf_bwd.cuh: kernels A, D, E
+// and H above the presets' widths) take twice both limits.
+constexpr int kWideWMax = 2 * kWMax;
+constexpr int kWideEncMax = 2 * kEncMax;
 constexpr float kInvSqrt2 = 0.70710678118654752440f;
 constexpr float kHalfPi = 1.57079632679489661923f;
 
@@ -38,8 +42,11 @@ struct SdfMeta {
 };
 
 // meta = [L, multi_res, d0, d_feat, d_last, kpf, npf, wf_off, bf_off,
-//         gates_total, then per layer: in, out, kp, np, skip, w_off, b_off]
-inline int parse_meta(const int* meta, SdfMeta* m) {
+//         gates_total, then per layer: in, out, kp, np, skip, w_off, b_off];
+// checked against the 64-point instances' limits, or with wide the wide
+// instances' (kWideWMax, kWideEncMax).
+inline int parse_meta(const int* meta, SdfMeta* m, bool wide = false) {
+  const int w_max = wide ? kWideWMax : kWMax, enc_max = wide ? kWideEncMax : kEncMax;
   m->n_layers = meta[0];
   m->multi_res = meta[1];
   m->d0 = meta[2];
@@ -51,7 +58,7 @@ inline int parse_meta(const int* meta, SdfMeta* m) {
   m->bf_off = meta[8];
   m->gates_total = meta[9];
   if (m->n_layers < 1 || m->n_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
-  if (m->d0 > kEncMax || 3 + 6 * m->multi_res != m->d0) return (int)cudaErrorInvalidValue;
+  if (m->d0 > enc_max || 3 + 6 * m->multi_res != m->d0) return (int)cudaErrorInvalidValue;
   for (int i = 0; i < m->n_layers; ++i) {
     const int* l = meta + 10 + 7 * i;
     m->in_dim[i] = l[0];
@@ -61,9 +68,9 @@ inline int parse_meta(const int* meta, SdfMeta* m) {
     m->skip[i] = l[4];
     m->w_off[i] = l[5];
     m->b_off[i] = l[6];
-    if (m->kp[i] > kWMax || m->np_[i] > kWMax) return (int)cudaErrorInvalidValue;
+    if (m->kp[i] > w_max || m->np_[i] > w_max) return (int)cudaErrorInvalidValue;
   }
-  if (m->kpf > kWMax || m->npf > kWMax) return (int)cudaErrorInvalidValue;
+  if (m->kpf > w_max || m->npf > w_max) return (int)cudaErrorInvalidValue;
   return 0;
 }
 

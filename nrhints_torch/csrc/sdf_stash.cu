@@ -68,13 +68,27 @@
 // points) and their products on dw_sum.cuh's dw_partial_f32_kernel over the
 // same row chunks, summed by the same in-order passes: the f32 gradients
 // repeat bit for bit too.
+//
+// The wide instances (E's and its variant's, bf16 operands and stash)
+// replace the same pallas_call above the presets' widths: padded widths up
+// to 512, encodings up to 128 (kWideClass in the dtypes argument:
+// sdf_bwd_chain_wide_kernel<false, US>).  Bound on an H100 at d_hidden =
+// 512 (8 layers, skip at 4, multi_res 6, a 256-wide feature head): 1,237
+// GFLOP a 65,536-point call (the variant's 997), 1.25 ms (1.01) at 989
+// TFLOP/s bf16, 3.9x the 256-wide; bound by operations.  Design: E1's
+// stages on 32-point blocks (226,432 bytes of shared memory), every
+// product in staged_mma.cuh::gemm_rows32's column passes of at most 256
+// (sdf_core.cu says why), the f32 chain scratch at 4,064 + 4 x 128 floats a
+// point (1.2 GB at 65,536 points) and 2.1 GB of bf16 dW operands; the dW
+// passes are dw_sum.cuh's, whose 128 x 128 tiles take ka and nb up to 512
+// (a 512 x 512 dW is 16 tiles of a row chunk), over the same row chunks.
 #include "sdf_bwd.cuh"
 
 using namespace nrh;
 
 // dtypes: kF32Compute and kF32Stash select E's instance (its dot operands',
-// and so its scratch's, and its stash's types); wtpack is the f32 pack's
-// transposed blocks (null in bf16).
+// and so its scratch's, and its stash's types), kWideClass alone the wide
+// instance; wtpack is the f32 pack's transposed blocks (null in bf16).
 extern "C" int sdf_stash_bwd(const float* x, const void* stash, const float* ds, const float* df,
                              const float* dgx, const void* wpack, const void* wtpack, const float* w_sdf, float* dx,
                              void* scratch, float* cscr, float* partial, float* colsum, float* part_dw, float* dw,
@@ -82,7 +96,7 @@ extern "C" int sdf_stash_bwd(const float* x, const void* stash, const float* ds,
                              float scale, int dtypes, void* stream) {
   SdfMeta m;
   DwJobs J;
-  const int rc = parse_sdf_bwd(meta, jobs, n_jobs, &m, &J);
+  const int rc = parse_sdf_bwd(meta, jobs, n_jobs, dtypes, &m, &J);
   if (rc || n <= 0) return rc;
   return launch_sdf_bwd_dtypes<false, false>(dtypes, x, stash, nullptr, ds, df, dgx, wpack, wtpack, w_sdf, dx,
                                              scratch, cscr, partial, colsum, part_dw, dw, m, J, split, n, scale,
@@ -97,7 +111,7 @@ extern "C" int sdf_stash_all_bwd(const float* x, const void* stash, const float*
                                  const int* meta, float scale, int dtypes, void* stream) {
   SdfMeta m;
   DwJobs J;
-  const int rc = parse_sdf_bwd(meta, jobs, n_jobs, &m, &J);
+  const int rc = parse_sdf_bwd(meta, jobs, n_jobs, dtypes, &m, &J);
   if (rc || n <= 0) return rc;
   return launch_sdf_bwd_dtypes<false, true>(dtypes, x, stash, nullptr, ds, df, dgx, wpack, wtpack, w_sdf, dx,
                                             scratch, cscr, partial, colsum, part_dw, dw, m, J, split, n, scale,

@@ -18,6 +18,11 @@
 // slabs (stage_first_slabs) before the elementwise work that precedes the
 // product, so their copies overlap it.  The elementwise passes take four
 // consecutive columns of one point per item (the ld_ / st_ helpers below).
+//
+// gemm_rows32 is the product of the SDF core's wide instances (32-point
+// blocks, widths up to 2 kWMax: sdf_fwd.cuh, sdf_bwd.cuh): C[32, N] = A[32,
+// K] @ B as column passes of at most kWMax columns on the same ring, warp w
+// owning rows 16 (w / 8) .. +16 and columns 32 (w % 8) .. +32 of a pass.
 #pragma once
 
 #include <type_traits>
@@ -33,6 +38,19 @@ constexpr int kChainStages = 3;      // slabs in the ring
 constexpr int kLdWs = kWMax + 8;     // bf16 row stride of a [kSlab][N] slab (row-major B)
 constexpr int kLdWt = kSlab + 8;     // bf16 row stride of an [N][kSlab] slab (the transposed B)
 constexpr int kRingStage = kSlab * kLdWs > kWMax * kLdWt ? kSlab * kLdWs : kWMax * kLdWt;
+constexpr int kWidePts = 32;         // points per block of the SDF core's wide instances
+
+// The SDF core's width classes (sdf_fwd.cuh, sdf_bwd.cuh): kPts points a
+// block, kW the widest padded layer and feature head, kEnc the widest
+// padded encoding, kLdC the f32 row stride of the carry tile.  The 64-point
+// instances take the presets' widths; the wide ones (bf16 only) twice them
+// on 32-point blocks, each product in gemm_rows32's column passes.
+struct CoreNarrow {
+  static constexpr int kPts = kChainTP, kW = kWMax, kEnc = kEncMax, kLdC = kLdZ;
+};
+struct CoreWide {
+  static constexpr int kPts = kWidePts, kW = kWideWMax, kEnc = kWideEncMax, kLdC = kWideWMax + 4;
+};
 
 // 16 bytes global -> shared, zero-filled when !full (the source is then not
 // read).
@@ -122,27 +140,28 @@ __device__ __forceinline__ void stage_first_slabs(const bf16* __restrict__ B, in
   for (int s = 0; s < kChainStages - 1; ++s) stage_slab<TRANS_B>(B, ldb, K, N, ring, s);
 }
 
-// C[64, N] = A[64, K] @ B after stage_first_slabs with the same arguments.
-// K and N are multiples of 16.  N is at most kWMax: the warps' 8 column
-// tiles of 32, and a ring stage holds a slab of at most kWMax columns (or,
-// transposed, rows).  K has no limit of its own: it is walked in kSlab-row
-// slabs, the last one partial, and A's row stride lda must cover it (the
-// trunk's first layer has K = 368).  B is the [K, N] row-major weight
-// (TRANS_B = false) or the transpose of an [N, K] row-major weight with row
-// stride ldb (TRANS_B = true; a slab is then N rows of kSlab columns, read
-// as column-major fragments).  Every thread must call it.  It begins with a
-// barrier (so A may be written just before) and returns with the ring free;
-// C is complete after the caller's next __syncthreads().
-template <bool TRANS_B>
-__device__ void gemm_rows64(const bf16* A, int lda, const bf16* __restrict__ B, int ldb, int K, int N, float* C,
-                            int ldc, bf16* ring) {
+// C[16 MT, N] = A[16 MT, K] @ B after stage_first_slabs with the same
+// arguments, MT row tiles a warp (gemm_rows64: MT = 2).  K and N are
+// multiples of 16.  N is at most kWMax: the warps' 8 column tiles of 32, and
+// a ring stage holds a slab of at most kWMax columns (or, transposed, rows).
+// K has no limit of its own: it is walked in kSlab-row slabs, the last one
+// partial, and A's row stride lda must cover it (the trunk's first layer
+// has K = 368).  B is the [K, N] row-major weight (TRANS_B = false) or the
+// transpose of an [N, K] row-major weight with row stride ldb (TRANS_B =
+// true; a slab is then N rows of kSlab columns, read as column-major
+// fragments).  Every thread must call it.  It begins with a barrier (so A
+// may be written just before) and returns with the ring free; C is
+// complete after the caller's next __syncthreads().
+template <int MT, bool TRANS_B>
+__device__ void gemm_rows_mt(const bf16* A, int lda, const bf16* __restrict__ B, int ldb, int K, int N, float* C,
+                             int ldc, bf16* ring) {
   const int warp = threadIdx.x >> 5;
-  const int r0 = (warp / 8) * 32, c0 = (warp % 8) * 32;
+  const int r0 = (warp / 8) * 16 * MT, c0 = (warp % 8) * 32;
   const int nslab = (K + kSlab - 1) / kSlab;
   using LayoutB = typename std::conditional<TRANS_B, wmma::col_major, wmma::row_major>::type;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MT][2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int f = 0; f < 2; ++f) wmma::fill_fragment(acc[i][f], 0.0f);
   for (int s = 0; s < nslab; ++s) {
@@ -151,9 +170,9 @@ __device__ void gemm_rows64(const bf16* A, int lda, const bf16* __restrict__ B, 
     stage_slab<TRANS_B>(B, ldb, K, N, ring, s + kChainStages - 1);
     const bf16* W = ring + (s % kChainStages) * kRingStage;
     for (int kk = 0; kk < kSlab && s * kSlab + kk < K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[MT];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], A + (r0 + 16 * i) * lda + s * kSlab + kk, lda);
+      for (int i = 0; i < MT; ++i) wmma::load_matrix_sync(a[i], A + (r0 + 16 * i) * lda + s * kSlab + kk, lda);
 #pragma unroll
       for (int f = 0; f < 2; ++f) {
         const int col = c0 + 16 * f;
@@ -164,7 +183,7 @@ __device__ void gemm_rows64(const bf16* A, int lda, const bf16* __restrict__ B, 
           else
             wmma::load_matrix_sync(b, W + kk * kLdWs + col, kLdWs);
 #pragma unroll
-          for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][f], a[i], b, acc[i][f]);
+          for (int i = 0; i < MT; ++i) wmma::mma_sync(acc[i][f], a[i], b, acc[i][f]);
         }
       }
     }
@@ -176,8 +195,31 @@ __device__ void gemm_rows64(const bf16* A, int lda, const bf16* __restrict__ B, 
     const int col = c0 + 16 * f;
     if (col < N)
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < MT; ++i)
         wmma::store_matrix_sync(C + (r0 + 16 * i) * ldc + col, acc[i][f], ldc, wmma::mem_row_major);
+  }
+}
+
+// C[64, N] = A[64, K] @ B: the 64-point kernels' product (above, MT = 2).
+template <bool TRANS_B>
+__device__ __forceinline__ void gemm_rows64(const bf16* A, int lda, const bf16* __restrict__ B, int ldb, int K, int N,
+                                            float* C, int ldc, bf16* ring) {
+  gemm_rows_mt<2, TRANS_B>(A, lda, B, ldb, K, N, C, ldc, ring);
+}
+
+// C[32, N] = A[32, K] @ B for N up to 2 kWMax, after stage_first_slabs of
+// the first pass (B's first min(N, kWMax) columns or, transposed, rows):
+// column passes of at most kWMax columns, each staging the next pass's
+// first slabs once the ring is free.  C must not be A: every pass reads all
+// of A.  The contract is gemm_rows64's otherwise.
+template <bool TRANS_B>
+__device__ void gemm_rows32(const bf16* A, int lda, const bf16* __restrict__ B, int ldb, int K, int N, float* C,
+                            int ldc, bf16* ring) {
+  for (int n0 = 0; n0 < N; n0 += kWMax) {
+    const int nn = min(kWMax, N - n0);
+    const bf16* Bn = TRANS_B ? B + (size_t)n0 * ldb : B + n0;
+    if (n0 > 0) stage_first_slabs<TRANS_B>(Bn, ldb, K, nn, ring);
+    gemm_rows_mt<1, TRANS_B>(A, lda, Bn, ldb, K, nn, C + n0, ldc, ring);
   }
 }
 

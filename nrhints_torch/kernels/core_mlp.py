@@ -18,7 +18,11 @@ otherwise.
 ``compute_dtype`` picks each kernel's instance on the card: "bfloat16"
 (the shipping bf16 dot operands) or "float32" (exact f32 dots: the f32
 instances of A, H, I and J, counted as ``sdf_core_fwd_f32``,
-``sdf_core_bwd_f32``, ``mlp_fwd_f32`` and ``mlp_bwd_f32``).
+``sdf_core_bwd_f32``, ``mlp_fwd_f32`` and ``mlp_bwd_f32``).  The SDF
+core's width class picks A's, D's, E's and H's block (``core_class``): the
+64-point instances at the presets' widths (padded widths up to 256,
+encodings up to 64), the wide ones above them (up to 512 and 128, bf16
+only, counted as ``*_wide``).
 
 On CPU tensors every wrapper runs its plain version; on CUDA tensors it
 launches its kernel or raises.
@@ -26,6 +30,7 @@ launches its kernel or raises.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Sequence
 
 import numpy as np
@@ -184,6 +189,63 @@ def _round16(v: int) -> int:
     return -(-v // 16) * 16
 
 
+CHAIN_TP = 64  # points per block of kernels A, D, E, H and F, G, I, J (csrc/staged_mma.cuh::kChainTP)
+IN_MAX = 384  # widest padded trunk input (csrc/mlp_stash.cu::kInMax)
+SUM_ROWS = 16  # points per row of the trunk's bias sums (csrc/mlp_stash.cu::kSumRows)
+ENC_MAX = 64  # widest padded frequency encoding (csrc/sdf_mlp.cuh::kEncMax)
+MAX_SPLIT = 16  # row chunks of the weight-cotangent products
+MAX_LAYERS = 16  # SDF layers the CUDA kernels take (csrc/sdf_mlp.cuh::kMaxLayers)
+
+
+@dataclass(frozen=True)
+class CoreClass:
+    """A width class of the SDF core's kernels A, D, E and H
+    (``csrc/staged_mma.cuh``'s CoreNarrow and CoreWide): points a block,
+    the widest padded layer (and feature head) and encoding it takes, the
+    suffix of its instances' launch counters and its bit in the dtypes
+    int (``csrc/mma_rows.cuh::kWideClass``)."""
+
+    pts: int
+    width: int
+    enc: int
+    suffix: str
+    bit: int
+
+
+NARROW = CoreClass(CHAIN_TP, 256, ENC_MAX, "", 0)
+WIDE = CoreClass(32, 512, 2 * ENC_MAX, "_wide", 4)  # bf16 only
+
+
+def core_class(cfg: SDFNetConfig, with_feat: bool = True, compute_dtype: str = "bfloat16") -> CoreClass:
+    """The width class whose CUDA instances take ``cfg``'s SDF: NARROW at
+    padded widths up to 256 and encodings up to 64 (the presets' and every
+    published width), else WIDE, the SDF core's (``with_feat``) bf16
+    instances up to 512 and 128.  Raises ``NotImplementedError`` for what no
+    instance takes: the march kernels C, K, L, M and N (``with_feat=False``)
+    above NARROW, the core above WIDE or at f32 above NARROW, more than 16
+    layers, a skip at layer 0."""
+    if cfg.d_in != 3 or 0 in cfg.skip_in or cfg.n_layers > MAX_LAYERS:
+        raise NotImplementedError(f"the CUDA SDF kernels take 3-D points, at most {MAX_LAYERS} layers and no skip at "
+                                  "layer 0 (ROADMAP.md Queue 2 item 15)")
+    io, _ = _layer_dims(cfg)
+    width = max([_round16(v) for pair in io for v in pair] + [_round16(cfg.d_out_feat) if with_feat else 0])
+    enc = _round16(cfg.d_encoded)
+    if width <= NARROW.width and enc <= NARROW.enc:
+        return NARROW
+    got = f"got padded width {width} and encoding {enc}"
+    if not with_feat:
+        raise NotImplementedError(f"the CUDA march kernels (C, K, L, M, N) take padded widths up to {NARROW.width} "
+                                  f"and encodings up to {NARROW.enc}, {got}; route the march's sweeps and final "
+                                  "sweep to 'xla' (ROADMAP.md Queue 2 item 13)")
+    if width > WIDE.width or enc > WIDE.enc:
+        raise NotImplementedError(f"the CUDA SDF core (kernels A, D, E, H) takes padded widths up to {WIDE.width} "
+                                  f"and encodings up to {WIDE.enc}, {got} (ROADMAP.md Queue 2 item 15)")
+    if compute_dtype != "bfloat16":
+        raise NotImplementedError(f"the CUDA SDF core's instances above padded width {NARROW.width} or encoding "
+                                  f"{NARROW.enc} are bf16 only, {got} at {compute_dtype} (ROADMAP.md Queue 2 item 15)")
+    return WIDE
+
+
 def pack_sdf_mlp(weights: Sequence[torch.Tensor], cfg: SDFNetConfig, with_feat: bool,
                  dtype: torch.dtype = torch.bfloat16) -> dict:
     """Lay the SDF MLP out as ``csrc/sdf_mlp.cuh`` reads it: weights in
@@ -195,20 +257,19 @@ def pack_sdf_mlp(weights: Sequence[torch.Tensor], cfg: SDFNetConfig, with_feat: 
     (``compute_dtype="float32"``) read f32 weights in the same layout.  The
     f32 core layout (``with_feat``) also holds "wtpack": every block
     transposed at the same offset, the B operand of the reverse products
-    (``mma_rows.cuh``'s f32 ``gemm_rows64`` reads B row-major)."""
+    (``mma_rows.cuh``'s f32 ``gemm_rows64`` reads B row-major).  "cls" is
+    the width class of the instances that read it (``core_class``, which
+    raises for a config no instance takes)."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the packed SDF weights are bf16 or f32, got {dtype}")
     if cfg.encoding != "frequency":
         raise ValueError("the CUDA SDF kernels take the frequency encoding; the renderer runs the hash "
                          "encoding on the unfused path, as the JAX package does")
-    if cfg.d_in != 3 or 0 in cfg.skip_in:
-        raise NotImplementedError("the CUDA SDF kernels take 3-D points and no skip at layer 0")
+    cls = core_class(cfg, with_feat, "float32" if dtype == torch.float32 else "bfloat16")
     io, dims = _layer_dims(cfg)
     L, d0, d_last = cfg.n_layers, cfg.d_encoded, dims[-2]
     d_feat = cfg.d_out_feat if with_feat else 0
     kpf, npf = _round16(d_last), _round16(d_feat)
-    if max([_round16(v) for pair in io for v in pair] + [kpf, npf]) > 256 or d0 > 64:
-        raise NotImplementedError("the CUDA SDF kernels take widths up to 256 and encodings up to 64")
     dev = weights[0].device
     layers = []
     w_off = b_off = 0
@@ -237,6 +298,7 @@ def pack_sdf_mlp(weights: Sequence[torch.Tensor], cfg: SDFNetConfig, with_feat: 
         "bpack": bpack,
         "w_sdf": weights[2 * L].reshape(-1).float().contiguous(),
         "meta": np.asarray(meta, dtype=np.int32),
+        "cls": cls,
     }
     if dtype == torch.float32 and with_feat:
         pk["wtpack"] = torch.zeros_like(wpack)
@@ -273,6 +335,19 @@ def instance_name(kernel: str, compute_dtype: str, stash_dtype: str | None = Non
     return name
 
 
+def core_instance(kernel: str, pk: dict, compute_dtype: str, stash_dtype: str | None = None) -> tuple[str, int]:
+    """(launch counter, dtypes int) of an SDF core kernel's instance for the
+    pack's width class: ``instance_name`` and ``dtype_bits``, with "_wide"
+    and the kWideClass bit for the wide class, which has bf16 instances
+    only (``NotImplementedError`` at an f32 stash)."""
+    cls = pk["cls"]
+    if cls is WIDE and stash_dtype == "float32":
+        raise NotImplementedError(f"the CUDA SDF core's instances above padded width {NARROW.width} or encoding "
+                                  f"{NARROW.enc} keep a bf16 stash only (ROADMAP.md Queue 2 item 15)")
+    bits = dtype_bits(compute_dtype, stash_dtype or "bfloat16") | cls.bit
+    return instance_name(kernel, compute_dtype, stash_dtype) + cls.suffix, bits
+
+
 def _wt(pk: dict):
     """The f32 pack's transposed blocks, or None (the bf16 instances read
     the transposes of wpack's blocks); the SDF core's and the trunk's."""
@@ -292,30 +367,25 @@ def require_cuda(t: torch.Tensor, shape: tuple, name: str, dtype=torch.float32) 
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-CHAIN_TP = 64  # points per block of kernels A, D, E, H and F, G, I, J (csrc/staged_mma.cuh::kChainTP)
-IN_MAX = 384  # widest padded trunk input (csrc/mlp_stash.cu::kInMax)
-SUM_ROWS = 16  # points per row of the trunk's bias sums (csrc/mlp_stash.cu::kSumRows)
-ENC_MAX = 64  # widest padded frequency encoding (csrc/sdf_mlp.cuh::kEncMax)
-MAX_SPLIT = 16  # row chunks of the weight-cotangent products
-
-
-def gate_layout(n: int, gates_total: int) -> tuple[int, int, int]:
+def gate_layout(n: int, gates_total: int, pts: int = CHAIN_TP) -> tuple[int, int, int]:
     """-> (blocks, padded points, f32 elements of the gate scratch) of the
     SDF core's forward (``csrc/sdf_fwd.cuh``: kernels A, D and H's first
-    pass) at n points: every layer's gate sigmoid(100 z_i) per padded point,
-    ``gates_total`` columns in the stash's layout."""
-    nblk = -(-n // CHAIN_TP)
-    npad = nblk * CHAIN_TP
+    pass) at n points on blocks of ``pts`` (a ``CoreClass``'s): every
+    layer's gate sigmoid(100 z_i) per padded point, ``gates_total`` columns
+    in the stash's layout."""
+    nblk = -(-n // pts)
+    npad = nblk * pts
     return nblk, npad, npad * gates_total
 
 
-def chain_layout(n: int, gates_total: int) -> tuple[int, int, int]:
+def chain_layout(n: int, gates_total: int, cls: CoreClass = NARROW) -> tuple[int, int, int]:
     """-> (blocks, padded points, f32 elements of the device-memory scratch)
-    of the SDF backward chain at n points: per point u_i then dL/dh_i of
-    every layer (``gates_total``), and four f32 encoding cotangents of
-    ``ENC_MAX`` each.  The per-block column sums have one row per block."""
-    nblk, npad, _ = gate_layout(n, gates_total)
-    return nblk, npad, npad * (gates_total + 4 * ENC_MAX)
+    of the SDF backward chain at n points in width class ``cls``: per point
+    u_i then dL/dh_i of every layer (``gates_total``), and four f32
+    encoding cotangents of ``cls.enc`` each.  The per-block column sums
+    have one row per block."""
+    nblk, npad, _ = gate_layout(n, gates_total, cls.pts)
+    return nblk, npad, npad * (gates_total + 4 * cls.enc)
 
 
 def trunk_layout(n: int, zt: int) -> tuple[int, int, int, int]:
@@ -354,7 +424,8 @@ def pack_mlp(weights: Sequence[torch.Tensor], n_layers: int, dtype: torch.dtype 
     if max(_round16(o) for _, o in dims) > 256 or _round16(dims[0][0]) > IN_MAX or any(
         _round16(i) > 256 for i, _ in dims[1:]
     ):
-        raise NotImplementedError(f"the CUDA trunk kernels take hidden widths up to 256 and inputs up to {IN_MAX}")
+        raise NotImplementedError(f"the CUDA trunk kernels take hidden widths up to 256 and inputs up to {IN_MAX} "
+                                  "(ROADMAP.md Queue 2 item 14)")
     meta, w_off, b_off, z_off = [], 0, 0, 0
     for din, dout in dims:
         kp, np_ = _round16(din), _round16(dout)
@@ -427,22 +498,23 @@ def sdf_core_fwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel A on the card: (sdf [N], feat [N, F], grad [N, 3]) with dot
     operands of ``compute_dtype`` (bf16, or exact f32: A's f32 instance), f32
-    everything else.  Its f32 gates go to a scratch of ``gate_layout``'s
-    size, freed when this returns."""
+    everything else, at the pack's width class.  Its f32 gates go to a
+    scratch of ``gate_layout``'s size, freed when this returns."""
     require_cuda(x, (None, 3), "x")
     n = x.shape[0]
     sdf = torch.empty(n, device=x.device)
     feat = torch.empty((n, cfg.d_out_feat), device=x.device)
     gx = torch.empty((n, 3), device=x.device)
     pk = core_pack(weights, cfg, compute_dtype, pk)
+    name, bits = core_instance("sdf_core_fwd", pk, compute_dtype)
     if n == 0:
         return sdf, feat, gx
-    gates = torch.empty(gate_layout(n, int(pk["meta"][9]))[2], device=x.device)
+    gates = torch.empty(gate_layout(n, int(pk["meta"][9]), pk["cls"].pts)[2], device=x.device)
     _launch(
-        cuda_lib.load("sdf_core"), "sdf_core_fwd", instance_name("sdf_core_fwd", compute_dtype),
+        cuda_lib.load("sdf_core"), "sdf_core_fwd", name,
         x.data_ptr(), pk["wpack"].data_ptr(), _wt(pk), pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr(),
         sdf.data_ptr(), feat.data_ptr(), gx.data_ptr(), gates.data_ptr(), n, pk["meta"].ctypes.data,
-        float(cfg.scale), dtype_bits(compute_dtype), cuda_lib.stream_ptr(x.device),
+        float(cfg.scale), bits, cuda_lib.stream_ptr(x.device),
     )
     return sdf, feat, gx
 
@@ -462,13 +534,18 @@ def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, 
     ``chain_layout``'s size, freed when this returns), the split-K dW
     products and the in-order sums of the partials (no atomics: the
     gradients repeat bit for bit).  ``compute_dtype`` picks bf16 or exact
-    f32 dot operands (the f32 instances).  ``need_dw=False`` launches the
-    chain alone -> (None, dx): no dW pass runs, and dx is the same bit for
-    bit."""
+    f32 dot operands (the f32 instances); the pack's width class the
+    block (``core_class``).  ``need_dw=False`` launches the chain alone ->
+    (None, dx): no dW pass runs, and dx is the same bit for bit."""
     ds, df, dgx = cots
     n, dev = x.shape[0], x.device
     pk = core_pack(weights, cfg, compute_dtype, pk)
-    cdt = torch_dtype(compute_dtype)
+    if stash is None:
+        name, bits = core_instance("sdf_core_bwd", pk, compute_dtype)
+    else:
+        name, bits = core_instance("sdf_stash_all_bwd" if stash_us else "sdf_stash_bwd", pk, compute_dtype,
+                                   stash_dtype)
+    cdt, cls = torch_dtype(compute_dtype), pk["cls"]
     meta = pk["meta"]
     L, d_feat, d_last, kpf, npf, gt = (int(meta[k]) for k in (0, 3, 4, 5, 6, 9))
     require_cuda(x, (None, 3), "x")
@@ -479,7 +556,7 @@ def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, 
     require_cuda(ds, (n,), "d_sdf")
     require_cuda(df, (n, d_feat), "d_feat")
     require_cuda(dgx, (n, 3), "d_grad")
-    nblk, npad, n_chain = chain_layout(n, gt)
+    nblk, npad, n_chain = chain_layout(n, gt, cls)
     layers = [tuple(int(v) for v in meta[10 + 7 * i : 17 + 7 * i]) for i in range(L)]
     jobs, n_scratch, n_dw = dw_jobs([(2 * npad, lay[2], lay[3]) for lay in layers] + [(npad, kpf, npf)])
     split = dw_split(npad) if need_dw else 0
@@ -496,19 +573,18 @@ def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, 
             ptr(part_dw), ptr(dw), jobs.ctypes.data, len(jobs), split, n, meta.ctypes.data, float(cfg.scale))
     if n > 0 and stash is None:
         hs = torch.empty((n, gt), dtype=cdt, device=dev)
-        gates = torch.empty(gate_layout(n, gt)[2], **f32)
+        gates = torch.empty(gate_layout(n, gt, cls.pts)[2], **f32)
         _launch(
-            cuda_lib.load("sdf_core_bwd"), "sdf_core_bwd", instance_name("sdf_core_bwd", compute_dtype),
+            cuda_lib.load("sdf_core_bwd"), "sdf_core_bwd", name,
             x.data_ptr(), ds.data_ptr(), df.data_ptr(), dgx.data_ptr(), pk["wpack"].data_ptr(), _wt(pk),
             pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr(), hs.data_ptr(), gates.data_ptr(), *tail,
-            dtype_bits(compute_dtype), cuda_lib.stream_ptr(dev),
+            bits, cuda_lib.stream_ptr(dev),
         )
     elif n > 0:
-        name = "sdf_stash_all_bwd" if stash_us else "sdf_stash_bwd"
         _launch(
-            cuda_lib.load("sdf_stash"), name, instance_name(name, compute_dtype, stash_dtype),
+            cuda_lib.load("sdf_stash"), "sdf_stash_all_bwd" if stash_us else "sdf_stash_bwd", name,
             x.data_ptr(), stash.data_ptr(), ds.data_ptr(), df.data_ptr(), dgx.data_ptr(), pk["wpack"].data_ptr(),
-            _wt(pk), pk["w_sdf"].data_ptr(), *tail, dtype_bits(compute_dtype, stash_dtype), cuda_lib.stream_ptr(dev),
+            _wt(pk), pk["w_sdf"].data_ptr(), *tail, bits, cuda_lib.stream_ptr(dev),
         )
     elif need_dw:
         colsum.zero_()

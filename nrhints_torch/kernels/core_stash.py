@@ -53,6 +53,7 @@ from nrhints_torch.kernels.core_mlp import (
     _launch,
     _round16,
     _wt,
+    core_instance,
     core_pack,
     cotangent,
     dtype_bits,
@@ -248,25 +249,27 @@ def sdf_stash_fwd(weights: Sequence[torch.Tensor], x: torch.Tensor, cfg: SDFNetC
     same ``compute_dtype``, bit for bit, and every h_i at its
     ``sdf_stash_columns`` offset; with ``stash_us`` (D's stash_all variant)
     also every u_i and g_enc, rounded to ``stash_dtype``, where the h_i
-    columns and the outputs stay plain D's bit for bit.  Its f32 gates go to
-    a scratch of ``core_mlp.gate_layout``'s size, freed when this returns."""
+    columns and the outputs stay plain D's bit for bit; the pack's width
+    class picks the block (``core_mlp.core_class``).  Its f32 gates go to a
+    scratch of ``core_mlp.gate_layout``'s size, freed when this returns."""
     require_cuda(x, (None, 3), "x")
     n, dev = x.shape[0], x.device
     pk = core_pack(weights, cfg, compute_dtype, pk)
     gt = int(pk["meta"][9])
-    name = "sdf_stash_all_fwd" if stash_us else "sdf_stash_fwd"
+    fn = "sdf_stash_all_fwd" if stash_us else "sdf_stash_fwd"
+    name, bits = core_instance(fn, pk, compute_dtype, stash_dtype)
     sdf = torch.empty(n, device=dev)
     feat = torch.empty((n, cfg.d_out_feat), device=dev)
     gx = torch.empty((n, 3), device=dev)
     stash = torch.empty((n, sdf_stash_width(cfg, stash_us)), dtype=torch_dtype(stash_dtype), device=dev)
     if n == 0:
         return sdf, feat, gx, stash
-    gates = torch.empty(gate_layout(n, gt)[2], device=dev)
+    gates = torch.empty(gate_layout(n, gt, pk["cls"].pts)[2], device=dev)
     _launch(
-        cuda_lib.load("sdf_core"), name, instance_name(name, compute_dtype, stash_dtype),
+        cuda_lib.load("sdf_core"), fn, name,
         x.data_ptr(), pk["wpack"].data_ptr(), _wt(pk), pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr(),
         sdf.data_ptr(), feat.data_ptr(), gx.data_ptr(), stash.data_ptr(), gates.data_ptr(), n,
-        pk["meta"].ctypes.data, float(cfg.scale), dtype_bits(compute_dtype, stash_dtype), cuda_lib.stream_ptr(dev),
+        pk["meta"].ctypes.data, float(cfg.scale), bits, cuda_lib.stream_ptr(dev),
     )
     return sdf, feat, gx, stash
 

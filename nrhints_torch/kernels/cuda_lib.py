@@ -22,7 +22,8 @@ D's and E's stash_all variants) and the trunk's (F, G, I and J) take an
 int of dtype bits (``core_mlp.dtype_bits``); each instance counts under
 ``core_mlp.instance_name``: the kernel's name, with ``_f32`` for f32 dot
 operands and ``_f32stash`` / ``_bf16stash`` for a stash dtype other than
-the operands'.
+the operands'; the SDF core's wide instances (``core_mlp.WIDE``: padded
+widths above 256 or encodings above 64, bf16 only) count as ``_wide``.
 """
 from __future__ import annotations
 
@@ -51,6 +52,8 @@ SDF_CORE_INSTANCES = (
     ["sdf_core_fwd", "sdf_core_fwd_f32", "sdf_core_bwd", "sdf_core_bwd_f32"]
     + [f"{k}{c}" for k in ("sdf_stash_fwd", "sdf_stash_bwd", "sdf_stash_all_fwd", "sdf_stash_all_bwd")
        for c in ("", "_f32", "_f32_bf16stash", "_f32stash")]
+    + [f"{k}_wide" for k in ("sdf_core_fwd", "sdf_core_bwd", "sdf_stash_fwd", "sdf_stash_bwd", "sdf_stash_all_fwd",
+                             "sdf_stash_all_bwd")]
 )
 TRUNK_INSTANCES = (
     ["mlp_fwd", "mlp_fwd_f32", "mlp_bwd", "mlp_bwd_f32"]

@@ -35,7 +35,10 @@ reflectance trunk: ``reflectance_impl`` in training and
 fused trunk (kernel I without a gradient; F and G, or I and J under
 "recompute", with one).  On CUDA tensors every kernel runs on the card; on
 CPU tensors each kernel wrapper runs its plain version.  The march kernels
-take ``march_dtype`` "bfloat16" or "float32" (their f32 instances).
+take ``march_dtype`` "bfloat16" or "float32" (their f32 instances).  An
+SDF above the presets' widths runs the core's wide instances; the march
+kernels take the presets' widths only, so such a config routes its
+marches' sweeps and final sweep to "xla" (``check_kernel_widths``).
 
 Under a ``DataMesh`` with a sample axis (``parallel/mesh.py``) the marches
 route as JAX's on its ('data', 'sample') mesh: the fused kernels
@@ -67,7 +70,7 @@ from nrhints_torch.fields.bg_nerf import BgNeRFConfig, bg_nerf_forward, bg_nerf_
 from nrhints_torch.fields.reflectance import ReflectanceNetConfig, reflectance_forward, reflectance_init
 from nrhints_torch.fields.sdf import SDFNetConfig, sdf_init, sdf_only, sdf_value_and_dirderiv, sdf_value_feat_grad
 from nrhints_torch.fields.variance import VarianceConfig, inv_s_from_params, variance_init
-from nrhints_torch.kernels.core_mlp import fused_reflectance_forward, fused_sdf_value_feat_grad
+from nrhints_torch.kernels.core_mlp import core_class, fused_reflectance_forward, fused_sdf_value_feat_grad
 from nrhints_torch.kernels.march import fused_importance_z, fused_shadow_tau
 from nrhints_torch.parallel.mesh import DataMesh, sample_all_gather
 from nrhints_torch.utils import resolve_device
@@ -234,6 +237,25 @@ def check_ported(cfg: ModelConfig) -> None:
         raise ValueError(f"march_dtype must be 'bfloat16' or 'float32', got {r.march_dtype!r}")
     if r.depth_type not in ("alpha_blending", "maximum_point", "sphere_tracing"):
         raise ValueError(f"unknown depth_type {r.depth_type!r}")
+
+
+def check_kernel_widths(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` where this config's routes take its SDF
+    to a CUDA kernel none of whose instances takes its widths
+    (``core_mlp.core_class``): the SDF core (A, D, E, H) wherever it runs
+    fused, and the march kernels (C, K, L, M, N) wherever a fused march
+    launches one.  ``render_rays`` calls it for CUDA rays before any
+    launch; on CPU tensors the plain versions take any width."""
+    if not use_fused_core(cfg):
+        return
+    r, sdf_cfg = cfg.renderer, cfg.sdf_network
+    core_class(sdf_cfg)
+    xla_march = r.march_sweep_impl == "xla" and r.march_rounds_impl == "xla"
+    camera_rows = fused_march_compatible(r, sdf_cfg) and not xla_march
+    shadow_rows = fused_shadow_compatible(r, sdf_cfg) and not (
+        xla_march and r.shadow_split and r.shadow_final_impl == "xla")
+    if camera_rows or shadow_rows:
+        core_class(sdf_cfg, with_feat=False)
 
 
 def _sample_axis_size(mesh: DataMesh | None) -> int:
@@ -546,6 +568,8 @@ def render_rays(
     work over the group (see the module docstring); everything else runs
     whole on every rank of the group."""
     check_ported(cfg)
+    if rays.origins.device.type == "cuda":
+        check_kernel_widths(cfg)
     if is_training and generator is None and uniforms is None:
         raise ValueError("render_rays(is_training=True) needs a generator or uniforms for its jitter")
     rcfg = cfg.renderer

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The SDF core's bf16 kernels of two checkouts of the PyTorch/CUDA port,
+"""The SDF core's kernels of two checkouts of the PyTorch/CUDA port,
 compared bit for bit.
 
     python3 scripts/compare_sdf_fwd.py TREE_A TREE_B
@@ -11,8 +11,12 @@ kernel A (``core_mlp.sdf_core_fwd``), D and D's stash_all variant
 (``core_stash.sdf_stash_fwd``: outputs and stash), E and E's variant at
 their own tree's D stash (``core_stash.sdf_stash_bwd``) and H
 (``core_mlp.sdf_core_bwd``), each with its default (bf16) dtypes, which
-both trees take.  The script prints each kernel's largest absolute
-difference and whether all its outputs are equal.  It needs one card.
+both trees take; then the same kernels' f32 instances (A and H at
+compute_dtype="float32", D, E and the variants at each (compute, stash)
+dtype pair with an f32 in it), where both trees have them (a tree
+without them reports none).  The script prints each kernel's largest
+absolute difference and whether all its outputs are equal.  It needs one
+card.
 """
 from __future__ import annotations
 
@@ -43,6 +47,17 @@ def run(tree: str, out: str) -> None:
         res[name.replace("D", "E")] = [e_dx, *e_dws]
     h_dws, h_dx = core_mlp.sdf_core_bwd(w, x, cots, cfg)
     res["H"] = [h_dx, *h_dws]
+    if hasattr(core_mlp, "dtype_bits"):  # the f32 instances
+        res["A f32"] = list(core_mlp.sdf_core_fwd(w, x, cfg, compute_dtype="float32"))
+        h_dws, h_dx = core_mlp.sdf_core_bwd(w, x, cots, cfg, compute_dtype="float32")
+        res["H f32"] = [h_dx, *h_dws]
+        for compute, stash in (("float32", "float32"), ("float32", "bfloat16"), ("bfloat16", "float32")):
+            kw = dict(compute_dtype=compute, stash_dtype=stash)
+            for name, us in (("D", False), ("D stash_all", True)):
+                key = f"{name} {compute}/{stash}"
+                res[key] = list(core_stash.sdf_stash_fwd(w, x, cfg, stash_us=us, **kw))
+                e_dws, e_dx = core_stash.sdf_stash_bwd(w, x, res[key][3], cots, cfg, stash_us=us, **kw)
+                res[key.replace("D", "E", 1)] = [e_dx, *e_dws]
     torch.save({k: [t.cpu() for t in v] for k, v in res.items()}, out)
 
 
@@ -59,6 +74,8 @@ def main() -> int:
             subprocess.run([sys.executable, __file__, "--run", tree, path], check=True)
             outs.append(torch.load(path))
     for name in outs[0]:
+        if name not in outs[1]:
+            continue
         a, b = outs[0][name], outs[1][name]
         diff = max((u.float() - v.float()).abs().max().item() for u, v in zip(a, b))
         equal = len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))

@@ -43,6 +43,11 @@ h_i, u_i and g_enc to 1e-5; a bf16 stash to 1e-2 (a value within an f32
 ulp of a bf16 rounding boundary rounds the other way), and E reads the
 kernel's own stash on both sides.  The mixed instance with bf16 operands
 and an f32 stash keeps the bf16 tolerances above.
+The SDF core's wide instances (A, D, E, H and D's and E's stash_all
+variants above the presets' widths: bf16, 32-point blocks) at the bf16
+instances' tolerances above, with the same identities (D = A, the variant
+= D where they share outputs, E and H repeat, E without its dW passes gives
+E's dx, all bit for bit).
 The trunk's f32 instances (F and G at each (compute, stash) pair, I and J
 at compute_dtype="float32") against their plain versions at the same
 tolerances; I equals F's output and J's gradients G's at F's f32 stash bit
@@ -100,6 +105,17 @@ def _close_rel(k, p, tol):
 # two blocks, and 4,161 = 65 x 64 + 1 has a ragged last block past 4,096
 # points (several dW row chunks of E and H).
 SDF_BWD_N = [1, 63, 64, 65, 100, 1000, 4161]
+# The SDF core's wide instances run on 32-point blocks (core_mlp.WIDE): 31,
+# 32 and 33 sit on the edges of one and two blocks.
+WIDE_N = [1, 31, 33, 1000, 4161]
+# A config wide by every width (the 512-wide nr-hints SDF), one whose
+# feature head and encoding alone are (d0 = 75, a 512-wide head), and a
+# small one at 288 (3 layers, d0 = 69).
+WIDE_CFGS = {
+    "d512": SDFNetConfig(d_hidden=512),
+    "feat512": SDFNetConfig(d_out_feat=512, multi_res=12),
+    "w288": SDFNetConfig(n_layers=3, d_hidden=288, skip_in=(2,), multi_res=11, d_out_feat=272),
+}
 # The trunk kernels F, G, I and J run on the same 64-point blocks: 64 is one
 # block exactly, 65 one block and a ragged row.
 TRUNK_N = [1, 64, 65, 100, 1000]
@@ -336,6 +352,104 @@ def test_sdf_stash_all_kernels_match_plain(cuda, cfg, n):
     assert none is None and torch.equal(dx_only, dx)
     assert {k: cuda_lib.launch_counts[k] - before[k] for k in before if cuda_lib.launch_counts[k] != before[k]} == {
         "sdf_stash_all_fwd": 1, "sdf_stash_fwd": 1, "sdf_stash_all_bwd": 3}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(WIDE_CFGS))
+@pytest.mark.parametrize("n", WIDE_N)
+def test_sdf_core_wide_forward_matches_plain(cuda, name, n):
+    """The wide instances of A, D and D's stash_all variant against their
+    plain versions; D's outputs A's, the variant's outputs and h_i D's,
+    and A on a rerun, bit for bit; each counted under its _wide name."""
+    cfg = WIDE_CFGS[name]
+    w, x, _ = _gpu_sdf_case(cuda, cfg, n)
+    assert core_mlp.core_class(cfg) is core_mlp.WIDE
+    before = dict(cuda_lib.launch_counts)
+    a = core_mlp.sdf_core_fwd(w, x, cfg)
+    torch.cuda.synchronize()
+    for k, p in zip(a, core_mlp.sdf_core_plain(w, x, cfg, "bfloat16")):
+        _close(k, p, 1e-2)
+    assert all(torch.equal(u, v) for u, v in zip(a, core_mlp.sdf_core_fwd(w, x, cfg)))
+    d = core_stash.sdf_stash_fwd(w, x, cfg)
+    assert all(torch.equal(u, v) for u, v in zip(d[:3], a))
+    _, _, _, hs, us, g_enc = core_stash.sdf_core_fwd_hs_plain(w, x, cfg, "bfloat16", "bfloat16", return_us=True)
+    for k, p in zip(core_stash.split_stash(d[3], core_stash.sdf_stash_columns(cfg)), hs):
+        _close(k.float(), p.float(), 1e-2)
+    v = core_stash.sdf_stash_fwd(w, x, cfg, stash_us=True)
+    gt = core_stash.sdf_stash_width(cfg)
+    assert all(torch.equal(u, t) for u, t in zip(v[:3], a)) and torch.equal(v[3][:, :gt], d[3])
+    for k, p in zip(core_stash.split_stash(v[3], core_stash.sdf_stash_columns(cfg, stash_us=True)), [*hs, *us, g_enc]):
+        _close(k.float(), p.float(), 1e-2)
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in before if cuda_lib.launch_counts[k] != before[k]} == {
+        "sdf_core_fwd_wide": 2, "sdf_stash_fwd_wide": 1, "sdf_stash_all_fwd_wide": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(WIDE_CFGS))
+@pytest.mark.parametrize("n", WIDE_N)
+def test_sdf_core_wide_backward_matches_plain(cuda, name, n):
+    """The wide instances of E, E's stash_all variant and H against their
+    plain versions, each twice bit for bit, and E and the variant without
+    their dW passes (dx bit for bit)."""
+    cfg = WIDE_CFGS[name]
+    w, x, cots = _gpu_sdf_case(cuda, cfg, n)
+    L = cfg.n_layers
+    before = dict(cuda_lib.launch_counts)
+    for us in (False, True):
+        stash = core_stash.sdf_stash_fwd(w, x, cfg, stash_us=us)[3]
+        parts = core_stash.split_stash(stash, core_stash.sdf_stash_columns(cfg, stash_us=us))
+        dws, dx = core_stash.sdf_stash_bwd(w, x, stash, cots, cfg, stash_us=us)
+        torch.cuda.synchronize()
+        if us:
+            p_dws, p_dx = core_stash.sdf_core_bwd_stash_all_plain(w, x, parts[:L], parts[L : 2 * L], parts[2 * L],
+                                                                  cots, cfg, "bfloat16")
+        else:
+            p_dws, p_dx = core_stash.sdf_core_bwd_stash_plain(w, x, parts, cots, cfg, "bfloat16")
+        _close_rel(dx, p_dx, 2e-2)
+        assert len(dws) == len(p_dws)
+        for k, p in zip(dws, p_dws):
+            assert k.shape == p.shape
+            _close_rel(k, p, 2e-2)
+        dws2, dx2 = core_stash.sdf_stash_bwd(w, x, stash, cots, cfg, stash_us=us)
+        none, dx_only = core_stash.sdf_stash_bwd(w, x, stash, cots, cfg, need_dw=False, stash_us=us)
+        assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(dws, dws2))
+        assert none is None and torch.equal(dx_only, dx)
+    dws, dx = core_mlp.sdf_core_bwd(w, x, cots, cfg)
+    torch.cuda.synchronize()
+    p_dws, p_dx = core_mlp.sdf_core_bwd_plain(w, x, cots, cfg, "bfloat16")
+    _close_rel(dx, p_dx, 2e-2)
+    for k, p in zip(dws, p_dws):
+        assert k.shape == p.shape
+        _close_rel(k, p, 2e-2)
+    dws2, dx2 = core_mlp.sdf_core_bwd(w, x, cots, cfg)
+    assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(dws, dws2))
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in before if cuda_lib.launch_counts[k] != before[k]} == {
+        "sdf_stash_fwd_wide": 1, "sdf_stash_all_fwd_wide": 1, "sdf_stash_bwd_wide": 3, "sdf_stash_all_bwd_wide": 3,
+        "sdf_core_bwd_wide": 2}
+
+
+@pytest.mark.gpu
+def test_sdf_core_wide_limits_raise_before_launch(cuda):
+    """Beyond the wide instances (d_hidden 528), at f32 operands or an f32
+    stash above the presets' widths, and for the march kernels above them,
+    the wrappers raise NotImplementedError and launch nothing."""
+    cfg, wide = SDFNetConfig(d_hidden=528), SDFNetConfig(d_hidden=512)
+    w, x, cots = _gpu_sdf_case(cuda, cfg, 40)
+    ww, _, wcots = _gpu_sdf_case(cuda, wide, 40)
+    before = dict(cuda_lib.launch_counts)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        core_mlp.sdf_core_fwd(w, x, cfg)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        core_mlp.sdf_core_bwd(w, x, cots, cfg)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        core_mlp.sdf_core_fwd(ww, x, wide, compute_dtype="float32")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        core_stash.sdf_stash_fwd(ww, x, wide, stash_dtype="float32")
+    o, d, z0 = _rays(cuda, 4)
+    mw = march.march_weights(sdf_init(torch.Generator().manual_seed(0), wide, cuda), wide, "bfloat16")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        march.march_sweep(z0, o, d, mw, wide)
+    assert dict(cuda_lib.launch_counts) == before
 
 
 @pytest.mark.gpu

@@ -1,0 +1,310 @@
+"""The SDF core above the presets' widths in the port, on the CPU: JAX's
+``fused_sdf_value_feat_grad`` with its Pallas kernels in interpret mode
+against the port's at padded widths above 256 and encodings above 64 (the
+CUDA wide instances' class), under the "recompute", "stash" and "stash_all"
+schedules; and what the wide instances read: the pack at 288 and 512, the
+width-class choice and its limits, the gate and chain layouts on 32-point
+blocks, and the renderer's check before any launch.  (The wide CUDA
+instances against their plain versions run on the card:
+tests/test_torch_gpu.py.)
+
+Each JAX call runs once per module (a module-scoped fixture, one jitted
+``jax.vjp`` a case), at exact f32 dot operands, on 41 points (two of JAX's
+32-point blocks, the second ragged).  Tolerances: the outputs those of
+tests/test_torch_kernels.py::test_sdf_core_plain_matches_pallas at f32
+(rtol and atol 1e-5); the gradients as tests/test_torch_core_f32.py holds
+them, each of its own scale: 1e-4 under "recompute" (exact f32 on both sides,
+summed in other orders), 2e-2 under the stash schedules, whose bf16 stash
+can round an f32 value within an ulp of a bf16 boundary the other way on
+either side.  The comparison runs at f32 dot operands: at bf16 ones the two
+sum each dot in another order, so an activation within an f32 ulp of a
+bf16 rounding boundary rounds the other way as a dot operand (at 288 wide
+one such flip moved feat by 2.0e-4 in a trial), which says nothing of the
+schedule; the bf16 plain versions are held to the CUDA wide instances on
+the card.
+"""
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nrhints_torch.convert import params_from_jax
+from nrhints_torch.fields.sdf import SDFNetConfig
+from nrhints_torch.kernels import core_mlp as tcm, cuda_lib
+from nrhints_torch.utils import tree_items
+from nrhints_tpu.fields.sdf import SDFNetConfig as JSDFNetConfig, sdf_init
+from nrhints_tpu.kernels import core_mlp as jcm
+
+N_PTS = 41
+# Wide by every width (3 layers, a skip at 2, d0 = 69, a 272-wide feature
+# head), and wide by its encoding alone (d0 = 69 above 64, layers 96 wide).
+CONFIGS = {
+    "w288": dict(n_layers=3, d_hidden=288, skip_in=(2,), multi_res=11, d_out_feat=272),
+    "enc69": dict(n_layers=3, d_hidden=96, skip_in=(2,), multi_res=11, d_out_feat=32),
+}
+BACKWARDS = ("recompute", "stash", "stash_all")
+
+
+def _close_scaled(port, ref, tol, what=""):
+    ref = np.asarray(ref, dtype=np.float64)
+    port = np.asarray(port.detach(), dtype=np.float64).reshape(ref.shape)
+    scale = max(float(np.abs(ref).max()), 1e-6)
+    err = float(np.abs(port - ref).max())
+    assert err <= tol * scale, f"{what}: err {err:.3e} vs scale {scale:.3e}"
+
+
+@pytest.fixture(scope="module")
+def cases():
+    """name -> (JAX config, JAX params as numpy, the port's config, port
+    params, x, cotangents)."""
+    out = {}
+    for i, (name, kw) in enumerate(sorted(CONFIGS.items())):
+        jc = JSDFNetConfig(**kw)
+        jp = jax.device_get(jax.jit(sdf_init, static_argnums=1)(jax.random.PRNGKey(i), jc))
+        rng = np.random.default_rng(10 + i)
+        x = (rng.normal(size=(N_PTS, 3)) * 0.4).astype(np.float32)
+        cots = (rng.normal(size=(N_PTS,)).astype(np.float32),
+                rng.normal(size=(N_PTS, kw["d_out_feat"])).astype(np.float32),
+                rng.normal(size=(N_PTS, 3)).astype(np.float32))
+        out[name] = (jc, jp, SDFNetConfig(**kw), params_from_jax(jp, device="cpu"), x, cots)
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_runs(cases):
+    """(config, backward) -> (outputs, named parameter cotangents, x's
+    cotangent) of JAX's fused_sdf_value_feat_grad in interpret mode."""
+    out = {}
+    for name, (jc, jp, _, _, x, cots) in cases.items():
+        params = jax.tree_util.tree_map(jnp.asarray, jp)
+        for backward in BACKWARDS:
+            @jax.jit
+            def run(p, xx, c, backward=backward, jc=jc):
+                call = lambda p_, x_: jcm.fused_sdf_value_feat_grad(  # noqa: E731
+                    p_, jc, x_, block_pts=32, block_pts_bwd=32, interpret=True, compute_dtype="float32",
+                    backward=backward)
+                o, vjp = jax.vjp(call, p, xx)
+                return o, vjp(c)
+
+            o, (dp, dx) = run(params, jnp.asarray(x), tuple(jnp.asarray(c) for c in cots))
+            out[name, backward] = ([np.asarray(a) for a in o], {n: np.asarray(g) for n, g in tree_items(dp)},
+                                   np.asarray(dx))
+    return out
+
+
+@pytest.mark.parametrize("backward", BACKWARDS)
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_wide_entry_point_matches_jax(cases, jax_runs, name, backward):
+    """The port's fused_sdf_value_feat_grad on the CPU (the plain versions
+    through ``SdfCoreFn`` or ``SdfStashFn``) against JAX's same call in
+    interpret mode: the three outputs and the cotangents of x and of every
+    weight-norm leaf."""
+    _, _, tc, tp, x, cots = cases[name]
+    leaves = {n: t.detach().clone().requires_grad_(True) for n, t in tree_items(tp)}
+    params = {}
+    for n, t in leaves.items():
+        layer, key = n.strip("/").split("/")
+        params.setdefault(layer, {})[key] = t
+    xt = torch.tensor(x, requires_grad=True)
+    out = tcm.fused_sdf_value_feat_grad(params, tc, xt, compute_dtype="float32", backward=backward)
+    assert type(out[0].grad_fn).__name__.startswith("SdfCoreFn" if backward == "recompute" else "SdfStashFn")
+    grads = torch.autograd.grad(out, [xt, *leaves.values()], tuple(torch.tensor(c) for c in cots))
+    j_out, j_dp, j_dx = jax_runs[name, backward]
+    for a, b in zip(out, j_out):
+        np.testing.assert_allclose(a.detach().numpy(), b.reshape(a.shape), rtol=1e-5, atol=1e-5)
+    grad_tol = 1e-4 if backward == "recompute" else 2e-2
+    _close_scaled(grads[0], j_dx, grad_tol, "dx")
+    assert sorted(j_dp) == sorted(leaves)
+    for (n, _), g in zip(leaves.items(), grads[1:]):
+        _close_scaled(g, j_dp[n], grad_tol, n)
+
+
+def _blocks(pk):
+    """(weight offset, kp, np, in, out) of every layer, then the feature
+    head's, from the pack's meta."""
+    meta = pk["meta"]
+    out = [tuple(int(meta[10 + 7 * i + k]) for k in (5, 2, 3, 0, 1)) for i in range(int(meta[0]))]
+    return out + [(int(meta[7]), int(meta[5]), int(meta[6]), int(meta[4]), int(meta[3]))]
+
+
+@pytest.mark.parametrize("d_hidden", [288, 512])
+def test_wide_pack_unpacks(d_hidden):
+    """pack_sdf_mlp at padded widths 288 and 512: every block unpacks to its
+    bf16 weight with zero padding, every bias to its bias, the meta's
+    widths, offsets, skip flags and gates_total are the config's, and the
+    pack's class is WIDE."""
+    cfg = SDFNetConfig(d_hidden=d_hidden, multi_res=12, d_out_feat=d_hidden)
+    gen = torch.Generator().manual_seed(d_hidden)
+    from nrhints_torch.fields.sdf import _layer_dims, sdf_init as t_sdf_init
+
+    w = tcm.materialize_sdf_weights_full(t_sdf_init(gen, cfg, "cpu"), cfg)
+    pk = tcm.pack_sdf_mlp(w, cfg, with_feat=True)
+    assert pk["cls"] is tcm.WIDE and pk["wpack"].dtype == torch.bfloat16
+    io, dims = _layer_dims(cfg)
+    meta = pk["meta"]
+    L = cfg.n_layers
+    assert list(meta[:5]) == [L, 12, 75, d_hidden, dims[-2]]
+    assert int(meta[9]) == sum(-(-o // 16) * 16 for _, o in io)
+    blocks = _blocks(pk)
+    weights = [w[2 * i] for i in range(L)] + [w[2 * L + 2]]
+    biases = [w[2 * i + 1] for i in range(L)] + [w[2 * L + 3]]
+    b_offs = [int(meta[10 + 7 * i + 6]) for i in range(L)] + [int(meta[8])]
+    off = 0
+    for i, ((wo, kp, np_, din, dout), wt, b, bo) in enumerate(zip(blocks, weights, biases, b_offs)):
+        assert wo == off and kp == -(-din // 16) * 16 and np_ == -(-dout // 16) * 16 and kp <= 512 and np_ <= 512
+        if i < L:
+            assert (din, dout) == io[i] and int(meta[10 + 7 * i + 4]) == int(i in cfg.skip_in)
+        blk = pk["wpack"][wo : wo + kp * np_].view(kp, np_)
+        assert torch.equal(blk[:din, :dout], wt.to(torch.bfloat16))
+        assert not blk[din:].any() and not blk[:, dout:].any()
+        assert torch.equal(pk["bpack"][bo : bo + dout], b.float())
+        off += kp * np_
+    assert pk["bpack"][-1] == w[2 * L + 1].reshape(())
+    assert torch.equal(pk["w_sdf"], w[2 * L].reshape(-1).float())
+
+
+@pytest.mark.parametrize("kw,cls", [
+    ({}, "NARROW"), (dict(d_hidden=256, multi_res=10), "NARROW"), (dict(d_hidden=272), "WIDE"),
+    (dict(multi_res=11), "WIDE"), (dict(d_out_feat=512, multi_res=12), "WIDE"), (dict(d_hidden=512), "WIDE"),
+    (dict(d_hidden=512, multi_res=20, n_layers=16, skip_in=(8,)), "WIDE"),
+])
+def test_width_class_and_instance_names(kw, cls):
+    """The presets' widths (padded widths up to 256, encodings up to 64)
+    take the 64-point instances under today's counters; anything above
+    them, up to 512 and 128, the wide instances (``*_wide``, the kWideClass
+    bit); every instance has a counter."""
+    from nrhints_torch.configs.config import nr_hints, nr_hints_cam_opt, pl_naive
+
+    for preset in (nr_hints, nr_hints_cam_opt, pl_naive):
+        assert tcm.core_class(preset().model.sdf_network) is tcm.NARROW
+    cfg = SDFNetConfig(**kw)
+    want = getattr(tcm, cls)
+    assert tcm.core_class(cfg) is want
+    pk = {"cls": want}
+    for kernel in ("sdf_core_fwd", "sdf_core_bwd"):
+        name, bits = tcm.core_instance(kernel, pk, "bfloat16")
+        assert (name, bits) == (kernel + want.suffix, want.bit) and name in cuda_lib.launch_counts
+    for kernel in ("sdf_stash_fwd", "sdf_stash_bwd", "sdf_stash_all_fwd", "sdf_stash_all_bwd"):
+        name, bits = tcm.core_instance(kernel, pk, "bfloat16", "bfloat16")
+        assert (name, bits) == (kernel + want.suffix, want.bit) and name in cuda_lib.launch_counts
+    if want is tcm.NARROW:
+        assert tcm.core_instance("sdf_stash_fwd", pk, "float32", "bfloat16") == ("sdf_stash_fwd_f32_bf16stash", 1)
+
+
+@pytest.mark.parametrize("n, nblk", [(1, 1), (31, 1), (32, 1), (33, 2), (4161, 131), (65536, 2048)])
+def test_wide_layouts(n, nblk):
+    """The wide instances' gate scratch and chain scratch on 32-point
+    blocks: padded points, the f32 gates (4,064 columns at d_hidden 512:
+    1.07 GB at 65,536 points) and the chain's u_i and four 128-wide encoding
+    cotangents a padded point; the dW row chunks over the padded rows."""
+    blk, npad, n_gates = tcm.gate_layout(n, 4064, tcm.WIDE.pts)
+    assert (blk, npad) == (nblk, nblk * 32) and npad >= n > npad - 32 and n_gates == npad * 4064
+    blk2, npad2, n_chain = tcm.chain_layout(n, 4064, tcm.WIDE)
+    assert (blk2, npad2) == (blk, npad) and n_chain == npad * (4064 + 4 * 128)
+    assert tcm.dw_split(npad) == min(16, max(1, npad // 1024))
+    if n == 65536:
+        assert n_gates * 4 == 1_065_353_216
+    assert tcm.chain_layout(n, 2016) == tcm.chain_layout(n, 2016, tcm.NARROW)
+
+
+def test_wide_constants_match_the_headers():
+    """WIDE's block, widths and bit are the constants the CUDA wide
+    instances are compiled with, and the wide kernels launch 32-point
+    blocks of kChainThreads threads."""
+    def const(header, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", (cuda_lib.CSRC / header).read_text()).group(1))
+
+    assert const("staged_mma.cuh", "kWidePts") == tcm.WIDE.pts == 32
+    assert const("mma_rows.cuh", "kWideClass") == tcm.WIDE.bit == 4
+    mlp = (cuda_lib.CSRC / "sdf_mlp.cuh").read_text()
+    assert "constexpr int kWideWMax = 2 * kWMax;" in mlp and "constexpr int kWideEncMax = 2 * kEncMax;" in mlp
+    assert 2 * const("sdf_mlp.cuh", "kWMax") == tcm.WIDE.width and 2 * const("sdf_mlp.cuh", "kEncMax") == tcm.WIDE.enc
+    assert const("sdf_mlp.cuh", "kMaxLayers") == tcm.MAX_LAYERS
+    fwd = (cuda_lib.CSRC / "sdf_fwd.cuh").read_text()
+    bwd = (cuda_lib.CSRC / "sdf_bwd.cuh").read_text()
+    assert "<<<(n + kWidePts - 1) / kWidePts, kChainThreads, kFwdSmem" in fwd
+    assert "const int nblk = (n + kWidePts - 1) / kWidePts;" in bwd
+    assert "fwd_smem<CoreWide, bf16>() == 226304" in fwd and "chain_smem<CoreWide, bf16>() == 226432" in bwd
+
+
+@pytest.mark.parametrize("kw,what", [
+    (dict(d_hidden=528), "padded widths up to 512"),
+    (dict(d_out_feat=520), "padded widths up to 512"),
+    (dict(multi_res=21), "encodings up to 128"),
+    (dict(n_layers=17, skip_in=(4,)), "at most 16 layers"),
+    (dict(skip_in=(0,)), "no skip at"),
+])
+def test_core_limits_raise(kw, what):
+    """A config beyond the wide instances raises NotImplementedError with
+    the limit and the ROADMAP item, from core_class and pack_sdf_mlp."""
+    from nrhints_torch.fields.sdf import sdf_init as t_sdf_init
+
+    cfg = SDFNetConfig(**kw)
+    with pytest.raises(NotImplementedError, match=what) as e:
+        tcm.core_class(cfg)
+    assert "ROADMAP.md Queue 2 item 15" in str(e.value)
+    if not kw.get("skip_in"):
+        w = tcm.materialize_sdf_weights_full(t_sdf_init(torch.Generator().manual_seed(0), cfg, "cpu"), cfg)
+        with pytest.raises(NotImplementedError, match=what):
+            tcm.pack_sdf_mlp(w, cfg, with_feat=True)
+
+
+def test_wide_dtype_and_row_engine_limits_raise():
+    """The wide class has bf16 instances only (f32 operands or an f32
+    stash raise), and the march kernels' row engine keeps the presets'
+    limit: its pack (with_feat=False) raises above 256 / 64, naming item 13,
+    where the core's pack at the same config is WIDE."""
+    from nrhints_torch.fields.sdf import sdf_init as t_sdf_init
+
+    cfg = SDFNetConfig(d_hidden=512)
+    w = tcm.materialize_sdf_weights_full(t_sdf_init(torch.Generator().manual_seed(0), cfg, "cpu"), cfg)
+    with pytest.raises(NotImplementedError, match="bf16 only"):
+        tcm.core_class(cfg, compute_dtype="float32")
+    with pytest.raises(NotImplementedError, match="bf16 only"):
+        tcm.pack_sdf_mlp(w, cfg, with_feat=True, dtype=torch.float32)
+    pk = tcm.pack_sdf_mlp(w, cfg, with_feat=True)
+    with pytest.raises(NotImplementedError, match="bf16 stash only"):
+        tcm.core_instance("sdf_stash_fwd", pk, "bfloat16", "float32")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tcm.core_class(cfg, with_feat=False)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tcm.pack_sdf_mlp(w[: 2 * cfg.n_layers + 2], cfg, with_feat=False)
+    assert tcm.core_class(SDFNetConfig(), with_feat=False) is tcm.NARROW
+
+
+@pytest.mark.parametrize("renderer_kw,raises", [
+    (dict(shadow_final_impl="xla"), None),
+    ({}, "item 13"),  # the shipping shadow route's final sweep is kernel C
+    (dict(shadow_final_impl="xla", march_sweep_impl="pallas", march_rounds_impl="pallas", shadow_split=False),
+     "item 13"),
+    (dict(shadow_final_impl="xla", importance_split=True, march_sweep_impl="pallas"), "item 13"),
+    (dict(fused_kernels="off"), None),
+])
+def test_renderer_checks_widths_before_launch(renderer_kw, raises):
+    """``render/renderer.py::check_kernel_widths`` (called by render_rays
+    for CUDA rays before any launch): a 512-wide SDF passes where no route
+    launches a march kernel, and raises where one would; a 528-wide SDF
+    raises on every fused route; the presets pass."""
+    import dataclasses
+
+    from nrhints_torch.configs.config import nr_hints_cam_opt
+    from nrhints_torch.render import renderer as tr
+
+    base = nr_hints_cam_opt().model
+    tr.check_kernel_widths(base)
+    wide = dataclasses.replace(base, sdf_network=dataclasses.replace(base.sdf_network, d_hidden=512),
+                               renderer=dataclasses.replace(base.renderer, **renderer_kw))
+    if raises is None:
+        tr.check_kernel_widths(wide)
+    else:
+        with pytest.raises(NotImplementedError, match=raises):
+            tr.check_kernel_widths(wide)
+    too_wide = dataclasses.replace(wide, sdf_network=dataclasses.replace(base.sdf_network, d_hidden=528))
+    if renderer_kw.get("fused_kernels") == "off":
+        tr.check_kernel_widths(too_wide)
+    else:
+        with pytest.raises(NotImplementedError, match="item 15"):
+            tr.check_kernel_widths(too_wide)
