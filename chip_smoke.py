@@ -120,19 +120,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bwd_impl="xla", and fused_reflectance_forward at compute_dtype="float32"
    against autograd over the plain forward (at the kernels' own ReLU masks,
    and wholly plain by the norm), with the launches of every f32 instance.
-18. the SDF core above the presets' widths (``--wide-sdf``: alone):
-   nr-hints-cam-opt at sdf_network.d_hidden=512 with
-   renderer.shadow_final_impl="xla": (a) A's, D's, E's and H's wide
-   instances and D's and E's stash_all variants' at phase 3's 65,536 points,
-   and at d_out_feat=512, multi_res=12, against their plain versions (D = A,
-   the variant = D, E and H repeat, E without its dW passes, bit for bit),
-   each by device time beside the 256-wide instance's and its bound; (b) a
-   K = 16 graph of wide stash steps against its eager steps, a 64-ray step's
-   gradients against the CPU, one recompute and one stash_all step; (c) a
-   128x128 view through its graph against the eager sweep and 64 pixels on
-   the CPU; (d) python -m nrhints_torch's main for 10 steps; (e) the
-   shipping shadow route and an SDF 528 wide raise NotImplementedError
-   before any launch.
+18. the SDF above the presets' widths (``--wide-sdf``: alone):
+   nr-hints-cam-opt at sdf_network.d_hidden=512 on its default routes: (a)
+   A's, D's, E's and H's wide instances and D's and E's stash_all variants'
+   at phase 3's 65,536 points, and at d_out_feat=512, multi_res=12, against
+   their plain versions (D = A, the variant = D, E and H repeat, E without
+   its dW passes, bit for bit), and C's, K's, L's, M's and N's wide bf16
+   and f32 instances at phase 3's 512 rays (L = B/K, M = L(K), N = C(M)
+   bit for bit under both merges), each by device time beside the 256-wide
+   instance's and its bound; (b) a K = 16 graph of wide stash steps against
+   its eager steps, a 64-ray step's gradients against the CPU, one
+   recompute and one stash_all step, a profiled monolith step and the split
+   and f32 routes' steps, launches exact; (c) a 128x128 view through its
+   graph on the shipping route and on the monolith, each against its eager
+   sweep and 64 pixels on the CPU; (d) python -m nrhints_torch's main for
+   10 steps; (e) an SDF 528 wide and one with a 144-wide encoding raise
+   NotImplementedError before any launch.
 Phase 3 also holds kernels K (initial march sweep), L (refinement rounds),
 M (K and L in one kernel) and N (M and C's final sweep in one kernel), and
 B under the rank merge, against their plain versions, L = B's steps between
@@ -270,6 +273,15 @@ WIDE_MODES = {
     ("sdf_bwd_chain_wide_kernel", "false, true"): "kernel E' sdf_stash_all_bwd_wide (E1)",
 }
 _WIDE_KERNEL = re.compile(r"(sdf_core_fwd_wide_kernel|sdf_bwd_chain_wide_kernel)<([a-z0-9, ]+)>")
+# The march template's instances: (SWEEP, ROUNDS, FINAL) template
+# arguments, kernel, C entry point; and the device-time groups of the march
+# kernels' wide instances (phase 18), "kernel K wide march_sweep_wide" and
+# "kernel K f32 wide march_sweep_f32_wide" for K.
+MARCH_TEMPLATES = (("false, false, true", "C", "shadow_final"), ("true, false, false", "K", "march_sweep"),
+                   ("false, true, false", "L", "march_rounds"), ("true, true, false", "M", "importance_march"),
+                   ("true, true, true", "N", "shadow_march"))
+WIDE_MARCH_GROUPS = tuple((f"march_kernel{t}<{args}", f"kernel {k}{' f32' if t == '_f32_wide' else ''} wide {fn}{t}")
+                          for t in ("_wide", "_f32_wide") for args, k, fn in MARCH_TEMPLATES)
 STEP_GROUPS = (
     ("dw_partial", DW_GROUP), ("dw_reduce", DW_GROUP), ("colsum", DW_GROUP),
     ("round_machinery", "kernel B round_machinery"),
@@ -283,6 +295,7 @@ STEP_GROUPS = (
     ("march_kernel_f32<false, true, false", "kernel L f32 march_rounds_f32"),
     ("march_kernel_f32<true, true, false", "kernel M f32 importance_march_f32"),
     ("march_kernel_f32<true, true, true", "kernel N f32 shadow_march_f32"),
+    *WIDE_MARCH_GROUPS,
     ("nccl", "NCCL collectives"),
 )
 # The round-4 march configurations of phases 7 and 8.
@@ -2973,40 +2986,59 @@ def trunk_f32_phase(smi: str, dev, mc: dict) -> list:
             for name, num in nums.items()]
 
 
-# Phase 18: the SDF core above the presets' widths (its wide instances:
-# 32-point blocks, padded widths up to 512, encodings up to 128, bf16).  The
-# model is nr-hints-cam-opt at sdf_network.d_hidden=512 (8 layers, a skip at
-# 4, multi_res 6, a 256-wide feature head, so the trunk keeps its 361 inputs)
-# with renderer.shadow_final_impl="xla": the row engine's kernels C, K, L, M
-# and N take the presets' widths only (ROADMAP Queue 2 item 13), and that
-# setting keeps every march on plain sweeps and kernel B.  (a) every wide
-# instance at phase 3's 65,536 points against its plain version at TOL, with
-# D = A, the variant = D where they share outputs, E and H repeating and E
-# without its dW passes, bit for bit; a kernel-level case WIDE_FEAT takes the
-# feature head's and the encoding's wide paths; each instance's device ms
-# from one profiled call beside the 256-wide instance's in the same call.
-# (b) a K = WIDE_K graph of stash steps against its eager steps; a 64-ray
-# step's gradients against the CPU; one recompute step (H) and one stash_all
-# step (D's and E's variants).  (c) a 128x128 view through its graph.  (d)
-# python -m nrhints_torch's main for WIDE_ENTRY_STEPS steps.  (e) the limits:
-# the same config on the shipping shadow route, and an SDF 528 wide, raise
-# NotImplementedError before any launch.
+# Phase 18: the SDF above the presets' widths: the SDF core's wide instances
+# (32-point blocks, padded widths up to 512, encodings up to 128, bf16) and
+# the march kernels' (the row engine's wide class, bf16 and f32 march
+# weights).  The model is nr-hints-cam-opt at sdf_network.d_hidden=512 (8
+# layers, a skip at 4, multi_res 6, a 256-wide feature head, so the trunk
+# keeps its 361 inputs) on its default routes, kernel C's wide instance on
+# the shipping shadow route.  (a) every wide instance of the core at phase
+# 3's 65,536 points against its plain version at TOL, with D = A, the
+# variant = D where they share outputs, E and H repeating and E without its
+# dW passes, bit for bit; a kernel-level case WIDE_FEAT takes the feature
+# head's and the encoding's wide paths; and every wide instance of C, K, L,
+# M and N at phase 3's 512 rays, bf16 (both merges) at TOL and f32 at
+# F32_TOL, L's and M's z by Z_NN_SHARE, with L = B/K, M = L(K), N = C(M) bit
+# for bit; each instance's device ms from one profiled call beside the
+# 256-wide instance's in the same call.  (b) a K = WIDE_K graph of stash
+# steps against its eager steps; a 64-ray step's gradients against the CPU;
+# one recompute and one stash_all step; one profiled monolith step (M, N);
+# the split route's step (K, L, M, C) and both f32 routes' steps, each with
+# exact launches.  (c) a 128x128 view through its graph on the shipping
+# route and on the monolith.  (d) python -m nrhints_torch's main for
+# WIDE_ENTRY_STEPS steps.  (e) the limits: an SDF 528 wide and one with a
+# 144-wide encoding (multi_res 21) raise NotImplementedError before any
+# launch.
 WIDE_SDF = {"d_hidden": 512}
 WIDE_FEAT = {"d_out_feat": 512, "multi_res": 12}
 WIDE_K, WIDE_ENTRY_STEPS = 16, 10
-WIDE_RENDERER = {"shadow_final_impl": "xla"}
 WIDE_WHERE = {"sdf_core_fwd_wide": ("sdf_core.cu", "core_mlp.py:227"),
               "sdf_stash_fwd_wide": ("sdf_core.cu", "core_stash.py:369"),
               "sdf_stash_all_fwd_wide": ("sdf_core.cu", "core_stash.py:369"),
               "sdf_stash_bwd_wide": ("sdf_stash.cu", "core_stash.py:422"),
               "sdf_stash_all_bwd_wide": ("sdf_stash.cu", "core_stash.py:422"),
-              "sdf_core_bwd_wide": ("sdf_core_bwd.cu", "core_mlp.py:260")}
+              "sdf_core_bwd_wide": ("sdf_core_bwd.cu", "core_mlp.py:260"),
+              **{f"{fn}{t}": ("march.cu" if k == "C" else "march_fused.cu", f"march.py:{line}")
+                 for t in ("_wide", "_f32_wide") for k, fn, line in (
+                     ("C", "shadow_final", 574), ("K", "march_sweep", 507), ("L", "march_rounds", 522),
+                     ("M", "importance_march", 488), ("N", "shadow_march", 595))}}
+# The wide train steps of 18(b) by route: renderer settings and the launches
+# of one step.
+WIDE_CORE_STEP = dict(sdf_stash_fwd_wide=1, sdf_stash_bwd_wide=1, mlp_stash_fwd=1, mlp_stash_bwd=1)
+WIDE_STEPS = {
+    "monolith": (MONOLITH, dict(importance_march_wide=1, shadow_march_wide=1)),
+    "split": (SPLIT, dict(march_sweep_wide=1, march_rounds_wide=1, importance_march_wide=1, shadow_final_wide=1)),
+    "f32 monolith": (dict(MONOLITH, march_dtype="float32"), dict(importance_march_f32_wide=1,
+                                                                  shadow_march_f32_wide=1)),
+    "f32 split": (dict(SPLIT, march_dtype="float32"), dict(march_sweep_f32_wide=1, march_rounds_f32_wide=1,
+                                                            importance_march_f32_wide=1, shadow_final_f32_wide=1)),
+}
 
 
 def wide_cfg(cfg, **renderer_kw):
-    """``cfg`` with WIDE_SDF's SDF network and WIDE_RENDERER's renderer
-    settings (``renderer_kw`` over them)."""
-    return with_renderer(with_model(cfg, sdf=WIDE_SDF), **dict(WIDE_RENDERER, **renderer_kw))
+    """``cfg`` with WIDE_SDF's SDF network and ``renderer_kw``'s renderer
+    settings."""
+    return with_renderer(with_model(cfg, sdf=WIDE_SDF), **renderer_kw)
 
 
 def wide_kernels(smi: str, dev, mc: dict) -> dict:
@@ -3135,9 +3167,116 @@ def wide_kernels(smi: str, dev, mc: dict) -> dict:
     return out
 
 
-def wide_one_step(label: str, smi: str, dev, cfg, td: dict, batch, per_step: dict) -> dict:
+def wide_march_kernels(smi: str, dev, mc: dict) -> dict:
+    """Phase 18(a), the march kernels: C, K, L, M and N's wide instances at
+    WIDE_SDF on phase 3's 512 camera and shadow rays (a random 512-wide SDF
+    from seed 0), bf16 and f32 march weights, against their plain versions
+    (K's sdf0 and C's and N's tau at TOL in bf16 and F32_TOL in f32, L's and
+    M's z by Z_NN_SHARE), with L = B's steps between K's sweeps, M = L(K(.))
+    and N = C(M(.)) bit for bit under both merges; each timed by CUDA events
+    beside its plain version, and by device time from one profiled call
+    beside the 256-wide instance's on phase 3's SDF in this call and its
+    bound.  -> {instance name: (max abs err, ms, plain ms, bound ms, bound
+    by)}."""
+    import torch
+
+    from nrhints_torch.fields.sdf import _layer_dims, sdf_init
+    from nrhints_torch.kernels import core_mlp, march
+
+    ncfg = mc["cfg"].model.sdf_network
+    wcfg = dataclasses.replace(ncfg, **WIDE_SDF)
+    if core_mlp.core_class(wcfg, with_feat=False, compute_dtype="float32") is not core_mlp.ROWS_WIDE:
+        raise AssertionError(f"18(a): {WIDE_SDF} does not take the march kernels' wide instances")
+    o, d, z0 = mc["o"], mc["d"], mc["z0"]
+    sl, sdir, sdist, z0s, inv_s, anneal = (mc[k] for k in ("sl", "sdir", "sdist", "z0s", "inv_s", "anneal"))
+    wparams = sdf_init(torch.Generator().manual_seed(0), wcfg, dev)
+    io, dims = _layer_dims(wcfg)
+    vm = sum(i * o_ for i, o_ in io) + dims[-2]  # multiply-adds of a value sweep a point
+    out = {}
+    for dt, label, tol_sdf0, tol_tau, peak in (
+            ("bfloat16", "", TOL["march_sweep"], TOL["shadow_march"], H100_BF16_FLOPS),
+            ("float32", "_f32", F32_TOL["sdf0"], F32_TOL["tau"], H100_F32_FLOPS)):
+        ww = march.march_weights(wparams, wcfg, dt)
+        nw = mc["mw"] if dt == "bfloat16" else march.march_weights(mc["renderer_params"]["sdf"], ncfg, dt)
+        sz = march.fused_importance_z(wparams, wcfg, sl, sdir, z0s, mlp_dtype=dt, split=True, sweep_impl="xla",
+                                      rounds_impl="xla")
+        w_bytes = (2 if dt == "bfloat16" else 4) * vm
+        bounds = {
+            "C": bound(2.0 * 512 * 128 * 2 * vm, 512 * 4 * (128 + 3 + 3 + 1 + 1) + w_bytes, peak),
+            "K": bound(2.0 * 512 * 64 * vm, 512 * 4 * (64 + 3 + 3 + 64) + w_bytes, peak),
+            "L": bound(2.0 * 512 * 48 * vm, 512 * 4 * (64 + 64 + 3 + 3 + 128) + w_bytes, peak),
+            "M": bound(2.0 * 512 * 112 * vm, 512 * 4 * (64 + 3 + 3 + 128) + w_bytes, peak),
+            "N": bound(2.0 * 512 * (112 * vm + 128 * 2 * vm), 512 * 4 * (64 + 3 + 3 + 1 + 1) + w_bytes, peak),
+        }
+        k_sdf0 = march.march_sweep(z0, o, d, ww, wcfg)
+        errs = {"K": max_err([k_sdf0], [march.march_sweep_plain(z0, o, d, ww, wcfg)]),
+                "C": max_err([march.shadow_final(sz, sl, sdir, sdist, inv_s, anneal, ww, wcfg)],
+                             [march.shadow_final_plain(sz, sl, sdir, sdist, inv_s, anneal, ww, wcfg)])}
+        checks = {}
+        for merge in ("bitonic", "rank"):
+            l_z = march.march_rounds(z0, k_sdf0, o, d, ww, wcfg, merge=merge)
+            l_is_bk = torch.equal(l_z, march._rounds(ww, wcfg, o, d, z0, k_sdf0, 4, 16, 64.0, merge,
+                                                     march.round_machinery, sweep16(o, d, ww, wcfg)))
+            m_z = march.importance_march(z0, o, d, ww, wcfg, merge=merge)
+            n_tau = march.shadow_march(z0s, sl, sdir, sdist, inv_s, anneal, ww, wcfg, merge=merge)
+            n_is_cm = torch.equal(n_tau, march.shadow_final(march.importance_march(z0s, sl, sdir, ww, wcfg, merge=merge),
+                                                            sl, sdir, sdist, inv_s, anneal, ww, wcfg))
+            n_err = max_err([n_tau], [march.shadow_march_plain(z0s, sl, sdir, sdist, inv_s, anneal, ww, wcfg,
+                                                               merge=merge)])
+            z_l = z_err(l_z, march.march_rounds_plain(z0, k_sdf0, o, d, ww, wcfg, merge=merge), z0)
+            z_m = z_err(m_z, march.importance_march_plain(z0, o, d, ww, wcfg, merge=merge), z0)
+            for name, e in (("N", n_err), ("L", (z_l[0], 0.0)), ("M", (z_m[0], 0.0))):
+                errs[name] = tuple(max(a, b) for a, b in zip(errs.get(name, (0.0, 0.0)), e))
+            checks[merge] = (l_is_bk, torch.equal(m_z, l_z), n_is_cm, z_l, z_m)
+        calls = {
+            "C": (lambda w, c, z=sz: march.shadow_final(z, sl, sdir, sdist, inv_s, anneal, w, c),
+                  lambda: march.shadow_final_plain(sz, sl, sdir, sdist, inv_s, anneal, ww, wcfg), "shadow_final"),
+            "K": (lambda w, c: march.march_sweep(z0, o, d, w, c),
+                  lambda: march.march_sweep_plain(z0, o, d, ww, wcfg), "march_sweep"),
+            "L": (lambda w, c: march.march_rounds(z0, k_sdf0, o, d, w, c),
+                  lambda: march.march_rounds_plain(z0, k_sdf0, o, d, ww, wcfg), "march_rounds"),
+            "M": (lambda w, c: march.importance_march(z0, o, d, w, c),
+                  lambda: march.importance_march_plain(z0, o, d, ww, wcfg), "importance_march"),
+            "N": (lambda w, c: march.shadow_march(z0s, sl, sdir, sdist, inv_s, anneal, w, c),
+                  lambda: march.shadow_march_plain(z0s, sl, sdir, sdist, inv_s, anneal, ww, wcfg), "shadow_march"),
+        }
+        for name, (kern, plain, fn) in calls.items():
+            ms, plain_ms = cuda_ms(lambda: kern(ww, wcfg), 5), cuda_ms(plain, 2, warmup=1)
+            f32 = " f32" if dt == "float32" else ""
+            dev_w = kernel_device_ms(lambda: kern(ww, wcfg), f"kernel {name}{f32} wide {fn}{label}_wide", tries=1)
+            narrow = (lambda: kern(nw, ncfg, mc["sz"])) if name == "C" else (lambda: kern(nw, ncfg))
+            dev_n = kernel_device_ms(narrow, f"kernel {name}{f32} {fn}{label}", tries=1)
+            bd, by = bounds[name]
+            inst = f"{fn}{label}_wide"
+            out[inst] = (errs[name][0], ms, plain_ms, bd, by)
+            log(f"[18(a) kernel {name}] {inst}: B=512 at d_hidden {WIDE_SDF['d_hidden']}, max abs err against its "
+                f"plain version {errs[name][0]:.3e} (rel {errs[name][1]:.3e}); {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+                f"device time {dev_w:.4f} ms against the 256-wide instance's {dev_n:.4f} ms in this call "
+                f"({dev_w / dev_n:.2f}x); bound {bd:.4f} ms ({by}, at {peak / 1e12:.0f} TFLOP/s), {dev_w / bd:.2f}x "
+                f"it; on {smi}")
+        for merge, (l_is_bk, m_is_lk, n_is_cm, z_l, z_m) in checks.items():
+            log(f"[18(a) {dt} {merge}] L's z: {z_l[2]:.4f} of the samples within {Z_TOL} of a plain sample, slot by "
+                f"slot {z_l[1]:.4f}; M's {z_m[2]:.4f} and {z_m[1]:.4f} (tol {Z_NN_SHARE}); L = B's steps between K's "
+                f"sweeps bit for bit: {l_is_bk}; M = L(K(.)): {m_is_lk}; N = C(M(.)): {n_is_cm}")
+            if not (z_l[3] and z_m[3] and z_l[2] >= Z_NN_SHARE and z_m[2] >= Z_NN_SHARE):
+                raise AssertionError(f"18(a) {dt} {merge}: L's or M's z disagree with the plain march: "
+                                     f"{z_l[2]:.4f}, {z_m[2]:.4f}")
+            if not (l_is_bk and m_is_lk and n_is_cm):
+                raise AssertionError(f"18(a) {dt} {merge}: an identity fails: L = B/K {l_is_bk}, M = L(K) {m_is_lk}, "
+                                     f"N = C(M) {n_is_cm}")
+        log(f"[18(a) {dt}] K's sdf0 {errs['K'][1]:.3e}, C's tau {errs['C'][1]:.3e}, N's {errs['N'][1]:.3e} of "
+            f"max(1, scale) (tol {tol_sdf0}, {tol_tau})")
+        if not (errs["K"][1] <= tol_sdf0 and errs["C"][1] <= tol_tau and errs["N"][1] <= tol_tau):
+            raise AssertionError(f"18(a) {dt}: a wide march instance disagrees with its plain version: {errs}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def wide_one_step(label: str, smi: str, dev, cfg, td: dict, batch, per_step: dict, profiled: bool = False) -> dict:
     """One eager step of a fresh seed-0 state of ``cfg`` (18(b)): a finite
-    loss and exactly ``per_step``'s launches.  -> the launches."""
+    loss and exactly ``per_step``'s launches; with ``profiled``, a second
+    step under the profiler, its device busy split by group.  -> the first
+    step's launches."""
     import torch
 
     from nrhints_torch.kernels import cuda_lib
@@ -3158,16 +3297,79 @@ def wide_one_step(label: str, smi: str, dev, cfg, td: dict, batch, per_step: dic
         raise AssertionError(f"[{label}] non-finite loss {loss}")
     log(f"[{label}] one eager step (the first of a fresh state), core_backward="
         f"{cfg.model.renderer.core_backward!r}: {secs:.4f} s, loss {loss:.6f}; launches {per_step}; on {smi}")
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile
+
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch, torch.Generator(device=dev).manual_seed(1))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step_fn(state, batch, torch.Generator(device=dev).manual_seed(2))
+            torch.cuda.synchronize()
+        groups = device_groups(prof)
+        busy = sum(groups.values())
+        log(f"[{label}] the second eager step {secs:.4f} s; a profiled third: device busy {busy:.3f} ms, idle share "
+            f"{1 - busy / (secs * 1e3):.3f} of the unprofiled second; by group (ms) "
+            + ", ".join(f"{g} {ms:.3f}" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
+    return launches
+
+
+def wide_view(label: str, smi: str, mc: dict, vcfg, params: dict, per_chunk: dict) -> dict:
+    """A 128x128 view of ``vcfg`` through its graph (18(c)): exact launches
+    (``per_chunk`` a 512-ray chunk), finite images, one profiled replay's
+    device busy split, and 64 pixels against the CPU.  -> the first call's
+    launches."""
+    import numpy as np
+    import torch
+
+    from nrhints_torch.core.structs import PixelBundle
+    from nrhints_torch.eval.evaluator import Evaluator
+
+    camera, pose, pl = mc["camera"], mc["pose"], mc["pl"]
+    H, W = camera.H, camera.W
+    hh, ww = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+    view = PixelBundle(h_indices=hh.float(), w_indices=ww.float(), poses=pose.expand(H, W, 4, 4),
+                       pls=pl.expand(H, W, 3))
+    ev = Evaluator(vcfg, camera, {}, device="cuda")
+    img, secs, launches = view_through_graph(label, ev, params, view, smi)
+    n_chunks = -(-H * W // vcfg.model.inference_chunk_size)
+    launches_check(label, launches, per_chunk, n_chunks)
+    if not all(np.all(np.isfinite(v)) for v in img.values()):
+        raise AssertionError(f"{label}: non-finite values in the view")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ev.render_image(params, view)
+        torch.cuda.synchronize()
+    groups = device_groups(prof)
+    busy = sum(groups.values())
+    log(f"[{label}] {H}x{W}: {secs:.4f} s through the graph; one profiled replay: device busy {busy:.1f} ms, idle "
+        f"share {1 - busy / (secs * 1e3):.3f} of the unprofiled view; by group (ms) "
+        + ", ".join(f"{g} {ms:.2f}" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
+    rows = torch.arange(36, 100, 8)
+    ph, pw = torch.meshgrid(rows, rows, indexing="ij")
+    sub = PixelBundle(h_indices=ph.reshape(1, -1).float(), w_indices=pw.reshape(1, -1).float(),
+                      poses=pose.expand(1, 64, 4, 4), pls=pl.expand(1, 64, 3))
+    cpu_img = Evaluator(vcfg, camera, {}, device="cpu").render_image(params, sub)
+    for k, tol in CPU_TOL.items():
+        e = float(np.abs(img[k][ph.numpy(), pw.numpy()].reshape(1, 64, -1) - cpu_img[k]).max())
+        log(f"[{label}] CPU plain vs card, 64 pixels, {k}: max abs err {e:.3e} (tol {tol})")
+        if not e <= tol:
+            raise AssertionError(f"{label}: CPU and card renders disagree on {k}: {e:.3e}")
+    del ev, img
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
 def wide_entry(smi: str, tmp: Path) -> None:
     """Phase 18(d): ``python -m nrhints_torch``'s main in this process on a
     procedural scene (8 train, 1 val, no test views: no registration),
-    ``config:nr-hints-cam-opt --config.model.sdf-network.d-hidden 512
-    --config.model.renderer.shadow-final-impl xla``, WIDE_ENTRY_STEPS steps
-    of 512 rays, a log at the last, the final mesh at resolution 32 (plain
-    sweeps); the logged loss finite and every kernel's launches exact."""
+    ``config:nr-hints-cam-opt --config.model.sdf-network.d-hidden 512`` on
+    its default routes, WIDE_ENTRY_STEPS steps of 512 rays, a log at the
+    last, the final mesh at resolution 32 (plain sweeps); the logged loss
+    finite and every kernel's launches exact."""
     import torch
 
     from nrhints_torch.__main__ import main as nrhints_main
@@ -3178,7 +3380,6 @@ def wide_entry(smi: str, tmp: Path) -> None:
     steps = WIDE_ENTRY_STEPS
     argv = ["config:nr-hints-cam-opt", "--config.data.path", str(scene), "--config.base-dir", str(tmp / "wide_runs"),
             "--config.model.sdf-network.d-hidden", str(WIDE_SDF["d_hidden"]),
-            "--config.model.renderer.shadow-final-impl", WIDE_RENDERER["shadow_final_impl"],
             "--config.model.batch-size", "512", "--config.intervals.log-metrics", str(steps),
             "--config.final-mesh-resolution", "32", "--config.parallel.data-axis-size", "1",
             "--config.model.end-iter", str(steps)]
@@ -3189,8 +3390,7 @@ def wide_entry(smi: str, tmp: Path) -> None:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches_check("18(d) entry", dict(cuda_lib.launch_counts),
-                   dict(sdf_stash_fwd_wide=1, sdf_stash_bwd_wide=1, mlp_stash_fwd=1, mlp_stash_bwd=1, round_machinery=8),
-                   steps)
+                   dict(WIDE_CORE_STEP, round_machinery=8, shadow_final_wide=1), steps)
     lines = [json.loads(line) for line in (trainer.log_dir / "metrics.jsonl").read_text().splitlines()]
     train = {r["step"]: r for r in lines if "loss" in r}
     if sorted(train) != [steps] or not math.isfinite(train[steps]["loss"]):
@@ -3205,17 +3405,17 @@ def wide_entry(smi: str, tmp: Path) -> None:
 
 
 def wide_limits(dev, td: dict, batch) -> None:
-    """Phase 18(e): a train step of the wide config on the shipping shadow
-    route (kernel C's row engine), and of an SDF 528 wide with the wide
-    config's routes, raise NotImplementedError before any launch."""
+    """Phase 18(e): a train step of an SDF 528 wide, and of one with a
+    144-wide encoding (multi_res 21), on the default routes, raise
+    NotImplementedError naming ROADMAP item 15 before any launch."""
     import torch
 
     from nrhints_torch.kernels import cuda_lib
     from nrhints_torch.train.step import make_train_step
 
-    for label, cfg, item in (
-            ("shadow_final_impl='pallas'", with_model(td["cfg"], sdf=WIDE_SDF), "item 13"),
-            ("d_hidden 528", with_model(wide_cfg(td["cfg"]), sdf={"d_hidden": 528}), "item 15")):
+    for label, sdf in (("d_hidden 528", {"d_hidden": 528}), ("multi_res 21 (encoding 129, padded 144)",
+                                                              {"multi_res": 21})):
+        cfg = with_model(td["cfg"], sdf=sdf)
         state, buffers = fresh_state(cfg, td["n_views"], dev)
         step_fn = make_train_step(cfg, td["camera"], buffers, state.optimizer)
         torch.cuda.synchronize()
@@ -3227,27 +3427,27 @@ def wide_limits(dev, td: dict, batch) -> None:
         else:
             raise AssertionError(f"18(e): a step at {label} ran")
         torch.cuda.synchronize()
-        if item not in msg or any(cuda_lib.launch_counts.values()):
+        if "item 15" not in msg or any(cuda_lib.launch_counts.values()):
             raise AssertionError(f"18(e): {label}: {msg!r}, launches {dict(cuda_lib.launch_counts)}")
         log(f"[18(e) limits] a step at {label} raises NotImplementedError before any launch: {msg}")
 
 
 def wide_sdf_phase(smi: str, dev, mc: dict, tmp: Path) -> list:
-    """Phase 18, the SDF core's wide instances (see above).  -> the kernels
-    line's entries of the WIDE_SDF instances, each with its launches from
-    the path that runs it: A's from (c)'s view, D's and E's from (b)'s K =
+    """Phase 18, the SDF above the presets' widths (see above).  -> the
+    kernels line's entries of the WIDE_SDF instances, each with its
+    launches from the path that runs it: A's and C's from (c)'s shipping
+    view, M's and N's from its monolith view, D's and E's from (b)'s K =
     WIDE_K dispatch, H's from the recompute step, the variants' from the
-    stash_all step."""
+    stash_all step, K's and L's from the split step, the f32 instances'
+    from the f32 steps."""
     import numpy as np
     import torch
 
-    from nrhints_torch.core.structs import PixelBundle
-    from nrhints_torch.eval.evaluator import Evaluator
-    from nrhints_torch.kernels import cuda_lib
     from nrhints_torch.render.renderer import init_model_params
 
     t_phase = time.perf_counter()
     nums = wide_kernels(smi, dev, mc)
+    nums.update(wide_march_kernels(smi, dev, mc))
     t_a = time.perf_counter() - t_phase
 
     # (b) The train path.
@@ -3255,8 +3455,8 @@ def wide_sdf_phase(smi: str, dev, mc: dict, tmp: Path) -> list:
     wcfg = wide_cfg(td["cfg"])
     batches = [td["next_batch"]() for _ in range(WIDE_K + TRAIN_WARMUP)]
     b64 = td["next_batch"](64)
-    stash_step = dict(sdf_stash_fwd_wide=1, sdf_stash_bwd_wide=1, mlp_stash_fwd=1, mlp_stash_bwd=1, round_machinery=8)
-    sc = scan_phase(smi, dev, td, batches, "18(b) wide graph", wcfg, WIDE_K, stash_step)
+    ship = dict(round_machinery=8, shadow_final_wide=1)
+    sc = scan_phase(smi, dev, td, batches, "18(b) wide graph", wcfg, WIDE_K, dict(WIDE_CORE_STEP, **ship))
     state, buffers = fresh_state(wcfg, td["n_views"], dev)
     from nrhints_torch.train.step import make_train_step
 
@@ -3267,64 +3467,46 @@ def wide_sdf_phase(smi: str, dev, mc: dict, tmp: Path) -> list:
            "shadow": urng.random((64, wcfg.model.renderer.n_shadow_samples), dtype=np.float32)}
     card_cpu_grads("18(b) wide train path", wcfg, state, td["camera"], buffers, b64, u64)
     del state, step_fn, buffers
-    rec_step = dict(sdf_core_fwd_wide=1, sdf_core_bwd_wide=1, mlp_fwd=1, mlp_bwd=1, round_machinery=8)
+    rec_step = dict(sdf_core_fwd_wide=1, sdf_core_bwd_wide=1, mlp_fwd=1, mlp_bwd=1, **ship)
     rec = wide_one_step("18(b) wide recompute step", smi, dev, with_renderer(wcfg, core_backward="recompute"), td,
                         batches[1], rec_step)
-    all_step = dict(sdf_stash_all_fwd_wide=1, sdf_stash_all_bwd_wide=1, mlp_stash_fwd=1, mlp_stash_bwd=1,
-                    round_machinery=8)
+    all_step = dict(sdf_stash_all_fwd_wide=1, sdf_stash_all_bwd_wide=1, mlp_stash_fwd=1, mlp_stash_bwd=1, **ship)
     sa = wide_one_step("18(b) wide stash_all step", smi, dev, with_renderer(wcfg, core_backward="stash_all"), td,
                        batches[2], all_step)
+    routes = {name: wide_one_step(f"18(b) wide {name} step", smi, dev, with_renderer(wcfg, **kw), td, batches[3],
+                                  dict(WIDE_CORE_STEP, **per), profiled=name == "monolith")
+              for name, (kw, per) in WIDE_STEPS.items()}
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (c) The eval path: one 128x128 view of nr-hints at d_hidden 512.
-    camera, pose, pl = mc["camera"], mc["pose"], mc["pl"]
-    H, W = camera.H, camera.W
+    # (c) The eval path: a 128x128 view of nr-hints at d_hidden 512 on the
+    # shipping route and on the round-4 monolith.
     vcfg = wide_cfg(mc["cfg"])
     params = {"renderer": init_model_params(vcfg.model, torch.Generator().manual_seed(0), device=dev), "raygen": {}}
-    hh, ww = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
-    view = PixelBundle(h_indices=hh.float(), w_indices=ww.float(), poses=pose.expand(H, W, 4, 4),
-                       pls=pl.expand(H, W, 3))
-    ev = Evaluator(vcfg, camera, {}, device="cuda")
-    img, secs, launches = view_through_graph("18(c) wide view", ev, params, view, smi)
-    n_chunks = -(-H * W // vcfg.model.inference_chunk_size)
-    launches_check("18(c) wide view", launches, dict(sdf_core_fwd_wide=n_chunks, round_machinery=8 * n_chunks))
-    if not all(np.all(np.isfinite(v)) for v in img.values()):
-        raise AssertionError("18(c): non-finite values in the wide view")
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ev.render_image(params, view)
-        torch.cuda.synchronize()
-    groups = device_groups(prof)
-    busy = sum(groups.values())
-    log(f"[18(c) wide view] {H}x{W}: {secs:.4f} s through the graph; one profiled replay: device busy {busy:.1f} ms, "
-        f"idle share {1 - busy / (secs * 1e3):.3f} of the unprofiled view; by group (ms) "
-        + ", ".join(f"{g} {ms:.2f}" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
-    rows = torch.arange(36, 100, 8)
-    ph, pw = torch.meshgrid(rows, rows, indexing="ij")
-    sub = PixelBundle(h_indices=ph.reshape(1, -1).float(), w_indices=pw.reshape(1, -1).float(),
-                      poses=pose.expand(1, 64, 4, 4), pls=pl.expand(1, 64, 3))
-    cpu_img = Evaluator(vcfg, camera, {}, device="cpu").render_image(params, sub)
-    for k, tol in CPU_TOL.items():
-        e = float(np.abs(img[k][ph.numpy(), pw.numpy()].reshape(1, 64, -1) - cpu_img[k]).max())
-        log(f"[18(c) wide view] CPU plain vs card, 64 pixels, {k}: max abs err {e:.3e} (tol {tol})")
-        if not e <= tol:
-            raise AssertionError(f"18(c): CPU and card renders disagree on {k}: {e:.3e}")
-    del ev, params, img
-    gc.collect()
-    torch.cuda.empty_cache()
+    ship_view = wide_view("18(c) wide view", smi, mc, vcfg, params,
+                          dict(sdf_core_fwd_wide=1, round_machinery=8, shadow_final_wide=1))
+    mono_view = wide_view("18(c) wide monolith view", smi, mc, wide_cfg(mc["cfg"], **MONOLITH), params,
+                          dict(sdf_core_fwd_wide=1, importance_march_wide=1, shadow_march_wide=1))
+    del params
 
     # (d) The entry point; (e) the limits.
     wide_entry(smi, tmp)
     wide_limits(dev, td, batches[0])
     log(f"[18] phase 18 took {time.perf_counter() - t_phase:.1f} s ((a) {t_a:.1f} s)")
-    got = dict(sdf_core_fwd_wide=launches["sdf_core_fwd_wide"],
+    got = dict(sdf_core_fwd_wide=ship_view["sdf_core_fwd_wide"],
                sdf_stash_fwd_wide=sc["launches"]["sdf_stash_fwd_wide"],
                sdf_stash_bwd_wide=sc["launches"]["sdf_stash_bwd_wide"],
                sdf_core_bwd_wide=rec["sdf_core_bwd_wide"],
                sdf_stash_all_fwd_wide=sa["sdf_stash_all_fwd_wide"],
-               sdf_stash_all_bwd_wide=sa["sdf_stash_all_bwd_wide"])
+               sdf_stash_all_bwd_wide=sa["sdf_stash_all_bwd_wide"],
+               shadow_final_wide=ship_view["shadow_final_wide"],
+               importance_march_wide=mono_view["importance_march_wide"],
+               shadow_march_wide=mono_view["shadow_march_wide"],
+               march_sweep_wide=routes["split"]["march_sweep_wide"],
+               march_rounds_wide=routes["split"]["march_rounds_wide"],
+               **{k: routes["f32 split"][k] for k in ("shadow_final_f32_wide", "march_sweep_f32_wide",
+                                                      "march_rounds_f32_wide", "importance_march_f32_wide")},
+               shadow_march_f32_wide=routes["f32 monolith"]["shadow_march_f32_wide"])
     return [entry(name, *WIDE_WHERE[name], got[name], *num) for name, num in nums.items()]
 
 

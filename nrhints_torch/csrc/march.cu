@@ -51,6 +51,12 @@
 // mma_rows.cuh::sdf_rows_f32: the same multiply-adds as f32 FMAs on the CUDA
 // cores, 1.80 ms a 512-ray launch at the 67 TFLOP/s f32 peak; 16 dual passes
 // of 32 sections and their tangents a block.
+// shadow_final_wide and shadow_final_f32_wide are kernel C above the
+// presets' widths (padded widths up to 512, encodings up to 128), the
+// march_kernel_wide and march_kernel_f32_wide instances on the row engine's
+// wide class (mma_rows.cuh::RowsWide): 16 dual passes of 32 sections (bf16)
+// or 32 of 16 (f32) a block.  At d_hidden 512 a 512-ray launch is 4.0x the
+// 256-wide one's operations: 0.487 ms at the bf16 peak, 7.18 ms at f32's.
 #include "march_common.cuh"
 
 using namespace nrh;
@@ -117,22 +123,33 @@ extern "C" int round_machinery(const float* z, const float* sdf, const float* o,
   return (int)cudaGetLastError();
 }
 
-extern "C" int shadow_final(const float* z, const float* o, const float* d, const float* sdist,
-                            const void* wpack, const float* bpack, const float* w_sdf,
-                            const float* inv_s, const float* anneal, float* tau, int b,
-                            const int* meta, float scale, void* stream) {
+#define NRH_FINAL_ARGS                                                                                       \
+  const float *z, const float *o, const float *d, const float *sdist, const void *wpack, const float *bpack,     \
+      const float *w_sdf, const float *inv_s, const float *anneal, float *tau, int b, const int *meta, float scale, \
+      void *stream
+
+extern "C" int shadow_final(NRH_FINAL_ARGS) {
   return launch_march<false, false, false, true, false>(z, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal,
                                                         tau, b, meta, scale, 0.0f, stream);
 }
 
 // Kernel C with f32 march weights (march_dtype="float32"): wpack holds the
 // f32 pack of pack_sdf_mlp(..., dtype=float32).
-extern "C" int shadow_final_f32(const float* z, const float* o, const float* d, const float* sdist,
-                                const void* wpack, const float* bpack, const float* w_sdf,
-                                const float* inv_s, const float* anneal, float* tau, int b,
-                                const int* meta, float scale, void* stream) {
+extern "C" int shadow_final_f32(NRH_FINAL_ARGS) {
   return launch_march<true, false, false, true, false>(z, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal,
                                                        tau, b, meta, scale, 0.0f, stream);
 }
+
+// Kernel C's wide instances (core_mlp.ROWS_WIDE: padded widths up to 512,
+// encodings up to 128), bf16 and f32 march weights.
+extern "C" int shadow_final_wide(NRH_FINAL_ARGS) {
+  return launch_march<false, false, false, true, false>(z, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal,
+                                                        tau, b, meta, scale, 0.0f, stream, true);
+}
+extern "C" int shadow_final_f32_wide(NRH_FINAL_ARGS) {
+  return launch_march<true, false, false, true, false>(z, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal,
+                                                       tau, b, meta, scale, 0.0f, stream, true);
+}
+#undef NRH_FINAL_ARGS
 
 extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

@@ -31,6 +31,12 @@
 //   f32 instances march_kernel_f32<...> (march_dtype="float32"), whose
 //   sweeps run sdf_rows_f32 with wdt = float32.  The rounds and merges are
 //   the same code, so the identities above hold in f32 too.
+// * The SDF's widths pick the engine's class (mma_rows.cuh): the presets'
+//   widths run the engines above, padded widths up to kWideWMax and
+//   encodings up to kWideEncMax their wide class, Bf16RowsWide (the kernels
+//   march_kernel_wide<...>) and F32RowsWide (march_kernel_f32_wide<...>),
+//   on half the rows a pass.  march_body is the same, so the identities
+//   hold at the wide widths too.
 //
 // Layout: a march block holds kMarchRays = 4 rays on 512 threads; thread t
 // loads and stores slot t & 127 of ray t >> 7, and warp w < 4 runs ray w's
@@ -38,7 +44,10 @@
 // rows (its 4 rays' 64 stratified samples), one value pass of 64 rows per
 // swept round (4 rays x 16 new samples), and 8 dual passes of 64 sections
 // and their 64 tangent rows; with f32 weights, 4 value passes of 64 rows,
-// the same round passes and 16 dual passes of 32 sections.
+// the same round passes and 16 dual passes of 32 sections.  The wide class
+// halves the rows: bf16, 4 value passes of 64 rows, the same round passes
+// and 16 dual passes of 32 sections; f32, value passes of 64 rows each run
+// as two of its 32-row tile, and 32 dual passes of 16 sections.
 #pragma once
 
 #include <type_traits>
@@ -55,7 +64,7 @@ constexpr int N0 = NBUF - kRounds * NNEW;  // 64 stratified samples
 constexpr float BIG_Z = 1e9f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMarchRays = kRowsThreads / NBUF;  // rays of a march block
-static_assert(kMarchRays * NNEW == 64, "a round's sweep is one 64-row pass");
+static_assert(kMarchRays * NNEW == 64, "a round's sweep is one 64-row value sweep of the engine");
 
 // ---------------------------------------------------------------------------
 // Machinery: one warp a ray; lane l holds slot 32 j + l in column j of its
@@ -338,6 +347,46 @@ struct F32Rows {
   }
 };
 
+// The wide class of each (mma_rows.cuh::RowsWide): padded widths up to
+// kWideWMax, encodings up to kWideEncMax.  bf16: 64-row value passes and 32
+// sections a dual pass.  f32: a value sweep of 64 rows runs as two passes
+// of the 32-row tile (the points and outputs keep 64 rows), 16 sections a
+// dual pass.
+struct Bf16RowsWide {
+  using Smem = RowsTile<RowsWide>;
+  using W = bf16;
+  static constexpr int kValueRows = RowsWide::kRows;
+  static constexpr int kSections = RowsWide::kRows / 2;
+  template <int ROWS>
+  static __device__ __forceinline__ void values(Smem& S, const W* wpack, const float* bpack, const float* w_sdf,
+                                                const SdfMeta& m, float scale) {
+    static_assert(ROWS == kValueRows, "the wide bf16 engine runs 64-row passes");
+    sdf_rows<false, 2>(S, nullptr, wpack, bpack, w_sdf, m, scale);
+  }
+  static __device__ __forceinline__ void dual(Smem& S, const float* dir, const W* wpack, const float* bpack,
+                                              const float* w_sdf, const SdfMeta& m, float scale) {
+    sdf_rows<true, 2>(S, dir, wpack, bpack, w_sdf, m, scale);
+  }
+};
+
+struct F32RowsWide {
+  using Smem = RowsTileF32<RowsWide>;
+  using W = float;
+  static constexpr int kValueRows = kRowsF32;
+  static constexpr int kSections = RowsWide::kRowsF / 2;
+  template <int ROWS>
+  static __device__ __forceinline__ void values(Smem& S, const W* wpack, const float* bpack, const float* w_sdf,
+                                                const SdfMeta& m, float scale) {
+    static_assert(ROWS == kValueRows, "a value sweep of the wide f32 engine takes 64 rows");
+    for (int row0 = 0; row0 < ROWS; row0 += RowsWide::kRowsF)
+      sdf_rows_f32<false>(S, nullptr, wpack, bpack, w_sdf, m, scale, row0);
+  }
+  static __device__ __forceinline__ void dual(Smem& S, const float* dir, const W* wpack, const float* bpack,
+                                              const float* w_sdf, const SdfMeta& m, float scale) {
+    sdf_rows_f32<true>(S, dir, wpack, bpack, w_sdf, m, scale);
+  }
+};
+
 template <class Engine>
 struct MarchSmem {
   static constexpr int R = kMarchRays;
@@ -504,7 +553,8 @@ __device__ __forceinline__ void march_body(const float* __restrict__ z_in, const
       float base_inv_s
 #define NRH_MARCH_ARGS z_in, sdf0_in, o, d, sdist, wpack, bpack, w_sdf, inv_s_ptr, anneal_ptr, out, b, m, scale, base_inv_s
 
-// The bf16 instances (kernels C, K, L, M and N) and the f32 ones.
+// The bf16 instances (kernels C, K, L, M and N) and the f32 ones, and the
+// wide class's of each.
 template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK>
 __global__ void __launch_bounds__(kRowsThreads) march_kernel(NRH_MARCH_PARAMS(bf16)) {
   march_body<Bf16Rows, SWEEP, ROUNDS, FINAL, RANK>(NRH_MARCH_ARGS);
@@ -513,29 +563,39 @@ template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK>
 __global__ void __launch_bounds__(kRowsThreads) march_kernel_f32(NRH_MARCH_PARAMS(float)) {
   march_body<F32Rows, SWEEP, ROUNDS, FINAL, RANK>(NRH_MARCH_ARGS);
 }
+template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK>
+__global__ void __launch_bounds__(kRowsThreads) march_kernel_wide(NRH_MARCH_PARAMS(bf16)) {
+  march_body<Bf16RowsWide, SWEEP, ROUNDS, FINAL, RANK>(NRH_MARCH_ARGS);
+}
+template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK>
+__global__ void __launch_bounds__(kRowsThreads) march_kernel_f32_wide(NRH_MARCH_PARAMS(float)) {
+  march_body<F32RowsWide, SWEEP, ROUNDS, FINAL, RANK>(NRH_MARCH_ARGS);
+}
 #undef NRH_MARCH_PARAMS
 #undef NRH_MARCH_ARGS
 
 // One launch on `stream` of the bf16 instance, or with F32 the f32 one
-// (wpack then holds f32 weights); returns its launch error.
+// (wpack then holds f32 weights), of the presets' class or with wide the
+// wide class (meta checked against its limits); returns its launch error.
 template <bool F32, bool SWEEP, bool ROUNDS, bool FINAL, bool RANK>
 inline int launch_march(const float* z_in, const float* sdf0_in, const float* o, const float* d,
                         const float* sdist, const void* wpack, const float* bpack, const float* w_sdf,
                         const float* inv_s, const float* anneal, float* out, int b, const int* meta,
-                        float scale, float base_inv_s, void* stream) {
+                        float scale, float base_inv_s, void* stream, bool wide = false) {
   using Engine = typename std::conditional<F32, F32Rows, Bf16Rows>::type;
+  using EngineWide = typename std::conditional<F32, F32RowsWide, Bf16RowsWide>::type;
   using W = typename Engine::W;
   SdfMeta m;
-  int rc = parse_meta(meta, &m);
+  int rc = parse_meta(meta, &m, wide);
   if (rc) return rc;
   if (b <= 0) return 0;
-  const int smem = (int)sizeof(MarchSmem<Engine>);
+  const int smem = (int)(wide ? sizeof(MarchSmem<EngineWide>) : sizeof(MarchSmem<Engine>));
   void (*kernel)(const float*, const float*, const float*, const float*, const float*, const W*, const float*,
                  const float*, const float*, const float*, float*, int, const SdfMeta, float, float);
   if constexpr (F32)
-    kernel = march_kernel_f32<SWEEP, ROUNDS, FINAL, RANK>;
+    kernel = wide ? march_kernel_f32_wide<SWEEP, ROUNDS, FINAL, RANK> : march_kernel_f32<SWEEP, ROUNDS, FINAL, RANK>;
   else
-    kernel = march_kernel<SWEEP, ROUNDS, FINAL, RANK>;
+    kernel = wide ? march_kernel_wide<SWEEP, ROUNDS, FINAL, RANK> : march_kernel<SWEEP, ROUNDS, FINAL, RANK>;
   rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc) return rc;
   kernel<<<(b + kMarchRays - 1) / kMarchRays, kRowsThreads, smem, (cudaStream_t)stream>>>(

@@ -48,6 +48,27 @@
 //   trunk's (F, G, I and J: mlp_stash.cu) run their 64-point products on
 //   rows_product_f32 too, through gemm_rows64_f32 and gemm_rows64's f32
 //   overload at the end of this file, with a ring of kChainStagesF32 stages.
+//
+// Both engines come in two width classes (RowsNarrow, RowsWide), the
+// template argument Cls of every routine below.  RowsNarrow takes the
+// presets' widths (padded layers up to kWMax, encodings up to kEncMax) as
+// described above.  RowsWide takes twice both (kWideWMax, kWideEncMax), the
+// SDF core's wide class (staged_mma.cuh::CoreWide), on half the rows a pass
+// so that the tile and the ring still fit one block's shared memory:
+// * bf16: 64 rows a pass (dual mode: 32 sections and their 32 tangent rows)
+//   in a [64][520] tile, the weights staged in slabs of 32 k-rows by up to
+//   512 columns (3 x 33,280 B).  Warp w owns 32 rows of row group w / 8 and
+//   the 64 columns 64 (w % 8) .. +64, so a warp's tile, its fragments a
+//   k-step and its 64 accumulators a thread are the narrow class's, and the
+//   whole 512-wide output of a layer is in registers when the product
+//   returns: no column passes, and the output is written in place as above.
+// * f32: 32 rows a pass (dual mode: 16 sections and their tangents) in a
+//   [32][516] tile, the weights staged in slabs of 16 k-rows by up to 512
+//   columns (3 x 32 KB); thread t owns 8 rows of row group t / 128 and the
+//   4 columns 4 (t % 128) .. +3, the narrow f32 class's 32 accumulators.
+// Each output keeps its k order (k-tiles 0, 16, 32, ... or one fmaf a k in
+// order), so a row's floats do not depend on its pass, slot or the class's
+// slab depth, and the bf16 rounding points are _mlp_sdf_3d's in both.
 #pragma once
 
 #include "staged_mma.cuh"
@@ -57,6 +78,29 @@ namespace nrh {
 constexpr int kRowsMax = 128;        // rows of the engine's activation tile
 constexpr int kRowsThreads = 512;    // threads of a block that runs it (= kChainThreads: the ring's copy loop)
 static_assert(kRowsThreads == kChainThreads, "stage_slab strides its copies by kChainThreads");
+
+// The f32 engine's narrow class (below): rows of its tile (a pass), k-rows
+// of an f32 weight slab, floats of a ring stage (row stride kWMax).
+constexpr int kRowsF32 = 64;
+constexpr int kSlabF32 = 32;
+constexpr int kRingStageF32 = kSlabF32 * kWMax;
+
+// The row engine's width classes.  bf16 engine: kRows rows of a pass, kW
+// the widest padded layer, kEnc the widest padded encoding, kLd the tile's
+// row stride, kSlabK the k-rows of a ring slab, kLdSlab its row stride,
+// kStage the bf16 of a ring stage, kColWarps the warps across a layer's
+// columns (64 each).  f32 engine: kRowsF rows of a pass, kLdF the tile's
+// row stride, kSlabF the k-rows of an f32 slab (row stride kW).
+struct RowsNarrow {
+  static constexpr int kRows = kRowsMax, kW = kWMax, kEnc = kEncMax, kLd = kLdA;
+  static constexpr int kSlabK = kSlab, kLdSlab = kLdWs, kStage = kRingStage, kColWarps = 4;
+  static constexpr int kRowsF = kRowsF32, kLdF = kLdZ, kSlabF = kSlabF32;
+};
+struct RowsWide {
+  static constexpr int kRows = 64, kW = kWideWMax, kEnc = kWideEncMax, kLd = kWideWMax + 8;
+  static constexpr int kSlabK = 32, kLdSlab = kWideWMax + 8, kStage = 32 * (kWideWMax + 8), kColWarps = 8;
+  static constexpr int kRowsF = 32, kLdF = kWideWMax + 4, kSlabF = 16;
+};
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
 
@@ -83,56 +127,88 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const unsigned (&a)[4],
 }
 
 // Shared memory of the engine: the activation tile (every layer written in
-// place), the encoding (in dual mode rows 64-127 hold the tangent's), the
-// weight ring, the rows' raw points and the head's output per row (in dual
-// mode sdf[64 + r] is section r's directional derivative).
-struct RowsSmem {
-  __align__(16) bf16 a[kRowsMax][kLdA];
-  __align__(16) float enc[kRowsMax][kEncMax];
-  __align__(16) bf16 ring[kChainStages * kRingStage];
-  float pts[kRowsMax][3];
-  float sdf[kRowsMax];
+// place), the encoding (in dual mode rows kRows / 2 .. hold the tangent's),
+// the weight ring, the rows' raw points and the head's output per row (in
+// dual mode sdf[kRows / 2 + r] is section r's directional derivative).
+template <class Cls>
+struct RowsTile {
+  __align__(16) bf16 a[Cls::kRows][Cls::kLd];
+  __align__(16) float enc[Cls::kRows][Cls::kEnc];
+  __align__(16) bf16 ring[kChainStages * Cls::kStage];
+  float pts[Cls::kRows][3];
+  float sdf[Cls::kRows];
 };
+using RowsSmem = RowsTile<RowsNarrow>;
 
-// Rows of a warp's two row tiles: dual mode, section rows 16 (w / 4) and
-// their tangent rows 64 below; value mode, 32 consecutive rows (MT = 2) or
-// 16 (MT = 1).
-template <bool DUAL, int MT>
+// Rows of a warp's two row tiles, in row group w / kColWarps: dual mode,
+// section rows 16 (w / kColWarps) and their tangent rows kRows / 2 below;
+// value mode, 32 consecutive rows (MT = 2) or 16 (MT = 1).
+template <bool DUAL, int MT, class Cls = RowsNarrow>
 __device__ __forceinline__ int tile_row(int warp, int i) {
-  return DUAL ? 16 * (warp >> 2) + 64 * i : (16 * MT) * (warp >> 2) + 16 * i;
+  const int rg = warp / Cls::kColWarps;
+  return DUAL ? 16 * rg + (Cls::kRows / 2) * i : (16 * MT) * rg + 16 * i;
 }
 
-// acc = A[rows of the warp, :kp] @ W[kp, np] after stage_first_slabs<false>(W,
-// np, kp, np, ring): the warp's MT row tiles x its 8 column tiles of 8 (those
+// Issue (and commit, as one group) the copy of k-slab s of the row-major
+// [kp, np] weight W into ring stage s % kChainStages of a Cls engine (the
+// narrow class's is the chain's own stage_slab); an empty group past kp.
+template <class Cls>
+__device__ __forceinline__ void stage_rows_slab(const bf16* __restrict__ W, int np, int kp, bf16* ring, int s) {
+  if constexpr (Cls::kSlabK == kSlab) {
+    stage_slab<false>(W, np, kp, np, ring, s);
+  } else {
+    const int tid = threadIdx.x, k0 = s * Cls::kSlabK, cpr = np / 8;
+    bf16* dst = ring + (s % kChainStages) * Cls::kStage;
+    if (k0 < kp) {
+      for (int idx = tid; idx < Cls::kSlabK * cpr; idx += kRowsThreads) {
+        const int r = idx / cpr, c = (idx % cpr) * 8;
+        if (k0 + r < kp) cp_async16(dst + r * Cls::kLdSlab + c, W + (size_t)(k0 + r) * np + c);
+      }
+    }
+    cp_async_commit();
+  }
+}
+
+// The first kChainStages - 1 slabs of a product; the ring must be free.
+template <class Cls>
+__device__ __forceinline__ void stage_first_rows_slabs(const bf16* __restrict__ W, int np, int kp, bf16* ring) {
+#pragma unroll
+  for (int s = 0; s < kChainStages - 1; ++s) stage_rows_slab<Cls>(W, np, kp, ring, s);
+}
+
+// acc = A[rows of the warp, :kp] @ W[kp, np] after stage_first_rows_slabs<Cls>(W,
+// np, kp, ring): the warp's MT row tiles x its 8 column tiles of 8 (those
 // below np).  Every thread must call it; it begins with a barrier and returns
 // with the ring free and every warp past its last read of A.
-template <bool DUAL, int MT>
+template <bool DUAL, int MT, class Cls = RowsNarrow>
 __device__ __forceinline__ void rows_product(const bf16* A, const bf16* __restrict__ W, int kp, int np, bf16* ring,
                                              float (&acc)[MT][8][4]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, c0 = (warp & 3) * 64;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, c0 = (warp % Cls::kColWarps) * 64;
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-  const int nslab = (kp + kSlab - 1) / kSlab;
+  const int nslab = (kp + Cls::kSlabK - 1) / Cls::kSlabK;
   for (int s = 0; s < nslab; ++s) {
     cp_async_wait<kChainStages - 2>();
     __syncthreads();
-    stage_slab<false>(W, np, kp, np, ring, s + kChainStages - 1);
-    const bf16* Ws = ring + (s % kChainStages) * kRingStage;
-    const int kend = min(kSlab, kp - s * kSlab);
+    stage_rows_slab<Cls>(W, np, kp, ring, s + kChainStages - 1);
+    const bf16* Ws = ring + (s % kChainStages) * Cls::kStage;
+    const int kend = min(Cls::kSlabK, kp - s * Cls::kSlabK);
     for (int kk = 0; kk < kend; kk += 16) {
       unsigned a[MT][4];
 #pragma unroll
       for (int i = 0; i < MT; ++i)
-        ldsm_x4(a[i], A + (tile_row<DUAL, MT>(warp, i) + (lane & 15)) * kLdA + s * kSlab + kk + (lane >> 4) * 8);
+        ldsm_x4(a[i], A + (tile_row<DUAL, MT, Cls>(warp, i) + (lane & 15)) * Cls::kLd + s * Cls::kSlabK + kk +
+                          (lane >> 4) * 8);
 #pragma unroll
       for (int f = 0; f < 4; ++f) {
         if (c0 + 16 * f < np) {
           unsigned b[4];
-          ldsm_x4_trans(b, Ws + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdWs + c0 + 16 * f + (lane >> 4) * 8);
+          ldsm_x4_trans(b, Ws + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * Cls::kLdSlab + c0 + 16 * f +
+                               (lane >> 4) * 8);
 #pragma unroll
           for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -149,10 +225,10 @@ __device__ __forceinline__ void rows_product(const bf16* A, const bf16* __restri
 // columns below `out`: h = bf16(softplus(100 (z + b)) / 100) and, before a
 // skip layer, bf16(h / sqrt2) again; in dual mode the tangent bf16(t gate),
 // rounded the same way.
-template <bool DUAL, int MT>
+template <bool DUAL, int MT, class Cls = RowsNarrow>
 __device__ __forceinline__ void rows_epilogue(bf16* A, const float (&acc)[MT][8][4], const float* __restrict__ b,
                                               int out, int np, bool next_skip) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, c0 = (warp & 3) * 64;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, c0 = (warp % Cls::kColWarps) * 64;
   const int g = lane >> 2, t2 = 2 * (lane & 3);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -166,7 +242,7 @@ __device__ __forceinline__ void rows_epilogue(bf16* A, const float (&acc)[MT][8]
       softplus100_gate(acc[0][j][e] + bc, &sp, &gate);
       bf16 hv = to_bf16(sp);
       if (next_skip) hv = to_bf16(bf(hv) * kInvSqrt2);
-      A[(tile_row<DUAL, MT>(warp, 0) + roff) * kLdA + col] = hv;
+      A[(tile_row<DUAL, MT, Cls>(warp, 0) + roff) * Cls::kLd + col] = hv;
       if (MT == 2) {
         bf16 v;
         if (DUAL) {
@@ -176,30 +252,32 @@ __device__ __forceinline__ void rows_epilogue(bf16* A, const float (&acc)[MT][8]
           v = to_bf16(sp);
         }
         if (next_skip) v = to_bf16(bf(v) * kInvSqrt2);
-        A[(tile_row<DUAL, MT>(warp, MT - 1) + roff) * kLdA + col] = v;
+        A[(tile_row<DUAL, MT, Cls>(warp, MT - 1) + roff) * Cls::kLd + col] = v;
       }
     }
   }
 }
 
-// The SDF MLP on the engine's rows: DUAL, 64 sections (points S.pts[0..63],
-// all along direction dir) and their tangents; otherwise 64 MT value rows
-// (S.pts).  Out: S.sdf[r] = sdf of row r, and in dual mode S.sdf[64 + r] =
-// dir . grad sdf of section r.  Every thread of the block calls it; it ends
-// with __syncthreads.
-template <bool DUAL, int MT>
-__device__ void sdf_rows(RowsSmem& S, const float* dir, const bf16* __restrict__ wpack,
+// The SDF MLP on the engine's rows: DUAL, kRows / 2 sections (points
+// S.pts[0 ..], all along direction dir) and their tangents; otherwise
+// 16 MT x (16 / kColWarps) value rows (S.pts): 64 MT narrow, 64 wide.  Out:
+// S.sdf[r] = sdf of row r, and in dual mode S.sdf[kRows / 2 + r] = dir .
+// grad sdf of section r.  Every thread of the block calls it; it ends with
+// __syncthreads.
+template <bool DUAL, int MT, class Cls = RowsNarrow>
+__device__ void sdf_rows(RowsTile<Cls>& S, const float* dir, const bf16* __restrict__ wpack,
                          const float* __restrict__ bpack, const float* __restrict__ w_sdf, const SdfMeta& m,
                          float scale) {
-  static_assert(!DUAL || MT == 2, "dual mode runs 64 sections and their 64 tangent rows");
-  constexpr int kRows = 64 * MT, kPts = DUAL ? 64 : kRows;
+  static_assert(!DUAL || MT == 2, "dual mode runs sections and their tangent rows, two row tiles a warp");
+  constexpr int kRows = 16 * MT * (16 / Cls::kColWarps), kPts = DUAL ? kRows / 2 : kRows, kEnc = Cls::kEnc;
+  static_assert(kRows <= Cls::kRows, "a pass fills at most the tile");
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int L = m.n_layers, F = m.multi_res, d0 = m.d0;
 
   // The encoding, and the first layer's bf16 input.
-  stage_first_slabs<false>(wpack + m.w_off[0], m.np_[0], m.kp[0], m.np_[0], S.ring);
-  for (int idx = tid; idx < kPts * kEncMax; idx += kRowsThreads) {
-    const int r = idx / kEncMax, c = idx % kEncMax;
+  stage_first_rows_slabs<Cls>(wpack + m.w_off[0], m.np_[0], m.kp[0], S.ring);
+  for (int idx = tid; idx < kPts * kEnc; idx += kRowsThreads) {
+    const int r = idx / kEnc, c = idx % kEnc;
     float xs[3], ts[3];
     for (int j = 0; j < 3; ++j) {
       xs[j] = S.pts[r][j] * scale;
@@ -210,8 +288,8 @@ __device__ void sdf_rows(RowsSmem& S, const float* dir, const bf16* __restrict__
     S.enc[r][c] = v;
     if (c < m.kp[0]) S.a[r][c] = to_bf16(v);
     if (DUAL) {
-      S.enc[64 + r][c] = t;
-      if (c < m.kp[0]) S.a[64 + r][c] = to_bf16(t);
+      S.enc[kPts + r][c] = t;
+      if (c < m.kp[0]) S.a[kPts + r][c] = to_bf16(t);
     }
   }
 
@@ -220,9 +298,9 @@ __device__ void sdf_rows(RowsSmem& S, const float* dir, const bf16* __restrict__
     const bool last = i + 1 == L, next_skip = !last && m.skip[i + 1];
     const int kp_next = last ? ((m.d_last + 15) / 16) * 16 : m.kp[i + 1];
     float acc[MT][8][4];
-    rows_product<DUAL, MT>(&S.a[0][0], wpack + m.w_off[i], m.kp[i], np, S.ring, acc);
-    if (!last) stage_first_slabs<false>(wpack + m.w_off[i + 1], m.np_[i + 1], m.kp[i + 1], m.np_[i + 1], S.ring);
-    rows_epilogue<DUAL, MT>(&S.a[0][0], acc, bpack + m.b_off[i], out, np, next_skip);
+    rows_product<DUAL, MT, Cls>(&S.a[0][0], wpack + m.w_off[i], m.kp[i], np, S.ring, acc);
+    if (!last) stage_first_rows_slabs<Cls>(wpack + m.w_off[i + 1], m.np_[i + 1], m.kp[i + 1], S.ring);
+    rows_epilogue<DUAL, MT, Cls>(&S.a[0][0], acc, bpack + m.b_off[i], out, np, next_skip);
     // Columns past this layer's output: the skip layer's encoding half
     // (x 1/sqrt2), then zeros up to the next padded width.
     const int tail = kp_next - out;
@@ -240,7 +318,7 @@ __device__ void sdf_rows(RowsSmem& S, const float* dir, const bf16* __restrict__
     float s = 0.0f;
     for (int c = lane; c < m.d_last; c += 32) s += bf(S.a[r][c]) * bf(to_bf16(w_sdf[c]));
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) S.sdf[r] = DUAL && r >= 64 ? s / scale : (s + b_sdf) / scale;
+    if (lane == 0) S.sdf[r] = DUAL && r >= kPts ? s / scale : (s + b_sdf) / scale;
   }
   __syncthreads();
 }
@@ -248,83 +326,91 @@ __device__ void sdf_rows(RowsSmem& S, const float* dir, const bf16* __restrict__
 // ---------------------------------------------------------------------------
 // The f32 engine
 
-constexpr int kRowsF32 = 64;                      // rows of the f32 engine's tile (a pass)
-constexpr int kSlabF32 = 32;                      // k-rows of an f32 weight slab
-constexpr int kRingStageF32 = kSlabF32 * kWMax;   // floats of a ring stage (row stride kWMax)
 
-// Shared memory of the f32 engine, laid out as RowsSmem: the tile (row
-// stride kLdZ), the encoding (in dual mode rows 32-63 hold the tangent's),
-// the ring, the raw points and the head's output (in dual mode sdf[32 + r]
-// is section r's directional derivative).
-struct RowsSmemF32 {
-  __align__(16) float a[kRowsF32][kLdZ];
-  __align__(16) float enc[kRowsF32][kEncMax];
-  __align__(16) float ring[kChainStages * kRingStageF32];
+// Shared memory of the f32 engine, laid out as RowsTile: the tile (row
+// stride kLdF), the encoding (in dual mode rows kRowsF / 2 .. hold the
+// tangent's), the ring, the raw points and the head's output (in dual mode
+// sdf[kRowsF / 2 + r] is section r's directional derivative).  The points
+// and outputs hold kRowsF32 value rows in either class: the wide class's
+// value sweep runs them as two passes of its 32-row tile.
+template <class Cls>
+struct RowsTileF32 {
+  __align__(16) float a[Cls::kRowsF][Cls::kLdF];
+  __align__(16) float enc[Cls::kRowsF][Cls::kEnc];
+  __align__(16) float ring[kChainStages * Cls::kSlabF * Cls::kW];
   float pts[kRowsF32][3];
   float sdf[kRowsF32];
 };
+using RowsSmemF32 = RowsTileF32<RowsNarrow>;
 
 // Issue (and commit, as one group) the copy of k-slab s of the row-major f32
 // [K, N] weight B of row stride ldb (a multiple of 4) into ring stage
-// s % STAGES; an empty group past K.  The march's ring has kChainStages
-// stages, the 64-point kernels' f32 instances two.
-template <int STAGES = kChainStages>
+// s % STAGES (Cls's slabs of kSlabF k-rows, row stride kW); an empty group
+// past K.  The march's ring has kChainStages stages, the 64-point kernels'
+// f32 instances two.
+template <int STAGES = kChainStages, class Cls = RowsNarrow>
 __device__ __forceinline__ void stage_slab_f32(const float* __restrict__ B, int ldb, int K, int N, float* ring,
                                                int s) {
-  const int tid = threadIdx.x, k0 = s * kSlabF32, cpr = N / 4;
-  float* dst = ring + (s % STAGES) * kRingStageF32;
+  const int tid = threadIdx.x, k0 = s * Cls::kSlabF, cpr = N / 4;
+  float* dst = ring + (s % STAGES) * (Cls::kSlabF * Cls::kW);
   if (k0 < K) {
-    for (int idx = tid; idx < kSlabF32 * cpr; idx += kRowsThreads) {
+    for (int idx = tid; idx < Cls::kSlabF * cpr; idx += kRowsThreads) {
       const int r = idx / cpr, c = (idx % cpr) * 4;
-      if (k0 + r < K) cp_async16(dst + r * kWMax + c, B + (size_t)(k0 + r) * ldb + c);
+      if (k0 + r < K) cp_async16(dst + r * Cls::kW + c, B + (size_t)(k0 + r) * ldb + c);
     }
   }
   cp_async_commit();
 }
 
-template <int STAGES = kChainStages>
+template <int STAGES = kChainStages, class Cls = RowsNarrow>
 __device__ __forceinline__ void stage_first_slabs_f32(const float* __restrict__ B, int ldb, int K, int N,
                                                       float* ring) {
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) stage_slab_f32<STAGES>(B, ldb, K, N, ring, s);
+  for (int s = 0; s < STAGES - 1; ++s) stage_slab_f32<STAGES, Cls>(B, ldb, K, N, ring, s);
 }
 
-// Row i (0-7) of row group g (0-7): dual mode, sections 4 g .. +3 and their
-// tangent rows 32 below; value mode, rows 8 g .. +7.
-template <bool DUAL>
+// Row i (0-7) of row group g (kRowsF / 8 groups): dual mode, sections
+// 4 g .. +3 and their tangent rows kRowsF / 2 below; value mode, rows
+// 8 g .. +7.
+template <bool DUAL, class Cls = RowsNarrow>
 __device__ __forceinline__ int f32_row(int g, int i) {
-  return DUAL ? (i < 4 ? 4 * g + i : 32 + 4 * g + i - 4) : 8 * g + i;
+  return DUAL ? (i < 4 ? 4 * g + i : Cls::kRowsF / 2 + 4 * g + i - 4) : 8 * g + i;
 }
+
+// Threads of an f32 row group: 64 narrow (columns 0-255), 128 wide (0-511).
+template <class Cls>
+constexpr int kGroupThreadsF32 = kRowsThreads / (Cls::kRowsF / 8);
 
 // acc = A[the thread's 8 rows, :kp] @ W[kp, np] at its 4 columns (zeros
-// where they lie past np), after stage_first_slabs_f32(W, ldw, kp, np,
-// ring); A's row stride is lda, W's ldw (multiples of 4).  Every thread
-// must call it; it begins with a barrier and returns with the ring free and
-// every thread past its last read of A.
-template <bool DUAL, int STAGES = kChainStages>
+// where they lie past np), after stage_first_slabs_f32<STAGES, Cls>(W, ldw,
+// kp, np, ring); A's row stride is lda, W's ldw (multiples of 4).  Every
+// thread must call it; it begins with a barrier and returns with the ring
+// free and every thread past its last read of A.
+template <bool DUAL, int STAGES = kChainStages, class Cls = RowsNarrow>
 __device__ __forceinline__ void rows_product_f32(const float* A, int lda, const float* __restrict__ W, int ldw,
                                                  int kp, int np, float* ring, float (&acc)[8][4]) {
-  const int g = threadIdx.x >> 6, c0 = (threadIdx.x & 63) * 4;
+  constexpr int kGT = kGroupThreadsF32<Cls>, kSl = Cls::kSlabF;
+  const int g = threadIdx.x / kGT, c0 = (threadIdx.x % kGT) * 4;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
-  const int nslab = (kp + kSlabF32 - 1) / kSlabF32;
+  const int nslab = (kp + kSl - 1) / kSl;
   for (int s = 0; s < nslab; ++s) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();
-    stage_slab_f32<STAGES>(W, ldw, kp, np, ring, s + STAGES - 1);
-    const float* Ws = ring + (s % STAGES) * kRingStageF32 + c0;
-    const int kend = min(kSlabF32, kp - s * kSlabF32);
+    stage_slab_f32<STAGES, Cls>(W, ldw, kp, np, ring, s + STAGES - 1);
+    const float* Ws = ring + (s % STAGES) * (kSl * Cls::kW) + c0;
+    const int kend = min(kSl, kp - s * kSl);
     if (c0 < np) {
       for (int kk = 0; kk < kend; kk += 4) {
         float4 a[8];
 #pragma unroll
         for (int i = 0; i < 8; ++i)
-          a[i] = *reinterpret_cast<const float4*>(A + f32_row<DUAL>(g, i) * lda + s * kSlabF32 + kk);
+          a[i] = *reinterpret_cast<const float4*>(A + f32_row<DUAL, Cls>(g, i) * lda + s * kSl + kk);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const float4 w = *reinterpret_cast<const float4*>(Ws + (kk + q) * kWMax);
+          const float4 w = *reinterpret_cast<const float4*>(Ws + (kk + q) * Cls::kW);
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
             const float av = q == 0 ? a[i].x : q == 1 ? a[i].y : q == 2 ? a[i].z : a[i].w;
@@ -344,10 +430,11 @@ __device__ __forceinline__ void rows_product_f32(const float* A, int lda, const 
 // Layer output from the accumulators, written in place into A at the
 // columns below `out`: h = softplus(100 (z + b)) / 100 and, before a skip
 // layer, h / sqrt2; in dual mode the tangent t gate, / sqrt2 the same way.
-template <bool DUAL>
+template <bool DUAL, class Cls = RowsNarrow>
 __device__ __forceinline__ void rows_epilogue_f32(float* A, const float (&acc)[8][4], const float* __restrict__ b,
                                                   int out, bool next_skip) {
-  const int g = threadIdx.x >> 6, c0 = (threadIdx.x & 63) * 4;
+  constexpr int kGT = kGroupThreadsF32<Cls>;
+  const int g = threadIdx.x / kGT, c0 = (threadIdx.x % kGT) * 4;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int col = c0 + e;
@@ -357,35 +444,37 @@ __device__ __forceinline__ void rows_epilogue_f32(float* A, const float (&acc)[8
     for (int i = 0; i < (DUAL ? 4 : 8); ++i) {
       float sp, gate;
       softplus100_gate(acc[i][e] + bc, &sp, &gate);
-      A[f32_row<DUAL>(g, i) * kLdZ + col] = next_skip ? sp * kInvSqrt2 : sp;
+      A[f32_row<DUAL, Cls>(g, i) * Cls::kLdF + col] = next_skip ? sp * kInvSqrt2 : sp;
       if (DUAL) {
         const float t = acc[i + 4][e] * gate;
-        A[f32_row<DUAL>(g, i + 4) * kLdZ + col] = next_skip ? t * kInvSqrt2 : t;
+        A[f32_row<DUAL, Cls>(g, i + 4) * Cls::kLdF + col] = next_skip ? t * kInvSqrt2 : t;
       }
     }
   }
 }
 
-// The SDF MLP on the f32 engine's 64 rows: DUAL, 32 sections (S.pts[0..31],
-// all along direction dir) and their tangents; otherwise 64 value rows.
-// Out: S.sdf[r] = sdf of row r, and in dual mode S.sdf[32 + r] = dir . grad
-// sdf of section r.  wpack holds the f32 weights in pack_sdf_mlp's layout.
-// Every thread of the block calls it; it ends with __syncthreads.
-template <bool DUAL>
-__device__ void sdf_rows_f32(RowsSmemF32& S, const float* dir, const float* __restrict__ wpack,
+// The SDF MLP on the f32 engine's kRowsF rows (64 narrow, 32 wide): DUAL,
+// kRowsF / 2 sections (S.pts[0 ..], all along direction dir) and their
+// tangents; otherwise kRowsF value rows, the points S.pts[row0 ..].  Out:
+// S.sdf[row0 + r] = sdf of row r, and in dual mode S.sdf[kRowsF / 2 + r] =
+// dir . grad sdf of section r.  wpack holds the f32 weights in
+// pack_sdf_mlp's layout.  Every thread of the block calls it; it ends with
+// __syncthreads.
+template <bool DUAL, class Cls = RowsNarrow>
+__device__ void sdf_rows_f32(RowsTileF32<Cls>& S, const float* dir, const float* __restrict__ wpack,
                              const float* __restrict__ bpack, const float* __restrict__ w_sdf, const SdfMeta& m,
-                             float scale) {
-  constexpr int kRows = kRowsF32, kPts = DUAL ? kRows / 2 : kRows;
+                             float scale, int row0 = 0) {
+  constexpr int kRows = Cls::kRowsF, kPts = DUAL ? kRows / 2 : kRows, kEnc = Cls::kEnc, ST = kChainStages;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int L = m.n_layers, F = m.multi_res, d0 = m.d0;
 
   // The encoding, which is also the first layer's input.
-  stage_first_slabs_f32(wpack + m.w_off[0], m.np_[0], m.kp[0], m.np_[0], S.ring);
-  for (int idx = tid; idx < kPts * kEncMax; idx += kRowsThreads) {
-    const int r = idx / kEncMax, c = idx % kEncMax;
+  stage_first_slabs_f32<ST, Cls>(wpack + m.w_off[0], m.np_[0], m.kp[0], m.np_[0], S.ring);
+  for (int idx = tid; idx < kPts * kEnc; idx += kRowsThreads) {
+    const int r = idx / kEnc, c = idx % kEnc;
     float xs[3], ts[3];
     for (int j = 0; j < 3; ++j) {
-      xs[j] = S.pts[r][j] * scale;
+      xs[j] = S.pts[row0 + r][j] * scale;
       ts[j] = DUAL ? dir[j] * scale : 0.0f;
     }
     float t = 0.0f, v = 0.0f;
@@ -403,9 +492,11 @@ __device__ void sdf_rows_f32(RowsSmemF32& S, const float* dir, const float* __re
     const bool last = i + 1 == L, next_skip = !last && m.skip[i + 1];
     const int kp_next = last ? ((m.d_last + 15) / 16) * 16 : m.kp[i + 1];
     float acc[8][4];
-    rows_product_f32<DUAL>(&S.a[0][0], kLdZ, wpack + m.w_off[i], m.np_[i], m.kp[i], m.np_[i], S.ring, acc);
-    if (!last) stage_first_slabs_f32(wpack + m.w_off[i + 1], m.np_[i + 1], m.kp[i + 1], m.np_[i + 1], S.ring);
-    rows_epilogue_f32<DUAL>(&S.a[0][0], acc, bpack + m.b_off[i], out, next_skip);
+    rows_product_f32<DUAL, ST, Cls>(&S.a[0][0], Cls::kLdF, wpack + m.w_off[i], m.np_[i], m.kp[i], m.np_[i], S.ring,
+                                    acc);
+    if (!last)
+      stage_first_slabs_f32<ST, Cls>(wpack + m.w_off[i + 1], m.np_[i + 1], m.kp[i + 1], m.np_[i + 1], S.ring);
+    rows_epilogue_f32<DUAL, Cls>(&S.a[0][0], acc, bpack + m.b_off[i], out, next_skip);
     // Columns past this layer's output: the skip layer's encoding half
     // (x 1/sqrt2), then zeros up to the next padded width.
     const int tail = kp_next - out;
@@ -423,7 +514,7 @@ __device__ void sdf_rows_f32(RowsSmemF32& S, const float* dir, const float* __re
     float s = 0.0f;
     for (int c = lane; c < m.d_last; c += 32) s = fmaf(S.a[r][c], w_sdf[c], s);
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) S.sdf[r] = DUAL && r >= kPts ? s / scale : (s + b_sdf) / scale;
+    if (lane == 0) S.sdf[row0 + r] = DUAL && r >= kPts ? s / scale : (s + b_sdf) / scale;
   }
   __syncthreads();
 }

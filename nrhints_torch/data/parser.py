@@ -10,9 +10,13 @@ halves every intrinsic, ``cx`` included (the original code halved ``cy``
 into ``cx``, a typo the JAX package fixed too).  ``white_background``
 composites RGBA over white; otherwise the alpha is dropped.
 
-Images are read by the package's own readers (``data/png.py``,
-``data/exr.py``, numpy + zlib), so no image library is needed; each raises
-with the reason on a format it lacks.
+Images other than ``.npy`` are read through ``imageio.v3`` where it is
+installed, as the JAX package reads them (any format imageio reads: palette
+and interlaced PNGs, ``.jpg``, PIZ-compressed EXRs), else by the package's
+own readers (``data/png.py``, ``data/exr.py``, numpy + zlib), which raise
+with the reason on a format they lack; an EXR that imageio cannot read
+falls back to ``data/exr.py``.  8-bit images are divided by 255; any other
+integer image (a 16-bit PNG) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -46,9 +50,21 @@ class SceneData:
 def _load_image(path: pathlib.Path, ext: str) -> np.ndarray:
     if ext == ".npy":
         return np.load(path)
-    if ext == ".exr":
-        return read_exr(path)  # float HDR, no scaling
-    return read_png(path) / 255.0
+    try:
+        import imageio.v3 as iio
+    except ImportError:
+        iio = None
+    if ext == ".exr":  # float HDR, no scaling
+        if iio is not None:
+            try:
+                return iio.imread(path)
+            except Exception:
+                pass
+        return read_exr(path)
+    img = read_png(path) if iio is None else iio.imread(path)
+    if img.dtype != np.uint8:
+        raise NotImplementedError(f"{path}: {img.dtype} image; the parser takes 8-bit images, .exr and .npy")
+    return img / 255.0
 
 
 def _area_weights(n_in: int, n_out: int) -> np.ndarray:

@@ -22,7 +22,9 @@ instances of A, H, I and J, counted as ``sdf_core_fwd_f32``,
 core's width class picks A's, D's, E's and H's block (``core_class``): the
 64-point instances at the presets' widths (padded widths up to 256,
 encodings up to 64), the wide ones above them (up to 512 and 128, bf16
-only, counted as ``*_wide``).
+only, counted as ``*_wide``).  The march kernels C, K, L, M and N
+(``kernels/march.py``) have their own class above the presets' widths,
+``ROWS_WIDE``, at bf16 and f32 march weights.
 
 On CPU tensors every wrapper runs its plain version; on CUDA tensors it
 launches its kernel or raises.
@@ -199,11 +201,14 @@ MAX_LAYERS = 16  # SDF layers the CUDA kernels take (csrc/sdf_mlp.cuh::kMaxLayer
 
 @dataclass(frozen=True)
 class CoreClass:
-    """A width class of the SDF core's kernels A, D, E and H
-    (``csrc/staged_mma.cuh``'s CoreNarrow and CoreWide): points a block,
-    the widest padded layer (and feature head) and encoding it takes, the
-    suffix of its instances' launch counters and its bit in the dtypes
-    int (``csrc/mma_rows.cuh::kWideClass``)."""
+    """A width class of the SDF kernels: the SDF core's A, D, E and H
+    (``csrc/staged_mma.cuh``'s CoreNarrow and CoreWide) or the march
+    kernels' row engine (``csrc/mma_rows.cuh``'s RowsNarrow and RowsWide).
+    Points (rows) a block pass, the widest padded layer (and feature head)
+    and encoding it takes, the suffix of its instances' launch counters and
+    C entry points, and its bit in the SDF core's dtypes int
+    (``csrc/mma_rows.cuh::kWideClass``; 0 for the row engine, whose class
+    picks the entry point by name)."""
 
     pts: int
     width: int
@@ -214,16 +219,20 @@ class CoreClass:
 
 NARROW = CoreClass(CHAIN_TP, 256, ENC_MAX, "", 0)
 WIDE = CoreClass(32, 512, 2 * ENC_MAX, "_wide", 4)  # bf16 only
+# The row engine above the presets' widths (march kernels C, K, L, M, N):
+# 64 bf16 rows a pass (32 f32), bf16 and f32 march weights.
+ROWS_WIDE = CoreClass(64, 512, 2 * ENC_MAX, "_wide", 0)
 
 
 def core_class(cfg: SDFNetConfig, with_feat: bool = True, compute_dtype: str = "bfloat16") -> CoreClass:
     """The width class whose CUDA instances take ``cfg``'s SDF: NARROW at
     padded widths up to 256 and encodings up to 64 (the presets' and every
-    published width), else WIDE, the SDF core's (``with_feat``) bf16
-    instances up to 512 and 128.  Raises ``NotImplementedError`` for what no
-    instance takes: the march kernels C, K, L, M and N (``with_feat=False``)
-    above NARROW, the core above WIDE or at f32 above NARROW, more than 16
-    layers, a skip at layer 0."""
+    published width), else up to 512 and 128 WIDE, the SDF core's
+    (``with_feat``) bf16 instances, or ROWS_WIDE, the march kernels C, K,
+    L, M and N (``with_feat=False``) at bf16 or f32.  Raises
+    ``NotImplementedError`` for what no instance takes: widths above 512 or
+    encodings above 128, the core at f32 above NARROW, more than 16 layers,
+    a skip at layer 0."""
     if cfg.d_in != 3 or 0 in cfg.skip_in or cfg.n_layers > MAX_LAYERS:
         raise NotImplementedError(f"the CUDA SDF kernels take 3-D points, at most {MAX_LAYERS} layers and no skip at "
                                   "layer 0 (ROADMAP.md Queue 2 item 15)")
@@ -233,13 +242,12 @@ def core_class(cfg: SDFNetConfig, with_feat: bool = True, compute_dtype: str = "
     if width <= NARROW.width and enc <= NARROW.enc:
         return NARROW
     got = f"got padded width {width} and encoding {enc}"
-    if not with_feat:
-        raise NotImplementedError(f"the CUDA march kernels (C, K, L, M, N) take padded widths up to {NARROW.width} "
-                                  f"and encodings up to {NARROW.enc}, {got}; route the march's sweeps and final "
-                                  "sweep to 'xla' (ROADMAP.md Queue 2 item 13)")
     if width > WIDE.width or enc > WIDE.enc:
-        raise NotImplementedError(f"the CUDA SDF core (kernels A, D, E, H) takes padded widths up to {WIDE.width} "
-                                  f"and encodings up to {WIDE.enc}, {got} (ROADMAP.md Queue 2 item 15)")
+        kernels = "SDF core (kernels A, D, E, H) takes" if with_feat else "march kernels (C, K, L, M, N) take"
+        raise NotImplementedError(f"the CUDA {kernels} padded widths up to {WIDE.width} and encodings up to "
+                                  f"{WIDE.enc}, {got} (ROADMAP.md Queue 2 item 15)")
+    if not with_feat:
+        return ROWS_WIDE
     if compute_dtype != "bfloat16":
         raise NotImplementedError(f"the CUDA SDF core's instances above padded width {NARROW.width} or encoding "
                                   f"{NARROW.enc} are bf16 only, {got} at {compute_dtype} (ROADMAP.md Queue 2 item 15)")
@@ -407,6 +415,17 @@ def materialize_mlp_weights(params: dict, n_layers: int) -> tuple:
     return tuple(out)
 
 
+def check_trunk_widths(dims: Sequence[tuple[int, int]]) -> None:
+    """Raise ``NotImplementedError`` where the trunk's (in, out) layer
+    widths exceed what the CUDA trunk kernels (F, G, I, J) take: padded
+    hidden widths up to 256, a padded input up to ``IN_MAX``."""
+    if max(_round16(o) for _, o in dims) > 256 or _round16(dims[0][0]) > IN_MAX or any(
+        _round16(i) > 256 for i, _ in dims[1:]
+    ):
+        raise NotImplementedError(f"the CUDA trunk kernels take hidden widths up to 256 and inputs up to {IN_MAX} "
+                                  "(ROADMAP.md Queue 2 item 14)")
+
+
 def pack_mlp(weights: Sequence[torch.Tensor], n_layers: int, dtype: torch.dtype = torch.bfloat16) -> dict:
     """Lay the trunk out as ``csrc/mlp_stash.cu`` reads it: per layer a
     zero-padded [kp, np] block (w [in, out]) in ``dtype`` and a padded f32
@@ -421,11 +440,7 @@ def pack_mlp(weights: Sequence[torch.Tensor], n_layers: int, dtype: torch.dtype 
         raise ValueError(f"the packed trunk weights are bf16 or f32, got {dtype}")
     dev = weights[0].device
     dims = [(weights[2 * i].shape[0], weights[2 * i].shape[1]) for i in range(n_layers + 1)]
-    if max(_round16(o) for _, o in dims) > 256 or _round16(dims[0][0]) > IN_MAX or any(
-        _round16(i) > 256 for i, _ in dims[1:]
-    ):
-        raise NotImplementedError(f"the CUDA trunk kernels take hidden widths up to 256 and inputs up to {IN_MAX} "
-                                  "(ROADMAP.md Queue 2 item 14)")
+    check_trunk_widths(dims)
     meta, w_off, b_off, z_off = [], 0, 0, 0
     for din, dout in dims:
         kp, np_ = _round16(din), _round16(dout)

@@ -23,7 +23,9 @@ int of dtype bits (``core_mlp.dtype_bits``); each instance counts under
 ``core_mlp.instance_name``: the kernel's name, with ``_f32`` for f32 dot
 operands and ``_f32stash`` / ``_bf16stash`` for a stash dtype other than
 the operands'; the SDF core's wide instances (``core_mlp.WIDE``: padded
-widths above 256 or encodings above 64, bf16 only) count as ``_wide``.
+widths above 256 or encodings above 64, bf16 only) count as ``_wide``, and
+so do the march kernels' wide instances (``core_mlp.ROWS_WIDE``: C, K, L,
+M and N, ``*_wide`` and ``*_f32_wide``, each its own C entry point).
 """
 from __future__ import annotations
 
@@ -55,6 +57,11 @@ SDF_CORE_INSTANCES = (
     + [f"{k}_wide" for k in ("sdf_core_fwd", "sdf_core_bwd", "sdf_stash_fwd", "sdf_stash_bwd", "sdf_stash_all_fwd",
                              "sdf_stash_all_bwd")]
 )
+# The march kernels' instances by weight dtype and width class: each is a
+# C entry point of march.cu (C) or march_fused.cu (K, L, M, N) and a launch
+# counter of the same name.
+MARCH_INSTANCES = [f"{k}{d}{w}" for k in ("shadow_final", "march_sweep", "march_rounds", "importance_march",
+                                          "shadow_march") for d in ("", "_f32") for w in ("", "_wide")]
 TRUNK_INSTANCES = (
     ["mlp_fwd", "mlp_fwd_f32", "mlp_bwd", "mlp_bwd_f32"]
     + [f"{k}{c}" for k in ("mlp_stash_fwd", "mlp_stash_bwd") for c in ("", "_f32", "_f32_bf16stash", "_f32stash")]
@@ -69,7 +76,8 @@ launch_counts = {
     "shadow_final_f32": 0, "march_sweep_f32": 0, "march_rounds_f32": 0, "importance_march_f32": 0,
     "shadow_march_f32": 0,
 }
-launch_counts.update({k: 0 for k in SDF_CORE_INSTANCES + TRUNK_INSTANCES if k not in launch_counts})
+launch_counts.update({k: 0 for k in SDF_CORE_INSTANCES + TRUNK_INSTANCES + MARCH_INSTANCES
+                      if k not in launch_counts})
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -91,18 +99,15 @@ _SIGNATURES = {
     },
     "march": {
         "round_machinery": [_P] * 9 + [_I, _I, _I, _F, _I, _I, _P],
-        "shadow_final": [_P] * 10 + [_I, _P, _F, _P],
-        "shadow_final_f32": [_P] * 10 + [_I, _P, _F, _P],
+        **{f"shadow_final{k}": [_P] * 10 + [_I, _P, _F, _P] for k in ("", "_f32", "_wide", "_f32_wide")},
     },
     "march_fused": {
-        "march_sweep": [_P] * 7 + [_I, _P, _F, _P],
-        "march_rounds": [_P] * 8 + [_I, _P, _F, _F, _I, _P],
-        "importance_march": [_P] * 7 + [_I, _P, _F, _F, _I, _P],
-        "shadow_march": [_P] * 10 + [_I, _P, _F, _F, _I, _P],
-        "march_sweep_f32": [_P] * 7 + [_I, _P, _F, _P],
-        "march_rounds_f32": [_P] * 8 + [_I, _P, _F, _F, _I, _P],
-        "importance_march_f32": [_P] * 7 + [_I, _P, _F, _F, _I, _P],
-        "shadow_march_f32": [_P] * 10 + [_I, _P, _F, _F, _I, _P],
+        f"{fn}{k}": sig
+        for fn, sig in (("march_sweep", [_P] * 7 + [_I, _P, _F, _P]),
+                        ("march_rounds", [_P] * 8 + [_I, _P, _F, _F, _I, _P]),
+                        ("importance_march", [_P] * 7 + [_I, _P, _F, _F, _I, _P]),
+                        ("shadow_march", [_P] * 10 + [_I, _P, _F, _F, _I, _P]))
+        for k in ("", "_f32", "_wide", "_f32_wide")
     },
 }
 _libs: dict[str, ctypes.CDLL] = {}

@@ -21,7 +21,12 @@ and the biases in f32; a bf16 sweep rounds its activations to bf16 after
 every layer, as the JAX sweeps do.  The weights' dtype picks the instance
 of C, K, L, M and N: bf16 weights the bf16 kernels, f32 weights
 (``march_dtype="float32"``) their f32 instances (``*_f32``: f32 weights,
-activations and FMAs, no rounding), counted under their own names.
+activations and FMAs, no rounding), counted under their own names.  The
+SDF's widths pick the row engine's class (``core_mlp.core_class(cfg,
+with_feat=False)``): the presets' widths (padded widths up to 256,
+encodings up to 64) the instances above, wider SDFs up to 512 and 128 the
+wide instances (``*_wide``, ``*_f32_wide``); wider still raises
+``NotImplementedError`` before any launch.
 """
 from __future__ import annotations
 
@@ -358,14 +363,22 @@ def _kernel_fn(fn: str, weights) -> tuple[str, torch.dtype]:
     raise ValueError(f"{fn}: the march kernels take bf16 or f32 march weights, got {dt}")
 
 
+def _kernel_pack(fn: str, weights, cfg: SDFNetConfig) -> tuple[str, dict]:
+    """(entry point, pack) of a march kernel's instance: ``_kernel_fn``'s,
+    then ``_wide`` for the row engine's wide class (the pack's "cls",
+    ``core_mlp.core_class``, which raises for widths no instance takes)."""
+    fn, dt = _kernel_fn(fn, weights)
+    pk = pack_sdf_mlp(weights, cfg, with_feat=False, dtype=dt)
+    return fn + pk["cls"].suffix, pk
+
+
 def shadow_final(z, o, d, sdist, inv_s, cos_anneal, weights, cfg: SDFNetConfig) -> torch.Tensor:
     """tau [B, 1]: kernel C on CUDA tensors (its bf16 or f32 instance, by
-    the weights' dtype), the plain version on CPU tensors.  ``inv_s`` and
-    ``cos_anneal`` may be 0-d tensors; the kernel reads them on the device,
-    so no host sync."""
+    the weights' dtype, of the SDF's width class), the plain version on CPU
+    tensors.  ``inv_s`` and ``cos_anneal`` may be 0-d tensors; the kernel
+    reads them on the device, so no host sync."""
     if z.device.type == "cpu":
         return shadow_final_plain(z, o, d, sdist, inv_s, cos_anneal, weights, cfg)
-    fn, wdt = _kernel_fn("shadow_final", weights)
     b, dev = z.shape[0], z.device
     for t, shape, name in ((z, (b, N_BUF), "z"), (o, (b, 3), "o"), (d, (b, 3), "d"), (sdist, (b, 1), "sdist")):
         require_cuda(t, shape, name)
@@ -374,7 +387,7 @@ def shadow_final(z, o, d, sdist, inv_s, cos_anneal, weights, cfg: SDFNetConfig) 
         return tau
     inv_s_t = torch.as_tensor(inv_s, dtype=torch.float32, device=dev).reshape(1)
     anneal_t = torch.as_tensor(cos_anneal, dtype=torch.float32, device=dev).reshape(1)
-    pk = pack_sdf_mlp(weights, cfg, with_feat=False, dtype=wdt)
+    fn, pk = _kernel_pack("shadow_final", weights, cfg)
     lib = cuda_lib.load("march")
     rc = getattr(lib, fn)(
         z.data_ptr(), o.data_ptr(), d.data_ptr(), sdist.data_ptr(),
@@ -433,11 +446,10 @@ def _check_merge(merge: str) -> int:
 
 def _launch_fused(name: str, fn: str, weights, cfg: SDFNetConfig, inputs, out_cols: int, rounds=4, n_new=16,
                   scalars=()) -> torch.Tensor:
-    """Kernel ``name`` (``fn`` of ``csrc/march_fused.cu``, or ``fn``_f32 for
-    f32 weights) on CUDA tensors: checks ``inputs`` ([(tensor, shape, name),
-    ...], the kernel's pointer arguments in order), packs the weights in
-    their dtype, launches -> [B, out_cols]."""
-    fn, wdt = _kernel_fn(fn, weights)
+    """Kernel ``name`` (``fn`` of ``csrc/march_fused.cu``, or its f32 or
+    wide instance, ``_kernel_pack``) on CUDA tensors: checks ``inputs``
+    ([(tensor, shape, name), ...], the kernel's pointer arguments in
+    order), packs the weights in their dtype, launches -> [B, out_cols]."""
     if (rounds, n_new) != (4, 16):
         raise NotImplementedError(f"kernel {name} runs 4 rounds of 16 samples")
     for t, shape, tname in inputs:
@@ -446,7 +458,7 @@ def _launch_fused(name: str, fn: str, weights, cfg: SDFNetConfig, inputs, out_co
     out = torch.empty((b, out_cols), device=dev)
     if b == 0:
         return out
-    pk = pack_sdf_mlp(weights, cfg, with_feat=False, dtype=wdt)
+    fn, pk = _kernel_pack(fn, weights, cfg)
     lib = cuda_lib.load("march_fused")
     rc = getattr(lib, fn)(
         *(t.data_ptr() for t, _, _ in inputs), pk["wpack"].data_ptr(), pk["bpack"].data_ptr(),

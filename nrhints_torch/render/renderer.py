@@ -36,9 +36,9 @@ fused trunk (kernel I without a gradient; F and G, or I and J under
 "recompute", with one).  On CUDA tensors every kernel runs on the card; on
 CPU tensors each kernel wrapper runs its plain version.  The march kernels
 take ``march_dtype`` "bfloat16" or "float32" (their f32 instances).  An
-SDF above the presets' widths runs the core's wide instances; the march
-kernels take the presets' widths only, so such a config routes its
-marches' sweeps and final sweep to "xla" (``check_kernel_widths``).
+SDF above the presets' widths, up to padded width 512 and encoding 128,
+runs the core's and the march kernels' wide instances on every route; what
+no instance takes raises before any launch (``check_kernel_widths``).
 
 Under a ``DataMesh`` with a sample axis (``parallel/mesh.py``) the marches
 route as JAX's on its ('data', 'sample') mesh: the fused kernels
@@ -67,10 +67,20 @@ from nrhints_torch.core.sampling import (
 )
 from nrhints_torch.core.structs import RayBundle, RenderOutput
 from nrhints_torch.fields.bg_nerf import BgNeRFConfig, bg_nerf_forward, bg_nerf_init
-from nrhints_torch.fields.reflectance import ReflectanceNetConfig, reflectance_forward, reflectance_init
+from nrhints_torch.fields.reflectance import (
+    ReflectanceNetConfig,
+    reflectance_forward,
+    reflectance_init,
+    reflectance_input_dim,
+)
 from nrhints_torch.fields.sdf import SDFNetConfig, sdf_init, sdf_only, sdf_value_and_dirderiv, sdf_value_feat_grad
 from nrhints_torch.fields.variance import VarianceConfig, inv_s_from_params, variance_init
-from nrhints_torch.kernels.core_mlp import core_class, fused_reflectance_forward, fused_sdf_value_feat_grad
+from nrhints_torch.kernels.core_mlp import (
+    check_trunk_widths,
+    core_class,
+    fused_reflectance_forward,
+    fused_sdf_value_feat_grad,
+)
 from nrhints_torch.kernels.march import fused_importance_z, fused_shadow_tau
 from nrhints_torch.parallel.mesh import DataMesh, sample_all_gather
 from nrhints_torch.utils import resolve_device
@@ -239,13 +249,17 @@ def check_ported(cfg: ModelConfig) -> None:
         raise ValueError(f"unknown depth_type {r.depth_type!r}")
 
 
-def check_kernel_widths(cfg: ModelConfig) -> None:
+def check_kernel_widths(cfg: ModelConfig, is_training: bool = True) -> None:
     """Raise ``NotImplementedError`` where this config's routes take its SDF
-    to a CUDA kernel none of whose instances takes its widths
-    (``core_mlp.core_class``): the SDF core (A, D, E, H) wherever it runs
-    fused, and the march kernels (C, K, L, M, N) wherever a fused march
-    launches one.  ``render_rays`` calls it for CUDA rays before any
-    launch; on CPU tensors the plain versions take any width."""
+    or its reflectance trunk to a CUDA kernel none of whose instances takes
+    its widths: the SDF core (A, D, E, H) wherever it runs fused
+    (``core_mlp.core_class``), the march kernels (C, K, L, M, N) wherever
+    a fused march launches one (their class, ``core_class(...,
+    with_feat=False)``), and the trunk (F, G, I, J) wherever the fused
+    trunk runs in training (``is_training``) or eval
+    (``core_mlp.check_trunk_widths``).  ``render_rays`` calls it for CUDA
+    rays before any launch; on CPU tensors the plain versions take any
+    width."""
     if not use_fused_core(cfg):
         return
     r, sdf_cfg = cfg.renderer, cfg.sdf_network
@@ -256,6 +270,11 @@ def check_kernel_widths(cfg: ModelConfig) -> None:
         xla_march and r.shadow_split and r.shadow_final_impl == "xla")
     if camera_rows or shadow_rows:
         core_class(sdf_cfg, with_feat=False)
+    if (r.reflectance_impl if is_training else r.eval_reflectance_impl) != "xla":
+        rn = cfg.reflectance_network
+        d0 = reflectance_input_dim(rn, sdf_cfg.d_out_feat, r.shadow_hint, r.specular_hint, len(r.specular_roughness))
+        dims = [d0] + [rn.d_hidden] * rn.n_layers + [3]
+        check_trunk_widths(list(zip(dims[:-1], dims[1:])))
 
 
 def _sample_axis_size(mesh: DataMesh | None) -> int:
@@ -569,7 +588,7 @@ def render_rays(
     whole on every rank of the group."""
     check_ported(cfg)
     if rays.origins.device.type == "cuda":
-        check_kernel_widths(cfg)
+        check_kernel_widths(cfg, is_training)
     if is_training and generator is None and uniforms is None:
         raise ValueError("render_rays(is_training=True) needs a generator or uniforms for its jitter")
     rcfg = cfg.renderer

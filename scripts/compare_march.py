@@ -10,7 +10,8 @@ random weights from seed 0, one 512-ray chunk of the 128x128 view and its
 512 shadow rays.  Each tree's ``nrhints_torch`` then runs, in a process of
 its own on a CUDA card, kernel K on the camera rays' z0, L on K's sdf0 and
 M on z0 under both merges, C on the shadow rays' refined z, N on their
-z0 under both merges, and the shipping route under both merges:
+z0 under both merges, each with the bf16 march weights and again with the
+f32 ones (the f32 instances), and the shipping route under both merges:
 ``fused_importance_z`` on the camera rays and ``fused_shadow_tau`` on the
 shadow rays with ``split=True`` and the "xla" sweeps and rounds (plain
 16-sample sweeps between kernel B's steps; C for the shadow rays' final
@@ -55,13 +56,16 @@ def run(tree: str, inputs: str, out: str) -> None:
     mw = [w.cuda() for w in t["mw"]]
     sdf_params = tree_to(t["sdf_params"], "cuda")
     o, d, z0, sl, sdir, sdist, z0s, sz, inv_s, anneal = (t[k].cuda() for k in INPUTS)
-    outs = {"K sdf0": march.march_sweep(z0, o, d, mw, cfg)}
-    for merge in ("bitonic", "rank"):
-        outs[f"L z ({merge})"] = march.march_rounds(z0, outs["K sdf0"], o, d, mw, cfg, merge=merge)
-        outs[f"M z ({merge})"] = march.importance_march(z0, o, d, mw, cfg, merge=merge)
-    outs["C tau"] = march.shadow_final(sz, sl, sdir, sdist, inv_s, anneal, mw, cfg)
-    for merge in ("bitonic", "rank"):
-        outs[f"N tau ({merge})"] = march.shadow_march(z0s, sl, sdir, sdist, inv_s, anneal, mw, cfg, merge=merge)
+    outs = {}
+    for label, w in (("", mw), (" f32", march.march_weights(sdf_params, cfg, "float32"))):
+        sdf0 = outs[f"K{label} sdf0"] = march.march_sweep(z0, o, d, w, cfg)
+        for merge in ("bitonic", "rank"):
+            outs[f"L{label} z ({merge})"] = march.march_rounds(z0, sdf0, o, d, w, cfg, merge=merge)
+            outs[f"M{label} z ({merge})"] = march.importance_march(z0, o, d, w, cfg, merge=merge)
+        outs[f"C{label} tau"] = march.shadow_final(sz, sl, sdir, sdist, inv_s, anneal, w, cfg)
+        for merge in ("bitonic", "rank"):
+            outs[f"N{label} tau ({merge})"] = march.shadow_march(z0s, sl, sdir, sdist, inv_s, anneal, w, cfg,
+                                                                 merge=merge)
     ship = dict(mlp_dtype=mcfg.renderer.march_dtype, split=True, sweep_impl="xla", rounds_impl="xla")
 
     def shipping_z(merge="bitonic"):
@@ -113,7 +117,8 @@ def main() -> int:
         equal &= same
         print(f"march {name}: max abs difference {(a[name] - b[name]).abs().max().item():.3e}; "
               f"equal bit for bit: {same}")
-    print(f"march kernels K, L, M, C, N and the shipping route (B), {sys.argv[1]} against {sys.argv[2]}: all outputs "
+    print(f"march kernels K, L, M, C, N (bf16 and f32) and the shipping route (B), {sys.argv[1]} against "
+          f"{sys.argv[2]}: all outputs "
           f"equal bit for bit: {equal}")
     return 0
 

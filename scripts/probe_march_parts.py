@@ -56,9 +56,9 @@ NO_SOFTPLUS = [
     (ROWS, "softplus100_gate(acc[MT - 1][j][e] + bc, &sp, &gate);", "sp = acc[MT - 1][j][e] + bc;"),
 ]
 NO_COPIES = [
-    (ROWS, "stage_slab<false>(W, np, kp, np, ring, s + kChainStages - 1);", "cp_async_commit();"),
-    (ROWS, "  stage_first_slabs<false>(wpack + m.w_off[0]", "  if (0) stage_first_slabs<false>(wpack + m.w_off[0]"),
-    (ROWS, "if (!last) stage_first_slabs", "if (0) stage_first_slabs"),
+    (ROWS, "stage_rows_slab<Cls>(W, np, kp, ring, s + kChainStages - 1);", "cp_async_commit();"),
+    (ROWS, "  stage_first_rows_slabs<Cls>(wpack + m.w_off[0]", "  if (0) stage_first_rows_slabs<Cls>(wpack + m.w_off[0]"),
+    (ROWS, "if (!last) stage_first_rows_slabs", "if (0) stage_first_rows_slabs"),
 ]
 NO_MMA = [(ROWS, "for (int i = 0; i < MT; ++i) mma_16816(", "for (int i = 0; i < 0; ++i) mma_16816(")]
 NO_FRAGMENTS = [(ROWS, "for (int kk = 0; kk < kend; kk += 16) {", "for (int kk = 0; kk < 0; kk += 16) {")]

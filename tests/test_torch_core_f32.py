@@ -18,6 +18,15 @@ of its ``jax.vjp`` a route).  Tolerances, each of a tensor's own scale:
   stash tests, outputs 2e-3 where the operands are bf16 (1e-5 where they
   are f32), gradients 2e-2: an f32 value within an ulp of a bf16 rounding
   boundary can round the other way on either side.
+* the "bf16/f32" route at the inputs of seed 11, a case of its own
+  (test_bf16_f32stash_seed11_matches_jax): there /out_sdf/g, a scalar
+  gain whose gradient sums every point's sdf cotangent, reads 2.18e-2 of
+  its scale against JAX, while JAX's own bf16 result lies 4.94e-2 of that
+  scale from JAX's exact f32 one (and the port's 2.76e-2 from it): the two
+  bf16 results differ by less than half of what bf16 operands move that
+  leaf.  So it is held to JAX's own bf16-to-f32 spread there, and every
+  other output and leaf to the tolerances above (measured: the worst other
+  leaf, /lin1/b, 1.04e-2).
 """
 import re
 
@@ -65,11 +74,7 @@ def _close_scaled(port, ref, tol, what=""):
 def case():
     """The inputs of tests/test_torch_kernels.py's stash cases (seed 4)."""
     jc, jp, tc, tp = jax_sdf_params()
-    rng = np.random.default_rng(4)
-    x = (rng.normal(size=(N_PTS, 3)) * 0.4).astype(np.float32)
-    cots = (rng.normal(size=(N_PTS,)).astype(np.float32), rng.normal(size=(N_PTS, tc.d_out_feat)).astype(np.float32),
-            rng.normal(size=(N_PTS, 3)).astype(np.float32))
-    return jc, jp, tc, tp, x, cots
+    return (jc, jp, tc, tp, *_inputs(4, tc))
 
 
 def _jax_call(jc, route):
@@ -85,20 +90,7 @@ def jax_runs(case):
     """route -> (outputs, named parameter cotangents, x's cotangent) of the
     JAX package's call, one jitted vjp each."""
     jc, jp, _, _, x, cots = case
-    params = jax.tree_util.tree_map(jnp.asarray, jp)
-    out = {}
-    for route in ROUTES:
-        if route == "f32/bf16":
-            continue
-        call = _jax_call(jc, route)
-
-        @jax.jit
-        def run(p, xx, c, call=call):
-            o, vjp = jax.vjp(call, p, xx)
-            return o, vjp(c)
-
-        o, (dp, dx) = run(params, jnp.asarray(x), tuple(jnp.asarray(c) for c in cots))
-        out[route] = ([np.asarray(a) for a in o], {n: np.asarray(g) for n, g in tree_items(dp)}, np.asarray(dx))
+    out = {route: _jax_run(jc, jp, route, x, cots) for route in ROUTES if route != "f32/bf16"}
     out["f32/bf16"] = out["stash"]
     return out
 
@@ -115,6 +107,28 @@ def _port_call(tc, tp, route, x):
     else:
         out = tcs.fused_sdf_value_feat_grad_stash(params, tc, x, compute_dtype=compute, **kw)
     return out, leaves
+
+
+def _inputs(seed, tc):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(N_PTS, 3)) * 0.4).astype(np.float32)
+    cots = (rng.normal(size=(N_PTS,)).astype(np.float32), rng.normal(size=(N_PTS, tc.d_out_feat)).astype(np.float32),
+            rng.normal(size=(N_PTS, 3)).astype(np.float32))
+    return x, cots
+
+
+def _jax_run(jc, jp, route, x, cots):
+    """(outputs, named parameter cotangents, x's cotangent) of one jitted
+    vjp of JAX's call on a route."""
+    call = _jax_call(jc, route)
+
+    @jax.jit
+    def run(p, xx, c):
+        o, vjp = jax.vjp(call, p, xx)
+        return o, vjp(c)
+
+    o, (dp, dx) = run(jax.tree_util.tree_map(jnp.asarray, jp), jnp.asarray(x), tuple(jnp.asarray(c) for c in cots))
+    return [np.asarray(a) for a in o], {n: np.asarray(g) for n, g in tree_items(dp)}, np.asarray(dx)
 
 
 @pytest.mark.parametrize("route", sorted(ROUTES))
@@ -138,6 +152,34 @@ def test_f32_entry_points_match_jax(case, jax_runs, route):
     assert sorted(j_dp) == sorted(leaves)
     for (name, _), g in zip(leaves.items(), grads[1:]):
         _close_scaled(g, j_dp[name], grad_tol, name)
+
+
+def test_bf16_f32stash_seed11_matches_jax():
+    """The "bf16/f32" route (bf16 operands, an f32 stash) at the inputs of
+    seed 11, against JAX's same call, with JAX's exact "f32/f32" call on
+    the same inputs as the yardstick of /out_sdf/g (see the module
+    docstring): there the port's bf16 gradient lies no farther from JAX's
+    than JAX's bf16 gradient lies from its f32 one; every other output and
+    leaf within the route's tolerances."""
+    jc, jp, tc, tp = jax_sdf_params()
+    x, cots = _inputs(11, tc)
+    j_out, j_dp, j_dx = _jax_run(jc, jp, "bf16/f32", x, cots)
+    j_dp_f32 = _jax_run(jc, jp, "f32/f32", x, cots)[1]
+    out_tol, grad_tol = _tols("bfloat16", "float32")
+    xt = torch.tensor(x, requires_grad=True)
+    out, leaves = _port_call(tc, tp, "bf16/f32", xt)
+    grads = torch.autograd.grad(out, [xt, *leaves.values()], tuple(torch.tensor(c) for c in cots))
+    for name, a, b in zip(("sdf", "feat", "grad"), out, j_out):
+        _close_scaled(a, b, out_tol, name)
+    _close_scaled(grads[0], j_dx, grad_tol, "dx")
+    assert sorted(j_dp) == sorted(leaves)
+    for (name, _), g in zip(leaves.items(), grads[1:]):
+        if name != "/out_sdf/g":
+            _close_scaled(g, j_dp[name], grad_tol, name)
+            continue
+        port, ref = g.detach().numpy().reshape(j_dp[name].shape), j_dp[name]
+        spread = np.abs(ref - j_dp_f32[name]).max()
+        assert np.abs(port - ref).max() <= spread, (np.abs(port - ref).max(), spread)
 
 
 @pytest.mark.parametrize("compute,stash", [("float32", "float32"), ("float32", "bfloat16"), ("bfloat16", "float32")])

@@ -124,19 +124,48 @@ def test_make_hints_scene_matches_jax(tmp_path, scene_dir):
             np.testing.assert_array_equal(read_png(scene_dir / f), iio.imread(jdir / f))
 
 
-def _rewrite_frames(src, dst, ext: str, intrinsics=None):
+# Adam7's passes: (x0, y0, dx, dy) of each pass's sub-image.
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _interlaced_png_bytes(img):
+    """An 8-bit RGBA PNG of ``img`` [H, W, 4] uint8 under Adam7 interlacing
+    (each pass's rows unfiltered), written here: imageio's PNG writers
+    (Pillow, OpenCV) write no interlaced PNG."""
+    H, W, _ = img.shape
+    rows = b"".join(b"\x00" + row.tobytes() for x0, y0, dx, dy in _ADAM7
+                    for row in img[y0::dy, x0::dx] if row.size)
+
+    def chunk(t, d):
+        return struct.pack(">I", len(d)) + t + d + struct.pack(">I", zlib.crc32(t + d))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 6, 0, 0, 1))
+            + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
+
+
+def _rewrite_frames(src, dst, ext: str, intrinsics=None, png=None):
     """A copy of the scene whose frames are ``ext`` files of the same RGBA
-    pixels (.npy as floats in [0, 1], .exr as float EXR)."""
+    pixels (.npy as floats in [0, 1], .exr as float EXR); with ``png``
+    "palette", 16-colour palette PNGs of their RGB (imageio's Pillow writer,
+    quantized), with "interlaced" Adam7-interlaced RGBA PNGs."""
+    import imageio
+
     dst.mkdir()
     for split in SPLITS:
         meta = json.loads((src / f"transforms_{split}.json").read_text())
         (dst / split).mkdir()
         for frame in meta["frames"]:
-            rgba = read_png(src / (frame["file_path"] + ".png")) / 255.0
-            if ext == ".npy":
-                np.save(dst / (frame["file_path"] + ".npy"), rgba)
+            rgba8 = read_png(src / (frame["file_path"] + ".png"))
+            rgba = rgba8 / 255.0
+            out = dst / (frame["file_path"] + ext)
+            if png == "palette":
+                imageio.imwrite(out, rgba8[..., :3], format="PNG-PIL", quantize=16)
+            elif png == "interlaced":
+                out.write_bytes(_interlaced_png_bytes(rgba8))
+            elif ext == ".npy":
+                np.save(out, rgba)
             else:
-                texr.write_exr(dst / (frame["file_path"] + ".exr"), rgba, pixel_type="float")
+                texr.write_exr(out, rgba, pixel_type="float")
             frame["file_ext"] = ext
         if intrinsics is not None:
             meta["camera_intrinsics"] = intrinsics
@@ -144,15 +173,22 @@ def _rewrite_frames(src, dst, ext: str, intrinsics=None):
     return dst
 
 
-@pytest.mark.parametrize("case", ["png", "png-black", "png-half", "npy-intrinsics", "exr"])
+@pytest.mark.parametrize("case", ["png", "png-black", "png-half", "npy-intrinsics", "exr", "png-palette",
+                                  "png-interlaced"])
 def test_parser_matches_jax(tmp_path, scene_dir, case):
     """SceneData arrays and camera equal to JAX's parser's: exact, 1e-6 at
-    half_res."""
+    half_res; palette and interlaced PNGs (read through imageio, as JAX
+    reads them) too, the interlaced scene's images equal to the plain
+    PNGs'."""
     path = scene_dir
     if case.startswith("npy"):
         path = _rewrite_frames(scene_dir, tmp_path / "npy", ".npy", intrinsics=[7.5, 8.25, 20.0, 21.0])
     elif case == "exr":
         path = _rewrite_frames(scene_dir, tmp_path / "exr", ".exr")
+    elif case in ("png-palette", "png-interlaced"):
+        path = _rewrite_frames(scene_dir, tmp_path / case, ".png", png=case[4:])
+        with pytest.raises(NotImplementedError, match="interlaced" if case == "png-interlaced" else "colour type 3"):
+            read_png(path / "train" / "r_0.png")
     kw = dict(half_res=case == "png-half", white_background=case != "png-black")
     t, j = tparser.parse_load_nr_data(path, **kw), jparser.parse_load_nr_data(path, **kw)
     tol = 1e-6 if kw["half_res"] else 0.0
@@ -164,6 +200,24 @@ def test_parser_matches_jax(tmp_path, scene_dir, case):
     assert t.images.shape[1:3] == ((8, 8) if kw["half_res"] else (16, 16))
     if case.startswith("npy"):
         assert (t.camera.cx, t.camera.cy, t.camera.fx, t.camera.fy) == (7.5, 8.25, 20.0, 21.0)
+    if case == "png-interlaced":
+        np.testing.assert_array_equal(t.images, tparser.parse_load_nr_data(scene_dir).images)
+
+
+def test_parser_rejects_16bit_png(tmp_path, scene_dir):
+    """A 16-bit PNG (read by imageio as uint16) raises, as the port's own
+    reader does, where JAX divides it by 255."""
+    import shutil
+
+    import imageio.v3 as iio
+
+    path = tmp_path / "png16"
+    shutil.copytree(scene_dir, path)
+    first = path / "train" / "r_0.png"
+    iio.imwrite(first, read_png(first)[..., 0].astype(np.uint16) * 257)  # 16-bit gray
+    assert iio.imread(first).dtype == np.uint16
+    with pytest.raises(NotImplementedError, match="uint16"):
+        tparser.parse_load_nr_data(path)
 
 
 @pytest.mark.parametrize("compression", ["none", "zips", "zip"])

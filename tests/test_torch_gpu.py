@@ -430,9 +430,10 @@ def test_sdf_core_wide_backward_matches_plain(cuda, name, n):
 
 @pytest.mark.gpu
 def test_sdf_core_wide_limits_raise_before_launch(cuda):
-    """Beyond the wide instances (d_hidden 528), at f32 operands or an f32
-    stash above the presets' widths, and for the march kernels above them,
-    the wrappers raise NotImplementedError and launch nothing."""
+    """Beyond the wide instances (d_hidden 528, the SDF core's and the march
+    kernels'), and at f32 operands or an f32 stash of the core above the
+    presets' widths, the wrappers raise NotImplementedError and launch
+    nothing."""
     cfg, wide = SDFNetConfig(d_hidden=528), SDFNetConfig(d_hidden=512)
     w, x, cots = _gpu_sdf_case(cuda, cfg, 40)
     ww, _, wcots = _gpu_sdf_case(cuda, wide, 40)
@@ -446,9 +447,10 @@ def test_sdf_core_wide_limits_raise_before_launch(cuda):
     with pytest.raises(NotImplementedError, match="item 15"):
         core_stash.sdf_stash_fwd(ww, x, wide, stash_dtype="float32")
     o, d, z0 = _rays(cuda, 4)
-    mw = march.march_weights(sdf_init(torch.Generator().manual_seed(0), wide, cuda), wide, "bfloat16")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        march.march_sweep(z0, o, d, mw, wide)
+    for dt in ("bfloat16", "float32"):
+        mw = march.march_weights(sdf_init(torch.Generator().manual_seed(0), cfg, cuda), cfg, dt)
+        with pytest.raises(NotImplementedError, match="item 15"):
+            march.march_sweep(z0, o, d, mw, cfg)
     assert dict(cuda_lib.launch_counts) == before
 
 
@@ -879,6 +881,56 @@ def test_march_kernels_f32_match_plain(cuda, cfg, merge, n):
     assert torch.equal(tau, tau_c)
     _close(tau, march.shadow_march_plain(z0, o, d, sdist, inv_s, anneal, w, cfg, merge=merge), F32_TOL["tau"])
     _close(tau_c, march.shadow_final_plain(z_m, o, d, sdist, inv_s, anneal, w, cfg), F32_TOL["tau"])
+
+
+# The march kernels' wide instances (C, K, L, M and N above the presets'
+# widths, bf16 and f32): the 512-wide nr-hints SDF and the small 288-wide one
+# with a 69-wide encoding, at ray counts that fill 4-ray blocks in part.
+WIDE_MARCH_CFGS = {"d512": WIDE_CFGS["d512"], "w288": WIDE_CFGS["w288"]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("merge", ["bitonic", "rank"])
+@pytest.mark.parametrize("name", sorted(WIDE_MARCH_CFGS))
+@pytest.mark.parametrize("n", [1, 5, 130])
+def test_march_kernels_wide_match_plain(cuda, exact_f32, dtype, merge, name, n):
+    """The wide instances of K, L, M, N and C at each march dtype against
+    their plain versions, at the narrow instances' tolerances (bf16 1e-2,
+    f32 F32_TOL; L's and M's z by order-free shares); L = B's steps between
+    K's sweeps, M = L(K(.)) and N = C(M(.)) bit for bit; one launch each,
+    counted under the *_wide (*_f32_wide) names."""
+    cfg = WIDE_MARCH_CFGS[name]
+    assert core_mlp.core_class(cfg, with_feat=False) is core_mlp.ROWS_WIDE
+    p = sdf_init(torch.Generator().manual_seed(0), cfg, cuda)
+    o, d, z0 = _rays(cuda, n)
+    w = march.march_weights(p, cfg, dtype)
+    sdist = torch.full((n, 1), 2.0 / 64, device=cuda)
+    inv_s, anneal = torch.tensor(64.0, device=cuda), torch.tensor(0.7, device=cuda)
+    suffix = ("_f32" if dtype == "float32" else "") + "_wide"
+    names = tuple(k + suffix for k in ("march_sweep", "march_rounds", "importance_march", "shadow_march",
+                                       "shadow_final"))
+    tol = F32_TOL if dtype == "float32" else {"sdf0": 1e-2, "tau": 1e-2}
+    before = dict(cuda_lib.launch_counts)
+    sdf0 = march.march_sweep(z0, o, d, w, cfg)
+    z_l = march.march_rounds(z0, sdf0, o, d, w, cfg, merge=merge)
+    z_m = march.importance_march(z0, o, d, w, cfg, merge=merge)
+    tau = march.shadow_march(z0, o, d, sdist, inv_s, anneal, w, cfg, merge=merge)
+    tau_c = march.shadow_final(z_m, o, d, sdist, inv_s, anneal, w, cfg)
+    torch.cuda.synchronize()
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in before} == {k: int(k in names) for k in before}
+    assert sdf0.shape == (n, 64) and z_l.shape == z_m.shape == (n, 128) and tau.shape == (n, 1)
+    _close(sdf0, march.march_sweep_plain(z0, o, d, w, cfg), tol["sdf0"])
+    from chip_smoke import sweep16
+
+    assert torch.equal(z_l, march._rounds(w, cfg, o, d, z0, sdf0, 4, 16, 64.0, merge, march.round_machinery,
+                                          sweep16(o, d, w, cfg)))
+    _assert_z_close(z_l, march.march_rounds_plain(z0, sdf0, o, d, w, cfg, merge=merge), z0)
+    _assert_z_close(z_m, march.importance_march_plain(z0, o, d, w, cfg, merge=merge), z0)
+    assert torch.equal(z_m, z_l)
+    assert torch.equal(tau, tau_c)
+    _close(tau, march.shadow_march_plain(z0, o, d, sdist, inv_s, anneal, w, cfg, merge=merge), tol["tau"])
+    _close(tau_c, march.shadow_final_plain(z_m, o, d, sdist, inv_s, anneal, w, cfg), tol["tau"])
 
 
 def _tree_to(tree, dev):
