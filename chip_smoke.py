@@ -136,6 +136,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sweep and 64 pixels on the CPU; (d) python -m nrhints_torch's main for
    10 steps; (e) an SDF 528 wide and one with a 144-wide encoding raise
    NotImplementedError before any launch.
+19. the reflectance trunk above the presets' widths (``--wide-trunk``:
+   alone): nr-hints-cam-opt at sdf_network d_hidden 512 and d_out_feat 512
+   and reflectance_network d_hidden 512 (the trunk 617 -> 4 x 512 -> 3):
+   (a) F's, G's, I's and J's wide instances, bf16, f32 and F's and G's
+   mixed pairs, at phase 3's 65,536 points against their plain versions
+   (I = F, J = G at F's stash, G and J repeat, bit for bit; J also against
+   the wholly plain backward by the norm), each by device time beside the
+   256-wide instance's and its bound, and the f32 instances through the
+   trunk's entry points; (b) a K = 16 graph of stash steps against its
+   eager steps, a 64-ray step's gradients against the CPU, one recompute
+   and one stash_all step, launches exact; (c) a 128x128 view with
+   eval_reflectance_impl="pallas" through its graph, against its eager
+   sweep and 64 pixels on the CPU; (d) python -m nrhints_torch's main for
+   10 steps; (e) a trunk 528 wide and one with 661 inputs raise
+   NotImplementedError before any launch.
 Phase 3 also holds kernels K (initial march sweep), L (refinement rounds),
 M (K and L in one kernel) and N (M and C's final sweep in one kernel), and
 B under the rank merge, against their plain versions, L = B's steps between
@@ -273,6 +288,10 @@ WIDE_MODES = {
     ("sdf_bwd_chain_wide_kernel", "false, true"): "kernel E' sdf_stash_all_bwd_wide (E1)",
 }
 _WIDE_KERNEL = re.compile(r"(sdf_core_fwd_wide_kernel|sdf_bwd_chain_wide_kernel)<([a-z0-9, ]+)>")
+# The trunk's wide instances (phase 19): their templates, grouped by the
+# label of the 64-point template's mode (CORE_MODES) and their dtypes,
+# wide_trunk_group: "kernel F wide bfloat16/bfloat16".
+_WIDE_TRUNK_KERNEL = re.compile(r"(mlp_fwd_wide_kernel|mlp_bwd_chain_wide_kernel)<([\w:]+), ([\w:]+)(?:, (\d))?>")
 # The march template's instances: (SWEEP, ROUNDS, FINAL) template
 # arguments, kernel, C entry point; and the device-time groups of the march
 # kernels' wide instances (phase 18), "kernel K wide march_sweep_wide" and
@@ -410,6 +429,11 @@ def core_group(key: str) -> str | None:
     """The group of an SDF core or trunk kernel by its name (CORE_MODES),
     else None: the bf16 instance's group, or core_f32_group's label of an
     f32 or mixed instance."""
+    trunk = _WIDE_TRUNK_KERNEL.search(key)
+    if trunk is not None:
+        label = CORE_MODES[(trunk.group(1).replace("_wide", ""), trunk.group(4) or "")][1]
+        t, s = ("bfloat16" if "bfloat16" in a else "float32" for a in (trunk.group(2), trunk.group(3)))
+        return wide_trunk_group(label, t, s)
     wide = _WIDE_KERNEL.search(key)
     if wide is not None:
         return WIDE_MODES.get((wide.group(1), wide.group(2)))
@@ -3363,23 +3387,23 @@ def wide_view(label: str, smi: str, mc: dict, vcfg, params: dict, per_chunk: dic
     return launches
 
 
-def wide_entry(smi: str, tmp: Path) -> None:
-    """Phase 18(d): ``python -m nrhints_torch``'s main in this process on a
-    procedural scene (8 train, 1 val, no test views: no registration),
-    ``config:nr-hints-cam-opt --config.model.sdf-network.d-hidden 512`` on
-    its default routes, WIDE_ENTRY_STEPS steps of 512 rays, a log at the
+def wide_entry(smi: str, tmp: Path, label: str, width_argv: list, per_step: dict) -> None:
+    """Phases 18(d) and 19(d): ``python -m nrhints_torch``'s main in this
+    process on a procedural scene (8 train, 1 val, no test views: no
+    registration), ``config:nr-hints-cam-opt`` with ``width_argv``'s widths
+    on its default routes, WIDE_ENTRY_STEPS steps of 512 rays, a log at the
     last, the final mesh at resolution 32 (plain sweeps); the logged loss
-    finite and every kernel's launches exact."""
+    finite and every kernel's launches exactly ``per_step`` a step."""
     import torch
 
     from nrhints_torch.__main__ import main as nrhints_main
     from nrhints_torch.data.synthetic import make_hints_scene
     from nrhints_torch.kernels import cuda_lib
 
-    scene = make_hints_scene(tmp / "wide_scene", 8, 1, 0, 128, 128, seed=0)
+    scene = make_hints_scene(tmp / f"wide_scene_{label}", 8, 1, 0, 128, 128, seed=0)
     steps = WIDE_ENTRY_STEPS
-    argv = ["config:nr-hints-cam-opt", "--config.data.path", str(scene), "--config.base-dir", str(tmp / "wide_runs"),
-            "--config.model.sdf-network.d-hidden", str(WIDE_SDF["d_hidden"]),
+    argv = ["config:nr-hints-cam-opt", "--config.data.path", str(scene), "--config.base-dir",
+            str(tmp / f"wide_runs_{label}"), *width_argv,
             "--config.model.batch-size", "512", "--config.intervals.log-metrics", str(steps),
             "--config.final-mesh-resolution", "32", "--config.parallel.data-axis-size", "1",
             "--config.model.end-iter", str(steps)]
@@ -3389,33 +3413,34 @@ def wide_entry(smi: str, tmp: Path) -> None:
     trainer = nrhints_main(argv)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches_check("18(d) entry", dict(cuda_lib.launch_counts),
-                   dict(WIDE_CORE_STEP, round_machinery=8, shadow_final_wide=1), steps)
+    launches_check(f"{label} entry", dict(cuda_lib.launch_counts), per_step, steps)
     lines = [json.loads(line) for line in (trainer.log_dir / "metrics.jsonl").read_text().splitlines()]
     train = {r["step"]: r for r in lines if "loss" in r}
     if sorted(train) != [steps] or not math.isfinite(train[steps]["loss"]):
-        raise AssertionError(f"18(d): metrics.jsonl's train lines {train}, expected one finite line at {steps}")
-    if trainer.config.model.sdf_network.d_hidden != WIDE_SDF["d_hidden"]:
-        raise AssertionError("18(d): the CLI did not set sdf_network.d_hidden")
+        raise AssertionError(f"{label}: metrics.jsonl's train lines {train}, expected one finite line at {steps}")
     r = train[steps]
-    log(f"[18(d) entry] python -m nrhints_torch's main at d_hidden {WIDE_SDF['d_hidden']}: {steps} steps and the "
-        f"final mesh in {run_s:.2f} s; loss {r['loss']:.6f} at step {steps}; the Trainer's own log: "
-        f"{r['rays_per_sec']:.1f} rays/s, {1.0 / r['steps_per_sec']:.5f} s/step; launches exact; on {smi}")
+    for flag, value in zip(width_argv[::2], width_argv[1::2]):
+        got = trainer.config
+        for part in flag.removeprefix("--config.").split("."):
+            got = getattr(got, part.replace("-", "_"))
+        if str(got) != value:
+            raise AssertionError(f"{label}: the CLI did not set {flag} to {value} (got {got})")
+    log(f"[{label} entry] python -m nrhints_torch's main with {' '.join(width_argv)}: {steps} steps and the final mesh "
+        f"in {run_s:.2f} s; loss {r['loss']:.6f} at step {steps}; the Trainer's own log: {r['rays_per_sec']:.1f} "
+        f"rays/s, {1.0 / r['steps_per_sec']:.5f} s/step; launches exact; on {smi}")
     del trainer
 
 
-def wide_limits(dev, td: dict, batch) -> None:
-    """Phase 18(e): a train step of an SDF 528 wide, and of one with a
-    144-wide encoding (multi_res 21), on the default routes, raise
-    NotImplementedError naming ROADMAP item 15 before any launch."""
+def wide_limits(label: str, dev, td: dict, batch, cases, what: str) -> None:
+    """Phases 18(e) and 19(e): a train step of each of ``cases`` ((label,
+    config)) raises NotImplementedError naming ROADMAP item 15 and ``what``
+    before any launch."""
     import torch
 
     from nrhints_torch.kernels import cuda_lib
     from nrhints_torch.train.step import make_train_step
 
-    for label, sdf in (("d_hidden 528", {"d_hidden": 528}), ("multi_res 21 (encoding 129, padded 144)",
-                                                              {"multi_res": 21})):
-        cfg = with_model(td["cfg"], sdf=sdf)
+    for case, cfg in cases:
         state, buffers = fresh_state(cfg, td["n_views"], dev)
         step_fn = make_train_step(cfg, td["camera"], buffers, state.optimizer)
         torch.cuda.synchronize()
@@ -3425,11 +3450,11 @@ def wide_limits(dev, td: dict, batch) -> None:
         except NotImplementedError as e:
             msg = str(e)
         else:
-            raise AssertionError(f"18(e): a step at {label} ran")
+            raise AssertionError(f"{label}: a step at {case} ran")
         torch.cuda.synchronize()
-        if "item 15" not in msg or any(cuda_lib.launch_counts.values()):
-            raise AssertionError(f"18(e): {label}: {msg!r}, launches {dict(cuda_lib.launch_counts)}")
-        log(f"[18(e) limits] a step at {label} raises NotImplementedError before any launch: {msg}")
+        if "item 15" not in msg or what not in msg or any(cuda_lib.launch_counts.values()):
+            raise AssertionError(f"{label}: {case}: {msg!r}, launches {dict(cuda_lib.launch_counts)}")
+        log(f"[{label} limits] a step at {case} raises NotImplementedError before any launch: {msg}")
 
 
 def wide_sdf_phase(smi: str, dev, mc: dict, tmp: Path) -> list:
@@ -3490,8 +3515,11 @@ def wide_sdf_phase(smi: str, dev, mc: dict, tmp: Path) -> list:
     del params
 
     # (d) The entry point; (e) the limits.
-    wide_entry(smi, tmp)
-    wide_limits(dev, td, batches[0])
+    wide_entry(smi, tmp, "18(d)", ["--config.model.sdf-network.d-hidden", str(WIDE_SDF["d_hidden"])],
+               dict(WIDE_CORE_STEP, round_machinery=8, shadow_final_wide=1))
+    wide_limits("18(e)", dev, td, batches[0], (
+        ("d_hidden 528", with_model(td["cfg"], sdf={"d_hidden": 528})),
+        ("multi_res 21 (encoding 129, padded 144)", with_model(td["cfg"], sdf={"multi_res": 21}))), "CUDA")
     log(f"[18] phase 18 took {time.perf_counter() - t_phase:.1f} s ((a) {t_a:.1f} s)")
     got = dict(sdf_core_fwd_wide=ship_view["sdf_core_fwd_wide"],
                sdf_stash_fwd_wide=sc["launches"]["sdf_stash_fwd_wide"],
@@ -3508,6 +3536,313 @@ def wide_sdf_phase(smi: str, dev, mc: dict, tmp: Path) -> list:
                                                       "march_rounds_f32_wide", "importance_march_f32_wide")},
                shadow_march_f32_wide=routes["f32 monolith"]["shadow_march_f32_wide"])
     return [entry(name, *WIDE_WHERE[name], got[name], *num) for name, num in nums.items()]
+
+
+# Phase 19: the reflectance trunk above the presets' widths: F's, G's, I's
+# and J's wide instances (32-point blocks, padded hidden widths up to 512 and
+# inputs up to 640, bf16 and f32).  The model is nr-hints-cam-opt at
+# WIDE_MODEL (sdf_network d_hidden 512 and d_out_feat 512, the reflectance
+# network 512 wide), so the trunk is 617 -> 4 x 512 -> 3 and every fused
+# kernel of a step runs a wide instance.  (a) every wide trunk instance at
+# phase 3's 65,536 points against its plain version, as phase 17 holds the
+# 256-wide ones (bf16 at TOL, f32 at CORE_F32_TOL, a bf16 stash at TOL; J
+# entry by entry at F's z_i and by the norm against the wholly plain
+# backward), with I = F, J = G at F's stash, G and J repeating, and bf16
+# operands with an f32 stash giving the bf16 pair's output and gradients,
+# bit for bit; each by device ms from one profiled call beside the 256-wide
+# instance's (phase 3's trunk, the same dtypes) in the same call and its
+# bound; then the f32 instances through the entry points a user calls, their
+# launches exact.  (b) a K = WIDE_K graph of stash steps against its eager
+# steps; a 64-ray step's gradients against the CPU; one recompute and one
+# stash_all step, launches exact.  (c) a 128x128 view of nr-hints at
+# WIDE_MODEL with eval_reflectance_impl="pallas" through its graph, against
+# its eager sweep and 64 pixels on the CPU.  (d) python -m nrhints_torch's
+# main for WIDE_ENTRY_STEPS steps.  (e) a trunk 528 wide, and one whose
+# padded input exceeds 640 (reflectance multi_res 6: 661 inputs), raise
+# NotImplementedError naming item 15 before any launch.
+WIDE_MODEL_SDF = {"d_hidden": 512, "d_out_feat": 512}
+WIDE_MODEL_REFL = {"d_hidden": 512}
+WIDE_TRUNK_STEP = dict(sdf_stash_fwd_wide=1, sdf_stash_bwd_wide=1, mlp_stash_fwd_wide=1, mlp_stash_bwd_wide=1,
+                       round_machinery=8, shadow_final_wide=1)
+# 19(a)'s entry-point run of the f32 wide instances: (label, entry point,
+# keywords, operand dtype, stash dtype) and the launches it makes.
+WIDE_TRUNK_CALLS = (
+    ("fused_mlp_apply recompute f32", "apply", dict(backward="recompute"), "float32", None),
+    ("fused_mlp_apply_stash f32/f32", "stash", dict(stash_dtype="float32"), "float32", "float32"),
+    ("fused_mlp_apply_stash f32/bf16", "stash", dict(stash_dtype="bfloat16"), "float32", "bfloat16"),
+    ("fused_mlp_apply_stash bf16/f32", "stash", dict(stash_dtype="float32"), "bfloat16", "float32"),
+)
+WIDE_TRUNK_CALL_LAUNCHES = {"mlp_fwd_f32_wide": 1, "mlp_bwd_f32_wide": 1, "mlp_stash_fwd_f32_wide": 1,
+                            "mlp_stash_bwd_f32_wide": 1, "mlp_stash_fwd_f32_bf16stash_wide": 1,
+                            "mlp_stash_bwd_f32_bf16stash_wide": 1, "mlp_stash_fwd_f32stash_wide": 1,
+                            "mlp_stash_bwd_f32stash_wide": 1}
+
+
+def wide_trunk_group(label: str, compute: str, stash: str | None) -> str:
+    """The device-time group of a wide trunk instance (phase 19)."""
+    return f"{label} wide {compute}/{stash or compute}"
+
+
+def wide_model_cfg(cfg, refl=None, **renderer_kw):
+    """``cfg`` at WIDE_MODEL's SDF and reflectance widths (the reflectance
+    network's fields ``refl`` on top), with ``renderer_kw``'s renderer
+    settings."""
+    rn = dataclasses.replace(cfg.model.reflectance_network, **{**WIDE_MODEL_REFL, **(refl or {})})
+    return with_renderer(with_model(cfg, sdf=WIDE_MODEL_SDF, reflectance_network=rn), **renderer_kw)
+
+
+def wide_trunk_kernels(smi: str, dev, mc: dict) -> dict:
+    """Phase 19(a): at phase 3's 65,536 points, the wide trunk of
+    WIDE_MODEL's color params (617 -> 4 x 512 -> 3, seed 0): F's and G's
+    wide instances at (bf16, bf16) and each CORE_F32_PAIRS pair, I's and J's
+    at bf16 and f32, against their plain versions with the identities, each
+    timed (CUDA events) and by device ms beside the 256-wide instance's at
+    the same dtypes on phase 3's trunk, and its bound; then the f32
+    instances through the entry points (WIDE_TRUNK_CALLS), their launches
+    exact.  -> ({instance name: (max abs err, ms, plain ms, bound ms, bound
+    by)}, the entry points' launches)."""
+    import numpy as np
+    import torch
+
+    from nrhints_torch.kernels import core_mlp, core_stash, cuda_lib
+    from nrhints_torch.render.renderer import init_model_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n_pts = mc["x"].shape[0]
+    wcfg = wide_model_cfg(mc["cfg"])
+    n_lay = wcfg.model.reflectance_network.n_layers
+    color = init_model_params(wcfg.model, torch.Generator().manual_seed(0), device=dev)["color"]
+    tw = core_mlp.materialize_mlp_weights(color, n_lay)
+    d_tin, n_tw = tw[0].shape[0], sum(w.numel() for w in tw)
+    pk = core_mlp.pack_mlp(tw, n_lay)
+    if d_tin != 617 or pk["cls"] is not core_mlp.TRUNK_WIDE:
+        raise AssertionError(f"19(a): the wide model's trunk takes {d_tin} inputs, class {pk['cls']}")
+    # The 256-wide trunk of phase 3 on its own inputs (phase 3's seed).
+    nw = core_mlp.materialize_mlp_weights(mc["renderer_params"]["color"], n_lay)
+    nrng = np.random.default_rng(6)
+    nx = torch.tensor(nrng.normal(size=(n_pts, nw[0].shape[0])).astype(np.float32), device=dev)
+    ng = torch.tensor(nrng.normal(size=(n_pts, 3)).astype(np.float32), device=dev)
+    trng = np.random.default_rng(9)
+    xt = torch.tensor(trng.normal(size=(n_pts, d_tin)).astype(np.float32), device=dev)
+    gt = torch.tensor(trng.normal(size=(n_pts, 3)).astype(np.float32), device=dev)
+    cols = core_stash.mlp_stash_columns(pk)
+    zt = sum(w for _, w in cols)
+    macs = sum(w.shape[0] * w.shape[1] for w in tw[0::2])
+    io_bytes = n_pts * 4 * (d_tin + 3)
+
+    def size(dt):
+        return 4 if dt == "float32" else 2
+
+    def peak(compute):
+        return H100_F32_FLOPS if compute == "float32" else H100_BF16_FLOPS
+
+    def same(a, b):
+        return all(torch.equal(u, v) for u, v in zip(a, b))
+
+    def flat(r):
+        return [r[1], *r[0]]
+
+    def narrow_group(label, bf16_group, compute, stash):
+        return bf16_group if compute == (stash or compute) == "bfloat16" else core_f32_group(label, compute, stash)
+
+    out: dict = {}
+    record = functools.partial(instance_record, "19(a)", out, {}, n_pts, smi, base="the 256-wide instance's",
+                               tries=1)
+    fwd, g16, f_zs = {}, None, {}
+    for compute, stash_dt in (("bfloat16", "bfloat16"), *CORE_F32_PAIRS):
+        kw = dict(compute_dtype=compute, stash_dtype=stash_dt)
+        out_tol = CORE_F32_TOL["out"] if compute == "float32" else TOL["mlp_stash_fwd"]
+        stash_tol = out_tol if stash_dt == "float32" else TOL["mlp_stash_fwd"]
+        grad_tol = CORE_F32_TOL["grad"] if compute == "float32" else TOL["mlp_stash_bwd"]
+        f_out, zs = core_stash.mlp_stash_fwd(tw, xt, n_lay, **kw)
+        p_out, p_zs = core_stash.mlp_relu_fwd_zs_plain(tw, xt, n_lay, compute, stash_dt)
+        checks = [("output", max_err([f_out], [p_out]), out_tol),
+                  ("stash", max_err(core_stash.split_stash(zs, cols), p_zs), stash_tol)]
+        del p_out, p_zs
+        if (compute, stash_dt) == ("bfloat16", "float32") and not (
+                torch.equal(f_out, fwd["bfloat16"]) and torch.equal(zs.to(torch.bfloat16), f_zs["bfloat16"])):
+            raise AssertionError("19(a): wide F at bf16/f32 differs from wide F at bf16/bf16")
+        name = core_mlp.instance_name("mlp_stash_fwd", compute, stash_dt)
+        record(name + "_wide", checks, lambda kw=kw: core_stash.mlp_stash_fwd(tw, xt, n_lay, **kw),
+               lambda c=compute, s_=stash_dt: core_stash.mlp_relu_fwd_zs_plain(tw, xt, n_lay, c, s_),
+               wide_trunk_group("kernel F", compute, stash_dt), lambda kw=kw: core_stash.mlp_stash_fwd(nw, nx, n_lay, **kw),
+               narrow_group("kernel F", "kernel F mlp_stash_fwd", compute, stash_dt),
+               bound(2.0 * n_pts * macs, io_bytes + n_pts * zt * size(stash_dt) + size(compute) * n_tw, peak(compute)))
+
+        g = core_stash.mlp_stash_bwd(tw, xt, zs, gt, n_lay, **kw)
+        if not same(flat(g), flat(core_stash.mlp_stash_bwd(tw, xt, zs, gt, n_lay, **kw))):
+            raise AssertionError(f"19(a): wide G at {compute}/{stash_dt} differs between two runs")
+        if (compute, stash_dt) == ("bfloat16", "float32") and not same(flat(g), flat(g16)):
+            raise AssertionError("19(a): wide G at bf16/f32 differs from wide G at bf16/bf16 at the same forward")
+
+        def g_plain(zs=zs, compute=compute):
+            return core_stash.mlp_relu_bwd_stash_plain(tw, xt, core_stash.split_stash(zs, cols), gt, n_lay, compute)
+
+        p_dws, p_dx = g_plain()
+        err = grad_err(flat(g), [p_dx, *p_dws])
+        del p_dws, p_dx
+        n_zs = core_stash.mlp_stash_fwd(nw, nx, n_lay, **kw)[1]
+        record(core_mlp.instance_name("mlp_stash_bwd", compute, stash_dt) + "_wide", [("gradients", err, grad_tol)],
+               lambda zs=zs, kw=kw: core_stash.mlp_stash_bwd(tw, xt, zs, gt, n_lay, **kw), g_plain,
+               (wide_trunk_group("trunk chain", compute, stash_dt), DW_GROUP),
+               lambda nz=n_zs, kw=kw: core_stash.mlp_stash_bwd(nw, nx, nz, ng, n_lay, **kw),
+               (narrow_group("trunk chain", TRUNK_CHAIN_GROUP, compute, stash_dt), DW_GROUP),
+               bound(4.0 * n_pts * macs, 2 * io_bytes + n_pts * zt * size(stash_dt) + (size(compute) + 4) * n_tw,
+                     peak(compute)))
+        del n_zs
+        if stash_dt == compute:
+            fwd[compute], f_zs[compute] = f_out, zs
+            if compute == "bfloat16":
+                g16 = g
+            else:
+                fwd["g32"] = g
+        del f_out, zs, g
+
+    # I and J at each operand dtype: I = F's output, J = G at F's stash, J
+    # repeats; J at F's z_i entry by entry and against the wholly plain
+    # backward by the norm.
+    for compute in ("bfloat16", "float32"):
+        out_tol = CORE_F32_TOL["out"] if compute == "float32" else TOL["mlp_fwd"]
+        grad_tol = CORE_F32_TOL["grad"] if compute == "float32" else TOL["mlp_bwd"]
+        norm_tol = TRUNK_F32_NORM_TOL if compute == "float32" else TOL["mlp_bwd"]
+        sfx = "_f32" if compute == "float32" else ""
+        i_out = core_mlp.mlp_fwd(tw, xt, n_lay, compute_dtype=compute)
+        if not torch.equal(i_out, fwd[compute]):
+            raise AssertionError(f"19(a): wide I's output differs from wide F's at {compute}")
+        record(f"mlp_fwd{sfx}_wide", [("output", max_err([i_out], [core_mlp.mlp_relu_plain(tw, xt, n_lay, compute)]),
+                                       out_tol)],
+               lambda c=compute: core_mlp.mlp_fwd(tw, xt, n_lay, compute_dtype=c),
+               lambda c=compute: core_mlp.mlp_relu_plain(tw, xt, n_lay, c), wide_trunk_group("kernel I", compute, None),
+               lambda c=compute: core_mlp.mlp_fwd(nw, nx, n_lay, compute_dtype=c),
+               narrow_group("kernel I", "kernel I mlp_fwd", compute, None),
+               bound(2.0 * n_pts * macs, io_bytes + size(compute) * n_tw, peak(compute)))
+        del i_out
+        j = core_mlp.mlp_bwd(tw, xt, gt, n_lay, compute_dtype=compute)
+        jl = flat(j)
+        if not same(jl, flat(core_mlp.mlp_bwd(tw, xt, gt, n_lay, compute_dtype=compute))):
+            raise AssertionError(f"19(a): wide J's gradients at {compute} differ between two runs")
+        if not same(jl, flat(g16 if compute == "bfloat16" else fwd["g32"])):
+            raise AssertionError(f"19(a): wide J's gradients at {compute} differ from wide G's at F's stash")
+        zsplit = [z.float() for z in core_stash.split_stash(f_zs[compute], cols)]
+        z_dws, z_dx = core_mlp.mlp_relu_bwd_plain(tw, xt, gt, n_lay, compute, zs=zsplit)
+        err_z = grad_err(jl, [z_dx, *z_dws])
+        del z_dws, z_dx
+        p_dws, p_dx = core_mlp.mlp_relu_bwd_plain(tw, xt, gt, n_lay, compute)
+        norm, err_p = grad_norm_err(jl, [p_dx, *p_dws]), grad_err(jl, [p_dx, *p_dws])
+        del p_dws, p_dx
+        _, p_zs = core_mlp.mlp_relu_plain(tw, xt, n_lay, compute, return_zs=True)
+        flips = sum(int(((a > 0) != (b > 0)).sum()) for a, b in zip(zsplit, p_zs))
+        del p_zs, zsplit, jl, j
+        log(f"[19(a) mlp_bwd{sfx}_wide] N={n_pts}: repeats bit for bit and equals wide G's at F's stash; against the "
+            f"wholly plain backward: relative norm of the error {norm:.3e} (tol {norm_tol}), largest entry "
+            f"{err_p[1]:.3e} of its gradient's scale, {flips} of {n_pts * zt} z_i on the other side of 0 in the plain "
+            f"forward")
+        if not norm <= norm_tol:
+            raise AssertionError(f"19(a): wide J's gradients at {compute} disagree with the plain backward: relative "
+                                 f"norm {norm:.3e}")
+        record(f"mlp_bwd{sfx}_wide", [("gradients at F's z_i", err_z, grad_tol)],
+               lambda c=compute: core_mlp.mlp_bwd(tw, xt, gt, n_lay, compute_dtype=c),
+               lambda c=compute: core_mlp.mlp_relu_bwd_plain(tw, xt, gt, n_lay, c),
+               (wide_trunk_group("kernel J1", compute, None), wide_trunk_group("trunk chain", compute, None), DW_GROUP),
+               lambda c=compute: core_mlp.mlp_bwd(nw, nx, ng, n_lay, compute_dtype=c),
+               (narrow_group("kernel J1", "kernel J, recompute pass (J1)", compute, None),
+                narrow_group("trunk chain", TRUNK_CHAIN_GROUP, compute, None), DW_GROUP),
+               bound(6.0 * n_pts * macs, 2 * io_bytes + (size(compute) + 4) * n_tw, peak(compute)))
+    del fwd, f_zs, g16
+
+    # The f32 wide instances through the entry points a user calls, with
+    # the weight-norm params (no render path passes compute_dtype).
+    params = {name: {k: t.detach().clone().requires_grad_(True) for k, t in layer.items()}
+              for name, layer in color.items()}
+    leaves = [t for layer in params.values() for t in layer.values()]
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    for label, fn, kw, compute, stash_dt in WIDE_TRUNK_CALLS:
+        xr = xt.detach().clone().requires_grad_(True)
+        call = core_mlp.fused_mlp_apply if fn == "apply" else core_stash.fused_mlp_apply_stash
+        o = call(params, n_lay, xr, compute_dtype=compute, **kw)
+        grads = torch.autograd.grad(o, [xr, *leaves], gt)
+        e = max_err([o], [core_mlp.mlp_relu_plain(tw, xt, n_lay, compute)])[1]
+        tol = CORE_F32_TOL["out"] if compute == "float32" else TOL["mlp_fwd"]
+        if not (e <= tol and all(bool(torch.isfinite(t).all()) for t in grads)):
+            raise AssertionError(f"19(a): {label}: output {e:.3e} of scale (tol {tol}), or non-finite gradients")
+        log(f"[19(a) {label}] N={n_pts}: output within {e:.3e} of the plain forward's scale (tol {tol}); "
+            f"{len(grads)} finite gradients")
+        del o, grads, xr
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cuda_lib.launch_counts.items() if v}
+    if launches != WIDE_TRUNK_CALL_LAUNCHES:
+        raise AssertionError(f"19(a): the entry points launched {launches}, expected {WIDE_TRUNK_CALL_LAUNCHES}")
+    log(f"[19(a)] launches of the entry points' run: {launches}")
+    del params, leaves, color
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def wide_trunk_phase(smi: str, dev, mc: dict, tmp: Path) -> list:
+    """Phase 19, the reflectance trunk above the presets' widths (see
+    above).  -> the kernels line's entries of the wide trunk instances,
+    each with its launches from the path that runs it: F's and G's bf16
+    from (b)'s K = WIDE_K dispatch, I's from (c)'s view, J's from the
+    recompute step, the f32 instances' from (a)'s entry-point run."""
+    import numpy as np
+    import torch
+
+    from nrhints_torch.render.renderer import init_model_params
+    from nrhints_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    nums, call_launches = wide_trunk_kernels(smi, dev, mc)
+    t_a = time.perf_counter() - t_phase
+
+    # (b) The train path.
+    td = train_data(dev, 128, 128)
+    wcfg = wide_model_cfg(td["cfg"])
+    batches = [td["next_batch"]() for _ in range(WIDE_K + TRAIN_WARMUP)]
+    b64 = td["next_batch"](64)
+    sc = scan_phase(smi, dev, td, batches, "19(b) wide-trunk graph", wcfg, WIDE_K, WIDE_TRUNK_STEP)
+    state, buffers = fresh_state(wcfg, td["n_views"], dev)
+    step_fn = make_train_step(wcfg, td["camera"], buffers, state.optimizer)
+    state, _ = step_fn(state, batches[0], torch.Generator(device=dev).manual_seed(0))
+    urng = np.random.default_rng(7)
+    u64 = {"strat": urng.random((64, 1), dtype=np.float32),
+           "shadow": urng.random((64, wcfg.model.renderer.n_shadow_samples), dtype=np.float32)}
+    card_cpu_grads("19(b) wide-trunk train path", wcfg, state, td["camera"], buffers, b64, u64)
+    del state, step_fn, buffers
+    ship = dict(round_machinery=8, shadow_final_wide=1)
+    rec = wide_one_step("19(b) wide-trunk recompute step", smi, dev, with_renderer(wcfg, core_backward="recompute"),
+                        td, batches[1], dict(sdf_core_fwd_wide=1, sdf_core_bwd_wide=1, mlp_fwd_wide=1, mlp_bwd_wide=1,
+                                             **ship), profiled=True)
+    wide_one_step("19(b) wide-trunk stash_all step", smi, dev, with_renderer(wcfg, core_backward="stash_all"), td,
+                  batches[2], dict(sdf_stash_all_fwd_wide=1, sdf_stash_all_bwd_wide=1, mlp_stash_fwd_wide=1,
+                                   mlp_stash_bwd_wide=1, **ship))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) The eval path with the fused trunk (kernel I's wide instance).
+    vcfg = wide_model_cfg(mc["cfg"], eval_reflectance_impl="pallas")
+    params = {"renderer": init_model_params(vcfg.model, torch.Generator().manual_seed(0), device=dev), "raygen": {}}
+    view = wide_view("19(c) wide-trunk view", smi, mc, vcfg, params,
+                     dict(sdf_core_fwd_wide=1, round_machinery=8, shadow_final_wide=1, mlp_fwd_wide=1))
+    del params
+
+    # (d) The entry point; (e) the limits.
+    wide_entry(smi, tmp, "19(d)", [
+        "--config.model.sdf-network.d-hidden", str(WIDE_MODEL_SDF["d_hidden"]),
+        "--config.model.sdf-network.d-out-feat", str(WIDE_MODEL_SDF["d_out_feat"]),
+        "--config.model.reflectance-network.d-hidden", str(WIDE_MODEL_REFL["d_hidden"])], WIDE_TRUNK_STEP)
+    wide_limits("19(e)", dev, td, batches[0], (
+        ("reflectance d_hidden 528", wide_model_cfg(td["cfg"], refl={"d_hidden": 528})),
+        ("reflectance multi_res 6 (661 inputs, padded 672)", wide_model_cfg(td["cfg"], refl={"multi_res": 6}))),
+        "trunk kernels")
+    log(f"[19] phase 19 took {time.perf_counter() - t_phase:.1f} s ((a) {t_a:.1f} s)")
+    got = dict(call_launches, mlp_stash_fwd_wide=sc["launches"]["mlp_stash_fwd_wide"],
+               mlp_stash_bwd_wide=sc["launches"]["mlp_stash_bwd_wide"], mlp_fwd_wide=view["mlp_fwd_wide"],
+               mlp_bwd_wide=rec["mlp_bwd_wide"])
+    where = {"mlp_fwd": "core_mlp.py:397", "mlp_bwd": "core_mlp.py:420", "mlp_stash_fwd": "core_stash.py:588",
+             "mlp_stash_bwd": "core_stash.py:622"}
+    return [entry(name, "mlp_stash.cu", where[re.sub(r"(_f32.*)?_wide$", "", name)], got[name], *num)
+            for name, num in nums.items()]
 
 
 # Phase 15: sample-axis sharding.  (a) two gloo ranks on this card as a 1 x 2
@@ -3837,6 +4172,15 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return 0
 
+    if sys.argv[1:] == ["--wide-trunk"]:  # phase 19 alone, after the build
+        import tempfile
+
+        with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
+            entries = wide_trunk_phase(smi, dev, march_chunk(dev), Path(tmp))
+        print(json.dumps({"kernels": entries}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+        return 0
+
     if sys.argv[1:] == ["--sample-axis"]:  # phase 15 alone, after the build
         import tempfile
 
@@ -3849,7 +4193,7 @@ def main() -> int:
 
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}; flags: --data-parallel, --offpath, --stash-all, "
-              f"--march-f32, --sample-axis, --core-f32, --trunk-f32, --wide-sdf", file=sys.stderr)
+              f"--march-f32, --sample-axis, --core-f32, --trunk-f32, --wide-sdf, --wide-trunk", file=sys.stderr)
         return 2
 
     # 3. Kernels at the main path's shapes: one 512-ray chunk of the view.
@@ -4551,6 +4895,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
         wide = wide_sdf_phase(smi, dev, mc, Path(tmp))
 
+    # 19. The reflectance trunk above the presets' widths.
+    with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
+        wide_trunk = wide_trunk_phase(smi, dev, mc, Path(tmp))
+
     kernels = [
         entry("sdf_core_fwd", "sdf_core.cu", "core_mlp.py:227", launches["sdf_core_fwd"], a_abs, a_ms, a_plain_ms,
               a_bound, a_by),
@@ -4585,6 +4933,7 @@ def main() -> int:
         *core_f32,
         *trunk_f32,
         *wide,
+        *wide_trunk,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

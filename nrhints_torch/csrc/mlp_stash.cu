@@ -85,6 +85,36 @@
 //            tile and the ring: 99,328 + 66,560 + 65,536 = 231,424 B;
 //   chain    the f32 running cotangent, the f32 operand tile and the ring:
 //            66,560 + 66,560 + 65,536 = 198,656 B.
+//
+// The wide instances replace the same pallas_calls above the presets'
+// widths (JAX's kernels take any width): padded hidden widths up to 512 and
+// a padded input up to kInWide = 640, which takes sdf_network.d_out_feat =
+// 512 under both hints (617 inputs at multi_res 4).  Bound on an H100 at
+// 65,536 points and 617 -> 4 x 512 -> 3 (1.104 M multiply-adds a point,
+// 3.81x the presets'): F and I 145 GFLOP (0.146 ms at 989 TFLOP/s bf16; F
+// moves 162 MB in and 268 MB of stash, 0.128 ms at 3.35 TB/s), G 289
+// GFLOP (0.293 ms), J 434 GFLOP (0.439 ms), all bound by operations; at the
+// 67 TFLOP/s f32 peak 2.16, 4.32 and 6.48 ms.  Design: the class TrunkWide
+// is the template argument Cls of the same two block bodies (the 64-point
+// instances are Cls = TrunkNarrow, so their code, floats and kernel names
+// are the parent's).  A 64-point block cannot hold the wide tiles (the
+// bf16 input tile alone would be 82,944 B and an f32 product tile 132,096
+// B), so a wide block takes kWidePts = 32 points on the same 512 threads,
+// as the SDF core's wide instances do: every bf16 product on
+// staged_mma.cuh::gemm_rows32 (column passes of at most 256 on the same
+// ring) into a [32][516] f32 tile, every f32 product on mma_rows.cuh's
+// gemm_rows_f32<RowsWide> (32 rows, 512 columns a pass, two stages of 16
+// k-rows).  dx = G_0 W_0^T (up to 624 columns) runs as column passes of at
+// most 512.  Each output keeps its k order, 16 deep, and db's rows are sums
+// of kSumRows = 16 points, so F = I, J = G at F's stash, and G and J repeat,
+// bit for bit, as in the 64-point instances.  Shared memory (one block per
+// SM):
+//   forward  bf16 input tile [32][648], f32 product tile [32][516], ring:
+//            41,472 + 66,048 + 110,592 = 218,112 B; f32: input tile
+//            [32][644], 82,432 + 66,048 + 65,536 = 214,016 B;
+//   chain    f32 running cotangent [32][516], operand tile [32][520] bf16
+//            or [32][516] f32, ring: 209,920 B bf16, 197,632 B f32.
+// Bit 2 of the dtypes argument (kWideClass) selects them.
 #include "dw_sum.cuh"
 #include "mma_rows.cuh"
 
@@ -93,29 +123,57 @@ using namespace nrh;
 namespace {
 
 constexpr int kInMax = 384;         // widest padded trunk input (core_mlp.IN_MAX)
+constexpr int kInWide = 640;        // widest padded trunk input of the wide class (core_mlp.TRUNK_WIDE)
 constexpr int kSumRows = 16;        // points per row of the bias sums (core_mlp.SUM_ROWS)
 constexpr int kMlpPlain = 0, kMlpStash = 1, kMlpRecompute = 2;
 
-// The row stride of the forward's input tile, in elements of T.
-template <typename T>
+// The trunk's width classes (core_mlp.TRUNK_NARROW, TRUNK_WIDE): kPts points
+// a block, kIn the widest padded input, kW the widest padded hidden layer
+// (and the widest column pass of dx), kLdC the f32 row stride of the product
+// tile and the running cotangent; Core the SDF core's class whose bf16
+// products they run (core_stage, core_gemm), Rows the f32 engine's class.
+struct TrunkNarrow {
+  static constexpr int kPts = kChainTP, kIn = kInMax, kW = kWMax, kLdC = kLdZ;
+  using Core = CoreNarrow;
+  using Rows = RowsNarrow;
+};
+struct TrunkWide {
+  static constexpr int kPts = kWidePts, kIn = kInWide, kW = kWideWMax, kLdC = CoreWide::kLdC;
+  using Core = CoreWide;
+  using Rows = RowsWide;
+};
+
+// The row strides, in elements of T, of the forward's input tile and of the
+// chain's operand tile.
+template <class Cls, typename T>
 __host__ __device__ constexpr int ld_x() {
-  return std::is_same<T, float>::value ? kInMax + 4 : kInMax + 8;
+  return std::is_same<T, float>::value ? Cls::kIn + 4 : Cls::kIn + 8;
+}
+template <class Cls, typename T>
+__host__ __device__ constexpr int ld_act() {
+  return std::is_same<T, float>::value ? Cls::kW + 4 : Cls::kW + 8;
 }
 
-// Shared memory by operand type T: the forward's input tile, f32 product
-// tile and ring; the chain's f32 running cotangent, operand tile and ring.
-template <typename T>
+// Shared memory by class and operand type T: the forward's input tile, f32
+// product tile and ring; the chain's f32 running cotangent, operand tile and
+// ring (the ring's bytes are the same in both classes).
+template <class Cls, typename T>
 constexpr size_t mlp_fwd_smem() {
-  return kChainTP * ld_x<T>() * sizeof(T) + kChainTP * kLdZ * sizeof(float) + CoreTile<T>::kRing * sizeof(T);
+  return Cls::kPts * ld_x<Cls, T>() * sizeof(T) + Cls::kPts * Cls::kLdC * sizeof(float) + CoreTile<T>::kRing * sizeof(T);
 }
-template <typename T>
+template <class Cls, typename T>
 constexpr size_t mlp_chain_smem() {
-  return kChainTP * kLdZ * sizeof(float) + kChainTP * CoreTile<T>::kLdAct * sizeof(T) +
+  return Cls::kPts * Cls::kLdC * sizeof(float) + Cls::kPts * ld_act<Cls, T>() * sizeof(T) +
          CoreTile<T>::kRing * sizeof(T);
 }
-static_assert(mlp_fwd_smem<bf16>() == 227328 && mlp_fwd_smem<float>() == 231424 &&
-                  mlp_chain_smem<bf16>() == 210944 && mlp_chain_smem<float>() == 198656,
+static_assert(mlp_fwd_smem<TrunkNarrow, bf16>() == 227328 && mlp_fwd_smem<TrunkNarrow, float>() == 231424 &&
+                  mlp_chain_smem<TrunkNarrow, bf16>() == 210944 && mlp_chain_smem<TrunkNarrow, float>() == 198656,
               "the trunk's shared-memory budget (a block may have 227 KB)");
+static_assert(mlp_fwd_smem<TrunkWide, bf16>() == 218112 && mlp_fwd_smem<TrunkWide, float>() == 214016 &&
+                  mlp_chain_smem<TrunkWide, bf16>() == 209920 && mlp_chain_smem<TrunkWide, float>() == 197632,
+              "the wide trunk's shared-memory budget");
+static_assert(TrunkWide::kPts % kSumRows == 0 && TrunkWide::kLdC == TrunkWide::kW + 4,
+              "a wide block holds whole rows of bias sums and a 512-wide product");
 
 struct MlpMeta {
   int n_lin, d0, d_out, zt;
@@ -124,8 +182,10 @@ struct MlpMeta {
 };
 
 // meta = [n_lin, d0, d_out, ZT, then per layer: in, out, kp, np, w_off,
-// b_off, z_off] (core_mlp.py::pack_mlp).
-int parse_mlp_meta(const int* meta, MlpMeta* m) {
+// b_off, z_off] (core_mlp.py::pack_mlp), checked against the limits of the
+// class Cls.
+template <class Cls>
+int parse_mlp_meta(const int* meta, MlpMeta* m, Cls) {
   m->n_lin = meta[0];
   m->d0 = meta[1];
   m->d_out = meta[2];
@@ -140,54 +200,80 @@ int parse_mlp_meta(const int* meta, MlpMeta* m) {
     m->w_off[i] = l[4];
     m->b_off[i] = l[5];
     m->z_off[i] = l[6];
-    if (m->kp[i] > (i == 0 ? kInMax : kWMax) || m->np_[i] > kWMax) return (int)cudaErrorInvalidValue;
+    if (m->kp[i] > (i == 0 ? Cls::kIn : Cls::kW) || m->np_[i] > Cls::kW) return (int)cudaErrorInvalidValue;
   }
   return 0;
 }
 
-// The chain's transposed product G_i W_i^T at the layer's input columns
-// c0 .. c0 + nc (at most kWMax): its first slabs, and the product into C.
-// bf16 reads rows c0.. of W_i [kp, np] (wpack) through column-major
-// fragments; f32 reads columns c0.. of the transposed block W_i^T [np, kp]
-// (wtpack; row stride kp).
+// The products of a Cls block with dot operands of T, and their first
+// slabs (requested before the elementwise pass in front of the product):
+// the forward's h W_i, W_i the row-major [kp, np] block of wpack; the
+// chain's transposed G_i W_i^T at the layer's input columns c0 .. c0 + nc
+// (at most Cls::kW).  bf16: the SDF core's products of Cls::Core
+// (gemm_rows64, or gemm_rows32's column passes of at most kWMax), the
+// transposed ones reading rows c0.. of W_i through column-major fragments.
+// f32: gemm_rows_f32 of Cls::Rows, the transposed ones reading columns c0..
+// of the transposed block W_i^T [np, kp] (wtpack; row stride kp).  C is the
+// f32 tile of row stride Cls::kLdC.
+template <class Cls>
+__device__ __forceinline__ void stage_w(const bf16* w, int np, int kp, bf16* ring) {
+  core_stage<typename Cls::Core, false>(w, np, kp, np, ring);
+}
+template <class Cls>
+__device__ __forceinline__ void stage_w(const float* w, int np, int kp, float* ring) {
+  stage_first_slabs_f32<kChainStagesF32, typename Cls::Rows>(w, np, kp, np, ring);
+}
+template <class Cls>
+__device__ __forceinline__ void product_w(const bf16* A, int lda, const bf16* w, int np, int kp, float* C,
+                                          bf16* ring) {
+  core_gemm<typename Cls::Core, false>(A, lda, w, np, kp, np, C, Cls::kLdC, ring);
+}
+template <class Cls>
+__device__ __forceinline__ void product_w(const float* A, int lda, const float* w, int np, int kp, float* C,
+                                          float* ring) {
+  gemm_rows_f32<typename Cls::Rows>(A, lda, w, np, kp, np, C, Cls::kLdC, ring);
+}
+template <class Cls>
 __device__ __forceinline__ void stage_wt(const bf16* w, int np, int kp, int c0, int nc, bf16* ring) {
-  stage_first_slabs<true>(w + (size_t)c0 * np, np, np, nc, ring);
+  core_stage<typename Cls::Core, true>(w + (size_t)c0 * np, np, np, nc, ring);
 }
+template <class Cls>
 __device__ __forceinline__ void stage_wt(const float* wt, int np, int kp, int c0, int nc, float* ring) {
-  stage_first_slabs_f32<kChainStagesF32>(wt + c0, kp, np, nc, ring);
+  stage_first_slabs_f32<kChainStagesF32, typename Cls::Rows>(wt + c0, kp, np, nc, ring);
 }
+template <class Cls>
 __device__ __forceinline__ void product_wt(const bf16* A, const bf16* w, int np, int kp, int c0, int nc, float* C,
                                            bf16* ring) {
-  gemm_rows64<true>(A, kLdA, w + (size_t)c0 * np, np, np, nc, C, kLdZ, ring);
+  core_gemm<typename Cls::Core, true>(A, ld_act<Cls, bf16>(), w + (size_t)c0 * np, np, np, nc, C, Cls::kLdC, ring);
 }
+template <class Cls>
 __device__ __forceinline__ void product_wt(const float* A, const float* wt, int np, int kp, int c0, int nc, float* C,
                                            float* ring) {
-  gemm_rows64_f32(A, kLdZ, wt + c0, kp, np, nc, C, kLdZ, ring);
+  gemm_rows_f32<typename Cls::Rows>(A, ld_act<Cls, float>(), wt + c0, kp, np, nc, C, Cls::kLdC, ring);
 }
 
-// The forward of one 64-point block, dot operands of T.  MODE says what it
-// writes:
+// The forward of one block of Cls::kPts points, dot operands of T.  MODE
+// says what it writes:
 //   kMlpPlain      the output (kernel I);
 //   kMlpStash      the output and every hidden z_i rounded to S into the
 //                  packed stash [N, ZT] (kernel F);
 //   kMlpRecompute  the stash and nothing else: no output layer (J1).
-template <typename T, typename S, int MODE>
-__global__ void __launch_bounds__(kChainThreads)
-    mlp_fwd_kernel(const float* __restrict__ x, const T* __restrict__ wpack, const float* __restrict__ bpack,
-                   float* __restrict__ out, S* __restrict__ zs, int n, const MlpMeta m) {
-  constexpr int kLdX = ld_x<T>();
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* act = reinterpret_cast<T*>(smem);                         // [kChainTP][kLdX]
-  float* Z = reinterpret_cast<float*>(act + kChainTP * kLdX);  // [kChainTP][kLdZ]
-  T* ring = reinterpret_cast<T*>(Z + kChainTP * kLdZ);
-  const int tid = threadIdx.x, p0 = blockIdx.x * kChainTP;
+template <class Cls, typename T, typename S, int MODE>
+__device__ __forceinline__ void mlp_fwd_block(unsigned char* smem, const float* __restrict__ x,
+                                              const T* __restrict__ wpack, const float* __restrict__ bpack,
+                                              float* __restrict__ out, S* __restrict__ zs, int n, const MlpMeta& m) {
+  constexpr int kPts = Cls::kPts, kLdX = ld_x<Cls, T>(), kLdC = Cls::kLdC;
+  T* act = reinterpret_cast<T*>(smem);                     // [kPts][kLdX]
+  float* Z = reinterpret_cast<float*>(act + kPts * kLdX);  // [kPts][kLdC]
+  T* ring = reinterpret_cast<T*>(Z + kPts * kLdC);
+  const int tid = threadIdx.x, p0 = blockIdx.x * kPts;
   const int last = m.n_lin - 1, n_run = MODE == kMlpRecompute ? last : m.n_lin;
 
   // The input tile: x as a dot operand of T, zero past d0 and past N (x's
   // rows are d0 = 361 floats, so not 16-byte aligned: four scalar loads).
-  stage_first_slabs<false>(wpack + m.w_off[0], m.np_[0], m.kp[0], m.np_[0], ring);
+  stage_w<Cls>(wpack + m.w_off[0], m.np_[0], m.kp[0], ring);
   const int w4 = m.kp[0] / 4;
-  for (int idx = tid; idx < kChainTP * w4; idx += kChainThreads) {
+  for (int idx = tid; idx < kPts * w4; idx += kChainThreads) {
     const int p = idx / w4, c = (idx % w4) * 4;
     float v[4];
 #pragma unroll
@@ -199,21 +285,20 @@ __global__ void __launch_bounds__(kChainThreads)
   for (int i = 0; i < n_run; ++i) {
     const int np = m.np_[i], o = m.out_dim[i];
     const float* b = bpack + m.b_off[i];
-    gemm_rows64<false>(act, kLdX, wpack + m.w_off[i], np, m.kp[i], np, Z, kLdZ, ring);
+    product_w<Cls>(act, kLdX, wpack + m.w_off[i], np, m.kp[i], Z, ring);
     __syncthreads();
     if (i == last) {  // the linear output layer
-      for (int idx = tid; idx < kChainTP * o; idx += kChainThreads) {
+      for (int idx = tid; idx < kPts * o; idx += kChainThreads) {
         const int p = idx / o, c = idx % o;
-        if (p0 + p < n) out[(size_t)(p0 + p) * m.d_out + c] = Z[p * kLdZ + c] + b[c];
+        if (p0 + p < n) out[(size_t)(p0 + p) * m.d_out + c] = Z[p * kLdC + c] + b[c];
       }
       return;
     }
-    if (i + 1 < n_run)
-      stage_first_slabs<false>(wpack + m.w_off[i + 1], m.np_[i + 1], m.kp[i + 1], m.np_[i + 1], ring);
-    for (int idx = tid; idx < kChainTP * (np / 4); idx += kChainThreads) {
+    if (i + 1 < n_run) stage_w<Cls>(wpack + m.w_off[i + 1], m.np_[i + 1], m.kp[i + 1], ring);
+    for (int idx = tid; idx < kPts * (np / 4); idx += kChainThreads) {
       const int p = idx / (np / 4), c = (idx % (np / 4)) * 4;
       float z[4], bb[4], h[4];
-      ld_f4(Z + p * kLdZ + c, z);
+      ld_f4(Z + p * kLdC + c, z);
       ld_f4(b + c, bb);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
@@ -226,24 +311,24 @@ __global__ void __launch_bounds__(kChainThreads)
   }
 }
 
-// The backward chain of one 64-point block at the stash zs of S, dot
-// operands of T: G1, and J2 on J1's transient stash.  G_i = G [z_i > 0]
+// The backward chain of one block of Cls::kPts points at the stash zs of S,
+// dot operands of T: G1, and J2 on J1's transient stash.  G_i = G [z_i > 0]
 // (the cotangent g at the output layer), then G <- G_i W_i^T, down to dx.
 // The transposed products read wpack in bf16 and wtpack in f32 (null in
 // bf16; stage_wt).
-template <typename T, typename S>
-__global__ void __launch_bounds__(kChainThreads)
-    mlp_bwd_chain_kernel(const float* __restrict__ x, const S* __restrict__ zs, const float* __restrict__ g,
-                         const T* __restrict__ wpack, const T* __restrict__ wtpack, float* __restrict__ dx,
-                         T* __restrict__ scratch, float* __restrict__ partial, int n, const MlpMeta m,
-                         const DwJobs jobs, int bt) {
-  constexpr int kLdAct = CoreTile<T>::kLdAct;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Gf = reinterpret_cast<float*>(smem);             // [kChainTP][kLdZ] the running cotangent
-  T* act = reinterpret_cast<T*>(Gf + kChainTP * kLdZ);    // [kChainTP][kLdAct] the product's operand
-  T* ring = act + kChainTP * kLdAct;
+template <class Cls, typename T, typename S>
+__device__ __forceinline__ void mlp_bwd_chain_block(unsigned char* smem, const float* __restrict__ x,
+                                                    const S* __restrict__ zs, const float* __restrict__ g,
+                                                    const T* __restrict__ wpack, const T* __restrict__ wtpack,
+                                                    float* __restrict__ dx, T* __restrict__ scratch,
+                                                    float* __restrict__ partial, int n, const MlpMeta& m,
+                                                    const DwJobs& jobs, int bt) {
+  constexpr int kPts = Cls::kPts, kLdC = Cls::kLdC, kLdAct = ld_act<Cls, T>(), kRowsPerBlock = kPts / kSumRows;
+  float* Gf = reinterpret_cast<float*>(smem);        // [kPts][kLdC] the running cotangent
+  T* act = reinterpret_cast<T*>(Gf + kPts * kLdC);   // [kPts][kLdAct] the product's operand
+  T* ring = act + kPts * kLdAct;
   const T* wt = std::is_same<T, float>::value ? wtpack : wpack;
-  const int tid = threadIdx.x, p0 = blockIdx.x * kChainTP;
+  const int tid = threadIdx.x, p0 = blockIdx.x * kPts;
   const int last = m.n_lin - 1, d0 = m.d0;
   // Four columns of the stash (zero past N).
   auto z4 = [&](int p, int col, float* v) {
@@ -253,32 +338,32 @@ __global__ void __launch_bounds__(kChainThreads)
       v[0] = v[1] = v[2] = v[3] = 0.0f;
   };
 
-  stage_wt(wt + m.w_off[last], m.np_[last], m.kp[last], 0, min(m.kp[last], kWMax), ring);
+  stage_wt<Cls>(wt + m.w_off[last], m.np_[last], m.kp[last], 0, min(m.kp[last], Cls::kW), ring);
   for (int i = last; i >= 0; --i) {
     const int np = m.np_[i], o = m.out_dim[i], kp = m.kp[i], in = m.in_dim[i];
     T* Aop = scratch + jobs.a_off[i];
     T* Bop = scratch + jobs.b_off[i];
-    if (i < last) stage_wt(wt + m.w_off[i], np, kp, 0, min(kp, kWMax), ring);
+    if (i < last) stage_wt<Cls>(wt + m.w_off[i], np, kp, 0, min(kp, Cls::kW), ring);
     // G_i in f32 (for the bias sums), and in T as the product's operand
     // and dW_i's B operand.
-    for (int idx = tid; idx < kChainTP * (np / 4); idx += kChainThreads) {
+    for (int idx = tid; idx < kPts * (np / 4); idx += kChainThreads) {
       const int p = idx / (np / 4), c = (idx % (np / 4)) * 4;
       float v[4], z[4];
       if (i == last) {
 #pragma unroll
         for (int k = 0; k < 4; ++k) v[k] = c + k < o && p0 + p < n ? g[(size_t)(p0 + p) * m.d_out + c + k] : 0.0f;
       } else {
-        ld_f4(Gf + p * kLdZ + c, v);
+        ld_f4(Gf + p * kLdC + c, v);
         z4(p, m.z_off[i] + c, z);
 #pragma unroll
         for (int k = 0; k < 4; ++k) v[k] = c + k < o ? v[k] * (z[k] > 0.0f ? 1.0f : 0.0f) : 0.0f;
       }
-      st_f4(Gf + p * kLdZ + c, v);
+      st_f4(Gf + p * kLdC + c, v);
       st4(act + p * kLdAct + c, v);
       st4(Bop + (size_t)(p0 + p) * np + c, v);
     }
     // dW_i's A operand: the layer's input in T (x, or relu(z_{i-1})).
-    for (int idx = tid; idx < kChainTP * (kp / 4); idx += kChainThreads) {
+    for (int idx = tid; idx < kPts * (kp / 4); idx += kChainThreads) {
       const int p = idx / (kp / 4), c = (idx % (kp / 4)) * 4;
       float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       if (p0 + p < n) {
@@ -298,82 +383,136 @@ __global__ void __launch_bounds__(kChainThreads)
     // db_i's partial sums: one row per kSumRows points, summed in point
     // order.  The product below begins with a barrier, so these reads of
     // Gf finish before it overwrites Gf.
-    for (int idx = tid; idx < (kChainTP / kSumRows) * np; idx += kChainThreads) {
+    for (int idx = tid; idx < kRowsPerBlock * np; idx += kChainThreads) {
       const int q = idx / np, c = idx % np;
       float s = 0.0f;
-      for (int p = q * kSumRows; p < (q + 1) * kSumRows; ++p) s += Gf[p * kLdZ + c];
-      partial[((size_t)blockIdx.x * (kChainTP / kSumRows) + q) * bt + m.b_off[i] + c] = s;
+      for (int p = q * kSumRows; p < (q + 1) * kSumRows; ++p) s += Gf[p * kLdC + c];
+      partial[((size_t)blockIdx.x * kRowsPerBlock + q) * bt + m.b_off[i] + c] = s;
     }
     if (i > 0) {
-      product_wt(act, wt + m.w_off[i], np, kp, 0, kp, Gf, ring);
+      product_wt<Cls>(act, wt + m.w_off[i], np, kp, 0, kp, Gf, ring);
       __syncthreads();
       continue;
     }
-    // dx = G_0 W_0^T, in column passes of at most kWMax, each stored to dx.
-    for (int c0 = 0; c0 < kp; c0 += kWMax) {
-      const int nc = min(kp - c0, kWMax);
-      if (c0 > 0) stage_wt(wt + m.w_off[0], np, kp, c0, nc, ring);
-      product_wt(act, wt + m.w_off[0], np, kp, c0, nc, Gf, ring);
+    // dx = G_0 W_0^T, in column passes of at most Cls::kW, each stored to dx.
+    for (int c0 = 0; c0 < kp; c0 += Cls::kW) {
+      const int nc = min(kp - c0, Cls::kW);
+      if (c0 > 0) stage_wt<Cls>(wt + m.w_off[0], np, kp, c0, nc, ring);
+      product_wt<Cls>(act, wt + m.w_off[0], np, kp, c0, nc, Gf, ring);
       __syncthreads();
-      for (int idx = tid; idx < kChainTP * nc; idx += kChainThreads) {
+      for (int idx = tid; idx < kPts * nc; idx += kChainThreads) {
         const int p = idx / nc, c = idx % nc;
-        if (p0 + p < n && c0 + c < d0) dx[(size_t)(p0 + p) * d0 + c0 + c] = Gf[p * kLdZ + c];
+        if (p0 + p < n && c0 + c < d0) dx[(size_t)(p0 + p) * d0 + c0 + c] = Gf[p * kLdC + c];
       }
     }
   }
 }
 
-int nblocks(int n) { return (n + kChainTP - 1) / kChainTP; }
-
+// The kernels: the 64-point instances (whose names the profiles read) and
+// the wide ones, each one block body.
 template <typename T, typename S, int MODE>
-int launch_fwd(const float* x, const void* wpack, const float* bpack, float* out, void* zs, int n, const MlpMeta& m,
-               cudaStream_t stream) {
-  constexpr size_t kMlpFwdSmem = mlp_fwd_smem<T>();
-  int rc = (int)cudaFuncSetAttribute(mlp_fwd_kernel<T, S, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)kMlpFwdSmem);
+__global__ void __launch_bounds__(kChainThreads)
+    mlp_fwd_kernel(const float* __restrict__ x, const T* __restrict__ wpack, const float* __restrict__ bpack,
+                   float* __restrict__ out, S* __restrict__ zs, int n, const MlpMeta m) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  mlp_fwd_block<TrunkNarrow, T, S, MODE>(smem, x, wpack, bpack, out, zs, n, m);
+}
+template <typename T, typename S, int MODE>
+__global__ void __launch_bounds__(kChainThreads)
+    mlp_fwd_wide_kernel(const float* __restrict__ x, const T* __restrict__ wpack, const float* __restrict__ bpack,
+                        float* __restrict__ out, S* __restrict__ zs, int n, const MlpMeta m) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  mlp_fwd_block<TrunkWide, T, S, MODE>(smem, x, wpack, bpack, out, zs, n, m);
+}
+template <typename T, typename S>
+__global__ void __launch_bounds__(kChainThreads)
+    mlp_bwd_chain_kernel(const float* __restrict__ x, const S* __restrict__ zs, const float* __restrict__ g,
+                         const T* __restrict__ wpack, const T* __restrict__ wtpack, float* __restrict__ dx,
+                         T* __restrict__ scratch, float* __restrict__ partial, int n, const MlpMeta m,
+                         const DwJobs jobs, int bt) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  mlp_bwd_chain_block<TrunkNarrow, T, S>(smem, x, zs, g, wpack, wtpack, dx, scratch, partial, n, m, jobs, bt);
+}
+template <typename T, typename S>
+__global__ void __launch_bounds__(kChainThreads)
+    mlp_bwd_chain_wide_kernel(const float* __restrict__ x, const S* __restrict__ zs, const float* __restrict__ g,
+                              const T* __restrict__ wpack, const T* __restrict__ wtpack, float* __restrict__ dx,
+                              T* __restrict__ scratch, float* __restrict__ partial, int n, const MlpMeta m,
+                              const DwJobs jobs, int bt) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  mlp_bwd_chain_block<TrunkWide, T, S>(smem, x, zs, g, wpack, wtpack, dx, scratch, partial, n, m, jobs, bt);
+}
+
+// The class's kernel of each template.
+template <class Cls, typename T, typename S, int MODE>
+auto fwd_kernel() {
+  if constexpr (std::is_same<Cls, TrunkWide>::value)
+    return mlp_fwd_wide_kernel<T, S, MODE>;
+  else
+    return mlp_fwd_kernel<T, S, MODE>;
+}
+template <class Cls, typename T, typename S>
+auto chain_kernel() {
+  if constexpr (std::is_same<Cls, TrunkWide>::value)
+    return mlp_bwd_chain_wide_kernel<T, S>;
+  else
+    return mlp_bwd_chain_kernel<T, S>;
+}
+
+template <class Cls>
+int nblocks(int n) { return (n + Cls::kPts - 1) / Cls::kPts; }
+
+// The launchers take the class as a tag, their first argument.
+template <typename T, typename S, int MODE, class Cls>
+int launch_fwd(Cls, const float* x, const void* wpack, const float* bpack, float* out, void* zs, int n,
+               const MlpMeta& m, cudaStream_t stream) {
+  constexpr size_t kMlpFwdSmem = mlp_fwd_smem<Cls, T>();
+  const auto kernel = fwd_kernel<Cls, T, S, MODE>();
+  int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMlpFwdSmem);
   if (rc) return rc;
-  mlp_fwd_kernel<T, S, MODE><<<nblocks(n), kChainThreads, kMlpFwdSmem, stream>>>(x, (const T*)wpack, bpack, out,
-                                                                                  (S*)zs, n, m);
+  kernel<<<nblocks<Cls>(n), kChainThreads, kMlpFwdSmem, stream>>>(x, (const T*)wpack, bpack, out, (S*)zs, n, m);
   return (int)cudaGetLastError();
 }
 
-// The chain, then dw_sum.cuh's passes over its nblk * kChainTP / kSumRows
+// The chain, then dw_sum.cuh's passes over its nblk * Cls::kPts / kSumRows
 // rows of bias sums (the scratch's type T picks the partial products'
 // kernel).
-template <typename T, typename S>
-int launch_chain(const float* x, const void* zs, const float* g, const void* wpack, const void* wtpack, float* dx,
-                 void* scratch, float* partial, float* colsum, float* part_dw, float* dw, const DwJobs& J, int split,
-                 int n, const MlpMeta& m, cudaStream_t stream) {
-  constexpr size_t kMlpChainSmem = mlp_chain_smem<T>();
-  int rc = (int)cudaFuncSetAttribute(mlp_bwd_chain_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)kMlpChainSmem);
+template <typename T, typename S, class Cls>
+int launch_chain(Cls, const float* x, const void* zs, const float* g, const void* wpack, const void* wtpack,
+                 float* dx, void* scratch, float* partial, float* colsum, float* part_dw, float* dw, const DwJobs& J,
+                 int split, int n, const MlpMeta& m, cudaStream_t stream) {
+  constexpr size_t kMlpChainSmem = mlp_chain_smem<Cls, T>();
+  const auto kernel = chain_kernel<Cls, T, S>();
+  int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMlpChainSmem);
   if (rc) return rc;
   int bt = 0;
   for (int i = 0; i < m.n_lin; ++i) bt += m.np_[i];
-  const int nblk = nblocks(n);
-  mlp_bwd_chain_kernel<T, S><<<nblk, kChainThreads, kMlpChainSmem, stream>>>(
-      x, (const S*)zs, g, (const T*)wpack, (const T*)wtpack, dx, (T*)scratch, partial, n, m, J, bt);
+  const int nblk = nblocks<Cls>(n);
+  kernel<<<nblk, kChainThreads, kMlpChainSmem, stream>>>(x, (const S*)zs, g, (const T*)wpack, (const T*)wtpack, dx,
+                                                         (T*)scratch, partial, n, m, J, bt);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
-  return launch_dw_sums((const T*)scratch, part_dw, dw, J, split, partial, nblk * (kChainTP / kSumRows), bt, colsum,
+  return launch_dw_sums((const T*)scratch, part_dw, dw, J, split, partial, nblk * (Cls::kPts / kSumRows), bt, colsum,
                         stream);
 }
 
 // J at operand type T: the recompute pass J1 into the transient stash zsc
 // [N, ZT] of T, then the chain on it.
-template <typename T>
-int launch_recompute_bwd(const float* x, const float* g, const void* wpack, const void* wtpack, const float* bpack,
-                         void* zsc, float* dx, void* scratch, float* partial, float* colsum, float* part_dw, float* dw,
-                         const DwJobs& J, int split, int n, const MlpMeta& m, cudaStream_t stream) {
+template <typename T, class Cls>
+int launch_recompute_bwd(Cls cls, const float* x, const float* g, const void* wpack, const void* wtpack,
+                         const float* bpack, void* zsc, float* dx, void* scratch, float* partial, float* colsum,
+                         float* part_dw, float* dw, const DwJobs& J, int split, int n, const MlpMeta& m,
+                         cudaStream_t stream) {
   if (m.n_lin > 1) {
-    const int rc = launch_fwd<T, T, kMlpRecompute>(x, wpack, bpack, nullptr, zsc, n, m, stream);
+    const int rc = launch_fwd<T, T, kMlpRecompute>(cls, x, wpack, bpack, nullptr, zsc, n, m, stream);
     if (rc) return rc;
   }
-  return launch_chain<T, T>(x, zsc, g, wpack, wtpack, dx, scratch, partial, colsum, part_dw, dw, J, split, n, m,
+  return launch_chain<T, T>(cls, x, zsc, g, wpack, wtpack, dx, scratch, partial, colsum, part_dw, dw, J, split, n, m,
                             stream);
 }
 
 // The instance the dtypes select: F and G at each (T, S) pair; I at T = S.
+// a... begins with the class's tag.
 template <int MODE, typename... A>
 int launch_fwd_dtypes(int dtypes, A... a) {
   if constexpr (MODE == kMlpPlain) {
@@ -408,8 +547,16 @@ int launch_chain_dtypes(int dtypes, A... a) {
   return (int)cudaErrorInvalidValue;
 }
 
-int parse_bwd(const int* meta, const long long* jobs, int n_jobs, MlpMeta* m, DwJobs* J) {
-  int rc = parse_mlp_meta(meta, m);
+// f(class tag, the dtypes without the class bit): kWideClass in dtypes
+// selects the wide instances.
+template <class F>
+int by_class(int dtypes, F f) {
+  return dtypes & kWideClass ? f(TrunkWide{}, dtypes ^ kWideClass) : f(TrunkNarrow{}, dtypes);
+}
+
+template <class Cls>
+int parse_bwd(const int* meta, const long long* jobs, int n_jobs, MlpMeta* m, DwJobs* J, Cls cls) {
+  int rc = parse_mlp_meta(meta, m, cls);
   if (rc) return rc;
   rc = parse_jobs(jobs, n_jobs, J);
   if (rc) return rc;
@@ -419,56 +566,65 @@ int parse_bwd(const int* meta, const long long* jobs, int n_jobs, MlpMeta* m, Dw
 }  // namespace
 
 // dtypes: kF32Compute and kF32Stash select F's instance (its dot operands'
-// and its stash's types; wpack holds the operands' type).
+// and its stash's types; wpack holds the operands' type), kWideClass the
+// wide class's.
 extern "C" int mlp_stash_fwd(const float* x, const void* wpack, const float* bpack, float* out, void* zs, int n,
                              const int* meta, int dtypes, void* stream) {
-  MlpMeta m;
-  const int rc = parse_mlp_meta(meta, &m);
-  if (rc || n <= 0) return rc;
-  return launch_fwd_dtypes<kMlpStash>(dtypes, x, wpack, bpack, out, zs, n, m, (cudaStream_t)stream);
+  return by_class(dtypes, [&](auto cls, int dt) {
+    MlpMeta m;
+    const int rc = parse_mlp_meta(meta, &m, cls);
+    if (rc || n <= 0) return rc;
+    return launch_fwd_dtypes<kMlpStash>(dt, cls, x, wpack, bpack, out, zs, n, m, (cudaStream_t)stream);
+  });
 }
 
-// dtypes: kF32Compute selects I's f32 instance.
+// dtypes: kF32Compute selects I's f32 instance, kWideClass the wide class's.
 extern "C" int mlp_fwd(const float* x, const void* wpack, const float* bpack, float* out, int n, const int* meta,
                        int dtypes, void* stream) {
-  MlpMeta m;
-  const int rc = parse_mlp_meta(meta, &m);
-  if (rc || n <= 0) return rc;
-  return launch_fwd_dtypes<kMlpPlain>(dtypes, x, wpack, bpack, out, nullptr, n, m, (cudaStream_t)stream);
+  return by_class(dtypes, [&](auto cls, int dt) {
+    MlpMeta m;
+    const int rc = parse_mlp_meta(meta, &m, cls);
+    if (rc || n <= 0) return rc;
+    return launch_fwd_dtypes<kMlpPlain>(dt, cls, x, wpack, bpack, out, nullptr, n, m, (cudaStream_t)stream);
+  });
 }
 
 // dtypes: kF32Compute and kF32Stash select G's instance (its dot operands',
-// and so its scratch's, and its stash's types); wtpack is the f32 pack's
-// transposed blocks (null in bf16).
+// and so its scratch's, and its stash's types), kWideClass the wide
+// class's; wtpack is the f32 pack's transposed blocks (null in bf16).
 extern "C" int mlp_stash_bwd(const float* x, const void* zs, const float* g, const void* wpack, const void* wtpack,
                              float* dx, void* scratch, float* partial, float* colsum, float* part_dw, float* dw,
                              const long long* jobs, int n_jobs, int split, int n, const int* meta, int dtypes,
                              void* stream) {
-  MlpMeta m;
-  DwJobs J;
-  const int rc = parse_bwd(meta, jobs, n_jobs, &m, &J);
-  if (rc || n <= 0) return rc;
-  return launch_chain_dtypes(dtypes, x, zs, g, wpack, wtpack, dx, scratch, partial, colsum, part_dw, dw, J, split, n,
-                             m, (cudaStream_t)stream);
+  return by_class(dtypes, [&](auto cls, int dt) {
+    MlpMeta m;
+    DwJobs J;
+    const int rc = parse_bwd(meta, jobs, n_jobs, &m, &J, cls);
+    if (rc || n <= 0) return rc;
+    return launch_chain_dtypes(dt, cls, x, zs, g, wpack, wtpack, dx, scratch, partial, colsum, part_dw, dw, J, split,
+                               n, m, (cudaStream_t)stream);
+  });
 }
 
 // J: the recompute pass J1 into the transient stash zsc [N, ZT], then the
 // chain on it; dtypes: kF32Compute selects J's f32 instance, whose zsc is
-// f32.
+// f32, kWideClass the wide class's.
 extern "C" int mlp_bwd(const float* x, const float* g, const void* wpack, const void* wtpack, const float* bpack,
                        void* zsc, float* dx, void* scratch, float* partial, float* colsum, float* part_dw, float* dw,
                        const long long* jobs, int n_jobs, int split, int n, const int* meta, int dtypes,
                        void* stream) {
-  MlpMeta m;
-  DwJobs J;
-  const int rc = parse_bwd(meta, jobs, n_jobs, &m, &J);
-  if (rc || n <= 0) return rc;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (dtypes & kF32Compute)
-    return launch_recompute_bwd<float>(x, g, wpack, wtpack, bpack, zsc, dx, scratch, partial, colsum, part_dw, dw, J,
-                                       split, n, m, s);
-  return launch_recompute_bwd<bf16>(x, g, wpack, wtpack, bpack, zsc, dx, scratch, partial, colsum, part_dw, dw, J,
-                                    split, n, m, s);
+  return by_class(dtypes, [&](auto cls, int dt) {
+    MlpMeta m;
+    DwJobs J;
+    const int rc = parse_bwd(meta, jobs, n_jobs, &m, &J, cls);
+    if (rc || n <= 0) return rc;
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (dt & kF32Compute)
+      return launch_recompute_bwd<float>(cls, x, g, wpack, wtpack, bpack, zsc, dx, scratch, partial, colsum, part_dw,
+                                         dw, J, split, n, m, s);
+    return launch_recompute_bwd<bf16>(cls, x, g, wpack, wtpack, bpack, zsc, dx, scratch, partial, colsum, part_dw, dw,
+                                      J, split, n, m, s);
+  });
 }
 
 extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

@@ -558,16 +558,28 @@ struct CoreTile<float> {
 // contract as the bf16 gemm_rows64: every thread calls it, it begins with a
 // barrier and returns with the ring free; C is complete after the caller's
 // next __syncthreads().  C may be A itself: every thread is past its last
-// read of A before any C is stored.
-__device__ __forceinline__ void gemm_rows64_f32(const float* A, int lda, const float* __restrict__ B, int ldb, int K,
-                                                int N, float* C, int ldc, float* ring) {
+// read of A before any C is stored.  gemm_rows_f32<RowsWide> is the same
+// product on the wide class's f32 engine: C[32, N] for N up to kWideWMax
+// (the reflectance trunk's wide f32 instances, mlp_stash.cu), after
+// stage_first_slabs_f32<kChainStagesF32, RowsWide>; its ring has as many
+// floats (two stages of 16 k-rows by 512 columns).
+template <class Cls = RowsNarrow>
+__device__ __forceinline__ void gemm_rows_f32(const float* A, int lda, const float* __restrict__ B, int ldb, int K,
+                                              int N, float* C, int ldc, float* ring) {
+  constexpr int kGT = kGroupThreadsF32<Cls>;
   float acc[8][4];
-  rows_product_f32<false, kChainStagesF32>(A, lda, B, ldb, K, N, ring, acc);
-  const int g = threadIdx.x >> 6, c0 = (threadIdx.x & 63) * 4;
+  rows_product_f32<false, kChainStagesF32, Cls>(A, lda, B, ldb, K, N, ring, acc);
+  const int g = threadIdx.x / kGT, c0 = (threadIdx.x % kGT) * 4;
   if (c0 < N)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) st_f4(C + f32_row<false>(g, i) * ldc + c0, acc[i]);
+    for (int i = 0; i < 8; ++i) st_f4(C + f32_row<false, Cls>(g, i) * ldc + c0, acc[i]);
 }
+__device__ __forceinline__ void gemm_rows64_f32(const float* A, int lda, const float* __restrict__ B, int ldb, int K,
+                                                int N, float* C, int ldc, float* ring) {
+  gemm_rows_f32<RowsNarrow>(A, lda, B, ldb, K, N, C, ldc, ring);
+}
+static_assert(kChainStagesF32 * RowsWide::kSlabF * RowsWide::kW == kChainStagesF32 * kRingStageF32,
+              "the wide f32 ring holds as many floats as the 64-point one");
 
 // stage_first_slabs and gemm_rows64 with f32 operands, in the bf16
 // overloads' argument order: B is the row-major [K, N] f32 block of row

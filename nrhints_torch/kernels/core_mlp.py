@@ -24,7 +24,10 @@ core's width class picks A's, D's, E's and H's block (``core_class``): the
 encodings up to 64), the wide ones above them (up to 512 and 128, bf16
 only, counted as ``*_wide``).  The march kernels C, K, L, M and N
 (``kernels/march.py``) have their own class above the presets' widths,
-``ROWS_WIDE``, at bf16 and f32 march weights.
+``ROWS_WIDE``, at bf16 and f32 march weights, and the trunk's F, G, I and J
+theirs (``trunk_class``): the 64-point instances at padded hidden widths up
+to 256 and inputs up to 384, the wide ones (32-point blocks, bf16 and f32,
+counted as ``*_wide``) up to 512 and 640.
 
 On CPU tensors every wrapper runs its plain version; on CUDA tensors it
 launches its kernel or raises.
@@ -193,6 +196,7 @@ def _round16(v: int) -> int:
 
 CHAIN_TP = 64  # points per block of kernels A, D, E, H and F, G, I, J (csrc/staged_mma.cuh::kChainTP)
 IN_MAX = 384  # widest padded trunk input (csrc/mlp_stash.cu::kInMax)
+IN_WIDE = 640  # widest padded trunk input of the trunk's wide class (csrc/mlp_stash.cu::kInWide)
 SUM_ROWS = 16  # points per row of the trunk's bias sums (csrc/mlp_stash.cu::kSumRows)
 ENC_MAX = 64  # widest padded frequency encoding (csrc/sdf_mlp.cuh::kEncMax)
 MAX_SPLIT = 16  # row chunks of the weight-cotangent products
@@ -222,6 +226,24 @@ WIDE = CoreClass(32, 512, 2 * ENC_MAX, "_wide", 4)  # bf16 only
 # The row engine above the presets' widths (march kernels C, K, L, M, N):
 # 64 bf16 rows a pass (32 f32), bf16 and f32 march weights.
 ROWS_WIDE = CoreClass(64, 512, 2 * ENC_MAX, "_wide", 0)
+
+
+@dataclass(frozen=True)
+class TrunkClass:
+    """A width class of the trunk kernels F, G, I and J (``csrc/mlp_stash.cu``'s
+    TrunkNarrow and TrunkWide): points a block, the widest padded hidden
+    layer and input it takes, the suffix of its instances' launch counters,
+    and its bit in the dtypes int (kWideClass)."""
+
+    pts: int
+    width: int
+    in_max: int
+    suffix: str
+    bit: int
+
+
+TRUNK_NARROW = TrunkClass(CHAIN_TP, 256, IN_MAX, "", 0)
+TRUNK_WIDE = TrunkClass(32, 512, IN_WIDE, "_wide", 4)  # bf16 and f32
 
 
 def core_class(cfg: SDFNetConfig, with_feat: bool = True, compute_dtype: str = "bfloat16") -> CoreClass:
@@ -344,10 +366,12 @@ def instance_name(kernel: str, compute_dtype: str, stash_dtype: str | None = Non
 
 
 def core_instance(kernel: str, pk: dict, compute_dtype: str, stash_dtype: str | None = None) -> tuple[str, int]:
-    """(launch counter, dtypes int) of an SDF core kernel's instance for the
-    pack's width class: ``instance_name`` and ``dtype_bits``, with "_wide"
-    and the kWideClass bit for the wide class, which has bf16 instances
-    only (``NotImplementedError`` at an f32 stash)."""
+    """(launch counter, dtypes int) of an SDF core or trunk kernel's
+    instance for the pack's width class: ``instance_name`` and
+    ``dtype_bits``, with "_wide" and the kWideClass bit for a wide class.
+    The SDF core's wide class has bf16 instances only
+    (``NotImplementedError`` at an f32 stash); the trunk's has every
+    pair."""
     cls = pk["cls"]
     if cls is WIDE and stash_dtype == "float32":
         raise NotImplementedError(f"the CUDA SDF core's instances above padded width {NARROW.width} or encoding "
@@ -396,13 +420,14 @@ def chain_layout(n: int, gates_total: int, cls: CoreClass = NARROW) -> tuple[int
     return nblk, npad, npad * (gates_total + 4 * cls.enc)
 
 
-def trunk_layout(n: int, zt: int) -> tuple[int, int, int, int]:
+def trunk_layout(n: int, zt: int, cls: TrunkClass = TRUNK_NARROW) -> tuple[int, int, int, int]:
     """-> (blocks, padded points, rows of the bias sums, elements of kernel
     J's transient z stash) of the trunk's kernels (``csrc/mlp_stash.cu``)
-    at n points and ZT stash columns: 64-point blocks; one row of f32 column
-    sums of every G_i per ``SUM_ROWS`` padded points; J's stash has kernel
-    F's layout [n, ZT], in J's operand dtype."""
-    nblk, npad, _ = gate_layout(n, 0)
+    at n points and ZT stash columns in width class ``cls``: blocks of
+    ``cls.pts`` points; one row of f32 column sums of every G_i per
+    ``SUM_ROWS`` padded points; J's stash has kernel F's layout [n, ZT], in
+    J's operand dtype."""
+    nblk, npad, _ = gate_layout(n, 0, cls.pts)
     return nblk, npad, npad // SUM_ROWS, n * zt
 
 
@@ -415,15 +440,27 @@ def materialize_mlp_weights(params: dict, n_layers: int) -> tuple:
     return tuple(out)
 
 
+def trunk_class(dims: Sequence[tuple[int, int]]) -> TrunkClass:
+    """The width class whose CUDA instances take a trunk of (in, out) layer
+    widths ``dims``: TRUNK_NARROW at padded hidden widths up to 256 and a
+    padded input up to 384 (the presets'), else TRUNK_WIDE up to 512 and
+    640 (``sdf_network.d_out_feat`` = 512 under both hints), at bf16 and
+    f32.  Raises ``NotImplementedError`` for what no instance takes: wider
+    layers or inputs, or more than 16 layers."""
+    hidden = max([_round16(o) for _, o in dims] + [_round16(i) for i, _ in dims[1:]])
+    d0 = _round16(dims[0][0])
+    for cls in (TRUNK_NARROW, TRUNK_WIDE):
+        if hidden <= cls.width and d0 <= cls.in_max and len(dims) <= MAX_LAYERS:
+            return cls
+    raise NotImplementedError(f"the CUDA trunk kernels (F, G, I, J) take padded hidden widths up to {TRUNK_WIDE.width}, "
+                              f"a padded input up to {TRUNK_WIDE.in_max} and at most {MAX_LAYERS} layers, got padded "
+                              f"hidden {hidden}, input {d0} and {len(dims)} layers (ROADMAP.md Queue 2 item 15)")
+
+
 def check_trunk_widths(dims: Sequence[tuple[int, int]]) -> None:
-    """Raise ``NotImplementedError`` where the trunk's (in, out) layer
-    widths exceed what the CUDA trunk kernels (F, G, I, J) take: padded
-    hidden widths up to 256, a padded input up to ``IN_MAX``."""
-    if max(_round16(o) for _, o in dims) > 256 or _round16(dims[0][0]) > IN_MAX or any(
-        _round16(i) > 256 for i, _ in dims[1:]
-    ):
-        raise NotImplementedError(f"the CUDA trunk kernels take hidden widths up to 256 and inputs up to {IN_MAX} "
-                                  "(ROADMAP.md Queue 2 item 14)")
+    """Raise ``NotImplementedError`` where no instance of the CUDA trunk
+    kernels takes the trunk's (in, out) layer widths (``trunk_class``)."""
+    trunk_class(dims)
 
 
 def pack_mlp(weights: Sequence[torch.Tensor], n_layers: int, dtype: torch.dtype = torch.bfloat16) -> dict:
@@ -435,12 +472,14 @@ def pack_mlp(weights: Sequence[torch.Tensor], n_layers: int, dtype: torch.dtype 
     (``compute_dtype="float32"``) read f32 blocks in the same layout and
     "wtpack": every block transposed at the same offset, the B operand of
     the chain's products G_i W_i^T (``mma_rows.cuh``'s f32 products read B
-    row-major)."""
+    row-major).  "cls" is the width class of the instances that read it
+    (``trunk_class``, which raises for a trunk no instance takes); the
+    layout is the same in both classes."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the packed trunk weights are bf16 or f32, got {dtype}")
     dev = weights[0].device
     dims = [(weights[2 * i].shape[0], weights[2 * i].shape[1]) for i in range(n_layers + 1)]
-    check_trunk_widths(dims)
+    cls = trunk_class(dims)
     meta, w_off, b_off, z_off = [], 0, 0, 0
     for din, dout in dims:
         kp, np_ = _round16(din), _round16(dout)
@@ -460,7 +499,7 @@ def pack_mlp(weights: Sequence[torch.Tensor], n_layers: int, dtype: torch.dtype 
             wtpack[wo : wo + kp * np_] = wp.t().reshape(-1)
         bpack[bo : bo + dout] = weights[2 * i + 1].reshape(-1).float()
     meta = [n_layers + 1, dims[0][0], dims[-1][1], zt] + meta
-    pk = {"wpack": wpack, "bpack": bpack, "meta": np.asarray(meta, dtype=np.int32)}
+    pk = {"wpack": wpack, "bpack": bpack, "meta": np.asarray(meta, dtype=np.int32), "cls": cls}
     if wtpack is not None:
         pk["wtpack"] = wtpack
     return pk
@@ -635,18 +674,19 @@ def sdf_core_bwd(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, co
 def mlp_fwd(weights, x: torch.Tensor, n_layers: int, pk: dict | None = None,
             compute_dtype: str = "bfloat16") -> torch.Tensor:
     """Kernel I on the card -> out [N, d_out] f32 (kernel F without its
-    stash; ``trunk_layout``'s 64-point blocks), with dot operands of
-    ``compute_dtype`` (bf16, or exact f32: I's f32 instance)."""
+    stash; ``trunk_layout``'s blocks of the pack's class), with dot operands
+    of ``compute_dtype`` (bf16, or exact f32: I's f32 instance)."""
     pk = trunk_pack(weights, n_layers, compute_dtype, pk)
+    name, bits = core_instance("mlp_fwd", pk, compute_dtype)
     meta = pk["meta"]
     n, dev = x.shape[0], x.device
     require_cuda(x, (None, int(meta[1])), "x")
     out = torch.empty((n, int(meta[2])), device=dev)
     if n > 0:
         _launch(
-            cuda_lib.load("mlp_stash"), "mlp_fwd", instance_name("mlp_fwd", compute_dtype),
+            cuda_lib.load("mlp_stash"), "mlp_fwd", name,
             x.data_ptr(), pk["wpack"].data_ptr(), pk["bpack"].data_ptr(), out.data_ptr(), n, meta.ctypes.data,
-            dtype_bits(compute_dtype), cuda_lib.stream_ptr(dev),
+            bits, cuda_lib.stream_ptr(dev),
         )
     return out
 
@@ -657,11 +697,15 @@ def mlp_bwd_launch(weights, x: torch.Tensor, g: torch.Tensor, n_layers: int, pk:
     stash (of ``stash_dtype``) of kernel F, or, with ``zs=None``, kernel J,
     which first recomputes the z_i into a transient stash of F's layout in
     the operands' dtype (freed when this returns).  Both run the per-point
-    chain on 64-point blocks, then the same split-K dW products and in-order
-    sums as kernel E (``trunk_layout``; the dW operands in a scratch of the
-    operands' dtype), at dot operands of ``compute_dtype`` (bf16, or exact
-    f32: the f32 instances)."""
+    chain on the blocks of the pack's class, then the same split-K dW
+    products and in-order sums as kernel E (``trunk_layout``; the dW
+    operands in a scratch of the operands' dtype), at dot operands of
+    ``compute_dtype`` (bf16, or exact f32: the f32 instances)."""
     pk = trunk_pack(weights, n_layers, compute_dtype, pk)
+    if zs is None:
+        name, bits = core_instance("mlp_bwd", pk, compute_dtype)
+    else:
+        name, bits = core_instance("mlp_stash_bwd", pk, compute_dtype, stash_dtype)
     cdt = torch_dtype(compute_dtype)
     meta = pk["meta"]
     n_lin, d0, d_out, zt = (int(v) for v in meta[:4])
@@ -671,7 +715,7 @@ def mlp_bwd_launch(weights, x: torch.Tensor, g: torch.Tensor, n_layers: int, pk:
         require_cuda(zs, (n, zt), "zs", torch_dtype(stash_dtype))
     require_cuda(g, (n, d_out), "g")
     layers = [tuple(int(v) for v in meta[4 + 7 * i : 11 + 7 * i]) for i in range(n_lin)]
-    _, npad, sum_rows, n_zs = trunk_layout(n, zt)
+    _, npad, sum_rows, n_zs = trunk_layout(n, zt, pk["cls"])
     jobs, n_scratch, n_dw = dw_jobs([(npad, lay[2], lay[3]) for lay in layers])
     split = dw_split(npad)
     bt = sum(lay[3] for lay in layers)
@@ -686,13 +730,11 @@ def mlp_bwd_launch(weights, x: torch.Tensor, g: torch.Tensor, n_layers: int, pk:
             dw.data_ptr(), jobs.ctypes.data, len(jobs), split, n, meta.ctypes.data)
     if n > 0 and zs is None:
         zsc = torch.empty(n_zs, dtype=cdt, device=dev)
-        _launch(cuda_lib.load("mlp_stash"), "mlp_bwd", instance_name("mlp_bwd", compute_dtype), x.data_ptr(),
-                g.data_ptr(), pk["wpack"].data_ptr(), _wt(pk), pk["bpack"].data_ptr(), zsc.data_ptr(), *tail,
-                dtype_bits(compute_dtype), cuda_lib.stream_ptr(dev))
+        _launch(cuda_lib.load("mlp_stash"), "mlp_bwd", name, x.data_ptr(), g.data_ptr(), pk["wpack"].data_ptr(),
+                _wt(pk), pk["bpack"].data_ptr(), zsc.data_ptr(), *tail, bits, cuda_lib.stream_ptr(dev))
     elif n > 0:
-        _launch(cuda_lib.load("mlp_stash"), "mlp_stash_bwd", instance_name("mlp_stash_bwd", compute_dtype, stash_dtype),
-                x.data_ptr(), zs.data_ptr(), g.data_ptr(), pk["wpack"].data_ptr(), _wt(pk), *tail,
-                dtype_bits(compute_dtype, stash_dtype), cuda_lib.stream_ptr(dev))
+        _launch(cuda_lib.load("mlp_stash"), "mlp_stash_bwd", name, x.data_ptr(), zs.data_ptr(), g.data_ptr(),
+                pk["wpack"].data_ptr(), _wt(pk), *tail, bits, cuda_lib.stream_ptr(dev))
     else:
         colsum.zero_()
         dw.zero_()

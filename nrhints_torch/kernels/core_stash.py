@@ -56,10 +56,8 @@ from nrhints_torch.kernels.core_mlp import (
     core_instance,
     core_pack,
     cotangent,
-    dtype_bits,
     encode_points,
     gate_layout,
-    instance_name,
     materialize_sdf_weights_full,
     materialize_mlp_weights,
     mlp_bwd_launch,
@@ -299,9 +297,11 @@ def mlp_stash_columns(pk: dict) -> list[tuple[int, int]]:
 def mlp_stash_fwd(weights, x: torch.Tensor, n_layers: int, pk: dict | None = None, compute_dtype: str = "bfloat16",
                   stash_dtype: str = "bfloat16"):
     """Kernel F on the card -> (out [N, d_out] f32, zs stash [N, ZT] of
-    ``stash_dtype``), on ``core_mlp.trunk_layout``'s 64-point blocks, with
-    dot operands of ``compute_dtype`` (bf16, or exact f32)."""
+    ``stash_dtype``), on ``core_mlp.trunk_layout``'s blocks of the pack's
+    width class, with dot operands of ``compute_dtype`` (bf16, or exact
+    f32)."""
     pk = trunk_pack(weights, n_layers, compute_dtype, pk)
+    name, bits = core_instance("mlp_stash_fwd", pk, compute_dtype, stash_dtype)
     meta = pk["meta"]
     n, dev = x.shape[0], x.device
     require_cuda(x, (None, int(meta[1])), "x")
@@ -309,9 +309,9 @@ def mlp_stash_fwd(weights, x: torch.Tensor, n_layers: int, pk: dict | None = Non
     zs = torch.empty((n, int(meta[3])), dtype=torch_dtype(stash_dtype), device=dev)
     if n > 0:
         _launch(
-            cuda_lib.load("mlp_stash"), "mlp_stash_fwd", instance_name("mlp_stash_fwd", compute_dtype, stash_dtype),
+            cuda_lib.load("mlp_stash"), "mlp_stash_fwd", name,
             x.data_ptr(), pk["wpack"].data_ptr(), pk["bpack"].data_ptr(), out.data_ptr(), zs.data_ptr(), n,
-            meta.ctypes.data, dtype_bits(compute_dtype, stash_dtype), cuda_lib.stream_ptr(dev),
+            meta.ctypes.data, bits, cuda_lib.stream_ptr(dev),
         )
     return out, zs
 

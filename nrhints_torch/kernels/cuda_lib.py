@@ -25,7 +25,10 @@ operands and ``_f32stash`` / ``_bf16stash`` for a stash dtype other than
 the operands'; the SDF core's wide instances (``core_mlp.WIDE``: padded
 widths above 256 or encodings above 64, bf16 only) count as ``_wide``, and
 so do the march kernels' wide instances (``core_mlp.ROWS_WIDE``: C, K, L,
-M and N, ``*_wide`` and ``*_f32_wide``, each its own C entry point).
+M and N, ``*_wide`` and ``*_f32_wide``, each its own C entry point), and
+the trunk's (``core_mlp.TRUNK_WIDE``: padded hidden widths above 256 or
+inputs above 384, bf16 and f32, ``*_wide`` after the dtypes' suffix, bit 2
+of the dtypes int).
 """
 from __future__ import annotations
 
@@ -62,10 +65,14 @@ SDF_CORE_INSTANCES = (
 # counter of the same name.
 MARCH_INSTANCES = [f"{k}{d}{w}" for k in ("shadow_final", "march_sweep", "march_rounds", "importance_march",
                                           "shadow_march") for d in ("", "_f32") for w in ("", "_wide")]
-TRUNK_INSTANCES = (
-    ["mlp_fwd", "mlp_fwd_f32", "mlp_bwd", "mlp_bwd_f32"]
-    + [f"{k}{c}" for k in ("mlp_stash_fwd", "mlp_stash_bwd") for c in ("", "_f32", "_f32_bf16stash", "_f32stash")]
-)
+# The trunk's instances by dtypes and width class (core_mlp.TRUNK_NARROW,
+# TRUNK_WIDE: "_wide"), each a launch counter of one C entry point.
+TRUNK_INSTANCES = [
+    f"{k}{c}{w}" for w in ("", "_wide") for k, dtypes in (
+        ("mlp_fwd", ("", "_f32")), ("mlp_bwd", ("", "_f32")),
+        ("mlp_stash_fwd", ("", "_f32", "_f32_bf16stash", "_f32stash")),
+        ("mlp_stash_bwd", ("", "_f32", "_f32_bf16stash", "_f32stash"))) for c in dtypes
+]
 
 launch_counts = {
     "sdf_core_fwd": 0, "round_machinery": 0, "shadow_final": 0,

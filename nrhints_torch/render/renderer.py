@@ -256,8 +256,9 @@ def check_kernel_widths(cfg: ModelConfig, is_training: bool = True) -> None:
     (``core_mlp.core_class``), the march kernels (C, K, L, M, N) wherever
     a fused march launches one (their class, ``core_class(...,
     with_feat=False)``), and the trunk (F, G, I, J) wherever the fused
-    trunk runs in training (``is_training``) or eval
-    (``core_mlp.check_trunk_widths``).  ``render_rays`` calls it for CUDA
+    trunk runs in training (``is_training``) or eval (its class, the
+    64-point instances or the wide ones up to 512 / 640:
+    ``core_mlp.check_trunk_widths``).  ``render_rays`` calls it for CUDA
     rays before any launch; on CPU tensors the plain versions take any
     width."""
     if not use_fused_core(cfg):

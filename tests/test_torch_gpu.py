@@ -56,6 +56,10 @@ entry by entry at F's z_i, 1e-4 by the relative norm against the wholly
 plain backward).  bf16 operands with an f32 stash give the (bf16, bf16)
 pair's output and gradients bit for bit, and the stash rounds to its stash:
 bf16(relu(z)) = relu(bf16(z)), and the ReLU mask reads only z's sign.
+The trunk's wide instances (F, G, I and J above the presets' widths:
+32-point blocks, bf16 and f32, every dtype pair) at the tolerances above for
+their dtypes, with the same identities (I = F, J = G at F's stash, G and J
+repeat, bit for bit; J by the norm against the wholly plain backward).
 """
 import numpy as np
 import pytest
@@ -1413,3 +1417,98 @@ def test_trunk_f32_entry_points_match_autograd(exact_f32, route):
     tol = 1e-4 if stash_kw is not None or route == "recompute" else 2e-2
     for k, p in zip(grads, ref):
         _close_rel(k, p, tol)
+
+
+# The trunk's wide instances: (kernel pair, compute dtype, stash dtype), F
+# and G at every pair, I and J at each operand dtype; at the 512-wide
+# model's trunk (617 -> 4 x 512 -> 3) and a small one whose padded input
+# alone is wide (400 -> 2 x 32 -> 3); 31 and 33 points sit on the edges of
+# one and two 32-point blocks.
+WIDE_TRUNK_CASES = [("stash", c, s) for c, s in [("bfloat16", "bfloat16")] + F32_COMBOS] + [
+    ("recompute", "bfloat16", "bfloat16"), ("recompute", "float32", "float32")]
+WIDE_TRUNK_DIMS = {"d512": (617, 512, 512, 512, 512, 3), "in400": (400, 32, 32, 3)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernels,compute,stash_dt", WIDE_TRUNK_CASES)
+@pytest.mark.parametrize("dims", sorted(WIDE_TRUNK_DIMS))
+@pytest.mark.parametrize("n", [1, 31, 33, 1000])
+def test_trunk_kernels_wide_match_plain(exact_f32, kernels, compute, stash_dt, dims, n):
+    """The trunk's wide instances against their plain versions: F's at
+    (compute, stash) against mlp_relu_fwd_zs_plain and G's against
+    mlp_relu_bwd_stash_plain at F's stash, G twice bit for bit; or I's
+    against mlp_relu_plain (I = F bit for bit) and J's entry by entry at F's
+    z_i and by the norm against the wholly plain backward (J = G at F's
+    stash, J repeats, bit for bit); each launch counted under its wide
+    instance's name.  The wholly plain backward recomputes the z_i in its
+    own summation order, and a z_i within rounding of 0 takes the other side
+    of the ReLU there, which moves that point's dx by a whole unit's share:
+    at 2,048 z_i a point, one such flipped point moved dx's norm by 2.5e-2
+    among 33 points (bf16) and by 1.6e-3 among 1,000 (f32), the other
+    points' dx by 2.0e-6 and 6.7e-7.  So dx is held to it by the
+    norm over the points whose masks agree with F's, and the weight
+    gradients, sums over every point, entry by entry at F's z_i only."""
+    w, n_layers, x, g = _gpu_trunk_case(exact_f32, WIDE_TRUNK_DIMS[dims], n)
+    out_tol, stash_tol, grad_tol = _tols(compute, stash_dt)
+    kw = dict(compute_dtype=compute, stash_dtype=stash_dt)
+    pk = core_mlp.pack_mlp(w, n_layers)
+    assert pk["cls"] is core_mlp.TRUNK_WIDE
+    cols = core_stash.mlp_stash_columns(pk)
+    before = dict(cuda_lib.launch_counts)
+    out, zs = core_stash.mlp_stash_fwd(w, x, n_layers, **kw)
+    if kernels == "stash":
+        p_out, p_zs = core_stash.mlp_relu_fwd_zs_plain(w, x, n_layers, compute, stash_dt)
+        _close(out, p_out, out_tol)
+        for k, p in zip(core_stash.split_stash(zs, cols), p_zs):
+            _close(k.float(), p.float(), stash_tol)
+        dws, dx = core_stash.mlp_stash_bwd(w, x, zs, g, n_layers, **kw)
+        torch.cuda.synchronize()
+        p_dws, p_dx = core_stash.mlp_relu_bwd_stash_plain(w, x, core_stash.split_stash(zs, cols), g, n_layers,
+                                                          compute)
+        for k, p in zip((dx, *dws), (p_dx, *p_dws)):
+            assert k.shape == p.shape
+            _close_rel(k, p, grad_tol)
+        dws2, dx2 = core_stash.mlp_stash_bwd(w, x, zs, g, n_layers, **kw)
+        assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(dws, dws2))
+        want = {core_mlp.instance_name("mlp_stash_fwd", compute, stash_dt) + "_wide": 1,
+                core_mlp.instance_name("mlp_stash_bwd", compute, stash_dt) + "_wide": 2}
+    else:
+        i_out = core_mlp.mlp_fwd(w, x, n_layers, compute_dtype=compute)
+        assert torch.equal(i_out, out)
+        _close(i_out, core_mlp.mlp_relu_plain(w, x, n_layers, compute), out_tol)
+        dws, dx = core_mlp.mlp_bwd(w, x, g, n_layers, compute_dtype=compute)
+        torch.cuda.synchronize()
+        f_z = [z.float() for z in core_stash.split_stash(zs, cols)]
+        z_dws, z_dx = core_mlp.mlp_relu_bwd_plain(w, x, g, n_layers, compute, zs=f_z)
+        for k, z in zip((dx, *dws), (z_dx, *z_dws)):
+            assert k.shape == z.shape
+            _close_rel(k, z, grad_tol)
+        _, p_zs = core_mlp.mlp_relu_plain(w, x, n_layers, compute, return_zs=True)
+        agree = torch.stack([((a > 0) == (b > 0)).all(1) for a, b in zip(f_z, p_zs)]).all(0)
+        p_dx = core_mlp.mlp_relu_bwd_plain(w, x, g, n_layers, compute)[1][agree]
+        assert (dx[agree] - p_dx).norm().item() <= grad_tol * p_dx.norm().item() + 1e-7
+        g_dws, g_dx = core_stash.mlp_stash_bwd(w, x, zs, g, n_layers, **kw)
+        assert torch.equal(dx, g_dx) and all(torch.equal(a, b) for a, b in zip(dws, g_dws))
+        dws2, dx2 = core_mlp.mlp_bwd(w, x, g, n_layers, compute_dtype=compute)
+        assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(dws, dws2))
+        sfx = "_f32" if compute == "float32" else ""
+        want = {f"mlp_stash_fwd{sfx}_wide": 1, f"mlp_stash_bwd{sfx}_wide": 1, f"mlp_fwd{sfx}_wide": 1,
+                f"mlp_bwd{sfx}_wide": 2}
+    torch.cuda.synchronize()
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in before if cuda_lib.launch_counts[k] != before[k]} == want
+
+
+@pytest.mark.gpu
+def test_trunk_wide_limits_raise_before_launch(cuda):
+    """Beyond the trunk's wide instances (hidden 528, or a padded input
+    above 640) every trunk wrapper raises NotImplementedError naming item
+    15 and launches nothing."""
+    before = dict(cuda_lib.launch_counts)
+    for dims in ((45, 528, 3), (641, 32, 3)):
+        w, n_layers, x, g = _gpu_trunk_case(cuda, dims, 40)
+        for call in (lambda: core_mlp.mlp_fwd(w, x, n_layers), lambda: core_mlp.mlp_bwd(w, x, g, n_layers),
+                     lambda: core_stash.mlp_stash_fwd(w, x, n_layers)):
+            with pytest.raises(NotImplementedError, match="item 15"):
+                call()
+    torch.cuda.synchronize()
+    assert dict(cuda_lib.launch_counts) == before

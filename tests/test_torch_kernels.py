@@ -780,9 +780,11 @@ def test_trunk_layout(n, nblk):
 
 def test_chain_constants_match_the_headers():
     """CHAIN_TP, ENC_MAX, IN_MAX and SUM_ROWS in Python are the constants the
-    CUDA kernels are compiled with; the SDF forward and the trunk kernels
-    launch kChainTP-point blocks of kChainThreads threads, and no 16-point
-    code (kTP, kThreads, gemm_rows16) is left in any source."""
+    CUDA kernels are compiled with; the SDF forward launches kChainTP-point
+    blocks of kChainThreads threads, and the trunk kernels blocks of their
+    width class's points (kChainTP in the 64-point class) on the same
+    threads, and no 16-point code (kTP, kThreads, gemm_rows16) is left in
+    any source."""
     def const(header, name):
         m = re.search(rf"constexpr int {name} = (\d+);", (cuda_lib.CSRC / header).read_text())
         return int(m.group(1))
@@ -794,13 +796,16 @@ def test_chain_constants_match_the_headers():
     fwd = (cuda_lib.CSRC / "sdf_fwd.cuh").read_text()
     assert "<<<(n + kChainTP - 1) / kChainTP, kChainThreads, kFwdSmem" in fwd
     trunk = (cuda_lib.CSRC / "mlp_stash.cu").read_text()
-    assert "<<<nblocks(n), kChainThreads, kMlpFwdSmem" in trunk
+    assert "<<<nblocks<Cls>(n), kChainThreads, kMlpFwdSmem" in trunk
     assert "<<<nblk, kChainThreads, kMlpChainSmem" in trunk
-    assert "return (n + kChainTP - 1) / kChainTP;" in trunk
-    # Every product through gemm_rows64: the forward's at both operand types,
-    # the chain's transposed ones in bf16; f32 transposed ones (row stride kp
-    # in wtpack) through gemm_rows64_f32.
-    assert trunk.count("gemm_rows64<") == 2 and trunk.count("gemm_rows64_f32(") == 1 and "wmma::" not in trunk
+    assert "return (n + Cls::kPts - 1) / Cls::kPts;" in trunk
+    assert "static constexpr int kPts = kChainTP, kIn = kInMax, kW = kWMax" in trunk
+    # Every product through the SDF core's core_gemm in bf16 (gemm_rows64
+    # in the 64-point class), the forward's and the chain's transposed ones,
+    # and through the f32 engine's gemm_rows_f32 in f32 (the transposed ones
+    # at row stride kp in wtpack); none of the trunk's own.
+    assert trunk.count("core_gemm<typename Cls::Core, ") == 2 and "wmma::" not in trunk
+    assert trunk.count("gemm_rows_f32<typename Cls::Rows>(") == 2
     for path in sorted(cuda_lib.CSRC.iterdir()):
         assert not re.search(r"\bkTP\b|\bkThreads\b|\bkWarps\b|gemm_rows16", path.read_text()), path.name
     assert not hasattr(tcm, "TP")

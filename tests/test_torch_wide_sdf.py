@@ -331,10 +331,11 @@ def test_renderer_checks_widths_before_launch(renderer_kw, fused):
     """``render/renderer.py::check_kernel_widths`` (called by render_rays
     for CUDA rays before any launch): a 512-wide SDF passes on every route,
     the march kernels' wide instances among them; a 528-wide SDF raises on
-    every fused route, naming item 15; a trunk wider than the CUDA trunk
-    kernels take (272 hidden) raises where the fused trunk runs (training
-    at reflectance_impl="pallas", eval at eval_reflectance_impl="pallas"),
-    naming item 14, and passes where the "xla" trunk runs; the presets
+    every fused route, naming item 15; a trunk in the CUDA trunk kernels'
+    wide class (272 hidden) passes on every trunk route; a trunk wider than
+    that class (528 hidden) raises where the fused trunk runs (training at
+    reflectance_impl="pallas", eval at eval_reflectance_impl="pallas"),
+    naming item 15, and passes where the "xla" trunk runs; the presets
     pass."""
     import dataclasses
 
@@ -353,15 +354,16 @@ def test_renderer_checks_widths_before_launch(renderer_kw, fused):
     else:
         with pytest.raises(NotImplementedError, match="item 15"):
             tr.check_kernel_widths(too_wide)
-    wide_trunk = dataclasses.replace(wide, reflectance_network=dataclasses.replace(base.reflectance_network,
-                                                                                   d_hidden=272))
-    for impl in ("pallas", "xla"):
-        cfg = dataclasses.replace(wide_trunk, renderer=dataclasses.replace(
-            wide_trunk.renderer, reflectance_impl=impl, eval_reflectance_impl=impl))
-        for is_training in (True, False):
-            if fused and impl == "pallas":
-                with pytest.raises(NotImplementedError, match="item 14"):
+    for d_hidden, takes in ((272, True), (528, False)):
+        trunk = dataclasses.replace(wide, reflectance_network=dataclasses.replace(base.reflectance_network,
+                                                                              d_hidden=d_hidden))
+        for impl in ("pallas", "xla"):
+            cfg = dataclasses.replace(trunk, renderer=dataclasses.replace(
+                trunk.renderer, reflectance_impl=impl, eval_reflectance_impl=impl))
+            for is_training in (True, False):
+                if fused and impl == "pallas" and not takes:
+                    with pytest.raises(NotImplementedError, match="trunk kernels .* item 15"):
+                        tr.check_kernel_widths(cfg, is_training)
+                else:
                     tr.check_kernel_widths(cfg, is_training)
-            else:
-                tr.check_kernel_widths(cfg, is_training)
-    tr.check_kernel_widths(wide_trunk, is_training=False)  # eval's default trunk is "xla"
+        tr.check_kernel_widths(trunk, is_training=False)  # eval's default trunk is "xla"
