@@ -151,6 +151,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sweep and 64 pixels on the CPU; (d) python -m nrhints_torch's main for
    10 steps; (e) a trunk 528 wide and one with 661 inputs raise
    NotImplementedError before any launch.
+20. march geometries other than 64 + 4 x 16 (``--march-geometry``: alone;
+   the plain run runs it so, in a process of its own):
+   the run-time geometry instances of B, K, L, M and N at six geometries
+   (rounds x n_new: 2 x 32, 8 x 8, 3 x 16, 5 x 12, 1 x 64, 1 x 126) on
+   phase 3's 512 rays, bf16 and f32 march weights, at the 256-wide SDF and
+   at d_hidden 512: (a) each against its plain version, L = B's steps
+   between K's sweeps, M = L(K(.)) and N = C(M(.)) bit for bit under both
+   merges, each by device time beside the 64 + 4 x 16 instance's and its
+   bound; (b) fused_importance_z and fused_shadow_tau on every route, each
+   against the plain march, with exact launches; (c) geometries out of the
+   range raise NotImplementedError before any launch.
 Phase 3 also holds kernels K (initial march sweep), L (refinement rounds),
 M (K and L in one kernel) and N (M and C's final sweep in one kernel), and
 B under the rank merge, against their plain versions, L = B's steps between
@@ -500,6 +511,32 @@ def kernel_device_ms(fn, group: str | tuple, tries: int = 3) -> float:
                 break
     if not seen:
         raise RuntimeError(f"no profiled call of {3 * tries} recorded {group!r}")
+    return statistics.median(seen)
+
+
+def launch_device_ms(fn, key: str, tries: int = 3) -> float:
+    """Device ms a launch of the kernels whose profiled name holds ``key``
+    in a profiled call of ``fn``: their device time over the launches the
+    profiler recorded (it now and then drops some of a short window's
+    records; the mean of those it kept does not move), the median of the
+    first ``tries`` calls that record one, of at most 3 ``tries``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = []
+    for _ in range(3 * tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key and e.count]
+        if hits:
+            seen.append(sum(e.self_device_time_total for e in hits) / sum(e.count for e in hits) / 1e3)
+            if len(seen) == tries:
+                break
+    if not seen:
+        raise RuntimeError(f"no profiled call of {3 * tries} recorded a kernel named {key!r}")
     return statistics.median(seen)
 
 
@@ -3845,6 +3882,369 @@ def wide_trunk_phase(smi: str, dev, mc: dict, tmp: Path) -> list:
             for name, num in nums.items()]
 
 
+# Phase 20: the fused marches at geometries other than 64 + 4 x 16, the
+# run-time geometry instances of B, K, L, M and N (kernel C refines none and
+# runs behind them).  At phase 3's 512 camera and shadow rays, stratified
+# anew at each geometry's n0, on each class of the march kernels: bf16 and
+# f32 march weights at phase 3's 256-wide SDF, and at WIDE_SDF (a random
+# 512-wide SDF from seed 0).  (a) at every geometry of GEOMETRIES and under
+# both merges (5 x 12: bitonic alone, as JAX asks a power-of-two n_new of
+# the rank merge): K's sdf0, B's steps, L's and M's z and N's tau against
+# their plain versions (as phase 3 and 18(a) hold them), L = B's steps
+# between K's sweeps, M = L(K(.)) and N = C(M(.)) bit for bit; each kernel
+# by device time from one profiled call beside the 64 + 4 x 16 instance's
+# in this call and the geometry's bound.  (b) fused_importance_z and
+# fused_shadow_tau on every route at every geometry and merge, each against
+# the plain march, the monolith against the split kernels bit for bit, and
+# the launches of every instance exact.  (c) geometries out of the range
+# raise before any launch.
+GEOMETRIES = ((2, 32), (8, 8), (3, 16), (5, 12), (1, 64), (1, 126))  # (rounds, n_new)
+GEOM_JSON_AT = (5, 12)  # the kernels line's geometry: every kernel there runs its run-time instance
+# (label, march dtype, the wide SDF)
+GEOM_CLASSES = (("bf16", "bfloat16", False), ("f32", "float32", False), ("wide bf16", "bfloat16", True),
+                ("wide f32", "float32", True))
+GEOM_Z_ROUTES = {
+    "monolith": {}, "split": dict(split=True), "xla sweep": dict(split=True, sweep_impl="xla"),
+    "xla rounds": dict(split=True, rounds_impl="xla"),
+    "shipping": dict(split=True, sweep_impl="xla", rounds_impl="xla"),
+}
+GEOM_TAU_ROUTES = {"monolith": {}, **{f"split {s}/{r}/{f}": dict(split=True, sweep_impl=s, rounds_impl=r, final_impl=f)
+                                      for s in ("pallas", "xla") for r in ("pallas", "xla") for f in ("pallas", "xla")}}
+# (rounds, n_new, merge) out of the range: n_new = 1, n0 = 1, no round, and
+# a rank merge of 12 (the entry points raise ValueError for it, as JAX).
+GEOM_OUT_OF_RANGE = ((10, 1, "bitonic"), (1, 127, "bitonic"), (0, 16, "bitonic"), (5, 12, "rank"))
+
+
+def geometry_instance(fn: str, suffix: str, rounds: int, n_new: int) -> str:
+    """The launch counter of march kernel ``fn`` (with its dtype and class
+    ``suffix``) at a geometry: the compile-time instance at 64 + 4 x 16
+    (K: n0 = 64; B, round_machinery: n_new = 16), else ``*_geom``."""
+    from nrhints_torch.kernels import march
+
+    if fn == "round_machinery":
+        return fn if n_new == march.FIXED_GEOMETRY[1] else f"{fn}_geom"
+    if fn == "shadow_final":
+        return fn + suffix
+    fixed = (128 - rounds * n_new == 64) if fn == "march_sweep" else (rounds, n_new) == march.FIXED_GEOMETRY
+    return fn + suffix + ("" if fixed else "_geom")
+
+
+def route_launches(z_kw: dict, tau: bool, suffix: str, rounds: int, n_new: int) -> dict:
+    """The launches of one entry-point call: fused_importance_z's route
+    ``z_kw``, or with ``tau`` fused_shadow_tau's."""
+    inst = functools.partial(geometry_instance, suffix=suffix, rounds=rounds, n_new=n_new)
+    if not z_kw.get("split"):
+        return {inst("shadow_march" if tau else "importance_march"): 1}
+    sweep, rnd = z_kw.get("sweep_impl", "pallas"), z_kw.get("rounds_impl", "pallas")
+    if tau and sweep == rnd == "pallas":
+        got = {inst("importance_march"): 1}
+    else:
+        got = {inst("march_sweep"): 1} if sweep == "pallas" else {}
+        got.update({inst("march_rounds"): 1} if rnd == "pallas" else {inst("round_machinery"): rounds})
+    if tau and z_kw.get("final_impl", "pallas") == "pallas":
+        got[inst("shadow_final")] = 1
+    return got
+
+
+def geometry_inputs(mc: dict, n0: int) -> tuple:
+    """Phase 3's camera and shadow rays stratified at n0 samples: (z0 [512,
+    n0] between each camera ray's near and far, z0s [512, n0] along each
+    shadow ray to 0.99 of its hit)."""
+    from nrhints_torch.core.sampling import linspace01
+
+    z0, z0s = mc["z0"], mc["z0s"]
+    t = linspace01(n0, device=z0.device)[None, :]
+    return (z0[:, :1] + (z0[:, -1:] - z0[:, :1]) * t).contiguous(), (t * z0s[:, -1:]).contiguous()
+
+
+def b_steps(w, cfg, o, d, z0, sdf0, rounds: int, n_new: int, merge: str) -> list:
+    """The (arguments, last) of kernel B's steps of one march at a geometry,
+    the inputs captured from the kernel's own run between kernel K's sweeps
+    of the new samples; the last merges its draws in."""
+    import torch
+
+    from nrhints_torch.kernels import march
+
+    b, n0 = z0.shape
+    z = torch.cat([z0, torch.full((b, 128 - n0), march.BIG_Z, device=z0.device)], -1)
+    sdf = torch.cat([sdf0, torch.zeros((b, 128 - n0), device=z0.device)], -1)
+    steps, new_z, new_sdf = [], None, None
+    for i in range(rounds):
+        vn, last = n0 + n_new * i, i + 1 == rounds
+        args = (z, sdf, o, d, new_z, new_sdf, None if i == 0 else vn - n_new, vn, 64.0 * 2**i, n_new, merge)
+        steps.append((args, last))
+        if not last:
+            new_z, z, sdf = march.round_machinery(*args)
+            new_sdf = march.march_sweep(new_z, o, d, w, cfg)
+    return steps
+
+
+def march_geometry_kernels(smi: str, dev, mc: dict, classes: dict) -> dict:
+    """Phase 20(a) (see above).  ``classes``: label -> (march weights, SDF
+    config, the entry point's params, mlp_dtype, class suffix).  -> {kernel
+    instance: (max abs err, ms, plain ms, bound ms, bound by)} at
+    GEOM_JSON_AT."""
+    import torch
+
+    from nrhints_torch.fields.sdf import _layer_dims
+    from nrhints_torch.kernels import march
+
+    o, d = mc["o"], mc["d"]
+    sl, sdir, sdist, inv_s, anneal = (mc[k] for k in ("sl", "sdir", "sdist", "inv_s", "anneal"))
+    out = {}
+    for label, (w, cfg, _, dt, suffix) in classes.items():
+        f32 = dt == "float32"
+        tol_sdf0, tol_tau = (F32_TOL["sdf0"], F32_TOL["tau"]) if f32 else (TOL["march_sweep"], TOL["shadow_march"])
+        peak = H100_F32_FLOPS if f32 else H100_BF16_FLOPS
+        io, dims = _layer_dims(cfg)
+        vm = sum(i * o_ for i, o_ in io) + dims[-2]  # multiply-adds of a value sweep a point
+        w_bytes = (4 if f32 else 2) * vm
+        # Each kernel's name in a profile (its template and SWEEP, ROUNDS,
+        # FINAL), and how often one timed call runs it: B's steps and L's
+        # short launches (no sweep at one round) 4 times, so a window keeps
+        # a record.
+        template = f"march_kernel{'_f32' if f32 else ''}{'_wide' if 'wide' in label else ''}<"
+        keys = {k: template + args for args, k, _ in MARCH_TEMPLATES if k in "KLMN"}
+        keys["B"] = "round_machinery_kernel<"
+        reps = {"B": 4, "L": 4}
+
+        def calls(z0, z0s, sdf0, rounds, n_new, merge="bitonic"):
+            kw = dict(rounds=rounds, n_new=n_new, merge=merge)
+            steps = b_steps(w, cfg, o, d, z0, sdf0, rounds, n_new, merge)
+            return {
+                "B": lambda: [march.round_machinery(*a, last=la) for a, la in steps],
+                "K": lambda: march.march_sweep(z0, o, d, w, cfg),
+                "L": lambda: march.march_rounds(z0, sdf0, o, d, w, cfg, **kw),
+                "M": lambda: march.importance_march(z0, o, d, w, cfg, **kw),
+                "N": lambda: march.shadow_march(z0s, sl, sdir, sdist, inv_s, anneal, w, cfg, **kw),
+            }, steps
+
+        def device_ms(k, fn):
+            n = reps.get(k, 1)
+            return launch_device_ms(lambda: [fn() for _ in range(n)], keys[k], tries=3 if n > 1 else 1)
+
+        # The 64 + 4 x 16 instances' device time in this call.
+        z0_16, z0s_16 = geometry_inputs(mc, 64)
+        ref_calls, _ = calls(z0_16, z0s_16, march.march_sweep(z0_16, o, d, w, cfg), 4, 16)
+        ref_ms = {k: device_ms(k, fn) for k, fn in ref_calls.items()}
+        for rounds, n_new in GEOMETRIES:
+            n0 = 128 - rounds * n_new
+            z0, z0s = geometry_inputs(mc, n0)
+            k_sdf0 = march.march_sweep(z0, o, d, w, cfg)
+            errs = {"K": max_err([k_sdf0], [march.march_sweep_plain(z0, o, d, w, cfg)])}
+            if errs["K"][1] > tol_sdf0:
+                raise AssertionError(f"20(a) {label} {rounds} x {n_new}: K's sdf0 rel {errs['K'][1]:.3e}")
+            for merge in ("bitonic", "rank") if n_new & (n_new - 1) == 0 else ("bitonic",):
+                kw = dict(rounds=rounds, n_new=n_new, merge=merge)
+                steps = b_steps(w, cfg, o, d, z0, k_sdf0, rounds, n_new, merge)
+                b_err = (0.0, 0.0)
+                for args, last in steps:
+                    k_out = march.round_machinery(*args, last=last)
+                    p_out = march.round_machinery_plain(*args, last=last)
+                    if last:
+                        nz, z_, sdf_ = march.round_machinery(*args)
+                        tail = march.round_machinery_plain(z_, sdf_, o, d, nz, torch.zeros_like(nz), args[7], None,
+                                                           None, n_new, merge)
+                        if not torch.equal(k_out[1], tail[1]):
+                            raise AssertionError(f"20(a) {label} {rounds} x {n_new} {merge}: B's last step differs "
+                                                 "from its draw step and the plain merge of its draws")
+                    elif not (torch.equal(k_out[1], p_out[1]) and torch.equal(k_out[2], p_out[2])):
+                        raise AssertionError(f"20(a) {label} {rounds} x {n_new} {merge}: B's merge differs from the "
+                                             f"plain merge at {args[6:8]}")
+                    b_err = tuple(max(a, b) for a, b in zip(b_err, max_err(k_out, p_out)))
+                l_z = march.march_rounds(z0, k_sdf0, o, d, w, cfg, **kw)
+                l_is_bk = torch.equal(l_z, march._rounds(
+                    w, cfg, o, d, z0, k_sdf0, rounds, n_new, 64.0, merge, march.round_machinery,
+                    lambda new_z, *_: march.march_sweep(new_z.contiguous(), o, d, w, cfg)))
+                m_z = march.importance_march(z0, o, d, w, cfg, **kw)
+                n_tau = march.shadow_march(z0s, sl, sdir, sdist, inv_s, anneal, w, cfg, **kw)
+                c_tau = march.shadow_final(march.importance_march(z0s, sl, sdir, w, cfg, **kw), sl, sdir, sdist, inv_s,
+                                           anneal, w, cfg)
+                z_l = z_err(l_z, march.march_rounds_plain(z0, k_sdf0, o, d, w, cfg, **kw), z0)
+                z_m = z_err(m_z, march.importance_march_plain(z0, o, d, w, cfg, **kw), z0)
+                n_err = max_err([n_tau], [march.shadow_march_plain(z0s, sl, sdir, sdist, inv_s, anneal, w, cfg, **kw)])
+                for name, e in (("B", b_err), ("L", (z_l[0], 0.0)), ("M", (z_m[0], 0.0)), ("N", n_err)):
+                    errs[name] = tuple(max(a, b) for a, b in zip(errs.get(name, (0.0, 0.0)), e))
+                ok = (l_is_bk and torch.equal(m_z, l_z) and torch.equal(n_tau, c_tau) and z_l[3] and z_m[3]
+                      and min(z_l[2], z_m[2]) >= Z_NN_SHARE and b_err[1] <= TOL["round_machinery"]
+                      and n_err[1] <= tol_tau)
+                log(f"[20(a) {label} {rounds} x {n_new} {merge}] n0 {n0}: B's {len(steps)} steps rel err "
+                    f"{b_err[1]:.3e}; L's z {z_l[2]:.4f} of the samples within {Z_TOL} of a plain sample (slot by slot "
+                    f"{z_l[1]:.4f}), M's {z_m[2]:.4f} ({z_m[1]:.4f}); N's tau rel err {n_err[1]:.3e}; L = B's steps "
+                    f"between K's sweeps bit for bit: {l_is_bk}; M = L(K(.)): {torch.equal(m_z, l_z)}; N = C(M(.)): "
+                    f"{torch.equal(n_tau, c_tau)}")
+                if not ok:
+                    raise AssertionError(f"20(a) {label} {rounds} x {n_new} {merge}: a check fails (see above)")
+            sweeps = rounds - 1  # rounds whose samples are swept
+            rows = {"K": n0, "L": sweeps * n_new, "M": n0 + sweeps * n_new}
+            # Bytes a ray of a launch, on average over the march's: z and sdf
+            # in, o and d, z out; the previous draws (z, sdf) where it merges,
+            # the draws and sdf out but in the last.
+            per_ray = 4 * ((2 * 128 + 6 + 128) + (2 * n_new + n_new + 128) * (rounds - 1) / rounds)
+            bounds = {
+                "B": bound(512 * 128 * 64, 512 * per_ray, H100_F32_FLOPS),
+                "K": bound(2.0 * 512 * n0 * vm, 512 * 4 * (2 * n0 + 6) + w_bytes, peak),
+                "L": bound(2.0 * 512 * rows["L"] * vm, 512 * 4 * (2 * n0 + 6 + 128) + w_bytes, peak),
+                "M": bound(2.0 * 512 * rows["M"] * vm, 512 * 4 * (n0 + 6 + 128) + w_bytes, peak),
+                "N": bound(2.0 * 512 * (rows["M"] + 128 * 2) * vm, 512 * 4 * (n0 + 6 + 2) + w_bytes, peak),
+            }
+            geo_calls, steps = calls(z0, z0s, k_sdf0, rounds, n_new)
+            for k, fn in geo_calls.items():
+                dev_ms = device_ms(k, fn)
+                bd, by = bounds[k]
+                log(f"[20(a) kernel {k} {label}] {rounds} x {n_new} (n0 {n0}): device time {dev_ms:.4f} ms"
+                    f"{' a launch' if k == 'B' else ''}, the 64 + 4 x 16 instance's {ref_ms[k]:.4f} ms in this call "
+                    f"({dev_ms / ref_ms[k]:.2f}x); bound {bd:.5f} ms ({by}), {dev_ms / bd:.2f}x it; max abs err "
+                    f"{errs[k][0]:.3e} (rel {errs[k][1]:.3e}); on {smi}")
+                if (rounds, n_new) == GEOM_JSON_AT:
+                    plain = {
+                        "B": lambda: [march.round_machinery_plain(*a, last=la) for a, la in steps],
+                        "K": lambda: march.march_sweep_plain(z0, o, d, w, cfg),
+                        "L": lambda: march.march_rounds_plain(z0, k_sdf0, o, d, w, cfg, rounds=rounds, n_new=n_new),
+                        "M": lambda: march.importance_march_plain(z0, o, d, w, cfg, rounds=rounds, n_new=n_new),
+                        "N": lambda: march.shadow_march_plain(z0s, sl, sdir, sdist, inv_s, anneal, w, cfg,
+                                                              rounds=rounds, n_new=n_new),
+                    }[k]
+                    div = rounds if k == "B" else 1
+                    inst = geometry_instance({"B": "round_machinery", "K": "march_sweep", "L": "march_rounds",
+                                              "M": "importance_march", "N": "shadow_march"}[k], suffix, rounds, n_new)
+                    if inst not in out:
+                        out[inst] = (errs[k][0], cuda_ms(fn, 5) / div, cuda_ms(plain, 2, warmup=1) / div, bd, by)
+    return out
+
+
+def march_geometry_phase(smi: str, dev, mc: dict) -> list:
+    """Phase 20 (see above).  -> the kernels line's entries of the run-time
+    geometry instances, their launches those of (b)'s entry-point calls,
+    their numbers (a)'s at GEOM_JSON_AT."""
+    import torch
+
+    from nrhints_torch.fields.sdf import sdf_init
+    from nrhints_torch.kernels import core_mlp, cuda_lib, march
+
+    t_phase = time.perf_counter()
+    ncfg = mc["cfg"].model.sdf_network
+    wcfg = dataclasses.replace(ncfg, **WIDE_SDF)
+    nparams = mc["renderer_params"]["sdf"]
+    wparams = sdf_init(torch.Generator().manual_seed(0), wcfg, dev)
+    classes = {}
+    for label, dt, wide in GEOM_CLASSES:
+        cfg, params = (wcfg, wparams) if wide else (ncfg, nparams)
+        suffix = ("_f32" if dt == "float32" else "") + core_mlp.core_class(cfg, with_feat=False,
+                                                                          compute_dtype="float32").suffix
+        classes[label] = (march.march_weights(params, cfg, dt), cfg, params, dt, suffix)
+    nums = march_geometry_kernels(smi, dev, mc, classes)
+    t_a = time.perf_counter() - t_phase
+
+    # (b) Both entry points on every route, launches exact.
+    o, d = mc["o"], mc["d"]
+    sl, sdir, sdist, inv_s, anneal = (mc[k] for k in ("sl", "sdir", "sdist", "inv_s", "anneal"))
+    want: dict[str, int] = {}
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    n_calls = 0
+    for label, (w, cfg, params, dt, suffix) in classes.items():
+        tol_tau = F32_TOL["tau"] if dt == "float32" else TOL["shadow_march"]
+        for rounds, n_new in GEOMETRIES:
+            z0, z0s = geometry_inputs(mc, 128 - rounds * n_new)
+            for merge in ("bitonic", "rank") if n_new & (n_new - 1) == 0 else ("bitonic",):
+                kw = dict(rounds=rounds, n_new=n_new, merge=merge, mlp_dtype=dt)
+                plain_z = march.importance_march_plain(z0, o, d, w, cfg, rounds=rounds, n_new=n_new, merge=merge)
+                plain_tau = march.shadow_march_plain(z0s, sl, sdir, sdist, inv_s, anneal, w, cfg, rounds=rounds,
+                                                     n_new=n_new, merge=merge)
+                zs = {}
+                for route, rkw in GEOM_Z_ROUTES.items():
+                    zs[route] = march.fused_importance_z(params, cfg, o, d, z0, **kw, **rkw)
+                    for k, v in route_launches(rkw, False, suffix, rounds, n_new).items():
+                        want[k] = want.get(k, 0) + v
+                    e = z_err(zs[route], plain_z, z0)
+                    if not (e[3] and e[2] >= Z_NN_SHARE):
+                        raise AssertionError(f"20(b) {label} {rounds} x {n_new} {merge} fused_importance_z {route}: "
+                                             f"z against the plain march {e}")
+                taus = {}
+                for route, rkw in GEOM_TAU_ROUTES.items():
+                    taus[route] = march.fused_shadow_tau(params, cfg, sl, sdir, z0s, sdist, inv_s, anneal, **kw, **rkw)
+                    for k, v in route_launches(rkw, True, suffix, rounds, n_new).items():
+                        want[k] = want.get(k, 0) + v
+                    e = max_err([taus[route]], [plain_tau])
+                    if not e[1] <= tol_tau:
+                        raise AssertionError(f"20(b) {label} {rounds} x {n_new} {merge} fused_shadow_tau {route}: "
+                                             f"tau rel err {e[1]:.3e} against the plain march")
+                n_calls += len(zs) + len(taus)
+                if not (torch.equal(zs["monolith"], zs["split"])
+                        and torch.equal(taus["monolith"], taus["split pallas/pallas/pallas"])):
+                    raise AssertionError(f"20(b) {label} {rounds} x {n_new} {merge}: the monolith differs from the "
+                                         "split kernels")
+    torch.cuda.synchronize()
+    got = {k: v for k, v in cuda_lib.launch_counts.items() if v}
+    if got != want:
+        raise AssertionError(f"20(b): launches {got}, expected {want}")
+    log(f"[20(b)] fused_importance_z on {len(GEOM_Z_ROUTES)} routes and fused_shadow_tau on {len(GEOM_TAU_ROUTES)} at "
+        f"{len(GEOMETRIES)} geometries, both merges where allowed, {len(classes)} classes: {n_calls} calls, each "
+        f"against the plain march, the monoliths equal to the split kernels bit for bit; launches exact: "
+        f"{json.dumps(got, sort_keys=True)}")
+
+    # (c) Out of the range: raised before any launch.
+    w, cfg, params, dt, _ = classes["bf16"]
+    cuda_lib.reset_launch_counts()
+    for rounds, n_new, merge in GEOM_OUT_OF_RANGE:
+        n0 = 128 - rounds * n_new
+        z0 = torch.zeros((o.shape[0], n0), device=dev)
+        for what, call in (
+                ("fused_importance_z", lambda: march.fused_importance_z(params, cfg, o, d, z0, rounds=rounds,
+                                                                        n_new=n_new, merge=merge)),
+                ("fused_shadow_tau split", lambda: march.fused_shadow_tau(
+                    params, cfg, sl, sdir, z0, sdist, inv_s, anneal, rounds=rounds, n_new=n_new, merge=merge,
+                    split=True)),
+                ("march_rounds", lambda: march.march_rounds(z0, z0, o, d, w, cfg, rounds=rounds, n_new=n_new,
+                                                            merge=merge)),
+                ("importance_march", lambda: march.importance_march(z0, o, d, w, cfg, rounds=rounds, n_new=n_new,
+                                                                    merge=merge)),
+                ("shadow_march", lambda: march.shadow_march(z0, sl, sdir, sdist, inv_s, anneal, w, cfg, rounds=rounds,
+                                                            n_new=n_new, merge=merge))):
+            exc = ValueError if what.startswith("fused") and merge == "rank" else NotImplementedError
+            try:
+                call()
+            except exc as err:
+                msg = str(err)
+            else:
+                raise AssertionError(f"20(c) {what} at {rounds} x {n_new} {merge} did not raise {exc.__name__}")
+        log(f"[20(c)] {rounds} x {n_new} (n0 {n0}) {merge}: the entry points and L, M, N raise before any launch: "
+            f"{msg[:120]}")
+    if any(cuda_lib.launch_counts.values()):
+        raise AssertionError(f"20(c): launches out of the range: {dict(cuda_lib.launch_counts)}")
+    log(f"[20] phase 20 took {time.perf_counter() - t_phase:.1f} s ((a) {t_a:.1f} s)")
+    where = {"round_machinery": ("march.cu", 392), "march_sweep": ("march_geom.cu", 507),
+             "march_rounds": ("march_geom.cu", 522), "importance_march": ("march_geom.cu", 488),
+             "shadow_march": ("march_geom.cu", 595)}
+    entries = []
+    for name, num in nums.items():
+        src, line = where[re.sub(r"(_f32)?(_wide)?_geom$", "", name)]
+        entries.append(dict(entry(name, src, f"march.py:{line}", got.get(name, 0), *num),
+                            geometry=f"{GEOM_JSON_AT[0]} x {GEOM_JSON_AT[1]}"))
+    return entries
+
+
+def march_geometry_subprocess() -> list:
+    """Phase 20 in a process of its own (``--march-geometry``, the kernels
+    already built), its lines relayed: late in the plain run, after some
+    thousand profiled calls in one process, the profiler kept no record of
+    whole launches or halved them (two runs of this phase inside it), where
+    the same phase in a fresh process reads every kernel.  -> its kernels
+    line's entries.  Raises if it fails."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--march-geometry"], capture_output=True,
+                          text=True, timeout=900)
+    entries = None
+    for line in proc.stdout.splitlines():
+        if line.startswith('{"kernels": '):
+            entries = json.loads(line)["kernels"]
+        elif line.startswith("[20"):
+            log(line)
+    if proc.returncode != 0 or entries is None:
+        raise AssertionError(f"phase 20 failed (rc {proc.returncode}): {proc.stderr[-4000:]}")
+    return entries
+
+
 # Phase 15: sample-axis sharding.  (a) two gloo ranks on this card as a 1 x 2
 # ('data', 'sample') grid (LOCAL_WORLD_SIZE=1, so both take cuda:0: NCCL
 # refuses two ranks on one card), SAMPLE_EAGER_STEPS eager steps under the
@@ -4181,6 +4581,12 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return 0
 
+    if sys.argv[1:] == ["--march-geometry"]:  # phase 20 alone, after the build
+        entries = march_geometry_phase(smi, dev, march_chunk(dev))
+        print(json.dumps({"kernels": entries}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+        return 0
+
     if sys.argv[1:] == ["--sample-axis"]:  # phase 15 alone, after the build
         import tempfile
 
@@ -4193,7 +4599,8 @@ def main() -> int:
 
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}; flags: --data-parallel, --offpath, --stash-all, "
-              f"--march-f32, --sample-axis, --core-f32, --trunk-f32, --wide-sdf, --wide-trunk", file=sys.stderr)
+              f"--march-f32, --sample-axis, --core-f32, --trunk-f32, --wide-sdf, --wide-trunk, --march-geometry",
+              file=sys.stderr)
         return 2
 
     # 3. Kernels at the main path's shapes: one 512-ray chunk of the view.
@@ -4899,6 +5306,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
         wide_trunk = wide_trunk_phase(smi, dev, mc, Path(tmp))
 
+    # 20. The fused marches at geometries other than 64 + 4 x 16, in a
+    # process of its own (as ``--march-geometry``).
+    gc.collect()
+    torch.cuda.empty_cache()
+    geometry = march_geometry_subprocess()
+
     kernels = [
         entry("sdf_core_fwd", "sdf_core.cu", "core_mlp.py:227", launches["sdf_core_fwd"], a_abs, a_ms, a_plain_ms,
               a_bound, a_by),
@@ -4934,6 +5347,7 @@ def main() -> int:
         *trunk_f32,
         *wide,
         *wide_trunk,
+        *geometry,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

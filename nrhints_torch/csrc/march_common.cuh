@@ -1,28 +1,38 @@
 // Device code of the hierarchical SDF marches, shared by kernels B and C
-// (march.cu) and K, L, M and N (march_fused.cu).
+// (march.cu) and K, L, M and N (march_fused.cu, and march_geom.cu at any
+// march geometry).
+//
+// A march's geometry: n0 stratified samples, then `rounds` rounds, each
+// drawing n_new samples, n0 + rounds * n_new = 128 (MarchGeom).  The
+// presets' 64 + 4 x 16 runs the compile-time instances (NN = kFixedNew:
+// the geometry constants); every other geometry with rounds >= 1, n_new >= 2
+// and n0 >= 2 runs the run-time instances (NN = 0), the same code.
 //
 // * The per-ray round machinery of nrhints_tpu/kernels/march.py on one warp
-//   a ray (ray_step): the merge of 16 new (z, sdf) pairs into the sorted
+//   a ray (ray_step): the merge of n_new new (z, sdf) pairs into the sorted
 //   128-slot buffer (warp_merge128: the bitonic network of _bitonic_merge,
 //   :165, or the stable rank merge of _rank_merge, :200) and the draw of the
-//   next 16 samples (warp_draw_new_z, the NeuS up-sample and deterministic
-//   inverse CDF of _round_new_z, :263).  Lane l holds slots 32 j + l, j =
-//   0..3, in registers: column j does what warp j of a 128-thread ray did,
-//   in the same order on the same operands, so every float is that design's
-//   bit for bit.  Prefix sums are shuffles in each column, then the column
-//   totals in order; the bitonic stages across columns are register swaps,
-//   those within one are xor shuffles; the inverse-CDF counts are ballots.
-//   The warp joins its lanes by __syncwarp and its 3 x 128-float shared row;
-//   no block barrier.  Kernel B runs it for 4 rays on a 128-thread block,
-//   the march template on its warps 0-3.
+//   next n_new samples (warp_draw_new_z, the NeuS up-sample and
+//   deterministic inverse CDF of _round_new_z, :263).  Lane l holds slots
+//   32 j + l, j = 0..3, in registers: column j does what warp j of a
+//   128-thread ray did, in the same order on the same operands, so every
+//   float is that design's bit for bit.  Prefix sums are shuffles in each
+//   column, then the column totals in order; the bitonic stages across
+//   columns are register swaps, those within one are xor shuffles; the
+//   inverse-CDF counts are ballots.  The new samples fill slots 128 - n_new
+//   .. 127; a draw returns sample j in lane j & 31 of column j >> 5.  The
+//   warp joins its lanes by __syncwarp and its 3 x 128-float shared row; no
+//   block barrier.  Kernel B runs it for 4 rays on a 128-thread block, the
+//   march template on its warps 0-3.
 // * march_kernel, one template for the fused marches: <SWEEP, ROUNDS, FINAL,
-//   RANK> selects the initial 64-sample sweep, the 4 refinement rounds (each
-//   drawing 16 samples, sweeping them but the last, and merging them), the
-//   final dual sweep with the transmittance, and the merge.  Kernel C (final
-//   sweep of a refined buffer), K (sweep), L (rounds), M (sweep + rounds)
-//   and N (sweep + rounds + final) are its instances.  Every sweep runs on
-//   the row engine, mma_rows.cuh::sdf_rows: the 8x256 SDF MLP, bf16 weights
-//   and activations, f32 biases and nonlinearities, as _mlp_sdf_3d (:87)
+//   RANK, NN> selects the initial sweep of the n0 stratified samples, the
+//   refinement rounds (each drawing n_new samples, sweeping them but the
+//   last, and merging them), the final dual sweep with the transmittance,
+//   the merge, and the instance's n_new.  Kernel C (final sweep of a
+//   refined buffer), K (sweep), L (rounds), M (sweep + rounds) and N (sweep
+//   + rounds + final) are its instances.  Every sweep runs on the row
+//   engine, mma_rows.cuh::sdf_rows: the 8x256 SDF MLP, bf16 weights and
+//   activations, f32 biases and nonlinearities, as _mlp_sdf_3d (:87)
 //   computes the value, with the forward-mode tangent of
 //   _mlp_sdf_dirderiv_3d (:117) for the final sweep.  So L is B's steps
 //   between K's sweeps, M's z is L(K(.)) and N's tau C(M(.)), bit for bit.
@@ -40,14 +50,17 @@
 //
 // Layout: a march block holds kMarchRays = 4 rays on 512 threads; thread t
 // loads and stores slot t & 127 of ray t >> 7, and warp w < 4 runs ray w's
-// machinery.  A block's sweeps are, with bf16 weights, 2 value passes of 128
-// rows (its 4 rays' 64 stratified samples), one value pass of 64 rows per
-// swept round (4 rays x 16 new samples), and 8 dual passes of 64 sections
-// and their 64 tangent rows; with f32 weights, 4 value passes of 64 rows,
-// the same round passes and 16 dual passes of 32 sections.  The wide class
-// halves the rows: bf16, 4 value passes of 64 rows, the same round passes
-// and 16 dual passes of 32 sections; f32, value passes of 64 rows each run
-// as two of its 32-row tile, and 32 dual passes of 16 sections.
+// machinery.  A sweep lays its rows out ray by ray (sweep_rows: 4 n0 rows
+// for the initial sweep, 4 n_new for a round's) in passes of the engine's
+// value rows, the last pass partial.  At 64 + 4 x 16 a block's sweeps are,
+// with bf16 weights, 2 value passes of 128 rows (its 4 rays' 64 stratified
+// samples), one value pass of 64 rows per swept round (4 rays x 16 new
+// samples), and 8 dual passes of 64 sections and their 64 tangent rows;
+// with f32 weights, 4 value passes of 64 rows, the same round passes and 16
+// dual passes of 32 sections.  The wide class halves the rows: bf16, 4
+// value passes of 64 rows, the same round passes and 16 dual passes of 32
+// sections; f32, value passes of 64 rows each run as two of its 32-row
+// tile, and 32 dual passes of 16 sections.
 #pragma once
 
 #include <type_traits>
@@ -57,14 +70,25 @@
 namespace nrh {
 
 constexpr int NBUF = 128;  // slots of the z / sdf buffer
-constexpr int NNEW = 16;   // samples drawn per round
-constexpr int NOLD = NBUF - NNEW;
-constexpr int kRounds = 4;
-constexpr int N0 = NBUF - kRounds * NNEW;  // 64 stratified samples
+constexpr int kFixedNew = 16, kFixedRounds = 4;  // the compile-time instances' geometry: 64 + 4 x 16
 constexpr float BIG_Z = 1e9f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMarchRays = kRowsThreads / NBUF;  // rays of a march block
-static_assert(kMarchRays * NNEW == 64, "a round's sweep is one 64-row value sweep of the engine");
+
+// A march's geometry: n0 stratified samples, then `rounds` rounds of n_new
+// samples, n0 + rounds * n_new = NBUF.  Kernel K reads n0 alone, C none;
+// the compile-time instances (NN = kFixedNew) read none of it.
+struct MarchGeom {
+  int n0, rounds, n_new;
+};
+
+// The samples a round draws: NN > 0 fixes their count at compile time (the
+// kFixedNew instances), NN = 0 reads it at run time.
+template <int NN>
+struct NewCount {
+  int n_rt;
+  __host__ __device__ __forceinline__ int n() const { return NN > 0 ? NN : n_rt; }
+};
 
 // ---------------------------------------------------------------------------
 // Machinery: one warp a ray; lane l holds slot 32 j + l in column j of its
@@ -113,36 +137,49 @@ __device__ __forceinline__ float warp_sum128(const float (&x)[4]) {
   return (t[0] + t[1]) + (t[2] + t[3]);
 }
 
+// Whether slot 32 q + lane holds an old sample: the first nold = 128 -
+// n_new slots (the new samples fill the rest).
+__device__ __forceinline__ bool old_slot(int q, int lane, int nold) {
+  return q < (nold >> 5) || (q == (nold >> 5) && lane < (nold & 31));
+}
+
 // Sort the ray's [old ascending (BIG_Z pad included) | new descending] row
 // ascending, moving the payload s with z.  sz and ss are the warp's 128-slot
 // scratch.
 //   Bitonic: the 7-stage network (partner k ^ dd; the upper slot of a pair
 //   keeps the larger value; ties stay put): dd = 64 and 32 pair columns
-//   j ^ 2 and j ^ 1, dd <= 16 lanes l ^ dd.
+//   j ^ 2 and j ^ 1, dd <= 16 lanes l ^ dd.  [ascending | descending] is
+//   bitonic wherever the split lies, so it sorts any n_new.
 //   Rank: each element goes straight to its rank in a stable old-before-new
-//   merge: old i to i + #{new < old_i}, new j (descending; column 3, lane
-//   16 + j) to 15 - j + #{old <= new_j}, as _rank_merge's shift network
+//   merge: old i to i + #{new < old_i}, new j (descending; slot 128 - n_new
+//   + j) to n_new - 1 - j + #{old <= new_j}, as _rank_merge's shift network
 //   places them.  The z row equals the bitonic one; the payload differs only
 //   among tied z.
-template <bool RANK>
-__device__ void warp_merge128(float (&z)[4], float (&s)[4], float* sz, float* ss) {
+template <bool RANK, int NN>
+__device__ void warp_merge128(float (&z)[4], float (&s)[4], float* sz, float* ss, NewCount<NN> nn) {
   const int lane = threadIdx.x & 31;
   if (RANK) {
-    int up[4] = {0, 0, 0, 0}, cnew = 0;
-    for (int j = 0; j < NNEW; ++j) {
-      const float nv = __shfl_sync(kFull, z[3], NNEW + j);
-      int c = 0;
+    const int n_new = nn.n(), nold = NBUF - n_new, qn = nold >> 5;
+    int up[4] = {0, 0, 0, 0}, cnew[4] = {0, 0, 0, 0};
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        up[q] += nv < z[q];
-        c += __popc(__ballot_sync(kFull, z[q] <= nv && (q < 3 || lane < NNEW)));
+    for (int qc = 0; qc < 4; ++qc) {
+      if (qc < qn) continue;  // column qc holds no new sample
+      for (int l = qc == qn ? nold & 31 : 0; l < 32; ++l) {
+        const float nv = __shfl_sync(kFull, z[qc], l);  // new sample 32 qc + l - nold
+        int c = 0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          up[q] += nv < z[q];
+          c += __popc(__ballot_sync(kFull, z[q] <= nv && old_slot(q, lane, nold)));
+        }
+        if (lane == l) cnew[qc] = c;
       }
-      if (lane == NNEW + j) cnew = c;
     }
     __syncwarp();
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const int dest = q < 3 || lane < NNEW ? 32 * q + lane + up[q] : NNEW - 1 - (lane - NNEW) + cnew;
+      const int k = 32 * q + lane;
+      const int dest = old_slot(q, lane, nold) ? k + up[q] : n_new - 1 - (k - nold) + cnew[q];
       sz[dest] = z[q];
       ss[dest] = s[q];
     }
@@ -186,11 +223,13 @@ __device__ void warp_merge128(float (&z)[4], float (&s)[4], float* sz, float* ss
 }
 
 // One up-sample round's draw: from the sorted buffer (z, s), vn valid slots,
-// at inv_s -> the 16 new samples in descending order, sample l in lane l <
-// 16.  oo = |o|^2, od = o . d.  sz and sc are the warp's 128-slot scratch.
-__device__ float warp_draw_new_z(const float (&z)[4], const float (&s)[4], int vn, float inv_s, float oo, float od,
-                                 float* sz, float* sc) {
-  const int lane = threadIdx.x & 31;
+// at inv_s -> the n_new new samples in descending order, sample j in out[j
+// >> 5] of lane j & 31 (0 elsewhere).  oo = |o|^2, od = o . d.  sz and sc
+// are the warp's 128-slot scratch.
+template <int NN>
+__device__ void warp_draw_new_z(const float (&z)[4], const float (&s)[4], int vn, float inv_s, float oo, float od,
+                                float* sz, float* sc, NewCount<NN> nn, float (&out)[4]) {
+  const int lane = threadIdx.x & 31, n_new = nn.n();
   // Slot k's neighbour k + 1 (slot 127's is slot 0, as (k + 1) % 128).
   float nz[4], ns[4], cosv[4], inside[4], mid[4];
 #pragma unroll
@@ -235,66 +274,103 @@ __device__ float warp_draw_new_z(const float (&z)[4], const float (&s)[4], int v
     sz[32 * q + lane] = z[q];
     sc[32 * q + lane] = cdf[q];
   }
-  // inds of sample j: the slots whose cdf (2 past the valid ones) <= u_j.
-  int inds = 0;
-  for (int j = 0; j < NNEW; ++j) {
-    const float u = 1.0f - (float)j / (float)(NNEW - 1);
-    int c = 0;
+  // inds of sample j (column j >> 5, lane j & 31): the slots whose cdf (2
+  // past the valid ones) <= u_j.
+  int inds[4] = {0, 0, 0, 0};
 #pragma unroll
-    for (int q = 0; q < 4; ++q) c += __popc(__ballot_sync(kFull, (32 * q + lane < vn ? cdf[q] : 2.0f) <= u));
-    if (lane == j) inds = c;
+  for (int qc = 0; qc < 4; ++qc) {
+    if (32 * qc >= n_new) break;
+    for (int l = 0; l < min(n_new - 32 * qc, 32); ++l) {
+      const float u = 1.0f - (float)(32 * qc + l) / (float)(n_new - 1);
+      int c = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) c += __popc(__ballot_sync(kFull, (32 * q + lane < vn ? cdf[q] : 2.0f) <= u));
+      if (lane == l) inds[qc] = c;
+    }
   }
   __syncwarp();
-  float out = 0.0f;
-  if (lane < NNEW) {
-    const float u = 1.0f - (float)lane / (float)(NNEW - 1);
-    const int below = max(inds - 1, 0), above = min(inds, vn - 1);
-    const float cb = sc[below], zb = sz[below], ca = sc[above], za = sz[above];
-    float den = ca - cb;
-    if (den < 1e-5f) den = 1.0f;
-    const float t = (u - cb) / den;
-    out = zb + t * (za - zb);
+#pragma unroll
+  for (int qc = 0; qc < 4; ++qc) {
+    const int j = 32 * qc + lane;
+    out[qc] = 0.0f;
+    if (32 * qc < n_new && j < n_new) {
+      const float u = 1.0f - (float)j / (float)(n_new - 1);
+      const int below = max(inds[qc] - 1, 0), above = min(inds[qc], vn - 1);
+      const float cb = sc[below], zb = sz[below], ca = sc[above], za = sz[above];
+      float den = ca - cb;
+      if (den < 1e-5f) den = 1.0f;
+      const float t = (u - cb) / den;
+      out[qc] = zb + t * (za - zb);
+    }
   }
   __syncwarp();
-  return out;
 }
 
-// Merge 16 new samples into the ray's buffer: lane 16 + j brings new sample
-// j (descending) in (pz, ps); slots vn..111 become BIG_Z padding.
-template <bool RANK>
-__device__ __forceinline__ void merge_new(float (&z)[4], float (&s)[4], int vn, float pz, float ps, float* sz,
-                                          float* ss) {
-  const int lane = threadIdx.x & 31;
+// The drawn samples (sample j in column j >> 5, lane j & 31) moved to the
+// slots they merge into, 128 - n_new + j: pz[q] is slot 32 q + lane's (0 in
+// the old slots).  Where n_new divides 32 they all lie in column 3 and one
+// shuffle moves them (lane & (n_new - 1) = j there); otherwise they go
+// through the warp's 128-slot scratch sc.
+template <int NN>
+__device__ __forceinline__ void samples_to_slots(const float (&nz)[4], float (&pz)[4], NewCount<NN> nn, float* sc) {
+  const int lane = threadIdx.x & 31, n_new = nn.n(), nold = NBUF - n_new;
 #pragma unroll
-  for (int q = 0; q < 3; ++q)
-    if (32 * q + lane >= vn) z[q] = BIG_Z;
-  if (lane >= NNEW) {
-    z[3] = pz;
-    s[3] = ps;
-  } else if (96 + lane >= vn) {
-    z[3] = BIG_Z;
+  for (int q = 0; q < 4; ++q) pz[q] = 0.0f;
+  if (32 % n_new == 0) {
+    pz[3] = __shfl_sync(kFull, nz[0], lane & (n_new - 1));
+    return;
   }
-  warp_merge128<RANK>(z, s, sz, ss);
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (32 * q + lane < n_new) sc[32 * q + lane] = nz[q];
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (!old_slot(q, lane, nold)) pz[q] = sc[32 * q + lane - nold];
+  __syncwarp();
+}
+
+// Merge n_new new samples into the ray's buffer: slot 128 - n_new + j
+// brings new sample j (descending) in (pz, ps as samples_to_slots lays them
+// out); old slots vn.. become BIG_Z padding.
+template <bool RANK, int NN>
+__device__ __forceinline__ void merge_new(float (&z)[4], float (&s)[4], int vn, const float (&pz)[4],
+                                          const float (&ps)[4], float* sz, float* ss, NewCount<NN> nn) {
+  const int lane = threadIdx.x & 31, nold = NBUF - nn.n();
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (!old_slot(q, lane, nold)) {
+      z[q] = pz[q];
+      s[q] = ps[q];
+    } else if (32 * q + lane >= vn) {
+      z[q] = BIG_Z;
+    }
+  }
+  warp_merge128<RANK>(z, s, sz, ss, nn);
 }
 
 // One machinery step of one ray on one warp, as one _round_machinery_kernel
 // step: merge_vn >= 0 merges the previous round's samples in first (pz, ps
-// as merge_new); draw_vn >= 0 then draws the next 16 samples from draw_vn
-// valid slots at inv_s and returns them (lanes 0-15, descending); `last`
-// then merges those in with a zero sdf, as _rounds_xla's tail step does
-// after the last round, whose samples are never swept.  sz, ss, sc: the
-// warp's 128-slot scratch.  Ends with __syncwarp.
-template <bool RANK>
-__device__ float ray_step(float (&z)[4], float (&s)[4], int merge_vn, float pz, float ps, int draw_vn, float inv_s,
-                          float oo, float od, bool last, float* sz, float* ss, float* sc) {
-  if (merge_vn >= 0) merge_new<RANK>(z, s, merge_vn, pz, ps, sz, ss);
-  if (draw_vn < 0) return 0.0f;
-  const float nz = warp_draw_new_z(z, s, draw_vn, inv_s, oo, od, sz, sc);
+// as merge_new); draw_vn >= 0 then draws the next n_new samples from
+// draw_vn valid slots at inv_s into nz (as warp_draw_new_z; 0 without a
+// draw); `last` then merges those in with a zero sdf, as _rounds_xla's tail
+// step does after the last round, whose samples are never swept.  sz, ss,
+// sc: the warp's 128-slot scratch.  Ends with __syncwarp.
+template <bool RANK, int NN>
+__device__ void ray_step(float (&z)[4], float (&s)[4], int merge_vn, const float (&pz)[4], const float (&ps)[4],
+                         int draw_vn, float inv_s, float oo, float od, bool last, float* sz, float* ss, float* sc,
+                         NewCount<NN> nn, float (&nz)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) nz[q] = 0.0f;
+  if (merge_vn >= 0) merge_new<RANK>(z, s, merge_vn, pz, ps, sz, ss, nn);
+  if (draw_vn < 0) return;
+  warp_draw_new_z(z, s, draw_vn, inv_s, oo, od, sz, sc, nn, nz);
   if (last) {
-    const float mz = __shfl_sync(kFull, nz, threadIdx.x & (NNEW - 1));
-    merge_new<RANK>(z, s, draw_vn, mz, 0.0f, sz, ss);
+    float mz[4];
+    const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    samples_to_slots(nz, mz, nn, sc);
+    merge_new<RANK>(z, s, draw_vn, mz, zero, sz, ss, nn);
   }
-  return nz;
 }
 
 // log(1 - alpha + 1e-7) of one final-sweep section (0 for the last one, which
@@ -394,17 +470,48 @@ struct MarchSmem {
   float sz[R][NBUF], ss[R][NBUF];  // each ray's buffer (z, sdf), and its machinery's scratch with sc
   float sc[R][NBUF];
   float dists[R][NBUF], logs[R][NBUF];
-  float sweep0[R][N0];
-  float new_z[R][NNEW];
+  float new_z[R][NBUF], new_s[R][NBUF];  // a round's samples and their sdf, sample j at [ray][j]
   float wt[kRowsThreads / 32];
   float ro[R][3], rd[R][3];
 };
 
-// Kernel arguments: z_in is z0 [b, 64] (SWEEP or ROUNDS) or the refined
-// buffer [b, 128] (kernel C); sdf0_in [b, 64] (ROUNDS without SWEEP); sdist
-// [b, 1], inv_s and anneal (device scalars) with FINAL.  out: sdf0 [b, 64]
+// The SDF of the block's rays at per depths a ray, zs[ray][j] for j < per ->
+// out[ray][j]: row r of the sweep is depth r % per of ray r / per, in passes
+// of the engine's kValueRows rows, a pass of 64 where at most 64 remain (the
+// bf16 engine's passes hold 128); a last pass's spare rows repeat the last
+// point.  A row's floats do not depend on its pass or its place in one.
+// PER > 0 is per at compile time (the 64 + 4 x 16 instances): where it
+// fills whole passes, only those are compiled.
+template <int PER, class Engine>
+__device__ __forceinline__ void sweep_rows(MarchSmem<Engine>& S, const float (*zs)[NBUF], int per,
+                                           float (*out)[NBUF], const typename Engine::W* __restrict__ wpack,
+                                           const float* __restrict__ bpack, const float* __restrict__ w_sdf,
+                                           const SdfMeta& m, float scale) {
+  constexpr int kVal = Engine::kValueRows;
+  constexpr bool kWholePasses = PER > 0 && kMarchRays * PER % kVal == 0;
+  const int tid = threadIdx.x, rows = kMarchRays * per;
+  for (int r0 = 0; r0 < rows; r0 += kVal) {
+    const bool full = kWholePasses || (kVal > 64 && rows - r0 > 64);
+    if (tid < (full ? kVal : 64) * 3) {
+      const int r = tid / 3, j = tid % 3, g = min(r0 + r, rows - 1), hr = g / per;
+      S.t.pts[r][j] = S.ro[hr][j] + S.rd[hr][j] * zs[hr][g % per];
+    }
+    __syncthreads();
+    if (full)
+      Engine::template values<kVal>(S.t, wpack, bpack, w_sdf, m, scale);
+    else
+      Engine::template values<64>(S.t, wpack, bpack, w_sdf, m, scale);
+    if (tid < min(rows - r0, kVal)) out[(r0 + tid) / per][(r0 + tid) % per] = S.t.sdf[tid];
+    __syncthreads();
+  }
+}
+
+// Kernel arguments: z_in is z0 [b, n0] (SWEEP or ROUNDS) or the refined
+// buffer [b, 128] (kernel C); sdf0_in [b, n0] (ROUNDS without SWEEP); sdist
+// [b, 1], inv_s and anneal (device scalars) with FINAL.  out: sdf0 [b, n0]
 // (SWEEP alone), z [b, 128] (ROUNDS without FINAL) or tau [b, 1] (FINAL).
-template <class Engine, bool SWEEP, bool ROUNDS, bool FINAL, bool RANK>
+// g: the march's geometry, its n_new nn.n() (NN > 0: the constant NN).
+template <class Engine, bool SWEEP, bool ROUNDS, bool FINAL, bool RANK, int NN>
 __device__ __forceinline__ void march_body(const float* __restrict__ z_in, const float* __restrict__ sdf0_in,
                                            const float* __restrict__ o, const float* __restrict__ d,
                                            const float* __restrict__ sdist,
@@ -412,96 +519,85 @@ __device__ __forceinline__ void march_body(const float* __restrict__ z_in, const
                                            const float* __restrict__ bpack, const float* __restrict__ w_sdf,
                                            const float* __restrict__ inv_s_ptr, const float* __restrict__ anneal_ptr,
                                            float* __restrict__ out, int b, const SdfMeta& m, float scale,
-                                           float base_inv_s) {
-  constexpr int RPB = kMarchRays, kVal = Engine::kValueRows, kSec = Engine::kSections;
+                                           float base_inv_s, const MarchGeom& g) {
+  constexpr int RPB = kMarchRays, kSec = Engine::kSections;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   MarchSmem<Engine>& S = *reinterpret_cast<MarchSmem<Engine>*>(smem_raw);
   const int tid = threadIdx.x, h = tid >> 7, k = tid & (NBUF - 1), warp = tid >> 5, lane = tid & 31;
   const int ray = blockIdx.x * RPB + h;
   const bool live = ray < b;
   const int rl = live ? ray : b - 1;  // the last block's spare rays repeat the last ray
+  // The geometry: the constant 64 + 4 x 16 where NN > 0, else g's.
+  const int n0 = NN > 0 ? NBUF - kFixedRounds * NN : g.n0, n_rounds = NN > 0 ? kFixedRounds : g.rounds;
+  const NewCount<NN> nn{g.n_new};
   if (k < 3) {
     S.ro[h][k] = o[rl * 3 + k];
     S.rd[h][k] = d[rl * 3 + k];
   }
   float zk, sk = 0.0f;
   if (SWEEP || ROUNDS)
-    zk = k < N0 ? z_in[(size_t)rl * N0 + k] : BIG_Z;
+    zk = k < n0 ? z_in[(size_t)rl * n0 + k] : BIG_Z;
   else
     zk = z_in[(size_t)rl * NBUF + k];
   S.sz[h][k] = zk;
   __syncthreads();
 
   if constexpr (SWEEP) {
-    // Initial sweep: pass p holds the 64 stratified samples of kVal / 64
-    // rays from ray (kVal / 64) p, one row each.
-    constexpr int kRaysPass = kVal / N0;
-    for (int p = 0; p < RPB * N0 / kVal; ++p) {
-      if (tid < kVal * 3) {
-        const int r = tid / 3, j = tid % 3, hr = kRaysPass * p + r / N0;
-        S.t.pts[r][j] = S.ro[hr][j] + S.rd[hr][j] * S.sz[hr][r % N0];
-      }
-      __syncthreads();
-      Engine::template values<kVal>(S.t, wpack, bpack, w_sdf, m, scale);
-      if (tid < kVal) S.sweep0[kRaysPass * p + tid / N0][tid % N0] = S.t.sdf[tid];
-      __syncthreads();
-    }
-    if (k < N0) sk = S.sweep0[h][k];
+    // Initial sweep: the block's 4 n0 stratified samples, ray by ray, into
+    // the sdf buffer S.ss.
+    sweep_rows<(NN > 0 ? NBUF - kFixedRounds * NN : 0)>(S, S.sz, n0, S.ss, wpack, bpack, w_sdf, m, scale);
+    if (k < n0) sk = S.ss[h][k];
     if (!ROUNDS) {
-      if (live && k < N0) out[(size_t)ray * N0 + k] = sk;
+      if (live && k < n0) out[(size_t)ray * n0 + k] = sk;
       return;
     }
   } else if (ROUNDS) {
-    if (k < N0) sk = sdf0_in[(size_t)rl * N0 + k];
+    if (k < n0) sk = sdf0_in[(size_t)rl * n0 + k];
   }
 
   if (ROUNDS) {
-    // _refine_rounds: round i draws 16 samples at inv_s = base * 2^i from
-    // vn = 64 + 16 i valid slots, sweeps them (not in the last round: that
-    // sdf is a payload no one reads) and merges them in.  Warp w < RPB runs
-    // ray w's machinery, kernel B's ray_step (a round's merge and the next
-    // draw; the last round's samples merged with it), on the buffer it keeps
-    // in S.sz[w], S.ss[w] between rounds; the other warps wait at the barrier
-    // that follows.  A round's sweep rows are the block's rays' new samples,
-    // ray by ray, so sample j of ray w is row 16 w + j of S.t.sdf.
+    // _refine_rounds: round i draws n_new samples at inv_s = base * 2^i
+    // from vn = n0 + n_new i valid slots, sweeps them (not in the last
+    // round: that sdf is a payload no one reads) and merges them in.  Warp
+    // w < RPB runs ray w's machinery, kernel B's ray_step (a round's merge
+    // and the next draw; the last round's samples merged with it), on the
+    // buffer it keeps in S.sz[w], S.ss[w] between rounds; the other warps
+    // wait at the barrier that follows.  A round's sweep rows are the
+    // block's rays' new samples, ray by ray (sweep_rows), its sdf S.new_s.
     S.ss[h][k] = sk;
     __syncthreads();
-    for (int i = 0; i < kRounds; ++i) {
-      const int vn = N0 + i * NNEW;
-      const bool last = i + 1 == kRounds;
+    const int n_new = nn.n(), nold = NBUF - n_new;
+    for (int i = 0; i < n_rounds; ++i) {
+      const int vn = n0 + i * n_new;
+      const bool last = i + 1 == n_rounds;
       if (warp < RPB) {
-        float zr[4], sr[4], pz = 0.0f, ps = 0.0f;
+        float zr[4], sr[4], pz[4] = {0.0f, 0.0f, 0.0f, 0.0f}, ps[4] = {0.0f, 0.0f, 0.0f, 0.0f}, nz[4];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           zr[q] = S.sz[warp][32 * q + lane];
           sr[q] = S.ss[warp][32 * q + lane];
-        }
-        if (i > 0 && lane >= NNEW) {
-          pz = S.new_z[warp][lane - NNEW];
-          ps = S.t.sdf[warp * NNEW + lane - NNEW];
+          if (i > 0 && !old_slot(q, lane, nold)) {
+            pz[q] = S.new_z[warp][32 * q + lane - nold];
+            ps[q] = S.new_s[warp][32 * q + lane - nold];
+          }
         }
         const float* ro = S.ro[warp];
         const float* rd = S.rd[warp];
         const float oo = ro[0] * ro[0] + ro[1] * ro[1] + ro[2] * ro[2];
         const float od = ro[0] * rd[0] + ro[1] * rd[1] + ro[2] * rd[2];
         __syncwarp();
-        const float nz = ray_step<RANK>(zr, sr, i == 0 ? -1 : vn - NNEW, pz, ps, vn, base_inv_s * (float)(1 << i),
-                                        oo, od, last, S.sz[warp], S.ss[warp], S.sc[warp]);
-        if (lane < NNEW) S.new_z[warp][lane] = nz;
+        ray_step<RANK>(zr, sr, i == 0 ? -1 : vn - n_new, pz, ps, vn, base_inv_s * ldexpf(1.0f, i), oo, od, last,
+                       S.sz[warp], S.ss[warp], S.sc[warp], nn, nz);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
+          if (32 * q + lane < n_new) S.new_z[warp][32 * q + lane] = nz[q];
           S.sz[warp][32 * q + lane] = zr[q];
           S.ss[warp][32 * q + lane] = sr[q];
         }
       }
       __syncthreads();
       if (last) break;
-      if (tid < RPB * NNEW * 3) {
-        const int r = tid / 3, j = tid % 3, hr = r / NNEW;
-        S.t.pts[r][j] = S.ro[hr][j] + S.rd[hr][j] * S.new_z[hr][r % NNEW];
-      }
-      __syncthreads();
-      Engine::template values<64>(S.t, wpack, bpack, w_sdf, m, scale);
+      sweep_rows<NN>(S, S.new_z, n_new, S.new_s, wpack, bpack, w_sdf, m, scale);
     }
     if (!FINAL) {
       if (live) out[(size_t)ray * NBUF + k] = S.sz[h][k];
@@ -550,56 +646,74 @@ __device__ __forceinline__ void march_body(const float* __restrict__ z_in, const
       const float *__restrict__ d, const float *__restrict__ sdist, const WT *__restrict__ wpack,              \
       const float *__restrict__ bpack, const float *__restrict__ w_sdf, const float *__restrict__ inv_s_ptr,   \
       const float *__restrict__ anneal_ptr, float *__restrict__ out, int b, const SdfMeta m, float scale,       \
-      float base_inv_s
-#define NRH_MARCH_ARGS z_in, sdf0_in, o, d, sdist, wpack, bpack, w_sdf, inv_s_ptr, anneal_ptr, out, b, m, scale, base_inv_s
+      float base_inv_s, const MarchGeom g
+#define NRH_MARCH_ARGS \
+  z_in, sdf0_in, o, d, sdist, wpack, bpack, w_sdf, inv_s_ptr, anneal_ptr, out, b, m, scale, base_inv_s, g
 
 // The bf16 instances (kernels C, K, L, M and N) and the f32 ones, and the
-// wide class's of each.
-template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK>
+// wide class's of each; NN = kFixedNew for the compile-time geometry, 0 for
+// the run-time one.
+template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK, int NN>
 __global__ void __launch_bounds__(kRowsThreads) march_kernel(NRH_MARCH_PARAMS(bf16)) {
-  march_body<Bf16Rows, SWEEP, ROUNDS, FINAL, RANK>(NRH_MARCH_ARGS);
+  march_body<Bf16Rows, SWEEP, ROUNDS, FINAL, RANK, NN>(NRH_MARCH_ARGS);
 }
-template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK>
+template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK, int NN>
 __global__ void __launch_bounds__(kRowsThreads) march_kernel_f32(NRH_MARCH_PARAMS(float)) {
-  march_body<F32Rows, SWEEP, ROUNDS, FINAL, RANK>(NRH_MARCH_ARGS);
+  march_body<F32Rows, SWEEP, ROUNDS, FINAL, RANK, NN>(NRH_MARCH_ARGS);
 }
-template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK>
+template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK, int NN>
 __global__ void __launch_bounds__(kRowsThreads) march_kernel_wide(NRH_MARCH_PARAMS(bf16)) {
-  march_body<Bf16RowsWide, SWEEP, ROUNDS, FINAL, RANK>(NRH_MARCH_ARGS);
+  march_body<Bf16RowsWide, SWEEP, ROUNDS, FINAL, RANK, NN>(NRH_MARCH_ARGS);
 }
-template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK>
+template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK, int NN>
 __global__ void __launch_bounds__(kRowsThreads) march_kernel_f32_wide(NRH_MARCH_PARAMS(float)) {
-  march_body<F32RowsWide, SWEEP, ROUNDS, FINAL, RANK>(NRH_MARCH_ARGS);
+  march_body<F32RowsWide, SWEEP, ROUNDS, FINAL, RANK, NN>(NRH_MARCH_ARGS);
 }
 #undef NRH_MARCH_PARAMS
 #undef NRH_MARCH_ARGS
 
+// Whether an instance takes geometry g: the compile-time instances (NN > 0)
+// 64 + 4 x 16 alone; the run-time ones K any n0 of the range (2 to 126),
+// the rounds rounds >= 1, n_new >= 2, n0 >= 2 and n0 + rounds n_new = NBUF.
+template <bool SWEEP, bool ROUNDS, int NN>
+__host__ __device__ inline bool takes_geometry(const MarchGeom& g) {
+  const int n0_fixed = NBUF - kFixedRounds * NN;
+  if (ROUNDS)
+    return NN > 0 ? g.n0 == n0_fixed && g.rounds == kFixedRounds && g.n_new == NN
+                  : g.rounds >= 1 && g.n_new >= 2 && g.n0 >= 2 && g.n0 + g.rounds * g.n_new == NBUF;
+  return !SWEEP || (NN > 0 ? g.n0 == n0_fixed : g.n0 >= 2 && g.n0 <= NBUF - 2);
+}
+
 // One launch on `stream` of the bf16 instance, or with F32 the f32 one
 // (wpack then holds f32 weights), of the presets' class or with wide the
-// wide class (meta checked against its limits); returns its launch error.
-template <bool F32, bool SWEEP, bool ROUNDS, bool FINAL, bool RANK>
+// wide class (meta checked against its limits), at geometry g (checked,
+// takes_geometry); returns its launch error.
+template <bool F32, bool SWEEP, bool ROUNDS, bool FINAL, bool RANK, int NN = kFixedNew>
 inline int launch_march(const float* z_in, const float* sdf0_in, const float* o, const float* d,
                         const float* sdist, const void* wpack, const float* bpack, const float* w_sdf,
                         const float* inv_s, const float* anneal, float* out, int b, const int* meta,
-                        float scale, float base_inv_s, void* stream, bool wide = false) {
+                        float scale, float base_inv_s, const MarchGeom& g, void* stream, bool wide = false) {
   using Engine = typename std::conditional<F32, F32Rows, Bf16Rows>::type;
   using EngineWide = typename std::conditional<F32, F32RowsWide, Bf16RowsWide>::type;
   using W = typename Engine::W;
   SdfMeta m;
   int rc = parse_meta(meta, &m, wide);
   if (rc) return rc;
+  if (!takes_geometry<SWEEP, ROUNDS, NN>(g)) return (int)cudaErrorInvalidValue;
   if (b <= 0) return 0;
   const int smem = (int)(wide ? sizeof(MarchSmem<EngineWide>) : sizeof(MarchSmem<Engine>));
   void (*kernel)(const float*, const float*, const float*, const float*, const float*, const W*, const float*,
-                 const float*, const float*, const float*, float*, int, const SdfMeta, float, float);
+                 const float*, const float*, const float*, float*, int, const SdfMeta, float, float,
+                 const MarchGeom);
   if constexpr (F32)
-    kernel = wide ? march_kernel_f32_wide<SWEEP, ROUNDS, FINAL, RANK> : march_kernel_f32<SWEEP, ROUNDS, FINAL, RANK>;
+    kernel = wide ? march_kernel_f32_wide<SWEEP, ROUNDS, FINAL, RANK, NN>
+                  : march_kernel_f32<SWEEP, ROUNDS, FINAL, RANK, NN>;
   else
-    kernel = wide ? march_kernel_wide<SWEEP, ROUNDS, FINAL, RANK> : march_kernel<SWEEP, ROUNDS, FINAL, RANK>;
+    kernel = wide ? march_kernel_wide<SWEEP, ROUNDS, FINAL, RANK, NN> : march_kernel<SWEEP, ROUNDS, FINAL, RANK, NN>;
   rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc) return rc;
   kernel<<<(b + kMarchRays - 1) / kMarchRays, kRowsThreads, smem, (cudaStream_t)stream>>>(
-      z_in, sdf0_in, o, d, sdist, (const W*)wpack, bpack, w_sdf, inv_s, anneal, out, b, m, scale, base_inv_s);
+      z_in, sdf0_in, o, d, sdist, (const W*)wpack, bpack, w_sdf, inv_s, anneal, out, b, m, scale, base_inv_s, g);
   return (int)cudaGetLastError();
 }
 

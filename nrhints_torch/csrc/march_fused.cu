@@ -1,5 +1,8 @@
 // Kernels K, L, M and N: the round-4 fused marches, instances of
-// march_common.cuh::march_kernel (one template with kernel C).
+// march_common.cuh::march_kernel (one template with kernel C), at the
+// presets' geometry, 64 stratified samples and 4 rounds of 16, as
+// compile-time constants (NN = kFixedNew); march_geom.cu holds the same
+// kernels at every other geometry.
 //
 // K, march_sweep: replaces nrhints_tpu/kernels/march.py::_sweep_kernel
 //   (:507, pallas_call at :723), the initial 64-sample SDF value sweep
@@ -48,13 +51,15 @@ using namespace nrh;
 
 namespace {
 
+constexpr MarchGeom kGeom{NBUF - kFixedRounds * kFixedNew, kFixedRounds, kFixedNew};  // 64 + 4 x 16
+
 // Each entry point's bf16 instance, or with F32 its f32 one; with wide, the
 // wide class's.
 template <bool F32>
 int sweep(const float* z0, const float* o, const float* d, const void* wpack, const float* bpack,
           const float* w_sdf, float* sdf0, int b, const int* meta, float scale, void* stream, bool wide = false) {
   return launch_march<F32, true, false, false, false>(z0, nullptr, o, d, nullptr, wpack, bpack, w_sdf, nullptr,
-                                                      nullptr, sdf0, b, meta, scale, 0.0f, stream, wide);
+                                                      nullptr, sdf0, b, meta, scale, 0.0f, kGeom, stream, wide);
 }
 
 template <bool F32>
@@ -63,7 +68,7 @@ int rounds(const float* z0, const float* sdf0, const float* o, const float* d, c
            int rank, void* stream, bool wide = false) {
   auto launch = rank ? launch_march<F32, false, true, false, true> : launch_march<F32, false, true, false, false>;
   return launch(z0, sdf0, o, d, nullptr, wpack, bpack, w_sdf, nullptr, nullptr, z, b, meta, scale, base_inv_s,
-                stream, wide);
+                kGeom, stream, wide);
 }
 
 template <bool F32>
@@ -72,7 +77,7 @@ int importance(const float* z0, const float* o, const float* d, const void* wpac
                void* stream, bool wide = false) {
   auto launch = rank ? launch_march<F32, true, true, false, true> : launch_march<F32, true, true, false, false>;
   return launch(z0, nullptr, o, d, nullptr, wpack, bpack, w_sdf, nullptr, nullptr, z, b, meta, scale, base_inv_s,
-                stream, wide);
+                kGeom, stream, wide);
 }
 
 template <bool F32>
@@ -81,7 +86,7 @@ int shadow(const float* z0, const float* o, const float* d, const float* sdist, 
            const int* meta, float scale, float base_inv_s, int rank, void* stream, bool wide = false) {
   auto launch = rank ? launch_march<F32, true, true, true, true> : launch_march<F32, true, true, true, false>;
   return launch(z0, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal, tau, b, meta, scale, base_inv_s,
-                stream, wide);
+                kGeom, stream, wide);
 }
 
 }  // namespace

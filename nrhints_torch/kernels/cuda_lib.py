@@ -28,7 +28,10 @@ so do the march kernels' wide instances (``core_mlp.ROWS_WIDE``: C, K, L,
 M and N, ``*_wide`` and ``*_f32_wide``, each its own C entry point), and
 the trunk's (``core_mlp.TRUNK_WIDE``: padded hidden widths above 256 or
 inputs above 384, bf16 and f32, ``*_wide`` after the dtypes' suffix, bit 2
-of the dtypes int).
+of the dtypes int).  Kernels B, K, L, M and N at a march geometry other
+than 64 + 4 x 16 run their run-time geometry instances, ``*_geom`` after
+the other suffixes (B in ``march.cu``, K-N in ``march_geom.cu`` and, with
+f32 weights, ``march_geom_f32.cu``).
 """
 from __future__ import annotations
 
@@ -42,7 +45,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nrhints_torch"
-SOURCES = ("sdf_core", "march", "sdf_stash", "mlp_stash", "sdf_core_bwd", "march_fused")
+SOURCES = ("sdf_core", "march", "sdf_stash", "mlp_stash", "sdf_core_bwd", "march_fused", "march_geom",
+           "march_geom_f32")
 # -fmad=false keeps each f32 multiply and add separately rounded, as the
 # plain PyTorch versions compute them, so kernel and plain version differ
 # only in summation order and bf16 rounding flips.
@@ -62,9 +66,13 @@ SDF_CORE_INSTANCES = (
 )
 # The march kernels' instances by weight dtype and width class: each is a
 # C entry point of march.cu (C) or march_fused.cu (K, L, M, N) and a launch
-# counter of the same name.
-MARCH_INSTANCES = [f"{k}{d}{w}" for k in ("shadow_final", "march_sweep", "march_rounds", "importance_march",
-                                          "shadow_march") for d in ("", "_f32") for w in ("", "_wide")]
+# counter of the same name; and K-N's run-time geometry instances, "_geom"
+# (march_geom.cu, with f32 weights march_geom_f32.cu), and B's
+# (round_machinery_geom, march.cu).
+MARCH_FUSED = ("march_sweep", "march_rounds", "importance_march", "shadow_march")
+MARCH_INSTANCES = [f"{k}{d}{w}" for k in ("shadow_final", *MARCH_FUSED) for d in ("", "_f32") for w in ("", "_wide")]
+MARCH_GEOM_INSTANCES = ["round_machinery_geom"] + [
+    f"{k}{d}{w}_geom" for k in MARCH_FUSED for d in ("", "_f32") for w in ("", "_wide")]
 # The trunk's instances by dtypes and width class (core_mlp.TRUNK_NARROW,
 # TRUNK_WIDE: "_wide"), each a launch counter of one C entry point.
 TRUNK_INSTANCES = [
@@ -84,7 +92,7 @@ launch_counts = {
     "shadow_march_f32": 0,
 }
 launch_counts.update({k: 0 for k in SDF_CORE_INSTANCES + TRUNK_INSTANCES + MARCH_INSTANCES
-                      if k not in launch_counts})
+                      + MARCH_GEOM_INSTANCES if k not in launch_counts})
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -106,6 +114,7 @@ _SIGNATURES = {
     },
     "march": {
         "round_machinery": [_P] * 9 + [_I, _I, _I, _F, _I, _I, _P],
+        "round_machinery_geom": [_P] * 9 + [_I, _I, _I, _F, _I, _I, _I, _P],
         **{f"shadow_final{k}": [_P] * 10 + [_I, _P, _F, _P] for k in ("", "_f32", "_wide", "_f32_wide")},
     },
     "march_fused": {
@@ -116,6 +125,15 @@ _SIGNATURES = {
                         ("shadow_march", [_P] * 10 + [_I, _P, _F, _F, _I, _P]))
         for k in ("", "_f32", "_wide", "_f32_wide")
     },
+    # (..., rounds, n_new) after rank; K: n0 after scale.
+    **{lib: {
+        f"{fn}{k}_geom": sig
+        for fn, sig in (("march_sweep", [_P] * 7 + [_I, _P, _F, _I, _P]),
+                        ("march_rounds", [_P] * 8 + [_I, _P, _F, _F, _I, _I, _I, _P]),
+                        ("importance_march", [_P] * 7 + [_I, _P, _F, _F, _I, _I, _I, _P]),
+                        ("shadow_march", [_P] * 10 + [_I, _P, _F, _F, _I, _I, _I, _P]))
+        for k in classes
+    } for lib, classes in (("march_geom", ("", "_wide")), ("march_geom_f32", ("_f32", "_f32_wide")))},
 }
 _libs: dict[str, ctypes.CDLL] = {}
 

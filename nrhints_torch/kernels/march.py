@@ -1,32 +1,38 @@
 """The hierarchical SDF marches: kernels B, C, K, L, M and N and their
 plain versions (port of ``nrhints_tpu/kernels/march.py``).
 
-* ``fused_importance_z``: [B, 64] stratified z -> [B, 128] refined, sorted
+* ``fused_importance_z``: [B, n0] stratified z -> [B, 128] refined, sorted
   z, routed by the JAX keywords: kernel M (``importance_march``, the
   monolith) or, with ``split``, the initial sweep by kernel K
-  (``march_sweep``) or plain matmuls (``_mlp_sdf_3d``), then the 4 rounds
-  by kernel L (``march_rounds``) or by 4 launches of kernel B
+  (``march_sweep``) or plain matmuls (``_mlp_sdf_3d``), then the rounds by
+  kernel L (``march_rounds``) or by one launch of kernel B a round
   (``round_machinery``, merge and inverse-CDF draw; the last also merges
-  the last round's samples) between plain 16-sample sweeps.
+  the last round's samples) between plain sweeps of the new samples.
 * ``fused_shadow_tau``: the shadow march, kernel N (``shadow_march``) or,
   with ``split``, the same refinement from the light followed by kernel C
   (``shadow_final``, the final sdf + directional-derivative sweep and the
   transmittance) or its plain version -> tau [B, 1].
 * ``merge`` picks the sorted merge of every round: "bitonic" or "rank".
+* The geometry: n0 = 128 - rounds * n_new stratified samples, then
+  ``rounds`` rounds of ``n_new`` samples (the presets: 64 + 4 x 16).
 
-On CUDA tensors the wrappers launch the kernels in ``csrc/march.cu`` and
-``csrc/march_fused.cu``; on CPU tensors they run the ``*_plain`` versions.
-The march weights hold the matrices in the march dtype (bf16 by default)
-and the biases in f32; a bf16 sweep rounds its activations to bf16 after
-every layer, as the JAX sweeps do.  The weights' dtype picks the instance
-of C, K, L, M and N: bf16 weights the bf16 kernels, f32 weights
-(``march_dtype="float32"``) their f32 instances (``*_f32``: f32 weights,
-activations and FMAs, no rounding), counted under their own names.  The
-SDF's widths pick the row engine's class (``core_mlp.core_class(cfg,
-with_feat=False)``): the presets' widths (padded widths up to 256,
-encodings up to 64) the instances above, wider SDFs up to 512 and 128 the
-wide instances (``*_wide``, ``*_f32_wide``); wider still raises
-``NotImplementedError`` before any launch.
+On CUDA tensors the wrappers launch the kernels in ``csrc/march.cu``,
+``csrc/march_fused.cu`` and ``csrc/march_geom.cu`` / ``march_geom_f32.cu``;
+on CPU tensors they run the ``*_plain`` versions.  The march weights hold the matrices in the march
+dtype (bf16 by default) and the biases in f32; a bf16 sweep rounds its
+activations to bf16 after every layer, as the JAX sweeps do.  The weights'
+dtype picks the instance of C, K, L, M and N: bf16 weights the bf16
+kernels, f32 weights (``march_dtype="float32"``) their f32 instances
+(``*_f32``: f32 weights, activations and FMAs, no rounding), counted under
+their own names.  The SDF's widths pick the row engine's class
+(``core_mlp.core_class(cfg, with_feat=False)``): the presets' widths
+(padded widths up to 256, encodings up to 64) the instances above, wider
+SDFs up to 512 and 128 the wide instances (``*_wide``, ``*_f32_wide``);
+wider still raises ``NotImplementedError`` before any launch.  The
+geometry picks the instance too: 64 + 4 x 16 (K: n0 = 64; B: n_new = 16)
+the compile-time instances, every other geometry of ``GEOMETRY_RANGE`` the
+run-time ones (``*_geom``, counted under their own names); outside it the
+card raises ``NotImplementedError`` before any launch (``check_geometry``).
 """
 from __future__ import annotations
 
@@ -42,7 +48,27 @@ from nrhints_torch.kernels.common import INV_SQRT2, materialize_sdf_weights, sof
 from nrhints_torch.kernels.core_mlp import pack_sdf_mlp, require_cuda
 
 BIG_Z = 1e9  # padding depth; exceeds any real depth
-N_BUF = 128  # slots of the z / sdf buffers (64 stratified + 64 importance)
+N_BUF = 128  # slots of the z / sdf buffers (n0 stratified + rounds x n_new importance)
+FIXED_GEOMETRY = (4, 16)  # (rounds, n_new) of the compile-time instances: 64 + 4 x 16
+GEOMETRY_RANGE = (
+    "rounds >= 1, n_new >= 2 and n0 = 128 - rounds * n_new >= 2, with a power-of-two n_new under merge='rank'"
+)
+
+
+def check_geometry(rounds: int, n_new: int, merge: str = "bitonic") -> int:
+    """n0 of a march geometry that kernels B, K, L, M and N take on the card
+    (``GEOMETRY_RANGE``); raises ``NotImplementedError`` naming the range
+    otherwise.  JAX returns NaN at n_new = 1 (u = 1 - k / 0) and at n0 = 1
+    (no valid interval), and drops the stratified samples at rounds = 0.
+    The card's wrappers call it before any launch; the plain versions take
+    what they are given."""
+    n0 = N_BUF - rounds * n_new
+    if rounds < 1 or n_new < 2 or n0 < 2 or (merge == "rank" and n_new & (n_new - 1)):
+        raise NotImplementedError(
+            f"the march kernels on the card take {GEOMETRY_RANGE}; got {rounds} rounds of {n_new} samples "
+            f"(n0 = {n0}) under merge={merge!r}"
+        )
+    return n0
 
 
 # ---------------------------------------------------------------------------
@@ -269,13 +295,14 @@ def round_machinery(
     last=False,
 ):
     """One merge/draw step: kernel B on CUDA tensors, the plain version on
-    CPU tensors (same signature and results as ``round_machinery_plain``)."""
+    CPU tensors (same signature and results as ``round_machinery_plain``).
+    On the card n_new = 16 runs ``round_machinery``, any other n_new that a
+    geometry of ``GEOMETRY_RANGE`` has (2 to 126) ``round_machinery_geom``."""
     if z.device.type == "cpu":
         return round_machinery_plain(
             z, sdf, o, d, new_z_prev, new_sdf_prev, merge_valid_n, next_valid_n, inv_s, n_new, merge, last
         )
-    if n_new != 16:
-        raise NotImplementedError("kernel B draws 16 samples per round")
+    check_geometry(1, n_new, merge)
     if last and next_valid_n is None:
         raise ValueError("last=True merges the samples it draws: it needs next_valid_n")
     b = z.shape[0]
@@ -292,28 +319,31 @@ def round_machinery(
     if b == 0:
         return new_z, z_out, sdf_out
     lib = cuda_lib.load("march")
+    fixed = n_new == FIXED_GEOMETRY[1]
+    fn = "round_machinery" if fixed else "round_machinery_geom"
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = lib.round_machinery(
+    rc = getattr(lib, fn)(
         z.data_ptr(), sdf.data_ptr(), o.data_ptr(), d.data_ptr(),
         ptr(new_z_prev if merge_valid_n is not None else None),
         ptr(new_sdf_prev if merge_valid_n is not None else None),
         ptr(new_z), z_out.data_ptr(), ptr(sdf_out), b,
         -1 if merge_valid_n is None else merge_valid_n,
         -1 if next_valid_n is None else next_valid_n,
-        0.0 if inv_s is None else float(inv_s), int(merge == "rank"), int(last), cuda_lib.stream_ptr(dev),
+        0.0 if inv_s is None else float(inv_s), int(merge == "rank"), int(last), *(() if fixed else (n_new,)),
+        cuda_lib.stream_ptr(dev),
     )
-    cuda_lib.check(lib, rc, "round_machinery")
-    cuda_lib.launch_counts["round_machinery"] += 1
+    cuda_lib.check(lib, rc, fn)
+    cuda_lib.launch_counts[fn] += 1
     return new_z, z_out, sdf_out
 
 
 def _rounds(weights, cfg, rays_o, rays_d, z0, sdf0, rounds, n_new, base_inv_s, merge, machinery, sweep=None):
     """[B, n0] (z0, sdf0) -> [B, 128] refined z: one ``machinery`` step per
     round (merging the previous round's samples, drawing the next) and a
-    16-sample ``sweep`` between steps (default the plain one).  The last
-    round's samples are not swept (their sdf is a payload nobody reads):
-    its step merges them in with a zero sdf itself (``last``), where JAX
-    launches a merge-only tail step."""
+    ``sweep`` of the n_new new samples between steps (default the plain
+    one).  The last round's samples are not swept (their sdf is a payload
+    nobody reads): its step merges them in with a zero sdf itself
+    (``last``), where JAX launches a merge-only tail step."""
     sweep = sweep or march_sweep_plain
     b, n0 = z0.shape
     pad = torch.full((b, N_BUF - n0), BIG_Z, device=z0.device)
@@ -401,7 +431,8 @@ def shadow_final(z, o, d, sdist, inv_s, cos_anneal, weights, cfg: SDFNetConfig) 
 
 
 # ---------------------------------------------------------------------------
-# Kernels K, L, M and N: the round-4 fused marches (csrc/march_fused.cu)
+# Kernels K, L, M and N: the fused marches (csrc/march_fused.cu at 64 + 4 x
+# 16, csrc/march_geom.cu at every other geometry)
 
 
 def march_sweep_plain(z0, o, d, weights, cfg: SDFNetConfig) -> torch.Tensor:
@@ -414,7 +445,7 @@ def march_rounds_plain(
     z0, sdf0, o, d, weights, cfg: SDFNetConfig, *, rounds=4, n_new=16, base_inv_s=64.0, merge="bitonic"
 ) -> torch.Tensor:
     """Port of ``_rounds_kernel`` (the ``_refine_rounds`` loop): -> refined
-    z [B, 128], with plain machinery steps and plain 16-sample sweeps."""
+    z [B, 128], with plain machinery steps and plain sweeps."""
     return _rounds(weights, cfg, o, d, z0, sdf0, rounds, n_new, base_inv_s, merge, round_machinery_plain)
 
 
@@ -444,14 +475,15 @@ def _check_merge(merge: str) -> int:
     return int(merge == "rank")
 
 
-def _launch_fused(name: str, fn: str, weights, cfg: SDFNetConfig, inputs, out_cols: int, rounds=4, n_new=16,
-                  scalars=()) -> torch.Tensor:
-    """Kernel ``name`` (``fn`` of ``csrc/march_fused.cu``, or its f32 or
-    wide instance, ``_kernel_pack``) on CUDA tensors: checks ``inputs``
+def _launch_fused(fn: str, weights, cfg: SDFNetConfig, inputs, out_cols: int, scalars=(),
+                  geometry=None) -> torch.Tensor:
+    """Kernel ``fn`` of ``csrc/march_fused.cu`` (or its f32 or wide
+    instance, ``_kernel_pack``) on CUDA tensors: checks ``inputs``
     ([(tensor, shape, name), ...], the kernel's pointer arguments in
-    order), packs the weights in their dtype, launches -> [B, out_cols]."""
-    if (rounds, n_new) != (4, 16):
-        raise NotImplementedError(f"kernel {name} runs 4 rounds of 16 samples")
+    order), packs the weights in their dtype, launches -> [B, out_cols].
+    ``geometry``: None for the 64 + 4 x 16 instance, else the ints that the
+    run-time geometry instance (``fn``_geom, ``csrc/march_geom.cu``, f32:
+    ``march_geom_f32.cu``) takes after the scalars."""
     for t, shape, tname in inputs:
         require_cuda(t, shape, tname)
     dev, b = inputs[0][0].device, inputs[0][0].shape[0]
@@ -459,28 +491,42 @@ def _launch_fused(name: str, fn: str, weights, cfg: SDFNetConfig, inputs, out_co
     if b == 0:
         return out
     fn, pk = _kernel_pack(fn, weights, cfg)
-    lib = cuda_lib.load("march_fused")
+    if geometry is not None:
+        fn += "_geom"
+    lib = cuda_lib.load("march_fused" if geometry is None else "march_geom_f32" if "_f32" in fn else "march_geom")
     rc = getattr(lib, fn)(
         *(t.data_ptr() for t, _, _ in inputs), pk["wpack"].data_ptr(), pk["bpack"].data_ptr(),
         pk["w_sdf"].data_ptr(), out.data_ptr(), b, pk["meta"].ctypes.data, float(cfg.scale), *scalars,
-        cuda_lib.stream_ptr(dev),
+        *(geometry or ()), cuda_lib.stream_ptr(dev),
     )
     cuda_lib.check(lib, rc, fn)
     cuda_lib.launch_counts[fn] += 1
     return out
 
 
-def _ray_inputs(z0, o, d):
+def _ray_inputs(z0, o, d, n0: int):
     b = z0.shape[0]
-    return [(z0, (b, 64), "z0"), (o, (b, 3), "o"), (d, (b, 3), "d")]
+    return [(z0, (b, n0), "z0"), (o, (b, 3), "o"), (d, (b, 3), "d")]
+
+
+def _rounds_geometry(rounds: int, n_new: int, merge: str) -> tuple:
+    """(n0, ``_launch_fused``'s geometry) of L, M or N, checked first."""
+    n0 = check_geometry(rounds, n_new, merge)
+    return n0, None if (rounds, n_new) == FIXED_GEOMETRY else (rounds, n_new)
 
 
 def march_sweep(z0, o, d, weights, cfg: SDFNetConfig) -> torch.Tensor:
-    """sdf0 [B, 64]: kernel K on CUDA tensors (its bf16 or f32 instance,
-    by the weights' dtype), the plain version on CPU tensors."""
+    """sdf0 [B, n0]: kernel K on CUDA tensors (its bf16 or f32 instance,
+    by the weights' dtype), the plain version on CPU tensors.  The card
+    takes the n0 of ``GEOMETRY_RANGE``, 2 to 126."""
     if z0.device.type == "cpu":
         return march_sweep_plain(z0, o, d, weights, cfg)
-    return _launch_fused("K", "march_sweep", weights, cfg, _ray_inputs(z0, o, d), 64)
+    n0 = z0.shape[1]
+    if not 2 <= n0 <= N_BUF - 2:
+        raise NotImplementedError(f"kernel K sweeps the n0 of {GEOMETRY_RANGE}, 2 to {N_BUF - 2}; got n0 = {n0}")
+    n0_fixed = N_BUF - FIXED_GEOMETRY[0] * FIXED_GEOMETRY[1]
+    return _launch_fused("march_sweep", weights, cfg, _ray_inputs(z0, o, d, n0), n0,
+                         geometry=None if n0 == n0_fixed else (n0,))
 
 
 def march_rounds(
@@ -493,9 +539,10 @@ def march_rounds(
         return march_rounds_plain(
             z0, sdf0, o, d, weights, cfg, rounds=rounds, n_new=n_new, base_inv_s=base_inv_s, merge=merge
         )
-    inputs = _ray_inputs(z0, o, d)
-    inputs.insert(1, (sdf0, (z0.shape[0], 64), "sdf0"))
-    return _launch_fused("L", "march_rounds", weights, cfg, inputs, N_BUF, rounds, n_new, (float(base_inv_s), rank))
+    n0, geometry = _rounds_geometry(rounds, n_new, merge)
+    inputs = _ray_inputs(z0, o, d, n0)
+    inputs.insert(1, (sdf0, (z0.shape[0], n0), "sdf0"))
+    return _launch_fused("march_rounds", weights, cfg, inputs, N_BUF, (float(base_inv_s), rank), geometry)
 
 
 def importance_march(
@@ -508,8 +555,9 @@ def importance_march(
         return importance_march_plain(
             z0, o, d, weights, cfg, rounds=rounds, n_new=n_new, base_inv_s=base_inv_s, merge=merge
         )
-    return _launch_fused("M", "importance_march", weights, cfg, _ray_inputs(z0, o, d), N_BUF, rounds, n_new,
-                         (float(base_inv_s), rank))
+    n0, geometry = _rounds_geometry(rounds, n_new, merge)
+    return _launch_fused("importance_march", weights, cfg, _ray_inputs(z0, o, d, n0), N_BUF, (float(base_inv_s), rank),
+                         geometry)
 
 
 def shadow_march(
@@ -525,11 +573,12 @@ def shadow_march(
             z0, o, d, sdist, inv_s, cos_anneal, weights, cfg,
             rounds=rounds, n_new=n_new, base_inv_s=base_inv_s, merge=merge,
         )
-    inputs = _ray_inputs(z0, o, d) + [(sdist, (z0.shape[0], 1), "sdist")] + [
+    n0, geometry = _rounds_geometry(rounds, n_new, merge)
+    inputs = _ray_inputs(z0, o, d, n0) + [(sdist, (z0.shape[0], 1), "sdist")] + [
         (torch.as_tensor(v, dtype=torch.float32, device=z0.device).reshape(1), (1,), name)
         for v, name in ((inv_s, "inv_s"), (cos_anneal, "cos_anneal"))
     ]
-    return _launch_fused("N", "shadow_march", weights, cfg, inputs, 1, rounds, n_new, (float(base_inv_s), rank))
+    return _launch_fused("shadow_march", weights, cfg, inputs, 1, (float(base_inv_s), rank), geometry)
 
 
 # ---------------------------------------------------------------------------
@@ -537,6 +586,7 @@ def shadow_march(
 
 
 def _check_args(z0, rounds, n_new, merge, split, impls):
+    """JAX's argument checks; on CUDA tensors also ``check_geometry``."""
     if z0.shape[1] != N_BUF - rounds * n_new:
         raise ValueError(
             f"the fused march needs z0 with {N_BUF - rounds * n_new} samples "
@@ -550,6 +600,8 @@ def _check_args(z0, rounds, n_new, merge, split, impls):
             raise ValueError(f"{name} must be 'pallas' or 'xla', got {v!r}")
     if not split and "xla" in impls.values():
         raise ValueError(f"{'/'.join(impls)}='xla' require split=True")
+    if z0.device.type != "cpu":
+        check_geometry(rounds, n_new, merge)
 
 
 def fused_importance_z(
@@ -558,12 +610,14 @@ def fused_importance_z(
     mlp_dtype: str = "float32", merge: str = "bitonic", split: bool = False,
     sweep_impl: str = "pallas", rounds_impl: str = "pallas",
 ) -> torch.Tensor:
-    """[B, 64] stratified z -> [B, 128] refined, sorted z (no gradient).
+    """[B, n0] stratified z -> [B, 128] refined, sorted z (no gradient),
+    n0 = 128 - rounds * n_new.
 
     Routes as JAX: ``split=False`` is kernel M; with ``split`` the sweep is
     kernel K ("pallas") or plain matmuls ("xla"), and the rounds kernel L
-    ("pallas") or 4 launches of kernel B between plain 16-sample sweeps
-    ("xla").  ``merge``: "bitonic" or "rank"."""
+    ("pallas") or one launch of kernel B a round between plain sweeps of its
+    new samples ("xla").  ``merge``: "bitonic" or "rank".  On the card the
+    geometry must lie in ``GEOMETRY_RANGE`` (checked before any launch)."""
     _check_args(z0, rounds, n_new, merge, split, {"sweep_impl": sweep_impl, "rounds_impl": rounds_impl})
     rays_o, rays_d, z0 = rays_o.contiguous(), rays_d.contiguous(), z0.contiguous()
     weights = march_weights(params, cfg, mlp_dtype)

@@ -16,9 +16,12 @@ f32 ones (the f32 instances), and the shipping route under both merges:
 shadow rays with ``split=True`` and the "xla" sweeps and rounds (plain
 16-sample sweeps between kernel B's steps; C for the shadow rays' final
 sweep).  The script prints, per output, the largest absolute difference and
-whether the two trees' outputs are equal bit for bit, and each tree's kernel
-B by device time a launch from one profiled call of the shipping route's
-camera march.  It needs one card.
+whether the two trees' outputs are equal bit for bit, and each tree's device
+time of kernels B (a launch of the shipping route's camera march), C, K, L,
+M and N (bf16, bitonic) on those inputs, the median of 5 profiled calls
+(chip_smoke.py's kernel_device_ms).  The trees run in turns, A, B, B, A,
+each in a process of its own, so each time is read twice; the outputs
+compared are each tree's first run's.  It needs one card.
 """
 from __future__ import annotations
 
@@ -29,6 +32,9 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 INPUTS = ("o", "d", "z0", "sl", "sdir", "sdist", "z0s", "sz", "inv_s", "anneal")
+# chip_smoke.py's device-time group of each timed kernel
+TIMED = {"B": "kernel B round_machinery", "C": "kernel C shadow_final", "K": "kernel K march_sweep",
+         "L": "kernel L march_rounds", "M": "kernel M importance_march", "N": "kernel N shadow_march"}
 
 
 def make_inputs(path: str) -> None:
@@ -45,8 +51,7 @@ def make_inputs(path: str) -> None:
 def run(tree: str, inputs: str, out: str) -> None:
     sys.path.insert(0, str(Path(tree).resolve()))
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from chip_smoke import tree_to
+    from chip_smoke import kernel_device_ms, tree_to
     from nrhints_torch.configs.config import nr_hints
     from nrhints_torch.kernels import cuda_lib, march
 
@@ -75,18 +80,19 @@ def run(tree: str, inputs: str, out: str) -> None:
         outs[f"shipping z ({merge})"] = shipping_z(merge)
         outs[f"shipping tau ({merge})"] = march.fused_shadow_tau(sdf_params, cfg, sl, sdir, z0s, sdist, inv_s, anneal,
                                                                  merge=merge, final_impl="pallas", **ship)
-    for _ in range(3):  # now and then the profiler records no kernel of so short a window
-        torch.cuda.synchronize()
-        before = cuda_lib.launch_counts["round_machinery"]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            shipping_z()
-            torch.cuda.synchronize()
-        launches = cuda_lib.launch_counts["round_machinery"] - before
-        b_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA and "round_machinery" in e.key) / 1e3
-        if b_ms > 0:
-            break
-    torch.save({"outs": {k: v.cpu() for k, v in outs.items()}, "b": (b_ms, launches)}, out)
+
+    sdf0 = outs["K sdf0"]
+    calls = {
+        "B": shipping_z, "C": lambda: march.shadow_final(sz, sl, sdir, sdist, inv_s, anneal, mw, cfg),
+        "K": lambda: march.march_sweep(z0, o, d, mw, cfg), "L": lambda: march.march_rounds(z0, sdf0, o, d, mw, cfg),
+        "M": lambda: march.importance_march(z0, o, d, mw, cfg),
+        "N": lambda: march.shadow_march(z0s, sl, sdir, sdist, inv_s, anneal, mw, cfg),
+    }
+    before = cuda_lib.launch_counts["round_machinery"]
+    shipping_z()
+    b_launches = cuda_lib.launch_counts["round_machinery"] - before
+    times = {k: kernel_device_ms(fn, TIMED[k], tries=5) / (b_launches if k == "B" else 1) for k, fn in calls.items()}
+    torch.save({"outs": {k: v.cpu() for k, v in outs.items()}, "times": times, "b_launches": b_launches}, out)
 
 
 def main() -> int:
@@ -98,28 +104,31 @@ def main() -> int:
         return 0
     import torch
 
+    trees = sys.argv[1:3]
     with tempfile.TemporaryDirectory() as tmp:
         inputs = str(Path(tmp) / "inputs.pt")
         subprocess.run([sys.executable, __file__, "--inputs", inputs], check=True)
-        outs = []
-        for i, tree in enumerate(sys.argv[1:3]):
-            path = str(Path(tmp) / f"{i}.pt")
-            subprocess.run([sys.executable, __file__, "--run", tree, inputs, path], check=True)
-            outs.append(torch.load(path))
-    for tree, res in zip(sys.argv[1:3], outs):
-        b_ms, launches = res["b"]
-        print(f"kernel B of {tree}: one profiled call of the shipping camera march, {launches} launches, device time "
-              f"{b_ms:.4f} ms, {b_ms / max(launches, 1):.5f} ms a launch")
-    a, b = (res["outs"] for res in outs)
+        runs = []  # (tree index, result) in the order A, B, B, A
+        for i in (0, 1, 1, 0):
+            path = str(Path(tmp) / f"{len(runs)}.pt")
+            subprocess.run([sys.executable, __file__, "--run", trees[i], inputs, path], check=True)
+            runs.append((i, torch.load(path)))
+    for k in TIMED:
+        per_tree = [[res["times"][k] for i, res in runs if i == t] for t in (0, 1)]
+        mean = [sum(v) / len(v) for v in per_tree]
+        seq = ", ".join(f"{res['times'][k]:.5f}" for _, res in runs)
+        print(f"kernel {k} device time{' a launch' if k == 'B' else ''} (ms; runs A, B, B, A): {seq}; "
+              f"{trees[1]} / {trees[0]} = {mean[1] / mean[0]:.4f}")
+    print(f"kernel B: {runs[0][1]['b_launches']} launches a shipping camera march")
+    a, b = runs[0][1]["outs"], runs[1][1]["outs"]
     equal = True
     for name in a:
         same = torch.equal(a[name], b[name])
         equal &= same
         print(f"march {name}: max abs difference {(a[name] - b[name]).abs().max().item():.3e}; "
               f"equal bit for bit: {same}")
-    print(f"march kernels K, L, M, C, N (bf16 and f32) and the shipping route (B), {sys.argv[1]} against "
-          f"{sys.argv[2]}: all outputs "
-          f"equal bit for bit: {equal}")
+    print(f"march kernels K, L, M, C, N (bf16 and f32) and the shipping route (B), {trees[0]} against "
+          f"{trees[1]}: all outputs equal bit for bit: {equal}")
     return 0
 
 

@@ -30,7 +30,7 @@ left-out part saved.  Variants:
   no_encoding   the sin and cos channels replaced by a coordinate;
   skeleton      no_softplus, no_copies and no_fragments together;
   no_machinery  (L and M) no draw and no merge in the rounds: each round
-                sweeps the first 16 slots of the buffer as its new samples.
+                sweeps the first n_new slots of the buffer as its new samples.
 
 The outputs of every variant but ``full`` are wrong by design; only their
 times are read.  It needs one card.
@@ -64,9 +64,9 @@ NO_MMA = [(ROWS, "for (int i = 0; i < MT; ++i) mma_16816(", "for (int i = 0; i <
 NO_FRAGMENTS = [(ROWS, "for (int kk = 0; kk < kend; kk += 16) {", "for (int kk = 0; kk < 0; kk += 16) {")]
 NO_ENCODING = [(ROWS, "v = freq_channel(xs, ts, c, F, DUAL ? &t : nullptr);", "v = xs[c % 3], t = ts[c % 3];")]
 NO_MACHINERY = [
-    (COMMON, """const float nz = ray_step<RANK>(zr, sr, i == 0 ? -1 : vn - NNEW, pz, ps, vn, base_inv_s * (float)(1 << i),
-                                        oo, od, last, S.sz[warp], S.ss[warp], S.sc[warp]);""",
-     "const float nz = zr[0];"),
+    (COMMON, """ray_step<RANK>(zr, sr, i == 0 ? -1 : vn - n_new, pz, ps, vn, base_inv_s * ldexpf(1.0f, i), oo, od, last,
+                       S.sz[warp], S.ss[warp], S.sc[warp], nn, nz);""",
+     "for (int q = 0; q < 4; ++q) nz[q] = zr[q];"),
 ]
 VARIANTS = {
     "full": [], "no_softplus": NO_SOFTPLUS, "no_copies": NO_COPIES, "no_mma": NO_MMA,

@@ -832,8 +832,10 @@ def test_march_wrappers_raise_on_bad_inputs(cuda):
            march.shadow_march_plain(z0, o, d, sdist, 64.0, 1.0, w32, SMALL), F32_TOL["tau"])
     with pytest.raises(ValueError, match="bf16 or f32"):
         march.march_sweep(z0, o, d, [w.double() for w in w32], SMALL)
-    with pytest.raises(ValueError):
-        march.march_sweep(z0[:, :32].contiguous(), o, d, w16, SMALL)
+    with pytest.raises(NotImplementedError):  # K sweeps 2 to 126 samples a ray
+        march.march_sweep(z0[:, :1].contiguous(), o, d, w16, SMALL)
+    with pytest.raises(ValueError):  # z0 of 32 samples at 4 rounds of 16
+        march.march_rounds(z0[:, :32].contiguous(), z0[:, :32].contiguous(), o, d, w16, SMALL)
     with pytest.raises(ValueError):
         march.march_rounds(z0, z0.double(), o, d, w16, SMALL)
     with pytest.raises(ValueError):
@@ -1509,6 +1511,97 @@ def test_trunk_wide_limits_raise_before_launch(cuda):
         for call in (lambda: core_mlp.mlp_fwd(w, x, n_layers), lambda: core_mlp.mlp_bwd(w, x, g, n_layers),
                      lambda: core_stash.mlp_stash_fwd(w, x, n_layers)):
             with pytest.raises(NotImplementedError, match="item 15"):
+                call()
+    torch.cuda.synchronize()
+    assert dict(cuda_lib.launch_counts) == before
+
+
+# March geometries other than 64 + 4 x 16 (rounds, n_new): the run-time
+# geometry instances of B, K, L, M and N (B keeps its n_new = 16 instance at
+# 3 x 16, K its n0 = 64 one at 2 x 32, 8 x 8 and 1 x 64), at ray counts
+# that fill 4-ray blocks in part.
+GEOMETRIES = [(2, 32), (8, 8), (3, 16), (5, 12), (1, 64), (1, 126)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("geometry", GEOMETRIES, ids=lambda g: f"{g[0]}x{g[1]}")
+@pytest.mark.parametrize("n", [5, 512])
+def test_march_geometry_kernels_match_plain(cuda, dtype, geometry, n):
+    """Kernels K, L, M and N at another geometry against their plain
+    versions (as test_march_kernels_match_plain holds them), L = B's steps
+    between K's sweeps, M = L(K(.)) and N = C(M(.)) bit for bit under both
+    merges (5 x 12 and 1 x 126: bitonic alone), B's merges equal to the plain
+    ones; one launch of each run-time geometry instance."""
+    rounds, n_new = geometry
+    n0 = 128 - rounds * n_new
+    cfg = SDFNetConfig()
+    p = sdf_init(torch.Generator().manual_seed(0), cfg, cuda)
+    o, d, z64 = _rays(cuda, n)
+    z0 = (z64[:, :1] + (z64[:, -1:] - z64[:, :1]) * torch.linspace(0, 1, n0, device=cuda)[None]).contiguous()
+    w = march.march_weights(p, cfg, dtype)
+    sdist = torch.full((n, 1), 2.0 / 64, device=cuda)
+    inv_s, anneal = torch.tensor(64.0, device=cuda), torch.tensor(0.7, device=cuda)
+    sfx = "_f32" if dtype == "float32" else ""
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    sweep = lambda new_z, *_: march.march_sweep(new_z.contiguous(), o, d, w, cfg)  # noqa: E731
+    for merge in ("bitonic", "rank") if n_new & (n_new - 1) == 0 else ("bitonic",):
+        kw = dict(rounds=rounds, n_new=n_new, merge=merge)
+        before = dict(cuda_lib.launch_counts)
+        sdf0 = march.march_sweep(z0, o, d, w, cfg)
+        z_l = march.march_rounds(z0, sdf0, o, d, w, cfg, **kw)
+        z_m = march.importance_march(z0, o, d, w, cfg, **kw)
+        tau = march.shadow_march(z0, o, d, sdist, inv_s, anneal, w, cfg, **kw)
+        torch.cuda.synchronize()
+        names = [f"{k}{sfx}_geom" for k in ("march_rounds", "importance_march", "shadow_march")]
+        names.append(f"march_sweep{sfx}" + ("" if n0 == 64 else "_geom"))  # K's compile-time instance takes n0 = 64
+        assert {k: cuda_lib.launch_counts[k] - before[k] for k in names} == dict.fromkeys(names, 1)
+        assert sdf0.shape == (n, n0) and z_l.shape == z_m.shape == (n, 128) and tau.shape == (n, 1)
+        _close(sdf0, march.march_sweep_plain(z0, o, d, w, cfg), tol)
+        z_bk = march._rounds(w, cfg, o, d, z0, sdf0, rounds, n_new, 64.0, merge, march.round_machinery, sweep)
+        assert torch.equal(z_l, z_bk)
+        _assert_z_close(z_l, march.march_rounds_plain(z0, sdf0, o, d, w, cfg, **kw), z0)
+        _assert_z_close(z_m, march.importance_march_plain(z0, o, d, w, cfg, **kw), z0)
+        assert torch.equal(z_m, z_l)
+        assert torch.equal(tau, march.shadow_final(z_m, o, d, sdist, inv_s, anneal, w, cfg))
+        _close(tau, march.shadow_march_plain(z0, o, d, sdist, inv_s, anneal, w, cfg, **kw), 1e-4 if sfx else 1e-2)
+        # B's first step: merge-free draw; its merges, step by step, as the plain ones.
+        z = torch.cat([z0, torch.full((n, 128 - n0), march.BIG_Z, device=cuda)], -1)
+        s = torch.cat([sdf0, torch.zeros((n, 128 - n0), device=cuda)], -1)
+        new_z = new_s = None
+        for i in range(rounds - 1):
+            args = (z, s, o, d, new_z, new_s, None if i == 0 else n0 + (i - 1) * n_new, n0 + i * n_new, 64.0 * 2**i,
+                    n_new, merge)
+            k_out, p_out = march.round_machinery(*args), march.round_machinery_plain(*args)
+            assert torch.equal(k_out[1], p_out[1]) and torch.equal(k_out[2], p_out[2])
+            _close(k_out[0], p_out[0], 1e-4)
+            new_z, z, s = k_out
+            new_s = sweep(new_z)
+
+
+@pytest.mark.gpu
+def test_march_geometry_out_of_range_raises_before_launch(cuda):
+    """Geometries out of the range (n_new = 1, n0 < 2, no round, a rank
+    merge of a non-power-of-two n_new) raise NotImplementedError in every
+    card wrapper (the entry points: ValueError for the rank merge, as JAX)
+    and launch nothing."""
+    cfg = SDFNetConfig()
+    p = sdf_init(torch.Generator().manual_seed(0), cfg, cuda)
+    o, d, _ = _rays(cuda, 8)
+    w = march.march_weights(p, cfg, "bfloat16")
+    sdist = torch.full((8, 1), 2.0 / 64, device=cuda)
+    before = dict(cuda_lib.launch_counts)
+    for rounds, n_new, merge in ((10, 1, "bitonic"), (1, 127, "bitonic"), (0, 16, "bitonic"), (5, 12, "rank")):
+        z0 = torch.zeros((8, 128 - rounds * n_new), device=cuda)
+        with pytest.raises(ValueError if merge == "rank" else NotImplementedError):
+            march.fused_importance_z(p, cfg, o, d, z0, rounds=rounds, n_new=n_new, merge=merge)
+        with pytest.raises(ValueError if merge == "rank" else NotImplementedError):
+            march.fused_shadow_tau(p, cfg, o, d, z0, sdist, 64.0, 0.7, rounds=rounds, n_new=n_new, merge=merge)
+        for call in (lambda: march.march_rounds(z0, z0, o, d, w, cfg, rounds=rounds, n_new=n_new, merge=merge),
+                     lambda: march.importance_march(z0, o, d, w, cfg, rounds=rounds, n_new=n_new, merge=merge),
+                     lambda: march.shadow_march(z0, o, d, sdist, 64.0, 0.7, w, cfg, rounds=rounds, n_new=n_new,
+                                                merge=merge)):
+            with pytest.raises(NotImplementedError, match="rounds >= 1, n_new >= 2"):
                 call()
     torch.cuda.synchronize()
     assert dict(cuda_lib.launch_counts) == before
