@@ -6,8 +6,9 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 1. device: the card's name and count, and nvidia-smi's name and power limit;
 2. build: compile every kernel from nrhints_torch/csrc with nvcc (one nvcc
-   per source, in parallel) and print each kernel's registers, shared
-   memory and spills;
+   per source, in parallel, all before phase 3, so no build runs beside a
+   timed phase) and print each kernel's registers, shared memory and
+   spills;
 3. kernels: run kernels A (SDF core), B (march round machinery), C
    (shadow final sweep), D and E (the SDF stash op's forward and backward),
    F and G (the reflectance trunk's stash op), H (the SDF core's recompute
@@ -162,6 +163,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bound; (b) fused_importance_z and fused_shadow_tau on every route, each
    against the plain march, with exact launches; (c) geometries out of the
    range raise NotImplementedError before any launch.
+21. the SDF core's wide f32 instances (``--wide-core-f32``: alone; the plain
+   run runs it so, in a process of its own): phase 16 at d_hidden 512 and
+   multi_res 11 (a 69-wide encoding): (a) A's and H's wide f32 instances and
+   D's, E's and their stash_all variants' at every (operand, stash) dtype
+   pair with an f32 in it, at phase 3's 65,536 points against their plain
+   versions, with phase 16's identities, each by device time beside the
+   wide bf16 instance's and the 64-point instance's of the same dtypes and
+   its f32 bound; (b) both entry points at every (compute_dtype,
+   stash_dtype, stash_us) against autograd, launches exact;
+22. networks deeper than the kernels' parameter tables (``--deep``: alone;
+   the plain run runs it so, in a process of its own): nr-hints-cam-opt at
+   the presets' widths with 20 SDF layers and a 20-layer reflectance trunk:
+   (a) A, D, E, H and D's and E's variants at bf16 and f32, F, G, I, J, and
+   C, K, L, M, N at bf16 and f32 march weights, at phase 3's shapes against
+   their plain versions with the identities (L = B/K, M = L(K), N = C(M) bit
+   for bit), each by device time beside the 8-layer instance's; (b) a
+   K = 16 graph of stash steps, a recompute, a stash_all and a split-route
+   step, and a view on the shipping route and on the monolith, each with
+   exact launches, s/step or s/view and the device idle share.
+The run prints its total seconds on a line of its own.
 Phase 3 also holds kernels K (initial march sweep), L (refinement rounds),
 M (K and L in one kernel) and N (M and C's final sweep in one kernel), and
 B under the rank merge, against their plain versions, L = B's steps between
@@ -287,8 +308,10 @@ CORE_MODES = {
 }
 _CORE_KERNEL = re.compile(
     r"(sdf_core_fwd_kernel|sdf_bwd_chain_kernel|mlp_fwd_kernel|mlp_bwd_chain_kernel)<([\w:]+), ([\w:]+)(?:, ([a-z0-9, ]+))?>")
-# The SDF core's wide instances (phase 18): (template, its arguments) ->
-# group; each named "kernel X <launch counter> ..." where it has one.
+# The SDF core's wide bf16 instances (phase 18): (template, its arguments
+# after <T, S>) -> group; each named "kernel X <launch counter> ..." where
+# it has one.  Its f32 and mixed instances (phase 21) take wide_group's
+# "kernel A wide float32/float32".
 WIDE_MODES = {
     ("sdf_core_fwd_wide_kernel", "0"): "kernel A sdf_core_fwd_wide",
     ("sdf_core_fwd_wide_kernel", "1"): "kernel D sdf_stash_fwd_wide",
@@ -298,10 +321,10 @@ WIDE_MODES = {
     ("sdf_bwd_chain_wide_kernel", "true, false"): "kernel H wide chain (H2)",
     ("sdf_bwd_chain_wide_kernel", "false, true"): "kernel E' sdf_stash_all_bwd_wide (E1)",
 }
-_WIDE_KERNEL = re.compile(r"(sdf_core_fwd_wide_kernel|sdf_bwd_chain_wide_kernel)<([a-z0-9, ]+)>")
+_WIDE_KERNEL = re.compile(r"(sdf_core_fwd_wide_kernel|sdf_bwd_chain_wide_kernel)<([\w:]+), ([\w:]+), ([a-z0-9, ]+)>")
 # The trunk's wide instances (phase 19): their templates, grouped by the
 # label of the 64-point template's mode (CORE_MODES) and their dtypes,
-# wide_trunk_group: "kernel F wide bfloat16/bfloat16".
+# wide_group: "kernel F wide bfloat16/bfloat16".
 _WIDE_TRUNK_KERNEL = re.compile(r"(mlp_fwd_wide_kernel|mlp_bwd_chain_wide_kernel)<([\w:]+), ([\w:]+)(?:, (\d))?>")
 # The march template's instances: (SWEEP, ROUNDS, FINAL) template
 # arguments, kernel, C entry point; and the device-time groups of the march
@@ -375,6 +398,19 @@ def grad_err(kernel_outs, plain_outs) -> tuple[float, float]:
     return abs_e, rel_e
 
 
+def norm_err(kernel_outs, plain_outs) -> tuple[float, float]:
+    """(max abs error, max over outputs of |kernel - plain| / |plain| in
+    the 2-norm): how phase 22 holds a bf16 instance past the parameter
+    tables' depth, where a bf16 rounding flip in one layer crosses every
+    later one (DEEP_SDF)."""
+    abs_e = rel_e = 0.0
+    for k, p in zip(kernel_outs, plain_outs):
+        d = k.float() - p.float()
+        abs_e = max(abs_e, d.abs().max().item())
+        rel_e = max(rel_e, d.norm().item() / max(p.float().norm().item(), 1e-30))
+    return abs_e, rel_e
+
+
 def tree_to(tree, dev):
     """A detached copy of a nested dict of tensors on ``dev``."""
     if isinstance(tree, dict):
@@ -444,10 +480,13 @@ def core_group(key: str) -> str | None:
     if trunk is not None:
         label = CORE_MODES[(trunk.group(1).replace("_wide", ""), trunk.group(4) or "")][1]
         t, s = ("bfloat16" if "bfloat16" in a else "float32" for a in (trunk.group(2), trunk.group(3)))
-        return wide_trunk_group(label, t, s)
+        return wide_group(label, t, s)
     wide = _WIDE_KERNEL.search(key)
     if wide is not None:
-        return WIDE_MODES.get((wide.group(1), wide.group(2)))
+        t, s = ("bfloat16" if "bfloat16" in a else "float32" for a in (wide.group(2), wide.group(3)))
+        if t == s == "bfloat16":
+            return WIDE_MODES.get((wide.group(1), wide.group(4)))
+        return wide_group(CORE_MODES[(wide.group(1).replace("_wide", ""), wide.group(4))][1], t, s)
     m = _CORE_KERNEL.search(key)
     if m is None or (m.group(1), m.group(4) or "") not in CORE_MODES:
         return None
@@ -661,6 +700,16 @@ def ptxas_summary(text: str) -> list[str]:
         if fn and ("registers" in line or "spill" in line):
             out.append(f"  {fn}: {line.split(':', 1)[-1].strip()}")
     return out
+
+
+def log_build(info: dict, t0: float) -> None:
+    """Log a build: the wall since ``t0``, each source's seconds, its
+    kernels' registers, shared memory and spills."""
+    log(f"[build] {time.perf_counter() - t0:.1f} s wall for {', '.join(info)}")
+    for name, rec in info.items():
+        log(f"[build] csrc/{name}.cu: {rec['seconds']:.1f} s")
+        for line in ptxas_summary(rec["ptxas"]):
+            log(line)
 
 
 def march_chunk(dev) -> dict:
@@ -2474,6 +2523,29 @@ CORE_F32_CALLS = (
 )
 
 
+# Phase 21: the SDF core's wide f32 instances (A, D, E, H and D's and E's
+# stash_all variants above the presets' widths at every dtype pair with an
+# f32 in it), as phase 16 at WIDE_CORE_F32: 512 wide with multi_res 11 (a
+# 69-wide encoding, padded 80), so every width of the wide class's f32 path
+# and its encoding path run; each instance against its plain f32 version
+# at CORE_F32_TOL (TOL where bf16 operands or a bf16 stash enter), beside
+# the wide bf16 instance's and the 64-point f32 instance's device time in
+# the same call and its f32 bound; then both entry points at every
+# (compute_dtype, stash_dtype, stash_us), launches exact.  The plain run
+# runs it as --wide-core-f32 in a process of its own, as phase 20.
+WIDE_CORE_F32 = {"d_hidden": 512, "multi_res": 11}
+# The 64-point bf16 instances' device-time groups -> the wide ones'.
+BF16_WIDE_GROUPS = {
+    "kernel A sdf_core_fwd": WIDE_MODES[("sdf_core_fwd_wide_kernel", "0")],
+    "kernel D sdf_stash_fwd": WIDE_MODES[("sdf_core_fwd_wide_kernel", "1")],
+    "kernel H, forward pass (H1)": WIDE_MODES[("sdf_core_fwd_wide_kernel", "2")],
+    D_ALL_GROUP: WIDE_MODES[("sdf_core_fwd_wide_kernel", "3")],
+    "kernel E sdf_stash_bwd (E1)": WIDE_MODES[("sdf_bwd_chain_wide_kernel", "false, false")],
+    "kernel H chain (H2)": WIDE_MODES[("sdf_bwd_chain_wide_kernel", "true, false")],
+    E1_ALL_GROUP: WIDE_MODES[("sdf_bwd_chain_wide_kernel", "false, true")],
+}
+
+
 def core_f32_group(kernel: str, compute: str, stash: str | None) -> str:
     """The group of an SDF core or trunk instance: the kernel's label, then
     the instance's dtypes (f32 operands and stash, or the mixed pair)."""
@@ -2482,33 +2554,57 @@ def core_f32_group(kernel: str, compute: str, stash: str | None) -> str:
 
 def instance_record(phase: str, out: dict, base_dev: dict, n_pts: int, smi: str, name: str, checks, fn, plain_fn,
                     group, base_fn, base_group, bd, *, base: str = "the bf16 instance's", iters: int = 10,
-                    tries: int = 3) -> None:
-    """Time an instance and log it (phases 16(a), 17(a) and 18(a)): CUDA
-    events around ``fn`` (``iters`` launches) and its plain version,
+                    tries: int = 3, extra=None) -> None:
+    """Time an instance and log it (phases 16(a), 17(a), 18(a) and 21(a)):
+    CUDA events around ``fn`` (``iters`` launches) and its plain version,
     ``group``'s device time (the median of the ``tries`` profiled calls that
     record it) beside ``base``'s device time in this call (``base_fn``'s
     ``base_group``: the bf16 instance's for an f32 or mixed one, the
     256-wide instance's for a wide one; profiled ``tries`` times once a
-    call into ``base_dev``) and the bound ``bd``; checks: (what, (abs err,
-    rel err), tol) against the plain version, each raising past its tol.
-    -> out[name] = (max abs err, ms, plain ms, bound ms, bound by)."""
+    call into ``base_dev``), beside ``extra``'s = (label, fn, group) where
+    given (21(a): the 64-point instance of the same dtypes), and the bound
+    ``bd``; checks: (what, (abs err, rel err), tol) against the plain
+    version, each raising past its tol.  -> out[name] = (max abs err, ms,
+    plain ms, bound ms, bound by)."""
     ms, plain_ms = cuda_ms(fn, iters), cuda_ms(plain_fn, 3, warmup=1)
     dev_ms = kernel_device_ms(fn, group, tries)
     if base_group not in base_dev:
         base_dev[base_group] = kernel_device_ms(base_fn, base_group, tries)
+    also = ""
+    if extra is not None:
+        extra_ms = kernel_device_ms(extra[1], extra[2], tries)
+        also = f", and {extra[0]} {extra_ms:.4f} ms ({dev_ms / extra_ms:.2f}x)"
     out[name] = (max(e[0] for _, e, _ in checks), ms, plain_ms, bd[0], bd[1])
     errs = "; ".join(f"{what} {e[0]:.3e} (rel {e[1]:.3e}, tol {tol})" for what, e, tol in checks)
     log(f"[{phase} {name}] N={n_pts}: max abs err against its plain version: {errs}; {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms; device time {dev_ms:.4f} ms against {base} {base_dev[base_group]:.4f} ms in this "
-        f"call ({dev_ms / base_dev[base_group]:.2f}x); bound {bd[0]:.4f} ms ({bd[1]}), {dev_ms / bd[0]:.2f}x it; on "
-        f"{smi}")
+        f"call ({dev_ms / base_dev[base_group]:.2f}x){also}; bound {bd[0]:.4f} ms ({bd[1]}), {dev_ms / bd[0]:.2f}x "
+        f"it; on {smi}")
     for what, e, tol in checks:
         if not e[1] <= tol:
             raise AssertionError(f"{phase}: {name}'s {what} disagree with its plain version: rel {e[1]:.3e} "
                                  f"(tol {tol})")
 
 
-def core_f32_kernels(smi: str, dev, mc: dict) -> dict:
+def core_f32_case(dev, mc: dict, wide: bool) -> tuple:
+    """(SDF config, its f32 core weights, its weight-norm params, launch
+    counter suffix) of phase 16 (phase 3's nr-hints SDF) or, with ``wide``,
+    of phase 21 (WIDE_CORE_F32, random weights from seed 0)."""
+    import torch
+
+    from nrhints_torch.fields.sdf import sdf_init
+    from nrhints_torch.kernels import core_mlp
+
+    if not wide:
+        return mc["cfg"].model.sdf_network, mc["aw"], mc["renderer_params"]["sdf"], ""
+    scfg = dataclasses.replace(mc["cfg"].model.sdf_network, **WIDE_CORE_F32)
+    if core_mlp.core_class(scfg) is not core_mlp.WIDE:
+        raise AssertionError(f"21: {WIDE_CORE_F32} does not take the wide instances")
+    params = sdf_init(torch.Generator().manual_seed(0), scfg, dev)
+    return scfg, core_mlp.materialize_sdf_weights_full(params, scfg), params, core_mlp.WIDE.suffix
+
+
+def core_f32_kernels(smi: str, dev, mc: dict, wide: bool = False) -> dict:
     """Phase 16(a): at phase 3's 65,536 points and the full nr-hints width,
     A's and H's f32 instances and D's, E's and their stash_all variants'
     instances at each CORE_F32_PAIRS pair against their plain versions; D's
@@ -2516,8 +2612,11 @@ def core_f32_kernels(smi: str, dev, mc: dict) -> dict:
     bit for bit and E's dx is the same without its dW passes; f32 E against
     f32 H.  Each timed by CUDA events beside its plain version and by device
     time (the median of the profiled calls that record it) beside the bf16
-    instance's in this call and its bound.  -> {instance name: (max abs err,
-    ms, plain ms, bound ms, bound by)}."""
+    instance's in this call and its bound.  With ``wide``, phase 21(a): the
+    same for the wide instances at WIDE_CORE_F32 (``core_f32_case``), each
+    beside the wide bf16 instance's device time and the 64-point instance's
+    of the same dtypes at phase 3's weights.  -> {instance name: (max abs
+    err, ms, plain ms, bound ms, bound by)}."""
     import numpy as np
     import torch
 
@@ -2525,13 +2624,19 @@ def core_f32_kernels(smi: str, dev, mc: dict) -> dict:
     from nrhints_torch.kernels import core_mlp, core_stash
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    x, aw, scfg = mc["x"], mc["aw"], mc["cfg"].model.sdf_network
+    phase = "21(a)" if wide else "16(a)"
+    x, nw, ncfg = mc["x"], mc["aw"], mc["cfg"].model.sdf_network
+    scfg, aw, _, sfx = core_f32_case(dev, mc, wide)
     n_pts, n_w, L = x.shape[0], sum(w.numel() for w in aw), scfg.n_layers
     io, dims = _layer_dims(scfg)
     hidden, d_last, d_feat = sum(i * o_ for i, o_ in io), dims[-2], scfg.d_out_feat
-    crng = np.random.default_rng(5)
-    cots = tuple(torch.tensor(crng.normal(size=shape).astype(np.float32), device=dev)
-                 for shape in ((n_pts,), (n_pts, d_feat), (n_pts, 3)))
+
+    def cotangents(d):
+        crng = np.random.default_rng(5)
+        return tuple(torch.tensor(crng.normal(size=shape).astype(np.float32), device=dev)
+                     for shape in ((n_pts,), (n_pts, d), (n_pts, 3)))
+
+    cots, ncots = cotangents(d_feat), cotangents(ncfg.d_out_feat)
     io_bytes = n_pts * 4 * (3 + 1 + d_feat + 3)  # x in; sdf, feat and grad out (the cotangents and dx alike)
     fwd_flops = 2.0 * n_pts * (2 * hidden + d_last * (1 + d_feat))
     bwd_flops = {False: 2.0 * n_pts * (5 * hidden + 2 * d_last * d_feat + 2 * d_last),
@@ -2543,18 +2648,34 @@ def core_f32_kernels(smi: str, dev, mc: dict) -> dict:
     def peak(compute):
         return H100_F32_FLOPS if compute == "float32" else H100_BF16_FLOPS
 
+    def group(label, compute, stash):
+        return (wide_group if wide else core_f32_group)(label, compute, stash)
+
+    def bf16_group(g):
+        """The bf16 instance's group of this class."""
+        return BF16_WIDE_GROUPS.get(g, g) if wide else g
+
+    def narrow(label, fn, groups):
+        """extra: the 64-point instance of the same dtypes (21(a) only)."""
+        return (f"the 64-point {label}", fn, groups) if wide else None
+
     out: dict = {}
-    record = functools.partial(instance_record, "16(a)", out, {}, n_pts, smi)
+    # Phase 21 reads each device time from one profiled call (its process is
+    # fresh), phase 16 the median of three.
+    record = functools.partial(instance_record, phase, out, {}, n_pts, smi, tries=1 if wide else 3,
+                               base="the wide bf16 instance's" if wide else "the bf16 instance's")
 
     # A.
     a32 = core_mlp.sdf_core_fwd(aw, x, scfg, compute_dtype="float32")
     a16 = core_mlp.sdf_core_fwd(aw, x, scfg)
-    record("sdf_core_fwd_f32",
+    record("sdf_core_fwd_f32" + sfx,
            [("outputs", max_err(a32, core_mlp.sdf_core_plain(aw, x, scfg, "float32")), CORE_F32_TOL["out"])],
            lambda: core_mlp.sdf_core_fwd(aw, x, scfg, compute_dtype="float32"),
-           lambda: core_mlp.sdf_core_plain(aw, x, scfg, "float32"), core_f32_group("kernel A", "float32", None),
-           lambda: core_mlp.sdf_core_fwd(aw, x, scfg), "kernel A sdf_core_fwd",
-           bound(fwd_flops, io_bytes + 4 * n_w, H100_F32_FLOPS))
+           lambda: core_mlp.sdf_core_plain(aw, x, scfg, "float32"), group("kernel A", "float32", None),
+           lambda: core_mlp.sdf_core_fwd(aw, x, scfg), bf16_group("kernel A sdf_core_fwd"),
+           bound(fwd_flops, io_bytes + 4 * n_w, H100_F32_FLOPS),
+           extra=narrow("sdf_core_fwd_f32", lambda: core_mlp.sdf_core_fwd(nw, x, ncfg, compute_dtype="float32"),
+                        core_f32_group("kernel A", "float32", None)))
 
     # D, E and their stash_all variants at each pair.
     e_f32 = None
@@ -2563,8 +2684,8 @@ def core_f32_kernels(smi: str, dev, mc: dict) -> dict:
         cols = core_stash.sdf_stash_columns(scfg, us)
         fwd, bwd = ("sdf_stash_all_fwd", "sdf_stash_all_bwd") if us else ("sdf_stash_fwd", "sdf_stash_bwd")
         d_label, e_label = ("kernel D stash_all", "kernel E1 stash_all") if us else ("kernel D", "kernel E1")
-        d16_group = D_ALL_GROUP if us else "kernel D sdf_stash_fwd"
-        e16_group = E1_ALL_GROUP if us else "kernel E sdf_stash_bwd (E1)"
+        d16_group = bf16_group(D_ALL_GROUP if us else "kernel D sdf_stash_fwd")
+        e16_group = bf16_group(E1_ALL_GROUP if us else "kernel E sdf_stash_bwd (E1)")
         d16 = core_stash.sdf_stash_fwd(aw, x, scfg, stash_us=us)
         for compute, stash_dt in CORE_F32_PAIRS:
             kw = dict(stash_us=us, compute_dtype=compute, stash_dtype=stash_dt)
@@ -2574,27 +2695,30 @@ def core_f32_kernels(smi: str, dev, mc: dict) -> dict:
             d_out = core_stash.sdf_stash_fwd(aw, x, scfg, **kw)
             a_same = a32 if compute == "float32" else a16
             if not all(torch.equal(u, v) for u, v in zip(d_out[:3], a_same)):
-                raise AssertionError(f"16(a): {fwd} at {compute}/{stash_dt}: outputs differ from kernel A's")
+                raise AssertionError(f"{phase}: {fwd}{sfx} at {compute}/{stash_dt}: outputs differ from kernel A's")
             plain = core_stash.sdf_core_fwd_hs_plain(aw, x, scfg, compute, stash_dt, return_us=us)
             parts = core_stash.split_stash(d_out[3], cols)
             checks = [("outputs", max_err(d_out[:3], plain[:3]), out_tol),
                       ("stash", max_err(parts, [*plain[3], *plain[4], plain[5]] if us else plain[3]), stash_tol)]
             del plain
-            name = core_mlp.instance_name(fwd, compute, stash_dt)
+            name = core_mlp.instance_name(fwd, compute, stash_dt) + sfx
             record(name, checks, lambda: core_stash.sdf_stash_fwd(aw, x, scfg, **kw),
                    lambda: core_stash.sdf_core_fwd_hs_plain(aw, x, scfg, compute, stash_dt, return_us=us),
-                   core_f32_group(d_label, compute, stash_dt),
+                   group(d_label, compute, stash_dt),
                    lambda: core_stash.sdf_stash_fwd(aw, x, scfg, stash_us=us), d16_group,
-                   bound(fwd_flops, io_bytes + n_pts * width * size(stash_dt) + size(compute) * n_w, peak(compute)))
+                   bound(fwd_flops, io_bytes + n_pts * width * size(stash_dt) + size(compute) * n_w, peak(compute)),
+                   extra=narrow(core_mlp.instance_name(fwd, compute, stash_dt),
+                                lambda: core_stash.sdf_stash_fwd(nw, x, ncfg, **kw),
+                                core_f32_group(d_label, compute, stash_dt)))
 
             e_dws, e_dx = core_stash.sdf_stash_bwd(aw, x, d_out[3], cots, scfg, **kw)
             e2_dws, e2_dx = core_stash.sdf_stash_bwd(aw, x, d_out[3], cots, scfg, **kw)
             none, dx_only = core_stash.sdf_stash_bwd(aw, x, d_out[3], cots, scfg, need_dw=False, **kw)
-            bwd_name = core_mlp.instance_name(bwd, compute, stash_dt)
+            bwd_name = core_mlp.instance_name(bwd, compute, stash_dt) + sfx
             if not (torch.equal(e_dx, e2_dx) and all(torch.equal(u, v) for u, v in zip(e_dws, e2_dws))):
-                raise AssertionError(f"16(a): {bwd_name}'s gradients differ between two runs")
+                raise AssertionError(f"{phase}: {bwd_name}'s gradients differ between two runs")
             if none is not None or not torch.equal(dx_only, e_dx):
-                raise AssertionError(f"16(a): {bwd_name} without its dW passes gives another dx")
+                raise AssertionError(f"{phase}: {bwd_name} without its dW passes gives another dx")
             del e2_dws, e2_dx, dx_only
 
             def e_plain(parts=parts, compute=compute, us=us):
@@ -2609,20 +2733,24 @@ def core_f32_kernels(smi: str, dev, mc: dict) -> dict:
             if (compute, stash_dt, us) == ("float32", "float32", False):
                 e_f32 = (e_dx, e_dws)
             del e_dws, e_dx
+            n_stash = core_stash.sdf_stash_fwd(nw, x, ncfg, **kw)[3] if wide else None
             record(bwd_name, [("gradients", err, grad_tol)],
                    lambda: core_stash.sdf_stash_bwd(aw, x, d_out[3], cots, scfg, **kw),
-                   e_plain, (core_f32_group(e_label, compute, stash_dt), DW_GROUP),
+                   e_plain, (group(e_label, compute, stash_dt), DW_GROUP),
                    lambda: core_stash.sdf_stash_bwd(aw, x, d16[3], cots, scfg, stash_us=us), (e16_group, DW_GROUP),
                    bound(bwd_flops[us], io_bytes + n_pts * width * size(stash_dt) + (size(compute) + 4) * n_w,
-                         peak(compute)))
-            del d_out, parts
+                         peak(compute)),
+                   extra=narrow(core_mlp.instance_name(bwd, compute, stash_dt),
+                                lambda: core_stash.sdf_stash_bwd(nw, x, n_stash, ncots, ncfg, **kw),
+                                (core_f32_group(e_label, compute, stash_dt), DW_GROUP)))
+            del d_out, parts, n_stash
         del d16
 
     # H, and f32 E against f32 H.
     h_dws, h_dx = core_mlp.sdf_core_bwd(aw, x, cots, scfg, compute_dtype="float32")
     h2_dws, h2_dx = core_mlp.sdf_core_bwd(aw, x, cots, scfg, compute_dtype="float32")
     if not (torch.equal(h_dx, h2_dx) and all(torch.equal(u, v) for u, v in zip(h_dws, h2_dws))):
-        raise AssertionError("16(a): sdf_core_bwd_f32's gradients differ between two runs")
+        raise AssertionError(f"{phase}: sdf_core_bwd_f32{sfx}'s gradients differ between two runs")
     del h2_dws, h2_dx
     hp_dws, hp_dx = core_mlp.sdf_core_bwd_plain(aw, x, cots, scfg, "float32")
     err = grad_err([h_dx, *h_dws], [hp_dx, *hp_dws])
@@ -2632,19 +2760,22 @@ def core_f32_kernels(smi: str, dev, mc: dict) -> dict:
     e16 = core_stash.sdf_stash_bwd(aw, x, core_stash.sdf_stash_fwd(aw, x, scfg)[3], cots, scfg)
     he16 = grad_err([e16[1], *e16[0]], [h16[1], *h16[0]])[1]
     del h_dws, h_dx, h16, e16, e_f32
-    record("sdf_core_bwd_f32", [("gradients", err, CORE_F32_TOL["grad"])],
+    h_groups = tuple(group(k, "float32", None) for k in ("kernel H1", "kernel H2")) + (DW_GROUP,)
+    record("sdf_core_bwd_f32" + sfx, [("gradients", err, CORE_F32_TOL["grad"])],
            lambda: core_mlp.sdf_core_bwd(aw, x, cots, scfg, compute_dtype="float32"),
-           lambda: core_mlp.sdf_core_bwd_plain(aw, x, cots, scfg, "float32"),
-           tuple(core_f32_group(k, "float32", None) for k in ("kernel H1", "kernel H2")) + (DW_GROUP,),
+           lambda: core_mlp.sdf_core_bwd_plain(aw, x, cots, scfg, "float32"), h_groups,
            lambda: core_mlp.sdf_core_bwd(aw, x, cots, scfg),
-           ("kernel H, forward pass (H1)", "kernel H chain (H2)", DW_GROUP), bound(bwd_flops[False] + 2.0 * n_pts * hidden, io_bytes + 8 * n_w, H100_F32_FLOPS))
-    log(f"[16(a)] E's f32 instance (f32 stash) against H's f32 instance: {he:.3e} of each gradient's scale; the bf16 "
+           tuple(bf16_group(g) for g in ("kernel H, forward pass (H1)", "kernel H chain (H2)")) + (DW_GROUP,),
+           bound(bwd_flops[False] + 2.0 * n_pts * hidden, io_bytes + 8 * n_w, H100_F32_FLOPS),
+           extra=narrow("sdf_core_bwd_f32", lambda: core_mlp.sdf_core_bwd(nw, x, ncots, ncfg, compute_dtype="float32"),
+                        tuple(core_f32_group(k, "float32", None) for k in ("kernel H1", "kernel H2")) + (DW_GROUP,)))
+    log(f"[{phase}] E's f32 instance (f32 stash) against H's f32 instance: {he:.3e} of each gradient's scale; the bf16 "
         f"instances E against H: {he16:.3e} (E's gates 1 - exp(-100 h) of the stash, H's sigmoid(100 z): equal in "
         f"exact arithmetic, so the f32 pair differs by rounding and the bf16 pair by bf16's)")
     return out
 
 
-def core_f32_phase(smi: str, dev, mc: dict) -> list:
+def core_f32_phase(smi: str, dev, mc: dict, wide: bool = False) -> list:
     """Phase 16, the SDF core at compute_dtype="float32" and
     stash_dtype="float32": (a) every f32 instance at phase 3's shapes
     (``core_f32_kernels``); (b) the entry points a user calls, at the same
@@ -2655,8 +2786,9 @@ def core_f32_phase(smi: str, dev, mc: dict) -> list:
     its operand dtype: the outputs, and the gradients of x and of every
     weight-norm leaf at random cotangents; the launch counts, set to 0
     before (b) and read after, show that every f32 instance ran and no bf16
-    core instance did.  -> the kernels line's entries of the f32
-    instances, their launches (b)'s."""
+    core instance did.  With ``wide``, phase 21: the same for the wide
+    instances at WIDE_CORE_F32 (``core_f32_case``).  -> the kernels line's
+    entries of the f32 instances, their launches (b)'s."""
     import numpy as np
     import torch
 
@@ -2664,10 +2796,12 @@ def core_f32_phase(smi: str, dev, mc: dict) -> list:
     from nrhints_torch.utils import tree_items
 
     t_phase = time.perf_counter()
-    nums = core_f32_kernels(smi, dev, mc)
-    scfg, x = mc["cfg"].model.sdf_network, mc["x"]
+    nums = core_f32_kernels(smi, dev, mc, wide)
+    phase = "21" if wide else "16"
+    scfg, _, sdf_params, sfx = core_f32_case(dev, mc, wide)
+    x = mc["x"]
     n_pts = x.shape[0]
-    leaves = {n: t.detach().clone().requires_grad_(True) for n, t in tree_items(mc["renderer_params"]["sdf"])}
+    leaves = {n: t.detach().clone().requires_grad_(True) for n, t in tree_items(sdf_params)}
     params = {}
     for name, t in leaves.items():
         layer, key = name.strip("/").split("/")
@@ -2706,20 +2840,21 @@ def core_f32_phase(smi: str, dev, mc: dict) -> list:
     torch.cuda.synchronize()
     launches = dict(cuda_lib.launch_counts)
     for label, oe, ge, ot, gt_ in results:
-        log(f"[16(b) {label}] N={n_pts}: outputs {oe:.3e} of max(1, scale) (tol {ot}), gradients of x and the "
+        log(f"[{phase}(b) {label}] N={n_pts}: outputs {oe:.3e} of max(1, scale) (tol {ot}), gradients of x and the "
             f"weight-norm leaves {ge:.3e} of each scale (tol {gt_}) against autograd over sdf_core_plain")
         if not (oe <= ot and ge <= gt_):
-            raise AssertionError(f"16(b): {label} disagrees with autograd: outputs {oe:.3e}, gradients {ge:.3e}")
+            raise AssertionError(f"{phase}(b): {label} disagrees with autograd: outputs {oe:.3e}, gradients {ge:.3e}")
     ran = {k: v for k, v in launches.items() if v}
     want = {"sdf_core_fwd_f32": 2, "sdf_core_bwd_f32": 1, "sdf_stash_fwd_f32_bf16stash": 2,
             "sdf_stash_bwd_f32_bf16stash": 1, "sdf_stash_all_fwd_f32_bf16stash": 1,
             "sdf_stash_all_bwd_f32_bf16stash": 1, "sdf_stash_fwd_f32": 1, "sdf_stash_bwd_f32": 1,
             "sdf_stash_all_fwd_f32": 1, "sdf_stash_all_bwd_f32": 1, "sdf_stash_fwd_f32stash": 1,
             "sdf_stash_bwd_f32stash": 1, "sdf_stash_all_fwd_f32stash": 1, "sdf_stash_all_bwd_f32stash": 1}
-    log(f"[16(b)] launches of the entry points' run: {ran}")
+    want = {k + sfx: v for k, v in want.items()}
+    log(f"[{phase}(b)] launches of the entry points' run: {ran}")
     if ran != want:
-        raise AssertionError(f"16(b): launches {ran}, expected {want}")
-    log(f"[16] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+        raise AssertionError(f"{phase}(b): launches {ran}, expected {want}")
+    log(f"[{phase}] phase {phase} took {time.perf_counter() - t_phase:.1f} s")
     where = {"sdf_core_fwd": ("sdf_core.cu", "core_mlp.py:227"), "sdf_core_bwd": ("sdf_core_bwd.cu", "core_mlp.py:260"),
              "sdf_stash_fwd": ("sdf_core.cu", "core_stash.py:369"), "sdf_stash_all_fwd": ("sdf_core.cu",
                                                                                          "core_stash.py:369"),
@@ -3079,7 +3214,7 @@ WIDE_WHERE = {"sdf_core_fwd_wide": ("sdf_core.cu", "core_mlp.py:227"),
               "sdf_stash_bwd_wide": ("sdf_stash.cu", "core_stash.py:422"),
               "sdf_stash_all_bwd_wide": ("sdf_stash.cu", "core_stash.py:422"),
               "sdf_core_bwd_wide": ("sdf_core_bwd.cu", "core_mlp.py:260"),
-              **{f"{fn}{t}": ("march.cu" if k == "C" else "march_fused.cu", f"march.py:{line}")
+              **{f"{fn}{t}": ("march.cu" if k == "C" else "march_fused_wide.cu", f"march.py:{line}")
                  for t in ("_wide", "_f32_wide") for k, fn, line in (
                      ("C", "shadow_final", 574), ("K", "march_sweep", 507), ("L", "march_rounds", 522),
                      ("M", "importance_march", 488), ("N", "shadow_march", 595))}}
@@ -3228,7 +3363,8 @@ def wide_kernels(smi: str, dev, mc: dict) -> dict:
     return out
 
 
-def wide_march_kernels(smi: str, dev, mc: dict) -> dict:
+def march_class_kernels(smi: str, dev, mc: dict, sdf_kw=None, phase: str = "18(a)",
+                       base: str = "the 256-wide instance's") -> dict:
     """Phase 18(a), the march kernels: C, K, L, M and N's wide instances at
     WIDE_SDF on phase 3's 512 camera and shadow rays (a random 512-wide SDF
     from seed 0), bf16 and f32 march weights, against their plain versions
@@ -3236,18 +3372,22 @@ def wide_march_kernels(smi: str, dev, mc: dict) -> dict:
     M's z by Z_NN_SHARE), with L = B's steps between K's sweeps, M = L(K(.))
     and N = C(M(.)) bit for bit under both merges; each timed by CUDA events
     beside its plain version, and by device time from one profiled call
-    beside the 256-wide instance's on phase 3's SDF in this call and its
-    bound.  -> {instance name: (max abs err, ms, plain ms, bound ms, bound
-    by)}."""
+    beside ``base``, the same kernel's on phase 3's SDF in this call, and its
+    bound.  Phase 22(a) runs the same at ``sdf_kw`` = DEEP_SDF (the instances
+    of that SDF's class).  -> {instance name: (max abs err, ms, plain ms,
+    bound ms, bound by)}."""
     import torch
 
     from nrhints_torch.fields.sdf import _layer_dims, sdf_init
     from nrhints_torch.kernels import core_mlp, march
 
     ncfg = mc["cfg"].model.sdf_network
-    wcfg = dataclasses.replace(ncfg, **WIDE_SDF)
-    if core_mlp.core_class(wcfg, with_feat=False, compute_dtype="float32") is not core_mlp.ROWS_WIDE:
+    sdf_kw = WIDE_SDF if sdf_kw is None else sdf_kw
+    wcfg = dataclasses.replace(ncfg, **sdf_kw)
+    cls = core_mlp.core_class(wcfg, with_feat=False)
+    if sdf_kw is WIDE_SDF and cls is not core_mlp.ROWS_WIDE:
         raise AssertionError(f"18(a): {WIDE_SDF} does not take the march kernels' wide instances")
+    sfx, wide = cls.suffix, " wide" if cls.suffix else ""
     o, d, z0 = mc["o"], mc["d"], mc["z0"]
     sl, sdir, sdist, z0s, inv_s, anneal = (mc[k] for k in ("sl", "sdir", "sdist", "z0s", "inv_s", "anneal"))
     wparams = sdf_init(torch.Generator().manual_seed(0), wcfg, dev)
@@ -3269,10 +3409,13 @@ def wide_march_kernels(smi: str, dev, mc: dict) -> dict:
             "M": bound(2.0 * 512 * 112 * vm, 512 * 4 * (64 + 3 + 3 + 128) + w_bytes, peak),
             "N": bound(2.0 * 512 * (112 * vm + 128 * 2 * vm), 512 * 4 * (64 + 3 + 3 + 1 + 1) + w_bytes, peak),
         }
+        # Past the parameter tables' depth a bf16 instance is held by the
+        # error's norm (norm_err), as in deep_kernels.
+        err_fn = norm_err if dt == "bfloat16" and wcfg.n_layers > core_mlp.MAX_LAYERS else max_err
         k_sdf0 = march.march_sweep(z0, o, d, ww, wcfg)
-        errs = {"K": max_err([k_sdf0], [march.march_sweep_plain(z0, o, d, ww, wcfg)]),
-                "C": max_err([march.shadow_final(sz, sl, sdir, sdist, inv_s, anneal, ww, wcfg)],
-                             [march.shadow_final_plain(sz, sl, sdir, sdist, inv_s, anneal, ww, wcfg)])}
+        errs = {"K": err_fn([k_sdf0], [march.march_sweep_plain(z0, o, d, ww, wcfg)]),
+                "C": err_fn([march.shadow_final(sz, sl, sdir, sdist, inv_s, anneal, ww, wcfg)],
+                            [march.shadow_final_plain(sz, sl, sdir, sdist, inv_s, anneal, ww, wcfg)])}
         checks = {}
         for merge in ("bitonic", "rank"):
             l_z = march.march_rounds(z0, k_sdf0, o, d, ww, wcfg, merge=merge)
@@ -3282,8 +3425,8 @@ def wide_march_kernels(smi: str, dev, mc: dict) -> dict:
             n_tau = march.shadow_march(z0s, sl, sdir, sdist, inv_s, anneal, ww, wcfg, merge=merge)
             n_is_cm = torch.equal(n_tau, march.shadow_final(march.importance_march(z0s, sl, sdir, ww, wcfg, merge=merge),
                                                             sl, sdir, sdist, inv_s, anneal, ww, wcfg))
-            n_err = max_err([n_tau], [march.shadow_march_plain(z0s, sl, sdir, sdist, inv_s, anneal, ww, wcfg,
-                                                               merge=merge)])
+            n_err = err_fn([n_tau], [march.shadow_march_plain(z0s, sl, sdir, sdist, inv_s, anneal, ww, wcfg,
+                                                              merge=merge)])
             z_l = z_err(l_z, march.march_rounds_plain(z0, k_sdf0, o, d, ww, wcfg, merge=merge), z0)
             z_m = z_err(m_z, march.importance_march_plain(z0, o, d, ww, wcfg, merge=merge), z0)
             for name, e in (("N", n_err), ("L", (z_l[0], 0.0)), ("M", (z_m[0], 0.0))):
@@ -3304,31 +3447,32 @@ def wide_march_kernels(smi: str, dev, mc: dict) -> dict:
         for name, (kern, plain, fn) in calls.items():
             ms, plain_ms = cuda_ms(lambda: kern(ww, wcfg), 5), cuda_ms(plain, 2, warmup=1)
             f32 = " f32" if dt == "float32" else ""
-            dev_w = kernel_device_ms(lambda: kern(ww, wcfg), f"kernel {name}{f32} wide {fn}{label}_wide", tries=1)
+            dev_w = kernel_device_ms(lambda: kern(ww, wcfg), f"kernel {name}{f32}{wide} {fn}{label}{sfx}", tries=1)
             narrow = (lambda: kern(nw, ncfg, mc["sz"])) if name == "C" else (lambda: kern(nw, ncfg))
             dev_n = kernel_device_ms(narrow, f"kernel {name}{f32} {fn}{label}", tries=1)
             bd, by = bounds[name]
-            inst = f"{fn}{label}_wide"
+            inst = f"{fn}{label}{sfx}"
             out[inst] = (errs[name][0], ms, plain_ms, bd, by)
-            log(f"[18(a) kernel {name}] {inst}: B=512 at d_hidden {WIDE_SDF['d_hidden']}, max abs err against its "
+            log(f"[{phase} kernel {name}] {inst}: B=512 at {sdf_kw}, max abs err against its "
                 f"plain version {errs[name][0]:.3e} (rel {errs[name][1]:.3e}); {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-                f"device time {dev_w:.4f} ms against the 256-wide instance's {dev_n:.4f} ms in this call "
+                f"device time {dev_w:.4f} ms against {base} {dev_n:.4f} ms in this call "
                 f"({dev_w / dev_n:.2f}x); bound {bd:.4f} ms ({by}, at {peak / 1e12:.0f} TFLOP/s), {dev_w / bd:.2f}x "
                 f"it; on {smi}")
         for merge, (l_is_bk, m_is_lk, n_is_cm, z_l, z_m) in checks.items():
-            log(f"[18(a) {dt} {merge}] L's z: {z_l[2]:.4f} of the samples within {Z_TOL} of a plain sample, slot by "
+            log(f"[{phase} {dt} {merge}] L's z: {z_l[2]:.4f} of the samples within {Z_TOL} of a plain sample, slot by "
                 f"slot {z_l[1]:.4f}; M's {z_m[2]:.4f} and {z_m[1]:.4f} (tol {Z_NN_SHARE}); L = B's steps between K's "
                 f"sweeps bit for bit: {l_is_bk}; M = L(K(.)): {m_is_lk}; N = C(M(.)): {n_is_cm}")
             if not (z_l[3] and z_m[3] and z_l[2] >= Z_NN_SHARE and z_m[2] >= Z_NN_SHARE):
-                raise AssertionError(f"18(a) {dt} {merge}: L's or M's z disagree with the plain march: "
+                raise AssertionError(f"{phase} {dt} {merge}: L's or M's z disagree with the plain march: "
                                      f"{z_l[2]:.4f}, {z_m[2]:.4f}")
             if not (l_is_bk and m_is_lk and n_is_cm):
-                raise AssertionError(f"18(a) {dt} {merge}: an identity fails: L = B/K {l_is_bk}, M = L(K) {m_is_lk}, "
+                raise AssertionError(f"{phase} {dt} {merge}: an identity fails: L = B/K {l_is_bk}, M = L(K) {m_is_lk}, "
                                      f"N = C(M) {n_is_cm}")
-        log(f"[18(a) {dt}] K's sdf0 {errs['K'][1]:.3e}, C's tau {errs['C'][1]:.3e}, N's {errs['N'][1]:.3e} of "
-            f"max(1, scale) (tol {tol_sdf0}, {tol_tau})")
+        measure = "of the plain output's norm" if err_fn is norm_err else "of max(1, scale)"
+        log(f"[{phase} {dt}] K's sdf0 {errs['K'][1]:.3e}, C's tau {errs['C'][1]:.3e}, N's {errs['N'][1]:.3e} "
+            f"{measure} (tol {tol_sdf0}, {tol_tau})")
         if not (errs["K"][1] <= tol_sdf0 and errs["C"][1] <= tol_tau and errs["N"][1] <= tol_tau):
-            raise AssertionError(f"18(a) {dt}: a wide march instance disagrees with its plain version: {errs}")
+            raise AssertionError(f"{phase} {dt}: a march instance disagrees with its plain version: {errs}")
     torch.cuda.empty_cache()
     return out
 
@@ -3376,11 +3520,11 @@ def wide_one_step(label: str, smi: str, dev, cfg, td: dict, batch, per_step: dic
     return launches
 
 
-def wide_view(label: str, smi: str, mc: dict, vcfg, params: dict, per_chunk: dict) -> dict:
+def wide_view(label: str, smi: str, mc: dict, vcfg, params: dict, per_chunk: dict, cpu_check: bool = True) -> dict:
     """A 128x128 view of ``vcfg`` through its graph (18(c)): exact launches
     (``per_chunk`` a 512-ray chunk), finite images, one profiled replay's
-    device busy split, and 64 pixels against the CPU.  -> the first call's
-    launches."""
+    device busy split, and (``cpu_check``) 64 pixels against the CPU.  ->
+    the first call's launches."""
     import numpy as np
     import torch
 
@@ -3408,16 +3552,17 @@ def wide_view(label: str, smi: str, mc: dict, vcfg, params: dict, per_chunk: dic
     log(f"[{label}] {H}x{W}: {secs:.4f} s through the graph; one profiled replay: device busy {busy:.1f} ms, idle "
         f"share {1 - busy / (secs * 1e3):.3f} of the unprofiled view; by group (ms) "
         + ", ".join(f"{g} {ms:.2f}" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
-    rows = torch.arange(36, 100, 8)
-    ph, pw = torch.meshgrid(rows, rows, indexing="ij")
-    sub = PixelBundle(h_indices=ph.reshape(1, -1).float(), w_indices=pw.reshape(1, -1).float(),
-                      poses=pose.expand(1, 64, 4, 4), pls=pl.expand(1, 64, 3))
-    cpu_img = Evaluator(vcfg, camera, {}, device="cpu").render_image(params, sub)
-    for k, tol in CPU_TOL.items():
-        e = float(np.abs(img[k][ph.numpy(), pw.numpy()].reshape(1, 64, -1) - cpu_img[k]).max())
-        log(f"[{label}] CPU plain vs card, 64 pixels, {k}: max abs err {e:.3e} (tol {tol})")
-        if not e <= tol:
-            raise AssertionError(f"{label}: CPU and card renders disagree on {k}: {e:.3e}")
+    if cpu_check:
+        rows = torch.arange(36, 100, 8)
+        ph, pw = torch.meshgrid(rows, rows, indexing="ij")
+        sub = PixelBundle(h_indices=ph.reshape(1, -1).float(), w_indices=pw.reshape(1, -1).float(),
+                          poses=pose.expand(1, 64, 4, 4), pls=pl.expand(1, 64, 3))
+        cpu_img = Evaluator(vcfg, camera, {}, device="cpu").render_image(params, sub)
+        for k, tol in CPU_TOL.items():
+            e = float(np.abs(img[k][ph.numpy(), pw.numpy()].reshape(1, 64, -1) - cpu_img[k]).max())
+            log(f"[{label}] CPU plain vs card, 64 pixels, {k}: max abs err {e:.3e} (tol {tol})")
+            if not e <= tol:
+                raise AssertionError(f"{label}: CPU and card renders disagree on {k}: {e:.3e}")
     del ev, img
     gc.collect()
     torch.cuda.empty_cache()
@@ -3509,7 +3654,7 @@ def wide_sdf_phase(smi: str, dev, mc: dict, tmp: Path) -> list:
 
     t_phase = time.perf_counter()
     nums = wide_kernels(smi, dev, mc)
-    nums.update(wide_march_kernels(smi, dev, mc))
+    nums.update(march_class_kernels(smi, dev, mc))
     t_a = time.perf_counter() - t_phase
 
     # (b) The train path.
@@ -3615,8 +3760,9 @@ WIDE_TRUNK_CALL_LAUNCHES = {"mlp_fwd_f32_wide": 1, "mlp_bwd_f32_wide": 1, "mlp_s
                             "mlp_stash_bwd_f32stash_wide": 1}
 
 
-def wide_trunk_group(label: str, compute: str, stash: str | None) -> str:
-    """The device-time group of a wide trunk instance (phase 19)."""
+def wide_group(label: str, compute: str, stash: str | None) -> str:
+    """The device-time group of a wide trunk instance (phase 19) or of a
+    wide f32 or mixed SDF core instance (phase 21)."""
     return f"{label} wide {compute}/{stash or compute}"
 
 
@@ -3702,7 +3848,7 @@ def wide_trunk_kernels(smi: str, dev, mc: dict) -> dict:
         name = core_mlp.instance_name("mlp_stash_fwd", compute, stash_dt)
         record(name + "_wide", checks, lambda kw=kw: core_stash.mlp_stash_fwd(tw, xt, n_lay, **kw),
                lambda c=compute, s_=stash_dt: core_stash.mlp_relu_fwd_zs_plain(tw, xt, n_lay, c, s_),
-               wide_trunk_group("kernel F", compute, stash_dt), lambda kw=kw: core_stash.mlp_stash_fwd(nw, nx, n_lay, **kw),
+               wide_group("kernel F", compute, stash_dt), lambda kw=kw: core_stash.mlp_stash_fwd(nw, nx, n_lay, **kw),
                narrow_group("kernel F", "kernel F mlp_stash_fwd", compute, stash_dt),
                bound(2.0 * n_pts * macs, io_bytes + n_pts * zt * size(stash_dt) + size(compute) * n_tw, peak(compute)))
 
@@ -3721,7 +3867,7 @@ def wide_trunk_kernels(smi: str, dev, mc: dict) -> dict:
         n_zs = core_stash.mlp_stash_fwd(nw, nx, n_lay, **kw)[1]
         record(core_mlp.instance_name("mlp_stash_bwd", compute, stash_dt) + "_wide", [("gradients", err, grad_tol)],
                lambda zs=zs, kw=kw: core_stash.mlp_stash_bwd(tw, xt, zs, gt, n_lay, **kw), g_plain,
-               (wide_trunk_group("trunk chain", compute, stash_dt), DW_GROUP),
+               (wide_group("trunk chain", compute, stash_dt), DW_GROUP),
                lambda nz=n_zs, kw=kw: core_stash.mlp_stash_bwd(nw, nx, nz, ng, n_lay, **kw),
                (narrow_group("trunk chain", TRUNK_CHAIN_GROUP, compute, stash_dt), DW_GROUP),
                bound(4.0 * n_pts * macs, 2 * io_bytes + n_pts * zt * size(stash_dt) + (size(compute) + 4) * n_tw,
@@ -3749,7 +3895,7 @@ def wide_trunk_kernels(smi: str, dev, mc: dict) -> dict:
         record(f"mlp_fwd{sfx}_wide", [("output", max_err([i_out], [core_mlp.mlp_relu_plain(tw, xt, n_lay, compute)]),
                                        out_tol)],
                lambda c=compute: core_mlp.mlp_fwd(tw, xt, n_lay, compute_dtype=c),
-               lambda c=compute: core_mlp.mlp_relu_plain(tw, xt, n_lay, c), wide_trunk_group("kernel I", compute, None),
+               lambda c=compute: core_mlp.mlp_relu_plain(tw, xt, n_lay, c), wide_group("kernel I", compute, None),
                lambda c=compute: core_mlp.mlp_fwd(nw, nx, n_lay, compute_dtype=c),
                narrow_group("kernel I", "kernel I mlp_fwd", compute, None),
                bound(2.0 * n_pts * macs, io_bytes + size(compute) * n_tw, peak(compute)))
@@ -3780,7 +3926,7 @@ def wide_trunk_kernels(smi: str, dev, mc: dict) -> dict:
         record(f"mlp_bwd{sfx}_wide", [("gradients at F's z_i", err_z, grad_tol)],
                lambda c=compute: core_mlp.mlp_bwd(tw, xt, gt, n_lay, compute_dtype=c),
                lambda c=compute: core_mlp.mlp_relu_bwd_plain(tw, xt, gt, n_lay, c),
-               (wide_trunk_group("kernel J1", compute, None), wide_trunk_group("trunk chain", compute, None), DW_GROUP),
+               (wide_group("kernel J1", compute, None), wide_group("trunk chain", compute, None), DW_GROUP),
                lambda c=compute: core_mlp.mlp_bwd(nw, nx, ng, n_lay, compute_dtype=c),
                (narrow_group("kernel J1", "kernel J, recompute pass (J1)", compute, None),
                 narrow_group("trunk chain", TRUNK_CHAIN_GROUP, compute, None), DW_GROUP),
@@ -4130,8 +4276,7 @@ def march_geometry_phase(smi: str, dev, mc: dict) -> list:
     classes = {}
     for label, dt, wide in GEOM_CLASSES:
         cfg, params = (wcfg, wparams) if wide else (ncfg, nparams)
-        suffix = ("_f32" if dt == "float32" else "") + core_mlp.core_class(cfg, with_feat=False,
-                                                                          compute_dtype="float32").suffix
+        suffix = ("_f32" if dt == "float32" else "") + core_mlp.core_class(cfg, with_feat=False).suffix
         classes[label] = (march.march_weights(params, cfg, dt), cfg, params, dt, suffix)
     nums = march_geometry_kernels(smi, dev, mc, classes)
     t_a = time.perf_counter() - t_phase
@@ -4225,24 +4370,303 @@ def march_geometry_phase(smi: str, dev, mc: dict) -> list:
     return entries
 
 
-def march_geometry_subprocess() -> list:
-    """Phase 20 in a process of its own (``--march-geometry``, the kernels
-    already built), its lines relayed: late in the plain run, after some
-    thousand profiled calls in one process, the profiler kept no record of
-    whole launches or halved them (two runs of this phase inside it), where
-    the same phase in a fresh process reads every kernel.  -> its kernels
-    line's entries.  Raises if it fails."""
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--march-geometry"], capture_output=True,
-                          text=True, timeout=900)
+def phase_subprocess(flags: list, prefixes: tuple, timeout: int = 900) -> list:
+    """Phases in a process of their own (``flags``, the kernels already
+    built), their lines that begin with one of ``prefixes`` relayed: late in
+    the plain run, after some thousand profiled calls in one process, the
+    profiler kept no record of whole launches or halved them (two runs of
+    phase 20 inside it), where the same phase in a fresh process reads every
+    kernel.  -> their kernels line's entries.  Raises if it fails."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), *flags], capture_output=True, text=True,
+                          timeout=timeout)
     entries = None
     for line in proc.stdout.splitlines():
         if line.startswith('{"kernels": '):
             entries = json.loads(line)["kernels"]
-        elif line.startswith("[20"):
+        elif line.startswith(prefixes):
             log(line)
     if proc.returncode != 0 or entries is None:
-        raise AssertionError(f"phase 20 failed (rc {proc.returncode}): {proc.stderr[-4000:]}")
+        raise AssertionError(f"{' '.join(flags)} failed (rc {proc.returncode}): {proc.stderr[-4000:]}")
     return entries
+
+
+# Phase 22: networks deeper than the kernels' parameter tables (16 layers):
+# every MLP kernel then reads its per-layer tables from the meta vector's
+# copy on the card, and the dW passes run in groups of kMaxJobs products.
+# The model is nr-hints-cam-opt at the presets' widths with DEEP_SDF (20
+# SDF layers, the skip at 4) and DEEP_REFL (a 20-layer reflectance trunk:
+# 361 -> 20 x 256 -> 3).  (a) at phase 3's shapes, A, D, E, H and D's and
+# E's stash_all variants at bf16 and at f32 operands and stash, F, G, I and
+# J at bf16 (deep_kernels), and C, K, L, M and N at bf16 and f32 march
+# weights (march_class_kernels at DEEP_SDF), each against its plain version
+# at phase 3's tolerances (CORE_F32_TOL and F32_TOL at f32) with the
+# identities (D = A, the variant = D, I = F, J = G at F's stash, E, G, H
+# and J repeating, L = B/K, M = L(K), N = C(M), bit for bit), each by device
+# time beside the 8-layer instance's in this call and its bound.  (b) the
+# whole model: a K = DEEP_K graph of stash steps against its eager steps, a
+# profiled recompute, stash_all and split-route step, and 128x128 views
+# through their graphs on the shipping route and the monolith, each with
+# exact launches, s/step or s/view and the device idle share.
+DEEP_SDF = {"n_layers": 20, "skip_in": (4,)}
+DEEP_REFL = {"n_layers": 20}
+DEEP_K = 16
+DEEP_STEP = dict(sdf_stash_fwd=1, sdf_stash_bwd=1, mlp_stash_fwd=1, mlp_stash_bwd=1, round_machinery=8,
+                 shadow_final=1)
+DEEP_WHERE = {"sdf_core_fwd": ("sdf_core.cu", "core_mlp.py:227"), "sdf_stash_fwd": ("sdf_core.cu", "core_stash.py:369"),
+              "sdf_stash_all_fwd": ("sdf_core.cu", "core_stash.py:369"),
+              "sdf_stash_bwd": ("sdf_stash.cu", "core_stash.py:422"),
+              "sdf_stash_all_bwd": ("sdf_stash.cu", "core_stash.py:422"),
+              "sdf_core_bwd": ("sdf_core_bwd.cu", "core_mlp.py:260"),
+              "mlp_stash_fwd": ("mlp_stash.cu", "core_stash.py:588"),
+              "mlp_stash_bwd": ("mlp_stash.cu", "core_stash.py:622"), "mlp_fwd": ("mlp_stash.cu", "core_mlp.py:397"),
+              "mlp_bwd": ("mlp_stash.cu", "core_mlp.py:420"), "round_machinery": ("march.cu", "march.py:392"),
+              "shadow_final": ("march.cu", "march.py:574"), "march_sweep": ("march_fused.cu", "march.py:507"),
+              "march_rounds": ("march_fused.cu", "march.py:522"),
+              "importance_march": ("march_fused.cu", "march.py:488"),
+              "shadow_march": ("march_fused.cu", "march.py:595")}
+
+
+def deep_model_cfg(cfg, **renderer_kw):
+    """``cfg`` with DEEP_SDF's SDF and DEEP_REFL's reflectance trunk, and
+    ``renderer_kw``'s renderer settings."""
+    rn = dataclasses.replace(cfg.model.reflectance_network, **DEEP_REFL)
+    return with_renderer(with_model(cfg, sdf=DEEP_SDF, reflectance_network=rn), **renderer_kw)
+
+
+def deep_kernels(smi: str, dev, mc: dict) -> dict:
+    """Phase 22(a), the SDF core and the trunk at depth 20 (see above).  ->
+    {instance name: (max abs err, ms, plain ms, bound ms, bound by)} of the
+    bf16 instances (the f32 ones are logged)."""
+    import numpy as np
+    import torch
+
+    from nrhints_torch.fields.mlp import torch_default_linear_init
+    from nrhints_torch.fields.sdf import _layer_dims, sdf_init
+    from nrhints_torch.kernels import core_mlp, core_stash
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, aw, ncfg = mc["x"], mc["aw"], mc["cfg"].model.sdf_network
+    scfg = dataclasses.replace(ncfg, **DEEP_SDF)
+    if scfg.d_out_feat != ncfg.d_out_feat or core_mlp.core_class(scfg) is not core_mlp.NARROW or \
+            scfg.n_layers <= core_mlp.MAX_LAYERS:
+        raise AssertionError(f"22(a): {DEEP_SDF} is not a 64-point SDF deeper than the parameter tables")
+    w = core_mlp.materialize_sdf_weights_full(sdf_init(torch.Generator().manual_seed(0), scfg, dev), scfg)
+    n_pts, n_w, L = x.shape[0], sum(t.numel() for t in w), scfg.n_layers
+    io, dims = _layer_dims(scfg)
+    hidden, d_last, d_feat = sum(i * o_ for i, o_ in io), dims[-2], scfg.d_out_feat
+    crng = np.random.default_rng(5)
+    cots = tuple(torch.tensor(crng.normal(size=sh).astype(np.float32), device=dev)
+                 for sh in ((n_pts,), (n_pts, d_feat), (n_pts, 3)))
+    io_bytes = n_pts * 4 * (3 + 1 + d_feat + 3)
+    fwd_flops = 2.0 * n_pts * (2 * hidden + d_last * (1 + d_feat))
+    bwd_flops = {us: 2.0 * n_pts * ((4 if us else 5) * hidden + 2 * d_last * d_feat + 2 * d_last)
+                 for us in (False, True)}
+    out, logged, base_dev = {}, {}, {}
+
+    def record(name, checks, fn, plain_fn, group, base_fn, bd):
+        instance_record("22(a)", out if "_f32" not in name else logged, base_dev, n_pts, smi, name, checks, fn,
+                        plain_fn, group, base_fn, group, bd, base="the 8-layer instance's", iters=5, tries=1)
+
+    for compute in ("bfloat16", "float32"):
+        f32 = compute == "float32"
+        kw = dict(compute_dtype=compute)
+        size, peak = (4, H100_F32_FLOPS) if f32 else (2, H100_BF16_FLOPS)
+        out_tol = CORE_F32_TOL["out"] if f32 else TOL["sdf_core_fwd"]
+        grad_tol = CORE_F32_TOL["grad"] if f32 else TOL["sdf_stash_bwd"]
+        # f32: exact dots on both sides, entry by entry; bf16: by the norm.
+        out_err, g_err = (max_err, grad_err) if f32 else (norm_err, norm_err)
+
+        def grp(label, bf16_group):
+            return core_f32_group(label, compute, None) if f32 else bf16_group
+
+        a = core_mlp.sdf_core_fwd(w, x, scfg, **kw)
+        if not all(torch.equal(u, v) for u, v in zip(a, core_mlp.sdf_core_fwd(w, x, scfg, **kw))):
+            raise AssertionError(f"22(a): kernel A at {compute} differs between two runs")
+        record(core_mlp.instance_name("sdf_core_fwd", compute),
+               [("outputs", out_err(a, core_mlp.sdf_core_plain(w, x, scfg, compute)), out_tol)],
+               lambda kw=kw: core_mlp.sdf_core_fwd(w, x, scfg, **kw),
+               lambda c=compute: core_mlp.sdf_core_plain(w, x, scfg, c), grp("kernel A", "kernel A sdf_core_fwd"),
+               lambda kw=kw: core_mlp.sdf_core_fwd(aw, x, ncfg, **kw), bound(fwd_flops, io_bytes + size * n_w, peak))
+        d_h = None
+        for us in (False, True):
+            fn_d, fn_e = ("sdf_stash_all_fwd", "sdf_stash_all_bwd") if us else ("sdf_stash_fwd", "sdf_stash_bwd")
+            skw = dict(kw, stash_dtype=compute, stash_us=us)
+            width = core_stash.sdf_stash_width(scfg, us)
+            d = core_stash.sdf_stash_fwd(w, x, scfg, **skw)
+            if not all(torch.equal(u, v) for u, v in zip(d[:3], a)):
+                raise AssertionError(f"22(a): {fn_d} at {compute}: outputs differ from kernel A's")
+            if us and not torch.equal(d[3][:, : core_stash.sdf_stash_width(scfg)], d_h):
+                raise AssertionError(f"22(a): {fn_d} at {compute}: the h_i differ from kernel D's")
+            d_h = d[3]
+            plain = core_stash.sdf_core_fwd_hs_plain(w, x, scfg, compute, compute, return_us=us)
+            parts = core_stash.split_stash(d[3], core_stash.sdf_stash_columns(scfg, us))
+            checks = [("outputs", out_err(d[:3], plain[:3]), out_tol),
+                      ("stash", out_err(parts, [*plain[3], *plain[4], plain[5]] if us else plain[3]), out_tol)]
+            del plain
+            d_label, e_label = ("kernel D stash_all", "kernel E1 stash_all") if us else ("kernel D", "kernel E1")
+            record(core_mlp.instance_name(fn_d, compute, compute), checks,
+                   lambda skw=skw: core_stash.sdf_stash_fwd(w, x, scfg, **skw),
+                   lambda c=compute, us=us: core_stash.sdf_core_fwd_hs_plain(w, x, scfg, c, c, return_us=us),
+                   grp(d_label, D_ALL_GROUP if us else "kernel D sdf_stash_fwd"),
+                   lambda skw=skw: core_stash.sdf_stash_fwd(aw, x, ncfg, **skw),
+                   bound(fwd_flops, io_bytes + size * (n_pts * width + n_w), peak))
+            e_dws, e_dx = core_stash.sdf_stash_bwd(w, x, d[3], cots, scfg, **skw)
+            e2_dws, e2_dx = core_stash.sdf_stash_bwd(w, x, d[3], cots, scfg, **skw)
+            if not (torch.equal(e_dx, e2_dx) and all(torch.equal(u, v) for u, v in zip(e_dws, e2_dws))):
+                raise AssertionError(f"22(a): {fn_e} at {compute}: the gradients differ between two runs")
+            del e2_dws, e2_dx
+
+            def e_plain(parts=parts, us=us, c=compute):
+                if us:
+                    return core_stash.sdf_core_bwd_stash_all_plain(w, x, parts[:L], parts[L : 2 * L], parts[2 * L],
+                                                                   cots, scfg, c)
+                return core_stash.sdf_core_bwd_stash_plain(w, x, parts, cots, scfg, c)
+
+            p_dws, p_dx = e_plain()
+            err = g_err([e_dx, *e_dws], [p_dx, *p_dws])
+            del p_dws, p_dx, e_dws, e_dx
+            n_stash = core_stash.sdf_stash_fwd(aw, x, ncfg, **skw)[3]
+            record(core_mlp.instance_name(fn_e, compute, compute), [("gradients", err, grad_tol)],
+                   lambda skw=skw, st=d[3]: core_stash.sdf_stash_bwd(w, x, st, cots, scfg, **skw), e_plain,
+                   (grp(e_label, E1_ALL_GROUP if us else "kernel E sdf_stash_bwd (E1)"), DW_GROUP),
+                   lambda skw=skw, st=n_stash: core_stash.sdf_stash_bwd(aw, x, st, cots, ncfg, **skw),
+                   bound(bwd_flops[us], io_bytes + size * n_pts * width + (size + 4) * n_w, peak))
+            del d, parts
+        h_dws, h_dx = core_mlp.sdf_core_bwd(w, x, cots, scfg, **kw)
+        h2_dws, h2_dx = core_mlp.sdf_core_bwd(w, x, cots, scfg, **kw)
+        if not (torch.equal(h_dx, h2_dx) and all(torch.equal(u, v) for u, v in zip(h_dws, h2_dws))):
+            raise AssertionError(f"22(a): kernel H at {compute}: the gradients differ between two runs")
+        hp_dws, hp_dx = core_mlp.sdf_core_bwd_plain(w, x, cots, scfg, compute)
+        err = g_err([h_dx, *h_dws], [hp_dx, *hp_dws])
+        del h_dws, h_dx, h2_dws, h2_dx, hp_dws, hp_dx, d_h
+        h_groups = ((core_f32_group("kernel H1", compute, None), core_f32_group("kernel H2", compute, None)) if f32
+                    else ("kernel H, forward pass (H1)", "kernel H chain (H2)"))
+        record(core_mlp.instance_name("sdf_core_bwd", compute), [("gradients", err, TOL["sdf_core_bwd"] if not f32
+                                                                   else CORE_F32_TOL["grad"])],
+               lambda kw=kw: core_mlp.sdf_core_bwd(w, x, cots, scfg, **kw),
+               lambda c=compute: core_mlp.sdf_core_bwd_plain(w, x, cots, scfg, c), (*h_groups, DW_GROUP),
+               lambda kw=kw: core_mlp.sdf_core_bwd(aw, x, cots, ncfg, **kw),
+               bound(bwd_flops[False] + 2.0 * n_pts * hidden, io_bytes + (size + 4) * n_w, peak))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # The trunk, 361 -> 20 x 256 -> 3, against the presets' 361 -> 4 x 256 -> 3.
+    rn = mc["cfg"].model.reflectance_network
+    d_in = 361
+    trunks = {}
+    for n_lay in (DEEP_REFL["n_layers"], rn.n_layers):
+        tdims = (d_in,) + (rn.d_hidden,) * n_lay + (3,)
+        gen = torch.Generator().manual_seed(1)
+        tw = []
+        for i in range(len(tdims) - 1):
+            tw += list(torch_default_linear_init(gen, tdims[i], tdims[i + 1], dev))
+        trunks[n_lay] = (tw, tdims)
+    tw, tdims = trunks[DEEP_REFL["n_layers"]]
+    bw, _ = trunks[rn.n_layers]
+    n_lay, b_lay = DEEP_REFL["n_layers"], rn.n_layers
+    trng = np.random.default_rng(6)
+    xt = torch.tensor(trng.normal(size=(n_pts, d_in)).astype(np.float32), device=dev)
+    gt = torch.tensor(trng.normal(size=(n_pts, 3)).astype(np.float32), device=dev)
+    macs = sum(a_ * b_ for a_, b_ in zip(tdims[:-1], tdims[1:]))
+    zt = rn.d_hidden * n_lay
+    t_bytes = n_pts * 4 * (d_in + 3)
+    f_out, zs = core_stash.mlp_stash_fwd(tw, xt, n_lay)
+    p_out, p_zs = core_stash.mlp_relu_fwd_zs_plain(tw, xt, n_lay, "bfloat16", "bfloat16")
+    cols = core_stash.mlp_stash_columns(core_mlp.pack_mlp(tw, n_lay))
+    record("mlp_stash_fwd", [("output", norm_err([f_out], [p_out]), TOL["mlp_stash_fwd"]),
+                             ("stash", norm_err(core_stash.split_stash(zs, cols), p_zs), TOL["mlp_stash_fwd"])],
+           lambda: core_stash.mlp_stash_fwd(tw, xt, n_lay),
+           lambda: core_stash.mlp_relu_fwd_zs_plain(tw, xt, n_lay, "bfloat16", "bfloat16"), "kernel F mlp_stash_fwd",
+           lambda: core_stash.mlp_stash_fwd(bw, xt, b_lay), bound(2.0 * n_pts * macs, t_bytes + 2 * n_pts * zt,
+                                                                  H100_BF16_FLOPS))
+    i_out = core_mlp.mlp_fwd(tw, xt, n_lay)
+    if not torch.equal(i_out, f_out):
+        raise AssertionError("22(a): kernel I's output differs from kernel F's")
+    record("mlp_fwd", [("output", norm_err([i_out], [p_out]), TOL["mlp_fwd"])],
+           lambda: core_mlp.mlp_fwd(tw, xt, n_lay), lambda: core_mlp.mlp_relu_plain(tw, xt, n_lay, "bfloat16"),
+           "kernel I mlp_fwd", lambda: core_mlp.mlp_fwd(bw, xt, b_lay),
+           bound(2.0 * n_pts * macs, t_bytes, H100_BF16_FLOPS))
+    g_dws, g_dx = core_stash.mlp_stash_bwd(tw, xt, zs, gt, n_lay)
+    g2_dws, g2_dx = core_stash.mlp_stash_bwd(tw, xt, zs, gt, n_lay)
+    if not (torch.equal(g_dx, g2_dx) and all(torch.equal(u, v) for u, v in zip(g_dws, g2_dws))):
+        raise AssertionError("22(a): kernel G's gradients differ between two runs")
+    pg_dws, pg_dx = core_stash.mlp_relu_bwd_stash_plain(tw, xt, core_stash.split_stash(zs, cols), gt, n_lay,
+                                                        "bfloat16")
+    b_zs = core_stash.mlp_stash_fwd(bw, xt, b_lay)[1]
+    record("mlp_stash_bwd", [("gradients", norm_err([g_dx, *g_dws], [pg_dx, *pg_dws]), TOL["mlp_stash_bwd"])],
+           lambda: core_stash.mlp_stash_bwd(tw, xt, zs, gt, n_lay),
+           lambda: core_stash.mlp_relu_bwd_stash_plain(tw, xt, core_stash.split_stash(zs, cols), gt, n_lay,
+                                                       "bfloat16"), (TRUNK_CHAIN_GROUP, DW_GROUP),
+           lambda: core_stash.mlp_stash_bwd(bw, xt, b_zs, gt, b_lay),
+           bound(4.0 * n_pts * macs, t_bytes + 2 * n_pts * zt + 4 * n_pts * d_in, H100_BF16_FLOPS))
+    j_dws, j_dx = core_mlp.mlp_bwd(tw, xt, gt, n_lay)
+    if not (torch.equal(j_dx, g_dx) and all(torch.equal(u, v) for u, v in zip(j_dws, g_dws))):
+        raise AssertionError("22(a): kernel J's gradients differ from kernel G's at F's stash")
+    record("mlp_bwd", [("gradients", norm_err([j_dx, *j_dws], [pg_dx, *pg_dws]), TOL["mlp_bwd"])],
+           lambda: core_mlp.mlp_bwd(tw, xt, gt, n_lay),
+           lambda: core_mlp.mlp_relu_bwd_plain(tw, xt, gt, n_lay, "bfloat16"),
+           ("kernel J, recompute pass (J1)", TRUNK_CHAIN_GROUP, DW_GROUP),
+           lambda: core_mlp.mlp_bwd(bw, xt, gt, b_lay),
+           bound(6.0 * n_pts * macs, t_bytes + 4 * n_pts * d_in, H100_BF16_FLOPS))
+    log(f"[22(a)] I = F, J = G at F's stash, E, G, H and J repeat, D = A and the variant's h_i = D's, bit for bit, "
+        f"at {DEEP_SDF} and a {n_lay}-layer trunk; the f32 instances above: {sorted(logged)}")
+    del trunks, tw, bw, zs, b_zs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def deep_phase(smi: str, dev, mc: dict) -> list:
+    """Phase 22, networks deeper than the parameter tables (see above).  ->
+    the kernels line's entries of the bf16 instances at depth 20 (marked
+    "depth"), each with its launches from the whole-model run that runs it:
+    A's and C's from the shipping view, M's and N's from the monolith view,
+    D's, E's, F's and G's from (b)'s K = DEEP_K dispatch, H's, I's and J's
+    from the recompute step, the variants' from the stash_all step, K's and
+    L's from the split step."""
+    import torch
+
+    from nrhints_torch.render.renderer import init_model_params
+
+    t_phase = time.perf_counter()
+    nums = deep_kernels(smi, dev, mc)
+    nums.update({k: v for k, v in march_class_kernels(smi, dev, mc, DEEP_SDF, "22(a)",
+                                                     "the 8-layer instance's").items() if "_f32" not in k})
+    t_a = time.perf_counter() - t_phase
+
+    # (b) The whole model: the train path, then the views.
+    td = train_data(dev, 128, 128)
+    dcfg = deep_model_cfg(td["cfg"])
+    batches = [td["next_batch"]() for _ in range(DEEP_K + TRAIN_WARMUP)]
+    sc = scan_phase(smi, dev, td, batches, "22(b) deep graph", dcfg, DEEP_K, DEEP_STEP)
+    ship = dict(round_machinery=8, shadow_final=1)
+    rec = wide_one_step("22(b) deep recompute step", smi, dev, with_renderer(dcfg, core_backward="recompute"), td,
+                        batches[1], dict(sdf_core_fwd=1, sdf_core_bwd=1, mlp_fwd=1, mlp_bwd=1, **ship), profiled=True)
+    sa = wide_one_step("22(b) deep stash_all step", smi, dev, with_renderer(dcfg, core_backward="stash_all"), td,
+                       batches[2], dict(sdf_stash_all_fwd=1, sdf_stash_all_bwd=1, mlp_stash_fwd=1, mlp_stash_bwd=1,
+                                        **ship), profiled=True)
+    split = wide_one_step("22(b) deep split-route step", smi, dev, with_renderer(dcfg, **SPLIT), td, batches[3],
+                          dict(DEEP_STEP, round_machinery=0, shadow_final=1, march_sweep=1, march_rounds=1,
+                               importance_march=1))
+    gc.collect()
+    torch.cuda.empty_cache()
+    vcfg = deep_model_cfg(mc["cfg"])
+    params = {"renderer": init_model_params(vcfg.model, torch.Generator().manual_seed(0), device=dev), "raygen": {}}
+    ship_view = wide_view("22(b) deep view", smi, mc, vcfg, params, dict(sdf_core_fwd=1, **ship))
+    # The monolith's M and N were held against the plain march in (a); the
+    # shipping view holds the model against the CPU.
+    mono_view = wide_view("22(b) deep monolith view", smi, mc, deep_model_cfg(mc["cfg"], **MONOLITH), params,
+                          dict(sdf_core_fwd=1, importance_march=1, shadow_march=1), cpu_check=False)
+    del params
+    log(f"[22] phase 22 took {time.perf_counter() - t_phase:.1f} s ((a) {t_a:.1f} s)")
+    got = dict(sdf_core_fwd=ship_view["sdf_core_fwd"], shadow_final=ship_view["shadow_final"],
+               importance_march=mono_view["importance_march"], shadow_march=mono_view["shadow_march"],
+               **{k: sc["launches"][k] for k in ("sdf_stash_fwd", "sdf_stash_bwd", "mlp_stash_fwd", "mlp_stash_bwd")},
+               **{k: rec[k] for k in ("sdf_core_bwd", "mlp_fwd", "mlp_bwd")},
+               **{k: sa[k] for k in ("sdf_stash_all_fwd", "sdf_stash_all_bwd")},
+               **{k: split[k] for k in ("march_sweep", "march_rounds")})
+    return [dict(entry(name, *DEEP_WHERE[name], got[name], *num), depth=DEEP_SDF["n_layers"])
+            for name, num in nums.items()]
 
 
 # Phase 15: sample-axis sharding.  (a) two gloo ranks on this card as a 1 x 2
@@ -4503,6 +4927,7 @@ def main() -> int:
     from nrhints_torch.utils import resolve_device, tree_items
 
     # 1. Device.
+    t_start = time.perf_counter()
     dev = resolve_device("cuda")
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = subprocess.run(
@@ -4512,14 +4937,9 @@ def main() -> int:
     log(f"[device] {kind} x{count}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)
 
-    # 2. Build.
+    # 2. Build: one nvcc a source, all at once.
     t0 = time.perf_counter()
-    info = cuda_lib.build()
-    log(f"[build] {time.perf_counter() - t0:.1f} s wall for {', '.join(info)} into {cuda_lib.BUILD_DIR}")
-    for name, rec in info.items():
-        log(f"[build] csrc/{name}.cu: {rec['seconds']:.1f} s")
-        for line in ptxas_summary(rec["ptxas"]):
-            log(line)
+    log_build(cuda_lib.build(), t0)
 
     if sys.argv[1:] == ["--data-parallel"]:  # phase 11 (a)-(c) alone, after the build
         import tempfile
@@ -4563,26 +4983,26 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return 0
 
-    if sys.argv[1:] == ["--wide-sdf"]:  # phase 18 alone, after the build
-        import tempfile
-
-        with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
-            entries = wide_sdf_phase(smi, dev, march_chunk(dev), Path(tmp))
-        print(json.dumps({"kernels": entries}))
-        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
-        return 0
-
-    if sys.argv[1:] == ["--wide-trunk"]:  # phase 19 alone, after the build
-        import tempfile
-
-        with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
-            entries = wide_trunk_phase(smi, dev, march_chunk(dev), Path(tmp))
-        print(json.dumps({"kernels": entries}))
-        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
-        return 0
-
     if sys.argv[1:] == ["--march-geometry"]:  # phase 20 alone, after the build
         entries = march_geometry_phase(smi, dev, march_chunk(dev))
+        print(json.dumps({"kernels": entries}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+        return 0
+
+    # Phases 18, 19, 21 and 22, alone or together (in the order given), after
+    # the build; the plain run runs 18 with 19 and 21 with 22 so, each pair
+    # in a process of its own.
+    late_phases = {"--wide-sdf": wide_sdf_phase, "--wide-trunk": wide_trunk_phase,
+                   "--wide-core-f32": lambda smi_, dev_, mc_, tmp_: core_f32_phase(smi_, dev_, mc_, wide=True),
+                   "--deep": lambda smi_, dev_, mc_, tmp_: deep_phase(smi_, dev_, mc_)}
+    if sys.argv[1:] and all(a in late_phases for a in sys.argv[1:]):
+        import tempfile
+
+        mc = march_chunk(dev)
+        entries = []
+        for a in sys.argv[1:]:
+            with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
+                entries += late_phases[a](smi, dev, mc, Path(tmp))
         print(json.dumps({"kernels": entries}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return 0
@@ -4599,7 +5019,8 @@ def main() -> int:
 
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}; flags: --data-parallel, --offpath, --stash-all, "
-              f"--march-f32, --sample-axis, --core-f32, --trunk-f32, --wide-sdf, --wide-trunk, --march-geometry",
+              f"--march-f32, --sample-axis, --core-f32, --trunk-f32, --wide-sdf, --wide-trunk, --march-geometry, "
+              f"--wide-core-f32, --deep (these two also together)",
               file=sys.stderr)
         return 2
 
@@ -5007,6 +5428,7 @@ def main() -> int:
     del h_dws, h_dx, i_out, j_dws, j_dx, j2_dws, j2_dx, jp_dws, jp_dx
     torch.cuda.empty_cache()
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s before phase 4")
     # 4. Main path: one 128x128 view through Evaluator.render_image.
     hh, ww = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
     view = PixelBundle(
@@ -5078,6 +5500,7 @@ def main() -> int:
         if not e <= tol:
             raise AssertionError(f"CPU and card renders disagree on {k}: {e:.3e}")
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s before phase 4b")
     # 4b. The same view with the fused eval trunk (kernel I, never F).
     ev_p = Evaluator(with_renderer(cfg, eval_reflectance_impl="pallas"), camera, {}, device="cuda")
     img_p, secs_p, launches_p = view_through_graph("main path 4b", ev_p, params, view, smi)
@@ -5094,6 +5517,7 @@ def main() -> int:
         if not e <= tol:
             raise AssertionError(f"the fused-trunk view disagrees with phase 4's on {k}: {e:.3e}")
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s before phase 7")
     # 7. The same view under the round-4 marches: the monolith (M for the
     # camera rays, N for the shadow rays) and the split march (K then L for
     # the camera rays; the shadow refinement ignores importance_split, so M
@@ -5124,6 +5548,7 @@ def main() -> int:
     for name, (ev7, secs7) in round4_evs.items():
         profile_view(f"round-4 {name}", ev7, secs7, view_launches[name])
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s before phase 5")
     # 5. Train path: nr-hints-cam-opt at full width, 512-ray batches of 8
     # procedural views, through make_train_step.
     td = train_data(dev, H, W)
@@ -5204,15 +5629,18 @@ def main() -> int:
     train_launches = train_phase("train path", tcfg, TRAIN_STEPS, dict(
         stash_step, round_machinery=8, shadow_final=1))
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s before phase 6")
     # 6. The recompute schedule on the same batches.
     rec_launches = train_phase("recompute train path", with_renderer(tcfg, core_backward="recompute"),
                                RECOMPUTE_STEPS, dict(sdf_core_fwd=1, sdf_core_bwd=1, mlp_fwd=1, mlp_bwd=1,
                                                      round_machinery=8, shadow_final=1))
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s before phase 8")
     # 8. The monolithic round-4 marches in training, on the same batches.
     train_phase("round-4 monolith train path", with_renderer(tcfg, **MONOLITH), ROUND4_STEPS,
                               dict(stash_step, importance_march=1, shadow_march=1))
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s before phase 10 (a)-(b)")
     # 10 (a)-(b). K train steps as one CUDA graph against K eager steps.
     scan_phase(smi, dev, td, batches, "graph 10(a)", tcfg, 16, dict(stash_step, round_machinery=8, shadow_final=1))
     scan_phase(smi, dev, td, batches, "graph 10(b) recompute", with_renderer(tcfg, core_backward="recompute"), 2,
@@ -5220,6 +5648,7 @@ def main() -> int:
     scan_phase(smi, dev, td, batches, "graph 10(b) round-4 monolith", with_renderer(tcfg, **MONOLITH), 2,
                dict(stash_step, importance_march=1, shadow_march=1))
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s before phase 10 (c)")
     # 10 (c). A test view's registration through its graph against the
     # eager loop, from the same generator.
     tgen = torch.Generator().manual_seed(0)
@@ -5263,6 +5692,7 @@ def main() -> int:
         f"{reg_ms[0]:.3f}); registered raygen leaves against the eager loop's: {reg_verdict}; a full 500-step "
         f"registration through the graph {reg500_s:.3f} s; on {smi}")
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s before phase 9")
     # 9 and 10 (d). The training entry point, python -m nrhints_torch's main,
     # one step a dispatch and then ten.
     import tempfile
@@ -5273,44 +5703,59 @@ def main() -> int:
         # 11. Data parallelism over ranks.
         data_parallel_phase(smi, dev, td, batches, Path(tmp), eager_run["views"])
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s before phase 12")
     # 12. The unfused renderer and what rides on it, on batches of its own
     # (the same as ``--offpath`` draws).
     offpath_phase(smi, dev, mc, train_data(dev, H, W))
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s before phase 13")
     # 13. core_backward="stash_all" and the import, on batches of its own
     # (the same as ``--stash-all`` draws).
     with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
         sa = stash_all_phase(smi, dev, mc, train_data(dev, H, W), Path(tmp))
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s before phase 14")
     # 14. march_dtype="float32", on batches of its own (as ``--march-f32``).
     f32 = march_f32_phase(smi, dev, mc, train_data(dev, H, W))
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s before phase 15")
     # 15. Sample-axis sharding, on batches of its own (as ``--sample-axis``).
     td15 = train_data(dev, H, W)
     with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
         sample_axis_phase(smi, dev, td15, [td15["next_batch"]() for _ in range(max(SAMPLE_K, TRAIN_WARMUP))],
                           Path(tmp))
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s before phase 16")
     # 16. The SDF core at compute_dtype="float32" and stash_dtype="float32".
     core_f32 = core_f32_phase(smi, dev, mc)
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s before phase 17")
     # 17. The reflectance trunk at compute_dtype="float32" and
     # stash_dtype="float32".
     trunk_f32 = trunk_f32_phase(smi, dev, mc)
 
-    # 18. The SDF core above the presets' widths.
-    with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
-        wide = wide_sdf_phase(smi, dev, mc, Path(tmp))
+    log(f"[time] {time.perf_counter() - t_start:.1f} s before phases 18 and 19")
+    # 18. The SDF core above the presets' widths, and 19. the reflectance
+    # trunk above them, together in a process of their own (as
+    # ``--wide-sdf --wide-trunk``): late in this long process the profiler
+    # dropped a whole phase-19 kernel's records.
+    gc.collect()
+    torch.cuda.empty_cache()
+    wide = phase_subprocess(["--wide-sdf", "--wide-trunk"], ("[18", "[19", "[profile]", "[wide"))
 
-    # 19. The reflectance trunk above the presets' widths.
-    with tempfile.TemporaryDirectory(prefix="nrhints_chip_smoke_") as tmp:
-        wide_trunk = wide_trunk_phase(smi, dev, mc, Path(tmp))
-
+    log(f"[time] {time.perf_counter() - t_start:.1f} s before phase 20")
     # 20. The fused marches at geometries other than 64 + 4 x 16, in a
     # process of its own (as ``--march-geometry``).
     gc.collect()
     torch.cuda.empty_cache()
-    geometry = march_geometry_subprocess()
+    geometry = phase_subprocess(["--march-geometry"], ("[20",))
+
+    log(f"[time] {time.perf_counter() - t_start:.1f} s before phase 21")
+    # 21. The SDF core's wide f32 instances, and 22. networks deeper than the
+    # kernels' parameter tables, together in a process of their own (as
+    # ``--wide-core-f32 --deep``).
+    late_entries = phase_subprocess(["--wide-core-f32", "--deep"], ("[21", "[22", "[profile]"))
+    log(f"[total] the smoke run took {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
         entry("sdf_core_fwd", "sdf_core.cu", "core_mlp.py:227", launches["sdf_core_fwd"], a_abs, a_ms, a_plain_ms,
@@ -5346,8 +5791,8 @@ def main() -> int:
         *core_f32,
         *trunk_f32,
         *wide,
-        *wide_trunk,
         *geometry,
+        *late_entries,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -47,36 +47,71 @@ constexpr int kDwStages = 3;
 constexpr int kLdDw = kDwTile + 8;  // bf16 row stride of a slab
 constexpr size_t kDwSmem = (size_t)kDwStages * 2 * kDwSlab * kLdDw * sizeof(bf16);
 
+// One launch's jobs: at most kMaxJobs products, their tables kernel
+// parameters.  A table of more jobs (a network deeper than kMaxLayers) is
+// launched in groups of kMaxJobs (launch_dw_sums), each group's products
+// over the same row chunks into the same partials, so every dW element sums
+// in the same order whatever the grouping.  The backward chains read the
+// scratch offsets of every job through a() and b(): the tables', or where
+// the jobs outnumber kMaxJobs the whole table's copy on the card (dev),
+// whose offsets are in units of the padded points (npad), so one copy
+// serves every point count.
 struct DwJobs {
   int n;
   long long a_off[kMaxJobs], b_off[kMaxJobs], c_off[kMaxJobs];
   int rows[kMaxJobs], ka[kMaxJobs], nb[kMaxJobs], tiles_n[kMaxJobs];
   int tile_start[kMaxJobs + 1];
-  long long n_dw;
+  long long n_dw, npad;
+  const long long* dev;   // the whole table on the card where it holds more than kMaxJobs jobs, else null
+  const long long* host;  // the whole table in host memory (launch_dw_sums' groups), and its jobs
+  int n_all;
+
+  __device__ __forceinline__ long long a(int i) const { return dev ? dev[6 * i] * npad : a_off[i]; }
+  __device__ __forceinline__ long long b(int i) const { return dev ? dev[6 * i + 1] * npad : b_off[i]; }
 };
 
-// jobs = int64 [n_jobs][6] of (a_off, b_off, rows, ka, nb, c_off), as
-// nrhints_torch/kernels/core_mlp.py::dw_jobs lays them out.
-inline int parse_jobs(const long long* t, int n_jobs, DwJobs* j) {
-  if (n_jobs < 1 || n_jobs > kMaxJobs) return (int)cudaErrorInvalidValue;
-  j->n = n_jobs;
+// Jobs first .. first + count - 1 (count <= kMaxJobs) of the host table t =
+// int64 [n_jobs][6] of (a, b, m, ka, nb, c_off), as
+// nrhints_torch/kernels/core_mlp.py::dw_jobs lays them out (product j's A
+// operand is m npad rows of ka columns at scratch offset a npad, its B
+// operand as many rows of nb columns at b npad, C_j at c_off of the dW
+// vector), as one launch's tables at npad padded points; n_dw (the
+// partials' row stride) covers the whole table.
+inline int parse_job_group(const long long* t, int n_jobs, int first, int count, long long npad, DwJobs* j) {
+  if (count < 1 || count > kMaxJobs || first + count > n_jobs || npad % 16) return (int)cudaErrorInvalidValue;
+  j->n = count;
   j->tile_start[0] = 0;
   j->n_dw = 0;
+  j->npad = npad;
   for (int i = 0; i < n_jobs; ++i) {
     const long long* r = t + 6 * i;
-    j->a_off[i] = r[0];
-    j->b_off[i] = r[1];
-    j->rows[i] = (int)r[2];
-    j->ka[i] = (int)r[3];
-    j->nb[i] = (int)r[4];
-    j->c_off[i] = r[5];
-    if (r[0] % 16 || r[1] % 16 || r[2] % 16 || r[3] % 16 || r[4] % 16 || r[5] % 16)
-      return (int)cudaErrorInvalidValue;
-    j->tiles_n[i] = (j->nb[i] + kDwTile - 1) / kDwTile;
-    j->tile_start[i + 1] = j->tile_start[i] + j->tiles_n[i] * ((j->ka[i] + kDwTile - 1) / kDwTile);
+    if (r[3] % 16 || r[4] % 16 || r[5] % 16) return (int)cudaErrorInvalidValue;
     if (r[5] + r[3] * r[4] > j->n_dw) j->n_dw = r[5] + r[3] * r[4];
+    if (i < first || i >= first + count) continue;
+    const int k = i - first;
+    j->a_off[k] = r[0] * npad;
+    j->b_off[k] = r[1] * npad;
+    j->rows[k] = (int)(r[2] * npad);
+    j->ka[k] = (int)r[3];
+    j->nb[k] = (int)r[4];
+    j->c_off[k] = r[5];
+    j->tiles_n[k] = (j->nb[k] + kDwTile - 1) / kDwTile;
+    j->tile_start[k + 1] = j->tile_start[k] + j->tiles_n[k] * ((j->ka[k] + kDwTile - 1) / kDwTile);
   }
+  j->dev = nullptr;
+  j->host = t;
+  j->n_all = n_jobs;
   return 0;
+}
+
+// The whole table at npad padded points: its first group's tables, and
+// where it holds more than kMaxJobs jobs, jobs_dev, the same table on the
+// card (null otherwise).
+inline int parse_jobs(const long long* t, const long long* jobs_dev, int n_jobs, long long npad, DwJobs* j) {
+  if (n_jobs < 1 || (n_jobs > kMaxJobs && !jobs_dev)) return (int)cudaErrorInvalidValue;
+  const int rc = parse_job_group(t, n_jobs, 0, n_jobs < kMaxJobs ? n_jobs : kMaxJobs, npad, j);
+  j->dev = n_jobs > kMaxJobs ? jobs_dev : nullptr;
+  return rc;
 }
 
 // 8 warps; the 128 x 128 tile is 8 x 8 WMMA tiles: warp w takes rows
@@ -280,25 +315,37 @@ __global__ void colsum_kernel(const float* __restrict__ part, int nrows, int nco
 // launches none of them: no weight cotangent is wanted (registration's
 // backward through the rays), and part_dw, dw and colsum may be null.  The
 // scratch's type picks the partial products' kernel: bf16 WMMA, or f32.
+// The partial products run one launch per group of kMaxJobs jobs (one
+// launch up to kMaxLayers layers).
 template <typename T>
 inline int launch_dw_sums(const T* scratch, float* part_dw, float* dw, const DwJobs& jobs, int split,
                           const float* partial, int nblk, int pw, float* colsum, cudaStream_t stream) {
   if (split < 0) return (int)cudaErrorInvalidValue;
   if (split == 0) return 0;
-  const dim3 grid(jobs.tile_start[jobs.n], split);
   int rc;
-  if constexpr (std::is_same<T, float>::value) {
+  if constexpr (std::is_same<T, float>::value)
     rc = (int)cudaFuncSetAttribute(dw_partial_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)kDwSmemF32);
-    if (rc) return rc;
-    dw_partial_f32_kernel<<<grid, 256, kDwSmemF32, stream>>>(scratch, part_dw, jobs, split);
-  } else {
+  else
     rc = (int)cudaFuncSetAttribute(dw_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDwSmem);
-    if (rc) return rc;
-    dw_partial_kernel<<<grid, 256, kDwSmem, stream>>>(scratch, part_dw, jobs, split);
-  }
-  rc = (int)cudaGetLastError();
   if (rc) return rc;
+  for (int first = 0; first < jobs.n_all; first += kMaxJobs) {
+    DwJobs group;
+    const DwJobs* g = &jobs;
+    if (jobs.n_all > kMaxJobs) {
+      const int count = jobs.n_all - first < kMaxJobs ? jobs.n_all - first : kMaxJobs;
+      rc = parse_job_group(jobs.host, jobs.n_all, first, count, jobs.npad, &group);
+      if (rc) return rc;
+      g = &group;
+    }
+    const dim3 grid(g->tile_start[g->n], split);
+    if constexpr (std::is_same<T, float>::value)
+      dw_partial_f32_kernel<<<grid, 256, kDwSmemF32, stream>>>(scratch, part_dw, *g, split);
+    else
+      dw_partial_kernel<<<grid, 256, kDwSmem, stream>>>(scratch, part_dw, *g, split);
+    rc = (int)cudaGetLastError();
+    if (rc) return rc;
+  }
   dw_reduce_kernel<<<(unsigned)((jobs.n_dw + 255) / 256), 256, 0, stream>>>(part_dw, split, jobs.n_dw, dw);
   rc = (int)cudaGetLastError();
   if (rc) return rc;

@@ -157,30 +157,32 @@ extern "C" int round_machinery_geom(NRH_MACHINERY_ARGS, int n_new, void* stream)
 
 #define NRH_FINAL_ARGS                                                                                       \
   const float *z, const float *o, const float *d, const float *sdist, const void *wpack, const float *bpack,     \
-      const float *w_sdf, const float *inv_s, const float *anneal, float *tau, int b, const int *meta, float scale, \
-      void *stream
+      const float *w_sdf, const float *inv_s, const float *anneal, float *tau, int b, const int *meta,            \
+      const int *meta_dev, float scale, void *stream
 
 extern "C" int shadow_final(NRH_FINAL_ARGS) {
   return launch_march<false, false, false, true, false>(z, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal,
-                                                        tau, b, meta, scale, 0.0f, kAnyGeom, stream);
+                                                        tau, b, meta, meta_dev, scale, 0.0f, kAnyGeom, stream);
 }
 
 // Kernel C with f32 march weights (march_dtype="float32"): wpack holds the
 // f32 pack of pack_sdf_mlp(..., dtype=float32).
 extern "C" int shadow_final_f32(NRH_FINAL_ARGS) {
   return launch_march<true, false, false, true, false>(z, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal,
-                                                       tau, b, meta, scale, 0.0f, kAnyGeom, stream);
+                                                       tau, b, meta, meta_dev, scale, 0.0f, kAnyGeom, stream);
 }
 
 // Kernel C's wide instances (core_mlp.ROWS_WIDE: padded widths up to 512,
 // encodings up to 128), bf16 and f32 march weights.
 extern "C" int shadow_final_wide(NRH_FINAL_ARGS) {
-  return launch_march<false, false, false, true, false>(z, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal,
-                                                        tau, b, meta, scale, 0.0f, kAnyGeom, stream, true);
+  return launch_march<false, false, false, true, false, kFixedNew, true>(
+      z, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal, tau, b, meta, meta_dev, scale, 0.0f, kAnyGeom,
+      stream);
 }
 extern "C" int shadow_final_f32_wide(NRH_FINAL_ARGS) {
-  return launch_march<true, false, false, true, false>(z, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal,
-                                                       tau, b, meta, scale, 0.0f, kAnyGeom, stream, true);
+  return launch_march<true, false, false, true, false, kFixedNew, true>(
+      z, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal, tau, b, meta, meta_dev, scale, 0.0f, kAnyGeom,
+      stream);
 }
 #undef NRH_FINAL_ARGS
 

@@ -685,31 +685,36 @@ __host__ __device__ inline bool takes_geometry(const MarchGeom& g) {
 }
 
 // One launch on `stream` of the bf16 instance, or with F32 the f32 one
-// (wpack then holds f32 weights), of the presets' class or with wide the
-// wide class (meta checked against its limits), at geometry g (checked,
-// takes_geometry); returns its launch error.
-template <bool F32, bool SWEEP, bool ROUNDS, bool FINAL, bool RANK, int NN = kFixedNew>
+// (wpack then holds f32 weights), of the presets' class or with IS_WIDE the
+// wide class (meta checked against its limits; meta_dev its copy on the
+// card, null up to kMaxLayers layers), at geometry g (checked,
+// takes_geometry); returns its launch error.  Each instantiation compiles
+// one class's kernel only, so the classes' sources build apart.
+template <bool F32, bool SWEEP, bool ROUNDS, bool FINAL, bool RANK, int NN = kFixedNew, bool IS_WIDE = false>
 inline int launch_march(const float* z_in, const float* sdf0_in, const float* o, const float* d,
                         const float* sdist, const void* wpack, const float* bpack, const float* w_sdf,
                         const float* inv_s, const float* anneal, float* out, int b, const int* meta,
-                        float scale, float base_inv_s, const MarchGeom& g, void* stream, bool wide = false) {
-  using Engine = typename std::conditional<F32, F32Rows, Bf16Rows>::type;
-  using EngineWide = typename std::conditional<F32, F32RowsWide, Bf16RowsWide>::type;
+                        const int* meta_dev, float scale, float base_inv_s, const MarchGeom& g, void* stream) {
+  using Engine = typename std::conditional<IS_WIDE, typename std::conditional<F32, F32RowsWide, Bf16RowsWide>::type,
+                                           typename std::conditional<F32, F32Rows, Bf16Rows>::type>::type;
   using W = typename Engine::W;
   SdfMeta m;
-  int rc = parse_meta(meta, &m, wide);
+  int rc = parse_meta(meta, meta_dev, &m, IS_WIDE);
   if (rc) return rc;
   if (!takes_geometry<SWEEP, ROUNDS, NN>(g)) return (int)cudaErrorInvalidValue;
   if (b <= 0) return 0;
-  const int smem = (int)(wide ? sizeof(MarchSmem<EngineWide>) : sizeof(MarchSmem<Engine>));
+  const int smem = (int)sizeof(MarchSmem<Engine>);
   void (*kernel)(const float*, const float*, const float*, const float*, const float*, const W*, const float*,
                  const float*, const float*, const float*, float*, int, const SdfMeta, float, float,
                  const MarchGeom);
-  if constexpr (F32)
-    kernel = wide ? march_kernel_f32_wide<SWEEP, ROUNDS, FINAL, RANK, NN>
-                  : march_kernel_f32<SWEEP, ROUNDS, FINAL, RANK, NN>;
+  if constexpr (F32 && IS_WIDE)
+    kernel = march_kernel_f32_wide<SWEEP, ROUNDS, FINAL, RANK, NN>;
+  else if constexpr (F32)
+    kernel = march_kernel_f32<SWEEP, ROUNDS, FINAL, RANK, NN>;
+  else if constexpr (IS_WIDE)
+    kernel = march_kernel_wide<SWEEP, ROUNDS, FINAL, RANK, NN>;
   else
-    kernel = wide ? march_kernel_wide<SWEEP, ROUNDS, FINAL, RANK, NN> : march_kernel<SWEEP, ROUNDS, FINAL, RANK, NN>;
+    kernel = march_kernel<SWEEP, ROUNDS, FINAL, RANK, NN>;
   rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc) return rc;
   kernel<<<(b + kMarchRays - 1) / kMarchRays, kRowsThreads, smem, (cudaStream_t)stream>>>(

@@ -40,124 +40,20 @@
 // template on mma_rows.cuh::sdf_rows_f32 (f32 weights and activations, f32
 // FMAs on the CUDA cores).  At the 67 TFLOP/s f32 peak the bounds are K
 // 0.449 ms, L 0.337, M 0.786 and N 2.582 a 512-ray launch.
-// Each also has wide instances, *_wide and *_f32_wide, for SDFs above the
-// presets' widths (padded widths up to 512, encodings up to 128): the same
-// template on the row engine's wide class (mma_rows.cuh::RowsWide), whose
-// passes hold half the rows; at d_hidden 512 each sweep is 4.0x the
-// 256-wide one's operations.
-#include "march_common.cuh"
+// Each also has wide instances, *_wide and *_f32_wide, in march_fused_wide.cu,
+// for SDFs above the presets' widths.  The launch helpers are in
+// march_fused.cuh.
+#include "march_fused.cuh"
 
-using namespace nrh;
+using namespace nrh::fused;
 
-namespace {
-
-constexpr MarchGeom kGeom{NBUF - kFixedRounds * kFixedNew, kFixedRounds, kFixedNew};  // 64 + 4 x 16
-
-// Each entry point's bf16 instance, or with F32 its f32 one; with wide, the
-// wide class's.
-template <bool F32>
-int sweep(const float* z0, const float* o, const float* d, const void* wpack, const float* bpack,
-          const float* w_sdf, float* sdf0, int b, const int* meta, float scale, void* stream, bool wide = false) {
-  return launch_march<F32, true, false, false, false>(z0, nullptr, o, d, nullptr, wpack, bpack, w_sdf, nullptr,
-                                                      nullptr, sdf0, b, meta, scale, 0.0f, kGeom, stream, wide);
-}
-
-template <bool F32>
-int rounds(const float* z0, const float* sdf0, const float* o, const float* d, const void* wpack,
-           const float* bpack, const float* w_sdf, float* z, int b, const int* meta, float scale, float base_inv_s,
-           int rank, void* stream, bool wide = false) {
-  auto launch = rank ? launch_march<F32, false, true, false, true> : launch_march<F32, false, true, false, false>;
-  return launch(z0, sdf0, o, d, nullptr, wpack, bpack, w_sdf, nullptr, nullptr, z, b, meta, scale, base_inv_s,
-                kGeom, stream, wide);
-}
-
-template <bool F32>
-int importance(const float* z0, const float* o, const float* d, const void* wpack, const float* bpack,
-               const float* w_sdf, float* z, int b, const int* meta, float scale, float base_inv_s, int rank,
-               void* stream, bool wide = false) {
-  auto launch = rank ? launch_march<F32, true, true, false, true> : launch_march<F32, true, true, false, false>;
-  return launch(z0, nullptr, o, d, nullptr, wpack, bpack, w_sdf, nullptr, nullptr, z, b, meta, scale, base_inv_s,
-                kGeom, stream, wide);
-}
-
-template <bool F32>
-int shadow(const float* z0, const float* o, const float* d, const float* sdist, const float* inv_s,
-           const float* anneal, const void* wpack, const float* bpack, const float* w_sdf, float* tau, int b,
-           const int* meta, float scale, float base_inv_s, int rank, void* stream, bool wide = false) {
-  auto launch = rank ? launch_march<F32, true, true, true, true> : launch_march<F32, true, true, true, false>;
-  return launch(z0, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal, tau, b, meta, scale, base_inv_s,
-                kGeom, stream, wide);
-}
-
-}  // namespace
-
-#define NRH_SWEEP_ARGS                                                                                     \
-  const float *z0, const float *o, const float *d, const void *wpack, const float *bpack, const float *w_sdf, \
-      float *sdf0, int b, const int *meta, float scale, void *stream
-#define NRH_ROUNDS_ARGS                                                                                    \
-  const float *z0, const float *sdf0, const float *o, const float *d, const void *wpack, const float *bpack, \
-      const float *w_sdf, float *z, int b, const int *meta, float scale, float base_inv_s, int rank, void *stream
-#define NRH_IMPORTANCE_ARGS                                                                                 \
-  const float *z0, const float *o, const float *d, const void *wpack, const float *bpack, const float *w_sdf, \
-      float *z, int b, const int *meta, float scale, float base_inv_s, int rank, void *stream
-#define NRH_SHADOW_ARGS                                                                                     \
-  const float *z0, const float *o, const float *d, const float *sdist, const float *inv_s, const float *anneal, \
-      const void *wpack, const float *bpack, const float *w_sdf, float *tau, int b, const int *meta, float scale, \
-      float base_inv_s, int rank, void *stream
-
-extern "C" int march_sweep(NRH_SWEEP_ARGS) {
-  return sweep<false>(z0, o, d, wpack, bpack, w_sdf, sdf0, b, meta, scale, stream);
-}
-extern "C" int march_sweep_f32(NRH_SWEEP_ARGS) {
-  return sweep<true>(z0, o, d, wpack, bpack, w_sdf, sdf0, b, meta, scale, stream);
-}
-extern "C" int march_rounds(NRH_ROUNDS_ARGS) {
-  return rounds<false>(z0, sdf0, o, d, wpack, bpack, w_sdf, z, b, meta, scale, base_inv_s, rank, stream);
-}
-extern "C" int march_rounds_f32(NRH_ROUNDS_ARGS) {
-  return rounds<true>(z0, sdf0, o, d, wpack, bpack, w_sdf, z, b, meta, scale, base_inv_s, rank, stream);
-}
-extern "C" int importance_march(NRH_IMPORTANCE_ARGS) {
-  return importance<false>(z0, o, d, wpack, bpack, w_sdf, z, b, meta, scale, base_inv_s, rank, stream);
-}
-extern "C" int importance_march_f32(NRH_IMPORTANCE_ARGS) {
-  return importance<true>(z0, o, d, wpack, bpack, w_sdf, z, b, meta, scale, base_inv_s, rank, stream);
-}
-extern "C" int shadow_march(NRH_SHADOW_ARGS) {
-  return shadow<false>(z0, o, d, sdist, inv_s, anneal, wpack, bpack, w_sdf, tau, b, meta, scale, base_inv_s, rank,
-                       stream);
-}
-extern "C" int shadow_march_f32(NRH_SHADOW_ARGS) {
-  return shadow<true>(z0, o, d, sdist, inv_s, anneal, wpack, bpack, w_sdf, tau, b, meta, scale, base_inv_s, rank,
-                      stream);
-}
-
-// The wide instances (core_mlp.ROWS_WIDE), bf16 and f32 march weights.
-extern "C" int march_sweep_wide(NRH_SWEEP_ARGS) {
-  return sweep<false>(z0, o, d, wpack, bpack, w_sdf, sdf0, b, meta, scale, stream, true);
-}
-extern "C" int march_sweep_f32_wide(NRH_SWEEP_ARGS) {
-  return sweep<true>(z0, o, d, wpack, bpack, w_sdf, sdf0, b, meta, scale, stream, true);
-}
-extern "C" int march_rounds_wide(NRH_ROUNDS_ARGS) {
-  return rounds<false>(z0, sdf0, o, d, wpack, bpack, w_sdf, z, b, meta, scale, base_inv_s, rank, stream, true);
-}
-extern "C" int march_rounds_f32_wide(NRH_ROUNDS_ARGS) {
-  return rounds<true>(z0, sdf0, o, d, wpack, bpack, w_sdf, z, b, meta, scale, base_inv_s, rank, stream, true);
-}
-extern "C" int importance_march_wide(NRH_IMPORTANCE_ARGS) {
-  return importance<false>(z0, o, d, wpack, bpack, w_sdf, z, b, meta, scale, base_inv_s, rank, stream, true);
-}
-extern "C" int importance_march_f32_wide(NRH_IMPORTANCE_ARGS) {
-  return importance<true>(z0, o, d, wpack, bpack, w_sdf, z, b, meta, scale, base_inv_s, rank, stream, true);
-}
-extern "C" int shadow_march_wide(NRH_SHADOW_ARGS) {
-  return shadow<false>(z0, o, d, sdist, inv_s, anneal, wpack, bpack, w_sdf, tau, b, meta, scale, base_inv_s, rank,
-                       stream, true);
-}
-extern "C" int shadow_march_f32_wide(NRH_SHADOW_ARGS) {
-  return shadow<true>(z0, o, d, sdist, inv_s, anneal, wpack, bpack, w_sdf, tau, b, meta, scale, base_inv_s, rank,
-                      stream, true);
-}
+extern "C" int march_sweep(NRH_SWEEP_ARGS) { return sweep<false>(NRH_SWEEP_CALL); }
+extern "C" int march_sweep_f32(NRH_SWEEP_ARGS) { return sweep<true>(NRH_SWEEP_CALL); }
+extern "C" int march_rounds(NRH_ROUNDS_ARGS) { return rounds<false>(NRH_ROUNDS_CALL); }
+extern "C" int march_rounds_f32(NRH_ROUNDS_ARGS) { return rounds<true>(NRH_ROUNDS_CALL); }
+extern "C" int importance_march(NRH_IMPORTANCE_ARGS) { return importance<false>(NRH_IMPORTANCE_CALL); }
+extern "C" int importance_march_f32(NRH_IMPORTANCE_ARGS) { return importance<true>(NRH_IMPORTANCE_CALL); }
+extern "C" int shadow_march(NRH_SHADOW_ARGS) { return shadow<false>(NRH_SHADOW_CALL); }
+extern "C" int shadow_march_f32(NRH_SHADOW_ARGS) { return shadow<true>(NRH_SHADOW_CALL); }
 
 extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

@@ -71,7 +71,7 @@
 // the bf16 expressions at T = S = bf16, so the bf16 instances give the
 // shipping outputs bit for bit.  Bound on an H100 at 65,536 points and the
 // 67 TFLOP/s f32 peak: F and I 0.57 ms, G 1.13 ms, J 1.70 ms (operations).
-// Design: every product on mma_rows.cuh's f32 gemm_rows64_f32 (one fmaf a
+// Design: every product on mma_rows.cuh's gemm_rows_f32<RowsNarrow> (one fmaf a
 // multiply-add in k order, a 2-stage ring of 32-row f32 slabs; layer 0's
 // 368-deep product walks 11.5 slabs), the dW operands in an f32 scratch and
 // their products on dw_sum.cuh's dw_partial_f32_kernel over the same row
@@ -126,6 +126,7 @@ constexpr int kInMax = 384;         // widest padded trunk input (core_mlp.IN_MA
 constexpr int kInWide = 640;        // widest padded trunk input of the wide class (core_mlp.TRUNK_WIDE)
 constexpr int kSumRows = 16;        // points per row of the bias sums (core_mlp.SUM_ROWS)
 constexpr int kMlpPlain = 0, kMlpStash = 1, kMlpRecompute = 2;
+constexpr int kMlpMetaHead = 4;     // ints of the trunk's meta vector before its per-layer rows
 
 // The trunk's width classes (core_mlp.TRUNK_NARROW, TRUNK_WIDE): kPts points
 // a block, kIn the widest padded input, kW the widest padded hidden layer
@@ -159,7 +160,8 @@ __host__ __device__ constexpr int ld_act() {
 // ring (the ring's bytes are the same in both classes).
 template <class Cls, typename T>
 constexpr size_t mlp_fwd_smem() {
-  return Cls::kPts * ld_x<Cls, T>() * sizeof(T) + Cls::kPts * Cls::kLdC * sizeof(float) + CoreTile<T>::kRing * sizeof(T);
+  return Cls::kPts * ld_x<Cls, T>() * sizeof(T) + Cls::kPts * Cls::kLdC * sizeof(float) +
+         CoreTile<T>::kRing * sizeof(T);
 }
 template <class Cls, typename T>
 constexpr size_t mlp_chain_smem() {
@@ -176,31 +178,52 @@ static_assert(TrunkWide::kPts % kSumRows == 0 && TrunkWide::kLdC == TrunkWide::k
               "a wide block holds whole rows of bias sums and a 512-wide product");
 
 struct MlpMeta {
-  int n_lin, d0, d_out, zt;
-  int in_dim[kMaxLayers], out_dim[kMaxLayers], kp[kMaxLayers], np_[kMaxLayers];
-  int w_off[kMaxLayers], b_off[kMaxLayers], z_off[kMaxLayers];
+  int n_lin, d0, d_out, zt, bt;  // bt: the sum of the padded output widths (the bias sums' columns)
+  int in_[kMaxLayers], out_[kMaxLayers], kp_[kMaxLayers], np_[kMaxLayers];
+  int w_off_[kMaxLayers], b_off_[kMaxLayers], z_off_[kMaxLayers];
+  // The meta vector on the card where n_lin > kMaxLayers (its rows are
+  // then read from there), else null.
+  const int* dev;
+
+  // Field k of layer i's row: the parameter table's, or the device copy's.
+  __device__ __forceinline__ int field(const int (&t)[kMaxLayers], int i, int k) const {
+    return dev ? dev[kMlpMetaHead + 7 * i + k] : t[i];
+  }
+  __device__ __forceinline__ int in(int i) const { return field(in_, i, 0); }
+  __device__ __forceinline__ int out(int i) const { return field(out_, i, 1); }
+  __device__ __forceinline__ int kp(int i) const { return field(kp_, i, 2); }
+  __device__ __forceinline__ int np(int i) const { return field(np_, i, 3); }
+  __device__ __forceinline__ int w_off(int i) const { return field(w_off_, i, 4); }
+  __device__ __forceinline__ int b_off(int i) const { return field(b_off_, i, 5); }
+  __device__ __forceinline__ int z_off(int i) const { return field(z_off_, i, 6); }
 };
 
 // meta = [n_lin, d0, d_out, ZT, then per layer: in, out, kp, np, w_off,
-// b_off, z_off] (core_mlp.py::pack_mlp), checked against the limits of the
-// class Cls.
+// b_off, z_off] (core_mlp.py::pack_mlp) in host memory, checked against the
+// limits of the class Cls.  Up to kMaxLayers linears the rows ride in
+// MlpMeta's tables; a deeper trunk's are read from meta_dev, the same vector
+// on the card (null for a shallower one).
 template <class Cls>
-int parse_mlp_meta(const int* meta, MlpMeta* m, Cls) {
+int parse_mlp_meta(const int* meta, const int* meta_dev, MlpMeta* m, Cls) {
   m->n_lin = meta[0];
   m->d0 = meta[1];
   m->d_out = meta[2];
   m->zt = meta[3];
-  if (m->n_lin < 1 || m->n_lin > kMaxLayers) return (int)cudaErrorInvalidValue;
+  if (m->n_lin < 1 || (m->n_lin > kMaxLayers && !meta_dev)) return (int)cudaErrorInvalidValue;
+  m->dev = m->n_lin > kMaxLayers ? meta_dev : nullptr;
+  m->bt = 0;
   for (int i = 0; i < m->n_lin; ++i) {
-    const int* l = meta + 4 + 7 * i;
-    m->in_dim[i] = l[0];
-    m->out_dim[i] = l[1];
-    m->kp[i] = l[2];
+    const int* l = meta + kMlpMetaHead + 7 * i;
+    if (l[2] > (i == 0 ? Cls::kIn : Cls::kW) || l[3] > Cls::kW) return (int)cudaErrorInvalidValue;
+    m->bt += l[3];
+    if (i >= kMaxLayers) continue;
+    m->in_[i] = l[0];
+    m->out_[i] = l[1];
+    m->kp_[i] = l[2];
     m->np_[i] = l[3];
-    m->w_off[i] = l[4];
-    m->b_off[i] = l[5];
-    m->z_off[i] = l[6];
-    if (m->kp[i] > (i == 0 ? Cls::kIn : Cls::kW) || m->np_[i] > Cls::kW) return (int)cudaErrorInvalidValue;
+    m->w_off_[i] = l[4];
+    m->b_off_[i] = l[5];
+    m->z_off_[i] = l[6];
   }
   return 0;
 }
@@ -271,8 +294,8 @@ __device__ __forceinline__ void mlp_fwd_block(unsigned char* smem, const float* 
 
   // The input tile: x as a dot operand of T, zero past d0 and past N (x's
   // rows are d0 = 361 floats, so not 16-byte aligned: four scalar loads).
-  stage_w<Cls>(wpack + m.w_off[0], m.np_[0], m.kp[0], ring);
-  const int w4 = m.kp[0] / 4;
+  stage_w<Cls>(wpack + m.w_off(0), m.np(0), m.kp(0), ring);
+  const int w4 = m.kp(0) / 4;
   for (int idx = tid; idx < kPts * w4; idx += kChainThreads) {
     const int p = idx / w4, c = (idx % w4) * 4;
     float v[4];
@@ -283,9 +306,9 @@ __device__ __forceinline__ void mlp_fwd_block(unsigned char* smem, const float* 
 
   // z_i = h_{i-1} W_i + b_i; h_i = relu(z_i) in T, over h_{i-1} in act.
   for (int i = 0; i < n_run; ++i) {
-    const int np = m.np_[i], o = m.out_dim[i];
-    const float* b = bpack + m.b_off[i];
-    product_w<Cls>(act, kLdX, wpack + m.w_off[i], np, m.kp[i], Z, ring);
+    const int np = m.np(i), o = m.out(i);
+    const float* b = bpack + m.b_off(i);
+    product_w<Cls>(act, kLdX, wpack + m.w_off(i), np, m.kp(i), Z, ring);
     __syncthreads();
     if (i == last) {  // the linear output layer
       for (int idx = tid; idx < kPts * o; idx += kChainThreads) {
@@ -294,7 +317,7 @@ __device__ __forceinline__ void mlp_fwd_block(unsigned char* smem, const float* 
       }
       return;
     }
-    if (i + 1 < n_run) stage_w<Cls>(wpack + m.w_off[i + 1], m.np_[i + 1], m.kp[i + 1], ring);
+    if (i + 1 < n_run) stage_w<Cls>(wpack + m.w_off(i + 1), m.np(i + 1), m.kp(i + 1), ring);
     for (int idx = tid; idx < kPts * (np / 4); idx += kChainThreads) {
       const int p = idx / (np / 4), c = (idx % (np / 4)) * 4;
       float z[4], bb[4], h[4];
@@ -306,7 +329,7 @@ __device__ __forceinline__ void mlp_fwd_block(unsigned char* smem, const float* 
         h[k] = fmaxf(z[k], 0.0f);
       }
       st4(act + p * kLdX + c, h);
-      if (MODE != kMlpPlain && p0 + p < n) st4(zs + (size_t)(p0 + p) * m.zt + m.z_off[i] + c, z);
+      if (MODE != kMlpPlain && p0 + p < n) st4(zs + (size_t)(p0 + p) * m.zt + m.z_off(i) + c, z);
     }
   }
 }
@@ -338,12 +361,12 @@ __device__ __forceinline__ void mlp_bwd_chain_block(unsigned char* smem, const f
       v[0] = v[1] = v[2] = v[3] = 0.0f;
   };
 
-  stage_wt<Cls>(wt + m.w_off[last], m.np_[last], m.kp[last], 0, min(m.kp[last], Cls::kW), ring);
+  stage_wt<Cls>(wt + m.w_off(last), m.np(last), m.kp(last), 0, min(m.kp(last), Cls::kW), ring);
   for (int i = last; i >= 0; --i) {
-    const int np = m.np_[i], o = m.out_dim[i], kp = m.kp[i], in = m.in_dim[i];
-    T* Aop = scratch + jobs.a_off[i];
-    T* Bop = scratch + jobs.b_off[i];
-    if (i < last) stage_wt<Cls>(wt + m.w_off[i], np, kp, 0, min(kp, Cls::kW), ring);
+    const int np = m.np(i), o = m.out(i), kp = m.kp(i), in = m.in(i);
+    T* Aop = scratch + jobs.a(i);
+    T* Bop = scratch + jobs.b(i);
+    if (i < last) stage_wt<Cls>(wt + m.w_off(i), np, kp, 0, min(kp, Cls::kW), ring);
     // G_i in f32 (for the bias sums), and in T as the product's operand
     // and dW_i's B operand.
     for (int idx = tid; idx < kPts * (np / 4); idx += kChainThreads) {
@@ -354,7 +377,7 @@ __device__ __forceinline__ void mlp_bwd_chain_block(unsigned char* smem, const f
         for (int k = 0; k < 4; ++k) v[k] = c + k < o && p0 + p < n ? g[(size_t)(p0 + p) * m.d_out + c + k] : 0.0f;
       } else {
         ld_f4(Gf + p * kLdC + c, v);
-        z4(p, m.z_off[i] + c, z);
+        z4(p, m.z_off(i) + c, z);
 #pragma unroll
         for (int k = 0; k < 4; ++k) v[k] = c + k < o ? v[k] * (z[k] > 0.0f ? 1.0f : 0.0f) : 0.0f;
       }
@@ -372,7 +395,7 @@ __device__ __forceinline__ void mlp_bwd_chain_block(unsigned char* smem, const f
           for (int k = 0; k < 4; ++k)
             if (c + k < in) v[k] = x[(size_t)(p0 + p) * d0 + c + k];
         } else {
-          z4(p, m.z_off[i - 1] + c, v);
+          z4(p, m.z_off(i - 1) + c, v);
 #pragma unroll
           for (int k = 0; k < 4; ++k) v[k] = c + k < in ? fmaxf(v[k], 0.0f) : 0.0f;
         }
@@ -387,18 +410,18 @@ __device__ __forceinline__ void mlp_bwd_chain_block(unsigned char* smem, const f
       const int q = idx / np, c = idx % np;
       float s = 0.0f;
       for (int p = q * kSumRows; p < (q + 1) * kSumRows; ++p) s += Gf[p * kLdC + c];
-      partial[((size_t)blockIdx.x * kRowsPerBlock + q) * bt + m.b_off[i] + c] = s;
+      partial[((size_t)blockIdx.x * kRowsPerBlock + q) * bt + m.b_off(i) + c] = s;
     }
     if (i > 0) {
-      product_wt<Cls>(act, wt + m.w_off[i], np, kp, 0, kp, Gf, ring);
+      product_wt<Cls>(act, wt + m.w_off(i), np, kp, 0, kp, Gf, ring);
       __syncthreads();
       continue;
     }
     // dx = G_0 W_0^T, in column passes of at most Cls::kW, each stored to dx.
     for (int c0 = 0; c0 < kp; c0 += Cls::kW) {
       const int nc = min(kp - c0, Cls::kW);
-      if (c0 > 0) stage_wt<Cls>(wt + m.w_off[0], np, kp, c0, nc, ring);
-      product_wt<Cls>(act, wt + m.w_off[0], np, kp, c0, nc, Gf, ring);
+      if (c0 > 0) stage_wt<Cls>(wt + m.w_off(0), np, kp, c0, nc, ring);
+      product_wt<Cls>(act, wt + m.w_off(0), np, kp, c0, nc, Gf, ring);
       __syncthreads();
       for (int idx = tid; idx < kPts * nc; idx += kChainThreads) {
         const int p = idx / nc, c = idx % nc;
@@ -485,8 +508,7 @@ int launch_chain(Cls, const float* x, const void* zs, const float* g, const void
   const auto kernel = chain_kernel<Cls, T, S>();
   int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMlpChainSmem);
   if (rc) return rc;
-  int bt = 0;
-  for (int i = 0; i < m.n_lin; ++i) bt += m.np_[i];
+  const int bt = m.bt;
   const int nblk = nblocks<Cls>(n);
   kernel<<<nblk, kChainThreads, kMlpChainSmem, stream>>>(x, (const S*)zs, g, (const T*)wpack, (const T*)wtpack, dx,
                                                          (T*)scratch, partial, n, m, J, bt);
@@ -555,10 +577,11 @@ int by_class(int dtypes, F f) {
 }
 
 template <class Cls>
-int parse_bwd(const int* meta, const long long* jobs, int n_jobs, MlpMeta* m, DwJobs* J, Cls cls) {
-  int rc = parse_mlp_meta(meta, m, cls);
+int parse_bwd(const int* meta, const int* meta_dev, const long long* jobs, const long long* jobs_dev, int n_jobs,
+              int n, MlpMeta* m, DwJobs* J, Cls cls) {
+  int rc = parse_mlp_meta(meta, meta_dev, m, cls);
   if (rc) return rc;
-  rc = parse_jobs(jobs, n_jobs, J);
+  rc = parse_jobs(jobs, jobs_dev, n_jobs, (long long)nblocks<Cls>(n) * Cls::kPts, J);
   if (rc) return rc;
   return n_jobs != m->n_lin ? (int)cudaErrorInvalidValue : 0;
 }
@@ -569,10 +592,10 @@ int parse_bwd(const int* meta, const long long* jobs, int n_jobs, MlpMeta* m, Dw
 // and its stash's types; wpack holds the operands' type), kWideClass the
 // wide class's.
 extern "C" int mlp_stash_fwd(const float* x, const void* wpack, const float* bpack, float* out, void* zs, int n,
-                             const int* meta, int dtypes, void* stream) {
+                             const int* meta, const int* meta_dev, int dtypes, void* stream) {
   return by_class(dtypes, [&](auto cls, int dt) {
     MlpMeta m;
-    const int rc = parse_mlp_meta(meta, &m, cls);
+    const int rc = parse_mlp_meta(meta, meta_dev, &m, cls);
     if (rc || n <= 0) return rc;
     return launch_fwd_dtypes<kMlpStash>(dt, cls, x, wpack, bpack, out, zs, n, m, (cudaStream_t)stream);
   });
@@ -580,10 +603,10 @@ extern "C" int mlp_stash_fwd(const float* x, const void* wpack, const float* bpa
 
 // dtypes: kF32Compute selects I's f32 instance, kWideClass the wide class's.
 extern "C" int mlp_fwd(const float* x, const void* wpack, const float* bpack, float* out, int n, const int* meta,
-                       int dtypes, void* stream) {
+                       const int* meta_dev, int dtypes, void* stream) {
   return by_class(dtypes, [&](auto cls, int dt) {
     MlpMeta m;
-    const int rc = parse_mlp_meta(meta, &m, cls);
+    const int rc = parse_mlp_meta(meta, meta_dev, &m, cls);
     if (rc || n <= 0) return rc;
     return launch_fwd_dtypes<kMlpPlain>(dt, cls, x, wpack, bpack, out, nullptr, n, m, (cudaStream_t)stream);
   });
@@ -594,12 +617,12 @@ extern "C" int mlp_fwd(const float* x, const void* wpack, const float* bpack, fl
 // class's; wtpack is the f32 pack's transposed blocks (null in bf16).
 extern "C" int mlp_stash_bwd(const float* x, const void* zs, const float* g, const void* wpack, const void* wtpack,
                              float* dx, void* scratch, float* partial, float* colsum, float* part_dw, float* dw,
-                             const long long* jobs, int n_jobs, int split, int n, const int* meta, int dtypes,
-                             void* stream) {
+                             const long long* jobs, const long long* jobs_dev, int n_jobs, int split, int n,
+                             const int* meta, const int* meta_dev, int dtypes, void* stream) {
   return by_class(dtypes, [&](auto cls, int dt) {
     MlpMeta m;
     DwJobs J;
-    const int rc = parse_bwd(meta, jobs, n_jobs, &m, &J, cls);
+    const int rc = parse_bwd(meta, meta_dev, jobs, jobs_dev, n_jobs, n, &m, &J, cls);
     if (rc || n <= 0) return rc;
     return launch_chain_dtypes(dt, cls, x, zs, g, wpack, wtpack, dx, scratch, partial, colsum, part_dw, dw, J, split,
                                n, m, (cudaStream_t)stream);
@@ -611,12 +634,12 @@ extern "C" int mlp_stash_bwd(const float* x, const void* zs, const float* g, con
 // f32, kWideClass the wide class's.
 extern "C" int mlp_bwd(const float* x, const float* g, const void* wpack, const void* wtpack, const float* bpack,
                        void* zsc, float* dx, void* scratch, float* partial, float* colsum, float* part_dw, float* dw,
-                       const long long* jobs, int n_jobs, int split, int n, const int* meta, int dtypes,
-                       void* stream) {
+                       const long long* jobs, const long long* jobs_dev, int n_jobs, int split, int n,
+                       const int* meta, const int* meta_dev, int dtypes, void* stream) {
   return by_class(dtypes, [&](auto cls, int dt) {
     MlpMeta m;
     DwJobs J;
-    const int rc = parse_bwd(meta, jobs, n_jobs, &m, &J, cls);
+    const int rc = parse_bwd(meta, meta_dev, jobs, jobs_dev, n_jobs, n, &m, &J, cls);
     if (rc || n <= 0) return rc;
     const cudaStream_t s = (cudaStream_t)stream;
     if (dt & kF32Compute)

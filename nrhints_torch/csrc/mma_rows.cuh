@@ -45,9 +45,10 @@
 //   are 4 sections and their 4 tangent rows, so the gate stays in registers.
 // * The SDF core's f32 instances (kernels A, D, E and H at
 //   compute_dtype="float32": sdf_fwd.cuh, sdf_bwd.cuh) and the reflectance
-//   trunk's (F, G, I and J: mlp_stash.cu) run their 64-point products on
-//   rows_product_f32 too, through gemm_rows64_f32 and gemm_rows64's f32
-//   overload at the end of this file, with a ring of kChainStagesF32 stages.
+//   trunk's (F, G, I and J: mlp_stash.cu) run their products on
+//   rows_product_f32 too, through gemm_rows_f32 at the end of this file
+//   (the 64-point instances on RowsNarrow, the wide ones on RowsWide), with
+//   a ring of kChainStagesF32 stages.
 //
 // Both engines come in two width classes (RowsNarrow, RowsWide), the
 // template argument Cls of every routine below.  RowsNarrow takes the
@@ -275,7 +276,7 @@ __device__ void sdf_rows(RowsTile<Cls>& S, const float* dir, const bf16* __restr
   const int L = m.n_layers, F = m.multi_res, d0 = m.d0;
 
   // The encoding, and the first layer's bf16 input.
-  stage_first_rows_slabs<Cls>(wpack + m.w_off[0], m.np_[0], m.kp[0], S.ring);
+  stage_first_rows_slabs<Cls>(wpack + m.w_off(0), m.np(0), m.kp(0), S.ring);
   for (int idx = tid; idx < kPts * kEnc; idx += kRowsThreads) {
     const int r = idx / kEnc, c = idx % kEnc;
     float xs[3], ts[3];
@@ -286,21 +287,21 @@ __device__ void sdf_rows(RowsTile<Cls>& S, const float* dir, const bf16* __restr
     float t = 0.0f, v = 0.0f;
     if (c < d0) v = freq_channel(xs, ts, c, F, DUAL ? &t : nullptr);
     S.enc[r][c] = v;
-    if (c < m.kp[0]) S.a[r][c] = to_bf16(v);
+    if (c < m.kp(0)) S.a[r][c] = to_bf16(v);
     if (DUAL) {
       S.enc[kPts + r][c] = t;
-      if (c < m.kp[0]) S.a[kPts + r][c] = to_bf16(t);
+      if (c < m.kp(0)) S.a[kPts + r][c] = to_bf16(t);
     }
   }
 
   for (int i = 0; i < L; ++i) {
-    const int np = m.np_[i], out = m.out_dim[i];
-    const bool last = i + 1 == L, next_skip = !last && m.skip[i + 1];
-    const int kp_next = last ? ((m.d_last + 15) / 16) * 16 : m.kp[i + 1];
+    const int np = m.np(i), out = m.out(i);
+    const bool last = i + 1 == L, next_skip = !last && m.skip(i + 1);
+    const int kp_next = last ? ((m.d_last + 15) / 16) * 16 : m.kp(i + 1);
     float acc[MT][8][4];
-    rows_product<DUAL, MT, Cls>(&S.a[0][0], wpack + m.w_off[i], m.kp[i], np, S.ring, acc);
-    if (!last) stage_first_rows_slabs<Cls>(wpack + m.w_off[i + 1], m.np_[i + 1], m.kp[i + 1], S.ring);
-    rows_epilogue<DUAL, MT, Cls>(&S.a[0][0], acc, bpack + m.b_off[i], out, np, next_skip);
+    rows_product<DUAL, MT, Cls>(&S.a[0][0], wpack + m.w_off(i), m.kp(i), np, S.ring, acc);
+    if (!last) stage_first_rows_slabs<Cls>(wpack + m.w_off(i + 1), m.np(i + 1), m.kp(i + 1), S.ring);
+    rows_epilogue<DUAL, MT, Cls>(&S.a[0][0], acc, bpack + m.b_off(i), out, np, next_skip);
     // Columns past this layer's output: the skip layer's encoding half
     // (x 1/sqrt2), then zeros up to the next padded width.
     const int tail = kp_next - out;
@@ -469,7 +470,7 @@ __device__ void sdf_rows_f32(RowsTileF32<Cls>& S, const float* dir, const float*
   const int L = m.n_layers, F = m.multi_res, d0 = m.d0;
 
   // The encoding, which is also the first layer's input.
-  stage_first_slabs_f32<ST, Cls>(wpack + m.w_off[0], m.np_[0], m.kp[0], m.np_[0], S.ring);
+  stage_first_slabs_f32<ST, Cls>(wpack + m.w_off(0), m.np(0), m.kp(0), m.np(0), S.ring);
   for (int idx = tid; idx < kPts * kEnc; idx += kRowsThreads) {
     const int r = idx / kEnc, c = idx % kEnc;
     float xs[3], ts[3];
@@ -480,23 +481,23 @@ __device__ void sdf_rows_f32(RowsTileF32<Cls>& S, const float* dir, const float*
     float t = 0.0f, v = 0.0f;
     if (c < d0) v = freq_channel(xs, ts, c, F, DUAL ? &t : nullptr);
     S.enc[r][c] = v;
-    if (c < m.kp[0]) S.a[r][c] = v;
+    if (c < m.kp(0)) S.a[r][c] = v;
     if (DUAL) {
       S.enc[kPts + r][c] = t;
-      if (c < m.kp[0]) S.a[kPts + r][c] = t;
+      if (c < m.kp(0)) S.a[kPts + r][c] = t;
     }
   }
 
   for (int i = 0; i < L; ++i) {
-    const int out = m.out_dim[i];
-    const bool last = i + 1 == L, next_skip = !last && m.skip[i + 1];
-    const int kp_next = last ? ((m.d_last + 15) / 16) * 16 : m.kp[i + 1];
+    const int out = m.out(i);
+    const bool last = i + 1 == L, next_skip = !last && m.skip(i + 1);
+    const int kp_next = last ? ((m.d_last + 15) / 16) * 16 : m.kp(i + 1);
     float acc[8][4];
-    rows_product_f32<DUAL, ST, Cls>(&S.a[0][0], Cls::kLdF, wpack + m.w_off[i], m.np_[i], m.kp[i], m.np_[i], S.ring,
+    rows_product_f32<DUAL, ST, Cls>(&S.a[0][0], Cls::kLdF, wpack + m.w_off(i), m.np(i), m.kp(i), m.np(i), S.ring,
                                     acc);
     if (!last)
-      stage_first_slabs_f32<ST, Cls>(wpack + m.w_off[i + 1], m.np_[i + 1], m.kp[i + 1], m.np_[i + 1], S.ring);
-    rows_epilogue_f32<DUAL, Cls>(&S.a[0][0], acc, bpack + m.b_off[i], out, next_skip);
+      stage_first_slabs_f32<ST, Cls>(wpack + m.w_off(i + 1), m.np(i + 1), m.kp(i + 1), m.np(i + 1), S.ring);
+    rows_epilogue_f32<DUAL, Cls>(&S.a[0][0], acc, bpack + m.b_off(i), out, next_skip);
     // Columns past this layer's output: the skip layer's encoding half
     // (x 1/sqrt2), then zeros up to the next padded width.
     const int tail = kp_next - out;
@@ -520,8 +521,8 @@ __device__ void sdf_rows_f32(RowsTileF32<Cls>& S, const float* dir, const float*
 }
 
 // ---------------------------------------------------------------------------
-// gemm_rows64's f32 overload: the products of the 64-point kernels' f32
-// instances (the SDF core's and the reflectance trunk's)
+// gemm_rows_f32: the products of the SDF core's and the reflectance trunk's
+// f32 instances
 
 // The f32 chain's ring: two stages of kSlabF32 f32 k-rows (64 KB); with its
 // f32 activation and carry tiles and the encoding, a 64-point block of the
@@ -533,8 +534,8 @@ constexpr int kChainStagesF32 = 2;
 // 0 selects f32 dot operands (compute_dtype="float32"), bit 1 an f32 stash
 // (stash_dtype="float32"); core_mlp.py::dtype_bits writes it.
 constexpr int kF32Compute = 1, kF32Stash = 2;
-// Bit 2 of the SDF core's dtypes selects the wide instances (CoreWide, bf16
-// operands and stash; core_mlp.py's wide class).
+// Bit 2 selects the wide instances (the SDF core's CoreWide, the trunk's
+// TrunkWide: core_mlp.py's wide classes), at every pair of the other bits.
 constexpr int kWideClass = 4;
 
 // The 64-point kernels' shared-memory layout by operand type: the
@@ -550,19 +551,20 @@ struct CoreTile<float> {
   static constexpr int kLdAct = kLdZ, kRing = kChainStagesF32 * kRingStageF32;
 };
 
-// C[64, N] = A[64, K] @ B with f32 operands (exact f32 dots: one fmaf a
+// C[R, N] = A[R, K] @ B with f32 operands (exact f32 dots: one fmaf a
 // multiply-add in k order, as sdf_core_ref and mlp_relu_ref compute with
-// cdt=None), after stage_first_slabs_f32<kChainStagesF32>(B, ldb, K, N,
-// ring).  A is an f32 tile of row stride lda, B a row-major [K, N] f32
-// block of row stride ldb (multiples of 4; N at most kWMax).  The same
-// contract as the bf16 gemm_rows64: every thread calls it, it begins with a
-// barrier and returns with the ring free; C is complete after the caller's
-// next __syncthreads().  C may be A itself: every thread is past its last
-// read of A before any C is stored.  gemm_rows_f32<RowsWide> is the same
-// product on the wide class's f32 engine: C[32, N] for N up to kWideWMax
-// (the reflectance trunk's wide f32 instances, mlp_stash.cu), after
-// stage_first_slabs_f32<kChainStagesF32, RowsWide>; its ring has as many
-// floats (two stages of 16 k-rows by 512 columns).
+// cdt=None) on Cls's f32 engine, R = Cls::kRowsF rows, after
+// stage_first_slabs_f32<kChainStagesF32, Cls>(B, ldb, K, N, ring).  A is an
+// f32 tile of row stride lda, B a row-major [K, N] f32 block of row stride
+// ldb (multiples of 4; N at most Cls::kW).  RowsNarrow: the 64-point
+// kernels' f32 instances (the SDF core's and the reflectance trunk's), 64
+// rows by up to 256 columns; RowsWide: their wide classes' (32-point
+// blocks), 32 rows by up to 512 columns, on a ring of as many floats (two
+// stages of 16 k-rows by 512 columns).  The same contract as the bf16
+// gemm_rows64: every thread calls it, it begins with a barrier and returns
+// with the ring free; C is complete after the caller's next
+// __syncthreads().  C may be A itself: every thread is past its last read
+// of A before any C is stored.
 template <class Cls = RowsNarrow>
 __device__ __forceinline__ void gemm_rows_f32(const float* A, int lda, const float* __restrict__ B, int ldb, int K,
                                               int N, float* C, int ldc, float* ring) {
@@ -574,46 +576,40 @@ __device__ __forceinline__ void gemm_rows_f32(const float* A, int lda, const flo
 #pragma unroll
     for (int i = 0; i < 8; ++i) st_f4(C + f32_row<false, Cls>(g, i) * ldc + c0, acc[i]);
 }
-__device__ __forceinline__ void gemm_rows64_f32(const float* A, int lda, const float* __restrict__ B, int ldb, int K,
-                                                int N, float* C, int ldc, float* ring) {
-  gemm_rows_f32<RowsNarrow>(A, lda, B, ldb, K, N, C, ldc, ring);
-}
 static_assert(kChainStagesF32 * RowsWide::kSlabF * RowsWide::kW == kChainStagesF32 * kRingStageF32,
               "the wide f32 ring holds as many floats as the 64-point one");
 
-// stage_first_slabs and gemm_rows64 with f32 operands, in the bf16
-// overloads' argument order: B is the row-major [K, N] f32 block of row
-// stride N (ldb is not read), A the f32 tile of row stride lda.  A
-// transposed product, which the bf16 instances read as the transpose of the
-// [N, K] weight, reads the weight's own transposed block of the f32 pack
-// (core_mlp.pack_sdf_mlp's and pack_mlp's wtpack).
-template <bool TRANS_B>
-__device__ __forceinline__ void stage_first_slabs(const float* __restrict__ B, int ldb, int K, int N, float* ring) {
-  stage_first_slabs_f32<kChainStagesF32>(B, N, K, N, ring);
-}
-
-template <bool TRANS_B>
-__device__ void gemm_rows64(const float* A, int lda, const float* __restrict__ B, int ldb, int K, int N, float* C,
-                            int ldc, float* ring) {
-  gemm_rows64_f32(A, lda, B, N, K, N, C, ldc, ring);
-}
-
 // The SDF core's products by width class (CoreNarrow, CoreWide) and operand
 // type: the first slabs of a product (the first column pass's in the wide
-// class), and the product, gemm_rows64 or gemm_rows32.  The wide class is
-// bf16 only.  kCoreLdAct is the activation tile's row stride.
+// bf16 class), and the product.  bf16: gemm_rows64, or gemm_rows32's column
+// passes.  f32: gemm_rows_f32 on the f32 engine's class of as many rows
+// (CoreRowsF32: RowsNarrow's 64, RowsWide's 32), B the row-major [K, N] f32
+// block of row stride N (ldb is not read); a transposed product, which the
+// bf16 instances read as the transpose of the [N, K] weight, reads the
+// weight's own transposed block of the f32 pack (core_mlp.pack_sdf_mlp's
+// and pack_mlp's wtpack).  kCoreLdAct is the activation tile's row stride.
 template <class Cls, typename T>
 constexpr int kCoreLdAct = std::is_same<T, float>::value ? Cls::kLdC : Cls::kW + 8;
+template <class Cls>
+using CoreRowsF32 = typename std::conditional<Cls::kPts == kChainTP, RowsNarrow, RowsWide>::type;
+static_assert(CoreRowsF32<CoreNarrow>::kRowsF == CoreNarrow::kPts && CoreRowsF32<CoreWide>::kRowsF == CoreWide::kPts &&
+                  CoreRowsF32<CoreWide>::kW == CoreWide::kW,
+              "the f32 engine's class of a core class covers its points and widths");
 
 template <class Cls, bool TRANS_B, typename T>
 __device__ __forceinline__ void core_stage(const T* __restrict__ B, int ldb, int K, int N, T* ring) {
-  stage_first_slabs<TRANS_B>(B, ldb, K, Cls::kPts == kChainTP ? N : min(N, kWMax), ring);
+  if constexpr (std::is_same<T, float>::value)
+    stage_first_slabs_f32<kChainStagesF32, CoreRowsF32<Cls>>(B, N, K, N, ring);
+  else
+    stage_first_slabs<TRANS_B>(B, ldb, K, Cls::kPts == kChainTP ? N : min(N, kWMax), ring);
 }
 
 template <class Cls, bool TRANS_B, typename T>
 __device__ __forceinline__ void core_gemm(const T* A, int lda, const T* __restrict__ B, int ldb, int K, int N,
                                           float* C, int ldc, T* ring) {
-  if constexpr (Cls::kPts == kChainTP)
+  if constexpr (std::is_same<T, float>::value)
+    gemm_rows_f32<CoreRowsF32<Cls>>(A, lda, B, N, K, N, C, ldc, ring);
+  else if constexpr (Cls::kPts == kChainTP)
     gemm_rows64<TRANS_B>(A, lda, B, ldb, K, N, C, ldc, ring);
   else
     gemm_rows32<TRANS_B>(A, lda, B, ldb, K, N, C, ldc, ring);

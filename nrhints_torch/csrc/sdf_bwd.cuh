@@ -8,7 +8,7 @@
 // T is the dot operands' type, S the stash's, as in sdf_fwd.cuh: at
 // compute_dtype="float32" the activation tile, the ring, the weights and
 // the dW operands in the scratch are f32 (every product on mma_rows.cuh's
-// f32 gemm_rows64, the dW passes on dw_sum.cuh's f32 tiles) and nothing is
+// gemm_rows_f32, the dW passes on dw_sum.cuh's f32 tiles) and nothing is
 // rounded but what the stash's type S rounds.  H's f32 instance reads its
 // own f32 h_i (S = T).  Every T-dependent step reduces to the bf16
 // expressions at T = S = bf16, so the bf16 instance gives the shipping
@@ -16,9 +16,9 @@
 //
 // Cls is the width class, as in sdf_fwd.cuh: CoreNarrow, the 64-point
 // instances sdf_bwd_chain_kernel<T, S, GATES, US>; or CoreWide,
-// sdf_bwd_chain_wide_kernel<GATES, US> (bf16 operands and stash): 32-point
-// blocks, padded widths up to 512 and encodings up to 128, every product
-// in gemm_rows32's column passes.
+// sdf_bwd_chain_wide_kernel<T, S, GATES, US>: 32-point blocks, padded
+// widths up to 512 and encodings up to 128, every bf16 product in
+// gemm_rows32's column passes, every f32 one on gemm_rows_f32<RowsWide>.
 #pragma once
 
 #include "dw_sum.cuh"
@@ -29,15 +29,15 @@ namespace nrh {
 // Shared memory of the chain: the activation tile of T, the f32 carry tile
 // (every product writes its output there in place), the encoding, the
 // weight ring and d sdf / scale per point: 227,584 bytes in bf16, 215,296
-// in f32 (two 32-row f32 stages), 226,432 in the wide class (32 points),
-// one block per SM.
+// in f32 (two 32-row f32 stages), 226,432 and 214,144 in the wide class
+// (32 points), one block per SM.
 template <class Cls, typename T>
 constexpr size_t chain_smem() {
   return Cls::kPts * kCoreLdAct<Cls, T> * sizeof(T) + Cls::kPts * Cls::kLdC * sizeof(float) +
          Cls::kPts * Cls::kEnc * sizeof(float) + CoreTile<T>::kRing * sizeof(T) + Cls::kPts * sizeof(float);
 }
 static_assert(chain_smem<CoreNarrow, bf16>() == 227584 && chain_smem<CoreNarrow, float>() == 215296 &&
-                  chain_smem<CoreWide, bf16>() == 226432,
+                  chain_smem<CoreWide, bf16>() == 226432 && chain_smem<CoreWide, float>() == 214144,
               "the chain's shared-memory budget");
 
 // f32 per point of the chain's device-memory scratch: u_i then dL/dh_i of
@@ -114,7 +114,7 @@ __device__ __forceinline__ void sdf_bwd_chain_block(
   };
 
   // 0. Encoding of 3x; the cotangents.
-  if (!US) core_stage<Cls, true>(wt + m.w_off[L - 1], m.np_[L - 1], m.np_[L - 1], m.kp[L - 1], ring);
+  if (!US) core_stage<Cls, true>(wt + m.w_off(L - 1), m.np(L - 1), m.np(L - 1), m.kp(L - 1), ring);
   for (int idx = tid; idx < kPts * kEnc; idx += kChainThreads) {
     const int p = idx / kEnc, c = idx % kEnc, gp = p0 + p;
     float xs[3];
@@ -145,8 +145,8 @@ __device__ __forceinline__ void sdf_bwd_chain_block(
     }
   }
   for (int i = L - 1; i >= 0 && !US; --i) {
-    const int np = m.np_[i], out = m.out_dim[i], in = m.in_dim[i], kp = m.kp[i], goff = m.b_off[i];
-    if (i < L - 1) core_stage<Cls, true>(wt + m.w_off[i], np, np, kp, ring);
+    const int np = m.np(i), out = m.out(i), in = m.in(i), kp = m.kp(i), goff = m.b_off(i);
+    if (i < L - 1) core_stage<Cls, true>(wt + m.w_off(i), np, np, kp, ring);
     for (int idx = tid; idx < kPts * (np / 4); idx += kChainThreads) {
       const int p = idx / (np / 4), c = (idx % (np / 4)) * 4;
       float u[4], gate[4], t[4];
@@ -160,9 +160,9 @@ __device__ __forceinline__ void sdf_bwd_chain_block(
       st_f4(U(p, goff + c), u);
       st4(act + p * kLdAct + c, t);
     }
-    core_gemm<Cls, true>(act, kLdAct, wt + m.w_off[i], np, np, kp, G, kLdC, ring);
+    core_gemm<Cls, true>(act, kLdAct, wt + m.w_off(i), np, np, kp, G, kLdC, ring);
     __syncthreads();
-    if (m.skip[i]) {  // elsewhere the product is already the carry
+    if (m.skip(i)) {  // elsewhere the product is already the carry
       const int split = in - d0;
       for (int idx = tid; idx < kPts * in; idx += kChainThreads) {
         const int p = idx / in, c = idx % in;
@@ -183,7 +183,7 @@ __device__ __forceinline__ void sdf_bwd_chain_block(
 
   // 2. The Tail VJP: gx = (g_enc[:3] + sum_f dS_f 2^f) * scale with
   // dS = g_sin cos_b - g_cos sin_b.
-  core_stage<Cls, false>(wpack + m.w_off[0], m.np_[0], m.kp[0], m.np_[0], ring);
+  core_stage<Cls, false>(wpack + m.w_off(0), m.np(0), m.kp(0), m.np(0), ring);
   for (int idx = tid; idx < kPts * d0; idx += kChainThreads) {
     const int p = idx / d0, c = idx % d0, gp = p0 + p;
     const float* e = enc + p * kEnc;
@@ -212,11 +212,11 @@ __device__ __forceinline__ void sdf_bwd_chain_block(
   // sweep output), t_i = u_i gate_i; dt = v_i W_i; dL/dh_i = dt u_i 100
   // (1 - gate_i) (into U), carry = dt gate_i.
   for (int i = 0; i < L; ++i) {
-    const int np = m.np_[i], out = m.out_dim[i], in = m.in_dim[i], kp = m.kp[i], goff = m.b_off[i];
-    const int split = m.skip[i] ? in - d0 : in;
-    T* Aop = scratch + jobs.a_off[i];
-    T* Bop = scratch + jobs.b_off[i];
-    if (i > 0) core_stage<Cls, false>(wpack + m.w_off[i], np, kp, np, ring);
+    const int np = m.np(i), out = m.out(i), in = m.in(i), kp = m.kp(i), goff = m.b_off(i);
+    const int split = m.skip(i) ? in - d0 : in;
+    T* Aop = scratch + jobs.a(i);
+    T* Bop = scratch + jobs.b(i);
+    if (i > 0) core_stage<Cls, false>(wpack + m.w_off(i), np, kp, np, ring);
     for (int idx = tid; idx < kPts * (kp / 4); idx += kChainThreads) {
       const int p = idx / (kp / 4), c = (idx % (kp / 4)) * 4;
       float v[4];
@@ -225,7 +225,7 @@ __device__ __forceinline__ void sdf_bwd_chain_block(
         const int ck = c + k;
         v[k] = 0.0f;
         if (ck < in && p0 + p < n) {
-          if (m.skip[i])
+          if (m.skip(i))
             v[k] = (ck < split ? G[p * kLdC + ck] : dgenc(p, ck - split)) * kInvSqrt2;
           else
             v[k] = G[p * kLdC + ck];
@@ -234,7 +234,7 @@ __device__ __forceinline__ void sdf_bwd_chain_block(
       st4(act + p * kLdAct + c, v);
       st4(Aop + (size_t)(p0 + p) * kp + c, v);
     }
-    core_gemm<Cls, false>(act, kLdAct, wpack + m.w_off[i], np, kp, np, G, kLdC, ring);
+    core_gemm<Cls, false>(act, kLdAct, wpack + m.w_off(i), np, kp, np, G, kLdC, ring);
     __syncthreads();
     // t_i (dW_i's first B operand) from the same u_i and gates.
     for (int idx = tid; idx < kPts * (np / 4); idx += kChainThreads) {
@@ -262,7 +262,7 @@ __device__ __forceinline__ void sdf_bwd_chain_block(
   // 3b. The heads.  Column sums: the final carry (the sdf head's column,
   // / scale by the caller), h_L . rnd<T>(ds / scale), d b_sdf, d b_feat.
   const int o_bf = GT, o_bs = GT + npf, o_hds = GT + npf + 1, o_carry = o_hds + kpf;
-  const int lgoff = m.b_off[L - 1];
+  const int lgoff = m.b_off(L - 1);
   core_stage<Cls, true>(wt + m.wf_off, npf, npf, kpf, ring);
   for (int c = tid; c < kpf; c += kChainThreads) {
     float sc = 0.0f, sh = 0.0f;
@@ -290,8 +290,8 @@ __device__ __forceinline__ void sdf_bwd_chain_block(
     prow[o_bs] = s;
   }
   {
-    T* Aop = scratch + jobs.a_off[L];
-    T* Bop = scratch + jobs.b_off[L];
+    T* Aop = scratch + jobs.a(L);
+    T* Bop = scratch + jobs.b(L);
     for (int idx = tid; idx < kPts * (kpf / 4); idx += kChainThreads) {
       const int p = idx / (kpf / 4), c = (idx % (kpf / 4)) * 4;
       float h[4];
@@ -314,9 +314,9 @@ __device__ __forceinline__ void sdf_bwd_chain_block(
   // The carry's column sums above read G before the product overwrites it.
   core_gemm<Cls, true>(act, kLdAct, wt + m.wf_off, npf, npf, kpf, G, kLdC, ring);
   __syncthreads();
-  core_stage<Cls, true>(wt + m.w_off[L - 1], m.np_[L - 1], m.np_[L - 1], m.kp[L - 1], ring);
-  for (int idx = tid; idx < kPts * (m.np_[L - 1] / 4); idx += kChainThreads) {
-    const int p = idx / (m.np_[L - 1] / 4), c = (idx % (m.np_[L - 1] / 4)) * 4;
+  core_stage<Cls, true>(wt + m.w_off(L - 1), m.np(L - 1), m.np(L - 1), m.kp(L - 1), ring);
+  for (int idx = tid; idx < kPts * (m.np(L - 1) / 4); idx += kChainThreads) {
+    const int p = idx / (m.np(L - 1) / 4), c = (idx % (m.np(L - 1) / 4)) * 4;
     float z[4], u[4], g[4];
     ld_f4(G + p * kLdC + c, z);
     ld_f4(U(p, lgoff + c), u);
@@ -330,11 +330,11 @@ __device__ __forceinline__ void sdf_bwd_chain_block(
   // 4. The forward z-chain, descending: Gz_i = G gate_i; dW_i's second half
   // is inp_i^T Gz_i; G_{i-1} = (Gz_i W_i^T)[:split] + dL/dh_{i-1}.
   for (int i = L - 1; i >= 0; --i) {
-    const int np = m.np_[i], out = m.out_dim[i], in = m.in_dim[i], kp = m.kp[i], goff = m.b_off[i];
-    const int split = m.skip[i] ? in - d0 : in;
-    const int poff = i > 0 ? m.b_off[i - 1] : 0;
-    T* Aop = scratch + jobs.a_off[i] + npad * kp;
-    T* Bop = scratch + jobs.b_off[i] + npad * np;
+    const int np = m.np(i), out = m.out(i), in = m.in(i), kp = m.kp(i), goff = m.b_off(i);
+    const int split = m.skip(i) ? in - d0 : in;
+    const int poff = i > 0 ? m.b_off(i - 1) : 0;
+    T* Aop = scratch + jobs.a(i) + npad * kp;
+    T* Bop = scratch + jobs.b(i) + npad * np;
     for (int idx = tid; idx < kPts * (np / 4); idx += kChainThreads) {
       const int p = idx / (np / 4), c = (idx % (np / 4)) * 4;
       float g[4], gate[4], gz[4];
@@ -350,7 +350,7 @@ __device__ __forceinline__ void sdf_bwd_chain_block(
       const int p = idx / (kp / 4), c = (idx % (kp / 4)) * 4;
       float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       if (p0 + p < n) {
-        if (i > 0 && !m.skip[i] && c + 4 <= in) {
+        if (i > 0 && !m.skip(i) && c + 4 <= in) {
           hval4(p, poff + c, v);
         } else {
 #pragma unroll
@@ -358,7 +358,7 @@ __device__ __forceinline__ void sdf_bwd_chain_block(
             const int ck = c + k;
             if (i == 0)
               v[k] = ck < d0 ? enc[p * kEnc + ck] : 0.0f;
-            else if (m.skip[i])
+            else if (m.skip(i))
               v[k] = (ck < split ? hval(p, poff + ck) : (ck < in ? enc[p * kEnc + ck - split] : 0.0f)) * kInvSqrt2;
             else
               v[k] = ck < in ? hval(p, poff + ck) : 0.0f;
@@ -374,11 +374,11 @@ __device__ __forceinline__ void sdf_bwd_chain_block(
       for (int p = 0; p < kPts; ++p) s += G[p * kLdC + c];
       prow[goff + c] = s;
     }
-    core_gemm<Cls, true>(act, kLdAct, wt + m.w_off[i], np, np, kp, G, kLdC, ring);
+    core_gemm<Cls, true>(act, kLdAct, wt + m.w_off(i), np, np, kp, G, kLdC, ring);
     __syncthreads();
     // The next layer's first slabs (the head's product staged layer L - 1's).
-    if (i > 0) core_stage<Cls, true>(wt + m.w_off[i - 1], m.np_[i - 1], m.np_[i - 1], m.kp[i - 1], ring);
-    if (i > 0 && !m.skip[i]) {
+    if (i > 0) core_stage<Cls, true>(wt + m.w_off(i - 1), m.np(i - 1), m.np(i - 1), m.kp(i - 1), ring);
+    if (i > 0 && !m.skip(i)) {
       for (int idx = tid; idx < kPts * (kp / 4); idx += kChainThreads) {
         const int p = idx / (kp / 4), c = (idx % (kp / 4)) * 4;
         float z[4], u[4];
@@ -392,7 +392,7 @@ __device__ __forceinline__ void sdf_bwd_chain_block(
       for (int idx = tid; idx < kPts * in; idx += kChainThreads) {
         const int p = idx / in, c = idx % in;
         float v = G[p * kLdC + c];
-        if (m.skip[i]) v *= kInvSqrt2;
+        if (m.skip(i)) v *= kInvSqrt2;
         if (i == 0)
           denc(p, c) += v;
         else if (c < split)
@@ -437,93 +437,86 @@ __global__ void __launch_bounds__(kChainThreads)
                                                    scratch, cscr, partial, n, m, jobs, scale);
 }
 
-template <bool GATES, bool US>
+template <typename T, typename S, bool GATES, bool US>
 __global__ void __launch_bounds__(kChainThreads)
-    sdf_bwd_chain_wide_kernel(const float* __restrict__ x, const bf16* __restrict__ stash,
+    sdf_bwd_chain_wide_kernel(const float* __restrict__ x, const S* __restrict__ stash,
                               const float* __restrict__ gsc, const float* __restrict__ ds,
                               const float* __restrict__ df, const float* __restrict__ dgx,
-                              const bf16* __restrict__ wpack, const float* __restrict__ w_sdf,
-                              float* __restrict__ dx, bf16* __restrict__ scratch, float* __restrict__ cscr,
-                              float* __restrict__ partial, int n, const SdfMeta m, const DwJobs jobs, float scale) {
+                              const T* __restrict__ wpack, const T* __restrict__ wtpack,
+                              const float* __restrict__ w_sdf, float* __restrict__ dx, T* __restrict__ scratch,
+                              float* __restrict__ cscr, float* __restrict__ partial, int n, const SdfMeta m,
+                              const DwJobs jobs, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  sdf_bwd_chain_block<CoreWide, bf16, bf16, GATES, US>(smem, x, stash, gsc, ds, df, dgx, wpack, nullptr, w_sdf, dx,
-                                                       scratch, cscr, partial, n, m, jobs, scale);
+  sdf_bwd_chain_block<CoreWide, T, S, GATES, US>(smem, x, stash, gsc, ds, df, dgx, wpack, wtpack, w_sdf, dx, scratch,
+                                                 cscr, partial, n, m, jobs, scale);
 }
 
-// The chain, then dw_sum.cuh's passes, on `stream`; returns the first
-// launch error.
-template <typename T, typename S, bool GATES, bool US>
+// The class's chain kernel of each template.
+template <class Cls, typename T, typename S, bool GATES, bool US>
+auto chain_kernel() {
+  if constexpr (std::is_same<Cls, CoreWide>::value)
+    return sdf_bwd_chain_wide_kernel<T, S, GATES, US>;
+  else
+    return sdf_bwd_chain_kernel<T, S, GATES, US>;
+}
+
+// The chain of class Cls (blocks of Cls::kPts points), then dw_sum.cuh's
+// passes, on `stream`; returns the first launch error.
+template <class Cls, typename T, typename S, bool GATES, bool US>
 inline int launch_sdf_bwd(const float* x, const void* stash, const float* gsc, const float* ds, const float* df,
                           const float* dgx, const void* wpack, const void* wtpack, const float* w_sdf, float* dx,
                           void* scratch, float* cscr, float* partial, float* colsum, float* part_dw, float* dw,
                           const SdfMeta& m, const DwJobs& jobs, int split, int n, float scale, cudaStream_t stream) {
-  const size_t smem = chain_smem<CoreNarrow, T>();
-  int rc = (int)cudaFuncSetAttribute(sdf_bwd_chain_kernel<T, S, GATES, US>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = chain_smem<Cls, T>();
+  const auto kernel = chain_kernel<Cls, T, S, GATES, US>();
+  int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc) return rc;
-  const int nblk = (n + kChainTP - 1) / kChainTP;
-  sdf_bwd_chain_kernel<T, S, GATES, US><<<nblk, kChainThreads, smem, stream>>>(
-      x, (const S*)stash, gsc, ds, df, dgx, (const T*)wpack, (const T*)wtpack, w_sdf, dx, (T*)scratch, cscr,
-      partial, n, m, jobs, scale);
+  const int nblk = (n + Cls::kPts - 1) / Cls::kPts;
+  kernel<<<nblk, kChainThreads, smem, stream>>>(x, (const S*)stash, gsc, ds, df, dgx, (const T*)wpack,
+                                                (const T*)wtpack, w_sdf, dx, (T*)scratch, cscr, partial, n, m, jobs,
+                                                scale);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   const int pw = m.gates_total + m.npf + 1 + 2 * m.kpf;
   return launch_dw_sums((const T*)scratch, part_dw, dw, jobs, split, partial, nblk, pw, colsum, stream);
 }
 
-// The wide instance's chain (32-point blocks) and the same dW passes;
-// wtpack is not read.
-template <bool GATES, bool US>
-inline int launch_sdf_bwd_wide(const float* x, const void* stash, const float* gsc, const float* ds,
-                               const float* df, const float* dgx, const void* wpack, const void*, const float* w_sdf,
-                               float* dx, void* scratch, float* cscr, float* partial, float* colsum, float* part_dw,
-                               float* dw, const SdfMeta& m, const DwJobs& jobs, int split, int n, float scale,
-                               cudaStream_t stream) {
-  const size_t smem = chain_smem<CoreWide, bf16>();
-  int rc = (int)cudaFuncSetAttribute(sdf_bwd_chain_wide_kernel<GATES, US>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (rc) return rc;
-  const int nblk = (n + kWidePts - 1) / kWidePts;
-  sdf_bwd_chain_wide_kernel<GATES, US><<<nblk, kChainThreads, smem, stream>>>(
-      x, (const bf16*)stash, gsc, ds, df, dgx, (const bf16*)wpack, w_sdf, dx, (bf16*)scratch, cscr, partial, n, m,
-      jobs, scale);
-  rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  const int pw = m.gates_total + m.npf + 1 + 2 * m.kpf;
-  return launch_dw_sums((const bf16*)scratch, part_dw, dw, jobs, split, partial, nblk, pw, colsum, stream);
-}
-
-// launch_sdf_bwd at the instance the dtypes select (kF32Compute,
-// kF32Stash; kWideClass alone the wide instance); H's chain (GATES) reads
-// its own h_i, S = T.
-template <bool GATES, bool US, typename... A>
-inline int launch_sdf_bwd_dtypes(int dtypes, A... a) {
-  if (dtypes & kWideClass)
-    return dtypes == kWideClass ? launch_sdf_bwd_wide<GATES, US>(a...) : (int)cudaErrorInvalidValue;
+// launch_sdf_bwd at the instance the dtypes select: kF32Compute and
+// kF32Stash the (operand, stash) pair, kWideClass the class; H's chain
+// (GATES) reads its own h_i, S = T.
+template <bool GATES, bool US, class Cls, typename... A>
+inline int launch_sdf_bwd_pair(int dtypes, A... a) {
   if constexpr (GATES) {
-    return dtypes & kF32Compute ? launch_sdf_bwd<float, float, GATES, US>(a...)
-                                : launch_sdf_bwd<bf16, bf16, GATES, US>(a...);
+    return dtypes & kF32Compute ? launch_sdf_bwd<Cls, float, float, GATES, US>(a...)
+                                : launch_sdf_bwd<Cls, bf16, bf16, GATES, US>(a...);
   } else {
     switch (dtypes) {
       case 0:
-        return launch_sdf_bwd<bf16, bf16, GATES, US>(a...);
+        return launch_sdf_bwd<Cls, bf16, bf16, GATES, US>(a...);
       case kF32Compute:
-        return launch_sdf_bwd<float, bf16, GATES, US>(a...);
+        return launch_sdf_bwd<Cls, float, bf16, GATES, US>(a...);
       case kF32Stash:
-        return launch_sdf_bwd<bf16, float, GATES, US>(a...);
+        return launch_sdf_bwd<Cls, bf16, float, GATES, US>(a...);
       case kF32Compute | kF32Stash:
-        return launch_sdf_bwd<float, float, GATES, US>(a...);
+        return launch_sdf_bwd<Cls, float, float, GATES, US>(a...);
     }
     return (int)cudaErrorInvalidValue;
   }
 }
+template <bool GATES, bool US, typename... A>
+inline int launch_sdf_bwd_dtypes(int dtypes, A... a) {
+  if (dtypes & kWideClass) return launch_sdf_bwd_pair<GATES, US, CoreWide>(dtypes ^ kWideClass, a...);
+  return launch_sdf_bwd_pair<GATES, US, CoreNarrow>(dtypes, a...);
+}
 
 // The checks both launchers make on their tables (the meta at the limits
-// of the width class the dtypes select).
-inline int parse_sdf_bwd(const int* meta, const long long* jobs, int n_jobs, int dtypes, SdfMeta* m, DwJobs* J) {
-  int rc = parse_meta(meta, m, dtypes & kWideClass);
+// of the width class the dtypes select, the jobs at its padded points).
+inline int parse_sdf_bwd(const int* meta, const int* meta_dev, const long long* jobs, const long long* jobs_dev,
+                         int n_jobs, int n, int dtypes, SdfMeta* m, DwJobs* J) {
+  int rc = parse_meta(meta, meta_dev, m, dtypes & kWideClass);
   if (rc) return rc;
-  rc = parse_jobs(jobs, n_jobs, J);
+  const int pts = dtypes & kWideClass ? CoreWide::kPts : CoreNarrow::kPts;
+  rc = parse_jobs(jobs, jobs_dev, n_jobs, (long long)((n + pts - 1) / pts) * pts, J);
   if (rc) return rc;
   return n_jobs != m->n_layers + 1 || m->d_feat < 1 ? (int)cudaErrorInvalidValue : 0;
 }

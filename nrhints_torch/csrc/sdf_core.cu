@@ -63,7 +63,7 @@
 // stash_dtype="float32" (an f32 stash): the dtypes argument selects
 // sdf_core_fwd_kernel<T, S, MODE> (sdf_fwd.cuh).  Bound on an H100: A's and
 // D's 128.9 GFLOP at the 67 TFLOP/s f32 peak, 1.92 ms a 65,536-point call.
-// Design: every product on mma_rows.cuh's f32 gemm_rows64 (the march's f32 row
+// Design: every product on mma_rows.cuh's gemm_rows_f32 (the march's f32 row
 // engine, one fmaf a multiply-add in k order, on a 2-stage ring of 32-row
 // f32 slabs), an f32 activation tile beside the f32 carry tile: 215,040
 // bytes of shared memory, one block per SM; the reverse sweep's transposed
@@ -71,9 +71,10 @@
 //
 // The wide instances replace the same pallas_calls above the presets'
 // widths (JAX's Pallas kernels take any SDFNetConfig): padded hidden and
-// feature widths up to 512, encodings up to 128 (multi_res <= 20), bf16
-// operands and stash; the dtypes argument's kWideClass bit selects
-// sdf_core_fwd_wide_kernel<MODE> (sdf_fwd.cuh).  Bound on an H100 at
+// feature widths up to 512, encodings up to 128 (multi_res <= 20), at
+// every (operand, stash) dtype pair; the dtypes argument's kWideClass bit
+// selects sdf_core_fwd_wide_kernel<T, S, MODE> (sdf_fwd.cuh).  Bound on an
+// H100 at
 // d_hidden = 512 (8 layers, skip at 4, multi_res 6, a 256-wide feature
 // head): 3.80 M multiply-adds a point, 498 GFLOP a 65,536-point call, 0.50
 // ms at 989 TFLOP/s bf16 (3.9x the 256-wide); D adds 533 MB of bf16 stash
@@ -91,29 +92,39 @@
 // reuse, at 4x the products a point.  The gate scratch keeps the same
 // column layout on 32-point padded rows (core_mlp.gate_layout at the wide
 // class's block): 1.06 GB at 65,536 points at d_hidden 512.
+// The wide f32 instances (compute_dtype="float32", and D's f32 stash):
+// A's and D's 498 GFLOP at d_hidden 512 at the 67 TFLOP/s f32 peak, 7.43 ms
+// a 65,536-point call; D's f32 stash adds 1.07 GB (0.32 ms).  Design: the
+// same 32-point blocks with an f32 activation tile [32][516] beside the
+// carry, every product on mma_rows.cuh's gemm_rows_f32<RowsWide> (32 rows
+// by up to 512 columns a pass, one fmaf a multiply-add in k order, two
+// ring stages of 16 f32 k-rows by 512 columns), the reverse sweep's
+// products on the f32 pack's transposed blocks (wtpack): 214,016 bytes of
+// shared memory, one block per SM.
 #include "sdf_fwd.cuh"
 
 using namespace nrh;
 
 // dtypes: kF32Compute selects A's f32 instance (wpack and wtpack the f32
-// pack; wtpack is null in bf16), kWideClass alone the wide instance.
+// pack; wtpack is null in bf16), kWideClass the wide class's.
 extern "C" int sdf_core_fwd(const float* x, const void* wpack, const void* wtpack, const float* bpack,
                             const float* w_sdf, float* sdf, float* feat, float* gx, float* gates, int n,
-                            const int* meta, float scale, int dtypes, void* stream) {
+                            const int* meta, const int* meta_dev, float scale, int dtypes, void* stream) {
   SdfMeta m;
-  const int rc = parse_meta(meta, &m, dtypes & kWideClass);
+  const int rc = parse_meta(meta, meta_dev, &m, dtypes & kWideClass);
   if (rc || n <= 0) return rc;
   return launch_sdf_fwd_dtypes<kFwdPlain>(dtypes, x, wpack, wtpack, bpack, w_sdf, sdf, feat, gx, nullptr, gates,
                                           n, m, scale, (cudaStream_t)stream);
 }
 
 // dtypes: kF32Compute and kF32Stash select D's instance (its dot operands'
-// and its stash's types), kWideClass alone the wide instance.
+// and its stash's types), kWideClass the wide class's.
 extern "C" int sdf_stash_fwd(const float* x, const void* wpack, const void* wtpack, const float* bpack,
                              const float* w_sdf, float* sdf, float* feat, float* gx, void* stash,
-                             float* gates, int n, const int* meta, float scale, int dtypes, void* stream) {
+                             float* gates, int n, const int* meta, const int* meta_dev,
+                             float scale, int dtypes, void* stream) {
   SdfMeta m;
-  const int rc = parse_meta(meta, &m, dtypes & kWideClass);
+  const int rc = parse_meta(meta, meta_dev, &m, dtypes & kWideClass);
   if (rc || n <= 0) return rc;
   return launch_sdf_fwd_dtypes<kFwdStash>(dtypes, x, wpack, wtpack, bpack, w_sdf, sdf, feat, gx, stash, gates, n,
                                           m, scale, (cudaStream_t)stream);
@@ -121,9 +132,10 @@ extern "C" int sdf_stash_fwd(const float* x, const void* wpack, const void* wtpa
 
 extern "C" int sdf_stash_all_fwd(const float* x, const void* wpack, const void* wtpack, const float* bpack,
                                  const float* w_sdf, float* sdf, float* feat, float* gx, void* stash,
-                                 float* gates, int n, const int* meta, float scale, int dtypes, void* stream) {
+                                 float* gates, int n, const int* meta, const int* meta_dev,
+                                 float scale, int dtypes, void* stream) {
   SdfMeta m;
-  const int rc = parse_meta(meta, &m, dtypes & kWideClass);
+  const int rc = parse_meta(meta, meta_dev, &m, dtypes & kWideClass);
   if (rc || n <= 0) return rc;
   return launch_sdf_fwd_dtypes<kFwdStashAll>(dtypes, x, wpack, wtpack, bpack, w_sdf, sdf, feat, gx, stash, gates,
                                              n, m, scale, (cudaStream_t)stream);

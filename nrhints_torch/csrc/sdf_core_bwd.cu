@@ -39,7 +39,7 @@
 // H's f32 instance replaces the same pallas_call at compute_dtype="float32"
 // (the dtypes argument): H1 and H2 as above with T = f32 (f32 h_i in the
 // scratch, 1.06 GB at 65,536 points; f32 dW operands), their products on
-// mma_rows.cuh's f32 gemm_rows64 and dw_sum.cuh's dw_partial_f32_kernel.
+// mma_rows.cuh's gemm_rows_f32 and dw_sum.cuh's dw_partial_f32_kernel.
 // Bound: 378.0 GFLOP at the 67 TFLOP/s f32 peak, 5.64 ms a 65,536-point
 // call.  With an f32 stash, E's gates 1 - exp(-100 h) and H's sigmoid(100 z)
 // agree to rounding, so the f32 E and H give the same gradients but for
@@ -47,12 +47,14 @@
 //
 // H's wide instance replaces the same pallas_call above the presets'
 // widths (kWideClass in the dtypes argument): H1 and H2 on the wide
-// instances' 32-point blocks (sdf_core_fwd_wide_kernel<2>,
-// sdf_bwd_chain_wide_kernel<true, false>), bf16 operands, the same dW
-// passes.  Bound on an H100 at d_hidden = 512 (8 layers, skip at 4,
-// multi_res 6, a 256-wide feature head): 1,478 GFLOP a 65,536-point call,
+// instances' 32-point blocks (sdf_core_fwd_wide_kernel<T, T, 2>,
+// sdf_bwd_chain_wide_kernel<T, T, true, false>), the same dW passes.
+// Bound on an H100 at d_hidden = 512 (8 layers, skip at 4, multi_res 6, a
+// 256-wide feature head): 1,478 GFLOP a 65,536-point call,
 // 1.49 ms at 989 TFLOP/s bf16; bound by operations.  Its scratch: 533 MB of
-// bf16 h and 1.06 GB of f32 gates at 65,536 points.
+// bf16 h and 1.06 GB of f32 gates at 65,536 points.  At compute_dtype=
+// "float32" (T = f32: f32 h_i, f32 dW operands, every product on
+// gemm_rows_f32<RowsWide>): 22.1 ms at the 67 TFLOP/s f32 peak.
 #include "sdf_bwd.cuh"
 #include "sdf_fwd.cuh"
 
@@ -60,15 +62,16 @@ using namespace nrh;
 
 // dtypes: kF32Compute selects H's f32 instance: H1 and H2 with f32 dot
 // operands, its h_i and its dW scratch in f32 (wpack and wtpack the f32
-// pack; wtpack is null in bf16); kWideClass alone the wide instance.
+// pack; wtpack is null in bf16); kWideClass the wide class's.
 extern "C" int sdf_core_bwd(const float* x, const float* ds, const float* df, const float* dgx,
                             const void* wpack, const void* wtpack, const float* bpack, const float* w_sdf, void* hs,
                             float* gates, float* dx, void* scratch, float* cscr, float* partial, float* colsum,
-                            float* part_dw, float* dw, const long long* jobs, int n_jobs, int split, int n,
-                            const int* meta, float scale, int dtypes, void* stream) {
+                            float* part_dw, float* dw, const long long* jobs, const long long* jobs_dev,
+                            int n_jobs, int split, int n, const int* meta, const int* meta_dev,
+                            float scale, int dtypes, void* stream) {
   SdfMeta m;
   DwJobs J;
-  int rc = parse_sdf_bwd(meta, jobs, n_jobs, dtypes, &m, &J);
+  int rc = parse_sdf_bwd(meta, meta_dev, jobs, jobs_dev, n_jobs, n, dtypes, &m, &J);
   if (rc || n <= 0) return rc;
   if (dtypes & ~(kF32Compute | kWideClass)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;

@@ -20,7 +20,7 @@
 //
 // T is the dot operands' type: bf16 (the shipping compute_dtype) or f32
 // (compute_dtype="float32": the activation tile, the ring and the weights
-// in f32, every product on mma_rows.cuh's f32 gemm_rows64, the sdf head
+// in f32, every product on mma_rows.cuh's gemm_rows_f32, the sdf head
 // unrounded).  S is the stash's type (stash_dtype; "bf16" above reads S):
 // the h_i, u_i and g_enc are rounded to S, nothing else is.  Every
 // T-dependent step reduces to the bf16 expressions at T = S = bf16, so the
@@ -29,10 +29,10 @@
 //
 // Cls is the width class (staged_mma.cuh): CoreNarrow, the 64-point
 // instances sdf_core_fwd_kernel<T, S, MODE> at the presets' widths; or
-// CoreWide, sdf_core_fwd_wide_kernel<MODE> (bf16 operands and stash), the
-// same code on 32-point blocks with padded widths up to 512 and encodings
-// up to 128, every product in gemm_rows32's column passes of at most 256
-// (sdf_core.cu says why).
+// CoreWide, sdf_core_fwd_wide_kernel<T, S, MODE>, the same code on 32-point
+// blocks with padded widths up to 512 and encodings up to 128, every bf16
+// product in gemm_rows32's column passes of at most 256, every f32 one on
+// mma_rows.cuh's gemm_rows_f32<RowsWide> (sdf_core.cu says why).
 #pragma once
 
 #include "mma_rows.cuh"
@@ -48,14 +48,15 @@ constexpr int kFwdPlain = 0, kFwdStash = 1, kFwdRecompute = 2, kFwdStashAll = 3;
 // forward has read it for the last time) and the weight ring: 227,328
 // bytes in bf16, 215,040 in f32 (two 32-row f32 stages), 226,304 in the wide
 // class (32 points: activations 33,280, carry 66,048, encoding 16,384, the
-// same ring), one block per SM.
+// same ring) and 214,016 in its f32 instances (activations 66,048, the f32
+// ring of 65,536), one block per SM.
 template <class Cls, typename T>
 constexpr size_t fwd_smem() {
   return Cls::kPts * kCoreLdAct<Cls, T> * sizeof(T) + Cls::kPts * Cls::kLdC * sizeof(float) +
          Cls::kPts * Cls::kEnc * sizeof(float) + CoreTile<T>::kRing * sizeof(T);
 }
 static_assert(fwd_smem<CoreNarrow, bf16>() == 227328 && fwd_smem<CoreNarrow, float>() == 215040 &&
-                  fwd_smem<CoreWide, bf16>() == 226304,
+                  fwd_smem<CoreWide, bf16>() == 226304 && fwd_smem<CoreWide, float>() == 214016,
               "the forward's shared-memory budget");
 
 // The forward of one block of Cls::kPts points: every product through
@@ -85,31 +86,31 @@ __device__ __forceinline__ void sdf_fwd_block(unsigned char* smem, const float* 
   float* grow = gsc + (size_t)p0 * GT;  // the block's rows of the gate scratch
 
   // Encoding of 3x, and the first layer's input (of T).
-  core_stage<Cls, false>(wpack + m.w_off[0], m.np_[0], m.kp[0], m.np_[0], ring);
+  core_stage<Cls, false>(wpack + m.w_off(0), m.np(0), m.kp(0), m.np(0), ring);
   for (int idx = tid; idx < kPts * kEnc; idx += kChainThreads) {
     const int p = idx / kEnc, c = idx % kEnc, gp = p0 + p;
     float xs[3];
     for (int d = 0; d < 3; ++d) xs[d] = gp < n ? x[gp * 3 + d] * scale : 0.0f;
     const float v = c < d0 ? freq_channel(xs, nullptr, c, F, nullptr) : 0.0f;
     enc[idx] = v;
-    if (c < m.kp[0]) act[p * kLdAct + c] = from_f<T>(v);
+    if (c < m.kp(0)) act[p * kLdAct + c] = from_f<T>(v);
   }
 
   // Forward: z_i = h_{i-1} W_i + b_i; h_i = softplus(100 z_i)/100, gate_i.
   for (int i = 0; i < L; ++i) {
-    const int np = m.np_[i], out = m.out_dim[i], goff = m.b_off[i];
-    core_gemm<Cls, false>(act, kLdAct, wpack + m.w_off[i], np, m.kp[i], np, Z, kLdC, ring);
+    const int np = m.np(i), out = m.out(i), goff = m.b_off(i);
+    core_gemm<Cls, false>(act, kLdAct, wpack + m.w_off(i), np, m.kp(i), np, Z, kLdC, ring);
     __syncthreads();
     const bool last = i + 1 == L;
     if (!last)
-      core_stage<Cls, false>(wpack + m.w_off[i + 1], m.np_[i + 1], m.kp[i + 1], m.np_[i + 1], ring);
+      core_stage<Cls, false>(wpack + m.w_off(i + 1), m.np(i + 1), m.kp(i + 1), m.np(i + 1), ring);
     else if (MODE != kFwdRecompute)
       core_stage<Cls, false>(wpack + m.wf_off, m.npf, m.kpf, m.npf, ring);
     // The next product's input, written over this one's: h_i (x 1/sqrt2
     // before the skip layer), then the skip layer's encoding half (x
     // 1/sqrt2), then zeros up to the next padded width (>= np).
-    const bool next_skip = !last && m.skip[i + 1];
-    const int w4 = (last ? m.kpf : m.kp[i + 1]) / 4;
+    const bool next_skip = !last && m.skip(i + 1);
+    const int w4 = (last ? m.kpf : m.kp(i + 1)) / 4;
     const float* b = bpack + goff;
     for (int idx = tid; idx < kPts * w4; idx += kChainThreads) {
       const int p = idx / w4, c = (idx % w4) * 4;
@@ -156,7 +157,7 @@ __device__ __forceinline__ void sdf_fwd_block(unsigned char* smem, const float* 
 
   // The reverse sweep's first slabs; feat; g_enc = 0 in the enc tile; and
   // layer L - 1's gated cotangent, with g = w_sdf / scale (f32, unrounded).
-  core_stage<Cls, true>(wt + m.w_off[L - 1], m.np_[L - 1], m.np_[L - 1], m.kp[L - 1], ring);
+  core_stage<Cls, true>(wt + m.w_off(L - 1), m.np(L - 1), m.np(L - 1), m.kp(L - 1), ring);
   for (int idx = tid; idx < kPts * m.d_feat; idx += kChainThreads) {
     const int p = idx / m.d_feat, c = idx % m.d_feat;
     if (p0 + p < n) feat_out[(size_t)(p0 + p) * m.d_feat + c] = Z[p * kLdC + c] + bpack[m.bf_off + c];
@@ -169,8 +170,8 @@ __device__ __forceinline__ void sdf_fwd_block(unsigned char* smem, const float* 
   // g_enc.
   float* G = Z;
   for (int i = L - 1; i >= 0; --i) {
-    const int np = m.np_[i], out = m.out_dim[i], in = m.in_dim[i], kp = m.kp[i], goff = m.b_off[i];
-    if (i < L - 1) core_stage<Cls, true>(wt + m.w_off[i], np, np, kp, ring);
+    const int np = m.np(i), out = m.out(i), in = m.in(i), kp = m.kp(i), goff = m.b_off(i);
+    if (i < L - 1) core_stage<Cls, true>(wt + m.w_off(i), np, np, kp, ring);
     for (int idx = tid; idx < kPts * (np / 4); idx += kChainThreads) {
       const int p = idx / (np / 4), c = (idx % (np / 4)) * 4;
       float u[4], gate[4], t[4];
@@ -191,9 +192,9 @@ __device__ __forceinline__ void sdf_fwd_block(unsigned char* smem, const float* 
         st4(stash + (size_t)(p0 + p) * ST + GT + goff + c, u);
       }
     }
-    core_gemm<Cls, true>(act, kLdAct, wt + m.w_off[i], np, np, kp, G, kLdC, ring);
+    core_gemm<Cls, true>(act, kLdAct, wt + m.w_off(i), np, np, kp, G, kLdC, ring);
     __syncthreads();
-    if (m.skip[i]) {  // elsewhere the product is already the carry
+    if (m.skip(i)) {  // elsewhere the product is already the carry
       const int split = in - d0;
       for (int idx = tid; idx < kPts * (kp / 4); idx += kChainThreads) {
         const int p = idx / (kp / 4), c = (idx % (kp / 4)) * 4;
@@ -255,70 +256,69 @@ __global__ void __launch_bounds__(kChainThreads)
                                         n, m, scale);
 }
 
-template <int MODE>
+template <typename T, typename S, int MODE>
 __global__ void __launch_bounds__(kChainThreads)
-    sdf_core_fwd_wide_kernel(const float* __restrict__ x, const bf16* __restrict__ wpack,
+    sdf_core_fwd_wide_kernel(const float* __restrict__ x, const T* __restrict__ wpack, const T* __restrict__ wtpack,
                              const float* __restrict__ bpack, const float* __restrict__ w_sdf,
                              float* __restrict__ sdf_out, float* __restrict__ feat_out, float* __restrict__ gx_out,
-                             bf16* __restrict__ stash, float* __restrict__ gsc, int n, const SdfMeta m,
-                             float scale) {
+                             S* __restrict__ stash, float* __restrict__ gsc, int n, const SdfMeta m, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  sdf_fwd_block<CoreWide, bf16, bf16, MODE>(smem, x, wpack, nullptr, bpack, w_sdf, sdf_out, feat_out, gx_out, stash,
-                                            gsc, n, m, scale);
+  sdf_fwd_block<CoreWide, T, S, MODE>(smem, x, wpack, wtpack, bpack, w_sdf, sdf_out, feat_out, gx_out, stash, gsc, n,
+                                      m, scale);
 }
 
-// One launch of the forward on `stream`; returns its launch error.  gsc is
-// the gate scratch of (n + kChainTP - 1) / kChainTP * kChainTP rows.
-template <typename T, typename S, int MODE>
+// The class's forward kernel of each template.
+template <class Cls, typename T, typename S, int MODE>
+auto fwd_kernel() {
+  if constexpr (std::is_same<Cls, CoreWide>::value)
+    return sdf_core_fwd_wide_kernel<T, S, MODE>;
+  else
+    return sdf_core_fwd_kernel<T, S, MODE>;
+}
+
+// One launch of the forward of class Cls on `stream`; returns its launch
+// error.  gsc is the gate scratch of (n + Cls::kPts - 1) / Cls::kPts *
+// Cls::kPts rows (core_mlp.gate_layout).
+template <class Cls, typename T, typename S, int MODE>
 inline int launch_sdf_fwd(const float* x, const void* wpack, const void* wtpack, const float* bpack,
                           const float* w_sdf, float* sdf, float* feat, float* gx, void* stash, float* gsc, int n,
                           const SdfMeta& m, float scale, cudaStream_t stream) {
-  constexpr size_t kFwdSmem = fwd_smem<CoreNarrow, T>();
-  int rc = (int)cudaFuncSetAttribute(sdf_core_fwd_kernel<T, S, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)kFwdSmem);
+  constexpr size_t kFwdSmem = fwd_smem<Cls, T>();
+  const auto kernel = fwd_kernel<Cls, T, S, MODE>();
+  int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFwdSmem);
   if (rc) return rc;
-  sdf_core_fwd_kernel<T, S, MODE><<<(n + kChainTP - 1) / kChainTP, kChainThreads, kFwdSmem, stream>>>(
+  kernel<<<(n + Cls::kPts - 1) / Cls::kPts, kChainThreads, kFwdSmem, stream>>>(
       x, (const T*)wpack, (const T*)wtpack, bpack, w_sdf, sdf, feat, gx, (S*)stash, gsc, n, m, scale);
   return (int)cudaGetLastError();
 }
 
-// The wide instance's launch: gsc has (n + kWidePts - 1) / kWidePts *
-// kWidePts rows; wtpack is not read.
-template <int MODE>
-inline int launch_sdf_fwd_wide(const float* x, const void* wpack, const void*, const float* bpack,
-                               const float* w_sdf, float* sdf, float* feat, float* gx, void* stash, float* gsc, int n,
-                               const SdfMeta& m, float scale, cudaStream_t stream) {
-  constexpr size_t kFwdSmem = fwd_smem<CoreWide, bf16>();
-  int rc = (int)cudaFuncSetAttribute(sdf_core_fwd_wide_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)kFwdSmem);
-  if (rc) return rc;
-  sdf_core_fwd_wide_kernel<MODE><<<(n + kWidePts - 1) / kWidePts, kChainThreads, kFwdSmem, stream>>>(
-      x, (const bf16*)wpack, bpack, w_sdf, sdf, feat, gx, (bf16*)stash, gsc, n, m, scale);
-  return (int)cudaGetLastError();
-}
-
-// launch_sdf_fwd at the instance the dtypes select; the modes that keep no
-// stash of their own choosing take S = T (H's first pass stashes its h_i
-// in the operand type).  kWideClass alone selects the wide instance (bf16
-// operands and stash; with an f32 bit it is refused).
-template <int MODE, typename... A>
-inline int launch_sdf_fwd_dtypes(int dtypes, A... a) {
-  if (dtypes & kWideClass) return dtypes == kWideClass ? launch_sdf_fwd_wide<MODE>(a...) : (int)cudaErrorInvalidValue;
+// launch_sdf_fwd at the instance the dtypes select: kF32Compute and
+// kF32Stash the (operand, stash) pair, kWideClass the class; the modes that
+// keep no stash of their own choosing take S = T (H's first pass stashes
+// its h_i in the operand type).
+template <int MODE, class Cls, typename... A>
+inline int launch_sdf_fwd_pair(int dtypes, A... a) {
   if constexpr (MODE == kFwdPlain || MODE == kFwdRecompute) {
-    return dtypes & kF32Compute ? launch_sdf_fwd<float, float, MODE>(a...) : launch_sdf_fwd<bf16, bf16, MODE>(a...);
+    return dtypes & kF32Compute ? launch_sdf_fwd<Cls, float, float, MODE>(a...)
+                                : launch_sdf_fwd<Cls, bf16, bf16, MODE>(a...);
   } else {
     switch (dtypes) {
       case 0:
-        return launch_sdf_fwd<bf16, bf16, MODE>(a...);
+        return launch_sdf_fwd<Cls, bf16, bf16, MODE>(a...);
       case kF32Compute:
-        return launch_sdf_fwd<float, bf16, MODE>(a...);
+        return launch_sdf_fwd<Cls, float, bf16, MODE>(a...);
       case kF32Stash:
-        return launch_sdf_fwd<bf16, float, MODE>(a...);
+        return launch_sdf_fwd<Cls, bf16, float, MODE>(a...);
       case kF32Compute | kF32Stash:
-        return launch_sdf_fwd<float, float, MODE>(a...);
+        return launch_sdf_fwd<Cls, float, float, MODE>(a...);
     }
     return (int)cudaErrorInvalidValue;
   }
+}
+template <int MODE, typename... A>
+inline int launch_sdf_fwd_dtypes(int dtypes, A... a) {
+  if (dtypes & kWideClass) return launch_sdf_fwd_pair<MODE, CoreWide>(dtypes ^ kWideClass, a...);
+  return launch_sdf_fwd_pair<MODE, CoreNarrow>(dtypes, a...);
 }
 
 }  // namespace nrh

@@ -23,7 +23,11 @@ namespace nrh {
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
 
+// Layers whose rows ride in the kernels' parameters (SdfMeta's tables, and
+// MlpMeta's in mlp_stash.cu); a deeper network's rows are read from its
+// meta vector's copy on the card, so the kernels take any depth.
 constexpr int kMaxLayers = 16;
+constexpr int kMetaHead = 10;  // ints of the SDF meta vector before its per-layer rows
 constexpr int kWMax = 256;        // widest padded layer output, and input but the trunk's first (mlp_stash.cu)
 constexpr int kEncMax = 64;       // widest padded frequency encoding
 constexpr int kLdA = kWMax + 8;   // bf16 row stride of activation tiles
@@ -37,15 +41,32 @@ constexpr float kHalfPi = 1.57079632679489661923f;
 
 struct SdfMeta {
   int n_layers, multi_res, d0, d_feat, d_last, kpf, npf, wf_off, bf_off, gates_total;
-  int in_dim[kMaxLayers], out_dim[kMaxLayers], kp[kMaxLayers], np_[kMaxLayers];
-  int skip[kMaxLayers], w_off[kMaxLayers], b_off[kMaxLayers];
+  int in_[kMaxLayers], out_[kMaxLayers], kp_[kMaxLayers], np_[kMaxLayers];
+  int skip_[kMaxLayers], w_off_[kMaxLayers], b_off_[kMaxLayers];
+  // The meta vector on the card where n_layers > kMaxLayers (its rows are
+  // then read from there), else null.
+  const int* dev;
+
+  // Field k of layer i's row: the parameter table's, or the device copy's.
+  __device__ __forceinline__ int field(const int (&t)[kMaxLayers], int i, int k) const {
+    return dev ? dev[kMetaHead + 7 * i + k] : t[i];
+  }
+  __device__ __forceinline__ int in(int i) const { return field(in_, i, 0); }
+  __device__ __forceinline__ int out(int i) const { return field(out_, i, 1); }
+  __device__ __forceinline__ int kp(int i) const { return field(kp_, i, 2); }
+  __device__ __forceinline__ int np(int i) const { return field(np_, i, 3); }
+  __device__ __forceinline__ int skip(int i) const { return field(skip_, i, 4); }
+  __device__ __forceinline__ int w_off(int i) const { return field(w_off_, i, 5); }
+  __device__ __forceinline__ int b_off(int i) const { return field(b_off_, i, 6); }
 };
 
 // meta = [L, multi_res, d0, d_feat, d_last, kpf, npf, wf_off, bf_off,
-//         gates_total, then per layer: in, out, kp, np, skip, w_off, b_off];
-// checked against the 64-point instances' limits, or with wide the wide
-// instances' (kWideWMax, kWideEncMax).
-inline int parse_meta(const int* meta, SdfMeta* m, bool wide = false) {
+//         gates_total, then per layer: in, out, kp, np, skip, w_off, b_off]
+// in host memory, checked against the 64-point instances' limits, or with
+// wide the wide instances' (kWideWMax, kWideEncMax).  Up to kMaxLayers
+// layers the rows ride in SdfMeta's tables; a deeper network's are read
+// from meta_dev, the same vector on the card (null for a shallower one).
+inline int parse_meta(const int* meta, const int* meta_dev, SdfMeta* m, bool wide = false) {
   const int w_max = wide ? kWideWMax : kWMax, enc_max = wide ? kWideEncMax : kEncMax;
   m->n_layers = meta[0];
   m->multi_res = meta[1];
@@ -57,18 +78,20 @@ inline int parse_meta(const int* meta, SdfMeta* m, bool wide = false) {
   m->wf_off = meta[7];
   m->bf_off = meta[8];
   m->gates_total = meta[9];
-  if (m->n_layers < 1 || m->n_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
+  if (m->n_layers < 1 || (m->n_layers > kMaxLayers && !meta_dev)) return (int)cudaErrorInvalidValue;
+  m->dev = m->n_layers > kMaxLayers ? meta_dev : nullptr;
   if (m->d0 > enc_max || 3 + 6 * m->multi_res != m->d0) return (int)cudaErrorInvalidValue;
   for (int i = 0; i < m->n_layers; ++i) {
-    const int* l = meta + 10 + 7 * i;
-    m->in_dim[i] = l[0];
-    m->out_dim[i] = l[1];
-    m->kp[i] = l[2];
+    const int* l = meta + kMetaHead + 7 * i;
+    if (l[2] > w_max || l[3] > w_max) return (int)cudaErrorInvalidValue;
+    if (i >= kMaxLayers) continue;
+    m->in_[i] = l[0];
+    m->out_[i] = l[1];
+    m->kp_[i] = l[2];
     m->np_[i] = l[3];
-    m->skip[i] = l[4];
-    m->w_off[i] = l[5];
-    m->b_off[i] = l[6];
-    if (m->kp[i] > w_max || m->np_[i] > w_max) return (int)cudaErrorInvalidValue;
+    m->skip_[i] = l[4];
+    m->w_off_[i] = l[5];
+    m->b_off_[i] = l[6];
   }
   if (m->kpf > w_max || m->npf > w_max) return (int)cudaErrorInvalidValue;
   return 0;

@@ -63,16 +63,16 @@
 // of sdf_bwd_chain_kernel<T, S, false, US>).  Bound on an H100: E's 317.9
 // GFLOP (the variant's 257.8) at the 67 TFLOP/s f32 peak, 4.75 ms (3.85) a
 // 65,536-point call.  Design: E1's stages as above, every product on
-// mma_rows.cuh's f32 gemm_rows64 (215,296 bytes of shared memory, one
+// mma_rows.cuh's gemm_rows_f32 (215,296 bytes of shared memory, one
 // block per SM), the dW operands in an f32 scratch (2.15 GB at 65,536
 // points) and their products on dw_sum.cuh's dw_partial_f32_kernel over the
 // same row chunks, summed by the same in-order passes: the f32 gradients
 // repeat bit for bit too.
 //
-// The wide instances (E's and its variant's, bf16 operands and stash)
-// replace the same pallas_call above the presets' widths: padded widths up
-// to 512, encodings up to 128 (kWideClass in the dtypes argument:
-// sdf_bwd_chain_wide_kernel<false, US>).  Bound on an H100 at d_hidden =
+// The wide instances (E's and its variant's, at every (operand, stash)
+// dtype pair) replace the same pallas_call above the presets' widths:
+// padded widths up to 512, encodings up to 128 (kWideClass in the dtypes
+// argument: sdf_bwd_chain_wide_kernel<T, S, false, US>).  Bound on an H100 at d_hidden =
 // 512 (8 layers, skip at 4, multi_res 6, a 256-wide feature head): 1,237
 // GFLOP a 65,536-point call (the variant's 997), 1.25 ms (1.01) at 989
 // TFLOP/s bf16, 3.9x the 256-wide; bound by operations.  Design: E1's
@@ -82,21 +82,28 @@
 // point (1.2 GB at 65,536 points) and 2.1 GB of bf16 dW operands; the dW
 // passes are dw_sum.cuh's, whose 128 x 128 tiles take ka and nb up to 512
 // (a 512 x 512 dW is 16 tiles of a row chunk), over the same row chunks.
+// The wide f32 instances (f32 operands, or an f32 stash, or both): the same
+// stages with an f32 activation tile, every product on mma_rows.cuh's
+// gemm_rows_f32<RowsWide> (214,144 bytes of shared memory), the transposed
+// products on the f32 pack's wtpack, and with f32 operands the dW operands
+// in an f32 scratch (4.3 GB at 65,536 points at d_hidden 512) summed by
+// dw_partial_f32_kernel.  Bound at the 67 TFLOP/s f32 peak: 18.5 ms (the
+// variant's 14.9) a 65,536-point call at d_hidden 512.
 #include "sdf_bwd.cuh"
 
 using namespace nrh;
 
 // dtypes: kF32Compute and kF32Stash select E's instance (its dot operands',
-// and so its scratch's, and its stash's types), kWideClass alone the wide
-// instance; wtpack is the f32 pack's transposed blocks (null in bf16).
+// and so its scratch's, and its stash's types), kWideClass the wide
+// class's; wtpack is the f32 pack's transposed blocks (null in bf16).
 extern "C" int sdf_stash_bwd(const float* x, const void* stash, const float* ds, const float* df,
                              const float* dgx, const void* wpack, const void* wtpack, const float* w_sdf, float* dx,
                              void* scratch, float* cscr, float* partial, float* colsum, float* part_dw, float* dw,
-                             const long long* jobs, int n_jobs, int split, int n, const int* meta,
-                             float scale, int dtypes, void* stream) {
+                             const long long* jobs, const long long* jobs_dev, int n_jobs, int split, int n,
+                             const int* meta, const int* meta_dev, float scale, int dtypes, void* stream) {
   SdfMeta m;
   DwJobs J;
-  const int rc = parse_sdf_bwd(meta, jobs, n_jobs, dtypes, &m, &J);
+  const int rc = parse_sdf_bwd(meta, meta_dev, jobs, jobs_dev, n_jobs, n, dtypes, &m, &J);
   if (rc || n <= 0) return rc;
   return launch_sdf_bwd_dtypes<false, false>(dtypes, x, stash, nullptr, ds, df, dgx, wpack, wtpack, w_sdf, dx,
                                              scratch, cscr, partial, colsum, part_dw, dw, m, J, split, n, scale,
@@ -107,11 +114,12 @@ extern "C" int sdf_stash_bwd(const float* x, const void* stash, const float* ds,
 extern "C" int sdf_stash_all_bwd(const float* x, const void* stash, const float* ds, const float* df,
                                  const float* dgx, const void* wpack, const void* wtpack, const float* w_sdf,
                                  float* dx, void* scratch, float* cscr, float* partial, float* colsum,
-                                 float* part_dw, float* dw, const long long* jobs, int n_jobs, int split, int n,
-                                 const int* meta, float scale, int dtypes, void* stream) {
+                                 float* part_dw, float* dw, const long long* jobs, const long long* jobs_dev,
+                                 int n_jobs, int split, int n, const int* meta, const int* meta_dev,
+                                 float scale, int dtypes, void* stream) {
   SdfMeta m;
   DwJobs J;
-  const int rc = parse_sdf_bwd(meta, jobs, n_jobs, dtypes, &m, &J);
+  const int rc = parse_sdf_bwd(meta, meta_dev, jobs, jobs_dev, n_jobs, n, dtypes, &m, &J);
   if (rc || n <= 0) return rc;
   return launch_sdf_bwd_dtypes<false, true>(dtypes, x, stash, nullptr, ds, df, dgx, wpack, wtpack, w_sdf, dx,
                                             scratch, cscr, partial, colsum, part_dw, dw, m, J, split, n, scale,

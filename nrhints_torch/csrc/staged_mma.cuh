@@ -43,8 +43,9 @@ constexpr int kWidePts = 32;         // points per block of the SDF core's wide 
 // The SDF core's width classes (sdf_fwd.cuh, sdf_bwd.cuh): kPts points a
 // block, kW the widest padded layer and feature head, kEnc the widest
 // padded encoding, kLdC the f32 row stride of the carry tile.  The 64-point
-// instances take the presets' widths; the wide ones (bf16 only) twice them
-// on 32-point blocks, each product in gemm_rows32's column passes.
+// instances take the presets' widths; the wide ones twice them on 32-point
+// blocks, each bf16 product in gemm_rows32's column passes (each f32 one on
+// mma_rows.cuh's gemm_rows_f32<RowsWide>).
 struct CoreNarrow {
   static constexpr int kPts = kChainTP, kW = kWMax, kEnc = kEncMax, kLdC = kLdZ;
 };

@@ -21,13 +21,16 @@ instances of A, H, I and J, counted as ``sdf_core_fwd_f32``,
 ``sdf_core_bwd_f32``, ``mlp_fwd_f32`` and ``mlp_bwd_f32``).  The SDF
 core's width class picks A's, D's, E's and H's block (``core_class``): the
 64-point instances at the presets' widths (padded widths up to 256,
-encodings up to 64), the wide ones above them (up to 512 and 128, bf16
-only, counted as ``*_wide``).  The march kernels C, K, L, M and N
+encodings up to 64), the wide ones above them (up to 512 and 128, at every
+dtype pair, counted as ``*_wide``).  The march kernels C, K, L, M and N
 (``kernels/march.py``) have their own class above the presets' widths,
 ``ROWS_WIDE``, at bf16 and f32 march weights, and the trunk's F, G, I and J
 theirs (``trunk_class``): the 64-point instances at padded hidden widths up
 to 256 and inputs up to 384, the wide ones (32-point blocks, bf16 and f32,
-counted as ``*_wide``) up to 512 and 640.
+counted as ``*_wide``) up to 512 and 640.  Every kernel takes any depth: up
+to ``MAX_LAYERS`` layers the per-layer tables ride in the kernel's
+parameters, a deeper network's are read from its meta vector's copy on the
+card (the pack's "meta_dev"), and its dW job table's likewise.
 
 On CPU tensors every wrapper runs its plain version; on CUDA tensors it
 launches its kernel or raises.
@@ -46,7 +49,7 @@ from nrhints_torch.fields.mlp import effective_weight
 from nrhints_torch.fields.sdf import SDFNetConfig, _layer_dims
 from nrhints_torch.kernels import cuda_lib
 from nrhints_torch.kernels.common import INV_SQRT2, dot, softplus100_gate, torch_dtype
-from nrhints_torch.utils import tree_leaves
+from nrhints_torch.utils import device_constant, tree_leaves
 
 
 def encode_points(x: torch.Tensor, cfg: SDFNetConfig):
@@ -200,7 +203,12 @@ IN_WIDE = 640  # widest padded trunk input of the trunk's wide class (csrc/mlp_s
 SUM_ROWS = 16  # points per row of the trunk's bias sums (csrc/mlp_stash.cu::kSumRows)
 ENC_MAX = 64  # widest padded frequency encoding (csrc/sdf_mlp.cuh::kEncMax)
 MAX_SPLIT = 16  # row chunks of the weight-cotangent products
-MAX_LAYERS = 16  # SDF layers the CUDA kernels take (csrc/sdf_mlp.cuh::kMaxLayers)
+# Layers whose tables ride in the CUDA kernels' parameters (csrc/sdf_mlp.cuh::
+# kMaxLayers): SDF layers, or the trunk's linears; a deeper network's meta
+# vector goes to the card too.  The dW passes take MAX_JOBS products a launch
+# (csrc/dw_sum.cuh::kMaxJobs); a longer job table goes to the card too.
+MAX_LAYERS = 16
+MAX_JOBS = MAX_LAYERS + 1
 
 
 @dataclass(frozen=True)
@@ -222,7 +230,7 @@ class CoreClass:
 
 
 NARROW = CoreClass(CHAIN_TP, 256, ENC_MAX, "", 0)
-WIDE = CoreClass(32, 512, 2 * ENC_MAX, "_wide", 4)  # bf16 only
+WIDE = CoreClass(32, 512, 2 * ENC_MAX, "_wide", 4)  # bf16 and f32
 # The row engine above the presets' widths (march kernels C, K, L, M, N):
 # 64 bf16 rows a pass (32 f32), bf16 and f32 march weights.
 ROWS_WIDE = CoreClass(64, 512, 2 * ENC_MAX, "_wide", 0)
@@ -250,30 +258,52 @@ def core_class(cfg: SDFNetConfig, with_feat: bool = True, compute_dtype: str = "
     """The width class whose CUDA instances take ``cfg``'s SDF: NARROW at
     padded widths up to 256 and encodings up to 64 (the presets' and every
     published width), else up to 512 and 128 WIDE, the SDF core's
-    (``with_feat``) bf16 instances, or ROWS_WIDE, the march kernels C, K,
-    L, M and N (``with_feat=False``) at bf16 or f32.  Raises
-    ``NotImplementedError`` for what no instance takes: widths above 512 or
-    encodings above 128, the core at f32 above NARROW, more than 16 layers,
-    a skip at layer 0."""
-    if cfg.d_in != 3 or 0 in cfg.skip_in or cfg.n_layers > MAX_LAYERS:
-        raise NotImplementedError(f"the CUDA SDF kernels take 3-D points, at most {MAX_LAYERS} layers and no skip at "
-                                  "layer 0 (ROADMAP.md Queue 2 item 15)")
+    (``with_feat``) instances, or ROWS_WIDE, the march kernels C, K, L, M
+    and N (``with_feat=False``).  Every class takes every ``compute_dtype``
+    (checked, "bfloat16" or "float32") and any depth.  Raises ``NotImplementedError`` for widths above
+    512 or encodings above 128, and for what JAX's fused core does not run
+    either: points other than 3-D, or a skip at layer 0 (its forward then
+    fails in ``nrhints_tpu/kernels/core_mlp.py`` and ``fields/mlp.py``)."""
+    torch_dtype(compute_dtype)
+    if cfg.d_in != 3 or 0 in cfg.skip_in:
+        raise NotImplementedError("the CUDA SDF kernels take 3-D points and no skip at layer 0; JAX's fused core runs "
+                                  "neither (ROADMAP.md Queue 3, recorded differences)")
     io, _ = _layer_dims(cfg)
     width = max([_round16(v) for pair in io for v in pair] + [_round16(cfg.d_out_feat) if with_feat else 0])
     enc = _round16(cfg.d_encoded)
     if width <= NARROW.width and enc <= NARROW.enc:
         return NARROW
-    got = f"got padded width {width} and encoding {enc}"
     if width > WIDE.width or enc > WIDE.enc:
         kernels = "SDF core (kernels A, D, E, H) takes" if with_feat else "march kernels (C, K, L, M, N) take"
         raise NotImplementedError(f"the CUDA {kernels} padded widths up to {WIDE.width} and encodings up to "
-                                  f"{WIDE.enc}, {got} (ROADMAP.md Queue 2 item 15)")
-    if not with_feat:
-        return ROWS_WIDE
-    if compute_dtype != "bfloat16":
-        raise NotImplementedError(f"the CUDA SDF core's instances above padded width {NARROW.width} or encoding "
-                                  f"{NARROW.enc} are bf16 only, {got} at {compute_dtype} (ROADMAP.md Queue 2 item 15)")
-    return WIDE
+                                  f"{WIDE.enc}, got padded width {width} and encoding {enc} (ROADMAP.md Queue 2 "
+                                  "item 15)")
+    return WIDE if with_feat else ROWS_WIDE
+
+
+def device_meta(meta: np.ndarray, n_layers: int, dev) -> dict:
+    """{"meta_dev": the meta vector on ``dev``} for a network of more than
+    ``MAX_LAYERS`` layers (the kernels read its per-layer rows there), else
+    {}.  The copy is made at first use and kept (``utils.device_constant``),
+    so a CUDA graph's capture, which the eager warm-up precedes, finds it."""
+    return {"meta_dev": device_constant(meta.tolist(), torch.int32, dev)} if n_layers > MAX_LAYERS else {}
+
+
+def meta_args(pk: dict) -> tuple:
+    """The meta vector's two arguments of a C entry point: its host copy,
+    and its copy on the card (None up to ``MAX_LAYERS`` layers)."""
+    return pk["meta"].ctypes.data, pk["meta_dev"].data_ptr() if "meta_dev" in pk else None
+
+
+def jobs_args(jobs: np.ndarray, dev) -> tuple:
+    """The dW job table's three arguments of a backward's C entry point:
+    its host copy, its copy on the card (None up to ``MAX_JOBS`` jobs: the
+    chain then reads the offsets from its parameters) and its length.  The
+    table holds no point count (``dw_jobs``), so the copy, made at first use
+    and kept (``utils.device_constant``), serves every n, and a CUDA graph's
+    capture, which the eager warm-up precedes, finds it."""
+    on_card = device_constant(jobs.reshape(-1).tolist(), torch.int64, dev).data_ptr() if len(jobs) > MAX_JOBS else None
+    return jobs.ctypes.data, on_card, len(jobs)
 
 
 def pack_sdf_mlp(weights: Sequence[torch.Tensor], cfg: SDFNetConfig, with_feat: bool,
@@ -289,13 +319,14 @@ def pack_sdf_mlp(weights: Sequence[torch.Tensor], cfg: SDFNetConfig, with_feat: 
     transposed at the same offset, the B operand of the reverse products
     (``mma_rows.cuh``'s f32 ``gemm_rows64`` reads B row-major).  "cls" is
     the width class of the instances that read it (``core_class``, which
-    raises for a config no instance takes)."""
+    raises for a config no instance takes); "meta_dev" the meta vector on
+    the card, for an SDF deeper than ``MAX_LAYERS`` (``device_meta``)."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the packed SDF weights are bf16 or f32, got {dtype}")
     if cfg.encoding != "frequency":
         raise ValueError("the CUDA SDF kernels take the frequency encoding; the renderer runs the hash "
                          "encoding on the unfused path, as the JAX package does")
-    cls = core_class(cfg, with_feat, "float32" if dtype == torch.float32 else "bfloat16")
+    cls = core_class(cfg, with_feat)
     io, dims = _layer_dims(cfg)
     L, d0, d_last = cfg.n_layers, cfg.d_encoded, dims[-2]
     d_feat = cfg.d_out_feat if with_feat else 0
@@ -323,12 +354,14 @@ def pack_sdf_mlp(weights: Sequence[torch.Tensor], cfg: SDFNetConfig, with_feat: 
     meta = [L, cfg.multi_res, d0, d_feat, d_last, kpf, npf, wf_off, bf_off, sum(l[3] for l in layers)]
     for lay in layers:
         meta += list(lay)
+    meta = np.asarray(meta, dtype=np.int32)
     pk = {
         "wpack": wpack,
         "bpack": bpack,
         "w_sdf": weights[2 * L].reshape(-1).float().contiguous(),
-        "meta": np.asarray(meta, dtype=np.int32),
+        "meta": meta,
         "cls": cls,
+        **device_meta(meta, L, dev),
     }
     if dtype == torch.float32 and with_feat:
         pk["wtpack"] = torch.zeros_like(wpack)
@@ -368,14 +401,9 @@ def instance_name(kernel: str, compute_dtype: str, stash_dtype: str | None = Non
 def core_instance(kernel: str, pk: dict, compute_dtype: str, stash_dtype: str | None = None) -> tuple[str, int]:
     """(launch counter, dtypes int) of an SDF core or trunk kernel's
     instance for the pack's width class: ``instance_name`` and
-    ``dtype_bits``, with "_wide" and the kWideClass bit for a wide class.
-    The SDF core's wide class has bf16 instances only
-    (``NotImplementedError`` at an f32 stash); the trunk's has every
-    pair."""
+    ``dtype_bits``, with "_wide" and the kWideClass bit for a wide class
+    (every class has every dtype pair)."""
     cls = pk["cls"]
-    if cls is WIDE and stash_dtype == "float32":
-        raise NotImplementedError(f"the CUDA SDF core's instances above padded width {NARROW.width} or encoding "
-                                  f"{NARROW.enc} keep a bf16 stash only (ROADMAP.md Queue 2 item 15)")
     bits = dtype_bits(compute_dtype, stash_dtype or "bfloat16") | cls.bit
     return instance_name(kernel, compute_dtype, stash_dtype) + cls.suffix, bits
 
@@ -445,16 +473,16 @@ def trunk_class(dims: Sequence[tuple[int, int]]) -> TrunkClass:
     widths ``dims``: TRUNK_NARROW at padded hidden widths up to 256 and a
     padded input up to 384 (the presets'), else TRUNK_WIDE up to 512 and
     640 (``sdf_network.d_out_feat`` = 512 under both hints), at bf16 and
-    f32.  Raises ``NotImplementedError`` for what no instance takes: wider
-    layers or inputs, or more than 16 layers."""
+    f32, at any depth.  Raises ``NotImplementedError`` for what no instance
+    takes: wider layers or inputs."""
     hidden = max([_round16(o) for _, o in dims] + [_round16(i) for i, _ in dims[1:]])
     d0 = _round16(dims[0][0])
     for cls in (TRUNK_NARROW, TRUNK_WIDE):
-        if hidden <= cls.width and d0 <= cls.in_max and len(dims) <= MAX_LAYERS:
+        if hidden <= cls.width and d0 <= cls.in_max:
             return cls
-    raise NotImplementedError(f"the CUDA trunk kernels (F, G, I, J) take padded hidden widths up to {TRUNK_WIDE.width}, "
-                              f"a padded input up to {TRUNK_WIDE.in_max} and at most {MAX_LAYERS} layers, got padded "
-                              f"hidden {hidden}, input {d0} and {len(dims)} layers (ROADMAP.md Queue 2 item 15)")
+    raise NotImplementedError(f"the CUDA trunk kernels (F, G, I, J) take padded hidden widths up to "
+                              f"{TRUNK_WIDE.width} and a padded input up to {TRUNK_WIDE.in_max}, got padded hidden "
+                              f"{hidden} and input {d0} (ROADMAP.md Queue 2 item 15)")
 
 
 def check_trunk_widths(dims: Sequence[tuple[int, int]]) -> None:
@@ -474,7 +502,8 @@ def pack_mlp(weights: Sequence[torch.Tensor], n_layers: int, dtype: torch.dtype 
     the chain's products G_i W_i^T (``mma_rows.cuh``'s f32 products read B
     row-major).  "cls" is the width class of the instances that read it
     (``trunk_class``, which raises for a trunk no instance takes); the
-    layout is the same in both classes."""
+    layout is the same in both classes.  "meta_dev" is the meta vector on
+    the card, for more than ``MAX_LAYERS`` linears (``device_meta``)."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the packed trunk weights are bf16 or f32, got {dtype}")
     dev = weights[0].device
@@ -498,8 +527,8 @@ def pack_mlp(weights: Sequence[torch.Tensor], n_layers: int, dtype: torch.dtype 
         if wtpack is not None:
             wtpack[wo : wo + kp * np_] = wp.t().reshape(-1)
         bpack[bo : bo + dout] = weights[2 * i + 1].reshape(-1).float()
-    meta = [n_layers + 1, dims[0][0], dims[-1][1], zt] + meta
-    pk = {"wpack": wpack, "bpack": bpack, "meta": np.asarray(meta, dtype=np.int32), "cls": cls}
+    meta = np.asarray([n_layers + 1, dims[0][0], dims[-1][1], zt] + meta, dtype=np.int32)
+    pk = {"wpack": wpack, "bpack": bpack, "meta": meta, "cls": cls, **device_meta(meta, n_layers + 1, dev)}
     if wtpack is not None:
         pk["wtpack"] = wtpack
     return pk
@@ -515,20 +544,25 @@ def trunk_pack(weights: Sequence[torch.Tensor], n_layers: int, compute_dtype: st
     return pk
 
 
-def dw_jobs(shapes) -> tuple[np.ndarray, int, int]:
-    """Layout of the weight-cotangent products C_j = A_j^T B_j: ``shapes``
-    lists (rows, ka, nb) per product.  -> (int64 [J, 6] table of (a_off,
-    b_off, rows, ka, nb, c_off), bf16 scratch elements, f32 dW elements).
-    Every offset is a multiple of 16 elements (32-byte aligned tiles)."""
+def dw_jobs(shapes, npad: int) -> tuple[np.ndarray, int, int]:
+    """Layout of the weight-cotangent products C_j = A_j^T B_j at ``npad``
+    padded points: ``shapes`` lists (m, ka, nb) per product, whose operands
+    have m npad rows.  -> (int64 [J, 6] table of (a, b, m, ka, nb, c_off),
+    scratch elements, f32 dW elements): A_j starts at a npad elements of the
+    scratch, B_j at b npad (``csrc/dw_sum.cuh::DwJobs``), so the table does
+    not depend on npad.  Every offset is a multiple of 16 elements (32-byte
+    aligned tiles)."""
+    if npad % 16:
+        raise ValueError(f"the dW products' padded points must be a multiple of 16, got {npad}")
     table, off, c_off = [], 0, 0
-    for rows, ka, nb in shapes:
-        if rows % 16 or ka % 16 or nb % 16:
-            raise ValueError(f"dW product shapes must be multiples of 16, got {(rows, ka, nb)}")
-        a_off, off = off, off + rows * ka
-        b_off, off = off, off + rows * nb
-        table.append((a_off, b_off, rows, ka, nb, c_off))
+    for m, ka, nb in shapes:
+        if ka % 16 or nb % 16:
+            raise ValueError(f"dW product widths must be multiples of 16, got {(ka, nb)}")
+        a, off = off, off + m * ka
+        b, off = off, off + m * nb
+        table.append((a, b, m, ka, nb, c_off))
         c_off += ka * nb
-    return np.asarray(table, dtype=np.int64), off, c_off
+    return np.asarray(table, dtype=np.int64), off * npad, c_off
 
 
 def dw_split(npad: int) -> int:
@@ -567,7 +601,7 @@ def sdf_core_fwd(
     _launch(
         cuda_lib.load("sdf_core"), "sdf_core_fwd", name,
         x.data_ptr(), pk["wpack"].data_ptr(), _wt(pk), pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr(),
-        sdf.data_ptr(), feat.data_ptr(), gx.data_ptr(), gates.data_ptr(), n, pk["meta"].ctypes.data,
+        sdf.data_ptr(), feat.data_ptr(), gx.data_ptr(), gates.data_ptr(), n, *meta_args(pk),
         float(cfg.scale), bits, cuda_lib.stream_ptr(x.device),
     )
     return sdf, feat, gx
@@ -612,7 +646,7 @@ def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, 
     require_cuda(dgx, (n, 3), "d_grad")
     nblk, npad, n_chain = chain_layout(n, gt, cls)
     layers = [tuple(int(v) for v in meta[10 + 7 * i : 17 + 7 * i]) for i in range(L)]
-    jobs, n_scratch, n_dw = dw_jobs([(2 * npad, lay[2], lay[3]) for lay in layers] + [(npad, kpf, npf)])
+    jobs, n_scratch, n_dw = dw_jobs([(2, lay[2], lay[3]) for lay in layers] + [(1, kpf, npf)], npad)
     split = dw_split(npad) if need_dw else 0
     pw = gt + npf + 1 + 2 * kpf
     f32 = dict(dtype=torch.float32, device=dev)
@@ -624,7 +658,7 @@ def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, 
                            torch.empty(n_dw, **f32)) if need_dw else (None, None, None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     tail = (dx.data_ptr(), scratch.data_ptr(), chain.data_ptr(), partial.data_ptr(), ptr(colsum),
-            ptr(part_dw), ptr(dw), jobs.ctypes.data, len(jobs), split, n, meta.ctypes.data, float(cfg.scale))
+            ptr(part_dw), ptr(dw), *jobs_args(jobs, dev), split, n, *meta_args(pk), float(cfg.scale))
     if n > 0 and stash is None:
         hs = torch.empty((n, gt), dtype=cdt, device=dev)
         gates = torch.empty(gate_layout(n, gt, cls.pts)[2], **f32)
@@ -685,7 +719,7 @@ def mlp_fwd(weights, x: torch.Tensor, n_layers: int, pk: dict | None = None,
     if n > 0:
         _launch(
             cuda_lib.load("mlp_stash"), "mlp_fwd", name,
-            x.data_ptr(), pk["wpack"].data_ptr(), pk["bpack"].data_ptr(), out.data_ptr(), n, meta.ctypes.data,
+            x.data_ptr(), pk["wpack"].data_ptr(), pk["bpack"].data_ptr(), out.data_ptr(), n, *meta_args(pk),
             bits, cuda_lib.stream_ptr(dev),
         )
     return out
@@ -716,7 +750,7 @@ def mlp_bwd_launch(weights, x: torch.Tensor, g: torch.Tensor, n_layers: int, pk:
     require_cuda(g, (n, d_out), "g")
     layers = [tuple(int(v) for v in meta[4 + 7 * i : 11 + 7 * i]) for i in range(n_lin)]
     _, npad, sum_rows, n_zs = trunk_layout(n, zt, pk["cls"])
-    jobs, n_scratch, n_dw = dw_jobs([(npad, lay[2], lay[3]) for lay in layers])
+    jobs, n_scratch, n_dw = dw_jobs([(1, lay[2], lay[3]) for lay in layers], npad)
     split = dw_split(npad)
     bt = sum(lay[3] for lay in layers)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -727,7 +761,7 @@ def mlp_bwd_launch(weights, x: torch.Tensor, g: torch.Tensor, n_layers: int, pk:
     part_dw = torch.empty((split, n_dw), **f32)
     dw = torch.empty(n_dw, **f32)
     tail = (dx.data_ptr(), scratch.data_ptr(), partial.data_ptr(), colsum.data_ptr(), part_dw.data_ptr(),
-            dw.data_ptr(), jobs.ctypes.data, len(jobs), split, n, meta.ctypes.data)
+            dw.data_ptr(), *jobs_args(jobs, dev), split, n, *meta_args(pk))
     if n > 0 and zs is None:
         zsc = torch.empty(n_zs, dtype=cdt, device=dev)
         _launch(cuda_lib.load("mlp_stash"), "mlp_bwd", name, x.data_ptr(), g.data_ptr(), pk["wpack"].data_ptr(),

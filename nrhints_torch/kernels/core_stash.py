@@ -60,6 +60,7 @@ from nrhints_torch.kernels.core_mlp import (
     gate_layout,
     materialize_sdf_weights_full,
     materialize_mlp_weights,
+    meta_args,
     mlp_bwd_launch,
     mlp_primal,
     mlp_relu_bwd_plain,
@@ -267,7 +268,7 @@ def sdf_stash_fwd(weights: Sequence[torch.Tensor], x: torch.Tensor, cfg: SDFNetC
         cuda_lib.load("sdf_core"), fn, name,
         x.data_ptr(), pk["wpack"].data_ptr(), _wt(pk), pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr(),
         sdf.data_ptr(), feat.data_ptr(), gx.data_ptr(), stash.data_ptr(), gates.data_ptr(), n,
-        pk["meta"].ctypes.data, float(cfg.scale), bits, cuda_lib.stream_ptr(dev),
+        *meta_args(pk), float(cfg.scale), bits, cuda_lib.stream_ptr(dev),
     )
     return sdf, feat, gx, stash
 
@@ -311,7 +312,7 @@ def mlp_stash_fwd(weights, x: torch.Tensor, n_layers: int, pk: dict | None = Non
         _launch(
             cuda_lib.load("mlp_stash"), "mlp_stash_fwd", name,
             x.data_ptr(), pk["wpack"].data_ptr(), pk["bpack"].data_ptr(), out.data_ptr(), zs.data_ptr(), n,
-            meta.ctypes.data, bits, cuda_lib.stream_ptr(dev),
+            *meta_args(pk), bits, cuda_lib.stream_ptr(dev),
         )
     return out, zs
 

@@ -23,8 +23,9 @@ int of dtype bits (``core_mlp.dtype_bits``); each instance counts under
 ``core_mlp.instance_name``: the kernel's name, with ``_f32`` for f32 dot
 operands and ``_f32stash`` / ``_bf16stash`` for a stash dtype other than
 the operands'; the SDF core's wide instances (``core_mlp.WIDE``: padded
-widths above 256 or encodings above 64, bf16 only) count as ``_wide``, and
-so do the march kernels' wide instances (``core_mlp.ROWS_WIDE``: C, K, L,
+widths above 256 or encodings above 64, every dtype pair) count as
+``_wide`` after the dtypes' suffix, and so do the march kernels' wide
+instances (``core_mlp.ROWS_WIDE``: C, K, L,
 M and N, ``*_wide`` and ``*_f32_wide``, each its own C entry point), and
 the trunk's (``core_mlp.TRUNK_WIDE``: padded hidden widths above 256 or
 inputs above 384, bf16 and f32, ``*_wide`` after the dtypes' suffix, bit 2
@@ -45,8 +46,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nrhints_torch"
-SOURCES = ("sdf_core", "march", "sdf_stash", "mlp_stash", "sdf_core_bwd", "march_fused", "march_geom",
-           "march_geom_f32")
+SOURCES = ("sdf_core", "march", "sdf_stash", "mlp_stash", "sdf_core_bwd", "march_fused", "march_fused_wide",
+           "march_geom", "march_geom_f32")
 # -fmad=false keeps each f32 multiply and add separately rounded, as the
 # plain PyTorch versions compute them, so kernel and plain version differ
 # only in summation order and bf16 rounding flips.
@@ -55,18 +56,17 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# The launch counters of the SDF core's and the trunk's instances
-# (core_mlp.instance_name).
-SDF_CORE_INSTANCES = (
-    ["sdf_core_fwd", "sdf_core_fwd_f32", "sdf_core_bwd", "sdf_core_bwd_f32"]
-    + [f"{k}{c}" for k in ("sdf_stash_fwd", "sdf_stash_bwd", "sdf_stash_all_fwd", "sdf_stash_all_bwd")
-       for c in ("", "_f32", "_f32_bf16stash", "_f32stash")]
-    + [f"{k}_wide" for k in ("sdf_core_fwd", "sdf_core_bwd", "sdf_stash_fwd", "sdf_stash_bwd", "sdf_stash_all_fwd",
-                             "sdf_stash_all_bwd")]
-)
+# The launch counters of the SDF core's instances (core_mlp.instance_name)
+# by dtypes and width class (core_mlp.NARROW, WIDE: "_wide").
+SDF_CORE_INSTANCES = [
+    f"{k}{c}{w}" for w in ("", "_wide") for k, dtypes in (
+        ("sdf_core_fwd", ("", "_f32")), ("sdf_core_bwd", ("", "_f32")),
+        *((k, ("", "_f32", "_f32_bf16stash", "_f32stash"))
+          for k in ("sdf_stash_fwd", "sdf_stash_bwd", "sdf_stash_all_fwd", "sdf_stash_all_bwd"))) for c in dtypes
+]
 # The march kernels' instances by weight dtype and width class: each is a
-# C entry point of march.cu (C) or march_fused.cu (K, L, M, N) and a launch
-# counter of the same name; and K-N's run-time geometry instances, "_geom"
+# C entry point of march.cu (C) or march_fused.cu (K, L, M, N; the wide
+# class's march_fused_wide.cu) and a launch counter of the same name; and K-N's run-time geometry instances, "_geom"
 # (march_geom.cu, with f32 weights march_geom_f32.cu), and B's
 # (round_machinery_geom, march.cu).
 MARCH_FUSED = ("march_sweep", "march_rounds", "importance_march", "shadow_march")
@@ -95,43 +95,46 @@ launch_counts.update({k: 0 for k in SDF_CORE_INSTANCES + TRUNK_INSTANCES + MARCH
                       + MARCH_GEOM_INSTANCES if k not in launch_counts})
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Every entry point that reads a meta vector takes it twice: in host memory
+# and, for a network deeper than core_mlp.MAX_LAYERS, its copy on the card
+# (else NULL); the backward entries take the dW job table the same way.
 _SIGNATURES = {
     "sdf_core": {
-        "sdf_core_fwd": [_P] * 9 + [_I, _P, _F, _I, _P],
-        "sdf_stash_fwd": [_P] * 10 + [_I, _P, _F, _I, _P],
-        "sdf_stash_all_fwd": [_P] * 10 + [_I, _P, _F, _I, _P],
+        "sdf_core_fwd": [_P] * 9 + [_I, _P, _P, _F, _I, _P],
+        "sdf_stash_fwd": [_P] * 10 + [_I, _P, _P, _F, _I, _P],
+        "sdf_stash_all_fwd": [_P] * 10 + [_I, _P, _P, _F, _I, _P],
     },
     "sdf_stash": {
-        "sdf_stash_bwd": [_P] * 16 + [_I, _I, _I, _P, _F, _I, _P],
-        "sdf_stash_all_bwd": [_P] * 16 + [_I, _I, _I, _P, _F, _I, _P],
+        "sdf_stash_bwd": [_P] * 17 + [_I, _I, _I, _P, _P, _F, _I, _P],
+        "sdf_stash_all_bwd": [_P] * 17 + [_I, _I, _I, _P, _P, _F, _I, _P],
     },
-    "sdf_core_bwd": {"sdf_core_bwd": [_P] * 18 + [_I, _I, _I, _P, _F, _I, _P]},
+    "sdf_core_bwd": {"sdf_core_bwd": [_P] * 19 + [_I, _I, _I, _P, _P, _F, _I, _P]},
     "mlp_stash": {
-        "mlp_stash_fwd": [_P] * 5 + [_I, _P, _I, _P],
-        "mlp_fwd": [_P] * 4 + [_I, _P, _I, _P],
-        "mlp_stash_bwd": [_P] * 12 + [_I, _I, _I, _P, _I, _P],
-        "mlp_bwd": [_P] * 13 + [_I, _I, _I, _P, _I, _P],
+        "mlp_stash_fwd": [_P] * 5 + [_I, _P, _P, _I, _P],
+        "mlp_fwd": [_P] * 4 + [_I, _P, _P, _I, _P],
+        "mlp_stash_bwd": [_P] * 13 + [_I, _I, _I, _P, _P, _I, _P],
+        "mlp_bwd": [_P] * 14 + [_I, _I, _I, _P, _P, _I, _P],
     },
     "march": {
         "round_machinery": [_P] * 9 + [_I, _I, _I, _F, _I, _I, _P],
         "round_machinery_geom": [_P] * 9 + [_I, _I, _I, _F, _I, _I, _I, _P],
-        **{f"shadow_final{k}": [_P] * 10 + [_I, _P, _F, _P] for k in ("", "_f32", "_wide", "_f32_wide")},
+        **{f"shadow_final{k}": [_P] * 10 + [_I, _P, _P, _F, _P] for k in ("", "_f32", "_wide", "_f32_wide")},
     },
-    "march_fused": {
+    **{lib: {
         f"{fn}{k}": sig
-        for fn, sig in (("march_sweep", [_P] * 7 + [_I, _P, _F, _P]),
-                        ("march_rounds", [_P] * 8 + [_I, _P, _F, _F, _I, _P]),
-                        ("importance_march", [_P] * 7 + [_I, _P, _F, _F, _I, _P]),
-                        ("shadow_march", [_P] * 10 + [_I, _P, _F, _F, _I, _P]))
-        for k in ("", "_f32", "_wide", "_f32_wide")
-    },
+        for fn, sig in (("march_sweep", [_P] * 7 + [_I, _P, _P, _F, _P]),
+                        ("march_rounds", [_P] * 8 + [_I, _P, _P, _F, _F, _I, _P]),
+                        ("importance_march", [_P] * 7 + [_I, _P, _P, _F, _F, _I, _P]),
+                        ("shadow_march", [_P] * 10 + [_I, _P, _P, _F, _F, _I, _P]))
+        for k in classes
+    } for lib, classes in (("march_fused", ("", "_f32")), ("march_fused_wide", ("_wide", "_f32_wide")))},
     # (..., rounds, n_new) after rank; K: n0 after scale.
     **{lib: {
         f"{fn}{k}_geom": sig
-        for fn, sig in (("march_sweep", [_P] * 7 + [_I, _P, _F, _I, _P]),
-                        ("march_rounds", [_P] * 8 + [_I, _P, _F, _F, _I, _I, _I, _P]),
-                        ("importance_march", [_P] * 7 + [_I, _P, _F, _F, _I, _I, _I, _P]),
-                        ("shadow_march", [_P] * 10 + [_I, _P, _F, _F, _I, _I, _I, _P]))
+        for fn, sig in (("march_sweep", [_P] * 7 + [_I, _P, _P, _F, _I, _P]),
+                        ("march_rounds", [_P] * 8 + [_I, _P, _P, _F, _F, _I, _I, _I, _P]),
+                        ("importance_march", [_P] * 7 + [_I, _P, _P, _F, _F, _I, _I, _I, _P]),
+                        ("shadow_march", [_P] * 10 + [_I, _P, _P, _F, _F, _I, _I, _I, _P]))
         for k in classes
     } for lib, classes in (("march_geom", ("", "_wide")), ("march_geom_f32", ("_f32", "_f32_wide")))},
 }

@@ -17,7 +17,8 @@ plain versions (port of ``nrhints_tpu/kernels/march.py``).
   ``rounds`` rounds of ``n_new`` samples (the presets: 64 + 4 x 16).
 
 On CUDA tensors the wrappers launch the kernels in ``csrc/march.cu``,
-``csrc/march_fused.cu`` and ``csrc/march_geom.cu`` / ``march_geom_f32.cu``;
+``csrc/march_fused.cu`` (the wide class: ``march_fused_wide.cu``) and
+``csrc/march_geom.cu`` / ``march_geom_f32.cu``;
 on CPU tensors they run the ``*_plain`` versions.  The march weights hold the matrices in the march
 dtype (bf16 by default) and the biases in f32; a bf16 sweep rounds its
 activations to bf16 after every layer, as the JAX sweeps do.  The weights'
@@ -45,7 +46,7 @@ import torch.nn.functional as F
 from nrhints_torch.fields.sdf import SDFNetConfig
 from nrhints_torch.kernels import cuda_lib
 from nrhints_torch.kernels.common import INV_SQRT2, materialize_sdf_weights, softplus100_gate
-from nrhints_torch.kernels.core_mlp import pack_sdf_mlp, require_cuda
+from nrhints_torch.kernels.core_mlp import meta_args, pack_sdf_mlp, require_cuda
 
 BIG_Z = 1e9  # padding depth; exceeds any real depth
 N_BUF = 128  # slots of the z / sdf buffers (n0 stratified + rounds x n_new importance)
@@ -422,7 +423,7 @@ def shadow_final(z, o, d, sdist, inv_s, cos_anneal, weights, cfg: SDFNetConfig) 
     rc = getattr(lib, fn)(
         z.data_ptr(), o.data_ptr(), d.data_ptr(), sdist.data_ptr(),
         pk["wpack"].data_ptr(), pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr(),
-        inv_s_t.data_ptr(), anneal_t.data_ptr(), tau.data_ptr(), b, pk["meta"].ctypes.data,
+        inv_s_t.data_ptr(), anneal_t.data_ptr(), tau.data_ptr(), b, *meta_args(pk),
         float(cfg.scale), cuda_lib.stream_ptr(dev),
     )
     cuda_lib.check(lib, rc, fn)
@@ -477,8 +478,8 @@ def _check_merge(merge: str) -> int:
 
 def _launch_fused(fn: str, weights, cfg: SDFNetConfig, inputs, out_cols: int, scalars=(),
                   geometry=None) -> torch.Tensor:
-    """Kernel ``fn`` of ``csrc/march_fused.cu`` (or its f32 or wide
-    instance, ``_kernel_pack``) on CUDA tensors: checks ``inputs``
+    """Kernel ``fn`` of ``csrc/march_fused.cu`` (or its f32 instance, or
+    its wide one in ``march_fused_wide.cu``: ``_kernel_pack``) on CUDA tensors: checks ``inputs``
     ([(tensor, shape, name), ...], the kernel's pointer arguments in
     order), packs the weights in their dtype, launches -> [B, out_cols].
     ``geometry``: None for the 64 + 4 x 16 instance, else the ints that the
@@ -493,10 +494,13 @@ def _launch_fused(fn: str, weights, cfg: SDFNetConfig, inputs, out_cols: int, sc
     fn, pk = _kernel_pack(fn, weights, cfg)
     if geometry is not None:
         fn += "_geom"
-    lib = cuda_lib.load("march_fused" if geometry is None else "march_geom_f32" if "_f32" in fn else "march_geom")
+    if geometry is None:
+        lib = cuda_lib.load("march_fused_wide" if fn.endswith("_wide") else "march_fused")
+    else:
+        lib = cuda_lib.load("march_geom_f32" if "_f32" in fn else "march_geom")
     rc = getattr(lib, fn)(
         *(t.data_ptr() for t, _, _ in inputs), pk["wpack"].data_ptr(), pk["bpack"].data_ptr(),
-        pk["w_sdf"].data_ptr(), out.data_ptr(), b, pk["meta"].ctypes.data, float(cfg.scale), *scalars,
+        pk["w_sdf"].data_ptr(), out.data_ptr(), b, *meta_args(pk), float(cfg.scale), *scalars,
         *(geometry or ()), cuda_lib.stream_ptr(dev),
     )
     cuda_lib.check(lib, rc, fn)

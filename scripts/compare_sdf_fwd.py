@@ -17,6 +17,13 @@ dtype pair with an f32 in it), where both trees have them (a tree
 without them reports none).  The script prints each kernel's largest
 absolute difference and whether all its outputs are equal.  It needs one
 card.
+
+The trees run in turns, A, B, B, A, each in a process of its own; each run
+also prints the device time of each bf16 kernel (A, D, E1 and its dW
+passes, H1, H2 and H's dW passes, and the stash_all variants) and of A's and
+H's f32 instances on those inputs, the median of 5 profiled calls
+(chip_smoke.py's kernel_device_ms), so each time is read twice; the outputs
+compared are each tree's first run's.
 """
 from __future__ import annotations
 
@@ -58,7 +65,26 @@ def run(tree: str, out: str) -> None:
                 res[key] = list(core_stash.sdf_stash_fwd(w, x, cfg, stash_us=us, **kw))
                 e_dws, e_dx = core_stash.sdf_stash_bwd(w, x, res[key][3], cots, cfg, stash_us=us, **kw)
                 res[key.replace("D", "E", 1)] = [e_dx, *e_dws]
-    torch.save({k: [t.cpu() for t in v] for k, v in res.items()}, out)
+    from chip_smoke import kernel_device_ms
+
+    dw = "dW passes of E/G/H/J (dw_sum.cuh)"
+    stash, stash_all = res["D"][3], res["D stash_all"][3]
+    calls = {
+        "A": (lambda: core_mlp.sdf_core_fwd(w, x, cfg), "kernel A sdf_core_fwd"),
+        "D": (lambda: core_stash.sdf_stash_fwd(w, x, cfg), "kernel D sdf_stash_fwd"),
+        "E": (lambda: core_stash.sdf_stash_bwd(w, x, stash, cots, cfg), ("kernel E sdf_stash_bwd (E1)", dw)),
+        "H": (lambda: core_mlp.sdf_core_bwd(w, x, cots, cfg),
+              ("kernel H, forward pass (H1)", "kernel H chain (H2)", dw)),
+        "D stash_all": (lambda: core_stash.sdf_stash_fwd(w, x, cfg, stash_us=True),
+                        "kernel D stash_all variant sdf_stash_all_fwd"),
+        "E stash_all": (lambda: core_stash.sdf_stash_bwd(w, x, stash_all, cots, cfg, stash_us=True),
+                        ("kernel E stash_all variant sdf_stash_all_bwd (E1)", dw)),
+        "A f32": (lambda: core_mlp.sdf_core_fwd(w, x, cfg, compute_dtype="float32"), "kernel A float32/float32"),
+        "H f32": (lambda: core_mlp.sdf_core_bwd(w, x, cots, cfg, compute_dtype="float32"),
+                  ("kernel H1 float32/float32", "kernel H2 float32/float32", dw)),
+    }
+    times = {k: kernel_device_ms(fn, group, tries=5) for k, (fn, group) in calls.items()}
+    torch.save({"outs": {k: [t.cpu() for t in v] for k, v in res.items()}, "times": times}, out)
 
 
 def main() -> int:
@@ -67,20 +93,31 @@ def main() -> int:
         return 0
     import torch
 
+    trees = sys.argv[1:3]
     with tempfile.TemporaryDirectory() as tmp:
-        outs = []
-        for i, tree in enumerate(sys.argv[1:3]):
-            path = str(Path(tmp) / f"{i}.pt")
-            subprocess.run([sys.executable, __file__, "--run", tree, path], check=True)
-            outs.append(torch.load(path))
-    for name in outs[0]:
-        if name not in outs[1]:
+        runs = []  # (tree index, result) in the order A, B, B, A
+        for i in (0, 1, 1, 0):
+            path = str(Path(tmp) / f"{len(runs)}.pt")
+            subprocess.run([sys.executable, __file__, "--run", trees[i], path], check=True)
+            runs.append((i, torch.load(path)))
+    for k in runs[0][1]["times"]:
+        per_tree = [[res["times"][k] for i, res in runs if i == t] for t in (0, 1)]
+        mean = [sum(v) / len(v) for v in per_tree]
+        seq = ", ".join(f"{res['times'][k]:.5f}" for _, res in runs)
+        print(f"kernel {k} device time (ms; runs A, B, B, A): {seq}; {trees[1]} / {trees[0]} = "
+              f"{mean[1] / mean[0]:.4f}")
+    a, b = runs[0][1]["outs"], runs[1][1]["outs"]
+    equal = True
+    for name in a:
+        if name not in b:
             continue
-        a, b = outs[0][name], outs[1][name]
-        diff = max((u.float() - v.float()).abs().max().item() for u, v in zip(a, b))
-        equal = len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
-        print(f"kernel {name}, {sys.argv[1]} against {sys.argv[2]}: max abs difference {diff:.3e}; equal bit for "
-              f"bit: {equal}")
+        diff = max((u.float() - v.float()).abs().max().item() for u, v in zip(a[name], b[name]))
+        same = len(a[name]) == len(b[name]) and all(torch.equal(u, v) for u, v in zip(a[name], b[name]))
+        equal &= same
+        print(f"kernel {name}, {trees[0]} against {trees[1]}: max abs difference {diff:.3e}; equal bit for "
+              f"bit: {same}")
+    print(f"SDF core kernels A, D, E, H (bf16 and f32), {trees[0]} against {trees[1]}: all outputs equal bit for "
+          f"bit: {equal}")
     return 0
 
 

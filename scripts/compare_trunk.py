@@ -13,6 +13,12 @@ the 3 outputs, and the full-width trunk 361 -> 4 x 256 -> 3 with
 torch.nn.Linear's default init from seed 1.  The script prints, per output,
 the largest absolute difference (for the bias cotangents also against the
 largest |db_i|) and whether all are equal.  It needs one card.
+
+The trees run in turns, A, B, B, A, each in a process of its own; each run
+also prints the device time of F, I, G (its chain and dW passes) and J (J1,
+its chain and dW passes) on those inputs, the median of 5 profiled calls
+(chip_smoke.py's kernel_device_ms), so each time is read twice; the outputs
+compared are each tree's first run's.
 """
 from __future__ import annotations
 
@@ -47,7 +53,17 @@ def run(tree: str, out: str) -> None:
         outs[f"{name} dx"] = dx
         for i in range(n_layers + 1):
             outs[f"{name} dW{i}"], outs[f"{name} db{i}"] = dws[2 * i], dws[2 * i + 1]
-    torch.save({k: v.cpu() for k, v in outs.items()}, out)
+    from chip_smoke import kernel_device_ms
+
+    chain, dw = "trunk chain: G1, or J2 after J1", "dW passes of E/G/H/J (dw_sum.cuh)"
+    calls = {
+        "F": (lambda: core_stash.mlp_stash_fwd(w, x, n_layers), "kernel F mlp_stash_fwd"),
+        "I": (lambda: core_mlp.mlp_fwd(w, x, n_layers), "kernel I mlp_fwd"),
+        "G": (lambda: core_stash.mlp_stash_bwd(w, x, f_zs, g, n_layers), (chain, dw)),
+        "J": (lambda: core_mlp.mlp_bwd(w, x, g, n_layers), ("kernel J, recompute pass (J1)", chain, dw)),
+    }
+    times = {k: kernel_device_ms(fn, group, tries=5) for k, (fn, group) in calls.items()}
+    torch.save({"outs": {k: v.cpu() for k, v in outs.items()}, "times": times}, out)
 
 
 def main() -> int:
@@ -56,13 +72,20 @@ def main() -> int:
         return 0
     import torch
 
+    trees = sys.argv[1:3]
     with tempfile.TemporaryDirectory() as tmp:
-        outs = []
-        for i, tree in enumerate(sys.argv[1:3]):
-            path = str(Path(tmp) / f"{i}.pt")
-            subprocess.run([sys.executable, __file__, "--run", tree, path], check=True)
-            outs.append(torch.load(path))
-    a, b = outs
+        runs = []  # (tree index, result) in the order A, B, B, A
+        for i in (0, 1, 1, 0):
+            path = str(Path(tmp) / f"{len(runs)}.pt")
+            subprocess.run([sys.executable, __file__, "--run", trees[i], path], check=True)
+            runs.append((i, torch.load(path)))
+    for k in runs[0][1]["times"]:
+        per_tree = [[res["times"][k] for i, res in runs if i == t] for t in (0, 1)]
+        mean = [sum(v) / len(v) for v in per_tree]
+        seq = ", ".join(f"{res['times'][k]:.5f}" for _, res in runs)
+        print(f"kernel {k} device time (ms; runs A, B, B, A): {seq}; {trees[1]} / {trees[0]} = "
+              f"{mean[1] / mean[0]:.4f}")
+    a, b = runs[0][1]["outs"], runs[1][1]["outs"]
     equal = True
     for name in a:
         same = torch.equal(a[name], b[name])

@@ -119,7 +119,7 @@ def main() -> int:
         return 1
     from chip_smoke import march_chunk
     from nrhints_torch.kernels import cuda_lib, march
-    from nrhints_torch.kernels.core_mlp import pack_sdf_mlp
+    from nrhints_torch.kernels.core_mlp import meta_args, pack_sdf_mlp
 
     libs = build_variants(REPO / "build" / "probe" / "march_parts", kernels)
     mc = march_chunk("cuda")
@@ -130,7 +130,7 @@ def main() -> int:
     anneal = torch.as_tensor(mc["anneal"], dtype=torch.float32, device=dev).reshape(1)
     pk = pack_sdf_mlp(mw, cfg, with_feat=False)
     weights = (pk["wpack"].data_ptr(), pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr())
-    meta, scale, stream = pk["meta"].ctypes.data, float(cfg.scale), cuda_lib.stream_ptr(dev)
+    meta, scale, stream = meta_args(pk), float(cfg.scale), cuda_lib.stream_ptr(dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"{torch.cuda.get_device_name(0)} ({smi}); torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -140,12 +140,12 @@ def main() -> int:
             sz, sl, sdir, sdist = mc["sz"], mc["sl"], mc["sdir"], mc["sdist"]
             out = torch.empty((sz.shape[0], 1), device=dev)
             args = (sz.data_ptr(), sl.data_ptr(), sdir.data_ptr(), sdist.data_ptr(), *weights, inv_s.data_ptr(),
-                    anneal.data_ptr(), out.data_ptr(), sz.shape[0], meta, scale)
+                    anneal.data_ptr(), out.data_ptr(), sz.shape[0], *meta, scale)
             ref = march.shadow_final(sz, sl, sdir, sdist, inv_s, anneal, mw, cfg)
         else:
             z0, o, d = mc["z0"], mc["o"], mc["d"]
             out = torch.empty((z0.shape[0], 64 if kernel == "K" else 128), device=dev)
-            args = (z0.data_ptr(), o.data_ptr(), d.data_ptr(), *weights, out.data_ptr(), z0.shape[0], meta, scale)
+            args = (z0.data_ptr(), o.data_ptr(), d.data_ptr(), *weights, out.data_ptr(), z0.shape[0], *meta, scale)
             if kernel == "K":
                 ref = march.march_sweep(z0, o, d, mw, cfg)
             elif kernel == "L":

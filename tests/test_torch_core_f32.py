@@ -265,8 +265,8 @@ def test_instance_names_and_dtype_bits(compute, stash, bits, suffix):
     T, S = ("float" if d == "float32" else "bf16" for d in (compute, stash))
     fwd = (cuda_lib.CSRC / "sdf_fwd.cuh").read_text()
     bwd = (cuda_lib.CSRC / "sdf_bwd.cuh").read_text()
-    assert f"launch_sdf_fwd<{T}, {S}, MODE>(a...)" in fwd
-    assert f"launch_sdf_bwd<{T}, {S}, GATES, US>(a...)" in bwd
+    assert f"launch_sdf_fwd<Cls, {T}, {S}, MODE>(a...)" in fwd
+    assert f"launch_sdf_bwd<Cls, {T}, {S}, GATES, US>(a...)" in bwd
     for src in ("sdf_core.cu", "sdf_stash.cu", "sdf_core_bwd.cu"):
         text = (cuda_lib.CSRC / src).read_text()
         assert all(sig[-3:-1] == [cuda_lib._F, cuda_lib._I] for sig in cuda_lib._SIGNATURES[src[:-3]].values())

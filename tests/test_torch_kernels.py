@@ -709,11 +709,12 @@ def test_stash_layouts():
     assert [w for _, w in cols] == [256, 256, 256, 217, 256, 256, 256, 256]
     assert all(off % 16 == 0 for off, _ in cols) and cols[-1][0] + 256 == 2016
     assert tcs.sdf_stash_width(SDFNetConfig()) == 2016
-    jobs, n_scratch, n_dw = tcm.dw_jobs([(64, 48, 256), (64, 256, 224), (32, 256, 256)])
-    assert (jobs[:, :2] % 16 == 0).all() and (jobs[:, 5] % 16 == 0).all()
+    jobs, n_scratch, n_dw = tcm.dw_jobs([(2, 48, 256), (2, 256, 224), (1, 256, 256)], 32)
+    assert jobs[:, :3].tolist() == [[0, 96, 2], [608, 1120, 2], [1568, 1824, 1]] and (jobs[:, 5] % 16 == 0).all()
     assert n_scratch == 64 * (48 + 256) + 64 * (256 + 224) + 32 * 512 and n_dw == 48 * 256 + 256 * 224 + 256 * 256
-    with pytest.raises(ValueError):
-        tcm.dw_jobs([(24, 16, 16)])
+    for shapes, npad in (([(1, 16, 16)], 24), ([(1, 24, 16)], 32)):
+        with pytest.raises(ValueError):
+            tcm.dw_jobs(shapes, npad)
     assert tcm.dw_split(16) == 1 and tcm.dw_split(65536) == tcm.MAX_SPLIT
     w = [torch.zeros(361, 256), torch.zeros(256), torch.zeros(256, 256), torch.zeros(256), torch.zeros(256, 3),
          torch.zeros(3)]
@@ -794,7 +795,8 @@ def test_chain_constants_match_the_headers():
     assert const("mlp_stash.cu", "kInMax") == tcm.IN_MAX
     assert const("mlp_stash.cu", "kSumRows") == tcm.SUM_ROWS
     fwd = (cuda_lib.CSRC / "sdf_fwd.cuh").read_text()
-    assert "<<<(n + kChainTP - 1) / kChainTP, kChainThreads, kFwdSmem" in fwd
+    assert "<<<(n + Cls::kPts - 1) / Cls::kPts, kChainThreads, kFwdSmem" in fwd
+    assert "static constexpr int kPts = kChainTP, kW = kWMax" in (cuda_lib.CSRC / "staged_mma.cuh").read_text()
     trunk = (cuda_lib.CSRC / "mlp_stash.cu").read_text()
     assert "<<<nblocks<Cls>(n), kChainThreads, kMlpFwdSmem" in trunk
     assert "<<<nblk, kChainThreads, kMlpChainSmem" in trunk
@@ -848,7 +850,8 @@ def test_march_kernels_run_the_row_engine(kernel):
                              path.read_text()), path.name
     src, sweep, rounds, final, fn = MARCH_INSTANCES[kernel]
     text = (cuda_lib.CSRC / src).read_text()
-    launches = re.findall(rf"launch_march<(?:F32|false|true), {sweep}, {rounds}, {final}, (true|false)>", text)
+    helpers = (cuda_lib.CSRC / "march_fused.cuh").read_text() if src == "march_fused.cu" else text
+    launches = re.findall(rf"launch_march<(?:F32|false|true), {sweep}, {rounds}, {final}, (true|false)[,>]", helpers)
     assert sorted(set(launches)) == (["false", "true"] if rounds == "true" else ["false"])
     assert f'extern "C" int {fn}(' in text and f'extern "C" int {fn}_f32(' in text
     assert fn in cuda_lib.launch_counts and f"{fn}_f32" in cuda_lib.launch_counts

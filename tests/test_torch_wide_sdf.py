@@ -210,7 +210,9 @@ def test_width_class_and_instance_names(kw, cls):
     """The presets' widths (padded widths up to 256, encodings up to 64)
     take the 64-point instances under today's counters; anything above
     them, up to 512 and 128, the wide instances (``*_wide``, the kWideClass
-    bit); every instance has a counter."""
+    bit), at every (compute, stash) dtype pair: A and H at each compute
+    dtype, D, E and the variants at each pair, the dtype bits ORed with the
+    class's; every instance has a counter."""
     from nrhints_torch.configs.config import nr_hints, nr_hints_cam_opt, pl_naive
 
     for preset in (nr_hints, nr_hints_cam_opt, pl_naive):
@@ -227,6 +229,15 @@ def test_width_class_and_instance_names(kw, cls):
         assert (name, bits) == (kernel + want.suffix, want.bit) and name in cuda_lib.launch_counts
     if want is tcm.NARROW:
         assert tcm.core_instance("sdf_stash_fwd", pk, "float32", "bfloat16") == ("sdf_stash_fwd_f32_bf16stash", 1)
+    for kernel in ("sdf_core_fwd", "sdf_core_bwd"):
+        name, bits = tcm.core_instance(kernel, pk, "float32")
+        assert (name, bits) == (f"{kernel}_f32{want.suffix}", 1 | want.bit) and name in cuda_lib.launch_counts
+    pairs = {("float32", "float32"): ("_f32", 3), ("float32", "bfloat16"): ("_f32_bf16stash", 1),
+             ("bfloat16", "float32"): ("_f32stash", 2)}
+    for kernel in ("sdf_stash_fwd", "sdf_stash_bwd", "sdf_stash_all_fwd", "sdf_stash_all_bwd"):
+        for (compute, stash), (suffix, dbits) in pairs.items():
+            name, bits = tcm.core_instance(kernel, pk, compute, stash)
+            assert (name, bits) == (kernel + suffix + want.suffix, dbits | want.bit) and name in cuda_lib.launch_counts
 
 
 @pytest.mark.parametrize("n, nblk", [(1, 1), (31, 1), (32, 1), (33, 2), (4161, 131), (65536, 2048)])
@@ -260,53 +271,75 @@ def test_wide_constants_match_the_headers():
     assert const("sdf_mlp.cuh", "kMaxLayers") == tcm.MAX_LAYERS
     fwd = (cuda_lib.CSRC / "sdf_fwd.cuh").read_text()
     bwd = (cuda_lib.CSRC / "sdf_bwd.cuh").read_text()
-    assert "<<<(n + kWidePts - 1) / kWidePts, kChainThreads, kFwdSmem" in fwd
-    assert "const int nblk = (n + kWidePts - 1) / kWidePts;" in bwd
+    assert "<<<(n + Cls::kPts - 1) / Cls::kPts, kChainThreads, kFwdSmem" in fwd
+    assert "const int nblk = (n + Cls::kPts - 1) / Cls::kPts;" in bwd
     assert "fwd_smem<CoreWide, bf16>() == 226304" in fwd and "chain_smem<CoreWide, bf16>() == 226432" in bwd
+    # The f32 instances: activations and carry [32][516] f32, the 128-wide
+    # encoding, the f32 ring of two 16-row by 512-column stages (+ d sdf a
+    # point in the chain), under a block's 232,448 bytes.
+    ring_f32 = 2 * 16 * 512 * 4
+    assert 32 * 516 * 4 * 2 + 32 * 128 * 4 + ring_f32 == 214016 and 214016 + 32 * 4 == 214144
+    assert "fwd_smem<CoreWide, float>() == 214016" in fwd and "chain_smem<CoreWide, float>() == 214144" in bwd
+    rows = (cuda_lib.CSRC / "mma_rows.cuh").read_text()
+    assert "std::conditional<Cls::kPts == kChainTP, RowsNarrow, RowsWide>" in rows
 
 
 @pytest.mark.parametrize("kw,what", [
     (dict(d_hidden=528), "padded widths up to 512"),
     (dict(d_out_feat=520), "padded widths up to 512"),
     (dict(multi_res=21), "encodings up to 128"),
-    (dict(n_layers=17, skip_in=(4,)), "at most 16 layers"),
+    (dict(n_layers=17, skip_in=(4,)), None),
     (dict(skip_in=(0,)), "no skip at"),
 ])
 def test_core_limits_raise(kw, what):
     """A config beyond the wide instances raises NotImplementedError with
-    the limit and the ROADMAP item, from core_class and pack_sdf_mlp."""
+    the limit and the ROADMAP item, from core_class and pack_sdf_mlp; a
+    skip at layer 0, which JAX's fused core does not run either, raises
+    naming that record, not item 15.  Depth is no limit (what=None): 17
+    layers take the 64-point class, and the pack carries its meta vector's
+    device copy (on the CPU, a CPU copy) for the kernels to read."""
     from nrhints_torch.fields.sdf import sdf_init as t_sdf_init
 
     cfg = SDFNetConfig(**kw)
+    w = tcm.materialize_sdf_weights_full(t_sdf_init(torch.Generator().manual_seed(0), cfg, "cpu"), cfg)
+    if what is None:
+        assert tcm.core_class(cfg) is tcm.NARROW
+        pk = tcm.pack_sdf_mlp(w, cfg, with_feat=True)
+        assert int(pk["meta"][0]) == 17 and np.array_equal(pk["meta_dev"].numpy(), pk["meta"])
+        return
     with pytest.raises(NotImplementedError, match=what) as e:
         tcm.core_class(cfg)
+    if kw.get("skip_in"):
+        assert "item 15" not in str(e.value) and "JAX's fused core" in str(e.value)
+        return
     assert "ROADMAP.md Queue 2 item 15" in str(e.value)
-    if not kw.get("skip_in"):
-        w = tcm.materialize_sdf_weights_full(t_sdf_init(torch.Generator().manual_seed(0), cfg, "cpu"), cfg)
-        with pytest.raises(NotImplementedError, match=what):
-            tcm.pack_sdf_mlp(w, cfg, with_feat=True)
+    with pytest.raises(NotImplementedError, match=what):
+        tcm.pack_sdf_mlp(w, cfg, with_feat=True)
 
 
 def test_wide_dtype_and_row_engine_limits_raise():
-    """The SDF core's wide class has bf16 instances only (f32 operands or an
-    f32 stash raise); the march kernels' row engine takes the same widths
-    at bf16 and f32 march weights: its pack (with_feat=False) at 512 wide is
-    ROWS_WIDE at either dtype, its blocks laid out as the core's, and above
-    512 / 128 it raises, naming item 15."""
+    """The SDF core's wide class takes f32 operands and an f32 stash: the
+    f32 pack at 512 wide is WIDE, its wtpack every block transposed at the
+    same offset, and the f32-stash instance is the wide one of its pair;
+    the march kernels' row engine takes the same widths at bf16 and f32
+    march weights: its pack (with_feat=False) at 512 wide is ROWS_WIDE at
+    either dtype, its blocks laid out as the core's, and above 512 / 128 it
+    raises, naming item 15."""
     from nrhints_torch.fields.sdf import sdf_init as t_sdf_init
 
     cfg = SDFNetConfig(d_hidden=512)
     w = tcm.materialize_sdf_weights_full(t_sdf_init(torch.Generator().manual_seed(0), cfg, "cpu"), cfg)
-    with pytest.raises(NotImplementedError, match="bf16 only"):
-        tcm.core_class(cfg, compute_dtype="float32")
-    with pytest.raises(NotImplementedError, match="bf16 only"):
-        tcm.pack_sdf_mlp(w, cfg, with_feat=True, dtype=torch.float32)
+    assert tcm.core_class(cfg) is tcm.core_class(cfg, compute_dtype="float32") is tcm.WIDE
+    f32 = tcm.pack_sdf_mlp(w, cfg, with_feat=True, dtype=torch.float32)
+    assert f32["cls"] is tcm.WIDE and f32["wpack"].dtype == f32["wtpack"].dtype == torch.float32
+    for wo, kp, np_, _, _ in _blocks(f32):
+        block = f32["wpack"][wo : wo + kp * np_].view(kp, np_)
+        assert torch.equal(f32["wtpack"][wo : wo + kp * np_].view(np_, kp), block.t())
     pk = tcm.pack_sdf_mlp(w, cfg, with_feat=True)
-    with pytest.raises(NotImplementedError, match="bf16 stash only"):
-        tcm.core_instance("sdf_stash_fwd", pk, "bfloat16", "float32")
+    assert tcm.core_instance("sdf_stash_fwd", pk, "bfloat16", "float32") == ("sdf_stash_fwd_f32stash_wide", 6)
     mw = w[: 2 * cfg.n_layers + 2]
     for compute, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-        assert tcm.core_class(cfg, with_feat=False, compute_dtype=compute) is tcm.ROWS_WIDE
+        assert tcm.core_class(cfg, with_feat=False) is tcm.ROWS_WIDE
         rows = tcm.pack_sdf_mlp(mw, cfg, with_feat=False, dtype=dt)
         assert rows["cls"] is tcm.ROWS_WIDE and rows["wpack"].dtype == dt
         # The core's pack holds the same hidden blocks, then the feature head at wf_off.
@@ -314,7 +347,7 @@ def test_wide_dtype_and_row_engine_limits_raise():
         assert list(rows["meta"][10:]) == list(pk["meta"][10:]) and int(rows["meta"][3]) == 0
     for kw, what in ((dict(d_hidden=528), "padded widths up to 512"), (dict(multi_res=21), "encodings up to 128")):
         with pytest.raises(NotImplementedError, match=what) as e:
-            tcm.core_class(SDFNetConfig(**kw), with_feat=False, compute_dtype="float32")
+            tcm.core_class(SDFNetConfig(**kw), with_feat=False)
         assert "march kernels" in str(e.value) and "ROADMAP.md Queue 2 item 15" in str(e.value)
     assert tcm.core_class(SDFNetConfig(), with_feat=False) is tcm.NARROW
 

@@ -207,14 +207,22 @@ def test_trunk_width_class(dims, cls):
     ((45, 528, 3), "hidden 528"),
     ((641, 32, 3), "input 656"),
     ((45, 32, 513, 3), "hidden 528"),
-    (tuple([45] + [32] * 17 + [3]), "18 layers"),
+    (tuple([45] + [32] * 17 + [3]), None),
 ])
 def test_trunk_limits_raise(dims, what):
-    """Above the wide class (padded hidden 512, input 640) or past 16
-    layers, ``trunk_class``, ``check_trunk_widths`` and ``pack_mlp`` raise
-    NotImplementedError naming ROADMAP Queue 2 item 15."""
+    """Above the wide class (padded hidden 512, input 640) ``trunk_class``,
+    ``check_trunk_widths`` and ``pack_mlp`` raise NotImplementedError
+    naming ROADMAP Queue 2 item 15.  Depth is no limit (what=None): 18
+    linears take the 64-point class, and the pack carries its meta vector's
+    device copy (on the CPU, a CPU copy) for the kernels to read."""
     pairs = list(zip(dims[:-1], dims[1:]))
     w = [torch.zeros(i, o) if k % 2 == 0 else torch.zeros(o) for i, o in pairs for k in range(2)]
+    if what is None:
+        assert tcm.trunk_class(pairs) is tcm.TRUNK_NARROW
+        tcm.check_trunk_widths(pairs)
+        pk = tcm.pack_mlp(w, len(pairs) - 1)
+        assert int(pk["meta"][0]) == 18 and torch.equal(pk["meta_dev"], torch.from_numpy(pk["meta"]))
+        return
     for call in (lambda: tcm.trunk_class(pairs), lambda: tcm.check_trunk_widths(pairs),
                  lambda: tcm.pack_mlp(w, len(pairs) - 1)):
         with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md Queue 2 item 15"):
@@ -252,7 +260,7 @@ def test_wide_pack_and_layout():
     for n, blocks in ((1, 1), (31, 1), (32, 1), (33, 2), (1000, 32)):
         got_blk, npad, rows, _ = tcm.trunk_layout(n, 2048, tcm.TRUNK_WIDE)
         assert (got_blk, npad, rows) == (blocks, 32 * blocks, 2 * blocks)
-    assert tcm.dw_jobs([(npad, 624, 512), (npad, 512, 512), (npad, 512, 16)])[0].shape == (3, 6)
+    assert tcm.dw_jobs([(1, 624, 512), (1, 512, 512), (1, 512, 16)], npad)[0].shape == (3, 6)
 
 
 @pytest.mark.parametrize("compute,stash,bits,suffix", [
