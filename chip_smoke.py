@@ -136,7 +136,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    graph on the shipping route and on the monolith, each against its eager
    sweep and 64 pixels on the CPU; (d) python -m nrhints_torch's main for
    10 steps; (e) an SDF 528 wide and one with a 144-wide encoding raise
-   NotImplementedError before any launch.
+   NotImplementedError on these default routes before any launch, at the
+   march kernels (kernel C in the shadow march): the SDF core takes them
+   (phase 23).
 19. the reflectance trunk above the presets' widths (``--wide-trunk``:
    alone): nr-hints-cam-opt at sdf_network d_hidden 512 and d_out_feat 512
    and reflectance_network d_hidden 512 (the trunk 617 -> 4 x 512 -> 3):
@@ -182,6 +184,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    K = 16 graph of stash steps, a recompute, a stash_all and a split-route
    step, and a view on the shipping route and on the monolith, each with
    exact launches, s/step or s/view and the device idle share.
+23. the SDF core above the wide class (``--huge-core``: alone; the plain
+   run runs it after phases 21 and 22 in their process): nr-hints-cam-opt
+   at sdf_network.d_hidden=1024 with shadow_final_impl="xla" (every march
+   route "xla", so no march kernel sees the SDF): (a) A's, D's, E's and H's
+   huge instances and D's and E's stash_all variants' at phase 3's 65,536
+   points, and at d_hidden 256 with multi_res 24 (an encoding 147 wide,
+   padded 160), against their plain versions (D = A, the variant = D, E and
+   H repeat, E without its dW passes, bit for bit), each by device time
+   beside the wide instance's at d_hidden 512 in the same call and its
+   bound; (b) a K = 16 graph of stash steps against its eager steps, a
+   64-ray step's gradients against the CPU, one recompute and one stash_all
+   step, launches exact, s/step and idle shares; (c) a 128x128 view through
+   its graph against its eager sweep and 64 pixels on the CPU; (d) python
+   -m nrhints_torch's main for 10 steps; (e) the same SDF on the default
+   routes (kernel C in the shadow march) and the core's entry points at
+   compute_dtype="float32" or stash_dtype="float32" raise
+   NotImplementedError naming item 15 before any launch.
 The run prints its total seconds on a line of its own.
 Phase 3 also holds kernels K (initial march sweep), L (refinement rounds),
 M (K and L in one kernel) and N (M and C's final sweep in one kernel), and
@@ -322,6 +341,18 @@ WIDE_MODES = {
     ("sdf_bwd_chain_wide_kernel", "false, true"): "kernel E' sdf_stash_all_bwd_wide (E1)",
 }
 _WIDE_KERNEL = re.compile(r"(sdf_core_fwd_wide_kernel|sdf_bwd_chain_wide_kernel)<([\w:]+), ([\w:]+), ([a-z0-9, ]+)>")
+# The SDF core's huge instances (phase 23, bf16 only): (template, its
+# arguments after <T, S>) -> group.
+HUGE_MODES = {
+    ("sdf_core_fwd_huge_kernel", "0"): "kernel A sdf_core_fwd_huge",
+    ("sdf_core_fwd_huge_kernel", "1"): "kernel D sdf_stash_fwd_huge",
+    ("sdf_core_fwd_huge_kernel", "2"): "kernel H huge, forward pass (H1)",
+    ("sdf_core_fwd_huge_kernel", "3"): "kernel D' sdf_stash_all_fwd_huge",
+    ("sdf_bwd_chain_huge_kernel", "false, false"): "kernel E sdf_stash_bwd_huge (E1)",
+    ("sdf_bwd_chain_huge_kernel", "true, false"): "kernel H huge chain (H2)",
+    ("sdf_bwd_chain_huge_kernel", "false, true"): "kernel E' sdf_stash_all_bwd_huge (E1)",
+}
+_HUGE_KERNEL = re.compile(r"(sdf_core_fwd_huge_kernel|sdf_bwd_chain_huge_kernel)<[\w:]+, [\w:]+, ([a-z0-9, ]+)>")
 # The trunk's wide instances (phase 19): their templates, grouped by the
 # label of the 64-point template's mode (CORE_MODES) and their dtypes,
 # wide_group: "kernel F wide bfloat16/bfloat16".
@@ -481,6 +512,9 @@ def core_group(key: str) -> str | None:
         label = CORE_MODES[(trunk.group(1).replace("_wide", ""), trunk.group(4) or "")][1]
         t, s = ("bfloat16" if "bfloat16" in a else "float32" for a in (trunk.group(2), trunk.group(3)))
         return wide_group(label, t, s)
+    huge = _HUGE_KERNEL.search(key)
+    if huge is not None:
+        return HUGE_MODES.get((huge.group(1), huge.group(2)))
     wide = _WIDE_KERNEL.search(key)
     if wide is not None:
         t, s = ("bfloat16" if "bfloat16" in a else "float32" for a in (wide.group(2), wide.group(3)))
@@ -640,34 +674,49 @@ def view_through_graph(label: str, ev_, params: dict, view, smi: str) -> tuple:
     return img_, times[1], counts[0]
 
 
-def card_cpu_grads(label: str, cfg, state, camera, buffers, b64, u64: dict) -> float:
-    """One 64-ray step from ``state``'s params on the card and on the CPU
-    (plain versions), the same pixels ``b64`` and uniforms ``u64``: every
-    gradient leaf against its CPU twin's scale, within GRAD_TOL.  -> the
-    worst leaf's error."""
+def step_grads(cfg, state, camera, buffers, b64, u64: dict, where: str) -> tuple[dict, float]:
+    """One 64-ray step from ``state``'s params on ``where`` ("cuda": the
+    kernels; "cpu": the plain versions), the pixels ``b64`` and uniforms
+    ``u64``.  -> ({leaf name: its gradient on the CPU}, loss)."""
     import torch
 
     from nrhints_torch.core.structs import PixelBundle
     from nrhints_torch.train.step import init_train_state, loss_and_grads, make_optimizer
     from nrhints_torch.utils import tree_items
 
-    grads = {}
-    for where in ("cuda", "cpu"):
-        p_ = tree_to(state.params, where)
-        st = init_train_state(p_, make_optimizer(cfg, p_))
-        st.step = state.step
-        bt = PixelBundle(**{f: getattr(b64, f).to(where) for f in ("h_indices", "w_indices", "poses", "pls",
-                                                                   "img_indices", "rgb_gt")})
-        m_ = loss_and_grads(st, cfg, camera, tree_to(buffers, where), bt,
-                            uniforms={k: torch.tensor(v, device=where) for k, v in u64.items()})
-        grads[where] = ({name: t.grad.detach().cpu() for name, t in tree_items(p_)}, float(m_["loss"]))
-    worst, worst_leaf = 0.0, ""
+    p_ = tree_to(state.params, where)
+    st = init_train_state(p_, make_optimizer(cfg, p_))
+    st.step = state.step
+    bt = PixelBundle(**{f: getattr(b64, f).to(where) for f in ("h_indices", "w_indices", "poses", "pls",
+                                                               "img_indices", "rgb_gt")})
+    m_ = loss_and_grads(st, cfg, camera, tree_to(buffers, where), bt,
+                        uniforms={k: torch.tensor(v, device=where) for k, v in u64.items()})
+    return {name: t.grad.detach().cpu() for name, t in tree_items(p_)}, float(m_["loss"])
+
+
+def card_cpu_grads(label: str, cfg, state, camera, buffers, b64, u64: dict, relu_by_norm: bool = False) -> float:
+    """One 64-ray step from ``state``'s params on the card and on the CPU
+    (plain versions), the same pixels ``b64`` and uniforms ``u64``: every
+    gradient leaf against its CPU twin's scale, within GRAD_TOL.  With
+    ``relu_by_norm`` (phase 23) the ReLU trunk's leaves ("/renderer/color/")
+    are held by the relative norm of their error at GRAD_TOL, as J is held
+    against the wholly plain backward: a sum that rounds otherwise moves a
+    trunk unit across its ReLU's 0, and that point's whole share with it;
+    the log gives their largest entry's reading too.  -> the worst leaf's
+    error."""
+    grads = {where: step_grads(cfg, state, camera, buffers, b64, u64, where) for where in ("cuda", "cpu")}
+    worst, worst_leaf, by_max = 0.0, "", (0.0, "")
     for name, g in grads["cpu"][0].items():
-        e = (grads["cuda"][0][name] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+        d = grads["cuda"][0][name] - g
+        e_max = d.abs().max().item() / max(g.abs().max().item(), 1e-30)
+        by_max = max(by_max, (e_max, name))
+        e = d.norm().item() / max(g.norm().item(), 1e-30) if relu_by_norm and "/renderer/color/" in name else e_max
         if e > worst:
             worst, worst_leaf = e, name
+    how = "the trunk's leaves by the relative norm, the rest by max over scale" if relu_by_norm else "of its scale"
     log(f"[{label}] 64-ray step, card vs CPU plain: loss {grads['cuda'][1]:.6f} vs {grads['cpu'][1]:.6f}; worst "
-        f"gradient leaf {worst_leaf}: {worst:.3e} of its scale (tol {GRAD_TOL}) over {len(grads['cpu'][0])} leaves")
+        f"gradient leaf {worst_leaf}: {worst:.3e} ({how}; tol {GRAD_TOL}) over {len(grads['cpu'][0])} leaves; the "
+        f"largest max over scale: {by_max[1]} {by_max[0]:.3e}")
     if not worst <= GRAD_TOL:
         raise AssertionError(f"card and CPU gradients disagree: {worst_leaf} {worst:.3e}")
     return worst
@@ -3202,9 +3251,10 @@ def trunk_f32_phase(smi: str, dev, mc: dict) -> list:
 # the split route's step (K, L, M, C) and both f32 routes' steps, each with
 # exact launches.  (c) a 128x128 view through its graph on the shipping
 # route and on the monolith.  (d) python -m nrhints_torch's main for
-# WIDE_ENTRY_STEPS steps.  (e) the limits: an SDF 528 wide and one with a
-# 144-wide encoding (multi_res 21) raise NotImplementedError before any
-# launch.
+# WIDE_ENTRY_STEPS steps.  (e) the limits: on these default routes an SDF
+# 528 wide and one with a 144-wide encoding (multi_res 21) raise
+# NotImplementedError before any launch, naming the march kernels (kernel C
+# of the shadow march): the SDF core's huge class takes them (phase 23).
 WIDE_SDF = {"d_hidden": 512}
 WIDE_FEAT = {"d_out_feat": 512, "multi_res": 12}
 WIDE_K, WIDE_ENTRY_STEPS = 16, 10
@@ -3701,7 +3751,7 @@ def wide_sdf_phase(smi: str, dev, mc: dict, tmp: Path) -> list:
                dict(WIDE_CORE_STEP, round_machinery=8, shadow_final_wide=1))
     wide_limits("18(e)", dev, td, batches[0], (
         ("d_hidden 528", with_model(td["cfg"], sdf={"d_hidden": 528})),
-        ("multi_res 21 (encoding 129, padded 144)", with_model(td["cfg"], sdf={"multi_res": 21}))), "CUDA")
+        ("multi_res 21 (encoding 129, padded 144)", with_model(td["cfg"], sdf={"multi_res": 21}))), "march kernels")
     log(f"[18] phase 18 took {time.perf_counter() - t_phase:.1f} s ((a) {t_a:.1f} s)")
     got = dict(sdf_core_fwd_wide=ship_view["sdf_core_fwd_wide"],
                sdf_stash_fwd_wide=sc["launches"]["sdf_stash_fwd_wide"],
@@ -4669,6 +4719,296 @@ def deep_phase(smi: str, dev, mc: dict) -> list:
             for name, num in nums.items()]
 
 
+# Phase 23: the SDF core above the wide class: A's, D's, E's and H's huge
+# instances and D's and E's stash_all variants' (64-point blocks whose
+# activations, carry and encoding are rows of device memory; any width, bf16
+# only).  The model is nr-hints-cam-opt at HUGE_SDF (d_hidden 1024, 8 layers,
+# skip at 4, multi_res 6, a 256-wide feature head) on HUGE_ROUTE: the march
+# kernels' classes stop at 512 wide (ROADMAP Queue 2 item 15), so every march
+# runs "xla" (the shipping sweeps and rounds already do; kernel B runs no
+# MLP) and only the core, the trunk (361 -> 4 x 256 -> 3) and B run kernels.
+# (a) every huge instance at phase 3's 256-wide SDF (its pack's class set to
+# CORE_HUGE) equal to the 64-point instance bit for bit, then at phase 3's
+# 65,536 points at HUGE_SDF and at HUGE_ENC (d_hidden 256, multi_res 24: an
+# encoding 147 wide, padded 160, the class taken by the encoding alone)
+# against its plain version at TOL, with D = A, the variant = D, E and H
+# repeating and E without its dW passes, bit for bit; each timed (CUDA
+# events, HUGE_SDF only) and by device ms from one profiled call beside the
+# wide instance's at WIDE_SDF in the same call and its bound.  (b) a K = HUGE_K graph of stash steps against its eager steps;
+# a 64-ray step's gradients against the CPU; one recompute and one
+# stash_all step, each profiled: exact launches, s/step and idle shares.
+# (c) a 128x128 view through its graph against its eager sweep and 64 pixels
+# on the CPU.  (d) python -m nrhints_torch's main for WIDE_ENTRY_STEPS steps.
+# (e) the limits: HUGE_SDF on the default routes (kernel C's final shadow
+# sweep) raises NotImplementedError naming the march kernels and item 15
+# before any launch, and so do the core's entry points at
+# compute_dtype="float32" (every schedule) and at stash_dtype="float32".
+HUGE_SDF = {"d_hidden": 1024}
+HUGE_ENC = {"d_hidden": 256, "multi_res": 24}
+HUGE_ROUTE = {"shadow_final_impl": "xla"}
+HUGE_K = 16
+HUGE_WHERE = {"sdf_core_fwd_huge": ("sdf_core.cu", "core_mlp.py:227"),
+              "sdf_stash_fwd_huge": ("sdf_core.cu", "core_stash.py:369"),
+              "sdf_stash_all_fwd_huge": ("sdf_core.cu", "core_stash.py:369"),
+              "sdf_stash_bwd_huge": ("sdf_stash.cu", "core_stash.py:422"),
+              "sdf_stash_all_bwd_huge": ("sdf_stash.cu", "core_stash.py:422"),
+              "sdf_core_bwd_huge": ("sdf_core_bwd.cu", "core_mlp.py:260")}
+# One step's launches on HUGE_ROUTE: the core, the 256-wide trunk, B's 8 steps.
+HUGE_STEP = dict(sdf_stash_fwd_huge=1, sdf_stash_bwd_huge=1, mlp_stash_fwd=1, mlp_stash_bwd=1, round_machinery=8)
+
+
+def huge_cfg(cfg, **renderer_kw):
+    """``cfg`` with HUGE_SDF's SDF network on HUGE_ROUTE and ``renderer_kw``."""
+    return with_renderer(with_model(cfg, sdf=HUGE_SDF), **HUGE_ROUTE, **renderer_kw)
+
+
+def huge_kernels(smi: str, dev, mc: dict) -> dict:
+    """Phase 23(a) (see above).  -> {instance name: (max abs err, ms, plain
+    ms, bound ms, bound by)} of the HUGE_SDF instances."""
+    import numpy as np
+    import torch
+
+    from nrhints_torch.fields.sdf import _layer_dims, sdf_init
+    from nrhints_torch.kernels import core_mlp, core_stash
+
+    x, ncfg = mc["x"], mc["cfg"].model.sdf_network
+    n_pts = x.shape[0]
+    out, base_dev = {}, {}
+
+    def cotangents(d_feat):
+        crng = np.random.default_rng(5)
+        return tuple(torch.tensor(crng.normal(size=s).astype(np.float32), device=dev)
+                     for s in ((n_pts,), (n_pts, d_feat), (n_pts, 3)))
+
+    # The huge instances at the presets' widths (phase 3's SDF, its pack's
+    # class set to CORE_HUGE) give the 64-point instances' outputs bit for
+    # bit: the same products in the same k order, the tiles elsewhere.
+    def flat(out):
+        return [t for o in out for t in (o if isinstance(o, (tuple, list)) else (o,))]
+
+    ncots = cotangents(ncfg.d_out_feat)
+    pk = core_mlp.pack_sdf_mlp(mc["aw"], ncfg, with_feat=True)
+    same = {}
+    for name, call in (("A", lambda p: core_mlp.sdf_core_fwd(mc["aw"], x, ncfg, p)),
+                       ("H", lambda p: core_mlp.sdf_core_bwd(mc["aw"], x, ncots, ncfg, p)),
+                       *((f"D{u}", lambda p, us=us: core_stash.sdf_stash_fwd(mc["aw"], x, ncfg, p, stash_us=us))
+                         for us, u in ((False, ""), (True, "'"))),
+                       *((f"E{u}", lambda p, us=us: core_stash.sdf_stash_bwd(
+                           mc["aw"], x, core_stash.sdf_stash_fwd(mc["aw"], x, ncfg, pk, stash_us=us)[3], ncots, ncfg,
+                           p, stash_us=us)) for us, u in ((False, ""), (True, "'")))):
+        same[name] = all(torch.equal(u, v) for u, v in zip(flat(call(dict(pk, cls=core_mlp.CORE_HUGE))),
+                                                            flat(call(pk))))
+    log(f"[23(a)] the huge instances at phase 3's 256-wide SDF against the 64-point instances, bit for bit: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"23(a): a huge instance differs from the 64-point one at the presets' widths: {same}")
+    del pk
+    torch.cuda.empty_cache()
+
+    # The base: the wide instances at WIDE_SDF on the same points.
+    bcfg = dataclasses.replace(ncfg, **WIDE_SDF)
+    bw = core_mlp.materialize_sdf_weights_full(sdf_init(torch.Generator().manual_seed(0), bcfg, dev), bcfg)
+    bcots = cotangents(bcfg.d_out_feat)
+    for case, kw in (("d1024", HUGE_SDF), ("enc160", HUGE_ENC)):
+        scfg = dataclasses.replace(ncfg, **kw)
+        if core_mlp.core_class(scfg) is not core_mlp.CORE_HUGE:
+            raise AssertionError(f"23(a): {kw} does not take the huge instances")
+        w = core_mlp.materialize_sdf_weights_full(sdf_init(torch.Generator().manual_seed(0), scfg, dev), scfg)
+        n_w, L = sum(t.numel() for t in w), scfg.n_layers
+        io, dims = _layer_dims(scfg)
+        hidden, d_last, d_feat = sum(i * o_ for i, o_ in io), dims[-2], scfg.d_out_feat
+        cots = cotangents(d_feat)
+        io_bytes = n_pts * 4 * (3 + 1 + d_feat + 3)
+        fwd_flops = 2.0 * n_pts * (2 * hidden + d_last * (1 + d_feat))
+        bwd_flops = {us: 2.0 * n_pts * ((4 if us else 5) * hidden + 2 * d_last * d_feat + 2 * d_last)
+                     for us in (False, True)}
+        timed = case == "d1024"
+        label = "" if timed else f" {case}"
+
+        def record(name, checks, fn, plain_fn, group, base_fn, base_group, bd, timed=timed, label=label):
+            instance_record("23(a)", out if timed else {}, base_dev, n_pts, smi, name + label, checks, fn, plain_fn,
+                            group, base_fn, base_group, bd, base="the wide instance's at d_hidden 512",
+                            iters=5 if timed else 1, tries=1)
+
+        a = core_mlp.sdf_core_fwd(w, x, scfg)
+        if not all(torch.equal(u, v) for u, v in zip(a, core_mlp.sdf_core_fwd(w, x, scfg))):
+            raise AssertionError(f"23(a) {case}: kernel A's huge instance differs between two runs")
+        record("sdf_core_fwd_huge", [("outputs", max_err(a, core_mlp.sdf_core_plain(w, x, scfg, "bfloat16")),
+                                      TOL["sdf_core_fwd"])],
+               lambda: core_mlp.sdf_core_fwd(w, x, scfg), lambda: core_mlp.sdf_core_plain(w, x, scfg, "bfloat16"),
+               HUGE_MODES[("sdf_core_fwd_huge_kernel", "0")], lambda: core_mlp.sdf_core_fwd(bw, x, bcfg),
+               "kernel A sdf_core_fwd_wide", bound(fwd_flops, io_bytes + 2 * n_w, H100_BF16_FLOPS))
+        d16 = None
+        for us in (False, True):
+            fn_d, fn_e = ("sdf_stash_all_fwd", "sdf_stash_all_bwd") if us else ("sdf_stash_fwd", "sdf_stash_bwd")
+            width = core_stash.sdf_stash_width(scfg, us)
+            d = core_stash.sdf_stash_fwd(w, x, scfg, stash_us=us)
+            if not all(torch.equal(u, v) for u, v in zip(d[:3], a)):
+                raise AssertionError(f"23(a) {case}: {fn_d}_huge's outputs differ from kernel A's")
+            if us and not torch.equal(d[3][:, : core_stash.sdf_stash_width(scfg)], d16[3]):
+                raise AssertionError(f"23(a) {case}: the stash_all variant's h_i differ from kernel D's")
+            plain = core_stash.sdf_core_fwd_hs_plain(w, x, scfg, "bfloat16", "bfloat16", return_us=us)
+            parts = core_stash.split_stash(d[3], core_stash.sdf_stash_columns(scfg, us))
+            checks = [("outputs", max_err(d[:3], plain[:3]), TOL["sdf_stash_fwd"]),
+                      ("stash", max_err(parts, [*plain[3], *plain[4], plain[5]] if us else plain[3]),
+                       TOL["sdf_stash_fwd"])]
+            del plain
+            record(f"{fn_d}_huge", checks, lambda us=us: core_stash.sdf_stash_fwd(w, x, scfg, stash_us=us),
+                   lambda us=us: core_stash.sdf_core_fwd_hs_plain(w, x, scfg, "bfloat16", "bfloat16", return_us=us),
+                   HUGE_MODES[("sdf_core_fwd_huge_kernel", "3" if us else "1")],
+                   lambda us=us: core_stash.sdf_stash_fwd(bw, x, bcfg, stash_us=us),
+                   WIDE_MODES[("sdf_core_fwd_wide_kernel", "3" if us else "1")],
+                   bound(fwd_flops, io_bytes + 2 * n_pts * width + 2 * n_w, H100_BF16_FLOPS))
+
+            e_dws, e_dx = core_stash.sdf_stash_bwd(w, x, d[3], cots, scfg, stash_us=us)
+            e2_dws, e2_dx = core_stash.sdf_stash_bwd(w, x, d[3], cots, scfg, stash_us=us)
+            none, dx_only = core_stash.sdf_stash_bwd(w, x, d[3], cots, scfg, need_dw=False, stash_us=us)
+            if not (torch.equal(e_dx, e2_dx) and all(torch.equal(u, v) for u, v in zip(e_dws, e2_dws))):
+                raise AssertionError(f"23(a) {case}: {fn_e}_huge's gradients differ between two runs")
+            if none is not None or not torch.equal(dx_only, e_dx):
+                raise AssertionError(f"23(a) {case}: {fn_e}_huge without its dW passes gives another dx")
+            del e2_dws, e2_dx, dx_only
+
+            def e_plain(parts=parts, us=us):
+                if us:
+                    return core_stash.sdf_core_bwd_stash_all_plain(w, x, parts[:L], parts[L : 2 * L], parts[2 * L],
+                                                                   cots, scfg, "bfloat16")
+                return core_stash.sdf_core_bwd_stash_plain(w, x, parts, cots, scfg, "bfloat16")
+
+            p_dws, p_dx = e_plain()
+            err = grad_err([e_dx, *e_dws], [p_dx, *p_dws])
+            del p_dws, p_dx, e_dws, e_dx
+            base_stash = core_stash.sdf_stash_fwd(bw, x, bcfg, stash_us=us)[3]
+            record(f"{fn_e}_huge", [("gradients", err, TOL["sdf_stash_bwd"])],
+                   lambda us=us, st=d[3]: core_stash.sdf_stash_bwd(w, x, st, cots, scfg, stash_us=us), e_plain,
+                   (HUGE_MODES[("sdf_bwd_chain_huge_kernel", "false, true" if us else "false, false")], DW_GROUP),
+                   lambda us=us, st=base_stash: core_stash.sdf_stash_bwd(bw, x, st, bcots, bcfg, stash_us=us),
+                   (WIDE_MODES[("sdf_bwd_chain_wide_kernel", "false, true" if us else "false, false")], DW_GROUP),
+                   bound(bwd_flops[us], io_bytes + 2 * n_pts * width + 6 * n_w, H100_BF16_FLOPS))
+            del base_stash
+            if us:
+                del d16
+            else:
+                d16 = d
+            torch.cuda.empty_cache()
+
+        h_dws, h_dx = core_mlp.sdf_core_bwd(w, x, cots, scfg)
+        h2_dws, h2_dx = core_mlp.sdf_core_bwd(w, x, cots, scfg)
+        if not (torch.equal(h_dx, h2_dx) and all(torch.equal(u, v) for u, v in zip(h_dws, h2_dws))):
+            raise AssertionError(f"23(a) {case}: kernel H's huge instance differs between two runs")
+        hp_dws, hp_dx = core_mlp.sdf_core_bwd_plain(w, x, cots, scfg, "bfloat16")
+        err = grad_err([h_dx, *h_dws], [hp_dx, *hp_dws])
+        del h_dws, h_dx, h2_dws, h2_dx, hp_dws, hp_dx, d
+        torch.cuda.empty_cache()
+        record("sdf_core_bwd_huge", [("gradients", err, TOL["sdf_core_bwd"])],
+               lambda: core_mlp.sdf_core_bwd(w, x, cots, scfg),
+               lambda: core_mlp.sdf_core_bwd_plain(w, x, cots, scfg, "bfloat16"),
+               (HUGE_MODES[("sdf_core_fwd_huge_kernel", "2")], HUGE_MODES[("sdf_bwd_chain_huge_kernel", "true, false")],
+                DW_GROUP),
+               lambda: core_mlp.sdf_core_bwd(bw, x, bcots, bcfg),
+               (WIDE_MODES[("sdf_core_fwd_wide_kernel", "2")], WIDE_MODES[("sdf_bwd_chain_wide_kernel", "true, false")],
+                DW_GROUP),
+               bound(bwd_flops[False] + 2.0 * n_pts * hidden, io_bytes + 6 * n_w, H100_BF16_FLOPS))
+        torch.cuda.empty_cache()
+    return out
+
+
+def huge_dtype_limits(label: str, dev, mc: dict) -> None:
+    """Phase 23(e), the dtypes: the core's entry points at HUGE_SDF with a
+    gradient wanted, at compute_dtype="float32" under each schedule and at
+    stash_dtype="float32", raise NotImplementedError naming item 15 before
+    any launch."""
+    import torch
+
+    from nrhints_torch.fields.sdf import sdf_init
+    from nrhints_torch.kernels import core_mlp, core_stash, cuda_lib
+
+    scfg = dataclasses.replace(mc["cfg"].model.sdf_network, **HUGE_SDF)
+    params = sdf_init(torch.Generator().manual_seed(0), scfg, dev)
+    params = {k: {n: t.requires_grad_(True) for n, t in v.items()} for k, v in params.items()}
+    x = mc["x"][:4096]
+    calls = [(f"compute_dtype float32, {b}", lambda b=b: core_mlp.fused_sdf_value_feat_grad(
+        params, scfg, x, compute_dtype="float32", backward=b)) for b in ("recompute", "stash", "stash_all")]
+    calls.append(("stash_dtype float32", lambda: core_stash.fused_sdf_value_feat_grad_stash(
+        params, scfg, x, stash_dtype="float32")))
+    for case, fn in calls:
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        try:
+            fn()
+        except NotImplementedError as e:
+            msg = str(e)
+        else:
+            raise AssertionError(f"{label}: the core ran at {case}")
+        if "item 15" not in msg or any(cuda_lib.launch_counts.values()):
+            raise AssertionError(f"{label}: {case}: {msg!r}, launches {dict(cuda_lib.launch_counts)}")
+        log(f"[{label} limits] the core's entry point at {case} raises NotImplementedError before any launch: {msg}")
+
+
+def huge_core_phase(smi: str, dev, mc: dict, tmp: Path) -> list:
+    """Phase 23, the SDF core above the wide class (see above).  -> the
+    kernels line's entries of the HUGE_SDF instances, each with its launches
+    from the path that runs it: A's from (c)'s view, D's and E's from (b)'s
+    K = HUGE_K dispatch, H's from the recompute step, the variants' from
+    the stash_all step."""
+    import numpy as np
+    import torch
+
+    from nrhints_torch.render.renderer import init_model_params
+    from nrhints_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    nums = huge_kernels(smi, dev, mc)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t_phase
+
+    # (b) The train path.
+    td = train_data(dev, 128, 128)
+    hcfg = huge_cfg(td["cfg"])
+    batches = [td["next_batch"]() for _ in range(HUGE_K + TRAIN_WARMUP)]
+    b64 = td["next_batch"](64)
+    sc = scan_phase(smi, dev, td, batches, "23(b) huge graph", hcfg, HUGE_K, HUGE_STEP)
+    state, buffers = fresh_state(hcfg, td["n_views"], dev)
+    step_fn = make_train_step(hcfg, td["camera"], buffers, state.optimizer)
+    state, _ = step_fn(state, batches[0], torch.Generator(device=dev).manual_seed(0))
+    urng = np.random.default_rng(7)
+    u64 = {"strat": urng.random((64, 1), dtype=np.float32),
+           "shadow": urng.random((64, hcfg.model.renderer.n_shadow_samples), dtype=np.float32)}
+    card_cpu_grads("23(b) huge train path", hcfg, state, td["camera"], buffers, b64, u64, relu_by_norm=True)
+    del state, step_fn, buffers
+    ship = dict(round_machinery=8)
+    rec = wide_one_step("23(b) huge recompute step", smi, dev, with_renderer(hcfg, core_backward="recompute"), td,
+                        batches[1], dict(sdf_core_fwd_huge=1, sdf_core_bwd_huge=1, mlp_fwd=1, mlp_bwd=1, **ship),
+                        profiled=True)
+    sa = wide_one_step("23(b) huge stash_all step", smi, dev, with_renderer(hcfg, core_backward="stash_all"), td,
+                       batches[2], dict(sdf_stash_all_fwd_huge=1, sdf_stash_all_bwd_huge=1, mlp_stash_fwd=1,
+                                        mlp_stash_bwd=1, **ship), profiled=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) The eval path: a 128x128 view of nr-hints at HUGE_SDF.
+    vcfg = huge_cfg(mc["cfg"])
+    params = {"renderer": init_model_params(vcfg.model, torch.Generator().manual_seed(0), device=dev), "raygen": {}}
+    view = wide_view("23(c) huge view", smi, mc, vcfg, params, dict(sdf_core_fwd_huge=1, **ship))
+    del params
+
+    # (d) The entry point; (e) the limits.
+    wide_entry(smi, tmp, "23(d)", ["--config.model.sdf-network.d-hidden", str(HUGE_SDF["d_hidden"]),
+                                   "--config.model.renderer.shadow-final-impl", HUGE_ROUTE["shadow_final_impl"]],
+               HUGE_STEP)
+    wide_limits("23(e)", dev, td, batches[0], (("d_hidden 1024 on the default routes",
+                                                with_model(td["cfg"], sdf=HUGE_SDF)),), "march kernels")
+    huge_dtype_limits("23(e)", dev, mc)
+    log(f"[23] phase 23 took {time.perf_counter() - t_phase:.1f} s ((a) {t_a:.1f} s)")
+    got = dict(sdf_core_fwd_huge=view["sdf_core_fwd_huge"],
+               sdf_stash_fwd_huge=sc["launches"]["sdf_stash_fwd_huge"],
+               sdf_stash_bwd_huge=sc["launches"]["sdf_stash_bwd_huge"],
+               sdf_core_bwd_huge=rec["sdf_core_bwd_huge"],
+               sdf_stash_all_fwd_huge=sa["sdf_stash_all_fwd_huge"],
+               sdf_stash_all_bwd_huge=sa["sdf_stash_all_bwd_huge"])
+    return [entry(name, *HUGE_WHERE[name], got[name], *num) for name, num in nums.items()]
+
+
 # Phase 15: sample-axis sharding.  (a) two gloo ranks on this card as a 1 x 2
 # ('data', 'sample') grid (LOCAL_WORLD_SIZE=1, so both take cuda:0: NCCL
 # refuses two ranks on one card), SAMPLE_EAGER_STEPS eager steps under the
@@ -4989,12 +5329,13 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return 0
 
-    # Phases 18, 19, 21 and 22, alone or together (in the order given), after
-    # the build; the plain run runs 18 with 19 and 21 with 22 so, each pair
-    # in a process of its own.
+    # Phases 18, 19, 21, 22 and 23, alone or together (in the order given),
+    # after the build; the plain run runs 18 with 19, and 21 with 22 and 23,
+    # so, each set in a process of its own.
     late_phases = {"--wide-sdf": wide_sdf_phase, "--wide-trunk": wide_trunk_phase,
                    "--wide-core-f32": lambda smi_, dev_, mc_, tmp_: core_f32_phase(smi_, dev_, mc_, wide=True),
-                   "--deep": lambda smi_, dev_, mc_, tmp_: deep_phase(smi_, dev_, mc_)}
+                   "--deep": lambda smi_, dev_, mc_, tmp_: deep_phase(smi_, dev_, mc_),
+                   "--huge-core": huge_core_phase}
     if sys.argv[1:] and all(a in late_phases for a in sys.argv[1:]):
         import tempfile
 
@@ -5020,7 +5361,7 @@ def main() -> int:
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}; flags: --data-parallel, --offpath, --stash-all, "
               f"--march-f32, --sample-axis, --core-f32, --trunk-f32, --wide-sdf, --wide-trunk, --march-geometry, "
-              f"--wide-core-f32, --deep (these two also together)",
+              f"--wide-core-f32, --deep, --huge-core (these three also together)",
               file=sys.stderr)
         return 2
 
@@ -5751,10 +6092,12 @@ def main() -> int:
     geometry = phase_subprocess(["--march-geometry"], ("[20",))
 
     log(f"[time] {time.perf_counter() - t_start:.1f} s before phase 21")
-    # 21. The SDF core's wide f32 instances, and 22. networks deeper than the
-    # kernels' parameter tables, together in a process of their own (as
-    # ``--wide-core-f32 --deep``).
-    late_entries = phase_subprocess(["--wide-core-f32", "--deep"], ("[21", "[22", "[profile]"))
+    # 21. The SDF core's wide f32 instances, 22. networks deeper than the
+    # kernels' parameter tables, and 23. the SDF core above the wide class,
+    # together in a process of their own (as ``--wide-core-f32 --deep
+    # --huge-core``).
+    late_entries = phase_subprocess(["--wide-core-f32", "--deep", "--huge-core"],
+                                    ("[21", "[22", "[23", "[profile]"))
     log(f"[total] the smoke run took {time.perf_counter() - t_start:.1f} s")
 
     kernels = [

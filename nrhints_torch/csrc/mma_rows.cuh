@@ -537,6 +537,9 @@ constexpr int kF32Compute = 1, kF32Stash = 2;
 // Bit 2 selects the wide instances (the SDF core's CoreWide, the trunk's
 // TrunkWide: core_mlp.py's wide classes), at every pair of the other bits.
 constexpr int kWideClass = 4;
+// Bit 3 selects the SDF core's huge instances (CoreHuge: any width, bf16
+// operands and stash only, so this bit stands alone).
+constexpr int kHugeClass = 8;
 
 // The 64-point kernels' shared-memory layout by operand type: the
 // activation tile's row stride and the ring's elements of T.
@@ -601,7 +604,7 @@ __device__ __forceinline__ void core_stage(const T* __restrict__ B, int ldb, int
   if constexpr (std::is_same<T, float>::value)
     stage_first_slabs_f32<kChainStagesF32, CoreRowsF32<Cls>>(B, N, K, N, ring);
   else
-    stage_first_slabs<TRANS_B>(B, ldb, K, Cls::kPts == kChainTP ? N : min(N, kWMax), ring);
+    stage_first_slabs<TRANS_B>(B, ldb, K, Cls::kPts == kChainTP && !Cls::kHuge ? N : min(N, kWMax), ring);
 }
 
 template <class Cls, bool TRANS_B, typename T>
@@ -609,10 +612,76 @@ __device__ __forceinline__ void core_gemm(const T* A, int lda, const T* __restri
                                           float* C, int ldc, T* ring) {
   if constexpr (std::is_same<T, float>::value)
     gemm_rows_f32<CoreRowsF32<Cls>>(A, lda, B, N, K, N, C, ldc, ring);
+  else if constexpr (Cls::kHuge)
+    gemm_rows_huge<TRANS_B>(A, lda, B, ldb, K, N, C, ldc, ring);
   else if constexpr (Cls::kPts == kChainTP)
     gemm_rows64<TRANS_B>(A, lda, B, ldb, K, N, C, ldc, ring);
   else
     gemm_rows32<TRANS_B>(A, lda, B, ldb, K, N, C, ldc, ring);
 }
+
+// The huge class's tile widths (core_mlp.huge_tiles): the widest padded
+// layer input or output and feature head, and the padded encoding.
+__device__ __forceinline__ int huge_width(const SdfMeta& m) {
+  int w = max(m.kpf, m.npf);
+  for (int i = 0; i < m.n_layers; ++i) w = max(w, max(m.kp(i), m.np(i)));
+  return w;
+}
+__host__ __device__ inline int huge_enc(const SdfMeta& m) { return (m.d0 + 15) / 16 * 16; }
+// f32 a point of the huge class's rows (core_mlp.row_layout): the bf16
+// activations, the f32 carry and the f32 encoding, each huge_width /
+// huge_enc wide.
+__device__ __forceinline__ int huge_row(const SdfMeta& m) {
+  const int w = huge_width(m);
+  return w / 2 + w + huge_enc(m);
+}
+
+// A block's tiles of the SDF core (sdf_fwd.cuh, sdf_bwd.cuh): the
+// activation tile of T, the f32 carry, the f32 encoding, the weight ring,
+// their row strides, and the shared memory past the ring(s) (`tail`).
+// Narrow and wide: all in shared memory at the class's strides.  Huge: the
+// activations, carry and encoding are the block's rows of a device-memory
+// scratch (`rows`, huge_row floats a point) at the meta's widths, and
+// shared memory holds the weight ring, then gemm_rows_huge's row ring.
+template <typename T>
+struct CoreTiles {
+  T* act;
+  float* carry;
+  float* enc;
+  T* ring;
+  unsigned char* tail;
+  int ld_act, ld_c, ld_enc;
+};
+
+template <class Cls, typename T>
+__device__ __forceinline__ CoreTiles<T> core_tiles(unsigned char* smem, float* rows, const SdfMeta& m) {
+  CoreTiles<T> t;
+  if constexpr (Cls::kHuge) {
+    static_assert(std::is_same<T, bf16>::value, "the huge class is bf16 only");
+    const int w = huge_width(m);
+    t.act = reinterpret_cast<T*>(rows);
+    t.carry = rows + Cls::kPts * w / 2;
+    t.enc = t.carry + Cls::kPts * w;
+    t.ring = reinterpret_cast<T*>(smem);
+    t.tail = reinterpret_cast<unsigned char*>(t.ring + CoreTile<T>::kRing + kHugeARing);
+    t.ld_act = t.ld_c = w;
+    t.ld_enc = huge_enc(m);
+  } else {
+    constexpr int kLdAct = kCoreLdAct<Cls, T>;
+    t.act = reinterpret_cast<T*>(smem);
+    t.carry = reinterpret_cast<float*>(t.act + Cls::kPts * kLdAct);
+    t.enc = t.carry + Cls::kPts * Cls::kLdC;
+    t.ring = reinterpret_cast<T*>(t.enc + Cls::kPts * Cls::kEnc);
+    t.tail = reinterpret_cast<unsigned char*>(t.ring + CoreTile<T>::kRing);
+    t.ld_act = kLdAct;
+    t.ld_c = Cls::kLdC;
+    t.ld_enc = Cls::kEnc;
+  }
+  return t;
+}
+
+// Shared memory of the huge class's blocks: the weight ring and the row
+// ring (138,240 bytes), and `tail` bytes after them.
+constexpr size_t huge_smem(size_t tail) { return (CoreTile<bf16>::kRing + kHugeARing) * sizeof(bf16) + tail; }
 
 }  // namespace nrh

@@ -18,7 +18,11 @@
 // instances sdf_bwd_chain_kernel<T, S, GATES, US>; or CoreWide,
 // sdf_bwd_chain_wide_kernel<T, S, GATES, US>: 32-point blocks, padded
 // widths up to 512 and encodings up to 128, every bf16 product in
-// gemm_rows32's column passes, every f32 one on gemm_rows_f32<RowsWide>.
+// gemm_rows32's column passes, every f32 one on gemm_rows_f32<RowsWide>;
+// or CoreHuge, sdf_bwd_chain_huge_kernel<bf16, bf16, GATES, US>: 64-point
+// blocks at any width, the activations, carry and encoding rows of device
+// memory after the chain scratch's (cscr, then core_mlp.row_layout's rows),
+// every product gemm_rows_huge.
 #pragma once
 
 #include "dw_sum.cuh"
@@ -39,12 +43,21 @@ constexpr size_t chain_smem() {
 static_assert(chain_smem<CoreNarrow, bf16>() == 227584 && chain_smem<CoreNarrow, float>() == 215296 &&
                   chain_smem<CoreWide, bf16>() == 226432 && chain_smem<CoreWide, float>() == 214144,
               "the chain's shared-memory budget");
+// The huge class: the weight ring, the row ring and d sdf / scale.
+template <>
+constexpr size_t chain_smem<CoreHuge, bf16>() {
+  return huge_smem(CoreHuge::kPts * sizeof(float));
+}
+static_assert(chain_smem<CoreHuge, bf16>() == 138496, "the huge chain's shared-memory budget");
 
 // f32 per point of the chain's device-memory scratch: u_i then dL/dh_i of
 // every layer (gates_total), then g_enc, its cotangent, the Tail's direct
-// cotangents and the cotangent of enc from the two sweeps (Cls::kEnc each).
+// cotangents and the cotangent of enc from the two sweeps (Cls::kEnc each;
+// the huge class's padded encoding, huge_enc).
 template <class Cls>
-__host__ __device__ inline int chain_row(const SdfMeta& m) { return m.gates_total + 4 * Cls::kEnc; }
+__host__ __device__ inline int chain_row(const SdfMeta& m) {
+  return m.gates_total + 4 * (Cls::kHuge ? huge_enc(m) : Cls::kEnc);
+}
 
 __device__ __forceinline__ float gate_from_h(float h) { return 1.0f - expf(-100.0f * h); }
 
@@ -62,24 +75,28 @@ __device__ __forceinline__ void sdf_bwd_chain_block(
     const T* __restrict__ wpack, const T* __restrict__ wtpack, const float* __restrict__ w_sdf,
     float* __restrict__ dx, T* __restrict__ scratch, float* __restrict__ cscr, float* __restrict__ partial, int n,
     const SdfMeta& m, const DwJobs& jobs, float scale) {
-  constexpr int kLdAct = kCoreLdAct<Cls, T>, kPts = Cls::kPts, kLdC = Cls::kLdC, kEnc = Cls::kEnc;
-  T* act = reinterpret_cast<T*>(smem);
-  float* G = reinterpret_cast<float*>(act + kPts * kLdAct);
-  float* enc = G + kPts * kLdC;
-  T* ring = reinterpret_cast<T*>(enc + kPts * kEnc);
-  float* dss = reinterpret_cast<float*>(ring + CoreTile<T>::kRing);  // d sdf / scale per point
+  constexpr int kPts = Cls::kPts;
+  const size_t npad = (size_t)gridDim.x * kPts;
+  const int CW = chain_row<Cls>(m);
+  // The huge class's rows follow the chain scratch's padded rows.
+  float* rows = Cls::kHuge ? cscr + npad * CW + (size_t)blockIdx.x * kPts * huge_row(m) : nullptr;
+  const CoreTiles<T> tl = core_tiles<Cls, T>(smem, rows, m);
+  const int kLdAct = tl.ld_act, kLdC = tl.ld_c, kEnc = tl.ld_enc;
+  T* act = tl.act;
+  float* G = tl.carry;
+  float* enc = tl.enc;
+  T* ring = tl.ring;
+  float* dss = reinterpret_cast<float*>(tl.tail);  // d sdf / scale per point
   const T* wt = std::is_same<T, float>::value ? wtpack : wpack;  // the transposed products' weights
 
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * kPts;
   const int L = m.n_layers, F = m.multi_res, d0 = m.d0, GT = m.gates_total, ST = stash_row(m, US);
   const int DL = m.d_last, DF = m.d_feat, kpf = m.kpf, npf = m.npf;
-  const size_t npad = (size_t)gridDim.x * kPts;
   // The block's rows of the device-memory scratch: U (u_i, then dL/dh_i),
   // genc (the recomputed g_enc), dgenc (its cotangent, the Tail VJP), tail
   // (the Tail's direct sin / cos cotangents), denc (cotangent of enc from
   // the two sweeps).
-  const int CW = chain_row<Cls>(m);
   float* crow = cscr + (size_t)p0 * CW;
   auto U = [&](int p, int col) -> float* { return crow + (size_t)p * CW + col; };
   auto genc = [&](int p, int c) -> float& { return crow[(size_t)p * CW + GT + c]; };
@@ -451,11 +468,27 @@ __global__ void __launch_bounds__(kChainThreads)
                                                  cscr, partial, n, m, jobs, scale);
 }
 
+template <typename T, typename S, bool GATES, bool US>
+__global__ void __launch_bounds__(kChainThreads)
+    sdf_bwd_chain_huge_kernel(const float* __restrict__ x, const S* __restrict__ stash,
+                              const float* __restrict__ gsc, const float* __restrict__ ds,
+                              const float* __restrict__ df, const float* __restrict__ dgx,
+                              const T* __restrict__ wpack, const T* __restrict__ wtpack,
+                              const float* __restrict__ w_sdf, float* __restrict__ dx, T* __restrict__ scratch,
+                              float* __restrict__ cscr, float* __restrict__ partial, int n, const SdfMeta m,
+                              const DwJobs jobs, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  sdf_bwd_chain_block<CoreHuge, T, S, GATES, US>(smem, x, stash, gsc, ds, df, dgx, wpack, wtpack, w_sdf, dx, scratch,
+                                                 cscr, partial, n, m, jobs, scale);
+}
+
 // The class's chain kernel of each template.
 template <class Cls, typename T, typename S, bool GATES, bool US>
 auto chain_kernel() {
   if constexpr (std::is_same<Cls, CoreWide>::value)
     return sdf_bwd_chain_wide_kernel<T, S, GATES, US>;
+  else if constexpr (std::is_same<Cls, CoreHuge>::value)
+    return sdf_bwd_chain_huge_kernel<T, S, GATES, US>;
   else
     return sdf_bwd_chain_kernel<T, S, GATES, US>;
 }
@@ -505,6 +538,8 @@ inline int launch_sdf_bwd_pair(int dtypes, A... a) {
 }
 template <bool GATES, bool US, typename... A>
 inline int launch_sdf_bwd_dtypes(int dtypes, A... a) {
+  if (dtypes & kHugeClass)
+    return dtypes == kHugeClass ? launch_sdf_bwd<CoreHuge, bf16, bf16, GATES, US>(a...) : (int)cudaErrorInvalidValue;
   if (dtypes & kWideClass) return launch_sdf_bwd_pair<GATES, US, CoreWide>(dtypes ^ kWideClass, a...);
   return launch_sdf_bwd_pair<GATES, US, CoreNarrow>(dtypes, a...);
 }
@@ -513,9 +548,9 @@ inline int launch_sdf_bwd_dtypes(int dtypes, A... a) {
 // of the width class the dtypes select, the jobs at its padded points).
 inline int parse_sdf_bwd(const int* meta, const int* meta_dev, const long long* jobs, const long long* jobs_dev,
                          int n_jobs, int n, int dtypes, SdfMeta* m, DwJobs* J) {
-  int rc = parse_meta(meta, meta_dev, m, dtypes & kWideClass);
+  int rc = parse_meta(meta, meta_dev, m, dtypes & kWideClass, dtypes & kHugeClass);
   if (rc) return rc;
-  const int pts = dtypes & kWideClass ? CoreWide::kPts : CoreNarrow::kPts;
+  const int pts = dtypes & kHugeClass ? CoreHuge::kPts : dtypes & kWideClass ? CoreWide::kPts : CoreNarrow::kPts;
   rc = parse_jobs(jobs, jobs_dev, n_jobs, (long long)((n + pts - 1) / pts) * pts, J);
   if (rc) return rc;
   return n_jobs != m->n_layers + 1 || m->d_feat < 1 ? (int)cudaErrorInvalidValue : 0;

@@ -101,17 +101,36 @@
 // ring stages of 16 f32 k-rows by 512 columns), the reverse sweep's
 // products on the f32 pack's transposed blocks (wtpack): 214,016 bytes of
 // shared memory, one block per SM.
+//
+// The huge instances replace the same pallas_calls above the wide class
+// (padded widths above 512 or encodings above 128), at bf16 operands and a
+// bf16 stash (the kHugeClass bit alone in the dtypes argument:
+// sdf_core_fwd_huge_kernel<bf16, bf16, MODE>).  Bound on an H100 at
+// d_hidden = 1024 (8 layers, skip at 4, multi_res 6, a 256-wide feature
+// head): 14.94 M multiply-adds a point, 1,958.6 GFLOP a 65,536-point call,
+// 1.98 ms at 989 TFLOP/s bf16; D adds 1.07 GB of bf16 stash (0.32 ms).
+// Bound by operations.  Design: no shared-memory tile holds a 1024-wide
+// row, so a block of 64 points keeps its activations (bf16), its f32 carry
+// and its encoding as rows of a device-memory scratch after the gate
+// scratch's rows (core_mlp.row_layout: 415 MB at 65,536 points at d_hidden
+// 1024, beside 2.14 GB of gates), at the meta's widths; shared memory holds
+// the weight ring and a ring of the row operand's k-slabs (138,240 bytes).
+// Every product is staged_mma.cuh::gemm_rows_huge: column passes of at most
+// 256, both operands streamed through cp.async in 64-row k-slabs, the
+// output written to the carry rows; the elementwise passes are the same
+// code, four columns of a point an item, on those rows.
 #include "sdf_fwd.cuh"
 
 using namespace nrh;
 
 // dtypes: kF32Compute selects A's f32 instance (wpack and wtpack the f32
-// pack; wtpack is null in bf16), kWideClass the wide class's.
+// pack; wtpack is null in bf16), kWideClass the wide class's, kHugeClass
+// (alone) the huge class's; gates then also holds the huge rows.
 extern "C" int sdf_core_fwd(const float* x, const void* wpack, const void* wtpack, const float* bpack,
                             const float* w_sdf, float* sdf, float* feat, float* gx, float* gates, int n,
                             const int* meta, const int* meta_dev, float scale, int dtypes, void* stream) {
   SdfMeta m;
-  const int rc = parse_meta(meta, meta_dev, &m, dtypes & kWideClass);
+  const int rc = parse_meta(meta, meta_dev, &m, dtypes & kWideClass, dtypes & kHugeClass);
   if (rc || n <= 0) return rc;
   return launch_sdf_fwd_dtypes<kFwdPlain>(dtypes, x, wpack, wtpack, bpack, w_sdf, sdf, feat, gx, nullptr, gates,
                                           n, m, scale, (cudaStream_t)stream);
@@ -124,7 +143,7 @@ extern "C" int sdf_stash_fwd(const float* x, const void* wpack, const void* wtpa
                              float* gates, int n, const int* meta, const int* meta_dev,
                              float scale, int dtypes, void* stream) {
   SdfMeta m;
-  const int rc = parse_meta(meta, meta_dev, &m, dtypes & kWideClass);
+  const int rc = parse_meta(meta, meta_dev, &m, dtypes & kWideClass, dtypes & kHugeClass);
   if (rc || n <= 0) return rc;
   return launch_sdf_fwd_dtypes<kFwdStash>(dtypes, x, wpack, wtpack, bpack, w_sdf, sdf, feat, gx, stash, gates, n,
                                           m, scale, (cudaStream_t)stream);
@@ -135,7 +154,7 @@ extern "C" int sdf_stash_all_fwd(const float* x, const void* wpack, const void* 
                                  float* gates, int n, const int* meta, const int* meta_dev,
                                  float scale, int dtypes, void* stream) {
   SdfMeta m;
-  const int rc = parse_meta(meta, meta_dev, &m, dtypes & kWideClass);
+  const int rc = parse_meta(meta, meta_dev, &m, dtypes & kWideClass, dtypes & kHugeClass);
   if (rc || n <= 0) return rc;
   return launch_sdf_fwd_dtypes<kFwdStashAll>(dtypes, x, wpack, wtpack, bpack, w_sdf, sdf, feat, gx, stash, gates,
                                              n, m, scale, (cudaStream_t)stream);

@@ -55,6 +55,17 @@
 // bf16 h and 1.06 GB of f32 gates at 65,536 points.  At compute_dtype=
 // "float32" (T = f32: f32 h_i, f32 dW operands, every product on
 // gemm_rows_f32<RowsWide>): 22.1 ms at the 67 TFLOP/s f32 peak.
+//
+// H's huge instance (kHugeClass alone in the dtypes argument: bf16 only)
+// replaces the same pallas_call above the wide class: H1 and H2 on the huge
+// instances' 64-point blocks with their rows in device memory
+// (sdf_core_fwd_huge_kernel<bf16, bf16, 2>, sdf_bwd_chain_huge_kernel<bf16,
+// bf16, true, false>: sdf_core.cu says why), the same dW passes.  Bound on
+// an H100 at d_hidden = 1024 (8 layers, skip at 4, multi_res 6, a 256-wide
+// feature head): 5,841 GFLOP a 65,536-point call, 5.91 ms at 989 TFLOP/s
+// bf16; bound by operations.  Its scratch at 65,536 points: 1.07 GB of bf16
+// h, 2.14 GB of f32 gates and 415 MB of H1's rows, then H2's chain scratch
+// (2.19 GB and 415 MB of rows) and 4.2 GB of bf16 dW operands.
 #include "sdf_bwd.cuh"
 #include "sdf_fwd.cuh"
 
@@ -62,7 +73,8 @@ using namespace nrh;
 
 // dtypes: kF32Compute selects H's f32 instance: H1 and H2 with f32 dot
 // operands, its h_i and its dW scratch in f32 (wpack and wtpack the f32
-// pack; wtpack is null in bf16); kWideClass the wide class's.
+// pack; wtpack is null in bf16); kWideClass the wide class's, kHugeClass
+// (alone) the huge class's: gates and cscr then also hold the huge rows.
 extern "C" int sdf_core_bwd(const float* x, const float* ds, const float* df, const float* dgx,
                             const void* wpack, const void* wtpack, const float* bpack, const float* w_sdf, void* hs,
                             float* gates, float* dx, void* scratch, float* cscr, float* partial, float* colsum,
@@ -73,7 +85,7 @@ extern "C" int sdf_core_bwd(const float* x, const float* ds, const float* df, co
   DwJobs J;
   int rc = parse_sdf_bwd(meta, meta_dev, jobs, jobs_dev, n_jobs, n, dtypes, &m, &J);
   if (rc || n <= 0) return rc;
-  if (dtypes & ~(kF32Compute | kWideClass)) return (int)cudaErrorInvalidValue;
+  if (dtypes & ~(kF32Compute | kWideClass | kHugeClass)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   rc = launch_sdf_fwd_dtypes<kFwdRecompute>(dtypes, x, wpack, wtpack, bpack, w_sdf, nullptr, nullptr, nullptr, hs,
                                             gates, n, m, scale, s);

@@ -32,7 +32,11 @@
 // CoreWide, sdf_core_fwd_wide_kernel<T, S, MODE>, the same code on 32-point
 // blocks with padded widths up to 512 and encodings up to 128, every bf16
 // product in gemm_rows32's column passes of at most 256, every f32 one on
-// mma_rows.cuh's gemm_rows_f32<RowsWide> (sdf_core.cu says why).
+// mma_rows.cuh's gemm_rows_f32<RowsWide> (sdf_core.cu says why); or
+// CoreHuge, sdf_core_fwd_huge_kernel<bf16, bf16, MODE>, the same code on
+// 64-point blocks at any width: the block's activations, carry and
+// encoding are rows of device memory after the gate scratch's (gsc, then
+// core_mlp.row_layout's rows), every product gemm_rows_huge.
 #pragma once
 
 #include "mma_rows.cuh"
@@ -58,6 +62,12 @@ constexpr size_t fwd_smem() {
 static_assert(fwd_smem<CoreNarrow, bf16>() == 227328 && fwd_smem<CoreNarrow, float>() == 215040 &&
                   fwd_smem<CoreWide, bf16>() == 226304 && fwd_smem<CoreWide, float>() == 214016,
               "the forward's shared-memory budget");
+// The huge class keeps only the weight ring and the row ring there.
+template <>
+constexpr size_t fwd_smem<CoreHuge, bf16>() {
+  return huge_smem(0);
+}
+static_assert(fwd_smem<CoreHuge, bf16>() == 138240, "the huge forward's shared-memory budget");
 
 // The forward of one block of Cls::kPts points: every product through
 // core_gemm, each product's first slabs requested before the elementwise
@@ -72,16 +82,21 @@ __device__ __forceinline__ void sdf_fwd_block(unsigned char* smem, const float* 
                                               float* __restrict__ sdf_out, float* __restrict__ feat_out,
                                               float* __restrict__ gx_out, S* __restrict__ stash,
                                               float* __restrict__ gsc, int n, const SdfMeta& m, float scale) {
-  constexpr int kLdAct = kCoreLdAct<Cls, T>, kPts = Cls::kPts, kLdC = Cls::kLdC, kEnc = Cls::kEnc;
-  T* act = reinterpret_cast<T*>(smem);
-  float* Z = reinterpret_cast<float*>(act + kPts * kLdAct);
-  float* enc = Z + kPts * kLdC;
-  T* ring = reinterpret_cast<T*>(enc + kPts * kEnc);
+  constexpr int kPts = Cls::kPts;
+  const int GT = m.gates_total;
+  // The huge class's rows follow the gate scratch's padded rows.
+  float* rows = Cls::kHuge ? gsc + (size_t)gridDim.x * kPts * GT + (size_t)blockIdx.x * kPts * huge_row(m) : nullptr;
+  const CoreTiles<T> tl = core_tiles<Cls, T>(smem, rows, m);
+  const int kLdAct = tl.ld_act, kLdC = tl.ld_c, kEnc = tl.ld_enc;
+  T* act = tl.act;
+  float* Z = tl.carry;
+  float* enc = tl.enc;
+  T* ring = tl.ring;
   const T* wt = std::is_same<T, float>::value ? wtpack : wpack;  // the reverse products' weights
 
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * kPts;
-  const int L = m.n_layers, F = m.multi_res, d0 = m.d0, GT = m.gates_total;
+  const int L = m.n_layers, F = m.multi_res, d0 = m.d0;
   const int ST = stash_row(m, MODE == kFwdStashAll);  // the stash's row stride
   float* grow = gsc + (size_t)p0 * GT;  // the block's rows of the gate scratch
 
@@ -267,18 +282,32 @@ __global__ void __launch_bounds__(kChainThreads)
                                       m, scale);
 }
 
+template <typename T, typename S, int MODE>
+__global__ void __launch_bounds__(kChainThreads)
+    sdf_core_fwd_huge_kernel(const float* __restrict__ x, const T* __restrict__ wpack, const T* __restrict__ wtpack,
+                             const float* __restrict__ bpack, const float* __restrict__ w_sdf,
+                             float* __restrict__ sdf_out, float* __restrict__ feat_out, float* __restrict__ gx_out,
+                             S* __restrict__ stash, float* __restrict__ gsc, int n, const SdfMeta m, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  sdf_fwd_block<CoreHuge, T, S, MODE>(smem, x, wpack, wtpack, bpack, w_sdf, sdf_out, feat_out, gx_out, stash, gsc, n,
+                                      m, scale);
+}
+
 // The class's forward kernel of each template.
 template <class Cls, typename T, typename S, int MODE>
 auto fwd_kernel() {
   if constexpr (std::is_same<Cls, CoreWide>::value)
     return sdf_core_fwd_wide_kernel<T, S, MODE>;
+  else if constexpr (std::is_same<Cls, CoreHuge>::value)
+    return sdf_core_fwd_huge_kernel<T, S, MODE>;
   else
     return sdf_core_fwd_kernel<T, S, MODE>;
 }
 
 // One launch of the forward of class Cls on `stream`; returns its launch
 // error.  gsc is the gate scratch of (n + Cls::kPts - 1) / Cls::kPts *
-// Cls::kPts rows (core_mlp.gate_layout).
+// Cls::kPts rows (core_mlp.gate_layout), in the huge class followed by as
+// many rows of huge_row floats (core_mlp.row_layout).
 template <class Cls, typename T, typename S, int MODE>
 inline int launch_sdf_fwd(const float* x, const void* wpack, const void* wtpack, const float* bpack,
                           const float* w_sdf, float* sdf, float* feat, float* gx, void* stash, float* gsc, int n,
@@ -317,6 +346,8 @@ inline int launch_sdf_fwd_pair(int dtypes, A... a) {
 }
 template <int MODE, typename... A>
 inline int launch_sdf_fwd_dtypes(int dtypes, A... a) {
+  if (dtypes & kHugeClass)
+    return dtypes == kHugeClass ? launch_sdf_fwd<CoreHuge, bf16, bf16, MODE>(a...) : (int)cudaErrorInvalidValue;
   if (dtypes & kWideClass) return launch_sdf_fwd_pair<MODE, CoreWide>(dtypes ^ kWideClass, a...);
   return launch_sdf_fwd_pair<MODE, CoreNarrow>(dtypes, a...);
 }

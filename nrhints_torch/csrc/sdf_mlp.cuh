@@ -63,11 +63,13 @@ struct SdfMeta {
 // meta = [L, multi_res, d0, d_feat, d_last, kpf, npf, wf_off, bf_off,
 //         gates_total, then per layer: in, out, kp, np, skip, w_off, b_off]
 // in host memory, checked against the 64-point instances' limits, or with
-// wide the wide instances' (kWideWMax, kWideEncMax).  Up to kMaxLayers
-// layers the rows ride in SdfMeta's tables; a deeper network's are read
-// from meta_dev, the same vector on the card (null for a shallower one).
-inline int parse_meta(const int* meta, const int* meta_dev, SdfMeta* m, bool wide = false) {
-  const int w_max = wide ? kWideWMax : kWMax, enc_max = wide ? kWideEncMax : kEncMax;
+// wide the wide instances' (kWideWMax, kWideEncMax), or with huge none (the
+// huge instances take any width; pack_sdf_mlp pads every one to 16).  Up
+// to kMaxLayers layers the rows ride in SdfMeta's tables; a deeper
+// network's are read from meta_dev, the same vector on the card (null for a
+// shallower one).
+inline int parse_meta(const int* meta, const int* meta_dev, SdfMeta* m, bool wide = false, bool huge = false) {
+  const int w_max = huge ? 1 << 30 : wide ? kWideWMax : kWMax, enc_max = huge ? 1 << 30 : wide ? kWideEncMax : kEncMax;
   m->n_layers = meta[0];
   m->multi_res = meta[1];
   m->d0 = meta[2];

@@ -89,13 +89,25 @@
 // in an f32 scratch (4.3 GB at 65,536 points at d_hidden 512) summed by
 // dw_partial_f32_kernel.  Bound at the 67 TFLOP/s f32 peak: 18.5 ms (the
 // variant's 14.9) a 65,536-point call at d_hidden 512.
+// The huge instances (E's and its variant's, bf16 operands and stash only:
+// kHugeClass alone in the dtypes argument, sdf_bwd_chain_huge_kernel<bf16,
+// bf16, false, US>) replace the same pallas_call above the wide class.
+// Bound on an H100 at d_hidden = 1024 (8 layers, skip at 4, multi_res 6, a
+// 256-wide feature head): 4,879 GFLOP a 65,536-point call (the variant's
+// 3,917), 4.93 ms (3.96) at 989 TFLOP/s bf16; bound by operations.  Design:
+// E1's stages on 64-point blocks whose activations, carry and encoding are
+// rows of device memory after the chain scratch's (sdf_core.cu says why;
+// 138,496 bytes of shared memory), every product gemm_rows_huge; the dW
+// passes are dw_sum.cuh's, whose 128 x 128 tiles take any ka and nb that
+// are multiples of 16 (4.2 GB of bf16 dW operands at 65,536 points).
 #include "sdf_bwd.cuh"
 
 using namespace nrh;
 
 // dtypes: kF32Compute and kF32Stash select E's instance (its dot operands',
 // and so its scratch's, and its stash's types), kWideClass the wide
-// class's; wtpack is the f32 pack's transposed blocks (null in bf16).
+// class's, kHugeClass (alone) the huge class's (cscr then also holds its
+// rows); wtpack is the f32 pack's transposed blocks (null in bf16).
 extern "C" int sdf_stash_bwd(const float* x, const void* stash, const float* ds, const float* df,
                              const float* dgx, const void* wpack, const void* wtpack, const float* w_sdf, float* dx,
                              void* scratch, float* cscr, float* partial, float* colsum, float* part_dw, float* dw,

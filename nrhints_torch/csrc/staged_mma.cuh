@@ -23,6 +23,13 @@
 // blocks, widths up to 2 kWMax: sdf_fwd.cuh, sdf_bwd.cuh): C[32, N] = A[32,
 // K] @ B as column passes of at most kWMax columns on the same ring, warp w
 // owning rows 16 (w / 8) .. +16 and columns 32 (w % 8) .. +32 of a pass.
+//
+// gemm_rows_huge is the product of the SDF core's huge instances (64-point
+// blocks, any width: sdf_fwd.cuh, sdf_bwd.cuh), whose activation rows lie in
+// device memory: C[64, N] = A[64, K] @ B as gemm_rows64's column passes of
+// at most kWMax columns, A's k-slabs streamed through a ring of their own
+// beside the weight ring (kHugeARing), each A slab in the cp.async group of
+// the weight slab of the same k, and C written to device memory.
 #pragma once
 
 #include <type_traits>
@@ -39,18 +46,31 @@ constexpr int kLdWs = kWMax + 8;     // bf16 row stride of a [kSlab][N] slab (ro
 constexpr int kLdWt = kSlab + 8;     // bf16 row stride of an [N][kSlab] slab (the transposed B)
 constexpr int kRingStage = kSlab * kLdWs > kWMax * kLdWt ? kSlab * kLdWs : kWMax * kLdWt;
 constexpr int kWidePts = 32;         // points per block of the SDF core's wide instances
+constexpr int kAStage = kChainTP * kLdWt;  // bf16 of an A slab [64][kSlab] of the huge instances' row ring
+constexpr int kHugeARing = kChainStages * kAStage;
 
 // The SDF core's width classes (sdf_fwd.cuh, sdf_bwd.cuh): kPts points a
 // block, kW the widest padded layer and feature head, kEnc the widest
 // padded encoding, kLdC the f32 row stride of the carry tile.  The 64-point
 // instances take the presets' widths; the wide ones twice them on 32-point
 // blocks, each bf16 product in gemm_rows32's column passes (each f32 one on
-// mma_rows.cuh's gemm_rows_f32<RowsWide>).
+// mma_rows.cuh's gemm_rows_f32<RowsWide>).  The huge ones (kHuge) take any
+// width and encoding that are multiples of 16, bf16 only, on 64-point
+// blocks: a block's activations, carry and encoding are rows of a
+// device-memory scratch at the meta's widths (mma_rows.cuh::core_tiles), so
+// kW, kEnc and kLdC are not theirs (0), and every product is
+// gemm_rows_huge.
 struct CoreNarrow {
   static constexpr int kPts = kChainTP, kW = kWMax, kEnc = kEncMax, kLdC = kLdZ;
+  static constexpr bool kHuge = false;
 };
 struct CoreWide {
   static constexpr int kPts = kWidePts, kW = kWideWMax, kEnc = kWideEncMax, kLdC = kWideWMax + 4;
+  static constexpr bool kHuge = false;
+};
+struct CoreHuge {
+  static constexpr int kPts = kChainTP, kW = 0, kEnc = 0, kLdC = 0;
+  static constexpr bool kHuge = true;
 };
 
 // 16 bytes global -> shared, zero-filled when !full (the source is then not
@@ -221,6 +241,100 @@ __device__ void gemm_rows32(const bf16* A, int lda, const bf16* __restrict__ B, 
     const bf16* Bn = TRANS_B ? B + (size_t)n0 * ldb : B + n0;
     if (n0 > 0) stage_first_slabs<TRANS_B>(Bn, ldb, K, nn, ring);
     gemm_rows_mt<1, TRANS_B>(A, lda, Bn, ldb, K, nn, C + n0, ldc, ring);
+  }
+}
+
+// The copies of A's k-slab s ([64][kSlab], row stride lda, device memory)
+// into stage s % kChainStages of the row ring, uncommitted; none past K.
+__device__ __forceinline__ void stage_rows_slab(const bf16* A, int lda, int K, bf16* aring, int s) {
+  const int k0 = s * kSlab;
+  if (k0 >= K) return;
+  bf16* dst = aring + (s % kChainStages) * kAStage;
+  for (int idx = threadIdx.x; idx < kChainTP * (kSlab / 8); idx += kChainThreads) {
+    const int r = idx / (kSlab / 8), c = (idx % (kSlab / 8)) * 8;
+    if (k0 + c < K) cp_async16(dst + r * kLdWt + c, A + (size_t)r * lda + k0 + c);
+  }
+}
+
+// One column pass of gemm_rows_huge: C[64, N] = A[64, K] @ B for N up to
+// kWMax, after the pass's first kChainStages - 1 slabs of B and then of A
+// were committed (in that order: at slab s the wait below leaves only the
+// newest group in flight, never slab s's A or B).  The warps' tiles are
+// gemm_rows64's; the A fragments come from the row ring.
+template <bool TRANS_B>
+__device__ void gemm_pass_huge(const bf16* A, int lda, const bf16* __restrict__ B, int ldb, int K, int N, float* C,
+                               int ldc, bf16* ring, bf16* aring) {
+  const int warp = threadIdx.x >> 5;
+  const int r0 = (warp / 8) * 32, c0 = (warp % 8) * 32;
+  const int nslab = (K + kSlab - 1) / kSlab;
+  using LayoutB = typename std::conditional<TRANS_B, wmma::col_major, wmma::row_major>::type;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int f = 0; f < 2; ++f) wmma::fill_fragment(acc[i][f], 0.0f);
+  for (int s = 0; s < nslab; ++s) {
+    cp_async_wait<kChainStages - 2>();
+    __syncthreads();
+    stage_rows_slab(A, lda, K, aring, s + kChainStages - 1);
+    stage_slab<TRANS_B>(B, ldb, K, N, ring, s + kChainStages - 1);  // B's copies, and the group's commit
+    const bf16* W = ring + (s % kChainStages) * kRingStage;
+    const bf16* As = aring + (s % kChainStages) * kAStage;
+    for (int kk = 0; kk < kSlab && s * kSlab + kk < K; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], As + (r0 + 16 * i) * kLdWt + kk, kLdWt);
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        const int col = c0 + 16 * f;
+        if (col < N) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> b;
+          if (TRANS_B)
+            wmma::load_matrix_sync(b, W + col * kLdWt + kk, kLdWt);
+          else
+            wmma::load_matrix_sync(b, W + kk * kLdWs + col, kLdWs);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][f], a[i], b, acc[i][f]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int f = 0; f < 2; ++f) {
+    const int col = c0 + 16 * f;
+    if (col < N)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::store_matrix_sync(C + (size_t)(r0 + 16 * i) * ldc + col, acc[i][f], ldc, wmma::mem_row_major);
+  }
+}
+
+// C[64, N] = A[64, K] @ B for any N (a multiple of 16) with A and C rows of
+// device memory (row strides lda, ldc: multiples of 8 and 4), after
+// stage_first_slabs of the first pass's B (its first min(N, kWMax) columns
+// or, transposed, rows); the row ring lies right after the weight ring.  It
+// begins with a barrier (A may be written just before), stages each pass's
+// first A slabs itself, and returns with both rings free; C is complete
+// after the caller's next __syncthreads().  C must not be A.
+template <bool TRANS_B>
+__device__ void gemm_rows_huge(const bf16* A, int lda, const bf16* __restrict__ B, int ldb, int K, int N, float* C,
+                               int ldc, bf16* ring) {
+  bf16* aring = ring + kChainStages * kRingStage;
+  for (int n0 = 0; n0 < N; n0 += kWMax) {
+    const int nn = min(kWMax, N - n0);
+    const bf16* Bn = TRANS_B ? B + (size_t)n0 * ldb : B + n0;
+    if (n0 > 0)
+      stage_first_slabs<TRANS_B>(Bn, ldb, K, nn, ring);
+    else
+      __syncthreads();
+#pragma unroll
+    for (int s = 0; s < kChainStages - 1; ++s) {
+      stage_rows_slab(A, lda, K, aring, s);
+      cp_async_commit();
+    }
+    gemm_pass_huge<TRANS_B>(A, lda, Bn, ldb, K, nn, C + n0, ldc, ring, aring);
   }
 }
 

@@ -22,7 +22,9 @@ instances of A, H, I and J, counted as ``sdf_core_fwd_f32``,
 core's width class picks A's, D's, E's and H's block (``core_class``): the
 64-point instances at the presets' widths (padded widths up to 256,
 encodings up to 64), the wide ones above them (up to 512 and 128, at every
-dtype pair, counted as ``*_wide``).  The march kernels C, K, L, M and N
+dtype pair, counted as ``*_wide``), and above those the huge ones (any
+width, bf16 operands and stash only, counted as ``*_huge``: 64-point blocks
+whose activation rows lie in device memory, ``row_layout``).  The march kernels C, K, L, M and N
 (``kernels/march.py``) have their own class above the presets' widths,
 ``ROWS_WIDE``, at bf16 and f32 march weights, and the trunk's F, G, I and J
 theirs (``trunk_class``): the 64-point instances at padded hidden widths up
@@ -214,23 +216,28 @@ MAX_JOBS = MAX_LAYERS + 1
 @dataclass(frozen=True)
 class CoreClass:
     """A width class of the SDF kernels: the SDF core's A, D, E and H
-    (``csrc/staged_mma.cuh``'s CoreNarrow and CoreWide) or the march
-    kernels' row engine (``csrc/mma_rows.cuh``'s RowsNarrow and RowsWide).
-    Points (rows) a block pass, the widest padded layer (and feature head)
-    and encoding it takes, the suffix of its instances' launch counters and
-    C entry points, and its bit in the SDF core's dtypes int
-    (``csrc/mma_rows.cuh::kWideClass``; 0 for the row engine, whose class
-    picks the entry point by name)."""
+    (``csrc/staged_mma.cuh``'s CoreNarrow, CoreWide and CoreHuge) or the
+    march kernels' row engine (``csrc/mma_rows.cuh``'s RowsNarrow and
+    RowsWide).  Points (rows) a block pass, the widest padded layer (and
+    feature head) and encoding it takes (None: any multiple of 16, device
+    memory the only limit), the suffix of its instances' launch counters
+    and C entry points, and its bit in the SDF core's dtypes int
+    (``csrc/mma_rows.cuh::kWideClass``, ``kHugeClass``; 0 for the row
+    engine, whose class picks the entry point by name)."""
 
     pts: int
-    width: int
-    enc: int
+    width: int | None
+    enc: int | None
     suffix: str
     bit: int
 
 
 NARROW = CoreClass(CHAIN_TP, 256, ENC_MAX, "", 0)
 WIDE = CoreClass(32, 512, 2 * ENC_MAX, "_wide", 4)  # bf16 and f32
+# Above WIDE: any width, bf16 operands and a bf16 stash only (csrc/
+# staged_mma.cuh::CoreHuge: a block's activations, carry and encoding are
+# rows of device memory, ``row_layout``).
+CORE_HUGE = CoreClass(CHAIN_TP, None, None, "_huge", 8)
 # The row engine above the presets' widths (march kernels C, K, L, M, N):
 # 64 bf16 rows a pass (32 f32), bf16 and f32 march weights.
 ROWS_WIDE = CoreClass(64, 512, 2 * ENC_MAX, "_wide", 0)
@@ -254,17 +261,22 @@ TRUNK_NARROW = TrunkClass(CHAIN_TP, 256, IN_MAX, "", 0)
 TRUNK_WIDE = TrunkClass(32, 512, IN_WIDE, "_wide", 4)  # bf16 and f32
 
 
-def core_class(cfg: SDFNetConfig, with_feat: bool = True, compute_dtype: str = "bfloat16") -> CoreClass:
+def core_class(cfg: SDFNetConfig, with_feat: bool = True, compute_dtype: str = "bfloat16",
+               stash_dtype: str = "bfloat16") -> CoreClass:
     """The width class whose CUDA instances take ``cfg``'s SDF: NARROW at
     padded widths up to 256 and encodings up to 64 (the presets' and every
     published width), else up to 512 and 128 WIDE, the SDF core's
     (``with_feat``) instances, or ROWS_WIDE, the march kernels C, K, L, M
-    and N (``with_feat=False``).  Every class takes every ``compute_dtype``
-    (checked, "bfloat16" or "float32") and any depth.  Raises ``NotImplementedError`` for widths above
-    512 or encodings above 128, and for what JAX's fused core does not run
-    either: points other than 3-D, or a skip at layer 0 (its forward then
-    fails in ``nrhints_tpu/kernels/core_mlp.py`` and ``fields/mlp.py``)."""
-    torch_dtype(compute_dtype)
+    and N (``with_feat=False``); above those the SDF core's CORE_HUGE, at
+    any width.  NARROW and WIDE take every ``compute_dtype`` and
+    ``stash_dtype`` (checked, "bfloat16" or "float32"), CORE_HUGE bf16 only;
+    every class takes any depth.  Raises ``NotImplementedError`` naming
+    ROADMAP.md Queue 2 item 15 for the march kernels above 512 / 128 and for
+    an f32 operand or stash dtype above them, and for what JAX's fused core
+    does not run either: points other than 3-D, or a skip at layer 0 (its
+    forward then fails in ``nrhints_tpu/kernels/core_mlp.py`` and
+    ``fields/mlp.py``)."""
+    torch_dtype(compute_dtype), torch_dtype(stash_dtype)
     if cfg.d_in != 3 or 0 in cfg.skip_in:
         raise NotImplementedError("the CUDA SDF kernels take 3-D points and no skip at layer 0; JAX's fused core runs "
                                   "neither (ROADMAP.md Queue 3, recorded differences)")
@@ -273,12 +285,24 @@ def core_class(cfg: SDFNetConfig, with_feat: bool = True, compute_dtype: str = "
     enc = _round16(cfg.d_encoded)
     if width <= NARROW.width and enc <= NARROW.enc:
         return NARROW
-    if width > WIDE.width or enc > WIDE.enc:
-        kernels = "SDF core (kernels A, D, E, H) takes" if with_feat else "march kernels (C, K, L, M, N) take"
-        raise NotImplementedError(f"the CUDA {kernels} padded widths up to {WIDE.width} and encodings up to "
-                                  f"{WIDE.enc}, got padded width {width} and encoding {enc} (ROADMAP.md Queue 2 "
-                                  "item 15)")
-    return WIDE if with_feat else ROWS_WIDE
+    if width <= WIDE.width and enc <= WIDE.enc:
+        return WIDE if with_feat else ROWS_WIDE
+    if not with_feat:
+        raise NotImplementedError(f"the CUDA march kernels (C, K, L, M, N) take padded widths up to {WIDE.width} and "
+                                  f"encodings up to {WIDE.enc}, got padded width {width} and encoding {enc} "
+                                  "(ROADMAP.md Queue 2 item 15)")
+    huge_dtypes(compute_dtype, stash_dtype, f"padded width {width} and encoding {enc}")
+    return CORE_HUGE
+
+
+def huge_dtypes(compute_dtype: str, stash_dtype: str | None, what: str) -> None:
+    """Raise ``NotImplementedError`` naming item 15 where a dtype of the SDF
+    core above the wide class is f32: its huge instances are bf16 only."""
+    if "float32" in (compute_dtype, stash_dtype):
+        raise NotImplementedError(f"the CUDA SDF core (kernels A, D, E, H) takes padded widths above {WIDE.width} "
+                                  f"or encodings above {WIDE.enc} at bf16 operands and a bf16 stash only, got {what} "
+                                  f"at compute_dtype={compute_dtype!r}, stash_dtype={stash_dtype!r} (ROADMAP.md "
+                                  "Queue 2 item 15)")
 
 
 def device_meta(meta: np.ndarray, n_layers: int, dev) -> dict:
@@ -326,7 +350,7 @@ def pack_sdf_mlp(weights: Sequence[torch.Tensor], cfg: SDFNetConfig, with_feat: 
     if cfg.encoding != "frequency":
         raise ValueError("the CUDA SDF kernels take the frequency encoding; the renderer runs the hash "
                          "encoding on the unfused path, as the JAX package does")
-    cls = core_class(cfg, with_feat)
+    cls = core_class(cfg, with_feat, "float32" if with_feat and dtype == torch.float32 else "bfloat16")
     io, dims = _layer_dims(cfg)
     L, d0, d_last = cfg.n_layers, cfg.d_encoded, dims[-2]
     d_feat = cfg.d_out_feat if with_feat else 0
@@ -402,8 +426,12 @@ def core_instance(kernel: str, pk: dict, compute_dtype: str, stash_dtype: str | 
     """(launch counter, dtypes int) of an SDF core or trunk kernel's
     instance for the pack's width class: ``instance_name`` and
     ``dtype_bits``, with "_wide" and the kWideClass bit for a wide class
-    (every class has every dtype pair)."""
+    (every dtype pair), "_huge" and the kHugeClass bit for the SDF core's
+    huge class (bf16 only: an f32 dtype raises ``NotImplementedError``
+    naming item 15, before any launch)."""
     cls = pk["cls"]
+    if cls is CORE_HUGE:
+        huge_dtypes(compute_dtype, stash_dtype, "the huge class")
     bits = dtype_bits(compute_dtype, stash_dtype or "bfloat16") | cls.bit
     return instance_name(kernel, compute_dtype, stash_dtype) + cls.suffix, bits
 
@@ -438,14 +466,55 @@ def gate_layout(n: int, gates_total: int, pts: int = CHAIN_TP) -> tuple[int, int
     return nblk, npad, npad * gates_total
 
 
-def chain_layout(n: int, gates_total: int, cls: CoreClass = NARROW) -> tuple[int, int, int]:
+def chain_layout(n: int, gates_total: int, cls: CoreClass = NARROW, enc: int | None = None) -> tuple[int, int, int]:
     """-> (blocks, padded points, f32 elements of the device-memory scratch)
     of the SDF backward chain at n points in width class ``cls``: per point
     u_i then dL/dh_i of every layer (``gates_total``), and four f32
-    encoding cotangents of ``cls.enc`` each.  The per-block column sums
-    have one row per block."""
+    encoding cotangents of ``cls.enc`` each (the huge class's: ``enc``, the
+    padded encoding).  The per-block column sums have one row per block."""
     nblk, npad, _ = gate_layout(n, gates_total, cls.pts)
-    return nblk, npad, npad * (gates_total + 4 * cls.enc)
+    return nblk, npad, npad * (gates_total + 4 * (enc if cls.enc is None else cls.enc))
+
+
+def huge_tiles(meta: np.ndarray) -> tuple[int, int]:
+    """(width, encoding) of the huge class's tiles from an SDF core pack's
+    meta vector: the widest padded layer input or output and feature head,
+    and the padded encoding (``csrc/mma_rows.cuh::huge_width`` and
+    ``huge_enc``)."""
+    L = int(meta[0])
+    width = max([int(meta[5]), int(meta[6])] + [int(meta[10 + 7 * i + k]) for i in range(L) for k in (2, 3)])
+    return width, _round16(int(meta[2]))
+
+
+def row_layout(n: int, pk: dict) -> tuple[int, int, int]:
+    """-> (blocks, padded points, f32 elements) of the per-block rows that
+    the SDF core's huge class keeps in device memory at n points (0
+    elements in the other classes, whose tiles fit shared memory): per
+    padded point the bf16 activations and the f32 carry at ``huge_tiles``'s
+    width and the f32 encoding, 4 bytes an element.  The forward's rows
+    follow its gate scratch in one allocation, the chain's its chain
+    scratch (``csrc/mma_rows.cuh::huge_row``): at d_hidden 1024 and 65,536
+    points, 1,584 floats a point, 415 MB."""
+    cls = pk["cls"]
+    nblk, npad, _ = gate_layout(n, 0, cls.pts)
+    if cls is not CORE_HUGE:
+        return nblk, npad, 0
+    width, enc = huge_tiles(pk["meta"])
+    return nblk, npad, npad * (width // 2 + width + enc)
+
+
+def check_scratch(n_bytes: int, dev, kernel: str) -> None:
+    """Raise ``MemoryError`` before any launch where a huge-class call's
+    device scratch (``n_bytes``) exceeds the card's free memory and what
+    the caching allocator holds unused; outside a CUDA graph's capture (the
+    eager warm-up before it checks the same sizes)."""
+    if torch.cuda.is_current_stream_capturing():
+        return
+    free, _ = torch.cuda.mem_get_info(dev)
+    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    if n_bytes > free + cached:
+        raise MemoryError(f"{kernel}: {n_bytes / 1e9:.2f} GB of device scratch at this width and point count, "
+                          f"{(free + cached) / 1e9:.2f} GB free on the card: pass fewer points a call")
 
 
 def trunk_layout(n: int, zt: int, cls: TrunkClass = TRUNK_NARROW) -> tuple[int, int, int, int]:
@@ -597,7 +666,7 @@ def sdf_core_fwd(
     name, bits = core_instance("sdf_core_fwd", pk, compute_dtype)
     if n == 0:
         return sdf, feat, gx
-    gates = torch.empty(gate_layout(n, int(pk["meta"][9]), pk["cls"].pts)[2], device=x.device)
+    gates = core_fwd_scratch(n, pk, x.device, name)
     _launch(
         cuda_lib.load("sdf_core"), "sdf_core_fwd", name,
         x.data_ptr(), pk["wpack"].data_ptr(), _wt(pk), pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr(),
@@ -605,6 +674,17 @@ def sdf_core_fwd(
         float(cfg.scale), bits, cuda_lib.stream_ptr(x.device),
     )
     return sdf, feat, gx
+
+
+def core_fwd_scratch(n: int, pk: dict, dev, kernel: str, extra_bytes: int = 0) -> torch.Tensor:
+    """The f32 scratch of the SDF core's forward (A, D, H's first pass) at
+    n points: the gate scratch (``gate_layout``) and, in the huge class,
+    its rows after it (``row_layout``), checked against the card's memory
+    with ``extra_bytes`` of the call's other scratch (``check_scratch``)."""
+    size = gate_layout(n, int(pk["meta"][9]), pk["cls"].pts)[2] + row_layout(n, pk)[2]
+    if pk["cls"] is CORE_HUGE:
+        check_scratch(4 * size + extra_bytes, dev, kernel)
+    return torch.empty(size, dtype=torch.float32, device=dev)
 
 
 def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, stash: torch.Tensor | None = None,
@@ -616,10 +696,11 @@ def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, 
     stash, which also holds u_i and g_enc), or, with ``stash=None``, kernel
     H, which first recomputes the layers into a scratch of its own (h_i in
     the operands' dtype and f32 gates, freed when this returns).
-    Both run the per-point chain on 64-point blocks (dx, the dW operands in
-    a scratch of the operands' dtype, per-block f32 column sums of the bias
-    cotangents, and u_i and the encoding cotangents in an f32 scratch of
-    ``chain_layout``'s size, freed when this returns), the split-K dW
+    Both run the per-point chain on the class's blocks (dx, the dW operands
+    in a scratch of the operands' dtype, per-block f32 column sums of the
+    bias cotangents, and u_i and the encoding cotangents in an f32 scratch
+    of ``chain_layout``'s size, in the huge class followed by its rows,
+    ``row_layout``, freed when this returns), the split-K dW
     products and the in-order sums of the partials (no atomics: the
     gradients repeat bit for bit).  ``compute_dtype`` picks bf16 or exact
     f32 dot operands (the f32 instances); the pack's width class the
@@ -644,12 +725,17 @@ def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, 
     require_cuda(ds, (n,), "d_sdf")
     require_cuda(df, (n, d_feat), "d_feat")
     require_cuda(dgx, (n, 3), "d_grad")
-    nblk, npad, n_chain = chain_layout(n, gt, cls)
+    nblk, npad, n_chain = chain_layout(n, gt, cls, huge_tiles(meta)[1])
+    n_chain += row_layout(n, pk)[2]
     layers = [tuple(int(v) for v in meta[10 + 7 * i : 17 + 7 * i]) for i in range(L)]
     jobs, n_scratch, n_dw = dw_jobs([(2, lay[2], lay[3]) for lay in layers] + [(1, kpf, npf)], npad)
     split = dw_split(npad) if need_dw else 0
     pw = gt + npf + 1 + 2 * kpf
     f32 = dict(dtype=torch.float32, device=dev)
+    n_gates = gate_layout(n, gt, cls.pts)[2] + row_layout(n, pk)[2]  # H's first pass
+    if cls is CORE_HUGE and n > 0:
+        hs_bytes = 0 if stash is not None else 2 * n * gt + 4 * n_gates
+        check_scratch(2 * n_scratch + 4 * (n_chain + nblk * pw + (split + 1) * n_dw) + hs_bytes, dev, name)
     dx = torch.empty((n, 3), **f32)
     scratch = torch.empty(n_scratch, dtype=cdt, device=dev)
     chain = torch.empty(n_chain, **f32)
@@ -661,7 +747,7 @@ def sdf_bwd_launch(weights, x, cots, cfg: SDFNetConfig, pk: dict | None = None, 
             ptr(part_dw), ptr(dw), *jobs_args(jobs, dev), split, n, *meta_args(pk), float(cfg.scale))
     if n > 0 and stash is None:
         hs = torch.empty((n, gt), dtype=cdt, device=dev)
-        gates = torch.empty(gate_layout(n, gt, cls.pts)[2], **f32)
+        gates = torch.empty(n_gates, **f32)
         _launch(
             cuda_lib.load("sdf_core_bwd"), "sdf_core_bwd", name,
             x.data_ptr(), ds.data_ptr(), df.data_ptr(), dgx.data_ptr(), pk["wpack"].data_ptr(), _wt(pk),

@@ -53,11 +53,11 @@ from nrhints_torch.kernels.core_mlp import (
     _launch,
     _round16,
     _wt,
+    core_fwd_scratch,
     core_instance,
     core_pack,
     cotangent,
     encode_points,
-    gate_layout,
     materialize_sdf_weights_full,
     materialize_mlp_weights,
     meta_args,
@@ -249,12 +249,12 @@ def sdf_stash_fwd(weights: Sequence[torch.Tensor], x: torch.Tensor, cfg: SDFNetC
     ``sdf_stash_columns`` offset; with ``stash_us`` (D's stash_all variant)
     also every u_i and g_enc, rounded to ``stash_dtype``, where the h_i
     columns and the outputs stay plain D's bit for bit; the pack's width
-    class picks the block (``core_mlp.core_class``).  Its f32 gates go to a
-    scratch of ``core_mlp.gate_layout``'s size, freed when this returns."""
+    class picks the block (``core_mlp.core_class``).  Its f32 gates (and
+    the huge class's rows) go to a scratch of ``core_mlp.gate_layout``'s
+    (and ``row_layout``'s) size, freed when this returns."""
     require_cuda(x, (None, 3), "x")
     n, dev = x.shape[0], x.device
     pk = core_pack(weights, cfg, compute_dtype, pk)
-    gt = int(pk["meta"][9])
     fn = "sdf_stash_all_fwd" if stash_us else "sdf_stash_fwd"
     name, bits = core_instance(fn, pk, compute_dtype, stash_dtype)
     sdf = torch.empty(n, device=dev)
@@ -263,7 +263,7 @@ def sdf_stash_fwd(weights: Sequence[torch.Tensor], x: torch.Tensor, cfg: SDFNetC
     stash = torch.empty((n, sdf_stash_width(cfg, stash_us)), dtype=torch_dtype(stash_dtype), device=dev)
     if n == 0:
         return sdf, feat, gx, stash
-    gates = torch.empty(gate_layout(n, gt, pk["cls"].pts)[2], device=dev)
+    gates = core_fwd_scratch(n, pk, dev, name)
     _launch(
         cuda_lib.load("sdf_core"), fn, name,
         x.data_ptr(), pk["wpack"].data_ptr(), _wt(pk), pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr(),

@@ -24,7 +24,9 @@ int of dtype bits (``core_mlp.dtype_bits``); each instance counts under
 operands and ``_f32stash`` / ``_bf16stash`` for a stash dtype other than
 the operands'; the SDF core's wide instances (``core_mlp.WIDE``: padded
 widths above 256 or encodings above 64, every dtype pair) count as
-``_wide`` after the dtypes' suffix, and so do the march kernels' wide
+``_wide`` after the dtypes' suffix (its huge ones, ``core_mlp.CORE_HUGE``:
+any wider SDF, bf16 only, bit 3 of the dtypes int, as ``_huge``), and so do
+the march kernels' wide
 instances (``core_mlp.ROWS_WIDE``: C, K, L,
 M and N, ``*_wide`` and ``*_f32_wide``, each its own C entry point), and
 the trunk's (``core_mlp.TRUNK_WIDE``: padded hidden widths above 256 or
@@ -57,13 +59,17 @@ NVCC_FLAGS = [
 ]
 
 # The launch counters of the SDF core's instances (core_mlp.instance_name)
-# by dtypes and width class (core_mlp.NARROW, WIDE: "_wide").
+# by dtypes and width class (core_mlp.NARROW, WIDE: "_wide"), and the huge
+# class's bf16 instances (core_mlp.CORE_HUGE: "_huge").  Every instance is
+# one of the six C entry points below, picked by the dtypes int's bits.
+SDF_CORE_KERNELS = ("sdf_core_fwd", "sdf_core_bwd", "sdf_stash_fwd", "sdf_stash_bwd", "sdf_stash_all_fwd",
+                    "sdf_stash_all_bwd")
 SDF_CORE_INSTANCES = [
     f"{k}{c}{w}" for w in ("", "_wide") for k, dtypes in (
         ("sdf_core_fwd", ("", "_f32")), ("sdf_core_bwd", ("", "_f32")),
         *((k, ("", "_f32", "_f32_bf16stash", "_f32stash"))
           for k in ("sdf_stash_fwd", "sdf_stash_bwd", "sdf_stash_all_fwd", "sdf_stash_all_bwd"))) for c in dtypes
-]
+] + [f"{k}_huge" for k in SDF_CORE_KERNELS]
 # The march kernels' instances by weight dtype and width class: each is a
 # C entry point of march.cu (C) or march_fused.cu (K, L, M, N; the wide
 # class's march_fused_wide.cu) and a launch counter of the same name; and K-N's run-time geometry instances, "_geom"

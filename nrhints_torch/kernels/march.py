@@ -29,7 +29,10 @@ their own names.  The SDF's widths pick the row engine's class
 (``core_mlp.core_class(cfg, with_feat=False)``): the presets' widths
 (padded widths up to 256, encodings up to 64) the instances above, wider
 SDFs up to 512 and 128 the wide instances (``*_wide``, ``*_f32_wide``);
-wider still raises ``NotImplementedError`` before any launch.  The
+a wider SDF, which the SDF core's huge class takes, raises
+``NotImplementedError`` naming ROADMAP.md Queue 2 item 15 here before any
+launch (its march routes must be "xla": ``shadow_final_impl``,
+``march_sweep_impl`` and ``march_rounds_impl``).  The
 geometry picks the instance too: 64 + 4 x 16 (K: n0 = 64; B: n_new = 16)
 the compile-time instances, every other geometry of ``GEOMETRY_RANGE`` the
 run-time ones (``*_geom``, counted under their own names); outside it the

@@ -253,7 +253,8 @@ def check_kernel_widths(cfg: ModelConfig, is_training: bool = True) -> None:
     """Raise ``NotImplementedError`` where this config's routes take its SDF
     or its reflectance trunk to a CUDA kernel none of whose instances takes
     its widths: the SDF core (A, D, E, H) wherever it runs fused
-    (``core_mlp.core_class``), the march kernels (C, K, L, M, N) wherever
+    (``core_mlp.core_class``, whose huge class takes any width at the bf16
+    the render routes run), the march kernels (C, K, L, M, N) wherever
     a fused march launches one (their class, ``core_class(...,
     with_feat=False)``), and the trunk (F, G, I, J) wherever the fused
     trunk runs in training (``is_training``) or eval (its class, the

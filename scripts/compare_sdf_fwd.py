@@ -14,9 +14,11 @@ their own tree's D stash (``core_stash.sdf_stash_bwd``) and H
 both trees take; then the same kernels' f32 instances (A and H at
 compute_dtype="float32", D, E and the variants at each (compute, stash)
 dtype pair with an f32 in it), where both trees have them (a tree
-without them reports none).  The script prints each kernel's largest
-absolute difference and whether all its outputs are equal.  It needs one
-card.
+without them reports none); then the wide class's instances ("... wide":
+A, D, E, H and the variants in bf16, A and H in f32) at d_hidden 512 on
+the same points, where both trees have them.  The script prints each
+kernel's largest absolute difference and whether all its outputs are
+equal.  It needs one card.
 
 The trees run in turns, A, B, B, A, each in a process of its own; each run
 also prints the device time of each bf16 kernel (A, D, E1 and its dW
@@ -65,6 +67,21 @@ def run(tree: str, out: str) -> None:
                 res[key] = list(core_stash.sdf_stash_fwd(w, x, cfg, stash_us=us, **kw))
                 e_dws, e_dx = core_stash.sdf_stash_bwd(w, x, res[key][3], cots, cfg, stash_us=us, **kw)
                 res[key.replace("D", "E", 1)] = [e_dx, *e_dws]
+    wide_cfg = SDFNetConfig(d_hidden=512)
+    wide = hasattr(core_mlp, "WIDE") and core_mlp.core_class(wide_cfg) is core_mlp.WIDE
+    if wide:  # trees with the wide class
+        ww = core_mlp.materialize_sdf_weights_full(sdf_init(torch.Generator().manual_seed(0), wide_cfg, "cuda"),
+                                                   wide_cfg)
+        res["A wide"] = list(core_mlp.sdf_core_fwd(ww, x, wide_cfg))
+        for name, us in (("D wide", False), ("D stash_all wide", True)):
+            res[name] = list(core_stash.sdf_stash_fwd(ww, x, wide_cfg, stash_us=us))
+            e_dws, e_dx = core_stash.sdf_stash_bwd(ww, x, res[name][3], cots, wide_cfg, stash_us=us)
+            res[name.replace("D", "E", 1)] = [e_dx, *e_dws]
+        h_dws, h_dx = core_mlp.sdf_core_bwd(ww, x, cots, wide_cfg)
+        res["H wide"] = [h_dx, *h_dws]
+        res["A f32 wide"] = list(core_mlp.sdf_core_fwd(ww, x, wide_cfg, compute_dtype="float32"))
+        h_dws, h_dx = core_mlp.sdf_core_bwd(ww, x, cots, wide_cfg, compute_dtype="float32")
+        res["H f32 wide"] = [h_dx, *h_dws]
     from chip_smoke import kernel_device_ms
 
     dw = "dW passes of E/G/H/J (dw_sum.cuh)"
@@ -83,6 +100,24 @@ def run(tree: str, out: str) -> None:
         "H f32": (lambda: core_mlp.sdf_core_bwd(w, x, cots, cfg, compute_dtype="float32"),
                   ("kernel H1 float32/float32", "kernel H2 float32/float32", dw)),
     }
+    if wide:
+        ws, ws_all = res["D wide"][3], res["D stash_all wide"][3]
+        calls.update({
+            "A wide": (lambda: core_mlp.sdf_core_fwd(ww, x, wide_cfg), "kernel A sdf_core_fwd_wide"),
+            "D wide": (lambda: core_stash.sdf_stash_fwd(ww, x, wide_cfg), "kernel D sdf_stash_fwd_wide"),
+            "E wide": (lambda: core_stash.sdf_stash_bwd(ww, x, ws, cots, wide_cfg),
+                       ("kernel E sdf_stash_bwd_wide (E1)", dw)),
+            "H wide": (lambda: core_mlp.sdf_core_bwd(ww, x, cots, wide_cfg),
+                       ("kernel H wide, forward pass (H1)", "kernel H wide chain (H2)", dw)),
+            "D stash_all wide": (lambda: core_stash.sdf_stash_fwd(ww, x, wide_cfg, stash_us=True),
+                                 "kernel D' sdf_stash_all_fwd_wide"),
+            "E stash_all wide": (lambda: core_stash.sdf_stash_bwd(ww, x, ws_all, cots, wide_cfg, stash_us=True),
+                                 ("kernel E' sdf_stash_all_bwd_wide (E1)", dw)),
+            "A f32 wide": (lambda: core_mlp.sdf_core_fwd(ww, x, wide_cfg, compute_dtype="float32"),
+                           "kernel A wide float32/float32"),
+            "H f32 wide": (lambda: core_mlp.sdf_core_bwd(ww, x, cots, wide_cfg, compute_dtype="float32"),
+                           ("kernel H1 wide float32/float32", "kernel H2 wide float32/float32", dw)),
+        })
     times = {k: kernel_device_ms(fn, group, tries=5) for k, (fn, group) in calls.items()}
     torch.save({"outs": {k: [t.cpu() for t in v] for k, v in res.items()}, "times": times}, out)
 
@@ -116,8 +151,8 @@ def main() -> int:
         equal &= same
         print(f"kernel {name}, {trees[0]} against {trees[1]}: max abs difference {diff:.3e}; equal bit for "
               f"bit: {same}")
-    print(f"SDF core kernels A, D, E, H (bf16 and f32), {trees[0]} against {trees[1]}: all outputs equal bit for "
-          f"bit: {equal}")
+    print(f"SDF core kernels A, D, E, H (bf16 and f32, 64-point and wide), {trees[0]} against {trees[1]}: all "
+          f"outputs equal bit for bit: {equal}")
     return 0
 
 

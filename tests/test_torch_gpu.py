@@ -47,7 +47,9 @@ The SDF core's wide instances (A, D, E, H and D's and E's stash_all
 variants above the presets' widths: bf16, 32-point blocks) at the bf16
 instances' tolerances above, with the same identities (D = A, the variant
 = D where they share outputs, E and H repeat, E without its dW passes gives
-E's dx, all bit for bit).
+E's dx, all bit for bit).  Their huge instances (above 512 / 128: bf16,
+64-point blocks, the activation rows in device memory) the same, at 528
+wide and at a 144-wide encoding.
 The trunk's f32 instances (F and G at each (compute, stash) pair, I and J
 at compute_dtype="float32") against their plain versions at the same
 tolerances; I equals F's output and J's gradients G's at F's f32 stash bit
@@ -149,6 +151,15 @@ WIDE_CFGS = {
     "feat512": SDFNetConfig(d_out_feat=512, multi_res=12),
     "w288": SDFNetConfig(n_layers=3, d_hidden=288, skip_in=(2,), multi_res=11, d_out_feat=272),
 }
+# The SDF core's huge instances (core_mlp.CORE_HUGE: 64-point blocks): a
+# config 528 wide by every width and one huge by its encoding alone (multi_res
+# 21: d0 = 129, padded 144), as tests/test_torch_wide_sdf.py's CPU cases, at
+# one point, a ragged count and a multiple of 64.
+HUGE_CFGS = {
+    "w528": SDFNetConfig(n_layers=3, d_hidden=528, skip_in=(2,), multi_res=6, d_out_feat=528),
+    "enc144": SDFNetConfig(n_layers=3, d_hidden=160, skip_in=(2,), multi_res=21, d_out_feat=32),
+}
+HUGE_N = [1, 97, 4160]
 # The trunk kernels F, G, I and J run on the same 64-point blocks: 64 is one
 # block exactly, 65 one block and a ragged row.
 TRUNK_N = [1, 64, 65, 100, 1000]
@@ -463,21 +474,139 @@ def test_sdf_core_wide_backward_matches_plain(cuda, name, n):
 
 @pytest.mark.gpu
 def test_sdf_core_wide_limits_raise_before_launch(cuda):
-    """Beyond the wide instances (d_hidden 528, the SDF core's and the march
-    kernels') the wrappers raise NotImplementedError and launch nothing."""
+    """Beyond the wide instances (d_hidden 528): the SDF core's huge
+    instances of A and H against their plain versions; the march kernels'
+    wrappers, and the core's at f32 operands or an f32 stash, raise
+    NotImplementedError naming item 15 and launch nothing."""
     cfg = SDFNetConfig(d_hidden=528)
     w, x, cots = _gpu_sdf_case(cuda, cfg, 40)
+    assert core_mlp.core_class(cfg) is core_mlp.CORE_HUGE
+    before = dict(cuda_lib.launch_counts)
+    for k, p in zip(core_mlp.sdf_core_fwd(w, x, cfg), core_mlp.sdf_core_plain(w, x, cfg, "bfloat16")):
+        _close(k, p, 1e-2)
+    dws, dx = core_mlp.sdf_core_bwd(w, x, cots, cfg)
+    p_dws, p_dx = core_mlp.sdf_core_bwd_plain(w, x, cots, cfg, "bfloat16")
+    for k, p in zip([dx, *dws], [p_dx, *p_dws]):
+        _close_rel(k, p, 2e-2)
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in before if cuda_lib.launch_counts[k] != before[k]} == {
+        "sdf_core_fwd_huge": 1, "sdf_core_bwd_huge": 1}
     before = dict(cuda_lib.launch_counts)
     with pytest.raises(NotImplementedError, match="item 15"):
-        core_mlp.sdf_core_fwd(w, x, cfg)
+        core_mlp.sdf_core_fwd(w, x, cfg, compute_dtype="float32")
     with pytest.raises(NotImplementedError, match="item 15"):
-        core_mlp.sdf_core_bwd(w, x, cots, cfg)
+        core_stash.sdf_stash_fwd(w, x, cfg, stash_dtype="float32")
     o, d, z0 = _rays(cuda, 4)
     for dt in ("bfloat16", "float32"):
         mw = march.march_weights(sdf_init(torch.Generator().manual_seed(0), cfg, cuda), cfg, dt)
-        with pytest.raises(NotImplementedError, match="item 15"):
+        with pytest.raises(NotImplementedError, match="march kernels .* item 15"):
             march.march_sweep(z0, o, d, mw, cfg)
     assert dict(cuda_lib.launch_counts) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [SMALL, SDFNetConfig()], ids=["small", "full"])
+@pytest.mark.parametrize("n", [1, 65, 4161])
+def test_sdf_core_huge_equals_narrow_at_narrow_widths(cuda, cfg, n):
+    """The huge instances at the 64-point instances' widths (the pack's
+    class set to CORE_HUGE) give those instances' outputs, stashes and
+    gradients bit for bit: the same products in the same k order, only the
+    tiles lie in device memory."""
+    w, x, cots = _gpu_sdf_case(cuda, cfg, n)
+    pk = core_mlp.pack_sdf_mlp(w, cfg, with_feat=True)
+    hk = dict(pk, cls=core_mlp.CORE_HUGE)
+
+    def flat(out):
+        return [t for o in out for t in (o if isinstance(o, (tuple, list)) else (o,))]
+
+    def same(a, b):
+        return all(torch.equal(u, v) for u, v in zip(flat(a), flat(b)))
+
+    before = dict(cuda_lib.launch_counts)
+    assert same(core_mlp.sdf_core_fwd(w, x, cfg, hk), core_mlp.sdf_core_fwd(w, x, cfg, pk))
+    assert same(core_mlp.sdf_core_bwd(w, x, cots, cfg, hk), core_mlp.sdf_core_bwd(w, x, cots, cfg, pk))
+    for us in (False, True):
+        d = core_stash.sdf_stash_fwd(w, x, cfg, pk, stash_us=us)
+        assert same(core_stash.sdf_stash_fwd(w, x, cfg, hk, stash_us=us), d)
+        assert same(core_stash.sdf_stash_bwd(w, x, d[3], cots, cfg, hk, stash_us=us),
+                    core_stash.sdf_stash_bwd(w, x, d[3], cots, cfg, pk, stash_us=us))
+    got = {k: cuda_lib.launch_counts[k] - before[k] for k in before if cuda_lib.launch_counts[k] != before[k]}
+    assert {k: v for k, v in got.items() if k.endswith("_huge")} == {
+        "sdf_core_fwd_huge": 1, "sdf_core_bwd_huge": 1, "sdf_stash_fwd_huge": 1, "sdf_stash_bwd_huge": 1,
+        "sdf_stash_all_fwd_huge": 1, "sdf_stash_all_bwd_huge": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(HUGE_CFGS))
+@pytest.mark.parametrize("n", HUGE_N)
+def test_sdf_core_huge_forward_matches_plain(cuda, name, n):
+    """The huge instances of A, D and D's stash_all variant against their
+    plain versions; D's outputs A's, the variant's outputs and h_i D's,
+    and A on a rerun, bit for bit; each counted under its _huge name."""
+    cfg = HUGE_CFGS[name]
+    w, x, _ = _gpu_sdf_case(cuda, cfg, n)
+    assert core_mlp.core_class(cfg) is core_mlp.CORE_HUGE
+    before = dict(cuda_lib.launch_counts)
+    a = core_mlp.sdf_core_fwd(w, x, cfg)
+    torch.cuda.synchronize()
+    for k, p in zip(a, core_mlp.sdf_core_plain(w, x, cfg, "bfloat16")):
+        _close(k, p, 1e-2)
+    assert all(torch.equal(u, v) for u, v in zip(a, core_mlp.sdf_core_fwd(w, x, cfg)))
+    d = core_stash.sdf_stash_fwd(w, x, cfg)
+    assert all(torch.equal(u, v) for u, v in zip(d[:3], a))
+    _, _, _, hs, us, g_enc = core_stash.sdf_core_fwd_hs_plain(w, x, cfg, "bfloat16", "bfloat16", return_us=True)
+    for k, p in zip(core_stash.split_stash(d[3], core_stash.sdf_stash_columns(cfg)), hs):
+        _close(k.float(), p.float(), 1e-2)
+    v = core_stash.sdf_stash_fwd(w, x, cfg, stash_us=True)
+    gt = core_stash.sdf_stash_width(cfg)
+    assert all(torch.equal(u, t) for u, t in zip(v[:3], a)) and torch.equal(v[3][:, :gt], d[3])
+    for k, p in zip(core_stash.split_stash(v[3], core_stash.sdf_stash_columns(cfg, stash_us=True)), [*hs, *us, g_enc]):
+        _close(k.float(), p.float(), 1e-2)
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in before if cuda_lib.launch_counts[k] != before[k]} == {
+        "sdf_core_fwd_huge": 2, "sdf_stash_fwd_huge": 1, "sdf_stash_all_fwd_huge": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(HUGE_CFGS))
+@pytest.mark.parametrize("n", HUGE_N)
+def test_sdf_core_huge_backward_matches_plain(cuda, name, n):
+    """The huge instances of E, E's stash_all variant and H against their
+    plain versions, each twice bit for bit, and E and the variant without
+    their dW passes (dx bit for bit)."""
+    cfg = HUGE_CFGS[name]
+    w, x, cots = _gpu_sdf_case(cuda, cfg, n)
+    L = cfg.n_layers
+    before = dict(cuda_lib.launch_counts)
+    for us in (False, True):
+        stash = core_stash.sdf_stash_fwd(w, x, cfg, stash_us=us)[3]
+        parts = core_stash.split_stash(stash, core_stash.sdf_stash_columns(cfg, stash_us=us))
+        dws, dx = core_stash.sdf_stash_bwd(w, x, stash, cots, cfg, stash_us=us)
+        torch.cuda.synchronize()
+        if us:
+            p_dws, p_dx = core_stash.sdf_core_bwd_stash_all_plain(w, x, parts[:L], parts[L : 2 * L], parts[2 * L],
+                                                                  cots, cfg, "bfloat16")
+        else:
+            p_dws, p_dx = core_stash.sdf_core_bwd_stash_plain(w, x, parts, cots, cfg, "bfloat16")
+        _close_rel(dx, p_dx, 2e-2)
+        assert len(dws) == len(p_dws)
+        for k, p in zip(dws, p_dws):
+            assert k.shape == p.shape
+            _close_rel(k, p, 2e-2)
+        dws2, dx2 = core_stash.sdf_stash_bwd(w, x, stash, cots, cfg, stash_us=us)
+        none, dx_only = core_stash.sdf_stash_bwd(w, x, stash, cots, cfg, need_dw=False, stash_us=us)
+        assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(dws, dws2))
+        assert none is None and torch.equal(dx_only, dx)
+    dws, dx = core_mlp.sdf_core_bwd(w, x, cots, cfg)
+    torch.cuda.synchronize()
+    p_dws, p_dx = core_mlp.sdf_core_bwd_plain(w, x, cots, cfg, "bfloat16")
+    _close_rel(dx, p_dx, 2e-2)
+    for k, p in zip(dws, p_dws):
+        assert k.shape == p.shape
+        _close_rel(k, p, 2e-2)
+    dws2, dx2 = core_mlp.sdf_core_bwd(w, x, cots, cfg)
+    assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(dws, dws2))
+    assert {k: cuda_lib.launch_counts[k] - before[k] for k in before if cuda_lib.launch_counts[k] != before[k]} == {
+        "sdf_stash_fwd_huge": 1, "sdf_stash_all_fwd_huge": 1, "sdf_stash_bwd_huge": 3, "sdf_stash_all_bwd_huge": 3,
+        "sdf_core_bwd_huge": 2}
 
 
 @pytest.mark.gpu

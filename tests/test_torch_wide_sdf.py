@@ -1,12 +1,13 @@
 """The SDF core above the presets' widths in the port, on the CPU: JAX's
 ``fused_sdf_value_feat_grad`` with its Pallas kernels in interpret mode
 against the port's at padded widths above 256 and encodings above 64 (the
-CUDA wide instances' class), under the "recompute", "stash" and "stash_all"
-schedules; and what the wide instances read: the pack at 288 and 512, the
-width-class choice and its limits, the gate and chain layouts on 32-point
-blocks, and the renderer's check before any launch.  (The wide CUDA
-instances against their plain versions run on the card:
-tests/test_torch_gpu.py.)
+CUDA wide instances' class), and above 512 and 128 (the huge instances'
+class: a 528-wide SDF, and a 160-wide one with a 144-wide padded encoding),
+under the "recompute", "stash" and "stash_all" schedules; and what the wide
+and huge instances read: the pack at 288, 512 and 528, the width-class
+choice and its limits, the gate, chain and row layouts, and the renderer's
+check before any launch.  (The CUDA instances against their plain versions
+run on the card: tests/test_torch_gpu.py.)
 
 Each JAX call runs once per module (a module-scoped fixture, one jitted
 ``jax.vjp`` a case), at exact f32 dot operands, on 41 points (two of JAX's
@@ -47,10 +48,17 @@ from nrhints_tpu.kernels import core_mlp as jcm
 
 N_PTS = 41
 # Wide by every width (3 layers, a skip at 2, d0 = 69, a 272-wide feature
-# head), and wide by its encoding alone (d0 = 69 above 64, layers 96 wide).
+# head), and wide by its encoding alone (d0 = 69 above 64, layers 96 wide);
+# huge by every width (528 wide, a 528-wide feature head), and huge by its
+# encoding alone (multi_res 21: d0 = 129, padded 144; layers 160 wide, the
+# narrowest even width whose skip layer takes that encoding: layer 1 keeps
+# 160 - 129 = 31 units).
+# Each case's seed is its place in this order.
 CONFIGS = {
-    "w288": dict(n_layers=3, d_hidden=288, skip_in=(2,), multi_res=11, d_out_feat=272),
     "enc69": dict(n_layers=3, d_hidden=96, skip_in=(2,), multi_res=11, d_out_feat=32),
+    "w288": dict(n_layers=3, d_hidden=288, skip_in=(2,), multi_res=11, d_out_feat=272),
+    "enc144": dict(n_layers=3, d_hidden=160, skip_in=(2,), multi_res=21, d_out_feat=32),
+    "w528": dict(n_layers=3, d_hidden=528, skip_in=(2,), multi_res=6, d_out_feat=528),
 }
 BACKWARDS = ("recompute", "stash", "stash_all")
 # The bf16 case's bound on any output entry: 2.3x the measured 2.16e-4, one
@@ -72,7 +80,7 @@ def cases():
     """name -> (JAX config, JAX params as numpy, the port's config, port
     params, x, cotangents)."""
     out = {}
-    for i, (name, kw) in enumerate(sorted(CONFIGS.items())):
+    for i, (name, kw) in enumerate(CONFIGS.items()):
         jc = JSDFNetConfig(**kw)
         jp = jax.device_get(jax.jit(sdf_init, static_argnums=1)(jax.random.PRNGKey(i), jc))
         rng = np.random.default_rng(10 + i)
@@ -292,12 +300,13 @@ def test_wide_constants_match_the_headers():
     (dict(skip_in=(0,)), "no skip at"),
 ])
 def test_core_limits_raise(kw, what):
-    """A config beyond the wide instances raises NotImplementedError with
-    the limit and the ROADMAP item, from core_class and pack_sdf_mlp; a
-    skip at layer 0, which JAX's fused core does not run either, raises
-    naming that record, not item 15.  Depth is no limit (what=None): 17
-    layers take the 64-point class, and the pack carries its meta vector's
-    device copy (on the CPU, a CPU copy) for the kernels to read."""
+    """Beyond the wide instances' limits (``what``: 528 wide, a 520-wide
+    feature head, a 144-wide padded encoding) the SDF core takes the huge
+    class and the pack packs every block at its padded widths; a skip at layer 0,
+    which JAX's fused core does not run either, raises naming that record,
+    not item 15.  Depth is no limit (what=None): 17 layers take the 64-point
+    class, and the pack carries its meta vector's device copy (on the CPU,
+    a CPU copy) for the kernels to read."""
     from nrhints_torch.fields.sdf import sdf_init as t_sdf_init
 
     cfg = SDFNetConfig(**kw)
@@ -306,6 +315,18 @@ def test_core_limits_raise(kw, what):
         assert tcm.core_class(cfg) is tcm.NARROW
         pk = tcm.pack_sdf_mlp(w, cfg, with_feat=True)
         assert int(pk["meta"][0]) == 17 and np.array_equal(pk["meta_dev"].numpy(), pk["meta"])
+        return
+    if what in ("padded widths up to 512", "encodings up to 128"):
+        assert tcm.core_class(cfg) is tcm.CORE_HUGE
+        pk = tcm.pack_sdf_mlp(w, cfg, with_feat=True)
+        assert pk["cls"] is tcm.CORE_HUGE and pk["wpack"].dtype == torch.bfloat16
+        L = cfg.n_layers
+        weights = [w[2 * i] for i in range(L)] + [w[2 * L + 2]]
+        for (wo, kp, np_, din, dout), wt in zip(_blocks(pk), weights):
+            assert kp == -(-din // 16) * 16 and np_ == -(-dout // 16) * 16
+            blk = pk["wpack"][wo : wo + kp * np_].view(kp, np_)
+            assert torch.equal(blk[:din, :dout], wt.to(torch.bfloat16))
+            assert not blk[din:].any() and not blk[:, dout:].any()
         return
     with pytest.raises(NotImplementedError, match=what) as e:
         tcm.core_class(cfg)
@@ -363,10 +384,13 @@ def test_wide_dtype_and_row_engine_limits_raise():
 def test_renderer_checks_widths_before_launch(renderer_kw, fused):
     """``render/renderer.py::check_kernel_widths`` (called by render_rays
     for CUDA rays before any launch): a 512-wide SDF passes on every route,
-    the march kernels' wide instances among them; a 528-wide SDF raises on
-    every fused route, naming item 15; a trunk in the CUDA trunk kernels'
-    wide class (272 hidden) passes on every trunk route; a trunk wider than
-    that class (528 hidden) raises where the fused trunk runs (training at
+    the march kernels' wide instances among them; a 528-wide SDF (the SDF
+    core's huge class) passes where every march is "xla"
+    (shadow_final_impl="xla" beside the default "xla" sweeps and rounds)
+    and raises on every other fused route, naming the march kernels and
+    item 15; a trunk in the CUDA trunk kernels' wide class (272 hidden)
+    passes on every trunk route; a trunk wider than that class (528 hidden)
+    raises where the fused trunk runs (training at
     reflectance_impl="pallas", eval at eval_reflectance_impl="pallas"),
     naming item 15, and passes where the "xla" trunk runs; the presets
     pass."""
@@ -382,10 +406,13 @@ def test_renderer_checks_widths_before_launch(renderer_kw, fused):
     for is_training in (True, False):
         tr.check_kernel_widths(wide, is_training)
     too_wide = dataclasses.replace(wide, sdf_network=dataclasses.replace(base.sdf_network, d_hidden=528))
-    if not fused:
-        tr.check_kernel_widths(too_wide)
+    r = too_wide.renderer
+    xla_marches = r.march_sweep_impl == r.march_rounds_impl == r.shadow_final_impl == "xla" and not r.importance_split
+    if not fused or xla_marches:
+        for is_training in (True, False):
+            tr.check_kernel_widths(too_wide, is_training)
     else:
-        with pytest.raises(NotImplementedError, match="item 15"):
+        with pytest.raises(NotImplementedError, match="march kernels .* item 15"):
             tr.check_kernel_widths(too_wide)
     for d_hidden, takes in ((272, True), (528, False)):
         trunk = dataclasses.replace(wide, reflectance_network=dataclasses.replace(base.reflectance_network,
@@ -400,3 +427,100 @@ def test_renderer_checks_widths_before_launch(renderer_kw, fused):
                 else:
                     tr.check_kernel_widths(cfg, is_training)
         tr.check_kernel_widths(trunk, is_training=False)  # eval's default trunk is "xla"
+
+
+def test_huge_class_instances_and_layouts():
+    """Above 512 / 128 the SDF core takes CORE_HUGE (64-point blocks, the
+    kHugeClass bit alone, counted as *_huge) at bf16 operands and a bf16
+    stash; its pack's tile widths are the widest padded layer and feature
+    head and the padded encoding, its rows in device memory (``row_layout``)
+    1.5 widths and an encoding of f32 a padded point (0 for the other
+    classes), and the chain's encoding cotangents take the padded encoding;
+    the march kernels still stop at 512 / 128."""
+    from nrhints_torch.fields.sdf import sdf_init as t_sdf_init
+
+    for kw, tiles in ((dict(d_hidden=1024), (1024, 48)), (dict(d_hidden=528), (528, 48)),
+                      (dict(d_out_feat=520), (528, 48)), (dict(d_hidden=256, multi_res=24), (256, 160)),
+                      (dict(multi_res=21), (256, 144))):
+        cfg = SDFNetConfig(**kw)
+        assert tcm.core_class(cfg) is tcm.CORE_HUGE
+        w = tcm.materialize_sdf_weights_full(t_sdf_init(torch.Generator().manual_seed(0), cfg, "cpu"), cfg)
+        pk = tcm.pack_sdf_mlp(w, cfg, with_feat=True)
+        assert tcm.huge_tiles(pk["meta"]) == tiles
+        width, enc = tiles
+        for n, nblk in ((1, 1), (64, 1), (65, 2), (65536, 1024)):
+            assert tcm.row_layout(n, pk) == (nblk, 64 * nblk, 64 * nblk * (width // 2 + width + enc))
+            gt = int(pk["meta"][9])
+            assert tcm.chain_layout(n, gt, tcm.CORE_HUGE, enc) == (nblk, 64 * nblk, 64 * nblk * (gt + 4 * enc))
+        for kernel in cuda_lib.SDF_CORE_KERNELS:
+            name, bits = tcm.core_instance(kernel, pk, "bfloat16", "bfloat16")
+            assert (name, bits) == (kernel + "_huge", 8) and name in cuda_lib.launch_counts
+        if "d_out_feat" not in kw:
+            with pytest.raises(NotImplementedError, match="march kernels .* item 15"):
+                tcm.core_class(cfg, with_feat=False)
+    big = SDFNetConfig(d_hidden=1024)
+    w = tcm.materialize_sdf_weights_full(t_sdf_init(torch.Generator().manual_seed(0), big, "cpu"), big)
+    pk = tcm.pack_sdf_mlp(w, big, with_feat=True)
+    assert int(pk["meta"][9]) == 8160 and tcm.row_layout(65536, pk)[2] * 4 == 415_236_096
+    for cls in (tcm.NARROW, tcm.WIDE):
+        assert tcm.row_layout(1000, dict(pk, cls=cls))[2] == 0
+    assert cuda_lib.SDF_CORE_INSTANCES[-6:] == [f"{k}_huge" for k in cuda_lib.SDF_CORE_KERNELS]
+
+
+@pytest.mark.parametrize("kw", [dict(d_hidden=528), dict(multi_res=21)])
+def test_huge_f32_raises(kw):
+    """The huge class is bf16 only: an f32 operand or stash dtype there
+    raises NotImplementedError naming item 15, from core_class, the f32
+    pack and core_instance (which every card wrapper calls before any
+    allocation or launch); the CPU's plain versions take them."""
+    from nrhints_torch.fields.sdf import sdf_init as t_sdf_init
+
+    cfg = SDFNetConfig(**kw)
+    w = tcm.materialize_sdf_weights_full(t_sdf_init(torch.Generator().manual_seed(0), cfg, "cpu"), cfg)
+    for compute, stash in (("float32", "bfloat16"), ("bfloat16", "float32"), ("float32", "float32")):
+        with pytest.raises(NotImplementedError, match="bf16 operands and a bf16 stash only.*item 15"):
+            tcm.core_class(cfg, compute_dtype=compute, stash_dtype=stash)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        tcm.pack_sdf_mlp(w, cfg, with_feat=True, dtype=torch.float32)
+    pk = tcm.pack_sdf_mlp(w, cfg, with_feat=True)
+    for compute, stash in (("float32", None), ("bfloat16", "float32"), ("float32", "bfloat16")):
+        with pytest.raises(NotImplementedError, match="item 15"):
+            tcm.core_instance("sdf_stash_fwd", pk, compute, stash)
+    x = torch.tensor(np.random.default_rng(0).normal(size=(5, 3)).astype(np.float32))
+    sdf, feat, gx = tcm.sdf_core_primal(w, x, cfg, "float32")
+    assert sdf.shape == (5,) and feat.shape == (5, cfg.d_out_feat) and torch.isfinite(gx).all()
+
+
+def test_params_from_jax_at_528(cases):
+    """``convert.params_from_jax`` carries a 528-wide SDF's weight-norm
+    leaves over exactly (every leaf, its shape and its floats)."""
+    _, jp, _, tp, _, _ = cases["w528"]
+    flat = {n: np.asarray(v) for n, v in tree_items(jp)}
+    ported = dict(tree_items(tp))
+    assert sorted(flat) == sorted(ported)
+    for n, v in flat.items():
+        assert ported[n].shape == v.shape and np.array_equal(ported[n].numpy(), v), n
+    assert max(v.shape[-1] for v in flat.values()) == 528
+
+
+def test_huge_constants_match_the_headers():
+    """CORE_HUGE's block and bit are the constants the CUDA huge instances
+    are compiled with; their shared memory holds only the weight ring and
+    the row ring (138,240 B forward, + d sdf a point in the chain), and
+    their rows' layout is row_layout's."""
+    def const(header, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", (cuda_lib.CSRC / header).read_text()).group(1))
+
+    assert const("mma_rows.cuh", "kHugeClass") == tcm.CORE_HUGE.bit == 8
+    assert const("staged_mma.cuh", "kChainTP") == tcm.CORE_HUGE.pts == 64
+    staged = (cuda_lib.CSRC / "staged_mma.cuh").read_text()
+    assert "static constexpr int kPts = kChainTP, kW = 0, kEnc = 0, kLdC = 0;" in staged
+    ring = 3 * max(64 * (256 + 8), 256 * (64 + 8)) * 2
+    assert ring + 3 * 64 * (64 + 8) * 2 == 138240
+    fwd = (cuda_lib.CSRC / "sdf_fwd.cuh").read_text()
+    bwd = (cuda_lib.CSRC / "sdf_bwd.cuh").read_text()
+    assert "fwd_smem<CoreHuge, bf16>() == 138240" in fwd and "chain_smem<CoreHuge, bf16>() == 138496" in bwd
+    rows = (cuda_lib.CSRC / "mma_rows.cuh").read_text()
+    assert "return w / 2 + w + huge_enc(m);" in rows and "const int w = huge_width(m);" in rows
+    assert "return (m.d0 + 15) / 16 * 16;" in rows
+    assert "return m.gates_total + 4 * (Cls::kHuge ? huge_enc(m) : Cls::kEnc);" in bwd
