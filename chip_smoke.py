@@ -136,9 +136,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    graph on the shipping route and on the monolith, each against its eager
    sweep and 64 pixels on the CPU; (d) python -m nrhints_torch's main for
    10 steps; (e) an SDF 528 wide and one with a 144-wide encoding raise
-   NotImplementedError on these default routes before any launch, at the
-   march kernels (kernel C in the shadow march): the SDF core takes them
-   (phase 23).
+   NotImplementedError at march_dtype="float32" before any launch, at the
+   march kernels (kernel C in the shadow march): their bf16 huge class
+   takes them (phase 23).
 19. the reflectance trunk above the presets' widths (``--wide-trunk``:
    alone): nr-hints-cam-opt at sdf_network d_hidden 512 and d_out_feat 512
    and reflectance_network d_hidden 512 (the trunk 617 -> 4 x 512 -> 3):
@@ -184,21 +184,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    K = 16 graph of stash steps, a recompute, a stash_all and a split-route
    step, and a view on the shipping route and on the monolith, each with
    exact launches, s/step or s/view and the device idle share.
-23. the SDF core above the wide class (``--huge-core``: alone; the plain
-   run runs it after phases 21 and 22 in their process): nr-hints-cam-opt
-   at sdf_network.d_hidden=1024 with shadow_final_impl="xla" (every march
-   route "xla", so no march kernel sees the SDF): (a) A's, D's, E's and H's
-   huge instances and D's and E's stash_all variants' at phase 3's 65,536
-   points, and at d_hidden 256 with multi_res 24 (an encoding 147 wide,
-   padded 160), against their plain versions (D = A, the variant = D, E and
-   H repeat, E without its dW passes, bit for bit), each by device time
-   beside the wide instance's at d_hidden 512 in the same call and its
-   bound; (b) a K = 16 graph of stash steps against its eager steps, a
-   64-ray step's gradients against the CPU, one recompute and one stash_all
-   step, launches exact, s/step and idle shares; (c) a 128x128 view through
-   its graph against its eager sweep and 64 pixels on the CPU; (d) python
-   -m nrhints_torch's main for 10 steps; (e) the same SDF on the default
-   routes (kernel C in the shadow march) and the core's entry points at
+23. the SDF above the wide class (``--huge-core``: alone; the plain run
+   runs it after phases 21 and 22 in their process): nr-hints-cam-opt at
+   sdf_network.d_hidden=1024 on its default routes: (a) A's, D's, E's and
+   H's huge instances and D's and E's stash_all variants' at phase 3's
+   65,536 points, and at d_hidden 256 with multi_res 24 (an encoding 147
+   wide, padded 160), against their plain versions (D = A, the variant = D,
+   E and H repeat, E without its dW passes, bit for bit); every huge march
+   entry point equal to the narrow instance bit for bit at phase 3's SDF,
+   and C's, K's, L's, M's and N's huge instances at phase 3's 512 rays at
+   both SDFs against their plain versions (L = B/K, M = L(K), N = C(M) bit
+   for bit under both merges) and K-N's run-time geometry ones at 5 x 12;
+   each by device time beside the wide instance's at d_hidden 512 in the
+   same call and its bound; (b) a K = 16 graph of stash steps against its
+   eager steps, a 64-ray step's gradients against the CPU, one recompute,
+   one stash_all, one monolith and one split step, launches exact, s/step
+   and idle shares; (c) 128x128 views through their graphs on the default
+   route and the monolith, each against its eager sweep and 64 pixels on
+   the CPU; (d) python -m nrhints_torch's main for 10 steps; (e) the same
+   SDF at march_dtype="float32" and the core's entry points at
    compute_dtype="float32" or stash_dtype="float32" raise
    NotImplementedError naming item 15 before any launch.
 The run prints its total seconds on a line of its own.
@@ -366,6 +370,8 @@ MARCH_TEMPLATES = (("false, false, true", "C", "shadow_final"), ("true, false, f
                    ("true, true, true", "N", "shadow_march"))
 WIDE_MARCH_GROUPS = tuple((f"march_kernel{t}<{args}", f"kernel {k}{' f32' if t == '_f32_wide' else ''} wide {fn}{t}")
                           for t in ("_wide", "_f32_wide") for args, k, fn in MARCH_TEMPLATES)
+# The march kernels' huge instances (phase 23): "kernel K huge march_sweep_huge".
+HUGE_MARCH_GROUPS = tuple((f"march_kernel_huge<{args}", f"kernel {k} huge {fn}_huge") for args, k, fn in MARCH_TEMPLATES)
 STEP_GROUPS = (
     ("dw_partial", DW_GROUP), ("dw_reduce", DW_GROUP), ("colsum", DW_GROUP),
     ("round_machinery", "kernel B round_machinery"),
@@ -380,6 +386,7 @@ STEP_GROUPS = (
     ("march_kernel_f32<true, true, false", "kernel M f32 importance_march_f32"),
     ("march_kernel_f32<true, true, true", "kernel N f32 shadow_march_f32"),
     *WIDE_MARCH_GROUPS,
+    *HUGE_MARCH_GROUPS,
     ("nccl", "NCCL collectives"),
 )
 # The round-4 march configurations of phases 7 and 8.
@@ -3251,10 +3258,11 @@ def trunk_f32_phase(smi: str, dev, mc: dict) -> list:
 # the split route's step (K, L, M, C) and both f32 routes' steps, each with
 # exact launches.  (c) a 128x128 view through its graph on the shipping
 # route and on the monolith.  (d) python -m nrhints_torch's main for
-# WIDE_ENTRY_STEPS steps.  (e) the limits: on these default routes an SDF
-# 528 wide and one with a 144-wide encoding (multi_res 21) raise
-# NotImplementedError before any launch, naming the march kernels (kernel C
-# of the shadow march): the SDF core's huge class takes them (phase 23).
+# WIDE_ENTRY_STEPS steps.  (e) the limits: on these default routes at
+# march_dtype="float32" an SDF 528 wide and one with a 144-wide encoding
+# (multi_res 21) raise NotImplementedError before any launch, naming the
+# march kernels (kernel C of the shadow march): their huge class takes them
+# at bf16 march weights (phase 23).
 WIDE_SDF = {"d_hidden": 512}
 WIDE_FEAT = {"d_out_feat": 512, "multi_res": 12}
 WIDE_K, WIDE_ENTRY_STEPS = 16, 10
@@ -3414,7 +3422,8 @@ def wide_kernels(smi: str, dev, mc: dict) -> dict:
 
 
 def march_class_kernels(smi: str, dev, mc: dict, sdf_kw=None, phase: str = "18(a)",
-                       base: str = "the 256-wide instance's") -> dict:
+                        base: str = "the 256-wide instance's", dtypes=("bfloat16", "float32"),
+                        base_kw=None) -> dict:
     """Phase 18(a), the march kernels: C, K, L, M and N's wide instances at
     WIDE_SDF on phase 3's 512 camera and shadow rays (a random 512-wide SDF
     from seed 0), bf16 and f32 march weights, against their plain versions
@@ -3424,8 +3433,10 @@ def march_class_kernels(smi: str, dev, mc: dict, sdf_kw=None, phase: str = "18(a
     beside its plain version, and by device time from one profiled call
     beside ``base``, the same kernel's on phase 3's SDF in this call, and its
     bound.  Phase 22(a) runs the same at ``sdf_kw`` = DEEP_SDF (the instances
-    of that SDF's class).  -> {instance name: (max abs err, ms, plain ms,
-    bound ms, bound by)}."""
+    of that SDF's class), phase 23(a) at HUGE_SDF and HUGE_ENC at bf16 alone
+    (``dtypes``), beside the instance of ``base_kw``'s SDF (random weights
+    from seed 0; None: phase 3's SDF).  -> {instance name: (max abs err, ms,
+    plain ms, bound ms, bound by)}."""
     import torch
 
     from nrhints_torch.fields.sdf import _layer_dims, sdf_init
@@ -3437,8 +3448,13 @@ def march_class_kernels(smi: str, dev, mc: dict, sdf_kw=None, phase: str = "18(a
     cls = core_mlp.core_class(wcfg, with_feat=False)
     if sdf_kw is WIDE_SDF and cls is not core_mlp.ROWS_WIDE:
         raise AssertionError(f"18(a): {WIDE_SDF} does not take the march kernels' wide instances")
-    sfx, wide = cls.suffix, " wide" if cls.suffix else ""
+    sfx, wide = cls.suffix, f" {cls.suffix[1:]}" if cls.suffix else ""
     o, d, z0 = mc["o"], mc["d"], mc["z0"]
+    bcfg = ncfg if base_kw is None else dataclasses.replace(ncfg, **base_kw)
+    bparams = (mc["renderer_params"]["sdf"] if base_kw is None
+               else sdf_init(torch.Generator().manual_seed(0), bcfg, dev))
+    bsfx = core_mlp.core_class(bcfg, with_feat=False).suffix
+    bwide = f" {bsfx[1:]}" if bsfx else ""
     sl, sdir, sdist, z0s, inv_s, anneal = (mc[k] for k in ("sl", "sdir", "sdist", "z0s", "inv_s", "anneal"))
     wparams = sdf_init(torch.Generator().manual_seed(0), wcfg, dev)
     io, dims = _layer_dims(wcfg)
@@ -3447,8 +3463,10 @@ def march_class_kernels(smi: str, dev, mc: dict, sdf_kw=None, phase: str = "18(a
     for dt, label, tol_sdf0, tol_tau, peak in (
             ("bfloat16", "", TOL["march_sweep"], TOL["shadow_march"], H100_BF16_FLOPS),
             ("float32", "_f32", F32_TOL["sdf0"], F32_TOL["tau"], H100_F32_FLOPS)):
+        if dt not in dtypes:
+            continue
         ww = march.march_weights(wparams, wcfg, dt)
-        nw = mc["mw"] if dt == "bfloat16" else march.march_weights(mc["renderer_params"]["sdf"], ncfg, dt)
+        nw = mc["mw"] if dt == "bfloat16" and base_kw is None else march.march_weights(bparams, bcfg, dt)
         sz = march.fused_importance_z(wparams, wcfg, sl, sdir, z0s, mlp_dtype=dt, split=True, sweep_impl="xla",
                                       rounds_impl="xla")
         w_bytes = (2 if dt == "bfloat16" else 4) * vm
@@ -3498,8 +3516,8 @@ def march_class_kernels(smi: str, dev, mc: dict, sdf_kw=None, phase: str = "18(a
             ms, plain_ms = cuda_ms(lambda: kern(ww, wcfg), 5), cuda_ms(plain, 2, warmup=1)
             f32 = " f32" if dt == "float32" else ""
             dev_w = kernel_device_ms(lambda: kern(ww, wcfg), f"kernel {name}{f32}{wide} {fn}{label}{sfx}", tries=1)
-            narrow = (lambda: kern(nw, ncfg, mc["sz"])) if name == "C" else (lambda: kern(nw, ncfg))
-            dev_n = kernel_device_ms(narrow, f"kernel {name}{f32} {fn}{label}", tries=1)
+            narrow = (lambda: kern(nw, bcfg, mc["sz"])) if name == "C" else (lambda: kern(nw, bcfg))
+            dev_n = kernel_device_ms(narrow, f"kernel {name}{f32}{bwide} {fn}{label}{bsfx}", tries=1)
             bd, by = bounds[name]
             inst = f"{fn}{label}{sfx}"
             out[inst] = (errs[name][0], ms, plain_ms, bd, by)
@@ -3750,8 +3768,10 @@ def wide_sdf_phase(smi: str, dev, mc: dict, tmp: Path) -> list:
     wide_entry(smi, tmp, "18(d)", ["--config.model.sdf-network.d-hidden", str(WIDE_SDF["d_hidden"])],
                dict(WIDE_CORE_STEP, round_machinery=8, shadow_final_wide=1))
     wide_limits("18(e)", dev, td, batches[0], (
-        ("d_hidden 528", with_model(td["cfg"], sdf={"d_hidden": 528})),
-        ("multi_res 21 (encoding 129, padded 144)", with_model(td["cfg"], sdf={"multi_res": 21}))), "march kernels")
+        ("d_hidden 528 at march_dtype float32",
+         with_renderer(with_model(td["cfg"], sdf={"d_hidden": 528}), march_dtype="float32")),
+        ("multi_res 21 (encoding 129, padded 144) at march_dtype float32",
+         with_renderer(with_model(td["cfg"], sdf={"multi_res": 21}), march_dtype="float32"))), "march kernels")
     log(f"[18] phase 18 took {time.perf_counter() - t_phase:.1f} s ((a) {t_a:.1f} s)")
     got = dict(sdf_core_fwd_wide=ship_view["sdf_core_fwd_wide"],
                sdf_stash_fwd_wide=sc["launches"]["sdf_stash_fwd_wide"],
@@ -4175,8 +4195,10 @@ def b_steps(w, cfg, o, d, z0, sdf0, rounds: int, n_new: int, merge: str) -> list
     return steps
 
 
-def march_geometry_kernels(smi: str, dev, mc: dict, classes: dict) -> dict:
-    """Phase 20(a) (see above).  ``classes``: label -> (march weights, SDF
+def march_geometry_kernels(smi: str, dev, mc: dict, classes: dict, geometries=GEOMETRIES,
+                           phase: str = "20(a)") -> dict:
+    """Phase 20(a) (see above), at ``geometries`` (phase 23(a): the huge
+    class at GEOM_JSON_AT alone).  ``classes``: label -> (march weights, SDF
     config, the entry point's params, mlp_dtype, class suffix).  -> {kernel
     instance: (max abs err, ms, plain ms, bound ms, bound by)} at
     GEOM_JSON_AT."""
@@ -4199,7 +4221,7 @@ def march_geometry_kernels(smi: str, dev, mc: dict, classes: dict) -> dict:
         # FINAL), and how often one timed call runs it: B's steps and L's
         # short launches (no sweep at one round) 4 times, so a window keeps
         # a record.
-        template = f"march_kernel{'_f32' if f32 else ''}{'_wide' if 'wide' in label else ''}<"
+        template = f"march_kernel{suffix}<"
         keys = {k: template + args for args, k, _ in MARCH_TEMPLATES if k in "KLMN"}
         keys["B"] = "round_machinery_kernel<"
         reps = {"B": 4, "L": 4}
@@ -4223,13 +4245,13 @@ def march_geometry_kernels(smi: str, dev, mc: dict, classes: dict) -> dict:
         z0_16, z0s_16 = geometry_inputs(mc, 64)
         ref_calls, _ = calls(z0_16, z0s_16, march.march_sweep(z0_16, o, d, w, cfg), 4, 16)
         ref_ms = {k: device_ms(k, fn) for k, fn in ref_calls.items()}
-        for rounds, n_new in GEOMETRIES:
+        for rounds, n_new in geometries:
             n0 = 128 - rounds * n_new
             z0, z0s = geometry_inputs(mc, n0)
             k_sdf0 = march.march_sweep(z0, o, d, w, cfg)
             errs = {"K": max_err([k_sdf0], [march.march_sweep_plain(z0, o, d, w, cfg)])}
             if errs["K"][1] > tol_sdf0:
-                raise AssertionError(f"20(a) {label} {rounds} x {n_new}: K's sdf0 rel {errs['K'][1]:.3e}")
+                raise AssertionError(f"{phase} {label} {rounds} x {n_new}: K's sdf0 rel {errs['K'][1]:.3e}")
             for merge in ("bitonic", "rank") if n_new & (n_new - 1) == 0 else ("bitonic",):
                 kw = dict(rounds=rounds, n_new=n_new, merge=merge)
                 steps = b_steps(w, cfg, o, d, z0, k_sdf0, rounds, n_new, merge)
@@ -4242,10 +4264,10 @@ def march_geometry_kernels(smi: str, dev, mc: dict, classes: dict) -> dict:
                         tail = march.round_machinery_plain(z_, sdf_, o, d, nz, torch.zeros_like(nz), args[7], None,
                                                            None, n_new, merge)
                         if not torch.equal(k_out[1], tail[1]):
-                            raise AssertionError(f"20(a) {label} {rounds} x {n_new} {merge}: B's last step differs "
+                            raise AssertionError(f"{phase} {label} {rounds} x {n_new} {merge}: B's last step differs "
                                                  "from its draw step and the plain merge of its draws")
                     elif not (torch.equal(k_out[1], p_out[1]) and torch.equal(k_out[2], p_out[2])):
-                        raise AssertionError(f"20(a) {label} {rounds} x {n_new} {merge}: B's merge differs from the "
+                        raise AssertionError(f"{phase} {label} {rounds} x {n_new} {merge}: B's merge differs from the "
                                              f"plain merge at {args[6:8]}")
                     b_err = tuple(max(a, b) for a, b in zip(b_err, max_err(k_out, p_out)))
                 l_z = march.march_rounds(z0, k_sdf0, o, d, w, cfg, **kw)
@@ -4264,13 +4286,13 @@ def march_geometry_kernels(smi: str, dev, mc: dict, classes: dict) -> dict:
                 ok = (l_is_bk and torch.equal(m_z, l_z) and torch.equal(n_tau, c_tau) and z_l[3] and z_m[3]
                       and min(z_l[2], z_m[2]) >= Z_NN_SHARE and b_err[1] <= TOL["round_machinery"]
                       and n_err[1] <= tol_tau)
-                log(f"[20(a) {label} {rounds} x {n_new} {merge}] n0 {n0}: B's {len(steps)} steps rel err "
+                log(f"[{phase} {label} {rounds} x {n_new} {merge}] n0 {n0}: B's {len(steps)} steps rel err "
                     f"{b_err[1]:.3e}; L's z {z_l[2]:.4f} of the samples within {Z_TOL} of a plain sample (slot by slot "
                     f"{z_l[1]:.4f}), M's {z_m[2]:.4f} ({z_m[1]:.4f}); N's tau rel err {n_err[1]:.3e}; L = B's steps "
                     f"between K's sweeps bit for bit: {l_is_bk}; M = L(K(.)): {torch.equal(m_z, l_z)}; N = C(M(.)): "
                     f"{torch.equal(n_tau, c_tau)}")
                 if not ok:
-                    raise AssertionError(f"20(a) {label} {rounds} x {n_new} {merge}: a check fails (see above)")
+                    raise AssertionError(f"{phase} {label} {rounds} x {n_new} {merge}: a check fails (see above)")
             sweeps = rounds - 1  # rounds whose samples are swept
             rows = {"K": n0, "L": sweeps * n_new, "M": n0 + sweeps * n_new}
             # Bytes a ray of a launch, on average over the march's: z and sdf
@@ -4288,7 +4310,7 @@ def march_geometry_kernels(smi: str, dev, mc: dict, classes: dict) -> dict:
             for k, fn in geo_calls.items():
                 dev_ms = device_ms(k, fn)
                 bd, by = bounds[k]
-                log(f"[20(a) kernel {k} {label}] {rounds} x {n_new} (n0 {n0}): device time {dev_ms:.4f} ms"
+                log(f"[{phase} kernel {k} {label}] {rounds} x {n_new} (n0 {n0}): device time {dev_ms:.4f} ms"
                     f"{' a launch' if k == 'B' else ''}, the 64 + 4 x 16 instance's {ref_ms[k]:.4f} ms in this call "
                     f"({dev_ms / ref_ms[k]:.2f}x); bound {bd:.5f} ms ({by}), {dev_ms / bd:.2f}x it; max abs err "
                     f"{errs[k][0]:.3e} (rel {errs[k][1]:.3e}); on {smi}")
@@ -4719,47 +4741,69 @@ def deep_phase(smi: str, dev, mc: dict) -> list:
             for name, num in nums.items()]
 
 
-# Phase 23: the SDF core above the wide class: A's, D's, E's and H's huge
-# instances and D's and E's stash_all variants' (64-point blocks whose
+# Phase 23: the SDF above the wide class: the SDF core's huge instances (A,
+# D, E, H and D's and E's stash_all variants: 64-point blocks whose
 # activations, carry and encoding are rows of device memory; any width, bf16
-# only).  The model is nr-hints-cam-opt at HUGE_SDF (d_hidden 1024, 8 layers,
-# skip at 4, multi_res 6, a 256-wide feature head) on HUGE_ROUTE: the march
-# kernels' classes stop at 512 wide (ROADMAP Queue 2 item 15), so every march
-# runs "xla" (the shipping sweeps and rounds already do; kernel B runs no
-# MLP) and only the core, the trunk (361 -> 4 x 256 -> 3) and B run kernels.
-# (a) every huge instance at phase 3's 256-wide SDF (its pack's class set to
-# CORE_HUGE) equal to the 64-point instance bit for bit, then at phase 3's
-# 65,536 points at HUGE_SDF and at HUGE_ENC (d_hidden 256, multi_res 24: an
-# encoding 147 wide, padded 160, the class taken by the encoding alone)
-# against its plain version at TOL, with D = A, the variant = D, E and H
-# repeating and E without its dW passes, bit for bit; each timed (CUDA
-# events, HUGE_SDF only) and by device ms from one profiled call beside the
-# wide instance's at WIDE_SDF in the same call and its bound.  (b) a K = HUGE_K graph of stash steps against its eager steps;
-# a 64-ray step's gradients against the CPU; one recompute and one
-# stash_all step, each profiled: exact launches, s/step and idle shares.
-# (c) a 128x128 view through its graph against its eager sweep and 64 pixels
-# on the CPU.  (d) python -m nrhints_torch's main for WIDE_ENTRY_STEPS steps.
-# (e) the limits: HUGE_SDF on the default routes (kernel C's final shadow
-# sweep) raises NotImplementedError naming the march kernels and item 15
-# before any launch, and so do the core's entry points at
+# only) and the march kernels' (C, K, L, M and N on the row engine's huge
+# class: 64 rows a pass in device memory; bf16 march weights only).  The
+# model is nr-hints-cam-opt at HUGE_SDF (d_hidden 1024, 8 layers, skip at 4,
+# multi_res 6, a 256-wide feature head) on its default routes: kernel C's
+# final shadow sweep after plain sweeps between kernel B's steps, the core
+# and the trunk (361 -> 4 x 256 -> 3) fused.  (a) every huge core instance
+# at phase 3's 256-wide SDF (its pack's class set to CORE_HUGE) equal to the
+# 64-point instance bit for bit, then at phase 3's 65,536 points at HUGE_SDF
+# and at HUGE_ENC (d_hidden 256, multi_res 24: an encoding 147 wide, padded
+# 160, the class taken by the encoding alone) against its plain version at
+# TOL, with D = A, the variant = D, E and H repeating and E without its dW
+# passes, bit for bit; each timed (CUDA events, HUGE_SDF only) and by device
+# ms from one profiled call beside the wide instance's at WIDE_SDF in the
+# same call and its bound.  Then the march kernels: every huge entry point
+# at phase 3's SDF (the pack's class set to ROWS_HUGE) equal to the narrow
+# instance bit for bit, at 64 + 4 x 16 under both merges and at the
+# run-time geometry GEOM_JSON_AT; C, K, L, M and N huge at phase 3's 512
+# rays at HUGE_SDF and HUGE_ENC against their plain versions, with L = B/K,
+# M = L(K), N = C(M) bit for bit under both merges, each by device ms beside
+# the wide instance's at WIDE_SDF (HUGE_SDF timed); and K, L, M and N's
+# run-time geometry instances at GEOM_JSON_AT and HUGE_SDF, as phase 20(a)
+# holds them, then the entry points at that geometry on the monolith and the
+# split march, launches exact.  (b) a K = HUGE_K graph of stash steps on the
+# default route against its eager steps; a 64-ray step's gradients against
+# the CPU; one recompute and one stash_all step; a profiled monolith step
+# (M, N) and the split route's step (K, L, M, C): exact launches, s/step and
+# idle shares.  (c) 128x128 views through their graphs on the default route
+# and on the monolith, each against its eager sweep and 64 pixels on the
+# CPU.  (d) python -m nrhints_torch's main for WIDE_ENTRY_STEPS steps at
+# d_hidden 1024 on the default routes.  (e) the limits: HUGE_SDF at
+# march_dtype="float32" raises NotImplementedError naming the march kernels
+# and item 15 before any launch, and so do the core's entry points at
 # compute_dtype="float32" (every schedule) and at stash_dtype="float32".
 HUGE_SDF = {"d_hidden": 1024}
 HUGE_ENC = {"d_hidden": 256, "multi_res": 24}
-HUGE_ROUTE = {"shadow_final_impl": "xla"}
 HUGE_K = 16
 HUGE_WHERE = {"sdf_core_fwd_huge": ("sdf_core.cu", "core_mlp.py:227"),
               "sdf_stash_fwd_huge": ("sdf_core.cu", "core_stash.py:369"),
               "sdf_stash_all_fwd_huge": ("sdf_core.cu", "core_stash.py:369"),
               "sdf_stash_bwd_huge": ("sdf_stash.cu", "core_stash.py:422"),
               "sdf_stash_all_bwd_huge": ("sdf_stash.cu", "core_stash.py:422"),
-              "sdf_core_bwd_huge": ("sdf_core_bwd.cu", "core_mlp.py:260")}
-# One step's launches on HUGE_ROUTE: the core, the 256-wide trunk, B's 8 steps.
-HUGE_STEP = dict(sdf_stash_fwd_huge=1, sdf_stash_bwd_huge=1, mlp_stash_fwd=1, mlp_stash_bwd=1, round_machinery=8)
+              "sdf_core_bwd_huge": ("sdf_core_bwd.cu", "core_mlp.py:260"),
+              **{f"{fn}_huge{g}": ("march.cu" if k == "C" else "march_fused_huge.cu", f"march.py:{line}")
+                 for k, fn, line in (("C", "shadow_final", 574), ("K", "march_sweep", 507),
+                                     ("L", "march_rounds", 522), ("M", "importance_march", 488),
+                                     ("N", "shadow_march", 595))
+                 for g in ("", "_geom") if k != "C" or not g}}
+# One step's launches on the default routes: the core, the 256-wide trunk,
+# B's 8 steps and kernel C.
+HUGE_SHIP = dict(round_machinery=8, shadow_final_huge=1)
+HUGE_CORE_STEP = dict(sdf_stash_fwd_huge=1, sdf_stash_bwd_huge=1, mlp_stash_fwd=1, mlp_stash_bwd=1)
+HUGE_STEP = dict(HUGE_CORE_STEP, **HUGE_SHIP)
+HUGE_ROUTES = {"monolith": (MONOLITH, dict(importance_march_huge=1, shadow_march_huge=1)),
+               "split": (SPLIT, dict(march_sweep_huge=1, march_rounds_huge=1, importance_march_huge=1,
+                                     shadow_final_huge=1))}
 
 
 def huge_cfg(cfg, **renderer_kw):
-    """``cfg`` with HUGE_SDF's SDF network on HUGE_ROUTE and ``renderer_kw``."""
-    return with_renderer(with_model(cfg, sdf=HUGE_SDF), **HUGE_ROUTE, **renderer_kw)
+    """``cfg`` with HUGE_SDF's SDF network and ``renderer_kw``."""
+    return with_renderer(with_model(cfg, sdf=HUGE_SDF), **renderer_kw)
 
 
 def huge_kernels(smi: str, dev, mc: dict) -> dict:
@@ -4912,6 +4956,101 @@ def huge_kernels(smi: str, dev, mc: dict) -> dict:
     return out
 
 
+def huge_march_kernels(smi: str, dev, mc: dict) -> tuple[dict, dict]:
+    """Phase 23(a), the march kernels (see above).  -> ({instance name: (max
+    abs err, ms, plain ms, bound ms, bound by)} of the HUGE_SDF instances and
+    of the run-time geometry ones at GEOM_JSON_AT, {instance name: launches}
+    of the geometry instances' entry-point calls)."""
+    import torch
+
+    from nrhints_torch.fields.sdf import sdf_init
+    from nrhints_torch.kernels import core_mlp, cuda_lib, march
+
+    o, d, mw, ncfg = mc["o"], mc["d"], mc["mw"], mc["cfg"].model.sdf_network
+    sl, sdir, sdist, sz, inv_s, anneal = (mc[k] for k in ("sl", "sdir", "sdist", "sz", "inv_s", "anneal"))
+    b, bs = o.shape[0], sl.shape[0]
+
+    # Every huge entry point at phase 3's SDF (the pack's class set to
+    # ROWS_HUGE) against the narrow instance, bit for bit.
+    pk = core_mlp.pack_sdf_mlp(mw, ncfg, with_feat=False)
+    packs = (("", pk), ("_huge", dict(pk, cls=core_mlp.ROWS_HUGE)))
+    same = {}
+    for geometry, merges in ((None, ("bitonic", "rank")), (GEOM_JSON_AT, ("bitonic",))):
+        rounds, n_new = geometry or march.FIXED_GEOMETRY
+        n0 = 128 - rounds * n_new
+        z0, z0s = geometry_inputs(mc, n0)
+        rays, srays = march._ray_inputs(z0, o, d, n0), march._ray_inputs(z0s, sl, sdir, n0)
+        shadow = srays + [(sdist, (bs, 1), "sdist")] + [
+            (torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(1), (1,), name)
+            for v, name in ((inv_s, "inv_s"), (anneal, "cos_anneal"))]
+        g = None if geometry is None else geometry
+        for merge in merges:
+            rank = int(merge == "rank")
+            outs = {}
+            for sfx, k in packs:
+                sdf0 = march._launch_pack("march_sweep" + sfx, k, ncfg, rays, n0, geometry=None if g is None else (n0,))
+                rin = [rays[0], (sdf0, (b, n0), "sdf0"), *rays[1:]]
+                outs[sfx] = {
+                    "K": sdf0,
+                    "L": march._launch_pack("march_rounds" + sfx, k, ncfg, rin, 128, (64.0, rank), g),
+                    "M": march._launch_pack("importance_march" + sfx, k, ncfg, rays, 128, (64.0, rank), g),
+                    "N": march._launch_pack("shadow_march" + sfx, k, ncfg, shadow, 1, (64.0, rank), g),
+                    "C": march._launch_final("shadow_final" + sfx, k, ncfg, sz, sl, sdir, sdist, inv_s, anneal),
+                }
+            for name in outs[""]:
+                same[f"{name} {rounds} x {n_new} {merge}"] = torch.equal(outs[""][name], outs["_huge"][name])
+    log(f"[23(a)] the huge march instances at phase 3's 256-wide SDF against the narrow instances, bit for bit: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"23(a): a huge march instance differs from the narrow one at the presets' widths: {same}")
+    del pk, packs
+
+    # C, K, L, M and N huge at HUGE_SDF (timed beside the wide instances at
+    # WIDE_SDF) and at HUGE_ENC, bf16 march weights.
+    out = march_class_kernels(smi, dev, mc, HUGE_SDF, "23(a)", "the wide instance's at d_hidden 512", ("bfloat16",),
+                              WIDE_SDF)
+    march_class_kernels(smi, dev, mc, HUGE_ENC, "23(a) enc160", "the wide instance's at d_hidden 512",
+                        ("bfloat16",), WIDE_SDF)
+    torch.cuda.empty_cache()
+
+    # The run-time geometry instances at GEOM_JSON_AT, and the entry points
+    # there on the monolith and the split march.
+    hcfg = dataclasses.replace(ncfg, **HUGE_SDF)
+    hparams = sdf_init(torch.Generator().manual_seed(0), hcfg, dev)
+    hw = march.march_weights(hparams, hcfg, "bfloat16")
+    if core_mlp.core_class(hcfg, with_feat=False) is not core_mlp.ROWS_HUGE:
+        raise AssertionError(f"23(a): {HUGE_SDF} does not take the march kernels' huge instances")
+    geo = march_geometry_kernels(smi, dev, mc, {"huge bf16": (hw, hcfg, hparams, "bfloat16", "_huge")},
+                                 (GEOM_JSON_AT,), "23(a)")
+    out.update({k: v for k, v in geo.items() if k.endswith("_huge_geom")})
+    rounds, n_new = GEOM_JSON_AT
+    z0, z0s = geometry_inputs(mc, 128 - rounds * n_new)
+    kw = dict(rounds=rounds, n_new=n_new, mlp_dtype="bfloat16")
+    launches = {}
+    for route, rkw in (("monolith", {}), ("split", dict(split=True))):
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        z = march.fused_importance_z(hparams, hcfg, o, d, z0, **kw, **rkw)
+        tau = march.fused_shadow_tau(hparams, hcfg, sl, sdir, z0s, sdist, inv_s, anneal, **kw, **rkw)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in cuda_lib.launch_counts.items() if v}
+        want = dict(route_launches(rkw, False, "_huge", rounds, n_new))
+        for k, v in route_launches(rkw, True, "_huge", rounds, n_new).items():
+            want[k] = want.get(k, 0) + v
+        z_p = march.importance_march_plain(z0, o, d, hw, hcfg, rounds=rounds, n_new=n_new)
+        tau_p = march.shadow_march_plain(z0s, sl, sdir, sdist, inv_s, anneal, hw, hcfg, rounds=rounds, n_new=n_new)
+        ze, te = z_err(z, z_p, z0), max_err([tau], [tau_p])
+        log(f"[23(a) {route} {rounds} x {n_new}] fused_importance_z: {ze[2]:.4f} of the samples within {Z_TOL} of a "
+            f"plain sample; fused_shadow_tau rel err {te[1]:.3e}; launches {got}")
+        if got != want or not (ze[3] and ze[2] >= Z_NN_SHARE and te[1] <= TOL["shadow_march"]):
+            raise AssertionError(f"23(a) {route} {rounds} x {n_new}: launches {got} (expected {want}) or a march "
+                                 f"disagrees with the plain march")
+        for k, v in got.items():
+            if k.endswith("_huge_geom"):
+                launches[k] = launches.get(k, 0) + v
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def huge_dtype_limits(label: str, dev, mc: dict) -> None:
     """Phase 23(e), the dtypes: the core's entry points at HUGE_SDF with a
     gradient wanted, at compute_dtype="float32" under each schedule and at
@@ -4945,11 +5084,13 @@ def huge_dtype_limits(label: str, dev, mc: dict) -> None:
 
 
 def huge_core_phase(smi: str, dev, mc: dict, tmp: Path) -> list:
-    """Phase 23, the SDF core above the wide class (see above).  -> the
-    kernels line's entries of the HUGE_SDF instances, each with its launches
-    from the path that runs it: A's from (c)'s view, D's and E's from (b)'s
-    K = HUGE_K dispatch, H's from the recompute step, the variants' from
-    the stash_all step."""
+    """Phase 23, the SDF above the wide class (see above).  -> the kernels
+    line's entries of the HUGE_SDF instances, each with its launches from
+    the path that runs it: A's and C's from (c)'s default-route view, M's
+    and N's from its monolith view, D's and E's from (b)'s K = HUGE_K
+    dispatch, H's from the recompute step, the variants' from the stash_all
+    step, K's and L's from the split step, the run-time geometry instances'
+    from (a)'s entry-point calls."""
     import numpy as np
     import torch
 
@@ -4960,9 +5101,13 @@ def huge_core_phase(smi: str, dev, mc: dict, tmp: Path) -> list:
     nums = huge_kernels(smi, dev, mc)
     gc.collect()
     torch.cuda.empty_cache()
+    march_nums, geom_launches = huge_march_kernels(smi, dev, mc)
+    nums.update(march_nums)
+    gc.collect()
+    torch.cuda.empty_cache()
     t_a = time.perf_counter() - t_phase
 
-    # (b) The train path.
+    # (b) The train path, on the default routes.
     td = train_data(dev, 128, 128)
     hcfg = huge_cfg(td["cfg"])
     batches = [td["next_batch"]() for _ in range(HUGE_K + TRAIN_WARMUP)]
@@ -4976,28 +5121,31 @@ def huge_core_phase(smi: str, dev, mc: dict, tmp: Path) -> list:
            "shadow": urng.random((64, hcfg.model.renderer.n_shadow_samples), dtype=np.float32)}
     card_cpu_grads("23(b) huge train path", hcfg, state, td["camera"], buffers, b64, u64, relu_by_norm=True)
     del state, step_fn, buffers
-    ship = dict(round_machinery=8)
     rec = wide_one_step("23(b) huge recompute step", smi, dev, with_renderer(hcfg, core_backward="recompute"), td,
-                        batches[1], dict(sdf_core_fwd_huge=1, sdf_core_bwd_huge=1, mlp_fwd=1, mlp_bwd=1, **ship),
+                        batches[1], dict(sdf_core_fwd_huge=1, sdf_core_bwd_huge=1, mlp_fwd=1, mlp_bwd=1, **HUGE_SHIP),
                         profiled=True)
     sa = wide_one_step("23(b) huge stash_all step", smi, dev, with_renderer(hcfg, core_backward="stash_all"), td,
                        batches[2], dict(sdf_stash_all_fwd_huge=1, sdf_stash_all_bwd_huge=1, mlp_stash_fwd=1,
-                                        mlp_stash_bwd=1, **ship), profiled=True)
+                                        mlp_stash_bwd=1, **HUGE_SHIP), profiled=True)
+    routes = {name: wide_one_step(f"23(b) huge {name} step", smi, dev, with_renderer(hcfg, **kw), td, batches[3],
+                                  dict(HUGE_CORE_STEP, **per), profiled=name == "monolith")
+              for name, (kw, per) in HUGE_ROUTES.items()}
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (c) The eval path: a 128x128 view of nr-hints at HUGE_SDF.
+    # (c) The eval path: 128x128 views of nr-hints at HUGE_SDF on the
+    # default route and on the round-4 monolith.
     vcfg = huge_cfg(mc["cfg"])
     params = {"renderer": init_model_params(vcfg.model, torch.Generator().manual_seed(0), device=dev), "raygen": {}}
-    view = wide_view("23(c) huge view", smi, mc, vcfg, params, dict(sdf_core_fwd_huge=1, **ship))
+    view = wide_view("23(c) huge view", smi, mc, vcfg, params, dict(sdf_core_fwd_huge=1, **HUGE_SHIP))
+    mono_view = wide_view("23(c) huge monolith view", smi, mc, huge_cfg(mc["cfg"], **MONOLITH), params,
+                          dict(sdf_core_fwd_huge=1, importance_march_huge=1, shadow_march_huge=1))
     del params
 
-    # (d) The entry point; (e) the limits.
-    wide_entry(smi, tmp, "23(d)", ["--config.model.sdf-network.d-hidden", str(HUGE_SDF["d_hidden"]),
-                                   "--config.model.renderer.shadow-final-impl", HUGE_ROUTE["shadow_final_impl"]],
-               HUGE_STEP)
-    wide_limits("23(e)", dev, td, batches[0], (("d_hidden 1024 on the default routes",
-                                                with_model(td["cfg"], sdf=HUGE_SDF)),), "march kernels")
+    # (d) The entry point on the default routes; (e) the limits.
+    wide_entry(smi, tmp, "23(d)", ["--config.model.sdf-network.d-hidden", str(HUGE_SDF["d_hidden"])], HUGE_STEP)
+    wide_limits("23(e)", dev, td, batches[0], (("d_hidden 1024 at march_dtype float32",
+                                                huge_cfg(td["cfg"], march_dtype="float32")),), "march kernels")
     huge_dtype_limits("23(e)", dev, mc)
     log(f"[23] phase 23 took {time.perf_counter() - t_phase:.1f} s ((a) {t_a:.1f} s)")
     got = dict(sdf_core_fwd_huge=view["sdf_core_fwd_huge"],
@@ -5005,7 +5153,13 @@ def huge_core_phase(smi: str, dev, mc: dict, tmp: Path) -> list:
                sdf_stash_bwd_huge=sc["launches"]["sdf_stash_bwd_huge"],
                sdf_core_bwd_huge=rec["sdf_core_bwd_huge"],
                sdf_stash_all_fwd_huge=sa["sdf_stash_all_fwd_huge"],
-               sdf_stash_all_bwd_huge=sa["sdf_stash_all_bwd_huge"])
+               sdf_stash_all_bwd_huge=sa["sdf_stash_all_bwd_huge"],
+               shadow_final_huge=view["shadow_final_huge"],
+               importance_march_huge=mono_view["importance_march_huge"],
+               shadow_march_huge=mono_view["shadow_march_huge"],
+               march_sweep_huge=routes["split"]["march_sweep_huge"],
+               march_rounds_huge=routes["split"]["march_rounds_huge"],
+               **geom_launches)
     return [entry(name, *HUGE_WHERE[name], got[name], *num) for name, num in nums.items()]
 
 

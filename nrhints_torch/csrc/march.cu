@@ -62,6 +62,12 @@
 // wide class (mma_rows.cuh::RowsWide): 16 dual passes of 32 sections (bf16)
 // or 32 of 16 (f32) a block.  At d_hidden 512 a 512-ray launch is 4.0x the
 // 256-wide one's operations: 0.487 ms at the bf16 peak, 7.18 ms at f32's.
+// shadow_final_huge is kernel C at any wider SDF (bf16 march weights), the
+// march_kernel_huge instance on the row engine's huge class
+// (mma_rows.cuh::RowsHuge): the wide bf16 class's 16 dual passes of 32
+// sections a block, each row's activations, product output and encoding in
+// a device-memory scratch.  At d_hidden 1024 a 512-ray launch is 1.93
+// TFLOP: 1.96 ms at the bf16 peak.
 #include "march_common.cuh"
 
 using namespace nrh;
@@ -175,14 +181,22 @@ extern "C" int shadow_final_f32(NRH_FINAL_ARGS) {
 // Kernel C's wide instances (core_mlp.ROWS_WIDE: padded widths up to 512,
 // encodings up to 128), bf16 and f32 march weights.
 extern "C" int shadow_final_wide(NRH_FINAL_ARGS) {
-  return launch_march<false, false, false, true, false, kFixedNew, true>(
+  return launch_march<false, false, false, true, false, kFixedNew, RowsWide>(
       z, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal, tau, b, meta, meta_dev, scale, 0.0f, kAnyGeom,
       stream);
 }
 extern "C" int shadow_final_f32_wide(NRH_FINAL_ARGS) {
-  return launch_march<true, false, false, true, false, kFixedNew, true>(
+  return launch_march<true, false, false, true, false, kFixedNew, RowsWide>(
       z, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal, tau, b, meta, meta_dev, scale, 0.0f, kAnyGeom,
       stream);
+}
+
+// Kernel C's huge instance (core_mlp.ROWS_HUGE: any wider SDF, bf16 march
+// weights), its device-memory rows scratch last (core_mlp.march_layout).
+extern "C" int shadow_final_huge(NRH_FINAL_ARGS, float* rows) {
+  return launch_march<false, false, false, true, false, kFixedNew, RowsHuge>(
+      z, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal, tau, b, meta, meta_dev, scale, 0.0f, kAnyGeom,
+      stream, rows);
 }
 #undef NRH_FINAL_ARGS
 

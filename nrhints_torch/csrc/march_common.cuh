@@ -45,8 +45,10 @@
 //   widths run the engines above, padded widths up to kWideWMax and
 //   encodings up to kWideEncMax their wide class, Bf16RowsWide (the kernels
 //   march_kernel_wide<...>) and F32RowsWide (march_kernel_f32_wide<...>),
-//   on half the rows a pass.  march_body is the same, so the identities
-//   hold at the wide widths too.
+//   on half the rows a pass; any wider SDF the huge class, Bf16RowsHuge
+//   (march_kernel_huge<...>, bf16 weights only), whose 64 rows a pass lie
+//   in a device-memory scratch (mma_rows.cuh::sdf_rows_huge).  march_body
+//   is the same, so the identities hold at every width.
 //
 // Layout: a march block holds kMarchRays = 4 rays on 512 threads; thread t
 // loads and stores slot t & 127 of ray t >> 7, and warp w < 4 runs ray w's
@@ -60,7 +62,8 @@
 // dual passes of 32 sections.  The wide class halves the rows: bf16, 4
 // value passes of 64 rows, the same round passes and 16 dual passes of 32
 // sections; f32, value passes of 64 rows each run as two of its 32-row
-// tile, and 32 dual passes of 16 sections.
+// tile, and 32 dual passes of 16 sections.  The huge class runs the wide
+// bf16 class's passes.
 #pragma once
 
 #include <type_traits>
@@ -463,6 +466,27 @@ struct F32RowsWide {
   }
 };
 
+// The huge class (mma_rows.cuh::RowsHuge): any padded width and encoding,
+// bf16 weights; 64-row value passes and 32 sections a dual pass, as the wide
+// bf16 class, the rows in the block's part of a device-memory scratch
+// (Smem::rows, set by march_kernel_huge).
+struct Bf16RowsHuge {
+  using Smem = RowsHugeTile;
+  using W = bf16;
+  static constexpr int kValueRows = RowsHuge::kRows;
+  static constexpr int kSections = RowsHuge::kRows / 2;
+  template <int ROWS>
+  static __device__ __forceinline__ void values(Smem& S, const W* wpack, const float* bpack, const float* w_sdf,
+                                                const SdfMeta& m, float scale) {
+    static_assert(ROWS == kValueRows, "the huge engine runs 64-row passes");
+    sdf_rows_huge<false>(S, nullptr, wpack, bpack, w_sdf, m, scale);
+  }
+  static __device__ __forceinline__ void dual(Smem& S, const float* dir, const W* wpack, const float* bpack,
+                                              const float* w_sdf, const SdfMeta& m, float scale) {
+    sdf_rows_huge<true>(S, dir, wpack, bpack, w_sdf, m, scale);
+  }
+};
+
 template <class Engine>
 struct MarchSmem {
   static constexpr int R = kMarchRays;
@@ -650,9 +674,9 @@ __device__ __forceinline__ void march_body(const float* __restrict__ z_in, const
 #define NRH_MARCH_ARGS \
   z_in, sdf0_in, o, d, sdist, wpack, bpack, w_sdf, inv_s_ptr, anneal_ptr, out, b, m, scale, base_inv_s, g
 
-// The bf16 instances (kernels C, K, L, M and N) and the f32 ones, and the
-// wide class's of each; NN = kFixedNew for the compile-time geometry, 0 for
-// the run-time one.
+// The bf16 instances (kernels C, K, L, M and N) and the f32 ones, the wide
+// class's of each, and the huge class's bf16 ones; NN = kFixedNew for the
+// compile-time geometry, 0 for the run-time one.
 template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK, int NN>
 __global__ void __launch_bounds__(kRowsThreads) march_kernel(NRH_MARCH_PARAMS(bf16)) {
   march_body<Bf16Rows, SWEEP, ROUNDS, FINAL, RANK, NN>(NRH_MARCH_ARGS);
@@ -669,6 +693,16 @@ template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK, int NN>
 __global__ void __launch_bounds__(kRowsThreads) march_kernel_f32_wide(NRH_MARCH_PARAMS(float)) {
   march_body<F32RowsWide, SWEEP, ROUNDS, FINAL, RANK, NN>(NRH_MARCH_ARGS);
 }
+// The huge class's: rows is the scratch of every block's kRows rows,
+// huge_row(m) floats each (core_mlp.march_layout).
+template <bool SWEEP, bool ROUNDS, bool FINAL, bool RANK, int NN>
+__global__ void __launch_bounds__(kRowsThreads) march_kernel_huge(NRH_MARCH_PARAMS(bf16), float* __restrict__ rows) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  if (threadIdx.x == 0)  // read after march_body's first barrier
+    reinterpret_cast<MarchSmem<Bf16RowsHuge>*>(smem_raw)->t.rows =
+        rows + (size_t)blockIdx.x * RowsHuge::kRows * huge_row(m);
+  march_body<Bf16RowsHuge, SWEEP, ROUNDS, FINAL, RANK, NN>(NRH_MARCH_ARGS);
+}
 #undef NRH_MARCH_PARAMS
 #undef NRH_MARCH_ARGS
 
@@ -684,41 +718,79 @@ __host__ __device__ inline bool takes_geometry(const MarchGeom& g) {
   return !SWEEP || (NN > 0 ? g.n0 == n0_fixed : g.n0 >= 2 && g.n0 <= NBUF - 2);
 }
 
+// The engine of each weight type (F32) and width class (Cls: RowsNarrow,
+// RowsWide, RowsHuge; the huge class is bf16 only).
+template <bool F32, class Cls>
+struct MarchEngine;
+template <>
+struct MarchEngine<false, RowsNarrow> {
+  using type = Bf16Rows;
+};
+template <>
+struct MarchEngine<true, RowsNarrow> {
+  using type = F32Rows;
+};
+template <>
+struct MarchEngine<false, RowsWide> {
+  using type = Bf16RowsWide;
+};
+template <>
+struct MarchEngine<true, RowsWide> {
+  using type = F32RowsWide;
+};
+template <>
+struct MarchEngine<false, RowsHuge> {
+  using type = Bf16RowsHuge;
+};
+
 // One launch on `stream` of the bf16 instance, or with F32 the f32 one
-// (wpack then holds f32 weights), of the presets' class or with IS_WIDE the
-// wide class (meta checked against its limits; meta_dev its copy on the
+// (wpack then holds f32 weights), of width class Cls (RowsNarrow, RowsWide
+// or RowsHuge; meta checked against its limits; meta_dev its copy on the
 // card, null up to kMaxLayers layers), at geometry g (checked,
-// takes_geometry); returns its launch error.  Each instantiation compiles
-// one class's kernel only, so the classes' sources build apart.
-template <bool F32, bool SWEEP, bool ROUNDS, bool FINAL, bool RANK, int NN = kFixedNew, bool IS_WIDE = false>
+// takes_geometry); returns its launch error.  The huge class also takes
+// rows, its device-memory scratch (march_kernel_huge; null is refused).
+// Each instantiation compiles one class's kernel only, so the classes'
+// sources build apart.
+template <bool F32, bool SWEEP, bool ROUNDS, bool FINAL, bool RANK, int NN = kFixedNew, class Cls = RowsNarrow>
 inline int launch_march(const float* z_in, const float* sdf0_in, const float* o, const float* d,
                         const float* sdist, const void* wpack, const float* bpack, const float* w_sdf,
                         const float* inv_s, const float* anneal, float* out, int b, const int* meta,
-                        const int* meta_dev, float scale, float base_inv_s, const MarchGeom& g, void* stream) {
-  using Engine = typename std::conditional<IS_WIDE, typename std::conditional<F32, F32RowsWide, Bf16RowsWide>::type,
-                                           typename std::conditional<F32, F32Rows, Bf16Rows>::type>::type;
+                        const int* meta_dev, float scale, float base_inv_s, const MarchGeom& g, void* stream,
+                        float* rows = nullptr) {
+  using Engine = typename MarchEngine<F32, Cls>::type;
   using W = typename Engine::W;
+  constexpr bool kIsWide = std::is_same<Cls, RowsWide>::value, kIsHuge = std::is_same<Cls, RowsHuge>::value;
   SdfMeta m;
-  int rc = parse_meta(meta, meta_dev, &m, IS_WIDE);
+  int rc = parse_meta(meta, meta_dev, &m, kIsWide, kIsHuge);
   if (rc) return rc;
   if (!takes_geometry<SWEEP, ROUNDS, NN>(g)) return (int)cudaErrorInvalidValue;
   if (b <= 0) return 0;
+  if (kIsHuge && !rows) return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(MarchSmem<Engine>);
-  void (*kernel)(const float*, const float*, const float*, const float*, const float*, const W*, const float*,
-                 const float*, const float*, const float*, float*, int, const SdfMeta, float, float,
-                 const MarchGeom);
-  if constexpr (F32 && IS_WIDE)
-    kernel = march_kernel_f32_wide<SWEEP, ROUNDS, FINAL, RANK, NN>;
-  else if constexpr (F32)
-    kernel = march_kernel_f32<SWEEP, ROUNDS, FINAL, RANK, NN>;
-  else if constexpr (IS_WIDE)
-    kernel = march_kernel_wide<SWEEP, ROUNDS, FINAL, RANK, NN>;
-  else
-    kernel = march_kernel<SWEEP, ROUNDS, FINAL, RANK, NN>;
-  rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (rc) return rc;
-  kernel<<<(b + kMarchRays - 1) / kMarchRays, kRowsThreads, smem, (cudaStream_t)stream>>>(
-      z_in, sdf0_in, o, d, sdist, (const W*)wpack, bpack, w_sdf, inv_s, anneal, out, b, m, scale, base_inv_s, g);
+  if constexpr (kIsHuge) {
+    const auto kernel = march_kernel_huge<SWEEP, ROUNDS, FINAL, RANK, NN>;
+    rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc) return rc;
+    kernel<<<(b + kMarchRays - 1) / kMarchRays, kRowsThreads, smem, (cudaStream_t)stream>>>(
+        z_in, sdf0_in, o, d, sdist, (const W*)wpack, bpack, w_sdf, inv_s, anneal, out, b, m, scale, base_inv_s, g,
+        rows);
+  } else {
+    void (*kernel)(const float*, const float*, const float*, const float*, const float*, const W*, const float*,
+                   const float*, const float*, const float*, float*, int, const SdfMeta, float, float,
+                   const MarchGeom);
+    if constexpr (F32 && kIsWide)
+      kernel = march_kernel_f32_wide<SWEEP, ROUNDS, FINAL, RANK, NN>;
+    else if constexpr (F32)
+      kernel = march_kernel_f32<SWEEP, ROUNDS, FINAL, RANK, NN>;
+    else if constexpr (kIsWide)
+      kernel = march_kernel_wide<SWEEP, ROUNDS, FINAL, RANK, NN>;
+    else
+      kernel = march_kernel<SWEEP, ROUNDS, FINAL, RANK, NN>;
+    rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc) return rc;
+    kernel<<<(b + kMarchRays - 1) / kMarchRays, kRowsThreads, smem, (cudaStream_t)stream>>>(
+        z_in, sdf0_in, o, d, sdist, (const W*)wpack, bpack, w_sdf, inv_s, anneal, out, b, m, scale, base_inv_s, g);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
 // The launch helpers and C-entry argument lists of kernels K, L, M and N
 // at the presets' geometry (64 + 4 x 16, compile-time NN = kFixedNew),
-// shared by march_fused.cu (the 256-wide class, bf16 and f32 march weights)
-// and march_fused_wide.cu (the wide class, core_mlp.ROWS_WIDE), two sources
-// so that their builds run side by side.
+// shared by march_fused.cu (the 256-wide class, bf16 and f32 march weights),
+// march_fused_wide.cu (the wide class, core_mlp.ROWS_WIDE) and
+// march_fused_huge.cu (the huge class, core_mlp.ROWS_HUGE), sources apart so
+// that their builds run side by side.
 #pragma once
 
 #include "march_common.cuh"
@@ -12,45 +13,48 @@ namespace fused {
 
 constexpr MarchGeom kGeom{NBUF - kFixedRounds * kFixedNew, kFixedRounds, kFixedNew};  // 64 + 4 x 16
 
-// Each entry point's bf16 instance, or with F32 its f32 one; with IS_WIDE, the
-// wide class's.  meta_dev is the meta vector's copy on the card (null up to
-// kMaxLayers layers).
-template <bool F32, bool IS_WIDE = false>
+// Each entry point's bf16 instance, or with F32 its f32 one, of width class
+// Cls (launch_march's).  meta_dev is the meta vector's copy on the card (null
+// up to kMaxLayers layers); rows the huge class's device-memory scratch
+// (core_mlp.march_layout; null in the other classes).
+template <bool F32, class Cls = RowsNarrow>
 int sweep(const float* z0, const float* o, const float* d, const void* wpack, const float* bpack,
-          const float* w_sdf, float* sdf0, int b, const int* meta, const int* meta_dev, float scale, void* stream) {
-  return launch_march<F32, true, false, false, false, kFixedNew, IS_WIDE>(z0, nullptr, o, d, nullptr, wpack, bpack,
-                                                                      w_sdf, nullptr, nullptr, sdf0, b, meta,
-                                                                      meta_dev, scale, 0.0f, kGeom, stream);
+          const float* w_sdf, float* sdf0, int b, const int* meta, const int* meta_dev, float scale, void* stream,
+          float* rows = nullptr) {
+  return launch_march<F32, true, false, false, false, kFixedNew, Cls>(z0, nullptr, o, d, nullptr, wpack, bpack, w_sdf,
+                                                                  nullptr, nullptr, sdf0, b, meta, meta_dev, scale,
+                                                                  0.0f, kGeom, stream, rows);
 }
 
-template <bool F32, bool IS_WIDE = false>
+template <bool F32, class Cls = RowsNarrow>
 int rounds(const float* z0, const float* sdf0, const float* o, const float* d, const void* wpack,
            const float* bpack, const float* w_sdf, float* z, int b, const int* meta, const int* meta_dev,
-           float scale, float base_inv_s, int rank, void* stream) {
-  auto launch = rank ? launch_march<F32, false, true, false, true, kFixedNew, IS_WIDE>
-                     : launch_march<F32, false, true, false, false, kFixedNew, IS_WIDE>;
+           float scale, float base_inv_s, int rank, void* stream, float* rows = nullptr) {
+  auto launch = rank ? launch_march<F32, false, true, false, true, kFixedNew, Cls>
+                     : launch_march<F32, false, true, false, false, kFixedNew, Cls>;
   return launch(z0, sdf0, o, d, nullptr, wpack, bpack, w_sdf, nullptr, nullptr, z, b, meta, meta_dev, scale,
-                base_inv_s, kGeom, stream);
+                base_inv_s, kGeom, stream, rows);
 }
 
-template <bool F32, bool IS_WIDE = false>
+template <bool F32, class Cls = RowsNarrow>
 int importance(const float* z0, const float* o, const float* d, const void* wpack, const float* bpack,
                const float* w_sdf, float* z, int b, const int* meta, const int* meta_dev, float scale,
-               float base_inv_s, int rank, void* stream) {
-  auto launch = rank ? launch_march<F32, true, true, false, true, kFixedNew, IS_WIDE>
-                     : launch_march<F32, true, true, false, false, kFixedNew, IS_WIDE>;
+               float base_inv_s, int rank, void* stream, float* rows = nullptr) {
+  auto launch = rank ? launch_march<F32, true, true, false, true, kFixedNew, Cls>
+                     : launch_march<F32, true, true, false, false, kFixedNew, Cls>;
   return launch(z0, nullptr, o, d, nullptr, wpack, bpack, w_sdf, nullptr, nullptr, z, b, meta, meta_dev, scale,
-                base_inv_s, kGeom, stream);
+                base_inv_s, kGeom, stream, rows);
 }
 
-template <bool F32, bool IS_WIDE = false>
+template <bool F32, class Cls = RowsNarrow>
 int shadow(const float* z0, const float* o, const float* d, const float* sdist, const float* inv_s,
            const float* anneal, const void* wpack, const float* bpack, const float* w_sdf, float* tau, int b,
-           const int* meta, const int* meta_dev, float scale, float base_inv_s, int rank, void* stream) {
-  auto launch = rank ? launch_march<F32, true, true, true, true, kFixedNew, IS_WIDE>
-                     : launch_march<F32, true, true, true, false, kFixedNew, IS_WIDE>;
+           const int* meta, const int* meta_dev, float scale, float base_inv_s, int rank, void* stream,
+           float* rows = nullptr) {
+  auto launch = rank ? launch_march<F32, true, true, true, true, kFixedNew, Cls>
+                     : launch_march<F32, true, true, true, false, kFixedNew, Cls>;
   return launch(z0, nullptr, o, d, sdist, wpack, bpack, w_sdf, inv_s, anneal, tau, b, meta, meta_dev, scale,
-                base_inv_s, kGeom, stream);
+                base_inv_s, kGeom, stream, rows);
 }
 
 }  // namespace fused

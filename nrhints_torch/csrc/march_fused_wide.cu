@@ -6,15 +6,16 @@
 // march_fused.cu.
 #include "march_fused.cuh"
 
+using namespace nrh;
 using namespace nrh::fused;
 
-extern "C" int march_sweep_wide(NRH_SWEEP_ARGS) { return sweep<false, true>(NRH_SWEEP_CALL); }
-extern "C" int march_sweep_f32_wide(NRH_SWEEP_ARGS) { return sweep<true, true>(NRH_SWEEP_CALL); }
-extern "C" int march_rounds_wide(NRH_ROUNDS_ARGS) { return rounds<false, true>(NRH_ROUNDS_CALL); }
-extern "C" int march_rounds_f32_wide(NRH_ROUNDS_ARGS) { return rounds<true, true>(NRH_ROUNDS_CALL); }
-extern "C" int importance_march_wide(NRH_IMPORTANCE_ARGS) { return importance<false, true>(NRH_IMPORTANCE_CALL); }
-extern "C" int importance_march_f32_wide(NRH_IMPORTANCE_ARGS) { return importance<true, true>(NRH_IMPORTANCE_CALL); }
-extern "C" int shadow_march_wide(NRH_SHADOW_ARGS) { return shadow<false, true>(NRH_SHADOW_CALL); }
-extern "C" int shadow_march_f32_wide(NRH_SHADOW_ARGS) { return shadow<true, true>(NRH_SHADOW_CALL); }
+extern "C" int march_sweep_wide(NRH_SWEEP_ARGS) { return sweep<false, RowsWide>(NRH_SWEEP_CALL); }
+extern "C" int march_sweep_f32_wide(NRH_SWEEP_ARGS) { return sweep<true, RowsWide>(NRH_SWEEP_CALL); }
+extern "C" int march_rounds_wide(NRH_ROUNDS_ARGS) { return rounds<false, RowsWide>(NRH_ROUNDS_CALL); }
+extern "C" int march_rounds_f32_wide(NRH_ROUNDS_ARGS) { return rounds<true, RowsWide>(NRH_ROUNDS_CALL); }
+extern "C" int importance_march_wide(NRH_IMPORTANCE_ARGS) { return importance<false, RowsWide>(NRH_IMPORTANCE_CALL); }
+extern "C" int importance_march_f32_wide(NRH_IMPORTANCE_ARGS) { return importance<true, RowsWide>(NRH_IMPORTANCE_CALL); }
+extern "C" int shadow_march_wide(NRH_SHADOW_ARGS) { return shadow<false, RowsWide>(NRH_SHADOW_CALL); }
+extern "C" int shadow_march_f32_wide(NRH_SHADOW_ARGS) { return shadow<true, RowsWide>(NRH_SHADOW_CALL); }
 
 extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

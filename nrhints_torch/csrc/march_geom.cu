@@ -31,8 +31,8 @@
 // half-empty passes).
 #include "march_geom.cuh"
 
-NRH_GEOM_ENTRIES(, false, false)
-NRH_GEOM_ENTRIES(_wide, false, true)
+NRH_GEOM_ENTRIES(, false, nrh::RowsNarrow, , nullptr)
+NRH_GEOM_ENTRIES(_wide, false, nrh::RowsWide, , nullptr)
 #undef NRH_GEOM_ENTRIES
 
 extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

@@ -3,8 +3,8 @@
 // wide f32 instances, built beside it (march_geom.cuh).
 #include "march_geom.cuh"
 
-NRH_GEOM_ENTRIES(_f32, true, false)
-NRH_GEOM_ENTRIES(_f32_wide, true, true)
+NRH_GEOM_ENTRIES(_f32, true, nrh::RowsNarrow, , nullptr)
+NRH_GEOM_ENTRIES(_f32_wide, true, nrh::RowsWide, , nullptr)
 #undef NRH_GEOM_ENTRIES
 
 extern "C" const char* nrh_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }

@@ -684,4 +684,132 @@ __device__ __forceinline__ CoreTiles<T> core_tiles(unsigned char* smem, float* r
 // ring (138,240 bytes), and `tail` bytes after them.
 constexpr size_t huge_smem(size_t tail) { return (CoreTile<bf16>::kRing + kHugeARing) * sizeof(bf16) + tail; }
 
+// ---------------------------------------------------------------------------
+// The bf16 row engine's huge class (core_mlp.ROWS_HUGE): the march sweeps of
+// kernels C, K, L, M and N at any padded width and encoding (multiples of
+// 16), bf16 march weights only.  A pass holds kRows = 64 rows (dual mode: 32
+// sections and their 32 tangent rows).  Its rows lie in device memory as the
+// SDF core's huge blocks lay theirs out (core_tiles<CoreHuge>: per row the
+// bf16 activations, the f32 product output and the f32 encoding at the
+// meta's widths, huge_row floats a row), every product is
+// staged_mma.cuh::gemm_rows_huge (64 rows in column passes of at most kWMax,
+// A's k-slabs staged from device memory through the row ring), and the
+// epilogue (bias, softplus(100 .) / 100, the tangent's gate, the skip
+// concat over sqrt2, the bf16 rounding of _mlp_sdf_3d) runs as elementwise
+// passes over those rows.  Each output walks its k-tiles 0, 16, 32, ... in
+// order and rounds where sdf_rows rounds, so a row's floats are sdf_rows's
+// at the presets' widths, bit for bit.
+struct RowsHuge {
+  static constexpr int kRows = kChainTP;
+};
+
+// Shared memory of the huge engine: the weight ring, then gemm_rows_huge's
+// row ring (138,240 bytes), the rows' raw points and the head's output per
+// row (in dual mode sdf[kRows / 2 + r] is section r's directional
+// derivative), and the block's rows of the device-memory scratch.
+struct RowsHugeTile {
+  __align__(16) bf16 ring[CoreTile<bf16>::kRing + kHugeARing];
+  float pts[RowsHuge::kRows][3];
+  float sdf[RowsHuge::kRows];
+  float* rows;
+};
+static_assert(sizeof(RowsHugeTile::ring) == huge_smem(0), "the huge engine's rings are the SDF core's huge ones");
+
+// The SDF MLP on the huge engine's 64 rows: DUAL, 32 sections (points
+// S.pts[0 ..], all along direction dir) and their tangents; otherwise 64
+// value rows.  Out: S.sdf[r] = sdf of row r, and in dual mode S.sdf[32 + r]
+// = dir . grad sdf of section r.  Every thread of the block calls it; it
+// ends with __syncthreads.
+template <bool DUAL>
+__device__ void sdf_rows_huge(RowsHugeTile& S, const float* dir, const bf16* __restrict__ wpack,
+                              const float* __restrict__ bpack, const float* __restrict__ w_sdf, const SdfMeta& m,
+                              float scale) {
+  constexpr int kRows = RowsHuge::kRows, kPts = DUAL ? kRows / 2 : kRows;
+  const CoreTiles<bf16> tl = core_tiles<CoreHuge, bf16>(reinterpret_cast<unsigned char*>(S.ring), S.rows, m);
+  bf16* A = tl.act;
+  float* Z = tl.carry;
+  float* enc = tl.enc;
+  const int ld = tl.ld_act, ldz = tl.ld_c, le = tl.ld_enc;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int L = m.n_layers, F = m.multi_res, d0 = m.d0;
+
+  // The encoding, and the first layer's bf16 input.
+  core_stage<CoreHuge, false>(wpack + m.w_off(0), m.np(0), m.kp(0), m.np(0), S.ring);
+  for (int idx = tid; idx < kPts * le; idx += kRowsThreads) {
+    const int r = idx / le, c = idx % le;
+    float xs[3], ts[3];
+    for (int j = 0; j < 3; ++j) {
+      xs[j] = S.pts[r][j] * scale;
+      ts[j] = DUAL ? dir[j] * scale : 0.0f;
+    }
+    float t = 0.0f, v = 0.0f;
+    if (c < d0) v = freq_channel(xs, ts, c, F, DUAL ? &t : nullptr);
+    enc[r * le + c] = v;
+    if (c < m.kp(0)) A[r * ld + c] = to_bf16(v);
+    if (DUAL) {
+      enc[(kPts + r) * le + c] = t;
+      if (c < m.kp(0)) A[(kPts + r) * ld + c] = to_bf16(t);
+    }
+  }
+
+  for (int i = 0; i < L; ++i) {
+    const int np = m.np(i), out = m.out(i);
+    const bool last = i + 1 == L, next_skip = !last && m.skip(i + 1);
+    const int kp_next = last ? ((m.d_last + 15) / 16) * 16 : m.kp(i + 1);
+    gemm_rows_huge<false>(A, ld, wpack + m.w_off(i), np, m.kp(i), np, Z, ldz, S.ring);
+    __syncthreads();
+    if (!last) core_stage<CoreHuge, false>(wpack + m.w_off(i + 1), m.np(i + 1), m.kp(i + 1), m.np(i + 1), S.ring);
+    // The next product's input, four columns of a row (of a section and its
+    // tangent row in dual mode) an item: h = bf16(softplus(100 (z + b)) /
+    // 100) and the tangent bf16(t gate), each bf16(. / sqrt2) again before a
+    // skip layer; past the output, the skip layer's encoding half (x
+    // 1/sqrt2), then zeros up to the next padded width (>= np).
+    const float* b = bpack + m.b_off(i);
+    const int w4 = kp_next / 4;
+    for (int idx = tid; idx < kPts * w4; idx += kRowsThreads) {
+      const int r = idx / w4, c = (idx % w4) * 4;
+      float z[4] = {0.0f, 0.0f, 0.0f, 0.0f}, zt[4] = {0.0f, 0.0f, 0.0f, 0.0f}, bb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float h[4], ht[4];
+      if (c < np) {
+        ld_f4(Z + (size_t)r * ldz + c, z);
+        if (DUAL) ld_f4(Z + (size_t)(kPts + r) * ldz + c, zt);
+        ld_f4(b + c, bb);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int ck = c + k;
+        if (ck < out) {
+          float sp, gate;
+          softplus100_gate(z[k] + bb[k], &sp, &gate);
+          bf16 hv = to_bf16(sp), tv = to_bf16(zt[k] * gate);
+          if (next_skip) {
+            hv = to_bf16(bf(hv) * kInvSqrt2);
+            tv = to_bf16(bf(tv) * kInvSqrt2);
+          }
+          h[k] = bf(hv);
+          ht[k] = bf(tv);
+        } else {
+          const bool e = next_skip && ck - out < d0;
+          h[k] = e ? enc[r * le + ck - out] * kInvSqrt2 : 0.0f;
+          ht[k] = e && DUAL ? enc[(kPts + r) * le + ck - out] * kInvSqrt2 : 0.0f;
+        }
+      }
+      st_bf4(A + (size_t)r * ld + c, h);
+      if (DUAL) st_bf4(A + (size_t)(kPts + r) * ld + c, ht);
+    }
+  }
+  __syncthreads();
+
+  // The bf16 sdf head, one warp per row: sdf = (h . w_sdf + b_sdf) / scale,
+  // and for a tangent row (th . w_sdf) / scale.
+  const float b_sdf = bpack[m.bf_off + m.npf];
+  for (int r = warp; r < kRows; r += kRowsThreads / 32) {
+    float s = 0.0f;
+    for (int c = lane; c < m.d_last; c += 32) s += bf(A[(size_t)r * ld + c]) * bf(to_bf16(w_sdf[c]));
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) S.sdf[r] = DUAL && r >= kPts ? s / scale : (s + b_sdf) / scale;
+  }
+  __syncthreads();
+}
+
 }  // namespace nrh

@@ -25,8 +25,10 @@ encodings up to 64), the wide ones above them (up to 512 and 128, at every
 dtype pair, counted as ``*_wide``), and above those the huge ones (any
 width, bf16 operands and stash only, counted as ``*_huge``: 64-point blocks
 whose activation rows lie in device memory, ``row_layout``).  The march kernels C, K, L, M and N
-(``kernels/march.py``) have their own class above the presets' widths,
-``ROWS_WIDE``, at bf16 and f32 march weights, and the trunk's F, G, I and J
+(``kernels/march.py``) have their own classes above the presets' widths:
+``ROWS_WIDE`` up to 512 and 128, at bf16 and f32 march weights, and above
+it ``ROWS_HUGE``, any width at bf16 march weights (counted as ``*_huge``:
+64 rows a pass in device memory, ``march_layout``); and the trunk's F, G, I and J
 theirs (``trunk_class``): the 64-point instances at padded hidden widths up
 to 256 and inputs up to 384, the wide ones (32-point blocks, bf16 and f32,
 counted as ``*_wide``) up to 512 and 640.  Every kernel takes any depth: up
@@ -217,8 +219,8 @@ MAX_JOBS = MAX_LAYERS + 1
 class CoreClass:
     """A width class of the SDF kernels: the SDF core's A, D, E and H
     (``csrc/staged_mma.cuh``'s CoreNarrow, CoreWide and CoreHuge) or the
-    march kernels' row engine (``csrc/mma_rows.cuh``'s RowsNarrow and
-    RowsWide).  Points (rows) a block pass, the widest padded layer (and
+    march kernels' row engine (``csrc/mma_rows.cuh``'s RowsNarrow, RowsWide
+    and RowsHuge).  Points (rows) a block pass, the widest padded layer (and
     feature head) and encoding it takes (None: any multiple of 16, device
     memory the only limit), the suffix of its instances' launch counters
     and C entry points, and its bit in the SDF core's dtypes int
@@ -241,6 +243,11 @@ CORE_HUGE = CoreClass(CHAIN_TP, None, None, "_huge", 8)
 # The row engine above the presets' widths (march kernels C, K, L, M, N):
 # 64 bf16 rows a pass (32 f32), bf16 and f32 march weights.
 ROWS_WIDE = CoreClass(64, 512, 2 * ENC_MAX, "_wide", 0)
+# Above ROWS_WIDE: any width, bf16 march weights only (csrc/mma_rows.cuh::
+# RowsHuge: 64 rows a pass whose activations, product output and encoding
+# lie in device memory, ``march_layout``).
+ROWS_HUGE = CoreClass(CHAIN_TP, None, None, "_huge", 0)
+MARCH_RAYS = 4  # rays of a march block (csrc/march_common.cuh::kMarchRays)
 
 
 @dataclass(frozen=True)
@@ -267,13 +274,14 @@ def core_class(cfg: SDFNetConfig, with_feat: bool = True, compute_dtype: str = "
     padded widths up to 256 and encodings up to 64 (the presets' and every
     published width), else up to 512 and 128 WIDE, the SDF core's
     (``with_feat``) instances, or ROWS_WIDE, the march kernels C, K, L, M
-    and N (``with_feat=False``); above those the SDF core's CORE_HUGE, at
-    any width.  NARROW and WIDE take every ``compute_dtype`` and
-    ``stash_dtype`` (checked, "bfloat16" or "float32"), CORE_HUGE bf16 only;
-    every class takes any depth.  Raises ``NotImplementedError`` naming
-    ROADMAP.md Queue 2 item 15 for the march kernels above 512 / 128 and for
-    an f32 operand or stash dtype above them, and for what JAX's fused core
-    does not run either: points other than 3-D, or a skip at layer 0 (its
+    and N (``with_feat=False``); above those, at any width, the SDF core's
+    CORE_HUGE or the march kernels' ROWS_HUGE.  NARROW and WIDE take every
+    ``compute_dtype`` and ``stash_dtype`` (checked, "bfloat16" or
+    "float32"; for the march kernels ``compute_dtype`` is the march
+    weights' dtype), the huge classes bf16 only; every class takes any
+    depth.  Raises ``NotImplementedError`` naming ROADMAP.md Queue 2 item
+    15 for an f32 dtype above 512 / 128, and for what JAX's fused core does
+    not run either: points other than 3-D, or a skip at layer 0 (its
     forward then fails in ``nrhints_tpu/kernels/core_mlp.py`` and
     ``fields/mlp.py``)."""
     torch_dtype(compute_dtype), torch_dtype(stash_dtype)
@@ -288,9 +296,12 @@ def core_class(cfg: SDFNetConfig, with_feat: bool = True, compute_dtype: str = "
     if width <= WIDE.width and enc <= WIDE.enc:
         return WIDE if with_feat else ROWS_WIDE
     if not with_feat:
-        raise NotImplementedError(f"the CUDA march kernels (C, K, L, M, N) take padded widths up to {WIDE.width} and "
-                                  f"encodings up to {WIDE.enc}, got padded width {width} and encoding {enc} "
-                                  "(ROADMAP.md Queue 2 item 15)")
+        if compute_dtype == "float32":
+            raise NotImplementedError(f"the CUDA march kernels (C, K, L, M, N) take padded widths above {WIDE.width} "
+                                      f"or encodings above {WIDE.enc} at bf16 march weights only, got padded width "
+                                      f"{width} and encoding {enc} at march_dtype='float32' (ROADMAP.md Queue 2 item "
+                                      "15)")
+        return ROWS_HUGE
     huge_dtypes(compute_dtype, stash_dtype, f"padded width {width} and encoding {enc}")
     return CORE_HUGE
 
@@ -344,13 +355,15 @@ def pack_sdf_mlp(weights: Sequence[torch.Tensor], cfg: SDFNetConfig, with_feat: 
     (``mma_rows.cuh``'s f32 ``gemm_rows64`` reads B row-major).  "cls" is
     the width class of the instances that read it (``core_class``, which
     raises for a config no instance takes); "meta_dev" the meta vector on
-    the card, for an SDF deeper than ``MAX_LAYERS`` (``device_meta``)."""
+    the card, for an SDF deeper than ``MAX_LAYERS`` (``device_meta``); the
+    march kernels' huge class takes bf16 weights only, so their f32 pack
+    above the wide class raises (``core_class``)."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the packed SDF weights are bf16 or f32, got {dtype}")
     if cfg.encoding != "frequency":
         raise ValueError("the CUDA SDF kernels take the frequency encoding; the renderer runs the hash "
                          "encoding on the unfused path, as the JAX package does")
-    cls = core_class(cfg, with_feat, "float32" if with_feat and dtype == torch.float32 else "bfloat16")
+    cls = core_class(cfg, with_feat, "float32" if dtype == torch.float32 else "bfloat16")
     io, dims = _layer_dims(cfg)
     L, d0, d_last = cfg.n_layers, cfg.d_encoded, dims[-2]
     d_feat = cfg.d_out_feat if with_feat else 0
@@ -501,6 +514,22 @@ def row_layout(n: int, pk: dict) -> tuple[int, int, int]:
         return nblk, npad, 0
     width, enc = huge_tiles(pk["meta"])
     return nblk, npad, npad * (width // 2 + width + enc)
+
+
+def march_layout(b: int, pk: dict) -> tuple[int, int]:
+    """-> (blocks, f32 elements) of the rows that the march kernels' huge
+    class (``ROWS_HUGE``) keeps in device memory at b rays: ``MARCH_RAYS``
+    rays a block, ``ROWS_HUGE.pts`` rows a block, each the bf16
+    activations and the f32 product output at ``huge_tiles``'s width and
+    the f32 encoding (``row_layout``'s row, ``csrc/mma_rows.cuh::huge_row``);
+    0 elements in the other classes, whose tiles fit shared memory.  At
+    d_hidden 1024 and multi_res 6, 1,584 floats a row, 405,504 bytes a
+    block: 51.9 MB at 512 rays."""
+    nblk = -(-b // MARCH_RAYS)
+    if pk["cls"] is not ROWS_HUGE:
+        return nblk, 0
+    width, enc = huge_tiles(pk["meta"])
+    return nblk, nblk * ROWS_HUGE.pts * (width // 2 + width + enc)
 
 
 def check_scratch(n_bytes: int, dev, kernel: str) -> None:

@@ -28,7 +28,10 @@ widths above 256 or encodings above 64, every dtype pair) count as
 any wider SDF, bf16 only, bit 3 of the dtypes int, as ``_huge``), and so do
 the march kernels' wide
 instances (``core_mlp.ROWS_WIDE``: C, K, L,
-M and N, ``*_wide`` and ``*_f32_wide``, each its own C entry point), and
+M and N, ``*_wide`` and ``*_f32_wide``, each its own C entry point; their
+huge ones, ``core_mlp.ROWS_HUGE``: any wider SDF, bf16 weights only,
+``*_huge``, each taking its device-memory rows scratch last, K-N in
+``march_fused_huge.cu`` with their run-time geometry twins), and
 the trunk's (``core_mlp.TRUNK_WIDE``: padded hidden widths above 256 or
 inputs above 384, bf16 and f32, ``*_wide`` after the dtypes' suffix, bit 2
 of the dtypes int).  Kernels B, K, L, M and N at a march geometry other
@@ -49,7 +52,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nrhints_torch"
 SOURCES = ("sdf_core", "march", "sdf_stash", "mlp_stash", "sdf_core_bwd", "march_fused", "march_fused_wide",
-           "march_geom", "march_geom_f32")
+           "march_geom", "march_geom_f32", "march_fused_huge")
 # -fmad=false keeps each f32 multiply and add separately rounded, as the
 # plain PyTorch versions compute them, so kernel and plain version differ
 # only in summation order and bf16 rounding flips.
@@ -72,13 +75,16 @@ SDF_CORE_INSTANCES = [
 ] + [f"{k}_huge" for k in SDF_CORE_KERNELS]
 # The march kernels' instances by weight dtype and width class: each is a
 # C entry point of march.cu (C) or march_fused.cu (K, L, M, N; the wide
-# class's march_fused_wide.cu) and a launch counter of the same name; and K-N's run-time geometry instances, "_geom"
-# (march_geom.cu, with f32 weights march_geom_f32.cu), and B's
-# (round_machinery_geom, march.cu).
+# class's march_fused_wide.cu, the huge class's march_fused_huge.cu) and a
+# launch counter of the same name; and K-N's run-time geometry instances,
+# "_geom" (march_geom.cu, with f32 weights march_geom_f32.cu, the huge
+# class's march_fused_huge.cu), and B's (round_machinery_geom, march.cu).
 MARCH_FUSED = ("march_sweep", "march_rounds", "importance_march", "shadow_march")
-MARCH_INSTANCES = [f"{k}{d}{w}" for k in ("shadow_final", *MARCH_FUSED) for d in ("", "_f32") for w in ("", "_wide")]
+MARCH_INSTANCES = [f"{k}{d}{w}" for k in ("shadow_final", *MARCH_FUSED) for d in ("", "_f32")
+                   for w in ("", "_wide")] + [f"{k}_huge" for k in ("shadow_final", *MARCH_FUSED)]
 MARCH_GEOM_INSTANCES = ["round_machinery_geom"] + [
-    f"{k}{d}{w}_geom" for k in MARCH_FUSED for d in ("", "_f32") for w in ("", "_wide")]
+    f"{k}{d}{w}_geom" for k in MARCH_FUSED for d in ("", "_f32") for w in ("", "_wide")] + [
+    f"{k}_huge_geom" for k in MARCH_FUSED]
 # The trunk's instances by dtypes and width class (core_mlp.TRUNK_NARROW,
 # TRUNK_WIDE: "_wide"), each a launch counter of one C entry point.
 TRUNK_INSTANCES = [
@@ -104,6 +110,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Every entry point that reads a meta vector takes it twice: in host memory
 # and, for a network deeper than core_mlp.MAX_LAYERS, its copy on the card
 # (else NULL); the backward entries take the dW job table the same way.
+# Kernels K, L, M and N at 64 + 4 x 16, and at a run-time geometry ((...,
+# rounds, n_new) after rank; K: n0 after scale).
+_FUSED_SIGNATURES = {"march_sweep": [_P] * 7 + [_I, _P, _P, _F, _P],
+                     "march_rounds": [_P] * 8 + [_I, _P, _P, _F, _F, _I, _P],
+                     "importance_march": [_P] * 7 + [_I, _P, _P, _F, _F, _I, _P],
+                     "shadow_march": [_P] * 10 + [_I, _P, _P, _F, _F, _I, _P]}
+_GEOM_SIGNATURES = {"march_sweep": [_P] * 7 + [_I, _P, _P, _F, _I, _P],
+                    "march_rounds": [_P] * 8 + [_I, _P, _P, _F, _F, _I, _I, _I, _P],
+                    "importance_march": [_P] * 7 + [_I, _P, _P, _F, _F, _I, _I, _I, _P],
+                    "shadow_march": [_P] * 10 + [_I, _P, _P, _F, _F, _I, _I, _I, _P]}
 _SIGNATURES = {
     "sdf_core": {
         "sdf_core_fwd": [_P] * 9 + [_I, _P, _P, _F, _I, _P],
@@ -125,24 +141,21 @@ _SIGNATURES = {
         "round_machinery": [_P] * 9 + [_I, _I, _I, _F, _I, _I, _P],
         "round_machinery_geom": [_P] * 9 + [_I, _I, _I, _F, _I, _I, _I, _P],
         **{f"shadow_final{k}": [_P] * 10 + [_I, _P, _P, _F, _P] for k in ("", "_f32", "_wide", "_f32_wide")},
+        "shadow_final_huge": [_P] * 10 + [_I, _P, _P, _F, _P, _P],
     },
     **{lib: {
         f"{fn}{k}": sig
-        for fn, sig in (("march_sweep", [_P] * 7 + [_I, _P, _P, _F, _P]),
-                        ("march_rounds", [_P] * 8 + [_I, _P, _P, _F, _F, _I, _P]),
-                        ("importance_march", [_P] * 7 + [_I, _P, _P, _F, _F, _I, _P]),
-                        ("shadow_march", [_P] * 10 + [_I, _P, _P, _F, _F, _I, _P]))
-        for k in classes
+        for fn, sig in _FUSED_SIGNATURES.items() for k in classes
     } for lib, classes in (("march_fused", ("", "_f32")), ("march_fused_wide", ("_wide", "_f32_wide")))},
-    # (..., rounds, n_new) after rank; K: n0 after scale.
     **{lib: {
         f"{fn}{k}_geom": sig
-        for fn, sig in (("march_sweep", [_P] * 7 + [_I, _P, _P, _F, _I, _P]),
-                        ("march_rounds", [_P] * 8 + [_I, _P, _P, _F, _F, _I, _I, _I, _P]),
-                        ("importance_march", [_P] * 7 + [_I, _P, _P, _F, _F, _I, _I, _I, _P]),
-                        ("shadow_march", [_P] * 10 + [_I, _P, _P, _F, _F, _I, _I, _I, _P]))
-        for k in classes
+        for fn, sig in _GEOM_SIGNATURES.items() for k in classes
     } for lib, classes in (("march_geom", ("", "_wide")), ("march_geom_f32", ("_f32", "_f32_wide")))},
+    # The huge class's: the rows scratch after the stream.
+    "march_fused_huge": {
+        **{f"{fn}_huge": sig + [_P] for fn, sig in _FUSED_SIGNATURES.items()},
+        **{f"{fn}_huge_geom": sig + [_P] for fn, sig in _GEOM_SIGNATURES.items()},
+    },
 }
 _libs: dict[str, ctypes.CDLL] = {}
 

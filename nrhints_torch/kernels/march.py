@@ -17,9 +17,10 @@ plain versions (port of ``nrhints_tpu/kernels/march.py``).
   ``rounds`` rounds of ``n_new`` samples (the presets: 64 + 4 x 16).
 
 On CUDA tensors the wrappers launch the kernels in ``csrc/march.cu``,
-``csrc/march_fused.cu`` (the wide class: ``march_fused_wide.cu``) and
-``csrc/march_geom.cu`` / ``march_geom_f32.cu``;
-on CPU tensors they run the ``*_plain`` versions.  The march weights hold the matrices in the march
+``csrc/march_fused.cu`` (the wide class: ``march_fused_wide.cu``; the huge
+class: ``march_fused_huge.cu``) and ``csrc/march_geom.cu`` /
+``march_geom_f32.cu``; on CPU tensors they run the ``*_plain`` versions.
+The march weights hold the matrices in the march
 dtype (bf16 by default) and the biases in f32; a bf16 sweep rounds its
 activations to bf16 after every layer, as the JAX sweeps do.  The weights'
 dtype picks the instance of C, K, L, M and N: bf16 weights the bf16
@@ -28,11 +29,12 @@ kernels, f32 weights (``march_dtype="float32"``) their f32 instances
 their own names.  The SDF's widths pick the row engine's class
 (``core_mlp.core_class(cfg, with_feat=False)``): the presets' widths
 (padded widths up to 256, encodings up to 64) the instances above, wider
-SDFs up to 512 and 128 the wide instances (``*_wide``, ``*_f32_wide``);
-a wider SDF, which the SDF core's huge class takes, raises
-``NotImplementedError`` naming ROADMAP.md Queue 2 item 15 here before any
-launch (its march routes must be "xla": ``shadow_final_impl``,
-``march_sweep_impl`` and ``march_rounds_impl``).  The
+SDFs up to 512 and 128 the wide instances (``*_wide``, ``*_f32_wide``),
+and any wider SDF the huge instances (``*_huge``, bf16 weights only: 64
+rows a pass in a device-memory scratch of ``core_mlp.march_layout``'s size,
+allocated per call on the caller's stream, so a CUDA graph's capture keeps
+it in its pool); there f32 weights raise ``NotImplementedError`` naming
+ROADMAP.md Queue 2 item 15 before any launch.  The
 geometry picks the instance too: 64 + 4 x 16 (K: n0 = 64; B: n_new = 16)
 the compile-time instances, every other geometry of ``GEOMETRY_RANGE`` the
 run-time ones (``*_geom``, counted under their own names); outside it the
@@ -49,7 +51,9 @@ import torch.nn.functional as F
 from nrhints_torch.fields.sdf import SDFNetConfig
 from nrhints_torch.kernels import cuda_lib
 from nrhints_torch.kernels.common import INV_SQRT2, materialize_sdf_weights, softplus100_gate
-from nrhints_torch.kernels.core_mlp import meta_args, pack_sdf_mlp, require_cuda
+from nrhints_torch.kernels.core_mlp import (
+    ROWS_HUGE, check_scratch, march_layout, meta_args, pack_sdf_mlp, require_cuda,
+)
 
 BIG_Z = 1e9  # padding depth; exceeds any real depth
 N_BUF = 128  # slots of the z / sdf buffers (n0 stratified + rounds x n_new importance)
@@ -399,11 +403,25 @@ def _kernel_fn(fn: str, weights) -> tuple[str, torch.dtype]:
 
 def _kernel_pack(fn: str, weights, cfg: SDFNetConfig) -> tuple[str, dict]:
     """(entry point, pack) of a march kernel's instance: ``_kernel_fn``'s,
-    then ``_wide`` for the row engine's wide class (the pack's "cls",
-    ``core_mlp.core_class``, which raises for widths no instance takes)."""
+    then ``_wide`` or ``_huge`` for the row engine's wide or huge class (the
+    pack's "cls", ``core_mlp.core_class``, which raises
+    ``NotImplementedError`` naming item 15 for f32 weights above the wide
+    class, before any launch)."""
     fn, dt = _kernel_fn(fn, weights)
     pk = pack_sdf_mlp(weights, cfg, with_feat=False, dtype=dt)
     return fn + pk["cls"].suffix, pk
+
+
+def _rows_args(fn: str, pk: dict, b: int, dev) -> tuple:
+    """The trailing arguments of entry point ``fn`` at b rays: the huge
+    class's rows scratch (``march_layout``; checked against the card's
+    memory, ``check_scratch``; allocated on the current stream and kept
+    alive by the caller until the launch is queued), else none."""
+    if pk["cls"] is not ROWS_HUGE:
+        return ()
+    n = march_layout(b, pk)[1]
+    check_scratch(4 * n, dev, fn)
+    return (torch.empty(n, dtype=torch.float32, device=dev),)
 
 
 def shadow_final(z, o, d, sdist, inv_s, cos_anneal, weights, cfg: SDFNetConfig) -> torch.Tensor:
@@ -416,18 +434,28 @@ def shadow_final(z, o, d, sdist, inv_s, cos_anneal, weights, cfg: SDFNetConfig) 
     b, dev = z.shape[0], z.device
     for t, shape, name in ((z, (b, N_BUF), "z"), (o, (b, 3), "o"), (d, (b, 3), "d"), (sdist, (b, 1), "sdist")):
         require_cuda(t, shape, name)
-    tau = torch.empty((b, 1), device=dev)
     if b == 0:
-        return tau
+        return torch.empty((b, 1), device=dev)
+    fn, pk = _kernel_pack("shadow_final", weights, cfg)
+    return _launch_final(fn, pk, cfg, z, o, d, sdist, inv_s, cos_anneal)
+
+
+def _launch_final(fn: str, pk: dict, cfg: SDFNetConfig, z, o, d, sdist, inv_s, cos_anneal) -> torch.Tensor:
+    """``shadow_final``'s launch of entry point ``fn`` (its class's suffix
+    included) with the pack ``pk`` on checked CUDA tensors: the huge
+    class's rows scratch (``_rows_args``), then the launch, counted under
+    ``fn``."""
+    b, dev = z.shape[0], z.device
+    tau = torch.empty((b, 1), device=dev)
     inv_s_t = torch.as_tensor(inv_s, dtype=torch.float32, device=dev).reshape(1)
     anneal_t = torch.as_tensor(cos_anneal, dtype=torch.float32, device=dev).reshape(1)
-    fn, pk = _kernel_pack("shadow_final", weights, cfg)
+    rows = _rows_args(fn, pk, b, dev)
     lib = cuda_lib.load("march")
     rc = getattr(lib, fn)(
         z.data_ptr(), o.data_ptr(), d.data_ptr(), sdist.data_ptr(),
         pk["wpack"].data_ptr(), pk["bpack"].data_ptr(), pk["w_sdf"].data_ptr(),
         inv_s_t.data_ptr(), anneal_t.data_ptr(), tau.data_ptr(), b, *meta_args(pk),
-        float(cfg.scale), cuda_lib.stream_ptr(dev),
+        float(cfg.scale), cuda_lib.stream_ptr(dev), *(t.data_ptr() for t in rows),
     )
     cuda_lib.check(lib, rc, fn)
     cuda_lib.launch_counts[fn] += 1
@@ -482,29 +510,42 @@ def _check_merge(merge: str) -> int:
 def _launch_fused(fn: str, weights, cfg: SDFNetConfig, inputs, out_cols: int, scalars=(),
                   geometry=None) -> torch.Tensor:
     """Kernel ``fn`` of ``csrc/march_fused.cu`` (or its f32 instance, or
-    its wide one in ``march_fused_wide.cu``: ``_kernel_pack``) on CUDA tensors: checks ``inputs``
+    its wide one in ``march_fused_wide.cu``, or its huge one in
+    ``march_fused_huge.cu``: ``_kernel_pack``) on CUDA tensors: checks ``inputs``
     ([(tensor, shape, name), ...], the kernel's pointer arguments in
     order), packs the weights in their dtype, launches -> [B, out_cols].
     ``geometry``: None for the 64 + 4 x 16 instance, else the ints that the
     run-time geometry instance (``fn``_geom, ``csrc/march_geom.cu``, f32:
-    ``march_geom_f32.cu``) takes after the scalars."""
+    ``march_geom_f32.cu``, huge: ``march_fused_huge.cu``) takes after the
+    scalars."""
     for t, shape, tname in inputs:
         require_cuda(t, shape, tname)
+    if inputs[0][0].shape[0] == 0:
+        return torch.empty((0, out_cols), device=inputs[0][0].device)
+    fn, pk = _kernel_pack(fn, weights, cfg)
+    return _launch_pack(fn, pk, cfg, inputs, out_cols, scalars, geometry)
+
+
+def _launch_pack(fn: str, pk: dict, cfg: SDFNetConfig, inputs, out_cols: int, scalars=(),
+                 geometry=None) -> torch.Tensor:
+    """``_launch_fused``'s launch of entry point ``fn`` (its class's suffix
+    included) with the pack ``pk``: the huge class's rows scratch
+    (``_rows_args``), then the launch, counted under ``fn`` (+ "_geom")."""
     dev, b = inputs[0][0].device, inputs[0][0].shape[0]
     out = torch.empty((b, out_cols), device=dev)
-    if b == 0:
-        return out
-    fn, pk = _kernel_pack(fn, weights, cfg)
     if geometry is not None:
         fn += "_geom"
-    if geometry is None:
+    rows = _rows_args(fn, pk, b, dev)
+    if pk["cls"] is ROWS_HUGE:
+        lib = cuda_lib.load("march_fused_huge")
+    elif geometry is None:
         lib = cuda_lib.load("march_fused_wide" if fn.endswith("_wide") else "march_fused")
     else:
         lib = cuda_lib.load("march_geom_f32" if "_f32" in fn else "march_geom")
     rc = getattr(lib, fn)(
         *(t.data_ptr() for t, _, _ in inputs), pk["wpack"].data_ptr(), pk["bpack"].data_ptr(),
         pk["w_sdf"].data_ptr(), out.data_ptr(), b, *meta_args(pk), float(cfg.scale), *scalars,
-        *(geometry or ()), cuda_lib.stream_ptr(dev),
+        *(geometry or ()), cuda_lib.stream_ptr(dev), *(t.data_ptr() for t in rows),
     )
     cuda_lib.check(lib, rc, fn)
     cuda_lib.launch_counts[fn] += 1

@@ -255,8 +255,9 @@ def check_kernel_widths(cfg: ModelConfig, is_training: bool = True) -> None:
     its widths: the SDF core (A, D, E, H) wherever it runs fused
     (``core_mlp.core_class``, whose huge class takes any width at the bf16
     the render routes run), the march kernels (C, K, L, M, N) wherever
-    a fused march launches one (their class, ``core_class(...,
-    with_feat=False)``), and the trunk (F, G, I, J) wherever the fused
+    a fused march launches one (their class at ``march_dtype``,
+    ``core_class(..., with_feat=False)``: any width at bf16 march weights,
+    up to 512 / 128 at f32), and the trunk (F, G, I, J) wherever the fused
     trunk runs in training (``is_training``) or eval (its class, the
     64-point instances or the wide ones up to 512 / 640:
     ``core_mlp.check_trunk_widths``).  ``render_rays`` calls it for CUDA
@@ -271,7 +272,7 @@ def check_kernel_widths(cfg: ModelConfig, is_training: bool = True) -> None:
     shadow_rows = fused_shadow_compatible(r, sdf_cfg) and not (
         xla_march and r.shadow_split and r.shadow_final_impl == "xla")
     if camera_rows or shadow_rows:
-        core_class(sdf_cfg, with_feat=False)
+        core_class(sdf_cfg, with_feat=False, compute_dtype=r.march_dtype)
     if (r.reflectance_impl if is_training else r.eval_reflectance_impl) != "xla":
         rn = cfg.reflectance_network
         d0 = reflectance_input_dim(rn, sdf_cfg.d_out_feat, r.shadow_hint, r.specular_hint, len(r.specular_roughness))

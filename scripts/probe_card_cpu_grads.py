@@ -7,20 +7,34 @@ For each SDF width, ``nr-hints-cam-opt`` with that ``sdf_network.d_hidden``
 and ``shadow_final_impl="xla"`` (chip_smoke.py phase 23's routes: every
 march "xla"), from a seed-0 state after one eager step on the card, runs
 chip_smoke.py's 64-ray step (phase 23(b)'s batches, pixels and uniforms)
-three ways:
+five ways:
 
   kernels  on the card through the CUDA kernels (D, E, F, G and B);
   plain    on the card with the SDF core's and the trunk's kernels (D, E,
            F, G) replaced by their plain versions, the code the CPU runs,
            on the card's tensors (so only the summation order of the
            products differs from the CPU: cuBLAS against the CPU's BLAS);
+  core     on the card with only the SDF core's kernels (D, E) replaced;
+  trunk    on the card with only the trunk's kernels (F, G) replaced;
+  shuffled "plain", with kernel D's error on the feature (its feature
+           less plain D's, on the step's first call) added to plain D's
+           feature with the points shuffled: an error of the same sizes
+           that D's arithmetic did not make at those points;
   cpu      on the CPU, every plain version.
 
 and prints, for each pair, the loss of both and the worst leaves by
 chip_smoke.py's measure (|a - b| max over the leaf's |b| max), with the
 relative norm of the same error.  Where "plain vs cpu" reads as high as
 "kernels vs cpu", the step itself carries that much of the summation
-order, not the kernels.  It needs one card; it imports no JAX.
+order, not the kernels; "kernels vs core" is what D and E alone move,
+"kernels vs trunk" what F and G alone move, and "shuffled vs plain" what
+any error of kernel D's sizes moves (the trunk's sensitivity, where "kernels
+vs plain" reads as high, rather than a fault of D).  It also prints the feature
+D hands the trunk, kernel D's and plain D's (both bf16 dot operands)
+against plain D's at f32 dot operands on the same points (max and mean
+over scale, relative norm), and how many of the trunk's pre-activations z_i change sign
+between the kernels' step and the plain step (the ReLU masks they flip).
+It needs one card; it imports no JAX.
 """
 from __future__ import annotations
 
@@ -30,10 +44,13 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 
 
-def plain_on_card():
-    """Context that swaps core_stash's card wrappers of D, E, F and G for
-    their plain versions on the same tensors (the stashes packed as the
-    kernels pack them)."""
+def plain_on_card(core: bool = True, trunk: bool = True, record: dict | None = None, feat_error=None):
+    """Context that swaps core_stash's card wrappers of D and E (``core``)
+    and of F and G (``trunk``) for their plain versions on the same tensors
+    (the stashes packed as the kernels pack them).  ``record``: a dict that
+    gets the feature D (or its plain version) returned and the trunk's
+    pre-activations F (or its plain version) stashed, each call's.
+    ``feat_error``: added to the feature of D's first call."""
     import contextlib
 
     import torch
@@ -68,10 +85,28 @@ def plain_on_card():
         return cs.mlp_relu_bwd_stash_plain(weights, x, list(torch.split(zs, widths, dim=-1)), g, n_layers,
                                            compute_dtype)
 
+    saved = (cs.sdf_stash_fwd, cs.sdf_stash_bwd, cs.mlp_stash_fwd, cs.mlp_stash_bwd)
+    d_fn, e_fn = (sdf_fwd, sdf_bwd) if core else saved[:2]
+    f_fn, g_fn = (mlp_fwd, mlp_bwd) if trunk else saved[2:]
+
+    def d_rec(*a, **k):
+        out = d_fn(*a, **k)
+        if feat_error is not None and not (record or {}).get("feat"):
+            out = (out[0], out[1] + feat_error, *out[2:])
+        if record is not None:
+            record.setdefault("d_args", a[:3])
+            record.setdefault("feat", []).append(out[1].detach().clone())
+        return out
+
+    def f_rec(*a, **k):
+        out = f_fn(*a, **k)
+        if record is not None:
+            record.setdefault("z", []).append(out[1].detach().float().clone())
+        return out
+
     @contextlib.contextmanager
     def swapped():
-        saved = (cs.sdf_stash_fwd, cs.sdf_stash_bwd, cs.mlp_stash_fwd, cs.mlp_stash_bwd)
-        cs.sdf_stash_fwd, cs.sdf_stash_bwd, cs.mlp_stash_fwd, cs.mlp_stash_bwd = sdf_fwd, sdf_bwd, mlp_fwd, mlp_bwd
+        cs.sdf_stash_fwd, cs.sdf_stash_bwd, cs.mlp_stash_fwd, cs.mlp_stash_bwd = d_rec, e_fn, f_rec, g_fn
         try:
             yield
         finally:
@@ -97,7 +132,7 @@ def main() -> int:
     import torch
 
     from chip_smoke import HUGE_K, TRAIN_WARMUP, fresh_state, step_grads, train_data, with_model, with_renderer
-    from nrhints_torch.kernels import cuda_lib
+    from nrhints_torch.kernels import core_stash as cs, cuda_lib
     from nrhints_torch.train.step import make_train_step
 
     widths = [int(a) for a in sys.argv[1:]] or [256, 512, 1024]
@@ -115,18 +150,41 @@ def main() -> int:
         u64 = {"strat": urng.random((64, 1), dtype=np.float32),
                "shadow": urng.random((64, cfg.model.renderer.n_shadow_samples), dtype=np.float32)}
         args = (cfg, state, td["camera"], buffers, b64, u64)
-        cuda_lib.reset_launch_counts()
-        kern = step_grads(*args, "cuda")
-        launched = {k: v for k, v in cuda_lib.launch_counts.items() if v}
-        cuda_lib.reset_launch_counts()
-        with plain_on_card():
-            plain = step_grads(*args, "cuda")
-        plain_launched = {k: v for k, v in cuda_lib.launch_counts.items() if v}
+        runs, launched, seen = {}, {}, {}
+        for mode, swap in (("kernels", None), ("plain", (True, True)), ("core", (True, False)),
+                           ("trunk", (False, True))):
+            cuda_lib.reset_launch_counts()
+            seen[mode] = {}
+            with plain_on_card(*(swap or (False, False)), record=seen[mode]):
+                runs[mode] = step_grads(*args, "cuda")
+            launched[mode] = {k: v for k, v in cuda_lib.launch_counts.items() if v}
+        err = seen["kernels"]["feat"][0] - seen["plain"]["feat"][0]
+        perm = torch.randperm(err.shape[0], generator=torch.Generator().manual_seed(0)).to(err.device)
+        seen["shuffled"] = {}
+        with plain_on_card(record=seen["shuffled"], feat_error=err[perm]):
+            runs["shuffled"] = step_grads(*args, "cuda")
         cpu = step_grads(*args, "cpu")
-        print(f"d_hidden {width}: kernels launched {launched}; plain launched {plain_launched}", flush=True)
-        report("kernels vs cpu", kern, cpu)
-        report("plain vs cpu", plain, cpu)
-        report("kernels vs plain", kern, plain)
+        print(f"d_hidden {width}: launched {launched}", flush=True)
+        for a, b in (("kernels", "cpu"), ("plain", "cpu"), ("core", "cpu"), ("trunk", "cpu"), ("kernels", "plain"),
+                     ("kernels", "core"), ("kernels", "trunk"), ("shuffled", "plain")):
+            report(f"{a} vs {b}", runs[a], cpu if b == "cpu" else runs[b])
+        # D's feature on the same points (the step's first call, before any
+        # kernel has moved the points), and the trunk's ReLU masks.
+        fk, fp = seen["kernels"]["feat"][0], seen["plain"]["feat"][0]
+        zk, zp, zs = seen["kernels"]["z"][0], seen["plain"]["z"][0], seen["shuffled"]["z"][0]
+        flips, s_flips = int(((zk > 0) != (zp > 0)).sum()), int(((zs > 0) != (zp > 0)).sum())
+        weights, x, c = seen["plain"]["d_args"]
+        torch.backends.cuda.matmul.allow_tf32 = False
+        f32 = cs.sdf_core_fwd_hs_plain(weights, x, c, "float32", "float32")[1]
+        for name, f in (("kernel D", fk), ("plain D at bf16", fp)):
+            e, sc = f - f32, f32.abs().max().item()
+            print(f"  feature: {name} against plain D at f32: max {e.abs().max().item() / sc:.3e}, mean "
+                  f"{e.mean().item() / sc:+.3e} of its scale, relative norm {e.norm().item() / f32.norm().item():.3e}",
+                  flush=True)
+        print(f"  feature: kernel D against plain D on the step's {fk.shape[0]} points: max abs err "
+              f"{(fk - fp).abs().max().item():.3e}, {(fk - fp).abs().max().item() / fp.abs().max().item():.3e} of "
+              f"its scale; the trunk's z_i: {flips} of {zk.numel()} change sign between the kernels' step and the "
+              f"plain step, {s_flips} between the shuffled step and the plain step", flush=True)
         del state, step_fn, buffers
         torch.cuda.empty_cache()
     return 0

@@ -475,9 +475,10 @@ def test_sdf_core_wide_backward_matches_plain(cuda, name, n):
 @pytest.mark.gpu
 def test_sdf_core_wide_limits_raise_before_launch(cuda):
     """Beyond the wide instances (d_hidden 528): the SDF core's huge
-    instances of A and H against their plain versions; the march kernels'
-    wrappers, and the core's at f32 operands or an f32 stash, raise
-    NotImplementedError naming item 15 and launch nothing."""
+    instances of A and H, and the march kernels' (K, L, M, N, C at bf16
+    march weights), against their plain versions; the march kernels'
+    wrappers at f32 march weights, and the core's at f32 operands or an f32
+    stash, raise NotImplementedError naming item 15 and launch nothing."""
     cfg = SDFNetConfig(d_hidden=528)
     w, x, cots = _gpu_sdf_case(cuda, cfg, 40)
     assert core_mlp.core_class(cfg) is core_mlp.CORE_HUGE
@@ -496,11 +497,12 @@ def test_sdf_core_wide_limits_raise_before_launch(cuda):
     with pytest.raises(NotImplementedError, match="item 15"):
         core_stash.sdf_stash_fwd(w, x, cfg, stash_dtype="float32")
     o, d, z0 = _rays(cuda, 4)
-    for dt in ("bfloat16", "float32"):
-        mw = march.march_weights(sdf_init(torch.Generator().manual_seed(0), cfg, cuda), cfg, dt)
+    mw = march.march_weights(sdf_init(torch.Generator().manual_seed(0), cfg, cuda), cfg, "float32")
+    for call in (lambda: march.march_sweep(z0, o, d, mw, cfg), lambda: march.importance_march(z0, o, d, mw, cfg)):
         with pytest.raises(NotImplementedError, match="march kernels .* item 15"):
-            march.march_sweep(z0, o, d, mw, cfg)
+            call()
     assert dict(cuda_lib.launch_counts) == before
+    _march_class_matches_plain(cuda, cfg, "bfloat16", "bitonic", 5, "_huge")
 
 
 @pytest.mark.gpu
@@ -1077,12 +1079,19 @@ def test_march_kernels_wide_match_plain(cuda, exact_f32, dtype, merge, name, n):
     counted under the *_wide (*_f32_wide) names."""
     cfg = WIDE_MARCH_CFGS[name]
     assert core_mlp.core_class(cfg, with_feat=False) is core_mlp.ROWS_WIDE
+    _march_class_matches_plain(cuda, cfg, dtype, merge, n, ("_f32" if dtype == "float32" else "") + "_wide")
+
+
+def _march_class_matches_plain(cuda, cfg, dtype, merge, n, suffix):
+    """K, L, M, N and C of ``cfg``'s class (counted under the names with
+    ``suffix``) at march dtype ``dtype`` on n rays against their plain
+    versions, with the identities, as test_march_kernels_wide_match_plain
+    holds them."""
     p = sdf_init(torch.Generator().manual_seed(0), cfg, cuda)
     o, d, z0 = _rays(cuda, n)
     w = march.march_weights(p, cfg, dtype)
     sdist = torch.full((n, 1), 2.0 / 64, device=cuda)
     inv_s, anneal = torch.tensor(64.0, device=cuda), torch.tensor(0.7, device=cuda)
-    suffix = ("_f32" if dtype == "float32" else "") + "_wide"
     names = tuple(k + suffix for k in ("march_sweep", "march_rounds", "importance_march", "shadow_march",
                                        "shadow_final"))
     tol = F32_TOL if dtype == "float32" else {"sdf0": 1e-2, "tau": 1e-2}
@@ -1106,6 +1115,80 @@ def test_march_kernels_wide_match_plain(cuda, exact_f32, dtype, merge, name, n):
     assert torch.equal(tau, tau_c)
     _close(tau, march.shadow_march_plain(z0, o, d, sdist, inv_s, anneal, w, cfg, merge=merge), tol["tau"])
     _close(tau_c, march.shadow_final_plain(z_m, o, d, sdist, inv_s, anneal, w, cfg), tol["tau"])
+
+
+# The march kernels' huge instances (C, K, L, M and N above 512 / 128, bf16
+# march weights: 64 rows a pass in device memory): an SDF 528 wide by every
+# width, and one huge by its encoding alone (multi_res 24: d0 = 147, padded
+# 160), as tests/test_torch_wide_march.py's CPU case.
+HUGE_MARCH_CFGS = {"w528": HUGE_CFGS["w528"],
+                   "enc160": SDFNetConfig(n_layers=3, d_hidden=160, skip_in=(2,), multi_res=24, d_out_feat=32)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("merge", ["bitonic", "rank"])
+@pytest.mark.parametrize("name", sorted(HUGE_MARCH_CFGS))
+@pytest.mark.parametrize("n", [1, 5, 130])
+def test_march_kernels_huge_match_plain(cuda, merge, name, n):
+    """The huge instances of K, L, M, N and C (bf16 march weights) against
+    their plain versions at the bf16 tolerances, with the identities (L =
+    B's steps between K's sweeps, M = L(K(.)), N = C(M(.)), bit for bit);
+    one launch each, counted under the *_huge names."""
+    cfg = HUGE_MARCH_CFGS[name]
+    assert core_mlp.core_class(cfg, with_feat=False) is core_mlp.ROWS_HUGE
+    _march_class_matches_plain(cuda, cfg, "bfloat16", merge, n, "_huge")
+
+
+def _stratified(o, d, n0):
+    """_rays' z0 span at n0 samples."""
+    mid = -(o * d).sum(-1, keepdim=True)
+    return (mid - 1.0 + 2.0 * torch.linspace(0.0, 1.0, n0, device=o.device)[None, :]).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("merge", ["bitonic", "rank"])
+@pytest.mark.parametrize("cfg", [SMALL, SDFNetConfig()], ids=["small", "full"])
+@pytest.mark.parametrize("n", [1, 130])
+def test_march_kernels_huge_equal_narrow_at_narrow_widths(cuda, cfg, merge, n):
+    """The huge instances at the 64-point instances' widths (the pack's
+    class set to ROWS_HUGE, the entry points called with it) give those
+    instances' sdf0, z and tau bit for bit, at 64 + 4 x 16 and at the
+    run-time geometry 4 x 16 (rank) or 5 x 12 (bitonic): the same products
+    in the same k order and the same epilogue floats, the rows in device
+    memory."""
+    p = sdf_init(torch.Generator().manual_seed(0), cfg, cuda)
+    o, d, _ = _rays(cuda, n)
+    w = march.march_weights(p, cfg, "bfloat16")
+    pk = core_mlp.pack_sdf_mlp(w, cfg, with_feat=False)
+    packs = (("", pk), ("_huge", dict(pk, cls=core_mlp.ROWS_HUGE)))
+    sdist = torch.full((n, 1), 2.0 / 64, device=cuda)
+    inv_s, anneal = torch.tensor(64.0, device=cuda), torch.tensor(0.7, device=cuda)
+    rank = int(merge == "rank")
+    before = dict(cuda_lib.launch_counts)
+    geometries = (None, (4, 16) if rank else (5, 12))
+    for geometry in geometries:
+        rounds, n_new = geometry or (4, 16)
+        n0 = 128 - rounds * n_new
+        z0 = _stratified(o, d, n0)
+        rays = march._ray_inputs(z0, o, d, n0)
+        shadow = rays + [(sdist, (n, 1), "sdist"), (inv_s.reshape(1), (1,), "inv_s"),
+                         (anneal.reshape(1), (1,), "cos_anneal")]
+        outs = {}
+        for sfx, k in packs:
+            g = None if geometry is None else (n0,)
+            sdf0 = march._launch_pack("march_sweep" + sfx, k, cfg, rays, n0, geometry=g)
+            rounds_in = [rays[0], (sdf0, (n, n0), "sdf0"), *rays[1:]]
+            z_l = march._launch_pack("march_rounds" + sfx, k, cfg, rounds_in, 128, (64.0, rank), geometry)
+            z_m = march._launch_pack("importance_march" + sfx, k, cfg, rays, 128, (64.0, rank), geometry)
+            tau = march._launch_pack("shadow_march" + sfx, k, cfg, shadow, 1, (64.0, rank), geometry)
+            tau_c = march._launch_final("shadow_final" + sfx, k, cfg, z_m, o, d, sdist, inv_s, anneal)
+            outs[sfx] = (sdf0, z_l, z_m, tau, tau_c)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs[""], outs["_huge"])), geometry
+    got = {k: cuda_lib.launch_counts[k] - before[k] for k in before if cuda_lib.launch_counts[k] != before[k]}
+    fused = ("march_sweep", "march_rounds", "importance_march", "shadow_march")
+    assert {k: v for k, v in got.items() if "_huge" in k} == {
+        "shadow_final_huge": 2, **{f"{k}_huge": 1 for k in fused}, **{f"{k}_huge_geom": 1 for k in fused}}
 
 
 def _tree_to(tree, dev):

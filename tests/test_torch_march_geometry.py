@@ -166,15 +166,18 @@ def test_card_wrappers_check_the_range_before_any_launch(geo):
 def test_run_time_geometry_instances_are_counted():
     """Every K-N instance and kernel B have a run-time geometry instance
     (``*_geom``), a C entry point of csrc/march_geom.cu (f32 weights:
-    march_geom_f32.cu; B: march.cu) with a launch counter of the same name;
-    64 + 4 x 16 keeps the compile-time ones."""
+    march_geom_f32.cu; the huge class: march_fused_huge.cu, beside its
+    64 + 4 x 16 instances; B: march.cu) with a launch counter of the same
+    name; 64 + 4 x 16 keeps the compile-time ones."""
     assert tm.FIXED_GEOMETRY == (4, 16)
-    for lib, suffixes in (("march_geom", ("", "_wide")), ("march_geom_f32", ("_f32", "_f32_wide"))):
+    for lib, suffixes in (("march_geom", ("", "_wide")), ("march_geom_f32", ("_f32", "_f32_wide")),
+                          ("march_fused_huge", ("_huge",))):
         assert lib in cuda_lib.SOURCES
         assert all(("_f32" in k) == (lib == "march_geom_f32") for k in cuda_lib._SIGNATURES[lib])
         src = (cuda_lib.CSRC / f"{lib}.cu").read_text()
         assert [s for s in suffixes if f"NRH_GEOM_ENTRIES({s}," in src] == list(suffixes)
-    geom = {**cuda_lib._SIGNATURES["march_geom"], **cuda_lib._SIGNATURES["march_geom_f32"]}
+    huge_geom = {k: v for k, v in cuda_lib._SIGNATURES["march_fused_huge"].items() if k.endswith("_geom")}
+    geom = {**cuda_lib._SIGNATURES["march_geom"], **cuda_lib._SIGNATURES["march_geom_f32"], **huge_geom}
     assert sorted(geom) == sorted(k for k in cuda_lib.MARCH_GEOM_INSTANCES if k != "round_machinery_geom")
     assert "round_machinery_geom" in cuda_lib._SIGNATURES["march"]
     for k in cuda_lib.MARCH_GEOM_INSTANCES:

@@ -5,8 +5,12 @@ kernels C, K, L, M and N, whose CUDA wide instances take padded widths up
 to 512 and encodings up to 128), at a 3-layer SDF 288 wide with
 ``multi_res=11`` (a 69-wide encoding, padded 80), at ``mlp_dtype``
 "float32" and "bfloat16"; and ``render_rays`` of a tiny model with that SDF
-through the default routes.  (The CUDA wide instances against their plain
-versions run on the card: tests/test_torch_gpu.py.)
+through the default routes.  Then the same calls, the bf16 monolith
+(kernel M) and kernel N, above 512 / 128 (the CUDA huge instances' class,
+bf16 march weights only) at the smallest SDF that reaches that class: 3
+layers 160 wide with ``multi_res=24`` (a 147-wide encoding, padded 160).
+(The CUDA wide and huge instances against their plain versions run on the
+card: tests/test_torch_gpu.py.)
 
 Each JAX call runs once per module (a module-scoped fixture).  Tolerances
 are tests/test_torch_kernels.py's at the presets' widths: the refined z by
@@ -44,6 +48,7 @@ ROUTES = {
 }
 ROUTE_CASES = [("monolith", "float32"), ("monolith", "bfloat16"), ("split", "float32"), ("shipping", "bfloat16")]
 SDIST = np.full((N_RAYS, 1), 2.0 / 64, np.float32)
+HUGE_KW = dict(n_layers=3, d_hidden=160, skip_in=(2,), multi_res=24, d_out_feat=32)
 
 
 def wide_rays(n: int = N_RAYS):
@@ -77,10 +82,22 @@ def wide():
 @pytest.fixture(scope="module")
 def jax_marches(wide):
     """(route or "shadow", mlp_dtype) -> JAX's refined z or tau as numpy,
-    each call one ``jax.jit`` (compiled once, not run op by op)."""
+    each call one ``jax.jit`` (compiled once, not run op by op); and at
+    HUGE_KW ("huge", "params") -> (JAX config, JAX params) and ("huge
+    monolith" or "huge shadow", "bfloat16") -> the bf16 monolith's z and
+    kernel N's tau."""
     jc, jp, _, _, (o, d, z0) = wide
-    args = [jax.tree_util.tree_map(jnp.asarray, jp)] + [jnp.asarray(a) for a in (o, d, z0)]
-    out = {}
+    rays = [jnp.asarray(a) for a in (o, d, z0)]
+    hc = JSDFNetConfig(**HUGE_KW)
+    hp = jax.device_get(jax.jit(sdf_init, static_argnums=1)(jax.random.PRNGKey(4), hc))
+    hargs = [jax.tree_util.tree_map(jnp.asarray, hp)] + rays
+    out = {("huge", "params"): (hc, hp)}
+    out["huge monolith", "bfloat16"] = np.asarray(jax.jit(lambda p, o_, d_, z_: jm.fused_importance_z(
+        p, hc, o_, d_, z_, interpret=True, mlp_dtype="bfloat16"))(*hargs))
+    out["huge shadow", "bfloat16"] = np.asarray(jax.jit(lambda p, o_, d_, z_, s_: jm.fused_shadow_tau(
+        p, hc, o_, d_, z_, s_, jnp.asarray(64.0), jnp.asarray(0.7), split=False, final_impl="pallas",
+        interpret=True, mlp_dtype="bfloat16"))(*hargs, jnp.asarray(SDIST)))
+    args = [jax.tree_util.tree_map(jnp.asarray, jp)] + rays
     for route, dt in ROUTE_CASES:
         run = jax.jit(lambda p, o_, d_, z_, dt=dt, kw=ROUTES[route]: jm.fused_importance_z(
             p, jc, o_, d_, z_, interpret=True, mlp_dtype=dt, **kw))
@@ -155,3 +172,44 @@ def test_wide_render_rays_matches_jax():
     for k, t in tol.items():
         np.testing.assert_allclose(getattr(to, k).numpy(), np.asarray(getattr(jo, k)), atol=t, err_msg=k)
     assert float(np.asarray(jo.visibilities).min()) < 0.9  # the shadow hint is exercised
+
+
+def _huge(jax_marches):
+    """(the port's HUGE_KW config, its params from JAX's)."""
+    _, hp = jax_marches["huge", "params"]
+    return SDFNetConfig(**HUGE_KW), params_from_jax(hp, device="cpu")
+
+
+def test_huge_config_takes_the_huge_row_engine(jax_marches):
+    """HUGE_KW is above 512 / 128 by its encoding alone: the march kernels'
+    pack is the row engine's huge class at bf16 march weights (counted as
+    *_huge), and f32 march weights raise naming item 15."""
+    tc, tp = _huge(jax_marches)
+    w = tm.march_weights(tp, tc, "bfloat16")
+    pk = tcm.pack_sdf_mlp(w, tc, with_feat=False)
+    assert pk["cls"] is tcm.ROWS_HUGE and int(pk["meta"][2]) == 147 and tcm.huge_tiles(pk["meta"]) == (160, 160)
+    assert tm._kernel_pack("shadow_final", w, tc)[0] == "shadow_final_huge"
+    with pytest.raises(NotImplementedError, match="march kernels .* item 15"):
+        tm._kernel_pack("march_sweep", tm.march_weights(tp, tc, "float32"), tc)
+
+
+def test_huge_importance_z_matches_jax(wide, jax_marches):
+    """fused_importance_z as one kernel M at bf16 (the port's plain version,
+    which the huge instance holds to on the card) against JAX's monolith in
+    interpret mode, by the refined-z metric."""
+    o, d, z0 = wide[4]
+    tc, tp = _huge(jax_marches)
+    out = tm.fused_importance_z(tp, tc, *(torch.tensor(a) for a in (o, d, z0)), mlp_dtype="bfloat16")
+    _assert_z_close(out.numpy(), jax_marches["huge monolith", "bfloat16"])
+
+
+def test_huge_shadow_tau_matches_jax(wide, jax_marches):
+    """fused_shadow_tau as one kernel N at bf16 above 512 / 128: tau within
+    1e-3 of JAX's."""
+    o, d, z0 = wide[4]
+    tc, tp = _huge(jax_marches)
+    out = tm.fused_shadow_tau(tp, tc, *(torch.tensor(a) for a in (o, d, z0, SDIST)), torch.tensor(64.0),
+                              torch.tensor(0.7), split=False, final_impl="pallas", mlp_dtype="bfloat16")
+    ref = jax_marches["huge shadow", "bfloat16"]
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-3)
+    assert ref.min() < 0.9  # some shadow rays cross the surface

@@ -302,11 +302,15 @@ def test_wide_constants_match_the_headers():
 def test_core_limits_raise(kw, what):
     """Beyond the wide instances' limits (``what``: 528 wide, a 520-wide
     feature head, a 144-wide padded encoding) the SDF core takes the huge
-    class and the pack packs every block at its padded widths; a skip at layer 0,
-    which JAX's fused core does not run either, raises naming that record,
-    not item 15.  Depth is no limit (what=None): 17 layers take the 64-point
-    class, and the pack carries its meta vector's device copy (on the CPU,
-    a CPU copy) for the kernels to read."""
+    class and the pack packs every block at its padded widths; so do the
+    march kernels (the row engine's ROWS_HUGE, bf16 march weights) where
+    their widths are beyond them (528 wide, the 144-wide encoding; the
+    feature head is not theirs), while f32 march weights there raise
+    naming the march kernels and item 15, from core_class and the f32 pack;
+    a skip at layer 0, which JAX's fused core does not run either, raises
+    naming that record, not item 15.  Depth is no limit (what=None): 17
+    layers take the 64-point class, and the pack carries its meta vector's
+    device copy (on the CPU, a CPU copy) for the kernels to read."""
     from nrhints_torch.fields.sdf import sdf_init as t_sdf_init
 
     cfg = SDFNetConfig(**kw)
@@ -327,6 +331,17 @@ def test_core_limits_raise(kw, what):
             blk = pk["wpack"][wo : wo + kp * np_].view(kp, np_)
             assert torch.equal(blk[:din, :dout], wt.to(torch.bfloat16))
             assert not blk[din:].any() and not blk[:, dout:].any()
+        mw = w[: 2 * L + 2]
+        if "d_out_feat" in kw:
+            assert tcm.core_class(cfg, with_feat=False, compute_dtype="float32") is tcm.NARROW
+            return
+        assert tcm.core_class(cfg, with_feat=False) is tcm.ROWS_HUGE
+        rows = tcm.pack_sdf_mlp(mw, cfg, with_feat=False)
+        assert rows["cls"] is tcm.ROWS_HUGE and torch.equal(rows["wpack"], pk["wpack"][: pk["meta"][7]])
+        with pytest.raises(NotImplementedError, match="march kernels .*bf16 march weights only.* item 15"):
+            tcm.core_class(cfg, with_feat=False, compute_dtype="float32")
+        with pytest.raises(NotImplementedError, match="march kernels .* item 15"):
+            tcm.pack_sdf_mlp(mw, cfg, with_feat=False, dtype=torch.float32)
         return
     with pytest.raises(NotImplementedError, match=what) as e:
         tcm.core_class(cfg)
@@ -345,7 +360,8 @@ def test_wide_dtype_and_row_engine_limits_raise():
     the march kernels' row engine takes the same widths at bf16 and f32
     march weights: its pack (with_feat=False) at 512 wide is ROWS_WIDE at
     either dtype, its blocks laid out as the core's, and above 512 / 128 it
-    raises, naming item 15."""
+    is ROWS_HUGE at bf16 march weights and raises at f32 ones, naming the
+    march kernels and item 15."""
     from nrhints_torch.fields.sdf import sdf_init as t_sdf_init
 
     cfg = SDFNetConfig(d_hidden=512)
@@ -366,9 +382,11 @@ def test_wide_dtype_and_row_engine_limits_raise():
         # The core's pack holds the same hidden blocks, then the feature head at wf_off.
         assert torch.equal(rows["wpack"].to(torch.bfloat16), pk["wpack"][: pk["meta"][7]])
         assert list(rows["meta"][10:]) == list(pk["meta"][10:]) and int(rows["meta"][3]) == 0
-    for kw, what in ((dict(d_hidden=528), "padded widths up to 512"), (dict(multi_res=21), "encodings up to 128")):
+    for kw, what in ((dict(d_hidden=528), "padded width 528 and encoding 48"),
+                     (dict(multi_res=21), "padded width 256 and encoding 144")):
+        assert tcm.core_class(SDFNetConfig(**kw), with_feat=False) is tcm.ROWS_HUGE
         with pytest.raises(NotImplementedError, match=what) as e:
-            tcm.core_class(SDFNetConfig(**kw), with_feat=False)
+            tcm.core_class(SDFNetConfig(**kw), with_feat=False, compute_dtype="float32")
         assert "march kernels" in str(e.value) and "ROADMAP.md Queue 2 item 15" in str(e.value)
     assert tcm.core_class(SDFNetConfig(), with_feat=False) is tcm.NARROW
 
@@ -385,10 +403,11 @@ def test_renderer_checks_widths_before_launch(renderer_kw, fused):
     """``render/renderer.py::check_kernel_widths`` (called by render_rays
     for CUDA rays before any launch): a 512-wide SDF passes on every route,
     the march kernels' wide instances among them; a 528-wide SDF (the SDF
-    core's huge class) passes where every march is "xla"
-    (shadow_final_impl="xla" beside the default "xla" sweeps and rounds)
-    and raises on every other fused route, naming the march kernels and
-    item 15; a trunk in the CUDA trunk kernels' wide class (272 hidden)
+    core's and the march kernels' huge classes) passes on every route at
+    the default bf16 march weights, and at march_dtype="float32" passes
+    where every march is "xla" (shadow_final_impl="xla" beside the default
+    "xla" sweeps and rounds) and raises on every fused march route, naming
+    the march kernels and item 15; a trunk in the CUDA trunk kernels' wide class (272 hidden)
     passes on every trunk route; a trunk wider than that class (528 hidden)
     raises where the fused trunk runs (training at
     reflectance_impl="pallas", eval at eval_reflectance_impl="pallas"),
@@ -406,14 +425,17 @@ def test_renderer_checks_widths_before_launch(renderer_kw, fused):
     for is_training in (True, False):
         tr.check_kernel_widths(wide, is_training)
     too_wide = dataclasses.replace(wide, sdf_network=dataclasses.replace(base.sdf_network, d_hidden=528))
+    for is_training in (True, False):
+        tr.check_kernel_widths(too_wide, is_training)
     r = too_wide.renderer
     xla_marches = r.march_sweep_impl == r.march_rounds_impl == r.shadow_final_impl == "xla" and not r.importance_split
+    f32 = dataclasses.replace(too_wide, renderer=dataclasses.replace(r, march_dtype="float32"))
     if not fused or xla_marches:
         for is_training in (True, False):
-            tr.check_kernel_widths(too_wide, is_training)
+            tr.check_kernel_widths(f32, is_training)
     else:
         with pytest.raises(NotImplementedError, match="march kernels .* item 15"):
-            tr.check_kernel_widths(too_wide)
+            tr.check_kernel_widths(f32)
     for d_hidden, takes in ((272, True), (528, False)):
         trunk = dataclasses.replace(wide, reflectance_network=dataclasses.replace(base.reflectance_network,
                                                                               d_hidden=d_hidden))
@@ -436,7 +458,8 @@ def test_huge_class_instances_and_layouts():
     head and the padded encoding, its rows in device memory (``row_layout``)
     1.5 widths and an encoding of f32 a padded point (0 for the other
     classes), and the chain's encoding cotangents take the padded encoding;
-    the march kernels still stop at 512 / 128."""
+    the march kernels take the same SDFs in their own huge class
+    (ROWS_HUGE, counted as *_huge)."""
     from nrhints_torch.fields.sdf import sdf_init as t_sdf_init
 
     for kw, tiles in ((dict(d_hidden=1024), (1024, 48)), (dict(d_hidden=528), (528, 48)),
@@ -456,8 +479,9 @@ def test_huge_class_instances_and_layouts():
             name, bits = tcm.core_instance(kernel, pk, "bfloat16", "bfloat16")
             assert (name, bits) == (kernel + "_huge", 8) and name in cuda_lib.launch_counts
         if "d_out_feat" not in kw:
-            with pytest.raises(NotImplementedError, match="march kernels .* item 15"):
-                tcm.core_class(cfg, with_feat=False)
+            assert tcm.core_class(cfg, with_feat=False) is tcm.ROWS_HUGE
+            for k in ("shadow_final", *cuda_lib.MARCH_FUSED):
+                assert k + tcm.ROWS_HUGE.suffix in cuda_lib.launch_counts
     big = SDFNetConfig(d_hidden=1024)
     w = tcm.materialize_sdf_weights_full(t_sdf_init(torch.Generator().manual_seed(0), big, "cpu"), big)
     pk = tcm.pack_sdf_mlp(w, big, with_feat=True)
@@ -524,3 +548,37 @@ def test_huge_constants_match_the_headers():
     assert "return w / 2 + w + huge_enc(m);" in rows and "const int w = huge_width(m);" in rows
     assert "return (m.d0 + 15) / 16 * 16;" in rows
     assert "return m.gates_total + 4 * (Cls::kHuge ? huge_enc(m) : Cls::kEnc);" in bwd
+    # The march kernels' huge class: 64-row passes on the same rings and the
+    # same rows, 4 rays a block, the block's rows at blockIdx.x 64 rows.
+    assert "static constexpr int kRows = kChainTP;" in rows and tcm.ROWS_HUGE.pts == 64
+    assert "static_assert(sizeof(RowsHugeTile::ring) == huge_smem(0)" in rows
+    assert "core_tiles<CoreHuge, bf16>(reinterpret_cast<unsigned char*>(S.ring), S.rows, m)" in rows
+    assert rows.count("gemm_rows_huge<false>(") == 1 and "wmma::" not in rows
+    common = (cuda_lib.CSRC / "march_common.cuh").read_text()
+    assert "constexpr int kMarchRays = kRowsThreads / NBUF;" in common and tcm.MARCH_RAYS == 512 // 128
+    assert "rows + (size_t)blockIdx.x * RowsHuge::kRows * huge_row(m);" in common
+    assert "parse_meta(meta, meta_dev, &m, kIsWide, kIsHuge)" in common
+
+
+def test_march_huge_rows_layout():
+    """``core_mlp.march_layout``: the march kernels' huge class keeps 64
+    rows a 4-ray block in device memory, each the bf16 activations and the
+    f32 product output at the widest padded layer and the f32 padded
+    encoding.  At d_hidden 1024 and multi_res 6 (encoding 39, padded 48)
+    that is 1024 / 2 + 1024 + 48 = 1,584 floats a row by hand, 405,504
+    bytes a block, 51.9 MB at 512 rays (128 blocks); the other classes keep
+    none."""
+    from nrhints_torch.fields.sdf import sdf_init as t_sdf_init
+
+    cfg = SDFNetConfig(d_hidden=1024)
+    w = tcm.materialize_sdf_weights_full(t_sdf_init(torch.Generator().manual_seed(0), cfg, "cpu"), cfg)
+    pk = tcm.pack_sdf_mlp(w[: 2 * cfg.n_layers + 2], cfg, with_feat=False)
+    assert pk["cls"] is tcm.ROWS_HUGE and tcm.huge_tiles(pk["meta"]) == (1024, 48)
+    row = 512 + 1024 + 48
+    assert row == 1584 and 64 * row * 4 == 405_504
+    for b, nblk in ((1, 1), (4, 1), (5, 2), (512, 128), (2048, 512)):
+        assert tcm.march_layout(b, pk) == (nblk, nblk * 64 * row)
+    assert tcm.march_layout(512, pk)[1] * 4 == 51_904_512
+    assert tcm.march_layout(2048, pk)[1] * 4 == 207_618_048
+    for cls in (tcm.NARROW, tcm.ROWS_WIDE):
+        assert tcm.march_layout(512, dict(pk, cls=cls)) == (128, 0)
